@@ -1,0 +1,256 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``dlbb_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (each raises on failure, and the script then exits non-zero):
+
+1. build every CUDA kernel of the port from ``dlbb_tpu_torch/ops/csrc``;
+2. hold each kernel against its plain PyTorch version on the card, on the
+   main path's shape and on the edge cases (GQA, non-causal, ragged S,
+   KV-cache decode, fully masked rows);
+3. drive the main path through its entry point: ``run_e2e`` on the 1B
+   decoder at full width (24 layers, H=2048, 16 heads, FFN 8192), bf16,
+   B=8, S=512, ``attention="full"``; check that every layer went through
+   the flash kernel, that the output is finite, and that it agrees with
+   the same forward through ``dense_attention``;
+4. time each kernel alone beside its plain version, one PyTorch library
+   call of the same function (a yardstick only: the port never calls it)
+   and the least time the card could take.
+
+It then prints the card's name and power limit, one JSON line
+``{"kernels": [...]}``, and as its last line
+``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
+and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+
+# published H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W limit)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+
+# kernel vs plain version, both from the same bf16 inputs with fp32
+# statistics: o is bf16 (8 mantissa bits, and the kernel rounds P to bf16
+# at its running max where the plain version uses the row max), so about
+# 2 bf16 ulps; lse is fp32 and differs only by __expf and summation order
+O_ATOL, O_RTOL = 2e-2, 2e-2
+LSE_ATOL = 1e-3
+# 1B forward, kernel path vs dense path, relative L2 over the whole output:
+# both are bf16 forwards (2**-8 relative per rounding) that round attention
+# differently (the kernel rounds P and o to bf16, dense keeps fp32 until o)
+# and 24 residual layers carry those differences to the output
+E2E_REL_L2 = 3e-2
+
+MAIN_SHAPE = dict(b=8, n=16, kvh=16, s=512, sk=512, d=128, causal=True)
+LONG_SHAPE = dict(b=1, n=16, kvh=16, s=8192, sk=8192, d=128, causal=True)
+CASES = {
+    "main_b8_n16_s512": MAIN_SHAPE,
+    "gqa_kvh4": dict(b=2, n=16, kvh=4, s=512, sk=512, d=128, causal=True),
+    "noncausal": dict(b=2, n=8, kvh=8, s=384, sk=384, d=128, causal=False),
+    "ragged_s96": dict(b=2, n=4, kvh=4, s=96, sk=96, d=128, causal=True),
+    "ragged_s96_d64": dict(b=2, n=4, kvh=2, s=96, sk=96, d=64, causal=True),
+    "decode_s1_sk2048": dict(b=4, n=16, kvh=4, s=1, sk=2048, d=128, causal=True),
+    "masked_rows_s200_sk72": dict(b=2, n=4, kvh=4, s=200, sk=72, d=128, causal=True),
+}
+
+
+def _inputs(torch, shape, seed):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def randn(*dims):
+        return torch.randn(dims, generator=g, device="cuda", dtype=torch.bfloat16)
+
+    q = randn(shape["b"], shape["n"], shape["s"], shape["d"])
+    k = randn(shape["b"], shape["kvh"], shape["sk"], shape["d"])
+    v = randn(shape["b"], shape["kvh"], shape["sk"], shape["d"])
+    return q, k, v
+
+
+def _time_ms(torch, fn, reps, warmup=3):
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _bound(shape):
+    """Least time for the flash forward at ``shape``: each of q, k, v read
+    once, o and lse written once, over the memory rate; the QK^T and PV
+    flops of the visible (row, key) pairs over the bf16 tensor rate."""
+    b, n, kvh, s, sk, d = (shape[x] for x in ("b", "n", "kvh", "s", "sk", "d"))
+    nbytes = 2 * (2 * b * n * s * d + 2 * b * kvh * sk * d) + 4 * b * n * s
+    if shape["causal"]:
+        pairs = sum(min(sk, max(0, r + sk - s + 1)) for r in range(s))
+    else:
+        pairs = s * sk
+    flops = 4 * d * pairs * b * n
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_build(build):
+    t0 = time.perf_counter()
+    build.build_all()
+    print(f"[build] {len(build.sources())} CUDA source(s) built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds:.1f} s)")
+    for src in build.sources():
+        for line in build.ptxas_report(src.stem).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {src.stem}: {line.strip()}")
+
+
+def phase_kernel_vs_plain(torch, fa):
+    worst_o = worst_lse = 0.0
+    for i, (name, shape) in enumerate(CASES.items()):
+        q, k, v = _inputs(torch, shape, seed=100 + i)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=shape["causal"])
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal=shape["causal"])
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_lse = (lse - lse_ref).abs().max().item()
+        print(f"[kernel] flash_fwd {name}: max|o - plain| {err_o:.3e} "
+              f"(atol {O_ATOL} rtol {O_RTOL}), max|lse - plain| {err_lse:.3e} "
+              f"(atol {LSE_ATOL})")
+        torch.testing.assert_close(o.float(), o_ref.float(), atol=O_ATOL, rtol=O_RTOL)
+        torch.testing.assert_close(lse, lse_ref, atol=LSE_ATOL, rtol=0.0)
+        masked = max(0, shape["s"] - shape["sk"]) if shape["causal"] else 0
+        if masked:
+            if not bool((o[:, :, :masked] == 0).all()):
+                raise AssertionError(f"{name}: fully masked rows are not exactly 0")
+            if not bool((lse[:, :, :masked] <= fa.NEG_INF / 2).all()):
+                raise AssertionError(f"{name}: fully masked rows' lse is not NEG_INF")
+            print(f"[kernel] flash_fwd {name}: {masked} fully masked rows exactly 0")
+        worst_o, worst_lse = max(worst_o, err_o), max(worst_lse, err_lse)
+    return worst_o, worst_lse
+
+
+def phase_main_path(torch, fa, gpu_line):
+    from dlbb_tpu_torch.bench.e2e import run_e2e
+    from dlbb_tpu_torch.data import create_dataset_from_config
+    from dlbb_tpu_torch.models import ModelConfig, forward, init_params
+
+    warmup, iters = 3, 10
+    config = {
+        "experiment": {"name": "chip_smoke_1b_full_s512"},
+        "model": {"size": "1B", "attention": "full", "dtype": "bfloat16"},
+        "parallelism": {"world_size": 1, "data_parallel": 1},
+        "input": {"batch_size": 8, "sequence_length": 512, "seed": 42},
+        "execution": {"warmup_iterations": warmup, "benchmark_iterations": iters},
+    }
+    model_cfg = ModelConfig.from_dict(config["model"])
+    fa.flash_fwd_launches = 0
+    result = run_e2e(config, device="cuda", verbose=True)
+    launches = fa.flash_fwd_launches
+    expected = model_cfg.num_layers * (warmup + iters)
+    print(f"[e2e] flash_fwd launches over the run: {launches} "
+          f"(expected {model_cfg.num_layers} layers x {warmup + iters} forwards "
+          f"= {expected}); in the timed forwards: {result['flash_launches']}")
+    if launches != expected or result["flash_launches"] != model_cfg.num_layers * iters:
+        raise AssertionError("the main path did not run the flash kernel once per layer")
+    ft = result["forward_time"]
+    print(f"[e2e] 1B forward, bf16, B=8, S=512, attention=full on {gpu_line}: "
+          f"mean {ft['mean'] * 1e3:.3f} ms, median {ft['median'] * 1e3:.3f} ms, "
+          f"{result['tokens_per_second']:.0f} tokens/s, "
+          f"{result['achieved_tflops_per_second']:.1f} TFLOP/s (model flops)")
+
+    # the same parameters and batch through the kernel path and the dense path
+    params = init_params(model_cfg, 42, "cuda")
+    batch = create_dataset_from_config(
+        config, dtype=torch.bfloat16, device="cuda",
+        hidden_size=model_cfg.hidden_size).get_batch()
+    with torch.inference_mode():
+        y_full = forward(params, batch, model_cfg)
+        y_dense = forward(params, batch, model_cfg.with_(attention="dense"))
+    torch.cuda.synchronize()
+    if y_full.shape != batch.shape or not bool(torch.isfinite(y_full).all()):
+        raise AssertionError(f"1B forward output: shape {tuple(y_full.shape)}, "
+                             "expected finite values of the input's shape")
+    diff = (y_full.float() - y_dense.float())
+    rel = (diff.norm() / y_dense.float().norm()).item()
+    print(f"[e2e] kernel path vs dense path on the same weights: relative L2 "
+          f"{rel:.3e} (tolerance {E2E_REL_L2}), max abs {diff.abs().max().item():.3e}, "
+          f"output |y| max {y_dense.float().abs().max().item():.2f}")
+    if not rel <= E2E_REL_L2:
+        raise AssertionError("the kernel path disagrees with the dense path")
+    return launches, result
+
+
+def phase_timing(torch, fa, shape, reps):
+    import torch.nn.functional as F
+
+    q, k, v = _inputs(torch, shape, seed=7)
+    causal = shape["causal"]
+    ms = _time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=causal), reps)
+    plain_ms = _time_ms(torch, lambda: fa.flash_fwd_reference(q, k, v, causal=causal),
+                        max(1, reps // 4), warmup=1)
+    library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal), reps)
+    bound_ms, bound_by = _bound(shape)
+    label = "B={b} N={n} S={s} D={d}".format(**shape)
+    print(f"[time] flash_fwd {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return {"shape": label, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    from dlbb_tpu_torch.ops import _build
+    from dlbb_tpu_torch.ops import flash_attention as fa
+    from dlbb_tpu_torch.utils.sysinfo import gpu_name_and_power_limit
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu_line = gpu_name_and_power_limit() or "nvidia-smi unavailable"
+    print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+
+    phase_build(_build)
+    err_o, err_lse = phase_kernel_vs_plain(torch, fa)
+    launches, _ = phase_main_path(torch, fa, gpu_line)
+    main_t = phase_timing(torch, fa, MAIN_SHAPE, reps=50)
+    long_t = phase_timing(torch, fa, LONG_SHAPE, reps=10)
+
+    kernels = [{
+        "name": "flash_fwd",
+        "route": "cuda",
+        "source": "dlbb_tpu_torch/ops/csrc/flash_fwd.cu",
+        "replaces": "dlbb_tpu/ops/flash_attention.py:99",
+        "launches": launches,
+        "max_abs_err": err_o,
+        "lse_max_abs_err": err_lse,
+        "ms": main_t["ms"],
+        "plain_ms": main_t["plain_ms"],
+        "bound_ms": main_t["bound_ms"],
+        "bound_by": main_t["bound_by"],
+        "library_ms": main_t["library_ms"],
+        "shape": main_t["shape"],
+        "long": long_t,
+    }]
+    print(gpu_line)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,20 @@
+"""The dense decoder (counterpart of ``dlbb_tpu/models``), single device."""
+
+from dlbb_tpu_torch.models.configs import MODEL_CONFIGS, ModelConfig
+from dlbb_tpu_torch.models.transformer import (
+    forward,
+    forward_flops,
+    init_params,
+    num_parameters,
+)
+from dlbb_tpu_torch.models.weights import params_from_jax
+
+__all__ = [
+    "MODEL_CONFIGS",
+    "ModelConfig",
+    "forward",
+    "forward_flops",
+    "init_params",
+    "num_parameters",
+    "params_from_jax",
+]

@@ -1,0 +1,182 @@
+"""Dense decoder forward (counterpart of ``dlbb_tpu/models/transformer.py``).
+
+Pre-LN block: ln1 -> fused QKV -> attention -> out-proj -> residual;
+ln2 -> FFN up -> gelu -> FFN down -> residual; final LN.  Parameters keep the
+JAX package's stacked ``[L, ...]`` layout and its ``[in, out]`` kernels
+(``y @ kernel + bias``), as a nested dict of tensors, so JAX weights carry
+across without a transpose (``models/weights.py``).  A plain Python loop over
+the layers takes the place of ``lax.scan``.  The large projection and FFN
+products are ``torch.matmul``, as the JAX package leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from dlbb_tpu_torch.models.attention import dense_attention
+from dlbb_tpu_torch.models.configs import ModelConfig
+from dlbb_tpu_torch.ops.flash_attention import flash_attention, kernel_accepts
+
+Params = dict[str, Any]
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
+
+
+def _check_ported(config: ModelConfig) -> None:
+    _check_dense_ffn(config)
+    if config.attention in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attention={config.attention!r} (sequence parallel) is not "
+            "ported to dlbb_tpu_torch yet")
+    if config.remat:
+        raise NotImplementedError("remat (a training option) is not ported yet")
+    if config.tp_overlap != "off":
+        raise NotImplementedError("tp_overlap needs a tp mesh, not ported yet")
+
+
+def init_params(config: ModelConfig, seed: int, device) -> Params:
+    """Stacked-layer parameters, drawn on ``device`` from a
+    ``torch.Generator`` seeded with ``seed``: scaled-normal kernels
+    (1/sqrt(fan_in)), zero biases, unit LN scales — the JAX init's
+    distribution, not its numbers (the parity tests carry JAX weights across
+    with ``params_from_jax`` instead)."""
+    _check_ported(config)
+    h, f, L = config.hidden_size, config.ffn_intermediate, config.num_layers
+    dtype = DTYPES[config.dtype]
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def kernel(shape, fan_in):
+        w = torch.randn(shape, generator=gen, device=device, dtype=dtype)
+        return w.div_(math.sqrt(fan_in))
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=device, dtype=dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, device=device, dtype=dtype)
+
+    qkvw = config.qkv_width
+    layers = {
+        "ln1": {"scale": ones(L, h), "bias": zeros(L, h)},
+        "qkv": {"kernel": kernel((L, h, qkvw), h), "bias": zeros(L, qkvw)},
+        "out": {"kernel": kernel((L, h, h), h), "bias": zeros(L, h)},
+        "ln2": {"scale": ones(L, h), "bias": zeros(L, h)},
+        "ffn_up": {"kernel": kernel((L, h, f), h), "bias": zeros(L, f)},
+        "ffn_down": {"kernel": kernel((L, f, h), f), "bias": zeros(L, h)},
+    }
+    return {"layers": layers,
+            "ln_f": {"scale": ones(h), "bias": zeros(h)}}
+
+
+def _layernorm(x, scale, bias):
+    # statistics in fp32, population variance, eps 1e-5, scale and bias
+    # applied in fp32, result cast back (transformer.py:103-108 there)
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + 1e-5)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+# "full" takes the kernel from this sequence length up, on lane-aligned S,
+# the JAX package's rule.  Its threshold was set on another device; the
+# H100's own crossover is not measured yet.
+FLASH_ROUTE_MIN_SEQ = 512
+
+
+def flash_route(q_shape, dtype: torch.dtype, device_type: str) -> bool:
+    """Whether ``attention="full"`` runs the flash kernel for ``q`` of this
+    shape, dtype and device type.  JAX routes to its kernel only on a TPU,
+    so on the CPU "full" is dense in both packages."""
+    return (device_type == "cuda"
+            and kernel_accepts(q_shape, dtype)
+            and q_shape[2] >= FLASH_ROUTE_MIN_SEQ
+            and q_shape[2] % 128 == 0)
+
+
+def _attention(qkv, config: ModelConfig):
+    """qkv: [B, S, qkv_width] -> [B, S, H]."""
+    h = config.hidden_size
+    if config.attention == "simplified":
+        # the reference's benchmarking shortcut: the query projection is
+        # the attention output
+        return qkv[:, :, :h]
+    b, s, _ = qkv.shape
+    n, d, kvh = config.num_heads, config.head_dim, config.kv_heads
+
+    def heads(t, nh):  # [B, S, nh*d] -> [B, nh, S, d]
+        return t.reshape(b, s, nh, d).transpose(1, 2)
+
+    q = heads(qkv[:, :, :h], n)
+    k = heads(qkv[:, :, h:h + kvh * d], kvh)
+    v = heads(qkv[:, :, h + kvh * d:], kvh)
+    if config.attention == "flash" or (
+            config.attention == "full"
+            and flash_route(q.shape, q.dtype, q.device.type)):
+        # the kernel takes contiguous [B, N, S, D]
+        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            causal=config.causal)
+    else:
+        o = dense_attention(q, k, v, causal=config.causal)
+    return o.transpose(1, 2).reshape(b, s, n * d)
+
+
+def _block(x, layer: Params, config: ModelConfig):
+    residual = x
+    y = _layernorm(x, layer["ln1"]["scale"], layer["ln1"]["bias"])
+    qkv = y @ layer["qkv"]["kernel"] + layer["qkv"]["bias"]
+    attn = _attention(qkv, config)
+    x = attn @ layer["out"]["kernel"] + layer["out"]["bias"] + residual
+
+    residual = x
+    y = _layernorm(x, layer["ln2"]["scale"], layer["ln2"]["bias"])
+    y = y @ layer["ffn_up"]["kernel"] + layer["ffn_up"]["bias"]
+    # jax.nn.gelu defaults to approximate=True: the tanh form, not erf
+    y = F.gelu(y, approximate="tanh")
+    return y @ layer["ffn_down"]["kernel"] + layer["ffn_down"]["bias"] + residual
+
+
+def forward(params: Params, x: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+    """Full forward pass: the layers in order, then the final LN."""
+    _check_ported(config)
+    layers = params["layers"]
+    for i in range(config.num_layers):
+        layer = {name: {p: t[i] for p, t in group.items()}
+                 for name, group in layers.items()}
+        x = _block(x, layer, config)
+    return _layernorm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
+
+
+def _check_dense_ffn(config: ModelConfig) -> None:
+    if config.is_moe:
+        raise NotImplementedError("MoE FFNs are not ported to dlbb_tpu_torch yet")
+
+
+def num_parameters(config: ModelConfig) -> int:
+    """Total parameter count of the dense decoder."""
+    _check_dense_ffn(config)
+    h, f, L = config.hidden_size, config.ffn_intermediate, config.num_layers
+    qkvw = config.qkv_width
+    per_layer = (2 * h + h * qkvw + qkvw + h * h + h + 2 * h
+                 + (h * f + f) + (f * h + h))
+    return L * per_layer + 2 * h
+
+
+def forward_flops(config: ModelConfig, batch_size: int, seq_len: int) -> int:
+    """Analytic forward FLOPs (multiply-adds as 2; layernorm, gelu and
+    softmax omitted), the JAX package's count."""
+    _check_dense_ffn(config)
+    h, f, L = config.hidden_size, config.ffn_intermediate, config.num_layers
+    tokens = batch_size * seq_len
+    qkv = 2 * tokens * h * config.qkv_width
+    out = 2 * tokens * h * h
+    attn = 0 if config.attention == "simplified" else 4 * batch_size * seq_len * seq_len * h
+    ffn = 2 * tokens * h * f * 2
+    return L * (qkv + attn + out + ffn)

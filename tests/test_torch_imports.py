@@ -1,0 +1,44 @@
+"""The port stands alone: no file of ``dlbb_tpu_torch/``, not
+``chip_smoke.py`` and not ``scripts/torch_e2e_profile.py`` imports ``jax``
+or any module of ``dlbb_tpu`` (the JAX package runs nowhere on the card's
+machine).  Static AST check, one case per file, in the manner of
+``tests/test_fleet.py``'s host-side pin."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted(
+    [p.relative_to(REPO).as_posix() for p in (REPO / "dlbb_tpu_torch").rglob("*.py")]
+    + ["chip_smoke.py", "scripts/torch_e2e_profile.py"]
+)
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == root or module.startswith(root + ".")
+               for root in ("jax", "jaxlib", "dlbb_tpu"))
+
+
+def test_port_has_the_expected_modules():
+    for rel in ("dlbb_tpu_torch/__init__.py", "dlbb_tpu_torch/cli.py",
+                "dlbb_tpu_torch/bench/e2e.py", "dlbb_tpu_torch/models/transformer.py",
+                "dlbb_tpu_torch/ops/flash_attention.py", "chip_smoke.py"):
+        assert rel in PORT_FILES
+
+
+@pytest.mark.parametrize("rel", PORT_FILES)
+def test_no_jax_and_no_dlbb_tpu_import(rel):
+    tree = ast.parse((REPO / rel).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad = [a.name for a in node.names if _forbidden(a.name)]
+            assert not bad, f"{rel} imports {bad}"
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            assert not _forbidden(node.module or ""), \
+                f"{rel}: from {node.module} import ..."
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__":
+            arg = node.args[0] if node.args else None
+            assert not (isinstance(arg, ast.Constant) and _forbidden(str(arg.value))), \
+                f"{rel}: __import__({arg.value!r})"
