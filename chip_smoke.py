@@ -8,13 +8,21 @@ Phases (each raises on failure, and the script then exits non-zero):
 1. build every CUDA kernel of the port from ``dlbb_tpu_torch/ops/csrc``;
 2. hold each kernel against its plain PyTorch version on the card, on the
    main path's shape and on the edge cases (GQA, non-causal, ragged S,
-   KV-cache decode, fully masked rows);
-3. drive the main path through its entry point: ``run_e2e`` on the 1B
+   KV-cache decode, fully masked rows): the flash forward's ``(o, lse)``,
+   then the flash backward's ``(dq, dk, dv)`` from a random bf16 ``dO``;
+3. drive the forward path through its entry point: ``run_e2e`` on the 1B
    decoder at full width (24 layers, H=2048, 16 heads, FFN 8192), bf16,
    B=8, S=512, ``attention="full"``; check that every layer went through
    the flash kernel, that the output is finite, and that it agrees with
    the same forward through ``dense_attention``;
-4. time each kernel alone beside its plain version, one PyTorch library
+4. drive the train path through its entry point: ``run_train`` on
+   ``dlbb_tpu_torch/configs/train_1b_adam_bf16m.yaml`` (the same 1B decoder,
+   remat "dots", Adam with bf16 moments, B=8, S=512); check the flash
+   kernels' launches per step (48 forward: 24 in the forward and 24 in the
+   remat recompute; 24 dq and 24 dk/dv) and finite losses; then one step's
+   loss and gradients on the same weights and batch through the kernel path
+   and through the dense path, which must agree;
+5. time each kernel alone beside its plain version, one PyTorch library
    call of the same function (a yardstick only: the port never calls it)
    and the least time the card could take.
 
@@ -27,6 +35,7 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import sys
 import time
 
@@ -45,6 +54,23 @@ LSE_ATOL = 1e-3
 # differently (the kernel rounds P and o to bf16, dense keeps fp32 until o)
 # and 24 residual layers carry those differences to the output
 E2E_REL_L2 = 3e-2
+# backward kernels vs plain version, from the same bf16 inputs: both round
+# p and ds to bf16 before their products, but from fp32 scores summed in
+# another order, so a term can land one bf16 ulp (2**-8) apart; dk and dv
+# sum S * g such terms, so their error follows the size of the sum and not
+# each element: each output is held to atol = BWD_ATOL_REL * max|plain| and
+# rtol = BWD_RTOL, about two bf16 ulps of the output's scale
+BWD_ATOL_REL, BWD_RTOL = 1e-2, 2e-2
+# 1B train step, kernel path vs dense path on the same weights and batch:
+# the loss (an fp32 mean over 8M squared differences) moves by the forward's
+# bf16 differences (E2E_REL_L2 above) only through their correlation with
+# the residual, so relatively far less; each gradient leaf is a bf16 sum
+# over the batch that carries the forward's differences and the backward's
+# own roundings (p and ds rounded to bf16 in the kernels, fp32 softmax
+# gradient in dense) through 24 layers, held by relative L2
+TRAIN_LOSS_REL = 1e-2
+TRAIN_GRAD_REL_L2 = 1e-1
+TRAIN_CONFIG = "dlbb_tpu_torch/configs/train_1b_adam_bf16m.yaml"
 
 MAIN_SHAPE = dict(b=8, n=16, kvh=16, s=512, sk=512, d=128, causal=True)
 LONG_SHAPE = dict(b=1, n=16, kvh=16, s=8192, sk=8192, d=128, causal=True)
@@ -137,6 +163,57 @@ def phase_kernel_vs_plain(torch, fa):
     return worst_o, worst_lse
 
 
+def _visible_pairs(shape):
+    s, sk = shape["s"], shape["sk"]
+    if shape["causal"]:
+        return sum(min(sk, max(0, r + sk - s + 1)) for r in range(s))
+    return s * sk
+
+
+def _bwd_bound(shape, kernel):
+    """Least time for one backward kernel at ``shape``: q, k, v, dO, lse and
+    delta read once and its outputs written once, over the memory rate; 6 D
+    (dq: QK^T, dO V^T, dS K) or 8 D (dk/dv: QK^T again, dO V^T, P^T dO,
+    dS^T Q) flops per visible (row, key) pair over the bf16 tensor rate."""
+    b, n, kvh, s, sk, d = (shape[x] for x in ("b", "n", "kvh", "s", "sk", "d"))
+    q_bytes, kv_bytes = 2 * b * n * s * d, 2 * b * kvh * sk * d
+    nbytes = 2 * q_bytes + 2 * kv_bytes + 2 * 4 * b * n * s
+    nbytes += q_bytes if kernel == "dq" else 2 * kv_bytes
+    flops = (6 if kernel == "dq" else 8) * d * _visible_pairs(shape) * b * n
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_bwd_vs_plain(torch, fa):
+    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for i, (name, shape) in enumerate(CASES.items()):
+        q, k, v = _inputs(torch, shape, seed=200 + i)
+        causal = shape["causal"]
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(300 + i)
+        do = torch.randn(q.shape, generator=g, device="cuda", dtype=torch.bfloat16)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        ref = fa.flash_bwd_reference(q, k, v, o, lse, do, causal=causal)
+        parts = []
+        for label, a, r in zip(("dq", "dk", "dv"), got, ref):
+            a, r = a.float(), r.float()
+            scale = r.abs().max().item()
+            err = (a - r).abs().max().item()
+            parts.append(f"{label} max|d| {err:.3e} (|plain| max {scale:.3e})")
+            torch.testing.assert_close(a, r, atol=BWD_ATOL_REL * scale, rtol=BWD_RTOL)
+            worst[label] = max(worst[label], err)
+        print(f"[kernel] flash_bwd {name}: " + ", ".join(parts)
+              + f" (atol {BWD_ATOL_REL} x max|plain|, rtol {BWD_RTOL})")
+        masked = max(0, shape["s"] - shape["sk"]) if causal else 0
+        if masked:
+            if not bool((got[0][:, :, :masked] == 0).all()):
+                raise AssertionError(f"{name}: fully masked rows' dq is not exactly 0")
+            print(f"[kernel] flash_bwd {name}: {masked} fully masked rows' dq exactly 0")
+    return worst
+
+
 def phase_main_path(torch, fa, gpu_line):
     from dlbb_tpu_torch.bench.e2e import run_e2e
     from dlbb_tpu_torch.data import create_dataset_from_config
@@ -188,6 +265,122 @@ def phase_main_path(torch, fa, gpu_line):
     return launches, result
 
 
+def phase_train(torch, fa, gpu_line):
+    from dlbb_tpu_torch.data import create_dataset_from_config
+    from dlbb_tpu_torch.models import ModelConfig, init_params
+    from dlbb_tpu_torch.train.loop import mse_loss, run_train
+    from dlbb_tpu_torch.train.optim import tree_leaves
+    from dlbb_tpu_torch.utils.config import load_config
+
+    config = load_config(TRAIN_CONFIG)
+    model_cfg = ModelConfig.from_dict(config["model"])
+    ex = config["execution"]
+    steps = ex["warmup_iterations"] + ex["benchmark_iterations"]
+    layers = model_cfg.num_layers
+    # remat recomputes the flash forward in the backward: 2 per layer
+    per_step = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+    fa.flash_fwd_launches = fa.flash_bwd_dq_launches = fa.flash_bwd_dkv_launches = 0
+    result = run_train(config, device="cuda", verbose=True)
+    launches = {"flash_fwd": fa.flash_fwd_launches,
+                "flash_bwd_dq": fa.flash_bwd_dq_launches,
+                "flash_bwd_dkv": fa.flash_bwd_dkv_launches}
+    print(f"[train] launches over the run ({steps} steps): {launches}; per timed "
+          f"step: {result['kernel_launches_per_step']} (expected {per_step})")
+    for name, n in per_step.items():
+        if launches[name] != n * steps or result["kernel_launches_per_step"][name] != n:
+            raise AssertionError(f"the train path did not launch {name} {n} times per step")
+    losses = result["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite train losses {losses}")
+    st = result["step_time"]
+    print(f"[train] 1B Adam step (bf16 moments, remat dots), bf16, B=8, S=512, "
+          f"attention=full on {gpu_line}: mean {st['mean'] * 1e3:.3f} ms, median "
+          f"{st['median'] * 1e3:.3f} ms, {result['tokens_per_second']:.0f} tokens/s, "
+          f"{result['achieved_tflops_per_second']:.1f} TFLOP/s (model flops); "
+          f"losses {', '.join(f'{x:.5f}' for x in losses)}")
+
+    # one step's loss and gradients, same weights and batch, kernel vs dense
+    params = init_params(model_cfg, config["input"]["seed"], "cuda")
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    batch, targets = (create_dataset_from_config(
+        config, dtype=torch.bfloat16, device="cuda", hidden_size=model_cfg.hidden_size,
+        seed_offset=off).get_batch() for off in (0, 1))
+
+    def loss_and_grads(cfg):
+        loss = mse_loss(params, batch, targets, cfg)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    before = fa.flash_bwd_dq_launches
+    loss_k, grads_k = loss_and_grads(model_cfg)
+    if fa.flash_bwd_dq_launches - before != layers:
+        raise AssertionError("the kernel-path gradient did not run the dq kernel per layer")
+    loss_d, grads_d = loss_and_grads(model_cfg.with_(attention="dense"))
+    loss_rel = abs(loss_k - loss_d) / abs(loss_d)
+    names = [f"{group}.{leaf}" for group, sub in params["layers"].items() for leaf in sub]
+    names += [f"ln_f.{leaf}" for leaf in params["ln_f"]]
+    rels = {}
+    for name, gk, gd in zip(names, grads_k, grads_d):
+        if not bool(torch.isfinite(gk).all()):
+            raise AssertionError(f"non-finite kernel-path gradient {name}")
+        rels[name] = ((gk.float() - gd.float()).norm() / gd.float().norm()).item()
+    worst = max(rels, key=rels.get)
+    print(f"[train] kernel path vs dense path, one step on the same weights: loss "
+          f"{loss_k:.6f} vs {loss_d:.6f} (relative {loss_rel:.3e}, tolerance "
+          f"{TRAIN_LOSS_REL}); gradient relative L2 per leaf: "
+          + ", ".join(f"{n} {r:.3e}" for n, r in rels.items())
+          + f" (worst {worst}, tolerance {TRAIN_GRAD_REL_L2})")
+    if not loss_rel <= TRAIN_LOSS_REL:
+        raise AssertionError("the kernel-path loss disagrees with the dense path")
+    if not rels[worst] <= TRAIN_GRAD_REL_L2:
+        raise AssertionError(f"the kernel-path gradient {worst} disagrees with the dense path")
+    return launches, result
+
+
+def _time_bwd(torch, fa, shape, reps, plain_reps):
+    import torch.nn.functional as F
+
+    q, k, v = _inputs(torch, shape, seed=11)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    do = torch.randn(q.shape, generator=g, device="cuda", dtype=torch.bfloat16)
+    causal = shape["causal"]
+    scale = 1.0 / math.sqrt(shape["d"])
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    delta = fa.flash_bwd_delta(o, do)
+    dq_ms = _time_ms(torch, lambda: fa._flash_bwd_dq_cuda(
+        q, k, v, lse, do, delta, causal=causal, sm_scale=scale), reps)
+    dkv_ms = _time_ms(torch, lambda: fa._flash_bwd_dkv_cuda(
+        q, k, v, lse, do, delta, causal=causal, sm_scale=scale), reps)
+    plain_ms = _time_ms(torch, lambda: fa.flash_bwd_reference(
+        q, k, v, o, lse, do, causal=causal), plain_reps, warmup=1)
+    # the library yardstick for the pair: SDPA's backward, as its forward
+    # plus backward less its forward
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        torch.autograd.grad(out, (qg, kg, vg), do)
+
+    sdpa_bwd_ms = _time_ms(torch, sdpa_fwd_bwd, reps) - _time_ms(torch, sdpa_fwd, reps)
+    label = "B={b} N={n} S={s} D={d}".format(**shape)
+    out = {}
+    for kernel, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
+        bound_ms, bound_by = _bwd_bound(shape, kernel)
+        out[kernel] = {"shape": label, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": sdpa_bwd_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by}
+        print(f"[time] flash_bwd_{kernel} {label}: kernel {ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); plain backward (dq, dk, dv) "
+              f"{plain_ms:.4f} ms; SDPA backward (the pair) {sdpa_bwd_ms:.4f} ms")
+    return out
+
+
 def phase_timing(torch, fa, shape, reps):
     import torch.nn.functional as F
 
@@ -224,9 +417,13 @@ def main() -> int:
 
     phase_build(_build)
     err_o, err_lse = phase_kernel_vs_plain(torch, fa)
+    err_bwd = phase_bwd_vs_plain(torch, fa)
     launches, _ = phase_main_path(torch, fa, gpu_line)
+    train_launches, _ = phase_train(torch, fa, gpu_line)
     main_t = phase_timing(torch, fa, MAIN_SHAPE, reps=50)
     long_t = phase_timing(torch, fa, LONG_SHAPE, reps=10)
+    main_b = _time_bwd(torch, fa, MAIN_SHAPE, reps=50, plain_reps=10)
+    long_b = _time_bwd(torch, fa, LONG_SHAPE, reps=10, plain_reps=2)
 
     kernels = [{
         "name": "flash_fwd",
@@ -234,6 +431,7 @@ def main() -> int:
         "source": "dlbb_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "dlbb_tpu/ops/flash_attention.py:99",
         "launches": launches,
+        "train_launches": train_launches["flash_fwd"],
         "max_abs_err": err_o,
         "lse_max_abs_err": err_lse,
         "ms": main_t["ms"],
@@ -244,6 +442,26 @@ def main() -> int:
         "shape": main_t["shape"],
         "long": long_t,
     }]
+    for kernel, line, errs in (("dq", 212, ("dq",)), ("dkv", 247, ("dk", "dv"))):
+        t = main_b[kernel]
+        kernels.append({
+            "name": f"flash_bwd_{kernel}",
+            "route": "cuda",
+            "source": "dlbb_tpu_torch/ops/csrc/flash_bwd.cu",
+            "replaces": f"dlbb_tpu/ops/flash_attention.py:{line}",
+            "launches": train_launches[f"flash_bwd_{kernel}"],
+            "max_abs_err": max(err_bwd[e] for e in errs),
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "plain_note": "the whole plain backward (dq, dk, dv in one pass)",
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library_note": "SDPA backward (forward + backward less forward), "
+                            "dq, dk and dv together",
+            "shape": t["shape"],
+            "long": long_b[kernel],
+        })
     print(gpu_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

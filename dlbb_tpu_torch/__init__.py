@@ -6,23 +6,29 @@ parity tests (same seeded inputs and weights in, same outputs out, within a
 stated tolerance).  This package imports ``torch`` and numpy only — never
 ``jax`` and never a module of ``dlbb_tpu``.
 
-Ported so far (the single-device end-to-end forward):
+Ported so far (the single-device end-to-end forward and train step):
 
 - ``models`` — ``ModelConfig``/``MODEL_CONFIGS`` (1B/7B/13B), the dense
-  decoder ``forward`` with the simplified/full/dense/flash attention modes,
-  ``dense_attention``, and ``params_from_jax`` to carry JAX weights across;
-- ``ops`` — ``flash_attention``: a hand-written CUDA C++ kernel for Hopper
-  (``ops/csrc/flash_fwd.cu``, the port of the Pallas ``_fwd_kernel``) with
-  its plain PyTorch version beside it;
-- ``data`` — the seeded synthetic embedding batch;
+  decoder ``forward`` with the simplified/full/dense/flash attention modes
+  and remat ("full", "dots"), ``dense_attention``, and ``params_from_jax``
+  to carry JAX weights across;
+- ``ops`` — ``flash_attention``, differentiable through a
+  ``torch.autograd.Function``: hand-written CUDA C++ kernels for Hopper
+  (``ops/csrc/flash_fwd.cu``, the port of the Pallas ``_fwd_kernel``;
+  ``ops/csrc/flash_bwd.cu``, the ports of ``_dq_kernel`` and
+  ``_dkv_kernel``) with their plain PyTorch versions beside them;
+- ``data`` — the seeded synthetic embedding batch (and its targets);
+- ``train`` — ``optim`` (Adam with the constant schedule, ``cast_moments``,
+  optax's rounding rules) and ``loop`` (``make_train_step``, ``run_train``
+  at ZeRO stage 0, world size 1);
 - ``utils`` — ``summarize``/``Timer``, per-iteration CUDA-event timing,
   config IO, system info;
-- ``bench.e2e`` — ``run_e2e`` at world size 1, and ``cli e2e``.
+- ``bench.e2e`` — ``run_e2e`` at world size 1; ``cli e2e`` and ``cli train``.
 
-Not ported yet (see ROADMAP.md): the flash backward kernels and training,
-MoE, remat, tp_overlap, meshes and sharding, ring/Ulysses attention,
-pipelines, collectives and sweeps, serving, and the observability,
-resilience, planning and analysis layers.
+Not ported yet (see ROADMAP.md): MoE, tp_overlap, meshes and sharding,
+ZeRO 1-3, gradient accumulation, checkpointing, the other optimizers and
+schedules, ring/Ulysses attention, pipelines, collectives and sweeps,
+serving, and the observability, resilience, planning and analysis layers.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit ``"cpu"`` they raise.

@@ -35,14 +35,15 @@ from dlbb_tpu_torch.utils.sysinfo import collect_system_info, resolve_device
 from dlbb_tpu_torch.utils.timing import time_fn_per_iter
 
 
-def _check_world_one(config: dict[str, Any]) -> None:
+def check_world_one(config: dict[str, Any]) -> None:
+    """Refuse configs that need more than one device (a later slice)."""
     par = config.get("parallelism", {}) or {}
     for key in ("world_size", "data_parallel", "sequence_parallel",
                 "pipeline_parallel", "expert_parallel"):
         if int(par.get(key, 1)) > 1:
             raise NotImplementedError(
-                f"parallelism.{key}={par[key]}: dlbb_tpu_torch runs the "
-                "forward on one device so far (multi-device is a later slice)")
+                f"parallelism.{key}={par[key]}: dlbb_tpu_torch runs on one "
+                "device so far (multi-device is a later slice)")
 
 
 def run_e2e(config: dict[str, Any], device=None,
@@ -51,7 +52,7 @@ def run_e2e(config: dict[str, Any], device=None,
     """Run the benchmark described by ``config`` on ``device`` (``cuda``
     unless the caller passes another; raises without CUDA)."""
     device = resolve_device(device)
-    _check_world_one(config)
+    check_world_one(config)
     inp = config["input"]
     with Timer(sync=device) as t_init:
         model_cfg = ModelConfig.from_dict(config["model"])

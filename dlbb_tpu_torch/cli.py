@@ -1,7 +1,10 @@
-"""Command line (counterpart of ``dlbb_tpu/cli.py``): the ``e2e`` subcommand.
+"""Command line (counterpart of ``dlbb_tpu/cli.py``): the ``e2e`` and
+``train`` subcommands.
 
     python -m dlbb_tpu_torch.cli e2e --config CONFIG.yaml [--output DIR]
                                      [--device cuda|cpu]
+    python -m dlbb_tpu_torch.cli train --config CONFIG.yaml [--output DIR]
+                                       [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -19,6 +22,12 @@ def build_parser() -> argparse.ArgumentParser:
     e2.add_argument("--device", default=None,
                     help="cuda (the default) or cpu; without a CUDA device "
                          "only an explicit cpu runs")
+    tr = sub.add_parser("train", help="single-device training step benchmark")
+    tr.add_argument("--config", required=True, help="YAML experiment config")
+    tr.add_argument("--output", default=None)
+    tr.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu; without a CUDA device "
+                         "only an explicit cpu runs")
     return p
 
 
@@ -30,6 +39,13 @@ def main(argv=None) -> int:
         result = run_e2e_from_config(args.config, output_dir=args.output,
                                      device=args.device)
         print(f"forward mean {result['forward_time']['mean'] * 1e3:.3f} ms")
+        return 0
+    if args.cmd == "train":
+        from dlbb_tpu_torch.train.loop import run_train_from_config
+
+        result = run_train_from_config(args.config, output_dir=args.output,
+                                       device=args.device)
+        print(f"step mean {result['step_time']['mean'] * 1e3:.3f} ms")
         return 0
     return 2
 

@@ -31,16 +31,18 @@ class SyntheticEmbeddingDataset:
 
 
 def create_dataset_from_config(config: dict[str, Any], dtype=torch.bfloat16,
-                               device="cpu", hidden_size: Optional[int] = None
-                               ) -> SyntheticEmbeddingDataset:
-    """Build from the YAML ``input:`` + ``model:`` sections."""
+                               device="cpu", hidden_size: Optional[int] = None,
+                               seed_offset: int = 0) -> SyntheticEmbeddingDataset:
+    """Build from the YAML ``input:`` + ``model:`` sections;
+    ``seed_offset`` derives another batch from the same config (the
+    training targets are seed + 1)."""
     if hidden_size is None:
         hidden_size = config["model"]["hidden_size"]
     return SyntheticEmbeddingDataset(
         batch_size=config["input"]["batch_size"],
         seq_length=config["input"]["sequence_length"],
         hidden_size=hidden_size,
-        seed=config["input"].get("seed", 42),
+        seed=config["input"].get("seed", 42) + seed_offset,
         dtype=dtype,
         device=device,
     )

@@ -1,10 +1,10 @@
 """Model size configurations (counterpart of ``dlbb_tpu/models/configs.py``).
 
 The dataclass keeps every field of the JAX ``ModelConfig`` and the same
-validation, so one config dict is accepted by both packages.  Only the
-dense single-device forward is ported: fields that select MoE, remat or
-``tp_overlap`` are accepted and validated here, and rejected by the model
-code that does not run them yet.
+validation, so one config dict is accepted by both packages.  The dense
+single-device forward and train step are ported, remat included: fields
+that select MoE or ``tp_overlap`` are accepted and validated here, and
+rejected by the model code that does not run them yet.
 """
 
 from __future__ import annotations

@@ -7,15 +7,30 @@ JAX package's stacked ``[L, ...]`` layout and its ``[in, out]`` kernels
 across without a transpose (``models/weights.py``).  A plain Python loop over
 the layers takes the place of ``lax.scan``.  The large projection and FFN
 products are ``torch.matmul``, as the JAX package leaves them to XLA.
+
+``config.remat`` wraps each block in ``torch.utils.checkpoint`` when
+gradients are being recorded: ``remat_policy="full"`` saves nothing of the
+block, ``"dots"`` saves the outputs of the matrix products (``aten.mm``,
+``addmm``, ``bmm``) and recomputes the rest, the counterpart of
+``jax.checkpoint_policies.dots_saveable``.  Under either policy the flash
+forward is recomputed in the backward, as in JAX, where a ``pallas_call``
+output is not a dot.  Without gradients (the e2e path) the blocks run as
+they are.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from dlbb_tpu_torch.models.attention import dense_attention
 from dlbb_tpu_torch.models.configs import ModelConfig
@@ -33,8 +48,6 @@ def _check_ported(config: ModelConfig) -> None:
         raise NotImplementedError(
             f"attention={config.attention!r} (sequence parallel) is not "
             "ported to dlbb_tpu_torch yet")
-    if config.remat:
-        raise NotImplementedError("remat (a training option) is not ported yet")
     if config.tp_overlap != "off":
         raise NotImplementedError("tp_overlap needs a tp mesh, not ported yet")
 
@@ -143,14 +156,39 @@ def _block(x, layer: Params, config: ModelConfig):
     return y @ layer["ffn_down"]["kernel"] + layer["ffn_down"]["bias"] + residual
 
 
+# the matrix products that remat_policy="dots" keeps
+_DOT_OPS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                      torch.ops.aten.bmm.default))
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_block(x, layer: Params, config: ModelConfig):
+    if config.remat_policy == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _dots_saveable)
+        return checkpoint(_block, x, layer, config, use_reentrant=False,
+                          context_fn=context_fn)
+    return checkpoint(_block, x, layer, config, use_reentrant=False)
+
+
 def forward(params: Params, x: torch.Tensor, config: ModelConfig) -> torch.Tensor:
     """Full forward pass: the layers in order, then the final LN."""
     _check_ported(config)
-    layers = params["layers"]
+    block = (_remat_block if config.remat and torch.is_grad_enabled()
+             else _block)
+    # one unbind per stacked parameter: its gradient is one stack of the
+    # layers' gradients (indexing t[i] instead would add a zero-filled
+    # full-size [L, ...] gradient per layer)
+    layers = {name: {p: t.unbind(0) for p, t in group.items()}
+              for name, group in params["layers"].items()}
     for i in range(config.num_layers):
-        layer = {name: {p: t[i] for p, t in group.items()}
+        layer = {name: {p: ts[i] for p, ts in group.items()}
                  for name, group in layers.items()}
-        x = _block(x, layer, config)
+        x = block(x, layer, config)
     return _layernorm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
 
 

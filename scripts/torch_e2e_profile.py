@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
-"""Where the time of the port's 1B forward goes on one NVIDIA GPU.
+"""Where the time of the port's 1B forward, or of its 1B train step, goes on
+one NVIDIA GPU.
 
     python3 scripts/torch_e2e_profile.py --out DIR [--batch 8] [--seq 512]
-                                         [--reps 3]
+                                         [--reps 3] [--train]
 
 Builds the 1B decoder of ``dlbb_tpu_torch`` at full width (bf16,
 ``attention="full"``, random weights from seed 42), runs a few warm
 forwards, then traces ``--reps`` forwards with ``torch.profiler`` and reads
-the Chrome trace it exports: device time by kernel class (the flash kernel,
+the Chrome trace it exports: device time by kernel class (the flash kernels,
 matrix products, copies, other elementwise and reductions), the top kernels
 by name, and the device's idle share over the traced window (1 - the union
 of kernel intervals / the window from the first forward's start to the last
 kernel's end).  Also times the same forwards with CUDA events and no
 profiler.  Prints one JSON line as its last line and writes the trace and
 that JSON under ``--out``.
+
+With ``--train`` it does the same for the train step of
+``dlbb_tpu_torch/configs/train_1b_adam_bf16m.yaml`` (remat "dots", Adam with
+bf16 moments) through ``make_train_step``, and also splits the device time
+by phase: the forward, the backward (kernels launched by the autograd
+engine's thread, the remat recompute included) and the optimizer update.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 CLASSES = (
+    ("flash_bwd_dq", ("flash_bwd_dq",)),
+    ("flash_bwd_dkv", ("flash_bwd_dkv",)),
     ("flash_fwd", ("flash_fwd",)),
     ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "cublas", "sm90_")),
     ("copy", ("copy",)),
@@ -54,6 +63,70 @@ def union_length(intervals) -> float:
     return total
 
 
+def by_phase(events, kernels) -> dict[str, dict[str, float]]:
+    """Kernel microseconds by the phase that launched them and by class.
+    The phases: "optimizer" (launched inside the ``optimizer`` range),
+    "backward" (launched from another thread than that range's: the
+    autograd engine's, remat recompute included), "forward" (the rest)."""
+    # the host-side ranges (the profiler also draws each range on the
+    # device's timeline, as a "gpu_user_annotation")
+    opt = [(e["ts"], e["ts"] + e["dur"], e["tid"]) for e in events
+           if e.get("ph") == "X" and e.get("name") == "optimizer"
+           and e.get("cat") == "user_annotation"]
+    if not opt:
+        raise RuntimeError("the trace holds no optimizer range")
+    main_tid = opt[0][2]
+    launch = {e["args"]["correlation"]: (e["ts"], e["tid"]) for e in events
+              if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    out: dict[str, dict[str, float]] = {}
+    for e in kernels:
+        ts_tid = launch.get(e.get("args", {}).get("correlation"))
+        if ts_tid is None:
+            phase = "unattributed"
+        elif ts_tid[1] != main_tid:
+            phase = "backward"
+        elif any(a <= ts_tid[0] <= b for a, b, _ in opt):
+            phase = "optimizer"
+        else:
+            phase = "forward"
+        row = out.setdefault(phase, {})
+        cls = classify(e["name"])
+        row[cls] = row.get(cls, 0.0) + e["dur"]
+    return out
+
+
+def _train_step(torch, record_function, x, args):
+    """The 1B train step of the shipped config through ``make_train_step``,
+    its optimizer update inside a profiler range named ``optimizer``."""
+    from dlbb_tpu_torch.data import SyntheticEmbeddingDataset
+    from dlbb_tpu_torch.models import ModelConfig, init_params
+    from dlbb_tpu_torch.train.loop import make_train_step
+    from dlbb_tpu_torch.train.optim import GradientTransformation, build_optimizer
+    from dlbb_tpu_torch.utils.config import load_config
+
+    config = load_config(Path(__file__).resolve().parents[1] / "dlbb_tpu_torch"
+                         / "configs" / "train_1b_adam_bf16m.yaml")
+    cfg = ModelConfig.from_dict(config["model"])
+    inner = build_optimizer(config["training"])
+
+    def update(grads, state, params=None):
+        with record_function("optimizer"):
+            return inner.update(grads, state, params)
+
+    step_fn, state = make_train_step(cfg, GradientTransformation(inner.init, update),
+                                     init_params(cfg, 42, "cuda"))
+    targets = SyntheticEmbeddingDataset(args.batch, args.seq, cfg.hidden_size,
+                                        seed=43, device="cuda").get_batch()
+    holder = [state]
+
+    def step():
+        holder[0], loss = step_fn(holder[0], x, targets)
+        return loss
+
+    return step, cfg
+
+
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--out", required=True,
@@ -61,6 +134,8 @@ def main() -> int:
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--seq", type=int, default=512)
     p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--train", action="store_true",
+                   help="profile the 1B Adam train step instead of the forward")
     args = p.parse_args()
 
     import torch
@@ -76,13 +151,18 @@ def main() -> int:
     from dlbb_tpu_torch.utils.sysinfo import gpu_name_and_power_limit
 
     cfg = MODEL_CONFIGS["1B"].with_(attention="full")
-    params = init_params(cfg, 42, "cuda")
     x = SyntheticEmbeddingDataset(args.batch, args.seq, cfg.hidden_size,
                                   seed=42, device="cuda").get_batch()
+    if args.train:
+        step, cfg = _train_step(torch, record_function, x, args)
+        what = "step"
+    else:
+        params = init_params(cfg, 42, "cuda")
+        what = "forward"
 
-    @torch.inference_mode()
-    def step():
-        return forward(params, x, cfg)
+        @torch.inference_mode()
+        def step():
+            return forward(params, x, cfg)
 
     for _ in range(3):
         step()
@@ -95,24 +175,29 @@ def main() -> int:
     torch.cuda.synchronize()
     event_ms = start.elapsed_time(end) / args.reps
 
-    launches0 = fa.flash_fwd_launches
+    def launch_counts():
+        return {"flash_fwd": fa.flash_fwd_launches,
+                "flash_bwd_dq": fa.flash_bwd_dq_launches,
+                "flash_bwd_dkv": fa.flash_bwd_dkv_launches}
+
+    launches0 = launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(args.reps):
-            with record_function(f"forward_{i}"):
+            with record_function(f"{what}_{i}"):
                 step()
         torch.cuda.synchronize()
-    launches = fa.flash_fwd_launches - launches0
+    launches = {k: v - launches0[k] for k, v in launch_counts().items()}
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    trace_path = out / "trace_1b_forward.json"
+    trace_path = out / f"trace_1b_{what}.json"
     prof.export_chrome_trace(str(trace_path))
     events = json.loads(trace_path.read_text())
     events = events.get("traceEvents", events)
     kernels = [e for e in events if e.get("ph") == "X"
                and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     marks = [e for e in events if e.get("ph") == "X"
-             and str(e.get("name", "")).startswith("forward_")]
+             and str(e.get("name", "")).startswith(f"{what}_")]
     if not kernels:
         raise RuntimeError("the profiler recorded no device kernels")
     t0 = min(e["ts"] for e in marks) if marks else min(e["ts"] for e in kernels)
@@ -133,28 +218,36 @@ def main() -> int:
     result = {
         "gpu": gpu_name_and_power_limit(),
         "shape": {"model": "1B", "batch": args.batch, "seq": args.seq,
-                  "dtype": "bfloat16", "attention": "full"},
-        "forward_ms_cuda_events": event_ms,
-        "traced_window_ms_per_forward": window_us / 1e3 / reps,
-        "device_busy_ms_per_forward": busy_us / 1e3 / reps,
+                  "dtype": "bfloat16", "attention": "full",
+                  "remat_policy": cfg.remat_policy if cfg.remat else None},
+        f"{what}_ms_cuda_events": event_ms,
+        f"traced_window_ms_per_{what}": window_us / 1e3 / reps,
+        f"device_busy_ms_per_{what}": busy_us / 1e3 / reps,
         "device_idle_share": 1.0 - busy_us / window_us,
-        "kernel_ms_per_forward": kernel_total_ms,
-        "kernels_per_forward": len(kernels) / reps,
-        "flash_fwd_launches_per_forward": launches / reps,
-        "ms_per_forward_by_class": {k: v / 1e3 / reps for k, v in
+        f"kernel_ms_per_{what}": kernel_total_ms,
+        f"kernels_per_{what}": len(kernels) / reps,
+        f"flash_launches_per_{what}": {k: v / reps for k, v in launches.items()},
+        f"ms_per_{what}_by_class": {k: v / 1e3 / reps for k, v in
                                     sorted(by_class.items(), key=lambda kv: -kv[1])},
         "share_by_class": {k: v / 1e3 / reps / kernel_total_ms for k, v in
                            sorted(by_class.items(), key=lambda kv: -kv[1])},
         "top_kernels": [
-            {"name": n, "class": c, "ms_per_forward": t / 1e3 / reps,
-             "calls_per_forward": k / reps}
+            {"name": n, "class": c, f"ms_per_{what}": t / 1e3 / reps,
+             f"calls_per_{what}": k / reps}
             for n, (t, k, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
         ],
     }
+    if args.train:
+        phases = by_phase(events, kernels)
+        result["ms_per_step_by_phase"] = {
+            k: sum(v.values()) / 1e3 / reps for k, v in phases.items()}
+        result["ms_per_step_by_phase_and_class"] = {
+            k: {c: t / 1e3 / reps for c, t in sorted(v.items(), key=lambda kv: -kv[1])}
+            for k, v in phases.items()}
     for row in result["top_kernels"]:
-        print(f"{row['ms_per_forward']:9.3f} ms  x{row['calls_per_forward']:6.1f}  "
+        print(f"{row[f'ms_per_{what}']:9.3f} ms  x{row[f'calls_per_{what}']:6.1f}  "
               f"[{row['class']}] {row['name']}")
-    save_json(result, out / "profile_1b_forward.json")
+    save_json(result, out / f"profile_1b_{what}.json")
     if trace_path.stat().st_size > 48 * 2**20:  # keep what is brought back small
         os.remove(trace_path)
     print(json.dumps(result))

@@ -121,7 +121,7 @@ def test_flash_route(shape, dtype, device, expected):
 
 def test_nvcc_command_targets_sm90a_and_build_dir_is_ignored():
     srcs = _build.sources()
-    assert [s.name for s in srcs] == ["flash_fwd.cu"]
+    assert [s.name for s in srcs] == ["flash_bwd.cu", "flash_fwd.cu"]
     cmd = _build.nvcc_command("nvcc", srcs[0], Path("/x/libflash_fwd.so"))
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert {"-O3", "-shared", "-std=c++17"} <= set(cmd)

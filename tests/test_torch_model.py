@@ -155,6 +155,7 @@ def test_init_params_is_seeded_and_shaped_like_jax():
 
 def test_unported_model_options_raise():
     _, pcfg = _small()
-    for kw in (dict(num_experts=4), dict(attention="ring"), dict(remat=True)):
+    # remat is ported (tests/test_torch_train.py); tp_overlap needs a mesh
+    for kw in (dict(num_experts=4), dict(attention="ring"), dict(tp_overlap="ring")):
         with pytest.raises(NotImplementedError):
             pt_tf.init_params(pcfg.with_(**kw), 0, "cpu")

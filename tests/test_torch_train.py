@@ -1,0 +1,391 @@
+"""The port's train step against the JAX package's, on the same weights.
+
+Weights come from the JAX ``init_params`` and are carried across with
+``params_from_jax``; seeded numpy batches and gradients go into both sides.
+On the CPU the JAX "flash" mode runs the Pallas kernels in interpret mode and
+the port's runs the kernels' plain versions through its autograd Function.
+
+Tolerances (each with its reason):
+
+- loss and gradients, fp32: the same fp32 arithmetic in another order
+  (observed ~1e-6 relative), held to 1e-5 of each leaf's scale;
+- loss and gradients, bf16: every activation and product is rounded to bf16
+  (2**-8 relative) at slightly different places in the two frameworks, and
+  each gradient leaf sums those over 256 tokens and two layers; the loss
+  (an fp32 mean) to 1e-3 relative, each leaf to relative L2 5e-2 (observed
+  ~1.4e-2);
+- the optimizer alone, same gradients in: it follows optax's roundings, so
+  the states and parameters agree to one unit in the last place of their
+  dtype (fp32 ``b ** count`` is the only power taken by another library);
+- three train steps: Adam divides each gradient element by its own running
+  RMS, so every element steps by about lr whatever the size of its
+  gradient, and where an element's gradient is near 0 the gradients'
+  last-bit differences can turn its step.  fp32 params to 0.1 x lr absolute
+  (observed 0.05 x lr).  In bf16 a gradient can be rounding noise in both
+  frameworks (the key bias: its exact gradient is 0, as a constant shift of
+  a row's keys cancels in the softmax), so an element may step the other
+  way in each of the 3 steps: bf16 params to 6 x lr absolute plus 2**-7
+  relative (a step that crosses a bf16 rounding boundary lands one ulp
+  apart), and the change of all parameters together, p3 - p0, to relative
+  L2 0.1 (observed 0.05).  Losses to 1e-5 (fp32) and 1e-3 (bf16) relative.
+"""
+
+import ast
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from dlbb_tpu.data.synthetic import create_dataset_from_config as jax_dataset
+from dlbb_tpu.models import configs as jax_configs
+from dlbb_tpu.models import transformer as jax_tf
+from dlbb_tpu.parallel.plan import ParallelismPlan
+from dlbb_tpu.train import loop as jax_loop
+from dlbb_tpu.train import optim as jax_optim
+from dlbb_tpu_torch import cli
+from dlbb_tpu_torch.data import create_dataset_from_config
+from dlbb_tpu_torch.models import configs as pt_configs
+from dlbb_tpu_torch.models import transformer as pt_tf
+from dlbb_tpu_torch.models.weights import params_from_jax
+from dlbb_tpu_torch.ops import flash_attention as fa
+from dlbb_tpu_torch.train import loop as pt_loop
+from dlbb_tpu_torch.train import optim as pt_optim
+from dlbb_tpu_torch.utils.config import load_config
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+JD = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TD = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _small(dtype="float32", attention="dense", **kw):
+    kw = dict(hidden_size=128, num_layers=2, num_heads=4, ffn_intermediate=256,
+              attention=attention, dtype=dtype, **kw)
+    return jax_configs.ModelConfig(**kw), pt_configs.ModelConfig(**kw)
+
+
+def _jax_tree(cfg, seed=1):
+    return jax.tree.map(np.asarray, jax_tf.init_params(cfg, jax.random.key(seed)))
+
+
+def _batch(seed, b=2, s=128, h=128):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, s, h), dtype=np.float32),
+            rng.standard_normal((b, s, h), dtype=np.float32))
+
+
+def _by_path(tree) -> dict:
+    """Leaves of a JAX pytree (or the port's nested dict) by "a/b/c" path."""
+    if isinstance(tree, dict) and not hasattr(tree, "shape"):
+        return {f"{k}/{p}" if p else k: leaf for k, v in tree.items()
+                for p, leaf in _by_path(v).items()}
+    return {"": tree}
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _port_loss_and_grads(tree, x, t, pcfg):
+    params = params_from_jax(tree, pcfg)
+    leaves = pt_optim.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    td = TD[pcfg.dtype]
+    loss = pt_loop.mse_loss(params, torch.from_numpy(x).to(td),
+                            torch.from_numpy(t).to(td), pcfg)
+    grads = iter(torch.autograd.grad(loss, leaves))
+    return float(loss), pt_optim.tree_map(lambda _: next(grads), params)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("attention", ["dense", "flash"])
+def test_loss_and_grads_match_jax_value_and_grad(attention, dtype):
+    jcfg, pcfg = _small(dtype, attention)
+    tree = _jax_tree(jcfg)
+    x, t = _batch(0)
+    jd = JD[dtype]
+    loss_j, grads_j = jax.value_and_grad(jax_loop.mse_loss)(
+        jax.tree.map(jnp.asarray, tree), jnp.asarray(x, jd), jnp.asarray(t, jd), jcfg)
+    loss_t, grads_t = _port_loss_and_grads(tree, x, t, pcfg)
+    np.testing.assert_allclose(loss_t, float(loss_j), rtol=1e-6 if dtype == "float32" else 1e-3)
+    ref, got = _by_path(grads_j), _by_path(grads_t)
+    assert set(ref) == set(got) and len(got) == 14
+    for name, g in got.items():
+        assert g.dtype == TD[dtype], name
+        g, r = _np(g), _np(ref[name])
+        if dtype == "float32":
+            np.testing.assert_allclose(g, r, atol=1e-5 * np.abs(r).max(), rtol=1e-5,
+                                       err_msg=name)
+        else:
+            rel = np.linalg.norm(g - r) / np.linalg.norm(r)
+            assert rel <= 5e-2, (name, rel)
+
+
+@pytest.mark.parametrize("attention", ["dense", "flash"])
+def test_remat_policies_give_the_same_gradients(attention, monkeypatch):
+    """none/full/dots: the same loss and gradients; under remat the flash
+    forward runs again in the backward (2 per layer, as in JAX, where a
+    pallas_call output is not a dot), the backward once per layer."""
+    jcfg, _ = _small("float32", attention)
+    tree = _jax_tree(jcfg)
+    x, t = _batch(5, s=64)
+    calls = {"fwd": 0, "bwd": 0}
+    real_fwd, real_bwd = fa.flash_attention_fwd, fa.flash_attention_bwd
+
+    def spy_fwd(*a, **kw):
+        calls["fwd"] += 1
+        return real_fwd(*a, **kw)
+
+    def spy_bwd(*a, **kw):
+        calls["bwd"] += 1
+        return real_bwd(*a, **kw)
+
+    monkeypatch.setattr(fa, "flash_attention_fwd", spy_fwd)
+    monkeypatch.setattr(fa, "flash_attention_bwd", spy_bwd)
+    results = {}
+    for remat, policy in ((False, "full"), (True, "full"), (True, "dots")):
+        _, pcfg = _small("float32", attention, remat=remat, remat_policy=policy)
+        calls.update(fwd=0, bwd=0)
+        results[(remat, policy)] = _port_loss_and_grads(tree, x, t, pcfg)
+        if attention == "flash":
+            layers = pcfg.num_layers
+            assert calls == {"fwd": (2 if remat else 1) * layers, "bwd": layers}
+    loss0, grads0 = results[(False, "full")]
+    for key, (loss, grads) in results.items():
+        assert loss == loss0, key
+        for name, g in _by_path(grads).items():
+            torch.testing.assert_close(g, _by_path(grads0)[name], atol=1e-7, rtol=1e-6,
+                                       msg=f"{key} {name}")
+
+
+def _optimizer_inputs(dtype, seed=3):
+    rng = np.random.default_rng(seed)
+    shapes = {"w": (64, 32), "b": (32,), "s": (16,)}
+    params = {k: rng.standard_normal(v, dtype=np.float32) * 0.5 for k, v in shapes.items()}
+    params["s"] += 1.0
+    grads = [{k: rng.standard_normal(v, dtype=np.float32) * 10.0 ** rng.integers(-6, 0)
+              for k, v in shapes.items()} for _ in range(3)]
+    return params, grads
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mdt", [None, "bfloat16"])
+def test_adam_update_matches_optax_on_the_same_gradients(dtype, mdt):
+    cfg = {"learning_rate": 1e-3, "optimizer": "adam"}
+    if mdt is not None:
+        cfg["moments_dtype"] = mdt
+    params, grads = _optimizer_inputs(dtype)
+    opt_j, opt_t = jax_optim.build_optimizer(cfg), pt_optim.build_optimizer(cfg)
+    pj = {k: jnp.asarray(v, JD[dtype]) for k, v in params.items()}
+    pt = {k: torch.from_numpy(v).to(TD[dtype]) for k, v in params.items()}
+    sj, st = opt_j.init(pj), opt_t.init(pt)
+    for g in grads:
+        uj, sj = opt_j.update({k: jnp.asarray(v, JD[dtype]) for k, v in g.items()}, sj, pj)
+        pj = optax.apply_updates(pj, uj)
+        ut, st = opt_t.update({k: torch.from_numpy(v).to(TD[dtype]) for k, v in g.items()},
+                              st, pt)
+        pt = pt_optim.apply_updates(pt, ut)
+    adam_j, adam_t = sj[0], st
+    assert adam_t.count == int(adam_j.count) == 3
+    ulp = np.finfo(np.float32).eps if dtype == "float32" else 2.0 ** -7
+    for k in params:
+        assert pt[k].dtype == TD[dtype]
+        np.testing.assert_allclose(_np(pt[k]), _np(pj[k]), rtol=ulp, atol=0, err_msg=k)
+        for name, mine, ref in (("mu", adam_t.mu[k], adam_j.mu[k]),
+                                ("nu", adam_t.nu[k], adam_j.nu[k])):
+            assert str(mine.dtype).split(".")[-1] == str(ref.dtype), (name, k)
+            m_ulp = np.finfo(np.float32).eps if mine.dtype == torch.float32 else 2.0 ** -7
+            np.testing.assert_allclose(_np(mine), _np(ref), rtol=m_ulp, atol=0,
+                                       err_msg=f"{name}[{k}]")
+
+
+def _mesh(jcfg):
+    conf = {"parallelism": {"world_size": 1, "data_parallel": 1},
+            "input": {"batch_size": 2, "sequence_length": 64}}
+    return ParallelismPlan.from_config(conf, jcfg).mesh
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mdt", [None, "bfloat16"])
+def test_three_adam_steps_match_jax_make_train_step(devices, dtype, mdt):
+    lr = 1e-3
+    train_cfg = {"learning_rate": lr}
+    if mdt is not None:
+        train_cfg["moments_dtype"] = mdt
+    jcfg, pcfg = _small(dtype)
+    tree = _jax_tree(jcfg)
+    x, t = _batch(9, s=64)
+    jd, td = JD[dtype], TD[dtype]
+    jstep, jstate = jax_loop.make_train_step(
+        jcfg, _mesh(jcfg), jax_optim.build_optimizer(train_cfg),
+        jax.tree.map(jnp.array, tree), zero_stage=0)
+    pstep, pstate = pt_loop.make_train_step(
+        pcfg, pt_optim.build_optimizer(train_cfg), params_from_jax(tree, pcfg))
+    losses_j, losses_t = [], []
+    for _ in range(3):
+        jstate, loss = jstep(jstate, jnp.asarray(x, jd), jnp.asarray(t, jd))
+        losses_j.append(float(loss))
+        pstate, loss = pstep(pstate, torch.from_numpy(x).to(td), torch.from_numpy(t).to(td))
+        losses_t.append(float(loss))
+    assert pstate.step == int(jstate.step) == 3
+    np.testing.assert_allclose(losses_t, losses_j, rtol=1e-5 if dtype == "float32" else 1e-3)
+    ref, start = _by_path(jstate.params), _by_path(tree)
+    moved_t, moved_j = [], []
+    for name, p in _by_path(pstate.params).items():
+        assert p.dtype == td
+        if dtype == "float32":
+            np.testing.assert_allclose(_np(p), _np(ref[name]), atol=0.1 * lr, rtol=0,
+                                       err_msg=name)
+        else:
+            np.testing.assert_allclose(_np(p), _np(ref[name]), atol=6 * lr,
+                                       rtol=2.0 ** -7, err_msg=name)
+        moved_t.append((_np(p) - _np(start[name])).ravel())
+        moved_j.append((_np(ref[name]) - _np(start[name])).ravel())
+    moved_t, moved_j = np.concatenate(moved_t), np.concatenate(moved_j)
+    assert np.linalg.norm(moved_t - moved_j) <= 0.1 * np.linalg.norm(moved_j)
+    # the stored moments keep the dtype optax stores them in
+    want = {str(leaf.dtype) for leaf in jax.tree.leaves(jstate.opt_state)
+            if jnp.issubdtype(leaf.dtype, jnp.floating)}
+    adam = pstate.opt_state
+    got = {str(m.dtype).split(".")[-1] for m in
+           pt_optim.tree_leaves(adam.mu) + pt_optim.tree_leaves(adam.nu)}
+    assert got == want == {mdt or dtype}
+
+
+def _train_config(**over):
+    cfg = {
+        "experiment": {"name": "train_smoke"},
+        "model": {"hidden_size": 32, "num_layers": 2, "num_heads": 4,
+                  "ffn_intermediate": 64, "attention": "full", "dtype": "float32"},
+        "parallelism": {"world_size": 1, "data_parallel": 1},
+        "input": {"batch_size": 2, "sequence_length": 16, "seed": 42},
+        "execution": {"warmup_iterations": 1, "benchmark_iterations": 3},
+        "training": {"learning_rate": 1e-3},
+    }
+    cfg.update(over)
+    return cfg
+
+
+def test_run_train_schema_and_flops_match_jax(devices, tmp_path):
+    ref = jax_loop.run_train(_train_config(), verbose=False)
+    got = pt_loop.run_train(_train_config(), device="cpu", output_dir=str(tmp_path),
+                            verbose=False)
+    assert set(ref) <= set(got)
+    assert set(got) - set(ref) == {"device", "kernel_launches_per_step"}
+    assert got["backend"] == "torch_cuda" and got["timing_mode"] == "per_iter"
+    for key in ("mode", "zero_stage", "mesh", "optimizer", "schedule", "learning_rate",
+                "moments_dtype", "gradient_accumulation", "remat", "remat_policy",
+                "num_params", "forward_flops", "model_flops_per_step",
+                "recompute_flops_per_step", "final_step", "grad_compression",
+                "pipeline_schedule", "preempted"):
+        assert got[key] == ref[key], key
+    assert got["kernel_launches_per_step"] == {
+        "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert len(got["losses"]) == 3 and all(np.isfinite(got["losses"]))
+    assert (tmp_path / "train_ddp_train_smoke.json").exists()
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_flops_accounting_matches_jax(policy):
+    for size in ("1B", "7B"):
+        j = jax_configs.MODEL_CONFIGS[size].with_(remat=True, remat_policy=policy)
+        p = pt_configs.MODEL_CONFIGS[size].with_(remat=True, remat_policy=policy)
+        assert pt_tf.num_parameters(p) == jax_tf.num_parameters(j)
+        assert pt_tf.forward_flops(p, 8, 512) == jax_tf.forward_flops(j, 8, 512)
+    assert pt_loop.OPTIMIZER_FLOPS_PER_PARAM == jax_loop.OPTIMIZER_FLOPS_PER_PARAM
+    assert pt_loop.MODE_NAMES == jax_loop.MODE_NAMES
+
+
+def test_run_train_remat_full_counts_the_recompute(devices):
+    model = dict(_train_config()["model"], remat=True, remat_policy="full")
+    ref = jax_loop.run_train(_train_config(model=model), verbose=False)
+    got = pt_loop.run_train(_train_config(model=model), device="cpu", verbose=False)
+    assert got["recompute_flops_per_step"] == ref["recompute_flops_per_step"] > 0
+    assert got["recompute_note"] == ref["recompute_note"]
+
+
+def test_run_train_without_cuda_raises_instead_of_running_on_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt_loop.run_train(_train_config(), verbose=False)
+
+
+@pytest.mark.parametrize("over,match", [
+    ({"training": {"zero_stage": 1}}, "ZeRO stage 1"),
+    ({"training": {"gradient_accumulation": 2}}, "gradient_accumulation"),
+    ({"training": {"checkpoint": {"dir": "x"}}}, "checkpoint"),
+    ({"training": {"grad_compression": "int8"}}, "grad_compression"),
+    ({"training": {"moe_aux_loss_weight": 0.01}}, "moe_aux_loss_weight"),
+    ({"training": {"optimizer": "sgd"}}, "'sgd'"),
+    ({"training": {"schedule": "cosine"}}, "'cosine'"),
+    ({"parallelism": {"world_size": 1, "data_parallel": 2}}, "data_parallel"),
+])
+def test_unported_training_options_are_refused(over, match):
+    with pytest.raises(NotImplementedError, match=match):
+        pt_loop.run_train(_train_config(**over), device="cpu", verbose=False)
+
+
+def test_unknown_names_raise_as_in_jax():
+    for cfg in ({"optimizer": "lion"}, {"schedule": "linear"},
+                {"moments_dtype": "int8"}):
+        with pytest.raises(ValueError):
+            jax_optim.build_optimizer(cfg)
+        with pytest.raises(ValueError):
+            pt_optim.build_optimizer(cfg)
+    assert pt_optim.resolve_names({}) == jax_optim.resolve_names({})
+    assert pt_optim.learning_rate({}) == jax_optim.learning_rate({})
+    for args in ((False, None), (True, None), (False, 2)):
+        assert pt_loop.resolve_zero_stage(*args) == jax_loop.resolve_zero_stage(*args)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_targets_batch_is_the_seed_plus_one_batch_of_jax(dtype):
+    cfg = {"model": {"hidden_size": 32}, "input": {"batch_size": 2,
+                                                  "sequence_length": 8, "seed": 42}}
+    ref = _np(jax_dataset(cfg, dtype=JD[dtype], seed_offset=1).get_batch())
+    got = create_dataset_from_config(cfg, dtype=TD[dtype], seed_offset=1).get_batch()
+    np.testing.assert_array_equal(_np(got), ref)
+    base = create_dataset_from_config(cfg, dtype=TD[dtype]).get_batch()
+    assert not torch.equal(base, got)
+
+
+def test_cli_train_on_cpu(tmp_path):
+    import yaml
+
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump(_train_config()))
+    assert cli.main(["train", "--config", str(path), "--device", "cpu",
+                     "--output", str(tmp_path / "out")]) == 0
+    assert (tmp_path / "out" / "train_ddp_train_smoke.json").exists()
+
+
+def _bench_train_config() -> dict:
+    """``bench.py::_train_step_bench``'s config dict, read from its source."""
+    tree = ast.parse((REPO / "bench.py").read_text())
+    consts = {}
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Tuple):
+            names = [n.id for n in node.targets[0].elts]
+            if "E2E_BATCH" in names:
+                consts.update(zip(names, ast.literal_eval(node.value)))
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == "_train_step_bench")
+    assign = next(n for n in fn.body if isinstance(n, ast.Assign)
+                  and getattr(n.targets[0], "id", None) == "config")
+    return eval(compile(ast.Expression(assign.value), "bench.py", "eval"), {}, consts)
+
+
+def test_shipped_train_config_is_the_bench_extra_verbatim():
+    cfg = load_config(REPO / "dlbb_tpu_torch" / "configs" / "train_1b_adam_bf16m.yaml")
+    assert cfg == _bench_train_config()
+    model = pt_configs.ModelConfig.from_dict(cfg["model"])
+    assert model == pt_configs.MODEL_CONFIGS["1B"].with_(
+        attention="full", remat=True, remat_policy="dots")
