@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlbb_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time]
 
 Phases (each raises on failure, and the script then exits non-zero):
 
-1. build every CUDA kernel of the port from ``dlbb_tpu_torch/ops/csrc``;
+1. build every CUDA kernel of the port from ``dlbb_tpu_torch/ops/csrc``,
+   print each kernel's ``ptxas`` registers and the forward's warp roles
+   (``setmaxnreg``), and fail on any spill;
 2. hold each kernel against its plain PyTorch version on the card, on the
    main path's shape and on the edge cases (GQA, non-causal, ragged S,
    KV-cache decode, fully masked rows): the flash forward's ``(o, lse)``,
-   then the flash backward's ``(dq, dk, dv)`` from a random bf16 ``dO``;
+   also at the edges of its 128 x 128 tiles (a partial Q tile, S = Sk = 130,
+   GQA g = 8, S < Sk non-causal, B*N above 65535), then the flash
+   backward's ``(dq, dk, dv)`` from a random bf16 ``dO``;
 3. drive the forward path through its entry point: ``run_e2e`` on the 1B
    decoder at full width (24 layers, H=2048, 16 heads, FFN 8192), bf16,
    B=8, S=512, ``attention="full"``; check that every layer went through
@@ -24,18 +28,24 @@ Phases (each raises on failure, and the script then exits non-zero):
    and through the dense path, which must agree;
 5. time each kernel alone beside its plain version, one PyTorch library
    call of the same function (a yardstick only: the port never calls it)
-   and the least time the card could take.
+   and the least time the card could take; for the forward also its
+   TFLOP/s, its share of the bound and the time of the kernel it replaced.
+   The forward and SDPA are timed by CUDA-graph replay, since the
+   forward's host enqueue is about as long as its kernel at the main shape.
 
 It then prints the card's name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
-and prints no result.
+``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset for a short
+check (phase 1 always runs) and then prints no result lines.  Without a
+CUDA device it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
+import re
 import sys
 import time
 
@@ -83,6 +93,19 @@ CASES = {
     "decode_s1_sk2048": dict(b=4, n=16, kvh=4, s=1, sk=2048, d=128, causal=True),
     "masked_rows_s200_sk72": dict(b=2, n=4, kvh=4, s=200, sk=72, d=128, causal=True),
 }
+# the forward alone, at the edges of its 128-row Q and 128-key K/V tiles
+FWD_EDGE_CASES = {
+    "partial_q_tile_s320": dict(b=2, n=8, kvh=8, s=320, sk=320, d=128, causal=True),
+    "ragged_s130_sk130": dict(b=2, n=4, kvh=4, s=130, sk=130, d=128, causal=True),
+    "ragged_s130_noncausal_d64": dict(b=2, n=4, kvh=2, s=130, sk=130, d=64, causal=False),
+    "gqa_g8_n16_kvh2": dict(b=2, n=16, kvh=2, s=512, sk=512, d=128, causal=True),
+    "noncausal_s256_sk768": dict(b=2, n=8, kvh=8, s=256, sk=768, d=128, causal=False),
+    "bn65600_s128_d64": dict(b=4100, n=16, kvh=16, s=128, sk=128, d=64, causal=True),
+}
+# the mma.sync forward kernel this design replaced, at the two timed shapes:
+# phase 5 on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's kernel table)
+FWD_BEFORE_MS = {"main": 0.1259, "long": 2.5038}
+PHASES = ("build", "fwd", "bwd", "e2e", "train", "time")
 
 
 def _inputs(torch, shape, seed):
@@ -112,18 +135,39 @@ def _time_ms(torch, fn, reps, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def _time_graph_ms(torch, fn, reps, per_graph=20):
+    """Device time of one ``fn()`` from a CUDA graph of ``per_graph`` calls,
+    replayed: the host's enqueue (Python checks, tensor-map encoding, the
+    ctypes call; about 0.04 ms for the flash forward) drops out, where
+    back-to-back calls timed by events measure it once it is as long as
+    the kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    ms = _time_ms(torch, graph.replay, max(1, reps // per_graph)) / per_graph
+    del graph
+    return ms
+
+
+def _fwd_flops(shape):
+    """The QK^T and PV flops of the visible (row, key) pairs."""
+    return 4 * shape["d"] * _visible_pairs(shape) * shape["b"] * shape["n"]
+
+
 def _bound(shape):
     """Least time for the flash forward at ``shape``: each of q, k, v read
     once, o and lse written once, over the memory rate; the QK^T and PV
     flops of the visible (row, key) pairs over the bf16 tensor rate."""
     b, n, kvh, s, sk, d = (shape[x] for x in ("b", "n", "kvh", "s", "sk", "d"))
     nbytes = 2 * (2 * b * n * s * d + 2 * b * kvh * sk * d) + 4 * b * n * s
-    if shape["causal"]:
-        pairs = sum(min(sk, max(0, r + sk - s + 1)) for r in range(s))
-    else:
-        pairs = s * sk
-    flops = 4 * d * pairs * b * n
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, _fwd_flops(shape) / PEAK_BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -132,15 +176,48 @@ def phase_build(build):
     build.build_all()
     print(f"[build] {len(build.sources())} CUDA source(s) built and loaded in "
           f"{time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds:.1f} s)")
+    spills = []
     for src in build.sources():
         for line in build.ptxas_report(src.stem).splitlines():
-            if "registers" in line or "spill" in line:
+            low = line.lower()
+            if any(w in low for w in ("registers", "spill", "warning", "setmaxnreg", "wgmma")):
                 print(f"[build] {src.stem}: {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and (int(m.group(1)) or int(m.group(2))):
+                spills.append(f"{src.stem}: {line.strip()}")
+    if spills:
+        raise AssertionError("ptxas spilled registers: " + "; ".join(spills))
+    design = _fwd_design(build)
+    print(f"[build] flash_fwd: {design['block_m']} query rows x {design['block_n']}-key "
+          f"tiles, {design['stages']}-stage K and V rings, 1 producer warpgroup at "
+          f"{design['producer_regs']} registers + 2 consumer warpgroups at "
+          f"{design['consumer_regs']} (setmaxnreg); ptxas {design['ptxas_registers']} "
+          f"registers at entry (D = 64, 128); no spills")
+    return design
+
+
+def _fwd_design(build):
+    """The forward kernel's design: its tile and warp-role constants as
+    ``csrc/flash_fwd.cu`` declares them, and the registers ``ptxas`` gave
+    each build of it in this run."""
+    src = (build.CSRC / "flash_fwd.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", build.ptxas_report("flash_fwd"))]
+    return {"kind": "wgmma + TMA 3-D maps, 1 producer and 2 consumer warpgroups, "
+                    "mbarrier K and V rings (csrc/hopper.cuh)",
+            "block_m": const["kBlockM"], "block_n": const["kBlockN"],
+            "stages": const["kStages"], "producer_regs": const["kProducerRegs"],
+            "consumer_regs": const["kConsumerRegs"], "ptxas_registers": regs}
 
 
 def phase_kernel_vs_plain(torch, fa):
     worst_o = worst_lse = 0.0
-    for i, (name, shape) in enumerate(CASES.items()):
+    for i, (name, shape) in enumerate({**CASES, **FWD_EDGE_CASES}.items()):
+        plan = fa.fwd_tile_plan(shape["s"], shape["sk"], causal=shape["causal"])
+        visited = sum(len(v) for v, _ in plan)
+        masked = sum(len(m) for _, m in plan)
+        print(f"[kernel] flash_fwd {name}: {len(plan)} Q tile(s) per head, "
+              f"{visited} K/V tiles visited, {masked} of them masked per element")
         q, k, v = _inputs(torch, shape, seed=100 + i)
         o, lse = fa.flash_attention_fwd(q, k, v, causal=shape["causal"])
         torch.cuda.synchronize()
@@ -381,25 +458,46 @@ def _time_bwd(torch, fa, shape, reps, plain_reps):
     return out
 
 
-def phase_timing(torch, fa, shape, reps):
+def phase_timing(torch, fa, shape, reps, before_ms):
+    """``before_ms`` is the time PERF.md records for the kernel this design
+    replaced, printed beside the new one and not put in the result."""
     import torch.nn.functional as F
 
     q, k, v = _inputs(torch, shape, seed=7)
     causal = shape["causal"]
-    ms = _time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal=causal), reps)
+
+    def kernel():
+        fa.flash_attention_fwd(q, k, v, causal=causal)
+
+    def library():
+        F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+    event_ms = _time_ms(torch, kernel, reps)
+    ms = _time_graph_ms(torch, kernel, reps)
     plain_ms = _time_ms(torch, lambda: fa.flash_fwd_reference(q, k, v, causal=causal),
                         max(1, reps // 4), warmup=1)
-    library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=causal), reps)
+    library_ms = _time_graph_ms(torch, library, reps)
     bound_ms, bound_by = _bound(shape)
+    tflops = _fwd_flops(shape) / (ms * 1e-3) / 1e12
     label = "B={b} N={n} S={s} D={d}".format(**shape)
-    print(f"[time] flash_fwd {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    return {"shape": label, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"[time] flash_fwd {label}: kernel {ms:.4f} ms by graph replay ({tflops:.1f} "
+          f"TFLOP/s, {bound_ms / ms:.1%} of the bound; {event_ms:.4f} ms per call "
+          f"back to back, host enqueue included), plain {plain_ms:.4f} ms, SDPA "
+          f"{library_ms:.4f} ms by graph replay, bound {bound_ms:.4f} ms ({bound_by}); "
+          f"the mma.sync kernel it replaced took {before_ms:.4f} ms (NVIDIA H100 80GB "
+          f"HBM3, 700.00 W; PERF.md)")
+    return {"shape": label, "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "tflops": tflops, "bound_share": bound_ms / ms}
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help=f"comma-separated subset of {','.join(PHASES)} (default: all)")
+    phases = set(parser.parse_args().phases.split(","))
+    if not phases <= set(PHASES):
+        parser.error(f"unknown phase(s) {sorted(phases - set(PHASES))}")
     import torch
 
     if not torch.cuda.is_available():
@@ -415,20 +513,29 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    phase_build(_build)
-    err_o, err_lse = phase_kernel_vs_plain(torch, fa)
-    err_bwd = phase_bwd_vs_plain(torch, fa)
-    launches, _ = phase_main_path(torch, fa, gpu_line)
-    train_launches, _ = phase_train(torch, fa, gpu_line)
-    main_t = phase_timing(torch, fa, MAIN_SHAPE, reps=50)
-    long_t = phase_timing(torch, fa, LONG_SHAPE, reps=10)
-    main_b = _time_bwd(torch, fa, MAIN_SHAPE, reps=50, plain_reps=10)
-    long_b = _time_bwd(torch, fa, LONG_SHAPE, reps=10, plain_reps=2)
+    design = phase_build(_build)
+    if "fwd" in phases:
+        err_o, err_lse = phase_kernel_vs_plain(torch, fa)
+    if "bwd" in phases:
+        err_bwd = phase_bwd_vs_plain(torch, fa)
+    if "e2e" in phases:
+        launches, _ = phase_main_path(torch, fa, gpu_line)
+    if "train" in phases:
+        train_launches, _ = phase_train(torch, fa, gpu_line)
+    if "time" in phases:
+        main_t = phase_timing(torch, fa, MAIN_SHAPE, reps=50, before_ms=FWD_BEFORE_MS["main"])
+        long_t = phase_timing(torch, fa, LONG_SHAPE, reps=10, before_ms=FWD_BEFORE_MS["long"])
+        main_b = _time_bwd(torch, fa, MAIN_SHAPE, reps=50, plain_reps=10)
+        long_b = _time_bwd(torch, fa, LONG_SHAPE, reps=10, plain_reps=2)
+    if phases != set(PHASES):
+        print(f"chip_smoke: phases {sorted(phases)} passed; no result printed for a subset")
+        return 0
 
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "dlbb_tpu_torch/ops/csrc/flash_fwd.cu",
+        "design": design,
         "replaces": "dlbb_tpu/ops/flash_attention.py:99",
         "launches": launches,
         "train_launches": train_launches["flash_fwd"],
@@ -439,6 +546,7 @@ def main() -> int:
         "bound_ms": main_t["bound_ms"],
         "bound_by": main_t["bound_by"],
         "library_ms": main_t["library_ms"],
+        "tflops": main_t["tflops"],
         "shape": main_t["shape"],
         "long": long_t,
     }]

@@ -11,9 +11,11 @@ forward saves ``(q, k, v, o, lse)`` and whose backward is
 implementations of each function sit here:
 
 - the kernels: ``csrc/flash_fwd.cu``, the hand-written CUDA C++ port of the
-  Pallas ``_fwd_kernel``, and ``csrc/flash_bwd.cu``, the ports of
-  ``_dq_kernel`` and ``_dkv_kernel``; launched for CUDA tensors (bf16,
-  head_dim in ``KERNEL_HEAD_DIMS``, contiguous) and counted in
+  Pallas ``_fwd_kernel`` (wgmma, TMA and a warp-specialised K/V ring on the
+  building blocks of ``csrc/hopper.cuh``), and ``csrc/flash_bwd.cu``, the
+  ports of ``_dq_kernel`` and ``_dkv_kernel``; launched for CUDA tensors
+  (bf16, head_dim in ``KERNEL_HEAD_DIMS``, contiguous; the forward's TMA
+  also wants 16-byte-aligned bases, ``tma_compatible``) and counted in
   ``flash_fwd_launches``, ``flash_bwd_dq_launches`` and
   ``flash_bwd_dkv_launches``;
 - ``flash_fwd_reference`` and ``flash_bwd_reference``: the plain PyTorch
@@ -53,6 +55,9 @@ import torch
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128)
+# query rows and keys per tile of the forward kernel (csrc/flash_fwd.cu)
+FWD_BLOCK_M = 128
+FWD_BLOCK_N = 128
 
 # kernel launches since the process started (or the caller last reset them)
 flash_fwd_launches = 0
@@ -63,6 +68,39 @@ flash_bwd_dkv_launches = 0
 def kernel_accepts(q_shape, dtype: torch.dtype) -> bool:
     """Whether the CUDA kernel takes ``q`` of this shape and dtype."""
     return dtype == torch.bfloat16 and q_shape[-1] in KERNEL_HEAD_DIMS
+
+
+def fwd_tile_plan(s: int, sk: int, block_m: int = FWD_BLOCK_M,
+                  block_n: int = FWD_BLOCK_N, causal: bool = True):
+    """The forward kernel's tile rule, for each tile of ``block_m`` query
+    rows: ``(visited, masked)``, the K tiles of ``block_n`` keys it visits
+    (from the last down, as the kernel does) and those of them that take the
+    per-element mask.  A tile no row of the Q tile sees is not visited (the
+    JAX kernel's ``_block_visible``); a tile is left unmasked only where every
+    row of the Q tile sees every one of its keys, so only the tiles that cross
+    the causal diagonal (key ``c`` visible to row ``r`` iff
+    ``c <= r + sk - s``) or the end of the key axis are masked.
+    ``csrc/flash_fwd.cu`` computes the same rule."""
+    offset = sk - s
+    plan = []
+    for q_start in range(0, s, block_m):
+        q_last = min(q_start + block_m, s) - 1
+        kv_end = min(sk, q_last + offset + 1) if causal else sk
+        n_vis = -(-kv_end // block_n) if kv_end > 0 else 0
+        n_full = sk // block_n
+        if causal:
+            n_full = min(n_full, max(0, q_start + offset + 1) // block_n)
+        n_full = min(n_full, n_vis)
+        visited = list(range(n_vis - 1, -1, -1))
+        plan.append((visited, [n for n in visited if n >= n_full]))
+    return plan
+
+
+def tma_compatible(t: torch.Tensor) -> bool:
+    """Whether the forward kernel's TMA can read or write ``t`` in place: a
+    contiguous tensor whose base address is a multiple of 16 bytes (its row
+    strides, D * 2 bytes, are then multiples of 16 too)."""
+    return t.is_contiguous() and t.data_ptr() % 16 == 0
 
 
 def _check_shapes(q, k, v) -> None:
@@ -186,6 +224,11 @@ def _flash_fwd_cuda(q, k, v, *, causal: bool, sm_scale: float):
     b, n, s, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     _check_head_dim(d)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not tma_compatible(t):
+            raise ValueError(f"the flash forward kernel loads {name} by TMA, which "
+                             "needs a 16-byte-aligned contiguous tensor; got "
+                             f"storage offset {t.storage_offset()}")
     o = torch.empty_like(q)
     lse = torch.empty((b, n, s), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", "dlbb_flash_fwd_bf16", q.device,
