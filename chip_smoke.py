@@ -6,13 +6,14 @@
 Phases (each raises on failure, and the script then exits non-zero):
 
 1. build every CUDA kernel of the port from ``dlbb_tpu_torch/ops/csrc``,
-   print each kernel's ``ptxas`` registers and the forward's warp roles
-   (``setmaxnreg``), and fail on any spill;
+   print each kernel's ``ptxas`` registers and the three kernels' tiles
+   and warp roles (``setmaxnreg``), read from their sources, and fail on
+   any spill;
 2. hold each kernel against its plain PyTorch version on the card, on the
-   main path's shape and on the edge cases (GQA, non-causal, ragged S,
-   KV-cache decode, fully masked rows): the flash forward's ``(o, lse)``,
-   also at the edges of its 128 x 128 tiles (a partial Q tile, S = Sk = 130,
-   GQA g = 8, S < Sk non-causal, B*N above 65535), then the flash
+   main path's shape, on the edge cases (GQA, non-causal, ragged S,
+   KV-cache decode, fully masked rows) and at the edges of the kernels'
+   tiles (a partial Q tile, S = Sk = 130, GQA g = 8, S < Sk non-causal,
+   B*N above 65535): the flash forward's ``(o, lse)``, then the flash
    backward's ``(dq, dk, dv)`` from a random bf16 ``dO``;
 3. drive the forward path through its entry point: ``run_e2e`` on the 1B
    decoder at full width (24 layers, H=2048, 16 heads, FFN 8192), bf16,
@@ -28,10 +29,13 @@ Phases (each raises on failure, and the script then exits non-zero):
    and through the dense path, which must agree;
 5. time each kernel alone beside its plain version, one PyTorch library
    call of the same function (a yardstick only: the port never calls it)
-   and the least time the card could take; for the forward also its
-   TFLOP/s, its share of the bound and the time of the kernel it replaced.
-   The forward and SDPA are timed by CUDA-graph replay, since the
-   forward's host enqueue is about as long as its kernel at the main shape.
+   and the least time the card could take, with its TFLOP/s and its share
+   of the bound.  The kernels and the library calls are timed by CUDA-graph
+   replay, since a wrapper's host enqueue is about as long as its kernel at
+   the main shape; the time per call back to back (host included) is
+   printed beside it.  The backward's yardstick is SDPA's flash backward
+   op alone (``aten._scaled_dot_product_flash_attention_backward`` on its
+   forward's saved outputs).
 
 It then prints the card's name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -93,8 +97,10 @@ CASES = {
     "decode_s1_sk2048": dict(b=4, n=16, kvh=4, s=1, sk=2048, d=128, causal=True),
     "masked_rows_s200_sk72": dict(b=2, n=4, kvh=4, s=200, sk=72, d=128, causal=True),
 }
-# the forward alone, at the edges of its 128-row Q and 128-key K/V tiles
-FWD_EDGE_CASES = {
+# at the edges of the kernels' tiles: the forward's 128-row Q and 128-key
+# K/V tiles, the dq kernel's 128-row Q and 64-key K/V tiles, the dk/dv
+# kernel's 128-key blocks and 64-row Q tiles; B*N above 65535
+EDGE_CASES = {
     "partial_q_tile_s320": dict(b=2, n=8, kvh=8, s=320, sk=320, d=128, causal=True),
     "ragged_s130_sk130": dict(b=2, n=4, kvh=4, s=130, sk=130, d=128, causal=True),
     "ragged_s130_noncausal_d64": dict(b=2, n=4, kvh=2, s=130, sk=130, d=64, causal=False),
@@ -187,32 +193,53 @@ def phase_build(build):
                 spills.append(f"{src.stem}: {line.strip()}")
     if spills:
         raise AssertionError("ptxas spilled registers: " + "; ".join(spills))
-    design = _fwd_design(build)
-    print(f"[build] flash_fwd: {design['block_m']} query rows x {design['block_n']}-key "
-          f"tiles, {design['stages']}-stage K and V rings, 1 producer warpgroup at "
-          f"{design['producer_regs']} registers + 2 consumer warpgroups at "
-          f"{design['consumer_regs']} (setmaxnreg); ptxas {design['ptxas_registers']} "
-          f"registers at entry (D = 64, 128); no spills")
-    return design
+    fwd, bwd = _design(build, "flash_fwd"), _design(build, "flash_bwd")
+    roles = (f"1 producer warpgroup at {fwd['producer_regs']} registers + 2 consumer "
+             f"warpgroups at {fwd['consumer_regs']} (setmaxnreg)")
+    print(f"[build] flash_fwd: {fwd['block_m']} query rows x {fwd['block_n']}-key tiles, "
+          f"{fwd['stages']}-stage K and V rings, {roles}; ptxas registers at entry "
+          f"{fwd['ptxas_registers']}; no spills")
+    roles = (f"1 producer warpgroup at {bwd['producer_regs']} registers + 2 consumer "
+             f"warpgroups at {bwd['consumer_regs']} (setmaxnreg)")
+    print(f"[build] flash_bwd dq: {bwd['dq_block_m']} query rows per block, "
+          f"{bwd['dq_block_n']}-key K/V tiles in a {bwd['dq_stages']}-stage ring; dk/dv: "
+          f"{bwd['dkv_block_n']} keys per block, {bwd['dkv_block_m']}-row Q/dO tiles in a "
+          f"{bwd['dkv_stages']}-stage ring; {roles}; ptxas registers at entry "
+          f"{bwd['ptxas_registers']}; no spills")
+    return fwd, bwd
 
 
-def _fwd_design(build):
-    """The forward kernel's design: its tile and warp-role constants as
-    ``csrc/flash_fwd.cu`` declares them, and the registers ``ptxas`` gave
-    each build of it in this run."""
-    src = (build.CSRC / "flash_fwd.cu").read_text()
+def _design(build, stem):
+    """A kernel source's design: its tile and warp-role constants as
+    ``csrc/<stem>.cu`` declares them, and the registers ``ptxas`` gave each
+    kernel built from it in this run, by kernel and head_dim."""
+    src = (build.CSRC / f"{stem}.cu").read_text()
     const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
-    regs = [int(x) for x in re.findall(r"Used (\d+) registers", build.ptxas_report("flash_fwd"))]
-    return {"kind": "wgmma + TMA 3-D maps, 1 producer and 2 consumer warpgroups, "
-                    "mbarrier K and V rings (csrc/hopper.cuh)",
-            "block_m": const["kBlockM"], "block_n": const["kBlockN"],
-            "stages": const["kStages"], "producer_regs": const["kProducerRegs"],
-            "consumer_regs": const["kConsumerRegs"], "ptxas_registers": regs}
+    regs, kernel = {}, None
+    for line in build.ptxas_report(stem).splitlines():
+        m = re.search(r"Function properties for \w*?\d(flash_[a-z_]+?_kernel)ILi(\d+)E", line)
+        if m:
+            kernel = f"{m.group(1)}<{m.group(2)}>"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            regs[kernel] = int(m.group(1))
+    design = {"kind": "wgmma + TMA 3-D maps, 1 producer and 2 consumer warpgroups, "
+                      "mbarrier rings (csrc/hopper.cuh)",
+              "producer_regs": const["kProducerRegs"],
+              "consumer_regs": const["kConsumerRegs"], "ptxas_registers": regs}
+    if stem == "flash_fwd":
+        design.update(block_m=const["kBlockM"], block_n=const["kBlockN"],
+                      stages=const["kStages"])
+    else:
+        design.update(dq_block_m=const["kDqBlockM"], dq_block_n=const["kDqBlockN"],
+                      dq_stages=const["kDqStages"], dkv_block_n=const["kDkvBlockN"],
+                      dkv_block_m=const["kDkvBlockM"], dkv_stages=const["kDkvStages"])
+    return design
 
 
 def phase_kernel_vs_plain(torch, fa):
     worst_o = worst_lse = 0.0
-    for i, (name, shape) in enumerate({**CASES, **FWD_EDGE_CASES}.items()):
+    for i, (name, shape) in enumerate({**CASES, **EDGE_CASES}.items()):
         plan = fa.fwd_tile_plan(shape["s"], shape["sk"], causal=shape["causal"])
         visited = sum(len(v) for v, _ in plan)
         masked = sum(len(m) for _, m in plan)
@@ -247,23 +274,28 @@ def _visible_pairs(shape):
     return s * sk
 
 
+def _bwd_flops(shape, kernel):
+    """6 D (dq: QK^T, dO V^T, dS K) or 8 D (dk/dv: QK^T again, dO V^T,
+    P^T dO, dS^T Q) flops per visible (row, key) pair."""
+    return ((6 if kernel == "dq" else 8) * shape["d"] * _visible_pairs(shape)
+            * shape["b"] * shape["n"])
+
+
 def _bwd_bound(shape, kernel):
     """Least time for one backward kernel at ``shape``: q, k, v, dO, lse and
-    delta read once and its outputs written once, over the memory rate; 6 D
-    (dq: QK^T, dO V^T, dS K) or 8 D (dk/dv: QK^T again, dO V^T, P^T dO,
-    dS^T Q) flops per visible (row, key) pair over the bf16 tensor rate."""
+    delta read once and its outputs written once, over the memory rate; its
+    flops (``_bwd_flops``) over the bf16 tensor rate."""
     b, n, kvh, s, sk, d = (shape[x] for x in ("b", "n", "kvh", "s", "sk", "d"))
     q_bytes, kv_bytes = 2 * b * n * s * d, 2 * b * kvh * sk * d
     nbytes = 2 * q_bytes + 2 * kv_bytes + 2 * 4 * b * n * s
     nbytes += q_bytes if kernel == "dq" else 2 * kv_bytes
-    flops = (6 if kernel == "dq" else 8) * d * _visible_pairs(shape) * b * n
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, _bwd_flops(shape, kernel) / PEAK_BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_bwd_vs_plain(torch, fa):
     worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
-    for i, (name, shape) in enumerate(CASES.items()):
+    for i, (name, shape) in enumerate({**CASES, **EDGE_CASES}.items()):
         q, k, v = _inputs(torch, shape, seed=200 + i)
         causal = shape["causal"]
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
@@ -288,6 +320,7 @@ def phase_bwd_vs_plain(torch, fa):
             if not bool((got[0][:, :, :masked] == 0).all()):
                 raise AssertionError(f"{name}: fully masked rows' dq is not exactly 0")
             print(f"[kernel] flash_bwd {name}: {masked} fully masked rows' dq exactly 0")
+        del q, k, v, o, lse, do, got, ref
     return worst
 
 
@@ -415,9 +448,36 @@ def phase_train(torch, fa, gpu_line):
     return launches, result
 
 
-def _time_bwd(torch, fa, shape, reps, plain_reps):
+def _sdpa_bwd_ms(torch, q, k, v, do, causal, reps):
+    """SDPA's backward, by graph replay: the library's flash backward op
+    alone, on the saved outputs of its flash forward op; and
+    ``F.scaled_dot_product_attention`` with the backend it picks on this card
+    (named in the result), as forward + backward less forward."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
 
+    aten = torch.ops.aten
+    # (out, lse, cum_seq_q, cum_seq_k, max_q, max_k, rng seed, rng offset)
+    saved = aten._scaled_dot_product_flash_attention(q, k, v, 0.0, causal, False)[:8]
+    flash_ms = _time_graph_ms(torch, lambda: aten._scaled_dot_product_flash_attention_backward(
+        do, q, k, v, *saved[:6], 0.0, causal, *saved[6:]), reps)
+
+    backend = SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=causal)).name
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        torch.autograd.grad(out, (qg, kg, vg), do)
+
+    default_ms = _time_graph_ms(torch, sdpa_fwd_bwd, reps) - _time_graph_ms(torch, sdpa_fwd, reps)
+    return flash_ms, default_ms, backend
+
+
+def _time_bwd(torch, fa, shape, reps, plain_reps):
     q, k, v = _inputs(torch, shape, seed=11)
     g = torch.Generator(device="cuda")
     g.manual_seed(12)
@@ -426,35 +486,32 @@ def _time_bwd(torch, fa, shape, reps, plain_reps):
     scale = 1.0 / math.sqrt(shape["d"])
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     delta = fa.flash_bwd_delta(o, do)
-    dq_ms = _time_ms(torch, lambda: fa._flash_bwd_dq_cuda(
-        q, k, v, lse, do, delta, causal=causal, sm_scale=scale), reps)
-    dkv_ms = _time_ms(torch, lambda: fa._flash_bwd_dkv_cuda(
-        q, k, v, lse, do, delta, causal=causal, sm_scale=scale), reps)
+    fns = {"dq": lambda: fa._flash_bwd_dq_cuda(q, k, v, lse, do, delta, causal=causal,
+                                                sm_scale=scale),
+           "dkv": lambda: fa._flash_bwd_dkv_cuda(q, k, v, lse, do, delta, causal=causal,
+                                                  sm_scale=scale)}
+    times = {kernel: (_time_graph_ms(torch, fn, reps), _time_ms(torch, fn, reps))
+             for kernel, fn in fns.items()}
     plain_ms = _time_ms(torch, lambda: fa.flash_bwd_reference(
         q, k, v, o, lse, do, causal=causal), plain_reps, warmup=1)
-    # the library yardstick for the pair: SDPA's backward, as its forward
-    # plus backward less its forward
-    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
-
-    def sdpa_fwd():
-        with torch.no_grad():
-            F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
-
-    def sdpa_fwd_bwd():
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
-        torch.autograd.grad(out, (qg, kg, vg), do)
-
-    sdpa_bwd_ms = _time_ms(torch, sdpa_fwd_bwd, reps) - _time_ms(torch, sdpa_fwd, reps)
+    sdpa_ms, default_ms, backend = _sdpa_bwd_ms(torch, q, k, v, do, causal, reps)
     label = "B={b} N={n} S={s} D={d}".format(**shape)
     out = {}
-    for kernel, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
+    for kernel, (ms, event_ms) in times.items():
         bound_ms, bound_by = _bwd_bound(shape, kernel)
-        out[kernel] = {"shape": label, "ms": ms, "plain_ms": plain_ms,
-                       "library_ms": sdpa_bwd_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by}
-        print(f"[time] flash_bwd_{kernel} {label}: kernel {ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}); plain backward (dq, dk, dv) "
-              f"{plain_ms:.4f} ms; SDPA backward (the pair) {sdpa_bwd_ms:.4f} ms")
+        tflops = _bwd_flops(shape, kernel) / (ms * 1e-3) / 1e12
+        out[kernel] = {"shape": label, "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
+                       "library_ms": sdpa_ms, "sdpa_default_ms": default_ms,
+                       "sdpa_default_backend": backend,
+                       "bound_ms": bound_ms, "bound_by": bound_by, "tflops": tflops,
+                       "bound_share": bound_ms / ms}
+        print(f"[time] flash_bwd_{kernel} {label}: kernel {ms:.4f} ms by graph replay "
+              f"({tflops:.1f} TFLOP/s, {bound_ms / ms:.1%} of the bound; {event_ms:.4f} ms "
+              f"per call back to back, host enqueue included), bound {bound_ms:.4f} ms "
+              f"({bound_by}); plain backward (dq, dk, dv) {plain_ms:.4f} ms; SDPA "
+              f"backward (the pair) {sdpa_ms:.4f} ms (aten flash backward op alone), "
+              f"{default_ms:.4f} ms with its default backend here, {backend} (forward + "
+              "backward less forward), both by graph replay")
     return out
 
 
@@ -513,7 +570,7 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    design = phase_build(_build)
+    fwd_design, bwd_design = phase_build(_build)
     if "fwd" in phases:
         err_o, err_lse = phase_kernel_vs_plain(torch, fa)
     if "bwd" in phases:
@@ -535,7 +592,7 @@ def main() -> int:
         "name": "flash_fwd",
         "route": "cuda",
         "source": "dlbb_tpu_torch/ops/csrc/flash_fwd.cu",
-        "design": design,
+        "design": fwd_design,
         "replaces": "dlbb_tpu/ops/flash_attention.py:99",
         "launches": launches,
         "train_launches": train_launches["flash_fwd"],
@@ -556,17 +613,25 @@ def main() -> int:
             "name": f"flash_bwd_{kernel}",
             "route": "cuda",
             "source": "dlbb_tpu_torch/ops/csrc/flash_bwd.cu",
+            "design": bwd_design,
             "replaces": f"dlbb_tpu/ops/flash_attention.py:{line}",
             "launches": train_launches[f"flash_bwd_{kernel}"],
             "max_abs_err": max(err_bwd[e] for e in errs),
             "ms": t["ms"],
+            "event_ms": t["event_ms"],
             "plain_ms": t["plain_ms"],
             "plain_note": "the whole plain backward (dq, dk, dv in one pass)",
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            "library_note": "SDPA backward (forward + backward less forward), "
-                            "dq, dk and dv together",
+            "library_note": "SDPA backward (the aten flash backward op alone, graph "
+                            "replay), dq, dk and dv together",
+            "sdpa_default_ms": t["sdpa_default_ms"],
+            "sdpa_default_note": f"F.scaled_dot_product_attention's backward with its "
+                                 f"default backend ({t['sdpa_default_backend']}), forward + "
+                                 "backward less forward, graph replay",
+            "tflops": t["tflops"],
+            "bound_share": t["bound_share"],
             "shape": t["shape"],
             "long": long_b[kernel],
         })

@@ -13,468 +13,602 @@
 //                         with p rounded to bf16 first;
 //   dk = the same sum of ds^T . q, ds rounded to bf16 first.
 // So a row that sees no key gets exactly zero dq and adds nothing to dk/dv.
+// No atomics: every output element is summed inside one block, in a fixed
+// order, so the results are the same bits from run to run.
 //
 // What bounds it on this card.  Per (query row, visible key) dq does 6 * D
-// flops (QK^T, dO V^T, dS K) and dk/dv 8 * D (QK^T recomputed, dO V^T, P^T dO,
-// dS^T Q) against q, k, v, dO read once, so at the model's shapes (D = 128,
-// S = 512) the pair is near the balance point of bytes and operations and the
-// tensor-core issue rate of mma.sync decides.  The design:
-//   - dq: one block of 4 warps per (B*N row, 64 query rows); each warp keeps
-//     its 16 rows of Q and dO as A fragments, and their lse and delta, in
-//     registers, with an fp32 dq accumulator; the TPU's sequential K grid
-//     axis is a loop inside the block over 32-key K/V tiles staged in shared
-//     memory, stopping at the last tile a causal block sees;
-//   - dk/dv: one block of 4 warps per (B*KVH row, 64 keys), each warp owning
-//     16 keys with fp32 dk and dv accumulators; the loop runs over the g
-//     query heads of the group and, in each, over 32-row Q/dO tiles from the
-//     first tile that sees this K tile (the JAX kernel's flattened
-//     (group, Q block) inner grid); it computes the transposed scores
-//     S^T = K . Q^T and dP^T = V . dO^T, so P^T and dS^T sit in the
-//     accumulator layout that the A operand of P^T . dO and dS^T . Q takes;
-//   - all products are mma.sync m16n8k16 (bf16 in, fp32 accumulate); a B
-//     operand that needs the other layout (K for dS . K, dO and Q for the
-//     dk/dv products) is read from the row-major tile as column pairs;
-//   - ragged S and Sk are masked per element with zero fill past the end;
-//     GQA reads K/V row bn / g, never a repeated copy.
-// Not done yet (later work): wgmma, TMA, double-buffered tiles, a fused
-// delta preprocess (delta stays one torch expression in the wrapper).
+// flops (Q.K^T, dO.V^T, dS.K) and dk/dv 8 * D (Q.K^T again, dO.V^T, P^T.dO,
+// dS^T.Q) against q, k, v, dO read once: at the model's shape (B=8, N=16,
+// S=512, D=128) the bytes bound both (0.025 and 0.030 ms), at S=8192 the
+// tensor cores (0.42 and 0.56 ms).  Two kernels, as on the TPU, rather than
+// one with dq summed by atomics: the price is the recomputed Q.K^T and
+// dO.V^T (14 * D flops per pair for the pair instead of 10 * D).  Both are
+// built like the forward (flash_fwd.cu) on the pieces of hopper.cuh:
+//   - one block of three warpgroups; warpgroup 0, the producer, gives its
+//     registers away (setmaxnreg) and one of its threads issues every TMA
+//     load into mbarrier rings ("full": bytes landed, "empty": every
+//     consumer warp done); warpgroups 1 and 2, the consumers, run wgmma;
+//   - every tensor is a 3-D tensor map (D, S, planes) with 64-row boxes of
+//     64-column slabs and the 128-byte swizzle: a ragged tail reads zeros and
+//     a store writes nothing past its own head's rows;
+//   - all rows are in blockIdx.x (no 65535 cap on B*N), heaviest causal
+//     tile first;
+//   - results leave through shared memory and a TMA store.
+// dq (_dq_kernel): one block per (B*N row, 128 query rows); the producer
+// loads the Q and dO tiles once, then 64-key K and V tiles (plane bn / g)
+// into a 3-stage ring, up to the last tile the block sees.  Each consumer
+// owns 64 query rows with their lse and delta in registers, and per tile
+// runs S = Q.K^T and dP = dO.V^T (wgmma, both operands K-major in shared
+// memory), P = exp2(S * scale * log2e - lse * log2e) and dS in registers,
+// then dq += dS.K with dS packed to bf16 as the A fragment and K read
+// MN-major through the transpose bit (the forward's P.V with K for V); the
+// next tile's S and dP are issued before the wait on this dS.K.
+// dk/dv (_dkv_kernel): one block per (B*KVH row, 128 keys); K and V are
+// loaded once; the loop runs over the g query heads of the group and, in
+// each, over 64-row Q tiles from the first that sees the block's keys (the
+// TPU's flattened (group, Q block) grid axis).  The producer's warp fills
+// a 3-stage ring of Q and dO tiles and, beside each, its 64 rows' lse (in
+// log2 units, +inf for rows that give p = 0) and delta, which the warp's
+// lanes read with plain loads (fp32 rows of S = 130 do not suit TMA).
+// Each consumer owns 64 keys and runs S^T = K.Q^T and dP^T = V.dO^T, then
+// dv += P^T.dO and dk += dS^T.Q with P^T and dS^T packed to bf16 from
+// registers and dO and Q read MN-major.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;  // bf16 pad per smem row: no bank conflicts
+constexpr int kThreads = 3 * 128;
+constexpr int kConsumerWarps = 8;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kDqBlockM = 128;   // query rows per dq block: two consumers x 64
+constexpr int kDqBlockN = 64;    // keys per K/V tile of the dq loop
+constexpr int kDkvBlockN = 128;  // keys per dk/dv block: two consumers x 64
+constexpr int kDkvBlockM = 64;   // query rows per Q/dO tile of the dk/dv loop
+constexpr int kDqStages = 3;     // depth of the dq kernel's K/V ring
+constexpr int kDkvStages = 3;    // depth of the dk/dv kernel's Q/dO ring
+constexpr int kBox = 64;         // rows per TMA box
+constexpr int kBoxBytes = kBox * 128;  // one box of one 64-column slab
 constexpr float kNegInf = -1e30f;
-constexpr int kDqRows = kWarps * 16;   // query rows per dq block
-constexpr int kDqKeys = 32;            // keys per K/V tile of the dq loop
-constexpr int kDkvKeys = kWarps * 16;  // keys per dk/dv block
-constexpr int kDkvRows = 32;           // query rows per Q/dO tile of the dk/dv loop
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// Shared memory of the dq kernel: the Q and dO tiles, then rings of K and
+// V tiles, then the barriers.
+template <int D>
+struct DqCfg {
+  static constexpr int kSlabs = D / 64;
+  static constexpr int kSlabQ = kDqBlockM * 128;   // bytes of one Q (or dO) slab
+  static constexpr int kSlabKV = kDqBlockN * 128;  // bytes of one K (or V) slab
+  static constexpr int kQBytes = kSlabs * kSlabQ;
+  static constexpr int kKVBytes = kSlabs * kSlabKV;
+  static constexpr int kOffDo = kQBytes;
+  static constexpr int kOffK = 2 * kQBytes;
+  static constexpr int kOffV = kOffK + kDqStages * kKVBytes;
+  static constexpr int kOffBar = kOffV + kDqStages * kKVBytes;
+  static constexpr int kBars = 1 + 2 * kDqStages;  // q_full, full[], empty[]
+  static constexpr int kSmemBytes = kOffBar + 8 * kBars + 1024;  // + alignment slack
+};
 
-// two floats -> one register of two bf16, `lo` in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// Shared memory of the dk/dv kernel: the K and V tiles, then rings of Q and
+// dO tiles and of their rows' lse and delta, then the barriers.
+template <int D>
+struct DkvCfg {
+  static constexpr int kSlabs = D / 64;
+  static constexpr int kSlabKV = kDkvBlockN * 128;
+  static constexpr int kSlabQ = kDkvBlockM * 128;
+  static constexpr int kKVBytes = kSlabs * kSlabKV;
+  static constexpr int kQBytes = kSlabs * kSlabQ;
+  static constexpr int kOffV = kKVBytes;
+  static constexpr int kOffQ = 2 * kKVBytes;
+  static constexpr int kOffDo = kOffQ + kDkvStages * kQBytes;
+  static constexpr int kOffRows = kOffDo + kDkvStages * kQBytes;  // [stage][lse, delta][64] fp32
+  static constexpr int kOffBar = kOffRows + kDkvStages * 2 * kDkvBlockM * 4;
+  static constexpr int kBars = 1 + 2 * kDkvStages;  // kv_full, full[], empty[]
+  static constexpr int kSmemBytes = kOffBar + 8 * kBars + 1024;
+};
 
-// two neighbouring bf16 of one row
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 of one column: p[0] in the low half, p[stride] in the high half
-__device__ __forceinline__ uint32_t ld_col_pair(const __nv_bfloat16* p, int stride) {
-  __nv_bfloat162 v;
-  v.x = p[0];
-  v.y = p[stride];
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// the A fragment of a 16 x 16 bf16 tile of smem rows r0, r0 + 8, cols c, c + 8
-// (c = 16 kc + 2 t)
-__device__ __forceinline__ void ld_a_frag(uint32_t a[4], const __nv_bfloat16* row0,
-                                          const __nv_bfloat16* row1) {
-  a[0] = ld_pair(row0);
-  a[1] = ld_pair(row1);
-  a[2] = ld_pair(row0 + 8);
-  a[3] = ld_pair(row1 + 8);
-}
-
-// copy rows [row0, row0 + ROWS) of a [nrows, D] bf16 matrix into a padded
-// smem tile, 16 bytes per thread per step, zeros past nrows
-template <int D, int ROWS>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16 (*dst)[D + kPad],
-                                           const __nv_bfloat16* src, int row0,
-                                           int nrows, int tid) {
-  constexpr int kChunks = D / 8;
-  for (int c = tid; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks, ch = c % kChunks;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < nrows)
-      val = *reinterpret_cast<const uint4*>(src + (int64_t)(row0 + r) * D + ch * 8);
-    *reinterpret_cast<uint4*>(&dst[r][ch * 8]) = val;
+// acc[64 x 64] = A[64 rows, D] . B[64 rows, D]^T, both K-major in 64-column
+// slabs (slab_a and slab_b bytes apart): D / 16 steps of k16, each moving 32
+// bytes along the 128-byte rows
+template <int D>
+__device__ __forceinline__ void issue_abt(float (&acc)[32], uint32_t a, uint32_t slab_a,
+                                          uint32_t b, uint32_t slab_b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t a_off = (kk / 4) * slab_a + (kk % 4) * 32;
+    const uint32_t b_off = (kk / 4) * slab_b + (kk % 4) * 32;
+    hopper::wgmma_m64n64k16_ss<0>(acc, hopper::desc_sw128(a + a_off, 16, 1024),
+                                  hopper::desc_sw128(b + b_off, 16, 1024), kk > 0);
   }
+}
+
+// acc[64 x D] += A[64 x 64] . B[64 rows, D]: A from registers (the bf16
+// fragments of an accumulator), B read MN-major through the transpose bit,
+// 16 rows (2048 bytes of every slab) per step, slabs slab_b bytes apart
+template <int D>
+__device__ __forceinline__ void issue_ab(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+                                         uint32_t b, uint32_t slab_b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t desc = hopper::desc_sw128(b + kk * 16 * 128, slab_b, 1024);
+    if constexpr (D == 128)
+      hopper::wgmma_m64n128k16_rs<1>(acc, a[kk], desc, 1);
+    else
+      hopper::wgmma_m64n64k16_rs<1>(acc, a[kk], desc, 1);
+  }
+}
+
+// One consumer's accumulator (fp32, rows r_local and r_local + 8 of its 64)
+// -> bf16 into its 64 rows of a tile in shared memory, swizzled as TMA reads
+// it; then one TMA store per slab of those rows at (row0, plane).  Rows past
+// the map's extent are not written.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], uint8_t* smem, uint32_t base,
+                                           uint32_t rows, uint32_t slab, const CUtensorMap* map,
+                                           int row0, int plane, int extent, int cwg, int tid) {
+  const int lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int r_local = (tid / 32) * 16 + g;
+  hopper::named_barrier_sync(1 + cwg, 128);  // every warp of this consumer is done with `rows`
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const uint32_t s0 = rows - base + (j / 8) * slab;
+    const uint32_t chunk = ((j % 8) ^ g) * 16 + 4 * t;  // (r_local + 8) % 8 == g too
+    *reinterpret_cast<uint32_t*>(smem + s0 + r_local * 128 + chunk) =
+        hopper::pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(smem + s0 + (r_local + 8) * 128 + chunk) =
+        hopper::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  hopper::fence_proxy_async_smem();
+  hopper::named_barrier_sync(1 + cwg, 128);
+  if (tid == 0 && row0 < extent) {
+#pragma unroll
+    for (int j = 0; j < D / 64; ++j) hopper::tma_store_3d(map, rows + j * slab, 64 * j, row0, plane);
+    hopper::tma_store_commit_and_wait();
+  }
+}
+
+// dS = P * (dP - delta) * scale of one K tile for the rows row0, row1 of
+// this thread, from the S and dP accumulators (sc[4j + e] is (row0, key
+// col0 + 8j + e), sc[4j + 2 + e] is (row1, the same key), col0 = the tile's
+// first key + 2t), rounded to bf16 as the A fragments of dS.K.  lse0, lse1
+// are in log2 units, +inf where p must be 0.
+struct DqRows {
+  int row0, row1;
+  float lse0, lse1, dl0, dl1;
+};
+
+__device__ __forceinline__ void ds_frags(uint32_t (&da)[4][4], float (&sc)[32],
+                                         const float (&dp)[32], const DqRows& r, bool mask,
+                                         int col0, int sk, int causal, int offset, float c,
+                                         float sm_scale) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = col0 + 8 * j + e;
+      float p0 = hopper::ex2(fmaf(sc[4 * j + e], c, -r.lse0));
+      float p1 = hopper::ex2(fmaf(sc[4 * j + 2 + e], c, -r.lse1));
+      if (mask) {
+        if (!(col < sk && (!causal || col <= r.row0 + offset))) p0 = 0.f;
+        if (!(col < sk && (!causal || col <= r.row1 + offset))) p1 = 0.f;
+      }
+      sc[4 * j + e] = p0 * (dp[4 * j + e] - r.dl0) * sm_scale;
+      sc[4 * j + 2 + e] = p1 * (dp[4 * j + 2 + e] - r.dl1) * sm_scale;
+    }
+  }
+  hopper::acc_to_a_frags<64>(da, sc);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dq, int s, int sk, int group,
-                    float sm_scale, int causal) {
-  __shared__ __align__(16) __nv_bfloat16 k_s[kDqKeys][D + kPad];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kDqKeys][D + kPad];
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tdq, const float* __restrict__ lse,
+                    const float* __restrict__ delta, int bn_total, int s, int sk, int group,
+                    float sm_scale, int causal, int q_blocks) {
+  using C = DqCfg<D>;
+  constexpr int S = kDqStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the 128-byte swizzle wants 1024
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t sQ = base, sDo = base + C::kOffDo, sK = base + C::kOffK, sV = base + C::kOffV;
+  const uint32_t q_full = base + C::kOffBar;
+  auto full = [&](int st) { return q_full + 8u * (1 + st); };
+  auto empty = [&](int st) { return q_full + 8u * (1 + S + st); };
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;  // fragment row (and B-operand column)
-  const int t = lane % 4;  // fragment column pair
-  const int bn = blockIdx.y;
-  const int q_start = blockIdx.x * kDqRows;
+  const int bn = blockIdx.x % bn_total;
+  const int qb = q_blocks - 1 - static_cast<int>(blockIdx.x / bn_total);  // heaviest first
+  const int q_start = qb * kDqBlockM;
   const int offset = sk - s;
-
-  const __nv_bfloat16* q_bn = q + (int64_t)bn * s * D;
-  const __nv_bfloat16* do_bn = dout + (int64_t)bn * s * D;
-  const __nv_bfloat16* k_bn = k + (int64_t)(bn / group) * sk * D;
-  const __nv_bfloat16* v_bn = v + (int64_t)(bn / group) * sk * D;
-
-  // this thread's two query rows
-  const int r0 = q_start + warp * 16 + g;
-  const int r1 = r0 + 8;
-
-  // Q and dO as A fragments, one per 16-wide slice of D
-  uint32_t qf[D / 16][4], df[D / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const int c = kc * 16 + 2 * t;
-    qf[kc][0] = r0 < s ? ld_pair(q_bn + (int64_t)r0 * D + c) : 0u;
-    qf[kc][1] = r1 < s ? ld_pair(q_bn + (int64_t)r1 * D + c) : 0u;
-    qf[kc][2] = r0 < s ? ld_pair(q_bn + (int64_t)r0 * D + c + 8) : 0u;
-    qf[kc][3] = r1 < s ? ld_pair(q_bn + (int64_t)r1 * D + c + 8) : 0u;
-    df[kc][0] = r0 < s ? ld_pair(do_bn + (int64_t)r0 * D + c) : 0u;
-    df[kc][1] = r1 < s ? ld_pair(do_bn + (int64_t)r1 * D + c) : 0u;
-    df[kc][2] = r0 < s ? ld_pair(do_bn + (int64_t)r0 * D + c + 8) : 0u;
-    df[kc][3] = r1 < s ? ld_pair(do_bn + (int64_t)r1 * D + c + 8) : 0u;
-  }
-  const float lse0 = r0 < s ? lse[(int64_t)bn * s + r0] : kNegInf;
-  const float lse1 = r1 < s ? lse[(int64_t)bn * s + r1] : kNegInf;
-  const float dl0 = r0 < s ? delta[(int64_t)bn * s + r0] : 0.f;
-  const float dl1 = r1 < s ? delta[(int64_t)bn * s + r1] : 0.f;
-  // rows past s and rows that saw no key in the forward get p = 0
-  const bool live0 = lse0 > 0.5f * kNegInf;
-  const bool live1 = lse1 > 0.5f * kNegInf;
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  // last key any row of this block sees, plus one
-  const int q_last = min(q_start + kDqRows, s) - 1;
+  // K tiles [0, n_vis) hold a key some row of the block sees; tiles from
+  // n_full up cross the causal diagonal or sk and take the per-element mask
+  const int q_last = min(q_start + kDqBlockM, s) - 1;
   const int kv_end = causal ? min(sk, q_last + offset + 1) : sk;
+  const int n_vis = kv_end > 0 ? (kv_end + kDqBlockN - 1) / kDqBlockN : 0;
+  int n_full = sk / kDqBlockN;
+  if (causal) n_full = min(n_full, max(0, q_start + offset + 1) / kDqBlockN);
+  n_full = min(n_full, n_vis);
 
-  for (int kv_start = 0; kv_start < kv_end; kv_start += kDqKeys) {
-    __syncthreads();  // every warp is done with the previous tile
-    stage_rows<D, kDqKeys>(k_s, k_bn, kv_start, sk, tid);
-    stage_rows<D, kDqKeys>(v_s, v_bn, kv_start, sk, tid);
-    __syncthreads();
-
-    // S = Q . K^T and dP = dO . V^T for this warp's 16 rows x 32 keys
-    float sc[kDqKeys / 8][4], dp[kDqKeys / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kDqKeys / 8; ++nt) {
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int st = 0; st < S; ++st) {
+      hopper::mbar_init(full(st), 1);
+      hopper::mbar_init(empty(st), kConsumerWarps);
     }
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-#pragma unroll
-      for (int nt = 0; nt < kDqKeys / 8; ++nt) {
-        const __nv_bfloat16* kr = &k_s[nt * 8 + g][kc * 16 + 2 * t];
-        mma_16816(sc[nt], qf[kc], ld_pair(kr), ld_pair(kr + 8));
-        const __nv_bfloat16* vr = &v_s[nt * 8 + g][kc * 16 + 2 * t];
-        mma_16816(dp[nt], df[kc], ld_pair(vr), ld_pair(vr + 8));
-      }
-    }
-
-    // P = exp(S * scale - lse) on visible entries, 0 elsewhere;
-    // dS = P * (dP - delta) * scale, kept in sc
-#pragma unroll
-    for (int nt = 0; nt < kDqKeys / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool upper = j < 2;
-        const int row = upper ? r0 : r1;
-        const int col = kv_start + nt * 8 + 2 * t + (j & 1);
-        const bool visible = (upper ? live0 : live1) && col < sk &&
-                             (!causal || col <= row + offset);
-        const float p = visible ? __expf(sc[nt][j] * sm_scale - (upper ? lse0 : lse1)) : 0.f;
-        sc[nt][j] = p * (dp[nt][j] - (upper ? dl0 : dl1)) * sm_scale;
-      }
-    }
-
-    // dQ += dS . K: score tiles 2kc, 2kc+1 are the A fragment of keys
-    // 16kc .. 16kc+15 (dS rounded to bf16); K read as column pairs
-#pragma unroll
-    for (int kc = 0; kc < kDqKeys / 16; ++kc) {
-      uint32_t sa[4];
-      sa[0] = pack_bf16(sc[2 * kc][0], sc[2 * kc][1]);
-      sa[1] = pack_bf16(sc[2 * kc][2], sc[2 * kc][3]);
-      sa[2] = pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]);
-      sa[3] = pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const __nv_bfloat16* kp = &k_s[kc * 16 + 2 * t][dt * 8 + g];
-        mma_16816(acc[dt], sa, ld_col_pair(kp, D + kPad),
-                  ld_col_pair(kp + 8 * (D + kPad), D + kPad));
-      }
-    }
+    hopper::mbar_fence_init();
   }
+  __syncthreads();
 
-  __nv_bfloat16* dq_bn = dq + (int64_t)bn * s * D;
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------------ producer
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hopper::tma_prefetch_desc(&tq);
+      hopper::tma_prefetch_desc(&tdo);
+      hopper::tma_prefetch_desc(&tk);
+      hopper::tma_prefetch_desc(&tv);
+      // Q and dO: the boxes of 64 rows that start inside s (rows past s of
+      // a box read zeros; a box wholly past s is left unloaded, and only
+      // its own rows, which are not stored, ever read it)
+      const int boxes = min(kDqBlockM / kBox, (s - q_start + kBox - 1) / kBox);
+      hopper::mbar_arrive_expect_tx(q_full, 2 * boxes * C::kSlabs * kBoxBytes);
+      for (int j = 0; j < C::kSlabs; ++j) {
+        for (int h = 0; h < boxes; ++h) {
+          const uint32_t off = j * C::kSlabQ + h * kBoxBytes;
+          hopper::tma_load_3d(sQ + off, &tq, q_full, 64 * j, q_start + h * kBox, bn);
+          hopper::tma_load_3d(sDo + off, &tdo, q_full, 64 * j, q_start + h * kBox, bn);
+        }
+      }
+      const int kv_plane = bn / group;
+      for (int it = 0; it < n_vis; ++it) {
+        const int st = it % S;
+        if (it >= S) hopper::mbar_wait(empty(st), ((it / S) - 1) & 1);
+        hopper::mbar_arrive_expect_tx(full(st), 2 * C::kKVBytes);
+        for (int j = 0; j < C::kSlabs; ++j) {
+          const uint32_t off = st * C::kKVBytes + j * C::kSlabKV;
+          hopper::tma_load_3d(sK + off, &tk, full(st), 64 * j, it * kDqBlockN, kv_plane);
+          hopper::tma_load_3d(sV + off, &tv, full(st), 64 * j, it * kDqBlockN, kv_plane);
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    const int cwg = threadIdx.x / 128 - 1;  // 0 or 1: rows 64 * cwg ..
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int row0 = q_start + cwg * 64 + (tid / 32) * 16 + g;
+    const float c = sm_scale * kLog2e;
+    // lse in log2 units, +inf where p must be 0 (rows past s, rows that saw
+    // no key): exp2(x - inf) = 0
+    DqRows r{row0, row0 + 8, INFINITY, INFINITY, 0.f, 0.f};
+    if (r.row0 < s) {
+      const float l = lse[(int64_t)bn * s + r.row0];
+      r.lse0 = l > 0.5f * kNegInf ? l * kLog2e : INFINITY;
+      r.dl0 = delta[(int64_t)bn * s + r.row0];
+    }
+    if (r.row1 < s) {
+      const float l = lse[(int64_t)bn * s + r.row1];
+      r.lse1 = l > 0.5f * kNegInf ? l * kLog2e : INFINITY;
+      r.dl1 = delta[(int64_t)bn * s + r.row1];
+    }
+    const uint32_t q_rows = sQ + cwg * 64 * 128, do_rows = sDo + cwg * 64 * 128;
+
+    float dq[D / 2];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (r0 < s)
-      *reinterpret_cast<__nv_bfloat162*>(dq_bn + (int64_t)r0 * D + c) =
-          __floats2bfloat162_rn(acc[dt][0], acc[dt][1]);
-    if (r1 < s)
-      *reinterpret_cast<__nv_bfloat162*>(dq_bn + (int64_t)r1 * D + c) =
-          __floats2bfloat162_rn(acc[dt][2], acc[dt][3]);
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+    hopper::mbar_wait(q_full, 0);
+    if (n_vis > 0) {
+      float sc[32], dp[32];
+      uint32_t da[4][4];
+      hopper::mbar_wait(full(0), 0);
+      hopper::wgmma_fence();
+      issue_abt<D>(sc, q_rows, C::kSlabQ, sK, C::kSlabKV);
+      issue_abt<D>(dp, do_rows, C::kSlabQ, sV, C::kSlabKV);
+      hopper::wgmma_commit();
+      // tile it: its dS.K goes to the tensor cores, then tile it + 1's S and
+      // dP behind it; the last tile is peeled off so that every issue in the
+      // loop is unconditional
+      for (int it = 0; it < n_vis - 1; ++it) {
+        const int st = it % S, nst = (it + 1) % S;
+        hopper::wgmma_wait<0>();  // S and dP of tile it
+        hopper::fence_regs(sc);
+        hopper::fence_regs(dp);
+        ds_frags(da, sc, dp, r, it >= n_full, it * kDqBlockN + 2 * t, sk, causal, offset, c,
+                 sm_scale);
+        hopper::wgmma_fence();
+        issue_ab<D>(dq, da, sK + st * C::kKVBytes, C::kSlabKV);
+        hopper::wgmma_commit();
+        hopper::mbar_wait(full(nst), ((it + 1) / S) & 1);
+        issue_abt<D>(sc, q_rows, C::kSlabQ, sK + nst * C::kKVBytes, C::kSlabKV);
+        issue_abt<D>(dp, do_rows, C::kSlabQ, sV + nst * C::kKVBytes, C::kSlabKV);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // dS.K of tile it (groups complete in order)
+        hopper::fence_regs(dq);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) hopper::fence_regs(da[kk]);
+        if (lane == 0) hopper::mbar_arrive(empty(st));
+      }
+      const int last = n_vis - 1;
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+      ds_frags(da, sc, dp, r, last >= n_full, last * kDqBlockN + 2 * t, sk, causal, offset, c,
+               sm_scale);
+      hopper::wgmma_fence();
+      issue_ab<D>(dq, da, sK + (last % S) * C::kKVBytes, C::kSlabKV);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dq);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hopper::fence_regs(da[kk]);
+    }
+    store_rows<D>(dq, smem, base, q_rows, C::kSlabQ, &tdq, q_start + cwg * 64, bn, s, cwg, tid);
   }
 }
 
 template <int D>
-constexpr int dkv_smem_bytes() {
-  return (2 * kDkvKeys + 2 * kDkvRows) * (D + kPad) * (int)sizeof(__nv_bfloat16) +
-         2 * kDkvRows * (int)sizeof(float);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tdk, const __grid_constant__ CUtensorMap tdv,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                     int s, int sk, int group, float sm_scale, int causal) {
-  // K and V tiles of this block, then one Q/dO tile with its lse and delta
-  extern __shared__ __align__(16) unsigned char smem[];
-  using Row = __nv_bfloat16[D + kPad];
-  Row* k_s = reinterpret_cast<Row*>(smem);
-  Row* v_s = k_s + kDkvKeys;
-  Row* q_s = v_s + kDkvKeys;
-  Row* do_s = q_s + kDkvRows;
-  float* lse_s = reinterpret_cast<float*>(do_s + kDkvRows);
-  float* dl_s = lse_s + kDkvRows;
+                     int bkv_total, int s, int sk, int group, float sm_scale, int causal) {
+  using C = DkvCfg<D>;
+  constexpr int S = kDkvStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t sK = base, sV = base + C::kOffV, sQ = base + C::kOffQ, sDo = base + C::kOffDo;
+  float* rows_lse = reinterpret_cast<float*>(smem + C::kOffRows);  // + st * 128: lse, + 64: delta
+  const uint32_t kv_full = base + C::kOffBar;
+  auto full = [&](int st) { return kv_full + 8u * (1 + st); };
+  auto empty = [&](int st) { return kv_full + 8u * (1 + S + st); };
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int bkv = blockIdx.y;
-  const int k_start = blockIdx.x * kDkvKeys;
+  const int bkv = blockIdx.x % bkv_total;
+  const int kb = static_cast<int>(blockIdx.x / bkv_total);  // causal: lowest keys see most rows
+  const int k_start = kb * kDkvBlockN;
   const int offset = sk - s;
+  // per query head, Q tiles [qt0, q_tiles): from the first holding a row
+  // that sees key k_start
+  const int q_begin = causal ? max(0, k_start - offset) : 0;
+  const int qt0 = q_begin / kDkvBlockM;
+  const int q_tiles = (s + kDkvBlockM - 1) / kDkvBlockM;
+  const int per_head = max(0, q_tiles - qt0);
+  const int n_iter = group * per_head;
 
-  const __nv_bfloat16* k_b = k + (int64_t)bkv * sk * D;
-  const __nv_bfloat16* v_b = v + (int64_t)bkv * sk * D;
-  stage_rows<D, kDkvKeys>(k_s, k_b, k_start, sk, tid);
-  stage_rows<D, kDkvKeys>(v_s, v_b, k_start, sk, tid);
-
-  // this thread's two keys: rows kr0, kr1 of the tile
-  const int kr0 = warp * 16 + g;
-  const int kr1 = kr0 + 8;
-  const int key0 = k_start + kr0;
-  const int key1 = k_start + kr1;
-
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    dka[i][0] = dka[i][1] = dka[i][2] = dka[i][3] = 0.f;
-    dva[i][0] = dva[i][1] = dva[i][2] = dva[i][3] = 0.f;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int st = 0; st < S; ++st) {
+      hopper::mbar_init(full(st), 32);  // the producer warp: TMA bytes + lse/delta stores
+      hopper::mbar_init(empty(st), kConsumerWarps);
+    }
+    hopper::mbar_fence_init();
   }
+  __syncthreads();
 
-  // the first Q tile holding a row that sees a key of this tile
-  int q_begin = causal ? max(0, k_start - offset) : 0;
-  q_begin = (q_begin / kDkvRows) * kDkvRows;
-
-  for (int h = 0; h < group; ++h) {
-    const int bn = bkv * group + h;
-    const __nv_bfloat16* q_bn = q + (int64_t)bn * s * D;
-    const __nv_bfloat16* do_bn = dout + (int64_t)bn * s * D;
-    const float* lse_bn = lse + (int64_t)bn * s;
-    const float* dl_bn = delta + (int64_t)bn * s;
-
-    for (int q_start = q_begin; q_start < s; q_start += kDkvRows) {
-      __syncthreads();  // every warp is done with the previous Q/dO tile
-      stage_rows<D, kDkvRows>(q_s, q_bn, q_start, s, tid);
-      stage_rows<D, kDkvRows>(do_s, do_bn, q_start, s, tid);
-      for (int i = tid; i < kDkvRows; i += kThreads) {
-        const int r = q_start + i;
-        lse_s[i] = r < s ? lse_bn[r] : kNegInf;
-        dl_s[i] = r < s ? dl_bn[r] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K . Q^T and dP^T = V . dO^T: this warp's 16 keys x 32 rows
-      float st[kDkvRows / 8][4], dpt[kDkvRows / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < kDkvRows / 8; ++nt) {
-        st[nt][0] = st[nt][1] = st[nt][2] = st[nt][3] = 0.f;
-        dpt[nt][0] = dpt[nt][1] = dpt[nt][2] = dpt[nt][3] = 0.f;
-      }
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        uint32_t ka[4], va[4];
-        ld_a_frag(ka, &k_s[kr0][kc * 16 + 2 * t], &k_s[kr1][kc * 16 + 2 * t]);
-        ld_a_frag(va, &v_s[kr0][kc * 16 + 2 * t], &v_s[kr1][kc * 16 + 2 * t]);
-#pragma unroll
-        for (int nt = 0; nt < kDkvRows / 8; ++nt) {
-          const __nv_bfloat16* qr = &q_s[nt * 8 + g][kc * 16 + 2 * t];
-          mma_16816(st[nt], ka, ld_pair(qr), ld_pair(qr + 8));
-          const __nv_bfloat16* dr = &do_s[nt * 8 + g][kc * 16 + 2 * t];
-          mma_16816(dpt[nt], va, ld_pair(dr), ld_pair(dr + 8));
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------------ producer
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        hopper::tma_prefetch_desc(&tk);
+        hopper::tma_prefetch_desc(&tv);
+        hopper::tma_prefetch_desc(&tq);
+        hopper::tma_prefetch_desc(&tdo);
+        // K and V: the boxes of 64 keys that start inside sk (a box wholly
+        // past sk only feeds its own keys' dk/dv, which are not stored)
+        const int boxes = min(kDkvBlockN / kBox, (sk - k_start + kBox - 1) / kBox);
+        hopper::mbar_arrive_expect_tx(kv_full, 2 * boxes * C::kSlabs * kBoxBytes);
+        for (int j = 0; j < C::kSlabs; ++j) {
+          for (int h = 0; h < boxes; ++h) {
+            const uint32_t off = j * C::kSlabKV + h * kBoxBytes;
+            hopper::tma_load_3d(sK + off, &tk, kv_full, 64 * j, k_start + h * kBox, bkv);
+            hopper::tma_load_3d(sV + off, &tv, kv_full, 64 * j, k_start + h * kBox, bkv);
+          }
         }
       }
-
-      // P^T = exp(S^T * scale - lse) on visible entries, 0 elsewhere (kept
-      // in st); dS^T = P^T * (dP^T - delta) * scale (kept in dpt)
-#pragma unroll
-      for (int nt = 0; nt < kDkvRows / 8; ++nt) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int key = j < 2 ? key0 : key1;
-          const int cl = nt * 8 + 2 * t + (j & 1);
-          const int row = q_start + cl;
-          const float lse_r = lse_s[cl];
-          const bool visible = row < s && key < sk && lse_r > 0.5f * kNegInf &&
-                               (!causal || key <= row + offset);
-          const float p = visible ? __expf(st[nt][j] * sm_scale - lse_r) : 0.f;
-          st[nt][j] = p;
-          dpt[nt][j] = p * (dpt[nt][j] - dl_s[cl]) * sm_scale;
+      for (int it = 0; it < n_iter; ++it) {
+        const int st = it % S;
+        const int bn = bkv * group + it / per_head;
+        const int q0 = (qt0 + it % per_head) * kDkvBlockM;
+        if (it >= S) hopper::mbar_wait(empty(st), ((it / S) - 1) & 1);
+        // each lane's rows of lse (log2 units; +inf where p must be 0) and
+        // delta, stored before its arrival (release) on the full barrier
+        float* rows = rows_lse + st * 2 * kDkvBlockM;
+        for (int r = lane; r < kDkvBlockM; r += 32) {
+          const int row = q0 + r;
+          const float l = row < s ? lse[(int64_t)bn * s + row] : kNegInf;
+          rows[r] = l > 0.5f * kNegInf ? l * kLog2e : INFINITY;
+          rows[kDkvBlockM + r] = row < s ? delta[(int64_t)bn * s + row] : 0.f;
         }
-      }
-
-      // dV += P^T . dO and dK += dS^T . Q: tiles 2kc, 2kc+1 are the A
-      // fragment of query rows 16kc .. 16kc+15 (rounded to bf16); dO and Q
-      // read as column pairs
-#pragma unroll
-      for (int kc = 0; kc < kDkvRows / 16; ++kc) {
-        uint32_t pa[4], sa[4];
-        pa[0] = pack_bf16(st[2 * kc][0], st[2 * kc][1]);
-        pa[1] = pack_bf16(st[2 * kc][2], st[2 * kc][3]);
-        pa[2] = pack_bf16(st[2 * kc + 1][0], st[2 * kc + 1][1]);
-        pa[3] = pack_bf16(st[2 * kc + 1][2], st[2 * kc + 1][3]);
-        sa[0] = pack_bf16(dpt[2 * kc][0], dpt[2 * kc][1]);
-        sa[1] = pack_bf16(dpt[2 * kc][2], dpt[2 * kc][3]);
-        sa[2] = pack_bf16(dpt[2 * kc + 1][0], dpt[2 * kc + 1][1]);
-        sa[3] = pack_bf16(dpt[2 * kc + 1][2], dpt[2 * kc + 1][3]);
-#pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt) {
-          const __nv_bfloat16* dop = &do_s[kc * 16 + 2 * t][dt * 8 + g];
-          mma_16816(dva[dt], pa, ld_col_pair(dop, D + kPad),
-                    ld_col_pair(dop + 8 * (D + kPad), D + kPad));
-          const __nv_bfloat16* qp = &q_s[kc * 16 + 2 * t][dt * 8 + g];
-          mma_16816(dka[dt], sa, ld_col_pair(qp, D + kPad),
-                    ld_col_pair(qp + 8 * (D + kPad), D + kPad));
+        if (lane == 0) {
+          hopper::mbar_arrive_expect_tx(full(st), 2 * C::kQBytes);
+          for (int j = 0; j < C::kSlabs; ++j) {
+            const uint32_t off = st * C::kQBytes + j * C::kSlabQ;
+            hopper::tma_load_3d(sQ + off, &tq, full(st), 64 * j, q0, bn);
+            hopper::tma_load_3d(sDo + off, &tdo, full(st), 64 * j, q0, bn);
+          }
+        } else {
+          hopper::mbar_arrive(full(st));
         }
       }
     }
-  }
+  } else {
+    // ----------------------------------------------------------- consumers
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    const int cwg = threadIdx.x / 128 - 1;  // 0 or 1: keys 64 * cwg ..
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int key_lo = k_start + cwg * 64;  // this consumer's first key
+    const int key0 = key_lo + (tid / 32) * 16 + g, key1 = key0 + 8;
+    const float c = sm_scale * kLog2e;
+    const uint32_t k_rows = sK + cwg * 64 * 128, v_rows = sV + cwg * 64 * 128;
 
-  __nv_bfloat16* dk_b = dk + (int64_t)bkv * sk * D;
-  __nv_bfloat16* dv_b = dv + (int64_t)bkv * sk * D;
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (key0 < sk) {
-      *reinterpret_cast<__nv_bfloat162*>(dk_b + (int64_t)key0 * D + c) =
-          __floats2bfloat162_rn(dka[dt][0], dka[dt][1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv_b + (int64_t)key0 * D + c) =
-          __floats2bfloat162_rn(dva[dt][0], dva[dt][1]);
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    hopper::mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_iter; ++it) {
+      const int st = it % S;
+      const int q0 = (qt0 + it % per_head) * kDkvBlockM;
+      const uint32_t q_tile = sQ + st * C::kQBytes, do_tile = sDo + st * C::kQBytes;
+      const float* rows = rows_lse + st * 2 * kDkvBlockM;
+      float sc[32], dp[32];
+      hopper::mbar_wait(full(st), (it / S) & 1);
+      hopper::wgmma_fence();
+      issue_abt<D>(sc, k_rows, C::kSlabKV, q_tile, C::kSlabQ);
+      hopper::wgmma_commit();
+      issue_abt<D>(dp, v_rows, C::kSlabKV, do_tile, C::kSlabQ);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // S^T; dP^T still on the tensor cores
+      hopper::fence_regs(sc);
+      // accumulator layout: sc[4j + e] is (key0, query row q0 + 8j + 2t + e),
+      // sc[4j + 2 + e] is (key1, the same row).  Only a tile that crosses
+      // this consumer's causal diagonal, or a block that runs past sk, masks.
+      const bool mask = key_lo + 64 > sk || (causal && key_lo + 63 > q0 + offset);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int cl = 8 * j + 2 * t + e;
+          const float l2 = rows[cl];
+          float p0 = hopper::ex2(fmaf(sc[4 * j + e], c, -l2));
+          float p1 = hopper::ex2(fmaf(sc[4 * j + 2 + e], c, -l2));
+          if (mask) {
+            const int row = q0 + cl;
+            if (!(key0 < sk && (!causal || key0 <= row + offset))) p0 = 0.f;
+            if (!(key1 < sk && (!causal || key1 <= row + offset))) p1 = 0.f;
+          }
+          sc[4 * j + e] = p0;
+          sc[4 * j + 2 + e] = p1;
+        }
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float dl = rows[kDkvBlockM + 8 * j + 2 * t + e];
+          dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - dl) * sm_scale;
+          dp[4 * j + 2 + e] = sc[4 * j + 2 + e] * (dp[4 * j + 2 + e] - dl) * sm_scale;
+        }
+      }
+      uint32_t pa[4][4], sa[4][4];
+      hopper::acc_to_a_frags<64>(pa, sc);  // p^T rounded to bf16
+      hopper::acc_to_a_frags<64>(sa, dp);  // ds^T rounded to bf16
+      hopper::wgmma_fence();
+      issue_ab<D>(dv, pa, do_tile, C::kSlabQ);
+      issue_ab<D>(dk, sa, q_tile, C::kSlabQ);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dv);
+      hopper::fence_regs(dk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        hopper::fence_regs(pa[kk]);
+        hopper::fence_regs(sa[kk]);
+      }
+      if (lane == 0) hopper::mbar_arrive(empty(st));
     }
-    if (key1 < sk) {
-      *reinterpret_cast<__nv_bfloat162*>(dk_b + (int64_t)key1 * D + c) =
-          __floats2bfloat162_rn(dka[dt][2], dka[dt][3]);
-      *reinterpret_cast<__nv_bfloat162*>(dv_b + (int64_t)key1 * D + c) =
-          __floats2bfloat162_rn(dva[dt][2], dva[dt][3]);
-    }
+    store_rows<D>(dk, smem, base, k_rows, C::kSlabKV, &tdk, key_lo, bkv, sk, cwg, tid);
+    store_rows<D>(dv, smem, base, v_rows, C::kSlabKV, &tdv, key_lo, bkv, sk, cwg, tid);
   }
 }
 
-bool bad_sizes(int bn, int s, int bkv, int sk) {
-  return bn <= 0 || s <= 0 || bkv <= 0 || sk <= 0 || bn % bkv != 0 || bn > 65535;
+// above 48 KB a block's dynamic shared memory has to be asked for, once
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
+  if (done) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  done = err == cudaSuccess;
+  return err;
 }
 
 template <int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
-                      const float* lse, const float* delta, void* dq, int bn, int s,
-                      int bkv, int sk, float sm_scale, int causal, cudaStream_t stream) {
-  dim3 grid((s + kDqRows - 1) / kDqRows, bn);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      lse, delta, static_cast<__nv_bfloat16*>(dq), s, sk, bn / bkv, sm_scale, causal);
-  return cudaGetLastError();
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* delta, void* dq, void* dk, void* dv, int bn,
+                   int s, int bkv, int sk, float sm_scale, int causal, int which,
+                   cudaStream_t stream) {
+  // q, k, v and dO are encoded once and shared by both kernels
+  CUtensorMap tq, tk, tv, tdo, t0, t1;
+  cudaError_t err;
+  if ((err = hopper::make_tmap_bf16_3d(&tq, q, D, s, bn, kBox)) != cudaSuccess) return err;
+  if ((err = hopper::make_tmap_bf16_3d(&tk, k, D, sk, bkv, kBox)) != cudaSuccess) return err;
+  if ((err = hopper::make_tmap_bf16_3d(&tv, v, D, sk, bkv, kBox)) != cudaSuccess) return err;
+  if ((err = hopper::make_tmap_bf16_3d(&tdo, dout, D, s, bn, kBox)) != cudaSuccess) return err;
+  if (which & 1) {
+    static bool smem_set = false;
+    if ((err = allow_smem(flash_bwd_dq_kernel<D>, DqCfg<D>::kSmemBytes, smem_set)) != cudaSuccess)
+      return err;
+    if ((err = hopper::make_tmap_bf16_3d(&t0, dq, D, s, bn, kBox)) != cudaSuccess) return err;
+    const int q_blocks = (s + kDqBlockM - 1) / kDqBlockM;
+    const long long blocks = static_cast<long long>(q_blocks) * bn;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    flash_bwd_dq_kernel<D><<<static_cast<unsigned>(blocks), kThreads, DqCfg<D>::kSmemBytes,
+                             stream>>>(tq, tk, tv, tdo, t0, lse, delta, bn, s, sk, bn / bkv,
+                                       sm_scale, causal, q_blocks);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (which & 2) {
+    static bool smem_set = false;
+    if ((err = allow_smem(flash_bwd_dkv_kernel<D>, DkvCfg<D>::kSmemBytes, smem_set)) !=
+        cudaSuccess)
+      return err;
+    if ((err = hopper::make_tmap_bf16_3d(&t0, dk, D, sk, bkv, kBox)) != cudaSuccess) return err;
+    if ((err = hopper::make_tmap_bf16_3d(&t1, dv, D, sk, bkv, kBox)) != cudaSuccess) return err;
+    const int k_blocks = (sk + kDkvBlockN - 1) / kDkvBlockN;
+    const long long blocks = static_cast<long long>(k_blocks) * bkv;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    flash_bwd_dkv_kernel<D><<<static_cast<unsigned>(blocks), kThreads, DkvCfg<D>::kSmemBytes,
+                              stream>>>(tq, tk, tv, tdo, t0, t1, lse, delta, bkv, s, sk, bn / bkv,
+                                        sm_scale, causal);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
-template <int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const float* lse, const float* delta, void* dk, void* dv,
-                       int bn, int s, int bkv, int sk, float sm_scale, int causal,
-                       cudaStream_t stream) {
-  constexpr int kSmem = dkv_smem_bytes<D>();
-  // above 48 KB a block's dynamic shared memory has to be asked for
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((sk + kDkvKeys - 1) / kDkvKeys, bkv);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      lse, delta, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-      s, sk, bn / bkv, sm_scale, causal);
-  return cudaGetLastError();
-}
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 }  // namespace
 
-// q, dout [bn, s, d], k/v [bkv, sk, d] bf16 contiguous; lse, delta [bn, s]
-// fp32; dq [bn, s, d] bf16.  Returns the launch's cudaError_t (0 on success).
-extern "C" int dlbb_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
-                                      const void* dout, const void* lse,
-                                      const void* delta, void* dq, int bn, int s,
-                                      int bkv, int sk, int d, float sm_scale,
-                                      int causal, void* stream) {
-  if (bad_sizes(bn, s, bkv, sk)) return (int)cudaErrorInvalidValue;
+// q, dout [bn, s, d], k/v [bkv, sk, d] bf16 contiguous, 16-byte aligned
+// (TMA); lse, delta [bn, s] fp32.  `which`: 1 launches the dq kernel into dq
+// [bn, s, d], 2 the dk/dv kernel into dk, dv [bkv, sk, d] (each summed over
+// the bn / bkv query heads that share a K/V row), 3 both, dq first; an
+// output not asked for may be null.  Returns the first cudaError_t (0 on
+// success).
+extern "C" int dlbb_flash_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
+                                   const void* lse, const void* delta, void* dq, void* dk,
+                                   void* dv, int bn, int s, int bkv, int sk, int d,
+                                   float sm_scale, int causal, int which, void* stream) {
+  if (bn <= 0 || s <= 0 || bkv <= 0 || sk <= 0 || bn % bkv != 0 || which < 1 || which > 3)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
+      ((which & 1) && !aligned16(dq)) || ((which & 2) && (!aligned16(dk) || !aligned16(dv))))
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   switch (d) {
     case 64:
-      return (int)launch_dq<64>(q, k, v, dout, l, dl, dq, bn, s, bkv, sk, sm_scale, causal, st);
+      return (int)launch<64>(q, k, v, dout, l, dl, dq, dk, dv, bn, s, bkv, sk, sm_scale, causal,
+                             which, st);
     case 128:
-      return (int)launch_dq<128>(q, k, v, dout, l, dl, dq, bn, s, bkv, sk, sm_scale, causal, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-// the same inputs; dk, dv [bkv, sk, d] bf16, each summed over the bn / bkv
-// query heads that share a K/V row
-extern "C" int dlbb_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
-                                       const void* dout, const void* lse,
-                                       const void* delta, void* dk, void* dv, int bn,
-                                       int s, int bkv, int sk, int d, float sm_scale,
-                                       int causal, void* stream) {
-  if (bad_sizes(bn, s, bkv, sk) || bkv > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  switch (d) {
-    case 64:
-      return (int)launch_dkv<64>(q, k, v, dout, l, dl, dk, dv, bn, s, bkv, sk, sm_scale,
-                                 causal, st);
-    case 128:
-      return (int)launch_dkv<128>(q, k, v, dout, l, dl, dk, dv, bn, s, bkv, sk, sm_scale,
-                                  causal, st);
+      return (int)launch<128>(q, k, v, dout, l, dl, dq, dk, dv, bn, s, bkv, sk, sm_scale, causal,
+                              which, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

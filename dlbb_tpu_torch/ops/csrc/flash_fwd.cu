@@ -72,17 +72,8 @@ struct Cfg {
   static constexpr int kSmemBytes = kOffBar + 8 * kBars + 1024;  // + alignment slack
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two floats -> one register of two bf16, `lo` in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using hopper::ex2;
+using hopper::pack_bf16;
 
 // S = Q . K^T for one consumer's 64 rows x 128 keys, D / 16 steps of k16;
 // Q and K are both K-major (row-major [rows, D]) in 64-column slabs
@@ -167,18 +158,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], RowState& rs, bool
   }
   rs.l0 = rs.l0 * alpha0 + sum0;  // row sums from the fp32 p, as on the TPU
   rs.l1 = rs.l1 * alpha1 + sum1;
-}
-
-// p rounded to bf16: score blocks 2kk and 2kk + 1 are the A fragment of
-// keys 16kk .. 16kk + 15
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4], const float (&sc)[64]) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
-    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-  }
 }
 
 template <int N>
@@ -299,7 +278,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       if (lane == 0) hopper::mbar_arrive(k_empty(0));
       softmax_tile(sc, rs, n_vis - 1 >= n_full, (n_vis - 1) * kBlockN + 2 * t, row0, row1, sk,
                    causal, offset, c, alpha0, alpha1);
-      pack_p(pa, sc);
+      hopper::acc_to_a_frags<128>(pa, sc);  // p rounded to bf16
       // visit it: S of tile it on the tensor cores while P.V of tile it - 1
       // is queued behind it; the softmax of tile it runs under that P.V
       for (int it = 1; it < n_vis; ++it) {
@@ -323,7 +302,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
         for (int kk = 0; kk < 8; ++kk) hopper::fence_regs(pa[kk]);
         if (lane == 0) hopper::mbar_arrive(v_empty(pst));
         rescale(o, alpha0, alpha1);
-        pack_p(pa, sc);
+        hopper::acc_to_a_frags<128>(pa, sc);  // p rounded to bf16
       }
       const int lst = (n_vis - 1) % S;
       hopper::mbar_wait(v_full(lst), ((n_vis - 1) / S) & 1);

@@ -11,12 +11,12 @@ forward saves ``(q, k, v, o, lse)`` and whose backward is
 implementations of each function sit here:
 
 - the kernels: ``csrc/flash_fwd.cu``, the hand-written CUDA C++ port of the
-  Pallas ``_fwd_kernel`` (wgmma, TMA and a warp-specialised K/V ring on the
-  building blocks of ``csrc/hopper.cuh``), and ``csrc/flash_bwd.cu``, the
-  ports of ``_dq_kernel`` and ``_dkv_kernel``; launched for CUDA tensors
-  (bf16, head_dim in ``KERNEL_HEAD_DIMS``, contiguous; the forward's TMA
-  also wants 16-byte-aligned bases, ``tma_compatible``) and counted in
-  ``flash_fwd_launches``, ``flash_bwd_dq_launches`` and
+  Pallas ``_fwd_kernel``, and ``csrc/flash_bwd.cu``, the ports of
+  ``_dq_kernel`` and ``_dkv_kernel`` (all three wgmma, TMA and
+  warp-specialised rings on the building blocks of ``csrc/hopper.cuh``);
+  launched for CUDA tensors (bf16, head_dim in ``KERNEL_HEAD_DIMS``,
+  contiguous, 16-byte-aligned bases for TMA, ``tma_compatible``) and
+  counted in ``flash_fwd_launches``, ``flash_bwd_dq_launches`` and
   ``flash_bwd_dkv_launches``;
 - ``flash_fwd_reference`` and ``flash_bwd_reference``: the plain PyTorch
   computations of the same results, taken for CPU tensors only.  A CUDA
@@ -97,7 +97,7 @@ def fwd_tile_plan(s: int, sk: int, block_m: int = FWD_BLOCK_M,
 
 
 def tma_compatible(t: torch.Tensor) -> bool:
-    """Whether the forward kernel's TMA can read or write ``t`` in place: a
+    """Whether the kernels' TMA can read or write ``t`` in place: a
     contiguous tensor whose base address is a multiple of 16 bytes (its row
     strides, D * 2 bytes, are then multiples of 16 too)."""
     return t.is_contiguous() and t.data_ptr() % 16 == 0
@@ -218,17 +218,21 @@ def _launch(lib_name: str, fn_name: str, device, argtypes, *args) -> None:
         raise RuntimeError(f"{fn_name} kernel launch failed: cudaError {err}")
 
 
+def _check_tma(kernel: str, named) -> None:
+    for name, t in named:
+        if not tma_compatible(t):
+            raise ValueError(f"{kernel} loads {name} by TMA, which needs a "
+                             "16-byte-aligned contiguous tensor; got storage offset "
+                             f"{t.storage_offset()}")
+
+
 def _flash_fwd_cuda(q, k, v, *, causal: bool, sm_scale: float):
     global flash_fwd_launches
     _check_kernel_inputs((("q", q), ("k", k), ("v", v)), device=q.device)
     b, n, s, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     _check_head_dim(d)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not tma_compatible(t):
-            raise ValueError(f"the flash forward kernel loads {name} by TMA, which "
-                             "needs a 16-byte-aligned contiguous tensor; got "
-                             f"storage offset {t.storage_offset()}")
+    _check_tma("the flash forward kernel", (("q", q), ("k", k), ("v", v)))
     o = torch.empty_like(q)
     lse = torch.empty((b, n, s), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", "dlbb_flash_fwd_bf16", q.device,
@@ -251,39 +255,42 @@ def _check_bwd_inputs(q, k, v, lse, do, delta) -> None:
     _check_head_dim(d)
 
 
-def _flash_bwd_dq_cuda(q, k, v, lse, do, delta, *, causal: bool, sm_scale: float):
-    """dq from the ``_dq_kernel`` port; ``delta`` from ``flash_bwd_delta``."""
-    global flash_bwd_dq_launches
+def _flash_bwd_cuda(q, k, v, lse, do, delta, *, causal: bool, sm_scale: float,
+                    dq: bool = True, dkv: bool = True):
+    """``(dq, dk, dv)`` from the ``_dq_kernel`` and ``_dkv_kernel`` ports,
+    dk and dv summed over each group; ``delta`` from ``flash_bwd_delta``.
+    One C call encodes the tensor maps of q, k, v and dO once and launches
+    the kernels asked for (the other outputs are None)."""
+    global flash_bwd_dq_launches, flash_bwd_dkv_launches
     _check_bwd_inputs(q, k, v, lse, do, delta)
+    _check_tma("the flash backward kernels", (("q", q), ("k", k), ("v", v), ("do", do)))
     b, n, s, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
-    dq = torch.empty_like(q)
-    _launch("flash_bwd", "dlbb_flash_bwd_dq_bf16", q.device,
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    out_dq = torch.empty_like(q) if dq else None
+    dk = torch.empty_like(k) if dkv else None
+    dv = torch.empty_like(v) if dkv else None
+    ptr = [0 if t is None else t.data_ptr() for t in (out_dq, dk, dv)]
+    _launch("flash_bwd", "dlbb_flash_bwd_bf16", q.device,
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), b * n, s, b * kvh, sk, d,
-            float(sm_scale), int(causal))
-    flash_bwd_dq_launches += 1
-    return dq
+            delta.data_ptr(), *ptr, b * n, s, b * kvh, sk, d, float(sm_scale),
+            int(causal), int(dq) | 2 * int(dkv))
+    flash_bwd_dq_launches += int(dq)
+    flash_bwd_dkv_launches += int(dkv)
+    return out_dq, dk, dv
+
+
+def _flash_bwd_dq_cuda(q, k, v, lse, do, delta, *, causal: bool, sm_scale: float):
+    """dq alone, from the ``_dq_kernel`` port."""
+    return _flash_bwd_cuda(q, k, v, lse, do, delta, causal=causal, sm_scale=sm_scale,
+                           dkv=False)[0]
 
 
 def _flash_bwd_dkv_cuda(q, k, v, lse, do, delta, *, causal: bool, sm_scale: float):
-    """(dk, dv) from the ``_dkv_kernel`` port, summed over each group."""
-    global flash_bwd_dkv_launches
-    _check_bwd_inputs(q, k, v, lse, do, delta)
-    b, n, s, d = q.shape
-    kvh, sk = k.shape[1], k.shape[2]
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    _launch("flash_bwd", "dlbb_flash_bwd_dkv_bf16", q.device,
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * n, s, b * kvh, sk, d,
-            float(sm_scale), int(causal))
-    flash_bwd_dkv_launches += 1
-    return dk, dv
+    """(dk, dv) alone, from the ``_dkv_kernel`` port."""
+    return _flash_bwd_cuda(q, k, v, lse, do, delta, causal=causal, sm_scale=sm_scale,
+                           dq=False)[1:]
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
@@ -315,10 +322,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
     _check_kernel_inputs((("o", o),), device=q.device)
     delta = flash_bwd_delta(o, do)
-    dq = _flash_bwd_dq_cuda(q, k, v, lse, do, delta, causal=causal, sm_scale=sm_scale)
-    dk, dv = _flash_bwd_dkv_cuda(q, k, v, lse, do, delta, causal=causal,
-                                 sm_scale=sm_scale)
-    return dq, dk, dv
+    return _flash_bwd_cuda(q, k, v, lse, do, delta, causal=causal, sm_scale=sm_scale)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -74,6 +74,12 @@ CASES = [
     pytest.param(2, 4, 2, 96, 96, 64, True, id="ragged-s96"),
     pytest.param(1, 4, 4, 1, 128, 64, True, id="decode-s1-sk128"),
     pytest.param(1, 4, 1, 16, 256, 64, True, id="decode-s16-sk256-mqa"),
+    # at the edges of the CUDA kernels' tiles (128-row and 64-row Q tiles,
+    # 64-key and 128-key K/V tiles), as chip_smoke.py's EDGE_CASES
+    pytest.param(1, 4, 4, 130, 130, 64, True, id="ragged-s130"),
+    pytest.param(1, 2, 2, 320, 320, 64, True, id="partial-q-tile-s320"),
+    pytest.param(1, 2, 2, 64, 192, 64, False, id="noncausal-s64-sk192"),
+    pytest.param(1, 8, 1, 128, 128, 64, True, id="gqa-g8"),
 ]
 
 
@@ -164,6 +170,7 @@ def test_cpu_backward_takes_the_plain_version_without_counting(monkeypatch):
     def no_kernel(*a, **kw):
         raise AssertionError("a CPU tensor reached a CUDA wrapper")
 
+    monkeypatch.setattr(fa, "_flash_bwd_cuda", no_kernel)
     monkeypatch.setattr(fa, "_flash_bwd_dq_cuda", no_kernel)
     monkeypatch.setattr(fa, "_flash_bwd_dkv_cuda", no_kernel)
     before = (fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches)
@@ -191,3 +198,70 @@ def test_delta_is_the_fp32_rowsum():
     got = fa.flash_bwd_delta(o, do)
     assert got.dtype == torch.float32 and got.shape == (1, 2, 8)
     torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def _bf16(*shape, offset=0):
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=torch.bfloat16)[offset:].view(*shape)
+
+
+def _fake_launch(monkeypatch):
+    """Device and dtype checks bypassed and the C call recorded, so the CPU
+    can stand in for the card."""
+    launched = []
+    monkeypatch.setattr(fa, "flash_bwd_dq_launches", 0)
+    monkeypatch.setattr(fa, "flash_bwd_dkv_launches", 0)
+    monkeypatch.setattr(fa, "_check_kernel_inputs", lambda *a, **kw: None)
+    monkeypatch.setattr(fa, "_launch", lambda *a: launched.append(a))
+    return launched
+
+
+@pytest.mark.parametrize("wrapper,which", [("_flash_bwd_dq_cuda", 1), ("_flash_bwd_dkv_cuda", 2)])
+@pytest.mark.parametrize("name", ["q", "k", "v", "do"])
+def test_cuda_backward_wrappers_raise_on_a_misaligned_input(monkeypatch, wrapper, which, name):
+    """Each backward wrapper launches only its own kernel, and raises on a
+    tensor TMA cannot take: no launch and no fallback."""
+    launched = _fake_launch(monkeypatch)
+    ts = {n: _bf16(1, 2, 16, 64) for n in ("q", "k", "v", "do")}
+    lse, delta = torch.zeros(1, 2, 16), torch.zeros(1, 2, 16)
+
+    def call():
+        return getattr(fa, wrapper)(ts["q"], ts["k"], ts["v"], lse, ts["do"], delta,
+                                    causal=True, sm_scale=0.125)
+
+    call()
+    assert len(launched) == 1 and launched[0][-1] == which
+    ts[name] = _bf16(1, 2, 16, 64, offset=1)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        call()
+    assert len(launched) == 1
+    assert (fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches) == (which & 1, which >> 1)
+
+
+def test_cuda_backward_launches_both_kernels_from_one_call(monkeypatch):
+    """``flash_attention_bwd``'s CUDA path: one C call (the tensor maps of
+    q, k, v and dO encoded once) launches both kernels, and each count
+    rises by one."""
+    launched = _fake_launch(monkeypatch)
+    q, do = _bf16(1, 4, 16, 64), _bf16(1, 4, 16, 64)
+    k, v = _bf16(1, 2, 32, 64), _bf16(1, 2, 32, 64)
+    lse, delta = torch.zeros(1, 4, 16), torch.zeros(1, 4, 16)
+    dq, dk, dv = fa._flash_bwd_cuda(q, k, v, lse, do, delta, causal=True, sm_scale=0.125)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert len(launched) == 1 and launched[0][-1] == 3
+    # bn, s, bkv, sk, d as the kernels take them
+    assert launched[0][-8:-3] == (4, 16, 2, 32, 64)
+    assert (fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches) == (1, 1)
+
+
+def test_backward_kernels_are_built_on_the_hopper_header():
+    """``csrc/flash_bwd.cu`` computes its products with wgmma and loads its
+    tiles by TMA (``csrc/hopper.cuh``); no mma.sync is left."""
+    from dlbb_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "flash_bwd.cu").read_text()
+    assert '#include "hopper.cuh"' in src
+    assert "mma.sync" not in src
+    for piece in ("wgmma_m64n64k16_ss", "tma_load_3d", "tma_store_3d", "mbar_wait",
+                  "setmaxnreg_inc"):
+        assert f"hopper::{piece}" in src, piece

@@ -51,7 +51,7 @@ def _check_plan(s, sk, causal, block_m=fa.FWD_BLOCK_M, block_n=fa.FWD_BLOCK_N):
 
 
 SHAPES = sorted({(c["s"], c["sk"], c["causal"])
-                 for c in {**chip_smoke.CASES, **chip_smoke.FWD_EDGE_CASES}.values()}
+                 for c in {**chip_smoke.CASES, **chip_smoke.EDGE_CASES}.values()}
                 | {(chip_smoke.LONG_SHAPE["s"], chip_smoke.LONG_SHAPE["sk"], True),
                    (128, 128, True), (129, 129, True), (127, 300, True), (300, 127, True),
                    (256, 1, True), (1, 1, False), (640, 200, False), (255, 257, True)})
@@ -130,7 +130,8 @@ def test_build_key_covers_the_shared_header(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     assert (csrc / "hopper.cuh").exists()
-    assert '#include "hopper.cuh"' in (csrc / "flash_fwd.cu").read_text()
+    for src in ("flash_fwd.cu", "flash_bwd.cu"):
+        assert '#include "hopper.cuh"' in (csrc / src).read_text()
     monkeypatch.setattr(_build, "CSRC", csrc)
     first = _build.build_dir()
     assert _build.build_dir() == first
