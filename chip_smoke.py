@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlbb_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time]
+    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm]
 
 Phases (each raises on failure, and the script then exits non-zero):
 
@@ -35,7 +35,16 @@ Phases (each raises on failure, and the script then exits non-zero):
    the main shape; the time per call back to back (host included) is
    printed beside it.  The backward's yardstick is SDPA's flash backward
    op alone (``aten._scaled_dot_product_flash_attention_backward`` on its
-   forward's saved outputs).
+   forward's saved outputs);
+6. drive the collective sweeps through NCCL on a process group of one
+   rank on the card: first each op's output on its first call against
+   ``plain_collective`` on the same payload (equal, bit for bit, at one
+   rank), then ``run_sweep`` on the reference's 1D grid (its 8 ops and
+   reducescatter x 1KB-16MB) and on the 3D ops at three LLM shapes up to
+   1 GiB per rank, bf16, 10 warmup and 100 timed iterations, every payload
+   on the card; check every result JSON (schema keys, one row of finite
+   timings per rank), run the 1D and 3D statistics into their CSVs, and
+   print the median time per op at 16MB and at (8, 4096, 4096).
 
 It then prints the card's name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -111,7 +120,18 @@ EDGE_CASES = {
 # the mma.sync forward kernel this design replaced, at the two timed shapes:
 # phase 5 on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's kernel table)
 FWD_BEFORE_MS = {"main": 0.1259, "long": 2.5038}
-PHASES = ("build", "fwd", "bwd", "e2e", "train", "time")
+PHASES = ("build", "fwd", "bwd", "e2e", "train", "time", "comm")
+# the 3D sweep's LLM shapes (batch, seq, hidden) on the card: the largest is
+# 1 GiB of bf16 per rank
+COMM_SHAPES_3D = ((1, 2048, 2048), (8, 4096, 4096), (16, 8192, 4096))
+# result JSON keys every sweep config must carry (the JAX runner's schema)
+COMM_RESULT_KEYS = (
+    "implementation", "mpi_implementation", "operation", "num_ranks",
+    "num_elements", "dtype", "warmup_iterations", "measurement_iterations",
+    "compile_seconds", "compile_cache_hit", "retries", "timing_mode",
+    "timing_method", "timing_granularity", "forced_completion_s", "timings",
+    "variant", "mesh_shape", "mesh_axis_names", "payload_bytes_per_rank",
+    "timestamp", "system_info")
 
 
 def _inputs(torch, shape, seed):
@@ -548,6 +568,113 @@ def phase_timing(torch, fa, shape, reps, before_ms):
             "tflops": tflops, "bound_share": bound_ms / ms}
 
 
+def _check_first_calls(torch, comm, mesh, x, ops, label):
+    """Each op's output on its first call on payload ``x`` against its plain
+    version on the same payload: equal at one rank, bit for bit."""
+    for name in ops:
+        out = comm.get_op(name).build(mesh)(x)
+        torch.cuda.synchronize()
+        ref = comm.plain_collective(name, x.unsqueeze(0))
+        got = out.unsqueeze(0)
+        if got.shape != ref.shape or got.dtype != ref.dtype or not torch.equal(got, ref):
+            raise AssertionError(f"NCCL {name} at {label} differs from its plain version")
+        del out, ref, got
+
+
+def _check_results(sweep_result, expected, iterations):
+    if sweep_result.failed:
+        raise AssertionError(f"failed sweep configs: {sweep_result.failed}")
+    if len(sweep_result.written) != expected:
+        raise AssertionError(f"{len(sweep_result.written)} result files, expected {expected}")
+    for path in sweep_result.written:
+        data = json.loads(path.read_text())
+        missing = [k for k in COMM_RESULT_KEYS if k not in data]
+        if missing:
+            raise AssertionError(f"{path.name} lacks {missing}")
+        t = data["timings"]
+        if len(t) != 1 or len(t[0]) != iterations or not all(
+                math.isfinite(v) and v > 0 for v in t[0]):
+            raise AssertionError(f"{path.name}: timings are not one row of "
+                                 f"{iterations} finite positive samples")
+
+
+def phase_comm(torch, gpu_line):
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from dlbb_tpu_torch import comm
+    from dlbb_tpu_torch.bench import runner
+    from dlbb_tpu_torch.stats import process_1d_results, process_3d_results
+
+    out = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_comm"
+    shutil.rmtree(out, ignore_errors=True)
+    ops_1d = runner.OPERATIONS_1D + ("reducescatter",)
+    warmup, iters = 10, 100
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_comm_") as tmp:
+        comm.initialize_distributed("nccl", 0, 1, os.path.join(tmp, "store"))
+        try:
+            mesh = comm.get_mesh(comm.MeshSpec.ring(1))
+            for label, n in runner.DATA_SIZES_1D.items():
+                for kind in ("per_rank", "per_peer"):
+                    ops = [o for o in ops_1d if comm.get_op(o).input_kind == kind]
+                    x = comm.make_payload(comm.get_op(ops[0]), 0, 1, n, device="cuda")
+                    _check_first_calls(torch, comm, mesh, x, ops, label)
+            print(f"[comm] first calls of {len(ops_1d)} ops x {len(runner.DATA_SIZES_1D)} "
+                  "sizes through NCCL equal their plain versions, bit for bit")
+            t0 = time.perf_counter()
+            r1 = runner.run_sweep(runner.Sweep1D(
+                operations=ops_1d, rank_counts=(1,), warmup_iterations=warmup,
+                measurement_iterations=iters, output_dir=str(out / "1d")),
+                device="cuda", verbose=False)
+            _check_results(r1, len(ops_1d) * len(runner.DATA_SIZES_1D), iters)
+            print(f"[comm] 1D sweep: {len(r1.written)} configs in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            n3 = 0
+            for b, s, h in COMM_SHAPES_3D:
+                x = comm.make_payload(comm.get_op("allreduce"), 0, 1, 0, shape=(b, s, h),
+                                      device="cuda")
+                _check_first_calls(torch, comm, mesh, x, runner.OPERATIONS_3D,
+                                   f"({b}, {s}, {h})")
+                del x
+                t0 = time.perf_counter()
+                r3 = runner.run_sweep(runner.Sweep3D(
+                    batch_sizes=(b,), seq_lengths=(s,), hidden_dims=(h,), rank_counts=(1,),
+                    warmup_iterations=warmup, measurement_iterations=iters,
+                    output_dir=str(out / "3d")), device="cuda", verbose=False)
+                _check_results(r3, len(runner.OPERATIONS_3D), iters)
+                n3 += len(r3.written)
+                print(f"[comm] 3D sweep at ({b}, {s}, {h}), {b * s * h * 2 / 2**20:.0f} MiB "
+                      f"per rank: first calls equal their plain versions; "
+                      f"{len(r3.written)} configs in {time.perf_counter() - t0:.1f} s")
+                torch.cuda.empty_cache()
+        finally:
+            comm.destroy_distributed()
+    s1 = process_1d_results(out / "1d", out / "stats1d", verbose=False)
+    s3 = process_3d_results(out / "3d", out / "stats3d", "torch_nccl", verbose=False)
+    csvs = [out / "stats1d" / "benchmark_statistics.csv",
+            out / "stats3d" / "benchmark_statistics_3d_torch_nccl_standard.csv",
+            out / "stats3d" / "benchmark_statistics_3d_torch_nccl_transpose.csv"]
+    if len(s1) != len(r1.written) or len(s3) != n3 or not all(p.is_file() for p in csvs):
+        raise AssertionError("the statistics did not cover every result")
+    at_16mb = {r["operation"]: r["median_time_us"] for r in s1 if r["data_size_name"] == "16MB"}
+    at_8 = {r["operation"]: r["median_time_ms"] * 1e3 for r in s3
+            if (r["batch"], r["seq_len"], r["hidden_dim"]) == (8, 4096, 4096)}
+    nccl = json.loads(r1.written[0].read_text())["system_info"]["nccl_version"]
+    print(f"[comm] statistics: {len(s1)} 1D rows, {len(s3)} 3D rows, CSVs in {out}")
+    # at one rank each op reads its payload and writes its output once: the
+    # least time is twice the payload's bytes over the memory rate
+    for label, medians, nbytes in (
+            ("16MB", at_16mb, 2 * runner.DATA_SIZES_1D["16MB"]),
+            ("(8, 4096, 4096)", at_8, 2 * 8 * 4096 * 4096)):
+        floor_us = 2 * nbytes / PEAK_BYTES_PER_S * 1e6
+        print(f"[comm] NCCL {nccl}, 1 rank, bf16, on {gpu_line}: median us per op at "
+              f"{label} ({nbytes / 2**20:.0f} MiB per rank; copy bound {floor_us:.2f} us): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in medians.items()))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -584,6 +711,8 @@ def main() -> int:
         long_t = phase_timing(torch, fa, LONG_SHAPE, reps=10, before_ms=FWD_BEFORE_MS["long"])
         main_b = _time_bwd(torch, fa, MAIN_SHAPE, reps=50, plain_reps=10)
         long_b = _time_bwd(torch, fa, LONG_SHAPE, reps=10, plain_reps=2)
+    if "comm" in phases:
+        phase_comm(torch, gpu_line)
     if phases != set(PHASES):
         print(f"chip_smoke: phases {sorted(phases)} passed; no result printed for a subset")
         return 0

@@ -1,2 +1,2 @@
 """Benchmark harnesses (counterpart of ``dlbb_tpu/bench``): the end-to-end
-forward so far."""
+forward, the collective sweeps and their launcher."""

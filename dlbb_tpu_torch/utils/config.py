@@ -1,8 +1,9 @@
 """Config and JSON IO (counterpart of ``dlbb_tpu/utils/config.py``).
 
-``save_json`` writes through a temporary file in the destination directory,
-``fsync`` and ``os.replace``, so a killed process leaves the old artifact or
-the new one, never a truncated file.
+``atomic_write_text`` (and ``save_json`` through it) writes through a
+temporary file in the destination directory, ``fsync`` and ``os.replace``, so
+a killed process leaves the old artifact or the new one, never a truncated
+file.
 """
 
 from __future__ import annotations
@@ -28,13 +29,15 @@ def load_config(path: str | Path) -> dict[str, Any]:
     return cfg
 
 
-def save_json(data: dict[str, Any], path: str | Path) -> Path:
+def atomic_write_text(text: str, path: str | Path, newline: str = "") -> Path:
+    """Replace ``path`` with ``text`` durably, creating parent directories.
+    ``newline`` passes through to ``open`` (``""``: no translation, as CSV
+    writers need)."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    text = json.dumps(data, indent=2, default=_jsonify)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.{uuid4().hex[:8]}.tmp")
     try:
-        with open(tmp, "w") as f:
+        with open(tmp, "w", newline=newline) as f:
             f.write(text)
             f.flush()
             os.fsync(f.fileno())
@@ -42,6 +45,10 @@ def save_json(data: dict[str, Any], path: str | Path) -> Path:
     finally:
         tmp.unlink(missing_ok=True)
     return path
+
+
+def save_json(data: dict[str, Any], path: str | Path) -> Path:
+    return atomic_write_text(json.dumps(data, indent=2, default=_jsonify), path)
 
 
 def _jsonify(obj: Any):

@@ -41,6 +41,9 @@ def gpu_name_and_power_limit() -> Optional[str]:
 
 
 def collect_system_info(device=None) -> dict[str, Any]:
+    """Where a result was measured: host, torch and CUDA versions, the
+    device, and, inside a process group, its backend (``nccl`` with its
+    version, or ``gloo``) and world size."""
     info: dict[str, Any] = {
         "platform": platform.platform(),
         "python_version": platform.python_version(),
@@ -58,4 +61,10 @@ def collect_system_info(device=None) -> dict[str, Any]:
         )
     else:
         info.update(backend="cpu", num_devices=1, device_kind="cpu")
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        info.update(comm_backend=torch.distributed.get_backend(),
+                    world_size=torch.distributed.get_world_size())
+        if info["comm_backend"] == "nccl":
+            v = torch.cuda.nccl.version()  # (major, minor, patch)
+            info["nccl_version"] = ".".join(map(str, v)) if isinstance(v, tuple) else str(v)
     return info

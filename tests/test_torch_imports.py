@@ -25,7 +25,11 @@ def test_port_has_the_expected_modules():
     for rel in ("dlbb_tpu_torch/__init__.py", "dlbb_tpu_torch/cli.py",
                 "dlbb_tpu_torch/bench/e2e.py", "dlbb_tpu_torch/models/transformer.py",
                 "dlbb_tpu_torch/ops/flash_attention.py", "dlbb_tpu_torch/train/loop.py",
-                "dlbb_tpu_torch/train/optim.py", "chip_smoke.py"):
+                "dlbb_tpu_torch/train/optim.py", "dlbb_tpu_torch/comm/mesh.py",
+                "dlbb_tpu_torch/comm/ops.py", "dlbb_tpu_torch/comm/variants.py",
+                "dlbb_tpu_torch/bench/runner.py", "dlbb_tpu_torch/bench/launch.py",
+                "dlbb_tpu_torch/stats/stats1d.py", "dlbb_tpu_torch/stats/stats3d.py",
+                "chip_smoke.py"):
         assert rel in PORT_FILES
 
 
