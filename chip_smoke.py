@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlbb_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm]
+    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm,tp]
 
 Phases (each raises on failure, and the script then exits non-zero):
 
@@ -120,7 +120,8 @@ EDGE_CASES = {
 # the mma.sync forward kernel this design replaced, at the two timed shapes:
 # phase 5 on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's kernel table)
 FWD_BEFORE_MS = {"main": 0.1259, "long": 2.5038}
-PHASES = ("build", "fwd", "bwd", "e2e", "train", "time", "comm")
+PHASES = ("build", "fwd", "bwd", "e2e", "train", "time", "comm", "tp")
+TP_CONFIG = "dlbb_tpu_torch/configs/baseline_config.yaml"
 # the 3D sweep's LLM shapes (batch, seq, hidden) on the card: the largest is
 # 1 GiB of bf16 per rank
 COMM_SHAPES_3D = ((1, 2048, 2048), (8, 4096, 4096), (16, 8192, 4096))
@@ -568,6 +569,179 @@ def phase_timing(torch, fa, shape, reps, before_ms):
             "tflops": tflops, "bound_share": bound_ms / ms}
 
 
+def tp_bf16_bound(layers, tp):
+    """Relative L2 bound of a bf16 forward at tp against the world-1 forward
+    on the same card: each row-parallel product's fp32 sum is rounded to
+    bf16 once at world 1, and at tp once per partial sum and once per
+    addition of the all-reduce, tp - 1 extra roundings of at most 2**-8
+    relative to the partials; two such products per layer add to the
+    residual stream over ``layers`` layers.  Everything else (the column
+    products, the flash kernel on each head, the LayerNorms) computes the
+    same values at every tp."""
+    return 2 * layers * (tp - 1) * 2.0**-8
+
+
+def _tp_worker(configs):
+    """One rank of phase ``tp``, in a process ``launch`` started: each
+    config through ``run_e2e``, then its output through the same TP path
+    for the check.  Returns (result, flash forward launches over the run,
+    output on the host) per config."""
+    from dlbb_tpu_torch.bench.e2e import run_e2e
+    from dlbb_tpu_torch.ops import flash_attention as fa
+
+    out = []
+    for config in configs:
+        fa.flash_fwd_launches = 0
+        result = run_e2e(config, device="cuda", verbose=True)
+        out.append((result, fa.flash_fwd_launches, _tp_output(config)))
+    return out
+
+
+def _tp_output(config):
+    """The TP forward's output on this rank, on the host."""
+    import torch
+
+    from dlbb_tpu_torch.data import create_dataset_from_config
+    from dlbb_tpu_torch.models import ModelConfig, forward, init_params
+    from dlbb_tpu_torch.parallel import ParallelismPlan
+
+    model_cfg = ModelConfig.from_dict(config["model"])
+    plan = ParallelismPlan.from_config(config, model_cfg)
+    coords = plan.mesh.coords
+    params = init_params(model_cfg, config["input"]["seed"], "cuda",
+                         tp_rank=coords["tp"], tp=plan.tp)
+    batch = create_dataset_from_config(
+        config, dtype=torch.bfloat16, device="cuda", hidden_size=model_cfg.hidden_size,
+        dp_rank=coords["dp"], dp=plan.dp).get_batch()
+    with torch.inference_mode():
+        y = forward(params, batch, model_cfg, mesh=plan.mesh)
+    return y.cpu()
+
+
+def _gloo_tp_rank(rank, world, init_file, config, out_dir):
+    """One rank of the gloo tp run on the one card (spawned by
+    ``_gloo_tp``): its output goes to ``out_dir/y_<rank>.pt``."""
+    import torch
+
+    from dlbb_tpu_torch.comm import destroy_distributed, initialize_distributed
+
+    torch.cuda.set_device(0)
+    initialize_distributed("gloo", rank, world, init_file, timeout=600)
+    try:
+        torch.save(_tp_output(config), f"{out_dir}/y_{rank}.pt")
+    finally:
+        destroy_distributed()
+
+
+def _gloo_tp(torch, config, world):
+    """Run the TP forward of ``config`` as ``world`` processes on cuda:0 over
+    gloo; returns each rank's output."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        mp.start_processes(_gloo_tp_rank, args=(world, os.path.join(tmp, "store"),
+                                                config, tmp),
+                           nprocs=world, join=True, start_method="spawn")
+        return [torch.load(os.path.join(tmp, f"y_{r}.pt")) for r in range(world)]
+
+
+def phase_tp(torch, gpu_line):
+    import copy
+
+    from dlbb_tpu_torch.bench.launch import launch
+    from dlbb_tpu_torch.data import create_dataset_from_config
+    from dlbb_tpu_torch.models import ModelConfig, forward, init_params
+    from dlbb_tpu_torch.utils.config import load_config
+
+    torch.cuda.empty_cache()
+    base = load_config(TP_CONFIG)
+    base["parallelism"]["world_size"] = 1
+    ex = base["execution"]
+    forwards = ex["warmup_iterations"] + ex["benchmark_iterations"]
+    configs = []
+    for attention in ("simplified", "full"):
+        config = copy.deepcopy(base)
+        config["model"]["attention"] = attention
+        config["experiment"]["name"] = f"chip_smoke_7b_{attention}_world1"
+        configs.append(config)
+    t0 = time.perf_counter()
+    runs = launch(_tp_worker, 1, "cuda", args=(configs,), timeout=900)[0]
+    print(f"[tp] 7B world-1 TP runs through launch (NCCL): "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    for config, (result, launches, y) in zip(configs, runs):
+        model_cfg = ModelConfig.from_dict(config["model"])
+        attention, layers = model_cfg.attention, model_cfg.num_layers
+        per_forward = layers if attention == "full" else 0
+        if (launches != per_forward * forwards
+                or result["flash_launches"] != per_forward * ex["benchmark_iterations"]):
+            raise AssertionError(f"7B {attention}: {launches} flash launches over "
+                                 f"{forwards} forwards, {result['flash_launches']} timed; "
+                                 f"expected {per_forward} per forward")
+        if result["mesh"] != {"dp": 1, "sp": 1, "pp": 1, "ep": 1, "tp": 1}:
+            raise AssertionError(f"7B {attention}: mesh {result['mesh']}")
+        if result["system_info"].get("comm_backend") != "nccl":
+            raise AssertionError(f"7B {attention}: not run in an NCCL process group")
+        params = init_params(model_cfg, config["input"]["seed"], "cuda")
+        batch = create_dataset_from_config(
+            config, dtype=torch.bfloat16, device="cuda",
+            hidden_size=model_cfg.hidden_size).get_batch()
+        with torch.inference_mode():
+            ref = forward(params, batch, model_cfg)
+        del params
+        y = y.cuda()
+        if y.shape != batch.shape or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"7B {attention}: output of shape {tuple(y.shape)}, "
+                                 "expected finite values of the input's shape")
+        if not torch.equal(y, ref):
+            raise AssertionError(f"7B {attention}: the world-1 TP forward over NCCL is "
+                                 "not equal to the forward with no process group")
+        del y, ref, batch
+        torch.cuda.empty_cache()
+        ft = result["forward_time"]
+        print(f"[tp] 7B forward, world 1 (NCCL, tp group of 1), bf16, B=8, S=512, "
+              f"attention={attention} on {gpu_line}: mean {ft['mean'] * 1e3:.3f} ms, "
+              f"median {ft['median'] * 1e3:.3f} ms, {result['tokens_per_second']:.0f} "
+              f"tokens/s, {result['achieved_tflops_per_second']:.1f} TFLOP/s (model "
+              f"flops); flash launches {launches} ({per_forward} per forward); equal "
+              "to the forward with no process group, bit for bit")
+        out[attention] = {"result": result, "launches": launches}
+
+    # the 1B decoder at tp=2, two processes on the one card over gloo
+    config = {"experiment": {"name": "chip_smoke_1b_tp2_gloo"},
+              "model": {"size": "1B", "attention": "full", "dtype": "bfloat16"},
+              "parallelism": {"world_size": 2, "data_parallel": 1},
+              "input": {"batch_size": 8, "sequence_length": 512, "seed": 42}}
+    model_cfg = ModelConfig.from_dict(config["model"])
+    t0 = time.perf_counter()
+    ys = _gloo_tp(torch, config, 2)
+    if not torch.equal(ys[0], ys[1]):
+        raise AssertionError("1B tp=2: the two ranks' outputs differ")
+    params = init_params(model_cfg, 42, "cuda")
+    one = copy.deepcopy(config)
+    one["parallelism"]["world_size"] = 1
+    batch = create_dataset_from_config(one, dtype=torch.bfloat16, device="cuda",
+                                       hidden_size=model_cfg.hidden_size).get_batch()
+    with torch.inference_mode():
+        ref = forward(params, batch, model_cfg).float()
+    y = ys[0].cuda().float()
+    rel = ((y - ref).norm() / ref.norm()).item()
+    bound = tp_bf16_bound(model_cfg.num_layers, 2)
+    print(f"[tp] 1B forward at tp=2, two processes on one card over gloo (CUDA "
+          f"tensors), attention=full: relative L2 against the world-1 forward "
+          f"{rel:.3e} (bound {bound:.3e}), max abs {(y - ref).abs().max().item():.3e}; "
+          f"{time.perf_counter() - t0:.1f} s, not timed")
+    if not bool(torch.isfinite(y).all()) or not rel <= bound:
+        raise AssertionError("the 1B tp=2 forward disagrees with the world-1 forward")
+    del params, ref, y, ys
+    torch.cuda.empty_cache()
+    out["gloo_tp2_rel_l2"] = rel
+    return out
+
+
 def _check_first_calls(torch, comm, mesh, x, ops, label):
     """Each op's output on its first call on payload ``x`` against its plain
     version on the same payload: equal at one rank, bit for bit."""
@@ -662,16 +836,22 @@ def phase_comm(torch, gpu_line):
     at_16mb = {r["operation"]: r["median_time_us"] for r in s1 if r["data_size_name"] == "16MB"}
     at_8 = {r["operation"]: r["median_time_ms"] * 1e3 for r in s3
             if (r["batch"], r["seq_len"], r["hidden_dim"]) == (8, 4096, 4096)}
+    at_1g = {r["operation"]: r["median_time_ms"] * 1e3 for r in s3
+             if (r["batch"], r["seq_len"], r["hidden_dim"]) == (16, 8192, 4096)}
     nccl = json.loads(r1.written[0].read_text())["system_info"]["nccl_version"]
     print(f"[comm] statistics: {len(s1)} 1D rows, {len(s3)} 3D rows, CSVs in {out}")
-    # at one rank each op reads its payload and writes its output once: the
-    # least time is twice the payload's bytes over the memory rate
+    # at one rank an op that writes a new buffer (allgather, gather) reads
+    # its payload and writes it once: twice the payload's bytes over the
+    # memory rate.  The in-place ops (allreduce, broadcast, reduce) get a
+    # buffer refreshed outside the events, and at one rank have no bytes to
+    # move in them: their least time is NCCL's call alone
     for label, medians, nbytes in (
             ("16MB", at_16mb, 2 * runner.DATA_SIZES_1D["16MB"]),
-            ("(8, 4096, 4096)", at_8, 2 * 8 * 4096 * 4096)):
+            ("(8, 4096, 4096)", at_8, 2 * 8 * 4096 * 4096),
+            ("(16, 8192, 4096)", at_1g, 2 * 16 * 8192 * 4096)):
         floor_us = 2 * nbytes / PEAK_BYTES_PER_S * 1e6
         print(f"[comm] NCCL {nccl}, 1 rank, bf16, on {gpu_line}: median us per op at "
-              f"{label} ({nbytes / 2**20:.0f} MiB per rank; copy bound {floor_us:.2f} us): "
+              f"{label} ({nbytes / 2**20:.0f} MiB per rank; copy bound of the out-of-place ops {floor_us:.2f} us): "
               + ", ".join(f"{k} {v:.2f}" for k, v in medians.items()))
 
 
@@ -713,6 +893,8 @@ def main() -> int:
         long_b = _time_bwd(torch, fa, LONG_SHAPE, reps=10, plain_reps=2)
     if "comm" in phases:
         phase_comm(torch, gpu_line)
+    if "tp" in phases:
+        tp = phase_tp(torch, gpu_line)
     if phases != set(PHASES):
         print(f"chip_smoke: phases {sorted(phases)} passed; no result printed for a subset")
         return 0
@@ -725,6 +907,7 @@ def main() -> int:
         "replaces": "dlbb_tpu/ops/flash_attention.py:99",
         "launches": launches,
         "train_launches": train_launches["flash_fwd"],
+        "tp_launches": tp["full"]["launches"],
         "max_abs_err": err_o,
         "lse_max_abs_err": err_lse,
         "ms": main_t["ms"],

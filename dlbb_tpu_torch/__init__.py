@@ -7,7 +7,7 @@ stated tolerance).  This package imports ``torch`` and numpy only — never
 ``jax`` and never a module of ``dlbb_tpu``.
 
 Ported so far (the single-device forward and train step, the collective
-sweeps):
+sweeps, the tensor-parallel forward):
 
 - ``models`` — ``ModelConfig``/``MODEL_CONFIGS`` (1B/7B/13B), the dense
   decoder ``forward`` with the simplified/full/dense/flash attention modes
@@ -24,15 +24,18 @@ sweeps):
   at ZeRO stage 0, world size 1);
 - ``utils`` — ``summarize``/``Timer``, per-iteration CUDA-event timing,
   config IO, system info;
-- ``bench.e2e`` — ``run_e2e`` at world size 1; ``cli e2e`` and ``cli train``;
+- ``bench.e2e`` — ``run_e2e``, on one device or on every rank of a (dp, tp)
+  process-group mesh; ``cli e2e`` (``--world N``) and ``cli train``;
+- ``parallel.plan`` — ``ParallelismPlan``: the JAX plan's checks and the
+  mesh; ``models.sharding`` — explicit Megatron tensor-parallel shards;
 - ``comm`` — process groups (``torch.distributed``: NCCL, or gloo on the
   CPU), the collective ops, payloads and mesh-shape variants;
   ``bench.runner`` and ``bench.launch`` — the 1D and 3D collective sweeps
   on spawned ranks; ``stats`` — their statistics; ``cli bench1d``,
   ``bench3d``, ``stats1d``, ``stats3d``.
 
-Not ported yet (see ROADMAP.md): MoE, tp_overlap, model sharding, ZeRO
-1-3, gradient accumulation, checkpointing, the other optimizers and
+Not ported yet (see ROADMAP.md): MoE, tp_overlap, uneven tp shards, TP
+training, ZeRO 1-3, gradient accumulation, checkpointing, the other optimizers and
 schedules, ring/Ulysses attention, pipelines, the quantised and
 collective-matmul ops, serving, and the observability, resilience,
 planning and analysis layers.

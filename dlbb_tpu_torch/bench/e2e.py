@@ -1,13 +1,24 @@
-"""End-to-end forward benchmark at world size 1 (counterpart of
-``dlbb_tpu/bench/e2e.py``).
+"""End-to-end forward benchmark (counterpart of ``dlbb_tpu/bench/e2e.py``).
 
 YAML config in, decoder + fixed synthetic batch, warmup + timed forward
 passes, metrics JSON out, in the JAX harness's result schema with
 ``backend: "torch_cuda"``.  The first forward is timed on its own as
 ``compile_time_s``: here it holds the kernel build (at a process's first
 launch) and the libraries' first-call set-up, not an XLA compile.  The
-result also records ``flash_launches``, the flash kernel launches of the
-timed forwards.  Multi-device configs are refused: meshes are a later slice.
+result also records ``flash_launches``, this rank's flash kernel launches
+in the timed forwards.
+
+Without a process group it runs on one device, with no
+``torch.distributed`` at all.  Inside one (``bench/launch.py``, as ``cli
+e2e --world N`` starts it), ``parallel/plan.py::ParallelismPlan`` checks
+the config against the world and builds the (dp, tp) mesh: each rank
+draws its tensor-parallel shards of the model (``init_params``) and its dp
+slice of the batch, and runs the tensor-parallel forward.  Each timed
+iteration is a barrier on the world group and then the forward, and its
+time is the slowest rank's, since the JAX number is one SPMD step;
+``per_host_means_s`` holds each rank's own mean, and the cross-host
+variance and CV are over ranks (the reference's cross-rank CV,
+``run_mpi.py:199-212``).  World rank 0 writes the result.
 """
 
 from __future__ import annotations
@@ -18,6 +29,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dlbb_tpu_torch.data.synthetic import create_dataset_from_config
 from dlbb_tpu_torch.models.configs import ModelConfig
@@ -29,39 +41,35 @@ from dlbb_tpu_torch.models.transformer import (
     num_parameters,
 )
 from dlbb_tpu_torch.ops import flash_attention as flash_mod
-from dlbb_tpu_torch.utils.config import load_config, save_json
+from dlbb_tpu_torch.parallel.plan import ParallelismPlan
+from dlbb_tpu_torch.utils.config import save_json
 from dlbb_tpu_torch.utils.metrics import Timer, summarize
 from dlbb_tpu_torch.utils.sysinfo import collect_system_info, resolve_device
-from dlbb_tpu_torch.utils.timing import time_fn_per_iter
-
-
-def check_world_one(config: dict[str, Any]) -> None:
-    """Refuse configs that need more than one device (a later slice)."""
-    par = config.get("parallelism", {}) or {}
-    for key in ("world_size", "data_parallel", "sequence_parallel",
-                "pipeline_parallel", "expert_parallel"):
-        if int(par.get(key, 1)) > 1:
-            raise NotImplementedError(
-                f"parallelism.{key}={par[key]}: dlbb_tpu_torch runs on one "
-                "device so far (multi-device is a later slice)")
+from dlbb_tpu_torch.utils.timing import time_fn_per_iter, time_fn_per_iter_spmd
 
 
 def run_e2e(config: dict[str, Any], device=None,
             output_dir: Optional[str] = None,
             verbose: bool = True) -> dict[str, Any]:
     """Run the benchmark described by ``config`` on ``device`` (``cuda``
-    unless the caller passes another; raises without CUDA)."""
+    unless the caller passes another; raises without CUDA), on this rank of
+    the process group if there is one (module docstring)."""
     device = resolve_device(device)
-    check_world_one(config)
     inp = config["input"]
     with Timer(sync=device) as t_init:
         model_cfg = ModelConfig.from_dict(config["model"])
-        params = init_params(model_cfg, inp.get("seed", 42), device)
+        plan = ParallelismPlan.from_config(config, model_cfg)
+        mesh = plan.mesh
+        coords = mesh.coords if mesh is not None else {"dp": 0, "tp": 0}
+        params = init_params(model_cfg, inp.get("seed", 42), device,
+                             tp_rank=coords["tp"], tp=plan.tp)
         dataset = create_dataset_from_config(
             config, dtype=DTYPES[model_cfg.dtype], device=device,
-            hidden_size=model_cfg.hidden_size)
+            hidden_size=model_cfg.hidden_size, dp_rank=coords["dp"],
+            dp=plan.dp)
         batch = dataset.get_batch()
     init_time = t_init.elapsed
+    lead = mesh is None or dist.get_rank() == 0
 
     execution = config.get("execution", {})
     warmup = execution.get("warmup_iterations", 5)
@@ -69,7 +77,7 @@ def run_e2e(config: dict[str, Any], device=None,
 
     @torch.inference_mode()
     def step():
-        return forward(params, batch, model_cfg)
+        return forward(params, batch, model_cfg, mesh=mesh)
 
     with Timer(sync=device) as t_first:
         out = step()
@@ -80,13 +88,28 @@ def run_e2e(config: dict[str, Any], device=None,
     for _ in range(warmup - 1):
         step()
     launches_before = flash_mod.flash_fwd_launches
-    forward_times = time_fn_per_iter(step, iterations=iters, device=device)
+    on_cuda = device.type == "cuda"
+    if mesh is None:
+        forward_times = time_fn_per_iter(step, iterations=iters, device=device)
+        host_means = np.asarray([np.mean(forward_times)])
+        timing_method = ("torch.cuda.Event pairs per iteration" if on_cuda
+                         else "time.perf_counter() per iteration (CPU)")
+    else:
+        forward_times, local = time_fn_per_iter_spmd(
+            step, iterations=iters, device=device, group=dist.group.WORLD)
+        means: list[Any] = [None] * dist.get_world_size()
+        dist.all_gather_object(means, float(np.mean(local)))
+        host_means = np.asarray(means)
+        timing_method = (
+            "barrier on the world group, then "
+            + ("a torch.cuda.Event pair around the forward, synchronize"
+               if on_cuda else "time.perf_counter() around the forward (CPU)")
+            + "; each iteration's time is the slowest rank's")
     timed_launches = flash_mod.flash_fwd_launches - launches_before
 
-    local_mean = float(np.mean(forward_times))
+    step_mean = float(np.mean(forward_times))
     tokens = inp["batch_size"] * inp["sequence_length"]
     flops = forward_flops(model_cfg, inp["batch_size"], inp["sequence_length"])
-    on_cuda = device.type == "cuda"
     result = {
         "experiment": config.get("experiment", {}),
         "backend": "torch_cuda",
@@ -98,27 +121,26 @@ def run_e2e(config: dict[str, Any], device=None,
             "dtype": model_cfg.dtype,
             "tp_overlap": model_cfg.tp_overlap,
         },
-        "mesh": {"dp": 1, "sp": 1, "pp": 1, "ep": 1, "tp": 1},
+        "mesh": plan.mesh_dict(),
         "init_time_s": init_time,
         "compiler_options": None,
         "compile_time_s": compile_time,
         "forward_time": summarize(forward_times),
         "timing_mode": "per_iter",
-        "timing_method": ("torch.cuda.Event pairs per iteration" if on_cuda
-                          else "time.perf_counter() per iteration (CPU)"),
-        "per_host_means_s": [local_mean],
-        "cross_host_variance": 0.0,
-        "cross_host_cv": 0.0,
-        "tokens_per_second": tokens / local_mean,
+        "timing_method": timing_method,
+        "per_host_means_s": host_means.tolist(),
+        "cross_host_variance": float(host_means.var()),
+        "cross_host_cv": float(host_means.std() / host_means.mean()),
+        "tokens_per_second": tokens / step_mean,
         "model_flops_per_forward": flops,
-        "achieved_tflops_per_second": flops / local_mean / 1e12,
+        "achieved_tflops_per_second": flops / step_mean / 1e12,
         "flash_launches": timed_launches,
         "timings": [forward_times],
         "system_info": collect_system_info(device),
         "timestamp": time.time(),
     }
 
-    if verbose:
+    if verbose and lead:
         ft = result["forward_time"]
         print(
             f"[e2e] {config.get('experiment', {}).get('name', 'experiment')} "
@@ -128,14 +150,8 @@ def run_e2e(config: dict[str, Any], device=None,
             f"{result['tokens_per_second']:.0f} tok/s"
         )
 
-    if output_dir is not None:
+    if output_dir is not None and lead:
         name = config.get("experiment", {}).get("name", "experiment")
         save_json(result, Path(output_dir) / f"torch_cuda_{name}.json")
     return result
 
-
-def run_e2e_from_config(config_path: str, output_dir: Optional[str] = None,
-                        device=None) -> dict[str, Any]:
-    config = load_config(config_path)
-    out = output_dir or config.get("experiment", {}).get("output_dir")
-    return run_e2e(config, device=device, output_dir=out)

@@ -60,27 +60,31 @@ def _spawned(rank: int, world_size: int, device_type: str, tmp: str,
 
 
 def launch(fn: Callable, world_size: int, device=None, args: tuple = (),
-           timeout: Optional[float] = None) -> list[Any]:
+           timeout: Optional[float] = None,
+           group_timeout: Optional[float] = None) -> list[Any]:
     """Run ``fn(*args)`` on ``world_size`` ranks of one process group; see
     the module docstring.  ``fn`` must be importable by name (it is pickled
     into the workers).  ``device`` is ``cuda`` unless the caller names
-    ``cpu``; it raises without CUDA.  ``timeout`` (seconds) bounds each
-    collective's wait and, when spawning, the whole run."""
+    ``cpu``; it raises without CUDA.  ``timeout`` (seconds) bounds, when
+    spawning, the whole run, and each collective's wait unless
+    ``group_timeout`` (seconds) bounds that."""
     dev = resolve_device(device)
+    if group_timeout is None:
+        group_timeout = timeout
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         if int(os.environ["WORLD_SIZE"]) != world_size:
             raise ValueError(f"torchrun set WORLD_SIZE={os.environ['WORLD_SIZE']}, "
                              f"the launch asks for {world_size}")
         return [_run_rank(int(os.environ["RANK"]),
                           int(os.environ.get("LOCAL_RANK", 0)), world_size,
-                          dev.type, None, timeout, fn, args)]
+                          dev.type, None, group_timeout, fn, args)]
     if dev.type == "cuda" and world_size > torch.cuda.device_count():
         raise ValueError(
             f"world size {world_size} needs one GPU per rank; "
             f"{torch.cuda.device_count()} visible")
     with tempfile.TemporaryDirectory(prefix="dlbb_launch_") as tmp:
         ctx = mp.start_processes(
-            _spawned, args=(world_size, dev.type, tmp, timeout, fn, args),
+            _spawned, args=(world_size, dev.type, tmp, group_timeout, fn, args),
             nprocs=world_size, join=False, start_method="spawn")
         deadline = None if timeout is None else time.monotonic() + timeout
         while not ctx.join(timeout=1.0):  # raises when a rank failed

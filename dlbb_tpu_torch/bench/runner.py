@@ -11,6 +11,15 @@ and one result JSON per config, written atomically by the mesh's rank 0 in
 the JAX package's schema and under its file name, with the implementation
 ``torch_nccl`` (``cuda``) or ``torch_gloo`` (``cpu``).
 
+The ranks past a rank count's mesh sit it out, and every rank of the
+world meets at the end of each rank count before any goes on (a barrier on
+a gloo group of its own, whose timeout is ``HOLD_TIMEOUT``):
+a rank that went on alone would wait in the larger mesh's first
+collective, under the collective timeout, while the smaller mesh is still
+measuring.  The JAX package has no such skew, since one SPMD process runs
+every mesh in turn.  Payloads are built once per rank count and kept in a
+byte-budgeted LRU (``PayloadCache``, the JAX runner's).
+
 A config that fails is printed with its traceback, recorded and skipped,
 as in JAX; ``run_sweep`` returns the failures beside the files written.
 A failure on one rank only cannot be contained: its peers wait in the
@@ -26,11 +35,14 @@ other value.
 from __future__ import annotations
 
 import json
+import os
 import time
 import traceback
+from collections import OrderedDict
 from dataclasses import dataclass, field, fields
+from datetime import timedelta
 from pathlib import Path
-from typing import Any, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -185,6 +197,51 @@ class SweepResult:
     skipped: int = 0
 
 
+_PAYLOAD_CACHE_BYTES_ENV = "DLBB_PAYLOAD_CACHE_BYTES"
+DEFAULT_PAYLOAD_CACHE_BYTES = 1 << 30  # 1 GiB of payloads per rank
+
+# How long a rank waits at the end of a rank count for the ranks still
+# measuring it.  A rank count of a large grid runs for hours over gloo, so
+# this is not the collective timeout; a rank that dies closes its gloo
+# connections, which fails the others' wait at once.
+HOLD_TIMEOUT = timedelta(days=1)
+
+
+class PayloadCache:
+    """Byte-budgeted LRU of this rank's payloads (the JAX runner's
+    ``bench/schedule.py::PayloadCache``): ops that share a key reuse one
+    tensor instead of drawing it again.  The budget is ``max_bytes``, else
+    ``DLBB_PAYLOAD_CACHE_BYTES``, else 1 GiB; a payload larger than the
+    budget passes through uncached, and the least recently used entries
+    go when a new one would exceed it."""
+
+    def __init__(self, max_bytes: Optional[int] = None) -> None:
+        if max_bytes is None:
+            max_bytes = int(os.environ.get(_PAYLOAD_CACHE_BYTES_ENV,
+                                           DEFAULT_PAYLOAD_CACHE_BYTES))
+        self.max_bytes = max_bytes
+        self._entries: OrderedDict[tuple, torch.Tensor] = OrderedDict()
+        self.nbytes = 0
+
+    def get(self, key: tuple, build: Callable[[], torch.Tensor]) -> torch.Tensor:
+        t = self._entries.get(key)
+        if t is not None:
+            self._entries.move_to_end(key)
+            return t
+        t = build()
+        if t.nbytes > self.max_bytes:
+            return t
+        self._entries[key] = t
+        self.nbytes += t.nbytes
+        while self.nbytes > self.max_bytes:
+            _, old = self._entries.popitem(last=False)
+            self.nbytes -= old.nbytes
+        return t
+
+    def __contains__(self, key: tuple) -> bool:
+        return key in self._entries
+
+
 def _check_sweep(sweep) -> None:
     defaults = {f.name: f.default for f in fields(sweep)}
     for knob, what in _NOT_PORTED_KNOBS.items():
@@ -326,6 +383,10 @@ def run_sweep(sweep: Sweep1D | Sweep3D, device=None,
     sysinfo = collect_system_info(dev)
     configs = list(_iter_configs(sweep))
     result = SweepResult()
+    # gloo on every backend: its barrier waits on the host, and a peer's
+    # death breaks it at once
+    hold_group = (dist.new_group(backend="gloo", timeout=HOLD_TIMEOUT)
+                  if world > 1 else None)
 
     for num_ranks in sweep.rank_counts:
         if num_ranks > world:
@@ -341,43 +402,52 @@ def run_sweep(sweep: Sweep1D | Sweep3D, device=None,
                 print(f"[skip] ranks={num_ranks}: {e}")
             continue
         mesh = get_mesh(spec)
-        if mesh is None:
-            continue  # this rank sits this rank count out
-        payloads: dict[tuple, torch.Tensor] = {}
-        for config in configs:
-            fname = _result_filename(sweep, impl, num_ranks, config)
-            try:
-                if sweep.max_global_bytes is not None:
-                    est = _estimate_global_bytes(sweep, config, num_ranks)
-                    if est > sweep.max_global_bytes:
-                        result.skipped += 1
-                        if verbose and mesh.rank == 0:
-                            print(f"[skip-mem] {fname}: ~{est / 2**30:.1f} GiB "
-                                  f"> cap {sweep.max_global_bytes / 2**30:.1f} GiB")
-                        continue
-                if sweep.resume:
-                    ok, why = _resume_ok(out_dir / fname, mesh)
-                    if ok:
-                        result.written.append(out_dir / fname)
-                        if verbose and mesh.rank == 0:
-                            print(f"  [resume-skip] {fname}")
-                        continue
-                    if why != "missing" and verbose and mesh.rank == 0:
-                        print(f"  [resume-INVALID] {fname}: {why} — re-measuring")
-                path = _run_one(sweep, variant, impl, mesh, config, payloads,
-                                dev, out_dir / fname, sysinfo, verbose)
-                if path is not None:
-                    result.written.append(path)
-            except Exception as e:  # noqa: BLE001 — a config fails alone
-                result.failed.append({"config": fname,
-                                      "error": f"{type(e).__name__}: {e}"})
-                print(f"[error] rank {mesh.rank} {impl} {fname}: {e}")
-                traceback.print_exc()
+        if mesh is not None:  # the ranks past the mesh sit this count out
+            _run_rank_count(sweep, variant, impl, mesh, configs, dev,
+                            out_dir, sysinfo, verbose, result)
+        if hold_group is not None:  # every rank waits for the whole count
+            dist.barrier(group=hold_group)
     return result
 
 
+def _run_rank_count(sweep, variant: Variant, impl: str, mesh: Mesh, configs,
+                    dev: torch.device, out_dir: Path, sysinfo, verbose: bool,
+                    result: SweepResult) -> None:
+    num_ranks = mesh.spec.num_ranks
+    payloads = PayloadCache()
+    for config in configs:
+        fname = _result_filename(sweep, impl, num_ranks, config)
+        try:
+            if sweep.max_global_bytes is not None:
+                est = _estimate_global_bytes(sweep, config, num_ranks)
+                if est > sweep.max_global_bytes:
+                    result.skipped += 1
+                    if verbose and mesh.rank == 0:
+                        print(f"[skip-mem] {fname}: ~{est / 2**30:.1f} GiB "
+                              f"> cap {sweep.max_global_bytes / 2**30:.1f} GiB")
+                    continue
+            if sweep.resume:
+                ok, why = _resume_ok(out_dir / fname, mesh)
+                if ok:
+                    result.written.append(out_dir / fname)
+                    if verbose and mesh.rank == 0:
+                        print(f"  [resume-skip] {fname}")
+                    continue
+                if why != "missing" and verbose and mesh.rank == 0:
+                    print(f"  [resume-INVALID] {fname}: {why} — re-measuring")
+            path = _run_one(sweep, variant, impl, mesh, config, payloads,
+                            dev, out_dir / fname, sysinfo, verbose)
+            if path is not None:
+                result.written.append(path)
+        except Exception as e:  # noqa: BLE001 — a config fails alone
+            result.failed.append({"config": fname,
+                                  "error": f"{type(e).__name__}: {e}"})
+            print(f"[error] rank {mesh.rank} {impl} {fname}: {e}")
+            traceback.print_exc()
+
+
 def _run_one(sweep, variant: Variant, impl: str, mesh: Mesh, config,
-             payloads: dict, dev: torch.device, path: Path, sysinfo,
+             payloads: PayloadCache, dev: torch.device, path: Path, sysinfo,
              verbose: bool) -> Optional[Path]:
     """Measure one config; the mesh's rank 0 writes its JSON and returns
     the path, the other ranks return None."""
@@ -387,13 +457,12 @@ def _run_one(sweep, variant: Variant, impl: str, mesh: Mesh, config,
     dtype = DTYPES[sweep.dtype]
     num_elements, shape = _payload_geometry(sweep, config)
     # every op leaves its input untouched, so configs share payloads
-    key = (op.input_kind, num_elements, shape)
-    if key not in payloads:
-        payloads[key] = make_payload(op, mesh.rank, num_ranks, num_elements,
-                                     dtype=dtype, shape=shape, device=dev)
+    x = payloads.get((op.input_kind, num_elements, shape), lambda: make_payload(
+        op, mesh.rank, num_ranks, num_elements, dtype=dtype, shape=shape,
+        device=dev))
     fn = _build_fn(op_name, variant, mesh, sweep.root)
     local, timing_meta = time_collective(
-        fn, payloads[key], mesh.group, warmup=sweep.warmup_iterations,
+        fn, x, mesh.group, warmup=sweep.warmup_iterations,
         iterations=sweep.measurement_iterations, device=dev,
         max_seconds=sweep.max_config_seconds)
     timings = _gather_timings(local, mesh)

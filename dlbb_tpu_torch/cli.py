@@ -1,7 +1,7 @@
 """Command line (counterpart of ``dlbb_tpu/cli.py``).
 
     python -m dlbb_tpu_torch.cli e2e --config CONFIG.yaml [--output DIR]
-                                     [--device cuda|cpu]
+                                     [--world N] [--device cuda|cpu]
     python -m dlbb_tpu_torch.cli train --config CONFIG.yaml [--output DIR]
                                        [--device cuda|cpu]
     python -m dlbb_tpu_torch.cli bench1d [--ops ...] [--sizes ...] [--ranks ...]
@@ -13,7 +13,9 @@
 
 The sweeps launch ``--world`` ranks (default: the largest of ``--ranks``)
 through ``bench/launch.py``: NCCL with one GPU per rank on ``cuda``, gloo
-on ``cpu``.
+on ``cpu``.  ``e2e`` does the same with ``--world`` ranks (default: the
+config's mesh, dp x tp x sp x pp x ep); at world 1 it runs in this process
+with no process group.  Under ``torchrun`` both run in place as their rank.
 """
 
 from __future__ import annotations
@@ -50,6 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
     e2 = sub.add_parser("e2e", help="end-to-end transformer forward benchmark")
     e2.add_argument("--config", required=True, help="YAML experiment config")
     e2.add_argument("--output", default=None)
+    e2.add_argument("--world", type=int, default=None,
+                    help="ranks to launch (default: the config's mesh size)")
     e2.add_argument("--device", default=None, help=_DEVICE_HELP)
     tr = sub.add_parser("train", help="single-device training step benchmark")
     tr.add_argument("--config", required=True, help="YAML experiment config")
@@ -109,6 +113,30 @@ def _sweep(args):
     return runner.Sweep1D(output_dir=args.output or "results/1d", **common)
 
 
+def e2e_worker(config, output_dir, device):
+    """One rank of ``e2e`` (launched by name)."""
+    from dlbb_tpu_torch.bench.e2e import run_e2e
+
+    return run_e2e(config, device=device, output_dir=output_dir)
+
+
+def _e2e(args):
+    import math
+    import os
+
+    from dlbb_tpu_torch.bench.launch import launch
+    from dlbb_tpu_torch.parallel.plan import degrees
+    from dlbb_tpu_torch.utils.config import load_config
+
+    config = load_config(args.config)
+    output_dir = args.output or config.get("experiment", {}).get("output_dir")
+    world = args.world or math.prod(degrees(config))
+    if world == 1 and "WORLD_SIZE" not in os.environ:
+        return e2e_worker(config, output_dir, args.device)
+    return launch(e2e_worker, world, args.device,
+                  args=(config, output_dir, args.device))[0]
+
+
 def sweep_worker(sweep, device):
     """One rank of ``bench1d``/``bench3d`` (launched by name)."""
     from dlbb_tpu_torch.bench.runner import run_sweep
@@ -119,11 +147,9 @@ def sweep_worker(sweep, device):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd == "e2e":
-        from dlbb_tpu_torch.bench.e2e import run_e2e_from_config
-
-        result = run_e2e_from_config(args.config, output_dir=args.output,
-                                     device=args.device)
-        print(f"forward mean {result['forward_time']['mean'] * 1e3:.3f} ms")
+        result = _e2e(args)
+        print(f"forward mean {result['forward_time']['mean'] * 1e3:.3f} ms "
+              f"over {len(result['per_host_means_s'])} rank(s)")
         return 0
     if args.cmd == "train":
         from dlbb_tpu_torch.train.loop import run_train_from_config

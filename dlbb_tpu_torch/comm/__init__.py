@@ -5,6 +5,7 @@ from dlbb_tpu_torch.comm.mesh import (
     DEFAULT_AXIS,
     Mesh,
     MeshSpec,
+    build_parallelism_mesh,
     destroy_distributed,
     flat_axes,
     get_mesh,
@@ -13,6 +14,7 @@ from dlbb_tpu_torch.comm.mesh import (
 )
 from dlbb_tpu_torch.comm.ops import (
     OPERATIONS,
+    Collective,
     CollectiveOp,
     get_op,
     make_payload,
@@ -24,12 +26,14 @@ __all__ = [
     "DEFAULT_AXIS",
     "Mesh",
     "MeshSpec",
+    "build_parallelism_mesh",
     "destroy_distributed",
     "flat_axes",
     "get_mesh",
     "initialize_distributed",
     "mesh_num_ranks",
     "OPERATIONS",
+    "Collective",
     "CollectiveOp",
     "get_op",
     "make_payload",

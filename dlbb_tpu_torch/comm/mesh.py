@@ -88,6 +88,12 @@ class Mesh:
         """Ranks per axis, by axis name (as ``jax.sharding.Mesh.shape``)."""
         return dict(zip(self.spec.axis_names, self.spec.shape))
 
+    @property
+    def coords(self) -> dict[str, int]:
+        """This rank's index along each axis, by axis name."""
+        index = np.unravel_index(self.rank, self.spec.shape)
+        return {a: int(i) for a, i in zip(self.spec.axis_names, index)}
+
 
 def initialize_distributed(backend: str, rank: int, world_size: int,
                            init_file: Optional[str] = None,
@@ -147,6 +153,28 @@ def get_mesh(spec: MeshSpec) -> Optional[Mesh]:
     if rank >= n:
         return None
     return Mesh(spec, rank, group, axis_groups)
+
+
+def build_parallelism_mesh(data_parallel: int = 1, sequence_parallel: int = 1,
+                           pipeline_parallel: int = 1, tensor_parallel: int = 1,
+                           expert_parallel: int = 1) -> Optional[Mesh]:
+    """The model-parallelism mesh of the E2E harness, in the JAX package's
+    axis order ``(dp[, sp][, pp][, ep], tp)``: dp always (outermost), sp, pp
+    and ep only when above 1, tp always (innermost).  A rank's global rank
+    is its row-major index in that grid, and ``axis_groups["tp"]`` holds the
+    ranks that differ from it only in their tp index (and so on for each
+    axis).  A collective call, as ``get_mesh``: every rank of the world
+    builds every axis group, in the same order; the ranks past the grid get
+    None."""
+    shape, names = [data_parallel], ["dp"]
+    for size, name in ((sequence_parallel, "sp"), (pipeline_parallel, "pp"),
+                       (expert_parallel, "ep")):
+        if size > 1:
+            shape.append(size)
+            names.append(name)
+    shape.append(tensor_parallel)
+    names.append("tp")
+    return get_mesh(MeshSpec.grid(shape, names))
 
 
 def mesh_num_ranks(mesh: Mesh, axes: Optional[Sequence[str]] = None) -> int:

@@ -19,6 +19,15 @@ differs: rooted ops zero the output of every rank but the root (gather,
 reduce), where the library leaves it undefined.  No builder writes to its
 input: the sweep reuses one payload across ops.
 
+Each ``build_*`` function returns a ``Collective``: ``prepare(x)`` makes the buffer the
+call writes, and ``call(x, buf)`` runs the collective; ``fn(x)`` does both.
+``torch.distributed``'s allreduce, broadcast and reduce are in place, so
+their ``prepare`` copies the payload into a fresh output buffer, where the
+reference's ``MPI_Allreduce(sendbuf, recvbuf)`` and the JAX ``psum`` are
+out of place with no copy; ``utils.timing.time_collective`` runs
+``prepare`` outside the timed interval.  The other ops write a buffer they
+allocate, and their ``prepare`` does nothing.
+
 ``plain_collective`` computes the whole global output from the stacked
 global input in one process with torch ops: the reference the CPU tests
 and ``chip_smoke.py`` hold the ``torch.distributed`` result against.
@@ -53,12 +62,32 @@ _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
 class CollectiveOp:
     """One benchmarkable collective.  ``input_kind``/``output_kind`` are
     ``per_rank`` or ``per_peer`` (module docstring); ``build(mesh, root=0)``
-    returns the function from this rank's input slab to its output slab."""
+    returns the ``Collective`` from this rank's input slab to its output
+    slab."""
 
     name: str
     input_kind: str
     output_kind: str
-    build: Callable[..., Callable[[torch.Tensor], torch.Tensor]]
+    build: Callable[..., Collective]
+
+
+def _no_buffer(x: torch.Tensor) -> None:
+    return None
+
+
+def _copy_of(x: torch.Tensor) -> torch.Tensor:
+    return x.clone()
+
+
+@dataclass(frozen=True)
+class Collective:
+    """This rank's side of a built collective; see the module docstring."""
+
+    call: Callable[[torch.Tensor, Optional[torch.Tensor]], torch.Tensor]
+    prepare: Callable[[torch.Tensor], Optional[torch.Tensor]] = _no_buffer
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.call(x, self.prepare(x))
 
 
 def _reduce_op(reduce_op: str):
@@ -78,12 +107,11 @@ def build_allreduce(mesh: Mesh, root: int = 0, reduce_op: str = "sum"):
     ``collectives/1d/openmpi.py:55-67``, ``test/test_open.py:248``)."""
     op = _reduce_op(reduce_op)
 
-    def fn(x):
-        out = x.clone()
+    def call(x, out):
         dist.all_reduce(out, op=op, group=mesh.group)
         return out
 
-    return fn
+    return Collective(call, _copy_of)
 
 
 def build_allreduce_hierarchical(mesh: Mesh, root: int = 0,
@@ -94,13 +122,12 @@ def build_allreduce_hierarchical(mesh: Mesh, root: int = 0,
         raise ValueError("hierarchical allreduce supports sum only")
     groups = [mesh.axis_groups[a] for a in mesh.axis_names]
 
-    def fn(x):
-        out = x.clone()
+    def call(x, out):
         for group in groups:
             dist.all_reduce(out, group=group)
         return out
 
-    return fn
+    return Collective(call, _copy_of)
 
 
 def build_allgather(mesh: Mesh, root: int = 0):
@@ -108,25 +135,24 @@ def build_allgather(mesh: Mesh, root: int = 0):
     out (reference ``collectives/1d/openmpi.py:84-96``)."""
     p = mesh_num_ranks(mesh)
 
-    def fn(x):
+    def call(x, _):
         out = torch.empty((p,) + tuple(x.shape), dtype=x.dtype, device=x.device)
         # the concatenated view: gloo takes only that, NCCL either
         dist.all_gather_into_tensor(out.view((-1,) + tuple(x.shape[1:])), x,
                                     group=mesh.group)
         return out
 
-    return fn
+    return Collective(call)
 
 
 def build_broadcast(mesh: Mesh, root: int = 0):
     """MPI_Bcast from ``root`` (reference ``collectives/1d/openmpi.py:98-110``)."""
 
-    def fn(x):
-        out = x.clone()
+    def call(x, out):
         dist.broadcast(out, src=root, group=mesh.group)
         return out
 
-    return fn
+    return Collective(call, _copy_of)
 
 
 def build_gather(mesh: Mesh, root: int = 0):
@@ -135,7 +161,7 @@ def build_gather(mesh: Mesh, root: int = 0):
     ``collectives/1d/openmpi.py:112-124``)."""
     p = mesh_num_ranks(mesh)
 
-    def fn(x):
+    def call(x, _):
         is_root = mesh.rank == root
         out = (torch.empty if is_root else torch.zeros)(
             (p,) + tuple(x.shape), dtype=x.dtype, device=x.device)
@@ -143,20 +169,20 @@ def build_gather(mesh: Mesh, root: int = 0):
                     dst=root, group=mesh.group)
         return out
 
-    return fn
+    return Collective(call)
 
 
 def build_scatter(mesh: Mesh, root: int = 0):
     """MPI_Scatter from ``root``: rank i receives row i of the root's
     ``[P, *shape]`` sendbuf (reference ``collectives/1d/openmpi.py:126-140``)."""
 
-    def fn(x):
+    def call(x, _):
         out = torch.empty(tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
         dist.scatter(out, list(x.unbind(0)) if mesh.rank == root else None,
                      src=root, group=mesh.group)
         return out
 
-    return fn
+    return Collective(call)
 
 
 def build_reduce(mesh: Mesh, root: int = 0, reduce_op: str = "sum"):
@@ -164,14 +190,13 @@ def build_reduce(mesh: Mesh, root: int = 0, reduce_op: str = "sum"):
     (reference ``collectives/1d/openmpi.py:142-155``)."""
     op = _reduce_op(reduce_op)
 
-    def fn(x):
-        out = x.clone()
+    def call(x, out):
         dist.reduce(out, dst=root, op=op, group=mesh.group)
         if mesh.rank != root:
             out.zero_()
         return out
 
-    return fn
+    return Collective(call, _copy_of)
 
 
 def build_alltoall(mesh: Mesh, root: int = 0):
@@ -180,12 +205,12 @@ def build_alltoall(mesh: Mesh, root: int = 0):
     ``collectives/1d/openmpi.py:157-171``)."""
     _single_axis(mesh, "alltoall")
 
-    def fn(x):
+    def call(x, _):
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x, group=mesh.group)
         return out
 
-    return fn
+    return Collective(call)
 
 
 def build_sendrecv(mesh: Mesh, root: int = 0):
@@ -196,7 +221,7 @@ def build_sendrecv(mesh: Mesh, root: int = 0):
     p = mesh_num_ranks(mesh)
     nxt, prv = (mesh.rank + 1) % p, (mesh.rank - 1) % p
 
-    def fn(x):
+    def call(x, _):
         if p == 1:
             return x.clone()
         out = torch.empty_like(x)
@@ -207,7 +232,7 @@ def build_sendrecv(mesh: Mesh, root: int = 0):
             req.wait()
         return out
 
-    return fn
+    return Collective(call)
 
 
 def build_reducescatter(mesh: Mesh, root: int = 0):
@@ -215,14 +240,14 @@ def build_reducescatter(mesh: Mesh, root: int = 0):
     as a ``[1, *shape]`` slab (the JAX global ``[P, 1, *shape]``)."""
     _single_axis(mesh, "reducescatter")
 
-    def fn(x):
+    def call(x, _):
         shape = tuple(x.shape[1:])
         out = torch.empty((1,) + shape, dtype=x.dtype, device=x.device)
         dist.reduce_scatter_tensor(out.view(shape), x.view((-1,) + shape[1:]),
                                    group=mesh.group)
         return out
 
-    return fn
+    return Collective(call)
 
 
 def build_barrier(mesh: Mesh, root: int = 0):

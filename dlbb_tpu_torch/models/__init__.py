@@ -1,4 +1,5 @@
-"""The dense decoder (counterpart of ``dlbb_tpu/models``), single device."""
+"""The dense decoder (counterpart of ``dlbb_tpu/models``), on one device or
+as tensor-parallel shards (``models.sharding``)."""
 
 from dlbb_tpu_torch.models.configs import MODEL_CONFIGS, ModelConfig
 from dlbb_tpu_torch.models.transformer import (

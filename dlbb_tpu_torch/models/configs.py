@@ -2,9 +2,11 @@
 
 The dataclass keeps every field of the JAX ``ModelConfig`` and the same
 validation, so one config dict is accepted by both packages.  The dense
-single-device forward and train step are ported, remat included: fields
-that select MoE or ``tp_overlap`` are accepted and validated here, and
-rejected by the model code that does not run them yet.
+forward (single device and tensor parallel) and the single-device train
+step are ported, remat included: fields that select MoE or ``tp_overlap``
+are accepted and validated here, and rejected by the model code that does
+not run them yet.  The parallelism validators are the JAX package's, with
+its messages; ``validate_tp_shards`` is the port's own.
 """
 
 from __future__ import annotations
@@ -139,3 +141,88 @@ MODEL_CONFIGS: dict[str, ModelConfig] = {
     "13B": ModelConfig(hidden_size=5120, num_layers=40, num_heads=40,
                        ffn_intermediate=20480),
 }
+
+
+# Attention modes that partition the sequence dimension over an sp mesh
+# axis (the JAX package's SP_CAPABLE_ATTENTION).
+SP_CAPABLE_ATTENTION = ("ring", "ulysses")
+
+
+def validate_attention_parallelism(config: ModelConfig, sp: int) -> None:
+    """Reject attention-mode / sequence-parallel combinations that would
+    silently compute the wrong thing or replicate work per sp shard."""
+    if config.attention in SP_CAPABLE_ATTENTION and sp <= 1:
+        raise ValueError(
+            f"attention={config.attention!r} requires "
+            "parallelism.sequence_parallel > 1"
+        )
+    if sp > 1 and config.attention not in SP_CAPABLE_ATTENTION:
+        raise ValueError(
+            f"parallelism.sequence_parallel={sp} requires attention in "
+            f"{SP_CAPABLE_ATTENTION} (attention={config.attention!r} does "
+            "not partition the sequence; it would run replicated per sp "
+            "shard)"
+        )
+
+
+def validate_tp_overlap(config: ModelConfig, tp: int, pp: int = 1,
+                        seq_len: int = 0, sp: int = 1) -> None:
+    """Reject tp_overlap combinations the decomposed schedule cannot run:
+    it needs a real tp axis, an even sequence split, a dense FFN and no
+    pipeline."""
+    if config.tp_overlap == "off":
+        return
+    if tp <= 1:
+        raise ValueError(
+            f"model.tp_overlap={config.tp_overlap!r} requires "
+            "parallelism.world_size (tp) > 1 — without a tp axis there is "
+            "no collective to overlap"
+        )
+    if pp > 1:
+        raise ValueError(
+            f"model.tp_overlap={config.tp_overlap!r} is incompatible with "
+            "pipeline_parallel > 1 (the pipeline engine owns the "
+            "activation layout)"
+        )
+    if config.is_moe:
+        raise ValueError(
+            f"model.tp_overlap={config.tp_overlap!r} requires a dense FFN "
+            "(the MoE expert dispatch is not ring-decomposed; run MoE "
+            "models with tp_overlap='off')"
+        )
+    if seq_len and seq_len % (tp * max(1, sp)) != 0:
+        raise ValueError(
+            f"input.sequence_length={seq_len} not divisible by the "
+            f"sequence-shard count {tp * max(1, sp)} (tp={tp}"
+            f"{f' x sp={sp}' if sp > 1 else ''}) required by "
+            f"tp_overlap={config.tp_overlap!r}"
+        )
+
+
+def validate_expert_parallelism(config: ModelConfig, ep: int) -> None:
+    """Reject expert-parallel degrees that cannot shard the expert dim."""
+    if ep <= 1:
+        return
+    if not config.is_moe:
+        raise ValueError(
+            f"parallelism.expert_parallel={ep} requires a MoE model "
+            "(model.num_experts > 0)"
+        )
+    if config.num_experts % ep != 0:
+        raise ValueError(
+            f"num_experts={config.num_experts} not divisible by "
+            f"expert_parallel={ep}"
+        )
+
+
+def validate_tp_shards(config: ModelConfig, tp: int) -> None:
+    """Refuse a tensor-parallel degree that does not divide every sharded
+    dimension.  The port's shards are explicit tensors, one per rank; GSPMD
+    pads an uneven shard, explicit shards cannot."""
+    for name in ("hidden_size", "num_heads", "ffn_intermediate"):
+        if getattr(config, name) % tp != 0:
+            raise ValueError(
+                f"{name}={getattr(config, name)} not divisible by the "
+                f"tensor-parallel degree {tp} (parallelism.world_size): the "
+                "port shards it evenly over tp"
+            )

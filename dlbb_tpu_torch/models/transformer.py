@@ -8,6 +8,17 @@ across without a transpose (``models/weights.py``).  A plain Python loop over
 the layers takes the place of ``lax.scan``.  The large projection and FFN
 products are ``torch.matmul``, as the JAX package leaves them to XLA.
 
+``forward(..., mesh=plan.mesh)`` runs the Megatron tensor-parallel forward
+(the reference paper's third level, ``models.py``/``run_mpi.py``) on this
+rank's shards (``models/sharding.py``): each column-parallel product and
+the attention run on the rank's heads and FFN columns, and each of the two
+row-parallel products per layer is summed over the mesh's tp group by
+``dist.all_reduce``, after which its bias and the residual are added, once
+(the reference's ``models.py:95``; the all-reduces GSPMD inserts in JAX).
+The tensor-parallel forward runs without gradients: TP training is ROADMAP
+Queue 1, Slice D, item 2, and it raises while gradients are recorded.
+Without a mesh the forward is the single-device one.
+
 ``config.remat`` wraps each block in ``torch.utils.checkpoint`` when
 gradients are being recorded: ``remat_policy="full"`` saves nothing of the
 block, ``"dots"`` saves the outputs of the matrix products (``aten.mm``,
@@ -25,6 +36,7 @@ import math
 from typing import Any
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -34,6 +46,7 @@ from torch.utils.checkpoint import (
 
 from dlbb_tpu_torch.models.attention import dense_attention
 from dlbb_tpu_torch.models.configs import ModelConfig
+from dlbb_tpu_torch.models.sharding import local_config, shard_leaf
 from dlbb_tpu_torch.ops.flash_attention import flash_attention, kernel_accepts
 
 Params = dict[str, Any]
@@ -52,12 +65,17 @@ def _check_ported(config: ModelConfig) -> None:
         raise NotImplementedError("tp_overlap needs a tp mesh, not ported yet")
 
 
-def init_params(config: ModelConfig, seed: int, device) -> Params:
+def init_params(config: ModelConfig, seed: int, device, tp_rank: int = 0,
+                tp: int = 1) -> Params:
     """Stacked-layer parameters, drawn on ``device`` from a
     ``torch.Generator`` seeded with ``seed``: scaled-normal kernels
     (1/sqrt(fan_in)), zero biases, unit LN scales — the JAX init's
     distribution, not its numbers (the parity tests carry JAX weights across
-    with ``params_from_jax`` instead)."""
+    with ``params_from_jax`` instead).
+
+    With ``tp`` above 1, rank ``tp_rank`` draws the same full leaves, one at
+    a time, and keeps its shard of each (``sharding.shard_leaf``): the same
+    seed gives the same model at every tp, and the peak is one full leaf."""
     _check_ported(config)
     h, f, L = config.hidden_size, config.ffn_intermediate, config.num_layers
     dtype = DTYPES[config.dtype]
@@ -65,27 +83,32 @@ def init_params(config: ModelConfig, seed: int, device) -> Params:
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
-    def kernel(shape, fan_in):
+    def kernel(group, shape, fan_in):
         w = torch.randn(shape, generator=gen, device=device, dtype=dtype)
-        return w.div_(math.sqrt(fan_in))
+        return shard_leaf(group, "kernel", w.div_(math.sqrt(fan_in)), config,
+                          tp_rank, tp)
 
-    def zeros(*shape):
-        return torch.zeros(shape, device=device, dtype=dtype)
+    def zeros(group, *shape):
+        return shard_leaf(group, "bias", torch.zeros(shape, device=device, dtype=dtype),
+                          config, tp_rank, tp)
 
     def ones(*shape):
         return torch.ones(shape, device=device, dtype=dtype)
 
     qkvw = config.qkv_width
+    # the kernels are drawn in this order: qkv, out, ffn_up, ffn_down
     layers = {
-        "ln1": {"scale": ones(L, h), "bias": zeros(L, h)},
-        "qkv": {"kernel": kernel((L, h, qkvw), h), "bias": zeros(L, qkvw)},
-        "out": {"kernel": kernel((L, h, h), h), "bias": zeros(L, h)},
-        "ln2": {"scale": ones(L, h), "bias": zeros(L, h)},
-        "ffn_up": {"kernel": kernel((L, h, f), h), "bias": zeros(L, f)},
-        "ffn_down": {"kernel": kernel((L, f, h), f), "bias": zeros(L, h)},
+        "ln1": {"scale": ones(L, h), "bias": zeros("ln1", L, h)},
+        "qkv": {"kernel": kernel("qkv", (L, h, qkvw), h), "bias": zeros("qkv", L, qkvw)},
+        "out": {"kernel": kernel("out", (L, h, h), h), "bias": zeros("out", L, h)},
+        "ln2": {"scale": ones(L, h), "bias": zeros("ln2", L, h)},
+        "ffn_up": {"kernel": kernel("ffn_up", (L, h, f), h),
+                   "bias": zeros("ffn_up", L, f)},
+        "ffn_down": {"kernel": kernel("ffn_down", (L, f, h), f),
+                     "bias": zeros("ffn_down", L, h)},
     }
     return {"layers": layers,
-            "ln_f": {"scale": ones(h), "bias": zeros(h)}}
+            "ln_f": {"scale": ones(h), "bias": zeros("ln_f", h)}}
 
 
 def _layernorm(x, scale, bias):
@@ -141,19 +164,28 @@ def _attention(qkv, config: ModelConfig):
     return o.transpose(1, 2).reshape(b, s, n * d)
 
 
-def _block(x, layer: Params, config: ModelConfig):
+def _row(y, p: Params, tp_group):
+    """Row-parallel product: this rank's partial sums over its input
+    features, summed over the tp group, then the bias, once."""
+    out = y @ p["kernel"]
+    if tp_group is not None:
+        dist.all_reduce(out, group=tp_group)
+    return out + p["bias"]
+
+
+def _block(x, layer: Params, config: ModelConfig, tp_group=None):
     residual = x
     y = _layernorm(x, layer["ln1"]["scale"], layer["ln1"]["bias"])
     qkv = y @ layer["qkv"]["kernel"] + layer["qkv"]["bias"]
     attn = _attention(qkv, config)
-    x = attn @ layer["out"]["kernel"] + layer["out"]["bias"] + residual
+    x = _row(attn, layer["out"], tp_group) + residual
 
     residual = x
     y = _layernorm(x, layer["ln2"]["scale"], layer["ln2"]["bias"])
     y = y @ layer["ffn_up"]["kernel"] + layer["ffn_up"]["bias"]
     # jax.nn.gelu defaults to approximate=True: the tanh form, not erf
     y = F.gelu(y, approximate="tanh")
-    return y @ layer["ffn_down"]["kernel"] + layer["ffn_down"]["bias"] + residual
+    return _row(y, layer["ffn_down"], tp_group) + residual
 
 
 # the matrix products that remat_policy="dots" keeps
@@ -175,11 +207,25 @@ def _remat_block(x, layer: Params, config: ModelConfig):
     return checkpoint(_block, x, layer, config, use_reentrant=False)
 
 
-def forward(params: Params, x: torch.Tensor, config: ModelConfig) -> torch.Tensor:
-    """Full forward pass: the layers in order, then the final LN."""
+def forward(params: Params, x: torch.Tensor, config: ModelConfig,
+            mesh=None) -> torch.Tensor:
+    """Full forward pass: the layers in order, then the final LN.
+
+    ``mesh`` (a ``comm.Mesh`` with a ``tp`` axis, ``ParallelismPlan.mesh``)
+    runs the tensor-parallel forward over its tp group: ``params`` are this
+    rank's shards and ``x`` its dp slice of the batch, ``config`` the full
+    model's (module docstring)."""
     _check_ported(config)
+    tp_group = None
+    if mesh is not None:
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "the tensor-parallel forward runs without gradients; TP "
+                "training is ROADMAP Queue 1, Slice D, item 2")
+        tp_group = mesh.axis_groups["tp"]
+        config = local_config(config, mesh.shape["tp"])
     block = (_remat_block if config.remat and torch.is_grad_enabled()
-             else _block)
+             else functools.partial(_block, tp_group=tp_group))
     # one unbind per stacked parameter: its gradient is one stack of the
     # layers' gradients (indexing t[i] instead would add a zero-filled
     # full-size [L, ...] gradient per layer)

@@ -1,0 +1,121 @@
+"""Parallelism-plan resolution for the E2E harness (counterpart of
+``dlbb_tpu/parallel/plan.py``).
+
+One place that parses the YAML ``parallelism:`` section, runs every
+validation of the JAX plan with its messages (the device preflight, the
+reference's ``run_mpi.py:73-77``; attention/sp, MoE/ep, ``tp_overlap``;
+``num_microbatches`` without a pipeline), refuses what the port does not
+run yet, and builds the process-group mesh.  The devices are the ranks of
+the default process group, one device per rank; without a process group
+there is one.  The JAX plan's ``num_microbatches`` and ``tp_overlap``
+fields wait for the pipeline and the collective matmul, which
+``check_plan`` refuses.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch.distributed as dist
+
+from dlbb_tpu_torch.comm.mesh import Mesh, build_parallelism_mesh
+from dlbb_tpu_torch.models.configs import (
+    ModelConfig,
+    validate_attention_parallelism,
+    validate_expert_parallelism,
+    validate_tp_overlap,
+    validate_tp_shards,
+)
+
+# what brings each refused axis or knob (ROADMAP Queue 1, Slice D)
+_NOT_PORTED = {
+    "sp": "sequence parallelism comes with parallel/ring_attention.py and "
+          "parallel/ulysses.py (ROADMAP Queue 1, Slice D, item 4)",
+    "pp": "pipeline parallelism comes with parallel/pipeline.py (ROADMAP "
+          "Queue 1, Slice D, item 5)",
+    "ep": "expert parallelism comes with the MoE FFN (ROADMAP Queue 1, "
+          "Slice D, item 6)",
+    "tp_overlap": "the collective-matmul schedule comes with "
+                  "parallel/collective_matmul.py (ROADMAP Queue 1, Slice D, "
+                  "item 3)",
+}
+
+
+def degrees(config: dict[str, Any]) -> tuple[int, int, int, int, int]:
+    """``(dp, sp, pp, ep, tp)`` from the YAML ``parallelism:`` section
+    (``world_size`` is the tp degree, the reference's)."""
+    par = config.get("parallelism", {}) or {}
+    return (par.get("data_parallel", 1), par.get("sequence_parallel", 1),
+            par.get("pipeline_parallel", 1), par.get("expert_parallel", 1),
+            par.get("world_size", 1))
+
+
+def check_plan(config: dict[str, Any], model_cfg: ModelConfig,
+               n_avail: int) -> tuple[int, int, int, int, int]:
+    """Every check of the JAX plan, with its messages, on ``n_avail``
+    devices, then the port's own refusals; returns ``(dp, sp, pp, ep, tp)``."""
+    dp, sp, pp, ep, tp = degrees(config)
+    needed = tp * dp * sp * pp * ep
+    if needed > n_avail:
+        raise ValueError(
+            f"config needs {needed} devices (tp={tp} x dp={dp} x "
+            f"sp={sp} x pp={pp} x ep={ep}), only {n_avail} available"
+        )
+
+    validate_attention_parallelism(model_cfg, sp)
+    validate_expert_parallelism(model_cfg, ep)
+    validate_tp_overlap(
+        model_cfg, tp, pp=pp, sp=sp,
+        seq_len=config.get("input", {}).get("sequence_length", 0),
+    )
+    if pp > 1:
+        raise NotImplementedError(
+            f"parallelism.pipeline_parallel={pp}: {_NOT_PORTED['pp']}")
+    if (config.get("parallelism", {}) or {}).get("num_microbatches") is not None:
+        raise ValueError(
+            "parallelism.num_microbatches requires "
+            "pipeline_parallel > 1 (microbatching is the pipeline's "
+            "schedule; without pp it would silently be ignored)"
+        )
+    for axis, size in (("sp", sp), ("ep", ep)):
+        if size > 1:
+            raise NotImplementedError(f"{axis}={size}: {_NOT_PORTED[axis]}")
+    if model_cfg.tp_overlap != "off":
+        raise NotImplementedError(
+            f"model.tp_overlap={model_cfg.tp_overlap!r}: "
+            f"{_NOT_PORTED['tp_overlap']}")
+    validate_tp_shards(model_cfg, tp)
+    if n_avail > needed:
+        raise ValueError(
+            f"{n_avail} ranks in the process group, the config's mesh has "
+            f"{needed}: the port runs one rank per mesh position")
+    return dp, sp, pp, ep, tp
+
+
+@dataclass(frozen=True)
+class ParallelismPlan:
+    dp: int
+    sp: int
+    pp: int
+    ep: int
+    tp: int
+    # None without a process group (world 1, no torch.distributed at all)
+    mesh: Optional[Mesh]
+
+    @classmethod
+    def from_config(cls, config: dict[str, Any],
+                    model_cfg: ModelConfig) -> "ParallelismPlan":
+        """Check ``config`` against the world (``check_plan``) and build
+        its mesh; without a process group, on one device, the mesh is
+        None."""
+        n_avail = dist.get_world_size() if dist.is_initialized() else 1
+        dp, sp, pp, ep, tp = check_plan(config, model_cfg, n_avail)
+        mesh = (build_parallelism_mesh(dp, sp, pp, tp, ep)
+                if dist.is_initialized() else None)
+        return cls(dp, sp, pp, ep, tp, mesh)
+
+    def mesh_dict(self) -> dict[str, int]:
+        """The result-JSON ``mesh`` field."""
+        return {"dp": self.dp, "sp": self.sp, "pp": self.pp,
+                "ep": self.ep, "tp": self.tp}

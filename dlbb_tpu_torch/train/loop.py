@@ -27,7 +27,6 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
-from dlbb_tpu_torch.bench.e2e import check_world_one
 from dlbb_tpu_torch.data.synthetic import create_dataset_from_config
 from dlbb_tpu_torch.models.configs import ModelConfig
 from dlbb_tpu_torch.models.transformer import DTYPES, forward, forward_flops, init_params
@@ -135,6 +134,19 @@ def _refuse_unported(train_cfg: dict[str, Any], execution: dict[str, Any]) -> No
         raise NotImplementedError(
             "execution.compiler_options are XLA compiler options; the port "
             "has no XLA compilation to pass them to")
+
+
+def check_world_one(config: dict[str, Any]) -> None:
+    """Refuse configs that train on more than one device (ROADMAP Queue 1,
+    Slice D, item 2)."""
+    par = config.get("parallelism", {}) or {}
+    for key in ("world_size", "data_parallel", "sequence_parallel",
+                "pipeline_parallel", "expert_parallel"):
+        if int(par.get(key, 1)) > 1:
+            raise NotImplementedError(
+                f"parallelism.{key}={par[key]}: dlbb_tpu_torch trains on one "
+                "device so far (multi-device training is ROADMAP Queue 1, "
+                "Slice D, item 2)")
 
 
 def _launch_counts() -> dict[str, int]:

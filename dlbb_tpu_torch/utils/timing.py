@@ -7,7 +7,9 @@ synchronised once after the loop: the samples are device times, and the
 host runs ahead without waiting between iterations.  On the CPU each
 iteration is bracketed by ``time.perf_counter``.  The JAX package's chained
 regime exists for a remotely attached TPU and has no counterpart here.
-``time_collective`` times one rank's share of a collective.
+``time_collective`` times one rank's share of a collective, and
+``time_fn_per_iter_spmd`` one step of a program that every rank of a
+process group runs together.
 """
 
 from __future__ import annotations
@@ -50,21 +52,57 @@ def time_fn_per_iter(fn: Callable, *args, iterations: int,
 _PLAUSIBLE_FLOOR_S, _PLAUSIBLE_RATIO = 0.02, 0.2
 
 
-def time_collective(fn: Callable, x, group, warmup: int = 10,
+def time_fn_per_iter_spmd(fn: Callable, *args, iterations: int, device,
+                          group) -> tuple[list[float], list[float]]:
+    """Time ``fn(*args)``, which every rank of ``group`` runs together,
+    ``iterations`` times.  Each iteration is a one-element allreduce over
+    ``group`` (the reference's ``comm.Barrier()``, ``run_mpi.py:177``), then
+    ``fn`` bracketed by CUDA events on ``cuda`` or ``time.perf_counter`` on
+    ``cpu``, then a synchronize.  Returns ``(the slowest rank's time per
+    iteration, this rank's)`` in seconds: one step of an SPMD program lasts
+    as long as its slowest rank.  The caller warms up first."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    token = torch.zeros(1, device=device)
+    local = []
+    if cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+    for _ in range(iterations):
+        dist.all_reduce(token, group=group)
+        if cuda:
+            start.record()
+            fn(*args)
+            end.record()
+            torch.cuda.synchronize(device)
+            local.append(start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            fn(*args)
+            local.append(time.perf_counter() - t0)
+    slowest = torch.tensor(local, dtype=torch.float64, device=device)
+    dist.all_reduce(slowest, op=dist.ReduceOp.MAX, group=group)
+    return slowest.tolist(), local
+
+
+def time_collective(fn, x, group, warmup: int = 10,
                     iterations: int = 100, device="cpu",
                     max_seconds: Optional[float] = None
                     ) -> tuple[list[float], dict[str, Any]]:
-    """Per-iteration timing of a collective ``fn(x)`` on this rank
-    (counterpart of ``dlbb_tpu/utils/timing.py::time_collective`` in its
-    ``per_iter`` mode).
+    """Per-iteration timing of a collective ``fn`` (a ``comm.ops.Collective``)
+    on payload ``x`` on this rank (counterpart of
+    ``dlbb_tpu/utils/timing.py::time_collective`` in its ``per_iter`` mode).
 
-    Each timed iteration is the reference's ``Barrier(); t0; op; t1``
-    (``collectives/1d/openmpi.py:60-66``): a one-element allreduce over
-    ``group``, then the op bracketed by CUDA events on ``cuda`` (the op's
-    device time from the moment the barrier completes) or by
-    ``time.perf_counter`` on ``cpu``, then a synchronize.  Every rank of
-    ``group`` calls this with the same arguments: each call here is a
-    collective, and the counts must agree.
+    Each timed iteration is ``fn.prepare(x)``, which refreshes the output
+    buffer from the payload (a copy for the in-place ops), a synchronize,
+    and then the reference's ``Barrier(); t0; op; t1`` (``collectives/1d/openmpi.py:60-66``):
+    a one-element allreduce over ``group``, then ``fn.call`` bracketed by CUDA
+    events on ``cuda`` (the op's device time from the moment the barrier
+    completes) or by ``time.perf_counter`` on ``cpu``, then a synchronize.
+    The warmup and forced-completion calls prepare a fresh buffer too, so
+    every call sees the same input.  Every rank of ``group`` calls this with
+    the same arguments: each call here is a collective, and the counts must
+    agree.
 
     ``max_seconds`` caps the measurement: after the first warmup call, one
     call's wall time (the slowest rank's) scales the warmup and iteration
@@ -77,11 +115,16 @@ def time_collective(fn: Callable, x, group, warmup: int = 10,
     cuda = device.type == "cuda"
     token = torch.zeros(1, device=device)
 
-    def wall() -> float:
-        t0 = time.perf_counter()
-        fn(x)
+    def sync() -> None:
         if cuda:
             torch.cuda.synchronize(device)
+
+    def wall() -> float:
+        buf = fn.prepare(x)
+        sync()
+        t0 = time.perf_counter()
+        fn.call(x, buf)
+        sync()
         return time.perf_counter() - t0
 
     def slowest(seconds: float) -> float:
@@ -109,24 +152,33 @@ def time_collective(fn: Callable, x, group, warmup: int = 10,
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
     for _ in range(iterations):
+        # the copy ends before the barrier: were the device still copying
+        # when the host enqueued the op, the events would hide the op's host
+        # cost at large payloads and show it at small ones
+        buf = fn.prepare(x)
+        sync()
         dist.all_reduce(token, group=group)
         if cuda:
             start.record()
-            fn(x)
+            fn.call(x, buf)
             end.record()
-            torch.cuda.synchronize(device)
+            sync()
             samples.append(start.elapsed_time(end) / 1e3)
         else:
             t0 = time.perf_counter()
-            fn(x)
+            fn.call(x, buf)
             samples.append(time.perf_counter() - t0)
 
     forced = min(wall() for _ in range(3))
     meta: dict[str, Any] = {
         "timing_mode": "per_iter",
-        "timing_method": ("barrier, then torch.cuda.Event pair around the op, "
-                          "synchronize" if cuda else
-                          "barrier, then time.perf_counter() around the op"),
+        "timing_method": (
+            "output buffer refreshed from the payload and synchronized outside "
+            "the events, then barrier, then torch.cuda.Event pair around the "
+            "op, synchronize"
+            if cuda else
+            "output buffer refreshed from the payload outside the timer, then "
+            "barrier, then time.perf_counter() around the op"),
         "timing_granularity": "per_iteration",
         "forced_completion_s": forced,
     }

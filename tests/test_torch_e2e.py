@@ -82,8 +82,10 @@ def test_run_e2e_without_cuda_raises_instead_of_running_on_cpu(monkeypatch):
 
 
 def test_run_e2e_refuses_multi_device_configs():
+    """Outside a process group there is one device: the plan's preflight
+    refuses a config that needs four, with the JAX plan's message."""
     cfg = _config(parallelism={"world_size": 4, "data_parallel": 1})
-    with pytest.raises(NotImplementedError, match="world_size"):
+    with pytest.raises(ValueError, match=r"needs 4 devices \(tp=4 x dp=1"):
         run_e2e(cfg, device="cpu", verbose=False)
 
 

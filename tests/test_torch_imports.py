@@ -1,6 +1,6 @@
 """The port stands alone: no file of ``dlbb_tpu_torch/``, not
-``chip_smoke.py`` and not ``scripts/torch_e2e_profile.py`` imports ``jax``
-or any module of ``dlbb_tpu`` (the JAX package runs nowhere on the card's
+``chip_smoke.py`` and not ``scripts/torch_{e2e,comm}_profile.py`` imports
+``jax`` or any module of ``dlbb_tpu`` (the JAX package runs nowhere on the card's
 machine).  Static AST check, one case per file, in the manner of
 ``tests/test_fleet.py``'s host-side pin."""
 
@@ -12,7 +12,7 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(
     [p.relative_to(REPO).as_posix() for p in (REPO / "dlbb_tpu_torch").rglob("*.py")]
-    + ["chip_smoke.py", "scripts/torch_e2e_profile.py"]
+    + ["chip_smoke.py", "scripts/torch_e2e_profile.py", "scripts/torch_comm_profile.py"]
 )
 
 
@@ -29,6 +29,7 @@ def test_port_has_the_expected_modules():
                 "dlbb_tpu_torch/comm/ops.py", "dlbb_tpu_torch/comm/variants.py",
                 "dlbb_tpu_torch/bench/runner.py", "dlbb_tpu_torch/bench/launch.py",
                 "dlbb_tpu_torch/stats/stats1d.py", "dlbb_tpu_torch/stats/stats3d.py",
+                "dlbb_tpu_torch/parallel/plan.py", "dlbb_tpu_torch/models/sharding.py",
                 "chip_smoke.py"):
         assert rel in PORT_FILES
 

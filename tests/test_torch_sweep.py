@@ -15,9 +15,11 @@ Nothing is measured here: the timings are gloo on the CPU.
 import csv
 import json
 import os
+import time
 
 import numpy as np
 import pytest
+import torch
 
 from dlbb_tpu.bench import Sweep1D as JaxSweep1D
 from dlbb_tpu.bench import Sweep3D as JaxSweep3D
@@ -29,6 +31,7 @@ from dlbb_tpu.stats import process_3d_results as jax_process_3d
 from dlbb_tpu_torch import cli
 from dlbb_tpu_torch.bench import runner
 from dlbb_tpu_torch.bench.launch import launch
+from dlbb_tpu_torch.comm import get_op
 
 OPS_1D, SIZES = ("allreduce", "alltoall"), (("1KB", 256), ("64KB", 16384))
 OPS_3D, BATCH, SEQ, HIDDEN = ("allreduce", "gather"), (1, 2), (4,), (8,)
@@ -200,3 +203,105 @@ def test_launch_on_cuda_raises_with_no_cuda(monkeypatch):
         monkeypatch.delenv(var, raising=False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch(os.getcwd, 1)
+
+
+def test_ranks_past_a_smaller_mesh_wait_for_it(tmp_path):
+    """World 4, rank counts (2, 4), a 2 s group timeout and a P=2 part that
+    takes longer: ranks 2 and 3 must wait for the P=2 mesh at the end of its
+    rank count instead of timing out in the P=4 mesh's first collective, so
+    every file is written and no config fails."""
+    sweep = runner.Sweep1D(operations=("allreduce",), data_sizes=(("16MB", 4194304),),
+                           rank_counts=(2, 4), warmup_iterations=1,
+                           measurement_iterations=500, output_dir=str(tmp_path))
+    results = launch(cli.sweep_worker, 4, "cpu", args=(sweep, "cpu"), timeout=240,
+                     group_timeout=2.0)
+    assert [r.failed for r in results] == [[], [], [], []]
+    assert sorted(p.name for p in tmp_path.glob("*.json")) == [
+        f"{IMPL}_allreduce_ranks2_16MB.json", f"{IMPL}_allreduce_ranks4_16MB.json"]
+
+
+class _Recorder:
+    """A collective whose ``prepare`` sleeps and whose call records the
+    buffer it was given."""
+
+    def __init__(self, sleep):
+        self.sleep, self.prepared, self.called = sleep, [], []
+
+    def prepare(self, x):
+        time.sleep(self.sleep)
+        buf = x.clone()
+        self.prepared.append(buf)
+        return buf
+
+    def call(self, x, buf):
+        self.called.append(buf)
+        return buf
+
+
+@pytest.fixture
+def world_one_group(tmp_path):
+    from dlbb_tpu_torch.comm import destroy_distributed, initialize_distributed
+
+    initialize_distributed("gloo", 0, 1, str(tmp_path / "store"))
+    try:
+        yield
+    finally:
+        destroy_distributed()
+
+
+def test_prepare_runs_outside_the_timed_interval(world_one_group):
+    from dlbb_tpu_torch.utils.timing import time_collective
+
+    sleep, warmup, iters = 0.05, 2, 5
+    fn = _Recorder(sleep)
+    samples, meta = time_collective(fn, torch.ones(8), None, warmup=warmup,
+                                    iterations=iters, device="cpu")
+    assert len(samples) == iters and float(np.median(samples)) < sleep
+    assert meta["forced_completion_s"] < sleep
+    assert "outside the timer" in meta["timing_method"]
+    # warmup, timed and forced-completion calls: each on its own fresh buffer
+    assert len(fn.called) == warmup + iters + 3
+    assert [id(b) for b in fn.called] == [id(b) for b in fn.prepared]
+
+
+def test_in_place_ops_refresh_their_output_in_prepare():
+    from dlbb_tpu_torch.comm import Mesh, MeshSpec
+    from dlbb_tpu_torch.comm.ops import build_allreduce_hierarchical
+
+    mesh = Mesh(MeshSpec.ring(1), 0, None, {"ranks": None})
+    x = torch.arange(4.0)
+    for fn in [get_op(n).build(mesh) for n in ("allreduce", "broadcast", "reduce")] + [
+            build_allreduce_hierarchical(mesh)]:
+        buf = fn.prepare(x)
+        assert torch.equal(buf, x) and buf.data_ptr() != x.data_ptr()
+    for name in ("allgather", "gather", "scatter", "alltoall", "sendrecv",
+                 "reducescatter"):
+        assert get_op(name).build(mesh).prepare(x) is None
+
+
+def test_payload_cache_evicts_at_its_budget_and_passes_oversized_through():
+    cache = runner.PayloadCache(max_bytes=1000)
+    built = []
+
+    def make(n):
+        def build():
+            built.append(n)
+            return torch.zeros(n, dtype=torch.uint8)
+        return build
+
+    a = cache.get("a", make(400))
+    assert cache.get("a", make(400)) is a and built == [400]
+    cache.get("b", make(400))
+    cache.get("a", make(400))  # a is now the most recently used
+    cache.get("c", make(400))  # 1200 bytes > 1000: the LRU entry, b, goes
+    assert "a" in cache and "c" in cache and "b" not in cache
+    assert cache.nbytes == 800
+    big = cache.get("big", make(2000))
+    assert big.nbytes == 2000 and "big" not in cache and cache.nbytes == 800
+
+
+def test_payload_cache_budget_default_and_env_override(monkeypatch):
+    monkeypatch.delenv("DLBB_PAYLOAD_CACHE_BYTES", raising=False)
+    assert runner.PayloadCache().max_bytes == 1 << 30
+    monkeypatch.setenv("DLBB_PAYLOAD_CACHE_BYTES", "4096")
+    assert runner.PayloadCache().max_bytes == 4096
