@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlbb_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm,tp]
+    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm,tp,dtrain]
 
 Phases (each raises on failure, and the script then exits non-zero):
 
@@ -44,7 +44,25 @@ Phases (each raises on failure, and the script then exits non-zero):
    1 GiB per rank, bf16, 10 warmup and 100 timed iterations, every payload
    on the card; check every result JSON (schema keys, one row of finite
    timings per rank), run the 1D and 3D statistics into their CSVs, and
-   print the median time per op at 16MB and at (8, 4096, 4096).
+   print the median time per op at 16MB and at (8, 4096, 4096);
+7. drive the tensor-parallel forward: the 7B baseline at world 1 through
+   ``launch`` over NCCL, equal bit for bit to the forward with no process
+   group, and the 1B at tp=2 as two processes on the one card over gloo,
+   within ``tp_bf16_bound`` of the world-1 forward;
+8. ``dtrain``, multi-rank training: (a) at world 1 over NCCL through
+   ``launch``, the 1B train config at full width and depth: two steps of
+   ``make_train_step`` at ZeRO stages 0-3, equal bit for bit (losses and
+   every parameter) to the two steps with no process group, with 48 flash
+   forward, 24 dq and 24 dk/dv launches per step; then ``run_train`` at
+   stage 1, and at stage 2 with ``gradient_accumulation: 2`` (twice the
+   launches); then a checkpoint save, restore and continued step at full
+   width and 2 layers (a cut: 24 layers would write about 7 GB), equal bit
+   for bit to the uninterrupted step.  (b) two processes on the one card
+   over gloo with CUDA tensors (NCCL puts no two ranks on one GPU): one 1B
+   step at tp=2, stage 1, and at dp=2, stage 3, their loss and gradients
+   (reassembled over the shards) against the world-1 step's within the
+   bounds argued at ``DTRAIN_*``; errors and wall time printed, not timed
+   as a benchmark.
 
 It then prints the card's name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -61,6 +79,7 @@ import math
 import re
 import sys
 import time
+from pathlib import Path
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -120,7 +139,7 @@ EDGE_CASES = {
 # the mma.sync forward kernel this design replaced, at the two timed shapes:
 # phase 5 on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's kernel table)
 FWD_BEFORE_MS = {"main": 0.1259, "long": 2.5038}
-PHASES = ("build", "fwd", "bwd", "e2e", "train", "time", "comm", "tp")
+PHASES = ("build", "fwd", "bwd", "e2e", "train", "time", "comm", "tp", "dtrain")
 TP_CONFIG = "dlbb_tpu_torch/configs/baseline_config.yaml"
 # the 3D sweep's LLM shapes (batch, seq, hidden) on the card: the largest is
 # 1 GiB of bf16 per rank
@@ -742,6 +761,321 @@ def phase_tp(torch, gpu_line):
     return out
 
 
+# phase dtrain (b): the 1B train step sharded over two processes against the
+# world-1 step on the same weights and global batch, both bf16 on the card.
+# - dp=2, stage 3: the same kernels on half the rows each, the gradients
+#   summed by a bf16 reduce-scatter (one more rounding, 2**-8) and GEMMs that
+#   may sum in another order at the other row count.  The kernel-vs-dense
+#   bounds of phase 4 (TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2) hold two paths
+#   that differ by far more (another attention arithmetic in all 24 layers),
+#   so they bound this one.
+# - tp=2, stage 1: the forward differs from the world-1 forward by at most
+#   ``tp_bf16_bound`` (relative L2).  The loss moves by at most 2 ||dpred|| /
+#   ||pred - targets|| relative, and ||pred|| <= ||pred - targets|| for these
+#   independent targets of the same scale: 2 x ``tp_bf16_bound``.  Each
+#   gradient carries the backward's own bf16 differences over the 24-layer
+#   stack, which TRAIN_GRAD_REL_L2 bounds, plus the forward's, through the
+#   activations it multiplies, at most their relative size, tp_bf16_bound.
+DTRAIN_GLOO_RUNS = ((2, 1, 1), (1, 2, 3))  # (tp, dp, ZeRO stage)
+DTRAIN_STAGES = (0, 1, 2, 3)
+DTRAIN_CKPT_LAYERS = 2
+
+
+def dtrain_bounds(layers, tp):
+    """(loss relative, gradient relative L2 per leaf) bounds of the sharded
+    1B step against the world-1 step (comment above)."""
+    if tp == 1:
+        return TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2
+    return 2 * tp_bf16_bound(layers, tp), TRAIN_GRAD_REL_L2 + tp_bf16_bound(layers, tp)
+
+
+def _flash_counts(fa):
+    return {"flash_fwd": fa.flash_fwd_launches, "flash_bwd_dq": fa.flash_bwd_dq_launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv_launches}
+
+
+def _zero_flash_counts(fa):
+    fa.flash_fwd_launches = fa.flash_bwd_dq_launches = fa.flash_bwd_dkv_launches = 0
+
+
+def _dtrain_batch(config, model_cfg, device, coords=None, dp=1):
+    import torch
+
+    from dlbb_tpu_torch.data import create_dataset_from_config
+
+    coords = coords or {"dp": 0}
+    return tuple(create_dataset_from_config(
+        config, dtype=torch.bfloat16, device=device, hidden_size=model_cfg.hidden_size,
+        seed_offset=off, dp_rank=coords["dp"], dp=dp).get_batch() for off in (0, 1))
+
+
+def _dtrain_world1(config, ckpt_dir, device="cuda"):
+    """Phase dtrain (a), in the process ``launch`` started: a process group
+    of one rank (NCCL on the card).  Returns what the parent checks."""
+    import copy
+
+    import torch
+
+    from dlbb_tpu_torch.models import ModelConfig, init_params
+    from dlbb_tpu_torch.ops import flash_attention as fa
+    from dlbb_tpu_torch.parallel import ParallelismPlan
+    from dlbb_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
+    from dlbb_tpu_torch.train.loop import make_train_step, run_train
+    from dlbb_tpu_torch.train.optim import build_optimizer, tree_leaves
+
+    model_cfg = ModelConfig.from_dict(config["model"])
+    seed = config["input"]["seed"]
+    plan = ParallelismPlan.from_config(config, model_cfg)
+    batch, targets = _dtrain_batch(config, model_cfg, device)
+    out = {"comm_backend": torch.distributed.get_backend(), "stages": {}}
+
+    def steps(cfg, mesh, stage, n=2):
+        step, state = make_train_step(cfg, build_optimizer(config["training"]),
+                                      init_params(cfg, seed, device), mesh=mesh,
+                                      zero_stage=stage)
+        losses = []
+        for _ in range(n):
+            _zero_flash_counts(fa)
+            state, loss = step(state, batch, targets)
+            losses.append(float(loss))
+        return losses, state, _flash_counts(fa), step
+
+    ref_losses, ref_state, _, _ = steps(model_cfg, None, 0)
+    for stage in DTRAIN_STAGES:
+        t0 = time.perf_counter()
+        losses, state, launches, _ = steps(model_cfg, plan.mesh, stage)
+        equal = losses == ref_losses and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(state.params),
+                                              tree_leaves(ref_state.params)))
+        out["stages"][stage] = {"losses": losses, "equal": equal, "launches": launches,
+                                "seconds": time.perf_counter() - t0}
+        del state
+        torch.cuda.empty_cache()
+    out["ref_losses"] = ref_losses
+    del ref_state
+    torch.cuda.empty_cache()
+
+    out["runs"] = []
+    for stage, accum in ((1, 1), (2, 2)):
+        cfg = copy.deepcopy(config)
+        cfg["training"]["gradient_accumulation"] = accum
+        cfg["experiment"]["name"] = f"chip_smoke_1b_train_zero{stage}_ga{accum}"
+        _zero_flash_counts(fa)
+        result = run_train(cfg, zero_stage=stage, device=device, verbose=True)
+        out["runs"].append({"stage": stage, "accum": accum, "result": result,
+                            "launches": _flash_counts(fa)})
+        torch.cuda.empty_cache()
+
+    # checkpoint round trip at full width, DTRAIN_CKPT_LAYERS layers
+    cut = model_cfg.with_(num_layers=DTRAIN_CKPT_LAYERS)
+    layout = {"mesh": plan.mesh_dict(), "zero_stage": 1}
+    _, state, _, step = steps(cut, plan.mesh, 1, n=1)
+    with Checkpointer(CheckpointConfig(ckpt_dir), layout=layout,
+                      group=plan.mesh.group, device=device) as ckpt:
+        ckpt.maybe_save(state, force=True)
+        _, fresh, _, step2 = steps(cut, plan.mesh, 1, n=0)
+        restored = ckpt.restore(fresh)
+    resumed, loss_resumed = step2(restored, batch, targets)
+    straight, loss_straight = step(state, batch, targets)
+    out["ckpt"] = {
+        "restored_step": restored.step,
+        "equal": float(loss_resumed) == float(loss_straight) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(resumed.params),
+                                              tree_leaves(straight.params))),
+        "bytes": sum(f.stat().st_size for f in Path(ckpt_dir).rglob("*.pt")),
+        "loss": float(loss_straight)}
+    return out
+
+
+def _dtrain_gloo_rank(rank, world, init_file, config, stage, out_dir, device="cuda"):
+    """One rank of phase dtrain (b), spawned by ``_dtrain_gloo``: the loss
+    and reduced gradients of one step, then the step; written to
+    ``out_dir/r<rank>.pt``."""
+    import torch
+
+    from dlbb_tpu_torch.comm import destroy_distributed, initialize_distributed
+    from dlbb_tpu_torch.models import ModelConfig, init_params
+    from dlbb_tpu_torch.parallel import ParallelismPlan
+    from dlbb_tpu_torch.train.loop import make_train_step
+    from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    initialize_distributed("gloo", rank, world, init_file, timeout=900)
+    try:
+        model_cfg = ModelConfig.from_dict(config["model"])
+        plan = ParallelismPlan.from_config(config, model_cfg)
+        c = plan.mesh.coords
+        batch, targets = _dtrain_batch(config, model_cfg, device, c, plan.dp)
+        step, state = make_train_step(
+            model_cfg, build_optimizer(config["training"]),
+            init_params(model_cfg, config["input"]["seed"], device, tp_rank=c["tp"],
+                        tp=plan.tp), mesh=plan.mesh, zero_stage=stage)
+        t0 = time.perf_counter()
+        loss, grads = step.grads(state, batch, targets)
+        grads = tree_map(lambda g: g.cpu(), grads)
+        state, step_loss = step(state, batch, targets)
+        step_loss = float(step_loss)
+        torch.save({"coords": c, "loss": float(loss), "step_loss": step_loss,
+                    "grads": grads, "axes": step.zero.opt_axes,
+                    "seconds": time.perf_counter() - t0}, f"{out_dir}/r{rank}.pt")
+    finally:
+        destroy_distributed()
+
+
+def _dtrain_gloo(torch, config, stage, device="cuda"):
+    """The train step of ``config`` as two processes on one device over
+    gloo; returns each rank's record."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dtrain_") as tmp:
+        mp.start_processes(_dtrain_gloo_rank,
+                           args=(2, os.path.join(tmp, "store"), config, stage, tmp, device),
+                           nprocs=2, join=True, start_method="spawn")
+        return [torch.load(os.path.join(tmp, f"r{r}.pt"), weights_only=False)
+                for r in range(2)]
+
+
+def _rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def phase_dtrain(torch, gpu_line, config=None, device="cuda"):
+    """Phase 8 (module docstring).  ``config`` and ``device`` default to
+    the 1B train config on the card; a smaller config on the CPU rehearses
+    the phase's control flow."""
+    import copy
+    import tempfile
+
+    from dlbb_tpu_torch.bench.launch import launch
+    from dlbb_tpu_torch.models import ModelConfig, init_params
+    from dlbb_tpu_torch.models.sharding import unshard_params
+    from dlbb_tpu_torch.train import zero as zero_mod
+    from dlbb_tpu_torch.train.loop import make_train_step
+    from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
+    from dlbb_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    config = config or load_config(TRAIN_CONFIG)
+    model_cfg = ModelConfig.from_dict(config["model"])
+    layers = model_cfg.num_layers
+    per_step = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+    if device != "cuda":  # attention runs dense on the CPU: no kernel launches
+        per_step = dict.fromkeys(per_step, 0)
+
+    # (a) world 1 over NCCL, through launch
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        t0 = time.perf_counter()
+        a = launch(_dtrain_world1, 1, device, args=(config, ckpt_dir, device),
+                   timeout=900)[0]
+        print(f"[dtrain] world 1 over {a['comm_backend']} through launch: "
+              f"{time.perf_counter() - t0:.1f} s")
+    if device == "cuda" and a["comm_backend"] != "nccl":
+        raise AssertionError(f"world-1 training ran over {a['comm_backend']}, not NCCL")
+    for stage, r in a["stages"].items():
+        print(f"[dtrain] ZeRO-{stage}, world 1, two 1B steps: losses "
+              f"{', '.join(f'{x:.6f}' for x in r['losses'])} (no process group: "
+              f"{', '.join(f'{x:.6f}' for x in a['ref_losses'])}); losses and every "
+              f"parameter equal bit for bit: {r['equal']}; flash launches in the second "
+              f"step {r['launches']}; {r['seconds']:.1f} s")
+        if not r["equal"]:
+            raise AssertionError(f"ZeRO-{stage} at world 1 differs from the step with "
+                                 "no process group")
+        if r["launches"] != per_step:
+            raise AssertionError(f"ZeRO-{stage}: launches per step {r['launches']}, "
+                                 f"expected {per_step}")
+    runs = {}
+    for run in a["runs"]:
+        result, accum = run["result"], run["accum"]
+        want = {k: accum * n for k, n in per_step.items()}
+        ex = result["config"]["execution"]
+        steps = ex["warmup_iterations"] + ex["benchmark_iterations"]
+        if (result["kernel_launches_per_step"] != want
+                or run["launches"] != {k: n * steps for k, n in want.items()}):
+            raise AssertionError(f"run_train ZeRO-{run['stage']}, accumulation {accum}: "
+                                 f"launches {run['launches']} over {steps} steps, per timed "
+                                 f"step {result['kernel_launches_per_step']}; expected {want}")
+        if not all(math.isfinite(x) for x in result["losses"]):
+            raise AssertionError(f"non-finite losses {result['losses']}")
+        st = result["step_time"]
+        print(f"[dtrain] run_train ZeRO-{run['stage']}, gradient_accumulation {accum}, "
+              f"1B (bf16, B=8, S=512, remat dots, Adam bf16 moments), world 1 over "
+              f"{result['system_info'].get('comm_backend')} on {gpu_line}: step mean "
+              f"{st['mean'] * 1e3:.3f} ms, median {st['median'] * 1e3:.3f} ms, "
+              f"{result['tokens_per_second']:.0f} tokens/s, "
+              f"{result['achieved_tflops_per_second']:.1f} TFLOP/s (model flops); flash "
+              f"launches per optimizer step {result['kernel_launches_per_step']}; losses "
+              f"{', '.join(f'{x:.5f}' for x in result['losses'])}")
+        runs[(run["stage"], accum)] = run
+    ck = a["ckpt"]
+    print(f"[dtrain] checkpoint (1B at full width, {DTRAIN_CKPT_LAYERS} layers, ZeRO-1, "
+          f"{ck['bytes'] / 2**20:.0f} MiB): saved at step 1, restored at step "
+          f"{ck['restored_step']}, the continued step equal bit for bit to the "
+          f"uninterrupted one: {ck['equal']}")
+    if not ck["equal"] or ck["restored_step"] != 1:
+        raise AssertionError("the checkpoint round trip did not continue bit for bit")
+
+    # (b) two processes on the one device over gloo, against the world-1 step
+    opt = build_optimizer(config["training"])
+    step, state = make_train_step(model_cfg, opt, init_params(
+        model_cfg, config["input"]["seed"], device))
+    batch, targets = _dtrain_batch(config, model_cfg, device)
+    ref_loss, ref = step.grads(state, batch, targets)
+    ref_loss = float(ref_loss)
+    del state, step
+    errors = {}
+    for tp, dp, stage in DTRAIN_GLOO_RUNS:
+        cfg = copy.deepcopy(config)
+        cfg["parallelism"] = {"world_size": tp, "data_parallel": dp}
+        t0 = time.perf_counter()
+        ranks = _dtrain_gloo(torch, cfg, stage, device)
+        wall = time.perf_counter() - t0
+        by = {(r["coords"]["dp"], r["coords"]["tp"]): r for r in ranks}
+        tp_shards = []
+        for j in range(tp):
+            parts = [by[(i, j)]["grads"] for i in range(dp)]
+            tp_shards.append(parts[0] if dp == 1
+                             else zero_mod.unshard_tree(parts, by[(0, j)]["axes"]))
+        got = unshard_params(tp_shards, model_cfg)
+        rels = {}
+        for group, sub in ref["layers"].items():
+            for leaf, g in sub.items():
+                rels[f"{group}.{leaf}"] = _rel_l2(got["layers"][group][leaf].to(g.device), g)
+        for leaf, g in ref["ln_f"].items():
+            rels[f"ln_f.{leaf}"] = _rel_l2(got["ln_f"][leaf].to(g.device), g)
+        losses = {r["loss"] for r in ranks}
+        loss = ranks[0]["loss"]
+        loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+        loss_bound, grad_bound = dtrain_bounds(layers, tp)
+        worst = max(rels, key=rels.get)
+        label = f"tp={tp}, ZeRO-{stage}" if tp > 1 else f"dp={dp}, ZeRO-{stage}"
+        print(f"[dtrain] 1B step at {label}, two processes on one card over gloo (CUDA "
+              f"tensors): loss {loss:.6f} vs world 1 {ref_loss:.6f} (relative "
+              f"{loss_rel:.3e}, bound {loss_bound:.3e}); gradient relative L2 per leaf: "
+              + ", ".join(f"{n} {v:.3e}" for n, v in rels.items())
+              + f" (worst {worst}, bound {grad_bound:.3e}); step loss "
+              f"{ranks[0]['step_loss']:.6f}; {wall:.1f} s wall, "
+              f"{max(r['seconds'] for r in ranks):.1f} s in the ranks, not timed")
+        if len(losses) != 1:
+            raise AssertionError(f"{label}: the ranks' losses differ: {losses}")
+        if not (loss_rel <= loss_bound and rels[worst] <= grad_bound
+                and all(math.isfinite(r["step_loss"]) for r in ranks)):
+            raise AssertionError(f"the 1B step at {label} disagrees with the world-1 step")
+        errors[label] = {"loss_rel": loss_rel, "worst_grad_rel_l2": rels[worst],
+                         "worst_leaf": worst, "wall_s": wall}
+    del ref, got
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    print(f"[dtrain] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return {"runs": runs, "stages": a["stages"], "gloo": errors}
+
+
 def _check_first_calls(torch, comm, mesh, x, ops, label):
     """Each op's output on its first call on payload ``x`` against its plain
     version on the same payload: equal at one rank, bit for bit."""
@@ -855,6 +1189,15 @@ def phase_comm(torch, gpu_line):
               + ", ".join(f"{k} {v:.2f}" for k, v in medians.items()))
 
 
+def _dtrain_launches(dtrain, name):
+    """A kernel's launches per optimizer step on each path of phase dtrain:
+    the four ZeRO stages' steps and the two ``run_train`` runs."""
+    out = {f"zero{stage}": r["launches"][name] for stage, r in dtrain["stages"].items()}
+    for (stage, accum), run in dtrain["runs"].items():
+        out[f"run_train_zero{stage}_ga{accum}"] = run["result"]["kernel_launches_per_step"][name]
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -895,6 +1238,8 @@ def main() -> int:
         phase_comm(torch, gpu_line)
     if "tp" in phases:
         tp = phase_tp(torch, gpu_line)
+    if "dtrain" in phases:
+        dtrain = phase_dtrain(torch, gpu_line)
     if phases != set(PHASES):
         print(f"chip_smoke: phases {sorted(phases)} passed; no result printed for a subset")
         return 0
@@ -908,6 +1253,7 @@ def main() -> int:
         "launches": launches,
         "train_launches": train_launches["flash_fwd"],
         "tp_launches": tp["full"]["launches"],
+        "dtrain_launches_per_step": _dtrain_launches(dtrain, "flash_fwd"),
         "max_abs_err": err_o,
         "lse_max_abs_err": err_lse,
         "ms": main_t["ms"],
@@ -928,6 +1274,7 @@ def main() -> int:
             "design": bwd_design,
             "replaces": f"dlbb_tpu/ops/flash_attention.py:{line}",
             "launches": train_launches[f"flash_bwd_{kernel}"],
+            "dtrain_launches_per_step": _dtrain_launches(dtrain, f"flash_bwd_{kernel}"),
             "max_abs_err": max(err_bwd[e] for e in errs),
             "ms": t["ms"],
             "event_ms": t["event_ms"],

@@ -6,8 +6,8 @@ parity tests (same seeded inputs and weights in, same outputs out, within a
 stated tolerance).  This package imports ``torch`` and numpy only — never
 ``jax`` and never a module of ``dlbb_tpu``.
 
-Ported so far (the single-device forward and train step, the collective
-sweeps, the tensor-parallel forward):
+Ported so far (the single-device forward, the collective sweeps, the
+tensor-parallel forward, DDP/ZeRO and tensor-parallel training):
 
 - ``models`` — ``ModelConfig``/``MODEL_CONFIGS`` (1B/7B/13B), the dense
   decoder ``forward`` with the simplified/full/dense/flash attention modes
@@ -19,13 +19,19 @@ sweeps, the tensor-parallel forward):
   ``ops/csrc/flash_bwd.cu``, the ports of ``_dq_kernel`` and
   ``_dkv_kernel``) with their plain PyTorch versions beside them;
 - ``data`` — the seeded synthetic embedding batch (and its targets);
-- ``train`` — ``optim`` (Adam with the constant schedule, ``cast_moments``,
-  optax's rounding rules) and ``loop`` (``make_train_step``, ``run_train``
-  at ZeRO stage 0, world size 1);
+- ``train`` — ``optim`` (adam, adamw, sgd, adafactor; the constant,
+  cosine and warmup_cosine schedules; ``cast_moments``; optax's rounding
+  rules), ``zero`` (ZeRO stages 0-3 as explicit collectives over the dp
+  group), ``loop`` (``make_train_step`` and ``run_train`` on a (dp, tp)
+  mesh, gradient accumulation, preemption) and ``checkpoint`` (per-rank
+  ``torch.save`` checkpoints with integrity manifests);
+- ``resilience`` — host-only copies of the JAX failure taxonomy, the
+  fault-injection plan grammar and the SIGTERM guard;
 - ``utils`` — ``summarize``/``Timer``, per-iteration CUDA-event timing,
   config IO, system info;
 - ``bench.e2e`` — ``run_e2e``, on one device or on every rank of a (dp, tp)
-  process-group mesh; ``cli e2e`` (``--world N``) and ``cli train``;
+  process-group mesh; ``cli e2e`` and ``cli train`` (``--world N``,
+  ``train --zero STAGE``);
 - ``parallel.plan`` — ``ParallelismPlan``: the JAX plan's checks and the
   mesh; ``models.sharding`` — explicit Megatron tensor-parallel shards;
 - ``comm`` — process groups (``torch.distributed``: NCCL, or gloo on the
@@ -34,11 +40,11 @@ sweeps, the tensor-parallel forward):
   on spawned ranks; ``stats`` — their statistics; ``cli bench1d``,
   ``bench3d``, ``stats1d``, ``stats3d``.
 
-Not ported yet (see ROADMAP.md): MoE, tp_overlap, uneven tp shards, TP
-training, ZeRO 1-3, gradient accumulation, checkpointing, the other optimizers and
-schedules, ring/Ulysses attention, pipelines, the quantised and
-collective-matmul ops, serving, and the observability, resilience,
-planning and analysis layers.
+Not ported yet (see ROADMAP.md): MoE, tp_overlap, uneven tp shards,
+restoring a checkpoint onto another mesh, ring/Ulysses attention,
+pipelines, the quantised and collective-matmul ops, gradient compression,
+serving, and the observability, planning and analysis layers and the rest
+of resilience (the journal, validation, the chaos gate).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit ``"cpu"`` they raise.

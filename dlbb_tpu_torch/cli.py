@@ -3,6 +3,7 @@
     python -m dlbb_tpu_torch.cli e2e --config CONFIG.yaml [--output DIR]
                                      [--world N] [--device cuda|cpu]
     python -m dlbb_tpu_torch.cli train --config CONFIG.yaml [--output DIR]
+                                       [--world N] [--zero STAGE | --zero1]
                                        [--device cuda|cpu]
     python -m dlbb_tpu_torch.cli bench1d [--ops ...] [--sizes ...] [--ranks ...]
                                          [--world N] [--device cuda|cpu] ...
@@ -14,8 +15,9 @@
 The sweeps launch ``--world`` ranks (default: the largest of ``--ranks``)
 through ``bench/launch.py``: NCCL with one GPU per rank on ``cuda``, gloo
 on ``cpu``.  ``e2e`` does the same with ``--world`` ranks (default: the
-config's mesh, dp x tp x sp x pp x ep); at world 1 it runs in this process
-with no process group.  Under ``torchrun`` both run in place as their rank.
+config's mesh, dp x tp x sp x pp x ep), and so does ``train``; at world 1
+they run in this process with no process group.  Under ``torchrun`` they
+run in place as their rank.
 """
 
 from __future__ import annotations
@@ -55,9 +57,16 @@ def build_parser() -> argparse.ArgumentParser:
     e2.add_argument("--world", type=int, default=None,
                     help="ranks to launch (default: the config's mesh size)")
     e2.add_argument("--device", default=None, help=_DEVICE_HELP)
-    tr = sub.add_parser("train", help="single-device training step benchmark")
+    tr = sub.add_parser("train", help="DDP/ZeRO-{1,2,3} training-loop benchmark")
     tr.add_argument("--config", required=True, help="YAML experiment config")
+    tr.add_argument("--zero1", action="store_true", help="shard optimizer state (ZeRO-1)")
+    tr.add_argument("--zero", type=int, default=None, choices=(0, 1, 2, 3),
+                    metavar="STAGE", dest="zero_stage",
+                    help="ZeRO stage: 0=DDP, 1=opt-state sharding, "
+                         "2=+grad reduce-scatter, 3=FSDP param sharding")
     tr.add_argument("--output", default=None)
+    tr.add_argument("--world", type=int, default=None,
+                    help="ranks to launch (default: the config's mesh size)")
     tr.add_argument("--device", default=None, help=_DEVICE_HELP)
 
     b1 = sub.add_parser("bench1d", help="1D collective microbenchmark sweep")
@@ -120,7 +129,17 @@ def e2e_worker(config, output_dir, device):
     return run_e2e(config, device=device, output_dir=output_dir)
 
 
-def _e2e(args):
+def train_worker(config, output_dir, device, zero1, zero_stage):
+    """One rank of ``train`` (launched by name)."""
+    from dlbb_tpu_torch.train.loop import run_train
+
+    return run_train(config, zero1=zero1, zero_stage=zero_stage, device=device,
+                     output_dir=output_dir)
+
+
+def _launched(args, worker, *extra):
+    """``worker`` on ``--world`` ranks (default: the config's mesh size), or
+    in this process at world 1; rank 0's result."""
     import math
     import os
 
@@ -131,10 +150,10 @@ def _e2e(args):
     config = load_config(args.config)
     output_dir = args.output or config.get("experiment", {}).get("output_dir")
     world = args.world or math.prod(degrees(config))
+    worker_args = (config, output_dir, args.device, *extra)
     if world == 1 and "WORLD_SIZE" not in os.environ:
-        return e2e_worker(config, output_dir, args.device)
-    return launch(e2e_worker, world, args.device,
-                  args=(config, output_dir, args.device))[0]
+        return worker(*worker_args)
+    return launch(worker, world, args.device, args=worker_args)[0]
 
 
 def sweep_worker(sweep, device):
@@ -147,16 +166,18 @@ def sweep_worker(sweep, device):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd == "e2e":
-        result = _e2e(args)
+        result = _launched(args, e2e_worker)
         print(f"forward mean {result['forward_time']['mean'] * 1e3:.3f} ms "
               f"over {len(result['per_host_means_s'])} rank(s)")
         return 0
     if args.cmd == "train":
-        from dlbb_tpu_torch.train.loop import run_train_from_config
-
-        result = run_train_from_config(args.config, output_dir=args.output,
-                                       device=args.device)
-        print(f"step mean {result['step_time']['mean'] * 1e3:.3f} ms")
+        result = _launched(args, train_worker, args.zero1, args.zero_stage)
+        if result.get("preempted") and "step_time" not in result:
+            print(f"preempted at step {result['preempted_at_step']}; "
+                  "checkpoint saved — resume to continue")
+            return 0
+        print(f"step mean {result['step_time']['mean'] * 1e3:.3f} ms over "
+              f"{len(result['per_host_means_s'])} rank(s)")
         return 0
     if args.cmd in ("bench1d", "bench3d"):
         from dlbb_tpu_torch.bench.launch import launch

@@ -2,8 +2,8 @@
 
 The dataclass keeps every field of the JAX ``ModelConfig`` and the same
 validation, so one config dict is accepted by both packages.  The dense
-forward (single device and tensor parallel) and the single-device train
-step are ported, remat included: fields that select MoE or ``tp_overlap``
+forward (single device and tensor parallel) and its training (DDP, ZeRO
+and tensor parallel) are ported, remat included: fields that select MoE or ``tp_overlap``
 are accepted and validated here, and rejected by the model code that does
 not run them yet.  The parallelism validators are the JAX package's, with
 its messages; ``validate_tp_shards`` is the port's own.

@@ -12,12 +12,21 @@ products are ``torch.matmul``, as the JAX package leaves them to XLA.
 (the reference paper's third level, ``models.py``/``run_mpi.py``) on this
 rank's shards (``models/sharding.py``): each column-parallel product and
 the attention run on the rank's heads and FFN columns, and each of the two
-row-parallel products per layer is summed over the mesh's tp group by
-``dist.all_reduce``, after which its bias and the residual are added, once
-(the reference's ``models.py:95``; the all-reduces GSPMD inserts in JAX).
-The tensor-parallel forward runs without gradients: TP training is ROADMAP
-Queue 1, Slice D, item 2, and it raises while gradients are recorded.
-Without a mesh the forward is the single-device one.
+row-parallel products per layer is summed over the mesh's tp group
+(``sharding.reduce_from_tp``), after which its bias and the residual are
+added, once (the reference's ``models.py:95``; the all-reduces GSPMD
+inserts in JAX).  With gradients, ``sharding.copy_to_tp`` on each
+LayerNorm output that feeds a column-parallel product sums its gradient
+over the tp group.  Without a mesh the forward is the single-device one.
+
+``forward(..., dp_axes=...)`` is ZeRO-3's (``train/zero.py``): ``params``
+are this rank's dp shards, each leaf cut along its ``dp_axes`` entry, and
+every block all-gathers its layer's slices over the mesh's dp group on use
+(``sharding.gather_dp``, whose gradient is reduce-scattered back to the
+shard), inside the remat region, so that the recompute gathers again, as
+XLA's FSDP gather does under ``jax.checkpoint``.  A stacked leaf cut along
+its layer axis is gathered whole, once per forward; ``ln_f`` is gathered
+where it is used.
 
 ``config.remat`` wraps each block in ``torch.utils.checkpoint`` when
 gradients are being recorded: ``remat_policy="full"`` saves nothing of the
@@ -36,7 +45,6 @@ import math
 from typing import Any
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -46,7 +54,13 @@ from torch.utils.checkpoint import (
 
 from dlbb_tpu_torch.models.attention import dense_attention
 from dlbb_tpu_torch.models.configs import ModelConfig
-from dlbb_tpu_torch.models.sharding import local_config, shard_leaf
+from dlbb_tpu_torch.models.sharding import (
+    copy_to_tp,
+    gather_dp,
+    local_config,
+    reduce_from_tp,
+    shard_leaf,
+)
 from dlbb_tpu_torch.ops.flash_attention import flash_attention, kernel_accepts
 
 Params = dict[str, Any]
@@ -169,19 +183,40 @@ def _row(y, p: Params, tp_group):
     features, summed over the tp group, then the bias, once."""
     out = y @ p["kernel"]
     if tp_group is not None:
-        dist.all_reduce(out, group=tp_group)
+        out = reduce_from_tp(out, tp_group)
     return out + p["bias"]
 
 
-def _block(x, layer: Params, config: ModelConfig, tp_group=None):
+def _column_input(y, tp_group):
+    """The input of a column-parallel product: the same on every tp rank,
+    so its gradient is the sum of the ranks' (``copy_to_tp``)."""
+    return y if tp_group is None else copy_to_tp(y, tp_group)
+
+
+def _gather_layer(layer: Params, fsdp) -> Params:
+    """ZeRO-3: each leaf of this layer that is a dp shard, all-gathered
+    along its axis over the dp group; ``fsdp`` is ``(dp group, axis per
+    leaf)``, None where a leaf is whole."""
+    group, axes = fsdp
+    return {name: {p: (t if axes[name][p] is None
+                       else gather_dp(t, axes[name][p], group))
+                   for p, t in sub.items()}
+            for name, sub in layer.items()}
+
+
+def _block(x, layer: Params, config: ModelConfig, tp_group=None, fsdp=None):
+    if fsdp is not None:
+        layer = _gather_layer(layer, fsdp)
     residual = x
     y = _layernorm(x, layer["ln1"]["scale"], layer["ln1"]["bias"])
+    y = _column_input(y, tp_group)
     qkv = y @ layer["qkv"]["kernel"] + layer["qkv"]["bias"]
     attn = _attention(qkv, config)
     x = _row(attn, layer["out"], tp_group) + residual
 
     residual = x
     y = _layernorm(x, layer["ln2"]["scale"], layer["ln2"]["bias"])
+    y = _column_input(y, tp_group)
     y = y @ layer["ffn_up"]["kernel"] + layer["ffn_up"]["bias"]
     # jax.nn.gelu defaults to approximate=True: the tanh form, not erf
     y = F.gelu(y, approximate="tanh")
@@ -198,44 +233,58 @@ def _dots_saveable(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat_block(x, layer: Params, config: ModelConfig):
+def _remat_block(x, layer: Params, config: ModelConfig, tp_group=None, fsdp=None):
     if config.remat_policy == "dots":
         context_fn = functools.partial(create_selective_checkpoint_contexts,
                                        _dots_saveable)
-        return checkpoint(_block, x, layer, config, use_reentrant=False,
-                          context_fn=context_fn)
-    return checkpoint(_block, x, layer, config, use_reentrant=False)
+        return checkpoint(_block, x, layer, config, tp_group, fsdp,
+                          use_reentrant=False, context_fn=context_fn)
+    return checkpoint(_block, x, layer, config, tp_group, fsdp, use_reentrant=False)
 
 
 def forward(params: Params, x: torch.Tensor, config: ModelConfig,
-            mesh=None) -> torch.Tensor:
+            mesh=None, dp_axes=None) -> torch.Tensor:
     """Full forward pass: the layers in order, then the final LN.
 
-    ``mesh`` (a ``comm.Mesh`` with a ``tp`` axis, ``ParallelismPlan.mesh``)
-    runs the tensor-parallel forward over its tp group: ``params`` are this
-    rank's shards and ``x`` its dp slice of the batch, ``config`` the full
-    model's (module docstring)."""
+    ``mesh`` (a ``comm.Mesh`` with ``dp`` and ``tp`` axes,
+    ``ParallelismPlan.mesh``) runs the tensor-parallel forward over its tp
+    group: ``params`` are this rank's shards and ``x`` its dp slice of the
+    batch, ``config`` the full model's.  ``dp_axes`` (ZeRO-3, with a mesh)
+    is the tree of each leaf's dp axis, None where a leaf is whole
+    (module docstring)."""
     _check_ported(config)
-    tp_group = None
+    tp_group = fsdp = None
     if mesh is not None:
-        if torch.is_grad_enabled():
-            raise NotImplementedError(
-                "the tensor-parallel forward runs without gradients; TP "
-                "training is ROADMAP Queue 1, Slice D, item 2")
         tp_group = mesh.axis_groups["tp"]
         config = local_config(config, mesh.shape["tp"])
-    block = (_remat_block if config.remat and torch.is_grad_enabled()
-             else functools.partial(_block, tp_group=tp_group))
+    stacked = params["layers"]
+    ln_f = params["ln_f"]
+    if dp_axes is not None:
+        dp_group = mesh.axis_groups["dp"]
+        # a leaf cut along its layer axis is gathered whole, here; the
+        # others are gathered layer by layer inside the blocks
+        stacked = {name: {p: (gather_dp(t, 0, dp_group) if dp_axes["layers"][name][p] == 0
+                              else t) for p, t in sub.items()}
+                   for name, sub in stacked.items()}
+        fsdp = (dp_group, {name: {p: (None if ax in (None, 0) else ax - 1)
+                                  for p, ax in sub.items()}
+                           for name, sub in dp_axes["layers"].items()})
+        ln_f = {p: (t if dp_axes["ln_f"][p] is None
+                    else gather_dp(t, dp_axes["ln_f"][p], dp_group))
+                for p, t in ln_f.items()}
+    block = functools.partial(
+        _remat_block if config.remat and torch.is_grad_enabled() else _block,
+        tp_group=tp_group, fsdp=fsdp)
     # one unbind per stacked parameter: its gradient is one stack of the
     # layers' gradients (indexing t[i] instead would add a zero-filled
     # full-size [L, ...] gradient per layer)
     layers = {name: {p: t.unbind(0) for p, t in group.items()}
-              for name, group in params["layers"].items()}
+              for name, group in stacked.items()}
     for i in range(config.num_layers):
         layer = {name: {p: ts[i] for p, ts in group.items()}
                  for name, group in layers.items()}
         x = block(x, layer, config)
-    return _layernorm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
+    return _layernorm(x, ln_f["scale"], ln_f["bias"])
 
 
 def _check_dense_ffn(config: ModelConfig) -> None:

@@ -1,39 +1,72 @@
-"""Single-device training step and benchmark (counterpart of
-``dlbb_tpu/train/loop.py``).
+"""DDP / ZeRO-{1,2,3} and tensor-parallel training step and benchmark
+(counterpart of ``dlbb_tpu/train/loop.py``).
 
 ``make_train_step`` returns a step function and its initial ``TrainState``;
 ``step(state, batch, targets) -> (new_state, loss)`` takes the MSE loss
 against a fixed target batch (``mse_loss``, the reference's
 ``test/ccl.py:110``), its gradients by autograd through ``forward`` (the
-flash kernels' ``torch.autograd.Function`` and remat included), and one
-optimizer update (``train/optim.py``).  ``run_train`` is the config-driven
-benchmark: warmup, timed steps by CUDA events (``time_fn_per_iter``), and the
-JAX harness's result schema with ``backend: "torch_cuda"``, plus the flash
-kernels' launches per step.
+flash kernels' ``torch.autograd.Function``, remat and the tensor-parallel
+conjugate pair included), the gradient reduction of the ZeRO stage and one
+optimizer update (``train/optim.py``).  The reference's training is a
+DeepSpeed ZeRO smoke (``test/ccl.py:59-117``); the JAX package declares each
+stage as a sharding under GSPMD; the port runs the collectives of each
+stage itself over the mesh's dp group, in ``train/zero.py``, where the
+layout and the stages are described.
 
-Only ZeRO stage 0 at world size 1 with ``grad_accum=1`` is ported: the
-sharded stages, gradient accumulation, checkpointing, preemption, gradient
-compression and the MoE aux loss wait for later slices (ROADMAP.md, Queue 1,
-Slices C and D) and are refused, never ignored.  The JAX package's chained
-timing regime exists for a remotely attached TPU and is not ported.
+With a mesh (``ParallelismPlan.mesh``, a (dp, tp) grid of process groups)
+each rank holds its tp shards (``models/sharding.py``) and its dp slice of
+the batch.  Gradient accumulation splits the rank's dp slice into
+``grad_accum`` micro-batches and accumulates their gradients in fp32; the
+result is their mean, cast to the param dtype (``dlbb_tpu/train/loop.py:
+405-436``).  Stages 0 and 1 reduce the accumulated gradient once; stage 2
+reduce-scatters each micro-step's gradient and accumulates the shard; at
+stage 3 each micro-step's gradient arrives reduce-scattered.  Where a rank
+holds copies of kv columns (GQA with tp not dividing ``kv_heads``), each
+copy's gradient becomes the full gradient of its source column
+(``sharding.sum_kv_copies``).
+
+``run_train`` is the config-driven benchmark: the plan and mesh from the
+config (sp, pp and ep are refused by ``check_plan``), the sharded init and
+the dp slice of the batch and targets, warmup, timed steps, checkpoint and
+resume (``train/checkpoint.py``) and graceful preemption
+(``resilience/preempt.py``), in the JAX harness's result schema with
+``backend: "torch_cuda"`` and the flash kernels' launches per step.  At
+world 1 without a process group each step is timed by a CUDA event pair;
+inside a process group each timed step runs between world barriers and
+takes the slowest rank's time (``time_fn_per_iter_spmd``), as
+``bench/e2e.py`` does.  Gradient compression, the MoE aux loss and the
+pipeline schedule wait for their ROADMAP items and are refused, never
+ignored.  The JAX package's chained timing regime exists for a remotely
+attached TPU and is not ported.
 """
 
 from __future__ import annotations
 
+import os
+import signal
 import time
 from pathlib import Path
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dlbb_tpu_torch.data.synthetic import create_dataset_from_config
 from dlbb_tpu_torch.models.configs import ModelConfig
-from dlbb_tpu_torch.models.transformer import DTYPES, forward, forward_flops, init_params
+from dlbb_tpu_torch.models.sharding import kv_copy_sources, sum_kv_copies
+from dlbb_tpu_torch.models.transformer import (
+    DTYPES,
+    forward,
+    forward_flops,
+    init_params,
+    num_parameters,
+)
 from dlbb_tpu_torch.ops import flash_attention as flash_mod
+from dlbb_tpu_torch.parallel.plan import ParallelismPlan
+from dlbb_tpu_torch.resilience import PreemptionGuard, inject
 from dlbb_tpu_torch.train.optim import (
     GradientTransformation,
-    apply_updates,
     build_optimizer,
     learning_rate,
     moments_dtype,
@@ -41,10 +74,11 @@ from dlbb_tpu_torch.train.optim import (
     tree_leaves,
     tree_map,
 )
-from dlbb_tpu_torch.utils.config import load_config, save_json
+from dlbb_tpu_torch.train.zero import Zero
+from dlbb_tpu_torch.utils.config import save_json
 from dlbb_tpu_torch.utils.metrics import Timer, summarize
 from dlbb_tpu_torch.utils.sysinfo import collect_system_info, resolve_device
-from dlbb_tpu_torch.utils.timing import time_fn_per_iter
+from dlbb_tpu_torch.utils.timing import time_fn_per_iter_spmd
 
 MODE_NAMES = {0: "ddp", 1: "zero1", 2: "zero2", 3: "zero3"}
 
@@ -53,7 +87,7 @@ MODE_NAMES = {0: "ddp", 1: "zero1", 2: "zero2", 3: "zero3"}
 OPTIMIZER_FLOPS_PER_PARAM = {"adam": 18, "adamw": 22, "sgd": 6,
                              "adafactor": 14}
 
-_LATER = "is not ported to dlbb_tpu_torch yet (a later slice: ROADMAP.md, Queue 1"
+_LATER = "is not ported to dlbb_tpu_torch yet (ROADMAP.md, Queue 1"
 
 
 class TrainState(NamedTuple):
@@ -62,9 +96,11 @@ class TrainState(NamedTuple):
     step: int
 
 
-def mse_loss(params, batch, targets, config: ModelConfig) -> torch.Tensor:
-    """MSE of the forward against the target batch, in fp32."""
-    pred = forward(params, batch, config)
+def mse_loss(params, batch, targets, config: ModelConfig, mesh=None,
+             dp_axes=None) -> torch.Tensor:
+    """MSE of the forward against the target batch, in fp32: on a mesh,
+    this rank's dp slice (``forward``'s ``mesh`` and ``dp_axes``)."""
+    pred = forward(params, batch, config, mesh=mesh, dp_axes=dp_axes)
     return torch.mean((pred.float() - targets.float()) ** 2)
 
 
@@ -78,75 +114,121 @@ def resolve_zero_stage(zero1: bool = False,
     return 1 if zero1 else 0
 
 
-def _check_stage_zero(stage: int) -> None:
-    if stage != 0:
-        raise NotImplementedError(
-            f"ZeRO stage {stage} ({MODE_NAMES[stage]}) shards state over a "
-            f"data-parallel mesh and {_LATER}, Slice D)")
+def check_accumulation(batch_size: int, grad_accum: int, dp: int) -> None:
+    """The global batch must split into ``grad_accum`` micro-batches of
+    whole dp slices.  JAX reshards a micro-batch that dp does not divide
+    (``dlbb_tpu/train/loop.py:378-404``, with a warning); the port's ranks
+    split their own slices, so it refuses the case."""
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    if batch_size % grad_accum != 0:
+        raise ValueError(f"batch_size={batch_size} not divisible by "
+                         f"gradient_accumulation={grad_accum}")
+    if (batch_size // grad_accum) % dp != 0:
+        raise ValueError(
+            f"micro-batch size {batch_size // grad_accum} (batch_size={batch_size} / "
+            f"grad_accum={grad_accum}) not divisible by dp={dp}: each rank splits its "
+            "own dp slice into the micro-batches, and the port does not reshard a "
+            "micro-batch across ranks as JAX does (ROADMAP Queue 1, Slice D, item 2)")
 
 
 def make_train_step(config: ModelConfig, optimizer: GradientTransformation,
-                    params, zero1: bool = False,
+                    params, mesh=None, zero1: bool = False,
                     zero_stage: Optional[int] = None, grad_accum: int = 1):
-    """(step fn, initial ``TrainState``) at ZeRO stage 0 on one device.
+    """(step fn, initial ``TrainState``) for ZeRO stage ``zero_stage`` (0
+    DDP, 1 sharded optimizer state, 2 and sharded gradients, 3 sharded
+    parameters) on ``mesh`` (None: one device, no process group).
+    ``params`` are this rank's full tp shards; the state holds its ZeRO
+    shards.  ``grad_accum`` micro-steps feed one update (module docstring).
+    ``step.grads(state, batch, targets) -> (loss, grads)`` is the step
+    without its update: the global loss and the reduced mean gradients, in
+    the layout the optimizer updates (``step.zero``, a ``train/zero.py::
+    Zero``, holds that layout).
 
     The step is functional, as the JAX one is: it returns new parameter and
     optimizer-state tensors and leaves the old ones to the caller (who drops
     them by rebinding the state)."""
-    _check_stage_zero(resolve_zero_stage(zero1, zero_stage))
-    if grad_accum != 1:
-        raise NotImplementedError(f"gradient accumulation {_LATER}, Slice D)")
-    params = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    state = TrainState(params, optimizer.init(params), 0)
+    stage = resolve_zero_stage(zero1, zero_stage)
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    zero = Zero(stage, optimizer, params, mesh)
+    own, opt_state = zero.init(params)
+    state = TrainState(tree_map(lambda p: p.detach().requires_grad_(True), own),
+                       opt_state, 0)
+    dp_axes = zero.param_axes if stage == 3 else None
+    tp = 1 if mesh is None else mesh.shape["tp"]
+    tp_rank = 0 if mesh is None else mesh.coords["tp"]
+    kv_copies = kv_copy_sources(config, tp_rank, tp) is not None
+
+    def loss_and_grads(params, batch, targets):
+        leaves = tree_leaves(params)
+        loss = mse_loss(params, batch, targets, config, mesh=mesh, dp_axes=dp_axes)
+        grads = iter(torch.autograd.grad(loss, leaves))
+        return loss.detach(), tree_map(lambda _: next(grads), params)
+
+    def accumulate(params, batch, targets):
+        b = batch.shape[0]
+        if b % grad_accum != 0:
+            raise ValueError(f"this rank's batch of {b} rows is not divisible by "
+                             f"grad_accum={grad_accum}")
+        total = loss_sum = None
+        for x, t in zip(batch.chunk(grad_accum), targets.chunk(grad_accum)):
+            loss, g = loss_and_grads(params, x, t)
+            if stage == 2:
+                g = zero.reduce(g)
+            # accumulate in fp32 whatever the params' dtype
+            g = tree_map(lambda a: a.float(), g)
+            total = g if total is None else tree_map(torch.add, total, g)
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+        inv = 1.0 / grad_accum
+        grads = tree_map(lambda a, p: (a * inv).to(p.dtype), total, params)
+        return loss_sum * inv, grads if stage == 2 else zero.reduce(grads)
+
+    def reduced_grads(state: TrainState, batch, targets):
+        if grad_accum == 1:
+            loss, grads = loss_and_grads(state.params, batch, targets)
+            grads = zero.reduce(grads)
+        else:
+            loss, grads = accumulate(state.params, batch, targets)
+        if kv_copies:
+            qkv = {leaf: sum_kv_copies(g, config, tp_rank, tp, mesh.axis_groups["tp"])
+                   for leaf, g in grads["layers"]["qkv"].items()}
+            grads = {"layers": {**grads["layers"], "qkv": qkv}, "ln_f": grads["ln_f"]}
+        return zero.mean_loss(loss), zero.mean(grads)
 
     def step(state: TrainState, batch, targets):
-        leaves = tree_leaves(state.params)
-        loss = mse_loss(state.params, batch, targets, config)
-        grads = iter(torch.autograd.grad(loss, leaves))
-        grads = tree_map(lambda _: next(grads), state.params)
+        loss, grads = reduced_grads(state, batch, targets)
         with torch.no_grad():
-            updates, new_opt = optimizer.update(grads, state.opt_state, state.params)
-            new_params = apply_updates(state.params, updates)
+            new_params, new_opt = zero.apply(state.params, grads, state.opt_state)
         new_params = tree_map(lambda p: p.requires_grad_(True), new_params)
-        return TrainState(new_params, new_opt, state.step + 1), loss.detach()
+        return TrainState(new_params, new_opt, state.step + 1), loss
 
+    step.grads = reduced_grads
+    step.zero = zero
     return step, state
 
 
 def _refuse_unported(train_cfg: dict[str, Any], execution: dict[str, Any]) -> None:
-    """Config keys whose features wait for later slices raise here."""
-    if "checkpoint" in train_cfg:
-        raise NotImplementedError(f"training.checkpoint {_LATER}, Slice D)")
+    """Config keys whose features wait for their ROADMAP items raise here."""
     if str(train_cfg.get("grad_compression", "none")) != "none":
         raise NotImplementedError(
             f"training.grad_compression {train_cfg['grad_compression']!r} "
-            f"{_LATER}, Slice C)")
+            f"{_LATER}, Slice C remainder, item 7: comm/compression.py)")
     if str(train_cfg.get("compression_accum_dtype", "float32")) != "float32":
-        raise NotImplementedError(f"training.compression_accum_dtype {_LATER}, Slice C)")
-    if float(train_cfg.get("moe_aux_loss_weight", 0.0)) != 0.0:
-        raise NotImplementedError(f"training.moe_aux_loss_weight (MoE) {_LATER}, Slice D)")
-    if int(train_cfg.get("gradient_accumulation", 1)) != 1:
         raise NotImplementedError(
-            f"training.gradient_accumulation {_LATER}, Slice D)")
+            f"training.compression_accum_dtype {_LATER}, Slice C remainder, item 7: "
+            "comm/compression.py)")
+    if float(train_cfg.get("moe_aux_loss_weight", 0.0)) != 0.0:
+        raise NotImplementedError(
+            f"training.moe_aux_loss_weight (MoE) {_LATER}, Slice D, item 6)")
     if "pipeline_schedule" in train_cfg:
-        raise NotImplementedError(f"training.pipeline_schedule {_LATER}, Slice D)")
+        raise NotImplementedError(
+            f"training.pipeline_schedule {_LATER}, Slice D, item 5: parallel/pipeline.py)")
     if execution.get("compiler_options"):
         raise NotImplementedError(
             "execution.compiler_options are XLA compiler options; the port "
-            "has no XLA compilation to pass them to")
-
-
-def check_world_one(config: dict[str, Any]) -> None:
-    """Refuse configs that train on more than one device (ROADMAP Queue 1,
-    Slice D, item 2)."""
-    par = config.get("parallelism", {}) or {}
-    for key in ("world_size", "data_parallel", "sequence_parallel",
-                "pipeline_parallel", "expert_parallel"):
-        if int(par.get(key, 1)) > 1:
-            raise NotImplementedError(
-                f"parallelism.{key}={par[key]}: dlbb_tpu_torch trains on one "
-                "device so far (multi-device training is ROADMAP Queue 1, "
-                "Slice D, item 2)")
+            "has no XLA compilation to pass them to (their NCCL counterparts "
+            "are ROADMAP.md, Queue 1, Slice C remainder, item 8)")
 
 
 def _launch_counts() -> dict[str, int]:
@@ -155,38 +237,76 @@ def _launch_counts() -> dict[str, int]:
             "flash_bwd_dkv": flash_mod.flash_bwd_dkv_launches}
 
 
+def _any_rank(flag: bool, mesh, device) -> bool:
+    """Whether ``flag`` holds on any rank of the world (an all-reduce MAX;
+    ``flag`` itself without a process group)."""
+    if mesh is None:
+        return flag
+    t = torch.tensor([int(flag)], device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
 def run_train(config: dict[str, Any], zero1: bool = False,
               zero_stage: Optional[int] = None, device=None,
               output_dir: Optional[str] = None,
               verbose: bool = True) -> dict[str, Any]:
     """Config-driven training benchmark on ``device`` (``cuda`` unless the
-    caller passes another; raises without CUDA)."""
+    caller passes another; raises without CUDA), on this rank of the
+    process group if there is one (module docstring).  A fault plan in
+    ``DLBB_FAULT_PLAN`` is active for the run unless the caller activated
+    one (``resilience/inject.py``)."""
     device = resolve_device(device)
-    check_world_one(config)
+    spec = None if inject.active() is not None else inject.from_env()
+    with inject.plan_scope(spec):
+        return _run_train(config, zero1, zero_stage, device, output_dir, verbose)
+
+
+def _run_train(config, zero1, zero_stage, device, output_dir, verbose):
     train_cfg = config.get("training", {}) or {}
     execution = config.get("execution", {}) or {}
     _refuse_unported(train_cfg, execution)
+    # explicit caller args (zero_stage or legacy zero1) win over the config
     if zero_stage is None and not zero1 and "zero_stage" in train_cfg:
         zero_stage = train_cfg["zero_stage"]
     stage = resolve_zero_stage(zero1, zero_stage)
-    _check_stage_zero(stage)
 
     inp = config["input"]
     model_cfg = ModelConfig.from_dict(config["model"])
+    plan = ParallelismPlan.from_config(config, model_cfg)
+    mesh = plan.mesh
+    coords = mesh.coords if mesh is not None else {"dp": 0, "tp": 0}
+    lead = mesh is None or dist.get_rank() == 0
+    grad_accum = int(train_cfg.get("gradient_accumulation", 1))
+    check_accumulation(inp["batch_size"], grad_accum, plan.dp)
     dtype = DTYPES[model_cfg.dtype]
-    batch = create_dataset_from_config(
-        config, dtype=dtype, device=device,
-        hidden_size=model_cfg.hidden_size).get_batch()
-    targets = create_dataset_from_config(
+    batch, targets = (create_dataset_from_config(
         config, dtype=dtype, device=device, hidden_size=model_cfg.hidden_size,
-        seed_offset=1).get_batch()
+        seed_offset=offset, dp_rank=coords["dp"], dp=plan.dp).get_batch()
+        for offset in (0, 1))
 
     lr = learning_rate(train_cfg)
     optimizer = build_optimizer(train_cfg)
     opt_name, sched_name = resolve_names(train_cfg)
-    params = init_params(model_cfg, inp.get("seed", 42), device)
-    step_fn, state = make_train_step(model_cfg, optimizer, params, zero_stage=stage)
+    params = init_params(model_cfg, inp.get("seed", 42), device,
+                         tp_rank=coords["tp"], tp=plan.tp)
+    step_fn, state = make_train_step(model_cfg, optimizer, params, mesh=mesh,
+                                     zero_stage=stage, grad_accum=grad_accum)
     del params
+
+    # checkpoint / resume before warmup, so that the restored step counter
+    # carries through the run
+    ckpt = resumed_from = None
+    if "checkpoint" in train_cfg and train_cfg["checkpoint"].get("enabled", True):
+        from dlbb_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
+
+        ckpt = Checkpointer(
+            CheckpointConfig.from_dict(train_cfg["checkpoint"]),
+            layout={"mesh": plan.mesh_dict(), "zero_stage": stage,
+                    "world_size": 1 if mesh is None else dist.get_world_size()},
+            group=None if mesh is None else dist.group.WORLD, device=device)
+        resumed_from = ckpt.latest_step()
+        state = ckpt.restore_or(state)
 
     warmup = execution.get("warmup_iterations", 2)
     iters = execution.get("benchmark_iterations", 10)
@@ -208,25 +328,99 @@ def run_train(config: dict[str, Any], zero1: bool = False,
         holder[0], loss = step_fn(holder[0], batch, targets)
         loss_tensors.append(loss)
 
+    on_cuda = device.type == "cuda"
+    events, step_times, local_times = [], [], []
+    preempted_at: Optional[int] = None
     before = _launch_counts()
-    step_times = time_fn_per_iter(timed_step, iterations=iters, device=device)
+    # graceful preemption: a SIGTERM between steps ends the loop on every
+    # rank at the same step and falls through to the forced final save
+    with PreemptionGuard() as guard:
+        for _ in range(iters):
+            if inject.fire("preempt"):
+                os.kill(os.getpid(), signal.SIGTERM)
+            if _any_rank(guard.requested, mesh, device):
+                preempted_at = holder[0].step
+                break
+            if mesh is not None:
+                slowest, local = time_fn_per_iter_spmd(
+                    timed_step, iterations=1, device=device, group=dist.group.WORLD)
+                step_times += slowest
+                local_times += local
+            elif on_cuda:  # event pairs, read after the loop: the host runs ahead
+                pair = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                pair[0].record()
+                timed_step()
+                pair[1].record()
+                events.append(pair)
+            else:
+                t0 = time.perf_counter()
+                timed_step()
+                step_times.append(time.perf_counter() - t0)
+            if ckpt is not None:
+                ckpt.maybe_save(holder[0])
     after = _launch_counts()
+    if events:
+        torch.cuda.synchronize(device)
+        step_times = [start.elapsed_time(end) / 1e3 for start, end in events]
+    if mesh is None:
+        local_times = step_times
     state = holder[0]
     losses = [float(x) for x in loss_tensors]
     if not all(np.isfinite(losses)):
         raise FloatingPointError(f"the train step produced non-finite losses {losses}")
 
+    if ckpt is not None:
+        # forced final save: on the preemption path the resume point
+        ckpt.maybe_save(state, force=True)
+        ckpt.close()
+
+    if preempted_at is not None and not step_times:
+        # preempted before any timed step: no benchmark to publish, only
+        # the resume point
+        result = {
+            "preempted": True,
+            "preempted_at_step": preempted_at,
+            "mode": MODE_NAMES[stage],
+            "zero_stage": stage,
+            "resumed_from_step": resumed_from,
+            "final_step": state.step,
+            "checkpoint_saved": ckpt is not None,
+            "losses": losses,
+            "timestamp": time.time(),
+        }
+        if verbose and lead:
+            print(f"[train/{result['mode']}] preempted at step {preempted_at}; "
+                  f"checkpoint {'saved' if ckpt is not None else 'DISABLED'} — "
+                  "no benchmark artifact written")
+        return result
+
+    if mesh is None:
+        host_means = np.asarray([np.mean(local_times)])
+        timing_method = ("torch.cuda.Event pairs per iteration" if on_cuda
+                         else "time.perf_counter() per iteration (CPU)")
+    else:
+        means: list[Any] = [None] * dist.get_world_size()
+        dist.all_gather_object(means, float(np.mean(local_times)))
+        host_means = np.asarray(means)
+        timing_method = (
+            "barrier on the world group, then "
+            + ("a torch.cuda.Event pair around the step, synchronize" if on_cuda
+               else "time.perf_counter() around the step (CPU)")
+            + "; each iteration's time is the slowest rank's")
+
     # Utilisation accounting, the JAX package's: backward ~ 2x forward plus
     # the per-parameter optimizer update; full remat re-runs one forward of
     # matmuls (the device-work rate), "dots" recomputes elementwise only.
+    # The tokens of a step are the global batch's, whatever the accumulation.
     tokens = inp["batch_size"] * inp["sequence_length"]
-    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    n_params = num_parameters(model_cfg)
     fwd_flops = forward_flops(model_cfg, inp["batch_size"], inp["sequence_length"])
     step_flops = 3 * fwd_flops + OPTIMIZER_FLOPS_PER_PARAM.get(opt_name, 18) * n_params
     recompute_flops = (fwd_flops if (model_cfg.remat and model_cfg.remat_policy == "full")
                        else 0)
     mean_step = float(np.mean(step_times))
-    on_cuda = device.type == "cuda"
+    n_timed = len(step_times)
 
     result = {
         "experiment": config.get("experiment", {}),
@@ -235,17 +429,17 @@ def run_train(config: dict[str, Any], zero1: bool = False,
         "config": config,
         "mode": MODE_NAMES[stage],
         "zero_stage": stage,
-        "resumed_from_step": None,
+        "resumed_from_step": resumed_from,
         "grad_compression": "none",
         "compression_accum_dtype": None,
-        "preempted": False,
-        "preempted_at_step": None,
-        "mesh": {"dp": 1, "sp": 1, "pp": 1, "ep": 1, "tp": 1},
+        "preempted": preempted_at is not None,
+        "preempted_at_step": preempted_at,
+        "mesh": plan.mesh_dict(),
         "learning_rate": lr,
         "optimizer": opt_name,
         "moments_dtype": moments_dtype(train_cfg),
         "schedule": sched_name,
-        "gradient_accumulation": 1,
+        "gradient_accumulation": grad_accum,
         "pipeline_schedule": None,
         "remat": model_cfg.remat,
         "remat_policy": model_cfg.remat_policy if model_cfg.remat else None,
@@ -253,6 +447,9 @@ def run_train(config: dict[str, Any], zero1: bool = False,
         "compiler_options": None,
         "compile_time_s": compile_time,
         "step_time": summarize(step_times),
+        "per_host_means_s": host_means.tolist(),
+        "cross_host_variance": float(host_means.var()),
+        "cross_host_cv": float(host_means.std() / host_means.mean()),
         "num_params": n_params,
         "tokens_per_second": tokens / mean_step,
         "model_flops_per_step": step_flops,
@@ -267,15 +464,14 @@ def run_train(config: dict[str, Any], zero1: bool = False,
         "achieved_tflops_per_second_incl_recompute": (
             (step_flops + recompute_flops) / mean_step / 1e12),
         "timing_mode": "per_iter",
-        "timing_method": ("torch.cuda.Event pairs per iteration" if on_cuda
-                          else "time.perf_counter() per iteration (CPU)"),
-        "kernel_launches_per_step": {k: (after[k] - before[k]) / iters for k in after},
+        "timing_method": timing_method,
+        "kernel_launches_per_step": {k: (after[k] - before[k]) / n_timed for k in after},
         "losses": losses,
         "final_step": state.step,
         "system_info": collect_system_info(device),
         "timestamp": time.time(),
     }
-    if verbose:
+    if verbose and lead:
         st = result["step_time"]
         print(f"[train/{result['mode']}] "
               f"{config.get('experiment', {}).get('name', 'experiment')} on "
@@ -283,15 +479,7 @@ def run_train(config: dict[str, Any], zero1: bool = False,
               f"{st['mean'] * 1e3:.2f} ms, {result['tokens_per_second']:.0f} tok/s, "
               f"{result['achieved_tflops_per_second']:.2f} TFLOP/s, "
               f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
-    if output_dir is not None:
+    if output_dir is not None and lead:
         name = config.get("experiment", {}).get("name", "experiment")
         save_json(result, Path(output_dir) / f"train_{result['mode']}_{name}.json")
     return result
-
-
-def run_train_from_config(config_path: str, zero_stage: Optional[int] = None,
-                          output_dir: Optional[str] = None,
-                          device=None) -> dict[str, Any]:
-    config = load_config(config_path)
-    out = output_dir or config.get("experiment", {}).get("output_dir")
-    return run_train(config, zero_stage=zero_stage, device=device, output_dir=out)

@@ -1,6 +1,8 @@
 """The port's tensor-parallel forward (``models/sharding.py``,
 ``parallel/plan.py``, ``comm/mesh.py::build_parallelism_mesh``,
-``bench/e2e.py`` at world > 1) against the JAX package's GSPMD forward.
+``bench/e2e.py`` at world > 1) against the JAX package's GSPMD forward, and
+its gradients against ``jax.value_and_grad`` of the GSPMD loss
+(``test_tp_gradients_match_jax``).
 
 A small decoder (2 layers, H=256, 8 heads of 32, FFN 1024, B=4, S=64) gets
 JAX ``init_params`` weights, carried across with ``params_from_jax`` and cut
@@ -48,9 +50,9 @@ from dlbb_tpu.models import configs as jax_configs
 from dlbb_tpu.models import transformer as jax_tf
 from dlbb_tpu.models.sharding import batch_spec
 from dlbb_tpu.parallel.plan import ParallelismPlan as JaxPlan
+from dlbb_tpu.train import loop as jax_loop
 from dlbb_tpu_torch import cli
 from dlbb_tpu_torch.bench.launch import launch
-from dlbb_tpu_torch.comm import Mesh, MeshSpec
 from dlbb_tpu_torch.data import SyntheticEmbeddingDataset
 from dlbb_tpu_torch.models import ModelConfig, forward, init_params, params_from_jax
 from dlbb_tpu_torch.models import sharding
@@ -273,12 +275,55 @@ def test_dataset_refuses_a_batch_dp_does_not_divide():
         SyntheticEmbeddingDataset(*BATCH, dp_rank=0, dp=3)
 
 
-def test_tp_forward_refuses_gradients():
-    mesh = Mesh(MeshSpec((1, 2), ("dp", "tp")), 0, None, {"dp": None, "tp": None})
-    cfg = ModelConfig(**BASE, dtype="float32")
-    params = sharding.shard_params(init_params(cfg, 0, "cpu"), cfg, 0, 2)
-    with pytest.raises(NotImplementedError, match="Slice D, item 2"):
-        forward(params, torch.zeros(1, 4, 256), cfg, mesh=mesh)
+GRAD_MESHES = ((1, 2), (1, 4))
+GRAD_CASES = [c for c in CASES if c[1]["dtype"] == "float32" and c[1]["attention"] != "simplified"]
+
+
+@pytest.fixture(scope="module")
+def grad_ranks(weights):
+    """Each rank's loss and gradients, by mesh: 4 gloo ranks, the fp32
+    cases at tp=2 and tp=4."""
+    return launch(torch_tp_worker.run_tp_grads, 4, "cpu",
+                  args=(GRAD_MESHES, GRAD_CASES, weights, BATCH), timeout=300)
+
+
+@pytest.mark.parametrize("tp", [m[1] for m in GRAD_MESHES])
+@pytest.mark.parametrize("case", GRAD_CASES, ids=[c[0] for c in GRAD_CASES])
+def test_tp_gradients_match_jax(grad_ranks, weights, tp, case):
+    """The tensor-parallel loss and gradients (``copy_to_tp`` and
+    ``reduce_from_tp`` in autograd, kv copies summed into their source
+    columns) against ``jax.value_and_grad`` of the GSPMD loss on the same
+    mesh: the loss to 1e-6 relative and each full leaf, reassembled with
+    ``unshard_params``, to 1e-5 of its largest gradient, fp32 sums in
+    another order (the bound ``test_torch_train.py`` holds the world-1
+    gradients to)."""
+    case_id, fields, key = case
+    members = [r[(1, tp)] for r in grad_ranks if (1, tp) in r]
+    assert len(members) == tp
+    losses = [m[case_id][0] for m in members]
+    assert all(x == losses[0] for x in losses)
+    cfg = ModelConfig(**fields)
+    shards = sorted(((m["coords"]["tp"], m[case_id][1]) for m in members), key=lambda p: p[0])
+    got = sharding.unshard_params(
+        [jax.tree.map(torch.from_numpy, g) for _, g in shards], cfg)
+
+    jcfg = jax_configs.ModelConfig(**fields)
+    mesh = jax_parallelism_mesh(1, 1, 1, tp, 1, devices=jax.devices()[:tp])
+    params = jax_tf.shard_params(jax.tree.map(jnp.asarray, weights[key]), mesh)
+    x, t = (jax.device_put(jnp.asarray(np.random.default_rng(seed).standard_normal(
+        BATCH, dtype=np.float32)), NamedSharding(mesh, batch_spec(mesh))) for seed in (42, 43))
+    loss, ref = jax.jit(jax.value_and_grad(
+        lambda p: jax_loop.mse_loss(p, x, t, jcfg, mesh)))(params)
+    np.testing.assert_allclose(losses[0], float(loss), rtol=1e-6)
+    ref = jax.tree.map(np.asarray, ref)
+    for group in ref["layers"]:
+        for leaf, r in ref["layers"][group].items():
+            g = got["layers"][group][leaf].numpy()
+            np.testing.assert_allclose(g, r, atol=1e-5 * np.abs(r).max(), rtol=0,
+                                       err_msg=f"{group}.{leaf}")
+    for leaf, r in ref["ln_f"].items():
+        np.testing.assert_allclose(got["ln_f"][leaf].numpy(), np.asarray(r),
+                                   atol=1e-5 * np.abs(r).max(), rtol=0, err_msg=leaf)
 
 
 def _plan_config(model=None, **par):
