@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlbb_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm,tp,dtrain]
+    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm,tp,dtrain,seq]
 
 Phases (each raises on failure, and the script then exits non-zero):
 
@@ -62,7 +62,24 @@ Phases (each raises on failure, and the script then exits non-zero):
    step at tp=2, stage 1, and at dp=2, stage 3, their loss and gradients
    (reassembled over the shards) against the world-1 step's within the
    bounds argued at ``DTRAIN_*``; errors and wall time printed, not timed
-   as a benchmark.
+   as a benchmark;
+9. ``seq``, the sequence-sharded layouts: (a) at world 1 over NCCL in the
+   script's process, the collective-matmul sweep ops ``ag_matmul`` and
+   ``matmul_rs`` at phase ``comm``'s three 3D shapes: each schedule's first
+   call (fused, ring, bidir) equal bit for bit to the others and to
+   ``plain_collective`` (a one-rank ring is one product), then ``run_sweep``
+   under the variants ``default``, ``overlap_ring`` and ``overlap_bidir``
+   (10 warmup, 100 timed iterations), their medians printed; (b) two
+   processes on the card over gloo at the 1B's full width and depth: tp=2
+   with ``tp_overlap`` ring and bidir ("full": the flash kernels on each
+   rank's 8 heads over the gathered sequence), and sp=2 with ring and
+   Ulysses attention (torch ops, no kernel): the forward against the
+   world-1 forward and one ZeRO-1 step of the 1B train config (the loss and
+   reduced gradients, and at tp=2 the update: two whole 1B Adam updates do
+   not fit on one card beside each other) against the world-1 step, within
+   the bounds argued at ``SEQ_*``; the flash launches of each rank and the
+   ring hops' transport printed (gloo's point-to-point takes no CUDA
+   tensor, so the hops go through host memory).
 
 It then prints the card's name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -139,7 +156,7 @@ EDGE_CASES = {
 # the mma.sync forward kernel this design replaced, at the two timed shapes:
 # phase 5 on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's kernel table)
 FWD_BEFORE_MS = {"main": 0.1259, "long": 2.5038}
-PHASES = ("build", "fwd", "bwd", "e2e", "train", "time", "comm", "tp", "dtrain")
+PHASES = ("build", "fwd", "bwd", "e2e", "train", "time", "comm", "tp", "dtrain", "seq")
 TP_CONFIG = "dlbb_tpu_torch/configs/baseline_config.yaml"
 # the 3D sweep's LLM shapes (batch, seq, hidden) on the card: the largest is
 # 1 GiB of bf16 per rank
@@ -1189,6 +1206,313 @@ def phase_comm(torch, gpu_line):
               + ", ".join(f"{k} {v:.2f}" for k, v in medians.items()))
 
 
+# phase seq (b): the sequence-sharded 1B paths against world 1, both bf16
+# on the card, one seed.
+# - tp=2, tp_overlap ring/bidir, "full": the matmul-reduce-scatter rounds
+#   each partial product to bf16 and adds the tp partials in tp - 1 bf16
+#   additions, as many roundings as the all-reduce ``tp_bf16_bound`` counts;
+#   the flash kernel runs on each rank's heads over the gathered sequence,
+#   the same values per head.  Forward: ``tp_bf16_bound``; step:
+#   ``dtrain_bounds`` at tp=2 (argued above).
+# - sp=2, ring or Ulysses, against world 1's "full" (the flash kernel):
+#   ring attention is fp32 throughout and Ulysses runs dense attention, where
+#   the kernel rounds P and o to bf16: the kernel-vs-dense difference that
+#   phase 3 bounds by E2E_REL_L2 (ring's online softmax sums the same fp32
+#   terms in another order).  The projections run on half the rows each,
+#   where a GEMM may sum in another order and round a product one bf16 ulp
+#   apart: at most ``tp_bf16_bound(layers, 2)`` more.  Step: the loss moves
+#   by at most twice the forward's relative difference (as in dtrain), each
+#   gradient by the kernel-vs-dense backward bound TRAIN_GRAD_REL_L2 plus
+#   the forward's.
+SEQ_RUNS = {
+    "tp": (("tp2_ring", {"world_size": 2}, {"tp_overlap": "ring"}),
+           ("tp2_bidir", {"world_size": 2}, {"tp_overlap": "bidir"})),
+    "sp": (("sp2_ring", {"world_size": 1, "sequence_parallel": 2}, {"attention": "ring"}),
+           ("sp2_ulysses", {"world_size": 1, "sequence_parallel": 2},
+            {"attention": "ulysses"})),
+}
+SEQ_SCHEDULES = ("fused", "ring", "bidir")
+SEQ_VARIANTS = ("default", "overlap_ring", "overlap_bidir")
+
+
+def seq_bounds(layers, kind):
+    """(forward relative L2, loss relative, gradient relative L2 per leaf)
+    of a phase seq (b) run against world 1 (comment above)."""
+    if kind == "tp":
+        fwd = tp_bf16_bound(layers, 2)
+        return (fwd, *dtrain_bounds(layers, 2))
+    fwd = E2E_REL_L2 + tp_bf16_bound(layers, 2)
+    return fwd, 2 * fwd, TRAIN_GRAD_REL_L2 + fwd
+
+
+def _seq_gloo_rank(rank, world, init_file, config, runs, out_dir, device):
+    """One rank of phase seq (b), spawned by ``_seq_gloo``: for each run,
+    the forward (inference) and one ZeRO-1 step's loss and reduced
+    gradients, then the update, with the flash launches of each, on this
+    rank's part; written to ``out_dir/r<rank>.pt``."""
+    import copy
+
+    import torch
+
+    from dlbb_tpu_torch.comm import destroy_distributed, initialize_distributed
+    from dlbb_tpu_torch.data import create_dataset_from_config
+    from dlbb_tpu_torch.models import ModelConfig, forward, init_params
+    from dlbb_tpu_torch.models.sharding import batch_spec
+    from dlbb_tpu_torch.models.transformer import ring_transport, use_tp_overlap
+    from dlbb_tpu_torch.ops import flash_attention as fa
+    from dlbb_tpu_torch.parallel import ParallelismPlan
+    from dlbb_tpu_torch.parallel.collective_matmul import activation_spec
+    from dlbb_tpu_torch.train.loop import make_train_step
+    from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    initialize_distributed("gloo", rank, world, init_file, timeout=900)
+    try:
+        out = {}
+        for name, par, model in runs:
+            t0 = time.perf_counter()
+            cfg = copy.deepcopy(config)
+            cfg["parallelism"] = par
+            cfg["model"].update(model)
+            model_cfg = ModelConfig.from_dict(cfg["model"])
+            plan = ParallelismPlan.from_config(cfg, model_cfg)
+            mesh = plan.mesh
+            params = init_params(model_cfg, cfg["input"]["seed"], device,
+                                 tp_rank=mesh.coords["tp"], tp=plan.tp)
+            batch, targets = (create_dataset_from_config(
+                cfg, dtype=torch.bfloat16, device=device, hidden_size=model_cfg.hidden_size,
+                seed_offset=off, **batch_spec(mesh)).get_batch() for off in (0, 1))
+            _zero_flash_counts(fa)
+            with torch.inference_mode():
+                y = forward(params, batch, model_cfg, mesh=mesh).cpu()
+            fwd_launches = _flash_counts(fa)
+            step, state = make_train_step(model_cfg, build_optimizer(cfg["training"]),
+                                          params, mesh=mesh, zero_stage=1)
+            del params
+            _zero_flash_counts(fa)
+            loss, grads = step.grads(state, batch, targets)
+            step_launches = _flash_counts(fa)
+            grads = tree_map(lambda g: g.cpu(), grads)
+            peak_grads = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+            # the update too where the ranks hold half the model: two whole 1B
+            # Adam updates (fp32 moments and updates, ~30 GiB each) do not fit
+            # on one card beside each other
+            step_loss = float("nan")
+            if plan.tp > 1:
+                state, step_loss = step(state, batch, targets)
+            peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+            seq = (activation_spec(mesh) if use_tp_overlap(model_cfg, mesh)
+                   else (mesh.coords.get("sp", 0), plan.sp))
+            out[name] = {"coords": mesh.coords, "seq": seq, "y": y, "loss": float(loss),
+                         "grads": grads, "step_loss": float(step_loss),
+                         "fwd_launches": fwd_launches, "step_launches": step_launches,
+                         "transport": ring_transport(model_cfg, mesh, torch.device(device)),
+                         "peak_gib": (peak_grads / 2**30, peak / 2**30),
+                         "seconds": time.perf_counter() - t0}
+            del state, step, grads, y
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        torch.save(out, f"{out_dir}/r{rank}.pt")
+    finally:
+        destroy_distributed()
+
+
+def _seq_gloo(torch, config, runs, device):
+    """Phase seq (b)'s ``runs`` (one mesh) as two processes on ``device``
+    over gloo; returns each rank's record."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_seq_") as tmp:
+        mp.start_processes(_seq_gloo_rank,
+                           args=(2, os.path.join(tmp, "store"), config, runs, tmp, device),
+                           nprocs=2, join=True, start_method="spawn")
+        return [torch.load(os.path.join(tmp, f"r{r}.pt"), weights_only=False)
+                for r in range(2)]
+
+
+def _seq_sweeps(torch, gpu_line):
+    """Phase seq (a): the collective-matmul sweep ops at world 1 over NCCL."""
+    import os
+    import shutil
+    import tempfile
+
+    from dlbb_tpu_torch import comm
+    from dlbb_tpu_torch.bench import runner
+    from dlbb_tpu_torch.comm.ops import MATMUL_OPS
+
+    out = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_seq"
+    shutil.rmtree(out, ignore_errors=True)
+    warmup, iters = 10, 100
+    medians = {}
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_seq_") as tmp:
+        comm.initialize_distributed("nccl", 0, 1, os.path.join(tmp, "store"))
+        try:
+            mesh = comm.get_mesh(comm.MeshSpec.ring(1))
+            for b, s, h in COMM_SHAPES_3D:
+                for name in MATMUL_OPS:
+                    op = comm.get_op(name)
+                    x = comm.make_payload(op, 0, 1, 0, shape=(b, s, h), device="cuda")
+                    ref = comm.plain_collective(name, x.unsqueeze(0))[0]
+                    for schedule in SEQ_SCHEDULES:
+                        y = op.build(mesh, 0, schedule=schedule)(x)
+                        torch.cuda.synchronize()
+                        if y.shape != ref.shape or not torch.equal(y, ref):
+                            raise AssertionError(f"{name} {schedule} at ({b}, {s}, {h}) over "
+                                                 "NCCL differs from its plain version")
+                        del y
+                    del x, ref
+                t0 = time.perf_counter()
+                for variant in SEQ_VARIANTS:
+                    r = runner.run_sweep(runner.Sweep3D(
+                        operations=MATMUL_OPS, variant=variant, batch_sizes=(b,),
+                        seq_lengths=(s,), hidden_dims=(h,), rank_counts=(1,),
+                        warmup_iterations=warmup, measurement_iterations=iters,
+                        output_dir=str(out / variant)), device="cuda", verbose=False)
+                    _check_results(r, len(MATMUL_OPS), iters)
+                    for path in r.written:
+                        data = json.loads(path.read_text())
+                        key = (variant, data["operation"], (b, s, h))
+                        medians[key] = sorted(data["timings"][0])[iters // 2] * 1e6
+                torch.cuda.empty_cache()
+                print(f"[seq] ({b}, {s}, {h}), {b * s * h * 2 / 2**20:.0f} MiB per rank: "
+                      f"fused, ring and bidir equal to plain_collective bit for bit; "
+                      f"{len(SEQ_VARIANTS) * len(MATMUL_OPS)} sweep configs in "
+                      f"{time.perf_counter() - t0:.1f} s")
+        finally:
+            comm.destroy_distributed()
+    for b, s, h in COMM_SHAPES_3D:
+        flops = 2 * b * s * h * h
+        print(f"[seq] NCCL world 1, bf16, ({b}, {s}, {h}) on {gpu_line}: median us per call "
+              + ", ".join(f"{name}/{variant} {medians[(variant, name, (b, s, h))]:.2f}"
+                          for name in MATMUL_OPS for variant in SEQ_VARIANTS)
+              + f"; one product of {flops / 1e12:.2f} TFLOP, "
+              f"{flops / PEAK_BF16_FLOPS * 1e6:.2f} us at the bf16 peak")
+    return medians
+
+
+def phase_seq(torch, gpu_line):
+    """Phase 9 (module docstring)."""
+    from dlbb_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    medians = _seq_sweeps(torch, gpu_line)
+    gloo = _seq_model(torch, load_config(TRAIN_CONFIG))
+    print(f"[seq] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return {"sweeps_us": medians, "gloo": gloo}
+
+
+def _seq_model(torch, config, device="cuda"):
+    """Phase seq (b) on ``config``; on the card by default, where a smaller
+    config on the CPU rehearses its control flow (no kernel runs there, and
+    CPU tensors hop directly)."""
+    from dlbb_tpu_torch.models import ModelConfig, forward, init_params
+    from dlbb_tpu_torch.models.sharding import unshard_params
+    from dlbb_tpu_torch.train.loop import make_train_step
+    from dlbb_tpu_torch.train.optim import build_optimizer
+
+    model_cfg = ModelConfig.from_dict(config["model"])
+    layers = model_cfg.num_layers
+    params = init_params(model_cfg, config["input"]["seed"], device)
+    batch, targets = _dtrain_batch(config, model_cfg, device)
+    with torch.inference_mode():
+        ref_y = forward(params, batch, model_cfg).float()
+    step, state = make_train_step(model_cfg, build_optimizer(config["training"]), params)
+    del params
+    ref_loss, ref = step.grads(state, batch, targets)
+    ref_loss = float(ref_loss)
+    del state, step, batch, targets
+    if device == "cuda":  # the two ranks' steps need the parent's cache
+        torch.cuda.empty_cache()
+        print(f"[seq] parent holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+              f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    heads_tp2 = {"flash_fwd": layers, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    step_tp2 = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+    none = dict.fromkeys(heads_tp2, 0)
+    if device != "cuda":  # attention runs dense on the CPU: no kernel launches
+        heads_tp2 = step_tp2 = none
+    hop = "host" if device == "cuda" else "device"
+    out = {}
+    for kind, runs in SEQ_RUNS.items():
+        t0 = time.perf_counter()
+        ranks = _seq_gloo(torch, config, runs, device)
+        wall = time.perf_counter() - t0
+        fwd_bound, loss_bound, grad_bound = seq_bounds(layers, kind)
+        for name, _, _ in runs:
+            recs = sorted((r[name] for r in ranks), key=lambda r: r["seq"][0])
+            want_fwd, want_step = (heads_tp2, step_tp2) if kind == "tp" else (none, none)
+            for r in recs:
+                if r["fwd_launches"] != want_fwd or r["step_launches"] != want_step:
+                    raise AssertionError(f"{name}: flash launches {r['fwd_launches']} "
+                                         f"(forward), {r['step_launches']} (step); expected "
+                                         f"{want_fwd}, {want_step}")
+                # Ulysses makes no ring hop: its all-to-alls take CUDA tensors
+                want = None if name.endswith("ulysses") else hop
+                if r["transport"] != want:
+                    raise AssertionError(f"{name}: ring hops moved by {r['transport']!r}, "
+                                         f"expected {want!r}")
+            y = torch.cat([r["y"] for r in recs], dim=1).to(device).float()
+            if y.shape != ref_y.shape or not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"{name}: output of shape {tuple(y.shape)}, expected "
+                                     "finite values of the world-1 output's shape")
+            fwd_rel = _rel_l2(y, ref_y)
+            del y
+            if kind == "tp":
+                got = unshard_params([r["grads"] for r in recs], model_cfg)
+            else:
+                got = recs[0]["grads"]
+                for a, b in zip(_leaves(got), _leaves(recs[1]["grads"])):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"{name}: the sp ranks' summed gradients differ")
+            rels = {f"{group}.{leaf}": _rel_l2(got["layers"][group][leaf].to(device), g)
+                    for group, sub in ref["layers"].items() for leaf, g in sub.items()}
+            rels.update({f"ln_f.{leaf}": _rel_l2(got["ln_f"][leaf].to(device), g)
+                         for leaf, g in ref["ln_f"].items()})
+            worst = max(rels, key=rels.get)
+            losses = {r["loss"] for r in recs}
+            loss_rel = abs(recs[0]["loss"] - ref_loss) / abs(ref_loss)
+            print(f"[seq] 1B {name}, two processes on one {device} device over gloo (ring "
+                  f"hops: {recs[0]['transport'] or 'none'}): forward relative L2 against "
+                  f"world 1 {fwd_rel:.3e} (bound {fwd_bound:.3e}); ZeRO-1 step loss "
+                  f"{recs[0]['loss']:.6f} vs world 1 {ref_loss:.6f} (relative {loss_rel:.3e}, "
+                  f"bound {loss_bound:.3e}); gradient relative L2 worst {worst} "
+                  f"{rels[worst]:.3e} (bound {grad_bound:.3e}); flash launches per rank: "
+                  f"forward {recs[0]['fwd_launches']}, step {recs[0]['step_launches']}; step "
+                  f"loss {recs[0]['step_loss']:.6f}; peak allocated per rank (GiB, gradients "
+                  f"/ update) {[tuple(round(x, 2) for x in r['peak_gib']) for r in recs]}; "
+                  f"{max(r['seconds'] for r in recs):.1f} s in the ranks, not timed")
+            if len(losses) != 1:
+                raise AssertionError(f"{name}: the ranks' losses differ: {losses}")
+            if not (fwd_rel <= fwd_bound and loss_rel <= loss_bound
+                    and rels[worst] <= grad_bound
+                    and (kind != "tp" or all(math.isfinite(r["step_loss"]) for r in recs))):
+                raise AssertionError(f"the 1B {name} run disagrees with world 1")
+            out[name] = {"fwd_rel_l2": fwd_rel, "loss_rel": loss_rel,
+                         "worst_grad_rel_l2": rels[worst], "worst_leaf": worst,
+                         "fwd_launches": recs[0]["fwd_launches"],
+                         "step_launches": recs[0]["step_launches"]}
+        print(f"[seq] {kind} runs: {wall:.1f} s wall")
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def _seq_launches(seq, name):
+    """A kernel's launches per rank on each path of phase seq (b): the
+    forward and the step's gradients of each run."""
+    return {f"{run}_{part}": r[f"{part}_launches"][name] for run, r in seq["gloo"].items()
+            for part in ("fwd", "step")}
+
+
 def _dtrain_launches(dtrain, name):
     """A kernel's launches per optimizer step on each path of phase dtrain:
     the four ZeRO stages' steps and the two ``run_train`` runs."""
@@ -1240,6 +1564,8 @@ def main() -> int:
         tp = phase_tp(torch, gpu_line)
     if "dtrain" in phases:
         dtrain = phase_dtrain(torch, gpu_line)
+    if "seq" in phases:
+        seq = phase_seq(torch, gpu_line)
     if phases != set(PHASES):
         print(f"chip_smoke: phases {sorted(phases)} passed; no result printed for a subset")
         return 0
@@ -1254,6 +1580,7 @@ def main() -> int:
         "train_launches": train_launches["flash_fwd"],
         "tp_launches": tp["full"]["launches"],
         "dtrain_launches_per_step": _dtrain_launches(dtrain, "flash_fwd"),
+        "seq_launches_per_rank": _seq_launches(seq, "flash_fwd"),
         "max_abs_err": err_o,
         "lse_max_abs_err": err_lse,
         "ms": main_t["ms"],
@@ -1275,6 +1602,7 @@ def main() -> int:
             "replaces": f"dlbb_tpu/ops/flash_attention.py:{line}",
             "launches": train_launches[f"flash_bwd_{kernel}"],
             "dtrain_launches_per_step": _dtrain_launches(dtrain, f"flash_bwd_{kernel}"),
+            "seq_launches_per_rank": _seq_launches(seq, f"flash_bwd_{kernel}"),
             "max_abs_err": max(err_bwd[e] for e in errs),
             "ms": t["ms"],
             "event_ms": t["event_ms"],

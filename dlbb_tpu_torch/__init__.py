@@ -7,7 +7,9 @@ stated tolerance).  This package imports ``torch`` and numpy only — never
 ``jax`` and never a module of ``dlbb_tpu``.
 
 Ported so far (the single-device forward, the collective sweeps, the
-tensor-parallel forward, DDP/ZeRO and tensor-parallel training):
+tensor-parallel forward, DDP/ZeRO and tensor-parallel training, and the
+sequence-sharded layouts: overlapped tensor parallelism and sequence
+parallelism):
 
 - ``models`` — ``ModelConfig``/``MODEL_CONFIGS`` (1B/7B/13B), the dense
   decoder ``forward`` with the simplified/full/dense/flash attention modes
@@ -29,22 +31,26 @@ tensor-parallel forward, DDP/ZeRO and tensor-parallel training):
   fault-injection plan grammar and the SIGTERM guard;
 - ``utils`` — ``summarize``/``Timer``, per-iteration CUDA-event timing,
   config IO, system info;
-- ``bench.e2e`` — ``run_e2e``, on one device or on every rank of a (dp, tp)
-  process-group mesh; ``cli e2e`` and ``cli train`` (``--world N``,
-  ``train --zero STAGE``);
-- ``parallel.plan`` — ``ParallelismPlan``: the JAX plan's checks and the
-  mesh; ``models.sharding`` — explicit Megatron tensor-parallel shards;
+- ``bench.e2e`` — ``run_e2e``, on one device or on every rank of a (dp,
+  sp, tp) process-group mesh; ``cli e2e`` and ``cli train`` (``--world N``,
+  ``--tp-overlap``, ``train --zero STAGE``);
+- ``parallel`` — ``ParallelismPlan`` (the JAX plan's checks and the
+  (dp, sp, tp) mesh), the ring-decomposed collective matmuls
+  ``allgather_matmul``/``matmul_reducescatter`` (``tp_overlap``),
+  ``ring_attention`` and ``ulysses_attention``, on the ring hop of
+  ``parallel.ring``; ``models.sharding`` — explicit Megatron
+  tensor-parallel shards;
 - ``comm`` — process groups (``torch.distributed``: NCCL, or gloo on the
   CPU), the collective ops, payloads and mesh-shape variants;
+  the collective-matmul micro-ops and their ``overlap_*`` variants;
   ``bench.runner`` and ``bench.launch`` — the 1D and 3D collective sweeps
   on spawned ranks; ``stats`` — their statistics; ``cli bench1d``,
   ``bench3d``, ``stats1d``, ``stats3d``.
 
-Not ported yet (see ROADMAP.md): MoE, tp_overlap, uneven tp shards,
-restoring a checkpoint onto another mesh, ring/Ulysses attention,
-pipelines, the quantised and collective-matmul ops, gradient compression,
-serving, and the observability, planning and analysis layers and the rest
-of resilience (the journal, validation, the chaos gate).
+Not ported yet (see ROADMAP.md): MoE, uneven tp shards, restoring a
+checkpoint onto another mesh, pipelines, the quantised ops and gradient
+compression, serving, and the observability, planning and analysis layers
+and the rest of resilience (the journal, validation, the chaos gate).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit ``"cpu"`` they raise.

@@ -11,9 +11,12 @@ in the timed forwards.
 Without a process group it runs on one device, with no
 ``torch.distributed`` at all.  Inside one (``bench/launch.py``, as ``cli
 e2e --world N`` starts it), ``parallel/plan.py::ParallelismPlan`` checks
-the config against the world and builds the (dp, tp) mesh: each rank
+the config against the world and builds the (dp[, sp], tp) mesh: each rank
 draws its tensor-parallel shards of the model (``init_params``) and its dp
-slice of the batch, and runs the tensor-parallel forward.  Each timed
+rows and sp slice of the batch (``sharding.batch_spec``), and runs the
+tensor-parallel forward, overlapped under ``model.tp_overlap`` and with
+ring or Ulysses attention over sp.  ``transport`` says how its ring hops
+moved (``transformer.ring_transport``), None where it made none.  Each timed
 iteration is a barrier on the world group and then the forward, and its
 time is the slowest rank's, since the JAX number is one SPMD step;
 ``per_host_means_s`` holds each rank's own mean, and the cross-host
@@ -33,12 +36,14 @@ import torch.distributed as dist
 
 from dlbb_tpu_torch.data.synthetic import create_dataset_from_config
 from dlbb_tpu_torch.models.configs import ModelConfig
+from dlbb_tpu_torch.models.sharding import batch_spec
 from dlbb_tpu_torch.models.transformer import (
     DTYPES,
     forward,
     forward_flops,
     init_params,
     num_parameters,
+    ring_transport,
 )
 from dlbb_tpu_torch.ops import flash_attention as flash_mod
 from dlbb_tpu_torch.parallel.plan import ParallelismPlan
@@ -60,13 +65,12 @@ def run_e2e(config: dict[str, Any], device=None,
         model_cfg = ModelConfig.from_dict(config["model"])
         plan = ParallelismPlan.from_config(config, model_cfg)
         mesh = plan.mesh
-        coords = mesh.coords if mesh is not None else {"dp": 0, "tp": 0}
         params = init_params(model_cfg, inp.get("seed", 42), device,
-                             tp_rank=coords["tp"], tp=plan.tp)
+                             tp_rank=mesh.coords["tp"] if mesh is not None else 0,
+                             tp=plan.tp)
         dataset = create_dataset_from_config(
             config, dtype=DTYPES[model_cfg.dtype], device=device,
-            hidden_size=model_cfg.hidden_size, dp_rank=coords["dp"],
-            dp=plan.dp)
+            hidden_size=model_cfg.hidden_size, **batch_spec(mesh))
         batch = dataset.get_batch()
     init_time = t_init.elapsed
     lead = mesh is None or dist.get_rank() == 0
@@ -122,6 +126,7 @@ def run_e2e(config: dict[str, Any], device=None,
             "tp_overlap": model_cfg.tp_overlap,
         },
         "mesh": plan.mesh_dict(),
+        "transport": ring_transport(model_cfg, mesh, device),
         "init_time_s": init_time,
         "compiler_options": None,
         "compile_time_s": compile_time,

@@ -51,6 +51,7 @@ import torch.distributed as dist
 from dlbb_tpu_torch.comm.mesh import BACKENDS, Mesh, get_mesh
 from dlbb_tpu_torch.comm.ops import (
     DTYPES,
+    MATMUL_OPS,
     build_allreduce_hierarchical,
     get_op,
     make_payload,
@@ -267,6 +268,8 @@ def _impl_name(sweep, backend: str) -> str:
 def _build_fn(op_name: str, variant: Variant, mesh: Mesh, root: int):
     if op_name == "allreduce" and variant.hierarchical:
         return build_allreduce_hierarchical(mesh, root)
+    if op_name in MATMUL_OPS and variant.overlap_schedule is not None:
+        return get_op(op_name).build(mesh, root, schedule=variant.overlap_schedule)
     return get_op(op_name).build(mesh, root)
 
 
@@ -280,7 +283,11 @@ def _payload_geometry(sweep, config) -> tuple[int, Optional[tuple[int, ...]]]:
 
 def _estimate_global_bytes(sweep, config, num_ranks: int) -> int:
     """Global input+output bytes of one config, from the op's declared
-    buffer kinds (``per_peer`` is P^2 x payload, ``per_rank`` P x)."""
+    buffer kinds (``per_peer`` is P^2 x payload, ``per_rank`` P x), plus the
+    fused schedule's transient where the op declares one.  An overlap
+    variant's ring never holds that transient (one travelling chunk rides
+    inside the input and output), so it is charged none: charging it would
+    skip the very configs whose memory the variant exists to show."""
     op = get_op(config["operation"])
     n = _payload_geometry(sweep, config)[0]
     itemsize = torch.empty((), dtype=DTYPES[sweep.dtype]).element_size()
@@ -288,7 +295,10 @@ def _estimate_global_bytes(sweep, config, num_ranks: int) -> int:
     def mult(kind):
         return num_ranks * num_ranks if kind == "per_peer" else num_ranks
 
-    return (mult(op.input_kind) + mult(op.output_kind)) * n * itemsize
+    transient = mult(op.transient_kind) if op.transient_kind else 0
+    if op.name in MATMUL_OPS and get_variant(sweep.variant).overlap_schedule is not None:
+        transient = 0
+    return (mult(op.input_kind) + mult(op.output_kind) + transient) * n * itemsize
 
 
 def _iter_configs(sweep):

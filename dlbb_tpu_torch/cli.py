@@ -2,9 +2,11 @@
 
     python -m dlbb_tpu_torch.cli e2e --config CONFIG.yaml [--output DIR]
                                      [--world N] [--device cuda|cpu]
+                                     [--tp-overlap off|ring|bidir]
     python -m dlbb_tpu_torch.cli train --config CONFIG.yaml [--output DIR]
                                        [--world N] [--zero STAGE | --zero1]
                                        [--device cuda|cpu]
+                                       [--tp-overlap off|ring|bidir]
     python -m dlbb_tpu_torch.cli bench1d [--ops ...] [--sizes ...] [--ranks ...]
                                          [--world N] [--device cuda|cpu] ...
     python -m dlbb_tpu_torch.cli bench3d [--ops ...] [--batch ...] [--seq ...]
@@ -17,7 +19,8 @@ through ``bench/launch.py``: NCCL with one GPU per rank on ``cuda``, gloo
 on ``cpu``.  ``e2e`` does the same with ``--world`` ranks (default: the
 config's mesh, dp x tp x sp x pp x ep), and so does ``train``; at world 1
 they run in this process with no process group.  Under ``torchrun`` they
-run in place as their rank.
+run in place as their rank.  ``--tp-overlap`` overrides the config's
+``model.tp_overlap``, so one YAML sweeps fused against ring and bidir.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import argparse
 import sys
 
 _DEVICE_HELP = "cuda (the default) or cpu; without a CUDA device only an explicit cpu runs"
+_OVERLAP_HELP = ("override model.tp_overlap: ring-decomposed overlapped "
+                 "tensor-parallel projections (needs tp > 1)")
 
 
 def _add_sweep_args(p: argparse.ArgumentParser) -> None:
@@ -57,6 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
     e2.add_argument("--world", type=int, default=None,
                     help="ranks to launch (default: the config's mesh size)")
     e2.add_argument("--device", default=None, help=_DEVICE_HELP)
+    e2.add_argument("--tp-overlap", choices=("off", "ring", "bidir"), default=None,
+                    help=_OVERLAP_HELP)
     tr = sub.add_parser("train", help="DDP/ZeRO-{1,2,3} training-loop benchmark")
     tr.add_argument("--config", required=True, help="YAML experiment config")
     tr.add_argument("--zero1", action="store_true", help="shard optimizer state (ZeRO-1)")
@@ -68,6 +75,8 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--world", type=int, default=None,
                     help="ranks to launch (default: the config's mesh size)")
     tr.add_argument("--device", default=None, help=_DEVICE_HELP)
+    tr.add_argument("--tp-overlap", choices=("off", "ring", "bidir"), default=None,
+                    help=_OVERLAP_HELP)
 
     b1 = sub.add_parser("bench1d", help="1D collective microbenchmark sweep")
     _add_sweep_args(b1)
@@ -148,6 +157,8 @@ def _launched(args, worker, *extra):
     from dlbb_tpu_torch.utils.config import load_config
 
     config = load_config(args.config)
+    if args.tp_overlap is not None:
+        config.setdefault("model", {})["tp_overlap"] = args.tp_overlap
     output_dir = args.output or config.get("experiment", {}).get("output_dir")
     world = args.world or math.prod(degrees(config))
     worker_args = (config, output_dir, args.device, *extra)

@@ -33,8 +33,15 @@ global input in one process with torch ops: the reference the CPU tests
 and ``chip_smoke.py`` hold the ``torch.distributed`` result against.
 Nothing on the sweep path calls it.
 
-Not ported yet (they raise from ``get_op``): the collective-matmul
-micro-ops ``ag_matmul``/``matmul_rs`` (Slice D) and the quantised-wire
+The collective-matmul micro-ops ``ag_matmul``/``matmul_rs`` take the 3D
+sweep's ``[B, S, H]`` payload and a deterministic weight shard
+(``_synth_weight``, JAX's formula), which their ``prepare`` makes once per
+shape, outside the timed interval, where JAX computes it inside its jitted
+call.  ``fused`` is the collective then the product (or the product then
+the collective); ``ring``/``bidir`` are the decomposed schedules of
+``parallel/collective_matmul.py``, selected by the ``overlap_*`` variants.
+
+Not ported yet (they raise from ``get_op``): the quantised-wire
 ``allreduce_q``/``reducescatter_q`` (with ``comm/compression.py``).
 """
 
@@ -48,6 +55,9 @@ import torch
 import torch.distributed as dist
 
 from dlbb_tpu_torch.comm.mesh import Mesh, mesh_num_ranks
+from dlbb_tpu_torch.models.sharding import reduce_scatter_along
+from dlbb_tpu_torch.parallel.collective_matmul import _ag_matmul_body, _matmul_rs_body
+from dlbb_tpu_torch.parallel.ring import Ring
 
 DEFAULT_PAYLOAD_SEED = 42
 
@@ -63,12 +73,16 @@ class CollectiveOp:
     """One benchmarkable collective.  ``input_kind``/``output_kind`` are
     ``per_rank`` or ``per_peer`` (module docstring); ``build(mesh, root=0)``
     returns the ``Collective`` from this rank's input slab to its output
-    slab."""
+    slab.  ``transient_kind`` declares the largest intermediate of the
+    fused schedule, in the same units, where it exceeds the input and
+    output (the gathered activation of ``ag_matmul``, the full partial
+    product of ``matmul_rs``)."""
 
     name: str
     input_kind: str
     output_kind: str
     build: Callable[..., Collective]
+    transient_kind: Optional[str] = None
 
 
 def _no_buffer(x: torch.Tensor) -> None:
@@ -256,6 +270,116 @@ def build_barrier(mesh: Mesh, root: int = 0):
     return build_allreduce(mesh, root)
 
 
+def _require_3d_payload(op_name: str, x: torch.Tensor) -> None:
+    """A ``[B, S, H]`` slab for the collective-matmul ops: a flat 1D payload
+    fails with a pointer at bench3d."""
+    if x.dim() != 3:
+        raise ValueError(
+            f"{op_name} needs an LLM-shaped (B, S, H) payload — run it "
+            "through the 3D sweep (bench3d / Sweep3D), not the flat 1D one"
+        )
+
+
+def _synth_weight(rows: int, cols: int, dtype, device, row_offset: int = 0,
+                  col_offset: int = 0) -> torch.Tensor:
+    """The JAX package's deterministic dense weight: ``cos(0.37 i + 0.11 j)
+    / sqrt(rows)`` in fp32 at global row i and column j, cast to ``dtype``.
+    The offsets select a shard of one global matrix, so every rank's shard
+    agrees with it and the schedules are comparable bit for bit.  torch's
+    fp32 cos and XLA's round differently: the fp32 values agree with JAX's
+    within two ulps, the bf16 ones equal them on the shapes the tests draw."""
+    i = torch.arange(rows, dtype=torch.float32, device=device)[:, None] + row_offset
+    j = torch.arange(cols, dtype=torch.float32, device=device)[None, :] + col_offset
+    return (torch.cos(i * 0.37 + j * 0.11) / np.sqrt(rows)).to(dtype)
+
+
+# the collective-matmul micro-ops: the runner's variant dispatch and its
+# memory estimate key off this tuple
+MATMUL_OPS = ("ag_matmul", "matmul_rs")
+
+_MICRO_SCHEDULES = ("fused", "ring", "bidir")
+
+
+def _check_micro_schedule(schedule: str) -> None:
+    if schedule not in _MICRO_SCHEDULES:
+        raise ValueError(
+            f"unknown collective-matmul schedule {schedule!r}; known: "
+            f"{_MICRO_SCHEDULES}"
+        )
+
+
+def _weight_cache(make):
+    """A ``prepare`` that makes the op's weight shard once per (shape,
+    dtype, device) of the payload and hands it to ``call``."""
+    cache: dict[tuple, torch.Tensor] = {}
+
+    def prepare(x):
+        key = (tuple(x.shape), x.dtype, x.device)
+        if key not in cache:
+            cache[key] = make(x)
+        return cache[key]
+
+    return prepare
+
+
+def build_ag_matmul(mesh: Mesh, root: int = 0, schedule: str = "fused"):
+    """All-gather + matmul (the column-parallel projection alone).  Payload:
+    this rank's sequence chunk ``[B, S, H]``; each rank multiplies the
+    gathered ``[B, P*S, H]`` sequence by its column shard of a ``[H, H]``
+    weight, giving ``[B, P*S, H/P]`` (the input's bytes per rank).
+    ``schedule``: "fused", one all-gather then the product; "ring"/"bidir",
+    the decomposed overlapped schedule."""
+    _single_axis(mesh, "ag_matmul")
+    _check_micro_schedule(schedule)
+    p = mesh_num_ranks(mesh)
+    ring = None if schedule == "fused" else Ring(mesh.group)
+
+    def make(x):
+        _require_3d_payload("ag_matmul", x)
+        h = x.shape[2]
+        if h % p != 0:
+            raise ValueError(f"ag_matmul: hidden dim {h} not divisible by {p} ranks")
+        hp = h // p
+        return _synth_weight(h, hp, x.dtype, x.device, col_offset=mesh.rank * hp)
+
+    def call(x, w):
+        if ring is not None:
+            return _ag_matmul_body(x, w, ring, schedule == "bidir")
+        b, s, h = x.shape
+        g = torch.empty((p * b, s, h), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(g, x, group=mesh.group)  # [P, B, S, H]
+        return g.view(p, b, s, h).transpose(0, 1).reshape(b, p * s, h) @ w
+
+    return Collective(call, _weight_cache(make))
+
+
+def build_matmul_rs(mesh: Mesh, root: int = 0, schedule: str = "fused"):
+    """Matmul + reduce-scatter (the row-parallel projection alone).
+    Payload: this rank's feature shard ``[B, S, H]`` of a ``[B, S, P*H]``
+    activation; each rank multiplies by its row shard of a ``[P*H, H]``
+    weight and the partial products are reduce-scattered over the sequence
+    to ``[B, S/P, H]``.  ``schedule``: "fused", the product then one
+    reduce-scatter; "ring"/"bidir", the decomposed overlapped schedule."""
+    _single_axis(mesh, "matmul_rs")
+    _check_micro_schedule(schedule)
+    p = mesh_num_ranks(mesh)
+    ring = None if schedule == "fused" else Ring(mesh.group)
+
+    def make(x):
+        _require_3d_payload("matmul_rs", x)
+        s, h = x.shape[1], x.shape[2]
+        if s % p != 0:
+            raise ValueError(f"matmul_rs: sequence {s} not divisible by {p} ranks")
+        return _synth_weight(h, h, x.dtype, x.device, row_offset=mesh.rank * h)
+
+    def call(x, w):
+        if ring is not None:
+            return _matmul_rs_body(x, w, ring, schedule == "bidir")
+        return reduce_scatter_along(x @ w, 1, mesh.group)
+
+    return Collective(call, _weight_cache(make))
+
+
 OPERATIONS: dict[str, CollectiveOp] = {
     op.name: op for op in (
         CollectiveOp("allreduce", "per_rank", "per_rank", build_allreduce),
@@ -271,16 +395,17 @@ OPERATIONS: dict[str, CollectiveOp] = {
                      build_reducescatter),
         CollectiveOp("allreduce_hierarchical", "per_rank", "per_rank",
                      build_allreduce_hierarchical),
+        CollectiveOp("ag_matmul", "per_rank", "per_rank", build_ag_matmul,
+                     transient_kind="per_peer"),
+        CollectiveOp("matmul_rs", "per_rank", "per_rank", build_matmul_rs,
+                     transient_kind="per_rank"),
     )
 }
 
 NOT_PORTED: dict[str, str] = {
-    **{name: "the collective-matmul micro-ops come with "
-             "parallel/collective_matmul.py (ROADMAP Queue 1, Slice D, item 10)"
-       for name in ("ag_matmul", "matmul_rs")},
-    **{name: "the quantised-wire collectives come with comm/compression.py "
-             "(ROADMAP Queue 1, Slice C, item 8)"
-       for name in ("allreduce_q", "reducescatter_q")},
+    name: "the quantised-wire collectives come with comm/compression.py "
+          "(ROADMAP Queue 1, Slice C remainder, item 7)"
+    for name in ("allreduce_q", "reducescatter_q")
 }
 
 
@@ -386,4 +511,20 @@ def plain_collective(name: str, global_array: torch.Tensor, root: int = 0,
         return torch.roll(g, 1, dims=0)
     if name == "reducescatter":
         return g.sum(0).unsqueeze(1)
+    if name == "ag_matmul":  # [P, B, S, H] -> [P, B, P*S, H/P]
+        _, b, s, h = g.shape
+        hp = h // p
+        w = _synth_weight(h, h, g.dtype, g.device)
+        gathered = g.transpose(0, 1).reshape(b, p * s, h)
+        return torch.stack([gathered @ w[:, r * hp:(r + 1) * hp] for r in range(p)])
+    if name == "matmul_rs":  # [P, B, S, H] -> [P, B, S/P, H]
+        h = g.shape[3]
+
+        def partial(r):
+            return g[r] @ _synth_weight(h, h, g.dtype, g.device, row_offset=r * h)
+
+        total = partial(0)
+        for r in range(1, p):
+            total = total + partial(r)
+        return torch.stack(total.chunk(p, dim=1))
     raise KeyError(f"no plain version of collective {name!r}")

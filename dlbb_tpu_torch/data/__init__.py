@@ -2,7 +2,8 @@
 
 from dlbb_tpu_torch.data.synthetic import (
     SyntheticEmbeddingDataset,
+    batch_slice,
     create_dataset_from_config,
 )
 
-__all__ = ["SyntheticEmbeddingDataset", "create_dataset_from_config"]
+__all__ = ["SyntheticEmbeddingDataset", "batch_slice", "create_dataset_from_config"]

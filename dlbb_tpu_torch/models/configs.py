@@ -2,11 +2,12 @@
 
 The dataclass keeps every field of the JAX ``ModelConfig`` and the same
 validation, so one config dict is accepted by both packages.  The dense
-forward (single device and tensor parallel) and its training (DDP, ZeRO
-and tensor parallel) are ported, remat included: fields that select MoE or ``tp_overlap``
-are accepted and validated here, and rejected by the model code that does
-not run them yet.  The parallelism validators are the JAX package's, with
-its messages; ``validate_tp_shards`` is the port's own.
+forward and its training are ported on one device and on (dp, sp, tp)
+meshes, remat, ``tp_overlap`` and ring/Ulysses attention included: fields
+that select MoE are accepted and validated here, and rejected by the model
+code that does not run them yet.  The parallelism validators are the JAX
+package's, with its messages; ``validate_tp_shards`` and
+``validate_sp_heads`` are the port's own.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ class ModelConfig:
     # "dense" — exact attention, ``dense_attention`` always;
     # "simplified" — the reference's shortcut (query third of the QKV
     #   projection is the attention output); "flash" — force the kernel;
-    # "ring" | "ulysses" — sequence-parallel, not ported yet.
+    # "ring" | "ulysses" — sequence-parallel over the mesh's sp axis.
     attention: str = "full"
     dtype: str = "bfloat16"
     # Grouped-query attention: K/V heads (None = num_heads, 1 = MQA).
@@ -226,3 +227,21 @@ def validate_tp_shards(config: ModelConfig, tp: int) -> None:
                 f"tensor-parallel degree {tp} (parallelism.world_size): the "
                 "port shards it evenly over tp"
             )
+
+
+def validate_sp_heads(config: ModelConfig, tp: int, sp: int) -> None:
+    """Refuse Ulysses where sp does not divide each tp rank's heads.  The
+    port all-to-alls a rank's own ``num_heads/tp`` heads over sp
+    (``parallel/ulysses.py``); JAX's GSPMD gathers the heads over tp first
+    and needs only ``num_heads % sp == 0``."""
+    if config.attention != "ulysses" or sp <= 1:
+        return
+    heads = config.num_heads // tp
+    if heads % sp != 0:
+        raise ValueError(
+            f"attention='ulysses' needs each tensor-parallel rank's "
+            f"num_heads/tp = {heads} heads divisible by "
+            f"sequence_parallel={sp}: the port all-to-alls the rank's own "
+            "heads over sp; use attention='ring', or a tp that leaves sp "
+            "a divisor of the heads per rank"
+        )

@@ -165,6 +165,17 @@ def unshard_params(shards: list[dict[str, Any]], config: ModelConfig) -> dict[st
     return {"layers": layers, "ln_f": dict(ref["ln_f"])}
 
 
+def batch_spec(mesh) -> dict[str, int]:
+    """This rank's part of the global batch on ``mesh`` (None: one device),
+    as ``data.batch_slice``'s arguments: its dp rows and its sp slice of the
+    sequence (JAX's ``batch_spec``, ``P(dp, sp, None)``)."""
+    if mesh is None:
+        return {"dp_rank": 0, "dp": 1, "sp_rank": 0, "sp": 1}
+    c, shape = mesh.coords, mesh.shape
+    return {"dp_rank": c["dp"], "dp": shape["dp"], "sp_rank": c.get("sp", 0),
+            "sp": shape.get("sp", 1)}
+
+
 def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     """A new tensor: the sum of ``t`` over the ranks of ``group``."""
     out = t.clone(memory_format=torch.contiguous_format)

@@ -36,13 +36,33 @@ block, ``"dots"`` saves the outputs of the matrix products (``aten.mm``,
 forward is recomputed in the backward, as in JAX, where a ``pallas_call``
 output is not a dot.  Without gradients (the e2e path) the blocks run as
 they are.
+
+``config.tp_overlap`` ("ring" or "bidir", on a mesh whose tp is above 1)
+routes the four tensor-parallel projections of each block through the
+ring-decomposed collective matmuls (``parallel/collective_matmul.py``): the
+residual stream is sequence-sharded over tp, ``forward`` takes this rank's
+chunk of the sequence at entry (``seq_chunk``) and returns its chunk of the
+output, each column-parallel projection gathers the sequence behind
+partial products (``allgather_matmul``, its bias added to the gathered
+output) and each row-parallel one reduce-scatters it back
+(``matmul_reducescatter``, its bias added to the chunk).  The LayerNorms and
+the row-parallel biases then act on each rank's own chunk, so their
+gradients are partial sums over tp (``train/loop.py`` sums them).
+
+With an ``sp`` axis (``attention`` "ring" or "ulysses") ``x`` is the rank's
+sp slice of the sequence and attention runs over the mesh's sp group
+(``parallel/ring_attention.py``, ``parallel/ulysses.py``) on the rank's tp
+heads.  With sp above 1 "flash" raises JAX's message, and "full" and
+"dense" raise the plan's (``configs.validate_attention_parallelism``): on
+the rank's slice they would attend within it only, where GSPMD gathers the
+sequence.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Any
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
@@ -53,7 +73,7 @@ from torch.utils.checkpoint import (
 )
 
 from dlbb_tpu_torch.models.attention import dense_attention
-from dlbb_tpu_torch.models.configs import ModelConfig
+from dlbb_tpu_torch.models.configs import ModelConfig, validate_attention_parallelism
 from dlbb_tpu_torch.models.sharding import (
     copy_to_tp,
     gather_dp,
@@ -62,21 +82,19 @@ from dlbb_tpu_torch.models.sharding import (
     shard_leaf,
 )
 from dlbb_tpu_torch.ops.flash_attention import flash_attention, kernel_accepts
+from dlbb_tpu_torch.parallel.collective_matmul import (
+    allgather_matmul,
+    matmul_reducescatter,
+    seq_chunk,
+)
+from dlbb_tpu_torch.parallel.ring import hop_transport
+from dlbb_tpu_torch.parallel.ring_attention import ring_attention
+from dlbb_tpu_torch.parallel.ulysses import ulysses_attention
 
 Params = dict[str, Any]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
-
-
-def _check_ported(config: ModelConfig) -> None:
-    _check_dense_ffn(config)
-    if config.attention in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention={config.attention!r} (sequence parallel) is not "
-            "ported to dlbb_tpu_torch yet")
-    if config.tp_overlap != "off":
-        raise NotImplementedError("tp_overlap needs a tp mesh, not ported yet")
 
 
 def init_params(config: ModelConfig, seed: int, device, tp_rank: int = 0,
@@ -90,7 +108,7 @@ def init_params(config: ModelConfig, seed: int, device, tp_rank: int = 0,
     With ``tp`` above 1, rank ``tp_rank`` draws the same full leaves, one at
     a time, and keeps its shard of each (``sharding.shard_leaf``): the same
     seed gives the same model at every tp, and the peak is one full leaf."""
-    _check_ported(config)
+    _check_dense_ffn(config)
     h, f, L = config.hidden_size, config.ffn_intermediate, config.num_layers
     dtype = DTYPES[config.dtype]
     device = torch.device(device)
@@ -151,7 +169,11 @@ def flash_route(q_shape, dtype: torch.dtype, device_type: str) -> bool:
             and q_shape[2] % 128 == 0)
 
 
-def _attention(qkv, config: ModelConfig):
+def _sp_size(mesh) -> int:
+    return 1 if mesh is None else mesh.shape.get("sp", 1)
+
+
+def _attention(qkv, config: ModelConfig, mesh=None):
     """qkv: [B, S, qkv_width] -> [B, S, H]."""
     h = config.hidden_size
     if config.attention == "simplified":
@@ -167,7 +189,32 @@ def _attention(qkv, config: ModelConfig):
     q = heads(qkv[:, :, :h], n)
     k = heads(qkv[:, :, h:h + kvh * d], kvh)
     v = heads(qkv[:, :, h + kvh * d:], kvh)
-    if config.attention == "flash" or (
+    sp = _sp_size(mesh)
+    if config.attention in ("ring", "ulysses"):
+        # sequence-parallel attention over the mesh's sp group, on this
+        # rank's tp heads (parallel/ring_attention.py's docstring)
+        if mesh is None or "sp" not in mesh.axis_names:
+            raise ValueError(
+                f"attention={config.attention!r} needs a mesh with a 'sp' "
+                "axis passed to forward()"
+            )
+        if config.attention == "ring":
+            o = ring_attention(q, k, v, mesh, causal=config.causal)
+        else:
+            if kvh != n and kvh % sp != 0:
+                # Ulysses all-to-alls the head dim over sp; kv heads that
+                # sp does not divide cannot stay grouped (JAX's fallback)
+                k = k.repeat_interleave(n // kvh, dim=1)
+                v = v.repeat_interleave(n // kvh, dim=1)
+            o = ulysses_attention(q, k, v, mesh, causal=config.causal)
+    elif sp > 1:
+        if config.attention == "flash":
+            raise ValueError(
+                "attention='flash' does not partition the sequence; use "
+                "attention='ring' or 'ulysses' when sequence_parallel > 1"
+            )
+        validate_attention_parallelism(config, sp)
+    elif config.attention == "flash" or (
             config.attention == "full"
             and flash_route(q.shape, q.dtype, q.device.type)):
         # the kernel takes contiguous [B, N, S, D]
@@ -178,19 +225,59 @@ def _attention(qkv, config: ModelConfig):
     return o.transpose(1, 2).reshape(b, s, n * d)
 
 
-def _row(y, p: Params, tp_group):
-    """Row-parallel product: this rank's partial sums over its input
-    features, summed over the tp group, then the bias, once."""
-    out = y @ p["kernel"]
-    if tp_group is not None:
-        out = reduce_from_tp(out, tp_group)
-    return out + p["bias"]
+def use_tp_overlap(config: ModelConfig, mesh) -> bool:
+    """Whether this (config, mesh) pair routes the tensor-parallel
+    projections through the ring-decomposed collective matmuls.  The knob is
+    inert without a tp axis above 1, so one device and tp=1 keep the
+    ordinary path bit for bit."""
+    return (config.tp_overlap != "off" and mesh is not None
+            and "tp" in mesh.axis_names and mesh.shape["tp"] > 1)
 
 
-def _column_input(y, tp_group):
-    """The input of a column-parallel product: the same on every tp rank,
-    so its gradient is the sum of the ranks' (``copy_to_tp``)."""
-    return y if tp_group is None else copy_to_tp(y, tp_group)
+def ring_transport(config: ModelConfig, mesh, device) -> Optional[str]:
+    """How the ring hops of a forward on ``device`` move
+    (``parallel/ring.py::hop_transport``, over the tp group under
+    ``tp_overlap`` and the sp group under ring attention), None where it
+    makes none."""
+    if use_tp_overlap(config, mesh):
+        return hop_transport(mesh.axis_groups["tp"], device)
+    if config.attention == "ring" and _sp_size(mesh) > 1:
+        return hop_transport(mesh.axis_groups["sp"], device)
+    return None
+
+
+def _projections(config: ModelConfig, mesh):
+    """``(col, row)``: the column- and row-parallel products ``f(y, p)`` of
+    a block, ``p`` holding the kernel and bias.
+
+    - tp_overlap: ``allgather_matmul`` / ``matmul_reducescatter``;
+    - a mesh: the column input is the same on every tp rank, so its
+      gradient is summed over tp (``copy_to_tp``); the row product's partial
+      sums are summed over tp (``reduce_from_tp``), then the bias, once;
+    - one device: ``y @ kernel + bias``."""
+    if use_tp_overlap(config, mesh):
+        sched = config.tp_overlap
+
+        def col(y, p):
+            return allgather_matmul(y, p["kernel"], mesh, schedule=sched) + p["bias"]
+
+        def row(y, p):
+            return matmul_reducescatter(y, p["kernel"], mesh, schedule=sched) + p["bias"]
+    elif mesh is not None:
+        group = mesh.axis_groups["tp"]
+
+        def col(y, p):
+            return copy_to_tp(y, group) @ p["kernel"] + p["bias"]
+
+        def row(y, p):
+            return reduce_from_tp(y @ p["kernel"], group) + p["bias"]
+    else:
+        def col(y, p):
+            return y @ p["kernel"] + p["bias"]
+
+        def row(y, p):
+            return y @ p["kernel"] + p["bias"]
+    return col, row
 
 
 def _gather_layer(layer: Params, fsdp) -> Params:
@@ -204,23 +291,22 @@ def _gather_layer(layer: Params, fsdp) -> Params:
             for name, sub in layer.items()}
 
 
-def _block(x, layer: Params, config: ModelConfig, tp_group=None, fsdp=None):
+def _block(x, layer: Params, config: ModelConfig, mesh=None, fsdp=None):
     if fsdp is not None:
         layer = _gather_layer(layer, fsdp)
+    col, row = _projections(config, mesh)
     residual = x
     y = _layernorm(x, layer["ln1"]["scale"], layer["ln1"]["bias"])
-    y = _column_input(y, tp_group)
-    qkv = y @ layer["qkv"]["kernel"] + layer["qkv"]["bias"]
-    attn = _attention(qkv, config)
-    x = _row(attn, layer["out"], tp_group) + residual
+    qkv = col(y, layer["qkv"])
+    attn = _attention(qkv, config, mesh)
+    x = row(attn, layer["out"]) + residual
 
     residual = x
     y = _layernorm(x, layer["ln2"]["scale"], layer["ln2"]["bias"])
-    y = _column_input(y, tp_group)
-    y = y @ layer["ffn_up"]["kernel"] + layer["ffn_up"]["bias"]
+    y = col(y, layer["ffn_up"])
     # jax.nn.gelu defaults to approximate=True: the tanh form, not erf
     y = F.gelu(y, approximate="tanh")
-    return _row(y, layer["ffn_down"], tp_group) + residual
+    return row(y, layer["ffn_down"]) + residual
 
 
 # the matrix products that remat_policy="dots" keeps
@@ -233,29 +319,32 @@ def _dots_saveable(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat_block(x, layer: Params, config: ModelConfig, tp_group=None, fsdp=None):
+def _remat_block(x, layer: Params, config: ModelConfig, mesh=None, fsdp=None):
     if config.remat_policy == "dots":
         context_fn = functools.partial(create_selective_checkpoint_contexts,
                                        _dots_saveable)
-        return checkpoint(_block, x, layer, config, tp_group, fsdp,
+        return checkpoint(_block, x, layer, config, mesh, fsdp,
                           use_reentrant=False, context_fn=context_fn)
-    return checkpoint(_block, x, layer, config, tp_group, fsdp, use_reentrant=False)
+    return checkpoint(_block, x, layer, config, mesh, fsdp, use_reentrant=False)
 
 
 def forward(params: Params, x: torch.Tensor, config: ModelConfig,
             mesh=None, dp_axes=None) -> torch.Tensor:
     """Full forward pass: the layers in order, then the final LN.
 
-    ``mesh`` (a ``comm.Mesh`` with ``dp`` and ``tp`` axes,
+    ``mesh`` (a ``comm.Mesh`` with ``dp``, ``tp`` and maybe ``sp`` axes,
     ``ParallelismPlan.mesh``) runs the tensor-parallel forward over its tp
-    group: ``params`` are this rank's shards and ``x`` its dp slice of the
-    batch, ``config`` the full model's.  ``dp_axes`` (ZeRO-3, with a mesh)
-    is the tree of each leaf's dp axis, None where a leaf is whole
+    group: ``params`` are this rank's shards and ``x`` its dp rows and sp
+    slice of the sequence (``sharding.batch_spec``), ``config`` the full
+    model's.  With ``tp_overlap`` the output is this rank's chunk of the
+    sequence (``collective_matmul.seq_chunk``).  ``dp_axes`` (ZeRO-3, with
+    a mesh) is the tree of each leaf's dp axis, None where a leaf is whole
     (module docstring)."""
-    _check_ported(config)
-    tp_group = fsdp = None
+    _check_dense_ffn(config)
+    fsdp = None
     if mesh is not None:
-        tp_group = mesh.axis_groups["tp"]
+        if use_tp_overlap(config, mesh):
+            x = seq_chunk(x, mesh)
         config = local_config(config, mesh.shape["tp"])
     stacked = params["layers"]
     ln_f = params["ln_f"]
@@ -274,7 +363,7 @@ def forward(params: Params, x: torch.Tensor, config: ModelConfig,
                 for p, t in ln_f.items()}
     block = functools.partial(
         _remat_block if config.remat and torch.is_grad_enabled() else _block,
-        tp_group=tp_group, fsdp=fsdp)
+        mesh=mesh, fsdp=fsdp)
     # one unbind per stacked parameter: its gradient is one stack of the
     # layers' gradients (indexing t[i] instead would add a zero-filled
     # full-size [L, ...] gradient per layer)

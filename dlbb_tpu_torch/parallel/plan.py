@@ -5,11 +5,10 @@ One place that parses the YAML ``parallelism:`` section, runs every
 validation of the JAX plan with its messages (the device preflight, the
 reference's ``run_mpi.py:73-77``; attention/sp, MoE/ep, ``tp_overlap``;
 ``num_microbatches`` without a pipeline), refuses what the port does not
-run yet, and builds the process-group mesh.  The devices are the ranks of
-the default process group, one device per rank; without a process group
-there is one.  The JAX plan's ``num_microbatches`` and ``tp_overlap``
-fields wait for the pipeline and the collective matmul, which
-``check_plan`` refuses.
+run yet (pp and ep), and builds the process-group mesh, (dp, sp, tp) with
+an sp axis when sp is above 1.  The devices are the ranks of the default
+process group, one device per rank; without a process group there is one.
+The JAX plan's ``num_microbatches`` field waits for the pipeline.
 """
 
 from __future__ import annotations
@@ -24,21 +23,17 @@ from dlbb_tpu_torch.models.configs import (
     ModelConfig,
     validate_attention_parallelism,
     validate_expert_parallelism,
+    validate_sp_heads,
     validate_tp_overlap,
     validate_tp_shards,
 )
 
-# what brings each refused axis or knob (ROADMAP Queue 1, Slice D)
+# what brings each refused axis (ROADMAP Queue 1, Slice D)
 _NOT_PORTED = {
-    "sp": "sequence parallelism comes with parallel/ring_attention.py and "
-          "parallel/ulysses.py (ROADMAP Queue 1, Slice D, item 4)",
     "pp": "pipeline parallelism comes with parallel/pipeline.py (ROADMAP "
           "Queue 1, Slice D, item 5)",
     "ep": "expert parallelism comes with the MoE FFN (ROADMAP Queue 1, "
           "Slice D, item 6)",
-    "tp_overlap": "the collective-matmul schedule comes with "
-                  "parallel/collective_matmul.py (ROADMAP Queue 1, Slice D, "
-                  "item 3)",
 }
 
 
@@ -78,14 +73,10 @@ def check_plan(config: dict[str, Any], model_cfg: ModelConfig,
             "pipeline_parallel > 1 (microbatching is the pipeline's "
             "schedule; without pp it would silently be ignored)"
         )
-    for axis, size in (("sp", sp), ("ep", ep)):
-        if size > 1:
-            raise NotImplementedError(f"{axis}={size}: {_NOT_PORTED[axis]}")
-    if model_cfg.tp_overlap != "off":
-        raise NotImplementedError(
-            f"model.tp_overlap={model_cfg.tp_overlap!r}: "
-            f"{_NOT_PORTED['tp_overlap']}")
+    if ep > 1:
+        raise NotImplementedError(f"ep={ep}: {_NOT_PORTED['ep']}")
     validate_tp_shards(model_cfg, tp)
+    validate_sp_heads(model_cfg, tp, sp)
     if n_avail > needed:
         raise ValueError(
             f"{n_avail} ranks in the process group, the config's mesh has "

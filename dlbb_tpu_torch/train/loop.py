@@ -13,12 +13,22 @@ stage as a sharding under GSPMD; the port runs the collectives of each
 stage itself over the mesh's dp group, in ``train/zero.py``, where the
 layout and the stages are described.
 
-With a mesh (``ParallelismPlan.mesh``, a (dp, tp) grid of process groups)
-each rank holds its tp shards (``models/sharding.py``) and its dp slice of
-the batch.  Gradient accumulation splits the rank's dp slice into
-``grad_accum`` micro-batches and accumulates their gradients in fp32; the
-result is their mean, cast to the param dtype (``dlbb_tpu/train/loop.py:
-405-436``).  Stages 0 and 1 reduce the accumulated gradient once; stage 2
+With a mesh (``ParallelismPlan.mesh``, a (dp[, sp], tp) grid of process
+groups) each rank holds its tp shards (``models/sharding.py``) and its dp
+rows and sp slice of the sequence (``sharding.batch_spec``).  The loss is
+JAX's MSE over the whole batch: where the sequence is cut over sp, and over
+tp under ``tp_overlap`` (whose forward returns the rank's chunk, against
+the same chunk of the targets), each rank backpropagates its chunk's mean
+over the ``seq_shards`` equal chunks of its dp rows, the ranks' losses are
+summed over those axes, and so are the gradients (``_reduce_seq_shards``):
+every parameter is replicated over sp, and under ``tp_overlap`` the
+LayerNorms and row-parallel biases act on each tp rank's own chunk.  The
+sum happens once, before ``Zero`` reduces over dp; the tp-sharded leaves'
+gradients are whole on their rank already (the collective matmuls'
+backward rings carry the other chunks' parts).  Gradient accumulation
+splits the rank's dp slice into ``grad_accum`` micro-batches and
+accumulates their gradients in fp32; the result is their mean, cast to the
+param dtype (``dlbb_tpu/train/loop.py:405-436``).  Stages 0 and 1 reduce the accumulated gradient once; stage 2
 reduce-scatters each micro-step's gradient and accumulates the shard; at
 stage 3 each micro-step's gradient arrives reduce-scattered.  Where a rank
 holds copies of kv columns (GQA with tp not dividing ``kv_heads``), each
@@ -26,22 +36,24 @@ copy's gradient becomes the full gradient of its source column
 (``sharding.sum_kv_copies``).
 
 ``run_train`` is the config-driven benchmark: the plan and mesh from the
-config (sp, pp and ep are refused by ``check_plan``), the sharded init and
-the dp slice of the batch and targets, warmup, timed steps, checkpoint and
-resume (``train/checkpoint.py``) and graceful preemption
+config (pp and ep are refused by ``check_plan``), the sharded init and
+the rank's slice of the batch and targets, warmup, timed steps, checkpoint
+and resume (``train/checkpoint.py``) and graceful preemption
 (``resilience/preempt.py``), in the JAX harness's result schema with
 ``backend: "torch_cuda"`` and the flash kernels' launches per step.  At
 world 1 without a process group each step is timed by a CUDA event pair;
 inside a process group each timed step runs between world barriers and
 takes the slowest rank's time (``time_fn_per_iter_spmd``), as
-``bench/e2e.py`` does.  Gradient compression, the MoE aux loss and the
-pipeline schedule wait for their ROADMAP items and are refused, never
-ignored.  The JAX package's chained timing regime exists for a remotely
-attached TPU and is not ported.
+``bench/e2e.py`` does.  The result's ``transport`` says how the ring hops
+moved (``transformer.ring_transport``), None where none ran.  Gradient
+compression, the MoE aux loss and the pipeline schedule wait for their
+ROADMAP items and are refused, never ignored.  The JAX package's chained
+timing regime exists for a remotely attached TPU and is not ported.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import signal
 import time
@@ -54,15 +66,24 @@ import torch.distributed as dist
 
 from dlbb_tpu_torch.data.synthetic import create_dataset_from_config
 from dlbb_tpu_torch.models.configs import ModelConfig
-from dlbb_tpu_torch.models.sharding import kv_copy_sources, sum_kv_copies
+from dlbb_tpu_torch.models.sharding import (
+    all_reduce_sum,
+    batch_spec,
+    kv_copy_sources,
+    sum_kv_copies,
+    tp_dim,
+)
 from dlbb_tpu_torch.models.transformer import (
     DTYPES,
     forward,
     forward_flops,
     init_params,
     num_parameters,
+    ring_transport,
+    use_tp_overlap,
 )
 from dlbb_tpu_torch.ops import flash_attention as flash_mod
+from dlbb_tpu_torch.parallel.collective_matmul import seq_chunk
 from dlbb_tpu_torch.parallel.plan import ParallelismPlan
 from dlbb_tpu_torch.resilience import PreemptionGuard, inject
 from dlbb_tpu_torch.train.optim import (
@@ -99,9 +120,37 @@ class TrainState(NamedTuple):
 def mse_loss(params, batch, targets, config: ModelConfig, mesh=None,
              dp_axes=None) -> torch.Tensor:
     """MSE of the forward against the target batch, in fp32: on a mesh,
-    this rank's dp slice (``forward``'s ``mesh`` and ``dp_axes``)."""
+    over this rank's slice (``forward``'s ``mesh`` and ``dp_axes``), under
+    ``tp_overlap`` its chunk of the sequence."""
     pred = forward(params, batch, config, mesh=mesh, dp_axes=dp_axes)
+    if use_tp_overlap(config, mesh):
+        targets = seq_chunk(targets, mesh)
     return torch.mean((pred.float() - targets.float()) ** 2)
+
+
+def _seq_shard_axes(config: ModelConfig, mesh) -> tuple[str, ...]:
+    """The mesh axes that cut each dp slice's sequence into chunks of the
+    loss: sp, and tp under ``tp_overlap``."""
+    if mesh is None:
+        return ()
+    return tuple(a for a, on in (("sp", mesh.shape.get("sp", 1) > 1),
+                                 ("tp", use_tp_overlap(config, mesh))) if on)
+
+
+def _reduce_seq_shards(loss, grads, axes, mesh):
+    """The sums over ``axes`` (``_seq_shard_axes``) of this rank's loss and
+    gradients: every leaf over sp, the leaves replicated over tp (LayerNorms,
+    row-parallel biases, ``ln_f``) over tp."""
+    for axis in axes:
+        group = mesh.axis_groups[axis]
+        loss = all_reduce_sum(loss, group)
+        layers = {name: {leaf: (all_reduce_sum(g, group)
+                                if axis == "sp" or tp_dim(name, leaf) is None else g)
+                         for leaf, g in sub.items()}
+                  for name, sub in grads["layers"].items()}
+        grads = {"layers": layers,
+                 "ln_f": {leaf: all_reduce_sum(g, group) for leaf, g in grads["ln_f"].items()}}
+    return loss, grads
 
 
 def resolve_zero_stage(zero1: bool = False,
@@ -159,12 +208,20 @@ def make_train_step(config: ModelConfig, optimizer: GradientTransformation,
     tp = 1 if mesh is None else mesh.shape["tp"]
     tp_rank = 0 if mesh is None else mesh.coords["tp"]
     kv_copies = kv_copy_sources(config, tp_rank, tp) is not None
+    seq_axes = _seq_shard_axes(config, mesh)
+    seq_shards = math.prod(mesh.shape[a] for a in seq_axes)
 
     def loss_and_grads(params, batch, targets):
         leaves = tree_leaves(params)
         loss = mse_loss(params, batch, targets, config, mesh=mesh, dp_axes=dp_axes)
+        if seq_shards > 1:  # this chunk's share of the dp slice's mean
+            loss = loss / seq_shards
         grads = iter(torch.autograd.grad(loss, leaves))
-        return loss.detach(), tree_map(lambda _: next(grads), params)
+        grads = tree_map(lambda _: next(grads), params)
+        loss = loss.detach()
+        if seq_axes:
+            loss, grads = _reduce_seq_shards(loss, grads, seq_axes, mesh)
+        return loss, grads
 
     def accumulate(params, batch, targets):
         b = batch.shape[0]
@@ -275,21 +332,21 @@ def _run_train(config, zero1, zero_stage, device, output_dir, verbose):
     model_cfg = ModelConfig.from_dict(config["model"])
     plan = ParallelismPlan.from_config(config, model_cfg)
     mesh = plan.mesh
-    coords = mesh.coords if mesh is not None else {"dp": 0, "tp": 0}
+    tp_rank = mesh.coords["tp"] if mesh is not None else 0
     lead = mesh is None or dist.get_rank() == 0
     grad_accum = int(train_cfg.get("gradient_accumulation", 1))
     check_accumulation(inp["batch_size"], grad_accum, plan.dp)
     dtype = DTYPES[model_cfg.dtype]
     batch, targets = (create_dataset_from_config(
         config, dtype=dtype, device=device, hidden_size=model_cfg.hidden_size,
-        seed_offset=offset, dp_rank=coords["dp"], dp=plan.dp).get_batch()
+        seed_offset=offset, **batch_spec(mesh)).get_batch()
         for offset in (0, 1))
 
     lr = learning_rate(train_cfg)
     optimizer = build_optimizer(train_cfg)
     opt_name, sched_name = resolve_names(train_cfg)
     params = init_params(model_cfg, inp.get("seed", 42), device,
-                         tp_rank=coords["tp"], tp=plan.tp)
+                         tp_rank=tp_rank, tp=plan.tp)
     step_fn, state = make_train_step(model_cfg, optimizer, params, mesh=mesh,
                                      zero_stage=stage, grad_accum=grad_accum)
     del params
@@ -444,6 +501,7 @@ def _run_train(config, zero1, zero_stage, device, output_dir, verbose):
         "remat": model_cfg.remat,
         "remat_policy": model_cfg.remat_policy if model_cfg.remat else None,
         "tp_overlap": model_cfg.tp_overlap,
+        "transport": ring_transport(model_cfg, mesh, device),
         "compiler_options": None,
         "compile_time_s": compile_time,
         "step_time": summarize(step_times),

@@ -135,7 +135,8 @@ def test_preemption_returns_the_jax_result_and_resumes(tmp_path, monkeypatch, de
     """``DLBB_FAULT_PLAN`` drives the ``preempt`` site: @3 stops after two
     timed steps (a result with ``preempted`` set), @1 before any (the
     resume point only, no benchmark).  The keys are JAX's (the port's
-    result adds its device, launch counts and the per-rank means); the next
+    result adds its device, launch counts, the per-rank means and the ring
+    hops' transport); the next
     run resumes from the forced final save."""
     ref = _jax_preempted(tmp_path, plan, devices)
     config = _config(iters=4)
@@ -144,7 +145,7 @@ def test_preemption_returns_the_jax_result_and_resumes(tmp_path, monkeypatch, de
     got = pt_loop.run_train(config, device="cpu", verbose=False)
     assert inject.active() is None
     extra = {"device", "kernel_launches_per_step", "per_host_means_s",
-             "cross_host_variance", "cross_host_cv"}
+             "cross_host_variance", "cross_host_cv", "transport"}
     assert set(got) - extra == set(ref)
     for key in ("preempted", "preempted_at_step", "final_step", "resumed_from_step", "mode"):
         assert got[key] == ref[key], key

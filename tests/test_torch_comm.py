@@ -21,6 +21,9 @@ Rooted ops run at roots 0 and P - 1; gather and reduce must leave exact
 zeros off the root.  Payloads match JAX's bit for bit.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,6 +45,7 @@ from dlbb_tpu_torch.comm import Mesh, MeshSpec, get_op, make_payload, plain_coll
 from dlbb_tpu_torch.comm import ops as port_ops
 from dlbb_tpu_torch.comm import variants as port_variants
 
+ROADMAP = Path(__file__).resolve().parents[1] / "ROADMAP.md"
 N = 64
 SHAPE_3D = (2, 3, 8)
 RING4 = ((4,), ("ranks",))
@@ -191,14 +195,26 @@ def test_registry_mirrors_jax():
     assert set(port_ops.OPERATIONS) | set(port_ops.NOT_PORTED) == set(JAX_OPERATIONS)
     assert not set(port_ops.OPERATIONS) & set(port_ops.NOT_PORTED)
     for name, op in port_ops.OPERATIONS.items():
-        assert (op.input_kind, op.output_kind) == (
-            JAX_OPERATIONS[name].input_kind, JAX_OPERATIONS[name].output_kind)
+        ref = JAX_OPERATIONS[name]
+        assert (op.input_kind, op.output_kind, op.transient_kind) == (
+            ref.input_kind, ref.output_kind, ref.transient_kind)
+
+
+def _names_a_roadmap_item(message: str) -> None:
+    """The refusal names ``Slice X[ remainder], item N`` and ROADMAP.md's
+    Queue 1 has that slice's heading and a numbered item N."""
+    m = re.search(r"ROADMAP Queue 1, (Slice [A-F](?: remainder)?), item (\d+)", message)
+    assert m, message
+    queue1 = ROADMAP.read_text().split("### Queue 1", 1)[1].split("### Queue 2", 1)[0]
+    assert f"**{m.group(1)}" in queue1, m.group(1)
+    assert re.search(rf"^{m.group(2)}\. \*\*", queue1, re.M), f"item {m.group(2)}"
 
 
 @pytest.mark.parametrize("name", sorted(port_ops.NOT_PORTED))
 def test_unported_op_raises(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP") as e:
         get_op(name)
+    _names_a_roadmap_item(str(e.value))
 
 
 def test_unknown_op_raises():
@@ -211,6 +227,7 @@ def test_variant_mesh_matches_jax(name):
     port, ref = port_variants.VARIANTS[name], JAX_VARIANTS[name]
     p = int(np.prod(ref.mesh_shape)) if ref.mesh_shape else 4
     assert port.hierarchical == ref.hierarchical
+    assert port.overlap_schedule == ref.overlap_schedule
     assert (port.mesh_spec(p).shape, port.mesh_spec(p).axis_names) == (
         ref.mesh_spec(p).shape, ref.mesh_spec(p).axis_names)
 
@@ -218,8 +235,9 @@ def test_variant_mesh_matches_jax(name):
 @pytest.mark.parametrize("name", sorted(port_variants.NOT_PORTED))
 def test_unported_variant_raises(name):
     assert name in JAX_VARIANTS and name not in port_variants.VARIANTS
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP") as e:
         port_variants.get_variant(name)
+    _names_a_roadmap_item(str(e.value))
 
 
 @pytest.mark.parametrize("name", ["alltoall", "sendrecv", "reducescatter"])

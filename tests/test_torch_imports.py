@@ -1,5 +1,6 @@
 """The port stands alone: no file of ``dlbb_tpu_torch/``, not
-``chip_smoke.py`` and not ``scripts/torch_{e2e,comm,zero}_profile.py`` imports
+``chip_smoke.py`` and not ``scripts/torch_{e2e,comm,zero}_profile.py`` or
+``scripts/torch_gloo_p2p_probe.py`` imports
 ``jax`` or any module of ``dlbb_tpu`` (the JAX package runs nowhere on the card's
 machine).  Static AST check, one case per file, in the manner of
 ``tests/test_fleet.py``'s host-side pin."""
@@ -13,7 +14,7 @@ REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(
     [p.relative_to(REPO).as_posix() for p in (REPO / "dlbb_tpu_torch").rglob("*.py")]
     + ["chip_smoke.py", "scripts/torch_e2e_profile.py", "scripts/torch_comm_profile.py",
-       "scripts/torch_zero_profile.py"]
+       "scripts/torch_zero_profile.py", "scripts/torch_gloo_p2p_probe.py"]
 )
 
 
@@ -33,7 +34,10 @@ def test_port_has_the_expected_modules():
                 "dlbb_tpu_torch/parallel/plan.py", "dlbb_tpu_torch/models/sharding.py",
                 "dlbb_tpu_torch/train/zero.py", "dlbb_tpu_torch/train/checkpoint.py",
                 "dlbb_tpu_torch/resilience/errors.py", "dlbb_tpu_torch/resilience/inject.py",
-                "dlbb_tpu_torch/resilience/preempt.py", "chip_smoke.py"):
+                "dlbb_tpu_torch/resilience/preempt.py", "dlbb_tpu_torch/parallel/ring.py",
+                "dlbb_tpu_torch/parallel/collective_matmul.py",
+                "dlbb_tpu_torch/parallel/ring_attention.py",
+                "dlbb_tpu_torch/parallel/ulysses.py", "chip_smoke.py"):
         assert rel in PORT_FILES
 
 
@@ -51,3 +55,37 @@ def test_no_jax_and_no_dlbb_tpu_import(rel):
             arg = node.args[0] if node.args else None
             assert not (isinstance(arg, ast.Constant) and _forbidden(str(arg.value))), \
                 f"{rel}: __import__({arg.value!r})"
+
+
+_BLOCKED_IMPORT = """
+import importlib, importlib.abc, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        root = name.split(".")[0]
+        if root in ("jax", "jaxlib", "triton", "dlbb_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+importlib.import_module(sys.argv[1])
+import torch
+assert not torch.cuda.is_initialized(), "CUDA initialised at import"
+"""
+
+
+@pytest.mark.parametrize("module", [
+    "dlbb_tpu_torch.parallel.ring", "dlbb_tpu_torch.parallel.collective_matmul",
+    "dlbb_tpu_torch.parallel.ring_attention", "dlbb_tpu_torch.parallel.ulysses"])
+def test_sequence_modules_import_without_jax_triton_or_cuda(module):
+    """The modules of the sequence-sharded layouts import in a fresh process
+    where ``jax``, ``triton`` and ``dlbb_tpu`` cannot be imported, and
+    leave CUDA uninitialised."""
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, module], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -155,7 +155,10 @@ def test_init_params_is_seeded_and_shaped_like_jax():
 
 def test_unported_model_options_raise():
     _, pcfg = _small()
-    # remat is ported (tests/test_torch_train.py); tp_overlap needs a mesh
-    for kw in (dict(num_experts=4), dict(attention="ring"), dict(tp_overlap="ring")):
-        with pytest.raises(NotImplementedError):
-            pt_tf.init_params(pcfg.with_(**kw), 0, "cpu")
+    # remat (tests/test_torch_train.py), ring/Ulysses attention and
+    # tp_overlap (tests/test_torch_context_parallel.py,
+    # tests/test_torch_collective_matmul.py) are ported; MoE is not
+    with pytest.raises(NotImplementedError):
+        pt_tf.init_params(pcfg.with_(num_experts=4), 0, "cpu")
+    for kw in (dict(attention="ring"), dict(attention="ulysses"), dict(tp_overlap="ring")):
+        pt_tf.init_params(pcfg.with_(**kw), 0, "cpu")

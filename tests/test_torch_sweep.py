@@ -186,8 +186,9 @@ def test_every_unported_knob_is_tested():
 
 
 def test_unported_variant_raises_in_a_sweep():
+    # overlap_ring is ported (tests/test_torch_collective_matmul.py)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner.run_sweep(runner.Sweep1D(variant="overlap_ring"), device="cpu")
+        runner.run_sweep(runner.Sweep1D(variant="compress_int8"), device="cpu")
 
 
 def test_run_sweep_without_device_cpu_raises_with_no_cuda():

@@ -375,11 +375,11 @@ def test_plan_refuses_what_jax_refuses_with_its_message(name):
 
 
 # configs JAX runs and the port does not yet: each names its Slice D item
+# (sp and tp_overlap are ported: tests/test_torch_context_parallel.py and
+# tests/test_torch_collective_matmul.py hold the plan's acceptance of them)
 NOT_PORTED = {
-    "sp": ({"attention": "ring"}, {"sequence_parallel": 2}, "item 4"),
     "pp": ({}, {"pipeline_parallel": 2}, "item 5"),
     "ep": ({"num_experts": 4}, {"expert_parallel": 2}, "item 6"),
-    "tp_overlap": ({"tp_overlap": "ring"}, {"world_size": 2}, "item 3"),
 }
 
 

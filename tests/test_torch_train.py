@@ -445,8 +445,9 @@ def test_run_train_schema_and_flops_match_jax(devices, tmp_path):
                             verbose=False)
     assert set(ref) <= set(got)
     assert set(got) - set(ref) == {"device", "kernel_launches_per_step", "per_host_means_s",
-                                   "cross_host_variance", "cross_host_cv"}
+                                   "cross_host_variance", "cross_host_cv", "transport"}
     assert len(got["per_host_means_s"]) == 1 and got["cross_host_cv"] == 0.0
+    assert got["transport"] is None  # no ring hop at world 1
     assert got["backend"] == "torch_cuda" and got["timing_mode"] == "per_iter"
     for key in ("mode", "zero_stage", "mesh", "optimizer", "schedule", "learning_rate",
                 "moments_dtype", "gradient_accumulation", "remat", "remat_policy",

@@ -1,4 +1,5 @@
-"""Rank body of ``tests/test_torch_zero.py`` and ``tests/test_torch_checkpoint.py``:
+"""Rank body of ``tests/test_torch_zero.py``, ``tests/test_torch_checkpoint.py``
+and (through ``torch_seq_worker``) the sequence-sharded train cases:
 the port's train step on a gloo group.  It imports torch and the port only,
 since ``bench.launch`` imports it by name in every spawned rank."""
 
@@ -6,8 +7,9 @@ import numpy as np
 import torch
 
 from dlbb_tpu_torch.comm import build_parallelism_mesh
+from dlbb_tpu_torch.data import batch_slice
 from dlbb_tpu_torch.models import ModelConfig, params_from_jax
-from dlbb_tpu_torch.models.sharding import shard_params
+from dlbb_tpu_torch.models.sharding import batch_spec, shard_params
 from dlbb_tpu_torch.models.transformer import DTYPES
 from dlbb_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
 from dlbb_tpu_torch.train.loop import make_train_step
@@ -33,9 +35,14 @@ def _steps(step, state, x, t, n):
     return state, losses
 
 
+def _mesh_dims(mesh):
+    """``(dp, sp, tp)`` from a case's ``(dp, tp)`` or ``(dp, sp, tp)``."""
+    return mesh if len(mesh) == 3 else (mesh[0], 1, mesh[1])
+
+
 def run_train_cases(cases, weights, batches):
-    """``cases``: ``(case id, spec)`` pairs, a spec holding ``mesh`` (dp,
-    tp), ``fields`` (ModelConfig), ``weights`` and ``batch`` (keys of the
+    """``cases``: ``(case id, spec)`` pairs, a spec holding ``mesh`` ((dp,
+    tp) or (dp, sp, tp)), ``fields`` (ModelConfig), ``weights`` and ``batch`` (keys of the
     next two arguments), ``train`` (the ``training:`` section), ``stage``,
     ``grad_accum``, ``steps`` and, for a checkpoint round trip,
     ``checkpoint`` (a directory: save after ``steps - 1`` steps, restore
@@ -47,20 +54,20 @@ def run_train_cases(cases, weights, batches):
     meshes = {}
     for _, spec in cases:
         if spec["mesh"] not in meshes:
-            dp, tp = spec["mesh"]
-            meshes[spec["mesh"]] = build_parallelism_mesh(dp, 1, 1, tp, 1)
+            dp, sp, tp = _mesh_dims(spec["mesh"])
+            meshes[spec["mesh"]] = build_parallelism_mesh(dp, sp, 1, tp, 1)
     out = {}
     for case_id, spec in cases:
         mesh = meshes[spec["mesh"]]
         if mesh is None:
             continue
-        dp, tp = spec["mesh"]
+        dp, _, tp = _mesh_dims(spec["mesh"])
         c = mesh.coords
         cfg = ModelConfig(**spec["fields"])
         dtype = DTYPES[cfg.dtype]
         local = shard_params(params_from_jax(weights[spec["weights"]], cfg), cfg, c["tp"], tp)
-        x, t = (torch.from_numpy(np.ascontiguousarray(np.split(a, dp)[c["dp"]])).to(dtype)
-                for a in batches[spec["batch"]])
+        x, t = (torch.from_numpy(np.ascontiguousarray(batch_slice(a, **batch_spec(mesh))))
+                .to(dtype) for a in batches[spec["batch"]])
 
         def build():
             return make_train_step(cfg, build_optimizer(spec["train"]), local, mesh=mesh,
