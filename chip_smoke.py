@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlbb_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm,tp,dtrain,seq]
+    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm,tp,dtrain,seq,moe,pipe]
 
 Phases (each raises on failure, and the script then exits non-zero):
 
@@ -79,7 +79,23 @@ Phases (each raises on failure, and the script then exits non-zero):
    not fit on one card beside each other) against the world-1 step, within
    the bounds argued at ``SEQ_*``; the flash launches of each rank and the
    ring hops' transport printed (gloo's point-to-point takes no CUDA
-   tensor, so the hops go through host memory).
+   tensor, so the hops go through host memory);
+10. ``moe``, the MoE FFN: the 1B with 4 experts, top-2, bf16, at full width
+   and depth (3.6 B parameters): (a) ``run_e2e`` at world 1 with the dense
+   and the capacity dispatch, B=8, S=512, "full" (24 flash forward launches
+   per forward, counted from 0 around each run); (b) ``run_train`` at all
+   24 layers, Adam with bf16 moments, remat dots, ``moe_aux_loss_weight``
+   0.01, the first step and one timed step (48/24/24 flash launches per
+   step), finite losses; (c) ep=2 as two processes on the card over gloo:
+   each dispatch's forward, and one step's loss and reduced gradients per
+   leaf, against world 1 within ``moe_ep_bounds`` and ``loss_rel_bound``;
+11. ``pipe``, pipeline parallelism: the 1B train config at full width and
+   depth at pp=2, m=4, as two processes on the card over gloo (hops through
+   host memory; a stage runs dense attention, JAX's pin, so no flash
+   launch): the forward against world 1's, and one GPipe and one 1F1B step
+   (loss, reduced gradients, the Adam update) against world 1's and each
+   other, within the bounds argued at ``PIPE_*``; the bubble fraction,
+   times and peak memory per stage printed.
 
 It then prints the card's name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -156,7 +172,8 @@ EDGE_CASES = {
 # the mma.sync forward kernel this design replaced, at the two timed shapes:
 # phase 5 on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's kernel table)
 FWD_BEFORE_MS = {"main": 0.1259, "long": 2.5038}
-PHASES = ("build", "fwd", "bwd", "e2e", "train", "time", "comm", "tp", "dtrain", "seq")
+PHASES = ("build", "fwd", "bwd", "e2e", "train", "time", "comm", "tp", "dtrain", "seq",
+          "moe", "pipe")
 TP_CONFIG = "dlbb_tpu_torch/configs/baseline_config.yaml"
 # the 3D sweep's LLM shapes (batch, seq, hidden) on the card: the largest is
 # 1 GiB of bf16 per rank
@@ -656,7 +673,7 @@ def _tp_output(config):
 
 def _gloo_tp_rank(rank, world, init_file, config, out_dir):
     """One rank of the gloo tp run on the one card (spawned by
-    ``_gloo_tp``): its output goes to ``out_dir/y_<rank>.pt``."""
+    ``_spawn_gloo``): its output goes to ``out_dir/r<rank>.pt``."""
     import torch
 
     from dlbb_tpu_torch.comm import destroy_distributed, initialize_distributed
@@ -664,24 +681,24 @@ def _gloo_tp_rank(rank, world, init_file, config, out_dir):
     torch.cuda.set_device(0)
     initialize_distributed("gloo", rank, world, init_file, timeout=600)
     try:
-        torch.save(_tp_output(config), f"{out_dir}/y_{rank}.pt")
+        torch.save(_tp_output(config), f"{out_dir}/r{rank}.pt")
     finally:
         destroy_distributed()
 
 
-def _gloo_tp(torch, config, world):
-    """Run the TP forward of ``config`` as ``world`` processes on cuda:0 over
-    gloo; returns each rank's output."""
+def _spawn_gloo(torch, fn, world, *args):
+    """``fn(rank, world, init_file, *args, out_dir)`` as ``world`` processes
+    on cuda:0 over gloo; returns each rank's ``out_dir/r<rank>.pt``."""
     import os
     import tempfile
 
     import torch.multiprocessing as mp
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
-        mp.start_processes(_gloo_tp_rank, args=(world, os.path.join(tmp, "store"),
-                                                config, tmp),
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gloo_") as tmp:
+        mp.start_processes(fn, args=(world, os.path.join(tmp, "store"), *args, tmp),
                            nprocs=world, join=True, start_method="spawn")
-        return [torch.load(os.path.join(tmp, f"y_{r}.pt")) for r in range(world)]
+        return [torch.load(os.path.join(tmp, f"r{r}.pt"), weights_only=False)
+                for r in range(world)]
 
 
 def phase_tp(torch, gpu_line):
@@ -753,7 +770,7 @@ def phase_tp(torch, gpu_line):
               "input": {"batch_size": 8, "sequence_length": 512, "seed": 42}}
     model_cfg = ModelConfig.from_dict(config["model"])
     t0 = time.perf_counter()
-    ys = _gloo_tp(torch, config, 2)
+    ys = _spawn_gloo(torch, _gloo_tp_rank, 2, config)
     if not torch.equal(ys[0], ys[1]):
         raise AssertionError("1B tp=2: the two ranks' outputs differ")
     params = init_params(model_cfg, 42, "cuda")
@@ -904,8 +921,8 @@ def _dtrain_world1(config, ckpt_dir, device="cuda"):
     return out
 
 
-def _dtrain_gloo_rank(rank, world, init_file, config, stage, out_dir, device="cuda"):
-    """One rank of phase dtrain (b), spawned by ``_dtrain_gloo``: the loss
+def _dtrain_gloo_rank(rank, world, init_file, config, stage, device, out_dir):
+    """One rank of phase dtrain (b), spawned by ``_spawn_gloo``: the loss
     and reduced gradients of one step, then the step; written to
     ``out_dir/r<rank>.pt``."""
     import torch
@@ -938,22 +955,6 @@ def _dtrain_gloo_rank(rank, world, init_file, config, stage, out_dir, device="cu
                     "seconds": time.perf_counter() - t0}, f"{out_dir}/r{rank}.pt")
     finally:
         destroy_distributed()
-
-
-def _dtrain_gloo(torch, config, stage, device="cuda"):
-    """The train step of ``config`` as two processes on one device over
-    gloo; returns each rank's record."""
-    import os
-    import tempfile
-
-    import torch.multiprocessing as mp
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dtrain_") as tmp:
-        mp.start_processes(_dtrain_gloo_rank,
-                           args=(2, os.path.join(tmp, "store"), config, stage, tmp, device),
-                           nprocs=2, join=True, start_method="spawn")
-        return [torch.load(os.path.join(tmp, f"r{r}.pt"), weights_only=False)
-                for r in range(2)]
 
 
 def _rel_l2(a, b):
@@ -1051,7 +1052,7 @@ def phase_dtrain(torch, gpu_line, config=None, device="cuda"):
         cfg = copy.deepcopy(config)
         cfg["parallelism"] = {"world_size": tp, "data_parallel": dp}
         t0 = time.perf_counter()
-        ranks = _dtrain_gloo(torch, cfg, stage, device)
+        ranks = _spawn_gloo(torch, _dtrain_gloo_rank, 2, cfg, stage, device)
         wall = time.perf_counter() - t0
         by = {(r["coords"]["dp"], r["coords"]["tp"]): r for r in ranks}
         tp_shards = []
@@ -1245,8 +1246,8 @@ def seq_bounds(layers, kind):
     return fwd, 2 * fwd, TRAIN_GRAD_REL_L2 + fwd
 
 
-def _seq_gloo_rank(rank, world, init_file, config, runs, out_dir, device):
-    """One rank of phase seq (b), spawned by ``_seq_gloo``: for each run,
+def _seq_gloo_rank(rank, world, init_file, config, runs, device, out_dir):
+    """One rank of phase seq (b), spawned by ``_spawn_gloo``: for each run,
     the forward (inference) and one ZeRO-1 step's loss and reduced
     gradients, then the update, with the flash launches of each, on this
     rank's part; written to ``out_dir/r<rank>.pt``."""
@@ -1316,22 +1317,6 @@ def _seq_gloo_rank(rank, world, init_file, config, runs, out_dir, device):
         torch.save(out, f"{out_dir}/r{rank}.pt")
     finally:
         destroy_distributed()
-
-
-def _seq_gloo(torch, config, runs, device):
-    """Phase seq (b)'s ``runs`` (one mesh) as two processes on ``device``
-    over gloo; returns each rank's record."""
-    import os
-    import tempfile
-
-    import torch.multiprocessing as mp
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_seq_") as tmp:
-        mp.start_processes(_seq_gloo_rank,
-                           args=(2, os.path.join(tmp, "store"), config, runs, tmp, device),
-                           nprocs=2, join=True, start_method="spawn")
-        return [torch.load(os.path.join(tmp, f"r{r}.pt"), weights_only=False)
-                for r in range(2)]
 
 
 def _seq_sweeps(torch, gpu_line):
@@ -1440,7 +1425,7 @@ def _seq_model(torch, config, device="cuda"):
     out = {}
     for kind, runs in SEQ_RUNS.items():
         t0 = time.perf_counter()
-        ranks = _seq_gloo(torch, config, runs, device)
+        ranks = _spawn_gloo(torch, _seq_gloo_rank, 2, config, runs, device)
         wall = time.perf_counter() - t0
         fwd_bound, loss_bound, grad_bound = seq_bounds(layers, kind)
         for name, _, _ in runs:
@@ -1497,6 +1482,534 @@ def _seq_model(torch, config, device="cuda"):
                          "fwd_launches": recs[0]["fwd_launches"],
                          "step_launches": recs[0]["step_launches"]}
         print(f"[seq] {kind} runs: {wall:.1f} s wall")
+    return out
+
+
+# phase moe: the 1B with 4 experts, top-2, at full width and depth, bf16.
+# - ep=2 against world 1: the router, the attention and every expert run
+#   on the same values at both, but each ep rank rounds the combine of its
+#   2 experts to bf16 and the two halves are added over gloo, where world 1
+#   rounds the 4-expert combine once: one extra rounding of the FFN output
+#   per layer, at most 2**-8 relative, half ``tp_bf16_bound``'s two per
+#   layer.  Those differences reach the next layers' router logits, and a
+#   token whose 2nd and 3rd expert are that close changes one of its
+#   experts: its FFN output then differs wholly.  The bound allows
+#   MOE_FLIP_SHARE of the tokens to do so, sqrt(share) of the output's
+#   relative L2.
+# - The ep=2 step's loss against world 1's (``loss_rel_bound``), its aux
+#   term apart: a token that changes one of its k experts moves 1/(N k) of
+#   the slot shares f_e between two experts, so the aux E sum_e f_e P_e
+#   (P_e <= 1) moves by at most 2 E share / k, times the aux weight.
+# - The ep=2 step's reduced gradients against world 1's, per leaf, relative
+#   L2: the backward adds the forward's extra rounding per layer (each rank
+#   rounds its experts' share of the FFN input's gradient, then the halves
+#   are summed over ep), half ``tp_bf16_bound``, to the forward's
+#   difference, which reaches each gradient through the activations it
+#   multiplies, at most their relative size (the forward's bound).  A leaf
+#   that lost the other rank's experts' share of its gradient (no sum over
+#   ep) is about half its size away.
+MOE_MODEL = {"size": "1B", "num_experts": 4, "moe_top_k": 2, "attention": "full",
+             "dtype": "bfloat16"}
+MOE_DISPATCHES = ("dense", "capacity")
+MOE_AUX_WEIGHT = 0.01
+MOE_FLIP_SHARE = 1e-2
+# two losses whose outputs differ by rounding and routing: held to this many
+# standard deviations of their difference (``loss_rel_bound``)
+LOSS_SIGMAS = 6
+
+
+def moe_ep_bounds(layers):
+    """(output relative L2, gradient relative L2 per leaf, aux term of the
+    loss) bounds of the ep=2 MoE forward and step against world 1 (comment
+    above)."""
+    fwd = tp_bf16_bound(layers, 2) / 2 + math.sqrt(MOE_FLIP_SHARE)
+    aux = MOE_AUX_WEIGHT * 2 * MOE_MODEL["num_experts"] * MOE_FLIP_SHARE / MOE_MODEL["moe_top_k"]
+    return fwd, fwd + tp_bf16_bound(layers, 2) / 2, aux
+
+
+def loss_rel_bound(y, ref, ref_loss, extra=0.0):
+    """Relative bound of the difference between two runs' MSE losses
+    (``ref_loss`` the reference's) whose outputs are ``y`` and ``ref``, the
+    same N elements.  The losses differ by (sum(y**2) - sum(ref**2)) / N,
+    measured here, and -2/N sum(t * (y - ref)): the targets t are a
+    standard normal draw independent of the outputs, so that term is
+    Gaussian with standard deviation 2 |y - ref| / N, held to LOSS_SIGMAS
+    of it.  ``extra`` (absolute) bounds any other term of the loss."""
+    y, ref = y.double(), ref.double()
+    squares = abs(((y * y).sum() - (ref * ref).sum()).item())
+    noise = 2 * LOSS_SIGMAS * (y - ref).norm().item()
+    return ((squares + noise) / ref.numel() + extra) / abs(ref_loss)
+
+
+def _moe_config(dispatch, **parallelism):
+    import copy
+
+    from dlbb_tpu_torch.utils.config import load_config
+
+    config = load_config(TRAIN_CONFIG)
+    config["experiment"]["name"] = f"chip_smoke_1b_moe_{dispatch}"
+    config["model"] = dict(MOE_MODEL, moe_dispatch=dispatch)
+    config["parallelism"] = {"world_size": 1, "data_parallel": 1, **parallelism}
+    config["training"]["moe_aux_loss_weight"] = MOE_AUX_WEIGHT
+    config["execution"] = {"warmup_iterations": 2, "benchmark_iterations": 5}
+    return copy.deepcopy(config)
+
+
+def _moe_ep_rank(rank, world, init_file, out_dir):
+    """One rank of phase moe's ep=2 run, spawned by ``_spawn_gloo``: the
+    forward of each dispatch, then one step's loss and reduced gradients
+    with the aux loss (dense dispatch); written to ``out_dir/r<rank>.pt``."""
+    import torch
+
+    from dlbb_tpu_torch.comm import destroy_distributed, initialize_distributed
+    from dlbb_tpu_torch.models import ModelConfig, forward, init_params
+    from dlbb_tpu_torch.parallel import ParallelismPlan
+    from dlbb_tpu_torch.train.loop import make_train_step
+    from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
+
+    torch.cuda.set_device(0)
+    initialize_distributed("gloo", rank, world, init_file, timeout=900)
+    try:
+        out = {"y": {}, "fwd_ms": {}}
+        for dispatch in MOE_DISPATCHES:
+            config = _moe_config(dispatch, expert_parallel=2)
+            model_cfg = ModelConfig.from_dict(config["model"])
+            plan = ParallelismPlan.from_config(config, model_cfg)
+            params = init_params(model_cfg, config["input"]["seed"], "cuda", **plan.coords())
+            batch, targets = _dtrain_batch(config, model_cfg, "cuda")
+            with torch.inference_mode():
+                forward(params, batch, model_cfg, mesh=plan.mesh)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y = forward(params, batch, model_cfg, mesh=plan.mesh)
+                torch.cuda.synchronize()
+            out["fwd_ms"][dispatch] = (time.perf_counter() - t0) * 1e3
+            out["y"][dispatch] = y.cpu()
+            del y
+            if dispatch == "dense":
+                step, state = make_train_step(model_cfg, build_optimizer(config["training"]),
+                                              params, mesh=plan.mesh,
+                                              moe_aux_weight=MOE_AUX_WEIGHT)
+                del params
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, grads = step.grads(state, batch, targets)
+                out["loss"] = float(loss)
+                out["grad_ms"] = (time.perf_counter() - t0) * 1e3
+                out["grads"] = tree_map(lambda g: g.cpu(), grads)
+                del step, state, grads
+            else:
+                del params
+            torch.cuda.empty_cache()
+        out["coords"] = plan.mesh.coords
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.save(out, f"{out_dir}/r{rank}.pt")
+    finally:
+        destroy_distributed()
+
+
+def _leaf_rel_l2(torch, got, ref):
+    """Per ``group.leaf`` name, the relative L2 of ``got`` against ``ref``
+    (parameter trees on the host), each pair compared on the card."""
+    got = _by_name(got)
+    return {name: _rel_l2(got[name].cuda(), t.cuda()) for name, t in _by_name(ref).items()}
+
+
+def phase_moe(torch, fa, gpu_line):
+    """Phase 10 (module docstring)."""
+    from dlbb_tpu_torch.bench.e2e import run_e2e
+    from dlbb_tpu_torch.models import ModelConfig, forward, init_params
+    from dlbb_tpu_torch.models.sharding import ep_dim, unshard_params
+    from dlbb_tpu_torch.train.loop import make_train_step, run_train
+    from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    layers = ModelConfig.from_dict(MOE_MODEL).num_layers
+    out = {"e2e": {}, "train": None, "ep": {}}
+    # (a) the forward through run_e2e at world 1, both dispatches
+    for dispatch in MOE_DISPATCHES:
+        config = _moe_config(dispatch)
+        ex = config["execution"]
+        forwards = ex["warmup_iterations"] + ex["benchmark_iterations"]
+        torch.cuda.reset_peak_memory_stats()
+        _zero_flash_counts(fa)
+        result = run_e2e(config, device="cuda", verbose=True)
+        launches = _flash_counts(fa)
+        if (launches["flash_fwd"] != layers * forwards
+                or result["flash_launches"] != layers * ex["benchmark_iterations"]):
+            raise AssertionError(f"MoE {dispatch}: flash launches {launches} over {forwards} "
+                                 f"forwards; expected {layers} per forward")
+        ft = result["forward_time"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[moe] 1B MoE forward (4 experts, top-2, {dispatch} dispatch, "
+              f"{result['model']['num_parameters'] / 1e9:.3f} B parameters), world 1, bf16, "
+              f"B=8, S=512, attention=full on {gpu_line}: mean {ft['mean'] * 1e3:.3f} ms, "
+              f"median {ft['median'] * 1e3:.3f} ms, {result['tokens_per_second']:.0f} "
+              f"tokens/s, {result['achieved_tflops_per_second']:.1f} TFLOP/s (model flops); "
+              f"flash forward launches {launches['flash_fwd']} ({layers} per forward); peak "
+              f"allocated {peak:.2f} GiB")
+        out["e2e"][dispatch] = {"result": result, "launches": launches["flash_fwd"],
+                                "peak_gib": peak}
+        torch.cuda.empty_cache()
+    # (b) one run_train step at full width and depth with the aux loss (the
+    # first step and one timed step: run_train times at least one)
+    config = _moe_config("dense")
+    config["execution"] = {"warmup_iterations": 1, "benchmark_iterations": 1}
+    # the 1B train config's remat (TRAIN_CONFIG): "dots", the flash forward
+    # recomputed in the backward
+    config["model"].update(remat=True, remat_policy="dots")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_counts(fa)
+    result = run_train(config, device="cuda", verbose=True)
+    launches = _flash_counts(fa)
+    per_step = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+    if (result["kernel_launches_per_step"] != per_step
+            or launches != {k: 2 * n for k, n in per_step.items()}):
+        raise AssertionError(f"MoE run_train: launches {launches} over 2 steps, per timed "
+                             f"step {result['kernel_launches_per_step']}; expected {per_step}")
+    if not all(math.isfinite(x) for x in result["losses"]):
+        raise AssertionError(f"MoE run_train: non-finite losses {result['losses']}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st = result["step_time"]
+    print(f"[moe] run_train, 1B MoE at full width and depth ({layers} layers), Adam with bf16 "
+          f"moments, remat dots, moe_aux_loss_weight {MOE_AUX_WEIGHT}, world 1 on {gpu_line}: "
+          f"step {st['mean'] * 1e3:.3f} ms (one timed step after the first), losses "
+          f"{', '.join(f'{x:.6f}' for x in result['losses'])}; flash launches per step "
+          f"{result['kernel_launches_per_step']}; peak allocated {peak:.2f} GiB")
+    out["train"] = {"result": result, "launches": launches, "peak_gib": peak}
+    torch.cuda.empty_cache()
+    # (c) ep=2, two processes on the one card over gloo, against world 1
+    refs = {}
+    for dispatch in MOE_DISPATCHES:
+        config = _moe_config(dispatch)
+        model_cfg = ModelConfig.from_dict(config["model"])
+        params = init_params(model_cfg, config["input"]["seed"], "cuda")
+        batch, targets = _dtrain_batch(config, model_cfg, "cuda")
+        with torch.inference_mode():
+            refs[dispatch] = forward(params, batch, model_cfg).float().cpu()
+        if dispatch == "dense":
+            step, state = make_train_step(model_cfg, build_optimizer(config["training"]),
+                                          params, moe_aux_weight=MOE_AUX_WEIGHT)
+            loss, grads = step.grads(state, batch, targets)
+            refs["loss"] = float(loss)
+            refs["grads"] = tree_map(lambda g: g.cpu(), grads)
+            del step, state, grads
+        del params, batch, targets
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = sorted(_spawn_gloo(torch, _moe_ep_rank, 2), key=lambda r: r["coords"]["ep"])
+    wall = time.perf_counter() - t0
+    fwd_bound, grad_bound, aux_bound = moe_ep_bounds(layers)
+    for dispatch in MOE_DISPATCHES:
+        ys = [r["y"][dispatch] for r in ranks]
+        if not torch.equal(ys[0], ys[1]):
+            raise AssertionError(f"MoE ep=2 {dispatch}: the ranks' outputs differ")
+        y = ys[0].float()
+        ref = refs[dispatch]
+        if y.shape != ref.shape or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"MoE ep=2 {dispatch}: output of shape {tuple(y.shape)}, "
+                                 "expected finite values of the world-1 output's shape")
+        rel = _rel_l2(y, ref)
+        print(f"[moe] 1B MoE forward at ep=2 ({dispatch} dispatch), two processes on one card "
+              f"over gloo (the combine's all-reduce takes CUDA tensors): relative L2 against "
+              f"world 1 {rel:.3e} (bound {fwd_bound:.3e}); "
+              f"{max(r['fwd_ms'][dispatch] for r in ranks):.3f} ms per forward (second "
+              f"forward, wall, slowest rank) on {gpu_line}")
+        if not rel <= fwd_bound:
+            raise AssertionError(f"the 1B MoE ep=2 {dispatch} forward disagrees with world 1")
+        out["ep"][dispatch] = {"fwd_rel_l2": rel,
+                               "fwd_ms": max(r["fwd_ms"][dispatch] for r in ranks)}
+    losses = {r["loss"] for r in ranks}
+    loss = ranks[0]["loss"]
+    loss_rel = abs(loss - refs["loss"]) / abs(refs["loss"])
+    loss_bound = loss_rel_bound(ranks[0]["y"]["dense"], refs["dense"], refs["loss"], aux_bound)
+    # the leaves the ranks hold whole (all but the experts) carry gradients
+    # summed over ep: equal on both
+    g0, g1 = (_by_name(r["grads"]) for r in ranks)
+    split = {name for name in g0 if ep_dim(*name.split("."), True) is not None}
+    if any(not torch.equal(t, g1[name]) for name, t in g0.items() if name not in split):
+        raise AssertionError("MoE ep=2: the ranks' gradients of their whole leaves differ")
+    grads = unshard_params([r["grads"] for r in ranks], model_cfg, ep=2)
+    rels = _leaf_rel_l2(torch, grads, refs["grads"])
+    worst = max(rels, key=rels.get)
+    print(f"[moe] ep=2 step (dense dispatch, aux {MOE_AUX_WEIGHT}): loss {loss:.6f} vs world 1 "
+          f"{refs['loss']:.6f} (relative {loss_rel:.3e}, bound {loss_bound:.3e}); reduced "
+          f"gradients' relative L2 against world 1 worst {worst} {rels[worst]:.3e} (bound "
+          f"{grad_bound:.3e}), experts' worst "
+          f"{max(rels[n] for n in split):.3e}; loss and reduced gradients "
+          f"{max(r['grad_ms'] for r in ranks):.1f} ms (wall, slowest rank); peak allocated "
+          f"per rank {[round(r['peak_gib'], 2) for r in ranks]} GiB; {wall:.1f} s wall on "
+          f"{gpu_line}")
+    if len(losses) != 1 or not (loss_rel <= loss_bound and rels[worst] <= grad_bound):
+        raise AssertionError("the 1B MoE ep=2 step disagrees with world 1")
+    out["ep"].update(loss_rel=loss_rel, loss_bound=loss_bound, worst_grad_rel_l2=rels[worst],
+                     worst_leaf=worst, peak_gib=[r["peak_gib"] for r in ranks])
+    print(f"[moe] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# phase pipe: the 1B (bf16, full width and depth) at pp=2, m=4, two
+# processes on the one card over gloo, against world 1.
+# - Forward, and each schedule's reduced gradients: a stage runs "dense"
+#   attention (JAX's pin) where world 1's "full" runs the flash kernel, and
+#   its projections run on a quarter of the rows, where a GEMM may sum in
+#   another order: the sp=2 runs of phase seq differ from world 1 in the
+#   same two ways, so ``seq_bounds(layers, "sp")`` bounds them.  The loss:
+#   ``loss_rel_bound`` on the forward's outputs.
+# - GPipe against 1F1B: both compute each microbatch's stage gradients from
+#   the same inputs and cotangents with the same kernels (1F1B's recompute
+#   is the same forward; the loss's cotangent 1/m x 1/(N/m) is GPipe's 1/N
+#   exactly, N and m powers of two) and sum the 4 microbatches' in fp32 in
+#   another order, so a layer's bf16 gradient or updated bf16 parameter
+#   differs only where that sum straddles a rounding boundary or the
+#   gradient is within fp32 rounding of 0: PIPE_UNEQUAL_SHARE of each layer
+#   leaf's elements at most.  ``ln_f`` is not such a leaf: GPipe takes its
+#   gradient over the whole batch, 1F1B per microbatch (JAX's split), so it
+#   is held against world 1 only, as above.  The loss sums the same squared
+#   differences grouped otherwise, PIPE_LOSS_REL.
+# - Updated parameters: each side's (both stages' and world 1's) must be
+#   the first Adam step from the same start on its own gradient, whose sign
+#   and size the gradient checks above hold against world 1's.  That step
+#   is u = -lr m^ / (sqrt(v^) + eps): with bf16 gradients and moments,
+#   m^ / sqrt(v^) is |g| (1 +- PIPE_STEP_SPREAD) (bf16(0.1) and bf16(0.001)
+#   as the moment weights, the bf16 roundings of g*g and of each weighted
+#   term), so |u| <= lr (1 + spread) everywhere, and where |g| >=
+#   PIPE_SURE_GRAD (100 eps) u = -lr sign(g) r with r in [(1 - spread) /
+#   1.01, 1 + spread]; the result is p + u rounded to bf16 (through fp32),
+#   within one bf16 ulp of that interval.  A step with the wrong sign, of
+#   the wrong size, missing, or taken on another stage's layers fails it.
+PIPE_MICROBATCHES = 4
+PIPE_UNEQUAL_SHARE = 1e-3
+PIPE_LOSS_REL = 1e-5
+PIPE_SURE_GRAD = 1e-6
+PIPE_STEP_SPREAD = 2.0**-6
+PIPE_SCHEDULES = ("gpipe", "1f1b")
+
+
+def _pipe_config():
+    from dlbb_tpu_torch.utils.config import load_config
+
+    config = load_config(TRAIN_CONFIG)
+    config["experiment"]["name"] = "chip_smoke_1b_pp2"
+    config["parallelism"] = {"world_size": 1, "data_parallel": 1, "pipeline_parallel": 2,
+                             "num_microbatches": PIPE_MICROBATCHES}
+    return config
+
+
+def _pipe_rank(rank, world, init_file, out_dir):
+    """One rank of phase pipe, spawned by ``_spawn_gloo``: the forward, then
+    for each schedule one step's loss and reduced gradients and the step,
+    the flash launches counted from 0 around each; written to
+    ``out_dir/r<rank>.pt``."""
+    import torch
+
+    from dlbb_tpu_torch.comm import destroy_distributed, initialize_distributed
+    from dlbb_tpu_torch.models import ModelConfig, forward, init_params
+    from dlbb_tpu_torch.ops import flash_attention as fa
+    from dlbb_tpu_torch.parallel import ParallelismPlan
+    from dlbb_tpu_torch.parallel.ring import hop_transport
+    from dlbb_tpu_torch.train.loop import make_train_step
+    from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
+
+    torch.cuda.set_device(0)
+    initialize_distributed("gloo", rank, world, init_file, timeout=900)
+    try:
+        config = _pipe_config()
+        model_cfg = ModelConfig.from_dict(config["model"])
+        plan = ParallelismPlan.from_config(config, model_cfg)
+        mesh = plan.mesh
+        params = init_params(model_cfg, config["input"]["seed"], "cuda", **plan.coords())
+        batch, targets = _dtrain_batch(config, model_cfg, "cuda")
+        out = {"coords": mesh.coords, "ms": {}, "peak_gib": {}, "launches": {},
+               "transport": hop_transport(mesh.axis_groups["pp"], torch.device("cuda"))}
+        _zero_flash_counts(fa)
+        with torch.inference_mode():
+            forward(params, batch, model_cfg, mesh=mesh, num_microbatches=plan.num_microbatches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = forward(params, batch, model_cfg, mesh=mesh,
+                        num_microbatches=plan.num_microbatches)
+            torch.cuda.synchronize()
+        out["ms"]["forward"] = (time.perf_counter() - t0) * 1e3
+        out["y"] = y.cpu()
+        out["launches"]["forward"] = _flash_counts(fa)
+        del y
+        for schedule in PIPE_SCHEDULES:
+            torch.cuda.reset_peak_memory_stats()
+            step, state = make_train_step(
+                model_cfg, build_optimizer(config["training"]), params, mesh=mesh,
+                num_microbatches=plan.num_microbatches, pipeline_schedule=schedule)
+            _zero_flash_counts(fa)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = step.grads(state, batch, targets)
+            torch.cuda.synchronize()
+            out["ms"][f"{schedule}_grads"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            state, step_loss = step(state, batch, targets)
+            torch.cuda.synchronize()
+            out["ms"][f"{schedule}_step"] = (time.perf_counter() - t0) * 1e3
+            out["launches"][schedule] = _flash_counts(fa)
+            out["peak_gib"][schedule] = torch.cuda.max_memory_allocated() / 2**30
+            out[schedule] = {"loss": float(loss), "step_loss": float(step_loss),
+                             "grads": tree_map(lambda g: g.cpu(), grads),
+                             "params": tree_map(lambda p: p.detach().cpu(), state.params)}
+            del step, state, grads
+            torch.cuda.empty_cache()
+        torch.save(out, f"{out_dir}/r{rank}.pt")
+    finally:
+        destroy_distributed()
+
+
+def _by_name(tree):
+    """A parameter tree's leaves by ``group.leaf`` name."""
+    out = {f"{g}.{leaf}": t for g, sub in tree["layers"].items() for leaf, t in sub.items()}
+    out.update({f"ln_f.{leaf}": t for leaf, t in tree["ln_f"].items()})
+    return out
+
+
+def _adam_first_step_misses(torch, p0, p1, g, lr):
+    """The elements of one leaf whose updated value ``p1`` is not the first
+    Adam step from ``p0`` on the gradient ``g`` (comment above), as a count,
+    and the share of the leaf where ``|g| >= PIPE_SURE_GRAD``; on the
+    card."""
+    p0, p1, g = (t.cuda().double() for t in (p0, p1, g))
+    spread = PIPE_STEP_SPREAD
+    sure = g.abs() >= PIPE_SURE_GRAD
+    big, small = lr * (1 + spread), lr * (1 - spread) / (1 + 1e-8 / PIPE_SURE_GRAD)
+    sign = torch.sign(g)
+    lo = torch.where(sure, p0 - sign * torch.where(sign > 0, big, small), p0 - big)
+    hi = torch.where(sure, p0 - sign * torch.where(sign > 0, small, big), p0 + big)
+
+    def ulp(x):  # one bf16 ulp at |x| (8 significant bits)
+        return torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 8)
+
+    ok = (p1 >= lo - ulp(lo)) & (p1 <= hi + ulp(hi))
+    return int((~ok).sum()), float(sure.double().mean())
+
+
+def phase_pipe(torch, gpu_line):
+    """Phase 11 (module docstring)."""
+    from dlbb_tpu_torch.models import ModelConfig, forward, init_params
+    from dlbb_tpu_torch.models.sharding import unshard_params
+    from dlbb_tpu_torch.train.loop import make_train_step
+    from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    config = _pipe_config()
+    one = dict(config, parallelism={"world_size": 1, "data_parallel": 1})
+    model_cfg = ModelConfig.from_dict(config["model"])
+    layers, m, pp = model_cfg.num_layers, PIPE_MICROBATCHES, 2
+    lr = config["training"]["learning_rate"]
+    # world 1: the forward, one step's loss and gradients, and the step
+    params = init_params(model_cfg, config["input"]["seed"], "cuda")
+    p0 = _by_name(tree_map(lambda p: p.cpu(), params))
+    batch, targets = _dtrain_batch(one, model_cfg, "cuda")
+    with torch.inference_mode():
+        ref_y = forward(params, batch, model_cfg).float().cpu()
+    step, state = make_train_step(model_cfg, build_optimizer(config["training"]), params)
+    del params
+    ref_loss, ref_grads = step.grads(state, batch, targets)
+    ref_loss = float(ref_loss)
+    ref_grads = tree_map(lambda g: g.cpu(), ref_grads)
+    state, _ = step(state, batch, targets)
+    ref_params = tree_map(lambda p: p.detach().cpu(), state.params)
+    del step, state, batch, targets
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = sorted(_spawn_gloo(torch, _pipe_rank, pp), key=lambda r: r["coords"]["pp"])
+    wall = time.perf_counter() - t0
+    fwd_bound, _, grad_bound = seq_bounds(layers, "sp")
+    bubble = (pp - 1) / (m + pp - 1)
+    # a stage runs dense attention: no flash launch on any path of the phase
+    launches = {part: {k: sum(r["launches"][part][k] for r in ranks)
+                       for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+                for part in ("forward", *PIPE_SCHEDULES)}
+    for r in ranks:
+        if r["transport"] != "host":
+            raise AssertionError(f"pp=2 rank {r['coords']}: hops by {r['transport']}")
+    if any(n for counts in launches.values() for n in counts.values()):
+        raise AssertionError(f"pp=2: flash launches {launches} (a stage runs dense attention)")
+    if not torch.equal(ranks[0]["y"], ranks[1]["y"]):
+        raise AssertionError("pp=2: the stages' outputs differ (the broadcast over pp)")
+    y = ranks[0]["y"].float()
+    if y.shape != ref_y.shape or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"pp=2: output of shape {tuple(y.shape)}, expected finite "
+                             "values of the world-1 output's shape")
+    fwd_rel = _rel_l2(y, ref_y)
+    loss_bound = loss_rel_bound(y, ref_y, ref_loss)
+    print(f"[pipe] 1B forward at pp=2, m={m} (bubble fraction (pp-1)/(m+pp-1) = {bubble:.3f}), "
+          f"two processes on one card over gloo (hops through host memory), attention full "
+          f"(dense inside a stage) on {gpu_line}: relative L2 against world "
+          f"1 {fwd_rel:.3e} (bound {fwd_bound:.3e}); "
+          f"{max(r['ms']['forward'] for r in ranks):.3f} ms per forward (second forward, wall, "
+          f"slowest stage); flash launches (both stages) {launches}")
+    if not fwd_rel <= fwd_bound:
+        raise AssertionError("the 1B pp=2 forward disagrees with world 1")
+    out = {"fwd_rel_l2": fwd_rel, "bubble": bubble, "ms": {}, "wall_s": wall,
+           "launches": launches}
+    got = {}
+    ref_by_name = _by_name(ref_params)
+    n_all = sum(t.numel() for t in ref_by_name.values())
+    # the check on world 1's own step
+    ref_g = _by_name(ref_grads)
+    ref_checks = {name: _adam_first_step_misses(torch, p0[name], t, ref_g[name], lr)
+                  for name, t in ref_by_name.items()}
+    ref_misses = sum(c[0] for c in ref_checks.values())
+    ref_sure = sum(c[1] * p0[n].numel() for n, c in ref_checks.items()) / n_all
+    if ref_misses:
+        raise AssertionError(f"world 1's Adam step: {ref_misses} elements off its first step")
+    for schedule in PIPE_SCHEDULES:
+        recs = [r[schedule] for r in ranks]
+        grads = unshard_params([r["grads"] for r in recs], model_cfg, pp=pp)
+        rels = _leaf_rel_l2(torch, grads, ref_grads)
+        worst = max(rels, key=rels.get)
+        grads = _by_name(grads)
+        loss = recs[0]["loss"]
+        loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+        params = _by_name(unshard_params([r["params"] for r in recs], model_cfg, pp=pp))
+        got[schedule] = {"loss": loss, "grads": grads, "params": params}
+        misses = {name: _adam_first_step_misses(torch, p0[name], params[name], grads[name], lr)[0]
+                  for name in p0}
+        unequal = sum(int((params[name] != t).sum()) for name, t in ref_by_name.items()) / n_all
+        ms = {k: max(r["ms"][f"{schedule}_{k}"] for r in ranks) for k in ("grads", "step")}
+        print(f"[pipe] {schedule} step at pp=2, m={m}, ZeRO-0, Adam bf16 moments: loss "
+              f"{loss:.6f} vs world 1 {ref_loss:.6f} (relative {loss_rel:.3e}, bound "
+              f"{loss_bound:.3e}); gradient relative L2 worst {worst} {rels[worst]:.3e} "
+              f"(bound {grad_bound:.3e}); updated parameters off the first Adam step of their "
+              f"gradient {sum(misses.values())} (bound 0; world 1's {ref_misses}; gradient "
+              f"sure of its sign on {ref_sure:.3f} of the elements), unequal to world 1's "
+              f"{unequal:.3e} of the elements; loss and gradients {ms['grads']:.1f} ms, step "
+              f"{ms['step']:.1f} ms (wall, slowest stage, not a benchmark); peak allocated "
+              f"per stage {[round(r['peak_gib'][schedule], 2) for r in ranks]} GiB on {gpu_line}")
+        if len({r["loss"] for r in recs}) != 1:
+            raise AssertionError(f"pp=2 {schedule}: the stages' losses differ")
+        if not (loss_rel <= loss_bound and rels[worst] <= grad_bound
+                and not any(misses.values())
+                and all(math.isfinite(r["step_loss"]) for r in recs)):
+            raise AssertionError(f"the 1B pp=2 {schedule} step disagrees with world 1")
+        out["ms"][schedule] = ms
+        out[schedule] = {"loss_rel": loss_rel, "loss_bound": loss_bound,
+                         "worst_grad_rel_l2": rels[worst], "worst_leaf": worst,
+                         "update_misses": sum(misses.values()), "unequal_share": unequal,
+                         "peak_gib": [r["peak_gib"][schedule] for r in ranks]}
+    # GPipe against 1F1B
+    a, b = got["gpipe"], got["1f1b"]
+    loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    unequal = {f"{key} {name}": (t != b[key][name]).float().mean().item()
+               for key in ("grads", "params") for name, t in a[key].items()
+               if not name.startswith("ln_f.")}
+    worst = max(unequal, key=unequal.get)
+    print(f"[pipe] GPipe against 1F1B: loss relative {loss_rel:.3e} (bound {PIPE_LOSS_REL:.0e}); "
+          f"largest share of unequal elements {unequal[worst]:.3e} in {worst} (bound "
+          f"{PIPE_UNEQUAL_SHARE:.0e}); {wall:.1f} s wall for the two stages")
+    if not (loss_rel <= PIPE_LOSS_REL and unequal[worst] <= PIPE_UNEQUAL_SHARE):
+        raise AssertionError("the GPipe and 1F1B steps disagree")
+    out["gpipe_vs_1f1b"] = {"loss_rel": loss_rel, "unequal_share": unequal[worst]}
+    print(f"[pipe] phase wall time {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -1566,6 +2079,10 @@ def main() -> int:
         dtrain = phase_dtrain(torch, gpu_line)
     if "seq" in phases:
         seq = phase_seq(torch, gpu_line)
+    if "moe" in phases:
+        moe = phase_moe(torch, fa, gpu_line)
+    if "pipe" in phases:
+        pipe = phase_pipe(torch, gpu_line)
     if phases != set(PHASES):
         print(f"chip_smoke: phases {sorted(phases)} passed; no result printed for a subset")
         return 0
@@ -1581,6 +2098,9 @@ def main() -> int:
         "tp_launches": tp["full"]["launches"],
         "dtrain_launches_per_step": _dtrain_launches(dtrain, "flash_fwd"),
         "seq_launches_per_rank": _seq_launches(seq, "flash_fwd"),
+        "moe_launches": {d: r["launches"] for d, r in moe["e2e"].items()},
+        "moe_train_launches": moe["train"]["launches"]["flash_fwd"],
+        "pipe_launches": {part: n["flash_fwd"] for part, n in pipe["launches"].items()},
         "max_abs_err": err_o,
         "lse_max_abs_err": err_lse,
         "ms": main_t["ms"],
@@ -1603,6 +2123,9 @@ def main() -> int:
             "launches": train_launches[f"flash_bwd_{kernel}"],
             "dtrain_launches_per_step": _dtrain_launches(dtrain, f"flash_bwd_{kernel}"),
             "seq_launches_per_rank": _seq_launches(seq, f"flash_bwd_{kernel}"),
+            "moe_train_launches": moe["train"]["launches"][f"flash_bwd_{kernel}"],
+            "pipe_launches": {part: n[f"flash_bwd_{kernel}"]
+                              for part, n in pipe["launches"].items()},
             "max_abs_err": max(err_bwd[e] for e in errs),
             "ms": t["ms"],
             "event_ms": t["event_ms"],

@@ -7,14 +7,16 @@ stated tolerance).  This package imports ``torch`` and numpy only — never
 ``jax`` and never a module of ``dlbb_tpu``.
 
 Ported so far (the single-device forward, the collective sweeps, the
-tensor-parallel forward, DDP/ZeRO and tensor-parallel training, and the
+tensor-parallel forward, DDP/ZeRO and tensor-parallel training, the
 sequence-sharded layouts: overlapped tensor parallelism and sequence
+parallelism, pipeline parallelism and the MoE FFN with expert
 parallelism):
 
-- ``models`` — ``ModelConfig``/``MODEL_CONFIGS`` (1B/7B/13B), the dense
-  decoder ``forward`` with the simplified/full/dense/flash attention modes
-  and remat ("full", "dots"), ``dense_attention``, and ``params_from_jax``
-  to carry JAX weights across;
+- ``models`` — ``ModelConfig``/``MODEL_CONFIGS`` (1B/7B/13B), the decoder
+  ``forward`` with the simplified/full/dense/flash attention modes, remat
+  ("full", "dots") and the top-k MoE FFN (dense and capacity dispatch, the
+  load-balancing loss), ``dense_attention``, and ``params_from_jax`` to
+  carry JAX weights across;
 - ``ops`` — ``flash_attention``, differentiable through a
   ``torch.autograd.Function``: hand-written CUDA C++ kernels for Hopper
   (``ops/csrc/flash_fwd.cu``, the port of the Pallas ``_fwd_kernel``;
@@ -32,14 +34,16 @@ parallelism):
 - ``utils`` — ``summarize``/``Timer``, per-iteration CUDA-event timing,
   config IO, system info;
 - ``bench.e2e`` — ``run_e2e``, on one device or on every rank of a (dp,
-  sp, tp) process-group mesh; ``cli e2e`` and ``cli train`` (``--world N``,
-  ``--tp-overlap``, ``train --zero STAGE``);
+  sp, pp, ep, tp) process-group mesh; ``cli e2e`` and ``cli train``
+  (``--world N``, ``--tp-overlap``, ``train --zero STAGE``);
 - ``parallel`` — ``ParallelismPlan`` (the JAX plan's checks and the
-  (dp, sp, tp) mesh), the ring-decomposed collective matmuls
+  (dp, sp, pp, ep, tp) mesh), the ring-decomposed collective matmuls
   ``allgather_matmul``/``matmul_reducescatter`` (``tp_overlap``),
   ``ring_attention`` and ``ulysses_attention``, on the ring hop of
-  ``parallel.ring``; ``models.sharding`` — explicit Megatron
-  tensor-parallel shards;
+  ``parallel.ring``, and the GPipe and 1F1B pipeline engines
+  (``parallel.pipeline``); ``models.sharding`` — explicit Megatron
+  tensor-parallel shards, the pp slice of the layers and the ep slice of
+  the experts;
 - ``comm`` — process groups (``torch.distributed``: NCCL, or gloo on the
   CPU), the collective ops, payloads and mesh-shape variants;
   the collective-matmul micro-ops and their ``overlap_*`` variants;
@@ -47,10 +51,10 @@ parallelism):
   on spawned ranks; ``stats`` — their statistics; ``cli bench1d``,
   ``bench3d``, ``stats1d``, ``stats3d``.
 
-Not ported yet (see ROADMAP.md): MoE, uneven tp shards, restoring a
-checkpoint onto another mesh, pipelines, the quantised ops and gradient
-compression, serving, and the observability, planning and analysis layers
-and the rest of resilience (the journal, validation, the chaos gate).
+Not ported yet (see ROADMAP.md): uneven tp shards, restoring a
+checkpoint onto another mesh, the quantised ops and gradient compression,
+serving, and the observability, planning and analysis layers and the rest
+of resilience (the journal, validation, the chaos gate).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit ``"cpu"`` they raise.

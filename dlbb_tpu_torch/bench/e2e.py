@@ -11,11 +11,13 @@ in the timed forwards.
 Without a process group it runs on one device, with no
 ``torch.distributed`` at all.  Inside one (``bench/launch.py``, as ``cli
 e2e --world N`` starts it), ``parallel/plan.py::ParallelismPlan`` checks
-the config against the world and builds the (dp[, sp], tp) mesh: each rank
-draws its tensor-parallel shards of the model (``init_params``) and its dp
-rows and sp slice of the batch (``sharding.batch_spec``), and runs the
-tensor-parallel forward, overlapped under ``model.tp_overlap`` and with
-ring or Ulysses attention over sp.  ``transport`` says how its ring hops
+the config against the world and builds the (dp[, sp][, pp][, ep], tp)
+mesh: each rank draws its part of the model (``init_params``: its stage's
+layers, its experts, its tensor-parallel shards) and its dp rows and sp
+slice of the batch (``sharding.batch_spec``; the batch is whole over pp and
+ep), and runs the tensor-parallel forward, overlapped under
+``model.tp_overlap``, with ring or Ulysses attention over sp, pipelined in
+the plan's ``num_microbatches`` over pp, and its experts over ep.  ``transport`` says how its ring hops
 moved (``transformer.ring_transport``), None where it made none.  Each timed
 iteration is a barrier on the world group and then the forward, and its
 time is the slowest rank's, since the JAX number is one SPMD step;
@@ -65,9 +67,7 @@ def run_e2e(config: dict[str, Any], device=None,
         model_cfg = ModelConfig.from_dict(config["model"])
         plan = ParallelismPlan.from_config(config, model_cfg)
         mesh = plan.mesh
-        params = init_params(model_cfg, inp.get("seed", 42), device,
-                             tp_rank=mesh.coords["tp"] if mesh is not None else 0,
-                             tp=plan.tp)
+        params = init_params(model_cfg, inp.get("seed", 42), device, **plan.coords())
         dataset = create_dataset_from_config(
             config, dtype=DTYPES[model_cfg.dtype], device=device,
             hidden_size=model_cfg.hidden_size, **batch_spec(mesh))
@@ -81,7 +81,8 @@ def run_e2e(config: dict[str, Any], device=None,
 
     @torch.inference_mode()
     def step():
-        return forward(params, batch, model_cfg, mesh=mesh)
+        return forward(params, batch, model_cfg, mesh=mesh,
+                       num_microbatches=plan.num_microbatches)
 
     with Timer(sync=device) as t_first:
         out = step()

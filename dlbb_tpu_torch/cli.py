@@ -21,6 +21,12 @@ config's mesh, dp x tp x sp x pp x ep), and so does ``train``; at world 1
 they run in this process with no process group.  Under ``torchrun`` they
 run in place as their rank.  ``--tp-overlap`` overrides the config's
 ``model.tp_overlap``, so one YAML sweeps fused against ring and bidir.
+The YAML's ``parallelism:`` section sets every axis of the JAX package's
+mesh, ``pipeline_parallel`` (with ``num_microbatches``) and
+``expert_parallel`` included; ``model.num_experts``, ``moe_top_k`` and
+``moe_dispatch`` select the MoE FFN, and ``training.pipeline_schedule``
+("gpipe" or "1f1b") and ``training.moe_aux_loss_weight`` the pipeline's
+training schedule and the load-balancing loss.
 """
 
 from __future__ import annotations

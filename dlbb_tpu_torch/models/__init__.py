@@ -1,5 +1,6 @@
-"""The dense decoder (counterpart of ``dlbb_tpu/models``), on one device or
-as tensor-parallel shards (``models.sharding``)."""
+"""The decoder, dense or MoE (counterpart of ``dlbb_tpu/models``), on one
+device or as a rank's part of a (dp, sp, pp, ep, tp) mesh
+(``models.sharding``)."""
 
 from dlbb_tpu_torch.models.configs import MODEL_CONFIGS, ModelConfig
 from dlbb_tpu_torch.models.transformer import (

@@ -1,11 +1,8 @@
 """Model size configurations (counterpart of ``dlbb_tpu/models/configs.py``).
 
 The dataclass keeps every field of the JAX ``ModelConfig`` and the same
-validation, so one config dict is accepted by both packages.  The dense
-forward and its training are ported on one device and on (dp, sp, tp)
-meshes, remat, ``tp_overlap`` and ring/Ulysses attention included: fields
-that select MoE are accepted and validated here, and rejected by the model
-code that does not run them yet.  The parallelism validators are the JAX
+validation, so one config dict is accepted by both packages, and the model
+code runs every field (the MoE FFN included).  The parallelism validators are the JAX
 package's, with its messages; ``validate_tp_shards`` and
 ``validate_sp_heads`` are the port's own.
 """

@@ -37,6 +37,20 @@ gradient of its source column, so the copies stay equal after each update.
 ``gather_dp`` is ZeRO-3's per-use parameter all-gather over the dp group
 (its gradient is reduce-scattered back to the shard).
 
+The MoE layout follows ``dlbb_tpu/models/sharding.py:40-50``: each expert
+keeps the column/row split on its features (the ``ffn_up`` kernel
+``[E, H, F]`` and bias ``[E, F]`` on F, the ``ffn_down`` kernel ``[E, F, H]``
+on F); the ``ffn_down`` bias and the router stay whole over tp.  Over an ep
+axis each rank holds the contiguous slice ``[r E/ep, (r+1) E/ep)`` of the
+expert dimension of the four expert leaves, and over a pp axis each stage
+the slice ``[r L/pp, (r+1) L/pp)`` of every stacked layer leaf
+(``shard_params``' ``pp_rank``/``ep_rank``); ``ln_f`` stays whole.
+``copy_to_ep`` and ``reduce_from_ep`` are the conjugate pair over the ep
+group: the tokens are replicated over ep and each rank computes only its
+experts, so the combine is a sum over ep and the inputs' gradients are
+summed over it.  ``token_mean`` is the mean of a statistic over the ranks
+that cut the tokens of a batch (dp, sp), for the MoE load-balancing loss.
+
 The collectives themselves (``all_reduce_sum``, ``all_gather_along``,
 ``reduce_scatter_along``) work on any dimension and take the tensor where
 it is, on either backend: gloo on torch 2.11 reduce-scatters, all-gathers
@@ -61,13 +75,34 @@ from dlbb_tpu_torch.models.configs import ModelConfig
 _TP_DIM = {("qkv", "kernel"): 2, ("qkv", "bias"): 1,
            ("ffn_up", "kernel"): 2, ("ffn_up", "bias"): 1,
            ("out", "kernel"): 1, ("ffn_down", "kernel"): 1}
+# the same for the MoE layers, whose expert leaves carry the expert dim 1
+_MOE_TP_DIM = {**_TP_DIM, ("ffn_up", "kernel"): 3, ("ffn_up", "bias"): 2,
+               ("ffn_down", "kernel"): 2}
+# the expert dimension of the stacked MoE expert leaves, which ep slices
+_EP_DIM = {("ffn_up", "kernel"): 1, ("ffn_up", "bias"): 1,
+           ("ffn_down", "kernel"): 1, ("ffn_down", "bias"): 1}
+# pp slices every stacked layer leaf on its layer dimension
+PP_DIM = 0
 
 
-def tp_dim(group: str, leaf: str) -> Optional[int]:
+def tp_dim(group: str, leaf: str, moe: bool = False) -> Optional[int]:
     """The dimension of the stacked leaf ``group.leaf`` that tp shards
     (the ``tp`` entry of its JAX ``PartitionSpec``), or None where the leaf
-    is replicated over tp."""
-    return _TP_DIM.get((group, leaf))
+    is replicated over tp; ``moe`` for the expert-stacked MoE layers."""
+    return (_MOE_TP_DIM if moe else _TP_DIM).get((group, leaf))
+
+
+def ep_dim(group: str, leaf: str, moe: bool = True) -> Optional[int]:
+    """The expert dimension of the stacked MoE leaf ``group.leaf`` (the
+    ``ep`` entry of its JAX ``PartitionSpec``), None for the other leaves
+    and for a dense model."""
+    return _EP_DIM.get((group, leaf)) if moe else None
+
+
+def is_moe_tree(params: dict[str, Any]) -> bool:
+    """Whether ``params`` hold MoE layers (the JAX package's test: a
+    ``router`` group)."""
+    return "router" in params["layers"]
 
 
 def local_kv_heads(config: ModelConfig, tp: int) -> int:
@@ -110,38 +145,48 @@ def qkv_columns(config: ModelConfig, tp_rank: int, tp: int) -> torch.Tensor:
                         dtype=torch.long)
 
 
+def _slice(t: torch.Tensor, dim: int, rank: int, size: int) -> torch.Tensor:
+    n = t.shape[dim] // size
+    return t.narrow(dim, rank * n, n)
+
+
 def shard_leaf(group: str, leaf: str, t: torch.Tensor, config: ModelConfig,
-               tp_rank: int, tp: int) -> torch.Tensor:
-    """Rank ``tp_rank``'s shard of the stacked layer leaf ``group.leaf`` (a
-    new tensor, so the full one can be freed), or ``t`` itself where it is
-    replicated or ``tp`` is 1."""
-    if tp == 1:
+               tp_rank: int, tp: int, pp_rank: int = 0, pp: int = 1,
+               ep_rank: int = 0, ep: int = 1) -> torch.Tensor:
+    """Rank ``(pp_rank, ep_rank, tp_rank)``'s part of the stacked layer leaf
+    ``group.leaf``: its stage's layers, its experts and its tp shard (a new
+    tensor, so the full one can be freed), or ``t`` itself where nothing is
+    cut."""
+    cut = t
+    if pp > 1:
+        cut = _slice(cut, PP_DIM, pp_rank, pp)
+    edim = ep_dim(group, leaf, config.is_moe)
+    if ep > 1 and edim is not None:
+        cut = _slice(cut, edim, ep_rank, ep)
+    if tp > 1 and group == "qkv":
+        return cut.index_select(cut.dim() - 1,
+                                qkv_columns(config, tp_rank, tp).to(t.device))
+    dim = tp_dim(group, leaf, config.is_moe)
+    if tp > 1 and dim is not None:
+        cut = _slice(cut, dim, tp_rank, tp)
+    if cut is t:
         return t
-    if group == "qkv":
-        return t.index_select(t.dim() - 1,
-                              qkv_columns(config, tp_rank, tp).to(t.device))
-    dim = tp_dim(group, leaf)
-    if dim is None:
-        return t
-    size = t.shape[dim] // tp
-    return t.narrow(dim, tp_rank * size, size).clone(
-        memory_format=torch.contiguous_format)
+    return cut.clone(memory_format=torch.contiguous_format)
 
 
 def shard_params(params: dict[str, Any], config: ModelConfig, tp_rank: int,
-                 tp: int) -> dict[str, Any]:
-    """Rank ``tp_rank``'s shards of the full parameters (the layout of
-    ``transformer.init_params``)."""
-    layers = {group: {leaf: shard_leaf(group, leaf, t, config, tp_rank, tp)
+                 tp: int, pp_rank: int = 0, pp: int = 1, ep_rank: int = 0,
+                 ep: int = 1) -> dict[str, Any]:
+    """Rank ``(pp_rank, ep_rank, tp_rank)``'s part of the full parameters
+    (the layout of ``transformer.init_params``)."""
+    layers = {group: {leaf: shard_leaf(group, leaf, t, config, tp_rank, tp,
+                                       pp_rank, pp, ep_rank, ep)
                       for leaf, t in sub.items()}
               for group, sub in params["layers"].items()}
     return {"layers": layers, "ln_f": dict(params["ln_f"])}
 
 
-def unshard_params(shards: list[dict[str, Any]], config: ModelConfig) -> dict[str, Any]:
-    """The full parameters from every tp rank's shards, by tp rank (the
-    inverse of ``shard_params``).  A kv column that ranks hold in copies is
-    taken from the last copy written; the copies are equal."""
+def _unshard_tp(shards: list[dict[str, Any]], config: ModelConfig) -> dict[str, Any]:
     tp = len(shards)
     if tp == 1:
         return shards[0]
@@ -150,7 +195,7 @@ def unshard_params(shards: list[dict[str, Any]], config: ModelConfig) -> dict[st
     for group, sub in ref["layers"].items():
         layers[group] = {}
         for leaf, t in sub.items():
-            dim = tp_dim(group, leaf)
+            dim = tp_dim(group, leaf, config.is_moe)
             parts = [s["layers"][group][leaf] for s in shards]
             if dim is None:
                 layers[group][leaf] = t
@@ -163,6 +208,34 @@ def unshard_params(shards: list[dict[str, Any]], config: ModelConfig) -> dict[st
             else:
                 layers[group][leaf] = torch.cat(parts, dim)
     return {"layers": layers, "ln_f": dict(ref["ln_f"])}
+
+
+def unshard_params(shards: list[dict[str, Any]], config: ModelConfig,
+                   pp: int = 1, ep: int = 1) -> dict[str, Any]:
+    """The full parameters from every rank's parts (the inverse of
+    ``shard_params``): ``shards`` in the row-major order of (pp, ep, tp),
+    which with ``pp`` and ``ep`` 1 is the list by tp rank.  A kv column
+    that ranks hold in copies is taken from the last copy written; the
+    copies are equal."""
+    tp = len(shards) // (pp * ep)
+    stages = []
+    for s in range(pp):
+        by_ep = [_unshard_tp(shards[(s * ep + e) * tp:(s * ep + e + 1) * tp], config)
+                 for e in range(ep)]
+        ref = by_ep[0]
+        layers = {group: {leaf: (torch.cat([b["layers"][group][leaf] for b in by_ep],
+                                           ep_dim(group, leaf))
+                                 if ep > 1 and ep_dim(group, leaf, config.is_moe) is not None
+                                 else t)
+                          for leaf, t in sub.items()}
+                  for group, sub in ref["layers"].items()}
+        stages.append({"layers": layers, "ln_f": ref["ln_f"]})
+    if pp == 1:
+        return stages[0]
+    layers = {group: {leaf: torch.cat([st["layers"][group][leaf] for st in stages], PP_DIM)
+                      for leaf in sub}
+              for group, sub in stages[0]["layers"].items()}
+    return {"layers": layers, "ln_f": dict(stages[0]["ln_f"])}
 
 
 def batch_spec(mesh) -> dict[str, int]:
@@ -200,7 +273,7 @@ def reduce_scatter_along(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out.movedim(0, dim).contiguous()
 
 
-class _CopyToTP(torch.autograd.Function):
+class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
@@ -211,10 +284,20 @@ class _CopyToTP(torch.autograd.Function):
         return all_reduce_sum(grad, ctx.group), None
 
 
-class _ReduceFromTP(torch.autograd.Function):
+class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _MeanFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x, group) / dist.get_world_size(group)
 
     @staticmethod
     def backward(ctx, grad):
@@ -235,13 +318,36 @@ class _GatherDP(torch.autograd.Function):
 def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
     """Identity forward; the gradient is summed over the tp ``group`` (the
     input of a column-parallel product feeds every rank's columns)."""
-    return _CopyToTP.apply(x, group)
+    return _CopyTo.apply(x, group)
 
 
 def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of the ranks' partial products over the tp ``group``; the
     gradient passes through (each rank's partial sum gets all of it)."""
-    return _ReduceFromTP.apply(x, group)
+    return _ReduceFrom.apply(x, group)
+
+
+def copy_to_ep(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; the gradient is summed over the ep ``group`` (the
+    tokens and gates feed every rank's experts)."""
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from_ep(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of the ranks' expert outputs over the ep ``group``; the
+    gradient passes through (each rank's experts get all of it)."""
+    return _ReduceFrom.apply(x, group)
+
+
+def token_mean(x: torch.Tensor, groups) -> torch.Tensor:
+    """The mean of ``x``, a statistic of this rank's equal share of the
+    tokens, over the ranks of each of ``groups`` (dp, sp); the gradient
+    passes through unchanged.  Each rank's loss holds the replicated mean,
+    and the train step averages the ranks' gradients over dp and sums their
+    chunks' shares over sp, which gives every rank's statistic its 1/n."""
+    for group in groups:
+        x = _MeanFrom.apply(x, group)
+    return x
 
 
 def gather_dp(shard: torch.Tensor, dim: int, group) -> torch.Tensor:

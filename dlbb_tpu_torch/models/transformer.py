@@ -1,4 +1,5 @@
-"""Dense decoder forward (counterpart of ``dlbb_tpu/models/transformer.py``).
+"""Decoder forward, dense or MoE (counterpart of
+``dlbb_tpu/models/transformer.py``).
 
 Pre-LN block: ln1 -> fused QKV -> attention -> out-proj -> residual;
 ln2 -> FFN up -> gelu -> FFN down -> residual; final LN.  Parameters keep the
@@ -56,6 +57,20 @@ heads.  With sp above 1 "flash" raises JAX's message, and "full" and
 "dense" raise the plan's (``configs.validate_attention_parallelism``): on
 the rank's slice they would attend within it only, where GSPMD gathers the
 sequence.
+
+With ``num_experts`` above 0 the FFN is the top-k gated mixture of experts
+(``_moe_ffn``: the router, ``router_probs_gates`` and ``moe_aux_loss`` in
+fp32, then the dense or the capacity dispatch; the experts keep the dense
+FFN's tanh gelu).  On a mesh each rank runs its ep slice of the experts on
+its tp columns: the expert input and the gates pass ``copy_to_tp`` and
+``copy_to_ep``, the experts' partial sums are summed over tp, the
+``ffn_down`` bias term (whole over tp) is added once, and the combine is
+summed over ep (``reduce_from_ep``).  The router runs whole on every rank.
+``_block`` returns ``(x, aux)``, the layer's load-balancing loss where
+``forward(with_aux=True)`` asks for it (its token means taken over the dp
+and sp groups, ``sharding.token_mean``), else None; ``forward`` returns the
+layer mean beside the output.  A mesh with a pp axis above 1 hands the
+whole forward to the pipeline engine (``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -75,11 +90,15 @@ from torch.utils.checkpoint import (
 from dlbb_tpu_torch.models.attention import dense_attention
 from dlbb_tpu_torch.models.configs import ModelConfig, validate_attention_parallelism
 from dlbb_tpu_torch.models.sharding import (
+    all_gather_along,
+    copy_to_ep,
     copy_to_tp,
     gather_dp,
     local_config,
+    reduce_from_ep,
     reduce_from_tp,
     shard_leaf,
+    token_mean,
 )
 from dlbb_tpu_torch.ops.flash_attention import flash_attention, kernel_accepts
 from dlbb_tpu_torch.parallel.collective_matmul import (
@@ -98,49 +117,60 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 
 def init_params(config: ModelConfig, seed: int, device, tp_rank: int = 0,
-                tp: int = 1) -> Params:
+                tp: int = 1, pp_rank: int = 0, pp: int = 1, ep_rank: int = 0,
+                ep: int = 1) -> Params:
     """Stacked-layer parameters, drawn on ``device`` from a
     ``torch.Generator`` seeded with ``seed``: scaled-normal kernels
     (1/sqrt(fan_in)), zero biases, unit LN scales — the JAX init's
     distribution, not its numbers (the parity tests carry JAX weights across
-    with ``params_from_jax`` instead).
+    with ``params_from_jax`` instead).  A MoE model (``num_experts`` above 0)
+    has the JAX tree's router ``[L, H, E]`` and experts ``ffn_up``
+    ``[L, E, H, F]`` and ``ffn_down`` ``[L, E, F, H]``.
 
-    With ``tp`` above 1, rank ``tp_rank`` draws the same full leaves, one at
-    a time, and keeps its shard of each (``sharding.shard_leaf``): the same
-    seed gives the same model at every tp, and the peak is one full leaf."""
-    _check_dense_ffn(config)
+    On a mesh, rank ``(pp_rank, ep_rank, tp_rank)`` draws the same full
+    leaves, one at a time, and keeps its part of each (``sharding.
+    shard_leaf``: its stage's layers, its experts, its tp shard): the same
+    seed gives the same model on every mesh, and the peak is one full
+    leaf."""
     h, f, L = config.hidden_size, config.ffn_intermediate, config.num_layers
     dtype = DTYPES[config.dtype]
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
+    def cut(group, leaf, t):
+        return shard_leaf(group, leaf, t, config, tp_rank, tp, pp_rank, pp, ep_rank, ep)
+
     def kernel(group, shape, fan_in):
         w = torch.randn(shape, generator=gen, device=device, dtype=dtype)
-        return shard_leaf(group, "kernel", w.div_(math.sqrt(fan_in)), config,
-                          tp_rank, tp)
+        return cut(group, "kernel", w.div_(math.sqrt(fan_in)))
 
     def zeros(group, *shape):
-        return shard_leaf(group, "bias", torch.zeros(shape, device=device, dtype=dtype),
-                          config, tp_rank, tp)
+        return cut(group, "bias", torch.zeros(shape, device=device, dtype=dtype))
 
-    def ones(*shape):
-        return torch.ones(shape, device=device, dtype=dtype)
+    def ones(group, *shape):
+        return cut(group, "scale", torch.ones(shape, device=device, dtype=dtype))
 
     qkvw = config.qkv_width
-    # the kernels are drawn in this order: qkv, out, ffn_up, ffn_down
+    e = (config.num_experts,) if config.is_moe else ()
+    # the kernels are drawn in this order: qkv, out, ffn_up, ffn_down and,
+    # for MoE, the router
     layers = {
-        "ln1": {"scale": ones(L, h), "bias": zeros("ln1", L, h)},
+        "ln1": {"scale": ones("ln1", L, h), "bias": zeros("ln1", L, h)},
         "qkv": {"kernel": kernel("qkv", (L, h, qkvw), h), "bias": zeros("qkv", L, qkvw)},
         "out": {"kernel": kernel("out", (L, h, h), h), "bias": zeros("out", L, h)},
-        "ln2": {"scale": ones(L, h), "bias": zeros("ln2", L, h)},
-        "ffn_up": {"kernel": kernel("ffn_up", (L, h, f), h),
-                   "bias": zeros("ffn_up", L, f)},
-        "ffn_down": {"kernel": kernel("ffn_down", (L, f, h), f),
-                     "bias": zeros("ffn_down", L, h)},
+        "ln2": {"scale": ones("ln2", L, h), "bias": zeros("ln2", L, h)},
+        "ffn_up": {"kernel": kernel("ffn_up", (L, *e, h, f), h),
+                   "bias": zeros("ffn_up", L, *e, f)},
+        "ffn_down": {"kernel": kernel("ffn_down", (L, *e, f, h), f),
+                     "bias": zeros("ffn_down", L, *e, h)},
     }
+    if config.is_moe:
+        # router logits in the params dtype; the gating math runs in fp32
+        layers["router"] = {"kernel": kernel("router", (L, h, config.num_experts), h)}
     return {"layers": layers,
-            "ln_f": {"scale": ones(h), "bias": zeros("ln_f", h)}}
+            "ln_f": {"scale": torch.ones(h, device=device, dtype=dtype),
+                     "bias": torch.zeros(h, device=device, dtype=dtype)}}
 
 
 def _layernorm(x, scale, bias):
@@ -225,6 +255,142 @@ def _attention(qkv, config: ModelConfig, mesh=None):
     return o.transpose(1, 2).reshape(b, s, n * d)
 
 
+def router_probs_gates(logits: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 softmax router distribution and the top-k routing weights
+    (the k largest probabilities renormalised to sum 1): ``(probs, gates)``,
+    both ``[..., E]``, gates with exactly k nonzeros.  Of equal
+    probabilities the lower expert index wins, as in ``jax.lax.top_k``: a
+    stable descending sort keeps equal values in index order, where
+    ``torch.topk`` promises no order."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :k]
+    mask = torch.zeros_like(probs).scatter_(-1, top, 1.0)
+    gated = probs * mask
+    return probs, gated / gated.sum(dim=-1, keepdim=True)
+
+
+def top_k_gates(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """The top-k routing weights of ``router_probs_gates``."""
+    return router_probs_gates(logits, k)[1]
+
+
+def moe_aux_loss(probs: torch.Tensor, gates: torch.Tensor, k: int,
+                 groups=()) -> torch.Tensor:
+    """Switch-Transformer load-balancing loss, generalised to top-k:
+    ``E * sum_e f_e * P_e``, ``f_e`` the fraction of routing slots sent to
+    expert e, ``P_e`` its mean router probability, both over the
+    ``[B, S]`` tokens; 1.0 at perfect balance.  ``groups`` are the process
+    groups that cut the batch's tokens (dp, sp): both means are taken over
+    all of them (``sharding.token_mean``), as GSPMD takes JAX's over the
+    global batch."""
+    num_experts = probs.shape[-1]
+    f = (gates > 0).float().mean(dim=(0, 1)) / k
+    p = probs.mean(dim=(0, 1))
+    if groups:
+        f, p = token_mean(torch.stack([f, p]), groups).unbind(0)
+    return num_experts * torch.sum(f * p)
+
+
+def moe_capacity(config: ModelConfig, seq_len: int) -> int:
+    """Per-expert capacity slots per sequence (the GShard formula:
+    capacity_factor x tokens x k / E, at least 1 and at most seq_len)."""
+    c = math.ceil(config.moe_capacity_factor * seq_len * config.moe_top_k
+                  / config.num_experts)
+    return max(1, min(c, seq_len))
+
+
+def _expert_groups(mesh):
+    """(tp group, ep group, ep rank) of a mesh; None, None, 0 without one
+    (and None for an axis the mesh lacks)."""
+    if mesh is None:
+        return None, None, 0
+    ep = mesh.axis_groups["ep"] if "ep" in mesh.axis_names else None
+    return mesh.axis_groups["tp"], ep, mesh.coords.get("ep", 0)
+
+
+def _earlier_chunk_claims(mask: torch.Tensor, mesh) -> torch.Tensor:
+    """``[B, E]``: per row and expert, the routing slots of the sequence
+    chunks before this sp rank's (an exclusive scan of ``mask`` [B, S/sp,
+    E]'s counts over the sp group, whose ranks hold the chunks in order)."""
+    counts = mask.sum(dim=1, dtype=torch.int32)
+    every = all_gather_along(counts[None], 0, mesh.axis_groups["sp"])  # [sp, B, E]
+    return every[:mesh.coords["sp"]].sum(dim=0, dtype=torch.int32)
+
+
+def _moe_ffn(y, layer: Params, config: ModelConfig, mesh=None, aux_groups=None):
+    """Route and dispatch ``y`` [B, S, H] -> ``(out, aux)``: the FFN output
+    and, where ``aux_groups`` is given (a tuple of token groups), the
+    layer's ``moe_aux_loss``, else None.  The routing is the same for both
+    dispatches, on the full ``[B, S, E]`` gates on every rank:
+
+    - dense (``_moe_ffn_dense`` there): every local expert runs on every
+      token, the gates (zero outside the top k) weight the combination;
+    - capacity (``_moe_ffn_capacity``): each sequence is a dispatch group,
+      each expert has ``moe_capacity`` slots per group, and the (token,
+      expert) routing slots claim them in sequence order by a per-expert
+      cumulative count over the full gates, taken before the expert dim is
+      cut to this rank's slice and, under sp, over the whole sequence (the
+      capacity of the full length, the count offset by the earlier chunks'
+      claims); a slot past the capacity is dropped (the
+      token keeps its other experts at their unrenormalised weights, or
+      only the residual).
+
+    Module docstring: the conjugate pairs over tp and ep."""
+    logits = y @ layer["router"]["kernel"]                       # [B, S, E]
+    probs, gates = router_probs_gates(logits, config.moe_top_k)  # fp32
+    aux = (None if aux_groups is None
+           else moe_aux_loss(probs, gates, config.moe_top_k, aux_groups))
+    tp_group, ep_group, ep_rank = _expert_groups(mesh)
+    up_w, up_b = layer["ffn_up"]["kernel"], layer["ffn_up"]["bias"]
+    down_w, down_b = layer["ffn_down"]["kernel"], layer["ffn_down"]["bias"]
+    n_local = up_w.shape[0]
+    experts = slice(ep_rank * n_local, (ep_rank + 1) * n_local)
+    keep = None
+    if config.moe_dispatch == "capacity":
+        mask = gates > 0
+        # the slot each routing slot would take in its expert's queue
+        pos = torch.cumsum(mask.to(torch.int32), dim=1) - 1     # [B, S, E]
+        seq_len = y.shape[1]
+        if _sp_size(mesh) > 1:
+            # y is this rank's chunk of the sequence: the queues run over
+            # the whole sequence, behind the earlier chunks' claims
+            pos = pos + _earlier_chunk_claims(mask, mesh)[:, None, :]
+            seq_len *= _sp_size(mesh)
+        cap = moe_capacity(config, seq_len)
+        keep = (mask & (pos < cap))[..., experts]
+        dispatch = ((pos[..., experts, None] == torch.arange(cap, device=y.device))
+                    & keep[..., None]).to(y.dtype)              # [B, S, E_l, C]
+    g = gates if ep_group is None else copy_to_ep(gates, ep_group)
+    g = g[..., experts]
+    x = y
+    if tp_group is not None:
+        x = copy_to_tp(x, tp_group)
+    if ep_group is not None:
+        x = copy_to_ep(x, ep_group)
+    g_tp = g if tp_group is None else copy_to_tp(g, tp_group)
+    if keep is None:
+        up = torch.einsum("bsh,ehf->bsef", x, up_w) + up_b
+        act = F.gelu(up, approximate="tanh")
+        part = torch.einsum("bsef,efh->bseh", act, down_w)       # tp partial sums
+        out = torch.einsum("bseh,bse->bsh", part, g_tp.to(y.dtype))
+        w_bias = g
+    else:
+        expert_in = torch.einsum("bsec,bsh->bech", dispatch, x)  # [B, E_l, C, H]
+        up = torch.einsum("bech,ehf->becf", expert_in, up_w) + up_b[None, :, None, :]
+        act = F.gelu(up, approximate="tanh")
+        part = torch.einsum("becf,efh->bech", act, down_w)
+        combine = dispatch * g_tp.to(y.dtype)[..., None]         # [B, S, E_l, C]
+        out = torch.einsum("bsec,bech->bsh", combine, part)
+        w_bias = g * keep
+    if tp_group is not None:
+        out = reduce_from_tp(out, tp_group)
+    # the ffn_down bias of each expert, at the weight of its kept slots
+    out = out + torch.einsum("bse,eh->bsh", w_bias.to(y.dtype), down_b)
+    if ep_group is not None:
+        out = reduce_from_ep(out, ep_group)
+    return out, aux
+
+
 def use_tp_overlap(config: ModelConfig, mesh) -> bool:
     """Whether this (config, mesh) pair routes the tensor-parallel
     projections through the ring-decomposed collective matmuls.  The knob is
@@ -291,7 +457,10 @@ def _gather_layer(layer: Params, fsdp) -> Params:
             for name, sub in layer.items()}
 
 
-def _block(x, layer: Params, config: ModelConfig, mesh=None, fsdp=None):
+def _block(x, layer: Params, config: ModelConfig, mesh=None, fsdp=None,
+           aux_groups=None):
+    """One block: ``(x, aux)``, aux the layer's MoE load-balancing loss
+    where ``aux_groups`` asks for it (``_moe_ffn``), else None."""
     if fsdp is not None:
         layer = _gather_layer(layer, fsdp)
     col, row = _projections(config, mesh)
@@ -303,10 +472,13 @@ def _block(x, layer: Params, config: ModelConfig, mesh=None, fsdp=None):
 
     residual = x
     y = _layernorm(x, layer["ln2"]["scale"], layer["ln2"]["bias"])
+    if config.is_moe:
+        out, aux = _moe_ffn(y, layer, config, mesh, aux_groups)
+        return out + residual, aux
     y = col(y, layer["ffn_up"])
     # jax.nn.gelu defaults to approximate=True: the tanh form, not erf
     y = F.gelu(y, approximate="tanh")
-    return row(y, layer["ffn_down"]) + residual
+    return row(y, layer["ffn_down"]) + residual, None
 
 
 # the matrix products that remat_policy="dots" keeps
@@ -319,86 +491,151 @@ def _dots_saveable(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat_block(x, layer: Params, config: ModelConfig, mesh=None, fsdp=None):
+def _remat_block(x, layer: Params, config: ModelConfig, mesh=None, fsdp=None,
+                 aux_groups=None):
     if config.remat_policy == "dots":
         context_fn = functools.partial(create_selective_checkpoint_contexts,
                                        _dots_saveable)
-        return checkpoint(_block, x, layer, config, mesh, fsdp,
+        return checkpoint(_block, x, layer, config, mesh, fsdp, aux_groups,
                           use_reentrant=False, context_fn=context_fn)
-    return checkpoint(_block, x, layer, config, mesh, fsdp, use_reentrant=False)
+    return checkpoint(_block, x, layer, config, mesh, fsdp, aux_groups,
+                      use_reentrant=False)
 
 
-def forward(params: Params, x: torch.Tensor, config: ModelConfig,
-            mesh=None, dp_axes=None) -> torch.Tensor:
-    """Full forward pass: the layers in order, then the final LN.
+def token_groups(mesh) -> tuple:
+    """The process groups that cut a batch's tokens on ``mesh`` (dp and sp,
+    where above 1): the MoE load-balancing loss takes its means over them."""
+    if mesh is None:
+        return ()
+    return tuple(mesh.axis_groups[a] for a in ("dp", "sp") if mesh.shape.get(a, 1) > 1)
 
-    ``mesh`` (a ``comm.Mesh`` with ``dp``, ``tp`` and maybe ``sp`` axes,
-    ``ParallelismPlan.mesh``) runs the tensor-parallel forward over its tp
-    group: ``params`` are this rank's shards and ``x`` its dp rows and sp
-    slice of the sequence (``sharding.batch_spec``), ``config`` the full
-    model's.  With ``tp_overlap`` the output is this rank's chunk of the
-    sequence (``collective_matmul.seq_chunk``).  ``dp_axes`` (ZeRO-3, with
-    a mesh) is the tree of each leaf's dp axis, None where a leaf is whole
-    (module docstring)."""
-    _check_dense_ffn(config)
+
+def layer_list(stacked: Params, mesh=None, dp_axes=None) -> tuple[list, Any]:
+    """``(layers, fsdp)``: the stacked ``[L, ...]`` leaves as one parameter
+    dict per layer, and ZeRO-3's ``(dp group, axis per leaf)`` for the
+    blocks' gathers (None without ``dp_axes``, the tree of each stacked
+    leaf's dp axis).  A leaf cut along its layer axis is gathered whole,
+    here, once; the others are gathered layer by layer inside the blocks.
+    One unbind per stacked parameter: its gradient is one stack of the
+    layers' gradients (indexing ``t[i]`` instead would add a zero-filled
+    full-size ``[L, ...]`` gradient per layer)."""
     fsdp = None
-    if mesh is not None:
-        if use_tp_overlap(config, mesh):
-            x = seq_chunk(x, mesh)
-        config = local_config(config, mesh.shape["tp"])
-    stacked = params["layers"]
-    ln_f = params["ln_f"]
     if dp_axes is not None:
-        dp_group = mesh.axis_groups["dp"]
-        # a leaf cut along its layer axis is gathered whole, here; the
-        # others are gathered layer by layer inside the blocks
-        stacked = {name: {p: (gather_dp(t, 0, dp_group) if dp_axes["layers"][name][p] == 0
-                              else t) for p, t in sub.items()}
+        group = mesh.axis_groups["dp"]
+        stacked = {name: {p: (gather_dp(t, 0, group) if dp_axes[name][p] == 0 else t)
+                          for p, t in sub.items()}
                    for name, sub in stacked.items()}
-        fsdp = (dp_group, {name: {p: (None if ax in (None, 0) else ax - 1)
-                                  for p, ax in sub.items()}
-                           for name, sub in dp_axes["layers"].items()})
-        ln_f = {p: (t if dp_axes["ln_f"][p] is None
-                    else gather_dp(t, dp_axes["ln_f"][p], dp_group))
+        fsdp = (group, {name: {p: (None if ax in (None, 0) else ax - 1)
+                               for p, ax in sub.items()}
+                        for name, sub in dp_axes.items()})
+    unbound = {name: {p: t.unbind(0) for p, t in sub.items()}
+               for name, sub in stacked.items()}
+    n = len(next(iter(next(iter(unbound.values())).values())))
+    return [{name: {p: ts[i] for p, ts in sub.items()} for name, sub in unbound.items()}
+            for i in range(n)], fsdp
+
+
+def run_layers(x, layers: list, config: ModelConfig, mesh=None, fsdp=None,
+               with_aux: bool = False):
+    """The blocks of ``layers`` in order (remat per block where
+    ``config.remat`` and gradients are recorded): ``(x, aux)``, aux the sum
+    of the layers' load-balancing losses where ``with_aux`` on a MoE model,
+    else None.  ``config`` is this rank's (``local_config``)."""
+    block = _remat_block if config.remat and torch.is_grad_enabled() else _block
+    groups = token_groups(mesh) if with_aux and config.is_moe else None
+    total = None
+    for layer in layers:
+        x, aux = block(x, layer, config, mesh, fsdp, groups)
+        if aux is not None:
+            total = aux if total is None else total + aux
+    return x, total
+
+
+def final_norm(x, ln_f: Params, mesh=None, dp_axes=None):
+    """``ln_f`` on ``x``, its ZeRO-3 shards gathered over dp first where
+    ``dp_axes`` (its tree of dp axes) cuts them."""
+    if dp_axes is not None:
+        group = mesh.axis_groups["dp"]
+        ln_f = {p: (t if dp_axes[p] is None else gather_dp(t, dp_axes[p], group))
                 for p, t in ln_f.items()}
-    block = functools.partial(
-        _remat_block if config.remat and torch.is_grad_enabled() else _block,
-        mesh=mesh, fsdp=fsdp)
-    # one unbind per stacked parameter: its gradient is one stack of the
-    # layers' gradients (indexing t[i] instead would add a zero-filled
-    # full-size [L, ...] gradient per layer)
-    layers = {name: {p: t.unbind(0) for p, t in group.items()}
-              for name, group in stacked.items()}
-    for i in range(config.num_layers):
-        layer = {name: {p: ts[i] for p, ts in group.items()}
-                 for name, group in layers.items()}
-        x = block(x, layer, config)
     return _layernorm(x, ln_f["scale"], ln_f["bias"])
 
 
-def _check_dense_ffn(config: ModelConfig) -> None:
-    if config.is_moe:
-        raise NotImplementedError("MoE FFNs are not ported to dlbb_tpu_torch yet")
+def forward(params: Params, x: torch.Tensor, config: ModelConfig,
+            mesh=None, dp_axes=None, num_microbatches: Optional[int] = None,
+            with_aux: bool = False):
+    """Full forward pass: the layers in order, then the final LN.
+
+    ``mesh`` (a ``comm.Mesh`` with ``dp``, ``tp`` and maybe ``sp``, ``pp``
+    and ``ep`` axes, ``ParallelismPlan.mesh``) runs the tensor-parallel
+    forward over its tp group: ``params`` are this rank's parts and ``x``
+    its dp rows and sp slice of the sequence (``sharding.batch_spec``),
+    ``config`` the full model's.  With ``tp_overlap`` the output is this
+    rank's chunk of the sequence (``collective_matmul.seq_chunk``).  A pp
+    axis above 1 runs the GPipe engine (``pipeline.pipeline_forward``, in
+    ``num_microbatches`` microbatches, by default one per stage).
+    ``dp_axes`` (ZeRO-3, with a mesh) is the tree of each leaf's dp axis,
+    None where a leaf is whole (module docstring).  ``with_aux`` returns
+    ``(y, aux)``, aux the layer mean of the MoE load-balancing loss (0.0
+    for a dense FFN)."""
+    if mesh is not None and mesh.shape.get("pp", 1) > 1:
+        from dlbb_tpu_torch.parallel.pipeline import pipeline_forward
+
+        return pipeline_forward(params, x, config, mesh,
+                                num_microbatches=num_microbatches,
+                                with_aux=with_aux, dp_axes=dp_axes)
+    if mesh is not None:
+        if use_tp_overlap(config, mesh):
+            x = seq_chunk(x, mesh)
+        local = local_config(config, mesh.shape["tp"])
+    else:
+        local = config
+    layers, fsdp = layer_list(params["layers"], mesh,
+                              None if dp_axes is None else dp_axes["layers"])
+    x, aux = run_layers(x, layers, local, mesh, fsdp, with_aux)
+    y = final_norm(x, params["ln_f"], mesh, None if dp_axes is None else dp_axes["ln_f"])
+    if not with_aux:
+        return y
+    if aux is None:
+        return y, torch.zeros((), dtype=torch.float32, device=y.device)
+    return y, aux / config.num_layers
 
 
 def num_parameters(config: ModelConfig) -> int:
-    """Total parameter count of the dense decoder."""
-    _check_dense_ffn(config)
+    """Total parameter count; a MoE model counts every expert and the
+    router."""
     h, f, L = config.hidden_size, config.ffn_intermediate, config.num_layers
+    if config.is_moe:
+        E = config.num_experts
+        ffn = h * E + E * (h * f + f) + E * (f * h + h)
+    else:
+        ffn = (h * f + f) + (f * h + h)
     qkvw = config.qkv_width
-    per_layer = (2 * h + h * qkvw + qkvw + h * h + h + 2 * h
-                 + (h * f + f) + (f * h + h))
+    per_layer = 2 * h + h * qkvw + qkvw + h * h + h + 2 * h + ffn
     return L * per_layer + 2 * h
 
 
 def forward_flops(config: ModelConfig, batch_size: int, seq_len: int) -> int:
-    """Analytic forward FLOPs (multiply-adds as 2; layernorm, gelu and
-    softmax omitted), the JAX package's count."""
-    _check_dense_ffn(config)
+    """Analytic forward FLOPs (multiply-adds as 2; layernorm, gelu, softmax
+    and gating omitted), the JAX package's count: a MoE FFN counts the
+    router, the dispatch and combine einsums and the experts' products on
+    every token (dense) or on their capacity slots."""
     h, f, L = config.hidden_size, config.ffn_intermediate, config.num_layers
     tokens = batch_size * seq_len
     qkv = 2 * tokens * h * config.qkv_width
     out = 2 * tokens * h * h
     attn = 0 if config.attention == "simplified" else 4 * batch_size * seq_len * seq_len * h
-    ffn = 2 * tokens * h * f * 2
+    if config.is_moe:
+        E = config.num_experts
+        router = 2 * tokens * h * E
+        if config.moe_dispatch == "capacity":
+            cap = moe_capacity(config, seq_len)
+            slots = batch_size * E * cap
+            dispatch = 2 * (2 * tokens * E * cap * h)
+        else:
+            slots = tokens * E
+            dispatch = 2 * tokens * E * h
+        ffn = router + dispatch + 2 * slots * h * f * 2
+    else:
+        ffn = 2 * tokens * h * f * 2
     return L * (qkv + attn + out + ffn)

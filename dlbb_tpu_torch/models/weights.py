@@ -2,8 +2,10 @@
 
 ``params_from_jax`` takes the pytree that
 ``dlbb_tpu.models.transformer.init_params`` returns, with every leaf
-converted by ``np.asarray``.  The layout is the same on both sides (stacked
-``[L, ...]``, ``[in, out]`` kernels), so only the types change.
+converted by ``np.asarray``, dense or MoE (router ``[L, H, E]``, experts
+``[L, E, H, F]`` and ``[L, E, F, H]``).  The layout is the same on both
+sides (stacked ``[L, ...]``, ``[in, out]`` kernels), so only the types
+change.
 """
 
 from __future__ import annotations
@@ -28,8 +30,6 @@ def params_from_jax(tree: dict[str, Any], config: ModelConfig,
                     device="cpu") -> Params:
     """The JAX parameter pytree (numpy leaves) as the port's parameters, in
     the model dtype, on ``device``."""
-    if "router" in tree["layers"]:
-        raise NotImplementedError("MoE parameters are not ported yet")
     dtype = DTYPES[config.dtype]
 
     def convert(node):

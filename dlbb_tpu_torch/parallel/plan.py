@@ -1,14 +1,16 @@
-"""Parallelism-plan resolution for the E2E harness (counterpart of
-``dlbb_tpu/parallel/plan.py``).
+"""Parallelism-plan resolution for the E2E and train harnesses
+(counterpart of ``dlbb_tpu/parallel/plan.py``).
 
 One place that parses the YAML ``parallelism:`` section, runs every
 validation of the JAX plan with its messages (the device preflight, the
 reference's ``run_mpi.py:73-77``; attention/sp, MoE/ep, ``tp_overlap``;
-``num_microbatches`` without a pipeline), refuses what the port does not
-run yet (pp and ep), and builds the process-group mesh, (dp, sp, tp) with
-an sp axis when sp is above 1.  The devices are the ranks of the default
-process group, one device per rank; without a process group there is one.
-The JAX plan's ``num_microbatches`` field waits for the pipeline.
+the pipeline's divisibility through ``pipeline.validate_pipeline``, which
+also resolves ``num_microbatches``, and ``num_microbatches`` without a
+pipeline), then the port's own refusals (uneven tp shards, Ulysses heads,
+a dp slice the microbatches do not divide), and builds the process-group
+mesh in JAX's axis order ``(dp[, sp][, pp][, ep], tp)``.  The devices are
+the ranks of the default process group, one device per rank; without a
+process group there is one.
 """
 
 from __future__ import annotations
@@ -27,15 +29,7 @@ from dlbb_tpu_torch.models.configs import (
     validate_tp_overlap,
     validate_tp_shards,
 )
-
-# what brings each refused axis (ROADMAP Queue 1, Slice D)
-_NOT_PORTED = {
-    "pp": "pipeline parallelism comes with parallel/pipeline.py (ROADMAP "
-          "Queue 1, Slice D, item 5)",
-    "ep": "expert parallelism comes with the MoE FFN (ROADMAP Queue 1, "
-          "Slice D, item 6)",
-}
-
+from dlbb_tpu_torch.parallel.pipeline import validate_pipeline, validate_rows
 
 def degrees(config: dict[str, Any]) -> tuple[int, int, int, int, int]:
     """``(dp, sp, pp, ep, tp)`` from the YAML ``parallelism:`` section
@@ -44,6 +38,19 @@ def degrees(config: dict[str, Any]) -> tuple[int, int, int, int, int]:
     return (par.get("data_parallel", 1), par.get("sequence_parallel", 1),
             par.get("pipeline_parallel", 1), par.get("expert_parallel", 1),
             par.get("world_size", 1))
+
+
+def microbatches(config: dict[str, Any], model_cfg: ModelConfig) -> Optional[int]:
+    """The plan's ``num_microbatches``: resolved by ``validate_pipeline``
+    (its checks and messages; default one per stage) where pp is above 1,
+    else the raw field (None unless a config sets it without a pipeline,
+    which ``check_plan`` refuses)."""
+    num_microbatches = (config.get("parallelism", {}) or {}).get("num_microbatches")
+    pp = degrees(config)[2]
+    if pp > 1:
+        return validate_pipeline(model_cfg, pp, config["input"]["batch_size"],
+                                 num_microbatches)
+    return num_microbatches
 
 
 def check_plan(config: dict[str, Any], model_cfg: ModelConfig,
@@ -64,19 +71,17 @@ def check_plan(config: dict[str, Any], model_cfg: ModelConfig,
         model_cfg, tp, pp=pp, sp=sp,
         seq_len=config.get("input", {}).get("sequence_length", 0),
     )
-    if pp > 1:
-        raise NotImplementedError(
-            f"parallelism.pipeline_parallel={pp}: {_NOT_PORTED['pp']}")
-    if (config.get("parallelism", {}) or {}).get("num_microbatches") is not None:
+    m = microbatches(config, model_cfg)
+    if pp <= 1 and m is not None:
         raise ValueError(
             "parallelism.num_microbatches requires "
             "pipeline_parallel > 1 (microbatching is the pipeline's "
             "schedule; without pp it would silently be ignored)"
         )
-    if ep > 1:
-        raise NotImplementedError(f"ep={ep}: {_NOT_PORTED['ep']}")
     validate_tp_shards(model_cfg, tp)
     validate_sp_heads(model_cfg, tp, sp)
+    if pp > 1:
+        validate_rows(config["input"]["batch_size"] // dp, m, dp)
     if n_avail > needed:
         raise ValueError(
             f"{n_avail} ranks in the process group, the config's mesh has "
@@ -91,6 +96,8 @@ class ParallelismPlan:
     pp: int
     ep: int
     tp: int
+    # the pipeline's microbatch count where pp is above 1, else None
+    num_microbatches: Optional[int]
     # None without a process group (world 1, no torch.distributed at all)
     mesh: Optional[Mesh]
 
@@ -104,9 +111,16 @@ class ParallelismPlan:
         dp, sp, pp, ep, tp = check_plan(config, model_cfg, n_avail)
         mesh = (build_parallelism_mesh(dp, sp, pp, tp, ep)
                 if dist.is_initialized() else None)
-        return cls(dp, sp, pp, ep, tp, mesh)
+        return cls(dp, sp, pp, ep, tp, microbatches(config, model_cfg), mesh)
 
     def mesh_dict(self) -> dict[str, int]:
         """The result-JSON ``mesh`` field."""
         return {"dp": self.dp, "sp": self.sp, "pp": self.pp,
                 "ep": self.ep, "tp": self.tp}
+
+    def coords(self) -> dict[str, int]:
+        """This rank's ``init_params`` arguments: its tp, pp and ep ranks
+        and the degrees (rank 0 of each without a process group)."""
+        c = {} if self.mesh is None else self.mesh.coords
+        return {"tp_rank": c.get("tp", 0), "tp": self.tp, "pp_rank": c.get("pp", 0),
+                "pp": self.pp, "ep_rank": c.get("ep", 0), "ep": self.ep}

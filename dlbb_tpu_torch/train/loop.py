@@ -35,8 +35,20 @@ holds copies of kv columns (GQA with tp not dividing ``kv_heads``), each
 copy's gradient becomes the full gradient of its source column
 (``sharding.sum_kv_copies``).
 
+A mesh with a pp axis above 1 pipelines the forward
+(``parallel/pipeline.py``): ``pipeline_schedule`` "gpipe" differentiates
+through the GPipe forward, "1f1b" runs ``pipeline_1f1b_grads``, JAX's
+dispatch (``dlbb_tpu/train/loop.py:354-367``); the layer leaves are the
+stage's, ``ln_f``'s gradient is whole on every stage.  On a MoE model
+``moe_aux_weight`` adds the load-balancing loss (``mse_loss``); an ep axis
+cuts the experts, whose gradients stay on their rank.  The port's
+micro-steps and microbatches are each rank's own dp rows, where JAX's are
+the global batch's, so the aux loss (nonlinear in a micro-batch's tokens)
+with dp above 1 is refused under gradient accumulation and pipelines
+(``check_moe_aux``).
+
 ``run_train`` is the config-driven benchmark: the plan and mesh from the
-config (pp and ep are refused by ``check_plan``), the sharded init and
+config (``check_plan``), the sharded init and
 the rank's slice of the batch and targets, warmup, timed steps, checkpoint
 and resume (``train/checkpoint.py``) and graceful preemption
 (``resilience/preempt.py``), in the JAX harness's result schema with
@@ -46,9 +58,9 @@ inside a process group each timed step runs between world barriers and
 takes the slowest rank's time (``time_fn_per_iter_spmd``), as
 ``bench/e2e.py`` does.  The result's ``transport`` says how the ring hops
 moved (``transformer.ring_transport``), None where none ran.  Gradient
-compression, the MoE aux loss and the pipeline schedule wait for their
-ROADMAP items and are refused, never ignored.  The JAX package's chained
-timing regime exists for a remotely attached TPU and is not ported.
+compression waits for its ROADMAP item and is refused, never ignored.  The
+JAX package's chained timing regime exists for a remotely attached TPU and
+is not ported.
 """
 
 from __future__ import annotations
@@ -84,6 +96,11 @@ from dlbb_tpu_torch.models.transformer import (
 )
 from dlbb_tpu_torch.ops import flash_attention as flash_mod
 from dlbb_tpu_torch.parallel.collective_matmul import seq_chunk
+from dlbb_tpu_torch.parallel.pipeline import (
+    pipeline_1f1b_grads,
+    validate_pipeline,
+    validate_rows,
+)
 from dlbb_tpu_torch.parallel.plan import ParallelismPlan
 from dlbb_tpu_torch.resilience import PreemptionGuard, inject
 from dlbb_tpu_torch.train.optim import (
@@ -118,14 +135,24 @@ class TrainState(NamedTuple):
 
 
 def mse_loss(params, batch, targets, config: ModelConfig, mesh=None,
-             dp_axes=None) -> torch.Tensor:
+             dp_axes=None, num_microbatches: Optional[int] = None,
+             moe_aux_weight: float = 0.0) -> torch.Tensor:
     """MSE of the forward against the target batch, in fp32: on a mesh,
-    over this rank's slice (``forward``'s ``mesh`` and ``dp_axes``), under
-    ``tp_overlap`` its chunk of the sequence."""
-    pred = forward(params, batch, config, mesh=mesh, dp_axes=dp_axes)
+    over this rank's slice (``forward``'s ``mesh``, ``dp_axes`` and
+    ``num_microbatches``), under ``tp_overlap`` its chunk of the sequence;
+    plus ``moe_aux_weight`` times the MoE load-balancing loss where the
+    weight is above 0 (``training.moe_aux_loss_weight``)."""
+    aux = 0.0
+    if moe_aux_weight > 0.0:
+        pred, aux = forward(params, batch, config, mesh=mesh, dp_axes=dp_axes,
+                            num_microbatches=num_microbatches, with_aux=True)
+    else:
+        pred = forward(params, batch, config, mesh=mesh, dp_axes=dp_axes,
+                       num_microbatches=num_microbatches)
     if use_tp_overlap(config, mesh):
         targets = seq_chunk(targets, mesh)
-    return torch.mean((pred.float() - targets.float()) ** 2)
+    mse = torch.mean((pred.float() - targets.float()) ** 2)
+    return mse + moe_aux_weight * aux
 
 
 def _seq_shard_axes(config: ModelConfig, mesh) -> tuple[str, ...]:
@@ -181,14 +208,53 @@ def check_accumulation(batch_size: int, grad_accum: int, dp: int) -> None:
             "micro-batch across ranks as JAX does (ROADMAP Queue 1, Slice D, item 2)")
 
 
+def check_moe_aux(moe_aux_weight: float, config: ModelConfig, dp: int,
+                  grad_accum: int, pp: int) -> None:
+    """JAX's check of the aux weight (a MoE model), then the port's own:
+    with dp above 1 the aux loss is refused under gradient accumulation and
+    pipelines (module docstring)."""
+    if moe_aux_weight > 0.0 and not config.is_moe:
+        raise ValueError(
+            "training.moe_aux_loss_weight requires a MoE model "
+            "(model.num_experts > 0)"
+        )
+    if moe_aux_weight > 0.0 and dp > 1 and (grad_accum > 1 or pp > 1):
+        raise ValueError(
+            "training.moe_aux_loss_weight with data_parallel > 1 and "
+            "gradient_accumulation > 1 or pipeline_parallel > 1: each rank splits "
+            "its own dp rows into the micro-batches, so a micro-batch's routing "
+            "statistics would be taken over other tokens than JAX's (ROADMAP "
+            "Queue 1, Slice D, gaps)")
+
+
+def check_pipeline_schedule(pipeline_schedule: str, pp: int) -> None:
+    """JAX's checks of ``training.pipeline_schedule``."""
+    if pipeline_schedule not in ("gpipe", "1f1b"):
+        raise ValueError(
+            f"unknown pipeline_schedule {pipeline_schedule!r} "
+            "(expected 'gpipe' or '1f1b')"
+        )
+    if pipeline_schedule == "1f1b" and pp <= 1:
+        raise ValueError(
+            "pipeline_schedule='1f1b' requires parallelism.pipeline_parallel"
+            " > 1 (it is a pipeline training schedule)"
+        )
+
+
 def make_train_step(config: ModelConfig, optimizer: GradientTransformation,
                     params, mesh=None, zero1: bool = False,
-                    zero_stage: Optional[int] = None, grad_accum: int = 1):
+                    zero_stage: Optional[int] = None, grad_accum: int = 1,
+                    num_microbatches: Optional[int] = None,
+                    moe_aux_weight: float = 0.0, pipeline_schedule: str = "gpipe"):
     """(step fn, initial ``TrainState``) for ZeRO stage ``zero_stage`` (0
     DDP, 1 sharded optimizer state, 2 and sharded gradients, 3 sharded
     parameters) on ``mesh`` (None: one device, no process group).
-    ``params`` are this rank's full tp shards; the state holds its ZeRO
-    shards.  ``grad_accum`` micro-steps feed one update (module docstring).
+    ``params`` are this rank's full tp shards (its stage's layers and its
+    experts on a pp or ep mesh); the state holds its ZeRO shards.
+    ``grad_accum`` micro-steps feed one update; a pp mesh pipelines each in
+    ``num_microbatches`` microbatches under ``pipeline_schedule``;
+    ``moe_aux_weight`` weights the MoE load-balancing loss (module
+    docstring).
     ``step.grads(state, batch, targets) -> (loss, grads)`` is the step
     without its update: the global loss and the reduced mean gradients, in
     the layout the optimizer updates (``step.zero``, a ``train/zero.py::
@@ -197,9 +263,13 @@ def make_train_step(config: ModelConfig, optimizer: GradientTransformation,
     The step is functional, as the JAX one is: it returns new parameter and
     optimizer-state tensors and leaves the old ones to the caller (who drops
     them by rebinding the state)."""
-    stage = resolve_zero_stage(zero1, zero_stage)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    pp = 1 if mesh is None else mesh.shape.get("pp", 1)
+    check_pipeline_schedule(pipeline_schedule, pp)
+    stage = resolve_zero_stage(zero1, zero_stage)
+    check_moe_aux(moe_aux_weight, config, 1 if mesh is None else mesh.shape["dp"],
+                  grad_accum, pp)
     zero = Zero(stage, optimizer, params, mesh)
     own, opt_state = zero.init(params)
     state = TrainState(tree_map(lambda p: p.detach().requires_grad_(True), own),
@@ -212,8 +282,14 @@ def make_train_step(config: ModelConfig, optimizer: GradientTransformation,
     seq_shards = math.prod(mesh.shape[a] for a in seq_axes)
 
     def loss_and_grads(params, batch, targets):
+        if pipeline_schedule == "1f1b":
+            loss, grads = pipeline_1f1b_grads(
+                params, batch, targets, config, mesh, num_microbatches=num_microbatches,
+                moe_aux_weight=moe_aux_weight, dp_axes=dp_axes)
+            return loss.detach(), grads
         leaves = tree_leaves(params)
-        loss = mse_loss(params, batch, targets, config, mesh=mesh, dp_axes=dp_axes)
+        loss = mse_loss(params, batch, targets, config, mesh=mesh, dp_axes=dp_axes,
+                        num_microbatches=num_microbatches, moe_aux_weight=moe_aux_weight)
         if seq_shards > 1:  # this chunk's share of the dp slice's mean
             loss = loss / seq_shards
         grads = iter(torch.autograd.grad(loss, leaves))
@@ -275,12 +351,6 @@ def _refuse_unported(train_cfg: dict[str, Any], execution: dict[str, Any]) -> No
         raise NotImplementedError(
             f"training.compression_accum_dtype {_LATER}, Slice C remainder, item 7: "
             "comm/compression.py)")
-    if float(train_cfg.get("moe_aux_loss_weight", 0.0)) != 0.0:
-        raise NotImplementedError(
-            f"training.moe_aux_loss_weight (MoE) {_LATER}, Slice D, item 6)")
-    if "pipeline_schedule" in train_cfg:
-        raise NotImplementedError(
-            f"training.pipeline_schedule {_LATER}, Slice D, item 5: parallel/pipeline.py)")
     if execution.get("compiler_options"):
         raise NotImplementedError(
             "execution.compiler_options are XLA compiler options; the port "
@@ -332,10 +402,21 @@ def _run_train(config, zero1, zero_stage, device, output_dir, verbose):
     model_cfg = ModelConfig.from_dict(config["model"])
     plan = ParallelismPlan.from_config(config, model_cfg)
     mesh = plan.mesh
-    tp_rank = mesh.coords["tp"] if mesh is not None else 0
     lead = mesh is None or dist.get_rank() == 0
+    moe_aux_weight = float(train_cfg.get("moe_aux_loss_weight", 0.0))
     grad_accum = int(train_cfg.get("gradient_accumulation", 1))
     check_accumulation(inp["batch_size"], grad_accum, plan.dp)
+    pipeline_schedule = str(train_cfg.get("pipeline_schedule", "gpipe"))
+    check_pipeline_schedule(pipeline_schedule, plan.pp)
+    check_moe_aux(moe_aux_weight, model_cfg, plan.dp, grad_accum, plan.pp)
+    if grad_accum > 1 and plan.pp > 1:
+        # each micro-step pipelines batch / grad_accum rows: the microbatch
+        # schedule must divide the accumulation micro-batch too (JAX's
+        # training-only check), and the port's rows per dp rank
+        validate_pipeline(model_cfg, plan.pp, inp["batch_size"] // grad_accum,
+                          plan.num_microbatches)
+        validate_rows(inp["batch_size"] // grad_accum // plan.dp,
+                      plan.num_microbatches, plan.dp)
     dtype = DTYPES[model_cfg.dtype]
     batch, targets = (create_dataset_from_config(
         config, dtype=dtype, device=device, hidden_size=model_cfg.hidden_size,
@@ -345,10 +426,12 @@ def _run_train(config, zero1, zero_stage, device, output_dir, verbose):
     lr = learning_rate(train_cfg)
     optimizer = build_optimizer(train_cfg)
     opt_name, sched_name = resolve_names(train_cfg)
-    params = init_params(model_cfg, inp.get("seed", 42), device,
-                         tp_rank=tp_rank, tp=plan.tp)
+    params = init_params(model_cfg, inp.get("seed", 42), device, **plan.coords())
     step_fn, state = make_train_step(model_cfg, optimizer, params, mesh=mesh,
-                                     zero_stage=stage, grad_accum=grad_accum)
+                                     zero_stage=stage, grad_accum=grad_accum,
+                                     num_microbatches=plan.num_microbatches,
+                                     moe_aux_weight=moe_aux_weight,
+                                     pipeline_schedule=pipeline_schedule)
     del params
 
     # checkpoint / resume before warmup, so that the restored step counter
@@ -497,7 +580,7 @@ def _run_train(config, zero1, zero_stage, device, output_dir, verbose):
         "moments_dtype": moments_dtype(train_cfg),
         "schedule": sched_name,
         "gradient_accumulation": grad_accum,
-        "pipeline_schedule": None,
+        "pipeline_schedule": pipeline_schedule if plan.pp > 1 else None,
         "remat": model_cfg.remat,
         "remat_policy": model_cfg.remat_policy if model_cfg.remat else None,
         "tp_overlap": model_cfg.tp_overlap,

@@ -346,18 +346,95 @@ def _cast_state(state, dtype: torch.dtype):
     return state.to(dtype) if _castable(state) else state
 
 
+def _paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _paths(v, prefix + (k,))]
+    return [prefix]
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _state_at(state, path, rows):
+    """The part of an optimizer state for the leaf at ``path`` (and its
+    ``rows``, a slice of dim 0, where not None): the same state type, its
+    per-parameter trees cut to that piece, the rest (counts) as they are."""
+    if isinstance(state, tuple):  # a NamedTuple state
+        return type(state)(*(_state_at(s, path, rows) for s in state))
+    if isinstance(state, dict):
+        leaf = _at(state, path)
+        return leaf if rows is None else leaf[rows]
+    return state
+
+
+def _set_at(tree, path, value):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+# the elements of one piece of a ``cast_moments`` update: each of its fp32
+# temporaries holds 256 MiB at most, and a piece costs a few dozen launches
+PIECE_ELEMENTS = 1 << 26
+
+
+def _pieces(g: torch.Tensor, elementwise: bool) -> list:
+    """Slices of ``g``'s dim 0 of at most ``PIECE_ELEMENTS`` each (whole
+    rows), or ``[None]``, the whole leaf, where it is small enough or the
+    update is not elementwise."""
+    if not elementwise or g.dim() == 0 or g.numel() <= PIECE_ELEMENTS:
+        return [None]
+    n = g.shape[0]
+    rows = max(1, PIECE_ELEMENTS // (g.numel() // n))
+    return [slice(i, min(i + rows, n)) for i in range(0, n, rows)]
+
+
 def cast_moments(inner: GradientTransformation, dtype) -> GradientTransformation:
     """Store ``inner``'s floating state leaves in ``dtype``; the update runs
-    on the state upcast to fp32."""
+    on the state upcast to fp32, a leaf at a time and, for an elementwise
+    ``inner``, a piece of a large leaf's dim 0 at a time (``_pieces``), so
+    that the fp32 copies of the state and the update's temporaries live for
+    one piece only.  Each piece's result is the whole update's, element for
+    element."""
     dtype = MOMENTS_DTYPES[dtype] if isinstance(dtype, str) else dtype
 
     def init(params):
         return _cast_state(inner.init(params), dtype)
 
     def update(grads, state, params=None):
-        updates, new_state = inner.update(grads, _cast_state(state, torch.float32),
-                                          params)
-        return updates, _cast_state(new_state, dtype)
+        updates, trees, count = {}, {}, None
+        for path in _paths(grads):
+            g = _at(grads, path)
+            p = None if params is None else _at(params, path)
+            pieces = _pieces(g, inner.elementwise)
+            out = None
+            for rows in pieces:
+                u, new = inner.update(
+                    g if rows is None else g[rows],
+                    _cast_state(_state_at(state, path, rows), torch.float32),
+                    p if rows is None or p is None else p[rows])
+                new = _cast_state(new, dtype)
+                parts = [(u, None)] + [(t, f) for f, t in enumerate(new)
+                                       if isinstance(t, torch.Tensor)]
+                if rows is None:
+                    out = parts
+                    continue
+                if out is None:
+                    out = [(t.new_empty(g.shape[:1] + t.shape[1:]), f) for t, f in parts]
+                for (dst, _), (src, _) in zip(out, parts):
+                    dst[rows] = src
+            _set_at(updates, path, out[0][0])
+            for t, f in out[1:]:
+                _set_at(trees.setdefault(f, {}), path, t)
+            count = new[0]
+        if count is None:  # no leaves
+            return inner.update(grads, state, params)
+        fields = [count] + [trees.get(f, None if s is None else {})
+                            for f, s in enumerate(state) if f > 0]
+        return updates, type(state)(*fields)
 
     return GradientTransformation(init, update, inner.elementwise)
 

@@ -18,8 +18,11 @@ collectives.  The port runs them itself, as the reference's DeepSpeed does
   backward hands each gradient over already reduce-scattered; the rank
   updates its shard and keeps it.
 
-A leaf's dp axis is ``_dp_shard_spec``'s: the largest dimension that tp does
-not shard, that dp divides and whose size is above 1, the first on a tie.
+A leaf's dp axis is ``_dp_shard_spec``'s: the largest dimension that no
+other mesh axis cuts (tp's dimension, and under pp the layer dimension,
+under ep the expert dimension, as JAX's rule skips every axis its
+``PartitionSpec`` already names), that dp divides and whose size is above
+1, the first on a tie.
 A leaf with no such axis, or whose optimizer state ``opt_state_specs``
 leaves replicated (adafactor's factored statistics, sgd without momentum:
 no state subtree mirrors the params), takes the stage-0 path; at stage 3 it
@@ -38,35 +41,51 @@ from typing import Any, Optional
 import torch
 
 from dlbb_tpu_torch.models.sharding import (
+    PP_DIM,
     all_gather_along,
     all_reduce_sum,
+    ep_dim,
+    is_moe_tree,
     reduce_scatter_along,
     tp_dim,
 )
 from dlbb_tpu_torch.train.optim import GradientTransformation, apply_updates, tree_map
 
 
-def _dp_shard_spec(tp_axis: Optional[int], shape: tuple[int, ...],
-                   dp_size: int) -> Optional[int]:
-    """The dp axis of a leaf of ``shape`` (this rank's shard) whose
-    ``tp_axis`` is sharded over tp (None: replicated over tp): the largest
-    other dimension that ``dp_size`` divides and whose size is above 1, the
-    first such on a tie; None when there is none."""
+def _dp_shard_spec(taken, shape: tuple[int, ...], dp_size: int) -> Optional[int]:
+    """The dp axis of a leaf of ``shape`` (this rank's part) whose
+    dimensions ``taken`` another mesh axis cuts: the largest other
+    dimension that ``dp_size`` divides and whose size is above 1, the first
+    such on a tie; None when there is none."""
     candidates = sorted(
         (i for i in range(len(shape))
-         if i != tp_axis and shape[i] % dp_size == 0 and shape[i] > 1),
+         if i not in taken and shape[i] % dp_size == 0 and shape[i] > 1),
         key=lambda i: -shape[i])
     return candidates[0] if candidates else None
 
 
-def dp_sharded_param_specs(params: Any, dp_size: int) -> Any:
-    """Each leaf's dp axis (``_dp_shard_spec``), as a tree like ``params``:
-    the FSDP parameter layout of stage 3, and the optimizer-state and
-    gradient layout of stages 1 and 2."""
-    return {"layers": {group: {leaf: _dp_shard_spec(tp_dim(group, leaf), t.shape, dp_size)
+def taken_dims(group: str, leaf: str, moe: bool, pp: int = 1, ep: int = 1) -> tuple:
+    """The dimensions of the stacked leaf ``group.leaf`` that a mesh axis
+    other than dp cuts (JAX's ``specs_for_mesh``): tp's (whatever its size,
+    as JAX names tp wherever the mesh has it), the layer dimension where pp
+    is above 1, the expert dimension where ep is above 1."""
+    dims = [d for d in (tp_dim(group, leaf, moe),
+                        PP_DIM if pp > 1 else None,
+                        ep_dim(group, leaf, moe) if ep > 1 else None) if d is not None]
+    return tuple(dims)
+
+
+def dp_sharded_param_specs(params: Any, dp_size: int, pp: int = 1, ep: int = 1) -> Any:
+    """Each leaf's dp axis (``_dp_shard_spec``), as a tree like ``params``
+    (this rank's parts on a mesh of degrees ``pp`` and ``ep``): the FSDP
+    parameter layout of stage 3, and the optimizer-state and gradient
+    layout of stages 1 and 2."""
+    moe = is_moe_tree(params)
+    return {"layers": {group: {leaf: _dp_shard_spec(taken_dims(group, leaf, moe, pp, ep),
+                                                    t.shape, dp_size)
                                for leaf, t in sub.items()}
                        for group, sub in params["layers"].items()},
-            "ln_f": {leaf: _dp_shard_spec(None, t.shape, dp_size)
+            "ln_f": {leaf: _dp_shard_spec((), t.shape, dp_size)
                      for leaf, t in params["ln_f"].items()}}
 
 
@@ -79,7 +98,8 @@ def _mirrors(node: Any, params: Any) -> bool:
     return isinstance(node, torch.Tensor) and node.shape == params.shape
 
 
-def opt_state_specs(params: Any, opt_state: Any, zero1: bool, dp_size: int) -> Any:
+def opt_state_specs(params: Any, opt_state: Any, zero1: bool, dp_size: int,
+                    pp: int = 1, ep: int = 1) -> Any:
     """Each optimizer-state leaf's dp axis, as a tree like ``opt_state``.
 
     The rule is structural: a state subtree whose structure and leaf shapes
@@ -87,7 +107,7 @@ def opt_state_specs(params: Any, opt_state: Any, zero1: bool, dp_size: int) -> A
     ``zero1`` (stage 1 and up), and None (replicated) otherwise; everything
     else (step counts, adafactor's factored statistics, whose shapes differ
     from the params') is replicated."""
-    axes = dp_sharded_param_specs(params, dp_size)
+    axes = dp_sharded_param_specs(params, dp_size, pp, ep)
 
     def recur(node):
         if _mirrors(node, params):
@@ -153,10 +173,12 @@ class Zero:
         self.group = None if mesh is None else mesh.axis_groups["dp"]
         self.dp = 1 if mesh is None else mesh.shape["dp"]
         self.rank = 0 if mesh is None else mesh.coords["dp"]
-        self.axes = dp_sharded_param_specs(params, self.dp)
+        pp = 1 if mesh is None else mesh.shape.get("pp", 1)
+        ep = 1 if mesh is None else mesh.shape.get("ep", 1)
+        self.axes = dp_sharded_param_specs(params, self.dp, pp, ep)
         meta = tree_map(lambda p: torch.empty_like(p, device="meta"), params)
         specs = opt_state_specs(meta, optimizer.init(meta),
-                                stage >= 1 and optimizer.elementwise, self.dp)
+                                stage >= 1 and optimizer.elementwise, self.dp, pp, ep)
         state_sharded = any(ax is not None for ax in _leaves(specs))
         # the leaves the optimizer updates as shards
         self.opt_axes = tree_map(lambda ax: ax if state_sharded else None, self.axes)

@@ -37,7 +37,8 @@ def test_port_has_the_expected_modules():
                 "dlbb_tpu_torch/resilience/preempt.py", "dlbb_tpu_torch/parallel/ring.py",
                 "dlbb_tpu_torch/parallel/collective_matmul.py",
                 "dlbb_tpu_torch/parallel/ring_attention.py",
-                "dlbb_tpu_torch/parallel/ulysses.py", "chip_smoke.py"):
+                "dlbb_tpu_torch/parallel/ulysses.py", "dlbb_tpu_torch/parallel/pipeline.py",
+                "chip_smoke.py"):
         assert rel in PORT_FILES
 
 

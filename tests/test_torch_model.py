@@ -154,11 +154,17 @@ def test_init_params_is_seeded_and_shaped_like_jax():
 
 
 def test_unported_model_options_raise():
-    _, pcfg = _small()
-    # remat (tests/test_torch_train.py), ring/Ulysses attention and
-    # tp_overlap (tests/test_torch_context_parallel.py,
-    # tests/test_torch_collective_matmul.py) are ported; MoE is not
-    with pytest.raises(NotImplementedError):
-        pt_tf.init_params(pcfg.with_(num_experts=4), 0, "cpu")
+    """Every model option of the JAX package is ported now (the name is
+    from when MoE was refused): remat (tests/test_torch_train.py),
+    ring/Ulysses attention and tp_overlap (tests/test_torch_context_parallel.py,
+    tests/test_torch_collective_matmul.py) and MoE (tests/test_torch_moe.py)
+    build their parameters, MoE with JAX's leaves and shapes."""
+    jcfg, pcfg = _small()
+    moe = pt_tf.init_params(pcfg.with_(num_experts=4), 0, "cpu")
+    ref = jax.eval_shape(lambda: jax_tf.init_params(jcfg.with_(num_experts=4),
+                                                    jax.random.key(0)))
+    assert {g: {p: tuple(t.shape) for p, t in sub.items()}
+            for g, sub in moe["layers"].items()} == {
+        g: {p: tuple(a.shape) for p, a in sub.items()} for g, sub in ref["layers"].items()}
     for kw in (dict(attention="ring"), dict(attention="ulysses"), dict(tp_overlap="ring")):
         pt_tf.init_params(pcfg.with_(**kw), 0, "cpu")

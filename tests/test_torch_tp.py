@@ -359,6 +359,9 @@ JAX_REFUSALS = {
     "tp_overlap_without_tp": ({"tp_overlap": "ring"}, {}),
     "tp_overlap_uneven_seq": ({"tp_overlap": "ring"}, {"world_size": 8}),
     "microbatches_without_pp": ({}, {"num_microbatches": 4}),
+    "pp_uneven_layers": ({"num_layers": 3}, {"pipeline_parallel": 2}),
+    "pp_uneven_batch": ({}, {"pipeline_parallel": 2, "num_microbatches": 3}),
+    "pp_ring": ({"attention": "flash"}, {"pipeline_parallel": 2}),
 }
 
 
@@ -374,22 +377,23 @@ def test_plan_refuses_what_jax_refuses_with_its_message(name):
     assert str(e.value) == _jax_error(config, 8)
 
 
-# configs JAX runs and the port does not yet: each names its Slice D item
-# (sp and tp_overlap are ported: tests/test_torch_context_parallel.py and
-# tests/test_torch_collective_matmul.py hold the plan's acceptance of them)
+# configs JAX runs that the port refused until Slice D items 5 and 6 (pp and
+# ep) were ported; the test keeps its name from then.  Both plans accept them
+# now, on exactly the mesh's ranks (tests/test_torch_pipeline.py and
+# tests/test_torch_moe.py run them)
 NOT_PORTED = {
-    "pp": ({}, {"pipeline_parallel": 2}, "item 5"),
-    "ep": ({"num_experts": 4}, {"expert_parallel": 2}, "item 6"),
+    "pp": ({}, {"pipeline_parallel": 2}, (1, 1, 2, 1, 1)),
+    "ep": ({"num_experts": 4}, {"expert_parallel": 2}, (1, 1, 1, 2, 1)),
 }
 
 
 @pytest.mark.parametrize("name", sorted(NOT_PORTED))
 def test_plan_refuses_unported_parallelism(name):
-    model, par, item = NOT_PORTED[name]
+    model, par, want = NOT_PORTED[name]
     config = _plan_config(model, **par)
-    assert _jax_error(config, 8) is None
-    with pytest.raises(NotImplementedError, match=f"Slice D, {item}"):
-        port_plan.check_plan(config, ModelConfig.from_dict(config["model"]), 8)
+    n = int(np.prod(want))
+    assert _jax_error(config, n) is None
+    assert port_plan.check_plan(config, ModelConfig.from_dict(config["model"]), n) == want
 
 
 @pytest.mark.parametrize("dim,model,tp", [

@@ -36,15 +36,21 @@ def _steps(step, state, x, t, n):
 
 
 def _mesh_dims(mesh):
-    """``(dp, sp, tp)`` from a case's ``(dp, tp)`` or ``(dp, sp, tp)``."""
-    return mesh if len(mesh) == 3 else (mesh[0], 1, mesh[1])
+    """``(dp, sp, pp, ep, tp)`` from a case's ``(dp, tp)``, ``(dp, sp, tp)``
+    or ``(dp, sp, pp, ep, tp)``."""
+    if len(mesh) == 5:
+        return mesh
+    return (mesh[0], mesh[1], 1, 1, mesh[2]) if len(mesh) == 3 else (mesh[0], 1, 1, 1, mesh[1])
 
 
 def run_train_cases(cases, weights, batches):
     """``cases``: ``(case id, spec)`` pairs, a spec holding ``mesh`` ((dp,
-    tp) or (dp, sp, tp)), ``fields`` (ModelConfig), ``weights`` and ``batch`` (keys of the
+    tp), (dp, sp, tp) or (dp, sp, pp, ep, tp)), ``fields`` (ModelConfig),
+    ``weights`` and ``batch`` (keys of the
     next two arguments), ``train`` (the ``training:`` section), ``stage``,
-    ``grad_accum``, ``steps`` and, for a checkpoint round trip,
+    ``grad_accum``, ``steps``, optionally ``microbatches``, ``schedule``
+    and ``aux`` (``make_train_step``'s ``num_microbatches``,
+    ``pipeline_schedule`` and ``moe_aux_weight``) and, for a checkpoint round trip,
     ``checkpoint`` (a directory: save after ``steps - 1`` steps, restore
     into a fresh state, take the last step there and uninterrupted).
     ``weights``: JAX parameter trees as float32 numpy; ``batches``: global
@@ -54,24 +60,28 @@ def run_train_cases(cases, weights, batches):
     meshes = {}
     for _, spec in cases:
         if spec["mesh"] not in meshes:
-            dp, sp, tp = _mesh_dims(spec["mesh"])
-            meshes[spec["mesh"]] = build_parallelism_mesh(dp, sp, 1, tp, 1)
+            dp, sp, pp, ep, tp = _mesh_dims(spec["mesh"])
+            meshes[spec["mesh"]] = build_parallelism_mesh(dp, sp, pp, tp, ep)
     out = {}
     for case_id, spec in cases:
         mesh = meshes[spec["mesh"]]
         if mesh is None:
             continue
-        dp, _, tp = _mesh_dims(spec["mesh"])
+        dp, _, pp, ep, tp = _mesh_dims(spec["mesh"])
         c = mesh.coords
         cfg = ModelConfig(**spec["fields"])
         dtype = DTYPES[cfg.dtype]
-        local = shard_params(params_from_jax(weights[spec["weights"]], cfg), cfg, c["tp"], tp)
+        local = shard_params(params_from_jax(weights[spec["weights"]], cfg), cfg, c["tp"], tp,
+                             c.get("pp", 0), pp, c.get("ep", 0), ep)
         x, t = (torch.from_numpy(np.ascontiguousarray(batch_slice(a, **batch_spec(mesh))))
                 .to(dtype) for a in batches[spec["batch"]])
 
         def build():
             return make_train_step(cfg, build_optimizer(spec["train"]), local, mesh=mesh,
-                                   zero_stage=spec["stage"], grad_accum=spec["grad_accum"])
+                                   zero_stage=spec["stage"], grad_accum=spec["grad_accum"],
+                                   num_microbatches=spec.get("microbatches"),
+                                   pipeline_schedule=spec.get("schedule", "gpipe"),
+                                   moe_aux_weight=spec.get("aux", 0.0))
 
         step, state = build()
         res = {"coords": c, "opt_shapes": _state_shapes(state.opt_state)}
