@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlbb_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm,tp,dtrain,seq,moe,pipe]
+    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm,tp,dtrain,seq,moe,pipe,compress]
 
 Phases (each raises on failure, and the script then exits non-zero):
 
@@ -95,7 +95,31 @@ Phases (each raises on failure, and the script then exits non-zero):
    launch): the forward against world 1's, and one GPipe and one 1F1B step
    (loss, reduced gradients, the Adam update) against world 1's and each
    other, within the bounds argued at ``PIPE_*``; the bubble fraction,
-   times and peak memory per stage printed.
+   times and peak memory per stage printed;
+12. ``compress``, the quantised-wire collectives and compressed gradient
+   training (``comm/compression.py``): (a) the quantiser (int8, fp8) on the
+   card at the 1B train config's parameter count against its run on the CPU
+   copy of the input, bit for bit (wire bytes, scales, dequantised values,
+   quantisation error), and quantise plus dequantise timed; (b) at world 1
+   over NCCL in the script's process, ``allreduce``, ``allreduce_q``,
+   ``reducescatter`` and ``reducescatter_q`` at 1KB-16MB under the variants
+   ``default``, ``compress_int8``, ``compress_fp8`` and
+   ``compress_int8_bf16acc`` (a one-rank ring is the identity, as in JAX,
+   with no byte on the wire), then ``cli stats1d`` and ``cli reports``,
+   which must write ``VARIANTS.md`` and ``NORTHSTAR.md`` with rows; (c) the
+   compressed ops at world 2 as two processes on the card over gloo against
+   the uncompressed ops on the same CUDA payload, within the JAX tests'
+   bounds (``COMPRESS_RING_TOL``), every rank's all-reduce equal, and the
+   bytes handed to ``torch.distributed`` equal to ``op_wire_bytes``; (d)
+   the 1B train config at full width, cut to ``COMPRESS_LAYERS`` layers, at
+   dp=2 over gloo: int8 and fp8 at ZeRO-0 and int8 at ZeRO-2 with bf16
+   accumulation, 3 steps each: step 0's dp-reduced gradient within a
+   wire-step bound of the uncompressed dp=2 run's, the two ranks'
+   parameters bit-equal after the steps, each step's loss within
+   ``COMPRESS_LOSS_REL`` of the uncompressed run's, the residual finite and
+   non-zero, the flash launches per step counted from 0 around each step;
+   (e) ``cli train --grad-compression int8`` at world 1 refused with
+   JAX's message.
 
 It then prints the card's name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -107,9 +131,11 @@ CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import csv
 import json
 import math
 import re
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -173,7 +199,7 @@ EDGE_CASES = {
 # phase 5 on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's kernel table)
 FWD_BEFORE_MS = {"main": 0.1259, "long": 2.5038}
 PHASES = ("build", "fwd", "bwd", "e2e", "train", "time", "comm", "tp", "dtrain", "seq",
-          "moe", "pipe")
+          "moe", "pipe", "compress")
 TP_CONFIG = "dlbb_tpu_torch/configs/baseline_config.yaml"
 # the 3D sweep's LLM shapes (batch, seq, hidden) on the card: the largest is
 # 1 GiB of bf16 per rank
@@ -2013,6 +2039,466 @@ def phase_pipe(torch, gpu_line):
     return out
 
 
+# phase compress: the quantised-wire collectives and compressed gradient
+# training of comm/compression.py.  The bounds are the JAX package's own
+# (tests/test_compression.py): a compressed ring's output within int8 0.04,
+# fp8 0.15 and int8 with bf16 accumulation 0.08 of the largest exact sum
+# from the uncompressed op's output on the same payload, and each step's
+# loss of the compressed dp=2 step within int8 0.02 and fp8 0.05 relative of
+# the uncompressed dp=2 step's; beside them the dp=2 gradient's wire-step
+# bound (_compress_train).  The quantiser on the card must equal its run
+# on the CPU bit for bit: every value is scaled into +-127 or +-448, where the
+# IEEE division, round-half-even and the fp8 conversion round alike.
+COMPRESS_RING_TOL = {("int8", "float32"): 0.04, ("fp8", "float32"): 0.15,
+                     ("int8", "bfloat16"): 0.08}
+COMPRESS_LOSS_REL = {"int8": 0.02, "fp8": 0.05}
+# the coarsest wire step as a fraction of a chunk's amax (int8: amax / 127;
+# fp8 e4m3: the top binade [256, 448] is spaced by 32, amax / 14), and the
+# bf16 roundings beside the wire, both in the dp=2 gradient bound
+# (_compress_train)
+COMPRESS_QSTEP = {"int8": 127.0, "fp8": 14.0}
+COMPRESS_BF16_SLACK = 8 * 2.0 ** -8
+COMPRESS_VARIANTS = ("default", "compress_int8", "compress_fp8", "compress_int8_bf16acc")
+COMPRESS_OPS = ("allreduce", "allreduce_q", "reducescatter", "reducescatter_q")
+# (grad_compression, ZeRO stage, accumulation) of the dp=2 runs, the
+# uncompressed one first
+COMPRESS_RUNS = (("none", 0, "float32"), ("int8", 0, "float32"), ("fp8", 0, "float32"),
+                 ("int8", 2, "bfloat16"))
+# the 1B train config's depth in the dp=2 runs: two ranks' states, flat fp32
+# gradients and residuals share one card, and the phase stays short
+COMPRESS_LAYERS = 8
+COMPRESS_STEPS = 3
+COMPRESS_RING_N = 4194304  # the sweep's "16MB" label, here in fp32
+DP1_REFUSAL = ("training.grad_compression with data_parallel=1 has no gradient "
+               "reduction to compress")
+
+
+def _compress_quantizer(torch, n, gpu_line):
+    """The quantiser at ``n`` elements on the card against its run on the
+    CPU copy of the input: the wire bytes, scales, dequantised values and
+    quantisation error, each compared bit for bit; then quantise plus
+    dequantise timed by CUDA events (median of 10)."""
+    from dlbb_tpu_torch.comm import compression as qc
+    from dlbb_tpu_torch.stats.stats1d import padded_elems, scale_bytes
+
+    g = torch.Generator(device="cuda").manual_seed(42)
+    x = torch.randn(n, generator=g, device="cuda")
+    # magnitudes over five decades, as gradients span them
+    x.mul_(torch.pow(10.0, torch.randint(-3, 2, (n,), generator=g, device="cuda",
+                                         dtype=torch.int8).float()))
+    host = x.cpu()
+    out, reps = {}, 10
+    for comp in qc.COMPRESSIONS:
+        q, s = qc.quantize_chunked(x, comp)
+        qh, sh = qc.quantize_chunked(host, comp)
+        diff = {"wire": int((qc._to_wire(q, comp).cpu() != qc._to_wire(qh, comp)).sum()),
+                "scales": int((s.cpu().view(torch.int32) != sh.view(torch.int32)).sum())}
+        d = qc.dequantize_chunked(q, s, n).cpu().view(torch.int32)
+        diff["dequantized"] = int((d != qc.dequantize_chunked(qh, sh, n).view(torch.int32)).sum())
+        del q, s, qh, sh, d
+        e = qc.quantization_error(x, comp).cpu().view(torch.int32)
+        diff["error"] = int((e != qc.quantization_error(host, comp).view(torch.int32)).sum())
+        del e
+        times = []
+        for i in range(reps + 1):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            qq, ss = qc.quantize_chunked(x, comp)
+            y = qc.dequantize_chunked(qq, ss, n)
+            end.record()
+            torch.cuda.synchronize()
+            if i:  # the first call is a warmup
+                times.append(start.elapsed_time(end))
+            del qq, ss, y
+        torch.cuda.empty_cache()
+        # quantise reads x and writes the wire and scales, dequantise reads
+        # them and writes fp32
+        nbytes = 4 * n + 2 * (padded_elems(n) + scale_bytes(n)) + 4 * n
+        ms = statistics.median(times)
+        out[comp] = {"mismatches": diff, "ms": ms, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
+        print(f"[compress] quantiser {comp} at {n} elements (the 1B train config's "
+              f"parameters), cuda against the CPU: differing wire bytes "
+              f"{diff['wire']}, scales {diff['scales']}, dequantised values "
+              f"{diff['dequantized']}, quantisation errors {diff['error']}; quantise + "
+              f"dequantise {ms:.3f} ms (median of {reps}, CUDA events; bytes bound "
+              f"{out[comp]['bound_ms']:.3f} ms) on {gpu_line}")
+        if any(diff.values()):
+            raise AssertionError(f"the {comp} quantiser on the card differs from the CPU: {diff}")
+    del x, host
+    return out
+
+
+def _compress_sweeps(torch, gpu_line):
+    """The compressed ops and their baselines under each variant at world 1
+    over NCCL at ``runner.DATA_SIZES_1D``, then ``cli stats1d`` and ``cli
+    reports`` over the results; returns the largest size's medians."""
+    import os
+    import shutil
+    import tempfile
+
+    from dlbb_tpu_torch import cli, comm
+    from dlbb_tpu_torch.bench import runner
+
+    sizes, warmup, iters = list(runner.DATA_SIZES_1D.items()), 10, 100
+    out = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_compress"
+    shutil.rmtree(out, ignore_errors=True)
+    impls = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_compress_") as tmp:
+        comm.initialize_distributed("nccl", 0, 1, os.path.join(tmp, "store"))
+        try:
+            mesh = comm.get_mesh(comm.MeshSpec.ring(1))
+            for kind in ("allreduce", "reducescatter"):
+                x = comm.make_payload(comm.get_op(kind), 0, 1, sizes[-1][1], device="cuda")
+                want = comm.get_op(kind).build(mesh)(x)
+                for v in COMPRESS_VARIANTS[1:]:
+                    compression, accum = comm.get_variant(v).compressed_wire()
+                    got = comm.get_op(kind + "_q").build(
+                        mesh, compression=compression, accum_dtype=accum)(x)
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"{kind}_q under {v} at one rank is not "
+                                             f"{kind}: a ring of one rank is the identity")
+            for v in COMPRESS_VARIANTS:
+                impl = "torch_nccl" + ("" if v == "default" else f"_{v}")
+                t0 = time.perf_counter()
+                r = runner.run_sweep(runner.Sweep1D(
+                    variant=v, operations=COMPRESS_OPS, data_sizes=tuple(sizes),
+                    rank_counts=(1,), warmup_iterations=warmup,
+                    measurement_iterations=iters,
+                    output_dir=str(out / "results" / "1d" / impl)), device="cuda",
+                    verbose=False)
+                _check_results(r, len(COMPRESS_OPS) * len(sizes), iters)
+                impls[v] = impl
+                print(f"[compress] sweep under {v}: {len(r.written)} configs in "
+                      f"{time.perf_counter() - t0:.1f} s")
+        finally:
+            comm.destroy_distributed()
+    stats = out / "stats"
+    for v, impl in impls.items():
+        if cli.main(["stats1d", "--input", str(out / "results" / "1d" / impl),
+                     "--output", str(stats / "variants" / impl)]) != 0:
+            raise AssertionError(f"stats1d failed on {impl}")
+    shutil.copytree(stats / "variants" / impls["default"], stats / "1d" / impls["default"])
+    if cli.main(["reports", "--stats", str(stats), "--results", str(out / "results"),
+                 "--impl", impls["default"]]) != 0:
+        raise AssertionError("cli reports wrote nothing")
+    for report, table in (("variants/VARIANTS.md", "variants/variants_comparison.csv"),
+                          ("northstar/NORTHSTAR.md", "northstar/northstar_allreduce.csv")):
+        with (stats / table).open() as f:
+            rows = list(csv.DictReader(f))
+        if not (stats / report).is_file() or not rows:
+            raise AssertionError(f"cli reports left {report} without rows")
+        print(f"[compress] cli reports: {stats / report}, {len(rows)} rows in {table}")
+    medians = {}
+    label = sizes[-1][0]
+    for v, impl in impls.items():
+        with (stats / "variants" / impl / "benchmark_statistics.csv").open() as f:
+            for row in csv.DictReader(f):
+                if row["data_size_name"] == label:
+                    medians[(v, row["operation"])] = (float(row["median_time_us"]),
+                                                      int(row["bytes_on_wire"] or 0))
+    print(f"[compress] world 1 over nccl, bf16, {label} ({sizes[-1][1]} elements) on "
+          f"{gpu_line}: median us per op (at one rank the compressed ring is the identity, "
+          "as in JAX, and bytes_on_wire is 0 for every op: these times are the call alone) "
+          + ", ".join(f"{v}/{op} {m:.2f} ({w} B on the wire)"
+                      for (v, op), (m, w) in sorted(medians.items())))
+    return medians
+
+
+def _compress_ring_rank(rank, world, init_file, out_dir):
+    """One rank of phase compress's ring at world 2, spawned by
+    ``_spawn_gloo``: the uncompressed and compressed ops on the same CUDA
+    payload, and the bytes each compressed call handed to
+    ``torch.distributed``."""
+    import torch
+
+    from dlbb_tpu_torch.comm import (
+        MeshSpec,
+        destroy_distributed,
+        get_mesh,
+        get_op,
+        initialize_distributed,
+        make_payload,
+    )
+    from dlbb_tpu_torch.comm.compression import count_wire_bytes
+
+    torch.cuda.set_device(0)
+    initialize_distributed("gloo", rank, world, init_file, timeout=600)
+    try:
+        mesh = get_mesh(MeshSpec.ring(world))
+        res = {}
+        for kind in ("allreduce", "reducescatter"):
+            x = make_payload(get_op(kind), rank, world, COMPRESS_RING_N,
+                             dtype=torch.float32, device="cuda")
+            res[kind] = get_op(kind).build(mesh)(x).cpu()
+            for comp, accum in COMPRESS_RING_TOL:
+                with count_wire_bytes() as counted:
+                    y = get_op(f"{kind}_q").build(mesh, compression=comp,
+                                                  accum_dtype=accum)(x)
+                res[(kind, comp, accum)] = {"out": y.cpu(), "bytes": counted["bytes"],
+                                            "device": str(y.device)}
+        torch.save(res, f"{out_dir}/r{rank}.pt")
+    finally:
+        destroy_distributed()
+
+
+def _compress_ring(torch):
+    from dlbb_tpu_torch.comm import get_op, make_payload
+    from dlbb_tpu_torch.stats.stats1d import op_wire_bytes
+
+    world, n = 2, COMPRESS_RING_N
+    t0 = time.perf_counter()
+    ranks = _spawn_gloo(torch, _compress_ring_rank, world)
+    wall = time.perf_counter() - t0
+    errors = {}
+    for kind in ("allreduce", "reducescatter"):
+        xs = [make_payload(get_op(kind), r, world, n, dtype=torch.float32).double()
+              for r in range(world)]
+        exact = sum(xs)  # allreduce: [n]; reducescatter: [P, n], row k to rank k
+        for (comp, accum), tol in COMPRESS_RING_TOL.items():
+            outs = [r[(kind, comp, accum)] for r in ranks]
+            want = op_wire_bytes(f"{kind}_q", n, world, 4, compression=comp)
+            worst = 0.0
+            for rank, (o, r) in enumerate(zip(outs, ranks)):
+                ref = exact if kind == "allreduce" else exact[rank:rank + 1]
+                scale = ref.abs().max().item()
+                worst = max(worst, (o["out"].double() - ref).abs().max().item() / scale,
+                            (o["out"].double() - r[kind].double()).abs().max().item() / scale)
+            same = all(torch.equal(o["out"], outs[0]["out"]) for o in outs)
+            counted = [o["bytes"] for o in outs]
+            print(f"[compress] {kind}_q {comp}, {accum} accumulation, world 2 over gloo "
+                  f"(CUDA tensors, hops through host memory), {n} fp32 elements: largest "
+                  f"difference from the exact sum and from {kind} {worst:.3e} of the largest "
+                  f"sum (bound {tol}); bytes handed to torch.distributed per rank {counted} "
+                  f"(op_wire_bytes {want}, uncompressed fp32 "
+                  f"{op_wire_bytes(kind, n, world, 4)}); a correctness check, not a speed")
+            if worst > tol or counted != [want] * world or not all(
+                    o["device"].startswith("cuda") for o in outs):
+                raise AssertionError(f"{kind}_q {comp}/{accum} at world 2 failed its check")
+            if kind == "allreduce" and not same:
+                raise AssertionError(f"allreduce_q {comp}/{accum}: the ranks' results differ")
+            errors[f"{kind}_q/{comp}/{accum}"] = {"rel_err": worst, "bytes": want}
+    print(f"[compress] ring at world 2: {wall:.1f} s wall")
+    return errors
+
+
+def _compress_config():
+    from dlbb_tpu_torch.utils.config import load_config
+
+    config = load_config(TRAIN_CONFIG)
+    config["experiment"]["name"] = "chip_smoke_1b_compressed_dp2"
+    config["model"]["num_layers"] = COMPRESS_LAYERS
+    config["parallelism"] = {"world_size": 1, "data_parallel": 2}
+    return config
+
+
+def _params_digest(params):
+    """sha256 of the parameters' bytes, leaf by leaf in ``tree_leaves``
+    order: equal on two ranks exactly when their parameters are bit-equal."""
+    import hashlib
+
+    import torch
+
+    from dlbb_tpu_torch.train.optim import tree_leaves
+
+    h = hashlib.sha256()
+    for p in tree_leaves(params):
+        h.update(p.detach().reshape(-1).view(torch.uint8).cpu().numpy())
+    return h.hexdigest()
+
+
+def _compress_train_rank(rank, world, init_file, config, out_dir):
+    """One rank of phase compress's dp=2 training, spawned by
+    ``_spawn_gloo``.  For each run: step 0's dp-reduced gradient against
+    the uncompressed run's (same parameters, same batch), then
+    ``COMPRESS_STEPS`` steps with the flash launches counted from 0 around
+    each, the losses, a digest of the parameters after them, the share of
+    parameters that differ from the uncompressed run's, and the residual."""
+    import torch
+    import torch.distributed as dist
+
+    from dlbb_tpu_torch.comm import destroy_distributed, initialize_distributed
+    from dlbb_tpu_torch.models import ModelConfig, init_params
+    from dlbb_tpu_torch.ops import flash_attention as fa
+    from dlbb_tpu_torch.parallel import ParallelismPlan
+    from dlbb_tpu_torch.train.loop import make_train_step, mse_loss
+    from dlbb_tpu_torch.train.optim import build_optimizer, moments_dtype, tree_leaves, tree_map
+    from dlbb_tpu_torch.train.zero import shard_along
+
+    torch.cuda.set_device(0)
+    initialize_distributed("gloo", rank, world, init_file, timeout=900)
+    try:
+        model_cfg = ModelConfig.from_dict(config["model"])
+        plan = ParallelismPlan.from_config(config, model_cfg)
+        group = plan.mesh.axis_groups["dp"]
+        batch, targets = _dtrain_batch(config, model_cfg, "cuda", plan.mesh.coords, plan.dp)
+        out, base = {}, {}
+        for comp, stage, accum in COMPRESS_RUNS:
+            train = dict(config["training"], grad_compression=comp,
+                         compression_accum_dtype=accum)
+            step, state = make_train_step(
+                model_cfg, build_optimizer(train),
+                init_params(model_cfg, config["input"]["seed"], "cuda"), mesh=plan.mesh,
+                zero_stage=stage, grad_compression=comp, compression_accum=accum,
+                residual_dtype=moments_dtype(train))
+            rec = {"losses": [], "launches": []}
+            # step 0's reduced gradient: no update has run, so every run
+            # starts from the same parameters and batch
+            _, grads = step.grads(state, batch, targets)
+            if comp == "none":
+                base["grads"] = grads
+                # the largest local gradient element over the dp ranks,
+                # which bounds every partial sum on the ring
+                loss = mse_loss(state.params, batch, targets, model_cfg)
+                g = torch.autograd.grad(loss, tree_leaves(state.params))
+                c_max = torch.stack([a.float().abs().max() for a in g]).max().reshape(1).cpu()
+                del loss, g
+                dist.all_reduce(c_max, op=dist.ReduceOp.MAX, group=group)
+                base["c_max"] = float(c_max)
+            else:
+                # under ZeRO-2 a rank holds its shard of the reduced gradient
+                ref = tree_map(lambda g, ax: shard_along(g, ax, step.zero.rank, plan.dp),
+                               base["grads"], step.zero.opt_axes)
+                rec["grad_diff"] = max(float((a.float() - b.float()).abs().max())
+                                       for a, b in zip(tree_leaves(grads), tree_leaves(ref)))
+                rec["grad_max"] = max(float(b.float().abs().max()) for b in tree_leaves(ref))
+            rec["c_max"] = base["c_max"]
+            del grads
+            t0 = time.perf_counter()
+            for _ in range(COMPRESS_STEPS):
+                _zero_flash_counts(fa)
+                state, loss = step(state, batch, targets)
+                rec["losses"].append(float(loss))
+                rec["launches"].append(_flash_counts(fa))
+            rec["seconds"] = time.perf_counter() - t0
+            rec["params_digest"] = _params_digest(state.params)
+            if comp == "none":
+                base["params"] = tree_map(lambda p: p.detach().clone(), state.params)
+            else:
+                pairs = list(zip(tree_leaves(state.params), tree_leaves(base["params"])))
+                rec["params_differ"] = (sum(int((a != b).sum()) for a, b in pairs)
+                                        / sum(a.numel() for a, _ in pairs))
+                res = state.opt_state[1].residual
+                rec.update(residual_finite=bool(torch.isfinite(res).all()),
+                           residual_absmax=float(res.float().abs().max()),
+                           residual_dtype=str(res.dtype), residual_numel=res.numel())
+            rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            del step, state
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            out[(comp, stage, accum)] = rec
+        torch.save(out, f"{out_dir}/r{rank}.pt")
+    finally:
+        destroy_distributed()
+
+
+def _compress_train(torch, gpu_line):
+    """Phase compress (d): the dp=2 runs and their checks (module docstring).
+
+    Step 0's reduced gradient of a compressed run against the uncompressed
+    run's, element by element: at dp=2 a value passes two quantisers (the
+    ring's hop and the gather), each partial is at most 2 c_max (c_max the
+    largest local gradient element over the ranks), and each rounds by less
+    than one wire step of its chunk's amax (``COMPRESS_QSTEP``), so the sum
+    differs by at most 2 * 2 c_max / QSTEP and the dp mean by
+    dp * c_max / QSTEP; the bf16 roundings beside it (the gradients, the
+    uncompressed sum, the cast of the result and, with bf16 accumulation,
+    the hop's dequantise and add) add at most 8 half-ulps of c_max,
+    ``COMPRESS_BF16_SLACK``.  A ring that was skipped or a mean that was not
+    divided by dp moves the gradient by the size of the gradient itself.
+    The parameters after the steps must be bit-equal on the two ranks: a
+    rank that updated on its own gradient would diverge.  The losses must
+    track the uncompressed run within JAX's bounds."""
+    from dlbb_tpu_torch.models import ModelConfig
+    from dlbb_tpu_torch.models.transformer import num_parameters
+
+    config = _compress_config()
+    model_cfg = ModelConfig.from_dict(config["model"])
+    layers, dp = model_cfg.num_layers, 2
+    per_step = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+    t0 = time.perf_counter()
+    ranks = _spawn_gloo(torch, _compress_train_rank, dp, config)
+    wall = time.perf_counter() - t0
+    base = ranks[0][COMPRESS_RUNS[0]]["losses"]
+    out = {"launches": None, "runs": {}}
+    for run in COMPRESS_RUNS:
+        recs = [r[run] for r in ranks]
+        comp, stage, accum = run
+        losses = recs[0]["losses"]
+        if any(r["losses"] != losses for r in recs) or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"dp=2 {run}: losses differ across ranks or are not finite")
+        if any(r["params_digest"] != recs[0]["params_digest"] for r in recs):
+            raise AssertionError(f"dp=2 {run}: the ranks' parameters differ after "
+                                 f"{COMPRESS_STEPS} steps")
+        for r in recs:
+            if any(n != per_step for n in r["launches"]):
+                raise AssertionError(f"dp=2 {run}: flash launches {r['launches']}, "
+                                     f"expected {per_step} per step")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, base))
+        line = (f"[compress] {config['model'].get('size', 'the')} train config, hidden "
+                f"{model_cfg.hidden_size}, {layers} layers, dp=2, "
+                f"ZeRO-{stage}, two processes on one card over gloo: grad_compression "
+                f"{comp}" + (f", {accum} accumulation" if comp != "none" else "")
+                + f": losses {', '.join(f'{x:.6f}' for x in losses)}; the ranks' "
+                f"parameters bit-equal after {COMPRESS_STEPS} steps")
+        if comp != "none":
+            c_max = recs[0]["c_max"]
+            grad_bound = c_max * (dp / COMPRESS_QSTEP[comp] + COMPRESS_BF16_SLACK)
+            grad_diff = max(r["grad_diff"] for r in recs)
+            grad_max = max(r["grad_max"] for r in recs)
+            bound = COMPRESS_LOSS_REL[comp]
+            res_ok = all(r["residual_finite"] and r["residual_absmax"] > 0 for r in recs)
+            line += (f"; step 0's reduced gradient against the uncompressed run's: largest "
+                     f"difference {grad_diff:.3e} (bound {grad_bound:.3e} from c_max "
+                     f"{c_max:.3e}; the largest reduced gradient element is {grad_max:.3e}); "
+                     f"share of parameters that differ from the uncompressed run's after "
+                     f"{COMPRESS_STEPS} steps {max(r['params_differ'] for r in recs):.3e}; "
+                     f"largest relative difference from the uncompressed losses {rel:.3e} "
+                     f"(bound {bound}); residual {recs[0]['residual_dtype']} "
+                     f"[{recs[0]['residual_numel']}], finite and non-zero: {res_ok}, "
+                     f"max |r| {max(r['residual_absmax'] for r in recs):.3e}")
+            if (grad_diff > grad_bound or rel > bound or not res_ok
+                    or recs[0]["residual_numel"] != num_parameters(model_cfg)):
+                raise AssertionError(f"the compressed dp=2 run {run} failed its check")
+            out["launches"] = recs[0]["launches"][-1]
+        line += (f"; flash launches per step per rank {recs[0]['launches'][-1]}; "
+                 f"{max(r['seconds'] for r in recs):.1f} s for {COMPRESS_STEPS} steps, peak "
+                 f"{max(r['peak_gib'] for r in recs):.2f} GiB per rank; not timed, on {gpu_line}")
+        print(line)
+        out["runs"][f"{comp}/zero{stage}/{accum}"] = {
+            "losses": losses, "loss_rel": rel,
+            "grad_diff": max(r.get("grad_diff", 0.0) for r in recs),
+            "seconds": max(r["seconds"] for r in recs)}
+    print(f"[compress] dp=2 runs: {wall:.1f} s wall")
+    return out
+
+
+def phase_compress(torch, gpu_line):
+    """Phase 12 (module docstring)."""
+    from dlbb_tpu_torch import cli
+    from dlbb_tpu_torch.models import ModelConfig
+    from dlbb_tpu_torch.models.transformer import num_parameters
+    from dlbb_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    # the 1B's flat gradient, as run_train counts it
+    quant_n = num_parameters(ModelConfig.from_dict(load_config(TRAIN_CONFIG)["model"]))
+    out = {"quantizer": _compress_quantizer(torch, quant_n, gpu_line)}
+    torch.cuda.empty_cache()
+    out["sweeps"] = _compress_sweeps(torch, gpu_line)
+    out["ring"] = _compress_ring(torch)
+    out["train"] = _compress_train(torch, gpu_line)
+    try:
+        cli.main(["train", "--config", TRAIN_CONFIG, "--grad-compression", "int8"])
+    except ValueError as e:
+        if DP1_REFUSAL not in str(e):
+            raise
+        print(f"[compress] cli train --grad-compression int8 at world 1 refused: {e}")
+    else:
+        raise AssertionError("cli train --grad-compression int8 at world 1 was not refused")
+    print(f"[compress] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -2083,6 +2569,8 @@ def main() -> int:
         moe = phase_moe(torch, fa, gpu_line)
     if "pipe" in phases:
         pipe = phase_pipe(torch, gpu_line)
+    if "compress" in phases:
+        compress = phase_compress(torch, gpu_line)
     if phases != set(PHASES):
         print(f"chip_smoke: phases {sorted(phases)} passed; no result printed for a subset")
         return 0
@@ -2101,6 +2589,7 @@ def main() -> int:
         "moe_launches": {d: r["launches"] for d, r in moe["e2e"].items()},
         "moe_train_launches": moe["train"]["launches"]["flash_fwd"],
         "pipe_launches": {part: n["flash_fwd"] for part, n in pipe["launches"].items()},
+        "compress_launches_per_step": compress["train"]["launches"]["flash_fwd"],
         "max_abs_err": err_o,
         "lse_max_abs_err": err_lse,
         "ms": main_t["ms"],
@@ -2126,6 +2615,7 @@ def main() -> int:
             "moe_train_launches": moe["train"]["launches"][f"flash_bwd_{kernel}"],
             "pipe_launches": {part: n[f"flash_bwd_{kernel}"]
                               for part, n in pipe["launches"].items()},
+            "compress_launches_per_step": compress["train"]["launches"][f"flash_bwd_{kernel}"],
             "max_abs_err": max(err_bwd[e] for e in errs),
             "ms": t["ms"],
             "event_ms": t["event_ms"],

@@ -50,6 +50,7 @@ import torch.distributed as dist
 
 from dlbb_tpu_torch.comm.mesh import BACKENDS, Mesh, get_mesh
 from dlbb_tpu_torch.comm.ops import (
+    COMPRESSED_OPS,
     DTYPES,
     MATMUL_OPS,
     build_allreduce_hierarchical,
@@ -270,6 +271,10 @@ def _build_fn(op_name: str, variant: Variant, mesh: Mesh, root: int):
         return build_allreduce_hierarchical(mesh, root)
     if op_name in MATMUL_OPS and variant.overlap_schedule is not None:
         return get_op(op_name).build(mesh, root, schedule=variant.overlap_schedule)
+    if op_name in COMPRESSED_OPS:
+        compression, accum = variant.compressed_wire()
+        return get_op(op_name).build(mesh, root, compression=compression,
+                                     accum_dtype=accum)
     return get_op(op_name).build(mesh, root)
 
 
@@ -496,6 +501,9 @@ def _run_one(sweep, variant: Variant, impl: str, mesh: Mesh, config,
         **timing_meta,
         "timings": timings,
         "variant": variant.name,
+        # the wire of the quantised micro-ops, which the stats price
+        **({"compression": variant.compressed_wire()[0]}
+           if op_name in COMPRESSED_OPS else {}),
         "mesh_shape": list(mesh.spec.shape),
         "mesh_axis_names": list(mesh.axis_names),
         "payload_bytes_per_rank": num_elements * torch.empty(

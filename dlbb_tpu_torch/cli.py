@@ -7,12 +7,17 @@
                                        [--world N] [--zero STAGE | --zero1]
                                        [--device cuda|cpu]
                                        [--tp-overlap off|ring|bidir]
+                                       [--grad-compression none|int8|fp8]
     python -m dlbb_tpu_torch.cli bench1d [--ops ...] [--sizes ...] [--ranks ...]
                                          [--world N] [--device cuda|cpu] ...
     python -m dlbb_tpu_torch.cli bench3d [--ops ...] [--batch ...] [--seq ...]
                                          [--hidden ...] [--ranks ...] ...
     python -m dlbb_tpu_torch.cli stats1d --input DIR --output DIR
     python -m dlbb_tpu_torch.cli stats3d --input DIR --output DIR [--impl NAME]
+    python -m dlbb_tpu_torch.cli compare --reference ROOT [--own-1d DIR]
+                                         [--own-3d DIR] [--own-e2e DIR]
+                                         [--output DIR] [--impl NAME]
+    python -m dlbb_tpu_torch.cli reports [--stats DIR] [--results DIR] [--impl NAME]
 
 The sweeps launch ``--world`` ranks (default: the largest of ``--ranks``)
 through ``bench/launch.py``: NCCL with one GPU per rank on ``cuda``, gloo
@@ -26,7 +31,18 @@ mesh, ``pipeline_parallel`` (with ``num_microbatches``) and
 ``expert_parallel`` included; ``model.num_experts``, ``moe_top_k`` and
 ``moe_dispatch`` select the MoE FFN, and ``training.pipeline_schedule``
 ("gpipe" or "1f1b") and ``training.moe_aux_loss_weight`` the pipeline's
-training schedule and the load-balancing loss.
+training schedule and the load-balancing loss.  ``--grad-compression``
+overrides ``training.grad_compression`` (the quantised dp reduction with
+error feedback; ``training.compression_accum_dtype`` picks its
+accumulation), and the sweeps take the compressed ops ``allreduce_q`` and
+``reducescatter_q`` under the ``compress_*`` variants.
+
+``compare`` and ``reports`` are file processing over the port's own
+results, never the JAX package's: their default trees are
+``results/torch`` and ``stats/torch`` (``stats/torch/1d/<impl>``,
+``stats/torch/variants/<impl>``, ``results/torch/parallelism``).  The
+reference corpus of ``compare`` is not in this repository: ``--reference``
+names its root.
 """
 
 from __future__ import annotations
@@ -83,6 +99,9 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--device", default=None, help=_DEVICE_HELP)
     tr.add_argument("--tp-overlap", choices=("off", "ring", "bidir"), default=None,
                     help=_OVERLAP_HELP)
+    tr.add_argument("--grad-compression", choices=("none", "int8", "fp8"), default=None,
+                    help="override training.grad_compression: quantised dp "
+                         "gradient reduction with error feedback (needs dp > 1)")
 
     b1 = sub.add_parser("bench1d", help="1D collective microbenchmark sweep")
     _add_sweep_args(b1)
@@ -106,6 +125,30 @@ def build_parser() -> argparse.ArgumentParser:
     s3.add_argument("--input", required=True)
     s3.add_argument("--output", required=True)
     s3.add_argument("--impl", default="torch_nccl", help="names the CSV files")
+
+    cp = sub.add_parser("compare", help="reference-vs-port head-to-head comparison "
+                                        "report (CSV + markdown, per-config verdicts)")
+    cp.add_argument("--reference", required=True,
+                    help="reference repo root (holds collectives/{1d,3d}/results)")
+    cp.add_argument("--own-1d", default="results/torch/1d/torch_nccl")
+    cp.add_argument("--own-3d", default="results/torch/3d/torch_nccl")
+    cp.add_argument("--own-e2e", default="results/torch/e2e",
+                    help="the port's run_e2e result JSONs")
+    cp.add_argument("--baseline", default="bench_baseline_cpu.json",
+                    help="the reference-stack torch-CPU E2E baseline")
+    cp.add_argument("--output", default="stats/torch/compare")
+    cp.add_argument("--impl", default="torch_nccl", help="the port's side of the join")
+
+    rp = sub.add_parser("reports", help="regenerate the derived reports (variant "
+                                        "tuning 1D + 3D winners, parallelism families, "
+                                        "the north-star curve) from the port's results "
+                                        "and stats: file processing, no device")
+    rp.add_argument("--stats", default="stats/torch", help="stats tree root")
+    rp.add_argument("--results", default="results/torch",
+                    help="results tree root (parallelism results)")
+    rp.add_argument("--impl", default="torch_nccl",
+                    help="the baseline implementation of the variant tables and "
+                         "the north-star curve's stats")
     return p
 
 
@@ -165,6 +208,8 @@ def _launched(args, worker, *extra):
     config = load_config(args.config)
     if args.tp_overlap is not None:
         config.setdefault("model", {})["tp_overlap"] = args.tp_overlap
+    if getattr(args, "grad_compression", None) is not None:
+        config.setdefault("training", {})["grad_compression"] = args.grad_compression
     output_dir = args.output or config.get("experiment", {}).get("output_dir")
     world = args.world or math.prod(degrees(config))
     worker_args = (config, output_dir, args.device, *extra)
@@ -221,7 +266,102 @@ def main(argv=None) -> int:
         results = process_3d_results(args.input, args.output, args.impl)
         print(f"processed {len(results)} result files")
         return 0
+    if args.cmd == "compare":
+        from pathlib import Path
+
+        from dlbb_tpu_torch.stats.compare import write_comparison
+
+        summary = write_comparison(
+            Path(args.reference), Path(args.own_1d), Path(args.own_3d), Path(args.output),
+            impl=args.impl, own_e2e=Path(args.own_e2e), baseline_json=Path(args.baseline))
+        for dim in ("1d", "3d"):
+            s = summary[dim]
+            print(f"{dim}: {s['configs']} configs — {s['beat']} beat, "
+                  f"{s['match']} match, {s['lose']} lose")
+        print(f"report written to {args.output}/COMPARISON.md")
+        return 0
+    if args.cmd == "reports":
+        return _reports(args)
     return 2
+
+
+def _reports(args) -> int:
+    """``cli reports``: the JAX CLI's reports that the port has, with its
+    summary lines.  An input of a report whose module is not ported yet
+    (serving, the autotuner) is refused loudly, never skipped."""
+    from pathlib import Path
+
+    from dlbb_tpu_torch.stats.northstar import default_stats_1d_csv, write_northstar_report
+    from dlbb_tpu_torch.stats.parallelism_report import (
+        DEFAULT_FAMILIES,
+        write_cp_scaling_report,
+        write_parallelism_report,
+    )
+    from dlbb_tpu_torch.stats.variants_report import (
+        write_variants3d_report,
+        write_variants_report,
+    )
+
+    stats_root, results_root = Path(args.stats), Path(args.results)
+    serve_dir = results_root / "serving"
+    if any(serve_dir.rglob("serving_*.json")) or any(serve_dir.rglob("fleet_*.json")):
+        raise NotImplementedError(
+            f"serving results under {serve_dir}: the serving reports come with "
+            "stats/serving_report.py (ROADMAP Queue 1, Slice E, item 12)")
+    autotune = results_root / "BENCH_autotune.json"
+    if autotune.exists():
+        raise NotImplementedError(
+            f"{autotune}: write_autotune_report belongs to plan/autotune.py, which is "
+            "not ported (ROADMAP Queue 1, Slice F, item 14)")
+    produced = 0
+    summary = write_variants_report(stats_root / "variants", baseline_impl=args.impl)
+    if summary["winners"]:
+        produced += 1
+        print(f"variants: {len(summary['winners'])} sizes across rank "
+              f"counts {sorted(summary.get('ranks', {}))} -> "
+              f"{stats_root / 'variants' / 'VARIANTS.md'}")
+    else:
+        print(f"variants: no stats under {stats_root / 'variants'} — skipped")
+    rows3d = write_variants3d_report(stats_root / "variants3d", baseline_impl=args.impl)
+    if rows3d:
+        produced += 1
+        print(f"variants3d: {len(rows3d)} joined configs -> "
+              f"{stats_root / 'variants3d' / 'VARIANTS3D.md'}")
+    else:
+        print(f"variants3d: no stats under {stats_root / 'variants3d'} — skipped")
+    # only (re)write the parallelism report when its inputs exist: a typo'd
+    # --results must not replace a report with an all-null table
+    par_dir = results_root / "parallelism"
+    if any(par_dir.glob("train_*.json")):
+        rows = write_parallelism_report(par_dir, stats_root / "parallelism",
+                                        DEFAULT_FAMILIES)
+        measured = [r for r in rows if r["step_time_mean_s"] is not None]
+        produced += 1
+        print(f"parallelism: {len(measured)} measured members -> "
+              f"{stats_root / 'parallelism' / 'PARALLELISM.md'}")
+    else:
+        print(f"parallelism: no train_*.json under {par_dir} — skipped")
+    cp_dir = par_dir / "cp_scaling"
+    if any(cp_dir.glob("train_ddp_cp_s*.json")):
+        cp_rows = write_cp_scaling_report(cp_dir, stats_root / "parallelism")
+        produced += 1
+        print(f"cp_scaling: {len(cp_rows)} (S, sp) cells -> "
+              f"{stats_root / 'parallelism' / 'CP_SCALING.md'}")
+    else:
+        print(f"cp_scaling: no train_ddp_cp_s*.json under {cp_dir} — skipped")
+    ns_csv = default_stats_1d_csv(stats_root, args.impl)
+    ns = write_northstar_report(ns_csv, stats_root / "northstar")
+    if ns:
+        produced += 1
+        print(f"northstar: {sum(ns.values())} size rows across "
+              f"{list(ns)} -> {stats_root / 'northstar' / 'NORTHSTAR.md'}")
+    else:
+        print(f"northstar: no north-star rows in {ns_csv} — skipped")
+    if produced == 0:
+        print("error: nothing to report — check --stats/--results point at the "
+              "port's trees")
+        return 1
+    return 0
 
 
 if __name__ == "__main__":

@@ -41,8 +41,11 @@ call.  ``fused`` is the collective then the product (or the product then
 the collective); ``ring``/``bidir`` are the decomposed schedules of
 ``parallel/collective_matmul.py``, selected by the ``overlap_*`` variants.
 
-Not ported yet (they raise from ``get_op``): the quantised-wire
-``allreduce_q``/``reducescatter_q`` (with ``comm/compression.py``).
+The quantised-wire micro-ops ``allreduce_q``/``reducescatter_q`` take
+``allreduce``'s and ``reducescatter``'s payloads and run the rings of
+``comm/compression.py``; ``compression`` and ``accum_dtype`` are the
+``Variant.compression``/``Variant.accum_dtype`` knobs.  They are out of
+place, so their ``prepare`` copies nothing.
 """
 
 from __future__ import annotations
@@ -54,6 +57,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dlbb_tpu_torch.comm.compression import psum_compressed, reduce_scatter_compressed
+from dlbb_tpu_torch.stats.stats1d import DEFAULT_COMPRESSION
 from dlbb_tpu_torch.comm.mesh import Mesh, mesh_num_ranks
 from dlbb_tpu_torch.models.sharding import reduce_scatter_along
 from dlbb_tpu_torch.parallel.collective_matmul import _ag_matmul_body, _matmul_rs_body
@@ -380,6 +385,42 @@ def build_matmul_rs(mesh: Mesh, root: int = 0, schedule: str = "fused"):
     return Collective(call, _weight_cache(make))
 
 
+# the compressed (quantised-wire) micro-ops: the runner's variant dispatch
+# keys off this tuple
+COMPRESSED_OPS = ("allreduce_q", "reducescatter_q")
+
+
+def build_allreduce_q(mesh: Mesh, root: int = 0, compression: str = DEFAULT_COMPRESSION,
+                      accum_dtype=torch.float32):
+    """Quantised all-reduce (``compression.psum_compressed``): the ring
+    reduce-scatter in the wire dtype, then the all-gather of the quantised
+    reduced chunks.  ``allreduce``'s payload, so a sweep prices compressed
+    against fused on the same logical bytes."""
+    _single_axis(mesh, "allreduce_q")
+
+    def call(x, _):
+        return psum_compressed(x, mesh.group, compression=compression,
+                               accum_dtype=accum_dtype).to(x.dtype)
+
+    return Collective(call)
+
+
+def build_reducescatter_q(mesh: Mesh, root: int = 0,
+                          compression: str = DEFAULT_COMPRESSION,
+                          accum_dtype=torch.float32):
+    """Quantised reduce-scatter (``compression.reduce_scatter_compressed``),
+    the ring of ``allreduce_q`` alone, on ``reducescatter``'s ``[P, *shape]``
+    slab; the ``[1, *shape]`` output holds this rank's reduced row."""
+    _single_axis(mesh, "reducescatter_q")
+
+    def call(x, _):
+        out = reduce_scatter_compressed(x, mesh.group, compression=compression,
+                                        accum_dtype=accum_dtype)
+        return out.unsqueeze(0).to(x.dtype)
+
+    return Collective(call)
+
+
 OPERATIONS: dict[str, CollectiveOp] = {
     op.name: op for op in (
         CollectiveOp("allreduce", "per_rank", "per_rank", build_allreduce),
@@ -399,20 +440,13 @@ OPERATIONS: dict[str, CollectiveOp] = {
                      transient_kind="per_peer"),
         CollectiveOp("matmul_rs", "per_rank", "per_rank", build_matmul_rs,
                      transient_kind="per_rank"),
+        CollectiveOp("allreduce_q", "per_rank", "per_rank", build_allreduce_q),
+        CollectiveOp("reducescatter_q", "per_peer", "per_rank", build_reducescatter_q),
     )
-}
-
-NOT_PORTED: dict[str, str] = {
-    name: "the quantised-wire collectives come with comm/compression.py "
-          "(ROADMAP Queue 1, Slice C remainder, item 7)"
-    for name in ("allreduce_q", "reducescatter_q")
 }
 
 
 def get_op(name: str) -> CollectiveOp:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"collective {name!r} is not ported: {NOT_PORTED[name]}")
     try:
         return OPERATIONS[name]
     except KeyError:

@@ -5,15 +5,18 @@ grids, each either reduced jointly over the whole mesh or, as ``hier*``,
 one axis subgroup at a time) and the overlap variants ``overlap_ring`` and
 ``overlap_bidir``, which run the collective-matmul micro-ops
 ``ag_matmul``/``matmul_rs`` on the decomposed schedules of
-``parallel/collective_matmul.py`` (``default`` is their fused baseline).
-The variant's name lands in the result JSON's ``implementation`` field, as
-in JAX.
+``parallel/collective_matmul.py`` (``default`` is their fused baseline),
+and the quantised-wire variants ``compress_int8``, ``compress_fp8`` and
+``compress_int8_bf16acc``, which set the wire dtype and the ring's
+accumulation dtype of the micro-ops ``allreduce_q``/``reducescatter_q``
+(``comm/compression.py``; ``default`` on ``allreduce``/``reducescatter``
+is their uncompressed baseline).  The variant's name lands in the result
+JSON's ``implementation`` field, as in JAX.
 
 The JAX package's other variants are refused by name with the ROADMAP item
-that brings them, never run as ``default``: ``compress_*`` (quantised-wire
-collectives), and ``nofuse`` and ``combine*``, which set XLA compiler
-options and flags and have no counterpart in eager ``torch.distributed``
-calls.
+that brings them, never run as ``default``: ``nofuse`` and ``combine*``,
+which set XLA compiler options and flags and have no counterpart in eager
+``torch.distributed`` calls.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 from dlbb_tpu_torch.comm.mesh import MeshSpec
+from dlbb_tpu_torch.stats.stats1d import DEFAULT_COMPRESSION
 
 
 @dataclass(frozen=True)
@@ -39,6 +43,18 @@ class Variant:
     # collective-matmul schedule of the MATMUL_OPS ("ring" | "bidir"); None
     # keeps their fused default
     overlap_schedule: Optional[str] = None
+    # wire dtype of the COMPRESSED_OPS ("int8" | "fp8"); None keeps their
+    # default (``compressed_wire``).  Every other op ignores it, as
+    # overlap_schedule
+    compression: Optional[str] = None
+    # accumulation dtype of the compressed ring ("float32" default,
+    # "bfloat16" the reduced-precision variant)
+    accum_dtype: Optional[str] = None
+
+    def compressed_wire(self) -> tuple[str, str]:
+        """(wire dtype, accumulation dtype) of the COMPRESSED_OPS under
+        this variant, the ops' defaults where it sets none."""
+        return self.compression or DEFAULT_COMPRESSION, self.accum_dtype or "float32"
 
     def mesh_spec(self, num_ranks: int) -> MeshSpec:
         if self.mesh_shape is None:
@@ -80,17 +96,30 @@ VARIANTS: dict[str, Variant] = {
         "step — half the hops for ag_matmul, half-sized messages both "
         "ways for matmul_rs",
         overlap_schedule="bidir"),
+    "compress_int8": Variant(
+        "compress_int8",
+        "quantised-wire collectives: int8 chunked-symmetric wire, fp32 "
+        "accumulation (allreduce_q / reducescatter_q micro-ops; bf16 "
+        "fused baseline = the default variant on allreduce/reducescatter)",
+        compression="int8"),
+    "compress_fp8": Variant(
+        "compress_fp8",
+        "quantised-wire collectives: fp8(e4m3) wire, fp32 accumulation — "
+        "same byte footprint as int8, different rounding behaviour",
+        compression="fp8"),
+    "compress_int8_bf16acc": Variant(
+        "compress_int8_bf16acc",
+        "int8 wire with bf16 ring accumulation — the reduced-precision "
+        "accumulate leg of the bandwidth-vs-accuracy axis",
+        compression="int8", accum_dtype="bfloat16"),
 }
 
 # variants of the JAX package that are not ported, and where they come from
 NOT_PORTED: dict[str, str] = {
-    **{name: "the quantised-wire ops allreduce_q/reducescatter_q come with "
-             "comm/compression.py (ROADMAP Queue 1, Slice C remainder, item 7)"
-       for name in ("compress_int8", "compress_fp8", "compress_int8_bf16acc")},
-    **{name: "XLA compiler options and flags have no counterpart in eager "
-             "torch.distributed calls; NCCL's own algorithm and protocol "
-             "settings would be (ROADMAP Queue 1, Slice C remainder, item 8)"
-       for name in ("nofuse", "combine4mb", "combine128mb")},
+    name: "XLA compiler options and flags have no counterpart in eager "
+          "torch.distributed calls; NCCL's own algorithm and protocol "
+          "settings would be (ROADMAP Queue 1, Slice C remainder, item 8)"
+    for name in ("nofuse", "combine4mb", "combine128mb")
 }
 
 

@@ -1,7 +1,10 @@
 """Offline statistics of the sweep results (counterpart of
 ``dlbb_tpu/stats``): the 1D per-file ``*_stats.json`` and consolidated CSV,
 the 3D standard and transposed CSVs, in the JAX package's (and the
-reference's) columns.  numpy only."""
+reference's) columns, and the derived reports over them (``compare``,
+``variants_report``, ``northstar``, ``parallelism_report``): file
+processing.  ``stats1d`` holds the quantised wire's constants, which
+``comm/compression.py`` imports."""
 
 from dlbb_tpu_torch.stats.stats1d import (
     calculate_bandwidth,

@@ -12,7 +12,11 @@ The bandwidth formula is the reference's, uniform across ops
 ``algorithm_bandwidth=True`` the standard bus-bandwidth factors.  The
 ``bytes_on_wire`` column is the JAX package's analytic ring model
 (``dlbb_tpu/analysis/expectations.py::op_wire_bytes``), copied here for
-the ops the port has.
+the ops the port has; for the quantised-wire ops it counts the chunk
+padding and the fp32 scales, of the ``compression`` the result records.
+``bandwidth_gbps`` keeps the logical-payload formula, so a compressed row
+and its uncompressed baseline share a normalisation and the wire saving
+shows in ``bytes_on_wire``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,30 @@ from typing import Any, Optional
 import numpy as np
 
 from dlbb_tpu_torch.utils.config import atomic_write_text
+
+# the quantised wire's constants, copied from the JAX package's
+# (dlbb_tpu/analysis/expectations.py:34-39); comm/compression.py imports them
+COMPRESSIONS = ("int8", "fp8")
+# the compressed ops' wire where none is named
+DEFAULT_COMPRESSION = "int8"
+# payload bytes per element on the wire (int8 and fp8 e4m3 are both 1 B)
+COMPRESSED_WIRE_ITEM_BYTES = {"int8": 1, "fp8": 1}
+# one fp32 scale per chunk of this many elements
+SCALE_CHUNK_ELEMS = 256
+SCALE_ITEM_BYTES = 4
+
+
+def scale_bytes(num_elements: int) -> int:
+    """Bytes of the fp32 scale side channel of a quantised payload of
+    ``num_elements`` (one scale per ``SCALE_CHUNK_ELEMS`` elements)."""
+    return -(-num_elements // SCALE_CHUNK_ELEMS) * SCALE_ITEM_BYTES
+
+
+def padded_elems(num_elements: int) -> int:
+    """Elements on the wire for a quantised payload of ``num_elements``:
+    ``quantize_chunked`` pads to a whole chunk, and the padding travels."""
+    return -(-num_elements // SCALE_CHUNK_ELEMS) * SCALE_CHUNK_ELEMS
+
 
 _DTYPE_BYTES = {
     "bfloat16": 2,
@@ -107,9 +135,11 @@ def calculate_bandwidth(num_elements: int, dtype: str, time_seconds: float,
 
 
 def op_wire_bytes(op_name: str, num_elements: int, num_ranks: int,
-                  elem_bytes: int) -> Optional[int]:
+                  elem_bytes: int, compression: Optional[str] = None) -> Optional[int]:
     """Per-device analytic wire bytes of one op under the standard ring
-    algorithms, or None for an op without a wire model."""
+    algorithms, or None for an op without a wire model.  For the compressed
+    ops the chunk padding and the fp32 scale side channel count;
+    ``compression`` defaults to the op's default (int8)."""
     n, p, b = num_elements, num_ranks, elem_bytes
     if p <= 1:
         return 0
@@ -122,6 +152,17 @@ def op_wire_bytes(op_name: str, num_elements: int, num_ranks: int,
         return int(2 * (p - 1) / p * p * n * b)
     if op_name == "sendrecv":
         return int(n * b)
+    if op_name in ("allreduce_q", "reducescatter_q"):
+        w = COMPRESSED_WIRE_ITEM_BYTES[compression or DEFAULT_COMPRESSION]
+        if op_name == "reducescatter_q":
+            # the ring alone: (P-1) hops of one quantised row and its scales
+            return (p - 1) * (padded_elems(n) * w + scale_bytes(n))
+        # the ring over ceil(n/P)-element chunks, then the all-gather of the
+        # quantised reduced chunks and their scales
+        c = -(-n // p)
+        ring = (p - 1) * (padded_elems(c) * w + scale_bytes(c))
+        gather = int((p - 1) / p * p * (padded_elems(c) * w + scale_bytes(c)))
+        return ring + gather
     return None
 
 
@@ -146,7 +187,8 @@ def process_file(json_path: Path, algorithm_bandwidth: bool = False) -> dict[str
         "bandwidth_gbps": bandwidth,
         "bytes_on_wire": op_wire_bytes(data["operation"], data["num_elements"],
                                        data["num_ranks"],
-                                       _DTYPE_BYTES.get(dtype, 2)),
+                                       _DTYPE_BYTES.get(dtype, 2),
+                                       compression=data.get("compression")),
         "timing_granularity": data.get("timing_granularity", "per_iteration"),
         # where it ran: "cuda", or "cpu" for gloo on the CPU
         "backend": (data.get("system_info") or {}).get("backend"),

@@ -7,7 +7,9 @@ packages share, so the port keeps its policy and its integrity contract on
 files of its own:
 
 - each rank of the process group writes its parameters, optimizer state and
-  step, as this rank holds them (its tp shards, its ZeRO shards), to
+  step, as this rank holds them (its tp shards, its ZeRO shards; under
+  gradient compression the state's error-feedback residual, this rank's
+  row), to
   ``<dir>/<step>/rank_<r>.pt``, through a temporary file and ``os.replace``;
   rank 0 also writes ``layout.json``: the mesh, the ZeRO stage and the
   world size.  A restore onto another layout raises ``ValueError`` (orbax

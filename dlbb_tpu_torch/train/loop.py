@@ -57,10 +57,23 @@ world 1 without a process group each step is timed by a CUDA event pair;
 inside a process group each timed step runs between world barriers and
 takes the slowest rank's time (``time_fn_per_iter_spmd``), as
 ``bench/e2e.py`` does.  The result's ``transport`` says how the ring hops
-moved (``transformer.ring_transport``), None where none ran.  Gradient
-compression waits for its ROADMAP item and is refused, never ignored.  The
-JAX package's chained timing regime exists for a remotely attached TPU and
-is not ported.
+moved (``transformer.ring_transport``, or the compressed ring's over dp),
+None where none ran.  The JAX package's chained timing regime exists for a
+remotely attached TPU and is not ported.
+
+``grad_compression`` ("int8"/"fp8") replaces the dp reduction by the
+quantised ring of ``comm/compression.py``, JAX's compressed step
+(``dlbb_tpu/train/loop.py:438-500``): each rank takes its local loss and
+gradients with no dp reduction, flattens the gradients in JAX's flatten
+order (``optim.flatten_params``), adds its error-feedback residual in fp32,
+reduces with ``psum_compressed`` in the ``compression_accum`` dtype and
+divides by dp; the new residual is the local quantiser's error
+``quantization_error(c)``; the loss is the dp mean.  The residual rides in
+the optimizer state, ``(inner state, GradCompressionState)``, stored in
+``residual_dtype``.  Under ZeRO-2 each rank cuts its shard out of the
+reduced gradient and updates it as stage 2 does.  JAX's envelope, with its
+messages: a pure dp mesh with dp above 1, ZeRO 0 or 2, no accumulation, no
+MoE aux loss, a dense attention.
 """
 
 from __future__ import annotations
@@ -76,6 +89,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dlbb_tpu_torch.comm.compression import psum_compressed, quantization_error
 from dlbb_tpu_torch.data.synthetic import create_dataset_from_config
 from dlbb_tpu_torch.models.configs import ModelConfig
 from dlbb_tpu_torch.models.sharding import (
@@ -102,17 +116,25 @@ from dlbb_tpu_torch.parallel.pipeline import (
     validate_rows,
 )
 from dlbb_tpu_torch.parallel.plan import ParallelismPlan
+from dlbb_tpu_torch.parallel.ring import hop_transport
 from dlbb_tpu_torch.resilience import PreemptionGuard, inject
 from dlbb_tpu_torch.train.optim import (
+    GRAD_COMPRESSIONS,
+    GradCompressionState,
     GradientTransformation,
     build_optimizer,
+    compression_accum_dtype,
+    flatten_params,
+    init_error_feedback,
     learning_rate,
     moments_dtype,
+    resolve_grad_compression,
     resolve_names,
     tree_leaves,
     tree_map,
+    unflatten_params,
 )
-from dlbb_tpu_torch.train.zero import Zero
+from dlbb_tpu_torch.train.zero import Zero, shard_along
 from dlbb_tpu_torch.utils.config import save_json
 from dlbb_tpu_torch.utils.metrics import Timer, summarize
 from dlbb_tpu_torch.utils.sysinfo import collect_system_info, resolve_device
@@ -124,9 +146,6 @@ MODE_NAMES = {0: "ddp", 1: "zero1", 2: "zero2", 3: "zero3"}
 # (the JAX package's table)
 OPTIMIZER_FLOPS_PER_PARAM = {"adam": 18, "adamw": 22, "sgd": 6,
                              "adafactor": 14}
-
-_LATER = "is not ported to dlbb_tpu_torch yet (ROADMAP.md, Queue 1"
-
 
 class TrainState(NamedTuple):
     params: Any
@@ -241,11 +260,67 @@ def check_pipeline_schedule(pipeline_schedule: str, pp: int) -> None:
         )
 
 
+def check_grad_compression(grad_compression: str, config: ModelConfig, mesh,
+                           stage: int, grad_accum: int, moe_aux_weight: float) -> None:
+    """JAX's envelope of the compressed step, checked in its order and with
+    its messages (``dlbb_tpu/train/loop.py:259-315``)."""
+    if grad_compression not in GRAD_COMPRESSIONS:
+        raise ValueError(
+            f"unknown grad_compression {grad_compression!r}; known: "
+            f"{GRAD_COMPRESSIONS}"
+        )
+    if grad_compression == "none":
+        return
+    other = [] if mesh is None else [a for a in mesh.axis_names
+                                     if a != "dp" and mesh.shape[a] > 1]
+    if other:
+        raise ValueError(
+            "training.grad_compression requires a pure data-parallel "
+            f"mesh; axes {other} have size > 1 (compose compression "
+            "with tp/sp/pp is future work — docs/compression.md)"
+        )
+    if mesh is None or mesh.shape["dp"] <= 1:
+        raise ValueError(
+            "training.grad_compression with data_parallel=1 has no "
+            "gradient reduction to compress: the ring is an identity, "
+            "so the error-feedback residual would subtract a "
+            "quantisation error that was never incurred — run "
+            "uncompressed, or use a dp>1 mesh"
+        )
+    if stage not in (0, 2):
+        raise ValueError(
+            "training.grad_compression supports ZeRO stages 0 (DDP) "
+            f"and 2 (grad sharding), not stage {stage}: stages 1/3 "
+            "shard the optimizer update itself, which the compressed "
+            "replicated-update path does not compose with"
+        )
+    if grad_accum != 1:
+        raise ValueError(
+            "training.grad_compression does not compose with "
+            "gradient_accumulation yet (accumulate locally before "
+            "one compressed reduction is future work)"
+        )
+    if moe_aux_weight != 0.0:
+        raise ValueError(
+            "training.grad_compression does not support the MoE aux "
+            "loss (expert-parallel compression is future work)"
+        )
+    if config.attention not in ("full", "simplified", "dense"):
+        raise ValueError(
+            f"training.grad_compression requires a dense attention "
+            f"mode (full/simplified/dense), got "
+            f"{config.attention!r}: shard_map attention modes nest "
+            "their own manual meshes"
+        )
+
+
 def make_train_step(config: ModelConfig, optimizer: GradientTransformation,
                     params, mesh=None, zero1: bool = False,
                     zero_stage: Optional[int] = None, grad_accum: int = 1,
                     num_microbatches: Optional[int] = None,
-                    moe_aux_weight: float = 0.0, pipeline_schedule: str = "gpipe"):
+                    moe_aux_weight: float = 0.0, pipeline_schedule: str = "gpipe",
+                    grad_compression: str = "none", compression_accum: str = "float32",
+                    residual_dtype: Optional[str] = None):
     """(step fn, initial ``TrainState``) for ZeRO stage ``zero_stage`` (0
     DDP, 1 sharded optimizer state, 2 and sharded gradients, 3 sharded
     parameters) on ``mesh`` (None: one device, no process group).
@@ -254,7 +329,9 @@ def make_train_step(config: ModelConfig, optimizer: GradientTransformation,
     ``grad_accum`` micro-steps feed one update; a pp mesh pipelines each in
     ``num_microbatches`` microbatches under ``pipeline_schedule``;
     ``moe_aux_weight`` weights the MoE load-balancing loss (module
-    docstring).
+    docstring).  ``grad_compression`` reduces over dp on the quantised ring,
+    accumulating in ``compression_accum``, with the error-feedback residual
+    stored in ``residual_dtype`` (module docstring).
     ``step.grads(state, batch, targets) -> (loss, grads)`` is the step
     without its update: the global loss and the reduced mean gradients, in
     the layout the optimizer updates (``step.zero``, a ``train/zero.py::
@@ -270,6 +347,8 @@ def make_train_step(config: ModelConfig, optimizer: GradientTransformation,
     stage = resolve_zero_stage(zero1, zero_stage)
     check_moe_aux(moe_aux_weight, config, 1 if mesh is None else mesh.shape["dp"],
                   grad_accum, pp)
+    check_grad_compression(grad_compression, config, mesh, stage, grad_accum,
+                           moe_aux_weight)
     zero = Zero(stage, optimizer, params, mesh)
     own, opt_state = zero.init(params)
     state = TrainState(tree_map(lambda p: p.detach().requires_grad_(True), own),
@@ -336,21 +415,59 @@ def make_train_step(config: ModelConfig, optimizer: GradientTransformation,
         new_params = tree_map(lambda p: p.requires_grad_(True), new_params)
         return TrainState(new_params, new_opt, state.step + 1), loss
 
+    if grad_compression != "none":
+        return _compressed_step(config, zero, state, mesh, grad_compression,
+                                compression_accum, residual_dtype)
     step.grads = reduced_grads
     step.zero = zero
     return step, state
 
 
-def _refuse_unported(train_cfg: dict[str, Any], execution: dict[str, Any]) -> None:
+def _compressed_step(config: ModelConfig, zero: Zero, state: TrainState, mesh,
+                     compression: str, accum: str, residual_dtype: Optional[str]):
+    """(step fn, initial state) of the compressed step (module docstring);
+    ``state`` is the uncompressed step's, whose optimizer state becomes
+    the inner part of ``(inner, GradCompressionState)``."""
+    group, dp = mesh.axis_groups["dp"], zero.dp
+    residual = init_error_feedback(state.params, residual_dtype or torch.float32)
+    state = TrainState(state.params, (state.opt_state, residual), state.step)
+
+    def compressed_grads(state: TrainState, batch, targets):
+        # local loss and gradients: the only dp reduction is the ring below
+        loss = mse_loss(state.params, batch, targets, config)
+        leaves = tree_leaves(state.params)
+        grads = iter(torch.autograd.grad(loss, leaves))
+        grads = tree_map(lambda _: next(grads), state.params)
+        res = state.opt_state[1].residual
+        with torch.no_grad():
+            flat_g = flatten_params(grads)
+            c = flat_g.float() + res.float()
+            reduced = psum_compressed(c, group, compression=compression,
+                                      accum_dtype=accum) / dp
+            # error feedback: the local quantiser's error, not the ring's
+            new_res = quantization_error(c, compression).to(res.dtype)
+            grads = unflatten_params(reduced.to(flat_g.dtype), state.params)
+        # ZeRO-2: this rank's shard of each sharded leaf, a local cut
+        grads = tree_map(lambda g, ax: g if ax is None
+                         else shard_along(g, ax, zero.rank, dp).contiguous(),
+                         grads, zero.opt_axes)
+        return zero.mean_loss(loss.detach()), grads, new_res
+
+    def step(state: TrainState, batch, targets):
+        loss, grads, new_res = compressed_grads(state, batch, targets)
+        with torch.no_grad():
+            new_params, new_inner = zero.apply(state.params, grads, state.opt_state[0])
+        new_params = tree_map(lambda p: p.requires_grad_(True), new_params)
+        return TrainState(new_params, (new_inner, GradCompressionState(new_res)),
+                          state.step + 1), loss
+
+    step.grads = lambda state, batch, targets: compressed_grads(state, batch, targets)[:2]
+    step.zero = zero
+    return step, state
+
+
+def _refuse_unported(execution: dict[str, Any]) -> None:
     """Config keys whose features wait for their ROADMAP items raise here."""
-    if str(train_cfg.get("grad_compression", "none")) != "none":
-        raise NotImplementedError(
-            f"training.grad_compression {train_cfg['grad_compression']!r} "
-            f"{_LATER}, Slice C remainder, item 7: comm/compression.py)")
-    if str(train_cfg.get("compression_accum_dtype", "float32")) != "float32":
-        raise NotImplementedError(
-            f"training.compression_accum_dtype {_LATER}, Slice C remainder, item 7: "
-            "comm/compression.py)")
     if execution.get("compiler_options"):
         raise NotImplementedError(
             "execution.compiler_options are XLA compiler options; the port "
@@ -392,7 +509,7 @@ def run_train(config: dict[str, Any], zero1: bool = False,
 def _run_train(config, zero1, zero_stage, device, output_dir, verbose):
     train_cfg = config.get("training", {}) or {}
     execution = config.get("execution", {}) or {}
-    _refuse_unported(train_cfg, execution)
+    _refuse_unported(execution)
     # explicit caller args (zero_stage or legacy zero1) win over the config
     if zero_stage is None and not zero1 and "zero_stage" in train_cfg:
         zero_stage = train_cfg["zero_stage"]
@@ -426,12 +543,22 @@ def _run_train(config, zero1, zero_stage, device, output_dir, verbose):
     lr = learning_rate(train_cfg)
     optimizer = build_optimizer(train_cfg)
     opt_name, sched_name = resolve_names(train_cfg)
+    grad_compression = resolve_grad_compression(train_cfg)
+    comp_accum = compression_accum_dtype(train_cfg)
+    # refused before the model is drawn (make_train_step checks it again)
+    check_grad_compression(grad_compression, model_cfg, mesh, stage, grad_accum,
+                           moe_aux_weight)
     params = init_params(model_cfg, inp.get("seed", 42), device, **plan.coords())
     step_fn, state = make_train_step(model_cfg, optimizer, params, mesh=mesh,
                                      zero_stage=stage, grad_accum=grad_accum,
                                      num_microbatches=plan.num_microbatches,
                                      moe_aux_weight=moe_aux_weight,
-                                     pipeline_schedule=pipeline_schedule)
+                                     pipeline_schedule=pipeline_schedule,
+                                     grad_compression=grad_compression,
+                                     compression_accum=comp_accum,
+                                     # the residual follows the moments'
+                                     # storage dtype, as in JAX
+                                     residual_dtype=moments_dtype(train_cfg))
     del params
 
     # checkpoint / resume before warmup, so that the restored step counter
@@ -570,8 +697,8 @@ def _run_train(config, zero1, zero_stage, device, output_dir, verbose):
         "mode": MODE_NAMES[stage],
         "zero_stage": stage,
         "resumed_from_step": resumed_from,
-        "grad_compression": "none",
-        "compression_accum_dtype": None,
+        "grad_compression": grad_compression,
+        "compression_accum_dtype": comp_accum if grad_compression != "none" else None,
         "preempted": preempted_at is not None,
         "preempted_at_step": preempted_at,
         "mesh": plan.mesh_dict(),
@@ -584,7 +711,9 @@ def _run_train(config, zero1, zero_stage, device, output_dir, verbose):
         "remat": model_cfg.remat,
         "remat_policy": model_cfg.remat_policy if model_cfg.remat else None,
         "tp_overlap": model_cfg.tp_overlap,
-        "transport": ring_transport(model_cfg, mesh, device),
+        "transport": (hop_transport(mesh.axis_groups["dp"], device)
+                      if grad_compression != "none"
+                      else ring_transport(model_cfg, mesh, device)),
         "compiler_options": None,
         "compile_time_s": compile_time,
         "step_time": summarize(step_times),

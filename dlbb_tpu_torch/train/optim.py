@@ -55,6 +55,46 @@ DEFAULT_LR = 1e-3
 MOMENTS_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
                   "float32": torch.float32}
 
+# training.grad_compression: quantised gradient reduction with error
+# feedback ("none" is the uncompressed reduction of train/zero.py)
+GRAD_COMPRESSIONS = ("none", "int8", "fp8")
+COMPRESSION_ACCUM_DTYPES = ("float32", "bfloat16")
+
+
+class GradCompressionState(NamedTuple):
+    """The error-feedback residual of compressed gradient reduction: this
+    rank's local quantisation error (``comm/compression.py::
+    quantization_error``), flat over the whole parameter tree in JAX's
+    flatten order (``flatten_params``), one ``[total_params]`` row per dp
+    rank, where JAX holds the ``[dp, total_params]`` array sharded by rows.
+    It rides in the optimizer state, so checkpoints carry it, and is stored
+    in ``moments_dtype`` where one is configured."""
+
+    residual: Any
+
+
+def resolve_grad_compression(train_cfg: dict[str, Any]) -> str:
+    """The configured ``training.grad_compression``, validated."""
+    mode = str(train_cfg.get("grad_compression", "none"))
+    if mode not in GRAD_COMPRESSIONS:
+        raise ValueError(
+            f"unknown training.grad_compression {mode!r}; known: "
+            f"{GRAD_COMPRESSIONS}"
+        )
+    return mode
+
+
+def compression_accum_dtype(train_cfg: dict[str, Any]) -> str:
+    """The configured ``training.compression_accum_dtype`` (the ring's
+    accumulation precision; fp32 default, bf16 the reduced variant)."""
+    dt = str(train_cfg.get("compression_accum_dtype", "float32"))
+    if dt not in COMPRESSION_ACCUM_DTYPES:
+        raise ValueError(
+            f"unknown training.compression_accum_dtype {dt!r} "
+            f"(expected one of {COMPRESSION_ACCUM_DTYPES})"
+        )
+    return dt
+
 
 class GradientTransformation(NamedTuple):
     """optax's pair: ``init(params) -> state`` and ``update(grads, state,
@@ -107,6 +147,43 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
     return [tree]
+
+
+def sorted_leaves(tree) -> list:
+    """The leaves in ``jax.tree``'s order: each dict's keys sorted."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in sorted_leaves(tree[k])]
+    return [tree]
+
+
+def flatten_params(tree) -> torch.Tensor:
+    """The leaves as one flat vector, as ``jax.flatten_util.ravel_pytree``
+    lays them out: in ``jax.tree``'s order (``sorted_leaves``), each leaf in
+    C order."""
+    return torch.cat([t.reshape(-1) for t in sorted_leaves(tree)])
+
+
+def unflatten_params(flat: torch.Tensor, like) -> Any:
+    """The inverse of ``flatten_params``: ``flat`` cut into ``like``'s
+    leaves (views of ``flat``)."""
+    pieces, offset = {}, 0
+    for path in sorted(_paths(like)):
+        t = _at(like, path)
+        _set_at(pieces, path, flat[offset:offset + t.numel()].view(t.shape))
+        offset += t.numel()
+    if offset != flat.numel():
+        raise ValueError(f"a flat vector of {flat.numel()} elements for a tree of {offset}")
+    return tree_map(lambda t, piece: piece, like, pieces)
+
+
+def init_error_feedback(params, dtype=torch.float32) -> GradCompressionState:
+    """A zero residual over the whole (flattened) parameter tree: this
+    rank's row of JAX's ``[dp, total_params]``."""
+    total = sum(t.numel() for t in tree_leaves(params))
+    device = tree_leaves(params)[0].device
+    if isinstance(dtype, str):
+        dtype = MOMENTS_DTYPES[dtype]
+    return GradCompressionState(residual=torch.zeros(total, dtype=dtype, device=device))
 
 
 def resolve_names(train_cfg: dict[str, Any]) -> tuple[str, str]:

@@ -191,9 +191,8 @@ def test_payload_is_the_jax_slab_bit_for_bit(op_name, dtype, shape, devices):
 
 
 def test_registry_mirrors_jax():
-    """Every JAX op is ported with the same buffer kinds or refused by name."""
-    assert set(port_ops.OPERATIONS) | set(port_ops.NOT_PORTED) == set(JAX_OPERATIONS)
-    assert not set(port_ops.OPERATIONS) & set(port_ops.NOT_PORTED)
+    """Every JAX op is ported, with the same buffer kinds."""
+    assert set(port_ops.OPERATIONS) == set(JAX_OPERATIONS)
     for name, op in port_ops.OPERATIONS.items():
         ref = JAX_OPERATIONS[name]
         assert (op.input_kind, op.output_kind, op.transient_kind) == (
@@ -208,13 +207,6 @@ def _names_a_roadmap_item(message: str) -> None:
     queue1 = ROADMAP.read_text().split("### Queue 1", 1)[1].split("### Queue 2", 1)[0]
     assert f"**{m.group(1)}" in queue1, m.group(1)
     assert re.search(rf"^{m.group(2)}\. \*\*", queue1, re.M), f"item {m.group(2)}"
-
-
-@pytest.mark.parametrize("name", sorted(port_ops.NOT_PORTED))
-def test_unported_op_raises(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-        get_op(name)
-    _names_a_roadmap_item(str(e.value))
 
 
 def test_unknown_op_raises():

@@ -38,7 +38,10 @@ def test_port_has_the_expected_modules():
                 "dlbb_tpu_torch/parallel/collective_matmul.py",
                 "dlbb_tpu_torch/parallel/ring_attention.py",
                 "dlbb_tpu_torch/parallel/ulysses.py", "dlbb_tpu_torch/parallel/pipeline.py",
-                "chip_smoke.py"):
+                "dlbb_tpu_torch/comm/compression.py", "dlbb_tpu_torch/stats/compare.py",
+                "dlbb_tpu_torch/stats/variants_report.py",
+                "dlbb_tpu_torch/stats/northstar.py",
+                "dlbb_tpu_torch/stats/parallelism_report.py", "chip_smoke.py"):
         assert rel in PORT_FILES
 
 
@@ -82,6 +85,24 @@ def test_sequence_modules_import_without_jax_triton_or_cuda(module):
     """The modules of the sequence-sharded layouts import in a fresh process
     where ``jax``, ``triton`` and ``dlbb_tpu`` cannot be imported, and
     leave CUDA uninitialised."""
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, module], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "dlbb_tpu_torch.comm.compression", "dlbb_tpu_torch.stats.compare",
+    "dlbb_tpu_torch.stats.variants_report", "dlbb_tpu_torch.stats.northstar",
+    "dlbb_tpu_torch.stats.parallelism_report", "dlbb_tpu_torch.cli"])
+def test_compression_and_report_modules_import_without_jax_triton_or_cuda(module):
+    """The quantised-wire collectives, the derived reports and the CLI
+    import in a fresh process where ``jax``, ``triton`` and ``dlbb_tpu``
+    cannot be imported, and leave CUDA uninitialised."""
     import os
     import subprocess
     import sys

@@ -523,17 +523,14 @@ def test_run_train_without_cuda_raises_instead_of_running_on_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("over,match", [
-    ({"training": {"grad_compression": "int8"}}, "grad_compression.*item 7"),
+    pytest.param({"training": {"grad_compression": "int8"}}, "data_parallel=1",
+                 id="over0-grad_compression.*item 7"),
     ({"training": {"moe_aux_loss_weight": 0.01}}, "moe_aux_loss_weight requires a MoE model"),
 ])
 def test_unported_training_options_are_refused(over, match):
-    """Gradient compression waits for its ROADMAP item and is refused; the
-    MoE aux loss is ported (tests/test_torch_moe.py) and, on this dense
-    model, refused with JAX's own ValueError."""
-    if "item" in match:
-        with pytest.raises(NotImplementedError, match=match):
-            pt_loop.run_train(_train_config(**over), device="cpu", verbose=False)
-        return
+    """Gradient compression is ported (tests/test_torch_compression.py) and,
+    at world 1, refused with JAX's own ValueError, as is the MoE aux loss
+    (tests/test_torch_moe.py) on this dense model."""
     with pytest.raises(ValueError, match=match) as got:
         pt_loop.run_train(_train_config(**over), device="cpu", verbose=False)
     with pytest.raises(ValueError) as want:
