@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlbb_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm,tp,dtrain,seq,moe,pipe,compress]
+    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm,tp,dtrain,seq,moe,pipe,compress,bench,kv]
 
 Phases (each raises on failure, and the script then exits non-zero):
 
@@ -119,7 +119,31 @@ Phases (each raises on failure, and the script then exits non-zero):
    ``COMPRESS_LOSS_REL`` of the uncompressed run's, the residual finite and
    non-zero, the flash launches per step counted from 0 around each step;
    (e) ``cli train --grad-compression int8`` at world 1 refused with
-   JAX's message.
+   JAX's message;
+13. ``bench``, the port's headline (``bench_torch.py``, ``bench.py``'s
+   counterpart): (a) ``python3 bench_torch.py`` as a subprocess, as it is
+   run from the command line: exit 0 and one stdout line with ``bench.py``'s four
+   headline keys and every extra (7B simplified and full, 1B full and dense
+   at S=512 and S=1024, 1B flash at S=8192, the 1B Adam train step), each
+   field finite and positive, no ``failed``; the line printed beside the
+   card's name and power limit; (b) in this process, for the headline's
+   configuration and each forward extra's, one untimed forward on the
+   weights from seed 42 and the benchmark's batch, its flash launches
+   counted from 0 (one per layer for "full" and "flash" at S >= 512, none
+   for "dense" and "simplified"), and each "full" and "flash" forward held
+   against the same forward through "dense" within ``E2E_REL_L2`` (at
+   S=8192 on batch row 0: dense holds fp32 scores of [B, 16, S, S]);
+14. ``kv``, the serving cache (``serve/kvcache.py``) inside a span trace
+   (``obs/spans.py``, written to a temporary directory of the checkout and
+   validated): the 1B's cache at 32 slots x 2048 tokens in 16-token
+   blocks, K and V each [24, 32, 128, 16, 16, 128] bf16 (12.0 GiB, equal to
+   ``kv_cache_bytes``) from a seeded generator; each layer quantised to the
+   int8 layout (its bytes equal to ``kv_cache_bytes(..., "int8")``), two
+   layers' codes, scales and dequantised values equal to the CPU's bit for
+   bit and their fp32 round trip reproducing the codes; quantise plus
+   dequantise of the whole cache timed (CUDA events, median of 5) beside its
+   bytes bound; ``gather_cache_slots`` and ``scatter_cache_slots`` on 8
+   slots equal to the CPU's bit for bit, the round trip the identity.
 
 It then prints the card's name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -153,7 +177,13 @@ LSE_ATOL = 1e-3
 # 1B forward, kernel path vs dense path, relative L2 over the whole output:
 # both are bf16 forwards (2**-8 relative per rounding) that round attention
 # differently (the kernel rounds P and o to bf16, dense keeps fp32 until o)
-# and 24 residual layers carry those differences to the output
+# and 24 residual layers carry those differences to the output.  The same
+# bound holds phase bench's configurations: at S=1024 and S=8192 each o is a
+# weighted sum over 2x and 16x more keys, whose independent roundings partly
+# cancel, so a layer's difference does not grow with S; the 7B's 32 layers
+# carry it through 4/3 the 1B's depth, at most 4/3 the difference if it grew
+# linearly (the 1B reads about 1.26e-02 at S=512 on an H100, so 32 layers
+# stay near 1.7e-02 at worst).  Phase bench prints each reading.
 E2E_REL_L2 = 3e-2
 # backward kernels vs plain version, from the same bf16 inputs: both round
 # p and ds to bf16 before their products, but from fp32 scores summed in
@@ -199,7 +229,7 @@ EDGE_CASES = {
 # phase 5 on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's kernel table)
 FWD_BEFORE_MS = {"main": 0.1259, "long": 2.5038}
 PHASES = ("build", "fwd", "bwd", "e2e", "train", "time", "comm", "tp", "dtrain", "seq",
-          "moe", "pipe", "compress")
+          "moe", "pipe", "compress", "bench", "kv")
 TP_CONFIG = "dlbb_tpu_torch/configs/baseline_config.yaml"
 # the 3D sweep's LLM shapes (batch, seq, hidden) on the card: the largest is
 # 1 GiB of bf16 per rank
@@ -2499,6 +2529,251 @@ def phase_compress(torch, gpu_line):
     return out
 
 
+# phase bench: bench_torch.py runs in a subprocess under this limit (its 7B
+# extras each init 13 GB of weights)
+BENCH_TIMEOUT_S = 900
+
+
+def _run_bench_script(torch, gpu_line):
+    """``python3 bench_torch.py`` in a subprocess, as it is run from the
+    command line: exit 0, one stdout line with bench.py's keys, every extra, finite
+    positive fields, and no ``failed``."""
+    import subprocess
+
+    import bench_torch
+
+    torch.cuda.empty_cache()  # the script's 7B needs the card's memory
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "bench_torch.py"], capture_output=True,
+                          text=True, timeout=BENCH_TIMEOUT_S,
+                          cwd=Path(__file__).resolve().parent)
+    for line in proc.stderr.splitlines():
+        print(f"[bench] bench_torch.py: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"bench_torch.py exited {proc.returncode}: {proc.stdout!r}")
+    lines = proc.stdout.splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench_torch.py printed {len(lines)} stdout lines, not 1")
+    out = json.loads(lines[0])
+    want = [bench_torch.extra_key(*e) for e in bench_torch.EXTRAS] + [bench_torch.TRAIN_EXTRA]
+    if list(out)[:4] != ["metric", "value", "unit", "vs_baseline"] or "failed" in out:
+        raise AssertionError(f"bench_torch.py's line: {lines[0]}")
+    if list(out.get("extras", {})) != want:
+        raise AssertionError(f"extras {list(out.get('extras', {}))}, expected {want}")
+    for name, extra in [("headline", {"value": out["value"]}), *out["extras"].items()]:
+        for key, x in extra.items():
+            if key != "remat_policy" and not (math.isfinite(x) and x > 0):
+                raise AssertionError(f"bench_torch.py {name}.{key} = {x}")
+    print(f"[bench] {gpu_line}: {lines[0]}")
+    print(f"[bench] bench_torch.py: {time.perf_counter() - t0:.1f} s wall")
+
+
+def phase_bench(torch, fa, gpu_line):
+    """Phase 13 (module docstring)."""
+    import bench_torch
+    from dlbb_tpu_torch.data import create_dataset_from_config
+    from dlbb_tpu_torch.models import ModelConfig, forward, init_params
+
+    _run_bench_script(torch, gpu_line)
+    configs = [("1B", "simplified", bench_torch.E2E_SEQ), *bench_torch.EXTRAS]
+    launches = {}
+    for size in sorted({c[0] for c in configs}, reverse=True):
+        model_cfg = ModelConfig.from_dict({"size": size})
+        params = init_params(model_cfg, 42, "cuda")
+        for sz, attention, seq in configs:
+            if sz != size:
+                continue
+            key = ("headline" if (sz, attention, seq) == configs[0]
+                   else bench_torch.extra_key(sz, attention, seq))
+            cfg = model_cfg.with_(attention=attention)
+            batch = create_dataset_from_config(
+                {"input": {"batch_size": bench_torch.E2E_BATCH, "sequence_length": seq,
+                           "seed": 42}, "model": {}},
+                dtype=torch.bfloat16, device="cuda",
+                hidden_size=cfg.hidden_size).get_batch()
+            fa.flash_fwd_launches = 0
+            with torch.inference_mode():
+                y = forward(params, batch, cfg)
+            torch.cuda.synchronize()
+            launches[key] = fa.flash_fwd_launches
+            expected = cfg.num_layers if attention in ("full", "flash") and seq >= 512 else 0
+            if launches[key] != expected:
+                raise AssertionError(f"{key}: {launches[key]} flash launches per forward, "
+                                     f"expected {expected}")
+            if y.shape != batch.shape or not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"{key}: output {tuple(y.shape)} not finite of the "
+                                     "input's shape")
+            note = f"{key}: {launches[key]} flash launches per forward (expected {expected})"
+            if attention in ("full", "flash"):
+                # at S=8192 dense attention holds fp32 scores of [B, 16, S, S]:
+                # 34 GB per tensor at B=8, 4.3 GB for batch row 0 alone
+                rows = slice(0, 1) if seq > 1024 else slice(None)
+                with torch.inference_mode():
+                    y_dense = forward(params, batch[rows], cfg.with_(attention="dense"))
+                rel = _rel_l2(y[rows], y_dense)
+                note += (f"; against dense on {'batch row 0' if seq > 1024 else 'the batch'}"
+                         f": relative L2 {rel:.3e} (tolerance {E2E_REL_L2})")
+                if not rel <= E2E_REL_L2:
+                    raise AssertionError(f"{key}: the kernel path disagrees with dense")
+                del y_dense
+            print(f"[bench] {size} {note}")
+            del y, batch
+        del params
+        torch.cuda.empty_cache()
+    return launches
+
+
+KV_MAX_BATCH, KV_MAX_SEQ, KV_BLOCK = 32, 2048, 16
+KV_CPU_LAYERS = (0, 23)   # the layers whose codes and scales the CPU checks
+KV_SLOTS = 8              # slots gathered and scattered back
+KV_REPS = 5
+
+
+def phase_kv(torch, gpu_line):
+    """Phase 14 (module docstring)."""
+    import tempfile
+
+    from dlbb_tpu_torch.obs import spans
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kv_",
+                                     dir=Path(__file__).resolve().parent) as out:
+        trace = Path(out) / "spans.json"
+        with spans.tracing(trace, meta={"phase": "kv", "device": gpu_line}):
+            _kv(torch, gpu_line)
+        events = spans.load_trace(trace)["traceEvents"]
+    problems = spans.validate_trace_events(events)
+    if problems:
+        raise AssertionError(f"phase kv's span trace: {problems}")
+    print(f"[kv] span trace of {len(events)} events: valid "
+          f"({', '.join(e['name'] for e in events if e['ph'] == 'B')})")
+
+
+def _kv(torch, gpu_line):
+    from dlbb_tpu_torch.models import ModelConfig
+    from dlbb_tpu_torch.models.configs import kv_cache_bytes
+    from dlbb_tpu_torch.obs import spans
+    from dlbb_tpu_torch.serve import kvcache as kv
+
+    cfg = ModelConfig.from_dict({"size": "1B"})
+    nb = KV_MAX_SEQ // KV_BLOCK
+    with spans.span("kv-build", cat="kv"):
+        cache = kv.create_kv_cache(cfg, KV_MAX_BATCH, nb, KV_BLOCK, device="cuda")
+        g = torch.Generator(device="cuda")
+        g.manual_seed(42)
+        for plane in (cache.k, cache.v):
+            for layer in plane:
+                layer.normal_(generator=g)
+        # all-zero blocks and heads take the guarded scale 1.0
+        cache.k[KV_CPU_LAYERS[0], 3, 5] = 0
+        cache.v[KV_CPU_LAYERS[1], 7, :4, :, 2] = 0
+        cache.lengths.copy_(torch.randint(0, KV_MAX_SEQ + 1, (KV_MAX_BATCH,), generator=g,
+                                          device="cuda", dtype=torch.int32))
+    plane_bytes = cache.k.nbytes
+    want = kv_cache_bytes(cfg, KV_MAX_BATCH, KV_MAX_SEQ)
+    print(f"[kv] 1B serving cache on the card: K and V each {list(cache.k.shape)} "
+          f"{cache.k.dtype}, {plane_bytes} bytes per plane, {2 * plane_bytes / 2**30:.1f} GiB "
+          f"in all; kv_cache_bytes {want}")
+    if 2 * plane_bytes != want or plane_bytes != 6_442_450_944:
+        raise AssertionError("the cache's bytes are not kv_cache_bytes")
+
+    with spans.span("kv-quantize", cat="kv"):
+        qc = kv.create_quant_kv_cache(cfg, KV_MAX_BATCH, nb, KV_BLOCK, device="cuda")
+        for name in ("k", "v"):
+            for layer, x in enumerate(getattr(cache, name)):
+                q, s = kv.quantize_kv_blocks(x)
+                getattr(qc, name)[layer].copy_(q)
+                getattr(qc, f"{name}_scale")[layer].copy_(s)
+        qc.lengths.copy_(cache.lengths)
+    q_bytes = sum(getattr(qc, f).nbytes for f in ("k", "v", "k_scale", "v_scale"))
+    q_want = kv_cache_bytes(cfg, KV_MAX_BATCH, KV_MAX_SEQ, "int8", KV_BLOCK)
+    print(f"[kv] int8 cache: {q_bytes} bytes of codes and scales; kv_cache_bytes(int8, "
+          f"block_size={KV_BLOCK}) {q_want}")
+    if q_bytes != q_want:
+        raise AssertionError("the int8 cache's bytes are not kv_cache_bytes(int8)")
+
+    with spans.span("kv-cpu-check", cat="kv", layers=str(KV_CPU_LAYERS)):
+        for layer in KV_CPU_LAYERS:
+            for name in ("k", "v"):
+                q_cpu, s_cpu = kv.quantize_kv_blocks(getattr(cache, name)[layer].cpu())
+                q, s = getattr(qc, name)[layer], getattr(qc, f"{name}_scale")[layer]
+                codes = int((q.cpu() != q_cpu).sum())
+                scales = int((s.cpu() != s_cpu).sum())
+                deq = kv.dequantize_kv_blocks(q, s, torch.bfloat16).cpu()
+                deq_diff = int((deq != kv.dequantize_kv_blocks(q_cpu, s_cpu,
+                                                               torch.bfloat16)).sum())
+                q2, _ = kv.quantize_kv_blocks(kv.dequantize_kv_blocks(q, s, torch.float32))
+                requant = int((q2 != q).sum())
+                zero_blocks = int((s_cpu == 1.0).sum())
+                print(f"[kv] layer {layer} {name.upper()}: card vs CPU {codes} codes, "
+                      f"{scales} scales, {deq_diff} dequantised bf16 values differ of "
+                      f"{q.numel()} and {s.numel()}; requantised codes differing "
+                      f"{requant}; {zero_blocks} scales at the guard 1.0")
+                if codes or scales or deq_diff or requant:
+                    raise AssertionError("the quantiser on the card is not the CPU's")
+                del q_cpu, s_cpu, deq, q2
+
+    def roundtrip():
+        for plane in (cache.k, cache.v):
+            for x in plane:
+                q, s = kv.quantize_kv_blocks(x)
+                kv.dequantize_kv_blocks(q, s, x.dtype)
+
+    with spans.span("kv-time", cat="kv", reps=KV_REPS):
+        roundtrip()
+        times = []
+        for _ in range(KV_REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            roundtrip()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    # quantise reads the bf16 cache and writes codes and scales; dequantise
+    # reads those and writes the bf16 cache
+    moved = 2 * (want + q_want)
+    bound_ms = moved / PEAK_BYTES_PER_S * 1e3
+    print(f"[kv] quantise + dequantise of the whole cache (48 layer planes, torch ops) on "
+          f"{gpu_line}: median {ms:.3f} ms of {KV_REPS} ({', '.join(f'{t:.3f}' for t in times)}); "
+          f"bytes bound {bound_ms:.3f} ms ({moved} bytes at {PEAK_BYTES_PER_S / 1e12:.2f} "
+          f"TB/s), {ms / bound_ms:.1f}x the bound")
+    del qc
+
+    with spans.span("kv-slots", cat="kv", slots=KV_SLOTS):
+        gen = torch.Generator().manual_seed(7)
+        idx = torch.randperm(KV_MAX_BATCH, generator=gen)[:KV_SLOTS]
+        perm = idx[torch.randperm(KV_SLOTS, generator=gen)]
+        host = kv.KVCache(*(t.cpu() for t in cache))
+
+        def same(card, cpu):
+            return all(_same_planes(torch, x, y) for x, y in zip(card, cpu))
+
+        small = kv.gather_cache_slots(cache, idx.cuda())
+        small_host = kv.gather_cache_slots(host, idx)
+        gathered = same(small, small_host)
+        kv.scatter_cache_slots(cache, small, idx.cuda())
+        identity = same(cache, host)
+        kv.scatter_cache_slots(cache, small, perm.cuda())
+        kv.scatter_cache_slots(host, small_host, perm)
+        permuted = same(cache, host)
+    print(f"[kv] slots {idx.tolist()} gathered ({list(small.k.shape)}) and scattered back: "
+          f"gather equal to the CPU's {gathered}, round trip the identity {identity}, "
+          f"scattered to {perm.tolist()} equal to the CPU's {permuted}")
+    if not (gathered and identity and permuted):
+        raise AssertionError("slot gather/scatter on the card is not the CPU's")
+
+
+def _same_planes(torch, got, host):
+    """A card tensor equal to a host tensor bit for bit, compared one slice
+    of the leading dim at a time."""
+    if got.shape != host.shape or got.dtype != host.dtype:
+        return False
+    if got.dim() < 2:
+        return bool(torch.equal(got.cpu(), host))
+    return all(bool(torch.equal(got[i].cpu(), host[i])) for i in range(got.shape[0]))
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -2543,34 +2818,52 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    fwd_design, bwd_design = phase_build(_build)
+    walls = {}
+
+    def timed(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        walls[name] = time.perf_counter() - t0
+        print(f"[time] phase {name}: {walls[name]:.1f} s wall")
+        return out
+
+    fwd_design, bwd_design = timed("build", phase_build, _build)
     if "fwd" in phases:
-        err_o, err_lse = phase_kernel_vs_plain(torch, fa)
+        err_o, err_lse = timed("fwd", phase_kernel_vs_plain, torch, fa)
     if "bwd" in phases:
-        err_bwd = phase_bwd_vs_plain(torch, fa)
+        err_bwd = timed("bwd", phase_bwd_vs_plain, torch, fa)
     if "e2e" in phases:
-        launches, _ = phase_main_path(torch, fa, gpu_line)
+        launches, _ = timed("e2e", phase_main_path, torch, fa, gpu_line)
     if "train" in phases:
-        train_launches, _ = phase_train(torch, fa, gpu_line)
+        train_launches, _ = timed("train", phase_train, torch, fa, gpu_line)
     if "time" in phases:
+        t0 = time.perf_counter()
         main_t = phase_timing(torch, fa, MAIN_SHAPE, reps=50, before_ms=FWD_BEFORE_MS["main"])
         long_t = phase_timing(torch, fa, LONG_SHAPE, reps=10, before_ms=FWD_BEFORE_MS["long"])
         main_b = _time_bwd(torch, fa, MAIN_SHAPE, reps=50, plain_reps=10)
         long_b = _time_bwd(torch, fa, LONG_SHAPE, reps=10, plain_reps=2)
+        walls["time"] = time.perf_counter() - t0
+        print(f"[time] phase time: {walls['time']:.1f} s wall")
     if "comm" in phases:
-        phase_comm(torch, gpu_line)
+        timed("comm", phase_comm, torch, gpu_line)
     if "tp" in phases:
-        tp = phase_tp(torch, gpu_line)
+        tp = timed("tp", phase_tp, torch, gpu_line)
     if "dtrain" in phases:
-        dtrain = phase_dtrain(torch, gpu_line)
+        dtrain = timed("dtrain", phase_dtrain, torch, gpu_line)
     if "seq" in phases:
-        seq = phase_seq(torch, gpu_line)
+        seq = timed("seq", phase_seq, torch, gpu_line)
     if "moe" in phases:
-        moe = phase_moe(torch, fa, gpu_line)
+        moe = timed("moe", phase_moe, torch, fa, gpu_line)
     if "pipe" in phases:
-        pipe = phase_pipe(torch, gpu_line)
+        pipe = timed("pipe", phase_pipe, torch, gpu_line)
     if "compress" in phases:
-        compress = phase_compress(torch, gpu_line)
+        compress = timed("compress", phase_compress, torch, gpu_line)
+    if "bench" in phases:
+        bench_launches = timed("bench", phase_bench, torch, fa, gpu_line)
+    if "kv" in phases:
+        timed("kv", phase_kv, torch, gpu_line)
+    print(f"[time] phases {', '.join(f'{k} {v:.1f}' for k, v in walls.items())} s; "
+          f"{sum(walls.values()):.1f} s in all")
     if phases != set(PHASES):
         print(f"chip_smoke: phases {sorted(phases)} passed; no result printed for a subset")
         return 0
@@ -2590,6 +2883,7 @@ def main() -> int:
         "moe_train_launches": moe["train"]["launches"]["flash_fwd"],
         "pipe_launches": {part: n["flash_fwd"] for part, n in pipe["launches"].items()},
         "compress_launches_per_step": compress["train"]["launches"]["flash_fwd"],
+        "bench_launches_per_forward": bench_launches,
         "max_abs_err": err_o,
         "lse_max_abs_err": err_lse,
         "ms": main_t["ms"],

@@ -10,7 +10,8 @@ Ported so far (the single-device forward, the collective sweeps, the
 tensor-parallel forward, DDP/ZeRO and tensor-parallel training, the
 sequence-sharded layouts: overlapped tensor parallelism and sequence
 parallelism, pipeline parallelism and the MoE FFN with expert
-parallelism):
+parallelism, compressed collectives and training, the reports, and the
+serving foundations):
 
 - ``models`` — ``ModelConfig``/``MODEL_CONFIGS`` (1B/7B/13B), the decoder
   ``forward`` with the simplified/full/dense/flash attention modes, remat
@@ -49,12 +50,24 @@ parallelism):
   the collective-matmul micro-ops and their ``overlap_*`` variants;
   ``bench.runner`` and ``bench.launch`` — the 1D and 3D collective sweeps
   on spawned ranks; ``stats`` — their statistics; ``cli bench1d``,
-  ``bench3d``, ``stats1d``, ``stats3d``.
+  ``bench3d``, ``stats1d``, ``stats3d``; the quantised-wire collectives
+  and compressed gradient training (``comm.compression``), and the
+  derived reports (``stats.compare``, ``variants_report``, ``northstar``,
+  ``parallelism_report``; ``cli compare``, ``reports``);
+- ``serve`` — the serving foundations: the paged KV-cache (``kvcache``:
+  its int8 layout, slot gather/scatter, per-rank shards, the block ledger
+  and prefix trie) and the seeded request traces (``traffic``); the
+  serving inputs of ``data`` and the KV-cache sizing and serving envelope
+  of ``models.configs``;
+- ``obs`` — the span tracer and the metrics registry; ``resilience.journal``.
+
+The root script ``bench_torch.py`` is the port's ``bench.py``: the 1B
+forward's tokens/s and ``bench.py``'s extras in one JSON line.
 
 Not ported yet (see ROADMAP.md): uneven tp shards, restoring a
-checkpoint onto another mesh, the quantised ops and gradient compression,
-serving, and the observability, planning and analysis layers and the rest
-of resilience (the journal, validation, the chaos gate).
+checkpoint onto another mesh, the serving engine and harness, and the
+rest of the observability, planning and analysis layers and of resilience
+(validation, the chaos gate).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit ``"cpu"`` they raise.

@@ -25,7 +25,7 @@ as in JAX; ``run_sweep`` returns the failures beside the files written.
 A failure on one rank only cannot be contained: its peers wait in the
 op's collective until the process group's timeout.
 
-Not ported in this slice (ROADMAP Queue 1, Slice F): the compile-ahead
+Not ported yet (ROADMAP Queue 1, Slice F, item 13): the compile-ahead
 engine and its compile cache, fault injection, the deadline watchdog,
 retries, the journal, span traces and device traces.  The sweeps keep their
 knobs with the values that mean "off", and ``run_sweep`` raises on any
@@ -131,7 +131,7 @@ class Sweep1D:
     dtype: str = "bfloat16"
     warmup_iterations: int = 10
     measurement_iterations: int = 100
-    output_dir: str = "results/1d"
+    output_dir: str = "results/torch/1d"
     root: int = 0
     # the port times per iteration only (the JAX "chained" regime exists
     # for a remotely attached TPU)
@@ -169,7 +169,7 @@ class Sweep3D:
     dtype: str = "bfloat16"
     warmup_iterations: int = 10
     measurement_iterations: int = 100
-    output_dir: str = "results/3d"
+    output_dir: str = "results/torch/3d"
     root: int = 0
     timing_mode: str = "per_iter"
     max_config_seconds: Optional[float] = None
@@ -250,7 +250,7 @@ def _check_sweep(sweep) -> None:
         if getattr(sweep, knob) != defaults[knob]:
             raise NotImplementedError(
                 f"{type(sweep).__name__}.{knob}={getattr(sweep, knob)!r}: "
-                f"{what} is not ported (ROADMAP Queue 1, Slice F, item 14)")
+                f"{what} is not ported (ROADMAP Queue 1, Slice F, item 13)")
     if sweep.timing_mode != "per_iter":
         raise NotImplementedError(
             f"timing_mode={sweep.timing_mode!r}: the port times per "

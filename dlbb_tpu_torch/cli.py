@@ -37,8 +37,11 @@ error feedback; ``training.compression_accum_dtype`` picks its
 accumulation), and the sweeps take the compressed ops ``allreduce_q`` and
 ``reducescatter_q`` under the ``compress_*`` variants.
 
-``compare`` and ``reports`` are file processing over the port's own
-results, never the JAX package's: their default trees are
+Every default output of the port lies under ``results/torch``: the sweeps
+write to ``results/torch/1d`` and ``results/torch/3d``, and the configs'
+``e2e`` results to ``results/torch/e2e``, never into the JAX package's
+corpus under ``results/``.  ``compare`` and ``reports`` are file
+processing over the port's own results: their default trees are
 ``results/torch`` and ``stats/torch`` (``stats/torch/1d/<impl>``,
 ``stats/torch/variants/<impl>``, ``results/torch/parallelism``).  The
 reference corpus of ``compare`` is not in this repository: ``--reference``
@@ -130,8 +133,10 @@ def build_parser() -> argparse.ArgumentParser:
                                         "report (CSV + markdown, per-config verdicts)")
     cp.add_argument("--reference", required=True,
                     help="reference repo root (holds collectives/{1d,3d}/results)")
-    cp.add_argument("--own-1d", default="results/torch/1d/torch_nccl")
-    cp.add_argument("--own-3d", default="results/torch/3d/torch_nccl")
+    cp.add_argument("--own-1d", default="results/torch/1d",
+                    help="the port's 1D result JSONs (bench1d's default output)")
+    cp.add_argument("--own-3d", default="results/torch/3d",
+                    help="the port's 3D result JSONs (bench3d's default output)")
     cp.add_argument("--own-e2e", default="results/torch/e2e",
                     help="the port's run_e2e result JSONs")
     cp.add_argument("--baseline", default="bench_baseline_cpu.json",
@@ -168,7 +173,7 @@ def _sweep(args):
                            ("hidden", "hidden_dims")):
             if getattr(args, flag):
                 common[name] = tuple(getattr(args, flag))
-        return runner.Sweep3D(output_dir=args.output or "results/3d", **common)
+        return runner.Sweep3D(output_dir=args.output or "results/torch/3d", **common)
     if args.sizes == ["extended"]:
         common["data_sizes"] = tuple(runner.EXTENDED_DATA_SIZES_1D.items())
     elif args.sizes:
@@ -177,7 +182,7 @@ def _sweep(args):
         if unknown:
             raise SystemExit(f"unknown size labels {unknown}; known: {list(table)}")
         common["data_sizes"] = tuple((s, table[s]) for s in args.sizes)
-    return runner.Sweep1D(output_dir=args.output or "results/1d", **common)
+    return runner.Sweep1D(output_dir=args.output or "results/torch/1d", **common)
 
 
 def e2e_worker(config, output_dir, device):

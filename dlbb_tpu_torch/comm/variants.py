@@ -10,13 +10,15 @@ and the quantised-wire variants ``compress_int8``, ``compress_fp8`` and
 ``compress_int8_bf16acc``, which set the wire dtype and the ring's
 accumulation dtype of the micro-ops ``allreduce_q``/``reducescatter_q``
 (``comm/compression.py``; ``default`` on ``allreduce``/``reducescatter``
-is their uncompressed baseline).  The variant's name lands in the result
-JSON's ``implementation`` field, as in JAX.
+is their uncompressed baseline), and ``nofuse``, the JAX package's
+"collective combiners off": eager ``torch.distributed`` issues every call
+on its own, so no combiner ever runs, and ``nofuse`` measures what
+``default`` measures under its own label.  The variant's name lands in the
+result JSON's ``implementation`` field, as in JAX.
 
-The JAX package's other variants are refused by name with the ROADMAP item
-that brings them, never run as ``default``: ``nofuse`` and ``combine*``,
-which set XLA compiler options and flags and have no counterpart in eager
-``torch.distributed`` calls.
+``combine4mb`` and ``combine128mb`` are refused by name, never run as
+``default``: in JAX they are combiner thresholds passed as ``XLA_FLAGS`` by
+the pod launcher at process start, and eager NCCL has no combiner to set.
 """
 
 from __future__ import annotations
@@ -112,14 +114,20 @@ VARIANTS: dict[str, Variant] = {
         "int8 wire with bf16 ring accumulation — the reduced-precision "
         "accumulate leg of the bandwidth-vs-accuracy axis",
         compression="int8", accum_dtype="bfloat16"),
+    "nofuse": Variant(
+        "nofuse",
+        "collective combiners off (the JAX package's CCL_FUSION_ENABLE=0 "
+        "analogue): eager torch.distributed issues every call on its own, so "
+        "no combiner runs, as under default"),
 }
 
-# variants of the JAX package that are not ported, and where they come from
+# variants of the JAX package that are not ported, and why
 NOT_PORTED: dict[str, str] = {
-    name: "XLA compiler options and flags have no counterpart in eager "
-          "torch.distributed calls; NCCL's own algorithm and protocol "
-          "settings would be (ROADMAP Queue 1, Slice C remainder, item 8)"
-    for name in ("nofuse", "combine4mb", "combine128mb")
+    name: "the all-reduce combiner threshold is a process-start XLA_FLAGS "
+          "option that the JAX package's pod launcher sets; eager NCCL "
+          "combines no collectives, so the threshold has no counterpart "
+          "(ROADMAP Queue 1, Slice C remainder, item 8)"
+    for name in ("combine4mb", "combine128mb")
 }
 
 

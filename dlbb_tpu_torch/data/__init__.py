@@ -4,6 +4,10 @@ from dlbb_tpu_torch.data.synthetic import (
     SyntheticEmbeddingDataset,
     batch_slice,
     create_dataset_from_config,
+    prompt_token_ids,
+    request_embeddings,
+    token_embedding_table,
 )
 
-__all__ = ["SyntheticEmbeddingDataset", "batch_slice", "create_dataset_from_config"]
+__all__ = ["SyntheticEmbeddingDataset", "batch_slice", "create_dataset_from_config",
+           "prompt_token_ids", "request_embeddings", "token_embedding_table"]

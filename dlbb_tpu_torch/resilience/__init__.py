@@ -1,9 +1,11 @@
 """Resilience (counterpart of ``dlbb_tpu/resilience``, host-only copies):
 the failure taxonomy (``errors``), the fault-injection registry
-(``inject``) and graceful preemption (``preempt``).  The journal, artifact
-validation and the chaos gate come with ROADMAP Queue 1, Slice F, item 13."""
+(``inject``), graceful preemption (``preempt``) and the append-only journal
+(``journal``).  Artifact validation and the chaos gate come with ROADMAP
+Queue 1, Slice F, item 13."""
 
 from dlbb_tpu_torch.resilience.errors import CheckpointCorruption
+from dlbb_tpu_torch.resilience.journal import SweepJournal
 from dlbb_tpu_torch.resilience.preempt import PreemptionGuard
 
-__all__ = ["CheckpointCorruption", "PreemptionGuard"]
+__all__ = ["CheckpointCorruption", "PreemptionGuard", "SweepJournal"]

@@ -7,9 +7,10 @@ corrupt artifacts as routine (Varuna, EuroSys'21; CheckFreq, FAST'21); the
 harness must fail closed, retry transients, and resume exactly.  This
 module is the *injection* half: named fault sites threaded through the
 execution layers (never through timed regions), activated by a compact plan
-string.  The port threads two of the sites so far: ``preempt`` between the
-train steps of ``train/loop.py::run_train`` and ``ckpt-corrupt`` in
-``train/checkpoint.py::Checkpointer.maybe_save``.  The others are parsed and
+string.  The port threads three of the sites so far: ``preempt`` between
+the train steps of ``train/loop.py::run_train``, ``ckpt-corrupt`` in
+``train/checkpoint.py::Checkpointer.maybe_save`` and ``serve-trace-corrupt``
+in ``serve/traffic.py::TrafficTrace.load``.  The others are parsed and
 counted, and fire at no call site until their layers are ported (ROADMAP
 Queue 1, Slice F, item 13); the tables below list where the JAX package
 hosts each.

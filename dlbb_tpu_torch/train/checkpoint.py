@@ -13,7 +13,8 @@ files of its own:
   ``<dir>/<step>/rank_<r>.pt``, through a temporary file and ``os.replace``;
   rank 0 also writes ``layout.json``: the mesh, the ZeRO stage and the
   world size.  A restore onto another layout raises ``ValueError`` (orbax
-  can reshard; the port cannot yet, ROADMAP Queue 1, Slice D, item 2);
+  can reshard; the port cannot yet, ROADMAP Queue 1, Slice D remainder,
+  item 20);
 - every save writes, per rank, a checksum manifest (sha256 and size of each
   file it wrote) under ``<dir>/.integrity/<step>/rank_<r>.json``.  A step is
   intact only when every rank's files verify: the ranks take the minimum of

@@ -224,7 +224,8 @@ def check_accumulation(batch_size: int, grad_accum: int, dp: int) -> None:
             f"micro-batch size {batch_size // grad_accum} (batch_size={batch_size} / "
             f"grad_accum={grad_accum}) not divisible by dp={dp}: each rank splits its "
             "own dp slice into the micro-batches, and the port does not reshard a "
-            "micro-batch across ranks as JAX does (ROADMAP Queue 1, Slice D, item 2)")
+            "micro-batch across ranks as JAX does (ROADMAP Queue 1, Slice D remainder, "
+            "item 17)")
 
 
 def check_moe_aux(moe_aux_weight: float, config: ModelConfig, dp: int,
@@ -243,7 +244,7 @@ def check_moe_aux(moe_aux_weight: float, config: ModelConfig, dp: int,
             "gradient_accumulation > 1 or pipeline_parallel > 1: each rank splits "
             "its own dp rows into the micro-batches, so a micro-batch's routing "
             "statistics would be taken over other tokens than JAX's (ROADMAP "
-            "Queue 1, Slice D, gaps)")
+            "Queue 1, Slice D remainder, item 18)")
 
 
 def check_pipeline_schedule(pipeline_schedule: str, pp: int) -> None:
@@ -467,12 +468,13 @@ def _compressed_step(config: ModelConfig, zero: Zero, state: TrainState, mesh,
 
 
 def _refuse_unported(execution: dict[str, Any]) -> None:
-    """Config keys whose features wait for their ROADMAP items raise here."""
+    """Config keys that have no target in the port raise here."""
     if execution.get("compiler_options"):
         raise NotImplementedError(
-            "execution.compiler_options are XLA compiler options; the port "
-            "has no XLA compilation to pass them to (their NCCL counterparts "
-            "are ROADMAP.md, Queue 1, Slice C remainder, item 8)")
+            "execution.compiler_options are XLA compiler options: the port "
+            "compiles no XLA program, so they have no target here, and eager "
+            "torch.distributed issues every collective on its own (ROADMAP "
+            "Queue 1, Slice C remainder, item 8)")
 
 
 def _launch_counts() -> dict[str, int]:

@@ -45,7 +45,8 @@ from dlbb_tpu_torch.comm import Mesh, MeshSpec, get_op, make_payload, plain_coll
 from dlbb_tpu_torch.comm import ops as port_ops
 from dlbb_tpu_torch.comm import variants as port_variants
 
-ROADMAP = Path(__file__).resolve().parents[1] / "ROADMAP.md"
+REPO = Path(__file__).resolve().parents[1]
+ROADMAP = REPO / "ROADMAP.md"
 N = 64
 SHAPE_3D = (2, 3, 8)
 RING4 = ((4,), ("ranks",))
@@ -199,14 +200,78 @@ def test_registry_mirrors_jax():
             ref.input_kind, ref.output_kind, ref.transient_kind)
 
 
+# a citation of ROADMAP's Queue 1: "Queue 1, Slice X[ remainder], item N"
+CITATION = re.compile(r"Queue\s+1,\s+(Slice\s+[A-F](?:\s+remainder)?)(?:,\s+item\s+(\d+))?")
+
+
+def roadmap_items() -> dict[str, set[int]]:
+    """The numbered items of each slice of ROADMAP.md's Queue 1: a line
+    ``**Slice X[ remainder]: ...**`` opens a slice, any other bold line at
+    the start of a line closes it, and ``N. **...`` is its item N."""
+    queue1 = ROADMAP.read_text().split("### Queue 1", 1)[1].split("### Queue 2", 1)[0]
+    items: dict[str, set[int]] = {}
+    section = None
+    for line in queue1.splitlines():
+        if line.startswith("**"):
+            m = re.match(r"\*\*(Slice [A-F](?: remainder)?):", line)
+            section = m.group(1) if m else None
+            if section:
+                items.setdefault(section, set())
+        m = re.match(r"(\d+)\. \*\*", line)
+        if m and section:
+            items[section].add(int(m.group(1)))
+    return items
+
+
+def _citations(text: str) -> list[tuple[str, str, "int | None"]]:
+    """(citation, slice, item or None) of every Queue 1 citation in text."""
+    return [(m.group(0), " ".join(m.group(1).split()),
+             int(m.group(2)) if m.group(2) else None)
+            for m in CITATION.finditer(text)]
+
+
 def _names_a_roadmap_item(message: str) -> None:
     """The refusal names ``Slice X[ remainder], item N`` and ROADMAP.md's
-    Queue 1 has that slice's heading and a numbered item N."""
-    m = re.search(r"ROADMAP Queue 1, (Slice [A-F](?: remainder)?), item (\d+)", message)
-    assert m, message
-    queue1 = ROADMAP.read_text().split("### Queue 1", 1)[1].split("### Queue 2", 1)[0]
-    assert f"**{m.group(1)}" in queue1, m.group(1)
-    assert re.search(rf"^{m.group(2)}\. \*\*", queue1, re.M), f"item {m.group(2)}"
+    Queue 1 has that slice's heading and a numbered item N under it."""
+    found = _citations(message)
+    assert found, message
+    items = roadmap_items()
+    for cited, section, item in found:
+        assert item is not None and item in items.get(section, ()), cited
+
+
+def _port_texts():
+    """Each port file's string constants (docstrings included; adjacent
+    literals joined, as Python joins them) and comments."""
+    import ast
+    import io
+    import tokenize
+
+    files = sorted((REPO / "dlbb_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "bench_torch.py"]
+    for path in files:
+        src = path.read_text()
+        texts = [n.value for n in ast.walk(ast.parse(src))
+                 if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+        texts += [tok.string for tok in tokenize.generate_tokens(io.StringIO(src).readline)
+                  if tok.type == tokenize.COMMENT]
+        yield path.relative_to(REPO).as_posix(), texts
+
+
+def test_every_roadmap_citation_in_the_port_resolves():
+    """Every "ROADMAP Queue 1, Slice X, item N" the port writes (refusals,
+    docstrings, comments) names a numbered item of that slice in ROADMAP.md,
+    so no refusal points the reader at a ported or renumbered item."""
+    items = roadmap_items()
+    assert {"Slice C remainder", "Slice D remainder", "Slice E", "Slice F"} <= set(items)
+    seen = 0
+    for rel, texts in _port_texts():
+        for text in texts:
+            for cited, section, item in _citations(text):
+                seen += 1
+                assert item is not None, f"{rel}: {cited!r} names no item"
+                assert item in items.get(section, ()), f"{rel}: {cited!r} is not in ROADMAP"
+    assert seen >= 10, seen
 
 
 def test_unknown_op_raises():

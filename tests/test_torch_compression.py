@@ -512,7 +512,8 @@ def test_compressed_ops_and_variants_are_ported():
     for name in SWEEP_VARIANTS:
         v, ref = pt_variants.get_variant(name), JAX_VARIANTS[name]
         assert (v.compression, v.accum_dtype) == (ref.compression, ref.accum_dtype)
-    for name in ("nofuse", "combine4mb", "combine128mb"):
+    assert pt_variants.get_variant("nofuse").compression is None
+    for name in ("combine4mb", "combine128mb"):
         with pytest.raises(NotImplementedError, match="item 8"):
             pt_variants.get_variant(name)
 

@@ -1,5 +1,5 @@
 """The port stands alone: no file of ``dlbb_tpu_torch/``, not
-``chip_smoke.py`` and not ``scripts/torch_{e2e,comm,zero}_profile.py`` or
+``chip_smoke.py`` or ``bench_torch.py``, and not ``scripts/torch_{e2e,comm,zero}_profile.py`` or
 ``scripts/torch_gloo_p2p_probe.py`` imports
 ``jax`` or any module of ``dlbb_tpu`` (the JAX package runs nowhere on the card's
 machine).  Static AST check, one case per file, in the manner of
@@ -13,7 +13,8 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(
     [p.relative_to(REPO).as_posix() for p in (REPO / "dlbb_tpu_torch").rglob("*.py")]
-    + ["chip_smoke.py", "scripts/torch_e2e_profile.py", "scripts/torch_comm_profile.py",
+    + ["chip_smoke.py", "bench_torch.py", "scripts/torch_e2e_profile.py",
+       "scripts/torch_comm_profile.py",
        "scripts/torch_zero_profile.py", "scripts/torch_gloo_p2p_probe.py"]
 )
 
@@ -41,7 +42,11 @@ def test_port_has_the_expected_modules():
                 "dlbb_tpu_torch/comm/compression.py", "dlbb_tpu_torch/stats/compare.py",
                 "dlbb_tpu_torch/stats/variants_report.py",
                 "dlbb_tpu_torch/stats/northstar.py",
-                "dlbb_tpu_torch/stats/parallelism_report.py", "chip_smoke.py"):
+                "dlbb_tpu_torch/stats/parallelism_report.py",
+                "dlbb_tpu_torch/serve/kvcache.py", "dlbb_tpu_torch/serve/traffic.py",
+                "dlbb_tpu_torch/obs/spans.py", "dlbb_tpu_torch/obs/export.py",
+                "dlbb_tpu_torch/resilience/journal.py", "chip_smoke.py",
+                "bench_torch.py"):
         assert rel in PORT_FILES
 
 
@@ -111,3 +116,32 @@ def test_compression_and_report_modules_import_without_jax_triton_or_cuda(module
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, module], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "dlbb_tpu_torch.serve", "dlbb_tpu_torch.obs", "dlbb_tpu_torch.resilience",
+    "bench_torch"])
+def test_serving_obs_and_bench_import_without_jax_triton_or_cuda(module):
+    """The serving foundations, the span tracer and metrics registry, the
+    journal and the headline script import in a fresh process where
+    ``jax``, ``triton`` and ``dlbb_tpu`` cannot be imported, and leave CUDA
+    uninitialised."""
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, module], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_timing_never_imports_the_tracer():
+    """``utils/timing.py`` brackets device work with clocks, so it imports
+    nothing of ``obs`` (the spans stay outside timed regions), as in JAX."""
+    tree = ast.parse((REPO / "dlbb_tpu_torch" / "utils" / "timing.py").read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            assert "obs" not in (node.module or "").split("."), node.module
+        elif isinstance(node, ast.Import):
+            assert not any("obs" in a.name.split(".") for a in node.names)

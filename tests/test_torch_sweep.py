@@ -187,9 +187,25 @@ def test_every_unported_knob_is_tested():
 
 def test_unported_variant_raises_in_a_sweep():
     # overlap_ring is ported (tests/test_torch_collective_matmul.py), and so
-    # are the compress_* variants (tests/test_torch_compression.py)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner.run_sweep(runner.Sweep1D(variant="nofuse"), device="cpu")
+    # are the compress_* variants (tests/test_torch_compression.py) and
+    # nofuse (test_nofuse_sweep_runs_under_its_label)
+    with pytest.raises(NotImplementedError, match="pod launcher") as e:
+        runner.run_sweep(runner.Sweep1D(variant="combine4mb"), device="cpu")
+    assert "XLA_FLAGS" in str(e.value)
+
+
+def test_nofuse_sweep_runs_under_its_label(tmp_path):
+    """JAX's "combiners off": eager torch.distributed combines nothing, so
+    the sweep runs as under default and its results carry the variant's
+    name, as JAX labels them (``<impl>_nofuse``)."""
+    assert cli.main(["bench1d", "--device", "cpu", "--world", "2", "--ranks", "2",
+                     "--ops", "allreduce", "--sizes", "1KB", "--warmup", "1",
+                     "--iters", "3", "--variant", "nofuse",
+                     "--output", str(tmp_path)]) == 0
+    (path,) = tmp_path.glob("*.json")
+    data = json.loads(path.read_text())
+    assert path.name == f"{IMPL}_nofuse_allreduce_ranks2_1KB.json"
+    assert (data["implementation"], data["variant"]) == (f"{IMPL}_nofuse", "nofuse")
 
 
 def test_run_sweep_without_device_cpu_raises_with_no_cuda():
