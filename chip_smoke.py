@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlbb_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm,tp,dtrain,seq,moe,pipe,compress,bench,kv]
+    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm,tp,dtrain,seq,moe,pipe,compress,bench,kv,serve]
 
 Phases (each raises on failure, and the script then exits non-zero):
 
@@ -144,6 +144,22 @@ Phases (each raises on failure, and the script then exits non-zero):
    dequantise of the whole cache timed (CUDA events, median of 5) beside its
    bytes bound; ``gather_cache_slots`` and ``scatter_cache_slots`` on 8
    slots equal to the CPU's bit for bit, the round trip the identity.
+15. ``serve``, the serving engine's core (``serve/engine.py``) on the 1B
+   (H=2048, 24 layers, 16 heads, FFN 8192, bf16, random weights from seed
+   42) at world 1: (a) a 1024-token sequence, its first 640 tokens
+   prefilled into slot 2 of a 4-slot cache (``max_seq`` 1024, 16-token
+   blocks) and the other 384 decoded with the true next inputs fed in,
+   every output against the one-shot "full" forward (24 flash launches,
+   counted) within ``SERVE_REL_L2``, slot 2's length 1024 and the other
+   slots empty; (b) ``run_trace`` on phase kv's cache (32 slots of 2048
+   tokens, 12 GiB, ``hbm_budget_gb`` the card's memory less the weights)
+   of 64 seeded requests all arriving at t=0 (prompts 128-1024, outputs
+   32-128), in the "off" mode and twice in the "greedy" mode: every
+   request completed, none rejected, no block left reserved, the greedy
+   tokens of the two greedy runs equal per request, the span trace valid;
+   TTFT, per-token latency, decode-step ms, goodput and peak memory
+   printed; (c) the decode step's median against its bytes bound (the
+   weights and the whole cache read once at 3.35 TB/s).
 
 It then prints the card's name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -229,7 +245,7 @@ EDGE_CASES = {
 # phase 5 on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's kernel table)
 FWD_BEFORE_MS = {"main": 0.1259, "long": 2.5038}
 PHASES = ("build", "fwd", "bwd", "e2e", "train", "time", "comm", "tp", "dtrain", "seq",
-          "moe", "pipe", "compress", "bench", "kv")
+          "moe", "pipe", "compress", "bench", "kv", "serve")
 TP_CONFIG = "dlbb_tpu_torch/configs/baseline_config.yaml"
 # the 3D sweep's LLM shapes (batch, seq, hidden) on the card: the largest is
 # 1 GiB of bf16 per rank
@@ -2764,6 +2780,204 @@ def _kv(torch, gpu_line):
         raise AssertionError("slot gather/scatter on the card is not the CPU's")
 
 
+# phase serve (a): one sequence of SERVE_SEQ tokens, a SERVE_PROMPT-token
+# prompt prefilled into slot SERVE_SLOT, the rest decoded with the true next
+# inputs fed in (tests/test_serve.py's equivalence case at the 1B's width)
+SERVE_EQUIV = dict(max_batch=4, block_size=16, max_seq=1024)
+SERVE_SEQ, SERVE_PROMPT, SERVE_SLOT = 1024, 640, 2
+# The cached path against the one-shot "full" forward, relative L2 over the
+# prompt's last output and the 384 decoded ones.  The serving programs are a
+# dense-attention forward computed in pieces: fp32 scores and softmax as
+# dense_attention (the prefill calls it; decode's cached attention is the
+# same math on one query row), while "full" at S=1024 runs the flash kernel,
+# which rounds P and o to bf16.  So their difference is the kind the kernel
+# path has from dense (E2E_REL_L2's argument; phase bench reads it for the
+# 1B at S=1024), plus the bf16 roundings of GEMMs at another shape (M=1 per
+# decode step against M=1024), each within a bf16 half-ulp (2^-9 relative)
+# of the same exact product, carried by the same 24 residual layers as the
+# kernel's: the same bound holds both.
+SERVE_REL_L2 = E2E_REL_L2
+# phase serve (b): the cache of phase kv, 64 requests on 32 slots
+SERVE_ENGINE = dict(max_batch=32, block_size=16, max_seq=2048, queue_capacity=64)
+SERVE_REQUESTS = 64
+SERVE_PROMPTS, SERVE_OUTPUTS = (128, 1024), (32, 128)
+SERVE_MODES = ("off", "greedy", "greedy")
+
+
+def phase_serve(torch, fa, gpu_line):
+    """Phase 15 (module docstring)."""
+    import tempfile
+
+    from dlbb_tpu_torch.obs import spans
+
+    t0 = time.perf_counter()
+    launches = _serve_equivalence(torch, fa, gpu_line)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_",
+                                     dir=Path(__file__).resolve().parent) as tmp:
+        trace = Path(tmp) / "spans.json"
+        with spans.tracing(trace, meta={"phase": "serve", "device": gpu_line}):
+            _serve_engine(torch, gpu_line)
+        events = spans.load_trace(trace)["traceEvents"]
+    problems = spans.validate_trace_events(events)
+    if problems:
+        raise AssertionError(f"phase serve's span trace: {problems}")
+    counts = {n: sum(1 for e in events if e["ph"] == "B" and e["name"] == n)
+              for n in ("serve-admission", "serve-prefill", "serve-decode")}
+    print(f"[serve] span trace of {len(events)} events: valid; B spans {counts}")
+    if counts["serve-prefill"] != SERVE_REQUESTS * len(SERVE_MODES):
+        raise AssertionError("the span trace lacks a serve-prefill per request")
+    print(f"[serve] phase wall {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _serve_equivalence(torch, fa, gpu_line):
+    """(a): the 1B's prefill and decode programs against its one-shot
+    "full" forward; returns that forward's flash launches (one per
+    layer)."""
+    from dlbb_tpu_torch.models import ModelConfig, forward, init_params
+    from dlbb_tpu_torch.serve.engine import (
+        ServingConfig,
+        _inject_token,
+        build_decode_step,
+        build_prefill,
+    )
+    from dlbb_tpu_torch.serve.kvcache import create_kv_cache
+
+    cfg = ModelConfig.from_dict({"size": "1B"})
+    params = init_params(cfg, 42, "cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(42)
+    x = torch.randn((1, SERVE_SEQ, cfg.hidden_size), generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    _zero_flash_counts(fa)
+    with torch.inference_mode():
+        y_full = forward(params, x, cfg)
+    torch.cuda.synchronize()
+    launches = fa.flash_fwd_launches
+    with torch.inference_mode():
+        y_dense = forward(params, x, cfg.with_(attention="dense"))
+    print(f"[serve] 1B \"full\" forward of {SERVE_SEQ} tokens: {launches} flash_fwd "
+          f"launches (expected {cfg.num_layers})")
+    if launches != cfg.num_layers:
+        raise AssertionError("the reference forward did not run the flash kernel per layer")
+
+    sv = ServingConfig(**SERVE_EQUIV)
+    sv.validate(cfg)
+    cache = create_kv_cache(cfg, sv.max_batch, sv.num_blocks, sv.block_size, device="cuda")
+    prefill, decode = build_prefill(cfg), build_decode_step(cfg)
+    xp = torch.zeros((1, sv.bucket_for(SERVE_PROMPT), cfg.hidden_size), device="cuda",
+                     dtype=torch.bfloat16)
+    xp[:, :SERVE_PROMPT] = x[:, :SERVE_PROMPT]
+    t0 = time.perf_counter()
+    cache, y_last = prefill(cache, params, xp, SERVE_SLOT, SERVE_PROMPT)
+    rows = [y_last]
+    carry = (cache, torch.zeros((sv.max_batch, 1, cfg.hidden_size), device="cuda",
+                                dtype=torch.bfloat16))
+    active = torch.zeros(sv.max_batch, dtype=torch.bool, device="cuda")
+    active[SERVE_SLOT] = True
+    for i in range(SERVE_PROMPT, SERVE_SEQ):
+        carry = _inject_token(carry, SERVE_SLOT, x[0, i])
+        carry, y = decode(carry, params, active)
+        rows.append(y[SERVE_SLOT, 0])
+    got = torch.stack(rows)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cache = carry[0]
+    ref = y_full[0, SERVE_PROMPT - 1:]
+    rel = _rel_l2(got, ref)
+    rel_dense = _rel_l2(got, y_dense[0, SERVE_PROMPT - 1:])
+    others = [s for s in range(sv.max_batch) if s != SERVE_SLOT]
+    empty = all(int(p[:, s].count_nonzero()) == 0 for p in (cache.k, cache.v) for s in others)
+    lengths = cache.lengths.tolist()
+    print(f"[serve] 1B prefill of {SERVE_PROMPT} tokens (bucket {xp.shape[1]}) into slot "
+          f"{SERVE_SLOT} and {SERVE_SEQ - SERVE_PROMPT} decode steps ({wall:.2f} s) on "
+          f"{gpu_line}: relative L2 against the \"full\" forward {rel:.3e} (tolerance "
+          f"{SERVE_REL_L2}), against the dense forward {rel_dense:.3e}; lengths {lengths}; "
+          f"the other slots' planes zero {empty}")
+    if not (bool(torch.isfinite(got).all()) and rel <= SERVE_REL_L2):
+        raise AssertionError("the serving programs disagree with the one-shot forward")
+    if lengths != [SERVE_SEQ if s == SERVE_SLOT else 0 for s in range(sv.max_batch)] \
+            or not empty:
+        raise AssertionError("the programs touched a slot they were not given")
+    return launches
+
+
+def _serve_engine(torch, gpu_line):
+    """(b) and (c): ``run_trace`` at the cache of phase kv, once per mode of
+    ``SERVE_MODES``, and the decode step against its bytes bound."""
+    import dataclasses
+
+    from dlbb_tpu_torch.models import ModelConfig, init_params, num_parameters
+    from dlbb_tpu_torch.models.configs import kv_cache_bytes
+    from dlbb_tpu_torch.serve.engine import ServingConfig, ServingEngine
+    from dlbb_tpu_torch.serve.traffic import generate_trace
+
+    cfg = ModelConfig.from_dict({"size": "1B"})
+    params = init_params(cfg, 42, "cuda")
+    weight_bytes = num_parameters(cfg) * 2
+    total = torch.cuda.get_device_properties(0).total_memory
+    budget_gb = (total - weight_bytes) / 2**30
+    cache_bytes = kv_cache_bytes(cfg, SERVE_ENGINE["max_batch"], SERVE_ENGINE["max_seq"])
+    trace = generate_trace("poisson", SERVE_REQUESTS, seed=42, prompt_range=SERVE_PROMPTS,
+                           output_range=SERVE_OUTPUTS)
+    # every arrival at t=0: twice as many requests as slots, so slots are
+    # freed and granted again, in an order that does not depend on timing
+    trace = dataclasses.replace(trace, requests=tuple(
+        dataclasses.replace(r, arrival_s=0.0) for r in trace.requests))
+    print(f"[serve] engine: 1B bf16, {SERVE_ENGINE}, hbm_budget_gb {budget_gb:.3f} (the "
+          f"card's {total} bytes less {weight_bytes} bytes of weights); the cache "
+          f"{cache_bytes} bytes; {SERVE_REQUESTS} requests at t=0, prompts "
+          f"{sum(r.prompt_len for r in trace)} tokens, outputs "
+          f"{sum(r.output_len for r in trace)} tokens")
+    bound_ms = (weight_bytes + cache_bytes) / PEAK_BYTES_PER_S * 1e3
+    runs = []
+    engines = {}
+    for mode in SERVE_MODES:
+        if mode not in engines:
+            sv = ServingConfig(**SERVE_ENGINE, hbm_budget_gb=budget_gb, speculation=mode)
+            engines[mode] = ServingEngine(cfg, sv, params=params, capture_tokens=True,
+                                          verbose=False, device="cuda")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        report = engines[mode].run_trace(trace)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        req, ms = report["requests"], 1e3
+        step = report["decode_step_time"]
+        print(f"[serve] run {len(runs) + 1} ({mode}) on {gpu_line}: {req['completed']} "
+              f"completed, {req['rejected']} rejected; TTFT median "
+              f"{report['ttft']['median'] * ms:.3f} ms, p99 {report['ttft']['p99'] * ms:.3f} "
+              f"ms; per-token latency median "
+              f"{report['per_token_latency']['median'] * ms:.3f} ms, p99 "
+              f"{report['per_token_latency']['p99'] * ms:.3f} ms; decode step median "
+              f"{step['median'] * ms:.3f} ms, p99 {step['p99'] * ms:.3f} ms over "
+              f"{report['decode_steps']} steps; prefill median "
+              f"{report['prefill_time']['median'] * ms:.3f} ms; goodput "
+              f"{report['goodput_tokens_per_s']:.1f} tokens/s; run wall "
+              f"{report['wall_seconds']:.2f} s (warm-up {report['compile_time_s']:.2f} s, "
+              f"call {wall:.2f} s); peak memory {peak} bytes "
+              f"({peak / 2**30:.2f} GiB); blocks reserved at the end "
+              f"{report['cache']['blocks_reserved']}")
+        if req["completed"] != SERVE_REQUESTS or req["rejected"] != 0 \
+                or report["cache"]["blocks_reserved"] != 0:
+            raise AssertionError(f"run {len(runs) + 1} ({mode}) did not serve every request")
+        runs.append({"mode": mode, "tokens": report["completed_tokens"],
+                     "decode_step_ms": step["median"] * ms})
+    greedy = [r["tokens"] for r in runs if r["mode"] == "greedy"]
+    same = sum(greedy[0][rid] == greedy[1][rid] for rid in greedy[0])
+    print(f"[serve] greedy tokens equal between the two greedy runs for {same} of "
+          f"{len(greedy[0])} requests")
+    if greedy[0] != greedy[1]:
+        raise AssertionError("two greedy runs of one trace gave different tokens")
+    for r in runs:
+        print(f"[serve] ({r['mode']}) decode step median {r['decode_step_ms']:.3f} ms against "
+              f"its bytes bound {bound_ms:.3f} ms (weights {weight_bytes} + the whole cache "
+              f"{cache_bytes} bytes read once at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; the step "
+              f"reads the whole cache, masked, whatever the lengths): "
+              f"{r['decode_step_ms'] / bound_ms:.2f}x")
+
+
 def _same_planes(torch, got, host):
     """A card tensor equal to a host tensor bit for bit, compared one slice
     of the leading dim at a time."""
@@ -2862,6 +3076,8 @@ def main() -> int:
         bench_launches = timed("bench", phase_bench, torch, fa, gpu_line)
     if "kv" in phases:
         timed("kv", phase_kv, torch, gpu_line)
+    if "serve" in phases:
+        serve = timed("serve", phase_serve, torch, fa, gpu_line)
     print(f"[time] phases {', '.join(f'{k} {v:.1f}' for k, v in walls.items())} s; "
           f"{sum(walls.values()):.1f} s in all")
     if phases != set(PHASES):
@@ -2884,6 +3100,7 @@ def main() -> int:
         "pipe_launches": {part: n["flash_fwd"] for part, n in pipe["launches"].items()},
         "compress_launches_per_step": compress["train"]["launches"]["flash_fwd"],
         "bench_launches_per_forward": bench_launches,
+        "serve_launches": serve,
         "max_abs_err": err_o,
         "lse_max_abs_err": err_lse,
         "ms": main_t["ms"],

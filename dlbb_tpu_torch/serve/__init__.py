@@ -1,10 +1,22 @@
-"""Serving foundations (counterpart of ``dlbb_tpu/serve``): the paged
-KV-cache (``kvcache``: the cache tensors and their int8 layout, slot
-gather/scatter, per-rank shards, the host block ledger and prefix trie)
-and the seeded request traces (``traffic``).  The engine comes with
+"""Serving (counterpart of ``dlbb_tpu/serve``): the paged KV-cache
+(``kvcache``: the cache tensors and their int8 layout, slot
+gather/scatter, per-rank shards, the host block ledger and prefix trie),
+the seeded request traces (``traffic``), and the continuous-batching
+engine's core (``engine``: ``ServingConfig``, the prefill and decode
+programs in the "off" and "greedy" token modes, the scheduler and
+``ServingEngine.run_trace``, on one device or a (dp, tp) mesh).  The
+engine's fast path, speculation and resilience come with the rest of
 ROADMAP Queue 1, Slice E, item 11, and the serving harness and the fleet
 with item 12."""
 
+from dlbb_tpu_torch.serve.engine import (
+    SERVING_REPORT_SCHEMA,
+    ServingConfig,
+    ServingEngine,
+    build_decode_step,
+    build_decode_token_step,
+    build_prefill,
+)
 from dlbb_tpu_torch.serve.kvcache import (
     BlockLedger,
     CacheOverflow,
@@ -22,13 +34,19 @@ from dlbb_tpu_torch.serve.kvcache import (
 from dlbb_tpu_torch.serve.traffic import Request, TrafficTrace, generate_trace
 
 __all__ = [
+    "SERVING_REPORT_SCHEMA",
     "BlockLedger",
     "CacheOverflow",
     "KVCache",
     "PrefixTrie",
     "QuantKVCache",
     "Request",
+    "ServingConfig",
+    "ServingEngine",
     "TrafficTrace",
+    "build_decode_step",
+    "build_decode_token_step",
+    "build_prefill",
     "create_kv_cache",
     "create_quant_kv_cache",
     "dequantize_kv_blocks",

@@ -1,0 +1,1528 @@
+"""Continuous-batching inference engine over the paged KV-cache
+(counterpart of ``dlbb_tpu/serve/engine.py``), its core: ROADMAP Queue 1,
+Slice E, item 11, part 11a.
+
+Two device programs, fixed shapes for the whole run:
+
+- **prefill** (per sequence-length *bucket*): runs the full transformer
+  stack over one request's ``[1, bucket, H]`` prompt with ordinary causal
+  attention (``models/attention.py::dense_attention``, as JAX's prefill),
+  writes its K/V into the first ``bucket / block_size`` blocks of the
+  request's cache slot, sets the slot length, and returns the last real
+  token's output: the request's FIRST generated token (TTFT stops here).
+- **decode_step** (``[max_batch, 1, H]``): appends each active slot's
+  pending token to the cache at its own length, attends over the slot's
+  valid prefix (length-masked fp32 softmax, GQA-grouped at ``kv_heads``
+  width, never repeated), and produces every slot's next token.  In the
+  "off" mode the output hidden state IS the next step's input embedding
+  (the model is its own next-token function); in the "greedy" token mode
+  the output is quantised through ``data.synthetic.token_embedding_table``
+  (``tok = argmax(y)``, next input ``table[tok]``).
+
+The programs are plain callables on the port's stacked ``[L, ...]``
+parameters, run eagerly: there is no ``jit`` and no compile.  JAX donates
+the cache and rebuilds it with ``jnp.where``; here the cache tensors are
+updated in place, which is what XLA does with a donated buffer: a decode
+step writes one ``[kv_heads, head_dim]`` row per active slot at that
+slot's length (an inactive slot's row is written back with its own bits),
+a prefill writes only the granted slot's first ``bucket / block_size``
+blocks, and ``lengths`` advances only for active slots.  A whole-cache
+select would copy the 12 GiB cache of a one-card 1B server on every step.
+
+Tensor and data parallelism run as one process per rank of a ``(dp, tp)``
+mesh (``comm.mesh.build_parallelism_mesh``), where JAX runs one program on
+a device mesh.  Each rank holds its tp shard of the layer weights
+(``models/sharding.py``'s Megatron layout; the row-parallel ``out`` and
+``ffn_down`` products are summed over the tp group) and its
+``serve/kvcache.py::shard_cache`` shard of the cache: its ``max_batch /
+dp`` slots, its ``kv_heads / tp`` heads, ``lengths`` whole on every rank.
+A decode step runs on every rank over the rank's own slots; ``active`` is
+whole on every rank, as JAX replicates it.  A prefill runs only in the dp
+group that owns the slot, which alone writes it; its ``y_last`` is then
+broadcast over each tp column's dp group from the owner (one ``[H]``
+vector per admission), so every rank injects and counts the same first
+token and times the same prefill.  With ``capture_tokens`` each decode
+step's token ids are all-gathered over the dp group.
+
+Around them, a host-side continuous-batching scheduler (Orca-style
+iteration-level scheduling): arrivals from a ``TrafficTrace`` pass
+admission control (bounded queue: overflow is a *rejected* request),
+waiting requests are granted slots and worst-case block reservations at
+step boundaries, completed requests free both immediately, and the next
+decode step runs with whatever mix of old and new requests is resident.
+JAX has one host controller; the port has one scheduler per rank, and
+admission reads the wall clock, so rank 0's clock is broadcast once per
+scheduler iteration: every rank admits the same requests in the same
+order.  Per-phase spans (``serve-admission`` / ``serve-prefill`` /
+``serve-decode``), request-lifecycle events into the resilience journal
+and the registry's counters are JAX's, name for name.
+
+What JAX's engine does beyond this core is refused with a ``ValueError``
+that names its ROADMAP item (``_refuse_unported``): the fused multi-step
+decode, the in-flight window, chunked prefill, slot compaction, prefix
+caching and int8 KV planes (part 11b), speculative and sampled decoding
+(11c), the dispatch watchdog, per-request deadlines, the SIGTERM drain and
+the serving fault sites (11d), the fleet hooks (item 12) and device-trace
+capture (Slice F, item 13).  A failed dispatch raises out of
+:meth:`ServingEngine.run_trace`: the retries and rollback of
+``max_dispatch_retries`` are 11d's.  ``hedge_factor`` is accepted and
+ignored, as JAX's single engine ignores it.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from collections import deque
+from dataclasses import dataclass, field, replace as dc_replace
+from typing import Any, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from dlbb_tpu_torch.data.synthetic import request_embeddings, token_embedding_table
+from dlbb_tpu_torch.models.attention import dense_attention
+from dlbb_tpu_torch.models.configs import ModelConfig, validate_serving
+from dlbb_tpu_torch.models.sharding import all_gather_along, local_config
+from dlbb_tpu_torch.models.transformer import (
+    DTYPES,
+    _layernorm,
+    _projections,
+    init_params,
+    layer_list,
+)
+from dlbb_tpu_torch.obs import spans
+from dlbb_tpu_torch.obs.export import MetricsRegistry
+from dlbb_tpu_torch.resilience import inject
+from dlbb_tpu_torch.serve.kvcache import BlockLedger, KVCache, create_kv_cache
+from dlbb_tpu_torch.serve.traffic import Request, TrafficTrace
+from dlbb_tpu_torch.utils.metrics import Timer, summarize
+from dlbb_tpu_torch.utils.sysinfo import resolve_device
+
+SERVING_REPORT_SCHEMA = "dlbb_serving_report_v1"
+
+# decode feedback / drafting modes (ServingConfig.speculation):
+# "off" = legacy continuous hidden-state feedback; "greedy" = token
+# feedback without drafting (the speculative modes' pinned oracle);
+# "ngram" / "draft-model" = draft-and-verify speculative decoding
+SPECULATION_MODES = ("off", "greedy", "ngram", "draft-model")
+
+
+# ---------------------------------------------------------------------------
+# configuration
+# ---------------------------------------------------------------------------
+
+
+def _default_buckets(block_size: int, max_seq: int) -> tuple[int, ...]:
+    """Doubling bucket ladder: block_size, 2x, 4x, ... up to max_seq."""
+    buckets = []
+    b = block_size
+    while b < max_seq:
+        buckets.append(b)
+        b *= 2
+    buckets.append(max_seq)
+    return tuple(buckets)
+
+
+@dataclass(frozen=True)
+class ServingConfig:
+    """The serving envelope (YAML ``serving:`` section), a copy of JAX's:
+    every field, its validation and its messages.  The engine of this
+    part refuses the knobs of parts 11b-11d (module docstring); JAX's
+    docstring (``dlbb_tpu/serve/engine.py:171-300``) documents each.
+
+    max_batch:       decode slots (the fixed decode batch dim).
+    block_size:      tokens per cache block.
+    max_seq:         per-slot capacity (prompt + output ceiling); must be
+                     a block multiple — ``num_blocks = max_seq/block_size``.
+    prefill_buckets: sequence-length buckets prefill runs at
+                     (block-multiples; default: doubling ladder up to
+                     max_seq).  A prompt pads to the smallest bucket >= it.
+    queue_capacity:  admission-control bound; an arrival finding the
+                     queue full is REJECTED (counted, journaled).
+    blocks_budget:   global cache-block budget the ledger enforces
+                     (default: the physical pool, max_batch x num_blocks;
+                     set lower to model cache pressure).
+    hbm_budget_gb:   per-device HBM budget the build-time footprint gate
+                     (``models.configs.validate_serving``) checks the
+                     KV-cache against; None disables the gate.
+    reject_infeasible: reject-and-journal requests the envelope cannot
+                     serve (reason="infeasible") instead of failing the
+                     whole trace up front (the strict default).
+    speculation:     "off" (continuous hidden-state feedback) or "greedy"
+                     (token feedback through the greedy token table);
+                     "ngram" and "draft-model" are part 11c's.
+    """
+
+    max_batch: int = 8
+    block_size: int = 16
+    max_seq: int = 256
+    prefill_buckets: tuple[int, ...] = ()
+    queue_capacity: int = 64
+    blocks_budget: Optional[int] = None
+    hbm_budget_gb: Optional[float] = 12.0
+    decode_horizon: int = 1
+    inflight_window: int = 1
+    prefill_chunk: Optional[int] = None
+    compact_threshold: Optional[float] = None
+    reject_infeasible: bool = False
+    max_dispatch_retries: int = 2
+    retry_backoff_s: float = 0.05
+    dispatch_deadline_factor: Optional[float] = None
+    dispatch_deadline_min_s: float = 0.25
+    speculation: str = "off"
+    spec_gamma: int = 0
+    spec_adaptive: bool = False
+    spec_draft_layers: int = 1
+    spec_draft_kv_heads: Optional[int] = None
+    prefix_caching: bool = False
+    kv_quantization: str = "none"
+    temperature: float = 0.0
+    sample_seed: int = 0
+    hedge_factor: Optional[float] = None
+
+    def __post_init__(self) -> None:
+        if not self.prefill_buckets:
+            object.__setattr__(
+                self, "prefill_buckets",
+                _default_buckets(self.block_size, self.max_seq),
+            )
+        else:
+            # normalise: bucket_for's first-match walk and every
+            # "buckets[-1] is the largest" consumer assume ascending
+            # unique buckets
+            object.__setattr__(
+                self, "prefill_buckets",
+                tuple(sorted(set(self.prefill_buckets))),
+            )
+
+    @property
+    def num_blocks(self) -> int:
+        return self.max_seq // self.block_size
+
+    @property
+    def total_blocks(self) -> int:
+        return (self.blocks_budget if self.blocks_budget is not None
+                else self.max_batch * self.num_blocks)
+
+    def validate(self, config: ModelConfig, dp: int = 1,
+                 tp: int = 1) -> None:
+        budget = (None if self.hbm_budget_gb is None
+                  else int(self.hbm_budget_gb * 2**30))
+        if self.speculation not in SPECULATION_MODES:
+            raise ValueError(
+                f"serving.speculation={self.speculation!r} must be one "
+                f"of {SPECULATION_MODES}"
+            )
+        # speculation with tp_overlap != off or non-dense attention is
+        # rejected inside validate_serving (those envelopes cannot serve
+        # at all); the draft plane re-runs the same gate on its own
+        # config below, so a draft kv plane breaking kv_heads % tp
+        # fails here at build time too
+        draft = (self.draft_model_config(config)
+                 if self.speculation == "draft-model" else None)
+        validate_serving(config, self.max_batch, self.max_seq,
+                         self.block_size, dp=dp, tp=tp,
+                         hbm_budget_bytes=budget, draft_config=draft,
+                         kv_quantization=self.kv_quantization)
+        for b in self.prefill_buckets:
+            if b % self.block_size != 0 or not 0 < b <= self.max_seq:
+                raise ValueError(
+                    f"prefill bucket {b} must be a block_size="
+                    f"{self.block_size} multiple in (0, {self.max_seq}]"
+                )
+        if self.queue_capacity < 1:
+            raise ValueError(
+                f"serving.queue_capacity must be >= 1, got "
+                f"{self.queue_capacity}"
+            )
+        if self.hedge_factor is not None and self.hedge_factor <= 1.0:
+            raise ValueError(
+                f"serving.hedge_factor must be > 1.0 (it scales the "
+                f"observed p99 latency), got {self.hedge_factor}"
+            )
+        if self.total_blocks < 1:
+            raise ValueError(
+                f"serving.blocks_budget must be >= 1, got "
+                f"{self.total_blocks}"
+            )
+        if self.decode_horizon < 1:
+            raise ValueError(
+                f"serving.decode_horizon must be >= 1, got "
+                f"{self.decode_horizon}"
+            )
+        if self.inflight_window < 1:
+            raise ValueError(
+                f"serving.inflight_window must be >= 1, got "
+                f"{self.inflight_window}"
+            )
+        if self.inflight_window > 1 and self.decode_horizon < 2:
+            raise ValueError(
+                "serving.inflight_window > 1 requires decode_horizon "
+                ">= 2: per-step (k=1) units never stay in flight (their "
+                "y may alias the donated carry), so the window would be "
+                "a silent no-op on the per-step engine"
+            )
+        if self.prefill_chunk is not None:
+            if (self.prefill_chunk % self.block_size != 0
+                    or not 0 < self.prefill_chunk <= self.max_seq):
+                raise ValueError(
+                    f"serving.prefill_chunk={self.prefill_chunk} must be "
+                    f"a block_size={self.block_size} multiple in "
+                    f"(0, {self.max_seq}]"
+                )
+            if self.max_seq % self.prefill_chunk != 0:
+                # a prompt near max_seq pads to ceil(prompt/chunk)*chunk;
+                # unless the chunk divides max_seq that rounding can
+                # overrun the slot's block ring for a perfectly feasible
+                # request — reject the geometry up front
+                raise ValueError(
+                    f"serving.prefill_chunk={self.prefill_chunk} must "
+                    f"divide serving.max_seq={self.max_seq} (chunk "
+                    "rounding of a near-max_seq prompt would overrun "
+                    "the slot's block ring)"
+                )
+        if self.compact_threshold is not None:
+            if not 0.0 < self.compact_threshold <= 0.5:
+                raise ValueError(
+                    f"serving.compact_threshold must be in (0, 0.5] — "
+                    f"compaction repacks into the half-size batch bucket "
+                    f"(got {self.compact_threshold})"
+                )
+            if self.decode_horizon < 2:
+                raise ValueError(
+                    "serving.compact_threshold requires decode_horizon "
+                    ">= 2: compaction only engages on fused scans, so "
+                    "with the per-step engine it would be a silent no-op "
+                    "that still pays the gather/scatter compiles"
+                )
+            if self.max_batch < 2:
+                raise ValueError(
+                    "serving.compact_threshold needs max_batch >= 2 "
+                    "(nothing to compact into)"
+                )
+            if dp > 1:
+                raise ValueError(
+                    "serving.compact_threshold requires dp=1: the slot "
+                    "gather/scatter must stay shard-local, and the slot "
+                    f"dim is sharded over dp={dp}"
+                )
+        if self.max_dispatch_retries < 0:
+            raise ValueError(
+                f"serving.max_dispatch_retries must be >= 0, got "
+                f"{self.max_dispatch_retries}"
+            )
+        if self.retry_backoff_s < 0:
+            raise ValueError(
+                f"serving.retry_backoff_s must be >= 0, got "
+                f"{self.retry_backoff_s}"
+            )
+        if (self.dispatch_deadline_factor is not None
+                and self.dispatch_deadline_factor <= 0):
+            raise ValueError(
+                f"serving.dispatch_deadline_factor must be > 0, got "
+                f"{self.dispatch_deadline_factor}"
+            )
+        if self.dispatch_deadline_min_s <= 0:
+            raise ValueError(
+                f"serving.dispatch_deadline_min_s must be > 0 seconds, "
+                f"got {self.dispatch_deadline_min_s}"
+            )
+        # -- speculation ladder (same no-op-trap contract as
+        #    compact_threshold/inflight_window: a knob that would
+        #    silently do nothing is a config error) --
+        if self.spec_drafting:
+            if self.spec_gamma < 1:
+                raise ValueError(
+                    f"serving.speculation={self.speculation!r} requires "
+                    f"spec_gamma >= 1 (got {self.spec_gamma}): a drafter "
+                    "with zero proposals per verify is a silent no-op "
+                    "that still pays the verify compiles"
+                )
+            if self.spec_gamma + 1 > self.max_seq:
+                raise ValueError(
+                    f"serving.spec_gamma={self.spec_gamma} cannot exceed "
+                    f"max_seq-1={self.max_seq - 1}: a verify step "
+                    "appends gamma+1 positions to one slot"
+                )
+        else:
+            if self.spec_gamma:
+                raise ValueError(
+                    f"serving.spec_gamma={self.spec_gamma} requires a "
+                    "drafting speculation mode ('ngram' or "
+                    "'draft-model'); with speculation="
+                    f"{self.speculation!r} no verify step ever runs, so "
+                    "the knob would be a silent no-op"
+                )
+            if self.spec_adaptive:
+                raise ValueError(
+                    "serving.spec_adaptive requires a drafting "
+                    "speculation mode ('ngram' or 'draft-model'): "
+                    "there is no acceptance EMA to adapt to with "
+                    f"speculation={self.speculation!r}"
+                )
+        if self.speculation != "off" and self.compact_threshold is not None:
+            raise ValueError(
+                "serving.compact_threshold cannot combine with "
+                f"speculation={self.speculation!r}: token-feedback and "
+                "verify units run on the full decode batch (no "
+                "compacted token/verify program exists), so compaction "
+                "would be a silent no-op that still pays the gather/"
+                "scatter compiles"
+            )
+        if self.speculation == "draft-model":
+            if self.spec_draft_layers < 1:
+                raise ValueError(
+                    f"serving.spec_draft_layers must be >= 1, got "
+                    f"{self.spec_draft_layers}"
+                )
+            if self.prefill_chunk is not None:
+                raise ValueError(
+                    "serving.prefill_chunk cannot combine with "
+                    "speculation='draft-model': the draft KV plane is "
+                    "prefilled monolithically at admission, and a "
+                    "chunked target prefill would leave it silently "
+                    "unfilled"
+                )
+        # -- shared-prefix cache + quantized KV planes (same no-op-trap
+        #    contract: a knob that cannot engage is a config error) --
+        if self.prefix_caching:
+            if self.prefill_chunk is None:
+                raise ValueError(
+                    "serving.prefix_caching requires prefill_chunk: the "
+                    "suffix-only prefill of a prefix hit IS the chunked-"
+                    "prefill machinery (attach replaces the matched "
+                    "chunks), so without it every admission would pay "
+                    "the full prefill and the trie would be a silent "
+                    "no-op"
+                )
+            if dp > 1:
+                raise ValueError(
+                    "serving.prefix_caching requires dp=1: the prefix "
+                    "attach copies donor-slot blocks into the admitted "
+                    "slot, and that copy must stay shard-local — the "
+                    f"slot dim is sharded over dp={dp} (same constraint "
+                    "as compact_threshold)"
+                )
+            if self.speculation != "off":
+                raise ValueError(
+                    "serving.prefix_caching cannot combine with "
+                    f"speculation={self.speculation!r}: prefix attach "
+                    "rides the chunked prefill, which the speculative "
+                    "modes exclude (and generated tokens are never "
+                    "indexed in the trie, so drafting gains nothing)"
+                )
+        if self.kv_quantization == "int8":
+            if self.speculation != "off":
+                raise ValueError(
+                    "serving.kv_quantization='int8' cannot combine with "
+                    f"speculation={self.speculation!r}: the token/"
+                    "verify programs read and write the fp cache layout "
+                    "only"
+                )
+            if self.compact_threshold is not None:
+                raise ValueError(
+                    "serving.kv_quantization='int8' cannot combine with "
+                    "compact_threshold: the slot gather/scatter programs "
+                    "repack the fp cache layout only, so compaction "
+                    "would silently run on stale scale planes"
+                )
+        # -- sampled decode (same no-op-trap contract) --
+        if self.temperature < 0:
+            raise ValueError(
+                f"serving.temperature must be >= 0, got "
+                f"{self.temperature}"
+            )
+        if self.temperature > 0:
+            if not self.spec_drafting:
+                raise ValueError(
+                    f"serving.temperature={self.temperature} requires a "
+                    "drafting speculation mode ('ngram' or "
+                    "'draft-model'): the sampled path runs inside the "
+                    "verify unit (residual sampling over the verify "
+                    "logits), and with speculation="
+                    f"{self.speculation!r} every decode program is the "
+                    "greedy argmax law — the knob would silently emit "
+                    "greedy tokens"
+                )
+            if self.decode_horizon != 1:
+                raise ValueError(
+                    f"serving.temperature={self.temperature} requires "
+                    f"decode_horizon=1 (got {self.decode_horizon}): the "
+                    "fused token scans are greedy-argmax programs, so a "
+                    "fused unit mid-sampled-run would silently emit "
+                    "greedy tokens (the verify window is the sampled "
+                    "path's multi-token mechanism)"
+                )
+            if self.prefill_chunk is not None:
+                raise ValueError(
+                    f"serving.temperature={self.temperature} cannot "
+                    "combine with prefill_chunk: the chunk interleave's "
+                    "per-step decode units are greedy token programs, "
+                    "so a long admission would silently emit greedy "
+                    "tokens mid-sampled-run"
+                )
+        elif self.sample_seed:
+            raise ValueError(
+                f"serving.sample_seed={self.sample_seed} requires "
+                "temperature > 0: the greedy path never consumes the "
+                "host RNG, so the knob would be a silent no-op"
+            )
+
+    @property
+    def spec_drafting(self) -> bool:
+        """True when a drafter runs (verify steps exist)."""
+        return self.speculation in ("ngram", "draft-model")
+
+    @property
+    def spec_gammas(self) -> tuple[int, ...]:
+        """The verify-step γ ladder: powers of two 1, 2, 4, ... below
+        ``spec_gamma``, plus ``spec_gamma`` itself (adaptive γ backs
+        off through these buckets; empty when not drafting)."""
+        if not self.spec_drafting:
+            return ()
+        gs = []
+        g = 1
+        while g < self.spec_gamma:
+            gs.append(g)
+            g *= 2
+        gs.append(self.spec_gamma)
+        return tuple(sorted(set(gs)))
+
+    def draft_model_config(self, config: ModelConfig) -> ModelConfig:
+        """The draft transformer's config: the target at
+        ``spec_draft_layers`` depth (and an optional kv_heads
+        override), everything else — hidden size, heads, dtype,
+        attention — identical, so the draft shares the target's
+        ParallelismPlan and its outputs live in the same hidden/token
+        space the verify step argmaxes over."""
+        kwargs: dict[str, Any] = {"num_layers": self.spec_draft_layers}
+        if self.spec_draft_kv_heads is not None:
+            kwargs["num_kv_heads"] = self.spec_draft_kv_heads
+        return dc_replace(config, **kwargs)
+
+    def bucket_for(self, prompt_len: int) -> int:
+        for b in self.prefill_buckets:
+            if prompt_len <= b:
+                return b
+        raise ValueError(
+            f"prompt_len={prompt_len} exceeds the largest prefill bucket "
+            f"{self.prefill_buckets[-1]} (serving.max_seq={self.max_seq})"
+        )
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "ServingConfig":
+        fields = {}
+        for k in ("max_batch", "block_size", "max_seq", "queue_capacity",
+                  "blocks_budget", "hbm_budget_gb", "decode_horizon",
+                  "inflight_window", "prefill_chunk", "compact_threshold",
+                  "reject_infeasible", "max_dispatch_retries",
+                  "retry_backoff_s", "dispatch_deadline_factor",
+                  "dispatch_deadline_min_s", "speculation", "spec_gamma",
+                  "spec_adaptive", "spec_draft_layers",
+                  "spec_draft_kv_heads", "prefix_caching",
+                  "kv_quantization", "temperature", "sample_seed",
+                  "hedge_factor"):
+            if k in d:
+                fields[k] = d[k]
+        if "prefill_buckets" in d:
+            fields["prefill_buckets"] = tuple(d["prefill_buckets"])
+        return cls(**fields)
+
+    def to_dict(self) -> dict[str, Any]:
+        return {
+            "max_batch": self.max_batch,
+            "block_size": self.block_size,
+            "max_seq": self.max_seq,
+            "num_blocks": self.num_blocks,
+            "prefill_buckets": list(self.prefill_buckets),
+            "queue_capacity": self.queue_capacity,
+            "blocks_budget": self.total_blocks,
+            "hbm_budget_gb": self.hbm_budget_gb,
+            "decode_horizon": self.decode_horizon,
+            "inflight_window": self.inflight_window,
+            "prefill_chunk": self.prefill_chunk,
+            "compact_threshold": self.compact_threshold,
+            "reject_infeasible": self.reject_infeasible,
+            "max_dispatch_retries": self.max_dispatch_retries,
+            "retry_backoff_s": self.retry_backoff_s,
+            "dispatch_deadline_factor": self.dispatch_deadline_factor,
+            "dispatch_deadline_min_s": self.dispatch_deadline_min_s,
+            "speculation": self.speculation,
+            "spec_gamma": self.spec_gamma,
+            "spec_adaptive": self.spec_adaptive,
+            "spec_draft_layers": self.spec_draft_layers,
+            "spec_draft_kv_heads": self.spec_draft_kv_heads,
+            "prefix_caching": self.prefix_caching,
+            "kv_quantization": self.kv_quantization,
+            "temperature": self.temperature,
+            "sample_seed": self.sample_seed,
+            "hedge_factor": self.hedge_factor,
+        }
+
+    @property
+    def fused_horizons(self) -> tuple[int, ...]:
+        """The power-of-two fused-scan bucket ladder: 2, 4, ... up to
+        ``decode_horizon`` (empty when the fast path is off)."""
+        ks = []
+        k = 2
+        while k <= self.decode_horizon:
+            ks.append(k)
+            k *= 2
+        return tuple(ks)
+
+
+def _not_ported(what: str, part: str) -> ValueError:
+    item = {"11b": "the decode fast path and the capacity levers",
+            "11c": "speculative and sampled decoding",
+            "11d": "serving resilience"}[part]
+    return ValueError(
+        f"{what} is not ported yet: it comes with {item} (ROADMAP Queue 1, "
+        f"Slice E, item 11, part {part})")
+
+
+def _refuse_unported(serving: ServingConfig) -> None:
+    """The knobs JAX's engine serves and this part does not, each refused
+    with the ROADMAP item that brings it (never silently ignored).
+    ``validate`` has already tied ``inflight_window`` and
+    ``compact_threshold`` to ``decode_horizon >= 2``, ``prefix_caching`` to
+    ``prefill_chunk`` and ``temperature > 0`` to a drafting mode, so these
+    refusals cover every knob of parts 11b-11d."""
+    if serving.decode_horizon > 1:
+        raise _not_ported(f"serving.decode_horizon={serving.decode_horizon} (the "
+                          "fused multi-step decode, on which the in-flight window "
+                          "and slot compaction run)", "11b")
+    if serving.prefill_chunk is not None:
+        raise _not_ported(f"serving.prefill_chunk={serving.prefill_chunk} (chunked "
+                          "prefill, on which the prefix cache runs)", "11b")
+    if serving.kv_quantization == "int8":
+        raise _not_ported("serving.kv_quantization='int8' (int8 KV planes)", "11b")
+    if serving.spec_drafting:
+        raise _not_ported(f"serving.speculation={serving.speculation!r} (and the "
+                          "sampled decode of temperature > 0)", "11c")
+    if serving.dispatch_deadline_factor is not None:
+        raise _not_ported("serving.dispatch_deadline_factor (the dispatch "
+                          "watchdog)", "11d")
+
+
+# ---------------------------------------------------------------------------
+# device programs
+# ---------------------------------------------------------------------------
+
+
+def _tp_mesh(mesh):
+    """The mesh whose tp group the programs' products sum over, None
+    where tp is 1 (no collective at all)."""
+    return mesh if mesh is not None and mesh.shape["tp"] > 1 else None
+
+
+def _slot_range(cache: KVCache, mesh) -> tuple[int, int]:
+    """``(first, count)``: the global slots this rank's cache shard holds
+    (its dp rank's contiguous ``max_batch / dp``, as ``shard_cache``
+    cuts them)."""
+    count = cache.max_batch
+    dp_rank = 0 if mesh is None else mesh.coords["dp"]
+    return dp_rank * count, count
+
+
+def _split_qkv(qkv: torch.Tensor, config: ModelConfig):
+    """[..., qkv_width] -> q [..., H], k/v [..., kv_heads * head_dim]."""
+    h, kvd = config.hidden_size, config.kv_heads * config.head_dim
+    return qkv[..., :h], qkv[..., h:h + kvd], qkv[..., h + kvd:]
+
+
+def _serve_block(h, layer, config: ModelConfig, attention_step,
+                 cache_state, mesh=None):
+    """One transformer block with a pluggable attention step — the ONE
+    copy of the ln1/qkv/out/ln2/ffn structure every serving program
+    shares (the serving twin of ``transformer._block``).
+    ``attention_step(q, k, v, cache_state) -> (attn [B, S, n*d],
+    cache_state)`` owns everything that differs between prefill (dense
+    causal + block write) and decode (cached append + length-masked
+    read); ``cache_state`` is the layer's cache planes.  ``config`` is
+    this rank's (``sharding.local_config``); on a mesh with tp above 1
+    the two row-parallel products are summed over its tp group, then
+    their bias is added, once."""
+    col, row = _projections(config, mesh)
+    y = _layernorm(h, layer["ln1"]["scale"], layer["ln1"]["bias"])
+    qkv = col(y, layer["qkv"])
+    q, k, v = _split_qkv(qkv, config)
+    attn, cache_state = attention_step(q, k, v, cache_state)
+    h = row(attn, layer["out"]) + h
+    residual = h
+    y2 = _layernorm(h, layer["ln2"]["scale"], layer["ln2"]["bias"])
+    y2 = col(y2, layer["ffn_up"])
+    # jax.nn.gelu defaults to approximate=True: the tanh form
+    y2 = F.gelu(y2, approximate="tanh")
+    h = row(y2, layer["ffn_down"]) + residual
+    return h, cache_state
+
+
+def _heads(t: torch.Tensor, nh: int, d: int) -> torch.Tensor:
+    """[B, S, nh*d] -> [B, nh, S, d]."""
+    b, s, _ = t.shape
+    return t.reshape(b, s, nh, d).transpose(1, 2)
+
+
+def _cached_attention(q: torch.Tensor, k_flat: torch.Tensor, v_flat: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """Length-masked decode attention over the flattened cache.
+
+    q: ``[B, n, 1, d]``; k_flat/v_flat: ``[B, S_max, kvh, d]``; valid:
+    ``[B, S_max]`` bool.  JAX's math: fp32 logits over 1/sqrt(d), fp32
+    softmax, the query heads grouped ``[B, kvh, n/kvh, d]`` against each
+    kv head (never repeated), and -inf past each slot's length, so those
+    positions contribute exactly zero.  Position 0 of a slot is always
+    valid, so no row is empty.  The cache is read once per layer into an
+    fp32 copy in ``[B, kvh, S_max, d]`` order, as JAX upcasts it."""
+    b, n, _, d = q.shape
+    kvh = k_flat.shape[2]
+    q32 = q.float().reshape(b, kvh, n // kvh, d)
+    k32 = k_flat.permute(0, 2, 1, 3).to(torch.float32, memory_format=torch.contiguous_format)
+    v32 = v_flat.permute(0, 2, 1, 3).to(torch.float32, memory_format=torch.contiguous_format)
+    logits = torch.matmul(q32, k32.transpose(-1, -2)) / math.sqrt(d)
+    logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.matmul(probs, v32).reshape(b, n, 1, d)
+    return out.to(k_flat.dtype)
+
+
+def _write_prompt_blocks(cache_layer: torch.Tensor, update: torch.Tensor,
+                         slot: int) -> None:
+    """Write a prefill bucket into one slot's first blocks, in place:
+    cache_layer ``[B, nb, bs, kvh, d]`` (this rank's slots, ``slot`` local
+    to them); update ``[wb, bs, kvh, d]``.  JAX's one-hot masked select
+    over the whole layer touches these blocks and no other."""
+    cache_layer[slot, :update.shape[0]] = update
+
+
+def build_prefill(config: ModelConfig, mesh=None):
+    """``prefill(cache, params, x, slot, length) -> (cache, y_last)``: one
+    request's prompt ``x [1, bucket, H]`` (zeros past ``length``) through
+    every layer with dense causal attention, its K/V written into the
+    first ``bucket / block_size`` blocks of slot ``slot`` (global) in
+    place, ``lengths[slot] = length``, and ``y_last`` the final LN's
+    output at position ``length - 1``.
+
+    On a mesh, ``cache`` is this rank's shard and ``params`` its tp
+    shards.  A rank whose dp group does not own ``slot`` records the
+    length only (``lengths`` is whole on every rank) and returns
+    ``y_last`` None: the owner's dp group runs the prefill alone (the
+    engine broadcasts its ``y_last``)."""
+    tp = 1 if mesh is None else mesh.shape["tp"]
+    local = local_config(config, tp)
+    tp_mesh = _tp_mesh(mesh)
+    n, d, kvh = local.num_heads, local.head_dim, local.kv_heads
+
+    @torch.no_grad()
+    def prefill(cache, params, x, slot, length):
+        slot, length = int(slot), int(length)
+        cache.lengths[slot] = length
+        first, count = _slot_range(cache, mesh)
+        if not first <= slot < first + count:
+            return cache, None
+        local_slot = slot - first
+        bs = cache.block_size
+        s_bucket = x.shape[1]
+        wb = s_bucket // bs
+
+        def attention_step(q, k, v, cache_state):
+            k_l, v_l = cache_state
+            qh, kh, vh = _heads(q, n, d), _heads(k, kvh, d), _heads(v, kvh, d)
+            attn = dense_attention(qh, kh, vh, causal=config.causal)
+            # this layer's K/V blocks into the slot ([S, kvh, d] token-major,
+            # re-tiled to whole blocks)
+            _write_prompt_blocks(k_l, kh.transpose(1, 2)[0].reshape(wb, bs, kvh, d),
+                                 local_slot)
+            _write_prompt_blocks(v_l, vh.transpose(1, 2)[0].reshape(wb, bs, kvh, d),
+                                 local_slot)
+            return attn.transpose(1, 2).reshape(1, s_bucket, n * d), cache_state
+
+        h = x
+        layers, _ = layer_list(params["layers"])
+        for i, layer in enumerate(layers):
+            h, _ = _serve_block(h, layer, local, attention_step,
+                                (cache.k[i], cache.v[i]), tp_mesh)
+        y = _layernorm(h, params["ln_f"]["scale"], params["ln_f"]["bias"])
+        return cache, y[0, length - 1]
+
+    return prefill
+
+
+def _append_rows(plane: torch.Tensor, new: torch.Tensor, rows: torch.Tensor,
+                 blk: torch.Tensor, off: torch.Tensor, write: torch.Tensor) -> None:
+    """``plane[b, blk[b], off[b]] = new[b]`` where ``write[b]``, in place;
+    an unwritten row is written back with its own value, bit for bit, so
+    the step needs no host read of which slots write."""
+    cur = plane[rows, blk, off]
+    plane[rows, blk, off] = torch.where(write[:, None, None], new.to(plane.dtype), cur)
+
+
+def _decode_step_math(carry, params, active, config: ModelConfig, mesh=None):
+    """The decode-step computation (JAX's ``_decode_step_math``, the one
+    copy of the math every decode program shares).  ``carry = (cache,
+    x)``: this rank's cache shard and its slots' inputs ``[B/dp, 1, H]``;
+    ``active`` is the whole ``[max_batch]`` bool mask.  Returns ``((cache,
+    y), y)`` with ``y [B/dp, 1, H]``; the cache is updated in place (module
+    docstring) and ``lengths`` advances by ``active`` on every rank."""
+    tp = 1 if mesh is None else mesh.shape["tp"]
+    local = local_config(config, tp)
+    tp_mesh = _tp_mesh(mesh)
+    n, d, kvh = local.num_heads, local.head_dim, local.kv_heads
+    cache, x = carry
+    first, b_dim = _slot_range(cache, mesh)
+    s_max, bs = cache.max_seq, cache.block_size
+    lengths = cache.lengths[first:first + b_dim]
+    act = active[first:first + b_dim]
+    pos = torch.arange(s_max, device=lengths.device)[None, :]
+    valid = pos <= lengths[:, None]
+    # append at each active slot's own length (JAX's where(pos == length
+    # & active), so a slot already at max_seq is not written)
+    write = act & (lengths < s_max)
+    at = torch.where(write, lengths, torch.zeros_like(lengths)).long()
+    rows = torch.arange(b_dim, device=lengths.device)
+    blk, off = at // bs, at % bs
+
+    def attention_step(q, k, v, cache_state):
+        k_l, v_l = cache_state
+        qh = _heads(q, n, d)                        # [B, n, 1, d]
+        _append_rows(k_l, k[:, 0].reshape(b_dim, kvh, d), rows, blk, off, write)
+        _append_rows(v_l, v[:, 0].reshape(b_dim, kvh, d), rows, blk, off, write)
+        attn = _cached_attention(qh, k_l.reshape(b_dim, s_max, kvh, d),
+                                 v_l.reshape(b_dim, s_max, kvh, d), valid)
+        return attn.transpose(1, 2).reshape(b_dim, 1, n * d), cache_state
+
+    h = x
+    layers, _ = layer_list(params["layers"])
+    for i, layer in enumerate(layers):
+        h, _ = _serve_block(h, layer, local, attention_step,
+                            (cache.k[i], cache.v[i]), tp_mesh)
+    y = _layernorm(h, params["ln_f"]["scale"], params["ln_f"]["bias"])
+    cache.lengths.add_(active.to(torch.int32))
+    return (cache, y), y
+
+
+def build_decode_step(config: ModelConfig, mesh=None):
+    """``decode_step(carry, params, active) -> (carry, y)`` with ``carry =
+    (cache, x)``: one step of the continuous-feedback ("off") mode; the
+    returned carry's ``x`` is this step's output ``y``, which the engine
+    feeds straight back in."""
+
+    @torch.no_grad()
+    def decode_step(carry, params, active):
+        return _decode_step_math(carry, params, active, config, mesh)
+
+    return decode_step
+
+
+def _inject_token(carry, slot, vec, mesh=None):
+    """Place a freshly-prefilled request's first token into the decode
+    input buffer, ``x[slot, 0] = vec``, on the rank that holds the slot
+    (the carry unchanged elsewhere).  ``x`` is copied first (``[B/dp, 1,
+    H]``, one row per slot): the "off" decode step returns its output as
+    the next carry's ``x``, and a caller holding that output must not see
+    it change."""
+    cache, x = carry
+    first, count = _slot_range(cache, mesh)
+    slot = int(slot)
+    if first <= slot < first + count:
+        x = x.clone()
+        x[slot - first, 0] = vec.to(x.dtype)
+    return cache, x
+
+
+def _inject_token_greedy(carry, slot, vec, table, mesh=None):
+    """Token-mode admission inject: quantise the prefill's last output
+    through the greedy token table, ``tok = argmax(vec)``, ``x[slot, 0] =
+    table[tok]`` on the rank that holds the slot; returns ``(carry,
+    tok)``, ``tok`` an int32 scalar tensor (``torch.argmax`` takes the
+    first maximum, as ``jnp.argmax``)."""
+    tok = torch.argmax(vec).to(torch.int32)
+    return _inject_token(carry, slot, table.index_select(0, tok.reshape(1))[0], mesh), tok
+
+
+def build_decode_token_step(config: ModelConfig, mesh=None):
+    """Token-feedback decode step: the per-step decode math followed by
+    the greedy token quantisation, ``tok = argmax(y)``, next input
+    ``table[tok]``.  Returns ``(carry, tok [B/dp] int32)``: the committed
+    token ids of this rank's slots."""
+
+    @torch.no_grad()
+    def decode_token_step(carry, params, table, active):
+        (cache, y), _ = _decode_step_math(carry, params, active, config, mesh)
+        tok = torch.argmax(y[:, 0, :], dim=-1).to(torch.int32)
+        x2 = table.index_select(0, tok)[:, None, :].to(y.dtype)
+        return (cache, x2), tok
+
+    return decode_token_step
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class _SlotState:
+    req: Request
+    tokens_done: int = 0
+
+
+@dataclass
+class _RunStats:
+    ttft_s: list[float] = field(default_factory=list)
+    per_token_s: list[float] = field(default_factory=list)
+    prefill_s: list[float] = field(default_factory=list)
+    decode_step_s: list[float] = field(default_factory=list)
+    e2e_latency_s: list[float] = field(default_factory=list)
+    completed_output_tokens: int = 0
+    generated_tokens: int = 0
+    # decode steps executed; each is one host dispatch (JAX's decode_units)
+    # and one single step (fast_path.single_steps) on this per-step engine
+    decode_steps: int = 0
+
+
+# the serving fault sites of JAX's engine (resilience/inject.py), which
+# fire with part 11d
+_ENGINE_FAULT_SITES = ("serve-prefill-fail", "serve-decode-fail", "serve-decode-hang",
+                       "serve-cache-torn", "serve-preempt")
+
+
+class ServingEngine:
+    """Trace-driven continuous-batching engine (see module docstring).
+
+    One engine serves many traces: each :meth:`run_trace` starts from a
+    fresh cache.  The journal (``resilience.journal.SweepJournal``) and
+    metrics registry are optional.
+
+    ``mesh`` is a ``(dp, tp)`` mesh of ``comm.mesh.build_parallelism_mesh``
+    (None: one device, no process group); every rank of it builds the
+    engine and calls :meth:`run_trace` with the same trace.  ``params``
+    are this rank's tp shards (``models/sharding.py``), or None for
+    ``init_params`` from ``seed``.  ``device`` is ``cuda`` unless the
+    caller names ``cpu``."""
+
+    def __init__(
+        self,
+        config: ModelConfig,
+        serving: ServingConfig,
+        mesh: Any = None,
+        params: Any = None,
+        journal: Any = None,
+        registry: Optional[MetricsRegistry] = None,
+        seed: int = 0,
+        verbose: bool = True,
+        capture_tokens: bool = False,
+        device=None,
+    ) -> None:
+        if mesh is not None and set(mesh.axis_names) != {"dp", "tp"}:
+            raise ValueError(f"the serving engine runs on a (dp, tp) mesh, not axes "
+                             f"{mesh.axis_names}")
+        self.dp = 1 if mesh is None else mesh.shape["dp"]
+        self.tp = 1 if mesh is None else mesh.shape["tp"]
+        serving.validate(config, dp=self.dp, tp=self.tp)
+        _refuse_unported(serving)
+        self.config = config
+        self.serving = serving
+        self.mesh = mesh
+        self.device = resolve_device(device)
+        self.verbose = verbose
+        # the equivalence gate: argmax "token ids" of every generated
+        # output recorded per request (syncs each unit — leave off for
+        # perf runs)
+        self.capture_tokens = capture_tokens
+        # public and reassignable: tests swap it between run_trace calls
+        self.journal = journal
+        self.registry = registry if registry is not None else MetricsRegistry()
+        self._requests = self.registry.labeled_counter(
+            "serve_requests", "outcome",
+            initial=("arrived", "admitted", "rejected", "completed",
+                     "failed", "preempted", "canceled"),
+            help="request lifecycle outcomes",
+        )
+        self._rejections = self.registry.labeled_counter(
+            "serve_rejections", "reason",
+            initial=("queue-full", "infeasible", "deadline"),
+            help="requests shed, by rejection reason",
+        )
+        self.registry.labeled_counter(
+            "serve_request_retries", "phase",
+            initial=("prefill", "decode", "bookkeeping"),
+            help="transient dispatch/bookkeeping retries, by phase",
+        )
+        self.registry.labeled_counter(
+            "serve_deadline_exceeded", "reason",
+            initial=("shed-queued", "completed-late"),
+            help="per-request SLO deadline misses, by how they surfaced",
+        )
+        for name, hlp in (
+            ("serve_decode_steps",
+             "decode steps executed (each fused-scan trip counts once)"),
+            ("serve_fused_scan_steps",
+             "decode steps executed inside fused lax.scan dispatches"),
+            ("serve_prefill_chunks", "prefill chunks processed"),
+            ("serve_hung_dispatches",
+             "decode units abandoned by the dispatch watchdog"),
+        ):
+            self.registry.inc(name, 0, help=hlp)
+        self._dtype = DTYPES[config.dtype]
+        if params is None:
+            tp_rank = 0 if mesh is None else mesh.coords["tp"]
+            params = init_params(config, seed, self.device, tp_rank=tp_rank, tp=self.tp)
+        self.params = params
+        self._prefill = build_prefill(config, mesh)
+        self._decode = build_decode_step(config, mesh)
+        # token-feedback ("greedy") quantises decode through the greedy
+        # token table, whole on every rank
+        self._token_mode = serving.speculation != "off"
+        self._table: Optional[torch.Tensor] = None
+        if self._token_mode:
+            self._table = token_embedding_table(config.hidden_size, self._dtype,
+                                                device=self.device)
+            self._decode_token = build_decode_token_step(config, mesh)
+        self._t0 = time.perf_counter()
+
+    # -- clock (monotonic, run-relative) -----------------------------------
+
+    def _now(self) -> float:
+        return time.perf_counter() - self._t0
+
+    def _clock(self) -> float:
+        """The scheduler's clock: rank 0's :meth:`_now`, broadcast to every
+        rank of the mesh (one scalar per scheduler iteration), so every
+        rank takes the same admission decisions."""
+        if self.mesh is None:
+            return self._now()
+        dev = self.device if dist.get_backend(self.mesh.group) == "nccl" else "cpu"
+        t = torch.tensor([self._now()], dtype=torch.float64, device=dev)
+        dist.broadcast(t, src=0, group=self.mesh.group)
+        return float(t)
+
+    # -- device helpers ----------------------------------------------------
+
+    def _sync(self) -> None:
+        """Wait for this rank's device work (JAX's ``block_until_ready``)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _from_owner(self, y_last: Optional[torch.Tensor], slot: int) -> torch.Tensor:
+        """The prefill's ``y_last`` on every rank: broadcast over this
+        rank's dp group (the ranks of its tp column) from the dp rank that
+        owns ``slot``."""
+        if self.dp == 1:
+            return y_last
+        owner_dp = slot // (self.serving.max_batch // self.dp)
+        src = owner_dp * self.tp + self.mesh.coords["tp"]
+        if y_last is None:
+            y_last = torch.empty(self.config.hidden_size, dtype=self._dtype,
+                                 device=self.device)
+        else:
+            y_last = y_last.contiguous()
+        dist.broadcast(y_last, src=src, group=self.mesh.axis_groups["dp"])
+        return y_last
+
+    def _gather_slots(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's per-slot values ``[B/dp]`` as the whole ``[B]``."""
+        if self.dp == 1:
+            return t
+        return all_gather_along(t, 0, self.mesh.axis_groups["dp"])
+
+    def _active_tensor(self, active_np: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(active_np.copy()).to(self.device)
+
+    # -- setup -------------------------------------------------------------
+
+    def _fresh_carry(self):
+        """A zero cache shard (this rank's slots and kv heads, ``lengths``
+        whole) and zero decode inputs ``[B/dp, 1, H]``."""
+        cfg = self.serving
+        b_local = cfg.max_batch // self.dp
+        cache = create_kv_cache(local_config(self.config, self.tp), b_local,
+                                cfg.num_blocks, cfg.block_size, device=self.device)
+        cache = cache._replace(lengths=torch.zeros((cfg.max_batch,), dtype=torch.int32,
+                                                   device=self.device))
+        x = torch.zeros((b_local, 1, self.config.hidden_size), dtype=self._dtype,
+                        device=self.device)
+        return (cache, x)
+
+    def capture_device_traces(self, trace_root: Any) -> list[dict]:
+        raise ValueError(
+            "capture_device_traces is not ported yet: device traces come with "
+            "ROADMAP Queue 1, Slice F, item 13")
+
+    def _infeasible_reason(self, r: Request) -> Optional[str]:
+        """Why the envelope can never serve ``r`` (None = feasible)."""
+        max_bucket = self.serving.prefill_buckets[-1]
+        if r.output_len < 1:
+            return f"output_len must be >= 1 (got {r.output_len})"
+        if r.prompt_len < 1 or r.prompt_len > max_bucket:
+            return (f"prompt_len={r.prompt_len} outside (0, {max_bucket}] "
+                    "(largest prefill bucket)")
+        if r.total_tokens > self.serving.max_seq:
+            return (f"prompt+output={r.total_tokens} exceeds "
+                    f"serving.max_seq={self.serving.max_seq} "
+                    "(per-slot cache capacity)")
+        need = max(1, math.ceil(r.total_tokens / self.serving.block_size))
+        if need > self.serving.total_blocks:
+            return (f"needs {need} cache blocks, budget is "
+                    f"{self.serving.total_blocks} (serving.blocks_budget)")
+        return None
+
+    def _validate_trace(self, trace: TrafficTrace) -> None:
+        """Fail BEFORE the run on any request the config cannot serve —
+        an infeasible request rejected mid-trace would read as load.
+        (``serving.reject_infeasible`` flips this into per-request
+        runtime rejection, journaled with reason="infeasible".)"""
+        for r in trace:
+            reason = self._infeasible_reason(r)
+            if reason is not None:
+                raise ValueError(f"request {r.rid}: {reason}")
+
+    def _compile(self, buckets: list[int]) -> None:
+        """Warm every program the trace will run (prefill per bucket, the
+        inject, the decode step) once on scratch state, so that CUDA and
+        cuBLAS start-up never lands in TTFT.  JAX compiles its jits here;
+        eager torch compiles nothing, and the report's ``compile_time_s``
+        holds this warm-up's wall time."""
+        carry = self._fresh_carry()
+        cfg = self.serving
+        slot = (cfg.max_batch // self.dp) * (0 if self.mesh is None
+                                             else self.mesh.coords["dp"])
+        active = torch.zeros((cfg.max_batch,), dtype=torch.bool, device=self.device)
+        y_last = None
+        for b in buckets:
+            dummy = request_embeddings(0, b, self.config.hidden_size,
+                                       dtype=self._dtype, pad_to=b, device=self.device)
+            cache, y_last = self._prefill(carry[0], self.params, dummy, slot, b)
+            carry = (cache, carry[1])
+        if self._token_mode:
+            carry, _tok = _inject_token_greedy(carry, slot, y_last, self._table, self.mesh)
+            carry, _tok = self._decode_token(carry, self.params, self._table, active)
+        else:
+            carry = _inject_token(carry, slot, y_last, self.mesh)
+            carry, _y = self._decode(carry, self.params, active)
+        self._sync()
+
+    def _event(self, event: str, rid: int, **extra: Any) -> None:
+        if self.journal is not None:
+            self.journal.event(event, config=f"request-{rid}", **extra)
+
+    # -- the run -----------------------------------------------------------
+
+    def run_trace(self, trace: TrafficTrace, guard: Any = None,
+                  collect_raw: bool = False, feed: Any = None,
+                  control: Any = None) -> dict[str, Any]:
+        """Serve ``trace`` to completion; returns the report dict (JAX's
+        keys, ``docs/serving.md``).  Pure compute + host scheduling.
+        ``collect_raw`` adds the raw latency sample lists (``raw_samples``).
+
+        ``guard`` (the SIGTERM drain) is part 11d's, and ``feed``/``control``
+        (the fleet replica hooks) are item 12's (ROADMAP Queue 1, Slice E,
+        item 12): each is refused.  So are a request with ``deadline_s``
+        and an active fault plan that names one of the engine's serving
+        sites (part 11d)."""
+        if guard is not None:
+            raise _not_ported("run_trace's guard (the SIGTERM drain)", "11d")
+        if feed is not None or control is not None:
+            raise ValueError(
+                "run_trace's feed/control (the fleet replica hooks) are not ported "
+                "yet: they come with serve/fleet.py (ROADMAP Queue 1, Slice E, item 12)")
+        plan = inject.active()
+        if plan is not None and set(plan.sites) & set(_ENGINE_FAULT_SITES):
+            raise _not_ported(
+                f"the fault plan's serving sites "
+                f"{sorted(set(plan.sites) & set(_ENGINE_FAULT_SITES))}", "11d")
+        if any(r.deadline_s is not None for r in trace):
+            raise _not_ported("a request with deadline_s (per-request SLO "
+                              "deadlines)", "11d")
+        return self._serve_trace(trace, collect_raw)
+
+    def _serve_trace(self, trace: TrafficTrace, collect_raw: bool) -> dict[str, Any]:
+        if not len(trace):
+            raise ValueError("cannot serve an empty trace")
+        cfg = self.serving
+        if cfg.reject_infeasible:
+            feasible = [r for r in trace
+                        if self._infeasible_reason(r) is None]
+            if not feasible:
+                raise ValueError(
+                    "every request in the trace is infeasible for this "
+                    "serving envelope — nothing to serve"
+                )
+        else:
+            self._validate_trace(trace)
+            feasible = list(trace)
+        buckets = sorted({cfg.bucket_for(r.prompt_len) for r in feasible})
+        with Timer() as t_compile:
+            self._compile(buckets)
+        compile_time = t_compile.elapsed
+
+        ledger = BlockLedger(cfg.total_blocks, cfg.block_size)
+        # registry counters are cumulative across an engine's lifetime
+        # (Prometheus semantics); the report carries THIS run's deltas
+        counts_base = {k: self._requests[k] for k in self._requests}
+        shed_base = self._rejections["queue-full"]
+        pending = deque(sorted(trace, key=lambda r: (r.arrival_s, r.rid)))
+        queue: deque[Request] = deque()
+        slots: dict[int, _SlotState] = {}
+        free_slots = list(range(cfg.max_batch))
+        stats = _RunStats()
+        series: dict[str, list] = {
+            "t_s": [], "queue_depth": [], "active_slots": [],
+            "blocks_in_use": [], "blocks_reserved": [],
+        }
+        carry = self._fresh_carry()
+        active_np = np.zeros((cfg.max_batch,), bool)
+        active_dev = self._active_tensor(active_np)
+        rejected_detail: list[dict[str, Any]] = []
+        tokens_by_rid: dict[int, list[int]] = {}
+        token_mode = self._token_mode
+        # per-request final outcome map (rid -> "completed" /
+        # "rejected[reason]")
+        outcomes: dict[int, str] = {}
+        last_sync = [0.0]
+        # host-side active_np mutations are staged; the device mask is
+        # re-uploaded lazily, and always before a decode dispatch
+        active_dirty = [False]
+
+        def refresh_active() -> None:
+            nonlocal active_dev
+            if active_dirty[0]:
+                active_dev = self._active_tensor(active_np)
+                active_dirty[0] = False
+
+        def release(slot: int) -> _SlotState:
+            """Free a completed slot's blocks + slot so the next admission
+            can reuse them."""
+            st = slots.pop(slot)
+            ledger.free(slot)
+            active_np[slot] = False
+            active_dirty[0] = True
+            free_slots.append(slot)
+            free_slots.sort()
+            return st
+
+        def finish(st: _SlotState, done_at: float) -> None:
+            """Completion stats + journal at the unit's sync point."""
+            lat = done_at - st.req.arrival_s
+            stats.e2e_latency_s.append(lat)
+            stats.completed_output_tokens += st.req.output_len
+            self._requests["completed"] += 1
+            outcomes[st.req.rid] = "completed"
+            extra: dict[str, Any] = {}
+            if self.capture_tokens:
+                extra["tokens"] = [int(t) for t in
+                                   tokens_by_rid.get(st.req.rid, [])]
+            self._event("request-completed", st.req.rid,
+                        output_tokens=st.req.output_len,
+                        latency_s=round(lat, 6), **extra)
+
+        def decode_unit() -> None:
+            """One decode step over the resident batch, dispatched and
+            synced at once (JAX's per-step unit never stays in flight),
+            with the host bookkeeping at its exit."""
+            nonlocal carry
+            refresh_active()
+            t0 = time.perf_counter()
+            with spans.span("serve-decode", active=len(slots), steps=1):
+                if token_mode:
+                    carry, ys = self._decode_token(carry, self.params, self._table,
+                                                   active_dev)
+                else:
+                    carry, ys = self._decode(carry, self.params, active_dev)
+                rows = [(s, slots[s].req.rid) for s in sorted(slots)]
+                completions: list[int] = []
+                for s, _rid in rows:
+                    st = slots[s]
+                    st.tokens_done += 1
+                    ledger.append(s, 1)
+                    stats.generated_tokens += 1
+                    if st.tokens_done >= st.req.output_len:
+                        completions.append(s)
+                stats.decode_steps += 1
+                self.registry.inc("serve_decode_steps", 1)
+                done_states = [release(s) for s in completions]
+                self._sync()
+                t_ready = time.perf_counter()
+                dt = t_ready - max(t0, last_sync[0])
+                last_sync[0] = t_ready
+                stats.decode_step_s.append(dt)
+                stats.per_token_s.extend([dt] * len(rows))
+                done_at = self._now()
+                if self.capture_tokens:
+                    # the device argmax: one int per slot comes to host
+                    toks = ys if token_mode else torch.argmax(ys[:, 0, :], dim=-1)
+                    toks_np = self._gather_slots(toks.to(torch.int32)).cpu().numpy()
+                    for s, rid in rows:
+                        tokens_by_rid.setdefault(rid, []).append(int(toks_np[s]))
+                # finish AFTER the unit's token capture: the completion
+                # event carries the request's full committed token list
+                for st in done_states:
+                    finish(st, done_at)
+
+        def prefill_once(req: Request, slot: int):
+            """The prefill of one admitted request, monolithic and bucketed
+            — returns ``(bucket, y_last, dt)``; ``y_last`` is the owner's,
+            on every rank."""
+            nonlocal carry
+            bucket = cfg.bucket_for(req.prompt_len)
+            x_prompt = request_embeddings(
+                req.seed, req.prompt_len, self.config.hidden_size,
+                dtype=self._dtype, pad_to=bucket, device=self.device,
+            )
+            with spans.span("serve-prefill", rid=req.rid, bucket=bucket, slot=slot):
+                t0 = time.perf_counter()
+                cache, y_last = self._prefill(carry[0], self.params, x_prompt,
+                                              slot, req.prompt_len)
+                y_last = self._from_owner(y_last, slot)
+                self._sync()
+                dt = time.perf_counter() - t0
+            carry = (cache, carry[1])
+            return bucket, y_last, dt
+
+        self._t0 = time.perf_counter()
+        last_sync[0] = self._t0
+        while pending or queue or slots:
+            now = self._clock()
+            # 1. arrivals -> admission control (bounded queue)
+            while pending and pending[0].arrival_s <= now:
+                req = pending.popleft()
+                self._requests["arrived"] += 1
+                self._event("request-arrived", req.rid,
+                            prompt=req.prompt_len, output=req.output_len)
+                reason = (self._infeasible_reason(req)
+                          if cfg.reject_infeasible else None)
+                if reason is not None:
+                    self._requests["rejected"] += 1
+                    self._rejections["infeasible"] += 1
+                    outcomes[req.rid] = "rejected[infeasible]"
+                    rejected_detail.append({
+                        "rid": req.rid, "reason": "infeasible",
+                        "queue_depth": len(queue), "queue_wait_s": 0.0,
+                        "detail": reason,
+                    })
+                    # distinct journal event from the load-shed path:
+                    # infeasible is a config/trace mismatch, never load
+                    self._event("request-infeasible", req.rid,
+                                reason="infeasible", detail=reason)
+                elif len(queue) >= cfg.queue_capacity:
+                    head_wait = (now - queue[0].arrival_s if queue
+                                 else 0.0)
+                    self._requests["rejected"] += 1
+                    self._rejections["queue-full"] += 1
+                    outcomes[req.rid] = "rejected[queue-full]"
+                    rejected_detail.append({
+                        "rid": req.rid, "reason": "queue-full",
+                        "queue_depth": len(queue),
+                        "queue_wait_s": round(head_wait, 6),
+                    })
+                    self._event("request-rejected", req.rid,
+                                reason="queue-full",
+                                queue_depth=len(queue),
+                                queue_wait_s=round(head_wait, 6))
+                else:
+                    queue.append(req)
+                    self._requests["admitted"] += 1
+                    self._event("request-admitted", req.rid,
+                                queue_depth=len(queue))
+            # 2. step-boundary scheduling: grant slots + block
+            #    reservations, prefill each granted request
+            scheduled = False
+            if queue and free_slots:
+                with spans.span("serve-admission", queue=len(queue),
+                                free_slots=len(free_slots)):
+                    while queue and free_slots:
+                        if not ledger.can_reserve(queue[0].total_tokens):
+                            break
+                        req = queue.popleft()
+                        slot = free_slots.pop(0)
+                        ledger.reserve(slot, req.total_tokens)
+                        bucket, y_last, dt = prefill_once(req, slot)
+                        if token_mode:
+                            # greedy token inject: the argmax of y_last,
+                            # the same on every rank
+                            carry, first_tok = _inject_token_greedy(
+                                carry, slot, y_last, self._table, self.mesh)
+                            first_id = int(first_tok)
+                        else:
+                            carry = _inject_token(carry, slot, y_last, self.mesh)
+                            first_id = (int(torch.argmax(y_last))
+                                        if self.capture_tokens else -1)
+                        ledger.append(slot, req.prompt_len)
+                        t_first = self._now()
+                        st = _SlotState(req=req, tokens_done=1)
+                        slots[slot] = st
+                        active_np[slot] = True
+                        active_dirty[0] = True
+                        stats.ttft_s.append(t_first - req.arrival_s)
+                        stats.prefill_s.append(dt)
+                        stats.generated_tokens += 1
+                        scheduled = True
+                        if self.capture_tokens:
+                            tokens_by_rid.setdefault(req.rid, []).append(first_id)
+                        self._event("request-prefill", req.rid, slot=slot,
+                                    bucket=bucket,
+                                    ttft_s=round(t_first - req.arrival_s, 6))
+                        if st.tokens_done >= req.output_len:
+                            finish(release(slot), self._now())
+                if scheduled:
+                    refresh_active()
+            # 3. a decode step over every resident request
+            if slots:
+                decode_unit()
+            elif pending and not queue:
+                # idle until the next arrival (nothing resident, nothing
+                # admittable)
+                wait = pending[0].arrival_s - self._now()
+                if wait > 0:
+                    time.sleep(min(wait, 0.05))
+            # 4. timeseries sample at the step boundary
+            series["t_s"].append(round(self._now(), 6))
+            series["queue_depth"].append(len(queue))
+            series["active_slots"].append(len(slots))
+            series["blocks_in_use"].append(ledger.blocks_in_use)
+            series["blocks_reserved"].append(ledger.blocks_reserved)
+            self.registry.set_gauge("serve_queue_depth", len(queue),
+                                    help="bounded admission queue depth")
+            self.registry.set_gauge("serve_active_slots", len(slots),
+                                    help="decode slots in use")
+            self.registry.set_gauge(
+                "serve_decode_batch_occupancy",
+                len(slots) / cfg.max_batch,
+                help="resident fraction of the decode batch")
+            self.registry.set_gauge("serve_cache_blocks_in_use",
+                                    ledger.blocks_in_use,
+                                    help="cache blocks holding tokens")
+        wall = self._now()
+
+        self.registry.set_gauge("serve_queue_depth_peak",
+                                max(series["queue_depth"], default=0))
+        self.registry.set_gauge("serve_cache_blocks_peak",
+                                ledger.peak_in_use)
+        goodput = (stats.completed_output_tokens / wall) if wall > 0 else 0.0
+        arrived = self._requests["arrived"] - counts_base["arrived"]
+        # shed rate counts LOAD shedding only (queue-full) — an
+        # infeasible rejection is a config/trace mismatch
+        shed = self._rejections["queue-full"] - shed_base
+        report = {
+            "schema": SERVING_REPORT_SCHEMA,
+            "model": {
+                "hidden_size": self.config.hidden_size,
+                "num_layers": self.config.num_layers,
+                "num_heads": self.config.num_heads,
+                "kv_heads": self.config.kv_heads,
+                "attention": self.config.attention,
+                "dtype": self.config.dtype,
+            },
+            "mesh": {"dp": self.dp, "tp": self.tp},
+            "serving": cfg.to_dict(),
+            "trace": {
+                "kind": trace.kind,
+                "seed": trace.seed,
+                "num_requests": len(trace),
+                "params": dict(trace.params),
+                "horizon_s": trace.horizon_s,
+            },
+            "requests": {
+                **{k: self._requests[k] - counts_base[k]
+                   for k in ("arrived", "admitted", "rejected",
+                             "completed", "failed", "preempted",
+                             "canceled")},
+                "rejected_rids": [d["rid"] for d in rejected_detail],
+                "rejected_detail": rejected_detail,
+                "shed_rate": (shed / arrived) if arrived else 0.0,
+                "deadline_shed": 0,
+                "completed_past_deadline": 0,
+                "outcomes": {str(rid): o
+                             for rid, o in sorted(outcomes.items())},
+            },
+            "goodput_tokens_per_s": goodput,
+            "throughput_tokens_per_s": (
+                stats.generated_tokens / wall if wall > 0 else 0.0
+            ),
+            "completed_output_tokens": stats.completed_output_tokens,
+            "generated_tokens": stats.generated_tokens,
+            "decode_steps": stats.decode_steps,
+            "decode_units": stats.decode_steps,
+            # the sections of parts 11b-11d hold what JAX writes with
+            # their features off
+            "fast_path": {
+                "enabled": False,
+                "decode_horizon": cfg.decode_horizon,
+                "inflight_window": cfg.inflight_window,
+                "prefill_chunk": cfg.prefill_chunk,
+                "compact_threshold": cfg.compact_threshold,
+                "fused_scans": 0,
+                "fused_steps": 0,
+                "single_steps": stats.decode_steps,
+                "prefill_chunks": 0,
+                "compacted_scans": 0,
+            },
+            "speculation": {
+                "mode": cfg.speculation,
+                "gamma": cfg.spec_gamma,
+                "adaptive": cfg.spec_adaptive,
+                "temperature": cfg.temperature,
+                "sampled": False,
+                "sample_seed": cfg.sample_seed,
+                "verify_units": 0,
+                "fallback_units": 0,
+                "proposed_tokens": 0,
+                "accepted_tokens": 0,
+                "acceptance_rate": 0.0,
+                "mean_accepted_len": 0.0,
+                "draft_overhead_s": 0.0,
+            },
+            "resilience": {
+                "retries": 0,
+                "hung_dispatches": 0,
+                "failed_requests": 0,
+                "failed": [],
+            },
+            "preempted": False,
+            "remaining_rids": [],
+            "prefix": {
+                "enabled": cfg.prefix_caching,
+                "kv_quantization": cfg.kv_quantization,
+                "hits": 0,
+                "tokens_reused": 0,
+                "cow_blocks": 0,
+                "hit_rate": 0.0,
+            },
+            "ttft": summarize(stats.ttft_s),
+            "per_token_latency": summarize(stats.per_token_s),
+            "e2e_latency": summarize(stats.e2e_latency_s),
+            "prefill_time": summarize(stats.prefill_s),
+            "decode_step_time": summarize(stats.decode_step_s),
+            "cache": ledger.stats(),
+            "timeseries": series,
+            "compile_time_s": compile_time,
+            "wall_seconds": wall,
+        }
+        if collect_raw:
+            report["raw_samples"] = {
+                "ttft_s": list(stats.ttft_s),
+                "per_token_s": list(stats.per_token_s),
+                "prefill_s": list(stats.prefill_s),
+                "decode_step_s": list(stats.decode_step_s),
+                "e2e_latency_s": list(stats.e2e_latency_s),
+            }
+        if self.capture_tokens:
+            report["completed_tokens"] = {
+                str(rid): toks for rid, toks in sorted(tokens_by_rid.items())
+            }
+        if self.verbose:
+            ttft = report["ttft"]
+            ptl = report["per_token_latency"]
+            print(
+                f"[serve] {trace.kind} x{len(trace)}: "
+                f"{report['requests']['completed']} completed / "
+                f"{report['requests']['rejected']} rejected, "
+                f"goodput {goodput:.0f} tok/s, "
+                f"ttft p50 {ttft['median'] * 1e3:.1f} ms "
+                f"p99 {ttft['p99'] * 1e3:.1f} ms, "
+                f"per-token p50 {ptl['median'] * 1e3:.2f} ms"
+            )
+        return report

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time of the port's 1B forward, or of its 1B train step, goes on
-one NVIDIA GPU.
+"""Where the time of the port's 1B forward, of its 1B train step, or of its
+1B serving decode step goes on one NVIDIA GPU.
 
     python3 scripts/torch_e2e_profile.py --out DIR [--batch 8] [--seq 512]
-                                         [--reps 3] [--train]
+                                         [--reps 3] [--train | --decode]
 
 Builds the 1B decoder of ``dlbb_tpu_torch`` at full width (bf16,
 ``attention="full"``, random weights from seed 42), runs a few warm
@@ -21,6 +21,13 @@ With ``--train`` it does the same for the train step of
 bf16 moments) through ``make_train_step``, and also splits the device time
 by phase: the forward, the backward (kernels launched by the autograd
 engine's thread, the remat recompute included) and the optimizer update.
+
+With ``--decode`` it does the same for one decode step of the serving
+engine (``serve/engine.py::build_decode_step``, the "off" mode) on the
+cache of ``chip_smoke.py`` phase serve: 32 slots of 2048 tokens in 16-token
+blocks (12 GiB of bf16), every slot active at length 1024 (the step reads
+the whole cache whatever the lengths); ``--batch`` and ``--seq`` are not
+used.
 """
 
 from __future__ import annotations
@@ -127,6 +134,30 @@ def _train_step(torch, record_function, x, args):
     return step, cfg
 
 
+def _decode_step(torch, cfg):
+    """One serving decode step of the 1B over phase serve's cache, every slot
+    active: ``step()`` runs it and feeds its output back, as the engine
+    does."""
+    from dlbb_tpu_torch.models import init_params
+    from dlbb_tpu_torch.serve.engine import build_decode_step
+    from dlbb_tpu_torch.serve.kvcache import create_kv_cache
+
+    slots, max_seq, block = 32, 2048, 16
+    params = init_params(cfg, 42, "cuda")
+    cache = create_kv_cache(cfg, slots, max_seq // block, block, device="cuda")
+    cache.lengths.fill_(max_seq // 2)
+    x = torch.randn((slots, 1, cfg.hidden_size), device="cuda", dtype=torch.bfloat16)
+    active = torch.ones(slots, dtype=torch.bool, device="cuda")
+    decode = build_decode_step(cfg)
+    carry = [(cache, x)]
+
+    def step():
+        carry[0], y = decode(carry[0], params, active)
+        return y
+
+    return step
+
+
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--out", required=True,
@@ -134,8 +165,11 @@ def main() -> int:
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--seq", type=int, default=512)
     p.add_argument("--reps", type=int, default=3)
-    p.add_argument("--train", action="store_true",
-                   help="profile the 1B Adam train step instead of the forward")
+    mode = p.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true",
+                      help="profile the 1B Adam train step instead of the forward")
+    mode.add_argument("--decode", action="store_true",
+                      help="profile the serving engine's decode step instead")
     args = p.parse_args()
 
     import torch
@@ -156,6 +190,9 @@ def main() -> int:
     if args.train:
         step, cfg = _train_step(torch, record_function, x, args)
         what = "step"
+    elif args.decode:
+        step = _decode_step(torch, cfg)
+        what = "decode_step"
     else:
         params = init_params(cfg, 42, "cuda")
         what = "forward"
@@ -217,7 +254,9 @@ def main() -> int:
     kernel_total_ms = sum(by_class.values()) / 1e3 / reps
     result = {
         "gpu": gpu_name_and_power_limit(),
-        "shape": {"model": "1B", "batch": args.batch, "seq": args.seq,
+        "shape": {"model": "1B",
+                  **({"slots": 32, "max_seq": 2048, "block_size": 16} if args.decode
+                     else {"batch": args.batch, "seq": args.seq}),
                   "dtype": "bfloat16", "attention": "full",
                   "remat_policy": cfg.remat_policy if cfg.remat else None},
         f"{what}_ms_cuda_events": event_ms,
