@@ -70,7 +70,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    ``plain_collective`` (a one-rank ring is one product), then ``run_sweep``
    under the variants ``default``, ``overlap_ring`` and ``overlap_bidir``
    (10 warmup, 100 timed iterations), their medians printed; (b) two
-   processes on the card over gloo at the 1B's full width and depth: tp=2
+   processes on the card over gloo at the 1B's full width, cut to
+   ``SEQ_LAYERS`` layers (the whole script's time limit): tp=2
    with ``tp_overlap`` ring and bidir ("full": the flash kernels on each
    rank's 8 heads over the gathered sequence), and sp=2 with ring and
    Ulysses attention (torch ops, no kernel): the forward against the
@@ -1305,6 +1306,10 @@ SEQ_RUNS = {
             {"attention": "ulysses"})),
 }
 SEQ_SCHEDULES = ("fused", "ring", "bidir")
+# (b)'s depth: half the 1B's 24 layers, so that the whole script keeps its
+# time with phase serve's part 11b runs; every bound of (b) is argued per
+# layer and takes the depth
+SEQ_LAYERS = 12
 SEQ_VARIANTS = ("default", "overlap_ring", "overlap_bidir")
 
 
@@ -1459,7 +1464,9 @@ def phase_seq(torch, gpu_line):
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     medians = _seq_sweeps(torch, gpu_line)
-    gloo = _seq_model(torch, load_config(TRAIN_CONFIG))
+    config = load_config(TRAIN_CONFIG)
+    config["model"]["num_layers"] = SEQ_LAYERS
+    gloo = _seq_model(torch, config)
     print(f"[seq] phase wall time {time.perf_counter() - t_phase:.1f} s")
     return {"sweeps_us": medians, "gloo": gloo}
 
@@ -2797,11 +2804,46 @@ SERVE_SEQ, SERVE_PROMPT, SERVE_SLOT = 1024, 640, 2
 # of the same exact product, carried by the same 24 residual layers as the
 # kernel's: the same bound holds both.
 SERVE_REL_L2 = E2E_REL_L2
+# (a'): the prompt prefilled again in SERVE_CHUNK-token chunks (3, the last
+# partial) into the same slot of a fresh cache.  Chunked attention is the
+# monolithic prefill's fp32 math over the same bf16 K/V (the prefix carry is
+# the earlier chunks' exact values), and only the GEMMs run at another shape
+# (M=256 against M=640): bf16 roundings, each within a half-ulp of the same
+# exact product, carried by 24 residual layers, the second part of
+# SERVE_REL_L2's argument without the flash kernel's rounding, so the same
+# bound holds the chunked outputs and K/V rows against the monolithic ones,
+# and the chunked output at the last prompt position against "full".
+SERVE_CHUNK = 256
+# The int8 prefill's blocks against the bf16 prefill's: attention runs over
+# the exact values, so both write the same K/V and the int8 one rounds each
+# to q*s with s = amax/127 per block and kv head; |x - q*s| <= s/2 plus the
+# fp32 roundings of x/s and of q*s (each within 127 * 2^-24 of s), so every
+# error stays under (0.5 + 2^-10) / 127 of its block's and head's amax.
+SERVE_INT8_REL = (0.5 + 2 ** -10) / 127
 # phase serve (b): the cache of phase kv, 64 requests on 32 slots
 SERVE_ENGINE = dict(max_batch=32, block_size=16, max_seq=2048, queue_capacity=64)
 SERVE_REQUESTS = 64
 SERVE_PROMPTS, SERVE_OUTPUTS = (128, 1024), (32, 128)
 SERVE_MODES = ("off", "greedy", "greedy")
+# phase serve (d): the fast path on (b)'s trace.  ServingConfig.validate
+# (JAX's) refuses compaction, int8 planes and the prefix cache in a token
+# mode, so (d)2 and (e) run in "off" and compare with "off" runs.
+SERVE_FAST = (
+    ("fused", "greedy", dict(decode_horizon=8, inflight_window=2)),
+    ("fused+chunked+compact", "off", dict(decode_horizon=8, inflight_window=2,
+                                          prefill_chunk=SERVE_CHUNK, compact_threshold=0.5)),
+)
+# phase serve (e): a shared-prefix trace (4 groups sharing 512-token prefixes)
+SERVE_PREFIX_PROMPTS, SERVE_PREFIX_GROUPS, SERVE_PREFIX_LEN = (600, 1024), 4, 512
+SERVE_PREFIX_RUNS = (
+    ("chunked", dict(prefill_chunk=SERVE_CHUNK)),
+    ("prefix", dict(prefill_chunk=SERVE_CHUNK, prefix_caching=True)),
+    ("prefix+int8", dict(prefill_chunk=SERVE_CHUNK, prefix_caching=True,
+                         kv_quantization="int8")),
+)
+# each group's first request of the first wave of 32 misses; the other 28
+# find a resident group member
+SERVE_PREFIX_MIN_HITS = 28
 
 
 def phase_serve(torch, fa, gpu_line):
@@ -2816,32 +2858,43 @@ def phase_serve(torch, fa, gpu_line):
                                      dir=Path(__file__).resolve().parent) as tmp:
         trace = Path(tmp) / "spans.json"
         with spans.tracing(trace, meta={"phase": "serve", "device": gpu_line}):
-            _serve_engine(torch, gpu_line)
+            runs = _serve_engine(torch, gpu_line)
         events = spans.load_trace(trace)["traceEvents"]
     problems = spans.validate_trace_events(events)
     if problems:
         raise AssertionError(f"phase serve's span trace: {problems}")
-    counts = {n: sum(1 for e in events if e["ph"] == "B" and e["name"] == n)
-              for n in ("serve-admission", "serve-prefill", "serve-decode")}
-    print(f"[serve] span trace of {len(events)} events: valid; B spans {counts}")
-    if counts["serve-prefill"] != SERVE_REQUESTS * len(SERVE_MODES):
-        raise AssertionError("the span trace lacks a serve-prefill per request")
+    begins = [e for e in events if e["ph"] == "B"]
+    counts = {n: sum(1 for e in begins if e["name"] == n)
+              for n in ("serve-admission", "serve-prefill", "serve-prefill-chunk",
+                        "serve-prefix-attach", "serve-decode")}
+    fused = sum(1 for e in begins if e["name"] == "serve-decode" and e["args"]["steps"] > 1)
+    print(f"[serve] span trace of {len(events)} events: valid; B spans {counts}, "
+          f"{fused} of the serve-decode ones fused scans")
+    want = {"serve-prefill": SERVE_REQUESTS * len(runs),
+            "serve-decode": sum(r["decode_units"] for r in runs),
+            "serve-prefill-chunk": sum(r["fast_path"]["prefill_chunks"] for r in runs),
+            "serve-prefix-attach": sum(r["prefix"]["hits"] for r in runs)}
+    if any(counts[n] != v for n, v in want.items()) \
+            or fused != sum(r["fast_path"]["fused_scans"] for r in runs):
+        raise AssertionError(f"the span trace does not match the reports: {want}")
     print(f"[serve] phase wall {time.perf_counter() - t0:.1f} s")
     return launches
 
 
 def _serve_equivalence(torch, fa, gpu_line):
-    """(a): the 1B's prefill and decode programs against its one-shot
-    "full" forward; returns that forward's flash launches (one per
-    layer)."""
+    """(a) and (a'): the 1B's prefill and decode programs against its
+    one-shot "full" forward, then the chunked and the int8 prefills of the
+    same prompt; returns that forward's flash launches (one per layer)."""
     from dlbb_tpu_torch.models import ModelConfig, forward, init_params
     from dlbb_tpu_torch.serve.engine import (
         ServingConfig,
         _inject_token,
         build_decode_step,
         build_prefill,
+        build_prefill_chunk,
+        create_prefix,
     )
-    from dlbb_tpu_torch.serve.kvcache import create_kv_cache
+    from dlbb_tpu_torch.serve.kvcache import create_kv_cache, create_quant_kv_cache
 
     cfg = ModelConfig.from_dict({"size": "1B"})
     params = init_params(cfg, 42, "cuda")
@@ -2899,12 +2952,105 @@ def _serve_equivalence(torch, fa, gpu_line):
     if lengths != [SERVE_SEQ if s == SERVE_SLOT else 0 for s in range(sv.max_batch)] \
             or not empty:
         raise AssertionError("the programs touched a slot they were not given")
+
+    # (a'): the chunked prefill of the same prompt into a fresh cache
+    def prompt_rows(c):
+        """Slot SERVE_SLOT's K and V rows of the prompt, [L, 640, kvh, d]."""
+        return [p[:, SERVE_SLOT].reshape(cfg.num_layers, -1, cfg.kv_heads,
+                                         cfg.head_dim)[:, :SERVE_PROMPT] for p in (c.k, c.v)]
+
+    n_chunks = -(-SERVE_PROMPT // SERVE_CHUNK)
+    xc = torch.zeros((1, n_chunks * SERVE_CHUNK, cfg.hidden_size), device="cuda",
+                     dtype=torch.bfloat16)
+    xc[:, :SERVE_PROMPT] = x[:, :SERVE_PROMPT]
+    chunked = create_kv_cache(cfg, sv.max_batch, sv.num_blocks, sv.block_size, device="cuda")
+    prefix = create_prefix(cfg, device="cuda")
+    t0 = time.perf_counter()
+    for ci in range(n_chunks):
+        chunked, prefix, y_chunk = build_prefill_chunk(cfg, chunk_len=SERVE_CHUNK,
+                                                     start=ci * SERVE_CHUNK)(
+            chunked, prefix, params, xc[:, ci * SERVE_CHUNK:(ci + 1) * SERVE_CHUNK],
+            SERVE_SLOT, SERVE_PROMPT)
+    torch.cuda.synchronize()
+    chunk_wall = time.perf_counter() - t0
+    mono_k, mono_v = prompt_rows(cache)
+    chunk_k, chunk_v = prompt_rows(chunked)
+    rels = {"y_last vs monolithic": _rel_l2(y_chunk, rows[0]),
+            "K rows vs monolithic": _rel_l2(chunk_k, mono_k),
+            "V rows vs monolithic": _rel_l2(chunk_v, mono_v),
+            "y_last vs \"full\"": _rel_l2(y_chunk, y_full[0, SERVE_PROMPT - 1])}
+    print(f"[serve] (a') chunked prefill of {SERVE_PROMPT} tokens in {n_chunks} chunks of "
+          f"{SERVE_CHUNK} into slot {SERVE_SLOT} ({chunk_wall:.3f} s, prefix carry "
+          f"{list(prefix[0].shape)}): relative L2 "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+          + f" (tolerance {SERVE_REL_L2}); length {int(chunked.lengths[SERVE_SLOT])}")
+    if not (bool(torch.isfinite(y_chunk).all()) and max(rels.values()) <= SERVE_REL_L2
+            and int(chunked.lengths[SERVE_SLOT]) == SERVE_PROMPT):
+        raise AssertionError("the chunked prefill disagrees with the monolithic one")
+    del chunked, prefix
+
+    # (a'): the int8 prefill's blocks against the bf16 prefill's
+    quant = create_quant_kv_cache(cfg, sv.max_batch, sv.num_blocks, sv.block_size,
+                                  device="cuda")
+    quant, y_q = prefill(quant, params, xp, SERVE_SLOT, SERVE_PROMPT)
+    # the prompt's blocks (the bf16 cache's later ones hold (a)'s decoded rows)
+    wb = SERVE_PROMPT // sv.block_size
+    worst = 0.0
+    for name in ("k", "v"):
+        exact = getattr(cache, name)[:, SERVE_SLOT, :wb].float()   # [L, wb, bs, kvh, d]
+        deq = (getattr(quant, name)[:, SERVE_SLOT, :wb].float()
+               * getattr(quant, f"{name}_scale")[:, SERVE_SLOT, :wb][:, :, None, :, None])
+        amax = exact.abs().amax(dim=(2, 4))                            # [L, wb, kvh]
+        err = (deq - exact).abs().amax(dim=(2, 4))
+        worst = max(worst, float((err / torch.where(amax > 0, amax, 1.0)).max()))
+    same_y = bool(torch.equal(y_q, rows[0]))
+    print(f"[serve] (a') int8 prefill of the same prompt: its dequantised blocks against the "
+          f"bf16 prefill's, worst error per block and kv head {worst:.4e} of the block's amax "
+          f"(bound {SERVE_INT8_REL:.4e}); y_last equal to the bf16 prefill's bit for bit "
+          f"{same_y}")
+    if worst > SERVE_INT8_REL:
+        raise AssertionError("the int8 prefill's blocks exceed the quantisation bound")
     return launches
 
 
+def _serve_run(torch, engine, trace, label, gpu_line):
+    """One ``run_trace`` with peak memory and wall time, its numbers
+    printed; returns the report."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    report = engine.run_trace(trace, collect_raw=True)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    req, ms = report["requests"], 1e3
+    fp, pfx = report["fast_path"], report["prefix"]
+
+    def q(block):
+        return (f"median {report[block]['median'] * ms:.3f} ms, "
+                f"p99 {report[block]['p99'] * ms:.3f} ms")
+
+    print(f"[serve] run {label} on {gpu_line}: {req['completed']} completed, "
+          f"{req['rejected']} rejected; TTFT {q('ttft')}; per-token latency "
+          f"{q('per_token_latency')}; decode step (one per unit) {q('decode_step_time')} over "
+          f"{report['decode_steps']} steps in {report['decode_units']} units "
+          f"({fp['fused_scans']} fused scans, {fp['compacted_scans']} compacted, "
+          f"{fp['single_steps']} single steps); prefill {q('prefill_time')} "
+          f"({fp['prefill_chunks']} chunks); prefix hits {pfx['hits']} "
+          f"({pfx['tokens_reused']} tokens reused); goodput "
+          f"{report['goodput_tokens_per_s']:.1f} tokens/s; run wall "
+          f"{report['wall_seconds']:.2f} s (warm-up {report['compile_time_s']:.2f} s, call "
+          f"{wall:.2f} s); peak memory {peak} bytes ({peak / 2**30:.2f} GiB); blocks reserved "
+          f"at the end {report['cache']['blocks_reserved']}")
+    if req["completed"] != SERVE_REQUESTS or req["rejected"] != 0 \
+            or report["cache"]["blocks_reserved"] != 0:
+        raise AssertionError(f"run {label} did not serve every request")
+    return report
+
+
 def _serve_engine(torch, gpu_line):
-    """(b) and (c): ``run_trace`` at the cache of phase kv, once per mode of
-    ``SERVE_MODES``, and the decode step against its bytes bound."""
+    """(b)-(e): ``run_trace`` at the cache of phase kv, per-step in each mode
+    of ``SERVE_MODES``, the fast path, the prefix cache and the int8 planes,
+    and the decode steps against their bytes bounds; returns the reports."""
     import dataclasses
 
     from dlbb_tpu_torch.models import ModelConfig, init_params, num_parameters
@@ -2918,64 +3064,112 @@ def _serve_engine(torch, gpu_line):
     total = torch.cuda.get_device_properties(0).total_memory
     budget_gb = (total - weight_bytes) / 2**30
     cache_bytes = kv_cache_bytes(cfg, SERVE_ENGINE["max_batch"], SERVE_ENGINE["max_seq"])
-    trace = generate_trace("poisson", SERVE_REQUESTS, seed=42, prompt_range=SERVE_PROMPTS,
-                           output_range=SERVE_OUTPUTS)
-    # every arrival at t=0: twice as many requests as slots, so slots are
-    # freed and granted again, in an order that does not depend on timing
-    trace = dataclasses.replace(trace, requests=tuple(
-        dataclasses.replace(r, arrival_s=0.0) for r in trace.requests))
+    int8_bytes = kv_cache_bytes(cfg, SERVE_ENGINE["max_batch"], SERVE_ENGINE["max_seq"],
+                                "int8", SERVE_ENGINE["block_size"])
+
+    def at_t0(trace):
+        # every arrival at t=0: twice as many requests as slots, so slots are
+        # freed and granted again, in an order that does not depend on timing
+        return dataclasses.replace(trace, requests=tuple(
+            dataclasses.replace(r, arrival_s=0.0) for r in trace.requests))
+
+    def engine(mode, **knobs):
+        sv = ServingConfig(**SERVE_ENGINE, hbm_budget_gb=budget_gb, speculation=mode, **knobs)
+        return ServingEngine(cfg, sv, params=params, capture_tokens=True, verbose=False,
+                             device="cuda")
+
+    def same_tokens(a, b):
+        return sum(a["completed_tokens"][rid] == b["completed_tokens"][rid]
+                   for rid in a["completed_tokens"])
+
+    trace = at_t0(generate_trace("poisson", SERVE_REQUESTS, seed=42, prompt_range=SERVE_PROMPTS,
+                                 output_range=SERVE_OUTPUTS))
     print(f"[serve] engine: 1B bf16, {SERVE_ENGINE}, hbm_budget_gb {budget_gb:.3f} (the "
           f"card's {total} bytes less {weight_bytes} bytes of weights); the cache "
           f"{cache_bytes} bytes; {SERVE_REQUESTS} requests at t=0, prompts "
           f"{sum(r.prompt_len for r in trace)} tokens, outputs "
           f"{sum(r.output_len for r in trace)} tokens")
-    bound_ms = (weight_bytes + cache_bytes) / PEAK_BYTES_PER_S * 1e3
-    runs = []
+    reports, steps = [], []
     engines = {}
-    for mode in SERVE_MODES:
+    per_step = {}
+    for i, mode in enumerate(SERVE_MODES):
         if mode not in engines:
-            sv = ServingConfig(**SERVE_ENGINE, hbm_budget_gb=budget_gb, speculation=mode)
-            engines[mode] = ServingEngine(cfg, sv, params=params, capture_tokens=True,
-                                          verbose=False, device="cuda")
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        report = engines[mode].run_trace(trace)
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        req, ms = report["requests"], 1e3
-        step = report["decode_step_time"]
-        print(f"[serve] run {len(runs) + 1} ({mode}) on {gpu_line}: {req['completed']} "
-              f"completed, {req['rejected']} rejected; TTFT median "
-              f"{report['ttft']['median'] * ms:.3f} ms, p99 {report['ttft']['p99'] * ms:.3f} "
-              f"ms; per-token latency median "
-              f"{report['per_token_latency']['median'] * ms:.3f} ms, p99 "
-              f"{report['per_token_latency']['p99'] * ms:.3f} ms; decode step median "
-              f"{step['median'] * ms:.3f} ms, p99 {step['p99'] * ms:.3f} ms over "
-              f"{report['decode_steps']} steps; prefill median "
-              f"{report['prefill_time']['median'] * ms:.3f} ms; goodput "
-              f"{report['goodput_tokens_per_s']:.1f} tokens/s; run wall "
-              f"{report['wall_seconds']:.2f} s (warm-up {report['compile_time_s']:.2f} s, "
-              f"call {wall:.2f} s); peak memory {peak} bytes "
-              f"({peak / 2**30:.2f} GiB); blocks reserved at the end "
-              f"{report['cache']['blocks_reserved']}")
-        if req["completed"] != SERVE_REQUESTS or req["rejected"] != 0 \
-                or report["cache"]["blocks_reserved"] != 0:
-            raise AssertionError(f"run {len(runs) + 1} ({mode}) did not serve every request")
-        runs.append({"mode": mode, "tokens": report["completed_tokens"],
-                     "decode_step_ms": step["median"] * ms})
-    greedy = [r["tokens"] for r in runs if r["mode"] == "greedy"]
-    same = sum(greedy[0][rid] == greedy[1][rid] for rid in greedy[0])
+            engines[mode] = engine(mode)
+        report = _serve_run(torch, engines[mode], trace, f"{i + 1} ({mode})", gpu_line)
+        reports.append(report)
+        steps.append((f"{i + 1} ({mode})", report, cache_bytes))
+        per_step.setdefault(mode, []).append(report)
+    greedy = per_step["greedy"]
+    same = same_tokens(greedy[0], greedy[1])
     print(f"[serve] greedy tokens equal between the two greedy runs for {same} of "
-          f"{len(greedy[0])} requests")
-    if greedy[0] != greedy[1]:
+          f"{SERVE_REQUESTS} requests")
+    if greedy[0]["completed_tokens"] != greedy[1]["completed_tokens"]:
         raise AssertionError("two greedy runs of one trace gave different tokens")
-    for r in runs:
-        print(f"[serve] ({r['mode']}) decode step median {r['decode_step_ms']:.3f} ms against "
-              f"its bytes bound {bound_ms:.3f} ms (weights {weight_bytes} + the whole cache "
-              f"{cache_bytes} bytes read once at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; the step "
-              f"reads the whole cache, masked, whatever the lengths): "
-              f"{r['decode_step_ms'] / bound_ms:.2f}x")
+    del engines
+
+    # (d) the fast path on the same trace
+    for i, (label, mode, knobs) in enumerate(SERVE_FAST):
+        report = _serve_run(torch, engine(mode, **knobs), trace,
+                            f"(d){i + 1} {label} ({mode}, {knobs})", gpu_line)
+        reports.append(report)
+        steps.append((f"(d){i + 1} {label}", report, cache_bytes))
+        fp = report["fast_path"]
+        same = same_tokens(report, per_step[mode][0])
+        print(f"[serve] (d){i + 1}: tokens equal to the per-step {mode} run's for {same} of "
+              f"{SERVE_REQUESTS} requests")
+        if label == "fused" and not (same == SERVE_REQUESTS and fp["fused_scans"] > 0
+                                     and report["decode_units"] < report["decode_steps"]):
+            raise AssertionError("the fused decode differs from the per-step one")
+        if label != "fused" and not (fp["prefill_chunks"] > 0 and fp["compacted_scans"] > 0):
+            raise AssertionError("chunked prefill or compaction did not engage")
+
+    # (e) the prefix cache and the int8 planes on a shared-prefix trace
+    ptrace = at_t0(generate_trace("poisson", SERVE_REQUESTS, seed=42,
+                                  prompt_range=SERVE_PREFIX_PROMPTS, output_range=SERVE_OUTPUTS,
+                                  prefix_groups=SERVE_PREFIX_GROUPS,
+                                  prefix_len=SERVE_PREFIX_LEN))
+    print(f"[serve] (e) shared-prefix trace: {SERVE_REQUESTS} requests at t=0 in "
+          f"{SERVE_PREFIX_GROUPS} groups sharing {SERVE_PREFIX_LEN}-token prefixes, prompts "
+          f"{sum(r.prompt_len for r in ptrace)} tokens, outputs "
+          f"{sum(r.output_len for r in ptrace)} tokens")
+    prefix_runs = {}
+    for i, (label, knobs) in enumerate(SERVE_PREFIX_RUNS):
+        report = _serve_run(torch, engine("off", **knobs), ptrace,
+                            f"(e){i + 1} {label} (off, {knobs})", gpu_line)
+        reports.append(report)
+        steps.append((f"(e){i + 1} {label}", report,
+                      int8_bytes if "int8" in label else cache_bytes))
+        prefix_runs[label] = report
+    base, pfx, quant = (prefix_runs[k] for k, _ in SERVE_PREFIX_RUNS)
+    hits = pfx["prefix"]["hits"]
+    same = same_tokens(pfx, base)
+    cache = pfx["cache"]
+    print(f"[serve] (e)2: tokens equal to the no-sharing run's for {same} of {SERVE_REQUESTS} "
+          f"requests; {hits} hits (at least {SERVE_PREFIX_MIN_HITS}), "
+          f"{pfx['prefix']['tokens_reused']} tokens reused, peak shared blocks "
+          f"{cache['peak_shared_blocks']}; at the end shared blocks {cache['shared_blocks']}, "
+          f"prefix refs {cache['prefix_refs']}, blocks reserved {cache['blocks_reserved']}")
+    if not (same == SERVE_REQUESTS and hits >= SERVE_PREFIX_MIN_HITS
+            and pfx["prefix"]["tokens_reused"] == SERVE_PREFIX_LEN * hits
+            and cache["shared_blocks"] == cache["prefix_refs"] == cache["blocks_reserved"] == 0):
+        raise AssertionError("the prefix cache changed tokens, missed, or kept blocks")
+    print(f"[serve] (e)3: tokens equal to (e)2's for {same_tokens(quant, pfx)} of "
+          f"{SERVE_REQUESTS} requests; {quant['prefix']['hits']} hits; the int8 cache "
+          f"{int8_bytes} bytes against the bf16 layout's {cache_bytes} "
+          f"({int8_bytes / cache_bytes:.4f})")
+    for label, report, kv_bytes in steps:
+        bound = (weight_bytes + kv_bytes) / PEAK_BYTES_PER_S * 1e3
+        # a unit's interval holds its k steps: the mean step is their sum
+        # over the steps
+        step_ms = sum(report["raw_samples"]["decode_step_s"]) * 1e3 / report["decode_steps"]
+        median = report["decode_step_time"]["median"] * 1e3
+        print(f"[serve] {label}: decode step {step_ms:.3f} ms (mean over "
+              f"{report['decode_steps']} steps; unit median {median:.3f} ms) against its bytes "
+              f"bound {bound:.3f} ms (weights {weight_bytes} + the whole cache {kv_bytes} "
+              f"bytes read once at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; the step reads the "
+              f"whole cache, masked, whatever the lengths): {step_ms / bound:.2f}x; per unit "
+              f"median {median / bound:.2f}x")
+    return reports
 
 
 def _same_planes(torch, got, host):

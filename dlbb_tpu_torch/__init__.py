@@ -11,7 +11,8 @@ tensor-parallel forward, DDP/ZeRO and tensor-parallel training, the
 sequence-sharded layouts: overlapped tensor parallelism and sequence
 parallelism, pipeline parallelism and the MoE FFN with expert
 parallelism, compressed collectives and training, the reports, the
-serving foundations and the serving engine's core):
+serving foundations and the serving engine's core, fast path and capacity
+levers):
 
 - ``models`` — ``ModelConfig``/``MODEL_CONFIGS`` (1B/7B/13B), the decoder
   ``forward`` with the simplified/full/dense/flash attention modes, remat
@@ -56,9 +57,11 @@ serving foundations and the serving engine's core):
   ``parallelism_report``; ``cli compare``, ``reports``);
 - ``serve`` — the paged KV-cache (``kvcache``: its int8 layout, slot
   gather/scatter, per-rank shards, the block ledger and prefix trie), the
-  seeded request traces (``traffic``), and the engine's core (``engine``:
-  ``ServingConfig``, the prefill and per-step decode programs in the "off"
-  and "greedy" token modes, the continuous-batching scheduler and
+  seeded request traces (``traffic``), and the engine (``engine``:
+  ``ServingConfig``, the prefill and decode programs in the "off" and
+  "greedy" token modes, the fused multi-step decode and its in-flight
+  window, chunked prefill, slot compaction, the shared-prefix attach and
+  int8 KV planes, the continuous-batching scheduler and
   ``ServingEngine.run_trace``, at world 1 or on a (dp, tp) mesh); the
   serving inputs of ``data`` and the KV-cache sizing and serving envelope
   of ``models.configs``;
@@ -68,8 +71,8 @@ The root script ``bench_torch.py`` is the port's ``bench.py``: the 1B
 forward's tokens/s and ``bench.py``'s extras in one JSON line.
 
 Not ported yet (see ROADMAP.md): uneven tp shards, restoring a
-checkpoint onto another mesh, the serving engine's fast path, speculation
-and resilience, the serving harness and the fleet, and the
+checkpoint onto another mesh, the serving engine's speculation and
+resilience, the serving harness and the fleet, and the
 rest of the observability, planning and analysis layers and of resilience
 (validation, the chaos gate).
 

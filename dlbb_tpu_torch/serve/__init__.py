@@ -2,20 +2,28 @@
 (``kvcache``: the cache tensors and their int8 layout, slot
 gather/scatter, per-rank shards, the host block ledger and prefix trie),
 the seeded request traces (``traffic``), and the continuous-batching
-engine's core (``engine``: ``ServingConfig``, the prefill and decode
-programs in the "off" and "greedy" token modes, the scheduler and
-``ServingEngine.run_trace``, on one device or a (dp, tp) mesh).  The
-engine's fast path, speculation and resilience come with the rest of
-ROADMAP Queue 1, Slice E, item 11, and the serving harness and the fleet
-with item 12."""
+engine (``engine``: ``ServingConfig``, the prefill and decode programs in
+the "off" and "greedy" token modes, the fused multi-step decode and its
+in-flight window, chunked prefill, slot compaction, the shared-prefix
+attach and int8 KV planes, the scheduler and ``ServingEngine.run_trace``,
+on one device or a (dp, tp) mesh).  The engine's speculation and
+resilience come with the rest of ROADMAP Queue 1, Slice E, item 11, and
+the serving harness and the fleet with item 12."""
 
 from dlbb_tpu_torch.serve.engine import (
     SERVING_REPORT_SCHEMA,
     ServingConfig,
     ServingEngine,
+    build_compact_gather,
+    build_compact_scatter,
+    build_decode_fused,
+    build_decode_fused_token,
     build_decode_step,
     build_decode_token_step,
     build_prefill,
+    build_prefill_chunk,
+    build_prefix_attach,
+    create_prefix,
 )
 from dlbb_tpu_torch.serve.kvcache import (
     BlockLedger,
@@ -44,10 +52,17 @@ __all__ = [
     "ServingConfig",
     "ServingEngine",
     "TrafficTrace",
+    "build_compact_gather",
+    "build_compact_scatter",
+    "build_decode_fused",
+    "build_decode_fused_token",
     "build_decode_step",
     "build_decode_token_step",
     "build_prefill",
+    "build_prefill_chunk",
+    "build_prefix_attach",
     "create_kv_cache",
+    "create_prefix",
     "create_quant_kv_cache",
     "dequantize_kv_blocks",
     "gather_cache_slots",

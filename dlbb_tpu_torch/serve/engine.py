@@ -1,8 +1,9 @@
 """Continuous-batching inference engine over the paged KV-cache
-(counterpart of ``dlbb_tpu/serve/engine.py``), its core: ROADMAP Queue 1,
-Slice E, item 11, part 11a.
+(counterpart of ``dlbb_tpu/serve/engine.py``): ROADMAP Queue 1, Slice E,
+item 11, parts 11a (the core) and 11b (the fast path and the capacity
+levers).
 
-Two device programs, fixed shapes for the whole run:
+The device programs, fixed shapes for the whole run:
 
 - **prefill** (per sequence-length *bucket*): runs the full transformer
   stack over one request's ``[1, bucket, H]`` prompt with ordinary causal
@@ -10,6 +11,10 @@ Two device programs, fixed shapes for the whole run:
   writes its K/V into the first ``bucket / block_size`` blocks of the
   request's cache slot, sets the slot length, and returns the last real
   token's output: the request's FIRST generated token (TTFT stops here).
+- **prefill chunk** (``prefill_chunk``; per chunk offset): one chunk of a
+  chunked prefill, attending over an explicit prefix carry ``[L, start,
+  kvh, d]`` plus the chunk (``_chunk_attention``: fp32, offset-causal), its
+  blocks written at block offset ``start / block_size``.
 - **decode_step** (``[max_batch, 1, H]``): appends each active slot's
   pending token to the cache at its own length, attends over the slot's
   valid prefix (length-masked fp32 softmax, GQA-grouped at ``kv_heads``
@@ -18,16 +23,31 @@ Two device programs, fixed shapes for the whole run:
   (the model is its own next-token function); in the "greedy" token mode
   the output is quantised through ``data.synthetic.token_embedding_table``
   (``tok = argmax(y)``, next input ``table[tok]``).
+- **decode_fused** (``decode_horizon``; k = 2, 4, ... steps): k calls of
+  the one decode-step math in a device-side loop, step ``i`` over ``active
+  & (i < remaining)``, with no host read between trips; ``ys`` stacked.
+- **compaction** (``compact_threshold``, dp = 1): the active slots gathered
+  into a half-size batch, a fused scan over it, and the rows scattered
+  back.
+- **prefix attach** (``prefix_caching``, dp = 1): a donor slot's first
+  matched blocks copied into the admitted slot, and returned as the
+  chunked prefill's prefix carry, so only the suffix chunks run.
+
+With ``kv_quantization="int8"`` the cache is a ``QuantKVCache`` and the
+programs read its layout from the cache they are given: a prefill
+quantises its blocks as it writes them (attention runs over the exact
+values), and a decode step attends over the dequantised old codes plus the
+exact new row, then requantises only each writing slot's touched block.
 
 The programs are plain callables on the port's stacked ``[L, ...]``
-parameters, run eagerly: there is no ``jit`` and no compile.  JAX donates
-the cache and rebuilds it with ``jnp.where``; here the cache tensors are
-updated in place, which is what XLA does with a donated buffer: a decode
-step writes one ``[kv_heads, head_dim]`` row per active slot at that
-slot's length (an inactive slot's row is written back with its own bits),
-a prefill writes only the granted slot's first ``bucket / block_size``
-blocks, and ``lengths`` advances only for active slots.  A whole-cache
-select would copy the 12 GiB cache of a one-card 1B server on every step.
+parameters, run eagerly: there is no ``jit``, no compile and no CUDA
+graph.  JAX donates the cache and rebuilds it with ``jnp.where``; here the
+cache tensors are updated in place, which is what XLA does with a donated
+buffer: a decode step writes one ``[kv_heads, head_dim]`` row per active
+slot at that slot's length (an inactive slot's row is written back with
+its own bits), a prefill writes only the granted slot's blocks, and
+``lengths`` advances only for active slots.  A whole-cache select would
+copy the 12 GiB cache of a one-card 1B server on every step.
 
 Tensor and data parallelism run as one process per rank of a ``(dp, tp)``
 mesh (``comm.mesh.build_parallelism_mesh``), where JAX runs one program on
@@ -37,33 +57,33 @@ a device mesh.  Each rank holds its tp shard of the layer weights
 ``serve/kvcache.py::shard_cache`` shard of the cache: its ``max_batch /
 dp`` slots, its ``kv_heads / tp`` heads, ``lengths`` whole on every rank.
 A decode step runs on every rank over the rank's own slots; ``active`` is
-whole on every rank, as JAX replicates it.  A prefill runs only in the dp
-group that owns the slot, which alone writes it; its ``y_last`` is then
-broadcast over each tp column's dp group from the owner (one ``[H]``
-vector per admission), so every rank injects and counts the same first
-token and times the same prefill.  With ``capture_tokens`` each decode
-step's token ids are all-gathered over the dp group.
+whole on every rank, as JAX replicates it.  A prefill (or chunk) runs only
+in the dp group that owns the slot, which alone writes it; its ``y_last``
+is then broadcast over each tp column's dp group from the owner (one
+``[H]`` vector per admission), so every rank injects and counts the same
+first token and times the same prefill.  With ``capture_tokens`` each
+decode unit's token ids are all-gathered over the dp group.
 
 Around them, a host-side continuous-batching scheduler (Orca-style
 iteration-level scheduling): arrivals from a ``TrafficTrace`` pass
 admission control (bounded queue: overflow is a *rejected* request),
 waiting requests are granted slots and worst-case block reservations at
 step boundaries, completed requests free both immediately, and the next
-decode step runs with whatever mix of old and new requests is resident.
-JAX has one host controller; the port has one scheduler per rank, and
-admission reads the wall clock, so rank 0's clock is broadcast once per
-scheduler iteration: every rank admits the same requests in the same
-order.  Per-phase spans (``serve-admission`` / ``serve-prefill`` /
-``serve-decode``), request-lifecycle events into the resilience journal
-and the registry's counters are JAX's, name for name.
+decode unit runs with whatever mix of old and new requests is resident: a
+single step, or a fused scan up to the next scheduling event, kept in an
+in-flight window of ``inflight_window`` units before the host waits on
+it.  JAX has one host controller; the port has one scheduler per rank, and
+admission and the scan horizon read the wall clock, so rank 0's clock (and
+its estimate of the steps to the next arrival) is broadcast: every rank
+takes the same decisions.  Per-phase spans, request-lifecycle events into
+the resilience journal and the registry's counters are JAX's, name for
+name.
 
-What JAX's engine does beyond this core is refused with a ``ValueError``
-that names its ROADMAP item (``_refuse_unported``): the fused multi-step
-decode, the in-flight window, chunked prefill, slot compaction, prefix
-caching and int8 KV planes (part 11b), speculative and sampled decoding
-(11c), the dispatch watchdog, per-request deadlines, the SIGTERM drain and
-the serving fault sites (11d), the fleet hooks (item 12) and device-trace
-capture (Slice F, item 13).  A failed dispatch raises out of
+What JAX's engine does beyond parts 11a and 11b is refused with a
+``ValueError`` that names its ROADMAP item: speculative and sampled
+decoding (11c), the dispatch watchdog, per-request deadlines, the SIGTERM
+drain and the serving fault sites (11d), the fleet hooks (item 12) and
+device-trace capture (Slice F, item 13).  A failed dispatch raises out of
 :meth:`ServingEngine.run_trace`: the retries and rollback of
 ``max_dispatch_retries`` are 11d's.  ``hedge_factor`` is accepted and
 ignored, as JAX's single engine ignores it.
@@ -82,7 +102,11 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from dlbb_tpu_torch.data.synthetic import request_embeddings, token_embedding_table
+from dlbb_tpu_torch.data.synthetic import (
+    prompt_token_ids,
+    request_embeddings,
+    token_embedding_table,
+)
 from dlbb_tpu_torch.models.attention import dense_attention
 from dlbb_tpu_torch.models.configs import ModelConfig, validate_serving
 from dlbb_tpu_torch.models.sharding import all_gather_along, local_config
@@ -96,7 +120,17 @@ from dlbb_tpu_torch.models.transformer import (
 from dlbb_tpu_torch.obs import spans
 from dlbb_tpu_torch.obs.export import MetricsRegistry
 from dlbb_tpu_torch.resilience import inject
-from dlbb_tpu_torch.serve.kvcache import BlockLedger, KVCache, create_kv_cache
+from dlbb_tpu_torch.serve.kvcache import (
+    BlockLedger,
+    KVCache,
+    QuantKVCache,
+    create_kv_cache,
+    create_quant_kv_cache,
+    dequantize_kv_blocks,
+    gather_cache_slots,
+    quantize_kv_blocks,
+    scatter_cache_slots,
+)
 from dlbb_tpu_torch.serve.traffic import Request, TrafficTrace
 from dlbb_tpu_torch.utils.metrics import Timer, summarize
 from dlbb_tpu_torch.utils.sysinfo import resolve_device
@@ -129,9 +163,9 @@ def _default_buckets(block_size: int, max_seq: int) -> tuple[int, ...]:
 @dataclass(frozen=True)
 class ServingConfig:
     """The serving envelope (YAML ``serving:`` section), a copy of JAX's:
-    every field, its validation and its messages.  The engine of this
-    part refuses the knobs of parts 11b-11d (module docstring); JAX's
-    docstring (``dlbb_tpu/serve/engine.py:171-300``) documents each.
+    every field, its validation and its messages.  The engine refuses
+    the knobs of parts 11c and 11d (module docstring); JAX's docstring
+    (``dlbb_tpu/serve/engine.py:171-300``) documents each.
 
     max_batch:       decode slots (the fixed decode batch dim).
     block_size:      tokens per cache block.
@@ -151,6 +185,17 @@ class ServingConfig:
     reject_infeasible: reject-and-journal requests the envelope cannot
                      serve (reason="infeasible") instead of failing the
                      whole trace up front (the strict default).
+    decode_horizon:  the most decode steps fused into one unit (1: the
+                     per-step engine; fused scans run k = 2, 4, ... up to it).
+    inflight_window: decode units dispatched before the host waits on the
+                     oldest (fused units only).
+    prefill_chunk:   chunked prefill's chunk length (None: monolithic).
+    compact_threshold: fused scans run on a gathered half-size batch while
+                     at most this share of the slots is resident (dp = 1).
+    prefix_caching:  shared prompt blocks are copied from a resident donor
+                     slot instead of prefilled (needs ``prefill_chunk``).
+    kv_quantization: "none" or "int8" (int8 blocks, per block and kv-head
+                     fp32 scales).
     speculation:     "off" (continuous hidden-state feedback) or "greedy"
                      (token feedback through the greedy token table);
                      "ngram" and "draft-model" are part 11c's.
@@ -575,8 +620,7 @@ class ServingConfig:
 
 
 def _not_ported(what: str, part: str) -> ValueError:
-    item = {"11b": "the decode fast path and the capacity levers",
-            "11c": "speculative and sampled decoding",
+    item = {"11c": "speculative and sampled decoding",
             "11d": "serving resilience"}[part]
     return ValueError(
         f"{what} is not ported yet: it comes with {item} (ROADMAP Queue 1, "
@@ -584,21 +628,10 @@ def _not_ported(what: str, part: str) -> ValueError:
 
 
 def _refuse_unported(serving: ServingConfig) -> None:
-    """The knobs JAX's engine serves and this part does not, each refused
+    """The knobs JAX's engine serves and this one does not, each refused
     with the ROADMAP item that brings it (never silently ignored).
-    ``validate`` has already tied ``inflight_window`` and
-    ``compact_threshold`` to ``decode_horizon >= 2``, ``prefix_caching`` to
-    ``prefill_chunk`` and ``temperature > 0`` to a drafting mode, so these
-    refusals cover every knob of parts 11b-11d."""
-    if serving.decode_horizon > 1:
-        raise _not_ported(f"serving.decode_horizon={serving.decode_horizon} (the "
-                          "fused multi-step decode, on which the in-flight window "
-                          "and slot compaction run)", "11b")
-    if serving.prefill_chunk is not None:
-        raise _not_ported(f"serving.prefill_chunk={serving.prefill_chunk} (chunked "
-                          "prefill, on which the prefix cache runs)", "11b")
-    if serving.kv_quantization == "int8":
-        raise _not_ported("serving.kv_quantization='int8' (int8 KV planes)", "11b")
+    ``validate`` has already tied ``temperature > 0`` to a drafting mode,
+    so these refusals cover every knob of parts 11c and 11d."""
     if serving.spec_drafting:
         raise _not_ported(f"serving.speculation={serving.speculation!r} (and the "
                           "sampled decode of temperature > 0)", "11c")
@@ -689,13 +722,42 @@ def _cached_attention(q: torch.Tensor, k_flat: torch.Tensor, v_flat: torch.Tenso
     return out.to(k_flat.dtype)
 
 
+def _layer_planes(cache, i: int) -> tuple:
+    """Layer ``i``'s cache planes: ``(k, v)``, or ``(k, v, k_scale,
+    v_scale)`` in the int8 layout."""
+    if isinstance(cache, QuantKVCache):
+        return (cache.k[i], cache.v[i], cache.k_scale[i], cache.v_scale[i])
+    return (cache.k[i], cache.v[i])
+
+
 def _write_prompt_blocks(cache_layer: torch.Tensor, update: torch.Tensor,
-                         slot: int) -> None:
-    """Write a prefill bucket into one slot's first blocks, in place:
-    cache_layer ``[B, nb, bs, kvh, d]`` (this rank's slots, ``slot`` local
-    to them); update ``[wb, bs, kvh, d]``.  JAX's one-hot masked select
-    over the whole layer touches these blocks and no other."""
-    cache_layer[slot, :update.shape[0]] = update
+                         slot: int, start_blk: int = 0) -> None:
+    """Write a prefill bucket (or chunk) into one slot's blocks from block
+    ``start_blk`` on, in place: cache_layer ``[B, nb, bs, kvh, d]`` (this
+    rank's slots, ``slot`` local to them) and update ``[wb, bs, kvh, d]``,
+    or the int8 layout's scales ``[B, nb, kvh]`` and ``[wb, kvh]`` (JAX's
+    ``_write_scale_blocks``).  JAX's one-hot masked select over the whole
+    layer touches these blocks and no other."""
+    cache_layer[slot, start_blk:start_blk + update.shape[0]] = update
+
+
+def _write_kv_blocks(planes: tuple, k_blocks: torch.Tensor, v_blocks: torch.Tensor,
+                     slot: int, start_blk: int = 0) -> None:
+    """Write ``[wb, bs, kvh, d]`` K/V blocks into a layer's planes, each
+    block quantised per kv head first in the int8 layout (``planes`` of
+    four)."""
+    if len(planes) == 4:
+        k_l, v_l, ks_l, vs_l = planes
+        kq, ks = quantize_kv_blocks(k_blocks)
+        vq, vs = quantize_kv_blocks(v_blocks)
+        _write_prompt_blocks(k_l, kq, slot, start_blk)
+        _write_prompt_blocks(v_l, vq, slot, start_blk)
+        _write_prompt_blocks(ks_l, ks, slot, start_blk)
+        _write_prompt_blocks(vs_l, vs, slot, start_blk)
+    else:
+        k_l, v_l = planes
+        _write_prompt_blocks(k_l, k_blocks, slot, start_blk)
+        _write_prompt_blocks(v_l, v_blocks, slot, start_blk)
 
 
 def build_prefill(config: ModelConfig, mesh=None):
@@ -704,7 +766,8 @@ def build_prefill(config: ModelConfig, mesh=None):
     every layer with dense causal attention, its K/V written into the
     first ``bucket / block_size`` blocks of slot ``slot`` (global) in
     place, ``lengths[slot] = length``, and ``y_last`` the final LN's
-    output at position ``length - 1``.
+    output at position ``length - 1``.  A ``QuantKVCache`` takes the
+    blocks quantised; attention runs over the exact values either way.
 
     On a mesh, ``cache`` is this rank's shard and ``params`` its tp
     shards.  A rank whose dp group does not own ``slot`` records the
@@ -729,26 +792,183 @@ def build_prefill(config: ModelConfig, mesh=None):
         wb = s_bucket // bs
 
         def attention_step(q, k, v, cache_state):
-            k_l, v_l = cache_state
             qh, kh, vh = _heads(q, n, d), _heads(k, kvh, d), _heads(v, kvh, d)
             attn = dense_attention(qh, kh, vh, causal=config.causal)
             # this layer's K/V blocks into the slot ([S, kvh, d] token-major,
             # re-tiled to whole blocks)
-            _write_prompt_blocks(k_l, kh.transpose(1, 2)[0].reshape(wb, bs, kvh, d),
-                                 local_slot)
-            _write_prompt_blocks(v_l, vh.transpose(1, 2)[0].reshape(wb, bs, kvh, d),
-                                 local_slot)
+            _write_kv_blocks(cache_state, kh.transpose(1, 2)[0].reshape(wb, bs, kvh, d),
+                             vh.transpose(1, 2)[0].reshape(wb, bs, kvh, d), local_slot)
             return attn.transpose(1, 2).reshape(1, s_bucket, n * d), cache_state
 
         h = x
         layers, _ = layer_list(params["layers"])
         for i, layer in enumerate(layers):
-            h, _ = _serve_block(h, layer, local, attention_step,
-                                (cache.k[i], cache.v[i]), tp_mesh)
+            h, _ = _serve_block(h, layer, local, attention_step, _layer_planes(cache, i),
+                                tp_mesh)
         y = _layernorm(h, params["ln_f"]["scale"], params["ln_f"]["bias"])
         return cache, y[0, length - 1]
 
     return prefill
+
+
+def create_prefix(config: ModelConfig, mesh=None, device=None):
+    """The empty (start = 0) prefix carry of a chunked prefill: a pair of
+    ``[L, 0, kv_heads / tp, head_dim]`` tensors in the model dtype (this
+    rank's kv-head shard, JAX's ``prefix_spec``)."""
+    tp = 1 if mesh is None else mesh.shape["tp"]
+    local = local_config(config, tp)
+    shape = (config.num_layers, 0, local.kv_heads, local.head_dim)
+    device = resolve_device(device)
+    return (torch.zeros(shape, dtype=DTYPES[config.dtype], device=device),
+            torch.zeros(shape, dtype=DTYPES[config.dtype], device=device))
+
+
+def _chunk_attention(qh: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
+                     start: int) -> torch.Tensor:
+    """Offset-causal fp32 attention for one prefill chunk.
+
+    qh: ``[1, n, C, d]`` (the chunk's queries, global positions ``start ..
+    start + C``); k_all/v_all: ``[start + C, kvh, d]`` (prefix and chunk
+    keys).  ``_cached_attention``'s math (fp32 logits over 1/sqrt(d), fp32
+    softmax, the query heads grouped against each kv head, never
+    repeated) under the static mask ``j <= start + qi``: a real query
+    reaches only real keys, so a final partial chunk's pad rows never
+    reach a real output."""
+    b, n, c, d = qh.shape
+    kvh, s_tot = k_all.shape[1], k_all.shape[0]
+    q32 = qh.float().reshape(b, kvh, n // kvh, c, d)
+    k32 = k_all.permute(1, 0, 2).float()[None, :, None]      # [1, kvh, 1, S, d]
+    v32 = v_all.permute(1, 0, 2).float()[None, :, None]
+    logits = torch.matmul(q32, k32.transpose(-1, -2)) / math.sqrt(d)
+    pos = torch.arange(s_tot, device=qh.device)
+    mask = pos[None, :] <= (start + torch.arange(c, device=qh.device))[:, None]
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.matmul(probs, v32).reshape(b, n, c, d)
+    return out.to(k_all.dtype)
+
+
+def build_prefill_chunk(config: ModelConfig, mesh=None, *, chunk_len: int, start: int):
+    """``prefill_chunk(cache, prefix, params, x, slot, length) -> (cache,
+    prefix, y_last)``: one chunk ``x [1, chunk_len, H]`` of a chunked
+    prefill at global offset ``start`` (a block multiple; JAX builds one
+    program per chunk index).
+
+    The chunk's K/V blocks are written into the slot in place at block
+    offset ``start / block_size`` (quantised in the int8 layout); attention
+    runs over the carried prefix ``[L, start, kvh, d]`` concatenated with
+    the chunk, so the cache is never read back.  ``length`` is the true
+    prompt length: ``lengths[slot] = min(length, start + chunk_len)`` and
+    ``y_last`` is the output at the last real position clipped into this
+    chunk (the engine uses the final chunk's).  The returned prefix is the
+    carry grown by the chunk, in the model dtype whatever the cache
+    layout.  A rank whose dp group does not own ``slot`` records the length
+    and returns its prefix unchanged and ``y_last`` None."""
+    tp = 1 if mesh is None else mesh.shape["tp"]
+    local = local_config(config, tp)
+    tp_mesh = _tp_mesh(mesh)
+    n, d, kvh = local.num_heads, local.head_dim, local.kv_heads
+
+    @torch.no_grad()
+    def prefill_chunk(cache, prefix, params, x, slot, length):
+        slot, length = int(slot), int(length)
+        cache.lengths[slot] = min(length, start + chunk_len)
+        first, count = _slot_range(cache, mesh)
+        if not first <= slot < first + count:
+            return cache, prefix, None
+        local_slot = slot - first
+        bs = cache.block_size
+        wb, start_blk = chunk_len // bs, start // bs
+        pk, pv = prefix
+        k_alls, v_alls = [], []
+
+        def attention_step(q, k, v, cache_state):
+            i = len(k_alls)
+            k_chunk = k[0].reshape(chunk_len, kvh, d)
+            v_chunk = v[0].reshape(chunk_len, kvh, d)
+            k_all = torch.cat([pk[i], k_chunk])
+            v_all = torch.cat([pv[i], v_chunk])
+            attn = _chunk_attention(_heads(q, n, d), k_all, v_all, start)
+            _write_kv_blocks(cache_state, k_chunk.reshape(wb, bs, kvh, d),
+                             v_chunk.reshape(wb, bs, kvh, d), local_slot, start_blk)
+            k_alls.append(k_all)
+            v_alls.append(v_all)
+            return attn.transpose(1, 2).reshape(1, chunk_len, n * d), cache_state
+
+        h = x
+        layers, _ = layer_list(params["layers"])
+        for i, layer in enumerate(layers):
+            h, _ = _serve_block(h, layer, local, attention_step, _layer_planes(cache, i),
+                                tp_mesh)
+        y = _layernorm(h, params["ln_f"]["scale"], params["ln_f"]["bias"])
+        at = min(max(length - 1 - start, 0), chunk_len - 1)
+        return cache, (torch.stack(k_alls), torch.stack(v_alls)), y[0, at]
+
+    return prefill_chunk
+
+
+def build_prefix_attach(config: ModelConfig, mesh=None, *, matched_len: int,
+                        block_size: int):
+    """``attach(cache, src, dst) -> (cache, prefix)``: the copy-on-attach
+    step of the shared-prefix cache (JAX builds one program per matched
+    chunk count).  Copies the donor slot ``src``'s first ``matched_len /
+    block_size`` blocks of every plane (the scales too, in the int8
+    layout) into slot ``dst``, in place; ``src == dst`` is the identity.
+    Returns the matched prefix as the chunked prefill's carry ``[L,
+    matched_len, kvh, d]``: the cache blocks themselves (what the skipped
+    chunks would have carried, bit for bit), dequantised to the model
+    dtype in the int8 layout.  ``ServingConfig.validate`` pins prefix
+    caching to dp = 1, so both slots are this rank's."""
+    nb_m = matched_len // block_size
+    tp = 1 if mesh is None else mesh.shape["tp"]
+    local = local_config(config, tp)
+    kvh, d = local.kv_heads, local.head_dim
+    dtype = DTYPES[config.dtype]
+
+    @torch.no_grad()
+    def attach(cache, src, dst):
+        src, dst = int(src), int(dst)
+        nl = cache.k.shape[0]
+        donor = {}
+        for name in cache._fields[:-1]:
+            plane = getattr(cache, name)
+            donor[name] = plane[:, src, :nb_m].clone()
+            plane[:, dst, :nb_m] = donor[name]
+        pk, pv = donor["k"], donor["v"]
+        if isinstance(cache, QuantKVCache):
+            pk = dequantize_kv_blocks(pk, donor["k_scale"], dtype)
+            pv = dequantize_kv_blocks(pv, donor["v_scale"], dtype)
+        return cache, (pk.reshape(nl, matched_len, kvh, d), pv.reshape(nl, matched_len, kvh, d))
+
+    return attach
+
+
+def build_compact_gather():
+    """``gather(carry, idx) -> small_carry``: the slots named by ``idx``
+    (``[b']`` int64, distinct) repacked into a new, smaller decode carry
+    (slot compaction, dp = 1).  The big carry is left as it is: the
+    compacted scan's results are scattered back into it."""
+
+    @torch.no_grad()
+    def gather(carry, idx):
+        cache, x = carry
+        return gather_cache_slots(cache, idx), x.index_select(0, idx)
+
+    return gather
+
+
+def build_compact_scatter():
+    """``scatter(carry, small_carry, idx) -> carry``: the compacted rows
+    written back into their big-batch slots, the cache in place; ``x`` is
+    copied first, as :func:`_inject_token` copies it."""
+
+    @torch.no_grad()
+    def scatter(carry, small_carry, idx):
+        cache, x = carry
+        s_cache, s_x = small_carry
+        return scatter_cache_slots(cache, s_cache, idx), x.index_copy(0, idx, s_x)
+
+    return scatter
 
 
 def _append_rows(plane: torch.Tensor, new: torch.Tensor, rows: torch.Tensor,
@@ -760,18 +980,47 @@ def _append_rows(plane: torch.Tensor, new: torch.Tensor, rows: torch.Tensor,
     plane[rows, blk, off] = torch.where(write[:, None, None], new.to(plane.dtype), cur)
 
 
+def _append_rows_int8(codes: torch.Tensor, scales: torch.Tensor, new: torch.Tensor,
+                      rows: torch.Tensor, blk: torch.Tensor, off: torch.Tensor,
+                      write: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The int8 layout's append: returns what attention reads, the layer
+    dequantised to ``dtype`` (the old codes) with each writing slot's exact
+    new row in place, as JAX's step reads ``k_flat.astype(x.dtype)``; then
+    requantises each writing slot's touched block (its old rows dequantised
+    in fp32 and the new row) into ``codes``/``scales`` in place.
+
+    JAX requantises every block of every active slot; a block it did not
+    touch comes back with its own codes and scales (each stored value is
+    ``q * s`` with ``max |q| = 127``, so its recomputed amax is ``127 s``
+    rounded and its scale ``s``), so requantising only the touched block
+    gives JAX's planes (held bit for bit in the tests).  Dequantising
+    straight to ``dtype`` gives the bits of JAX's fp32 detour and skips an
+    fp32 copy of the layer."""
+    read = dequantize_kv_blocks(codes, scales, dtype)
+    _append_rows(read, new, rows, blk, off, write)
+    block = dequantize_kv_blocks(codes[rows, blk], scales[rows, blk], torch.float32)
+    block[rows, off] = torch.where(write[:, None, None], new.float(), block[rows, off])
+    bq, bscale = quantize_kv_blocks(block)                      # [B, bs, kvh, d], [B, kvh]
+    codes[rows, blk] = torch.where(write[:, None, None, None], bq, codes[rows, blk])
+    scales[rows, blk] = torch.where(write[:, None], bscale, scales[rows, blk])
+    return read
+
+
 def _decode_step_math(carry, params, active, config: ModelConfig, mesh=None):
     """The decode-step computation (JAX's ``_decode_step_math``, the one
-    copy of the math every decode program shares).  ``carry = (cache,
-    x)``: this rank's cache shard and its slots' inputs ``[B/dp, 1, H]``;
-    ``active`` is the whole ``[max_batch]`` bool mask.  Returns ``((cache,
-    y), y)`` with ``y [B/dp, 1, H]``; the cache is updated in place (module
-    docstring) and ``lengths`` advances by ``active`` on every rank."""
+    copy of the math every decode program shares: the per-step programs
+    and every trip of the fused ones).  ``carry = (cache, x)``: this rank's
+    cache shard (``KVCache`` or ``QuantKVCache``) and its slots' inputs
+    ``[B/dp, 1, H]``; ``active`` is the whole ``[max_batch]`` bool mask.
+    Returns ``((cache, y), y)`` with ``y [B/dp, 1, H]``; the cache is
+    updated in place (module docstring) and ``lengths`` advances by
+    ``active`` on every rank."""
     tp = 1 if mesh is None else mesh.shape["tp"]
     local = local_config(config, tp)
     tp_mesh = _tp_mesh(mesh)
     n, d, kvh = local.num_heads, local.head_dim, local.kv_heads
     cache, x = carry
+    quantized = isinstance(cache, QuantKVCache)
     first, b_dim = _slot_range(cache, mesh)
     s_max, bs = cache.max_seq, cache.block_size
     lengths = cache.lengths[first:first + b_dim]
@@ -786,10 +1035,17 @@ def _decode_step_math(carry, params, active, config: ModelConfig, mesh=None):
     blk, off = at // bs, at % bs
 
     def attention_step(q, k, v, cache_state):
-        k_l, v_l = cache_state
         qh = _heads(q, n, d)                        # [B, n, 1, d]
-        _append_rows(k_l, k[:, 0].reshape(b_dim, kvh, d), rows, blk, off, write)
-        _append_rows(v_l, v[:, 0].reshape(b_dim, kvh, d), rows, blk, off, write)
+        k_new = k[:, 0].reshape(b_dim, kvh, d)
+        v_new = v[:, 0].reshape(b_dim, kvh, d)
+        if quantized:
+            k_l, v_l, ks_l, vs_l = cache_state
+            k_l = _append_rows_int8(k_l, ks_l, k_new, rows, blk, off, write, x.dtype)
+            v_l = _append_rows_int8(v_l, vs_l, v_new, rows, blk, off, write, x.dtype)
+        else:
+            k_l, v_l = cache_state
+            _append_rows(k_l, k_new, rows, blk, off, write)
+            _append_rows(v_l, v_new, rows, blk, off, write)
         attn = _cached_attention(qh, k_l.reshape(b_dim, s_max, kvh, d),
                                  v_l.reshape(b_dim, s_max, kvh, d), valid)
         return attn.transpose(1, 2).reshape(b_dim, 1, n * d), cache_state
@@ -797,8 +1053,8 @@ def _decode_step_math(carry, params, active, config: ModelConfig, mesh=None):
     h = x
     layers, _ = layer_list(params["layers"])
     for i, layer in enumerate(layers):
-        h, _ = _serve_block(h, layer, local, attention_step,
-                            (cache.k[i], cache.v[i]), tp_mesh)
+        h, _ = _serve_block(h, layer, local, attention_step, _layer_planes(cache, i),
+                            tp_mesh)
     y = _layernorm(h, params["ln_f"]["scale"], params["ln_f"]["bias"])
     cache.lengths.add_(active.to(torch.int32))
     return (cache, y), y
@@ -815,6 +1071,28 @@ def build_decode_step(config: ModelConfig, mesh=None):
         return _decode_step_math(carry, params, active, config, mesh)
 
     return decode_step
+
+
+def build_decode_fused(config: ModelConfig, mesh=None, *, k: int):
+    """``decode_fused(carry, params, active, remaining) -> (carry, ys)``:
+    ``k`` decode steps in one device-side loop.  ``remaining [max_batch]``
+    is each slot's step budget in the unit (``min(k, tokens left)``, 0 for
+    an inactive slot): trip ``i`` runs over ``active & (i < remaining)``,
+    so a slot that completes mid-scan is inactive for the rest of it and
+    its cache stops advancing, as the per-step engine would leave it;
+    ``lengths`` ends at ``lengths0 + active * min(k, remaining)``, JAX's
+    formula.  The host reads nothing between trips.  ``ys [k, B/dp, 1,
+    H]`` stacks every trip's output."""
+
+    @torch.no_grad()
+    def decode_fused(carry, params, active, remaining):
+        ys = []
+        for i in range(k):
+            carry, y = _decode_step_math(carry, params, active & (remaining > i), config, mesh)
+            ys.append(y)
+        return carry, torch.stack(ys)
+
+    return decode_fused
 
 
 def _inject_token(carry, slot, vec, mesh=None):
@@ -859,6 +1137,23 @@ def build_decode_token_step(config: ModelConfig, mesh=None):
     return decode_token_step
 
 
+def build_decode_fused_token(config: ModelConfig, mesh=None, *, k: int):
+    """The fused ``k``-step loop in the token-feedback mode:
+    :func:`build_decode_fused`'s trips with the greedy token quantisation
+    between them.  Returns ``(carry, toks [k, B/dp] int32)``."""
+    step = build_decode_token_step(config, mesh)
+
+    @torch.no_grad()
+    def decode_fused_token(carry, params, table, active, remaining):
+        toks = []
+        for i in range(k):
+            carry, tok = step(carry, params, table, active & (remaining > i))
+            toks.append(tok)
+        return carry, torch.stack(toks)
+
+    return decode_fused_token
+
+
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
@@ -879,9 +1174,16 @@ class _RunStats:
     e2e_latency_s: list[float] = field(default_factory=list)
     completed_output_tokens: int = 0
     generated_tokens: int = 0
-    # decode steps executed; each is one host dispatch (JAX's decode_units)
-    # and one single step (fast_path.single_steps) on this per-step engine
-    decode_steps: int = 0
+    decode_steps: int = 0           # every fused trip counts once
+    decode_units: int = 0           # host dispatches (single steps + scans)
+    single_steps: int = 0
+    fused_scans: int = 0
+    fused_steps: int = 0
+    compacted_scans: int = 0
+    prefill_chunks: int = 0
+    prefix_hits: int = 0            # admissions that attached to the trie
+    prefix_tokens_reused: int = 0   # prompt tokens served from shared blocks
+    prefix_cow_blocks: int = 0      # blocks recomputed privately (CoW)
 
 
 # the serving fault sites of JAX's engine (resilience/inject.py), which
@@ -967,6 +1269,16 @@ class ServingEngine:
              "decode units abandoned by the dispatch watchdog"),
         ):
             self.registry.inc(name, 0, help=hlp)
+        self._quantized = serving.kv_quantization == "int8"
+        if serving.prefix_caching:
+            for name, hlp in (
+                ("serve_prefix_hits",
+                 "admissions that attached to shared prefix blocks"),
+                ("serve_prefix_tokens_reused",
+                 "prompt tokens served from shared blocks (prefill "
+                 "skipped)"),
+            ):
+                self.registry.inc(name, 0, help=hlp)
         self._dtype = DTYPES[config.dtype]
         if params is None:
             tp_rank = 0 if mesh is None else mesh.coords["tp"]
@@ -974,6 +1286,19 @@ class ServingEngine:
         self.params = params
         self._prefill = build_prefill(config, mesh)
         self._decode = build_decode_step(config, mesh)
+        self._fused_ks = serving.fused_horizons
+        self._decode_fused = {k: build_decode_fused(config, mesh, k=k) for k in self._fused_ks}
+        # built on first use, one per chunk index and per matched chunk count
+        self._chunk_programs: dict[int, Any] = {}
+        self._attach_programs: dict[int, Any] = {}
+        self._compact_gather = self._compact_scatter = None
+        if serving.compact_threshold is not None:
+            self._compact_gather = build_compact_gather()
+            self._compact_scatter = build_compact_scatter()
+        self._fast = (serving.decode_horizon > 1
+                      or serving.inflight_window > 1
+                      or serving.prefill_chunk is not None
+                      or serving.compact_threshold is not None)
         # token-feedback ("greedy") quantises decode through the greedy
         # token table, whole on every rank
         self._token_mode = serving.speculation != "off"
@@ -982,6 +1307,8 @@ class ServingEngine:
             self._table = token_embedding_table(config.hidden_size, self._dtype,
                                                 device=self.device)
             self._decode_token = build_decode_token_step(config, mesh)
+            self._decode_fused_token = {k: build_decode_fused_token(config, mesh, k=k)
+                                        for k in self._fused_ks}
         self._t0 = time.perf_counter()
 
     # -- clock (monotonic, run-relative) -----------------------------------
@@ -989,16 +1316,21 @@ class ServingEngine:
     def _now(self) -> float:
         return time.perf_counter() - self._t0
 
-    def _clock(self) -> float:
-        """The scheduler's clock: rank 0's :meth:`_now`, broadcast to every
-        rank of the mesh (one scalar per scheduler iteration), so every
-        rank takes the same admission decisions."""
+    def _from_rank0(self, value: float) -> float:
+        """Rank 0's ``value``, broadcast to every rank of the mesh: the
+        scheduler's time-derived decisions (its clock once per iteration,
+        the scan horizon's steps to the next arrival) are rank 0's, so
+        every rank takes the same ones."""
         if self.mesh is None:
-            return self._now()
+            return value
         dev = self.device if dist.get_backend(self.mesh.group) == "nccl" else "cpu"
-        t = torch.tensor([self._now()], dtype=torch.float64, device=dev)
+        t = torch.tensor([value], dtype=torch.float64, device=dev)
         dist.broadcast(t, src=0, group=self.mesh.group)
         return float(t)
+
+    def _clock(self) -> float:
+        """The scheduler's clock: rank 0's :meth:`_now`."""
+        return self._from_rank0(self._now())
 
     # -- device helpers ----------------------------------------------------
 
@@ -1024,23 +1356,44 @@ class ServingEngine:
         return y_last
 
     def _gather_slots(self, t: torch.Tensor) -> torch.Tensor:
-        """This rank's per-slot values ``[B/dp]`` as the whole ``[B]``."""
+        """This rank's per-slot values ``[..., B/dp]`` as the whole
+        ``[..., B]``."""
         if self.dp == 1:
             return t
-        return all_gather_along(t, 0, self.mesh.axis_groups["dp"])
+        return all_gather_along(t, t.dim() - 1, self.mesh.axis_groups["dp"])
 
-    def _active_tensor(self, active_np: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(active_np.copy()).to(self.device)
+    def _upload(self, host: np.ndarray) -> torch.Tensor:
+        """A host array on the device, from a copy of it taken now: the
+        caller may change ``host`` while decode units that read the upload
+        are still in flight.  On CUDA the copy is pinned and the upload
+        does not wait for the device (the caching host allocator keeps each
+        pinned copy until its upload has run), so it never drains the
+        in-flight window."""
+        t = torch.from_numpy(host.copy())
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _record(self) -> Optional[torch.cuda.Event]:
+        """An event after the work enqueued so far (None on the CPU, where
+        it has already run)."""
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record()
+        return event
 
     # -- setup -------------------------------------------------------------
 
     def _fresh_carry(self):
         """A zero cache shard (this rank's slots and kv heads, ``lengths``
-        whole) and zero decode inputs ``[B/dp, 1, H]``."""
+        whole; the int8 layout under ``kv_quantization="int8"``) and zero
+        decode inputs ``[B/dp, 1, H]``."""
         cfg = self.serving
         b_local = cfg.max_batch // self.dp
-        cache = create_kv_cache(local_config(self.config, self.tp), b_local,
-                                cfg.num_blocks, cfg.block_size, device=self.device)
+        create = create_quant_kv_cache if self._quantized else create_kv_cache
+        cache = create(local_config(self.config, self.tp), b_local,
+                       cfg.num_blocks, cfg.block_size, device=self.device)
         cache = cache._replace(lengths=torch.zeros((cfg.max_batch,), dtype=torch.int32,
                                                    device=self.device))
         x = torch.zeros((b_local, 1, self.config.hidden_size), dtype=self._dtype,
@@ -1080,29 +1433,83 @@ class ServingEngine:
             if reason is not None:
                 raise ValueError(f"request {r.rid}: {reason}")
 
-    def _compile(self, buckets: list[int]) -> None:
-        """Warm every program the trace will run (prefill per bucket, the
-        inject, the decode step) once on scratch state, so that CUDA and
-        cuBLAS start-up never lands in TTFT.  JAX compiles its jits here;
-        eager torch compiles nothing, and the report's ``compile_time_s``
-        holds this warm-up's wall time."""
+    def _chunk_program(self, chunk_index: int):
+        """The chunked-prefill program at offset ``chunk_index *
+        prefill_chunk`` (JAX's per-offset jit; built on first use)."""
+        program = self._chunk_programs.get(chunk_index)
+        if program is None:
+            chunk = self.serving.prefill_chunk
+            program = build_prefill_chunk(self.config, self.mesh, chunk_len=chunk,
+                                          start=chunk_index * chunk)
+            self._chunk_programs[chunk_index] = program
+        return program
+
+    def _attach_program(self, m_chunks: int):
+        """The prefix-attach program for ``m_chunks`` matched chunks (JAX's
+        per-count jit; built on first use)."""
+        program = self._attach_programs.get(m_chunks)
+        if program is None:
+            program = build_prefix_attach(self.config, self.mesh,
+                                          matched_len=m_chunks * self.serving.prefill_chunk,
+                                          block_size=self.serving.block_size)
+            self._attach_programs[m_chunks] = program
+        return program
+
+    def _compile(self, buckets: list[int], max_chunks: int = 0) -> None:
+        """Warm every program the trace will run (prefill per bucket or per
+        chunk offset, the attach ladder, the inject, the decode step, the
+        fused ladder and compaction) once on scratch state, so that CUDA
+        and cuBLAS start-up never lands in TTFT.  JAX compiles its jits
+        here; eager torch compiles nothing, and the report's
+        ``compile_time_s`` holds this warm-up's wall time."""
         carry = self._fresh_carry()
         cfg = self.serving
         slot = (cfg.max_batch // self.dp) * (0 if self.mesh is None
                                              else self.mesh.coords["dp"])
         active = torch.zeros((cfg.max_batch,), dtype=torch.bool, device=self.device)
+        remaining = torch.zeros((cfg.max_batch,), dtype=torch.int32, device=self.device)
         y_last = None
         for b in buckets:
             dummy = request_embeddings(0, b, self.config.hidden_size,
                                        dtype=self._dtype, pad_to=b, device=self.device)
             cache, y_last = self._prefill(carry[0], self.params, dummy, slot, b)
             carry = (cache, carry[1])
+        if max_chunks:
+            chunk = cfg.prefill_chunk
+            total = max_chunks * chunk
+            dummy = request_embeddings(0, total, self.config.hidden_size,
+                                       dtype=self._dtype, pad_to=total, device=self.device)
+            prefix = create_prefix(self.config, self.mesh, device=self.device)
+            cache = carry[0]
+            for ci in range(max_chunks):
+                cache, prefix, y_last = self._chunk_program(ci)(
+                    cache, prefix, self.params, dummy[:, ci * chunk:(ci + 1) * chunk],
+                    slot, total)
+            if cfg.prefix_caching:
+                # a full prompt keeps at least one chunk to compute, so the
+                # ladder stops at max_chunks - 1
+                for m in range(1, max_chunks):
+                    cache, _prefix = self._attach_program(m)(cache, slot, slot)
+            carry = (cache, carry[1])
         if self._token_mode:
             carry, _tok = _inject_token_greedy(carry, slot, y_last, self._table, self.mesh)
             carry, _tok = self._decode_token(carry, self.params, self._table, active)
+            for k in self._fused_ks:
+                carry, _toks = self._decode_fused_token[k](carry, self.params, self._table,
+                                                           active, remaining)
         else:
             carry = _inject_token(carry, slot, y_last, self.mesh)
             carry, _y = self._decode(carry, self.params, active)
+            for k in self._fused_ks:
+                carry, _ys = self._decode_fused[k](carry, self.params, active, remaining)
+        if self._compact_gather is not None:
+            bucket = cfg.max_batch // 2
+            idx = torch.arange(bucket, device=self.device)
+            small = self._compact_gather(carry, idx)
+            for k in self._fused_ks:
+                small, _ys = self._decode_fused[k](small, self.params, active[:bucket],
+                                                   remaining[:bucket])
+            carry = self._compact_scatter(carry, small, idx)
         self._sync()
 
     def _event(self, event: str, rid: int, **extra: Any) -> None:
@@ -1154,12 +1561,18 @@ class ServingEngine:
         else:
             self._validate_trace(trace)
             feasible = list(trace)
-        buckets = sorted({cfg.bucket_for(r.prompt_len) for r in feasible})
+        if cfg.prefill_chunk is not None:
+            buckets: list[int] = []
+            max_chunks = max(-(-r.prompt_len // cfg.prefill_chunk) for r in feasible)
+        else:
+            buckets = sorted({cfg.bucket_for(r.prompt_len) for r in feasible})
+            max_chunks = 0
         with Timer() as t_compile:
-            self._compile(buckets)
+            self._compile(buckets, max_chunks)
         compile_time = t_compile.elapsed
 
-        ledger = BlockLedger(cfg.total_blocks, cfg.block_size)
+        ledger = BlockLedger(cfg.total_blocks, cfg.block_size,
+                             prefix_caching=cfg.prefix_caching)
         # registry counters are cumulative across an engine's lifetime
         # (Prometheus semantics); the report carries THIS run's deltas
         counts_base = {k: self._requests[k] for k in self._requests}
@@ -1173,29 +1586,45 @@ class ServingEngine:
             "t_s": [], "queue_depth": [], "active_slots": [],
             "blocks_in_use": [], "blocks_reserved": [],
         }
+        if cfg.prefix_caching:
+            series["shared_blocks"] = []
         carry = self._fresh_carry()
         active_np = np.zeros((cfg.max_batch,), bool)
-        active_dev = self._active_tensor(active_np)
+        active_dev = self._upload(active_np)
         rejected_detail: list[dict[str, Any]] = []
         tokens_by_rid: dict[int, list[int]] = {}
         token_mode = self._token_mode
         # per-request final outcome map (rid -> "completed" /
         # "rejected[reason]")
         outcomes: dict[int, str] = {}
+        # the in-flight window: decode units dispatched and not yet synced
+        # (a k = 1 unit is synced at once); last_sync anchors each unit's
+        # interval, so back-to-back units never count device time twice
+        inflight: deque[dict[str, Any]] = deque()
         last_sync = [0.0]
+        # EMA of the per-step interval: the scan horizon turns "next arrival
+        # in X seconds" into a step budget with it
+        step_ema = [0.0]
+        # bumped by a carry replacement, which only part 11d's failure paths
+        # make: a prefix-attach plan from before one degrades to a full
+        # prefill
+        carry_resets = [0]
         # host-side active_np mutations are staged; the device mask is
-        # re-uploaded lazily, and always before a decode dispatch
+        # re-uploaded lazily, and always before a decode dispatch (a decode
+        # interleaved into a chunked prefill must see slots admitted
+        # earlier in the same admission loop)
         active_dirty = [False]
 
         def refresh_active() -> None:
             nonlocal active_dev
             if active_dirty[0]:
-                active_dev = self._active_tensor(active_np)
+                active_dev = self._upload(active_np)
                 active_dirty[0] = False
 
         def release(slot: int) -> _SlotState:
             """Free a completed slot's blocks + slot so the next admission
-            can reuse them."""
+            can reuse them (device order is safe: the unit that completed
+            it already masked it inactive)."""
             st = slots.pop(slot)
             ledger.free(slot)
             active_np[slot] = False
@@ -1219,67 +1648,260 @@ class ServingEngine:
                         output_tokens=st.req.output_len,
                         latency_s=round(lat, 6), **extra)
 
-        def decode_unit() -> None:
-            """One decode step over the resident batch, dispatched and
-            synced at once (JAX's per-step unit never stays in flight),
-            with the host bookkeeping at its exit."""
+        def sync_one() -> None:
+            """Wait for the oldest unit in flight, then its timing, token
+            capture and completions."""
+            unit = inflight.popleft()
+            if unit["ready"] is not None:
+                unit["ready"].synchronize()
+            t_ready = time.perf_counter()
+            dt = t_ready - max(unit["t0"], last_sync[0])
+            last_sync[0] = t_ready
+            stats.decode_step_s.append(dt)
+            per_step = dt / unit["k"]
+            step_ema[0] = (per_step if step_ema[0] == 0.0
+                           else 0.5 * step_ema[0] + 0.5 * per_step)
+            for _row, _slot, _rid, steps in unit["rows"]:
+                stats.per_token_s.extend([per_step] * steps)
+            done_at = self._now()
+            if self.capture_tokens:
+                # the device argmax: one int per slot and step comes to host
+                ys = unit["ys"]
+                toks = ys if token_mode else torch.argmax(ys[..., 0, :], dim=-1)
+                if toks.dim() == 1:          # a per-step unit: [B]
+                    toks = toks[None]
+                toks_np = self._gather_slots(toks.to(torch.int32)).cpu().numpy()
+                for row, _slot, rid, steps in unit["rows"]:
+                    tokens_by_rid.setdefault(rid, []).extend(
+                        int(t) for t in toks_np[:steps, row])
+            # finish AFTER the unit's token capture: the completion event
+            # carries the request's full committed token list
+            for st in unit["completions"]:
+                finish(st, done_at)
+
+        def drain() -> None:
+            while inflight:
+                sync_one()
+
+        def decode_unit(k: int, steps: dict[int, int], compact: bool) -> None:
+            """One decode unit: the dispatch, the host bookkeeping at its
+            exit (the ledger's known lengths make every step's outcome
+            known at dispatch time), and the in-flight window's push and
+            boundary sync."""
             nonlocal carry
-            refresh_active()
             t0 = time.perf_counter()
-            with spans.span("serve-decode", active=len(slots), steps=1):
-                if token_mode:
-                    carry, ys = self._decode_token(carry, self.params, self._table,
-                                                   active_dev)
+            # ONE span per dispatched unit, covering the dispatch and the
+            # boundary sync below
+            span_args: dict[str, Any] = dict(active=len(slots), steps=k)
+            if compact:
+                span_args["compacted"] = True
+            with spans.span("serve-decode", **span_args):
+                if k == 1:
+                    if token_mode:
+                        carry, ys = self._decode_token(carry, self.params, self._table,
+                                                       active_dev)
+                    else:
+                        carry, ys = self._decode(carry, self.params, active_dev)
+                    stats.single_steps += 1
+                    rows = [(s, s, slots[s].req.rid, 1) for s in sorted(steps)]
+                elif compact:
+                    # the active slots padded with distinct free slots to
+                    # the half-size batch
+                    bucket = cfg.max_batch // 2
+                    act = sorted(slots)
+                    idx = self._upload(np.asarray(act + free_slots[:bucket - len(act)],
+                                                  np.int64))
+                    s_act_np = np.zeros((bucket,), bool)
+                    s_act_np[:len(act)] = True
+                    s_rem_np = np.zeros((bucket,), np.int32)
+                    for i, s in enumerate(act):
+                        s_rem_np[i] = steps[s]
+                    small = self._compact_gather(carry, idx)
+                    small, ys = self._decode_fused[k](small, self.params,
+                                                      self._upload(s_act_np),
+                                                      self._upload(s_rem_np))
+                    carry = self._compact_scatter(carry, small, idx)
+                    stats.fused_scans += 1
+                    stats.fused_steps += k
+                    stats.compacted_scans += 1
+                    self.registry.inc("serve_fused_scan_steps", k)
+                    rows = [(i, s, slots[s].req.rid, steps[s]) for i, s in enumerate(act)]
                 else:
-                    carry, ys = self._decode(carry, self.params, active_dev)
-                rows = [(s, slots[s].req.rid) for s in sorted(slots)]
+                    rem_np = np.zeros((cfg.max_batch,), np.int32)
+                    for s, m in steps.items():
+                        rem_np[s] = m
+                    rem_dev = self._upload(rem_np)
+                    if token_mode:
+                        carry, ys = self._decode_fused_token[k](
+                            carry, self.params, self._table, active_dev, rem_dev)
+                    else:
+                        carry, ys = self._decode_fused[k](carry, self.params, active_dev,
+                                                          rem_dev)
+                    stats.fused_scans += 1
+                    stats.fused_steps += k
+                    self.registry.inc("serve_fused_scan_steps", k)
+                    rows = [(s, s, slots[s].req.rid, steps[s]) for s in sorted(steps)]
+                ready = self._record()
                 completions: list[int] = []
-                for s, _rid in rows:
+                for s, m in sorted(steps.items()):
                     st = slots[s]
-                    st.tokens_done += 1
-                    ledger.append(s, 1)
-                    stats.generated_tokens += 1
+                    st.tokens_done += m
+                    ledger.append(s, m)
+                    stats.generated_tokens += m
                     if st.tokens_done >= st.req.output_len:
                         completions.append(s)
-                stats.decode_steps += 1
-                self.registry.inc("serve_decode_steps", 1)
+                stats.decode_steps += k
+                stats.decode_units += 1
+                self.registry.inc("serve_decode_steps", k)
                 done_states = [release(s) for s in completions]
-                self._sync()
-                t_ready = time.perf_counter()
-                dt = t_ready - max(t0, last_sync[0])
-                last_sync[0] = t_ready
-                stats.decode_step_s.append(dt)
-                stats.per_token_s.extend([dt] * len(rows))
-                done_at = self._now()
-                if self.capture_tokens:
-                    # the device argmax: one int per slot comes to host
-                    toks = ys if token_mode else torch.argmax(ys[:, 0, :], dim=-1)
-                    toks_np = self._gather_slots(toks.to(torch.int32)).cpu().numpy()
-                    for s, rid in rows:
-                        tokens_by_rid.setdefault(rid, []).append(int(toks_np[s]))
-                # finish AFTER the unit's token capture: the completion
-                # event carries the request's full committed token list
-                for st in done_states:
-                    finish(st, done_at)
+                if completions:
+                    refresh_active()
+                inflight.append({"t0": t0, "ys": ys, "k": k, "rows": rows,
+                                 "completions": done_states, "ready": ready})
+                # a k = 1 unit never stays in flight (JAX: its y may alias
+                # the donated carry); a fused unit's stacked ys may
+                window = 1 if k == 1 else cfg.inflight_window
+                while len(inflight) >= window:
+                    sync_one()
 
-        def prefill_once(req: Request, slot: int):
-            """The prefill of one admitted request, monolithic and bucketed
-            — returns ``(bucket, y_last, dt)``; ``y_last`` is the owner's,
-            on every rank."""
+        def steps_to_arrival() -> int:
+            """The decode steps until the next arrival, from the per-step
+            EMA (1 before the first sample: one unit bootstraps it)."""
+            if step_ema[0] > 0.0:
+                gap = pending[0].arrival_s - self._now()
+                return max(1, int(gap / step_ema[0])) if gap > 0 else 1
+            return 1
+
+        def dispatch_decode(max_k: Optional[int] = None) -> None:
+            """One decode unit over the resident batch: a single step, or,
+            when no scheduling event needs an earlier boundary, a fused
+            k-step scan (the largest power of two <= the event horizon),
+            on a compacted half batch when few slots are resident.
+            ``max_k`` caps the horizon (the chunked-prefill interleave
+            passes 1)."""
+            refresh_active()
+            rem = {s: slots[s].req.output_len - slots[s].tokens_done
+                   for s in sorted(slots)}
+            # next event: the earliest completion while anything is (or may
+            # soon be) waiting for a slot; a quiescent batch fuses through
+            # its full drain
+            horizon = (min(rem.values()) if (queue or pending)
+                       else max(rem.values()))
+            horizon = min(cfg.decode_horizon, horizon)
+            if pending and horizon > 1:
+                # a known arrival is an event too: rank 0's estimate of the
+                # steps until it
+                horizon = min(horizon, int(self._from_rank0(steps_to_arrival())))
+            if max_k is not None:
+                horizon = min(horizon, max_k)
+            k = 1
+            for cand in self._fused_ks:
+                if cand <= horizon:
+                    k = cand
+            steps = {s: min(k, r) for s, r in rem.items()}
+            compact = (self._compact_gather is not None and k > 1
+                       and len(slots) <= cfg.compact_threshold * cfg.max_batch
+                       and len(slots) <= cfg.max_batch // 2)
+            decode_unit(k, steps, compact)
+
+        def attach_plan(req: Request) -> dict[str, Any]:
+            """The host-side prefix match of one admission: the prompt's
+            full-block token-id chain, the trie's longest match and the
+            attach point, floored to whole chunks (the suffix prefill
+            resumes at a chunk offset) and leaving at least one chunk to
+            compute (the final chunk owns ``y_last`` and the slot length);
+            matched blocks past it are recomputed privately, the
+            copy-on-write tail."""
+            bs = cfg.block_size
+            chunk = cfg.prefill_chunk
+            full_blocks = req.prompt_len // bs
+            plan: dict[str, Any] = {
+                "chain": [], "attach_blocks": 0, "attach_tokens": 0, "donor": None,
+                "cow_blocks": 0, "resets": carry_resets[0], "attached_tokens": 0}
+            if full_blocks == 0:
+                return plan
+            ids = prompt_token_ids(req.seed, req.prompt_len, self.config.hidden_size,
+                                   prefix_len=req.prefix_len, prefix_seed=req.prefix_seed)
+            chain = [tuple(ids[i * bs:(i + 1) * bs]) for i in range(full_blocks)]
+            plan["chain"] = chain
+            depth, donor = ledger.match_prefix(chain)
+            cap = ((req.prompt_len - 1) // chunk) * chunk
+            attach_tokens = min(depth * bs, cap) // chunk * chunk
+            if donor is None or attach_tokens <= 0:
+                return plan
+            plan.update(attach_blocks=attach_tokens // bs, attach_tokens=attach_tokens,
+                        donor=donor, cow_blocks=depth - attach_tokens // bs)
+            return plan
+
+        def prefill_once(req: Request, slot: int, plan: Optional[dict[str, Any]] = None):
+            """The prefill of one admitted request, chunked or monolithic —
+            returns ``(bucket, y_last, dt)``; ``y_last`` is the owner's, on
+            every rank.  With a prefix-attach ``plan`` the matched chunks
+            are replaced by one copy of the donor's blocks and only the
+            suffix chunks run."""
             nonlocal carry
-            bucket = cfg.bucket_for(req.prompt_len)
+            if cfg.prefill_chunk is None:
+                bucket = cfg.bucket_for(req.prompt_len)
+                x_prompt = request_embeddings(
+                    req.seed, req.prompt_len, self.config.hidden_size,
+                    dtype=self._dtype, pad_to=bucket, device=self.device,
+                )
+                with spans.span("serve-prefill", rid=req.rid, bucket=bucket, slot=slot):
+                    t0 = time.perf_counter()
+                    cache, y_last = self._prefill(carry[0], self.params, x_prompt,
+                                                  slot, req.prompt_len)
+                    y_last = self._from_owner(y_last, slot)
+                    self._sync()
+                    dt = time.perf_counter() - t0
+                carry = (cache, carry[1])
+                return bucket, y_last, dt
+            chunk = cfg.prefill_chunk
+            n_chunks = -(-req.prompt_len // chunk)
+            bucket = n_chunks * chunk
+            m_chunks = 0
+            if plan is not None and plan["attach_blocks"]:
+                plan["attached_tokens"] = 0
+                if carry_resets[0] == plan["resets"]:
+                    m_chunks = plan["attach_tokens"] // chunk
             x_prompt = request_embeddings(
                 req.seed, req.prompt_len, self.config.hidden_size,
-                dtype=self._dtype, pad_to=bucket, device=self.device,
+                dtype=self._dtype, pad_to=bucket, prefix_len=req.prefix_len,
+                prefix_seed=req.prefix_seed, device=self.device,
             )
-            with spans.span("serve-prefill", rid=req.rid, bucket=bucket, slot=slot):
+            with spans.span("serve-prefill", rid=req.rid, bucket=bucket, slot=slot,
+                            chunks=n_chunks - m_chunks):
                 t0 = time.perf_counter()
-                cache, y_last = self._prefill(carry[0], self.params, x_prompt,
-                                              slot, req.prompt_len)
+                decode_spent = 0.0
+                cache = carry[0]
+                if m_chunks:
+                    with spans.span("serve-prefix-attach", rid=req.rid, slot=slot,
+                                    donor=plan["donor"], blocks=plan["attach_blocks"]):
+                        cache, prefix = self._attach_program(m_chunks)(cache, plan["donor"],
+                                                                       slot)
+                    plan["attached_tokens"] = m_chunks * chunk
+                else:
+                    prefix = create_prefix(self.config, self.mesh, device=self.device)
+                for ci in range(m_chunks, n_chunks):
+                    with spans.span("serve-prefill-chunk", rid=req.rid, chunk=ci):
+                        cache, prefix, y_last = self._chunk_program(ci)(
+                            cache, prefix, self.params,
+                            x_prompt[:, ci * chunk:(ci + 1) * chunk], slot, req.prompt_len)
+                    stats.prefill_chunks += 1
+                    self.registry.inc("serve_prefill_chunks")
+                    if ci < n_chunks - 1 and slots:
+                        # interleave: the resident batch decodes between
+                        # chunks instead of waiting behind the whole prompt
+                        carry = (cache, carry[1])
+                        td = time.perf_counter()
+                        dispatch_decode(max_k=1)
+                        decode_spent += time.perf_counter() - td
+                        cache = carry[0]
+                carry = (cache, carry[1])
                 y_last = self._from_owner(y_last, slot)
                 self._sync()
-                dt = time.perf_counter() - t0
-            carry = (cache, carry[1])
+                # the interleaved units' time is billed to decode_step_s and
+                # per_token_s already: prefill_s stays a prefill cost
+                dt = time.perf_counter() - t0 - decode_spent
             return bucket, y_last, dt
 
         self._t0 = time.perf_counter()
@@ -1331,15 +1953,26 @@ class ServingEngine:
             #    reservations, prefill each granted request
             scheduled = False
             if queue and free_slots:
+                # settle the in-flight decode before the prefill waits, so
+                # its sync lands in decode timing and TTFT stays honest
+                drain()
                 with spans.span("serve-admission", queue=len(queue),
                                 free_slots=len(free_slots)):
                     while queue and free_slots:
-                        if not ledger.can_reserve(queue[0].total_tokens):
+                        # prefix admission: blocks the trie already holds
+                        # are charged once, so a request whose private
+                        # suffix fits is admitted
+                        plan = attach_plan(queue[0]) if cfg.prefix_caching else None
+                        attach_blocks = plan["attach_blocks"] if plan else 0
+                        if not ledger.can_reserve(queue[0].total_tokens,
+                                                  shared_blocks=attach_blocks):
                             break
                         req = queue.popleft()
                         slot = free_slots.pop(0)
-                        ledger.reserve(slot, req.total_tokens)
-                        bucket, y_last, dt = prefill_once(req, slot)
+                        ledger.reserve(slot, req.total_tokens,
+                                       chain=plan["chain"] if plan else None,
+                                       attach_blocks=attach_blocks)
+                        bucket, y_last, dt = prefill_once(req, slot, plan)
                         if token_mode:
                             # greedy token inject: the argmax of y_last,
                             # the same on every rank
@@ -1351,6 +1984,26 @@ class ServingEngine:
                             first_id = (int(torch.argmax(y_last))
                                         if self.capture_tokens else -1)
                         ledger.append(slot, req.prompt_len)
+                        if plan is not None:
+                            reused = plan["attached_tokens"]
+                            if reused:
+                                stats.prefix_hits += 1
+                                stats.prefix_tokens_reused += reused
+                                self.registry.inc("serve_prefix_hits")
+                                self.registry.inc("serve_prefix_tokens_reused", reused)
+                                self._event("prefix-attach", req.rid, slot=slot,
+                                            donor=plan["donor"], tokens=reused,
+                                            blocks=reused // cfg.block_size)
+                                if plan["cow_blocks"]:
+                                    # matched deeper than the attach cap: the
+                                    # tail blocks were recomputed privately
+                                    ledger.note_cow(plan["cow_blocks"])
+                                    stats.prefix_cow_blocks += plan["cow_blocks"]
+                                    self._event("prefix-cow", req.rid, slot=slot,
+                                                blocks=plan["cow_blocks"])
+                            # the prefill (attached or full) made the slot a
+                            # holder of every block of its chain
+                            ledger.register(slot, plan["chain"])
                         t_first = self._now()
                         st = _SlotState(req=req, tokens_done=1)
                         slots[slot] = st
@@ -1369,12 +2022,14 @@ class ServingEngine:
                             finish(release(slot), self._now())
                 if scheduled:
                     refresh_active()
-            # 3. a decode step over every resident request
+            # 3. a decode unit over every resident request: one step, or a
+            #    fused scan on the fast path
             if slots:
-                decode_unit()
+                dispatch_decode()
             elif pending and not queue:
                 # idle until the next arrival (nothing resident, nothing
-                # admittable)
+                # admittable); settle any in-flight tail first
+                drain()
                 wait = pending[0].arrival_s - self._now()
                 if wait > 0:
                     time.sleep(min(wait, 0.05))
@@ -1395,6 +2050,15 @@ class ServingEngine:
             self.registry.set_gauge("serve_cache_blocks_in_use",
                                     ledger.blocks_in_use,
                                     help="cache blocks holding tokens")
+            if cfg.prefix_caching:
+                series["shared_blocks"].append(ledger.shared_blocks)
+                self.registry.set_gauge(
+                    "serve_cache_shared_blocks", ledger.shared_blocks,
+                    help="trie-indexed blocks counted once fleet-wide")
+                self.registry.set_gauge(
+                    "serve_cache_prefix_refs", ledger.trie.total_refs(),
+                    help="slot references across all shared blocks")
+        drain()
         wall = self._now()
 
         self.registry.set_gauge("serve_queue_depth_peak",
@@ -1445,20 +2109,18 @@ class ServingEngine:
             "completed_output_tokens": stats.completed_output_tokens,
             "generated_tokens": stats.generated_tokens,
             "decode_steps": stats.decode_steps,
-            "decode_units": stats.decode_steps,
-            # the sections of parts 11b-11d hold what JAX writes with
-            # their features off
+            "decode_units": stats.decode_units,
             "fast_path": {
-                "enabled": False,
+                "enabled": self._fast,
                 "decode_horizon": cfg.decode_horizon,
                 "inflight_window": cfg.inflight_window,
                 "prefill_chunk": cfg.prefill_chunk,
                 "compact_threshold": cfg.compact_threshold,
-                "fused_scans": 0,
-                "fused_steps": 0,
-                "single_steps": stats.decode_steps,
-                "prefill_chunks": 0,
-                "compacted_scans": 0,
+                "fused_scans": stats.fused_scans,
+                "fused_steps": stats.fused_steps,
+                "single_steps": stats.single_steps,
+                "prefill_chunks": stats.prefill_chunks,
+                "compacted_scans": stats.compacted_scans,
             },
             "speculation": {
                 "mode": cfg.speculation,
@@ -1486,10 +2148,11 @@ class ServingEngine:
             "prefix": {
                 "enabled": cfg.prefix_caching,
                 "kv_quantization": cfg.kv_quantization,
-                "hits": 0,
-                "tokens_reused": 0,
-                "cow_blocks": 0,
-                "hit_rate": 0.0,
+                "hits": stats.prefix_hits,
+                "tokens_reused": stats.prefix_tokens_reused,
+                "cow_blocks": stats.prefix_cow_blocks,
+                "hit_rate": (stats.prefix_hits / len(stats.prefill_s)
+                             if stats.prefill_s else 0.0),
             },
             "ttft": summarize(stats.ttft_s),
             "per_token_latency": summarize(stats.per_token_s),

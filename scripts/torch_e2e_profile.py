@@ -3,7 +3,7 @@
 1B serving decode step goes on one NVIDIA GPU.
 
     python3 scripts/torch_e2e_profile.py --out DIR [--batch 8] [--seq 512]
-                                         [--reps 3] [--train | --decode]
+                                         [--reps 3] [--train | --decode [--int8]]
 
 Builds the 1B decoder of ``dlbb_tpu_torch`` at full width (bf16,
 ``attention="full"``, random weights from seed 42), runs a few warm
@@ -27,7 +27,9 @@ engine (``serve/engine.py::build_decode_step``, the "off" mode) on the
 cache of ``chip_smoke.py`` phase serve: 32 slots of 2048 tokens in 16-token
 blocks (12 GiB of bf16), every slot active at length 1024 (the step reads
 the whole cache whatever the lengths); ``--batch`` and ``--seq`` are not
-used.
+used.  ``--int8`` puts that cache in the int8 layout
+(``kv_quantization="int8"``: 6 GiB of codes and their scales), whose step
+dequantises each layer, appends, and requantises the touched blocks.
 """
 
 from __future__ import annotations
@@ -134,17 +136,18 @@ def _train_step(torch, record_function, x, args):
     return step, cfg
 
 
-def _decode_step(torch, cfg):
-    """One serving decode step of the 1B over phase serve's cache, every slot
-    active: ``step()`` runs it and feeds its output back, as the engine
-    does."""
+def _decode_step(torch, cfg, int8=False):
+    """One serving decode step of the 1B over phase serve's cache (in the
+    int8 layout with ``int8``), every slot active: ``step()`` runs it and
+    feeds its output back, as the engine does."""
     from dlbb_tpu_torch.models import init_params
     from dlbb_tpu_torch.serve.engine import build_decode_step
-    from dlbb_tpu_torch.serve.kvcache import create_kv_cache
+    from dlbb_tpu_torch.serve.kvcache import create_kv_cache, create_quant_kv_cache
 
     slots, max_seq, block = 32, 2048, 16
     params = init_params(cfg, 42, "cuda")
-    cache = create_kv_cache(cfg, slots, max_seq // block, block, device="cuda")
+    create = create_quant_kv_cache if int8 else create_kv_cache
+    cache = create(cfg, slots, max_seq // block, block, device="cuda")
     cache.lengths.fill_(max_seq // 2)
     x = torch.randn((slots, 1, cfg.hidden_size), device="cuda", dtype=torch.bfloat16)
     active = torch.ones(slots, dtype=torch.bool, device="cuda")
@@ -170,7 +173,11 @@ def main() -> int:
                       help="profile the 1B Adam train step instead of the forward")
     mode.add_argument("--decode", action="store_true",
                       help="profile the serving engine's decode step instead")
+    p.add_argument("--int8", action="store_true",
+                   help="with --decode: the cache in the int8 layout")
     args = p.parse_args()
+    if args.int8 and not args.decode:
+        p.error("--int8 needs --decode")
 
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -191,8 +198,8 @@ def main() -> int:
         step, cfg = _train_step(torch, record_function, x, args)
         what = "step"
     elif args.decode:
-        step = _decode_step(torch, cfg)
-        what = "decode_step"
+        step = _decode_step(torch, cfg, int8=args.int8)
+        what = "decode_step_int8" if args.int8 else "decode_step"
     else:
         params = init_params(cfg, 42, "cuda")
         what = "forward"
@@ -255,7 +262,8 @@ def main() -> int:
     result = {
         "gpu": gpu_name_and_power_limit(),
         "shape": {"model": "1B",
-                  **({"slots": 32, "max_seq": 2048, "block_size": 16} if args.decode
+                  **({"slots": 32, "max_seq": 2048, "block_size": 16,
+                      "kv_quantization": "int8" if args.int8 else "none"} if args.decode
                      else {"batch": args.batch, "seq": args.seq}),
                   "dtype": "bfloat16", "attention": "full",
                   "remat_policy": cfg.remat_policy if cfg.remat else None},

@@ -22,8 +22,9 @@
   host);
 - the three engine tests of ``tests/test_serve.py``, mirrored on the port;
 - ranks agree at dp=2 on a Poisson trace whose admission depends on time;
-- every knob of parts 11b-11d and of items 12 and 13 refused with a
-  ``ValueError`` citing its ROADMAP item.
+- every knob of part 11b engaging (``tests/test_torch_serve_fastpath.py``
+  holds them against JAX), and every knob of parts 11c-11d and of items 12
+  and 13 refused with a ``ValueError`` citing its ROADMAP item.
 """
 
 import dataclasses
@@ -685,12 +686,6 @@ def test_engine_rejects_infeasible_trace_upfront(smoke_engine):
 # ---------------------------------------------------------------------------
 
 REFUSED = {
-    "decode_horizon": (dict(decode_horizon=4), "11b"),
-    "inflight_window": (dict(decode_horizon=4, inflight_window=2), "11b"),
-    "prefill_chunk": (dict(prefill_chunk=16), "11b"),
-    "compact_threshold": (dict(decode_horizon=4, compact_threshold=0.5), "11b"),
-    "prefix_caching": (dict(prefill_chunk=16, prefix_caching=True), "11b"),
-    "kv_int8": (dict(kv_quantization="int8"), "11b"),
     "ngram": (dict(speculation="ngram", spec_gamma=2), "11c"),
     "draft_model": (dict(speculation="draft-model", spec_gamma=2), "11c"),
     "temperature": (dict(speculation="ngram", spec_gamma=2, temperature=0.7), "11c"),
@@ -709,6 +704,49 @@ def test_unported_knob_is_refused_with_its_item(name):
     with pytest.raises(ValueError, match=f"part {part}") as e:
         pt_engine.ServingEngine(cfg, sv, device="cpu", verbose=False)
     _names_a_roadmap_item(str(e.value))
+
+
+# part 11b's knobs, each with the report's evidence that it engaged
+ENGAGED = {
+    "decode_horizon": (dict(decode_horizon=4),
+                       lambda r: r["fast_path"]["fused_scans"] > 0),
+    # the window acts on fused units only
+    "inflight_window": (dict(decode_horizon=4, inflight_window=2),
+                        lambda r: r["fast_path"]["fused_scans"] > 0),
+    "prefill_chunk": (dict(prefill_chunk=16),
+                      lambda r: r["fast_path"]["prefill_chunks"] > 0),
+    "compact_threshold": (dict(decode_horizon=4, compact_threshold=0.5),
+                          lambda r: r["fast_path"]["compacted_scans"] > 0),
+    "prefix_caching": (dict(prefill_chunk=16, prefix_caching=True),
+                       lambda r: r["prefix"]["hits"] > 0),
+    "kv_int8": (dict(kv_quantization="int8"),
+                lambda r: r["prefix"]["kv_quantization"] == "int8"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENGAGED))
+def test_11b_knob_engages(name, weights):
+    """Each knob of part 11b, accepted by JAX's envelope, is served: the
+    report shows it engaged on a t=0 trace of 8 requests in 8 slots, two
+    groups sharing a 32-token prefix, and every request completes; int8
+    puts int8 planes in the carry."""
+    kw, engaged = ENGAGED[name]
+    cfg = ModelConfig(**TINY)
+    sv = pt_engine.ServingConfig(**SMOKE_SERVING, **kw)
+    jax_engine.ServingConfig(**SMOKE_SERVING, **kw).validate(jax_configs.ModelConfig(**TINY))
+    engine = pt_engine.ServingEngine(cfg, sv, params=params_from_jax(weights["f32"], cfg),
+                                     verbose=False, device="cpu")
+    trace = generate_trace("poisson", 8, seed=3, prompt_range=(33, 48), output_range=(4, 12),
+                           prefix_groups=2, prefix_len=32)
+    trace = dataclasses.replace(trace, requests=tuple(
+        dataclasses.replace(r, arrival_s=0.0) for r in trace.requests))
+    report = engine.run_trace(trace)
+    assert report["requests"]["completed"] == 8
+    assert engaged(report), report["fast_path"] | report["prefix"]
+    carry = engine._fresh_carry()
+    assert isinstance(carry[0], pt_kv.QuantKVCache) == (name == "kv_int8")
+    if name == "kv_int8":
+        assert carry[0].k.dtype == torch.int8 and carry[0].k_scale.dtype == torch.float32
 
 
 RUN_REFUSALS = ("guard", "feed", "control", "deadline", "fault_plan", "capture")

@@ -1,7 +1,9 @@
-"""Rank bodies of ``tests/test_torch_serve.py``: the port's serving programs
-and engine on a gloo group of host processes.  It imports torch and the
-port only, since ``bench.launch`` imports it by name in every spawned
-rank."""
+"""Rank bodies of ``tests/test_torch_serve.py`` and
+``tests/test_torch_serve_fastpath.py``: the port's serving programs and
+engine on a gloo group of host processes.  It imports torch and the port
+only, since ``bench.launch`` imports it by name in every spawned rank."""
+
+import tempfile
 
 import torch
 
@@ -16,6 +18,7 @@ from dlbb_tpu_torch.serve.engine import (
     build_decode_step,
     build_prefill,
 )
+from dlbb_tpu_torch.resilience.journal import SweepJournal, read_journal
 from dlbb_tpu_torch.serve.kvcache import create_kv_cache, shard_cache
 from dlbb_tpu_torch.serve.traffic import TrafficTrace
 
@@ -110,3 +113,33 @@ def run_world2(gqa_case, engine_case, modes):
         out[f"dp2/{mode}"] = _engine_run(*engine_case, dp2, mode)
     return out
 
+
+
+def _journaled_run(fields, serving, weights, trace_dict, mesh):
+    """One engine run on this rank with its own journal: the report's
+    comparable sections and the journal's (event, rid) sequence."""
+    cfg = ModelConfig(**fields)
+    engine = ServingEngine(cfg, ServingConfig.from_dict(serving), mesh=mesh,
+                           params=_rank_params(weights, cfg, mesh), verbose=False,
+                           capture_tokens=True, device="cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        engine.journal = SweepJournal(tmp)
+        report = engine.run_trace(TrafficTrace.from_dict(trace_dict))
+        engine.journal.close()
+        events, _ = read_journal(tmp)
+    out = {k: report[k] for k in ("requests", "completed_tokens", "cache", "decode_steps",
+                                  "decode_units", "generated_tokens", "fast_path", "prefix")}
+    out["journal"] = [(e["event"], e["config"]) for e in events
+                      if e["event"].startswith(("request-", "prefix-"))]
+    return out
+
+
+def run_engines(runs):
+    """Each named run ``(dp, tp, fields, serving, weights, trace)`` on its
+    own (dp, tp) mesh of this world."""
+    torch.set_num_threads(1)
+    out = {}
+    for name, (dp, tp, *case) in runs.items():
+        mesh = build_parallelism_mesh(data_parallel=dp, tensor_parallel=tp)
+        out[name] = _journaled_run(*case, mesh)
+    return out
