@@ -749,6 +749,25 @@ def test_prefix_and_int8_engines_match_jax(world1, tmp_path):
     assert quant["prefix"]["kv_quantization"] == "int8" and quant["prefix"]["hits"] == hits
 
 
+def test_prefix_copy_on_write_tail_matches_jax(tmp_path):
+    """48-token chunks under the 64-token shared prefixes: an attach stops
+    at the chunk floor (48 tokens, 6 blocks) and the trie's 2 deeper
+    matched blocks are recomputed privately, the copy-on-write tail
+    (``note_cow``, ``prefix-cow`` events); tokens, counters, the ledger's
+    ``cow_blocks`` and the journal equal to JAX's engine."""
+    serving = dict(PREFIX, prefill_chunk=48, prefix_caching=True)
+    mesh = jax_parallelism_mesh(devices=jax.devices()[:1])
+    ptrace = _prefix_trace()
+    ref, ref_seq, weights = _run_jax(TINY, serving, ptrace, mesh, tmp_path, "jax")
+    got, seq = _run_port(TINY, serving, ptrace, weights, tmp_path, "port")
+    _same_run(got, ref)
+    assert seq == ref_seq
+    hits = got["prefix"]["hits"]
+    assert hits >= 2 and got["prefix"]["tokens_reused"] == 48 * hits
+    assert got["prefix"]["cow_blocks"] == got["cache"]["cow_blocks"] == 2 * hits
+    assert sum(1 for event, _ in seq if event == "prefix-cow") == hits
+
+
 # ---------------------------------------------------------------------------
 # on gloo ranks
 # ---------------------------------------------------------------------------
