@@ -160,7 +160,20 @@ Phases (each raises on failure, and the script then exits non-zero):
    tokens of the two greedy runs equal per request, the span trace valid;
    TTFT, per-token latency, decode-step ms, goodput and peak memory
    printed; (c) the decode step's median against its bytes bound (the
-   weights and the whole cache read once at 3.35 TB/s).
+   weights and the whole cache read once at 3.35 TB/s); (d) the fast path
+   (fused scans, the in-flight window, chunked prefill, compaction) and (e)
+   the prefix cache and int8 planes on a shared-prefix trace; (f)
+   speculative and sampled decoding: (f)0 ``build_verify_probs`` at γ=4 on
+   (a)'s 4-slot cache against γ+1 per-step token steps (within
+   ``SERVE_REL_L2``; ``build_verify_step`` commits all γ+1), (f)1 greedy
+   "ngram", "draft-model" and adaptive-γ fused "ngram" runs on (b)'s
+   trace, each request at its full length, both ledgers clean, each request
+   equal to (b)'s greedy tokens up to a near-tie (``SERVE_SPEC_TIE``, in
+   the dense forward) and "ngram" equal to itself on a second run, (f)2
+   sampled "ngram"
+   runs (temperature 0.8) replayed by seed 3 and moved by seed 4, (f)3 each
+   run's verify units, acceptance and tokens per unit, and the verify
+   unit's median (from its ``serve-verify`` spans) against its bytes bound.
 
 It then prints the card's name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -2844,6 +2857,58 @@ SERVE_PREFIX_RUNS = (
 # each group's first request of the first wave of 32 misses; the other 28
 # find a resident group member
 SERVE_PREFIX_MIN_HITS = 28
+# phase serve (f): speculative and sampled decoding.  (f)0 on (a)'s 4-slot
+# cache, each slot holding one of these prompts (request seeds 100-103)
+SERVE_VERIFY_PROMPTS = (640, 300, 1000, 128)
+SERVE_SPEC_GAMMA = 4
+# (f)1, greedy speculation on (b)'s engine and trace
+SERVE_SPEC_GREEDY = (
+    ("ngram", dict(speculation="ngram", spec_gamma=SERVE_SPEC_GAMMA)),
+    ("draft-model", dict(speculation="draft-model", spec_gamma=SERVE_SPEC_GAMMA,
+                         spec_draft_layers=1)),
+    ("ngram+adaptive+fused", dict(speculation="ngram", spec_gamma=8, spec_adaptive=True,
+                                  decode_horizon=8, inflight_window=2)),
+)
+# Where a greedy speculative run leaves (b)'s per-step greedy tokens, it
+# must leave them at a near-tie.  A verify unit runs each layer's products
+# at M = 32 x 5 = 160 rows where the per-step step runs M = 32, so its
+# outputs are not the step's bits, and once two bf16 computations differ
+# at all their roundings decorrelate: every product's output carries its
+# own half-ulp error (2^-9 relative), and 24 layers of them put the two
+# outputs 1.09e-02 apart in relative L2 ((f)0 on the card; (a)'s decode
+# against the dense forward, the same math at M = 1 against M = 1024, is
+# 1.105e-02).  A greedy token is the argmax of y over 2048 values whose top
+# two lie about 0.26 apart on average, so such noise moves tokens in most
+# requests of 64-128 tokens (23 of 64 requests kept every token on an
+# H100 80GB HBM3 at 700 W).  The check: at each request's first
+# differing position p, the 1B's one-shot dense forward over its prompt
+# and the p tokens both runs committed gives y, and the two runs' tokens a
+# and b must lie within SERVE_SPEC_TIE of each other in it.  Each run's y
+# there differs from this y by a vector of relative L2 at most
+# SERVE_REL_L2 (rms of y is 1: the final LN's scale is 1 and its bias 0),
+# and a run picked its token over the other's, so |y[a] - y[b]| is at most
+# the two elements' errors in one run: 6 sigma each, 2 x 6 x SERVE_REL_L2.
+# A run that committed a wrong token (not its target's argmax) lands about
+# 3.5 below the top of 2048 values and fails it.
+SERVE_SPEC_TIE = 2 * 6 * SERVE_REL_L2
+# (f)2, sampled speculation: "ngram" with these knobs under each seed
+SERVE_SPEC_SAMPLED = dict(speculation="ngram", spec_gamma=SERVE_SPEC_GAMMA, temperature=0.8)
+SERVE_SPEC_SEEDS = (3, 3, 4)
+
+
+class _SpecTally:
+    """A journal stand-in for the engine (it calls ``event``): the
+    ``spec-verify`` events' commits summed in memory, with no file or
+    fsync in the timed run."""
+
+    def __init__(self):
+        self.committed = 0
+        self.slot_verifies = 0
+
+    def event(self, event, config=None, **extra):
+        if event == "spec-verify":
+            self.committed += extra["committed"]
+            self.slot_verifies += 1
 
 
 def phase_serve(torch, fa, gpu_line):
@@ -2858,7 +2923,7 @@ def phase_serve(torch, fa, gpu_line):
                                      dir=Path(__file__).resolve().parent) as tmp:
         trace = Path(tmp) / "spans.json"
         with spans.tracing(trace, meta={"phase": "serve", "device": gpu_line}):
-            runs = _serve_engine(torch, gpu_line)
+            runs, spec = _serve_engine(torch, gpu_line)
         events = spans.load_trace(trace)["traceEvents"]
     problems = spans.validate_trace_events(events)
     if problems:
@@ -2866,19 +2931,76 @@ def phase_serve(torch, fa, gpu_line):
     begins = [e for e in events if e["ph"] == "B"]
     counts = {n: sum(1 for e in begins if e["name"] == n)
               for n in ("serve-admission", "serve-prefill", "serve-prefill-chunk",
-                        "serve-prefix-attach", "serve-decode")}
+                        "serve-prefix-attach", "serve-decode", "serve-verify")}
     fused = sum(1 for e in begins if e["name"] == "serve-decode" and e["args"]["steps"] > 1)
     print(f"[serve] span trace of {len(events)} events: valid; B spans {counts}, "
           f"{fused} of the serve-decode ones fused scans")
+    verify_units = sum(r["speculation"]["verify_units"] for r in runs)
     want = {"serve-prefill": SERVE_REQUESTS * len(runs),
-            "serve-decode": sum(r["decode_units"] for r in runs),
+            "serve-decode": sum(r["decode_units"] for r in runs) - verify_units,
+            "serve-verify": verify_units,
             "serve-prefill-chunk": sum(r["fast_path"]["prefill_chunks"] for r in runs),
             "serve-prefix-attach": sum(r["prefix"]["hits"] for r in runs)}
     if any(counts[n] != v for n, v in want.items()) \
             or fused != sum(r["fast_path"]["fused_scans"] for r in runs):
         raise AssertionError(f"the span trace does not match the reports: {want}")
+    _serve_spec_numbers(spec, events, gpu_line)
     print(f"[serve] phase wall {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def _span_durations_ms(events, name, within):
+    """The durations of the ``name`` spans that begin inside each
+    ``(t0, t1)`` of ``within`` (µs), one list per interval."""
+    out = [[] for _ in within]
+    begun = None
+    for e in events:
+        if e.get("name") != name or e["ph"] not in ("B", "E"):
+            continue
+        if e["ph"] == "B":
+            begun = e["ts"]
+            continue
+        for i, (a, b) in enumerate(within):
+            if a <= begun <= b:
+                out[i].append((e["ts"] - begun) / 1e3)
+    return out
+
+
+def _serve_spec_numbers(spec, events, gpu_line):
+    """(f)3, printed and not gated: each speculative run's verify units,
+    fallbacks, proposed, accepted and committed tokens, tokens per verify
+    unit, and the verify unit's median against its bytes bound (the
+    weights and the whole cache read once, the γ+1 rows of every slot
+    written, and for the draft model its γ steps over its own weights and
+    cache), from the ``serve-verify`` spans of the run."""
+    intervals, labels = [], []
+    for e in events:
+        if e.get("name") == "smoke-run" and e["ph"] == "B":
+            labels.append(e["args"]["run"])
+            intervals.append([e["ts"], None])
+        elif e.get("name") == "smoke-run" and e["ph"] == "E":
+            intervals[-1][1] = e["ts"]
+    verify_ms = dict(zip(labels, _span_durations_ms(events, "serve-verify", intervals)))
+    for run in spec:
+        report, tally, label = run["report"], run["tally"], run["label"]
+        s = report["speculation"]
+        ms = verify_ms[label]
+        median = statistics.median(ms) if ms else float("nan")
+        bound = run["bound_bytes"] / PEAK_BYTES_PER_S * 1e3
+        print(f"[serve] (f)3 {label} on {gpu_line}: {s['verify_units']} verify units, "
+              f"{s['fallback_units']} fallbacks, {s['proposed_tokens']} tokens proposed, "
+              f"{s['accepted_tokens']} accepted ({s['acceptance_rate']:.4f}), "
+              f"{tally.committed} committed in {tally.slot_verifies} slot verifies "
+              f"({tally.committed / max(s['verify_units'], 1):.2f} tokens per verify unit); "
+              f"verify unit median {median:.3f} ms over {len(ms)} spans against its bytes bound "
+              f"{bound:.3f} ms ({run['bound_bytes']} bytes at {PEAK_BYTES_PER_S / 1e12:.2f} "
+              f"TB/s, gamma {run['gamma']}): {median / bound:.2f}x; TTFT median "
+              f"{report['ttft']['median'] * 1e3:.1f} ms; goodput "
+              f"{report['goodput_tokens_per_s']:.1f} tokens/s, {run['goodput_ratio']:.3f}x "
+              f"(b)'s greedy run's")
+        if len(ms) != s["verify_units"]:
+            raise AssertionError(f"run {label}: {len(ms)} serve-verify spans for "
+                                 f"{s['verify_units']} verify units")
 
 
 def _serve_equivalence(torch, fa, gpu_line):
@@ -3010,7 +3132,82 @@ def _serve_equivalence(torch, fa, gpu_line):
           f"{same_y}")
     if worst > SERVE_INT8_REL:
         raise AssertionError("the int8 prefill's blocks exceed the quantisation bound")
+    del quant, cache, carry
+    _serve_verify_program(torch, gpu_line, cfg, params)
     return launches
+
+
+def _serve_verify_program(torch, gpu_line, cfg, params):
+    """(f)0: the verify program against the per-step token decode.  From
+    one cache of (a)'s geometry with its 4 slots prefilled, γ+1 per-step
+    greedy token steps, then one ``build_verify_probs`` at γ with the
+    per-step tokens as drafts: its γ+1 outputs within ``SERVE_REL_L2`` of
+    the per-step ones (the same math at other GEMM shapes, SERVE_REL_L2's
+    argument); ``build_verify_step`` on the same inputs commits all γ+1."""
+    from dlbb_tpu_torch.data.synthetic import request_embeddings, token_embedding_table
+    from dlbb_tpu_torch.serve.engine import (
+        ServingConfig,
+        _inject_token_greedy,
+        build_decode_step,
+        build_prefill,
+        build_verify_probs,
+        build_verify_step,
+    )
+    from dlbb_tpu_torch.serve.kvcache import create_kv_cache
+
+    g, h = SERVE_SPEC_GAMMA, cfg.hidden_size
+    sv = ServingConfig(**SERVE_EQUIV)
+    table = token_embedding_table(h, torch.bfloat16, device="cuda")
+    carry = (create_kv_cache(cfg, sv.max_batch, sv.num_blocks, sv.block_size, device="cuda"),
+             torch.zeros((sv.max_batch, 1, h), device="cuda", dtype=torch.bfloat16))
+    prefill = build_prefill(cfg)
+    for slot, prompt in enumerate(SERVE_VERIFY_PROMPTS):
+        xp = request_embeddings(100 + slot, prompt, h, dtype=torch.bfloat16,
+                                pad_to=sv.bucket_for(prompt), device="cuda")
+        cache, y_last = prefill(carry[0], params, xp, slot, prompt)
+        carry, _tok = _inject_token_greedy((cache, carry[1]), slot, y_last, table)
+
+    def clone(c):
+        cache, x = c
+        return cache._replace(k=cache.k.clone(), v=cache.v.clone(),
+                              lengths=cache.lengths.clone()), x.clone()
+
+    active = torch.ones(sv.max_batch, dtype=torch.bool, device="cuda")
+    decode = build_decode_step(cfg)
+    step_carry, ys, toks = clone(carry), [], []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(g + 1):
+        (cache, y), _ = decode(step_carry, params, active)
+        tok = torch.argmax(y[:, 0], dim=-1).to(torch.int32)
+        step_carry = (cache, table.index_select(0, tok)[:, None, :])
+        ys.append(y[:, 0])
+        toks.append(tok)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end)
+    ys, toks = torch.stack(ys, dim=1), torch.stack(toks, dim=1)       # [B, g+1, H], [B, g+1]
+    drafts = toks[:, :g].contiguous()
+    start.record()
+    _carry, y_ver = build_verify_probs(cfg, gamma=g)(clone(carry), params, table, drafts, active)
+    end.record()
+    torch.cuda.synchronize()
+    verify_ms = start.elapsed_time(end)
+    rel = _rel_l2(y_ver, ys)
+    same = int((torch.argmax(y_ver, dim=-1).to(torch.int32) == toks).sum())
+    remaining = torch.full((sv.max_batch,), g + 1, dtype=torch.int32, device="cuda")
+    vcarry, _vtok, commits = build_verify_step(cfg, gamma=g)(clone(carry), params, table,
+                                                             drafts, active, remaining)
+    lengths_equal = vcarry[0].lengths.tolist() == step_carry[0].lengths.tolist()
+    print(f"[serve] (f)0 verify program on {gpu_line}: 4 slots (prompts "
+          f"{list(SERVE_VERIFY_PROMPTS)}), {g + 1} per-step greedy token steps "
+          f"({step_ms:.2f} ms) against one build_verify_probs at gamma {g} with their tokens "
+          f"as drafts ({verify_ms:.2f} ms): relative L2 {rel:.3e} (tolerance {SERVE_REL_L2}); "
+          f"{same} of {toks.numel()} tokens equal; build_verify_step commits "
+          f"{commits.tolist()}, lengths equal to the per-step run's {lengths_equal}")
+    if not (bool(torch.isfinite(y_ver).all()) and rel <= SERVE_REL_L2
+            and commits.tolist() == [g + 1] * sv.max_batch and lengths_equal):
+        raise AssertionError("the verify program disagrees with the per-step token decode")
 
 
 def _serve_run(torch, engine, trace, label, gpu_line):
@@ -3048,9 +3245,10 @@ def _serve_run(torch, engine, trace, label, gpu_line):
 
 
 def _serve_engine(torch, gpu_line):
-    """(b)-(e): ``run_trace`` at the cache of phase kv, per-step in each mode
+    """(b)-(f): ``run_trace`` at the cache of phase kv, per-step in each mode
     of ``SERVE_MODES``, the fast path, the prefix cache and the int8 planes,
-    and the decode steps against their bytes bounds; returns the reports."""
+    the decode steps against their bytes bounds, then speculative and
+    sampled decoding; returns the reports and (f)'s runs."""
     import dataclasses
 
     from dlbb_tpu_torch.models import ModelConfig, init_params, num_parameters
@@ -3075,8 +3273,10 @@ def _serve_engine(torch, gpu_line):
 
     def engine(mode, **knobs):
         sv = ServingConfig(**SERVE_ENGINE, hbm_budget_gb=budget_gb, speculation=mode, **knobs)
+        # the draft model's weights come from seed 43, as JAX derives its
+        # draft from the engine's seed + 1
         return ServingEngine(cfg, sv, params=params, capture_tokens=True, verbose=False,
-                             device="cuda")
+                             device="cuda", seed=42)
 
     def same_tokens(a, b):
         return sum(a["completed_tokens"][rid] == b["completed_tokens"][rid]
@@ -3169,7 +3369,124 @@ def _serve_engine(torch, gpu_line):
               f"bytes read once at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; the step reads the "
               f"whole cache, masked, whatever the lengths): {step_ms / bound:.2f}x; per unit "
               f"median {median / bound:.2f}x")
-    return reports
+    spec = _serve_spec_runs(torch, gpu_line, cfg, params, engine, trace,
+                            per_step["greedy"][0], weight_bytes + cache_bytes)
+    return reports + [run["report"] for run in spec], spec
+
+
+def _near_tie_gaps(torch, cfg, params, trace, report, ref):
+    """Each request whose tokens differ from ``ref``'s: its first differing
+    position p, and |y[a] - y[b]| there for the two runs' tokens a and b,
+    from the dense forward over its prompt and the p tokens both runs
+    committed (its output at the last position is the one token p is the
+    argmax of).  Returns ``({rid: p}, {rid: gap})``."""
+    from dlbb_tpu_torch.data.synthetic import request_embeddings, token_embedding_table
+    from dlbb_tpu_torch.models import forward
+
+    table = token_embedding_table(cfg.hidden_size, torch.bfloat16, device="cuda")
+    dense = cfg.with_(attention="dense")
+    by_rid = {str(r.rid): r for r in trace}
+    diff, gaps = {}, {}
+    for rid, toks in ref["completed_tokens"].items():
+        got = report["completed_tokens"][rid]
+        if got == toks:
+            continue
+        p = diff[rid] = next(i for i, (a, b) in enumerate(zip(got, toks)) if a != b)
+        r = by_rid[rid]
+        common = torch.tensor(toks[:p], dtype=torch.long, device="cuda")
+        x = torch.cat([request_embeddings(r.seed, r.prompt_len, cfg.hidden_size,
+                                          dtype=torch.bfloat16, device="cuda"),
+                       table.index_select(0, common)[None]], dim=1)
+        with torch.inference_mode():
+            y = forward(params, x, dense)[0, -1].float()
+        gaps[rid] = round(abs(float(y[got[p]] - y[toks[p]])), 4)
+    return diff, gaps
+
+
+def _serve_spec_runs(torch, gpu_line, cfg, params, engine, trace, greedy, base_bytes):
+    """(f)1 and (f)2 on (b)'s engine setup and trace: greedy speculation
+    ("ngram", "draft-model", and "ngram" with adaptive γ on the fused fast
+    path), every request served at its full length with both ledgers
+    clean, each request equal to (b)'s greedy run's tokens up to a near-tie
+    (``SERVE_SPEC_TIE``) and "ngram" equal to itself on a second run; then
+    sampled speculation, replayed by its seed and moved by another.  Each
+    run inside a ``smoke-run`` span; returns the runs for (f)3."""
+    from dlbb_tpu_torch.models import num_parameters
+    from dlbb_tpu_torch.models.configs import kv_cache_bytes
+    from dlbb_tpu_torch.obs import spans
+
+    lengths = {str(r.rid): r.output_len for r in trace}
+    # the rows a verify unit writes: K and V of every slot's γ+1 positions
+    row_bytes = 2 * cfg.num_layers * SERVE_ENGINE["max_batch"] * cfg.kv_heads * cfg.head_dim * 2
+    runs = []
+
+    def run(label, knobs):
+        eng = engine(knobs.pop("speculation"), **knobs)
+        tally = _SpecTally()
+        eng.journal = tally
+        with spans.span("smoke-run", run=label):
+            report = _serve_run(torch, eng, trace, f"(f) {label} ({knobs})", gpu_line)
+        draft = eng.draft_cache_stats
+        full = all(len(t) == lengths[rid] for rid, t in report["completed_tokens"].items())
+        print(f"[serve] (f) {label}: every request at its full output length {full}; the "
+              f"draft ledger's blocks reserved at the end "
+              f"{None if draft is None else draft['blocks_reserved']}")
+        if not full or (draft is not None and draft["blocks_reserved"] != 0):
+            raise AssertionError(f"run {label} cut a request short or kept draft blocks")
+        gamma = eng.serving.spec_gamma
+        bound = base_bytes + row_bytes * (gamma + 1)
+        if eng.serving.speculation == "draft-model":
+            dcfg = eng.serving.draft_model_config(cfg)
+            bound += gamma * (num_parameters(dcfg) * 2 + kv_cache_bytes(
+                dcfg, SERVE_ENGINE["max_batch"], SERVE_ENGINE["max_seq"]))
+        runs.append({"label": label, "report": report, "tally": tally, "gamma": gamma,
+                     "bound_bytes": bound,
+                     "goodput_ratio": report["goodput_tokens_per_s"]
+                     / greedy["goodput_tokens_per_s"]})
+        return report
+
+    # (f)1
+    greedy_spec = []
+    for label, knobs in SERVE_SPEC_GREEDY:
+        report = run(label, dict(knobs))
+        greedy_spec.append(report)
+        diff, gaps = _near_tie_gaps(torch, cfg, params, trace, report, greedy)
+        print(f"[serve] (f)1 {label}: {SERVE_REQUESTS - len(diff)} of {SERVE_REQUESTS} "
+              f"requests token-identical to (b)'s greedy run; first differing position by "
+              f"request {diff}; there |y[a] - y[b]| in the dense forward {gaps} (at most "
+              f"{SERVE_SPEC_TIE:.3f}, largest {max(gaps.values(), default=0.0)})")
+        if any(g > SERVE_SPEC_TIE for g in gaps.values()) \
+                or report["speculation"]["verify_units"] == 0:
+            raise AssertionError(f"greedy speculation ({label}) left the greedy tokens "
+                                 "away from a near-tie")
+        if label == "ngram":
+            first_ngram = report
+    agree = sum(len({tuple(r["completed_tokens"][rid]) for r in greedy_spec}) == 1
+                for rid in greedy["completed_tokens"])
+    print(f"[serve] (f)1 the {len(greedy_spec)} greedy speculative runs give one another's "
+          f"tokens for {agree} of {SERVE_REQUESTS} requests (printed, not gated)")
+    again = run("ngram again", dict(SERVE_SPEC_GREEDY[0][1]))
+    same = sum(again["completed_tokens"][rid] == t
+               for rid, t in first_ngram["completed_tokens"].items())
+    print(f"[serve] (f)1 \"ngram\" run twice: {same} of {SERVE_REQUESTS} requests equal")
+    if same != SERVE_REQUESTS:
+        raise AssertionError("two greedy \"ngram\" runs of one trace gave different tokens")
+
+    # (f)2
+    sampled = [run(f"sampled seed {seed} #{i + 1}",
+                   dict(SERVE_SPEC_SAMPLED, sample_seed=seed))
+               for i, seed in enumerate(SERVE_SPEC_SEEDS)]
+    replay = sampled[0]["completed_tokens"] == sampled[1]["completed_tokens"]
+    moved = sum(sampled[0]["completed_tokens"][rid] != t
+                for rid, t in sampled[2]["completed_tokens"].items())
+    s = sampled[0]["speculation"]
+    print(f"[serve] (f)2 sampled (temperature {s['temperature']}): seed "
+          f"{SERVE_SPEC_SEEDS[0]} replayed token for token {replay}; seed {SERVE_SPEC_SEEDS[2]} "
+          f"moved {moved} of {SERVE_REQUESTS} requests; sampled {s['sampled']}, "
+          f"{s['verify_units']} verify units")
+    if not (replay and moved > 0 and s["sampled"] and s["verify_units"] > 0):
+        raise AssertionError("the sampled runs did not replay by seed, or did not sample")
+    return runs
 
 
 def _same_planes(torch, got, host):

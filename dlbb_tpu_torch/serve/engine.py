@@ -1,7 +1,7 @@
 """Continuous-batching inference engine over the paged KV-cache
 (counterpart of ``dlbb_tpu/serve/engine.py``): ROADMAP Queue 1, Slice E,
-item 11, parts 11a (the core) and 11b (the fast path and the capacity
-levers).
+item 11, parts 11a (the core), 11b (the fast path and the capacity levers)
+and 11c (speculative and sampled decoding).
 
 The device programs, fixed shapes for the whole run:
 
@@ -32,6 +32,15 @@ The device programs, fixed shapes for the whole run:
 - **prefix attach** (``prefix_caching``, dp = 1): a donor slot's first
   matched blocks copied into the admitted slot, and returned as the
   chunked prefill's prefix carry, so only the suffix chunks run.
+- **verify** (``speculation`` "ngram" or "draft-model"; per γ of the
+  ladder): each slot's pending token and its γ drafts as one ``[B, γ+1,
+  H]`` pass, K/V rows appended at ``lengths + i`` and attended under an
+  offset-causal mask (``_verify_attention``); the greedy verify commits
+  the accepted prefix and one more token on the device, the sampled one
+  (``temperature > 0``) returns the logits, the host samples, and a small
+  commit program advances the carry.  The draft model runs γ greedy token
+  steps on its own cache (``build_draft_scan``); the n-gram drafter is host
+  code.
 
 With ``kv_quantization="int8"`` the cache is a ``QuantKVCache`` and the
 programs read its layout from the cache they are given: a prefill
@@ -61,8 +70,9 @@ whole on every rank, as JAX replicates it.  A prefill (or chunk) runs only
 in the dp group that owns the slot, which alone writes it; its ``y_last``
 is then broadcast over each tp column's dp group from the owner (one
 ``[H]`` vector per admission), so every rank injects and counts the same
-first token and times the same prefill.  With ``capture_tokens`` each
-decode unit's token ids are all-gathered over the dp group.
+first token and times the same prefill.  With ``capture_tokens``, or
+under the n-gram drafter (whose histories they extend), each decode
+unit's token ids are all-gathered over the dp group.
 
 Around them, a host-side continuous-batching scheduler (Orca-style
 iteration-level scheduling): arrivals from a ``TrafficTrace`` pass
@@ -79,14 +89,21 @@ takes the same decisions.  Per-phase spans, request-lifecycle events into
 the resilience journal and the registry's counters are JAX's, name for
 name.
 
-What JAX's engine does beyond parts 11a and 11b is refused with a
-``ValueError`` that names its ROADMAP item: speculative and sampled
-decoding (11c), the dispatch watchdog, per-request deadlines, the SIGTERM
-drain and the serving fault sites (11d), the fleet hooks (item 12) and
-device-trace capture (Slice F, item 13).  A failed dispatch raises out of
-:meth:`ServingEngine.run_trace`: the retries and rollback of
-``max_dispatch_retries`` are 11d's.  ``hedge_factor`` is accepted and
-ignored, as JAX's single engine ignores it.
+Under speculation every rank must take the same decisions: a verify unit
+gathers its token ids and commits over the dp group (they move the
+n-gram histories and the ledger), whether the drafter is cold is read
+from the histories of every resident slot, and the sampled path gathers
+the verify logits, so every rank draws from one numpy generator over the
+global slots in JAX's order and commits the same tokens.  The draft
+model's proposals stay on each rank's own slots.
+
+What JAX's engine does beyond parts 11a-11c is refused with a
+``ValueError`` that names its ROADMAP item: the dispatch watchdog,
+per-request deadlines, the SIGTERM drain and the serving fault sites
+(11d), the fleet hooks (item 12) and device-trace capture (Slice F, item
+13).  A failed dispatch raises out of :meth:`ServingEngine.run_trace`: the
+retries of ``max_dispatch_retries`` are 11d's.  ``hedge_factor`` is
+accepted and ignored, as JAX's single engine ignores it.
 """
 
 from __future__ import annotations
@@ -164,7 +181,7 @@ def _default_buckets(block_size: int, max_seq: int) -> tuple[int, ...]:
 class ServingConfig:
     """The serving envelope (YAML ``serving:`` section), a copy of JAX's:
     every field, its validation and its messages.  The engine refuses
-    the knobs of parts 11c and 11d (module docstring); JAX's docstring
+    the knobs of part 11d (module docstring); JAX's docstring
     (``dlbb_tpu/serve/engine.py:171-300``) documents each.
 
     max_batch:       decode slots (the fixed decode batch dim).
@@ -196,9 +213,17 @@ class ServingConfig:
                      slot instead of prefilled (needs ``prefill_chunk``).
     kv_quantization: "none" or "int8" (int8 blocks, per block and kv-head
                      fp32 scales).
-    speculation:     "off" (continuous hidden-state feedback) or "greedy"
-                     (token feedback through the greedy token table);
-                     "ngram" and "draft-model" are part 11c's.
+    speculation:     "off" (continuous hidden-state feedback), "greedy"
+                     (token feedback through the greedy token table), or
+                     the drafting modes "ngram" and "draft-model".
+    spec_gamma:      drafts per verify unit (the largest of the γ ladder).
+    spec_adaptive:   each request backs its γ off through the ladder by
+                     its acceptance EMA.
+    spec_draft_layers, spec_draft_kv_heads: the draft model's depth and
+                     kv heads ("draft-model").
+    temperature:     > 0 samples every token on the host (residual
+                     sampling over the verify logits) from a numpy
+                     generator seeded with ``sample_seed``.
     """
 
     max_batch: int = 8
@@ -620,8 +645,7 @@ class ServingConfig:
 
 
 def _not_ported(what: str, part: str) -> ValueError:
-    item = {"11c": "speculative and sampled decoding",
-            "11d": "serving resilience"}[part]
+    item = {"11d": "serving resilience"}[part]
     return ValueError(
         f"{what} is not ported yet: it comes with {item} (ROADMAP Queue 1, "
         f"Slice E, item 11, part {part})")
@@ -629,12 +653,8 @@ def _not_ported(what: str, part: str) -> ValueError:
 
 def _refuse_unported(serving: ServingConfig) -> None:
     """The knobs JAX's engine serves and this one does not, each refused
-    with the ROADMAP item that brings it (never silently ignored).
-    ``validate`` has already tied ``temperature > 0`` to a drafting mode,
-    so these refusals cover every knob of parts 11c and 11d."""
-    if serving.spec_drafting:
-        raise _not_ported(f"serving.speculation={serving.speculation!r} (and the "
-                          "sampled decode of temperature > 0)", "11c")
+    with the ROADMAP item that brings it (never silently ignored): the
+    dispatch watchdog of part 11d."""
     if serving.dispatch_deadline_factor is not None:
         raise _not_ported("serving.dispatch_deadline_factor (the dispatch "
                           "watchdog)", "11d")
@@ -1155,6 +1175,259 @@ def build_decode_fused_token(config: ModelConfig, mesh=None, *, k: int):
 
 
 # ---------------------------------------------------------------------------
+# speculative and sampled decoding (part 11c)
+# ---------------------------------------------------------------------------
+
+
+def _gather_dp(t: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
+    """This rank's per-slot values (``B/dp`` along ``dim``) as the whole
+    batch's, gathered over its dp group (the ranks of its tp column)."""
+    if mesh is None or mesh.shape["dp"] == 1:
+        return t
+    return all_gather_along(t, dim, mesh.axis_groups["dp"])
+
+
+def _inject_token_sampled(carry, slot, tok, table, mesh=None):
+    """Sampled-mode admission inject: the host drew the first token from
+    the prefill's softmax, so the device only embeds the committed id,
+    ``x[slot, 0] = table[tok]``, on the rank that holds the slot."""
+    return _inject_token(carry, slot, table[int(tok)], mesh)
+
+
+def _verify_attention(q: torch.Tensor, k_flat: torch.Tensor, v_flat: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """Offset-causal, length-masked attention for one verify unit.
+
+    q: ``[B, n, G, d]`` (G = γ+1 verify positions per slot); k_flat/v_flat:
+    ``[B, S_max, kvh, d]``; valid: ``[B, G, S_max]`` bool, query ``i`` of
+    slot ``b`` reaching keys ``j <= lengths[b] + i``.  ``_cached_attention``'s
+    math (fp32 logits over 1/sqrt(d), fp32 softmax, the query heads grouped
+    against each kv head, never repeated), of which it is the G > 1 case:
+    a kv head's group and positions run as one ``[grp * G, d]`` product."""
+    b, n, g, d = q.shape
+    kvh, s_max = k_flat.shape[2], k_flat.shape[1]
+    grp = n // kvh
+    q32 = q.float().reshape(b, kvh, grp * g, d)
+    k32 = k_flat.permute(0, 2, 1, 3).to(torch.float32, memory_format=torch.contiguous_format)
+    v32 = v_flat.permute(0, 2, 1, 3).to(torch.float32, memory_format=torch.contiguous_format)
+    logits = torch.matmul(q32, k32.transpose(-1, -2)) / math.sqrt(d)
+    logits = logits.view(b, kvh, grp, g, s_max).masked_fill(~valid[:, None, None],
+                                                           float("-inf"))
+    probs = torch.softmax(logits, dim=-1).view(b, kvh, grp * g, s_max)
+    out = torch.matmul(probs, v32).reshape(b, n, g, d)
+    return out.to(k_flat.dtype)
+
+
+def _verify_math(carry, params, table, draft_ids, active, config: ModelConfig, mesh=None):
+    """The verify unit's target forward, shared by the greedy verify and
+    the sampled verify: each slot's pending input and its γ drafts
+    (``draft_ids [B/dp, γ]``, embedded through the token table) run as one
+    ``[B/dp, γ+1, H]`` pass through every block.  Per layer, position
+    ``i`` appends its K/V row at ``lengths + i`` for active slots, in place
+    (JAX's one-hot ``pos == lengths + i`` write: a row at or past
+    ``max_seq`` is not written), and attends under the offset-causal mask.
+    The rows appended past what the host later commits stay in the cache
+    past each length, dead because attention is masked by length.  Returns
+    ``y [B/dp, γ+1, H]``; ``lengths`` is not changed."""
+    tp = 1 if mesh is None else mesh.shape["tp"]
+    local = local_config(config, tp)
+    tp_mesh = _tp_mesh(mesh)
+    n, d, kvh = local.num_heads, local.head_dim, local.kv_heads
+    cache, x = carry
+    first, b_dim = _slot_range(cache, mesh)
+    s_max, bs = cache.max_seq, cache.block_size
+    g1 = draft_ids.shape[1] + 1
+    lengths = cache.lengths[first:first + b_dim]
+    act = active[first:first + b_dim]
+    dev = lengths.device
+    d_emb = table.index_select(0, draft_ids.reshape(-1).long()).reshape(
+        b_dim, g1 - 1, x.shape[-1]).to(x.dtype)
+    h = torch.cat([x, d_emb], dim=1)                              # [B, γ+1, H]
+    offs = lengths[:, None] + torch.arange(g1, device=dev)[None, :]
+    valid = torch.arange(s_max, device=dev)[None, None, :] <= offs[:, :, None]
+    rows = torch.arange(b_dim, device=dev)
+    writes = []
+    for i in range(g1):
+        write = act & (offs[:, i] < s_max)
+        at = torch.where(write, offs[:, i], torch.zeros_like(lengths)).long()
+        writes.append((at // bs, at % bs, write))
+
+    def attention_step(q, k, v, cache_state):
+        k_l, v_l = cache_state
+        k_new = k.reshape(b_dim, g1, kvh, d)
+        v_new = v.reshape(b_dim, g1, kvh, d)
+        # γ+1 row appends, one per verify position (each writes distinct
+        # rows, so no put collides)
+        for i, (blk, off, write) in enumerate(writes):
+            _append_rows(k_l, k_new[:, i], rows, blk, off, write)
+            _append_rows(v_l, v_new[:, i], rows, blk, off, write)
+        attn = _verify_attention(_heads(q, n, d), k_l.reshape(b_dim, s_max, kvh, d),
+                                 v_l.reshape(b_dim, s_max, kvh, d), valid)
+        return attn.transpose(1, 2).reshape(b_dim, g1, n * d), cache_state
+
+    layers, _ = layer_list(params["layers"])
+    for i, layer in enumerate(layers):
+        h, _ = _serve_block(h, layer, local, attention_step, _layer_planes(cache, i), tp_mesh)
+    return _layernorm(h, params["ln_f"]["scale"], params["ln_f"]["bias"])
+
+
+def build_verify_step(config: ModelConfig, mesh=None, *, gamma: int):
+    """``verify_step(carry, params, table, draft_ids, active, remaining) ->
+    (carry, tok, commits)``: the greedy draft-and-verify unit, one batched
+    target forward (:func:`_verify_math`) for the γ drafts of every slot.
+
+    ``tok = argmax(y)`` is the target's token at every position; the
+    accepted length is the run of leading draft/target matches and
+    ``commits = min(accepted + 1, remaining)`` for an active slot, 0
+    otherwise (the +1 is the verify's own token at the first mismatch).
+    ``lengths`` advances by ``commits`` and ``x'`` is the last committed
+    token's embedding, so the carry protocol is the decode step's.  ``tok
+    [B, γ+1]`` and ``commits [B]`` come back whole on every rank, gathered
+    over the dp group: each rank's scheduler reads them, and ``lengths`` is
+    whole."""
+
+    @torch.no_grad()
+    def verify_step(carry, params, table, draft_ids, active, remaining):
+        cache, x = carry
+        first, b_dim = _slot_range(cache, mesh)
+        y = _verify_math(carry, params, table, draft_ids, active, config, mesh)
+        act = active[first:first + b_dim]
+        tok = torch.argmax(y, dim=-1).to(torch.int32)              # [B/dp, γ+1]
+        match = (tok[:, :gamma] == draft_ids).to(torch.int32)
+        accepted = torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)
+        rem = remaining[first:first + b_dim].to(torch.int32)
+        commits = torch.where(act, torch.minimum(accepted + 1, rem),
+                              torch.zeros_like(accepted)).to(torch.int32)
+        last = tok.gather(1, (commits - 1).clamp(min=0).long()[:, None])[:, 0]
+        x_new = table.index_select(0, last)[:, None, :].to(x.dtype)
+        x_f = torch.where(act[:, None, None], x_new, x)
+        tok, commits = _gather_dp(tok, mesh), _gather_dp(commits, mesh)
+        cache.lengths.add_(commits)
+        return (cache, x_f), tok, commits
+
+    return verify_step
+
+
+def build_verify_probs(config: ModelConfig, mesh=None, *, gamma: int):
+    """``verify_probs(carry, params, table, draft_ids, active) -> (carry,
+    y)``: the sampled verify's device half, :func:`build_verify_step`'s
+    forward returning the raw logits ``y [B/dp, γ+1, H]`` and committing
+    nothing: ``lengths`` and ``x`` come back unchanged, so a second call on
+    the returned carry writes the same rows and gives the same ``y``.
+    ``gamma`` 0 is a plain decode step that commits nothing, the sampled
+    path's unit while the drafter is cold."""
+
+    @torch.no_grad()
+    def verify_probs(carry, params, table, draft_ids, active):
+        if draft_ids.shape[1] != gamma:
+            raise ValueError(f"draft_ids carry {draft_ids.shape[1]} drafts, not {gamma}")
+        return carry, _verify_math(carry, params, table, draft_ids, active, config, mesh)
+
+    return verify_probs
+
+
+def build_spec_commit(config: ModelConfig, mesh=None):
+    """``spec_commit(carry, table, next_ids, commits, active) -> carry``: the
+    sampled verify's commit half.  The host decided each slot's ``commits``
+    and its last committed token ``next_ids`` (both whole ``[max_batch]``):
+    ``lengths`` advances by the commits and an active slot's ``x`` becomes
+    ``table[next_ids]``, the carry protocol the greedy verify applies on the
+    device."""
+
+    @torch.no_grad()
+    def spec_commit(carry, table, next_ids, commits, active):
+        cache, x = carry
+        first, b_dim = _slot_range(cache, mesh)
+        cache.lengths.add_(commits.to(torch.int32))
+        emb = table.index_select(0, next_ids[first:first + b_dim].long())[:, None, :]
+        return cache, torch.where(active[first:first + b_dim, None, None], emb.to(x.dtype), x)
+
+    return spec_commit
+
+
+def build_draft_scan(config: ModelConfig, mesh=None, *, gamma: int):
+    """``draft_scan(cache, params, table, x, lengths, active) -> (cache,
+    draft_ids [B/dp, γ])``: γ greedy token-feedback decode steps of the
+    shallow draft model over its own cache.  ``x`` is the target's carry
+    input (the draft shares its hidden size and token table); ``lengths``
+    (whole) are the host's committed lengths and overwrite the cache's own,
+    which is the draft plane's rollback after a rejection: rows past them
+    are dead by the length mask."""
+
+    @torch.no_grad()
+    def draft_scan(cache, params, table, x, lengths, active):
+        cache.lengths.copy_(lengths)
+        toks = []
+        for _ in range(gamma):
+            (cache, y), _ = _decode_step_math((cache, x), params, active, config, mesh)
+            tok = torch.argmax(y[:, 0, :], dim=-1).to(torch.int32)
+            x = table.index_select(0, tok)[:, None, :].to(y.dtype)
+            toks.append(tok)
+        return cache, torch.stack(toks, dim=1)
+
+    return draft_scan
+
+
+def _ngram_propose(hist: list, gamma: int, max_ngram: int = 3) -> Optional[list]:
+    """Prompt-lookup / n-gram drafting (Saxena 2023), JAX's host helper: the
+    most recent earlier occurrence of the history's trailing n-gram (n from
+    ``max_ngram`` down to 1) proposes the γ ids that followed it; a match
+    ``d < γ`` positions back extends cyclically through that period.  A pure
+    function of ``hist`` (the prompt's token ids and every committed
+    token); None when even the last token never occurred before (cold)."""
+    ln = len(hist)
+    for n in range(min(max_ngram, ln - 1), 0, -1):
+        key = hist[ln - n:]
+        for start in range(ln - n - 1, -1, -1):
+            if hist[start:start + n] == key:
+                cont = list(hist[start + n:start + n + gamma])
+                if len(cont) < gamma:
+                    d = len(cont)  # == distance back to the match
+                    cont += [cont[i % d] for i in range(d, gamma)]
+                return cont
+    return None
+
+
+def softmax_np(logits: np.ndarray, temperature: float) -> np.ndarray:
+    """Host-side temperature softmax (float64, max-subtracted): the sampled
+    path's target law ``p``.  The device never softmaxes: every probability
+    the sampler draws from is computed here, from the raw logits."""
+    z = np.asarray(logits, np.float64) / float(temperature)
+    z = z - z.max(axis=-1, keepdims=True)
+    e = np.exp(z)
+    return e / e.sum(axis=-1, keepdims=True)
+
+
+def residual_distribution(p_target: np.ndarray, q_draft: np.ndarray) -> np.ndarray:
+    """Speculative sampling's rejection distribution (Leviathan et al.
+    2023), ``norm(max(p - q, 0))``; ``p`` itself when ``q`` dominates it
+    everywhere (rejection then has probability zero)."""
+    resid = np.maximum(np.asarray(p_target, np.float64) - np.asarray(q_draft, np.float64), 0.0)
+    z = resid.sum()
+    if z <= 0.0:
+        return np.asarray(p_target, np.float64)
+    return resid / z
+
+
+def speculative_sample(p_target: np.ndarray, q_draft: np.ndarray, draft_id: int,
+                       rng: np.random.Generator) -> tuple[int, bool]:
+    """One position of the residual-sampling correction: accept the draft
+    with probability ``min(1, p/q)``, else draw from
+    :func:`residual_distribution`.  The composite law is exactly ``p``, so
+    sampled speculative decode is distribution-identical to the sequential
+    sampler.  The engine calls it with ``q`` the deterministic drafter's
+    one-hot, so acceptance is ``p[draft]`` and the residual is ``p`` with
+    the draft's mass removed."""
+    p = float(p_target[draft_id])
+    q = float(q_draft[draft_id])
+    accept_p = 1.0 if q <= 0.0 and p > 0.0 else (min(1.0, p / q) if q > 0.0 else 0.0)
+    if rng.uniform() < accept_p:
+        return int(draft_id), True
+    resid = residual_distribution(p_target, q_draft)
+    return int(rng.choice(len(resid), p=resid)), False
+
+
+# ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
 
@@ -1163,6 +1436,10 @@ def build_decode_fused_token(config: ModelConfig, mesh=None, *, k: int):
 class _SlotState:
     req: Request
     tokens_done: int = 0
+    # adaptive speculation: this request's verify γ (a ladder bucket) and
+    # its acceptance-rate EMA (-1: no verify observed yet)
+    gamma_eff: int = 0
+    accept_ema: float = -1.0
 
 
 @dataclass
@@ -1184,6 +1461,13 @@ class _RunStats:
     prefix_hits: int = 0            # admissions that attached to the trie
     prefix_tokens_reused: int = 0   # prompt tokens served from shared blocks
     prefix_cow_blocks: int = 0      # blocks recomputed privately (CoW)
+    spec_verify_units: int = 0      # draft-and-verify dispatches
+    spec_fallback_units: int = 0    # cold-drafter fallbacks
+    spec_proposed_tokens: int = 0   # γ per resident slot per verify
+    spec_accepted_tokens: int = 0   # drafts the target verify accepted
+    spec_commit_tokens: int = 0     # committed, the bonus token included
+    spec_slot_verifies: int = 0     # slot-level verifies (for the mean length)
+    spec_draft_s: float = 0.0       # host drafting and draft-scan wall
 
 
 # the serving fault sites of JAX's engine (resilience/inject.py), which
@@ -1203,8 +1487,13 @@ class ServingEngine:
     (None: one device, no process group); every rank of it builds the
     engine and calls :meth:`run_trace` with the same trace.  ``params``
     are this rank's tp shards (``models/sharding.py``), or None for
-    ``init_params`` from ``seed``.  ``device`` is ``cuda`` unless the
-    caller names ``cpu``."""
+    ``init_params`` from ``seed``; ``draft_params`` likewise the draft
+    model's under ``speculation="draft-model"`` (None: ``init_params`` of
+    ``serving.draft_model_config`` from ``seed + 1``, as JAX derives its
+    draft from ``seed + 1``).  ``device`` is ``cuda`` unless the caller
+    names ``cpu``.  After a run, ``draft_cache_stats`` holds the draft
+    model's ledger's ``stats()`` (None without a draft model): JAX's report
+    does not carry that ledger."""
 
     def __init__(
         self,
@@ -1218,6 +1507,7 @@ class ServingEngine:
         verbose: bool = True,
         capture_tokens: bool = False,
         device=None,
+        draft_params: Any = None,
     ) -> None:
         if mesh is not None and set(mesh.axis_names) != {"dp", "tp"}:
             raise ValueError(f"the serving engine runs on a (dp, tp) mesh, not axes "
@@ -1280,8 +1570,8 @@ class ServingEngine:
             ):
                 self.registry.inc(name, 0, help=hlp)
         self._dtype = DTYPES[config.dtype]
+        tp_rank = 0 if mesh is None else mesh.coords["tp"]
         if params is None:
-            tp_rank = 0 if mesh is None else mesh.coords["tp"]
             params = init_params(config, seed, self.device, tp_rank=tp_rank, tp=self.tp)
         self.params = params
         self._prefill = build_prefill(config, mesh)
@@ -1302,13 +1592,59 @@ class ServingEngine:
         # token-feedback ("greedy") quantises decode through the greedy
         # token table, whole on every rank
         self._token_mode = serving.speculation != "off"
+        # non-adaptive runs verify at spec_gamma alone; adaptive ones back
+        # off through the whole ladder
+        self._spec_gammas: tuple[int, ...] = (
+            serving.spec_gammas if serving.spec_adaptive
+            else ((serving.spec_gamma,) if serving.spec_drafting else ()))
         self._table: Optional[torch.Tensor] = None
+        self._verify: dict[int, Any] = {}
+        self._draft_config: Optional[ModelConfig] = None
+        self._draft_params: Any = None
+        self._draft_prefill = None
+        self._draft_scan: dict[int, Any] = {}
         if self._token_mode:
             self._table = token_embedding_table(config.hidden_size, self._dtype,
                                                 device=self.device)
             self._decode_token = build_decode_token_step(config, mesh)
             self._decode_fused_token = {k: build_decode_fused_token(config, mesh, k=k)
                                         for k in self._fused_ks}
+        # sampled decode (temperature > 0): the verify returns its logits
+        # and the host samples; a cold n-gram drafter runs the γ = 0
+        # verify, so a sampled run never dispatches a greedy program
+        self._sampled = serving.temperature > 0
+        self._verify_probs: dict[int, Any] = {}
+        self._spec_commit = None
+        if self._sampled:
+            probs_gammas = set(self._spec_gammas)
+            if serving.speculation == "ngram":
+                probs_gammas.add(0)
+            self._verify_probs = {g: build_verify_probs(config, mesh, gamma=g)
+                                  for g in sorted(probs_gammas)}
+            self._spec_commit = build_spec_commit(config, mesh)
+            self.registry.inc(
+                "serve_sampled_tokens", 0,
+                help="tokens committed by the sampled (temperature > 0) "
+                     "residual-sampling path")
+        if serving.spec_drafting:
+            self._verify = {g: build_verify_step(config, mesh, gamma=g)
+                            for g in self._spec_gammas}
+            self._spec_proposed = self.registry.labeled_counter(
+                "serve_spec_proposed_total", "drafter", initial=("ngram", "draft-model"),
+                help="draft tokens proposed to the verify step, by drafter")
+            self._spec_accepted = self.registry.labeled_counter(
+                "serve_spec_accepted_total", "drafter", initial=("ngram", "draft-model"),
+                help="draft tokens the target verify accepted, by drafter")
+        if serving.speculation == "draft-model":
+            self._draft_config = serving.draft_model_config(config)
+            if draft_params is None:
+                draft_params = init_params(self._draft_config, seed + 1, self.device,
+                                           tp_rank=tp_rank, tp=self.tp)
+            self._draft_params = draft_params
+            self._draft_prefill = build_prefill(self._draft_config, mesh)
+            self._draft_scan = {g: build_draft_scan(self._draft_config, mesh, gamma=g)
+                                for g in self._spec_gammas}
+        self.draft_cache_stats: Optional[dict[str, int]] = None
         self._t0 = time.perf_counter()
 
     # -- clock (monotonic, run-relative) -----------------------------------
@@ -1355,13 +1691,6 @@ class ServingEngine:
         dist.broadcast(y_last, src=src, group=self.mesh.axis_groups["dp"])
         return y_last
 
-    def _gather_slots(self, t: torch.Tensor) -> torch.Tensor:
-        """This rank's per-slot values ``[..., B/dp]`` as the whole
-        ``[..., B]``."""
-        if self.dp == 1:
-            return t
-        return all_gather_along(t, t.dim() - 1, self.mesh.axis_groups["dp"])
-
     def _upload(self, host: np.ndarray) -> torch.Tensor:
         """A host array on the device, from a copy of it taken now: the
         caller may change ``host`` while decode units that read the upload
@@ -1399,6 +1728,19 @@ class ServingEngine:
         x = torch.zeros((b_local, 1, self.config.hidden_size), dtype=self._dtype,
                         device=self.device)
         return (cache, x)
+
+    def _fresh_draft_cache(self) -> Optional[KVCache]:
+        """The draft model's own zero cache shard (the target's slot and
+        block geometry at the draft's layers and kv heads; ``lengths``
+        whole), None without a draft model."""
+        if self._draft_config is None:
+            return None
+        cfg = self.serving
+        cache = create_kv_cache(local_config(self._draft_config, self.tp),
+                                cfg.max_batch // self.dp, cfg.num_blocks, cfg.block_size,
+                                device=self.device)
+        return cache._replace(lengths=torch.zeros((cfg.max_batch,), dtype=torch.int32,
+                                                  device=self.device))
 
     def capture_device_traces(self, trace_root: Any) -> list[dict]:
         raise ValueError(
@@ -1458,7 +1800,8 @@ class ServingEngine:
     def _compile(self, buckets: list[int], max_chunks: int = 0) -> None:
         """Warm every program the trace will run (prefill per bucket or per
         chunk offset, the attach ladder, the inject, the decode step, the
-        fused ladder and compaction) once on scratch state, so that CUDA
+        fused ladder, compaction, the verify ladder, the sampled verify and
+        commit, the draft prefill and scans) once on scratch state, so that CUDA
         and cuBLAS start-up never lands in TTFT.  JAX compiles its jits
         here; eager torch compiles nothing, and the report's
         ``compile_time_s`` holds this warm-up's wall time."""
@@ -1491,12 +1834,25 @@ class ServingEngine:
                 for m in range(1, max_chunks):
                     cache, _prefix = self._attach_program(m)(cache, slot, slot)
             carry = (cache, carry[1])
-        if self._token_mode:
+        b_local = cfg.max_batch // self.dp
+        if self._sampled:
+            # the sampled run's whole decode surface: verify_probs and
+            # spec_commit (never a greedy token program)
+            carry = _inject_token_sampled(carry, slot, 0, self._table, self.mesh)
+            for g in sorted(self._verify_probs):
+                ids = torch.zeros((b_local, g), dtype=torch.int32, device=self.device)
+                carry, _y = self._verify_probs[g](carry, self.params, self._table, ids, active)
+            carry = self._spec_commit(carry, self._table, remaining, remaining, active)
+        elif self._token_mode:
             carry, _tok = _inject_token_greedy(carry, slot, y_last, self._table, self.mesh)
             carry, _tok = self._decode_token(carry, self.params, self._table, active)
             for k in self._fused_ks:
                 carry, _toks = self._decode_fused_token[k](carry, self.params, self._table,
                                                            active, remaining)
+            for g in self._spec_gammas:
+                ids = torch.zeros((b_local, g), dtype=torch.int32, device=self.device)
+                carry, _tok, _commits = self._verify[g](carry, self.params, self._table, ids,
+                                                        active, remaining)
         else:
             carry = _inject_token(carry, slot, y_last, self.mesh)
             carry, _y = self._decode(carry, self.params, active)
@@ -1510,6 +1866,15 @@ class ServingEngine:
                 small, _ys = self._decode_fused[k](small, self.params, active[:bucket],
                                                    remaining[:bucket])
             carry = self._compact_scatter(carry, small, idx)
+        if self._draft_config is not None:
+            dcache = self._fresh_draft_cache()
+            for b in buckets:
+                dummy = request_embeddings(0, b, self.config.hidden_size,
+                                           dtype=self._dtype, pad_to=b, device=self.device)
+                dcache, _dy = self._draft_prefill(dcache, self._draft_params, dummy, slot, b)
+            for g in self._spec_gammas:
+                dcache, _ids = self._draft_scan[g](dcache, self._draft_params, self._table,
+                                                   carry[1], remaining, active)
         self._sync()
 
     def _event(self, event: str, rid: int, **extra: Any) -> None:
@@ -1594,6 +1959,23 @@ class ServingEngine:
         rejected_detail: list[dict[str, Any]] = []
         tokens_by_rid: dict[int, list[int]] = {}
         token_mode = self._token_mode
+        spec_on = cfg.spec_drafting
+        # per-rid token history (the prompt's ids and every committed
+        # token): the n-gram drafter's lookup context, whole on every rank
+        hist: dict[int, list[int]] = {}
+        # the sampled path's host generator, JAX's: a (trace, config) pair
+        # replays token for token, and every rank draws the same numbers
+        sample_rng = np.random.default_rng(cfg.sample_seed) if self._sampled else None
+        # the draft model's cache, and a ledger that mirrors the target's
+        draft_cache: list[Optional[KVCache]] = [self._fresh_draft_cache()]
+        draft_ledger = (BlockLedger(cfg.total_blocks, cfg.block_size)
+                        if draft_cache[0] is not None else None)
+        # run-level acceptance EMA (the serve_spec_acceptance_ema gauge)
+        accept_ema_run = [-1.0]
+        # this rank's slots
+        first_slot = (cfg.max_batch // self.dp) * (0 if self.mesh is None
+                                                   else self.mesh.coords["dp"])
+        local_slots = slice(first_slot, first_slot + cfg.max_batch // self.dp)
         # per-request final outcome map (rid -> "completed" /
         # "rejected[reason]")
         outcomes: dict[int, str] = {}
@@ -1627,6 +2009,8 @@ class ServingEngine:
             it already masked it inactive)."""
             st = slots.pop(slot)
             ledger.free(slot)
+            if draft_ledger is not None:
+                draft_ledger.free(slot)
             active_np[slot] = False
             active_dirty[0] = True
             free_slots.append(slot)
@@ -1664,16 +2048,22 @@ class ServingEngine:
             for _row, _slot, _rid, steps in unit["rows"]:
                 stats.per_token_s.extend([per_step] * steps)
             done_at = self._now()
-            if self.capture_tokens:
-                # the device argmax: one int per slot and step comes to host
+            ngram_hist = token_mode and cfg.speculation == "ngram"
+            if self.capture_tokens or ngram_hist:
+                # the device argmax: one int per slot and step comes to host;
+                # a token-mode unit's ys are the token ids, which extend the
+                # n-gram histories even when capture is off
                 ys = unit["ys"]
                 toks = ys if token_mode else torch.argmax(ys[..., 0, :], dim=-1)
                 if toks.dim() == 1:          # a per-step unit: [B]
                     toks = toks[None]
-                toks_np = self._gather_slots(toks.to(torch.int32)).cpu().numpy()
+                toks_np = _gather_dp(toks.to(torch.int32), self.mesh, 1).cpu().numpy()
                 for row, _slot, rid, steps in unit["rows"]:
-                    tokens_by_rid.setdefault(rid, []).extend(
-                        int(t) for t in toks_np[:steps, row])
+                    ids = [int(t) for t in toks_np[:steps, row]]
+                    if ngram_hist and rid in hist:
+                        hist[rid].extend(ids)
+                    if self.capture_tokens:
+                        tokens_by_rid.setdefault(rid, []).extend(ids)
             # finish AFTER the unit's token capture: the completion event
             # carries the request's full committed token list
             for st in unit["completions"]:
@@ -1764,6 +2154,215 @@ class ServingEngine:
                 while len(inflight) >= window:
                     sync_one()
 
+        def take_snapshot() -> dict[str, Any]:
+            """The verify unit's rollback point: the ledgers, the resident
+            slots' token counts and the generated count (host copies)."""
+            return {"ledger": ledger.snapshot(),
+                    "draft_ledger": (draft_ledger.snapshot()
+                                     if draft_ledger is not None else None),
+                    "tokens_done": {s: st.tokens_done for s, st in slots.items()},
+                    "generated": stats.generated_tokens}
+
+        def restore_snapshot(snap: dict[str, Any]) -> None:
+            ledger.restore(snap["ledger"])
+            if draft_ledger is not None:
+                draft_ledger.restore(snap["draft_ledger"])
+            for s, done in snap["tokens_done"].items():
+                slots[s].tokens_done = done
+            stats.generated_tokens = snap["generated"]
+
+        def spec_unit(g: int, drafts_np: np.ndarray, snap: dict[str, Any]) -> None:
+            """One draft-and-verify unit over the whole resident batch: the
+            draft (the n-gram drafts are in ``drafts_np``, whole; the draft
+            model's scan runs here), one batched verify, a synchronous read
+            of the commits, and the bookkeeping.  It never rides the
+            in-flight window: its accounting depends on the device's
+            acceptance.  The bookkeeping is JAX's optimistic-then-rollback:
+            every slot is first accounted its whole γ+1 window, and a
+            shortfall restores ``snap`` and replays the true commits."""
+            nonlocal carry
+            refresh_active()
+            rows = [(s, slots[s].req.rid) for s in sorted(slots)]
+            rem_map = {s: slots[s].req.output_len - slots[s].tokens_done for s, _ in rows}
+            t0 = time.perf_counter()
+            with spans.span("serve-verify", active=len(slots), gamma=g,
+                            drafter=cfg.speculation):
+                rem_np = np.zeros((cfg.max_batch,), np.int32)
+                for s, _ in rows:
+                    rem_np[s] = rem_map[s]
+                if cfg.speculation == "draft-model":
+                    # the host's committed lengths overwrite the draft
+                    # cache's own (advanced by γ last unit): its rollback
+                    lengths_np = np.zeros((cfg.max_batch,), np.int32)
+                    for s, _ in rows:
+                        st = slots[s]
+                        lengths_np[s] = st.req.prompt_len + st.tokens_done - 1
+                    t_d = time.perf_counter()
+                    draft_cache[0], ids = self._draft_scan[g](
+                        draft_cache[0], self._draft_params, self._table, carry[1],
+                        self._upload(lengths_np), active_dev)
+                    # host dispatch wall only: the drafts stay on the device
+                    stats.spec_draft_s += time.perf_counter() - t_d
+                else:
+                    ids = self._upload(drafts_np[local_slots])
+                committed_ids: Optional[dict[int, list[int]]] = None
+                tok = None
+                if self._sampled:
+                    # the verify commits nothing; the host samples over the
+                    # logits of every slot (gathered over dp, so every rank
+                    # draws the same numbers in JAX's slot order), and
+                    # spec_commit applies the decided commits
+                    carry, y = self._verify_probs[g](carry, self.params, self._table, ids,
+                                                     active_dev)
+                    y_np = _gather_dp(y, self.mesh).float().cpu().numpy()
+                    ids_np = (_gather_dp(ids, self.mesh).cpu().numpy()
+                              if cfg.speculation == "draft-model" else drafts_np)
+                    vocab = y_np.shape[-1]
+                    commits_np = np.zeros((cfg.max_batch,), np.int32)
+                    next_np = np.zeros((cfg.max_batch,), np.int32)
+                    committed_ids = {}
+                    for s, _rid in rows:
+                        p_rows = softmax_np(y_np[s], cfg.temperature)
+                        toks: list[int] = []
+                        for j in range(g):
+                            d_id = int(ids_np[s, j])
+                            q = np.zeros((vocab,), np.float64)
+                            q[d_id] = 1.0
+                            t, ok = speculative_sample(p_rows[j], q, d_id, sample_rng)
+                            toks.append(t)
+                            if not ok:
+                                break
+                        else:
+                            # every draft accepted: the window's bonus token
+                            # is a draw from the last position's law
+                            toks.append(int(sample_rng.choice(vocab, p=p_rows[g])))
+                        m = min(len(toks), rem_map[s])
+                        commits_np[s] = m
+                        next_np[s] = toks[m - 1]
+                        committed_ids[s] = toks[:m]
+                    carry = self._spec_commit(carry, self._table, self._upload(next_np),
+                                              self._upload(commits_np), active_dev)
+                    self.registry.inc("serve_sampled_tokens", int(commits_np.sum()))
+                else:
+                    carry, tok, commits = self._verify[g](carry, self.params, self._table, ids,
+                                                          active_dev, self._upload(rem_np))
+                    commits_np = commits.cpu().numpy()
+                t_ready = time.perf_counter()
+                dt = t_ready - max(t0, last_sync[0])
+                last_sync[0] = t_ready
+                for s, _rid in rows:
+                    st = slots[s]
+                    opt = min(g + 1, rem_map[s])
+                    st.tokens_done += opt
+                    ledger.append(s, opt)
+                    if draft_ledger is not None:
+                        draft_ledger.append(s, opt)
+                    stats.generated_tokens += opt
+                if any(int(commits_np[s]) != min(g + 1, rem_map[s]) for s, _ in rows):
+                    # rejection rollback: the true commits replayed
+                    restore_snapshot(snap)
+                    for s, _rid in rows:
+                        st = slots[s]
+                        m = int(commits_np[s])
+                        st.tokens_done += m
+                        ledger.append(s, m)
+                        if draft_ledger is not None:
+                            draft_ledger.append(s, m)
+                        stats.generated_tokens += m
+                completions = [s for s, _ in rows
+                               if slots[s].tokens_done >= slots[s].req.output_len]
+                stats.decode_steps += 1
+                stats.decode_units += 1
+                stats.spec_verify_units += 1
+                self.registry.inc("serve_decode_steps", 1)
+                stats.decode_step_s.append(dt)
+                step_ema[0] = dt if step_ema[0] == 0.0 else 0.5 * step_ema[0] + 0.5 * dt
+                drafter = cfg.speculation
+                ladder = self._spec_gammas
+                unit_acc = 0
+                tok_np = (tok.cpu().numpy()
+                          if tok is not None and (drafter == "ngram" or self.capture_tokens)
+                          else None)
+                for s, rid in rows:
+                    m = int(commits_np[s])
+                    acc = max(m - 1, 0)
+                    unit_acc += acc
+                    stats.spec_slot_verifies += 1
+                    stats.spec_proposed_tokens += g
+                    stats.spec_accepted_tokens += acc
+                    stats.spec_commit_tokens += m
+                    self._spec_proposed[drafter] += g
+                    self._spec_accepted[drafter] += acc
+                    stats.per_token_s.extend([dt / m] * m)
+                    self._event("spec-verify", rid, gamma=g, accepted=acc, committed=m)
+                    st = slots[s]
+                    if cfg.spec_adaptive:
+                        rate = acc / g if g else 0.0
+                        st.accept_ema = (rate if st.accept_ema < 0
+                                         else 0.5 * st.accept_ema + 0.5 * rate)
+                        pos = (ladder.index(st.gamma_eff) if st.gamma_eff in ladder
+                               else len(ladder) - 1)
+                        if st.accept_ema < 0.25 and pos > 0:
+                            st.gamma_eff = ladder[pos - 1]
+                        elif st.accept_ema > 0.75 and pos < len(ladder) - 1:
+                            st.gamma_eff = ladder[pos + 1]
+                    if tok_np is not None or committed_ids is not None:
+                        ids_host = (committed_ids[s] if committed_ids is not None
+                                    else [int(t) for t in tok_np[s, :m]])
+                        if drafter == "ngram" and rid in hist:
+                            hist[rid].extend(ids_host)
+                        if self.capture_tokens:
+                            tokens_by_rid.setdefault(rid, []).extend(ids_host)
+                unit_rate = unit_acc / (g * len(rows)) if (rows and g) else 0.0
+                accept_ema_run[0] = (unit_rate if accept_ema_run[0] < 0
+                                     else 0.5 * accept_ema_run[0] + 0.5 * unit_rate)
+                self.registry.set_gauge("serve_spec_acceptance_ema", accept_ema_run[0],
+                                        help="EMA of per-verify-unit draft acceptance rate")
+                done_states = [release(s) for s in completions]
+                if completions:
+                    refresh_active()
+                done_at = self._now()
+                for st in done_states:
+                    finish(st, done_at)
+
+        def dispatch_spec() -> bool:
+            """One draft-and-verify unit over the resident batch; False when
+            the n-gram drafter is cold (no hit for any resident slot, read
+            from the whole histories), and the caller then runs a plain
+            token decode unit, so speculation composes with
+            ``decode_horizon`` and the window.  A sampled run's cold unit is
+            the γ = 0 verify instead: one sampled token per slot."""
+            # the histories and the bookkeeping must be current before
+            # drafting: a fallback's fused units may still be in flight
+            drain()
+            if not slots:
+                return True
+            ladder = self._spec_gammas
+            g_want = (max(st.gamma_eff for st in slots.values()) if cfg.spec_adaptive
+                      else cfg.spec_gamma)
+            g = ladder[0]
+            for cand in ladder:
+                if cand <= g_want:
+                    g = cand
+            drafts_np = np.zeros((cfg.max_batch, g), np.int32)
+            if cfg.speculation == "ngram":
+                t_d = time.perf_counter()
+                any_hit = False
+                for s in sorted(slots):
+                    prop = _ngram_propose(hist.get(slots[s].req.rid, []), g)
+                    if prop is not None:
+                        drafts_np[s] = prop
+                        any_hit = True
+                stats.spec_draft_s += time.perf_counter() - t_d
+                if not any_hit:
+                    stats.spec_fallback_units += 1
+                    if not self._sampled:
+                        return False
+                    g = 0
+                    drafts_np = np.zeros((cfg.max_batch, 0), np.int32)
+            spec_unit(g, drafts_np, take_snapshot())
+            return True
+
         def steps_to_arrival() -> int:
             """The decode steps until the next arrival, from the per-step
             EMA (1 before the first sample: one unit bootstraps it)."""
@@ -1778,8 +2377,15 @@ class ServingEngine:
             k-step scan (the largest power of two <= the event horizon),
             on a compacted half batch when few slots are resident.
             ``max_k`` caps the horizon (the chunked-prefill interleave
-            passes 1)."""
+            passes 1).  With a drafter, a draft-and-verify unit comes first,
+            but not in the interleave (a verify's window would block the
+            admission the interleave serves); a cold n-gram drafter falls
+            through to the plain token unit."""
             refresh_active()
+            if spec_on and max_k is None:
+                if dispatch_spec():
+                    return
+                refresh_active()
             rem = {s: slots[s].req.output_len - slots[s].tokens_done
                    for s in sorted(slots)}
             # next event: the earliest completion while anything is (or may
@@ -1850,6 +2456,13 @@ class ServingEngine:
                     t0 = time.perf_counter()
                     cache, y_last = self._prefill(carry[0], self.params, x_prompt,
                                                   slot, req.prompt_len)
+                    if self._draft_prefill is not None:
+                        # the draft cache is prefilled from the same prompt
+                        # embeddings, billed as prefill: the draft model's
+                        # admission price
+                        draft_cache[0], _dy = self._draft_prefill(
+                            draft_cache[0], self._draft_params, x_prompt, slot,
+                            req.prompt_len)
                     y_last = self._from_owner(y_last, slot)
                     self._sync()
                     dt = time.perf_counter() - t0
@@ -1972,8 +2585,19 @@ class ServingEngine:
                         ledger.reserve(slot, req.total_tokens,
                                        chain=plan["chain"] if plan else None,
                                        attach_blocks=attach_blocks)
+                        if draft_ledger is not None:
+                            draft_ledger.reserve(slot, req.total_tokens)
                         bucket, y_last, dt = prefill_once(req, slot, plan)
-                        if token_mode:
+                        if token_mode and self._sampled:
+                            # the first token obeys the temperature law too:
+                            # the prefill's last logits (the same on every
+                            # rank) come to the host, it draws, and the
+                            # device embeds the id
+                            p0 = softmax_np(y_last.float().cpu().numpy(), cfg.temperature)
+                            first_id = int(sample_rng.choice(p0.shape[-1], p=p0))
+                            carry = _inject_token_sampled(carry, slot, first_id, self._table,
+                                                          self.mesh)
+                        elif token_mode:
                             # greedy token inject: the argmax of y_last,
                             # the same on every rank
                             carry, first_tok = _inject_token_greedy(
@@ -1984,6 +2608,8 @@ class ServingEngine:
                             first_id = (int(torch.argmax(y_last))
                                         if self.capture_tokens else -1)
                         ledger.append(slot, req.prompt_len)
+                        if draft_ledger is not None:
+                            draft_ledger.append(slot, req.prompt_len)
                         if plan is not None:
                             reused = plan["attached_tokens"]
                             if reused:
@@ -2005,7 +2631,14 @@ class ServingEngine:
                             # holder of every block of its chain
                             ledger.register(slot, plan["chain"])
                         t_first = self._now()
-                        st = _SlotState(req=req, tokens_done=1)
+                        st = _SlotState(req=req, tokens_done=1, gamma_eff=cfg.spec_gamma)
+                        if cfg.speculation == "ngram":
+                            # prompt lookup: the prompt's own token ids (host
+                            # numpy) and the first committed token
+                            hist[req.rid] = prompt_token_ids(
+                                req.seed, req.prompt_len, self.config.hidden_size,
+                                period=req.prompt_period, prefix_len=req.prefix_len,
+                                prefix_seed=req.prefix_seed) + [first_id]
                         slots[slot] = st
                         active_np[slot] = True
                         active_dirty[0] = True
@@ -2060,6 +2693,7 @@ class ServingEngine:
                     help="slot references across all shared blocks")
         drain()
         wall = self._now()
+        self.draft_cache_stats = draft_ledger.stats() if draft_ledger is not None else None
 
         self.registry.set_gauge("serve_queue_depth_peak",
                                 max(series["queue_depth"], default=0))
@@ -2127,15 +2761,17 @@ class ServingEngine:
                 "gamma": cfg.spec_gamma,
                 "adaptive": cfg.spec_adaptive,
                 "temperature": cfg.temperature,
-                "sampled": False,
+                "sampled": self._sampled,
                 "sample_seed": cfg.sample_seed,
-                "verify_units": 0,
-                "fallback_units": 0,
-                "proposed_tokens": 0,
-                "accepted_tokens": 0,
-                "acceptance_rate": 0.0,
-                "mean_accepted_len": 0.0,
-                "draft_overhead_s": 0.0,
+                "verify_units": stats.spec_verify_units,
+                "fallback_units": stats.spec_fallback_units,
+                "proposed_tokens": stats.spec_proposed_tokens,
+                "accepted_tokens": stats.spec_accepted_tokens,
+                "acceptance_rate": (stats.spec_accepted_tokens / stats.spec_proposed_tokens
+                                    if stats.spec_proposed_tokens else 0.0),
+                "mean_accepted_len": (stats.spec_commit_tokens / stats.spec_slot_verifies
+                                      if stats.spec_slot_verifies else 0.0),
+                "draft_overhead_s": stats.spec_draft_s,
             },
             "resilience": {
                 "retries": 0,

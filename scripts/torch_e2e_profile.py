@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where the time of the port's 1B forward, of its 1B train step, or of its
-1B serving decode step goes on one NVIDIA GPU.
+1B serving decode step or verify unit goes on one NVIDIA GPU.
 
     python3 scripts/torch_e2e_profile.py --out DIR [--batch 8] [--seq 512]
-                                         [--reps 3] [--train | --decode [--int8]]
+                                         [--reps 3] [--train | --decode [--int8]
+                                                     | --verify [--gamma G]]
 
 Builds the 1B decoder of ``dlbb_tpu_torch`` at full width (bf16,
 ``attention="full"``, random weights from seed 42), runs a few warm
@@ -30,6 +31,11 @@ the whole cache whatever the lengths); ``--batch`` and ``--seq`` are not
 used.  ``--int8`` puts that cache in the int8 layout
 (``kv_quantization="int8"``: 6 GiB of codes and their scales), whose step
 dequantises each layer, appends, and requantises the touched blocks.
+
+With ``--verify`` it does the same for one greedy draft-and-verify unit
+(``serve/engine.py::build_verify_step``) on that cache: every slot's
+pending token and ``--gamma`` drafts (default 4) as one ``[32, γ+1, H]``
+pass, every slot active from length 1024 and advancing by its commits.
 """
 
 from __future__ import annotations
@@ -161,6 +167,35 @@ def _decode_step(torch, cfg, int8=False):
     return step
 
 
+def _verify_unit(torch, cfg, gamma):
+    """One greedy verify unit of the 1B at ``gamma`` over phase serve's
+    cache, every slot active: ``step()`` runs it on the carry it returned
+    last, as the engine does (drafts of token 0, so most commit one or two
+    tokens per unit)."""
+    from dlbb_tpu_torch.data.synthetic import token_embedding_table
+    from dlbb_tpu_torch.models import init_params
+    from dlbb_tpu_torch.serve.engine import build_verify_step
+    from dlbb_tpu_torch.serve.kvcache import create_kv_cache
+
+    slots, max_seq, block = 32, 2048, 16
+    params = init_params(cfg, 42, "cuda")
+    cache = create_kv_cache(cfg, slots, max_seq // block, block, device="cuda")
+    cache.lengths.fill_(max_seq // 2)
+    x = torch.randn((slots, 1, cfg.hidden_size), device="cuda", dtype=torch.bfloat16)
+    table = token_embedding_table(cfg.hidden_size, torch.bfloat16, device="cuda")
+    drafts = torch.zeros((slots, gamma), dtype=torch.int32, device="cuda")
+    active = torch.ones(slots, dtype=torch.bool, device="cuda")
+    remaining = torch.full((slots,), max_seq, dtype=torch.int32, device="cuda")
+    verify = build_verify_step(cfg, gamma=gamma)
+    carry = [(cache, x)]
+
+    def step():
+        carry[0], tok, _commits = verify(carry[0], params, table, drafts, active, remaining)
+        return tok
+
+    return step
+
+
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--out", required=True,
@@ -173,11 +208,18 @@ def main() -> int:
                       help="profile the 1B Adam train step instead of the forward")
     mode.add_argument("--decode", action="store_true",
                       help="profile the serving engine's decode step instead")
+    mode.add_argument("--verify", action="store_true",
+                      help="profile one greedy verify unit of the serving engine instead")
     p.add_argument("--int8", action="store_true",
                    help="with --decode: the cache in the int8 layout")
+    p.add_argument("--gamma", type=int, default=None,
+                   help="with --verify: drafts per slot (default 4)")
     args = p.parse_args()
     if args.int8 and not args.decode:
         p.error("--int8 needs --decode")
+    if args.gamma is not None and not args.verify:
+        p.error("--gamma needs --verify")
+    gamma = 4 if args.gamma is None else args.gamma
 
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -200,6 +242,9 @@ def main() -> int:
     elif args.decode:
         step = _decode_step(torch, cfg, int8=args.int8)
         what = "decode_step_int8" if args.int8 else "decode_step"
+    elif args.verify:
+        step = _verify_unit(torch, cfg, gamma)
+        what = f"verify_unit_g{gamma}"
     else:
         params = init_params(cfg, 42, "cuda")
         what = "forward"
@@ -263,8 +308,10 @@ def main() -> int:
         "gpu": gpu_name_and_power_limit(),
         "shape": {"model": "1B",
                   **({"slots": 32, "max_seq": 2048, "block_size": 16,
-                      "kv_quantization": "int8" if args.int8 else "none"} if args.decode
+                      "kv_quantization": "int8" if args.int8 else "none"}
+                     if args.decode or args.verify
                      else {"batch": args.batch, "seq": args.seq}),
+                  **({"gamma": gamma} if args.verify else {}),
                   "dtype": "bfloat16", "attention": "full",
                   "remat_policy": cfg.remat_policy if cfg.remat else None},
         f"{what}_ms_cuda_events": event_ms,

@@ -22,9 +22,10 @@
   host);
 - the three engine tests of ``tests/test_serve.py``, mirrored on the port;
 - ranks agree at dp=2 on a Poisson trace whose admission depends on time;
-- every knob of part 11b engaging (``tests/test_torch_serve_fastpath.py``
-  holds them against JAX), and every knob of parts 11c-11d and of items 12
-  and 13 refused with a ``ValueError`` citing its ROADMAP item.
+- every knob of parts 11b and 11c engaging (``tests/test_torch_serve_fastpath.py``
+  and ``tests/test_torch_spec.py`` hold them against JAX), and every knob
+  of part 11d and of items 12 and 13 refused with a ``ValueError`` citing
+  its ROADMAP item.
 """
 
 import dataclasses
@@ -686,9 +687,6 @@ def test_engine_rejects_infeasible_trace_upfront(smoke_engine):
 # ---------------------------------------------------------------------------
 
 REFUSED = {
-    "ngram": (dict(speculation="ngram", spec_gamma=2), "11c"),
-    "draft_model": (dict(speculation="draft-model", spec_gamma=2), "11c"),
-    "temperature": (dict(speculation="ngram", spec_gamma=2, temperature=0.7), "11c"),
     "watchdog": (dict(dispatch_deadline_factor=4.0), "11d"),
 }
 
@@ -706,7 +704,8 @@ def test_unported_knob_is_refused_with_its_item(name):
     _names_a_roadmap_item(str(e.value))
 
 
-# part 11b's knobs, each with the report's evidence that it engaged
+# parts 11b's and 11c's knobs, each with the report's evidence that it
+# engaged
 ENGAGED = {
     "decode_horizon": (dict(decode_horizon=4),
                        lambda r: r["fast_path"]["fused_scans"] > 0),
@@ -722,15 +721,22 @@ ENGAGED = {
     "kv_int8": (dict(kv_quantization="int8"),
                 lambda r: r["prefix"]["kv_quantization"] == "int8"),
 }
+ENGAGED_11C = {
+    "ngram": (dict(speculation="ngram", spec_gamma=2),
+              lambda r: r["speculation"]["verify_units"] > 0),
+    "draft_model": (dict(speculation="draft-model", spec_gamma=2),
+                    lambda r: r["speculation"]["verify_units"] > 0
+                    and r["speculation"]["mode"] == "draft-model"),
+    "temperature": (dict(speculation="ngram", spec_gamma=2, temperature=0.7),
+                    lambda r: r["speculation"]["sampled"]
+                    and r["speculation"]["verify_units"] > 0),
+}
 
 
-@pytest.mark.parametrize("name", sorted(ENGAGED))
-def test_11b_knob_engages(name, weights):
-    """Each knob of part 11b, accepted by JAX's envelope, is served: the
-    report shows it engaged on a t=0 trace of 8 requests in 8 slots, two
-    groups sharing a 32-token prefix, and every request completes; int8
-    puts int8 planes in the carry."""
-    kw, engaged = ENGAGED[name]
+def _engaged_report(kw, weights):
+    """The engine with knobs ``kw`` (JAX's envelope accepts them) on a t=0
+    trace of 8 requests in 8 slots, two groups sharing a 32-token prefix;
+    every request completes.  Returns the report and the engine."""
     cfg = ModelConfig(**TINY)
     sv = pt_engine.ServingConfig(**SMOKE_SERVING, **kw)
     jax_engine.ServingConfig(**SMOKE_SERVING, **kw).validate(jax_configs.ModelConfig(**TINY))
@@ -742,11 +748,31 @@ def test_11b_knob_engages(name, weights):
         dataclasses.replace(r, arrival_s=0.0) for r in trace.requests))
     report = engine.run_trace(trace)
     assert report["requests"]["completed"] == 8
+    return report, engine
+
+
+@pytest.mark.parametrize("name", sorted(ENGAGED))
+def test_11b_knob_engages(name, weights):
+    """Each knob of part 11b is served and the report shows it engaged;
+    int8 puts int8 planes in the carry."""
+    kw, engaged = ENGAGED[name]
+    report, engine = _engaged_report(kw, weights)
     assert engaged(report), report["fast_path"] | report["prefix"]
     carry = engine._fresh_carry()
     assert isinstance(carry[0], pt_kv.QuantKVCache) == (name == "kv_int8")
     if name == "kv_int8":
         assert carry[0].k.dtype == torch.int8 and carry[0].k_scale.dtype == torch.float32
+
+
+@pytest.mark.parametrize("name", sorted(ENGAGED_11C))
+def test_11c_knob_engages(name, weights):
+    """Each knob of part 11c, once refused, is served: verify units ran
+    (the draft model's, or sampled ones) and every request completed
+    (``tests/test_torch_spec.py`` holds them against JAX)."""
+    kw, engaged = ENGAGED_11C[name]
+    report, _engine = _engaged_report(kw, weights)
+    assert engaged(report), report["speculation"]
+    assert report["cache"]["blocks_reserved"] == 0
 
 
 RUN_REFUSALS = ("guard", "feed", "control", "deadline", "fault_plan", "capture")

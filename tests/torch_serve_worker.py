@@ -1,5 +1,6 @@
-"""Rank bodies of ``tests/test_torch_serve.py`` and
-``tests/test_torch_serve_fastpath.py``: the port's serving programs and
+"""Rank bodies of ``tests/test_torch_serve.py``,
+``tests/test_torch_serve_fastpath.py`` and ``tests/test_torch_spec.py``:
+the port's serving programs and
 engine on a gloo group of host processes.  It imports torch and the port
 only, since ``bench.launch`` imports it by name in every spawned rank."""
 
@@ -115,31 +116,53 @@ def run_world2(gqa_case, engine_case, modes):
 
 
 
-def _journaled_run(fields, serving, weights, trace_dict, mesh):
+SPEC_COUNTERS = (("serve_decode_steps", {}), ("serve_fused_scan_steps", {}),
+                 ("serve_spec_proposed_total", {"drafter": "ngram"}),
+                 ("serve_spec_proposed_total", {"drafter": "draft-model"}),
+                 ("serve_spec_accepted_total", {"drafter": "ngram"}),
+                 ("serve_spec_accepted_total", {"drafter": "draft-model"}),
+                 ("serve_sampled_tokens", {}))
+
+
+def spec_counters(registry):
+    """The registry's decode and speculation counters, by name and label
+    (JAX's registry and the port's alike)."""
+    return {f"{name}{sorted(labels.items())}": registry.get(name, **labels)
+            for name, labels in SPEC_COUNTERS}
+
+
+def _journaled_run(fields, serving, weights, trace_dict, mesh, draft_weights=None):
     """One engine run on this rank with its own journal: the report's
-    comparable sections and the journal's (event, rid) sequence."""
+    comparable sections, the decode and speculation counters, and the
+    journal's (event, rid) sequence.  ``draft_weights`` are the draft
+    model's under ``speculation="draft-model"``."""
     cfg = ModelConfig(**fields)
-    engine = ServingEngine(cfg, ServingConfig.from_dict(serving), mesh=mesh,
-                           params=_rank_params(weights, cfg, mesh), verbose=False,
-                           capture_tokens=True, device="cpu")
+    sv = ServingConfig.from_dict(serving)
+    draft = (None if draft_weights is None
+             else _rank_params(draft_weights, sv.draft_model_config(cfg), mesh))
+    engine = ServingEngine(cfg, sv, mesh=mesh, params=_rank_params(weights, cfg, mesh),
+                           verbose=False, capture_tokens=True, device="cpu",
+                           draft_params=draft)
     with tempfile.TemporaryDirectory() as tmp:
         engine.journal = SweepJournal(tmp)
         report = engine.run_trace(TrafficTrace.from_dict(trace_dict))
         engine.journal.close()
         events, _ = read_journal(tmp)
     out = {k: report[k] for k in ("requests", "completed_tokens", "cache", "decode_steps",
-                                  "decode_units", "generated_tokens", "fast_path", "prefix")}
+                                  "decode_units", "generated_tokens", "fast_path", "prefix",
+                                  "speculation")}
     out["journal"] = [(e["event"], e["config"]) for e in events
-                      if e["event"].startswith(("request-", "prefix-"))]
+                      if e["event"].startswith(("request-", "prefix-", "spec-"))]
+    out["counters"] = spec_counters(engine.registry)
     return out
 
 
 def run_engines(runs):
-    """Each named run ``(dp, tp, fields, serving, weights, trace)`` on its
-    own (dp, tp) mesh of this world."""
+    """Each named run ``(dp, tp, fields, serving, weights, trace[,
+    draft_weights])`` on its own (dp, tp) mesh of this world."""
     torch.set_num_threads(1)
     out = {}
     for name, (dp, tp, *case) in runs.items():
         mesh = build_parallelism_mesh(data_parallel=dp, tensor_parallel=tp)
-        out[name] = _journaled_run(*case, mesh)
+        out[name] = _journaled_run(*case[:4], mesh, *case[4:])
     return out
