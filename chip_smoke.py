@@ -155,9 +155,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    slots empty; (b) ``run_trace`` on phase kv's cache (32 slots of 2048
    tokens, 12 GiB, ``hbm_budget_gb`` the card's memory less the weights)
    of 64 seeded requests all arriving at t=0 (prompts 128-1024, outputs
-   32-128), in the "off" mode and twice in the "greedy" mode: every
-   request completed, none rejected, no block left reserved, the greedy
-   tokens of the two greedy runs equal per request, the span trace valid;
+   32-128), in the "off" mode and in the "greedy" mode: every request
+   completed, none rejected, no block left reserved, the span trace valid
+   ((g)1 and (g)2 repeat the greedy run and must give its tokens);
    TTFT, per-token latency, decode-step ms, goodput and peak memory
    printed; (c) the decode step's median against its bytes bound (the
    weights and the whole cache read once at 3.35 TB/s); (d) the fast path
@@ -173,7 +173,21 @@ Phases (each raises on failure, and the script then exits non-zero):
    sampled "ngram"
    runs (temperature 0.8) replayed by seed 3 and moved by seed 4, (f)3 each
    run's verify units, acceptance and tokens per unit, and the verify
-   unit's median (from its ``serve-verify`` spans) against its bytes bound.
+   unit's median (from its ``serve-verify`` spans) against its bytes bound;
+   (g) resilience and the entry point on (b)'s cache and trace, each part's
+   seconds printed: (g)1 ``serve-decode-fail:2`` and (g)2
+   ``serve-cache-torn:1`` serve every request with (b)'s greedy tokens and
+   no block left; (g)3 ``serve-decode-hang:@3`` under the watchdog
+   (``dispatch_deadline_factor`` 50) fails the resident window closed as
+   ``hung-dispatch``, completes the rest, resets the carry once, and peaks
+   under two caches plus the weights, the decode step printed with the
+   watchdog off and on; (g)4 ``serve-preempt:@5`` through
+   ``serve/bench.py::run_serving``, then ``resume_serving``: the merged
+   artifact set has an uninterrupted run's names and its outcome for every
+   request not preempted; (g)5 ``python -m dlbb_tpu_torch.cli serve
+   --config dlbb_tpu_torch/configs/serve_1b.yaml --trace poisson --requests
+   64`` as a subprocess exits 0 and leaves JAX's artifact set with finite
+   goodput and TTFT p50/p99/p999.
 
 It then prints the card's name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -1319,10 +1333,10 @@ SEQ_RUNS = {
             {"attention": "ulysses"})),
 }
 SEQ_SCHEDULES = ("fused", "ring", "bidir")
-# (b)'s depth: half the 1B's 24 layers, so that the whole script keeps its
-# time with phase serve's part 11b runs; every bound of (b) is argued per
-# layer and takes the depth
-SEQ_LAYERS = 12
+# (b)'s depth: a quarter of the 1B's 24 layers, so that the whole script
+# keeps its time with phase serve's parts 11b-11d and the entry point; every
+# bound of (b) is argued per layer and takes the depth
+SEQ_LAYERS = 6
 SEQ_VARIANTS = ("default", "overlap_ring", "overlap_bidir")
 
 
@@ -2837,7 +2851,9 @@ SERVE_INT8_REL = (0.5 + 2 ** -10) / 127
 SERVE_ENGINE = dict(max_batch=32, block_size=16, max_seq=2048, queue_capacity=64)
 SERVE_REQUESTS = 64
 SERVE_PROMPTS, SERVE_OUTPUTS = (128, 1024), (32, 128)
-SERVE_MODES = ("off", "greedy", "greedy")
+# once in each mode; (g)1 and (g)2 serve the greedy run again, under faults,
+# and must give its tokens
+SERVE_MODES = ("off", "greedy")
 # phase serve (d): the fast path on (b)'s trace.  ServingConfig.validate
 # (JAX's) refuses compaction, int8 planes and the prefix cache in a token
 # mode, so (d)2 and (e) run in "off" and compare with "off" runs.
@@ -2894,6 +2910,19 @@ SERVE_SPEC_TIE = 2 * 6 * SERVE_REL_L2
 # (f)2, sampled speculation: "ngram" with these knobs under each seed
 SERVE_SPEC_SAMPLED = dict(speculation="ngram", spec_gamma=SERVE_SPEC_GAMMA, temperature=0.8)
 SERVE_SPEC_SEEDS = (3, 3, 4)
+# phase serve (g): the fault plans, on (b)'s greedy engine and trace.  The
+# hang outlasts the watchdog's deadline (50 x the step EMA, about 2.3 s at
+# 46 ms a step) by more than twice, so the abandoned thread wakes after the
+# engine has moved on.
+SERVE_FAULT_RUNS = (
+    ("(g)1", "serve-decode-fail:2", {}),
+    ("(g)2", "serve-cache-torn:1", {}),
+    ("(g)3", "serve-decode-hang:@3,hang_seconds=6", dict(dispatch_deadline_factor=50.0)),
+)
+SERVE_PREEMPT = "serve-preempt:@5"
+SERVE_CONFIG = "dlbb_tpu_torch/configs/serve_1b.yaml"
+SERVE_ARTIFACTS = ("metrics.prom", "serving_manifest.json", "serving_serve_1b.json",
+                   "sweep_journal.jsonl", "trace_serve_1b.json")
 
 
 class _SpecTally:
@@ -2923,7 +2952,7 @@ def phase_serve(torch, fa, gpu_line):
                                      dir=Path(__file__).resolve().parent) as tmp:
         trace = Path(tmp) / "spans.json"
         with spans.tracing(trace, meta={"phase": "serve", "device": gpu_line}):
-            runs, spec = _serve_engine(torch, gpu_line)
+            runs, spec, ctx = _serve_engine(torch, gpu_line)
         events = spans.load_trace(trace)["traceEvents"]
     problems = spans.validate_trace_events(events)
     if problems:
@@ -2945,6 +2974,7 @@ def phase_serve(torch, fa, gpu_line):
             or fused != sum(r["fast_path"]["fused_scans"] for r in runs):
         raise AssertionError(f"the span trace does not match the reports: {want}")
     _serve_spec_numbers(spec, events, gpu_line)
+    _serve_faults(torch, gpu_line, *ctx)
     print(f"[serve] phase wall {time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -3299,12 +3329,6 @@ def _serve_engine(torch, gpu_line):
         reports.append(report)
         steps.append((f"{i + 1} ({mode})", report, cache_bytes))
         per_step.setdefault(mode, []).append(report)
-    greedy = per_step["greedy"]
-    same = same_tokens(greedy[0], greedy[1])
-    print(f"[serve] greedy tokens equal between the two greedy runs for {same} of "
-          f"{SERVE_REQUESTS} requests")
-    if greedy[0]["completed_tokens"] != greedy[1]["completed_tokens"]:
-        raise AssertionError("two greedy runs of one trace gave different tokens")
     del engines
 
     # (d) the fast path on the same trace
@@ -3371,7 +3395,134 @@ def _serve_engine(torch, gpu_line):
               f"median {median / bound:.2f}x")
     spec = _serve_spec_runs(torch, gpu_line, cfg, params, engine, trace,
                             per_step["greedy"][0], weight_bytes + cache_bytes)
-    return reports + [run["report"] for run in spec], spec
+    return (reports + [run["report"] for run in spec], spec,
+            (engine, trace, per_step["greedy"][0], weight_bytes, cache_bytes))
+
+
+def _serve_faults(torch, gpu_line, engine, trace, greedy, weight_bytes, cache_bytes):
+    """(g): part 11d's failure paths and item 12's entry point on (b)'s
+    engine and trace, outside the span trace of (b)-(f) (a retried or
+    abandoned unit opens spans no report counts); each part's seconds
+    printed and each check raising."""
+    import os
+    import subprocess
+    import tempfile
+
+    from dlbb_tpu_torch.resilience import inject
+
+    def same_tokens(report):
+        return sum(report["completed_tokens"].get(rid) == toks
+                   for rid, toks in greedy["completed_tokens"].items())
+
+    ms = 1e3
+    for label, plan, knobs in SERVE_FAULT_RUNS:
+        t0 = time.perf_counter()
+        eng = engine("greedy", **knobs)
+        fresh = eng._fresh_carry
+        carries = []
+
+        def counted(fresh=fresh, carries=carries):
+            carries.append(1)
+            return fresh()
+
+        eng._fresh_carry = counted
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with inject.plan_scope(plan):
+            report = eng.run_trace(trace, collect_raw=True)
+        peak = torch.cuda.max_memory_allocated()
+        req, res, cache = report["requests"], report["resilience"], report["cache"]
+        # one fresh carry for the warm-up, one for the run; the rest resets
+        resets = len(carries) - 2
+        same = same_tokens(report)
+        print(f"[serve] {label} {plan} on {gpu_line}: {req['completed']} completed, "
+              f"{req['failed']} failed ({sorted(set(req['outcomes'].values()))}); retries "
+              f"{res['retries']}, hung dispatches {res['hung_dispatches']}, carry resets "
+              f"{resets}; tokens equal to (b)'s greedy run for {same} of {SERVE_REQUESTS} "
+              f"requests; blocks reserved {cache['blocks_reserved']}, in use "
+              f"{cache['blocks_in_use']}; decode step median "
+              f"{report['decode_step_time']['median'] * ms:.3f} ms (watchdog "
+              f"{'on' if knobs else 'off'}); peak memory {peak} bytes ({peak / 2**30:.2f} GiB); "
+              f"{time.perf_counter() - t0:.1f} s; first failure "
+              f"{res['failed'][0]['error'] if res['failed'] else None}")
+        if cache["blocks_reserved"] or cache["blocks_in_use"]:
+            raise AssertionError(f"{label} left blocks in the ledger")
+        if label != "(g)3":
+            if not (req["completed"] == SERVE_REQUESTS and same == SERVE_REQUESTS
+                    and res["retries"] >= 1 and resets == 0):
+                raise AssertionError(f"{label} did not recover every request with (b)'s tokens")
+            continue
+        failed = [rid for rid, o in req["outcomes"].items() if o == "failed[hung-dispatch]"]
+        if not (res["hung_dispatches"] == 1 and resets == 1 and failed
+                and req["failed"] == len(failed)
+                and req["completed"] == SERVE_REQUESTS - len(failed)
+                and peak < 2 * cache_bytes + weight_bytes):
+            raise AssertionError("(g)3: the hung window did not fail closed on one reset "
+                                 "within two caches and the weights")
+        print(f"[serve] (g)3 decode step on {gpu_line}: watchdog off (b) "
+              f"{greedy['decode_step_time']['median'] * ms:.3f} ms, on "
+              f"{report['decode_step_time']['median'] * ms:.3f} ms (median per unit); "
+              f"{len(failed)} requests of the hung window failed, peak {peak / 2**30:.2f} GiB "
+              f"against two caches and the weights {(2 * cache_bytes + weight_bytes) / 2**30:.2f} "
+              "GiB")
+    del eng
+    torch.cuda.empty_cache()
+
+    from dlbb_tpu_torch.serve.bench import RESUME_CHECKPOINT, resume_serving, run_serving
+    from dlbb_tpu_torch.utils.config import load_config
+
+    root = Path(__file__).resolve().parent
+    config = load_config(root / SERVE_CONFIG)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_g_", dir=root) as tmp:
+        t0 = time.perf_counter()
+        ref, out = Path(tmp) / "ref", Path(tmp) / "preempted"
+        whole = run_serving(config, trace, str(ref), verbose=False)
+        first = run_serving(config, trace, str(out), verbose=False, fault_plan=SERVE_PREEMPT)
+        preempted = {rid for rid, o in first["requests"]["outcomes"].items() if o == "preempted"}
+        checkpoint = (out / RESUME_CHECKPOINT).exists()
+        merged = resume_serving(str(out), verbose=False)
+        names = sorted(p.name for p in out.iterdir())
+        moved = [rid for rid, o in whole["requests"]["outcomes"].items()
+                 if rid not in preempted and merged["requests"]["outcomes"].get(rid) != o]
+        print(f"[serve] (g)4 {SERVE_PREEMPT} through run_serving on {gpu_line}: preempted "
+              f"{first['preempted']} after {first['requests']['completed']} completed, "
+              f"{len(first['remaining_rids'])} remaining ({len(preempted)} resident), checkpoint "
+              f"{checkpoint}; resume_serving: {merged['requests']['completed']} completed over "
+              f"{merged['requests']['sessions']} sessions; artifact names {names}, equal to an "
+              f"uninterrupted run's {names == sorted(p.name for p in ref.iterdir())}; outcomes "
+              f"of the requests not preempted that differ {moved}; uninterrupted goodput "
+              f"{whole['goodput_tokens_per_s']:.1f}, merged {merged['goodput_tokens_per_s']:.1f} "
+              f"tokens/s; {time.perf_counter() - t0:.1f} s")
+        if not (first["preempted"] and checkpoint and preempted
+                and merged["requests"]["sessions"] == 2
+                and merged["requests"]["completed"] == SERVE_REQUESTS
+                and names == sorted(p.name for p in ref.iterdir()) == sorted(SERVE_ARTIFACTS)
+                and not moved):
+            raise AssertionError("(g)4: the resumed run is not the uninterrupted one")
+
+        t0 = time.perf_counter()
+        cli_out = Path(tmp) / "cli"
+        cmd = [sys.executable, "-m", "dlbb_tpu_torch.cli", "serve", "--config", SERVE_CONFIG,
+               "--trace", "poisson", "--requests", str(SERVE_REQUESTS), "--output",
+               str(cli_out)]
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600,
+                              env={**os.environ, "PYTHONPATH": str(root)})
+        names = sorted(p.name for p in cli_out.iterdir()) if cli_out.is_dir() else []
+        result = (json.loads((cli_out / "serving_serve_1b.json").read_text())
+                  if "serving_serve_1b.json" in names else {})
+        ttft = result.get("ttft", {})
+        numbers = [result.get("goodput_tokens_per_s", math.nan)] + [
+            ttft.get(q, math.nan) for q in ("median", "p99", "p999")]
+        print(f"[serve] (g)5 `python -m dlbb_tpu_torch.cli serve --config {SERVE_CONFIG} "
+              f"--trace poisson --requests {SERVE_REQUESTS}` on {gpu_line}: rc "
+              f"{proc.returncode}; {proc.stdout.strip().splitlines()[-1:]}; artifacts {names}; "
+              f"completed {result.get('requests', {}).get('completed')}; goodput "
+              f"{numbers[0]:.1f} tokens/s, TTFT p50 {numbers[1] * ms:.3f} ms, p99 "
+              f"{numbers[2] * ms:.3f} ms, p999 {numbers[3] * ms:.3f} ms; "
+              f"{time.perf_counter() - t0:.1f} s")
+        if proc.returncode != 0 or names != sorted(SERVE_ARTIFACTS) \
+                or not all(math.isfinite(x) and x > 0 for x in numbers):
+            raise AssertionError(f"(g)5: cli serve failed: {proc.stderr[-2000:]}")
 
 
 def _near_tie_gaps(torch, cfg, params, trace, report, ref):

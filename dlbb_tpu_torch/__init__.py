@@ -11,8 +11,7 @@ tensor-parallel forward, DDP/ZeRO and tensor-parallel training, the
 sequence-sharded layouts: overlapped tensor parallelism and sequence
 parallelism, pipeline parallelism and the MoE FFN with expert
 parallelism, compressed collectives and training, the reports, the
-serving foundations and the serving engine's core, fast path and capacity
-levers):
+serving foundations, the serving engine whole and its harness):
 
 - ``models`` — ``ModelConfig``/``MODEL_CONFIGS`` (1B/7B/13B), the decoder
   ``forward`` with the simplified/full/dense/flash attention modes, remat
@@ -61,20 +60,23 @@ levers):
   ``ServingConfig``, the prefill and decode programs in the "off" and
   "greedy" token modes, the fused multi-step decode and its in-flight
   window, chunked prefill, slot compaction, the shared-prefix attach and
-  int8 KV planes, the continuous-batching scheduler and
-  ``ServingEngine.run_trace``, at world 1 or on a (dp, tp) mesh); the
-  serving inputs of ``data`` and the KV-cache sizing and serving envelope
-  of ``models.configs``;
-- ``obs`` — the span tracer and the metrics registry; ``resilience.journal``.
+  int8 KV planes, speculative and sampled decoding, the failure paths and
+  the SIGTERM drain, the continuous-batching scheduler and
+  ``ServingEngine.run_trace``, at world 1 or on a (dp, tp) mesh), and the
+  harness (``bench``: the artifact set, the drain's checkpoint and
+  ``resume_serving``; ``cli serve``); the serving inputs of ``data`` and
+  the KV-cache sizing and serving envelope of ``models.configs``;
+  ``stats.serving_report`` (``cli reports``' serving table);
+- ``obs`` — the span tracer, the metrics registry and ``serving_metrics``;
+  ``resilience.journal``.
 
 The root script ``bench_torch.py`` is the port's ``bench.py``: the 1B
 forward's tokens/s and ``bench.py``'s extras in one JSON line.
 
 Not ported yet (see ROADMAP.md): uneven tp shards, restoring a
-checkpoint onto another mesh, the serving engine's speculation and
-resilience, the serving harness and the fleet, and the
-rest of the observability, planning and analysis layers and of resilience
-(validation, the chaos gate).
+checkpoint onto another mesh, the serving fleet and the ``BENCH_*.json``
+writers, and the rest of the observability, planning and analysis layers
+and of resilience (validation, the chaos gate).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit ``"cpu"`` they raise.

@@ -18,6 +18,9 @@
                                          [--own-3d DIR] [--own-e2e DIR]
                                          [--output DIR] [--impl NAME]
     python -m dlbb_tpu_torch.cli reports [--stats DIR] [--results DIR] [--impl NAME]
+    python -m dlbb_tpu_torch.cli serve [--config CONFIG.yaml] [--trace KIND|PATH]
+                                       [--requests N] [--world N] [--device cuda|cpu]
+                                       [--output DIR] [--resume] [--fault-plan PLAN] ...
 
 The sweeps launch ``--world`` ranks (default: the largest of ``--ranks``)
 through ``bench/launch.py``: NCCL with one GPU per rank on ``cuda``, gloo
@@ -43,7 +46,17 @@ write to ``results/torch/1d`` and ``results/torch/3d``, and the configs'
 corpus under ``results/``.  ``compare`` and ``reports`` are file
 processing over the port's own results: their default trees are
 ``results/torch`` and ``stats/torch`` (``stats/torch/1d/<impl>``,
-``stats/torch/variants/<impl>``, ``results/torch/parallelism``).  The
+``stats/torch/variants/<impl>``, ``results/torch/parallelism``,
+``results/torch/serving`` into ``stats/torch/serving``).
+
+``serve`` is JAX's serving benchmark (``serve/bench.py``): a synthetic
+traffic trace through the continuous-batching engine, JAX's flags and
+defaults, on ``--world`` ranks (default 1, auto-planned into (dp, tp) as
+JAX plans ``--simulate``'s devices; a config's ``parallelism:`` section
+sets the mesh instead) through ``bench/launch.py``, written by rank 0 to
+``results/torch/serving`` unless ``--output`` names another directory.
+JAX's ``--xplane-trace`` (device traces, Slice F, item 13) and
+``--replicas`` (the fleet, Slice E, item 12, part 12b) are refused.  The
 reference corpus of ``compare`` is not in this repository: ``--reference``
 names its root.
 """
@@ -51,6 +64,7 @@ names its root.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 _DEVICE_HELP = "cuda (the default) or cpu; without a CUDA device only an explicit cpu runs"
@@ -154,7 +168,96 @@ def build_parser() -> argparse.ArgumentParser:
     rp.add_argument("--impl", default="torch_nccl",
                     help="the baseline implementation of the variant tables and "
                          "the north-star curve's stats")
+    _add_serve_parser(sub)
     return p
+
+
+def _add_serve_parser(sub) -> None:
+    """``serve``: JAX's flags and defaults (``dlbb_tpu/cli.py:303-470``),
+    with ``--world`` and ``--device`` for its ``--simulate``."""
+    sv = sub.add_parser(
+        "serve",
+        help="continuous-batching serving benchmark: a synthetic traffic "
+             "trace served through the paged-KV-cache inference engine; "
+             "reports goodput, TTFT / per-token latency p50/p99/p99.9, "
+             "queue depth and cache occupancy")
+    sv.add_argument("--config", default=None,
+                    help="experiment YAML with model/parallelism/serving sections "
+                         "(default: a small GQA model on an auto-planned (dp, tp) mesh)")
+    sv.add_argument("--trace", default="poisson",
+                    help="arrival process (poisson, bursty, diurnal) or a path to a "
+                         "saved trace JSON (replay)")
+    sv.add_argument("--requests", type=int, default=100,
+                    help="requests to generate (generated traces only)")
+    sv.add_argument("--rate", type=float, default=None,
+                    help="mean arrival rate in req/s (default 32)")
+    sv.add_argument("--seed", type=int, default=42,
+                    help="trace seed (arrivals, lengths, embeddings)")
+    for flag, kind, hlp in (
+        ("--max-batch", int, "decode slots (default 8)"),
+        ("--block-size", int, "KV-cache tokens per block (default 16)"),
+        ("--max-seq", int, "per-slot prompt+output ceiling (default 256)"),
+        ("--queue-capacity", int, "admission-control queue bound (default 64)"),
+        ("--decode-horizon", int, "fuse up to K decode steps into one unit "
+                                  "(default 1 = per-step)"),
+        ("--inflight-window", int, "decode units in flight before the host waits "
+                                   "(default 1)"),
+        ("--prefill-chunk", int, "chunked prefill: tokens per chunk, a block-size "
+                                 "multiple (default: monolithic)"),
+        ("--compact-threshold", float, "occupancy fraction (0, 0.5] at or below which "
+                                       "fused scans run on a compacted half batch "
+                                       "(dp=1 only; default: off)"),
+        ("--spec-gamma", int, "draft tokens proposed per verify step"),
+        ("--temperature", float, "sampled decode's softmax temperature (needs a "
+                                 "drafting speculation mode; default 0 = greedy)"),
+        ("--sample-seed", int, "host RNG seed of the sampled path"),
+        ("--dispatch-retries", int, "bounded retries of a transiently failed "
+                                    "prefill/decode dispatch (default 2)"),
+        ("--dispatch-deadline-factor", float, "arm the dispatch watchdog: abandon a "
+                                              "decode unit past FACTOR x K x the "
+                                              "per-step EMA (default: off)"),
+        ("--hedge-factor", float, "fleet hedging (accepted and ignored by one engine)"),
+    ):
+        dest = ("max_dispatch_retries" if flag == "--dispatch-retries"
+                else flag[2:].replace("-", "_"))
+        sv.add_argument(flag, type=kind, default=None, dest=dest, help=hlp)
+    sv.add_argument("--speculation", default=None,
+                    choices=["off", "greedy", "ngram", "draft-model"],
+                    help="decode feedback / drafting mode")
+    sv.add_argument("--spec-adaptive", action="store_true", default=None,
+                    dest="spec_adaptive", help="per-request adaptive γ")
+    sv.add_argument("--prefix-caching", action="store_true", default=None,
+                    dest="prefix_caching",
+                    help="shared-prefix KV reuse (needs --prefill-chunk, dp=1)")
+    sv.add_argument("--kv-quantization", default=None, dest="kv_quantization",
+                    choices=["none", "int8"], help="KV-cache plane dtype")
+    sv.add_argument("--prefix-groups", type=int, default=None, dest="prefix_groups",
+                    metavar="G", help="generated traces only: G populations sharing "
+                                      "a prompt prefix")
+    sv.add_argument("--prefix-len", type=int, default=None, dest="prefix_len",
+                    metavar="TOKENS", help="shared-prefix length for --prefix-groups")
+    sv.add_argument("--slo", type=float, default=None, metavar="SEC",
+                    help="per-request deadline stamped on every generated request: "
+                         "queued requests past it are shed, late completions counted")
+    sv.add_argument("--replicas", type=int, default=None, metavar="N",
+                    help="the replica fleet (refused: Slice E, item 12, part 12b)")
+    sv.add_argument("--fault-plan", default=None, metavar="PLAN",
+                    help="fault-injection plan of the serving chaos harness (e.g. "
+                         "'serve-decode-fail:1'; DLBB_FAULT_PLAN env is the default)")
+    sv.add_argument("--resume", action="store_true",
+                    help="finish a preempted run from serving_resume.json in --output")
+    sv.add_argument("--output", default=None,
+                    help="output directory (default results/torch/serving)")
+    sv.add_argument("--world", type=int, default=None,
+                    help="ranks to launch (default: the config's mesh, else 1)")
+    sv.add_argument("--device", default=None, help=_DEVICE_HELP)
+    sv.add_argument("--xplane-trace", default=None, metavar="DIR", dest="xplane_trace",
+                    help="a device trace (refused: Slice F, item 13)")
+    sv.add_argument("--span-trace", default=None, metavar="FILE", dest="span_trace",
+                    help="rank 0's host span trace (Chrome trace-event JSON); "
+                         "DLBB_SPANS env is the default")
+    sv.add_argument("--device-trace", default=None, metavar="DIR", dest="device_trace",
+                    help="a captured prefill and decode (refused: Slice F, item 13)")
 
 
 def _sweep(args):
@@ -287,16 +390,59 @@ def main(argv=None) -> int:
         return 0
     if args.cmd == "reports":
         return _reports(args)
+    if args.cmd == "serve":
+        return _serve(args)
     return 2
+
+
+_SERVE_OVERRIDES = ("max_batch", "block_size", "max_seq", "queue_capacity",
+                    "decode_horizon", "inflight_window", "prefill_chunk",
+                    "compact_threshold", "speculation", "spec_gamma", "spec_adaptive",
+                    "max_dispatch_retries", "dispatch_deadline_factor", "prefix_caching",
+                    "kv_quantization", "temperature", "sample_seed", "hedge_factor")
+
+
+def _serve(args) -> int:
+    """``cli serve``: JAX's run and summary lines (``dlbb_tpu/cli.py:927-995``)."""
+    from dlbb_tpu_torch.obs import spans
+    from dlbb_tpu_torch.serve.bench import run_serve_from_config
+
+    if args.xplane_trace or os.environ.get("DLBB_TRACE_DIR"):
+        raise SystemExit("serve --xplane-trace: device traces are not ported yet "
+                         "(ROADMAP Queue 1, Slice F, item 13)")
+    result = run_serve_from_config(
+        args.config, trace=args.trace, num_requests=args.requests, seed=args.seed,
+        rate=args.rate, output_dir=args.output,
+        overrides={k: getattr(args, k) for k in _SERVE_OVERRIDES},
+        resume=args.resume, fault_plan=args.fault_plan, slo=args.slo,
+        device_trace=args.device_trace, prefix_groups=args.prefix_groups,
+        prefix_len=args.prefix_len, replicas=args.replicas, world=args.world,
+        device=args.device, span_trace=args.span_trace or spans.default_span_path())
+    req = result["requests"]
+    if result.get("prefix", {}).get("enabled"):
+        pre = result["prefix"]
+        print(f"prefix cache: {pre['hits']} hit(s), {pre['tokens_reused']} token(s) "
+              f"reused (hit rate {pre['hit_rate']:.2f})")
+    if result.get("preempted"):
+        print(f"preempted after {req['completed']} completed request(s); "
+              f"{len(result['remaining_rids'])} remain — finish with `serve --resume`")
+        return 0
+    print(f"goodput {result['goodput_tokens_per_s']:.0f} tok/s over "
+          f"{req['completed']} completed / {req['rejected']} rejected request(s)")
+    return 0
 
 
 def _reports(args) -> int:
     """``cli reports``: the JAX CLI's reports that the port has, with its
-    summary lines.  An input of a report whose module is not ported yet
-    (serving, the autotuner) is refused loudly, never skipped."""
+    summary lines.  The serving report reads the port's own
+    ``serving_*.json`` under ``RESULTS/serving`` (never the root
+    ``BENCH_*.json``, which hold the JAX package's TPU runs).  An input of a
+    report whose module is not ported yet (a fleet result, the autotuner)
+    is refused loudly, never skipped."""
     from pathlib import Path
 
     from dlbb_tpu_torch.stats.northstar import default_stats_1d_csv, write_northstar_report
+    from dlbb_tpu_torch.stats.serving_report import write_serving_report
     from dlbb_tpu_torch.stats.parallelism_report import (
         DEFAULT_FAMILIES,
         write_cp_scaling_report,
@@ -309,10 +455,10 @@ def _reports(args) -> int:
 
     stats_root, results_root = Path(args.stats), Path(args.results)
     serve_dir = results_root / "serving"
-    if any(serve_dir.rglob("serving_*.json")) or any(serve_dir.rglob("fleet_*.json")):
+    if any(serve_dir.rglob("fleet_*.json")):
         raise NotImplementedError(
-            f"serving results under {serve_dir}: the serving reports come with "
-            "stats/serving_report.py (ROADMAP Queue 1, Slice E, item 12)")
+            f"fleet results under {serve_dir}: the fleet's report comes with "
+            "serve/fleet.py (ROADMAP Queue 1, Slice E, item 12, part 12b)")
     autotune = results_root / "BENCH_autotune.json"
     if autotune.exists():
         raise NotImplementedError(
@@ -362,6 +508,13 @@ def _reports(args) -> int:
               f"{list(ns)} -> {stats_root / 'northstar' / 'NORTHSTAR.md'}")
     else:
         print(f"northstar: no north-star rows in {ns_csv} — skipped")
+    serve_rows = write_serving_report(serve_dir, stats_root / "serving")
+    if serve_rows:
+        produced += 1
+        print(f"serving: {len(serve_rows)} run(s) -> "
+              f"{stats_root / 'serving' / 'SERVING.md'}")
+    else:
+        print(f"serving: no serving_*.json under {serve_dir} — skipped")
     if produced == 0:
         print("error: nothing to report — check --stats/--results point at the "
               "port's trees")

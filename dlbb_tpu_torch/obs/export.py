@@ -6,9 +6,10 @@ output order (metrics in insertion order, label sets sorted within one),
 atomic writes through ``utils/config.atomic_write_text``.  The same
 updates give the JAX package's ``metrics.prom`` byte for byte.
 
-The JAX module's report folds wait with the layers whose reports they
-read: ``serving_metrics`` and ``fleet_metrics`` (the serving and fleet
-reports, ROADMAP Queue 1, Slice E, item 12), ``sweep_metrics`` (the sweep
+``serving_metrics`` folds a serving report (``serve/bench.py``) into
+``metrics.prom``, as JAX's does.  The JAX module's other report folds wait
+with the layers whose reports they read: ``fleet_metrics`` (the fleet
+report, ROADMAP Queue 1, Slice E, item 12), ``sweep_metrics`` (the sweep
 manifest, Slice F, item 13) and ``analysis_metrics`` (the analysis
 report, Slice F, item 15).
 """
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import threading
 from pathlib import Path
-from typing import Any, Iterator, Mapping
+from typing import Any, Iterator, Mapping, Optional
 
 PROM_PREFIX = "dlbb_"
 
@@ -187,3 +188,137 @@ class LabeledCounter(Mapping):
 
     def __len__(self) -> int:
         return len(self._keys)
+
+
+def serving_metrics(report: dict[str, Any],
+                    registry: Optional[MetricsRegistry] = None
+                    ) -> MetricsRegistry:
+    """Fold a serving report (``serve/engine.py``) into gauges on top of
+    the live counters/gauges the engine already registered — the serving
+    analogue of :func:`sweep_metrics`, written as ``metrics.prom`` next
+    to every serving run's manifest.
+
+    The request-outcome counters (arrived/admitted/rejected/completed)
+    are registry-backed during the run (``serve_requests``), so the
+    report and the export share one source; this adds the derived
+    summary numbers (goodput, tail latencies, cache peaks)."""
+    registry = registry or MetricsRegistry()
+    registry.set_gauge("serve_goodput_tokens_per_second",
+                       report.get("goodput_tokens_per_s", 0.0),
+                       help="completed-request output tokens per second")
+    registry.set_gauge("serve_throughput_tokens_per_second",
+                       report.get("throughput_tokens_per_s", 0.0),
+                       help="all generated tokens per second")
+    registry.set_gauge("serve_wall_seconds",
+                       report.get("wall_seconds", 0.0),
+                       help="trace wall-clock time")
+    # serve_decode_steps is a live engine COUNTER (each fused-scan trip
+    # counts once); when folding a bare report into a fresh registry,
+    # seed it from the report so the export is self-contained either way
+    if registry.get("serve_decode_steps") == 0:
+        registry.inc("serve_decode_steps", report.get("decode_steps", 0),
+                     help="decode steps executed (each fused-scan trip "
+                          "counts once)")
+    registry.set_gauge("serve_decode_units",
+                       report.get("decode_units",
+                                  report.get("decode_steps", 0)),
+                       help="decode host dispatches (a fused scan is one)")
+    fast = report.get("fast_path", {})
+    for key, hlp in (
+        ("fused_scans", "fused decode scans dispatched"),
+        ("fused_steps", "decode steps executed inside fused scans"),
+        ("prefill_chunks", "prefill chunks processed"),
+        ("compacted_scans", "fused scans run on a compacted batch"),
+    ):
+        if key in fast:
+            registry.set_gauge(f"serve_fastpath_{key}", fast[key])
+    shed = report.get("requests", {}).get("shed_rate")
+    if shed is not None:
+        registry.set_gauge("serve_shed_rate", shed,
+                           help="rejected / arrived requests this run")
+    req = report.get("requests", {})
+    for key, metric, hlp in (
+        ("deadline_shed", "serve_deadline_shed",
+         "queued requests shed because their SLO deadline passed"),
+        ("completed_past_deadline", "serve_completed_past_deadline",
+         "requests served to completion but past their SLO deadline"),
+        ("failed", "serve_failed_requests",
+         "requests failed closed (dispatch failure / hung dispatch)"),
+        ("preempted", "serve_preempted_requests",
+         "in-flight requests preempted by a graceful drain"),
+    ):
+        if key in req:
+            registry.set_gauge(metric, req[key], help=hlp)
+    # resilience counters live in the engine registry during the run
+    # (serve_request_retries / serve_hung_dispatches /
+    # serve_deadline_exceeded); when folding a bare report into a
+    # fresh registry, seed the totals so the export is self-contained
+    res = report.get("resilience", {})
+    if res and all(registry.get("serve_request_retries", phase=p) == 0
+                   for p in ("decode", "prefill", "bookkeeping")):
+        registry.inc("serve_request_retries", res.get("retries", 0),
+                     phase="decode",
+                     help="transient dispatch/bookkeeping retries, "
+                          "by phase")
+    if res and registry.get("serve_hung_dispatches") == 0:
+        registry.inc("serve_hung_dispatches",
+                     res.get("hung_dispatches", 0),
+                     help="decode units abandoned by the dispatch "
+                          "watchdog")
+    # speculative decoding: the per-drafter proposed/accepted counters
+    # (serve_spec_proposed_total / serve_spec_accepted_total) and the
+    # acceptance-EMA gauge are live ENGINE metrics; when folding a bare
+    # report into a fresh registry, seed the totals from the report's
+    # speculation sub-dict so the export is self-contained either way
+    spec = report.get("speculation", {})
+    if spec and spec.get("mode") not in (None, "off"):
+        drafter = spec["mode"]
+        if registry.get("serve_spec_proposed_total", drafter=drafter) == 0:
+            registry.inc("serve_spec_proposed_total",
+                         spec.get("proposed_tokens", 0), drafter=drafter,
+                         help="draft tokens proposed to the verify step, "
+                              "by drafter")
+            registry.inc("serve_spec_accepted_total",
+                         spec.get("accepted_tokens", 0), drafter=drafter,
+                         help="draft tokens the target verify accepted, "
+                              "by drafter")
+        if spec.get("acceptance_rate") is not None:
+            registry.set_gauge("serve_spec_acceptance_ema",
+                               spec["acceptance_rate"],
+                               help="run-level draft acceptance EMA")
+        if spec.get("mean_accepted_len") is not None:
+            registry.set_gauge("serve_spec_mean_accepted_len",
+                               spec["mean_accepted_len"],
+                               help="mean tokens committed per verify "
+                                    "unit slot (accepted + bonus)")
+    for metric, key in (("serve_ttft_seconds", "ttft"),
+                        ("serve_per_token_seconds", "per_token_latency")):
+        summary = report.get(key, {})
+        for q in ("median", "p95", "p99", "p999"):
+            if q in summary:
+                registry.set_gauge(metric, summary[q], quantile=q)
+    cache = report.get("cache", {})
+    for k in ("blocks_in_use", "peak_blocks_in_use",
+              "peak_blocks_reserved", "total_blocks", "shared_blocks",
+              "peak_shared_blocks", "cow_blocks", "prefix_refs"):
+        if k in cache:
+            registry.set_gauge("serve_cache_blocks", cache[k], stat=k)
+    # prefix cache: the hit/reuse counters (serve_prefix_hits_total /
+    # serve_prefix_tokens_reused_total) are live ENGINE metrics; when
+    # folding a bare report into a fresh registry, seed the totals from
+    # the report's prefix sub-dict so the export is self-contained
+    pre = report.get("prefix", {})
+    if pre.get("enabled"):
+        if registry.get("serve_prefix_hits") == 0:
+            registry.inc("serve_prefix_hits", pre.get("hits", 0),
+                         help="admissions that attached to a trie-matched "
+                              "shared prefix")
+            registry.inc("serve_prefix_tokens_reused",
+                         pre.get("tokens_reused", 0),
+                         help="prompt tokens served from shared blocks "
+                              "instead of prefill compute")
+        if pre.get("hit_rate") is not None:
+            registry.set_gauge("serve_prefix_hit_rate", pre["hit_rate"],
+                               help="prefix-attached fraction of "
+                                    "prefills this run")
+    return registry

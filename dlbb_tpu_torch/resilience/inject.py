@@ -7,13 +7,15 @@ corrupt artifacts as routine (Varuna, EuroSys'21; CheckFreq, FAST'21); the
 harness must fail closed, retry transients, and resume exactly.  This
 module is the *injection* half: named fault sites threaded through the
 execution layers (never through timed regions), activated by a compact plan
-string.  The port threads three of the sites so far: ``preempt`` between
+string.  The port threads these of the sites so far: ``preempt`` between
 the train steps of ``train/loop.py::run_train``, ``ckpt-corrupt`` in
-``train/checkpoint.py::Checkpointer.maybe_save`` and ``serve-trace-corrupt``
-in ``serve/traffic.py::TrafficTrace.load``.  The others are parsed and
-counted, and fire at no call site until their layers are ported (ROADMAP
-Queue 1, Slice F, item 13); the tables below list where the JAX package
-hosts each.
+``train/checkpoint.py::Checkpointer.maybe_save``, ``serve-trace-corrupt``
+in ``serve/traffic.py::TrafficTrace.load``, and the engine's serving sites
+(the second table) in ``serve/engine.py``, where the JAX package hosts
+them.  The others are parsed and counted, and fire at no call site until
+their layers are ported (the sweep's, ROADMAP Queue 1, Slice F, item 13;
+the fleet's, Slice E, item 12); the tables below list where the JAX
+package hosts each.
 
 Plan grammar (``DLBB_FAULT_PLAN`` env / ``--fault-plan`` CLI)::
 
@@ -76,9 +78,9 @@ hosts it):
 ==================  =====================================================
 
 Serving sites (``serve/engine.py``; all fire strictly on the HOST side
-of a dispatch boundary — the jitted prefill/decode programs are
-byte-identical with or without a plan, pinned statically by
-``tests/test_serve_resilience.py``):
+of a dispatch boundary — the prefill/decode programs are the same with or
+without a plan, pinned statically by ``tests/test_serve_resilience.py``
+and, for the port, ``tests/test_torch_serve_resilience.py``):
 
 =====================  ==================================================
 ``serve-prefill-fail`` prefill dispatch boundary — raises

@@ -5,10 +5,13 @@ the seeded request traces (``traffic``), and the continuous-batching
 engine (``engine``: ``ServingConfig``, the prefill and decode programs in
 the "off" and "greedy" token modes, the fused multi-step decode and its
 in-flight window, chunked prefill, slot compaction, the shared-prefix
-attach and int8 KV planes, the scheduler and ``ServingEngine.run_trace``,
-on one device or a (dp, tp) mesh).  The engine's speculation and
-resilience come with the rest of ROADMAP Queue 1, Slice E, item 11, and
-the serving harness and the fleet with item 12."""
+attach and int8 KV planes, speculative and sampled decoding, the
+failure paths (fault sites, retries and rollback, the dispatch watchdog,
+SLO deadlines, the SIGTERM drain), the scheduler and
+``ServingEngine.run_trace``, on one device or a (dp, tp) mesh), and the
+serving harness (``bench``: ``run_serving``, ``resume_serving``,
+``run_serve_from_config``, behind ``cli serve``).  The fleet comes with
+ROADMAP Queue 1, Slice E, item 12, part 12b."""
 
 from dlbb_tpu_torch.serve.engine import (
     SERVING_REPORT_SCHEMA,

@@ -1,7 +1,7 @@
 """Continuous-batching inference engine over the paged KV-cache
 (counterpart of ``dlbb_tpu/serve/engine.py``): ROADMAP Queue 1, Slice E,
-item 11, parts 11a (the core), 11b (the fast path and the capacity levers)
-and 11c (speculative and sampled decoding).
+item 11, parts 11a (the core), 11b (the fast path and the capacity levers),
+11c (speculative and sampled decoding) and 11d (serving resilience).
 
 The device programs, fixed shapes for the whole run:
 
@@ -97,18 +97,42 @@ the verify logits, so every rank draws from one numpy generator over the
 global slots in JAX's order and commits the same tokens.  The draft
 model's proposals stay on each rank's own slots.
 
-What JAX's engine does beyond parts 11a-11c is refused with a
-``ValueError`` that names its ROADMAP item: the dispatch watchdog,
-per-request deadlines, the SIGTERM drain and the serving fault sites
-(11d), the fleet hooks (item 12) and device-trace capture (Slice F, item
-13).  A failed dispatch raises out of :meth:`ServingEngine.run_trace`: the
-retries of ``max_dispatch_retries`` are 11d's.  ``hedge_factor`` is
-accepted and ignored, as JAX's single engine ignores it.
+Resilience (part 11d), JAX's paths under JAX's names, counters and
+journal events: the serving fault sites of ``resilience/inject.py`` fire
+on the host side of a dispatch boundary; a transient fault
+(``TransientFault``, ``CorruptStats``) rolls the host bookkeeping back to
+the pre-dispatch snapshot and re-issues the unit with exponential backoff,
+and a torn bookkeeping pass replays from the device result in hand; an
+exhausted retry fails only the affected requests closed, with their
+exception chains; any other exception from a dispatch fails the resident
+batch closed and continues on a fresh carry, since a program that raised
+part-way may already have appended rows in place.  ``dispatch_deadline_factor``
+arms the watchdog (``_with_deadline``): an overrunning unit is abandoned
+on its thread, its window fails closed as ``hung-dispatch`` and the engine
+continues on a fresh carry.  Requests may carry SLO deadlines (blown queue
+heads are shed, late completions counted), and a SIGTERM under the run's
+``PreemptionGuard`` drains the window and returns a preempted report that
+``serve/bench.py::resume_serving`` replays.  On a mesh every such verdict
+is rank 0's, broadcast like its clock: the watchdog's, the drain flag and
+the late check.  A sticky CUDA error poisons the context and no fresh
+carry recovers from it; neither does a real overrun stuck inside a tp
+collective on a multi-rank mesh, whose abandoned thread may still be
+waiting on the group: both fail the run.
+
+What JAX's engine does beyond part 11d is refused with a ``ValueError``
+that names its ROADMAP item: the fleet hooks ``feed`` and ``control``
+(item 12, part 12b) and device-trace capture (Slice F, item 13).
+``hedge_factor`` is accepted and ignored, as JAX's single engine ignores
+it.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import queue
+import signal
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field, replace as dc_replace
@@ -137,6 +161,14 @@ from dlbb_tpu_torch.models.transformer import (
 from dlbb_tpu_torch.obs import spans
 from dlbb_tpu_torch.obs.export import MetricsRegistry
 from dlbb_tpu_torch.resilience import inject
+from dlbb_tpu_torch.resilience.errors import (
+    CorruptStats,
+    DeadlineExceeded,
+    InjectedFault,
+    TransientFault,
+    exception_chain,
+)
+from dlbb_tpu_torch.resilience.preempt import PreemptionGuard
 from dlbb_tpu_torch.serve.kvcache import (
     BlockLedger,
     KVCache,
@@ -180,8 +212,7 @@ def _default_buckets(block_size: int, max_seq: int) -> tuple[int, ...]:
 @dataclass(frozen=True)
 class ServingConfig:
     """The serving envelope (YAML ``serving:`` section), a copy of JAX's:
-    every field, its validation and its messages.  The engine refuses
-    the knobs of part 11d (module docstring); JAX's docstring
+    every field, its validation and its messages; JAX's docstring
     (``dlbb_tpu/serve/engine.py:171-300``) documents each.
 
     max_batch:       decode slots (the fixed decode batch dim).
@@ -645,19 +676,10 @@ class ServingConfig:
 
 
 def _not_ported(what: str, part: str) -> ValueError:
-    item = {"11d": "serving resilience"}[part]
+    item = {"12b": "the fleet (serve/fleet.py)"}[part]
     return ValueError(
         f"{what} is not ported yet: it comes with {item} (ROADMAP Queue 1, "
-        f"Slice E, item 11, part {part})")
-
-
-def _refuse_unported(serving: ServingConfig) -> None:
-    """The knobs JAX's engine serves and this one does not, each refused
-    with the ROADMAP item that brings it (never silently ignored): the
-    dispatch watchdog of part 11d."""
-    if serving.dispatch_deadline_factor is not None:
-        raise _not_ported("serving.dispatch_deadline_factor (the dispatch "
-                          "watchdog)", "11d")
+        f"Slice E, item 12, part {part})")
 
 
 # ---------------------------------------------------------------------------
@@ -1427,6 +1449,78 @@ def speculative_sample(p_target: np.ndarray, q_draft: np.ndarray, draft_id: int,
     return int(rng.choice(len(resid), p=resid)), False
 
 
+class _WatchdogThread:
+    """The thread the watchdog runs its calls on, one call at a time, kept
+    from unit to unit: a fresh thread per unit (JAX's ``_with_deadline``
+    starts one per call) sets up torch's per-thread state anew each time,
+    which cost the 1B's decode step 4.0 ms on an H100.  An abandoned thread
+    ends after the call it is stuck in; the next call starts another."""
+
+    def __init__(self) -> None:
+        self._jobs: Optional[queue.SimpleQueue] = None
+
+    def submit(self, fn, cancel: threading.Event) -> tuple[dict, threading.Event]:
+        if self._jobs is None:
+            self._jobs = queue.SimpleQueue()
+            threading.Thread(target=_watchdog_loop, args=(self._jobs,), daemon=True,
+                             name="dlbb-serve-watchdog").start()
+        box: dict[str, Any] = {}
+        done = threading.Event()
+        self._jobs.put((fn, cancel, box, done))
+        return box, done
+
+    def close(self) -> None:
+        """Let the thread end once its current call (if any) returns."""
+        if self._jobs is not None:
+            self._jobs.put(None)
+            self._jobs = None
+
+
+def _watchdog_loop(jobs: queue.SimpleQueue) -> None:
+    while (job := jobs.get()) is not None:
+        fn, cancel, box, done = job
+        try:
+            box["value"] = fn(cancel)
+        except BaseException as e:  # noqa: BLE001 — marshalled to the caller
+            box["error"] = e
+        finally:
+            done.set()
+
+
+def _with_deadline(fn, deadline: Optional[float], label: str, phase: str,
+                   thread: _WatchdogThread, agree=None) -> Any:
+    """Run ``fn(cancel)`` under the serving dispatch watchdog (JAX's
+    ``_with_deadline``, ``dlbb_tpu/serve/engine.py:1783``).
+
+    With no deadline this is a direct call, ``fn(None)``: no thread, no
+    event, no sync.  With one, ``fn`` runs on ``thread`` and is waited for
+    ``deadline`` seconds.  ``agree(overran) -> bool`` turns this rank's
+    verdict into the mesh's (rank 0's, broadcast); a rank whose own call is
+    still running waits for it when the verdict is "in time".  On an
+    overrun the thread is abandoned (it cannot be killed) and
+    :class:`DeadlineExceeded` raised; ``cancel``, a ``threading.Event``,
+    is set first.  ``fn`` checks it before it launches anything, so a
+    thread that wakes after its deadline (an injected hang) launches no
+    kernel and issues no collective: the engine's cache is updated in
+    place and its process group is in use again by then.  A thread that
+    overran inside its program runs to its end on the arguments it holds."""
+    if deadline is None:
+        return fn(None)
+    cancel = threading.Event()
+    box, done = thread.submit(fn, cancel)
+    overran = not done.wait(deadline)
+    if agree is not None:
+        overran = agree(overran)
+    if overran:
+        cancel.set()
+        thread.close()
+        raise DeadlineExceeded(label, deadline, phase=phase)
+    done.wait()
+    if "error" in box:
+        raise box["error"]
+    return box["value"]
+
+
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
@@ -1468,12 +1562,13 @@ class _RunStats:
     spec_commit_tokens: int = 0     # committed, the bonus token included
     spec_slot_verifies: int = 0     # slot-level verifies (for the mean length)
     spec_draft_s: float = 0.0       # host drafting and draft-scan wall
-
-
-# the serving fault sites of JAX's engine (resilience/inject.py), which
-# fire with part 11d
-_ENGINE_FAULT_SITES = ("serve-prefill-fail", "serve-decode-fail", "serve-decode-hang",
-                       "serve-cache-torn", "serve-preempt")
+    # resilience (part 11d)
+    retries: int = 0
+    hung_dispatches: int = 0
+    failed_requests: int = 0
+    preempted_requests: int = 0
+    deadline_shed: int = 0
+    completed_past_deadline: int = 0
 
 
 class ServingEngine:
@@ -1515,7 +1610,6 @@ class ServingEngine:
         self.dp = 1 if mesh is None else mesh.shape["dp"]
         self.tp = 1 if mesh is None else mesh.shape["tp"]
         serving.validate(config, dp=self.dp, tp=self.tp)
-        _refuse_unported(serving)
         self.config = config
         self.serving = serving
         self.mesh = mesh
@@ -1539,12 +1633,12 @@ class ServingEngine:
             initial=("queue-full", "infeasible", "deadline"),
             help="requests shed, by rejection reason",
         )
-        self.registry.labeled_counter(
+        self._retry_counter = self.registry.labeled_counter(
             "serve_request_retries", "phase",
             initial=("prefill", "decode", "bookkeeping"),
             help="transient dispatch/bookkeeping retries, by phase",
         )
-        self.registry.labeled_counter(
+        self._deadline_counter = self.registry.labeled_counter(
             "serve_deadline_exceeded", "reason",
             initial=("shed-queued", "completed-late"),
             help="per-request SLO deadline misses, by how they surfaced",
@@ -1652,21 +1746,23 @@ class ServingEngine:
     def _now(self) -> float:
         return time.perf_counter() - self._t0
 
-    def _from_rank0(self, value: float) -> float:
-        """Rank 0's ``value``, broadcast to every rank of the mesh: the
-        scheduler's time-derived decisions (its clock once per iteration,
-        the scan horizon's steps to the next arrival) are rank 0's, so
-        every rank takes the same ones."""
-        if self.mesh is None:
-            return value
-        dev = self.device if dist.get_backend(self.mesh.group) == "nccl" else "cpu"
-        t = torch.tensor([value], dtype=torch.float64, device=dev)
-        dist.broadcast(t, src=0, group=self.mesh.group)
-        return float(t)
+    def _from_rank0(self, *values: float):
+        """Rank 0's ``values``, broadcast to every rank of the mesh (one
+        value back for one value, else a tuple): the scheduler's time-derived
+        decisions and its verdicts (its clock and the drain flag once per
+        iteration, the scan horizon's steps to the next arrival, the
+        watchdog's overrun, a late completion) are rank 0's, so every rank
+        takes the same ones."""
+        if self.mesh is not None:
+            dev = self.device if dist.get_backend(self.mesh.group) == "nccl" else "cpu"
+            t = torch.tensor(values, dtype=torch.float64, device=dev)
+            dist.broadcast(t, src=0, group=self.mesh.group)
+            values = tuple(t.tolist())
+        return values[0] if len(values) == 1 else values
 
-    def _clock(self) -> float:
-        """The scheduler's clock: rank 0's :meth:`_now`."""
-        return self._from_rank0(self._now())
+    def _agree(self, flag: bool) -> bool:
+        """Rank 0's ``flag`` on every rank (the watchdog's verdict)."""
+        return bool(self._from_rank0(float(flag)))
 
     # -- device helpers ----------------------------------------------------
 
@@ -1883,35 +1979,37 @@ class ServingEngine:
 
     # -- the run -----------------------------------------------------------
 
-    def run_trace(self, trace: TrafficTrace, guard: Any = None,
+    def run_trace(self, trace: TrafficTrace, guard: Optional[PreemptionGuard] = None,
                   collect_raw: bool = False, feed: Any = None,
                   control: Any = None) -> dict[str, Any]:
-        """Serve ``trace`` to completion; returns the report dict (JAX's
-        keys, ``docs/serving.md``).  Pure compute + host scheduling.
-        ``collect_raw`` adds the raw latency sample lists (``raw_samples``).
+        """Serve ``trace`` to completion, or to a graceful preemption drain;
+        returns the report dict (JAX's keys, ``docs/serving.md``).  Pure
+        compute + host scheduling: ``serve/bench.py`` writes the artifacts.
 
-        ``guard`` (the SIGTERM drain) is part 11d's, and ``feed``/``control``
-        (the fleet replica hooks) are item 12's (ROADMAP Queue 1, Slice E,
-        item 12): each is refused.  So are a request with ``deadline_s``
-        and an active fault plan that names one of the engine's serving
-        sites (part 11d)."""
-        if guard is not None:
-            raise _not_ported("run_trace's guard (the SIGTERM drain)", "11d")
+        ``guard``: an installed :class:`PreemptionGuard` (the bench harness
+        passes its own); None installs one for the run where it can (the
+        main thread).  On SIGTERM (rank 0's, on a mesh) the engine stops
+        admission, drains the in-flight window, journals the resident
+        requests ``request-preempted`` and returns a report with
+        ``preempted=True`` and ``remaining_rids``.  ``collect_raw`` adds the
+        raw latency sample lists (``raw_samples``; always on a preempted
+        report, for the resume's merge).
+
+        ``feed``/``control`` (the fleet replica hooks) are refused: they
+        come with part 12b (ROADMAP Queue 1, Slice E, item 12)."""
         if feed is not None or control is not None:
-            raise ValueError(
-                "run_trace's feed/control (the fleet replica hooks) are not ported "
-                "yet: they come with serve/fleet.py (ROADMAP Queue 1, Slice E, item 12)")
-        plan = inject.active()
-        if plan is not None and set(plan.sites) & set(_ENGINE_FAULT_SITES):
-            raise _not_ported(
-                f"the fault plan's serving sites "
-                f"{sorted(set(plan.sites) & set(_ENGINE_FAULT_SITES))}", "11d")
-        if any(r.deadline_s is not None for r in trace):
-            raise _not_ported("a request with deadline_s (per-request SLO "
-                              "deadlines)", "11d")
-        return self._serve_trace(trace, collect_raw)
+            raise _not_ported("run_trace's feed/control (the fleet replica hooks)", "12b")
+        watchdog = _WatchdogThread()
+        try:
+            if guard is None:
+                with PreemptionGuard() as own:
+                    return self._serve_trace(trace, own, collect_raw, watchdog)
+            return self._serve_trace(trace, guard, collect_raw, watchdog)
+        finally:
+            watchdog.close()
 
-    def _serve_trace(self, trace: TrafficTrace, collect_raw: bool) -> dict[str, Any]:
+    def _serve_trace(self, trace: TrafficTrace, guard: PreemptionGuard,
+                     collect_raw: bool, watchdog: _WatchdogThread) -> dict[str, Any]:
         if not len(trace):
             raise ValueError("cannot serve an empty trace")
         cfg = self.serving
@@ -1977,25 +2075,30 @@ class ServingEngine:
                                                    else self.mesh.coords["dp"])
         local_slots = slice(first_slot, first_slot + cfg.max_batch // self.dp)
         # per-request final outcome map (rid -> "completed" /
-        # "rejected[reason]")
+        # "rejected[reason]" / "failed[reason]" / "preempted")
         outcomes: dict[int, str] = {}
+        # permanent-failure records: the exception chains, never a silent
+        # skip
+        failed_detail: list[dict[str, Any]] = []
         # the in-flight window: decode units dispatched and not yet synced
         # (a k = 1 unit is synced at once); last_sync anchors each unit's
         # interval, so back-to-back units never count device time twice
         inflight: deque[dict[str, Any]] = deque()
         last_sync = [0.0]
         # EMA of the per-step interval: the scan horizon turns "next arrival
-        # in X seconds" into a step budget with it
+        # in X seconds" into a step budget with it, and the watchdog scales
+        # its deadline by it
         step_ema = [0.0]
-        # bumped by a carry replacement, which only part 11d's failure paths
-        # make: a prefix-attach plan from before one degrades to a full
-        # prefill
+        # bumped by every carry replacement (a hung or failed unit): a
+        # chunked prefill interleaved with the failed unit restarts, and a
+        # prefix-attach plan from before one degrades to a full prefill
         carry_resets = [0]
         # host-side active_np mutations are staged; the device mask is
         # re-uploaded lazily, and always before a decode dispatch (a decode
         # interleaved into a chunked prefill must see slots admitted
         # earlier in the same admission loop)
         active_dirty = [False]
+        agree = self._agree if self.mesh is not None else None
 
         def refresh_active() -> None:
             nonlocal active_dev
@@ -2025,6 +2128,13 @@ class ServingEngine:
             self._requests["completed"] += 1
             outcomes[st.req.rid] = "completed"
             extra: dict[str, Any] = {}
+            # served past its SLO: counted, not rejected (rank 0's verdict,
+            # whose clock the ranks' completion times differ from)
+            if st.req.deadline_s is not None \
+                    and self._from_rank0(float(lat > st.req.deadline_s)):
+                stats.completed_past_deadline += 1
+                self._deadline_counter["completed-late"] += 1
+                extra["past_deadline"] = True
             if self.capture_tokens:
                 extra["tokens"] = [int(t) for t in
                                    tokens_by_rid.get(st.req.rid, [])]
@@ -2032,12 +2142,101 @@ class ServingEngine:
                         output_tokens=st.req.output_len,
                         latency_s=round(lat, 6), **extra)
 
+        def take_snapshot() -> dict[str, Any]:
+            """The pre-dispatch rollback point: the ledgers, the resident
+            slots and their token counts, the free slots, the host mask and
+            the generated count (host copies).  The device carry needs none:
+            every fault site fires before a program launches, or after it in
+            host bookkeeping."""
+            return {"ledger": ledger.snapshot(),
+                    "draft_ledger": (draft_ledger.snapshot()
+                                     if draft_ledger is not None else None),
+                    "slots": {s: (st, st.tokens_done) for s, st in slots.items()},
+                    "free_slots": list(free_slots),
+                    "active": active_np.copy(),
+                    "generated": stats.generated_tokens}
+
+        def restore_snapshot(snap: dict[str, Any]) -> None:
+            ledger.restore(snap["ledger"])
+            if draft_ledger is not None:
+                draft_ledger.restore(snap["draft_ledger"])
+            slots.clear()
+            for s, (st, done) in snap["slots"].items():
+                st.tokens_done = done
+                slots[s] = st
+            free_slots[:] = snap["free_slots"]
+            active_np[:] = snap["active"]
+            active_dirty[0] = True
+            stats.generated_tokens = snap["generated"]
+
+        def fail_requests(states: list[_SlotState], exc: BaseException,
+                          reason: str) -> None:
+            """Fail requests closed: journaled ``request-failed`` with the
+            exception chain, outcome recorded, counters bumped."""
+            rec = exception_chain(exc)
+            rids = []
+            for st in states:
+                rids.append(st.req.rid)
+                outcomes[st.req.rid] = f"failed[{reason}]"
+                stats.failed_requests += 1
+                self._requests["failed"] += 1
+                self._event("request-failed", st.req.rid, reason=reason,
+                            error=rec["error"], tokens_done=st.tokens_done)
+            failed_detail.append({"reason": reason, "rids": rids, **rec})
+
+        def fail_resident(exc: BaseException, reason: str) -> None:
+            """Fail every resident request (a decode unit covers the whole
+            resident batch), freeing their slots and blocks."""
+            fail_requests([release(s) for s in sorted(list(slots))], exc, reason)
+
+        def reset_carry() -> None:
+            """Continue on a fresh carry (and draft cache) after a unit that
+            hung or failed: its in-place writes may be half done.  The old
+            cache's last references go first, so the card never holds two
+            caches."""
+            nonlocal carry
+            carry = None
+            draft_cache[0] = None
+            carry = self._fresh_carry()
+            draft_cache[0] = self._fresh_draft_cache()
+            carry_resets[0] += 1
+
+        def unit_deadline(k: int) -> Optional[float]:
+            """The watchdog's deadline for a k-step unit: EMA-scaled, with a
+            floor while the EMA is cold; None = watchdog off."""
+            f = cfg.dispatch_deadline_factor
+            if f is None:
+                return None
+            return max(cfg.dispatch_deadline_min_s, f * k * step_ema[0])
+
+        def abandon_window(first_unit: dict[str, Any], exc: BaseException) -> None:
+            """A unit's sync blew its deadline: every unit still in flight
+            chains off the same carry, so the window is abandoned (its events
+            and uploads released, never waited on), its requests fail
+            closed, completions never confirmed at a sync point among them,
+            and the engine continues on a fresh carry."""
+            stats.hung_dispatches += 1
+            self.registry.inc("serve_hung_dispatches")
+            hung = [first_unit] + list(inflight)
+            inflight.clear()
+            last_sync[0] = time.perf_counter()
+            unconfirmed = [st for u in hung for st in u["completions"]]
+            fail_requests(unconfirmed, exc, "hung-dispatch")
+            fail_resident(exc, "hung-dispatch")
+            reset_carry()
+
         def sync_one() -> None:
-            """Wait for the oldest unit in flight, then its timing, token
-            capture and completions."""
+            """Wait for the oldest unit in flight (under the watchdog, when
+            armed), then its timing, token capture and completions."""
             unit = inflight.popleft()
             if unit["ready"] is not None:
-                unit["ready"].synchronize()
+                try:
+                    _with_deadline(lambda _cancel: unit["ready"].synchronize(),
+                                   unit_deadline(unit["k"]), f"decode[k={unit['k']}]",
+                                   "serve-sync", watchdog, agree)
+                except DeadlineExceeded as e:
+                    abandon_window(unit, e)
+                    return
             t_ready = time.perf_counter()
             dt = t_ready - max(unit["t0"], last_sync[0])
             last_sync[0] = t_ready
@@ -2073,25 +2272,72 @@ class ServingEngine:
             while inflight:
                 sync_one()
 
-        def decode_unit(k: int, steps: dict[int, int], compact: bool) -> None:
-            """One decode unit: the dispatch, the host bookkeeping at its
-            exit (the ledger's known lengths make every step's outcome
-            known at dispatch time), and the in-flight window's push and
-            boundary sync."""
+        def watched(deadline: Optional[float], label: str):
+            """``dispatch(fn)``: ``fn()`` (a program call that reads the
+            carry when called) under the watchdog, behind the injected hang
+            site, which sleeps on the watchdog's thread.  A thread abandoned
+            in its hang returns without calling ``fn``."""
+            # the watchdog's thread starts on device 0: it takes this rank's
+            cuda_index = (torch.cuda.current_device()
+                          if deadline is not None and self.device.type == "cuda" else None)
+
+            def dispatch(fn):
+                def run(cancel):
+                    if cuda_index is not None:
+                        torch.cuda.set_device(cuda_index)
+                    if inject.fire("serve-decode-hang"):
+                        time.sleep(inject.param("hang_seconds"))
+                    if cancel is not None and cancel.is_set():
+                        return None
+                    return fn()
+                return _with_deadline(run, deadline, label, "serve-dispatch", watchdog, agree)
+            return dispatch
+
+        def bookkeeping_retry(attempt: int, e: BaseException, unit: str) -> int:
+            """One more pass of a unit's torn bookkeeping, or the end of
+            its retries; returns the attempt number."""
+            if attempt >= cfg.max_dispatch_retries:
+                raise RuntimeError(f"ledger/slot bookkeeping kept failing after the "
+                                   f"{unit} unit completed on device") from e
+            attempt += 1
+            stats.retries += 1
+            self._retry_counter["bookkeeping"] += 1
+            if self.journal is not None:
+                self.journal.event("dispatch-retry", phase="bookkeeping",
+                                   attempt=attempt, error=str(e))
+            time.sleep(cfg.retry_backoff_s * (2 ** (attempt - 1)))
+            return attempt
+
+        def decode_unit(k: int, steps: dict[int, int], compact: bool,
+                        snap: dict[str, Any]) -> None:
+            """One decode unit, committed: the dispatch (under the watchdog
+            when armed), the torn-protected host bookkeeping at its exit
+            (the ledger's known lengths make every step's outcome known at
+            dispatch time), and the in-flight window's push and boundary
+            sync.  A torn bookkeeping pass restores ``snap`` and replays
+            from the device result in hand, never a re-dispatch; every other
+            fault raises out to ``dispatch_decode`` with nothing committed."""
             nonlocal carry
             t0 = time.perf_counter()
+            dispatch = watched(unit_deadline(k), f"decode[k={k}]")
             # ONE span per dispatched unit, covering the dispatch and the
             # boundary sync below
             span_args: dict[str, Any] = dict(active=len(slots), steps=k)
             if compact:
                 span_args["compacted"] = True
             with spans.span("serve-decode", **span_args):
+                if inject.fire("serve-decode-fail"):
+                    # before any launch: a retry re-dispatches from the
+                    # unchanged carry
+                    raise TransientFault("injected serve-decode-fail at the decode "
+                                         "dispatch boundary")
                 if k == 1:
                     if token_mode:
-                        carry, ys = self._decode_token(carry, self.params, self._table,
-                                                       active_dev)
+                        carry, ys = dispatch(lambda: self._decode_token(
+                            carry, self.params, self._table, active_dev))
                     else:
-                        carry, ys = self._decode(carry, self.params, active_dev)
+                        carry, ys = dispatch(lambda: self._decode(carry, self.params,
+                                                                  active_dev))
                     stats.single_steps += 1
                     rows = [(s, s, slots[s].req.rid, 1) for s in sorted(steps)]
                 elif compact:
@@ -2106,11 +2352,14 @@ class ServingEngine:
                     s_rem_np = np.zeros((bucket,), np.int32)
                     for i, s in enumerate(act):
                         s_rem_np[i] = steps[s]
-                    small = self._compact_gather(carry, idx)
-                    small, ys = self._decode_fused[k](small, self.params,
-                                                      self._upload(s_act_np),
-                                                      self._upload(s_rem_np))
-                    carry = self._compact_scatter(carry, small, idx)
+                    s_act, s_rem = self._upload(s_act_np), self._upload(s_rem_np)
+
+                    def compact_unit():
+                        small = self._compact_gather(carry, idx)
+                        small, ys = self._decode_fused[k](small, self.params, s_act, s_rem)
+                        return self._compact_scatter(carry, small, idx), ys
+
+                    carry, ys = dispatch(compact_unit)
                     stats.fused_scans += 1
                     stats.fused_steps += k
                     stats.compacted_scans += 1
@@ -2122,24 +2371,36 @@ class ServingEngine:
                         rem_np[s] = m
                     rem_dev = self._upload(rem_np)
                     if token_mode:
-                        carry, ys = self._decode_fused_token[k](
-                            carry, self.params, self._table, active_dev, rem_dev)
+                        carry, ys = dispatch(lambda: self._decode_fused_token[k](
+                            carry, self.params, self._table, active_dev, rem_dev))
                     else:
-                        carry, ys = self._decode_fused[k](carry, self.params, active_dev,
-                                                          rem_dev)
+                        carry, ys = dispatch(lambda: self._decode_fused[k](
+                            carry, self.params, active_dev, rem_dev))
                     stats.fused_scans += 1
                     stats.fused_steps += k
                     self.registry.inc("serve_fused_scan_steps", k)
                     rows = [(s, s, slots[s].req.rid, steps[s]) for s in sorted(steps)]
                 ready = self._record()
-                completions: list[int] = []
-                for s, m in sorted(steps.items()):
-                    st = slots[s]
-                    st.tokens_done += m
-                    ledger.append(s, m)
-                    stats.generated_tokens += m
-                    if st.tokens_done >= st.req.output_len:
-                        completions.append(s)
+                book_attempt = 0
+                while True:
+                    completions: list[int] = []
+                    try:
+                        for s, m in sorted(steps.items()):
+                            st = slots[s]
+                            st.tokens_done += m
+                            if inject.fire("serve-cache-torn"):
+                                raise TransientFault("injected serve-cache-torn: ledger/"
+                                                     "slot bookkeeping torn mid-unit")
+                            ledger.append(s, m)
+                            if draft_ledger is not None:
+                                draft_ledger.append(s, m)
+                            stats.generated_tokens += m
+                            if st.tokens_done >= st.req.output_len:
+                                completions.append(s)
+                        break
+                    except (TransientFault, CorruptStats) as e:
+                        restore_snapshot(snap)
+                        book_attempt = bookkeeping_retry(book_attempt, e, "decode")
                 stats.decode_steps += k
                 stats.decode_units += 1
                 self.registry.inc("serve_decode_steps", k)
@@ -2154,23 +2415,6 @@ class ServingEngine:
                 while len(inflight) >= window:
                     sync_one()
 
-        def take_snapshot() -> dict[str, Any]:
-            """The verify unit's rollback point: the ledgers, the resident
-            slots' token counts and the generated count (host copies)."""
-            return {"ledger": ledger.snapshot(),
-                    "draft_ledger": (draft_ledger.snapshot()
-                                     if draft_ledger is not None else None),
-                    "tokens_done": {s: st.tokens_done for s, st in slots.items()},
-                    "generated": stats.generated_tokens}
-
-        def restore_snapshot(snap: dict[str, Any]) -> None:
-            ledger.restore(snap["ledger"])
-            if draft_ledger is not None:
-                draft_ledger.restore(snap["draft_ledger"])
-            for s, done in snap["tokens_done"].items():
-                slots[s].tokens_done = done
-            stats.generated_tokens = snap["generated"]
-
         def spec_unit(g: int, drafts_np: np.ndarray, snap: dict[str, Any]) -> None:
             """One draft-and-verify unit over the whole resident batch: the
             draft (the n-gram drafts are in ``drafts_np``, whole; the draft
@@ -2179,14 +2423,26 @@ class ServingEngine:
             in-flight window: its accounting depends on the device's
             acceptance.  The bookkeeping is JAX's optimistic-then-rollback:
             every slot is first accounted its whole γ+1 window, and a
-            shortfall restores ``snap`` and replays the true commits."""
+            shortfall restores ``snap`` and replays the true commits.  The
+            fault sites and the watchdog are the decode unit's."""
             nonlocal carry
             refresh_active()
             rows = [(s, slots[s].req.rid) for s in sorted(slots)]
             rem_map = {s: slots[s].req.output_len - slots[s].tokens_done for s, _ in rows}
+            deadline = unit_deadline(g + 1)
+            label = f"verify[gamma={g}]"
+            dispatch = watched(deadline, label)
+
+            def synced(fn):
+                return _with_deadline(lambda _cancel: fn(), deadline, label, "serve-sync",
+                                      watchdog, agree)
+
             t0 = time.perf_counter()
             with spans.span("serve-verify", active=len(slots), gamma=g,
                             drafter=cfg.speculation):
+                if inject.fire("serve-decode-fail"):
+                    raise TransientFault("injected serve-decode-fail at the verify "
+                                         "dispatch boundary")
                 rem_np = np.zeros((cfg.max_batch,), np.int32)
                 for s, _ in rows:
                     rem_np[s] = rem_map[s]
@@ -2197,10 +2453,11 @@ class ServingEngine:
                     for s, _ in rows:
                         st = slots[s]
                         lengths_np[s] = st.req.prompt_len + st.tokens_done - 1
+                    dlen = self._upload(lengths_np)
                     t_d = time.perf_counter()
-                    draft_cache[0], ids = self._draft_scan[g](
+                    draft_cache[0], ids = dispatch(lambda: self._draft_scan[g](
                         draft_cache[0], self._draft_params, self._table, carry[1],
-                        self._upload(lengths_np), active_dev)
+                        dlen, active_dev))
                     # host dispatch wall only: the drafts stay on the device
                     stats.spec_draft_s += time.perf_counter() - t_d
                 else:
@@ -2212,9 +2469,9 @@ class ServingEngine:
                     # logits of every slot (gathered over dp, so every rank
                     # draws the same numbers in JAX's slot order), and
                     # spec_commit applies the decided commits
-                    carry, y = self._verify_probs[g](carry, self.params, self._table, ids,
-                                                     active_dev)
-                    y_np = _gather_dp(y, self.mesh).float().cpu().numpy()
+                    carry, y = dispatch(lambda: self._verify_probs[g](
+                        carry, self.params, self._table, ids, active_dev))
+                    y_np = synced(lambda: _gather_dp(y, self.mesh).float().cpu().numpy())
                     ids_np = (_gather_dp(ids, self.mesh).cpu().numpy()
                               if cfg.speculation == "draft-model" else drafts_np)
                     vocab = y_np.shape[-1]
@@ -2240,37 +2497,52 @@ class ServingEngine:
                         commits_np[s] = m
                         next_np[s] = toks[m - 1]
                         committed_ids[s] = toks[:m]
-                    carry = self._spec_commit(carry, self._table, self._upload(next_np),
-                                              self._upload(commits_np), active_dev)
+                    next_dev, com_dev = self._upload(next_np), self._upload(commits_np)
+                    carry = dispatch(lambda: self._spec_commit(
+                        carry, self._table, next_dev, com_dev, active_dev))
                     self.registry.inc("serve_sampled_tokens", int(commits_np.sum()))
                 else:
-                    carry, tok, commits = self._verify[g](carry, self.params, self._table, ids,
-                                                          active_dev, self._upload(rem_np))
-                    commits_np = commits.cpu().numpy()
+                    rem_dev = self._upload(rem_np)
+                    carry, tok, commits = dispatch(lambda: self._verify[g](
+                        carry, self.params, self._table, ids, active_dev, rem_dev))
+                    commits_np = synced(lambda: commits.cpu().numpy())
                 t_ready = time.perf_counter()
                 dt = t_ready - max(t0, last_sync[0])
                 last_sync[0] = t_ready
-                for s, _rid in rows:
-                    st = slots[s]
-                    opt = min(g + 1, rem_map[s])
-                    st.tokens_done += opt
-                    ledger.append(s, opt)
-                    if draft_ledger is not None:
-                        draft_ledger.append(s, opt)
-                    stats.generated_tokens += opt
-                if any(int(commits_np[s]) != min(g + 1, rem_map[s]) for s, _ in rows):
-                    # rejection rollback: the true commits replayed
-                    restore_snapshot(snap)
-                    for s, _rid in rows:
-                        st = slots[s]
-                        m = int(commits_np[s])
-                        st.tokens_done += m
-                        ledger.append(s, m)
-                        if draft_ledger is not None:
-                            draft_ledger.append(s, m)
-                        stats.generated_tokens += m
-                completions = [s for s, _ in rows
-                               if slots[s].tokens_done >= slots[s].req.output_len]
+                # torn-protected bookkeeping (the decode unit's replay): the
+                # device result is in hand, so a replay is host recomputation
+                book_attempt = 0
+                while True:
+                    completions: list[int] = []
+                    try:
+                        for s, _rid in rows:
+                            st = slots[s]
+                            opt = min(g + 1, rem_map[s])
+                            st.tokens_done += opt
+                            ledger.append(s, opt)
+                            if draft_ledger is not None:
+                                draft_ledger.append(s, opt)
+                            stats.generated_tokens += opt
+                        if inject.fire("serve-cache-torn"):
+                            raise TransientFault("injected serve-cache-torn: ledger/slot "
+                                                 "bookkeeping torn mid-verify")
+                        if any(int(commits_np[s]) != min(g + 1, rem_map[s]) for s, _ in rows):
+                            # rejection rollback: the true commits replayed
+                            restore_snapshot(snap)
+                            for s, _rid in rows:
+                                st = slots[s]
+                                m = int(commits_np[s])
+                                st.tokens_done += m
+                                ledger.append(s, m)
+                                if draft_ledger is not None:
+                                    draft_ledger.append(s, m)
+                                stats.generated_tokens += m
+                        completions = [s for s, _ in rows
+                                       if slots[s].tokens_done >= slots[s].req.output_len]
+                        break
+                    except (TransientFault, CorruptStats) as e:
+                        restore_snapshot(snap)
+                        book_attempt = bookkeeping_retry(book_attempt, e, "verify")
                 stats.decode_steps += 1
                 stats.decode_units += 1
                 stats.spec_verify_units += 1
@@ -2325,13 +2597,58 @@ class ServingEngine:
                 for st in done_states:
                     finish(st, done_at)
 
+        def recover(unit, snap: dict[str, Any]) -> None:
+            """Run ``unit()`` (one decode or verify unit) with JAX's
+            recovery ladder: a transient fault, raised before any launch or
+            in the host bookkeeping, restores ``snap`` and re-issues the unit
+            with exponential backoff, and past ``max_dispatch_retries`` fails
+            the resident batch closed; a watchdog overrun settles the valid
+            in-flight tail and fails the resident batch as
+            ``hung-dispatch``; any other exception fails it closed too.  The
+            last two continue on a fresh carry."""
+            attempt = 0
+            while True:
+                try:
+                    unit()
+                    return
+                except (TransientFault, CorruptStats) as e:
+                    restore_snapshot(snap)
+                    if attempt >= cfg.max_dispatch_retries:
+                        fail_resident(e, "dispatch-failed")
+                        return
+                    attempt += 1
+                    stats.retries += 1
+                    self._retry_counter["decode"] += 1
+                    if self.journal is not None:
+                        self.journal.event("dispatch-retry", phase="decode",
+                                           attempt=attempt, error=str(e))
+                    time.sleep(cfg.retry_backoff_s * (2 ** (attempt - 1)))
+                except DeadlineExceeded as e:
+                    restore_snapshot(snap)
+                    stats.hung_dispatches += 1
+                    self.registry.inc("serve_hung_dispatches")
+                    drain()
+                    fail_resident(e, "hung-dispatch")
+                    reset_carry()
+                    return
+                except Exception as e:  # noqa: BLE001 — fail closed
+                    restore_snapshot(snap)
+                    try:
+                        drain()
+                    except Exception:  # noqa: BLE001
+                        inflight.clear()
+                    fail_resident(e, "dispatch-failed")
+                    reset_carry()
+                    return
+
         def dispatch_spec() -> bool:
-            """One draft-and-verify unit over the resident batch; False when
-            the n-gram drafter is cold (no hit for any resident slot, read
-            from the whole histories), and the caller then runs a plain
-            token decode unit, so speculation composes with
-            ``decode_horizon`` and the window.  A sampled run's cold unit is
-            the γ = 0 verify instead: one sampled token per slot."""
+            """One draft-and-verify unit over the resident batch, with the
+            decode unit's recovery ladder; False when the n-gram drafter is
+            cold (no hit for any resident slot, read from the whole
+            histories), and the caller then runs a plain token decode unit,
+            so speculation composes with ``decode_horizon`` and the window.
+            A sampled run's cold unit is the γ = 0 verify instead: one
+            sampled token per slot."""
             # the histories and the bookkeeping must be current before
             # drafting: a fallback's fused units may still be in flight
             drain()
@@ -2360,7 +2677,8 @@ class ServingEngine:
                         return False
                     g = 0
                     drafts_np = np.zeros((cfg.max_batch, 0), np.int32)
-            spec_unit(g, drafts_np, take_snapshot())
+            snap = take_snapshot()
+            recover(lambda: spec_unit(g, drafts_np, snap), snap)
             return True
 
         def steps_to_arrival() -> int:
@@ -2380,7 +2698,8 @@ class ServingEngine:
             passes 1).  With a drafter, a draft-and-verify unit comes first,
             but not in the interleave (a verify's window would block the
             admission the interleave serves); a cold n-gram drafter falls
-            through to the plain token unit."""
+            through to the plain token unit.  Either runs under
+            :func:`recover`."""
             refresh_active()
             if spec_on and max_k is None:
                 if dispatch_spec():
@@ -2408,7 +2727,8 @@ class ServingEngine:
             compact = (self._compact_gather is not None and k > 1
                        and len(slots) <= cfg.compact_threshold * cfg.max_batch
                        and len(slots) <= cfg.max_batch // 2)
-            decode_unit(k, steps, compact)
+            snap = take_snapshot()
+            recover(lambda: decode_unit(k, steps, compact, snap), snap)
 
         def attach_plan(req: Request) -> dict[str, Any]:
             """The host-side prefix match of one admission: the prompt's
@@ -2444,8 +2764,15 @@ class ServingEngine:
             returns ``(bucket, y_last, dt)``; ``y_last`` is the owner's, on
             every rank.  With a prefix-attach ``plan`` the matched chunks
             are replaced by one copy of the donor's blocks and only the
-            suffix chunks run."""
+            suffix chunks run; a carry reset since planning degrades it to
+            the full prefill.  Raised through by :func:`prefill_dispatch`'s
+            retries, and idempotent on a retry (the writes are the same
+            values into the same blocks)."""
             nonlocal carry
+            if inject.fire("serve-prefill-fail"):
+                # before any launch, as serve-decode-fail
+                raise TransientFault("injected serve-prefill-fail at the prefill "
+                                     "dispatch boundary")
             if cfg.prefill_chunk is None:
                 bucket = cfg.bucket_for(req.prompt_len)
                 x_prompt = request_embeddings(
@@ -2506,8 +2833,15 @@ class ServingEngine:
                         # chunks instead of waiting behind the whole prompt
                         carry = (cache, carry[1])
                         td = time.perf_counter()
+                        resets = carry_resets[0]
                         dispatch_decode(max_k=1)
                         decode_spent += time.perf_counter() - td
+                        if carry_resets[0] != resets:
+                            # the resident batch failed and took the carry,
+                            # with this request's chunks so far: restart the
+                            # prefill on the fresh carry (through the retry)
+                            raise TransientFault("carry reset during the chunked-prefill "
+                                                 "interleave (resident batch failed closed)")
                         cache = carry[0]
                 carry = (cache, carry[1])
                 y_last = self._from_owner(y_last, slot)
@@ -2517,10 +2851,61 @@ class ServingEngine:
                 dt = time.perf_counter() - t0 - decode_spent
             return bucket, y_last, dt
 
+        def prefill_dispatch(req: Request, slot: int, plan: Optional[dict[str, Any]] = None):
+            """:func:`prefill_once` with bounded retries of a transient
+            fault (the chunk counter rolled back, so a retried prefill never
+            counts twice); exhaustion raises to the admission loop."""
+            attempt = 0
+            while True:
+                chunks_base = stats.prefill_chunks
+                try:
+                    return prefill_once(req, slot, plan)
+                except (TransientFault, CorruptStats) as e:
+                    stats.prefill_chunks = chunks_base
+                    if attempt >= cfg.max_dispatch_retries:
+                        raise
+                    attempt += 1
+                    stats.retries += 1
+                    self._retry_counter["prefill"] += 1
+                    if self.journal is not None:
+                        self.journal.event("dispatch-retry", phase="prefill", rid=req.rid,
+                                           attempt=attempt, error=str(e))
+                    time.sleep(cfg.retry_backoff_s * (2 ** (attempt - 1)))
+
+        def fail_admission(req: Request, slot: int, exc: BaseException) -> None:
+            """A prefill that failed for good fails only its request (its
+            reservation undone, journaled with the chain); a real (not
+            injected) failure may have written the cache in part, so the
+            resident batch fails closed too, on a fresh carry."""
+            ledger.free(slot)
+            if draft_ledger is not None:
+                draft_ledger.free(slot)
+            free_slots.append(slot)
+            free_slots.sort()
+            fail_requests([_SlotState(req=req, tokens_done=0)], exc, "dispatch-failed")
+            if not isinstance(exc, InjectedFault):
+                fail_resident(exc, "dispatch-failed")
+                reset_carry()
+
         self._t0 = time.perf_counter()
         last_sync[0] = self._t0
+        preempted = False
         while pending or queue or slots:
-            now = self._clock()
+            if inject.fire("serve-preempt"):
+                # a real SIGTERM to this process, which the guard turns into
+                # the drain flag (an inert flag off the main thread)
+                if guard.installed:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                else:
+                    guard.request()
+            # the scheduler's clock and the drain flag: rank 0's, since a
+            # real SIGTERM reaches the ranks at different times
+            now, stop = self._from_rank0(self._now(), float(guard.requested))
+            if stop:
+                # graceful drain: admission stops here; the window settles
+                # below and the resident requests are preempted
+                preempted = True
+                break
             # 1. arrivals -> admission control (bounded queue)
             while pending and pending[0].arrival_s <= now:
                 req = pending.popleft()
@@ -2563,7 +2948,27 @@ class ServingEngine:
                     self._event("request-admitted", req.rid,
                                 queue_depth=len(queue))
             # 2. step-boundary scheduling: grant slots + block
-            #    reservations, prefill each granted request
+            #    reservations, prefill each granted request.  First,
+            #    per-request SLO shedding: a queue head whose wait has
+            #    already blown its deadline is shed (reason "deadline",
+            #    distinct from queue-full: latency, not capacity)
+            while (queue and queue[0].deadline_s is not None
+                    and now - queue[0].arrival_s > queue[0].deadline_s):
+                req = queue.popleft()
+                wait = now - req.arrival_s
+                self._requests["rejected"] += 1
+                self._rejections["deadline"] += 1
+                self._deadline_counter["shed-queued"] += 1
+                stats.deadline_shed += 1
+                outcomes[req.rid] = "rejected[deadline]"
+                rejected_detail.append({
+                    "rid": req.rid, "reason": "deadline",
+                    "queue_depth": len(queue),
+                    "queue_wait_s": round(wait, 6),
+                    "deadline_s": req.deadline_s,
+                })
+                self._event("request-rejected", req.rid, reason="deadline",
+                            queue_wait_s=round(wait, 6), deadline_s=req.deadline_s)
             scheduled = False
             if queue and free_slots:
                 # settle the in-flight decode before the prefill waits, so
@@ -2587,7 +2992,11 @@ class ServingEngine:
                                        attach_blocks=attach_blocks)
                         if draft_ledger is not None:
                             draft_ledger.reserve(slot, req.total_tokens)
-                        bucket, y_last, dt = prefill_once(req, slot, plan)
+                        try:
+                            bucket, y_last, dt = prefill_dispatch(req, slot, plan)
+                        except Exception as e:  # noqa: BLE001 — fail closed
+                            fail_admission(req, slot, e)
+                            continue
                         if token_mode and self._sampled:
                             # the first token obeys the temperature law too:
                             # the prefill's last logits (the same on every
@@ -2692,6 +3101,28 @@ class ServingEngine:
                     "serve_cache_prefix_refs", ledger.trie.total_refs(),
                     help="slot references across all shared blocks")
         drain()
+        remaining_rids: list[int] = []
+        if preempted:
+            # graceful drain: the window settled above; the resident
+            # requests are preempted (journaled, freed) and replayed by
+            # serve/bench.py::resume_serving with the queue and the rest
+            for s in sorted(list(slots)):
+                st = release(s)
+                outcomes[st.req.rid] = "preempted"
+                stats.preempted_requests += 1
+                self._requests["preempted"] += 1
+                remaining_rids.append(st.req.rid)
+                self._event("request-preempted", st.req.rid,
+                            tokens_done=st.tokens_done, output_len=st.req.output_len)
+            remaining_rids += [r.rid for r in queue]
+            remaining_rids += [r.rid for r in pending]
+            if self.journal is not None:
+                self.journal.event("preempted", signal=guard.signal_received,
+                                   remaining=len(remaining_rids))
+            if self.verbose:
+                print(f"[serve] SIGTERM received — drained the in-flight "
+                      f"window, {len(remaining_rids)} request(s) remain "
+                      "for --resume")
         wall = self._now()
         self.draft_cache_stats = draft_ledger.stats() if draft_ledger is not None else None
 
@@ -2731,8 +3162,8 @@ class ServingEngine:
                 "rejected_rids": [d["rid"] for d in rejected_detail],
                 "rejected_detail": rejected_detail,
                 "shed_rate": (shed / arrived) if arrived else 0.0,
-                "deadline_shed": 0,
-                "completed_past_deadline": 0,
+                "deadline_shed": stats.deadline_shed,
+                "completed_past_deadline": stats.completed_past_deadline,
                 "outcomes": {str(rid): o
                              for rid, o in sorted(outcomes.items())},
             },
@@ -2774,13 +3205,13 @@ class ServingEngine:
                 "draft_overhead_s": stats.spec_draft_s,
             },
             "resilience": {
-                "retries": 0,
-                "hung_dispatches": 0,
-                "failed_requests": 0,
-                "failed": [],
+                "retries": stats.retries,
+                "hung_dispatches": stats.hung_dispatches,
+                "failed_requests": stats.failed_requests,
+                "failed": failed_detail,
             },
-            "preempted": False,
-            "remaining_rids": [],
+            "preempted": preempted,
+            "remaining_rids": sorted(remaining_rids),
             "prefix": {
                 "enabled": cfg.prefix_caching,
                 "kv_quantization": cfg.kv_quantization,
@@ -2800,7 +3231,8 @@ class ServingEngine:
             "compile_time_s": compile_time,
             "wall_seconds": wall,
         }
-        if collect_raw:
+        if collect_raw or preempted:
+            # a preempted report carries them for the resume's merge
             report["raw_samples"] = {
                 "ttft_s": list(stats.ttft_s),
                 "per_token_s": list(stats.per_token_s),

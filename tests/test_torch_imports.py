@@ -44,7 +44,8 @@ def test_port_has_the_expected_modules():
                 "dlbb_tpu_torch/stats/northstar.py",
                 "dlbb_tpu_torch/stats/parallelism_report.py",
                 "dlbb_tpu_torch/serve/kvcache.py", "dlbb_tpu_torch/serve/traffic.py",
-                "dlbb_tpu_torch/serve/engine.py",
+                "dlbb_tpu_torch/serve/engine.py", "dlbb_tpu_torch/serve/bench.py",
+                "dlbb_tpu_torch/stats/serving_report.py",
                 "dlbb_tpu_torch/obs/spans.py", "dlbb_tpu_torch/obs/export.py",
                 "dlbb_tpu_torch/resilience/journal.py", "chip_smoke.py",
                 "bench_torch.py"):
@@ -120,7 +121,8 @@ def test_compression_and_report_modules_import_without_jax_triton_or_cuda(module
 
 
 @pytest.mark.parametrize("module", [
-    "dlbb_tpu_torch.serve", "dlbb_tpu_torch.serve.engine", "dlbb_tpu_torch.obs",
+    "dlbb_tpu_torch.serve", "dlbb_tpu_torch.serve.engine", "dlbb_tpu_torch.serve.bench",
+    "dlbb_tpu_torch.stats.serving_report", "dlbb_tpu_torch.obs",
     "dlbb_tpu_torch.resilience", "bench_torch"])
 def test_serving_obs_and_bench_import_without_jax_triton_or_cuda(module):
     """The serving foundations and engine, the span tracer and metrics

@@ -344,9 +344,48 @@ def test_cli_reports_with_nothing_to_report_fails(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("rel,item", [("BENCH_autotune.json", "item 14"),
-                                      ("serving/serving_a.json", "item 12")])
+                                      ("serving/fleet_a.json", "item 12")])
 def test_cli_reports_refuses_unported_inputs(tmp_path, rel, item):
     _write(tmp_path / "results" / rel, {})
     with pytest.raises(NotImplementedError, match=item):
         cli.main(["reports", "--stats", str(tmp_path / "s"),
                   "--results", str(tmp_path / "results")])
+
+
+def test_cli_reports_writes_the_serving_report(tmp_path, capsys):
+    """``cli reports`` over ``RESULTS/serving``: ``stats/serving`` gets the
+    CSV byte-equal to JAX's ``write_serving_report`` on the same reports,
+    and the markdown too but for the command its prose names."""
+    from dlbb_tpu.stats.serving_report import write_serving_report
+
+    rng = np.random.default_rng(5)
+    for name in ("a", "b"):
+        q = sorted(rng.lognormal(-4.0, 0.5, 3).tolist())
+        _write(tmp_path / "results" / "serving" / f"serving_{name}.json", {
+            "schema": "dlbb_serving_report_v1",
+            "trace": {"kind": "poisson", "num_requests": 10},
+            "requests": {"arrived": 10, "completed": 9, "rejected": 1, "failed": 0,
+                         "deadline_shed": 0, "completed_past_deadline": 1},
+            "resilience": {"retries": int(rng.integers(0, 3))},
+            "mesh": {"dp": 1, "sp": 1, "pp": 1, "ep": 1, "tp": 1},
+            "serving": {"max_batch": 32, "block_size": 16, "max_seq": 2048},
+            "goodput_tokens_per_s": float(rng.uniform(300, 400)),
+            "ttft": dict(zip(("median", "p99", "p999"), q)),
+            "per_token_latency": dict(zip(("median", "p99", "p999"), [x / 40 for x in q])),
+            "cache": {"peak_blocks_in_use": 900},
+            "timeseries": {"queue_depth": [0, 32, 0]},
+            "decode_steps": 200,
+            "wall_seconds": 12.5,
+        })
+    _write(tmp_path / "results" / "serving" / "serving_manifest.json", {"name": "a"})
+    stats = tmp_path / "stats"
+    assert cli.main(["reports", "--stats", str(stats),
+                     "--results", str(tmp_path / "results")]) == 0
+    assert f"serving: 2 run(s) -> {stats / 'serving' / 'SERVING.md'}" in \
+        capsys.readouterr().out
+    write_serving_report(tmp_path / "results" / "serving", tmp_path / "jax")
+    assert (stats / "serving" / "serving.csv").read_bytes() == \
+        (tmp_path / "jax" / "serving.csv").read_bytes()
+    assert (stats / "serving" / "SERVING.md").read_text() == \
+        (tmp_path / "jax" / "SERVING.md").read_text().replace(
+            "`python -m dlbb_tpu.cli serve`", "`python -m dlbb_tpu_torch.cli serve`")

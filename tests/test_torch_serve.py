@@ -22,10 +22,11 @@
   host);
 - the three engine tests of ``tests/test_serve.py``, mirrored on the port;
 - ranks agree at dp=2 on a Poisson trace whose admission depends on time;
-- every knob of parts 11b and 11c engaging (``tests/test_torch_serve_fastpath.py``
-  and ``tests/test_torch_spec.py`` hold them against JAX), and every knob
-  of part 11d and of items 12 and 13 refused with a ``ValueError`` citing
-  its ROADMAP item.
+- every knob of parts 11b, 11c and 11d engaging
+  (``tests/test_torch_serve_fastpath.py``, ``tests/test_torch_spec.py`` and
+  ``tests/test_torch_serve_resilience.py`` hold them against JAX), and the
+  hooks of item 12 (part 12b) and of item 13 refused with a ``ValueError``
+  citing its ROADMAP item.
 """
 
 import dataclasses
@@ -54,10 +55,12 @@ from dlbb_tpu_torch.data import synthetic as pt_synth
 from dlbb_tpu_torch.models import ModelConfig, params_from_jax
 from dlbb_tpu_torch.obs import spans
 from dlbb_tpu_torch.resilience import inject as pt_inject
+from dlbb_tpu_torch.resilience.preempt import PreemptionGuard
 from dlbb_tpu_torch.resilience.journal import SweepJournal, read_journal
 from dlbb_tpu_torch.serve import engine as pt_engine
 from dlbb_tpu_torch.serve import kvcache as pt_kv
 from dlbb_tpu_torch.serve.traffic import TrafficTrace, generate_trace
+from dlbb_tpu_torch.utils.config import save_json
 
 torch.set_num_threads(1)
 
@@ -686,24 +689,6 @@ def test_engine_rejects_infeasible_trace_upfront(smoke_engine):
 # refused knobs
 # ---------------------------------------------------------------------------
 
-REFUSED = {
-    "watchdog": (dict(dispatch_deadline_factor=4.0), "11d"),
-}
-
-
-@pytest.mark.parametrize("name", sorted(REFUSED))
-def test_unported_knob_is_refused_with_its_item(name):
-    kw, part = REFUSED[name]
-    cfg = ModelConfig(**TINY)
-    sv = pt_engine.ServingConfig(**SMOKE_SERVING, **kw)
-    # JAX's envelope accepts it: the refusal is the port's, not validate's
-    sv.validate(cfg)
-    jax_engine.ServingConfig(**SMOKE_SERVING, **kw).validate(jax_configs.ModelConfig(**TINY))
-    with pytest.raises(ValueError, match=f"part {part}") as e:
-        pt_engine.ServingEngine(cfg, sv, device="cpu", verbose=False)
-    _names_a_roadmap_item(str(e.value))
-
-
 # parts 11b's and 11c's knobs, each with the report's evidence that it
 # engaged
 ENGAGED = {
@@ -775,29 +760,61 @@ def test_11c_knob_engages(name, weights):
     assert report["cache"]["blocks_reserved"] == 0
 
 
-RUN_REFUSALS = ("guard", "feed", "control", "deadline", "fault_plan", "capture")
+RUN_REFUSALS = ("feed", "control", "capture")
 
 
 @pytest.mark.parametrize("what", RUN_REFUSALS)
 def test_unported_run_hooks_are_refused(smoke_engine, what):
     trace = generate_trace("poisson", 3, seed=1, prompt_range=(4, 8), output_range=(2, 4))
     calls = {
-        "guard": lambda: smoke_engine.run_trace(trace, guard=object()),
         "feed": lambda: smoke_engine.run_trace(trace, feed=object()),
         "control": lambda: smoke_engine.run_trace(trace, control=object()),
-        "deadline": lambda: smoke_engine.run_trace(
-            generate_trace("poisson", 3, seed=1, prompt_range=(4, 8),
-                           output_range=(2, 4), deadline_s=1.0)),
         "capture": lambda: smoke_engine.capture_device_traces("unused"),
     }
-    if what == "fault_plan":
-        with pt_inject.plan_scope("serve-decode-fail:1"):
-            with pytest.raises(ValueError) as e:
-                smoke_engine.run_trace(trace)
-    else:
-        with pytest.raises(ValueError) as e:
-            calls[what]()
+    with pytest.raises(ValueError) as e:
+        calls[what]()
     _names_a_roadmap_item(str(e.value))
+
+
+def _requested_guard():
+    guard = PreemptionGuard()
+    guard.request()
+    return guard
+
+
+# part 11d's knobs and hooks, once refused, each with the report's evidence
+# that it engaged (tests/test_torch_serve_resilience.py holds them against
+# JAX): (serving knobs, fault plan, run_trace arguments, deadline, check)
+ENGAGED_11D = {
+    "watchdog": (dict(dispatch_deadline_factor=50.0, dispatch_deadline_min_s=0.3),
+                 "serve-decode-hang:@1,hang_seconds=1", {}, None,
+                 lambda r: r["resilience"]["hung_dispatches"] == 1),
+    "guard": ({}, None, dict(guard=_requested_guard), None,
+              lambda r: r["preempted"] and len(r["remaining_rids"]) == 3),
+    # 1e-9 s has passed by the first boundary: every request is shed
+    "deadline": ({}, None, {}, 1e-9, lambda r: r["requests"]["deadline_shed"] == 3),
+    "fault_plan": ({}, "serve-decode-fail:1", {}, None,
+                   lambda r: r["resilience"]["retries"] == 1
+                   and r["requests"]["completed"] == 3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENGAGED_11D))
+def test_11d_knob_engages(weights, name):
+    """Each knob and hook of part 11d, once refused, is served and the
+    report shows it engaged."""
+    kw, plan, run_kw, deadline, engaged = ENGAGED_11D[name]
+    cfg = ModelConfig(**TINY)
+    sv = pt_engine.ServingConfig(**SMOKE_SERVING, **kw)
+    jax_engine.ServingConfig(**SMOKE_SERVING, **kw).validate(jax_configs.ModelConfig(**TINY))
+    engine = pt_engine.ServingEngine(cfg, sv, params=params_from_jax(weights["f32"], cfg),
+                                     verbose=False, device="cpu")
+    trace = generate_trace("poisson", 3, seed=1, prompt_range=(4, 8), output_range=(2, 4),
+                           deadline_s=deadline)
+    with pt_inject.plan_scope(plan):
+        report = engine.run_trace(trace, **{k: f() for k, f in run_kw.items()})
+    assert engaged(report), report["requests"] | report["resilience"]
+    assert report["cache"]["blocks_reserved"] == 0
 
 
 def test_hedge_factor_is_accepted_and_ignored(weights):
@@ -826,3 +843,138 @@ def test_report_is_json(smoke_engine):
                                     collect_raw=True)
     json.dumps(report, allow_nan=False)
     assert len(report["raw_samples"]["ttft_s"]) == 4
+
+
+# ---------------------------------------------------------------------------
+# the harness, the report and the entry point (item 12, part 12a)
+# ---------------------------------------------------------------------------
+
+
+def test_serving_bench_writes_artifact_set(tmp_path):
+    """``serve/bench.py`` end to end at dp=2 x tp=4 on gloo ranks: rank 0
+    writes the result, the replayable trace, the manifest, ``metrics.prom``
+    and the journal, all parseable."""
+    from dlbb_tpu_torch.serve.bench import serve_worker
+
+    config = {
+        "experiment": {"name": "smoke"},
+        "model": dict(TINY),
+        "parallelism": {"data_parallel": 2, "world_size": 4},
+        "serving": {"max_batch": 8, "block_size": 8, "max_seq": 32,
+                    "prefill_buckets": [16], "hbm_budget_gb": None},
+    }
+    trace = generate_trace("poisson", 4, seed=7, rate=200.0, prompt_range=(4, 16),
+                           output_range=(2, 6))
+    reports = launch(serve_worker, 8, "cpu",
+                     args=(config, trace, str(tmp_path), False, None, "cpu"),
+                     timeout=300, group_timeout=120)
+    assert all(r["requests"] == reports[0]["requests"] for r in reports)
+    assert reports[0]["requests"]["completed"] == 4
+    result = json.loads((tmp_path / "serving_smoke.json").read_text())
+    assert result["schema"] == "dlbb_serving_report_v1"
+    assert result["mesh"] == {"dp": 2, "sp": 1, "pp": 1, "ep": 1, "tp": 4}
+    manifest = json.loads((tmp_path / "serving_manifest.json").read_text())
+    assert manifest["schema"] == "dlbb_serving_manifest_v1"
+    assert manifest["requests"]["completed"] == 4
+    assert manifest["topology"]["process_count"] == 8
+    assert len(TrafficTrace.load(tmp_path / "trace_smoke.json")) == 4
+    assert "dlbb_serve_requests_total" in (tmp_path / "metrics.prom").read_text()
+    assert (tmp_path / "sweep_journal.jsonl").exists()
+
+
+def test_serving_report_writer(tmp_path):
+    from test_torch_serve_resilience import write_both_reports
+
+    from dlbb_tpu_torch.stats.serving_report import write_serving_report
+
+    fake = {
+        "schema": "dlbb_serving_report_v1",
+        "trace": {"kind": "poisson", "num_requests": 10},
+        "requests": {"completed": 9, "rejected": 1},
+        "mesh": {"dp": 2, "tp": 4, "sp": 1, "pp": 1, "ep": 1},
+        "serving": {"max_batch": 8, "block_size": 16, "max_seq": 256},
+        "goodput_tokens_per_s": 123.4,
+        "throughput_tokens_per_s": 150.0,
+        "ttft": {"median": 0.01, "p99": 0.02, "p999": 0.03},
+        "per_token_latency": {"median": 0.001, "p99": 0.002, "p999": 0.003},
+        "cache": {"peak_blocks_in_use": 12},
+        "timeseries": {"queue_depth": [0, 3, 1]},
+        "decode_steps": 42,
+        "wall_seconds": 1.5,
+    }
+    rows, md, csv_text = write_both_reports(tmp_path, {"run1": fake})
+    assert len(rows) == 1
+    assert rows[0]["name"] == "run1" and rows[0]["mesh"] == "dp2xtp4"
+    assert rows[0]["ttft_p999_ms"] == 30.0 and rows[0]["peak_queue_depth"] == 3
+    assert "run1" in md and "poisson" in md
+    assert csv_text.startswith("name,trace,")
+    # an empty tree reports nothing and writes nothing
+    assert write_serving_report(tmp_path / "nothing", tmp_path / "stats2") == []
+    assert not (tmp_path / "stats2").exists()
+
+
+def test_serving_report_folds_capacity_json(tmp_path):
+    """An existing ``capacity.json`` next to the report is folded into
+    ``SERVING.md`` read-only, as JAX's writer folds it."""
+    from test_torch_serve_resilience import write_both_reports
+
+    cap = {"slo_s": 0.5, "trace": {"kind": "poisson", "num_requests": 64, "seed": 42},
+           "user_rate_req_per_s": 0.1, "mean_output_tokens": 80,
+           "plans": [{"plan": "dp1xtp1", "predicted_goodput_tokens_per_s": 400.0,
+                      "measured_goodput_tokens_per_s": 380.0, "predicted_ttft_s": 0.2,
+                      "measured_ttft_p50_s": 0.25, "completed": 64, "total": 64,
+                      "slo_attainable": True,
+                      "curve": [{"users": 10, "replicas_predicted": 1,
+                                 "replicas_measured": None}]}]}
+    for side in ("jax", "port"):
+        save_json(cap, tmp_path / side / "capacity.json")
+    report = {"schema": "dlbb_serving_report_v1", "trace": {"kind": "poisson"},
+              "requests": {}, "ttft": {}, "per_token_latency": {}}
+    _rows, md, _csv = write_both_reports(tmp_path, {"c": report})
+    assert "## Fleet capacity curve" in md and "| dp1xtp1 | 400 | 380 |" in md
+    assert json.loads((tmp_path / "port" / "capacity.json").read_text()) == cap
+
+
+def test_cli_serve_on_cpu_at_world_2(tmp_path, capsys):
+    """``cli serve --device cpu --world 2``: two gloo ranks (tp=2 by JAX's
+    auto-plan), every request served, the artifact set written."""
+    from dlbb_tpu_torch import cli
+
+    out = tmp_path / "s"
+    assert cli.main(["serve", "--device", "cpu", "--world", "2", "--requests", "6",
+                     "--rate", "200", "--max-seq", "64", "--output", str(out)]) == 0
+    assert "goodput" in capsys.readouterr().out
+    result = json.loads((out / "serving_poisson_6req_seed42.json").read_text())
+    assert result["requests"]["completed"] == 6
+    assert result["mesh"]["tp"] == 2 and result["backend"] == "torch_cpu"
+    for name in ("serving_manifest.json", "metrics.prom", "sweep_journal.jsonl",
+                 "trace_poisson_6req_seed42.json"):
+        assert (out / name).is_file(), name
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--replicas", "2"], "item 12"), (["--xplane-trace", "d"], "item 13"),
+    (["--device-trace", "d"], "item 13")])
+def test_cli_serve_refuses_unported_flags(tmp_path, argv, item):
+    from dlbb_tpu_torch import cli
+
+    with pytest.raises((SystemExit, ValueError)) as e:
+        cli.main(["serve", "--device", "cpu", "--output", str(tmp_path), *argv])
+    assert item in str(e.value)
+    _names_a_roadmap_item(str(e.value))
+
+
+def test_serve_1b_config_is_the_card_envelope():
+    """``configs/serve_1b.yaml``: the 1B at full width and depth and
+    ``chip_smoke.py``'s serving envelope, which JAX's validate accepts."""
+    from dlbb_tpu_torch.utils.config import load_config
+
+    config = load_config("dlbb_tpu_torch/configs/serve_1b.yaml")
+    model = ModelConfig.from_dict(config["model"])
+    assert (model.hidden_size, model.num_layers) == (2048, 24)
+    sv = pt_engine.ServingConfig.from_dict(config["serving"])
+    assert (sv.max_batch, sv.block_size, sv.max_seq, sv.queue_capacity) == (32, 16, 2048, 64)
+    _same_outcome(
+        lambda: jax_engine.ServingConfig.from_dict(config["serving"]).validate(
+            jax_configs.ModelConfig.from_dict(config["model"])),
+        lambda: sv.validate(model))

@@ -23,13 +23,15 @@ the JAX package, on the CPU.
 - ``tests/test_serve_fastpath.py``'s and ``tests/test_prefix.py``'s engine
   tests, mirrored;
 - ranks agree at dp=2 on a Poisson trace whose scan horizon reads the
-  clock.
-
-``test_degraded_attach_after_carry_reset_stays_correct`` waits for part
-11d (the serving fault sites), and the report writers' tests for item 12.
+  clock;
+- the tests that waited for part 11d and item 12: a degraded attach after
+  a failed decode unit against JAX's engine, the fast path's and the
+  prefix cache's artifact sets through ``serve/bench.py``, and the serving
+  report's shed columns byte-equal to JAX's writer.
 """
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -52,6 +54,7 @@ from test_torch_serve import (
 from dlbb_tpu.comm.mesh import build_parallelism_mesh as jax_parallelism_mesh
 from dlbb_tpu.data import synthetic as jax_synth
 from dlbb_tpu.models import configs as jax_configs
+from dlbb_tpu.resilience import inject as jax_inject
 from dlbb_tpu.resilience.journal import SweepJournal as JaxJournal
 from dlbb_tpu.resilience.journal import read_journal as jax_read_journal
 from dlbb_tpu.serve import engine as jax_engine
@@ -61,6 +64,7 @@ from dlbb_tpu_torch.bench.launch import launch
 from dlbb_tpu_torch.data import synthetic as pt_synth
 from dlbb_tpu_torch.models import ModelConfig, params_from_jax
 from dlbb_tpu_torch.obs import spans
+from dlbb_tpu_torch.resilience import inject as pt_inject
 from dlbb_tpu_torch.resilience.journal import SweepJournal, read_journal
 from dlbb_tpu_torch.serve import engine as pt_engine
 from dlbb_tpu_torch.serve import kvcache as pt_kv
@@ -869,3 +873,132 @@ def test_fast_engine_dp2_tp4_matches_jax_engine(dp2_tp4):
         _same_run(rank["fast"], ref)
         assert rank["fast"]["journal"] == ref_seq
     assert ranks[0]["fast"]["fast_path"]["fused_scans"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the tests that waited for part 11d and item 12
+# ---------------------------------------------------------------------------
+
+
+def test_degraded_attach_after_carry_reset_stays_correct(tmp_path):
+    """``tests/test_prefix.py``'s gate: a decode unit that fails for good
+    (no retries) fails the resident batch, and the prefix-cached engine's
+    completed requests still equal the no-sharing engine's under the same
+    plan; the prefix engine equals JAX's in tokens, outcomes, counters and
+    journal, and nothing stays shared."""
+    serving = dict(PREFIX, max_dispatch_retries=0)
+    mesh = jax_parallelism_mesh(devices=jax.devices()[:1])
+    ptrace = _prefix_trace()
+    plan = "serve-decode-fail:@2"
+    with jax_inject.plan_scope(plan):
+        ref, ref_seq, weights = _run_jax(TINY, dict(serving, prefix_caching=True), ptrace,
+                                         mesh, tmp_path, "jax")
+    with pt_inject.plan_scope(plan):
+        base, _ = _run_port(TINY, serving, ptrace, weights, tmp_path, "base")
+    with pt_inject.plan_scope(plan):
+        pfx, seq = _run_port(TINY, dict(serving, prefix_caching=True), ptrace, weights,
+                             tmp_path, "pfx")
+    _same_run(pfx, ref)
+    assert seq == ref_seq
+    assert pfx["resilience"]["failed_requests"] > 0
+    done = {k for k, v in base["requests"]["outcomes"].items() if v == "completed"}
+    assert done
+    for rid in done:
+        assert pfx["completed_tokens"].get(rid) == base["completed_tokens"].get(rid), rid
+    assert pfx["cache"]["blocks_reserved"] == 0
+    assert pfx["cache"]["shared_blocks"] == 0
+
+
+def _serve_config(name, **serving):
+    return {"experiment": {"name": name}, "model": dict(TINY),
+            "parallelism": {"data_parallel": 1, "world_size": 1},
+            "serving": dict(max_batch=8, block_size=8, max_seq=64, hbm_budget_gb=None,
+                            **serving)}
+
+
+def test_fastpath_artifact_set_schema_valid(tmp_path):
+    """``serve/bench.py`` with the fast-path knobs: the artifact set stays
+    schema-valid and carries the fast path's counters."""
+    from dlbb_tpu_torch.serve.bench import run_serving
+
+    config = _serve_config("fastsmoke", decode_horizon=8, inflight_window=2)
+    trace = generate_trace("poisson", 6, seed=9, rate=500.0, prompt_range=(4, 16),
+                           output_range=(4, 10))
+    report = run_serving(config, trace, str(tmp_path), verbose=False, device="cpu")
+    assert report["requests"]["completed"] == 6
+    result = json.loads((tmp_path / "serving_fastsmoke.json").read_text())
+    assert result["schema"] == "dlbb_serving_report_v1"
+    assert result["fast_path"]["decode_horizon"] == 8
+    assert result["serving"]["decode_horizon"] == 8
+    prom = (tmp_path / "metrics.prom").read_text()
+    for name in ("dlbb_serve_decode_steps_total", "dlbb_serve_fused_scan_steps_total",
+                 "dlbb_serve_prefill_chunks_total", "dlbb_serve_decode_batch_occupancy"):
+        assert name in prom
+
+
+def test_prefix_run_artifacts_and_metrics(tmp_path):
+    """``serve/bench.py`` with the prefix cache and int8 planes: the
+    journal carries the ``prefix-attach`` events, ``journal_to_trace``
+    renders them as prefix-cache instants, ``metrics.prom`` exports the hit
+    counters, and the memory record prices the int8 layout."""
+    from dlbb_tpu_torch.models.configs import kv_cache_bytes_per_device
+    from dlbb_tpu_torch.serve.bench import run_serving
+
+    serving = dict(max_batch=4, block_size=8, max_seq=96, hbm_budget_gb=None,
+                   prefill_chunk=16, prefix_caching=True, kv_quantization="int8")
+    config = {"experiment": {"name": "pfx"}, "model": dict(TINY),
+              "parallelism": {"data_parallel": 1, "world_size": 1}, "serving": serving}
+    trace = generate_trace("poisson", 6, seed=3, rate=100.0, prompt_range=(65, 80),
+                           output_range=(4, 8), prefix_groups=2, prefix_len=64)
+    report = run_serving(config, trace, str(tmp_path), verbose=False, device="cpu")
+    assert report["requests"]["completed"] == 6
+    hits = report["prefix"]["hits"]
+    assert hits >= 1
+    events, torn = read_journal(tmp_path)
+    assert torn == 0
+    attaches = [e for e in events if e["event"] == "prefix-attach"]
+    assert len(attaches) == hits
+    assert all(e["tokens"] == 64 and e["blocks"] == 8 for e in attaches)
+    timeline, _n, _t = spans.journal_to_trace(tmp_path, tmp_path / "tl.json")
+    pre = [e for e in spans.load_trace(timeline)["traceEvents"]
+           if e.get("cat") == "prefix-cache"]
+    assert len(pre) == hits and all(e["ph"] == "i" for e in pre)
+    text = (tmp_path / "metrics.prom").read_text()
+    assert f"dlbb_serve_prefix_hits_total {hits}" in text
+    assert f"dlbb_serve_prefix_tokens_reused_total {hits * 64}" in text
+    assert "dlbb_serve_prefix_hit_rate" in text
+    assert 'dlbb_serve_cache_blocks{stat="peak_shared_blocks"}' in text
+    hbm = json.loads((tmp_path / "serving_pfx.json").read_text())["hbm"]
+    fp = kv_cache_bytes_per_device(ModelConfig(**TINY), 4, 96, dp=1, tp=1)
+    assert hbm["kv_cache_bytes_per_device"] < fp / 3
+
+
+def test_serving_report_shed_columns(tmp_path):
+    from test_torch_serve_resilience import write_both_reports
+
+    fake = {
+        "schema": "dlbb_serving_report_v1",
+        "trace": {"kind": "poisson", "num_requests": 10},
+        "requests": {"arrived": 10, "completed": 8, "rejected": 2, "shed_rate": 0.2,
+                     "rejected_detail": [
+                         {"rid": 4, "reason": "queue-full", "queue_depth": 3,
+                          "queue_wait_s": 0.05},
+                         {"rid": 7, "reason": "queue-full", "queue_depth": 3,
+                          "queue_wait_s": 0.15}]},
+        "mesh": {"dp": 2, "tp": 4},
+        "serving": {"max_batch": 8, "block_size": 16, "max_seq": 256},
+        "fast_path": {"fused_steps": 64, "prefill_chunks": 5},
+        "goodput_tokens_per_s": 100.0,
+        "ttft": {"median": 0.01, "p99": 0.02, "p999": 0.03},
+        "per_token_latency": {"median": 0.001, "p99": 0.002, "p999": 0.003},
+        "cache": {"peak_blocks_in_use": 12},
+        "timeseries": {"queue_depth": [0, 3]},
+        "decode_steps": 42,
+        "wall_seconds": 1.5,
+    }
+    rows, md, _csv = write_both_reports(tmp_path, {"fastrun": fake})
+    assert len(rows) == 1
+    assert rows[0]["shed_rate"] == 0.2
+    assert rows[0]["rej_queue_wait_ms"] == 100.0  # mean of 50 and 150
+    assert rows[0]["fused_steps"] == 64
+    assert "20%" in md and "100.0" in md

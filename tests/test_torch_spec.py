@@ -26,10 +26,11 @@ the CPU.
 - the sampled run ("ngram", γ=4, temperature 0.8, ``sample_seed`` 3)
   token-identical to JAX's, replayable, and moved by another seed.
 
-Waiting for later items: ``test_decode_fail_during_verify_retries_cleanly``
-(part 11d: the serving fault sites and the verify's retry), and the report
-writers' tests ``test_serving_report_spec_columns`` and
-``test_speculative_report_writer`` (item 12).
+- ``test_decode_fail_during_verify_retries_cleanly`` (part 11d: the verify
+  unit's retry) against JAX's engine and the oracle, and the serving
+  report's speculation columns byte-equal to JAX's writer (item 12, part
+  12a).  ``test_speculative_report_writer`` waits for part 12b (the
+  ``BENCH_spec.json`` writers).
 """
 
 import jax
@@ -54,6 +55,7 @@ from test_torch_serve_fastpath import PROGRAM_CASES, _at_t0, _same_run
 from dlbb_tpu.comm.mesh import build_parallelism_mesh as jax_parallelism_mesh
 from dlbb_tpu.data import synthetic as jax_synth
 from dlbb_tpu.models import configs as jax_configs
+from dlbb_tpu.resilience import inject as jax_inject
 from dlbb_tpu.resilience.journal import SweepJournal as JaxJournal
 from dlbb_tpu.resilience.journal import read_journal as jax_read_journal
 from dlbb_tpu.serve import engine as jax_engine
@@ -63,6 +65,7 @@ from dlbb_tpu_torch.bench.launch import launch
 from dlbb_tpu_torch.data import synthetic as pt_synth
 from dlbb_tpu_torch.models import ModelConfig, params_from_jax
 from dlbb_tpu_torch.obs import spans
+from dlbb_tpu_torch.resilience import inject as pt_inject
 from dlbb_tpu_torch.resilience.journal import SweepJournal, read_journal
 from dlbb_tpu_torch.serve import engine as pt_engine
 from dlbb_tpu_torch.serve import kvcache as pt_kv
@@ -775,3 +778,61 @@ def test_spec_engines_dp2_tp4_match_jax(dp2_tp4, name):
         else:
             _same_rank_run(got, refs[name], rank[f"oracle/{trace}"])
     assert ranks[0][name]["speculation"]["verify_units"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the tests that waited for part 11d and item 12
+# ---------------------------------------------------------------------------
+
+
+def test_decode_fail_during_verify_retries_cleanly(w1, tmp_path):
+    """serve-decode-fail at the verify dispatch: the host rollback (both
+    ledgers' snapshot and the slots' lengths) replays the unit, and the
+    completed tokens equal the unfaulted oracle's; the run equals JAX's
+    faulted run."""
+    knobs = dict(NGRAM, decode_horizon=16)
+    trace = _trace_of("t6")
+    mesh = jax_parallelism_mesh(devices=jax.devices()[:1])
+    with jax_inject.plan_scope("serve-decode-fail:1"):
+        ref = _run_jax(TINY, knobs, trace, mesh, tmp_path, "jax")
+    with pt_inject.plan_scope("serve-decode-fail:1"):
+        got = _run_port(TINY, knobs, trace, {"weights": w1["ngram_fused"]["weights"]},
+                        tmp_path, "port")
+    _same_spec_run(got, ref)
+    report = got["report"]
+    assert report["resilience"] == {k: v for k, v in ref["report"]["resilience"].items()}
+    assert report["resilience"]["retries"] >= 1
+    assert report["requests"]["completed"] == len(trace)
+    assert report["completed_tokens"] == w1["oracle/t6"]["report"]["completed_tokens"]
+    assert report["speculation"]["verify_units"] > 0
+    assert report["cache"]["blocks_reserved"] == 0
+
+
+def test_serving_report_spec_columns(tmp_path):
+    from test_torch_serve_resilience import write_both_reports
+
+    fake = {
+        "schema": "dlbb_serving_report_v1",
+        "trace": {"kind": "poisson", "num_requests": 4},
+        "requests": {"arrived": 4, "completed": 4, "rejected": 0, "shed_rate": 0.0,
+                     "rejected_detail": []},
+        "mesh": {"dp": 2, "tp": 4},
+        "serving": {"max_batch": 8, "block_size": 8, "max_seq": 96},
+        "speculation": {"mode": "ngram", "gamma": 4, "adaptive": False,
+                        "verify_units": 10, "fallback_units": 2,
+                        "proposed_tokens": 40, "accepted_tokens": 25,
+                        "acceptance_rate": 0.625, "mean_accepted_len": 3.5,
+                        "draft_overhead_s": 0.01},
+        "goodput_tokens_per_s": 100.0,
+        "ttft": {"median": 0.01, "p99": 0.02, "p999": 0.03},
+        "per_token_latency": {"median": 0.001, "p99": 0.002, "p999": 0.003},
+        "cache": {"peak_blocks_in_use": 12},
+        "timeseries": {"queue_depth": [0, 1]},
+        "decode_steps": 42,
+        "wall_seconds": 1.5,
+    }
+    rows, md, _csv = write_both_reports(tmp_path, {"specrun": fake})
+    assert len(rows) == 1
+    assert rows[0]["speculation"] == "ngram" and rows[0]["spec_gamma"] == 4
+    assert rows[0]["acceptance_rate"] == 0.625 and rows[0]["mean_accepted_len"] == 3.5
+    assert "ngram" in md

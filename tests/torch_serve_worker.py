@@ -1,7 +1,7 @@
 """Rank bodies of ``tests/test_torch_serve.py``,
-``tests/test_torch_serve_fastpath.py`` and ``tests/test_torch_spec.py``:
-the port's serving programs and
-engine on a gloo group of host processes.  It imports torch and the port
+``tests/test_torch_serve_fastpath.py``, ``tests/test_torch_spec.py`` and
+``tests/test_torch_serve_resilience.py``: the port's serving programs,
+engine and harness on a gloo group of host processes.  It imports torch and the port
 only, since ``bench.launch`` imports it by name in every spawned rank."""
 
 import tempfile
@@ -165,4 +165,119 @@ def run_engines(runs):
     for name, (dp, tp, *case) in runs.items():
         mesh = build_parallelism_mesh(data_parallel=dp, tensor_parallel=tp)
         out[name] = _journaled_run(*case[:4], mesh, *case[4:])
+    return out
+
+
+class SteppedClock:
+    """An engine clock (``engine._now``) that reads 0.0 once, then 1.0:
+    the first admission wave meets a deadline of 1e-9 s, everything later
+    misses it, whatever the host's speed.  JAX's engine and the port's read
+    their first time at the same place, the top of the scheduler loop."""
+
+    def __init__(self):
+        self.reads = 0
+
+    def __call__(self):
+        self.reads += 1
+        return 0.0 if self.reads == 1 else 1.0
+
+
+RESILIENCE_COUNTERS = (
+    ("serve_request_retries", {"phase": "prefill"}),
+    ("serve_request_retries", {"phase": "decode"}),
+    ("serve_request_retries", {"phase": "bookkeeping"}),
+    ("serve_hung_dispatches", {}),
+    ("serve_deadline_exceeded", {"reason": "shed-queued"}),
+    ("serve_deadline_exceeded", {"reason": "completed-late"}),
+    ("serve_rejections", {"reason": "deadline"}),
+    ("serve_requests", {"outcome": "failed"}),
+    ("serve_requests", {"outcome": "preempted"}),
+    ("serve_requests", {"outcome": "completed"}),
+)
+
+
+def resilience_counters(registry):
+    """The registry's resilience counters, by name and label (JAX's
+    registry and the port's alike)."""
+    return {f"{name}{sorted(labels.items())}": registry.get(name, **labels)
+            for name, labels in RESILIENCE_COUNTERS}
+
+
+def journal_lines(events):
+    """The journal's lifecycle in order: (event, request, phase or reason)."""
+    keep = ("request-", "dispatch-retry", "preempted")
+    return [(e["event"], e.get("config"), e.get("phase") or e.get("reason"))
+            for e in events if e["event"].startswith(keep)]
+
+
+REPORT_SECTIONS = ("requests", "completed_tokens", "cache", "resilience", "preempted",
+                   "remaining_rids", "decode_steps", "generated_tokens")
+
+
+def faulted_run(engine, trace, plan, clock=False, inject=None):
+    """One ``run_trace`` of ``engine`` under the fault ``plan`` with its own
+    journal: the report's comparable sections and keys, the resilience
+    counters' deltas and the journal's lifecycle.  JAX's engine and the
+    port's alike: the caller passes each its own trace type and, for JAX's,
+    JAX's ``resilience.inject`` (the port's by default)."""
+    if inject is None:
+        from dlbb_tpu_torch.resilience import inject
+
+    counters = resilience_counters(engine.registry)
+    if clock:
+        engine._now = SteppedClock()
+    with tempfile.TemporaryDirectory() as tmp:
+        engine.journal = SweepJournal(tmp)
+        try:
+            with inject.plan_scope(plan):
+                report = engine.run_trace(trace)
+        finally:
+            engine.journal.close()
+            engine.journal = None
+            if clock:
+                del engine._now
+        events, _ = read_journal(tmp)
+    out = {k: report[k] for k in REPORT_SECTIONS}
+    out["resilience"] = {k: v for k, v in report["resilience"].items() if k != "failed"}
+    out["failed"] = [(f["reason"], f["rids"], f["error"]) for f in report["resilience"]["failed"]]
+    out["keys"] = {k: sorted(v) if isinstance(v, dict) else None for k, v in report.items()}
+    after = resilience_counters(engine.registry)
+    out["counters"] = {k: after[k] - counters[k] for k in after}
+    out["journal"] = journal_lines(events)
+    return out
+
+
+def run_faults(runs, serve_case, out_dir):
+    """On 8 ranks: each named engine ``(dp, tp, fields, serving, weights,
+    scenarios)`` on its own (dp, tp) mesh of this world, run once per
+    scenario ``{name: (trace, plan, serving overrides, clock)}``; then
+    ``serve_case`` ``(config, trace, plan)`` through ``serve/bench.py``:
+    ``run_serving`` under the plan, then ``resume_serving``, rank 0 writing
+    to ``out_dir``."""
+    import dataclasses
+
+    from dlbb_tpu_torch.serve.bench import resume_serving, run_serving
+
+    torch.set_num_threads(1)
+    out = {}
+    for name, (dp, tp, fields, serving, weights, scenarios) in runs.items():
+        mesh = build_parallelism_mesh(data_parallel=dp, tensor_parallel=tp)
+        if mesh is None:
+            continue
+        cfg = ModelConfig(**fields)
+        sv = ServingConfig.from_dict(serving)
+        engine = ServingEngine(cfg, sv, mesh=mesh, params=_rank_params(weights, cfg, mesh),
+                               verbose=False, capture_tokens=True, device="cpu")
+        for scenario, (trace_dict, plan, knobs, clock) in scenarios.items():
+            engine.serving = dataclasses.replace(sv, **knobs)
+            out[f"{name}/{scenario}"] = faulted_run(
+                engine, TrafficTrace.from_dict(trace_dict), plan, clock)
+    config, trace_dict, plan = serve_case
+    trace = TrafficTrace.from_dict(trace_dict)
+    first = run_serving(config, trace, output_dir=out_dir, verbose=False, fault_plan=plan,
+                        device="cpu")
+    merged = resume_serving(out_dir, verbose=False, device="cpu")
+    out["serve"] = {k: first[k] for k in ("preempted", "remaining_rids", "requests",
+                                          "resilience")}
+    out["resume"] = {k: merged[k] for k in ("preempted", "requests", "resilience")}
     return out
