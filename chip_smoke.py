@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlbb_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm,tp,dtrain,seq,moe,pipe,compress,bench,kv,serve]
+    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm,tp,dtrain,seq,moe,pipe,compress,bench,kv,serve,fleet]
 
 Phases (each raises on failure, and the script then exits non-zero):
 
@@ -164,12 +164,13 @@ Phases (each raises on failure, and the script then exits non-zero):
    (fused scans, the in-flight window, chunked prefill, compaction) and (e)
    the prefix cache and int8 planes on a shared-prefix trace; (f)
    speculative and sampled decoding: (f)0 ``build_verify_probs`` at γ=4 on
-   (a)'s 4-slot cache against γ+1 per-step token steps (within
-   ``SERVE_REL_L2``; ``build_verify_step`` commits all γ+1), (f)1 greedy
-   "ngram", "draft-model" and adaptive-γ fused "ngram" runs on (b)'s
-   trace, each request at its full length, both ledgers clean, each request
-   equal to (b)'s greedy tokens up to a near-tie (``SERVE_SPEC_TIE``, in
-   the dense forward) and "ngram" equal to itself on a second run, (f)2
+   (a)'s 4-slot cache against γ+1 per-step token steps (bit-equal: the
+   verify runs each position in the step's own shapes;
+   ``build_verify_step`` commits all γ+1), (f)1 greedy "ngram",
+   "draft-model" and adaptive-γ fused "ngram" runs on (b)'s trace, each
+   request at its full length, both ledgers clean, every request's tokens
+   (b)'s greedy tokens (64 of 64) and "ngram" equal to itself on a second
+   run, (f)2
    sampled "ngram"
    runs (temperature 0.8) replayed by seed 3 and moved by seed 4, (f)3 each
    run's verify units, acceptance and tokens per unit, and the verify
@@ -188,6 +189,19 @@ Phases (each raises on failure, and the script then exits non-zero):
    --config dlbb_tpu_torch/configs/serve_1b.yaml --trace poisson --requests
    64`` as a subprocess exits 0 and leaves JAX's artifact set with finite
    goodput and TTFT p50/p99/p999.
+17. ``fleet``, the serving fleet (``serve/fleet.py``) on
+   ``dlbb_tpu_torch/configs/serve_1b_fleet.yaml`` (the 1B at full width and
+   depth, two replicas of one process each on the card, 16 slots of 2048
+   tokens each) over one seeded Poisson trace: (a) the single-engine oracle
+   (one engine on the fleet's serving section, in this process), (b) the
+   clean 2-replica fleet and (c) the fleet with ``serve-replica-kill``
+   firing mid-trace, both through ``serve/fleet.py``'s launch (ranks over
+   gloo on the card).  Every request completes with the oracle's greedy
+   tokens; (c) fences exactly one replica as ``replica-killed``, fails at
+   least one request over, and the survivor ends with no block reserved;
+   both leave the fleet artifact set.  Goodput, TTFT p50/p99, the failover
+   TTFT penalty, the failovers and each run's peak memory against the
+   card's are printed.
 
 It then prints the card's name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -273,7 +287,7 @@ EDGE_CASES = {
 # phase 5 on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's kernel table)
 FWD_BEFORE_MS = {"main": 0.1259, "long": 2.5038}
 PHASES = ("build", "fwd", "bwd", "e2e", "train", "time", "comm", "tp", "dtrain", "seq",
-          "moe", "pipe", "compress", "bench", "kv", "serve")
+          "moe", "pipe", "compress", "bench", "kv", "serve", "fleet")
 TP_CONFIG = "dlbb_tpu_torch/configs/baseline_config.yaml"
 # the 3D sweep's LLM shapes (batch, seq, hidden) on the card: the largest is
 # 1 GiB of bf16 per rank
@@ -2885,28 +2899,6 @@ SERVE_SPEC_GREEDY = (
     ("ngram+adaptive+fused", dict(speculation="ngram", spec_gamma=8, spec_adaptive=True,
                                   decode_horizon=8, inflight_window=2)),
 )
-# Where a greedy speculative run leaves (b)'s per-step greedy tokens, it
-# must leave them at a near-tie.  A verify unit runs each layer's products
-# at M = 32 x 5 = 160 rows where the per-step step runs M = 32, so its
-# outputs are not the step's bits, and once two bf16 computations differ
-# at all their roundings decorrelate: every product's output carries its
-# own half-ulp error (2^-9 relative), and 24 layers of them put the two
-# outputs 1.09e-02 apart in relative L2 ((f)0 on the card; (a)'s decode
-# against the dense forward, the same math at M = 1 against M = 1024, is
-# 1.105e-02).  A greedy token is the argmax of y over 2048 values whose top
-# two lie about 0.26 apart on average, so such noise moves tokens in most
-# requests of 64-128 tokens (23 of 64 requests kept every token on an
-# H100 80GB HBM3 at 700 W).  The check: at each request's first
-# differing position p, the 1B's one-shot dense forward over its prompt
-# and the p tokens both runs committed gives y, and the two runs' tokens a
-# and b must lie within SERVE_SPEC_TIE of each other in it.  Each run's y
-# there differs from this y by a vector of relative L2 at most
-# SERVE_REL_L2 (rms of y is 1: the final LN's scale is 1 and its bias 0),
-# and a run picked its token over the other's, so |y[a] - y[b]| is at most
-# the two elements' errors in one run: 6 sigma each, 2 x 6 x SERVE_REL_L2.
-# A run that committed a wrong token (not its target's argmax) lands about
-# 3.5 below the top of 2048 values and fails it.
-SERVE_SPEC_TIE = 2 * 6 * SERVE_REL_L2
 # (f)2, sampled speculation: "ngram" with these knobs under each seed
 SERVE_SPEC_SAMPLED = dict(speculation="ngram", spec_gamma=SERVE_SPEC_GAMMA, temperature=0.8)
 SERVE_SPEC_SEEDS = (3, 3, 4)
@@ -3171,9 +3163,9 @@ def _serve_verify_program(torch, gpu_line, cfg, params):
     """(f)0: the verify program against the per-step token decode.  From
     one cache of (a)'s geometry with its 4 slots prefilled, γ+1 per-step
     greedy token steps, then one ``build_verify_probs`` at γ with the
-    per-step tokens as drafts: its γ+1 outputs within ``SERVE_REL_L2`` of
-    the per-step ones (the same math at other GEMM shapes, SERVE_REL_L2's
-    argument); ``build_verify_step`` on the same inputs commits all γ+1."""
+    per-step tokens as drafts: its γ+1 outputs bit-equal to the per-step
+    ones (each position runs the step's own calls); ``build_verify_step``
+    on the same inputs commits all γ+1."""
     from dlbb_tpu_torch.data.synthetic import request_embeddings, token_embedding_table
     from dlbb_tpu_torch.serve.engine import (
         ServingConfig,
@@ -3224,6 +3216,7 @@ def _serve_verify_program(torch, gpu_line, cfg, params):
     torch.cuda.synchronize()
     verify_ms = start.elapsed_time(end)
     rel = _rel_l2(y_ver, ys)
+    bits = bool(torch.equal(y_ver, ys))
     same = int((torch.argmax(y_ver, dim=-1).to(torch.int32) == toks).sum())
     remaining = torch.full((sv.max_batch,), g + 1, dtype=torch.int32, device="cuda")
     vcarry, _vtok, commits = build_verify_step(cfg, gamma=g)(clone(carry), params, table,
@@ -3232,10 +3225,10 @@ def _serve_verify_program(torch, gpu_line, cfg, params):
     print(f"[serve] (f)0 verify program on {gpu_line}: 4 slots (prompts "
           f"{list(SERVE_VERIFY_PROMPTS)}), {g + 1} per-step greedy token steps "
           f"({step_ms:.2f} ms) against one build_verify_probs at gamma {g} with their tokens "
-          f"as drafts ({verify_ms:.2f} ms): relative L2 {rel:.3e} (tolerance {SERVE_REL_L2}); "
+          f"as drafts ({verify_ms:.2f} ms): bit-equal {bits} (relative L2 {rel:.3e}); "
           f"{same} of {toks.numel()} tokens equal; build_verify_step commits "
           f"{commits.tolist()}, lengths equal to the per-step run's {lengths_equal}")
-    if not (bool(torch.isfinite(y_ver).all()) and rel <= SERVE_REL_L2
+    if not (bool(torch.isfinite(y_ver).all()) and bits
             and commits.tolist() == [g + 1] * sv.max_batch and lengths_equal):
         raise AssertionError("the verify program disagrees with the per-step token decode")
 
@@ -3393,7 +3386,7 @@ def _serve_engine(torch, gpu_line):
               f"bytes read once at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; the step reads the "
               f"whole cache, masked, whatever the lengths): {step_ms / bound:.2f}x; per unit "
               f"median {median / bound:.2f}x")
-    spec = _serve_spec_runs(torch, gpu_line, cfg, params, engine, trace,
+    spec = _serve_spec_runs(torch, gpu_line, cfg, engine, trace,
                             per_step["greedy"][0], weight_bytes + cache_bytes)
     return (reports + [run["report"] for run in spec], spec,
             (engine, trace, per_step["greedy"][0], weight_bytes, cache_bytes))
@@ -3525,41 +3518,12 @@ def _serve_faults(torch, gpu_line, engine, trace, greedy, weight_bytes, cache_by
             raise AssertionError(f"(g)5: cli serve failed: {proc.stderr[-2000:]}")
 
 
-def _near_tie_gaps(torch, cfg, params, trace, report, ref):
-    """Each request whose tokens differ from ``ref``'s: its first differing
-    position p, and |y[a] - y[b]| there for the two runs' tokens a and b,
-    from the dense forward over its prompt and the p tokens both runs
-    committed (its output at the last position is the one token p is the
-    argmax of).  Returns ``({rid: p}, {rid: gap})``."""
-    from dlbb_tpu_torch.data.synthetic import request_embeddings, token_embedding_table
-    from dlbb_tpu_torch.models import forward
-
-    table = token_embedding_table(cfg.hidden_size, torch.bfloat16, device="cuda")
-    dense = cfg.with_(attention="dense")
-    by_rid = {str(r.rid): r for r in trace}
-    diff, gaps = {}, {}
-    for rid, toks in ref["completed_tokens"].items():
-        got = report["completed_tokens"][rid]
-        if got == toks:
-            continue
-        p = diff[rid] = next(i for i, (a, b) in enumerate(zip(got, toks)) if a != b)
-        r = by_rid[rid]
-        common = torch.tensor(toks[:p], dtype=torch.long, device="cuda")
-        x = torch.cat([request_embeddings(r.seed, r.prompt_len, cfg.hidden_size,
-                                          dtype=torch.bfloat16, device="cuda"),
-                       table.index_select(0, common)[None]], dim=1)
-        with torch.inference_mode():
-            y = forward(params, x, dense)[0, -1].float()
-        gaps[rid] = round(abs(float(y[got[p]] - y[toks[p]])), 4)
-    return diff, gaps
-
-
-def _serve_spec_runs(torch, gpu_line, cfg, params, engine, trace, greedy, base_bytes):
+def _serve_spec_runs(torch, gpu_line, cfg, engine, trace, greedy, base_bytes):
     """(f)1 and (f)2 on (b)'s engine setup and trace: greedy speculation
     ("ngram", "draft-model", and "ngram" with adaptive γ on the fused fast
     path), every request served at its full length with both ledgers
-    clean, each request equal to (b)'s greedy run's tokens up to a near-tie
-    (``SERVE_SPEC_TIE``) and "ngram" equal to itself on a second run; then
+    clean, every request's tokens (b)'s greedy run's and "ngram" equal to
+    itself on a second run; then
     sampled speculation, replayed by its seed and moved by another.  Each
     run inside a ``smoke-run`` span; returns the runs for (f)3."""
     from dlbb_tpu_torch.models import num_parameters
@@ -3601,15 +3565,14 @@ def _serve_spec_runs(torch, gpu_line, cfg, params, engine, trace, greedy, base_b
     for label, knobs in SERVE_SPEC_GREEDY:
         report = run(label, dict(knobs))
         greedy_spec.append(report)
-        diff, gaps = _near_tie_gaps(torch, cfg, params, trace, report, greedy)
+        ref = greedy["completed_tokens"]
+        diff = {rid: next(i for i, (a, b) in enumerate(zip(got, ref[rid])) if a != b)
+                for rid, got in report["completed_tokens"].items() if got != ref[rid]}
         print(f"[serve] (f)1 {label}: {SERVE_REQUESTS - len(diff)} of {SERVE_REQUESTS} "
               f"requests token-identical to (b)'s greedy run; first differing position by "
-              f"request {diff}; there |y[a] - y[b]| in the dense forward {gaps} (at most "
-              f"{SERVE_SPEC_TIE:.3f}, largest {max(gaps.values(), default=0.0)})")
-        if any(g > SERVE_SPEC_TIE for g in gaps.values()) \
-                or report["speculation"]["verify_units"] == 0:
-            raise AssertionError(f"greedy speculation ({label}) left the greedy tokens "
-                                 "away from a near-tie")
+              f"request {diff}")
+        if diff or report["speculation"]["verify_units"] == 0:
+            raise AssertionError(f"greedy speculation ({label}) left (b)'s greedy tokens")
         if label == "ngram":
             first_ngram = report
     agree = sum(len({tuple(r["completed_tokens"][rid]) for r in greedy_spec}) == 1
@@ -3638,6 +3601,120 @@ def _serve_spec_runs(torch, gpu_line, cfg, params, engine, trace, greedy, base_b
     if not (replay and moved > 0 and s["sampled"] and s["verify_units"] > 0):
         raise AssertionError("the sampled runs did not replay by seed, or did not sample")
     return runs
+
+
+# phase fleet: the fleet config's trace, one seeded Poisson stream of
+# requests arriving over about two seconds, and the kill of (c), at the
+# fleet's 100th loop boundary (both replicas counted): about halfway
+# through their first wave of slots, so residents fail over
+FLEET_CONFIG = "dlbb_tpu_torch/configs/serve_1b_fleet.yaml"
+FLEET_TRACE = dict(kind="poisson", n=48, seed=7, rate=24.0, prompt_range=(128, 512),
+                   output_range=(32, 96))
+FLEET_KILL = "serve-replica-kill:@100"
+FLEET_ARTIFACTS = ("fleet_serve_1b_fleet.json", "metrics.prom", "serving_manifest.json",
+                   "sweep_journal.jsonl", "trace_serve_1b_fleet.json")
+
+
+def _fleet_smoke_rank(*args):
+    """One rank of phase fleet's launches: ``serve/fleet.py::fleet_rank``
+    with the flash kernels' counts set to 0 just before and read just
+    after, and the rank's peak device memory."""
+    import torch
+
+    from dlbb_tpu_torch.ops import flash_attention as fa
+    from dlbb_tpu_torch.serve.fleet import fleet_rank
+
+    _zero_flash_counts(fa)
+    torch.cuda.reset_peak_memory_stats()
+    out = fleet_rank(*args)
+    out["flash_launches"] = _flash_counts(fa)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def phase_fleet(torch, gpu_line):
+    """Phase 17 (module docstring); returns the flash launches of the fleet
+    runs' ranks (their serving programs run none)."""
+    import os
+    import tempfile
+
+    from dlbb_tpu_torch.models import ModelConfig
+    from dlbb_tpu_torch.serve.engine import ServingConfig, ServingEngine
+    from dlbb_tpu_torch.serve.fleet import launch_fleet
+    from dlbb_tpu_torch.serve.traffic import generate_trace
+    from dlbb_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    config = load_config(FLEET_CONFIG)
+    spec = dict(FLEET_TRACE)
+    trace = generate_trace(spec.pop("kind"), spec.pop("n"), **spec)
+    card = torch.cuda.get_device_properties(0).total_memory
+    gib = 2 ** 30
+    ms = 1e3
+
+    def numbers(label, rep, peak, t0):
+        ttft = rep["ttft"]
+        print(f"[fleet] {label} on {gpu_line}: {rep['requests']['completed']} of {len(trace)} "
+              f"completed; goodput {rep['goodput_tokens_per_s']:.1f} tokens/s, TTFT p50 "
+              f"{ttft['median'] * ms:.3f} ms, p99 {ttft['p99'] * ms:.3f} ms; peak memory "
+              f"{peak / gib:.2f} GiB of the card's {card / gib:.2f} GiB; "
+              f"{time.perf_counter() - t0:.1f} s")
+
+    # (a) the oracle: one engine on the fleet's serving section
+    t0 = time.perf_counter()
+    model = ModelConfig.from_dict(config["model"])
+    serving = ServingConfig.from_dict(config["serving"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServingEngine(model, serving, seed=config["input"]["seed"], verbose=False,
+                           capture_tokens=True, device="cuda")
+    oracle = engine.run_trace(trace)
+    numbers("(a) single-engine oracle", oracle, torch.cuda.max_memory_allocated(), t0)
+    del engine
+    torch.cuda.empty_cache()
+    if oracle["requests"]["completed"] != len(trace):
+        raise AssertionError("the oracle did not complete every request")
+
+    launches = {}
+    for label, plan in (("(b) clean fleet", None), ("(c) killed fleet", FLEET_KILL)):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_",
+                                         dir=Path(__file__).resolve().parent) as out:
+            ranks = launch_fleet(_fleet_smoke_rank, config, trace, output_dir=out,
+                                 verbose=False, fault_plan=plan, device="cuda", timeout=600)
+            names = sorted(os.listdir(out))
+        rep = ranks[0]["report"]
+        peak = sum(r["peak_bytes"] for r in ranks)
+        numbers(label, rep, peak, t0)
+        for r in ranks:
+            for k, v in r["flash_launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        fenced = [r for r in rep["replicas"] if r["status"] == "fenced"]
+        survivors = [r for r in rep["replicas"] if r["status"] == "ok"]
+        outcomes = set(rep["requests"]["outcomes"].values())
+        same = sum(rep["completed_tokens"].get(rid) == toks
+                   for rid, toks in oracle["completed_tokens"].items())
+        fences = [(r["replica"], r["fence_reason"]) for r in fenced]
+        print(f"[fleet] {label}: outcomes {sorted(outcomes)}; {same} of {len(trace)} requests "
+              f"with the oracle's tokens; fenced {fences}; "
+              f"failovers {rep['failovers']['total']} {rep['failovers']['by_reason']}; failover "
+              f"TTFT penalty {rep['failover_ttft_penalty_s']} s; routed "
+              f"{rep['routing']['per_replica']}; survivors' blocks reserved "
+              f"{[r['report']['cache']['blocks_reserved'] for r in survivors]}; each rank's "
+              f"peak {[round(r['peak_bytes'] / gib, 2) for r in ranks]} GiB; artifacts {names}")
+        if outcomes != {"completed"} or same != len(trace) or names != sorted(FLEET_ARTIFACTS) \
+                or any(r["report"]["cache"]["blocks_reserved"] != 0 for r in survivors) \
+                or peak > card:
+            raise AssertionError(f"{label} did not serve every request with the oracle's tokens")
+        if plan is None and (fenced or rep["failovers"]["total"]):
+            raise AssertionError("the clean fleet fenced a replica")
+        if plan is not None and not (
+                [r["fence_reason"] for r in fenced] == ["replica-killed"]
+                and len(survivors) == 1 and rep["failovers"]["total"] >= 1
+                and rep["failover_ttft_penalty_s"] is not None):
+            raise AssertionError("the kill did not fence one replica and fail its residents over")
+    print(f"[fleet] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def _same_planes(torch, got, host):
@@ -3740,6 +3817,8 @@ def main() -> int:
         timed("kv", phase_kv, torch, gpu_line)
     if "serve" in phases:
         serve = timed("serve", phase_serve, torch, fa, gpu_line)
+    if "fleet" in phases:
+        fleet = timed("fleet", phase_fleet, torch, gpu_line)
     print(f"[time] phases {', '.join(f'{k} {v:.1f}' for k, v in walls.items())} s; "
           f"{sum(walls.values()):.1f} s in all")
     if phases != set(PHASES):
@@ -3763,6 +3842,7 @@ def main() -> int:
         "compress_launches_per_step": compress["train"]["launches"]["flash_fwd"],
         "bench_launches_per_forward": bench_launches,
         "serve_launches": serve,
+        "fleet_launches": fleet["flash_fwd"],
         "max_abs_err": err_o,
         "lse_max_abs_err": err_lse,
         "ms": main_t["ms"],

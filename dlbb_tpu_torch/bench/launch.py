@@ -6,7 +6,9 @@
 ``torch.multiprocessing``: on ``cpu`` they join a gloo group, on ``cuda`` an
 NCCL group with one GPU per rank (rank r on ``cuda:r``; NCCL does not put
 two ranks of one communicator on the same GPU, so the world is at most the
-GPU count).  They meet through a ``FileStore`` in a fresh temporary
+GPU count).  With ``shared`` (the serving fleet's replicas) the ranks join
+a gloo group on either device and share the GPUs, contiguous ranks to a
+card.  They meet through a ``FileStore`` in a fresh temporary
 directory, so concurrent launches never collide.  Each worker runs
 ``fn(*args)`` single-threaded, and ``launch`` returns what each rank's ``fn``
 returned, by rank.  A rank that fails stops the others, and ``launch``
@@ -39,12 +41,13 @@ from dlbb_tpu_torch.utils.sysinfo import resolve_device
 
 def _run_rank(rank: int, local_rank: int, world_size: int, device_type: str,
               init_file: Optional[str], timeout: Optional[float],
-              fn: Callable, args: tuple) -> Any:
+              fn: Callable, args: tuple, shared: bool = False) -> Any:
     torch.set_num_threads(1)
     if device_type == "cuda":
-        torch.cuda.set_device(local_rank)
-    initialize_distributed(BACKENDS[device_type], rank, world_size, init_file,
-                           timeout=timeout)
+        torch.cuda.set_device(local_rank * torch.cuda.device_count() // world_size
+                              if shared else local_rank)
+    initialize_distributed("gloo" if shared else BACKENDS[device_type], rank, world_size,
+                           init_file, timeout=timeout)
     try:
         return fn(*args)
     finally:
@@ -52,22 +55,23 @@ def _run_rank(rank: int, local_rank: int, world_size: int, device_type: str,
 
 
 def _spawned(rank: int, world_size: int, device_type: str, tmp: str,
-             timeout: Optional[float], fn: Callable, args: tuple) -> None:
+             timeout: Optional[float], fn: Callable, args: tuple, shared: bool) -> None:
     result = _run_rank(rank, rank, world_size, device_type,
-                       os.path.join(tmp, "store"), timeout, fn, args)
+                       os.path.join(tmp, "store"), timeout, fn, args, shared)
     with open(os.path.join(tmp, f"result_{rank}.pkl"), "wb") as f:
         pickle.dump(result, f)
 
 
 def launch(fn: Callable, world_size: int, device=None, args: tuple = (),
            timeout: Optional[float] = None,
-           group_timeout: Optional[float] = None) -> list[Any]:
+           group_timeout: Optional[float] = None, shared: bool = False) -> list[Any]:
     """Run ``fn(*args)`` on ``world_size`` ranks of one process group; see
     the module docstring.  ``fn`` must be importable by name (it is pickled
     into the workers).  ``device`` is ``cuda`` unless the caller names
     ``cpu``; it raises without CUDA.  ``timeout`` (seconds) bounds, when
     spawning, the whole run, and each collective's wait unless
-    ``group_timeout`` (seconds) bounds that."""
+    ``group_timeout`` (seconds) bounds that.  ``shared``: the ranks share
+    the GPUs over gloo (module docstring)."""
     dev = resolve_device(device)
     if group_timeout is None:
         group_timeout = timeout
@@ -77,14 +81,14 @@ def launch(fn: Callable, world_size: int, device=None, args: tuple = (),
                              f"the launch asks for {world_size}")
         return [_run_rank(int(os.environ["RANK"]),
                           int(os.environ.get("LOCAL_RANK", 0)), world_size,
-                          dev.type, None, group_timeout, fn, args)]
-    if dev.type == "cuda" and world_size > torch.cuda.device_count():
+                          dev.type, None, group_timeout, fn, args, shared)]
+    if dev.type == "cuda" and not shared and world_size > torch.cuda.device_count():
         raise ValueError(
             f"world size {world_size} needs one GPU per rank; "
             f"{torch.cuda.device_count()} visible")
     with tempfile.TemporaryDirectory(prefix="dlbb_launch_") as tmp:
         ctx = mp.start_processes(
-            _spawned, args=(world_size, dev.type, tmp, group_timeout, fn, args),
+            _spawned, args=(world_size, dev.type, tmp, group_timeout, fn, args, shared),
             nprocs=world_size, join=False, start_method="spawn")
         deadline = None if timeout is None else time.monotonic() + timeout
         while not ctx.join(timeout=1.0):  # raises when a rank failed

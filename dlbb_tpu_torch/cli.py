@@ -47,7 +47,8 @@ corpus under ``results/``.  ``compare`` and ``reports`` are file
 processing over the port's own results: their default trees are
 ``results/torch`` and ``stats/torch`` (``stats/torch/1d/<impl>``,
 ``stats/torch/variants/<impl>``, ``results/torch/parallelism``,
-``results/torch/serving`` into ``stats/torch/serving``).
+``results/torch/serving`` and ``results/torch/BENCH_fleet.json`` into
+``stats/torch/serving``).
 
 ``serve`` is JAX's serving benchmark (``serve/bench.py``): a synthetic
 traffic trace through the continuous-batching engine, JAX's flags and
@@ -55,8 +56,10 @@ defaults, on ``--world`` ranks (default 1, auto-planned into (dp, tp) as
 JAX plans ``--simulate``'s devices; a config's ``parallelism:`` section
 sets the mesh instead) through ``bench/launch.py``, written by rank 0 to
 ``results/torch/serving`` unless ``--output`` names another directory.
-JAX's ``--xplane-trace`` (device traces, Slice F, item 13) and
-``--replicas`` (the fleet, Slice E, item 12, part 12b) are refused.  The
+``--replicas N`` serves through the replica fleet (``serve/fleet.py``): N
+failure domains of one replica's mesh each, on N x that mesh's ranks, which
+share the GPUs over gloo.  JAX's ``--xplane-trace`` (device traces, Slice
+F, item 13) is refused.  The
 reference corpus of ``compare`` is not in this repository: ``--reference``
 names its root.
 """
@@ -216,7 +219,10 @@ def _add_serve_parser(sub) -> None:
         ("--dispatch-deadline-factor", float, "arm the dispatch watchdog: abandon a "
                                               "decode unit past FACTOR x K x the "
                                               "per-step EMA (default: off)"),
-        ("--hedge-factor", float, "fleet hedging (accepted and ignored by one engine)"),
+        ("--hedge-factor", float, "fleet hedging: duplicate a request still resident "
+                                  "past F x the observed p99 latency onto another "
+                                  "replica; first completion wins, the loser is "
+                                  "canceled (needs --replicas >= 2)"),
     ):
         dest = ("max_dispatch_retries" if flag == "--dispatch-retries"
                 else flag[2:].replace("-", "_"))
@@ -240,7 +246,10 @@ def _add_serve_parser(sub) -> None:
                     help="per-request deadline stamped on every generated request: "
                          "queued requests past it are shed, late completions counted")
     sv.add_argument("--replicas", type=int, default=None, metavar="N",
-                    help="the replica fleet (refused: Slice E, item 12, part 12b)")
+                    help="serve through the replica-level fleet supervisor: N failure "
+                         "domains, each its own engine, with health-fencing, failover, "
+                         "hedging and the overload degradation ladder; the parallelism "
+                         "section (or auto-plan) then describes ONE replica's mesh")
     sv.add_argument("--fault-plan", default=None, metavar="PLAN",
                     help="fault-injection plan of the serving chaos harness (e.g. "
                          "'serve-decode-fail:1'; DLBB_FAULT_PLAN env is the default)")
@@ -419,6 +428,12 @@ def _serve(args) -> int:
         prefix_len=args.prefix_len, replicas=args.replicas, world=args.world,
         device=args.device, span_trace=args.span_trace or spans.default_span_path())
     req = result["requests"]
+    if "failovers" in result:
+        live = sum(1 for r in result["replicas"] if r["status"] == "ok")
+        print(f"fleet: {live}/{len(result['replicas'])} replica(s) healthy, "
+              f"{result['failovers']['total']} failover(s), "
+              f"{result['hedges']['issued']} hedge(s) issued, degrade level "
+              f"{result['degrade']['level']} ({result['degrade']['name']})")
     if result.get("prefix", {}).get("enabled"):
         pre = result["prefix"]
         print(f"prefix cache: {pre['hits']} hit(s), {pre['tokens_reused']} token(s) "
@@ -435,14 +450,15 @@ def _serve(args) -> int:
 def _reports(args) -> int:
     """``cli reports``: the JAX CLI's reports that the port has, with its
     summary lines.  The serving report reads the port's own
-    ``serving_*.json`` under ``RESULTS/serving`` (never the root
-    ``BENCH_*.json``, which hold the JAX package's TPU runs).  An input of a
-    report whose module is not ported yet (a fleet result, the autotuner)
-    is refused loudly, never skipped."""
+    ``serving_*.json`` and ``fleet_*.json`` under ``RESULTS/serving``, and
+    the fleet report the port's ``RESULTS/BENCH_fleet.json`` (never the
+    root ``BENCH_*.json``, which hold the JAX package's TPU runs).  An input
+    of a report whose module is not ported yet (the autotuner) is refused
+    loudly, never skipped."""
     from pathlib import Path
 
     from dlbb_tpu_torch.stats.northstar import default_stats_1d_csv, write_northstar_report
-    from dlbb_tpu_torch.stats.serving_report import write_serving_report
+    from dlbb_tpu_torch.stats.serving_report import write_fleet_report, write_serving_report
     from dlbb_tpu_torch.stats.parallelism_report import (
         DEFAULT_FAMILIES,
         write_cp_scaling_report,
@@ -455,10 +471,6 @@ def _reports(args) -> int:
 
     stats_root, results_root = Path(args.stats), Path(args.results)
     serve_dir = results_root / "serving"
-    if any(serve_dir.rglob("fleet_*.json")):
-        raise NotImplementedError(
-            f"fleet results under {serve_dir}: the fleet's report comes with "
-            "serve/fleet.py (ROADMAP Queue 1, Slice E, item 12, part 12b)")
     autotune = results_root / "BENCH_autotune.json"
     if autotune.exists():
         raise NotImplementedError(
@@ -515,6 +527,15 @@ def _reports(args) -> int:
               f"{stats_root / 'serving' / 'SERVING.md'}")
     else:
         print(f"serving: no serving_*.json under {serve_dir} — skipped")
+    bench_fleet = results_root / "BENCH_fleet.json"
+    if bench_fleet.exists():
+        flrows = write_fleet_report(bench_fleet, stats_root / "serving")
+        if flrows:
+            produced += 1
+            print(f"fleet: {len(flrows)} setting(s) -> "
+                  f"{stats_root / 'serving' / 'FLEET.md'}")
+    else:
+        print(f"fleet: no BENCH_fleet.json under {results_root} — skipped")
     if produced == 0:
         print("error: nothing to report — check --stats/--results point at the "
               "port's trees")

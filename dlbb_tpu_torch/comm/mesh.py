@@ -11,8 +11,13 @@ P sit that mesh out.  A grid shape adds, for each mesh axis, the subgroup
 of the ranks that differ only along that axis (row-major rank order, as
 ``np.reshape`` lays the JAX mesh out), for the hierarchical allreduce.
 
-Ranks are global ranks throughout: every mesh starts at rank 0, so a rank's
-index in its mesh is its global rank.
+A mesh starts at rank 0 unless it is built over a rank list (``get_mesh``'s
+``ranks``: a serving fleet's replicas, one contiguous group of ranks each).
+``Mesh.rank`` is a rank's index in its mesh, and ``Mesh.global_rank`` turns
+an index into the global rank that ``torch.distributed`` addresses
+(``src`` and ``dst``).  For a fleet a "device" is a rank of the world:
+``available_devices``, ``partition_devices`` and ``fault_domain_record``
+keep JAX's names, arguments and errors over rank numbers.
 """
 
 from __future__ import annotations
@@ -78,6 +83,12 @@ class Mesh:
     rank: int
     group: Any
     axis_groups: dict[str, Any]
+    # the global rank of each index of the mesh; None: index i is rank i
+    ranks: Optional[tuple[int, ...]] = None
+
+    def global_rank(self, index: int) -> int:
+        """The global rank of the mesh's ``index``-th rank."""
+        return index if self.ranks is None else self.ranks[index]
 
     @property
     def axis_names(self) -> tuple[str, ...]:
@@ -127,11 +138,60 @@ def destroy_distributed() -> None:
         dist.destroy_process_group()
 
 
-def get_mesh(spec: MeshSpec) -> Optional[Mesh]:
-    """The mesh of the first ``spec.num_ranks`` ranks of the world.
+def available_devices(platform: Optional[str] = None) -> list[int]:
+    """The fleet's devices: the ranks of the world (``[0]`` without a
+    process group), as JAX's ``available_devices`` lists its devices.
+    ``platform`` filters as JAX's does: the ranks when it names this
+    world's device type (``cuda``/``gpu`` on an NCCL world or on ranks
+    that hold a GPU, ``cpu`` otherwise), else none."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if platform is not None:
+        on_gpu = torch.cuda.is_available() and torch.cuda.is_initialized()
+        kind = "cuda" if on_gpu or (dist.is_initialized()
+                                    and dist.get_backend() == "nccl") else "cpu"
+        if {"gpu": "cuda"}.get(platform, platform) != kind:
+            return []
+    return list(range(world))
+
+
+def partition_devices(devices: Optional[Sequence] = None,
+                      groups: int = 1) -> list[list]:
+    """Partition the device list (the ranks, by default) into ``groups``
+    contiguous, equal-size, disjoint failure domains: the replicas of the
+    serving fleet (``serve/fleet.py``), each a contiguous group of ranks
+    that no other replica shares.  Raises when the count does not divide
+    evenly (a lopsided fleet would skew every per-replica capacity
+    claim), as JAX's does."""
+    devs = list(devices) if devices is not None else available_devices()
+    if groups < 1:
+        raise ValueError(f"need at least one device group, got {groups}")
+    if len(devs) % groups != 0:
+        raise ValueError(
+            f"{len(devs)} device(s) do not partition into {groups} "
+            "equal failure domains"
+        )
+    per = len(devs) // groups
+    return [devs[i * per:(i + 1) * per] for i in range(groups)]
+
+
+def fault_domain_record(groups: Sequence[Sequence]) -> dict[str, list[int]]:
+    """JSON-able ``fault_domains`` map (replica id -> its devices: rank
+    numbers, or each device's ``id``) for the topology record and the
+    serving manifest, JAX's key that keeps fleet runs from aggregating
+    with single-replica runs."""
+    return {
+        str(i): [int(d) if isinstance(d, (int, np.integer)) else int(getattr(d, "id", j))
+                 for j, d in enumerate(grp)]
+        for i, grp in enumerate(groups)
+    }
+
+
+def get_mesh(spec: MeshSpec, ranks: Optional[Sequence[int]] = None) -> Optional[Mesh]:
+    """The mesh of the first ``spec.num_ranks`` ranks of the world, or of
+    ``ranks`` (global ranks, in the mesh's row-major order) when given.
 
     A collective call: every rank of the world calls it, in the same order
-    (``torch.distributed.new_group`` is), and the ranks past the mesh get
+    (``torch.distributed.new_group`` is), and the ranks outside the mesh get
     None.  Raises when the world is smaller than the spec, as JAX's
     ``build_mesh`` does with too few devices."""
     world, rank = dist.get_world_size(), dist.get_rank()
@@ -139,33 +199,40 @@ def get_mesh(spec: MeshSpec) -> Optional[Mesh]:
     if n > world:
         raise ValueError(f"mesh spec {spec.shape} needs {n} ranks, only "
                          f"{world} in the process group")
-    group = dist.group.WORLD if n == world else dist.new_group(list(range(n)))
-    ids = np.arange(n).reshape(spec.shape)
+    members = list(range(n)) if ranks is None else [int(r) for r in ranks]
+    if len(members) != n or len(set(members)) != n or not all(0 <= r < world for r in members):
+        raise ValueError(f"mesh spec {spec.shape} needs {n} distinct ranks of the "
+                         f"world's {world}, got {members}")
+    group = dist.group.WORLD if members == list(range(world)) else dist.new_group(members)
+    ids = np.asarray(members).reshape(spec.shape)
     axis_groups: dict[str, Any] = {}
     for i, axis in enumerate(spec.axis_names):
         if len(spec.shape) == 1:
             axis_groups[axis] = group
             continue
-        for members in np.moveaxis(ids, i, -1).reshape(-1, spec.shape[i]):
-            sub = dist.new_group(members.tolist())
-            if rank in members:
+        for row in np.moveaxis(ids, i, -1).reshape(-1, spec.shape[i]):
+            sub = dist.new_group(row.tolist())
+            if rank in row:
                 axis_groups[axis] = sub
-    if rank >= n:
+    if rank not in members:
         return None
-    return Mesh(spec, rank, group, axis_groups)
+    return Mesh(spec, members.index(rank), group, axis_groups,
+                None if ranks is None else tuple(members))
 
 
 def build_parallelism_mesh(data_parallel: int = 1, sequence_parallel: int = 1,
                            pipeline_parallel: int = 1, tensor_parallel: int = 1,
-                           expert_parallel: int = 1) -> Optional[Mesh]:
+                           expert_parallel: int = 1,
+                           ranks: Optional[Sequence[int]] = None) -> Optional[Mesh]:
     """The model-parallelism mesh of the E2E harness, in the JAX package's
     axis order ``(dp[, sp][, pp][, ep], tp)``: dp always (outermost), sp, pp
-    and ep only when above 1, tp always (innermost).  A rank's global rank
-    is its row-major index in that grid, and ``axis_groups["tp"]`` holds the
+    and ep only when above 1, tp always (innermost).  A rank's index in the
+    mesh is its row-major index in that grid, and ``axis_groups["tp"]`` holds the
     ranks that differ from it only in their tp index (and so on for each
-    axis).  A collective call, as ``get_mesh``: every rank of the world
-    builds every axis group, in the same order; the ranks past the grid get
-    None."""
+    axis).  ``ranks`` lays the grid over those global ranks instead of the
+    first ones (a fleet replica's).  A collective call, as ``get_mesh``:
+    every rank of the world builds every axis group, in the same order; the
+    ranks outside the grid get None."""
     shape, names = [data_parallel], ["dp"]
     for size, name in ((sequence_parallel, "sp"), (pipeline_parallel, "pp"),
                        (expert_parallel, "ep")):
@@ -174,7 +241,7 @@ def build_parallelism_mesh(data_parallel: int = 1, sequence_parallel: int = 1,
             names.append(name)
     shape.append(tensor_parallel)
     names.append("tp")
-    return get_mesh(MeshSpec.grid(shape, names))
+    return get_mesh(MeshSpec.grid(shape, names), ranks=ranks)
 
 
 def mesh_num_ranks(mesh: Mesh, axes: Optional[Sequence[str]] = None) -> int:

@@ -6,12 +6,12 @@ output order (metrics in insertion order, label sets sorted within one),
 atomic writes through ``utils/config.atomic_write_text``.  The same
 updates give the JAX package's ``metrics.prom`` byte for byte.
 
-``serving_metrics`` folds a serving report (``serve/bench.py``) into
-``metrics.prom``, as JAX's does.  The JAX module's other report folds wait
-with the layers whose reports they read: ``fleet_metrics`` (the fleet
-report, ROADMAP Queue 1, Slice E, item 12), ``sweep_metrics`` (the sweep
-manifest, Slice F, item 13) and ``analysis_metrics`` (the analysis
-report, Slice F, item 15).
+``serving_metrics`` folds a serving report (``serve/bench.py``) and
+``fleet_metrics`` a fleet report (``serve/fleet.py``) into ``metrics.prom``,
+as JAX's do.  The JAX module's other report folds wait with the layers
+whose reports they read: ``sweep_metrics`` (the sweep manifest, ROADMAP
+Queue 1, Slice F, item 13) and ``analysis_metrics`` (the analysis report,
+Slice F, item 15).
 """
 
 from __future__ import annotations
@@ -321,4 +321,82 @@ def serving_metrics(report: dict[str, Any],
             registry.set_gauge("serve_prefix_hit_rate", pre["hit_rate"],
                                help="prefix-attached fraction of "
                                     "prefills this run")
+    return registry
+
+
+def fleet_metrics(report: dict[str, Any],
+                  registry: Optional[MetricsRegistry] = None
+                  ) -> MetricsRegistry:
+    """Fold a fleet report (``serve/fleet.py``) into the supervisor's
+    live registry: the fleet analogue of :func:`serving_metrics`,
+    written as ``metrics.prom`` next to the fleet manifest.
+
+    The failover/hedge/degrade counters and the per-replica resident
+    gauges are registry-backed DURING the run (``serve_failovers`` /
+    ``serve_hedges`` / ``serve_degrade_transitions`` /
+    ``serve_replica_resident_requests``), so report and export share
+    one source; folding a bare report into a fresh registry seeds the
+    totals so the export is self-contained either way — and never
+    clobbers live counters that already carry the run's increments."""
+    registry = registry or MetricsRegistry()
+    registry.set_gauge("serve_goodput_tokens_per_second",
+                       report.get("goodput_tokens_per_s", 0.0),
+                       help="completed-request output tokens per second")
+    registry.set_gauge("serve_wall_seconds",
+                       report.get("wall_seconds", 0.0),
+                       help="trace wall-clock time")
+    fleet = report.get("fleet", {})
+    registry.set_gauge("serve_fleet_replicas",
+                       fleet.get("replicas", 0),
+                       help="configured replica count (failure domains)")
+    fo = report.get("failovers", {})
+    if fo and all(registry.get("serve_failovers", reason=r) == 0
+                  for r in fo.get("by_reason", {})):
+        for reason, n in sorted(fo.get("by_reason", {}).items()):
+            registry.inc("serve_failovers", n, reason=reason,
+                         help="requests failed over off a fenced "
+                              "replica, by fence reason")
+    hedges = report.get("hedges", {})
+    if hedges and all(registry.get("serve_hedges", outcome=o) == 0
+                      for o in hedges):
+        for outcome, n in sorted(hedges.items()):
+            registry.inc("serve_hedges", n, outcome=outcome,
+                         help="hedged requests by outcome")
+    degrade = report.get("degrade", {})
+    registry.set_gauge("serve_fleet_degrade_level",
+                       degrade.get("level", 0),
+                       help="final degradation-ladder level "
+                            "(0 = full service)")
+    if degrade.get("transitions") and registry.get(
+            "serve_degrade_transitions",
+            level=degrade["transitions"][0]["name"]) == 0:
+        for rec in degrade["transitions"]:
+            registry.inc("serve_degrade_transitions", 1,
+                         level=rec["name"],
+                         help="degradation-ladder escalations, by "
+                              "level entered")
+    routing = report.get("routing", {})
+    for key, metric, hlp in (
+        ("prefix_affinity_hits", "serve_fleet_affinity_hits",
+         "admissions routed by prefix affinity"),
+        ("prefix_affinity_misses", "serve_fleet_affinity_misses",
+         "prefix-bearing admissions routed least-loaded instead"),
+    ):
+        if key in routing:
+            registry.set_gauge(metric, routing[key], help=hlp)
+    req = report.get("requests", {})
+    for key in ("completed", "failed", "rejected", "canceled", "shed"):
+        if key in req:
+            registry.set_gauge("serve_fleet_requests", req[key],
+                               outcome=key,
+                               help="fleet-terminal request outcomes")
+    ttft = report.get("ttft", {})
+    for q in ("median", "p95", "p99", "p999"):
+        if q in ttft:
+            registry.set_gauge("serve_ttft_seconds", ttft[q], quantile=q)
+    penalty = report.get("failover_ttft_penalty_s")
+    if penalty is not None:
+        registry.set_gauge("serve_failover_ttft_penalty_seconds", penalty,
+                           help="mean TTFT of failed-over requests minus "
+                                "mean TTFT of cleanly-routed ones")
     return registry

@@ -11,11 +11,12 @@ string.  The port threads these of the sites so far: ``preempt`` between
 the train steps of ``train/loop.py::run_train``, ``ckpt-corrupt`` in
 ``train/checkpoint.py::Checkpointer.maybe_save``, ``serve-trace-corrupt``
 in ``serve/traffic.py::TrafficTrace.load``, and the engine's serving sites
-(the second table) in ``serve/engine.py``, where the JAX package hosts
-them.  The others are parsed and counted, and fire at no call site until
-their layers are ported (the sweep's, ROADMAP Queue 1, Slice F, item 13;
-the fleet's, Slice E, item 12); the tables below list where the JAX
-package hosts each.
+(the second table) in ``serve/engine.py``, and the fleet's (the third) in
+``serve/fleet.py``, where the JAX package hosts them; a fleet counts its
+replica sites' hits across its processes (``FaultPlan.fire_nth``).  The
+sweep's are parsed and counted, and fire at no call site until their layer
+is ported (ROADMAP Queue 1, Slice F, item 13); the tables below list where
+the JAX package hosts each.
 
 Plan grammar (``DLBB_FAULT_PLAN`` env / ``--fault-plan`` CLI)::
 
@@ -264,17 +265,30 @@ class FaultPlan:
             return False
         with self._lock:
             n = self.hits[site] = self.hits.get(site, 0) + 1
-            if spec.always:
-                hit = True
-            elif spec.prob is not None:
-                hit = self._rng(site).random() < spec.prob
-            elif spec.nth is not None:
-                hit = n == spec.nth
-            else:
-                hit = n <= (spec.count or 1)
-            if hit:
-                self.fired.append((site, n))
-            return hit
+            return self._hit(site, spec, n)
+
+    def fire_nth(self, site: str, n: int) -> bool:
+        """Should ``site`` fault at its ``n``-th hit, counted elsewhere
+        (a serving fleet counts the replica sites across its processes)?"""
+        spec = self.sites.get(site)
+        if spec is None:
+            return False
+        with self._lock:
+            self.hits[site] = max(self.hits.get(site, 0), n)
+            return self._hit(site, spec, n)
+
+    def _hit(self, site: str, spec: _SiteSpec, n: int) -> bool:
+        if spec.always:
+            hit = True
+        elif spec.prob is not None:
+            hit = self._rng(site).random() < spec.prob
+        elif spec.nth is not None:
+            hit = n == spec.nth
+        else:
+            hit = n <= (spec.count or 1)
+        if hit:
+            self.fired.append((site, n))
+        return hit
 
 
 # The one module-global the (inactive) fast path touches.

@@ -10,8 +10,10 @@ failure paths (fault sites, retries and rollback, the dispatch watchdog,
 SLO deadlines, the SIGTERM drain), the scheduler and
 ``ServingEngine.run_trace``, on one device or a (dp, tp) mesh), and the
 serving harness (``bench``: ``run_serving``, ``resume_serving``,
-``run_serve_from_config``, behind ``cli serve``).  The fleet comes with
-ROADMAP Queue 1, Slice E, item 12, part 12b."""
+``run_serve_from_config``, behind ``cli serve``), and the replica fleet
+(``fleet``: ``FleetSupervisor`` and ``run_fleet``, behind ``cli serve
+--replicas``).  The other report writers of the serving benchmarks come
+with ROADMAP Queue 1, Slice E, item 12, part 12c."""
 
 from dlbb_tpu_torch.serve.engine import (
     SERVING_REPORT_SCHEMA,

@@ -26,9 +26,10 @@ not preempted.
 One process runs each rank of the mesh (:func:`run_serve_from_config`
 launches them through ``bench/launch.py``); every rank serves the same
 trace, and rank 0 alone writes the journal, the artifacts and the resume
-checkpoint.  A resume relaunches the same world.  The fleet (``fleet:``,
-``replicas``) comes with part 12b, and device traces with Slice F, item 13:
-both are refused.
+checkpoint.  A resume relaunches the same world.  A ``fleet:`` section or
+``replicas`` above 1 routes the run to ``serve/fleet.py::run_fleet``, whose
+``parallelism:`` plan is each replica's.  Device traces come with Slice F,
+item 13, and are refused.
 """
 
 from __future__ import annotations
@@ -60,13 +61,6 @@ DEFAULT_SERVE_MODEL = dict(
     hidden_size=128, num_layers=4, num_heads=8, num_kv_heads=4,
     ffn_intermediate=256, dtype="float32", attention="full",
 )
-
-
-def _refuse_fleet(config: dict[str, Any], replicas: Optional[int] = None) -> None:
-    if config.get("fleet") or (replicas is not None and replicas > 1):
-        raise ValueError(
-            "the serving fleet (a fleet: section, replicas) is not ported yet: it "
-            "comes with serve/fleet.py (ROADMAP Queue 1, Slice E, item 12, part 12b)")
 
 
 def _refuse_device_trace(device_trace: Optional[str]) -> None:
@@ -241,7 +235,6 @@ def run_serving(
     from dlbb_tpu_torch.resilience.preempt import PreemptionGuard
     from dlbb_tpu_torch.utils.config import save_json
 
-    _refuse_fleet(config)
     _refuse_device_trace(device_trace)
     dev = resolve_device(device)
     model_cfg = ModelConfig.from_dict(config.get("model", DEFAULT_SERVE_MODEL))
@@ -612,8 +605,13 @@ def run_serve_from_config(
     through ``bench/launch.py`` (NCCL, one GPU per rank, on ``cuda``; gloo
     on ``cpu``).  The default output is ``results/torch/serving``.
     ``span_trace`` names rank 0's host span trace (Chrome trace-event JSON).
-    ``replicas`` and a ``fleet:`` section are refused (part 12b), and so is
-    ``device_trace`` (Slice F, item 13)."""
+
+    ``replicas`` above 1 (or a ``fleet:`` section) serves the trace through
+    the replica fleet instead (``serve/fleet.py::run_fleet``): the
+    ``parallelism:`` section, or the auto-plan over ``world / replicas``
+    ranks, is then ONE replica's mesh, and the world is replicas x that
+    mesh (``world``, when given, must match).  ``device_trace`` is refused
+    (Slice F, item 13)."""
     from dlbb_tpu_torch.utils.config import load_config
 
     resolve_device(device)
@@ -629,15 +627,22 @@ def run_serve_from_config(
     for key, value in sorted((overrides or {}).items()):
         if value is not None:
             config["serving"][key] = value
-    _refuse_fleet(config, replicas)
     serving_cfg = ServingConfig.from_dict(config["serving"])
+    if replicas is not None and replicas > 1:
+        config.setdefault("fleet", {})["replicas"] = replicas
+    fleet = bool(config.get("fleet"))
+    n_replicas = max(1, int(config["fleet"].get("replicas", 2))) if fleet else 1
     if "parallelism" not in config:
         model_cfg = ModelConfig.from_dict(config.get("model", DEFAULT_SERVE_MODEL))
-        dp, tp = default_parallelism(world or 1, model_cfg.kv_heads, serving_cfg.max_batch)
+        # a fleet's parallelism is PER REPLICA: planned within one failure
+        # domain's share of the ranks
+        per_replica = max(1, (world or n_replicas) // n_replicas)
+        dp, tp = default_parallelism(per_replica, model_cfg.kv_heads, serving_cfg.max_batch)
         config["parallelism"] = {"data_parallel": dp, "world_size": tp}
-    n = _world(config)
+    n = _world(config) * n_replicas
     if world is not None and world != n:
-        raise ValueError(f"--world {world}: the config's mesh has {n} ranks")
+        raise ValueError(f"--world {world}: the config's mesh has {n} ranks"
+                         + (f" ({n_replicas} replicas)" if fleet else ""))
     trace_kw: dict[str, Any] = {}
     if prefix_groups is not None:
         trace_kw["prefix_groups"] = prefix_groups
@@ -646,5 +651,10 @@ def run_serve_from_config(
     resolved = resolve_trace(trace, num_requests=num_requests, seed=seed, rate=rate,
                              serving=serving_cfg, deadline_s=slo, **trace_kw)
     out = output_dir or config.get("experiment", {}).get("output_dir", "results/torch/serving")
+    if fleet:
+        from dlbb_tpu_torch.serve.fleet import run_fleet
+
+        return run_fleet(config, resolved, output_dir=out, verbose=verbose,
+                         fault_plan=fault_plan, device=device, world=n)
     return _launched(serve_worker, n, device,
                      (config, resolved, out, verbose, fault_plan, device, span_trace))

@@ -33,9 +33,10 @@ The device programs, fixed shapes for the whole run:
   matched blocks copied into the admitted slot, and returned as the
   chunked prefill's prefix carry, so only the suffix chunks run.
 - **verify** (``speculation`` "ngram" or "draft-model"; per γ of the
-  ladder): each slot's pending token and its γ drafts as one ``[B, γ+1,
-  H]`` pass, K/V rows appended at ``lengths + i`` and attended under an
-  offset-causal mask (``_verify_attention``); the greedy verify commits
+  ladder): each slot's pending token and its γ drafts through every
+  block, each position in the decode step's own shapes, K/V rows appended
+  at ``lengths + i`` and position ``i`` attending to the keys up to it
+  (``_verify_math``); the greedy verify commits
   the accepted prefix and one more token on the device, the sampled one
   (``temperature > 0``) returns the logits, the host samples, and a small
   commit program advances the carry.  The draft model runs γ greedy token
@@ -119,11 +120,11 @@ carry recovers from it; neither does a real overrun stuck inside a tp
 collective on a multi-rank mesh, whose abandoned thread may still be
 waiting on the group: both fail the run.
 
-What JAX's engine does beyond part 11d is refused with a ``ValueError``
-that names its ROADMAP item: the fleet hooks ``feed`` and ``control``
-(item 12, part 12b) and device-trace capture (Slice F, item 13).
-``hedge_factor`` is accepted and ignored, as JAX's single engine ignores
-it.
+The fleet's replica hooks (``run_trace``'s ``feed`` and ``control``,
+``serve/fleet.py``) are consulted only at the scheduler loop's boundary.
+Device-trace capture is refused with a ``ValueError`` that names its
+ROADMAP item (Slice F, item 13).  ``hedge_factor`` is the fleet's: one
+engine accepts and ignores it, as JAX's does.
 """
 
 from __future__ import annotations
@@ -675,13 +676,6 @@ class ServingConfig:
         return tuple(ks)
 
 
-def _not_ported(what: str, part: str) -> ValueError:
-    item = {"12b": "the fleet (serve/fleet.py)"}[part]
-    return ValueError(
-        f"{what} is not ported yet: it comes with {item} (ROADMAP Queue 1, "
-        f"Slice E, item 12, part {part})")
-
-
 # ---------------------------------------------------------------------------
 # device programs
 # ---------------------------------------------------------------------------
@@ -708,11 +702,31 @@ def _split_qkv(qkv: torch.Tensor, config: ModelConfig):
     return qkv[..., :h], qkv[..., h:h + kvd], qkv[..., h + kvd:]
 
 
+def _block_head(h, layer, config: ModelConfig, col):
+    """A block's ln1 and qkv product: ``(q, k, v)``."""
+    y = _layernorm(h, layer["ln1"]["scale"], layer["ln1"]["bias"])
+    return _split_qkv(col(y, layer["qkv"]), config)
+
+
+def _block_tail(h, attn, layer, col, row):
+    """A block's out product and residual, then ln2, the ffn and its
+    residual."""
+    h = row(attn, layer["out"]) + h
+    residual = h
+    y2 = _layernorm(h, layer["ln2"]["scale"], layer["ln2"]["bias"])
+    y2 = col(y2, layer["ffn_up"])
+    # jax.nn.gelu defaults to approximate=True: the tanh form
+    y2 = F.gelu(y2, approximate="tanh")
+    return row(y2, layer["ffn_down"]) + residual
+
+
 def _serve_block(h, layer, config: ModelConfig, attention_step,
                  cache_state, mesh=None):
     """One transformer block with a pluggable attention step — the ONE
     copy of the ln1/qkv/out/ln2/ffn structure every serving program
-    shares (the serving twin of ``transformer._block``).
+    shares (the serving twin of ``transformer._block``; the verify runs
+    its two halves, :func:`_block_head` and :func:`_block_tail`, one
+    position at a time).
     ``attention_step(q, k, v, cache_state) -> (attn [B, S, n*d],
     cache_state)`` owns everything that differs between prefill (dense
     causal + block write) and decode (cached append + length-masked
@@ -721,18 +735,9 @@ def _serve_block(h, layer, config: ModelConfig, attention_step,
     the two row-parallel products are summed over its tp group, then
     their bias is added, once."""
     col, row = _projections(config, mesh)
-    y = _layernorm(h, layer["ln1"]["scale"], layer["ln1"]["bias"])
-    qkv = col(y, layer["qkv"])
-    q, k, v = _split_qkv(qkv, config)
+    q, k, v = _block_head(h, layer, config, col)
     attn, cache_state = attention_step(q, k, v, cache_state)
-    h = row(attn, layer["out"]) + h
-    residual = h
-    y2 = _layernorm(h, layer["ln2"]["scale"], layer["ln2"]["bias"])
-    y2 = col(y2, layer["ffn_up"])
-    # jax.nn.gelu defaults to approximate=True: the tanh form
-    y2 = F.gelu(y2, approximate="tanh")
-    h = row(y2, layer["ffn_down"]) + residual
-    return h, cache_state
+    return _block_tail(h, attn, layer, col, row), cache_state
 
 
 def _heads(t: torch.Tensor, nh: int, d: int) -> torch.Tensor:
@@ -741,27 +746,39 @@ def _heads(t: torch.Tensor, nh: int, d: int) -> torch.Tensor:
     return t.reshape(b, s, nh, d).transpose(1, 2)
 
 
-def _cached_attention(q: torch.Tensor, k_flat: torch.Tensor, v_flat: torch.Tensor,
-                      valid: torch.Tensor) -> torch.Tensor:
-    """Length-masked decode attention over the flattened cache.
+def _kv32(k_flat: torch.Tensor, v_flat: torch.Tensor) -> tuple:
+    """A layer's flattened cache planes ``[B, S_max, kvh, d]`` as fp32
+    copies in ``[B, kvh, S_max, d]`` order, as JAX upcasts them."""
+    return tuple(t.permute(0, 2, 1, 3).to(torch.float32, memory_format=torch.contiguous_format)
+                 for t in (k_flat, v_flat))
 
-    q: ``[B, n, 1, d]``; k_flat/v_flat: ``[B, S_max, kvh, d]``; valid:
-    ``[B, S_max]`` bool.  JAX's math: fp32 logits over 1/sqrt(d), fp32
-    softmax, the query heads grouped ``[B, kvh, n/kvh, d]`` against each
-    kv head (never repeated), and -inf past each slot's length, so those
-    positions contribute exactly zero.  Position 0 of a slot is always
-    valid, so no row is empty.  The cache is read once per layer into an
-    fp32 copy in ``[B, kvh, S_max, d]`` order, as JAX upcasts it."""
+
+def _attend(q: torch.Tensor, k32: torch.Tensor, v32: torch.Tensor,
+            valid: torch.Tensor, dtype) -> torch.Tensor:
+    """One query position per slot against a layer's fp32 K/V
+    (:func:`_kv32`): q ``[B, n, 1, d]``, valid ``[B, S_max]``; returns
+    ``[B, n, 1, d]`` in ``dtype``.  fp32 logits over 1/sqrt(d), fp32
+    softmax, the query heads grouped ``[B, kvh, n/kvh, d]`` against each kv
+    head (never repeated), and -inf past each slot's length, so those
+    positions contribute exactly zero, whatever rows lie there.  Position
+    0 of a slot is always valid, so no row is empty."""
     b, n, _, d = q.shape
-    kvh = k_flat.shape[2]
-    q32 = q.float().reshape(b, kvh, n // kvh, d)
-    k32 = k_flat.permute(0, 2, 1, 3).to(torch.float32, memory_format=torch.contiguous_format)
-    v32 = v_flat.permute(0, 2, 1, 3).to(torch.float32, memory_format=torch.contiguous_format)
+    kvh = k32.shape[1]
+    q32 = q.float().contiguous().reshape(b, kvh, n // kvh, d)
     logits = torch.matmul(q32, k32.transpose(-1, -2)) / math.sqrt(d)
     logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
     probs = torch.softmax(logits, dim=-1)
-    out = torch.matmul(probs, v32).reshape(b, n, 1, d)
-    return out.to(k_flat.dtype)
+    return torch.matmul(probs, v32).reshape(b, n, 1, d).to(dtype)
+
+
+def _cached_attention(q: torch.Tensor, k_flat: torch.Tensor, v_flat: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """Length-masked decode attention over the flattened cache (JAX's
+    math): q ``[B, n, 1, d]``; k_flat/v_flat ``[B, S_max, kvh, d]``, read
+    once per layer into fp32 copies (:func:`_kv32`); valid ``[B, S_max]``
+    bool (:func:`_attend`)."""
+    k32, v32 = _kv32(k_flat, v_flat)
+    return _attend(q, k32, v32, valid, k_flat.dtype)
 
 
 def _layer_planes(cache, i: int) -> tuple:
@@ -1216,44 +1233,31 @@ def _inject_token_sampled(carry, slot, tok, table, mesh=None):
     return _inject_token(carry, slot, table[int(tok)], mesh)
 
 
-def _verify_attention(q: torch.Tensor, k_flat: torch.Tensor, v_flat: torch.Tensor,
-                      valid: torch.Tensor) -> torch.Tensor:
-    """Offset-causal, length-masked attention for one verify unit.
-
-    q: ``[B, n, G, d]`` (G = γ+1 verify positions per slot); k_flat/v_flat:
-    ``[B, S_max, kvh, d]``; valid: ``[B, G, S_max]`` bool, query ``i`` of
-    slot ``b`` reaching keys ``j <= lengths[b] + i``.  ``_cached_attention``'s
-    math (fp32 logits over 1/sqrt(d), fp32 softmax, the query heads grouped
-    against each kv head, never repeated), of which it is the G > 1 case:
-    a kv head's group and positions run as one ``[grp * G, d]`` product."""
-    b, n, g, d = q.shape
-    kvh, s_max = k_flat.shape[2], k_flat.shape[1]
-    grp = n // kvh
-    q32 = q.float().reshape(b, kvh, grp * g, d)
-    k32 = k_flat.permute(0, 2, 1, 3).to(torch.float32, memory_format=torch.contiguous_format)
-    v32 = v_flat.permute(0, 2, 1, 3).to(torch.float32, memory_format=torch.contiguous_format)
-    logits = torch.matmul(q32, k32.transpose(-1, -2)) / math.sqrt(d)
-    logits = logits.view(b, kvh, grp, g, s_max).masked_fill(~valid[:, None, None],
-                                                           float("-inf"))
-    probs = torch.softmax(logits, dim=-1).view(b, kvh, grp * g, s_max)
-    out = torch.matmul(probs, v32).reshape(b, n, g, d)
-    return out.to(k_flat.dtype)
-
-
 def _verify_math(carry, params, table, draft_ids, active, config: ModelConfig, mesh=None):
     """The verify unit's target forward, shared by the greedy verify and
     the sampled verify: each slot's pending input and its γ drafts
-    (``draft_ids [B/dp, γ]``, embedded through the token table) run as one
-    ``[B/dp, γ+1, H]`` pass through every block.  Per layer, position
-    ``i`` appends its K/V row at ``lengths + i`` for active slots, in place
-    (JAX's one-hot ``pos == lengths + i`` write: a row at or past
-    ``max_seq`` is not written), and attends under the offset-causal mask.
-    The rows appended past what the host later commits stay in the cache
-    past each length, dead because attention is masked by length.  Returns
-    ``y [B/dp, γ+1, H]``; ``lengths`` is not changed."""
+    (``draft_ids [B/dp, γ]``, embedded through the token table) through
+    every block.  Per layer, position ``i`` appends its K/V row at
+    ``lengths + i`` for active slots, in place (JAX's one-hot ``pos ==
+    lengths + i`` write: a row at or past ``max_seq`` is not written), and
+    attends to the keys ``pos <= lengths + i``.  The rows appended past
+    what the host later commits stay in the cache past each length, dead
+    because attention is masked by length.  Returns ``y [B/dp, γ+1, H]``;
+    ``lengths`` is not changed.
+
+    Every position runs the decode step's own calls, one position at a
+    time: its ln1, qkv, out, ln2 and ffn products on a contiguous ``[B/dp,
+    1, H]`` input, its attention in the step's ``[B, kvh, grp, d]`` shape
+    (:func:`_attend`).  So where the drafts are the step's tokens, row
+    ``i`` of ``y`` is step ``i``'s output bit for bit: a batched ``[B, γ+1,
+    H]`` pass adds the attention's products in another order on a GPU, and
+    a greedy argmax at a near-tie then moves.  The fp32 copies of a
+    layer's K and V are made once, after its γ+1 appends, and shared by the
+    positions (the upcast is exact, and each position's mask drops the
+    rows after it)."""
     tp = 1 if mesh is None else mesh.shape["tp"]
     local = local_config(config, tp)
-    tp_mesh = _tp_mesh(mesh)
+    col, row = _projections(local, _tp_mesh(mesh))
     n, d, kvh = local.num_heads, local.head_dim, local.kv_heads
     cache, x = carry
     first, b_dim = _slot_range(cache, mesh)
@@ -1262,35 +1266,30 @@ def _verify_math(carry, params, table, draft_ids, active, config: ModelConfig, m
     lengths = cache.lengths[first:first + b_dim]
     act = active[first:first + b_dim]
     dev = lengths.device
-    d_emb = table.index_select(0, draft_ids.reshape(-1).long()).reshape(
-        b_dim, g1 - 1, x.shape[-1]).to(x.dtype)
-    h = torch.cat([x, d_emb], dim=1)                              # [B, γ+1, H]
-    offs = lengths[:, None] + torch.arange(g1, device=dev)[None, :]
-    valid = torch.arange(s_max, device=dev)[None, None, :] <= offs[:, :, None]
+    hs = [x] + [table.index_select(0, draft_ids[:, j].long())[:, None, :].to(x.dtype)
+                for j in range(g1 - 1)]                          # γ+1 x [B, 1, H]
+    pos = torch.arange(s_max, device=dev)[None, :]
     rows = torch.arange(b_dim, device=dev)
-    writes = []
+    steps = []
     for i in range(g1):
-        write = act & (offs[:, i] < s_max)
-        at = torch.where(write, offs[:, i], torch.zeros_like(lengths)).long()
-        writes.append((at // bs, at % bs, write))
-
-    def attention_step(q, k, v, cache_state):
-        k_l, v_l = cache_state
-        k_new = k.reshape(b_dim, g1, kvh, d)
-        v_new = v.reshape(b_dim, g1, kvh, d)
-        # γ+1 row appends, one per verify position (each writes distinct
-        # rows, so no put collides)
-        for i, (blk, off, write) in enumerate(writes):
-            _append_rows(k_l, k_new[:, i], rows, blk, off, write)
-            _append_rows(v_l, v_new[:, i], rows, blk, off, write)
-        attn = _verify_attention(_heads(q, n, d), k_l.reshape(b_dim, s_max, kvh, d),
-                                 v_l.reshape(b_dim, s_max, kvh, d), valid)
-        return attn.transpose(1, 2).reshape(b_dim, g1, n * d), cache_state
+        off_i = lengths + i
+        write = act & (off_i < s_max)
+        at = torch.where(write, off_i, torch.zeros_like(lengths)).long()
+        steps.append((pos <= off_i[:, None], at // bs, at % bs, write))
 
     layers, _ = layer_list(params["layers"])
     for i, layer in enumerate(layers):
-        h, _ = _serve_block(h, layer, local, attention_step, _layer_planes(cache, i), tp_mesh)
-    return _layernorm(h, params["ln_f"]["scale"], params["ln_f"]["bias"])
+        k_l, v_l = _layer_planes(cache, i)
+        heads = [_block_head(h, layer, local, col) for h in hs]
+        for (q, k, v), (_valid, blk, off, write) in zip(heads, steps):
+            _append_rows(k_l, k[:, 0].reshape(b_dim, kvh, d), rows, blk, off, write)
+            _append_rows(v_l, v[:, 0].reshape(b_dim, kvh, d), rows, blk, off, write)
+        k32, v32 = _kv32(k_l.reshape(b_dim, s_max, kvh, d), v_l.reshape(b_dim, s_max, kvh, d))
+        hs = [_block_tail(h, _attend(_heads(q, n, d), k32, v32, valid, x.dtype)
+                          .transpose(1, 2).reshape(b_dim, 1, n * d), layer, col, row)
+              for h, (q, _k, _v), (valid, *_w) in zip(hs, heads, steps)]
+    return torch.cat([_layernorm(h, params["ln_f"]["scale"], params["ln_f"]["bias"])
+                      for h in hs], dim=1)
 
 
 def build_verify_step(config: ModelConfig, mesh=None, *, gamma: int):
@@ -1739,6 +1738,9 @@ class ServingEngine:
             self._draft_scan = {g: build_draft_scan(self._draft_config, mesh, gamma=g)
                                 for g in self._spec_gammas}
         self.draft_cache_stats: Optional[dict[str, int]] = None
+        # the fleet replica control plane of the current run (run_trace's
+        # ``control``); None outside a fleet
+        self._control: Any = None
         self._t0 = time.perf_counter()
 
     # -- clock (monotonic, run-relative) -----------------------------------
@@ -1756,7 +1758,7 @@ class ServingEngine:
         if self.mesh is not None:
             dev = self.device if dist.get_backend(self.mesh.group) == "nccl" else "cpu"
             t = torch.tensor(values, dtype=torch.float64, device=dev)
-            dist.broadcast(t, src=0, group=self.mesh.group)
+            dist.broadcast(t, src=self.mesh.global_rank(0), group=self.mesh.group)
             values = tuple(t.tolist())
         return values[0] if len(values) == 1 else values
 
@@ -1778,7 +1780,7 @@ class ServingEngine:
         if self.dp == 1:
             return y_last
         owner_dp = slot // (self.serving.max_batch // self.dp)
-        src = owner_dp * self.tp + self.mesh.coords["tp"]
+        src = self.mesh.global_rank(owner_dp * self.tp + self.mesh.coords["tp"])
         if y_last is None:
             y_last = torch.empty(self.config.hidden_size, dtype=self._dtype,
                                  device=self.device)
@@ -1976,6 +1978,15 @@ class ServingEngine:
     def _event(self, event: str, rid: int, **extra: Any) -> None:
         if self.journal is not None:
             self.journal.event(event, config=f"request-{rid}", **extra)
+        ctl = self._control
+        if ctl is not None and getattr(ctl, "on_event", None) is not None:
+            # the lifecycle feed to the fleet supervisor (terminal
+            # accounting, the hedge winner); a sink failure never takes the
+            # replica down: the journal line above is already written
+            try:
+                ctl.on_event(rid, event, dict(extra))
+            except Exception:  # noqa: BLE001 — contained by contract
+                pass
 
     # -- the run -----------------------------------------------------------
 
@@ -1995,21 +2006,28 @@ class ServingEngine:
         raw latency sample lists (``raw_samples``; always on a preempted
         report, for the resume's merge).
 
-        ``feed``/``control`` (the fleet replica hooks) are refused: they
-        come with part 12b (ROADMAP Queue 1, Slice E, item 12)."""
-        if feed is not None or control is not None:
-            raise _not_ported("run_trace's feed/control (the fleet replica hooks)", "12b")
+        ``feed``/``control`` are the fleet replica hooks (``serve/fleet.py``):
+        ``feed`` replaces the static arrivals with a supervisor-fed
+        :class:`~dlbb_tpu_torch.serve.fleet.RequestFeed` (``trace`` still
+        plans the compiles and the feasibility), and ``control`` is the
+        replica control plane (heartbeat, the kill and hang sites, hedge
+        cancels, the degradation knobs and the fleet's shared clock
+        origin), consulted only at the scheduler loop's boundary.  On a
+        mesh every rank passes its own feed and control, which the
+        replica's rank 0 keeps equal on every rank."""
         watchdog = _WatchdogThread()
         try:
             if guard is None:
                 with PreemptionGuard() as own:
-                    return self._serve_trace(trace, own, collect_raw, watchdog)
-            return self._serve_trace(trace, guard, collect_raw, watchdog)
+                    return self._serve_trace(trace, own, collect_raw, watchdog, feed, control)
+            return self._serve_trace(trace, guard, collect_raw, watchdog, feed, control)
         finally:
             watchdog.close()
 
     def _serve_trace(self, trace: TrafficTrace, guard: PreemptionGuard,
-                     collect_raw: bool, watchdog: _WatchdogThread) -> dict[str, Any]:
+                     collect_raw: bool, watchdog: _WatchdogThread, feed: Any = None,
+                     control: Any = None) -> dict[str, Any]:
+        self._control = control
         if not len(trace):
             raise ValueError("cannot serve an empty trace")
         cfg = self.serving
@@ -2040,7 +2058,10 @@ class ServingEngine:
         # (Prometheus semantics); the report carries THIS run's deltas
         counts_base = {k: self._requests[k] for k in self._requests}
         shed_base = self._rejections["queue-full"]
-        pending = deque(sorted(trace, key=lambda r: (r.arrival_s, r.rid)))
+        # a fleet supervisor feeds the arrivals (and failovers at the feed's
+        # head); a standalone run serves the static trace in arrival order
+        pending = (feed if feed is not None
+                   else deque(sorted(trace, key=lambda r: (r.arrival_s, r.rid))))
         queue: deque[Request] = deque()
         slots: dict[int, _SlotState] = {}
         free_slots = list(range(cfg.max_batch))
@@ -2701,7 +2722,7 @@ class ServingEngine:
             through to the plain token unit.  Either runs under
             :func:`recover`."""
             refresh_active()
-            if spec_on and max_k is None:
+            if spec_on and max_k is None and (control is None or control.spec_enabled):
                 if dispatch_spec():
                     return
                 refresh_active()
@@ -2713,6 +2734,11 @@ class ServingEngine:
             horizon = (min(rem.values()) if (queue or pending)
                        else max(rem.values()))
             horizon = min(cfg.decode_horizon, horizon)
+            if control is not None and control.horizon_cap is not None:
+                # the degradation ladder (serve/fleet.py): a shorter horizon
+                # trades fused-scan throughput for scheduling latency under
+                # overload, never silently (each step is journaled)
+                horizon = min(horizon, max(1, control.horizon_cap))
             if pending and horizon > 1:
                 # a known arrival is an event too: rank 0's estimate of the
                 # steps until it
@@ -2872,6 +2898,39 @@ class ServingEngine:
                                            attempt=attempt, error=str(e))
                     time.sleep(cfg.retry_backoff_s * (2 ** (attempt - 1)))
 
+        def cancel_request(rid: int, reason: str) -> None:
+            """A supervisor's cancel (``serve/fleet.py``: the losing hedge
+            copy).  Resident: the in-flight window settles first, so the
+            release happens at a sync point, then the slot's blocks are
+            freed.  Queued or not yet fed: the request is dropped.  An
+            unknown rid is a benign race (it completed between the cancel
+            decision and this boundary) and a no-op: the tokens are the same
+            on both replicas."""
+            slot = next((s for s, st in slots.items() if st.req.rid == rid), None)
+            if slot is not None:
+                drain()
+                st_now = slots.get(slot)
+                if st_now is None or st_now.req.rid != rid:
+                    return  # completed (or failed) at the drain's sync
+                st = release(slot)
+                hist.pop(rid, None)
+                outcomes[rid] = f"canceled[{reason}]"
+                self._requests["canceled"] += 1
+                self._event("request-canceled", rid, reason=reason,
+                            tokens_done=st.tokens_done)
+                return
+            for r in list(queue):
+                if r.rid == rid:
+                    queue.remove(r)
+                    outcomes[rid] = f"canceled[{reason}]"
+                    self._requests["canceled"] += 1
+                    self._event("request-canceled", rid, reason=reason, tokens_done=0)
+                    return
+            if feed is not None and feed.discard(rid):
+                outcomes[rid] = f"canceled[{reason}]"
+                self._requests["canceled"] += 1
+                self._event("request-canceled", rid, reason=reason, tokens_done=0)
+
         def fail_admission(req: Request, slot: int, exc: BaseException) -> None:
             """A prefill that failed for good fails only its request (its
             reservation undone, journaled with the chain); a real (not
@@ -2887,10 +2946,24 @@ class ServingEngine:
                 fail_resident(exc, "dispatch-failed")
                 reset_carry()
 
-        self._t0 = time.perf_counter()
+        # a fleet shares one clock origin across its replicas (the
+        # supervisor releases it once every replica has compiled, so no
+        # replica's compile time skews arrivals or deadlines); a standalone
+        # run starts its own
+        self._t0 = (control.sync_start() if control is not None
+                    else time.perf_counter())
         last_sync[0] = self._t0
         preempted = False
         while pending or queue or slots:
+            if control is not None:
+                # the replica control plane (serve/fleet.py), only at the
+                # loop's boundary, so a fence never tears a half-applied
+                # unit: heartbeat, the injected kill and hang, the
+                # supervisor's cancels (losing hedges)
+                control.beat()
+                control.check()
+                for c_rid, c_reason in control.take_cancels():
+                    cancel_request(c_rid, c_reason)
             if inject.fire("serve-preempt"):
                 # a real SIGTERM to this process, which the guard turns into
                 # the drain flag (an inert flag off the main thread)

@@ -3,9 +3,12 @@ consolidate ``serving_*.json`` results into ``serving.csv`` and a markdown
 table (``SERVING.md``), and fold an existing ``capacity.json`` (the
 capacity planner's record) into it, read-only.  Pure file processing, no
 device.  The CSV and the table are JAX's byte for byte on the same
-reports; the prose names the port's command.  The capacity curve's
-publisher and the reports of the ``BENCH_*.json`` tables come with the
-fleet (ROADMAP Queue 1, Slice E, item 12, part 12b).
+reports; the prose names the port's command.  ``write_fleet_report``
+writes ``FLEET.md`` from the port's ``BENCH_fleet.json``
+(``scripts/torch_bench_fleet.py``), JAX's table but for the script its
+prose names.  The capacity curve's publisher and the other reports of the
+``BENCH_*.json`` tables come with ROADMAP Queue 1, Slice E, item 12, part
+12c.
 """
 
 from __future__ import annotations
@@ -347,3 +350,86 @@ def _capacity_lines(report: dict[str, Any]) -> list[str]:
             lines.append(f"| {p['plan']} | " + " | ".join(cells) + " |")
     lines.append("")
     return lines
+
+
+def write_fleet_report(bench_path: "str | Path",
+                       output_dir: "str | Path") -> list[dict[str, Any]]:
+    """The fleet fault-tolerance table: consolidate ``BENCH_fleet.json``
+    (``scripts/torch_bench_fleet.py``: single-engine oracle vs clean
+    2-replica fleet vs replica-killed fleet over the same seeded trace) into
+    ``FLEET.md``.  Returns the rows (empty when the bench artifact is
+    missing/unreadable: callers skip, never clobber)."""
+    bench_path = Path(bench_path)
+    try:
+        bench = json.loads(bench_path.read_text())
+    except (OSError, json.JSONDecodeError):
+        return []
+    settings = bench.get("settings", {})
+    if not settings:
+        return []
+    rows = []
+    for name, s in settings.items():
+        tps = s.get("goodput_tokens_per_s", {})
+        fo = s.get("failovers", {})
+        rows.append({
+            "setting": name,
+            "goodput_median": tps.get("median"),
+            "goodput_min": tps.get("min"),
+            "goodput_max": tps.get("max"),
+            "ttft_p50_ms": s.get("ttft_p50_ms"),
+            "ttft_p99_ms": s.get("ttft_p99_ms"),
+            "failovers": fo.get("median"),
+            "token_identical": s.get("token_identical"),
+        })
+    failover = bench.get("failover", {})
+    pen = failover.get("ttft_penalty_ms", {})
+    fleet = bench.get("fleet", {})
+    trace = bench.get("trace", {})
+    out = Path(output_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    lines = [
+        "# Replica-level fault tolerance: the cost of a failover",
+        "",
+        f"Source: `{bench_path.name}` "
+        "(`scripts/torch_bench_fleet.py` — the SAME seeded "
+        f"{trace.get('kind', '?')} trace "
+        f"(n={trace.get('requests', '?')}, seed={trace.get('seed', '?')}) "
+        "through a single replica-sized engine (the token oracle), a "
+        f"clean {fleet.get('replicas', '?')}-replica fleet, and the same "
+        "fleet with `serve-replica-kill` fired mid-trace; settings "
+        "interleaved within each repetition, medians with min/max "
+        "spread; docs/fleet.md).  Every fleet run — clean AND killed — "
+        "is gated token-identical to the oracle before publishing, so "
+        "the penalty prices recovery of the SAME answer, not a "
+        "different one.  The TTFT penalty is failed-over minus clean "
+        "requests WITHIN the kill run (queueing drift between runs "
+        "cancels).",
+        "",
+        "| setting | goodput tok/s (min..max) | TTFT p50 ms | "
+        "TTFT p99 ms | failovers | identical |",
+        "|---|---|---|---|---|---|",
+    ]
+    for r in rows:
+        tps = ("-" if r["goodput_median"] is None else
+               f"{r['goodput_median']:.0f} "
+               f"({r['goodput_min']:.0f}..{r['goodput_max']:.0f})")
+        fo = "-" if r["failovers"] is None else r["failovers"]
+        ident = ("-" if r["token_identical"] is None
+                 else ("yes" if r["token_identical"] else "NO"))
+        lines.append(
+            f"| {r['setting']} | {tps} | {r['ttft_p50_ms']} | "
+            f"{r['ttft_p99_ms']} | {fo} | {ident} |"
+        )
+    if pen:
+        lines += [
+            "",
+            f"**Failover TTFT penalty: {pen.get('median', '?')} ms** "
+            f"({pen.get('min', '?')}..{pen.get('max', '?')} across "
+            f"reps), {failover.get('failovers_per_run', {}).get('median', '?')} "
+            "failover(s) per kill run; goodput retained "
+            f"**{failover.get('goodput_retained_vs_clean_fleet', '?')}x** "
+            "vs the unfaulted fleet.",
+        ]
+    lines.append("")
+    atomic_write_text("\n".join(lines), out / "FLEET.md")
+    return rows

@@ -40,6 +40,14 @@ def gpu_name_and_power_limit() -> Optional[str]:
     return lines[0].strip() if lines else None
 
 
+def gpu_cards() -> tuple[int, Optional[int]]:
+    """``(visible GPUs, bytes of the first one's memory)``; ``(0, None)``
+    without CUDA."""
+    if not torch.cuda.is_available():
+        return 0, None
+    return torch.cuda.device_count(), torch.cuda.get_device_properties(0).total_memory
+
+
 def collect_system_info(device=None) -> dict[str, Any]:
     """Where a result was measured: host, torch and CUDA versions, the
     device, and, inside a process group, its backend (``nccl`` with its

@@ -4,7 +4,8 @@
 
     python3 scripts/torch_e2e_profile.py --out DIR [--batch 8] [--seq 512]
                                          [--reps 3] [--train | --decode [--int8]
-                                                     | --verify [--gamma G]]
+                                                     | --verify [--gamma G]
+                                                     | --verify-vs-step [--gamma G]]
 
 Builds the 1B decoder of ``dlbb_tpu_torch`` at full width (bf16,
 ``attention="full"``, random weights from seed 42), runs a few warm
@@ -36,6 +37,18 @@ With ``--verify`` it does the same for one greedy draft-and-verify unit
 (``serve/engine.py::build_verify_step``) on that cache: every slot's
 pending token and ``--gamma`` drafts (default 4) as one ``[32, γ+1, H]``
 pass, every slot active from length 1024 and advancing by its commits.
+
+With ``--verify-vs-step`` it profiles nothing: it asks whether one verify
+unit computes the per-step decode's bits.  From one carry (the 1B over that
+cache geometry, K/V rows drawn from seed 0 below lengths spread over
+128..1151, every slot's pending input a token's embedding), it runs γ+1
+per-step greedy token steps, then one verify over the same carry with the
+steps' own tokens as drafts, recording every layer norm and matrix product
+of both.  It prints, for position 0, the first layer and sub-op (ln1, the
+qkv product, the attention's logits and PV products, the out product, ln2,
+the two ffn products) whose output is not bit-equal to the step's, each
+sub-op's verdict on the first layers, and for every position i whether the
+verify's output row i is bit-equal to step i's output and gives its token.
 """
 
 from __future__ import annotations
@@ -196,6 +209,175 @@ def _verify_unit(torch, cfg, gamma):
     return step
 
 
+SUBOPS = ("ln1", "qkv", "logits", "pv", "out", "ln2", "ffn_up", "ffn_down")
+
+
+def _recorder(torch, eng, params):
+    """A context that records, in call order, every layer norm and matrix
+    product the serving programs run: ``(layer, sub-op) -> [outputs]``.
+    Projections are named by their weight, layer norms by their scale, and
+    the attention's two products by the shape of their second operand
+    (``[..., d, S]`` the logits, ``[..., S, d]`` PV), in the layer of the
+    qkv product before them.  A weight is known by its storage address
+    (the programs unbind the stacked leaves anew on every call)."""
+    from contextlib import contextmanager
+
+    from torch.overrides import TorchFunctionMode
+
+    from dlbb_tpu_torch.models.transformer import layer_list
+
+    names = {}
+    for i, layer in enumerate(layer_list(params["layers"])[0]):
+        for name in ("qkv", "out", "ffn_up", "ffn_down"):
+            names[layer[name]["kernel"].data_ptr()] = (i, name)
+        for name in ("ln1", "ln2"):
+            names[layer[name]["scale"].data_ptr()] = (i, name)
+    names[params["ln_f"]["scale"].data_ptr()] = (-1, "ln_f")
+    rec: dict = {}
+    current = [0]
+
+    def put(key, out):
+        rec.setdefault(key, []).append(out.detach().clone())
+
+    class Mode(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in (torch.matmul, torch.Tensor.__matmul__, torch.Tensor.matmul):
+                key = names.get(args[1].data_ptr())
+                if key is not None:
+                    current[0] = key[0]
+                    put(key, out)
+                else:
+                    put((current[0], "logits" if args[1].shape[-2] < args[1].shape[-1]
+                         else "pv"), out)
+            return out
+
+    layernorm = eng._layernorm
+
+    def recorded_layernorm(x, scale, bias):
+        out = layernorm(x, scale, bias)
+        key = names.get(scale.data_ptr())
+        if key is not None:
+            put(key, out)
+        return out
+
+    @contextmanager
+    def recording():
+        rec.clear()
+        eng._layernorm = recorded_layernorm
+        try:
+            with Mode():
+                yield rec
+        finally:
+            eng._layernorm = layernorm
+
+    return recording
+
+
+def _position(t, sub, b, g, i):
+    """Position ``i`` of a verify sub-op output that holds all ``g``
+    positions (``[B, g, ...]``, or ``[B, kvh, grp * g, ...]`` for the
+    attention's products), as the step's shape for one position."""
+    if sub in ("logits", "pv"):
+        bb, kvh, rows, last = t.shape
+        return t.reshape(bb, kvh, rows // g, g, last)[:, :, :, i]
+    return t[:, i:i + 1]
+
+
+def verify_vs_step(torch, cfg, params, carry, table, active, gamma):
+    """The comparison of ``--verify-vs-step`` (module docstring) on one
+    carry; returns its findings as a dict.  The carry is cloned for each
+    side."""
+    from dlbb_tpu_torch.serve import engine as eng
+
+    def clone(c):
+        cache, x = c
+        return cache._replace(k=cache.k.clone(), v=cache.v.clone(),
+                              lengths=cache.lengths.clone()), x.clone()
+
+    recording = _recorder(torch, eng, params)
+    b, g1 = carry[1].shape[0], gamma + 1
+    # position 0's keys: the verify's logits product also meets the rows the
+    # later positions appended, which the length mask then drops
+    s_max = carry[0].max_seq
+    valid0 = (torch.arange(s_max, device=carry[1].device)[None, :]
+              <= carry[0].lengths[:, None])[:, None, None, :]
+    decode = eng.build_decode_step(cfg)
+    step_carry, ys, toks = clone(carry), [], []
+    with recording() as rec:
+        for _ in range(g1):
+            (cache, y), _ = decode(step_carry, params, active)
+            tok = torch.argmax(y[:, 0], dim=-1).to(torch.int32)
+            step_carry = (cache, table.index_select(0, tok)[:, None, :].to(y.dtype))
+            ys.append(y)
+            toks.append(tok)
+        step_rec = {k: list(v) for k, v in rec.items()}
+    drafts = torch.stack(toks[:gamma], dim=1).contiguous()
+    verify = eng.build_verify_probs(cfg, gamma=gamma)
+    with recording() as rec:
+        _c, y_ver = verify(clone(carry), params, table, drafts, active)
+        ver_rec = {k: list(v) for k, v in rec.items()}
+
+    subops = []
+    first = None
+    for layer in range(cfg.num_layers):
+        for sub in SUBOPS:
+            want = step_rec[(layer, sub)][0]
+            got_all = ver_rec[(layer, sub)]
+            got = (got_all[0] if len(got_all) > 1
+                   else _position(got_all[0], sub, b, g1, 0))
+            if sub == "logits":
+                got, want = got * valid0, want * valid0
+            same = bool(torch.equal(got, want))
+            diff = float((got.float() - want.float()).abs().max())
+            subops.append({"layer": layer, "subop": sub, "bit_equal": same,
+                           "max_abs_diff": diff,
+                           "verify_shape": list(got_all[0].shape),
+                           "step_shape": list(want.shape)})
+            if not same and first is None:
+                first = {"layer": layer, "subop": sub, "max_abs_diff": diff}
+    rows = []
+    for i in range(g1):
+        want, got = ys[i][:, 0], y_ver[:, i]
+        rows.append({"position": i, "bit_equal": bool(torch.equal(got, want)),
+                     "rows_bit_equal": int(sum(torch.equal(got[s], want[s])
+                                               for s in range(b))),
+                     "tokens_equal": int((torch.argmax(got, dim=-1).to(torch.int32)
+                                          == toks[i]).sum()),
+                     "max_abs_diff": float((got.float() - want.float()).abs().max())})
+    return {"first_difference_at_position_0": first,
+            "subops_first_layers": [r for r in subops if r["layer"] < 2],
+            "subops_differing": sum(not r["bit_equal"] for r in subops),
+            "subops_compared": len(subops),
+            "positions": rows}
+
+
+def _verify_vs_step_1b(torch, cfg, gamma):
+    """``--verify-vs-step`` on the 1B (module docstring)."""
+    from dlbb_tpu_torch.data.synthetic import token_embedding_table
+    from dlbb_tpu_torch.models import init_params
+    from dlbb_tpu_torch.serve.kvcache import create_kv_cache
+
+    slots, max_seq, block = 32, 2048, 16
+    params = init_params(cfg, 42, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cache = create_kv_cache(cfg, slots, max_seq // block, block, device="cuda")
+    lengths = torch.randint(128, 1152, (slots,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    pos = torch.arange(max_seq, device="cuda")[None, :] < lengths[:, None]
+    for plane in (cache.k, cache.v):
+        rows = plane.view(cfg.num_layers, slots, max_seq, -1)
+        rows.normal_(generator=gen)
+        rows.mul_(pos[None, :, :, None])
+    cache.lengths.copy_(lengths)
+    table = token_embedding_table(cfg.hidden_size, torch.bfloat16, device="cuda")
+    tok = torch.randint(0, cfg.hidden_size, (slots,), generator=gen, device="cuda")
+    x = table.index_select(0, tok)[:, None, :]
+    active = torch.ones(slots, dtype=torch.bool, device="cuda")
+    with torch.inference_mode():
+        return verify_vs_step(torch, cfg, params, (cache, x), table, active, gamma)
+
+
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--out", required=True,
@@ -210,6 +392,8 @@ def main() -> int:
                       help="profile the serving engine's decode step instead")
     mode.add_argument("--verify", action="store_true",
                       help="profile one greedy verify unit of the serving engine instead")
+    mode.add_argument("--verify-vs-step", action="store_true", dest="verify_vs_step",
+                      help="compare one verify unit with the per-step decode, bit for bit")
     p.add_argument("--int8", action="store_true",
                    help="with --decode: the cache in the int8 layout")
     p.add_argument("--gamma", type=int, default=None,
@@ -217,8 +401,8 @@ def main() -> int:
     args = p.parse_args()
     if args.int8 and not args.decode:
         p.error("--int8 needs --decode")
-    if args.gamma is not None and not args.verify:
-        p.error("--gamma needs --verify")
+    if args.gamma is not None and not (args.verify or args.verify_vs_step):
+        p.error("--gamma needs --verify or --verify-vs-step")
     gamma = 4 if args.gamma is None else args.gamma
 
     import torch
@@ -234,6 +418,14 @@ def main() -> int:
     from dlbb_tpu_torch.utils.sysinfo import gpu_name_and_power_limit
 
     cfg = MODEL_CONFIGS["1B"].with_(attention="full")
+    if args.verify_vs_step:
+        result = {"gpu": gpu_name_and_power_limit(), "gamma": gamma,
+                  **_verify_vs_step_1b(torch, cfg, gamma)}
+        out = Path(args.out)
+        out.mkdir(parents=True, exist_ok=True)
+        save_json(result, out / f"verify_vs_step_1b_g{gamma}.json")
+        print(json.dumps(result))
+        return 0
     x = SyntheticEmbeddingDataset(args.batch, args.seq, cfg.hidden_size,
                                   seed=42, device="cuda").get_batch()
     if args.train:

@@ -1,6 +1,6 @@
 """The port stands alone: no file of ``dlbb_tpu_torch/``, not
-``chip_smoke.py`` or ``bench_torch.py``, and not ``scripts/torch_{e2e,comm,zero}_profile.py`` or
-``scripts/torch_gloo_p2p_probe.py`` imports
+``chip_smoke.py`` or ``bench_torch.py``, and not ``scripts/torch_{e2e,comm,zero}_profile.py``,
+``scripts/torch_gloo_p2p_probe.py`` or ``scripts/torch_bench_fleet.py`` imports
 ``jax`` or any module of ``dlbb_tpu`` (the JAX package runs nowhere on the card's
 machine).  Static AST check, one case per file, in the manner of
 ``tests/test_fleet.py``'s host-side pin."""
@@ -15,7 +15,8 @@ PORT_FILES = sorted(
     [p.relative_to(REPO).as_posix() for p in (REPO / "dlbb_tpu_torch").rglob("*.py")]
     + ["chip_smoke.py", "bench_torch.py", "scripts/torch_e2e_profile.py",
        "scripts/torch_comm_profile.py",
-       "scripts/torch_zero_profile.py", "scripts/torch_gloo_p2p_probe.py"]
+       "scripts/torch_zero_profile.py", "scripts/torch_gloo_p2p_probe.py",
+       "scripts/torch_bench_fleet.py"]
 )
 
 

@@ -343,8 +343,7 @@ def test_cli_reports_with_nothing_to_report_fails(tmp_path, capsys):
     assert "nothing to report" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("rel,item", [("BENCH_autotune.json", "item 14"),
-                                      ("serving/fleet_a.json", "item 12")])
+@pytest.mark.parametrize("rel,item", [("BENCH_autotune.json", "item 14")])
 def test_cli_reports_refuses_unported_inputs(tmp_path, rel, item):
     _write(tmp_path / "results" / rel, {})
     with pytest.raises(NotImplementedError, match=item):

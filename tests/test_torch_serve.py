@@ -25,8 +25,9 @@
 - every knob of parts 11b, 11c and 11d engaging
   (``tests/test_torch_serve_fastpath.py``, ``tests/test_torch_spec.py`` and
   ``tests/test_torch_serve_resilience.py`` hold them against JAX), and the
-  hooks of item 12 (part 12b) and of item 13 refused with a ``ValueError``
-  citing its ROADMAP item.
+  hook of item 13 refused with a ``ValueError`` citing its ROADMAP item
+  (``tests/test_torch_fleet.py`` holds item 12's fleet hooks, once refused,
+  against JAX).
 """
 
 import dataclasses
@@ -760,17 +761,13 @@ def test_11c_knob_engages(name, weights):
     assert report["cache"]["blocks_reserved"] == 0
 
 
-RUN_REFUSALS = ("feed", "control", "capture")
+RUN_REFUSALS = ("capture",)
 
 
 @pytest.mark.parametrize("what", RUN_REFUSALS)
 def test_unported_run_hooks_are_refused(smoke_engine, what):
     trace = generate_trace("poisson", 3, seed=1, prompt_range=(4, 8), output_range=(2, 4))
-    calls = {
-        "feed": lambda: smoke_engine.run_trace(trace, feed=object()),
-        "control": lambda: smoke_engine.run_trace(trace, control=object()),
-        "capture": lambda: smoke_engine.capture_device_traces("unused"),
-    }
+    calls = {"capture": lambda: smoke_engine.capture_device_traces("unused")}
     with pytest.raises(ValueError) as e:
         calls[what]()
     _names_a_roadmap_item(str(e.value))
@@ -953,8 +950,7 @@ def test_cli_serve_on_cpu_at_world_2(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--replicas", "2"], "item 12"), (["--xplane-trace", "d"], "item 13"),
-    (["--device-trace", "d"], "item 13")])
+    (["--xplane-trace", "d"], "item 13"), (["--device-trace", "d"], "item 13")])
 def test_cli_serve_refuses_unported_flags(tmp_path, argv, item):
     from dlbb_tpu_torch import cli
 

@@ -209,13 +209,14 @@ def test_serve_sites_registered_and_parse():
 # every device program of the port's engine: the core's, the fast path's
 # (11b), the verify's and the draft's (11c)
 DEVICE_FNS = {
-    "_serve_block", "_heads", "_cached_attention", "_layer_planes", "_write_prompt_blocks",
+    "_block_head", "_block_tail", "_serve_block", "_heads", "_kv32", "_attend",
+    "_cached_attention", "_layer_planes", "_write_prompt_blocks",
     "_write_kv_blocks", "build_prefill", "create_prefix", "_chunk_attention",
     "build_prefill_chunk", "build_prefix_attach", "build_compact_gather",
     "build_compact_scatter", "_append_rows", "_append_rows_int8", "_decode_step_math",
     "build_decode_step", "build_decode_fused", "_inject_token", "_inject_token_greedy",
     "build_decode_token_step", "build_decode_fused_token", "_gather_dp",
-    "_inject_token_sampled", "_verify_attention", "_verify_math", "build_verify_step",
+    "_inject_token_sampled", "_verify_math", "build_verify_step",
     "build_verify_probs", "build_spec_commit", "build_draft_scan",
 }
 

@@ -29,7 +29,7 @@ the CPU.
 - ``test_decode_fail_during_verify_retries_cleanly`` (part 11d: the verify
   unit's retry) against JAX's engine and the oracle, and the serving
   report's speculation columns byte-equal to JAX's writer (item 12, part
-  12a).  ``test_speculative_report_writer`` waits for part 12b (the
+  12a).  ``test_speculative_report_writer`` waits for part 12c (the
   ``BENCH_spec.json`` writers).
 """
 
@@ -196,6 +196,36 @@ def test_verify_step_matches_jax(case, gamma):
             remaining = remaining - first.numpy()
             drafts = np.zeros_like(drafts)
     assert pcarry[0].lengths.tolist() == (lengths0 + first + pcom).tolist()
+
+
+@pytest.mark.parametrize("gamma", [1, 4])
+def test_verify_rows_are_the_per_step_outputs_bit_for_bit(gamma):
+    """ROADMAP Queue 3 item 3's repair, pinned: with the drafts the
+    per-step tokens, row ``i`` of the verify's output is the ``i``-th
+    per-step decode output from the same carry, bit for bit (bf16, GQA, the
+    idle slot 0 included), because the verify runs each position through
+    the step's own calls in the step's own shapes.  On the card a batched
+    ``[B, γ+1, H]`` verify rounded otherwise and moved greedy argmaxes at
+    near-ties; this CPU build's products happen to agree at both shapes, so
+    here the test pins the shapes' contract rather than catching a
+    difference."""
+    both = _Both(PROGRAM_CASES["gqa_bf16"], seed=gamma)
+    _jcarry, pcarry = both.carries()
+    active = torch.tensor(ACTIVE)
+    decode = pt_engine.build_decode_step(both.pcfg)
+    carry, ys, toks = _clone(pcarry), [], []
+    for _ in range(gamma + 1):
+        (cache, y), _ = decode(carry, both.pparams, active)
+        tok = torch.argmax(y[:, 0], dim=-1).to(torch.int32)
+        carry = (cache, both.ptable.index_select(0, tok)[:, None, :].to(y.dtype))
+        ys.append(y[:, 0])
+        toks.append(tok)
+    drafts = torch.stack(toks[:gamma], dim=1).contiguous()
+    verify = pt_engine.build_verify_probs(both.pcfg, gamma=gamma)
+    _carry, y_ver = verify(_clone(pcarry), both.pparams, both.ptable, drafts, active)
+    assert y_ver.dtype == torch.bfloat16 and tuple(y_ver.shape) == (4, gamma + 1, H)
+    for i in range(gamma + 1):
+        assert torch.equal(y_ver[:, i], ys[i]), i
 
 
 def test_verify_writes_nothing_past_max_seq():

@@ -1,7 +1,8 @@
 """Rank bodies of ``tests/test_torch_serve.py``,
-``tests/test_torch_serve_fastpath.py``, ``tests/test_torch_spec.py`` and
-``tests/test_torch_serve_resilience.py``: the port's serving programs,
-engine and harness on a gloo group of host processes.  It imports torch and the port
+``tests/test_torch_serve_fastpath.py``, ``tests/test_torch_spec.py``,
+``tests/test_torch_serve_resilience.py`` and ``tests/test_torch_fleet.py``:
+the port's serving programs, engine, harness and fleet on a gloo group of
+host processes.  It imports torch and the port
 only, since ``bench.launch`` imports it by name in every spawned rank."""
 
 import tempfile
@@ -280,4 +281,54 @@ def run_faults(runs, serve_case, out_dir):
     out["serve"] = {k: first[k] for k in ("preempted", "remaining_rids", "requests",
                                           "resilience")}
     out["resume"] = {k: merged[k] for k in ("preempted", "requests", "resilience")}
+    return out
+
+
+def serve_oracle(config, trace, weights):
+    """``tests/test_torch_fleet.py``'s single-engine oracle on this rank: one
+    engine on the config's (dp, tp) mesh with JAX's ``weights``, its tokens
+    captured."""
+    par = config["parallelism"]
+    cfg = ModelConfig(**config["model"])
+    mesh = build_parallelism_mesh(par["data_parallel"], tensor_parallel=par["world_size"])
+    engine = ServingEngine(cfg, ServingConfig.from_dict(config["serving"]), mesh=mesh,
+                           params=_rank_params(weights, cfg, mesh), verbose=False,
+                           capture_tokens=True, device="cpu")
+    return engine.run_trace(trace)
+
+
+# every collective of torch.distributed that takes a group
+COLLECTIVES = ("broadcast", "all_reduce", "all_gather", "all_gather_into_tensor",
+               "reduce_scatter_tensor", "broadcast_object_list", "barrier", "gather",
+               "scatter", "all_gather_object", "reduce", "all_to_all_single", "send", "recv")
+
+
+def fleet_rank_watched(*args):
+    """``serve/fleet.py::fleet_rank`` with every collective it reaches
+    recorded: the rank's result gains ``collectives`` (how many ran) and
+    ``world_collectives`` (the names of those that ran on the world group,
+    or on no group, which is the world's)."""
+    import torch.distributed as dist
+
+    from dlbb_tpu_torch.serve.fleet import fleet_rank
+
+    seen = []
+
+    def watched(name, fn):
+        def call(*a, **k):
+            group = k.get("group")
+            seen.append((name, group is None or group is dist.group.WORLD))
+            return fn(*a, **k)
+        return call
+
+    originals = {name: getattr(dist, name) for name in COLLECTIVES}
+    for name, fn in originals.items():
+        setattr(dist, name, watched(name, fn))
+    try:
+        out = fleet_rank(*args)
+    finally:
+        for name, fn in originals.items():
+            setattr(dist, name, fn)
+    out["collectives"] = len(seen)
+    out["world_collectives"] = [name for name, world in seen if world]
     return out
