@@ -59,8 +59,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    width and 2 layers (a cut: 24 layers would write about 7 GB), equal bit
    for bit to the uninterrupted step.  (b) two processes on the one card
    over gloo with CUDA tensors (NCCL puts no two ranks on one GPU): one 1B
-   step at tp=2, stage 1, and at dp=2, stage 3, their loss and gradients
-   (reassembled over the shards) against the world-1 step's within the
+   step at full width and 6 of its 24 layers (``DTRAIN_GLOO_LAYERS``) at
+   tp=2, stage 1, and at dp=2, stage 3, their loss and gradients
+   (reassembled over the shards) against the world-1 step's at that depth
+   within the
    bounds argued at ``DTRAIN_*``; errors and wall time printed, not timed
    as a benchmark;
 9. ``seq``, the sequence-sharded layouts: (a) at world 1 over NCCL in the
@@ -90,13 +92,14 @@ Phases (each raises on failure, and the script then exits non-zero):
    step), finite losses; (c) ep=2 as two processes on the card over gloo:
    each dispatch's forward, and one step's loss and reduced gradients per
    leaf, against world 1 within ``moe_ep_bounds`` and ``loss_rel_bound``;
-11. ``pipe``, pipeline parallelism: the 1B train config at full width and
-   depth at pp=2, m=4, as two processes on the card over gloo (hops through
-   host memory; a stage runs dense attention, JAX's pin, so no flash
-   launch): the forward against world 1's, and one GPipe and one 1F1B step
-   (loss, reduced gradients, the Adam update) against world 1's and each
-   other, within the bounds argued at ``PIPE_*``; the bubble fraction,
-   times and peak memory per stage printed;
+11. ``pipe``, pipeline parallelism: the 1B train config at full width and 8
+   of its 24 layers (``PIPE_LAYERS``) at pp=2, m=4, as two processes on the
+   card over gloo (hops through host memory; a stage runs dense attention,
+   JAX's pin, so no flash launch): the forward against world 1's, and one
+   GPipe and one 1F1B step (loss, reduced gradients, the Adam update)
+   against world 1's and each other, within the bounds argued at
+   ``PIPE_*``; the bubble fraction, times and peak memory per stage
+   printed;
 12. ``compress``, the quantised-wire collectives and compressed gradient
    training (``comm/compression.py``): (a) the quantiser (int8, fp8) on the
    card at the 1B train config's parameter count against its run on the CPU
@@ -170,9 +173,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    "draft-model" and adaptive-γ fused "ngram" runs on (b)'s trace, each
    request at its full length, both ledgers clean, every request's tokens
    (b)'s greedy tokens (64 of 64) and "ngram" equal to itself on a second
-   run, (f)2
-   sampled "ngram"
-   runs (temperature 0.8) replayed by seed 3 and moved by seed 4, (f)3 each
+   run (on the short trace: (b)'s first 16 requests, outputs cut to 32
+   tokens), (f)2 sampled "ngram" runs (temperature 0.8) on the short
+   trace replayed by seed 3 and moved by seed 4, (f)3 each
    run's verify units, acceptance and tokens per unit, and the verify
    unit's median (from its ``serve-verify`` spans) against its bytes bound;
    (g) resilience and the entry point on (b)'s cache and trace, each part's
@@ -910,13 +913,15 @@ def phase_tp(torch, gpu_line):
 
 
 # phase dtrain (b): the 1B train step sharded over two processes against the
-# world-1 step on the same weights and global batch, both bf16 on the card.
+# world-1 step on the same weights and global batch, both bf16 on the card,
+# at the 1B's full width and DTRAIN_GLOO_LAYERS of its 24 layers (as phase
+# seq (b)), so that the whole script keeps its time.
 # - dp=2, stage 3: the same kernels on half the rows each, the gradients
 #   summed by a bf16 reduce-scatter (one more rounding, 2**-8) and GEMMs that
 #   may sum in another order at the other row count.  The kernel-vs-dense
 #   bounds of phase 4 (TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2) hold two paths
 #   that differ by far more (another attention arithmetic in all 24 layers),
-#   so they bound this one.
+#   so they bound this one at any depth up to 24.
 # - tp=2, stage 1: the forward differs from the world-1 forward by at most
 #   ``tp_bf16_bound`` (relative L2).  The loss moves by at most 2 ||dpred|| /
 #   ||pred - targets|| relative, and ||pred|| <= ||pred - targets|| for these
@@ -927,6 +932,7 @@ def phase_tp(torch, gpu_line):
 DTRAIN_GLOO_RUNS = ((2, 1, 1), (1, 2, 3))  # (tp, dp, ZeRO stage)
 DTRAIN_STAGES = (0, 1, 2, 3)
 DTRAIN_CKPT_LAYERS = 2
+DTRAIN_GLOO_LAYERS = 6
 
 
 def dtrain_bounds(layers, tp):
@@ -1154,6 +1160,10 @@ def phase_dtrain(torch, gpu_line, config=None, device="cuda"):
         raise AssertionError("the checkpoint round trip did not continue bit for bit")
 
     # (b) two processes on the one device over gloo, against the world-1 step
+    # at the same depth
+    config = copy.deepcopy(config)
+    config["model"]["num_layers"] = min(layers, DTRAIN_GLOO_LAYERS)
+    model_cfg = ModelConfig.from_dict(config["model"])
     opt = build_optimizer(config["training"])
     step, state = make_train_step(model_cfg, opt, init_params(
         model_cfg, config["input"]["seed"], device))
@@ -1184,10 +1194,11 @@ def phase_dtrain(torch, gpu_line, config=None, device="cuda"):
         losses = {r["loss"] for r in ranks}
         loss = ranks[0]["loss"]
         loss_rel = abs(loss - ref_loss) / abs(ref_loss)
-        loss_bound, grad_bound = dtrain_bounds(layers, tp)
+        loss_bound, grad_bound = dtrain_bounds(model_cfg.num_layers, tp)
         worst = max(rels, key=rels.get)
         label = f"tp={tp}, ZeRO-{stage}" if tp > 1 else f"dp={dp}, ZeRO-{stage}"
-        print(f"[dtrain] 1B step at {label}, two processes on one card over gloo (CUDA "
+        print(f"[dtrain] 1B step ({model_cfg.num_layers} of its {layers} layers) at {label}, "
+              f"two processes on one card over gloo (CUDA "
               f"tensors): loss {loss:.6f} vs world 1 {ref_loss:.6f} (relative "
               f"{loss_rel:.3e}, bound {loss_bound:.3e}); gradient relative L2 per leaf: "
               + ", ".join(f"{n} {v:.3e}" for n, v in rels.items())
@@ -1905,6 +1916,9 @@ PIPE_LOSS_REL = 1e-5
 PIPE_SURE_GRAD = 1e-6
 PIPE_STEP_SPREAD = 2.0**-6
 PIPE_SCHEDULES = ("gpipe", "1f1b")
+# the 1B at full width and a third of its depth (4 layers a stage), so that
+# the whole script keeps its time; the bounds above take the depth
+PIPE_LAYERS = 8
 
 
 def _pipe_config():
@@ -1912,6 +1926,7 @@ def _pipe_config():
 
     config = load_config(TRAIN_CONFIG)
     config["experiment"]["name"] = "chip_smoke_1b_pp2"
+    config["model"]["num_layers"] = PIPE_LAYERS
     config["parallelism"] = {"world_size": 1, "data_parallel": 1, "pipeline_parallel": 2,
                              "num_microbatches": PIPE_MICROBATCHES}
     return config
@@ -2061,7 +2076,8 @@ def phase_pipe(torch, gpu_line):
                              "values of the world-1 output's shape")
     fwd_rel = _rel_l2(y, ref_y)
     loss_bound = loss_rel_bound(y, ref_y, ref_loss)
-    print(f"[pipe] 1B forward at pp=2, m={m} (bubble fraction (pp-1)/(m+pp-1) = {bubble:.3f}), "
+    print(f"[pipe] 1B forward ({layers} layers, full width) at pp=2, m={m} (bubble fraction "
+          f"(pp-1)/(m+pp-1) = {bubble:.3f}), "
           f"two processes on one card over gloo (hops through host memory), attention full "
           f"(dense inside a stage) on {gpu_line}: relative L2 against world "
           f"1 {fwd_rel:.3e} (bound {fwd_bound:.3e}); "
@@ -2891,6 +2907,10 @@ SERVE_PREFIX_MIN_HITS = 28
 # cache, each slot holding one of these prompts (request seeds 100-103)
 SERVE_VERIFY_PROMPTS = (640, 300, 1000, 128)
 SERVE_SPEC_GAMMA = 4
+# the "ngram" verify unit at γ=4 when it ran every position in one batched
+# call, so that its rows were not the decode step's bits: phase serve (f)3
+# on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md §5)
+SERVE_VERIFY_BEFORE_MS = 52.973
 # (f)1, greedy speculation on (b)'s engine and trace
 SERVE_SPEC_GREEDY = (
     ("ngram", dict(speculation="ngram", spec_gamma=SERVE_SPEC_GAMMA)),
@@ -2902,6 +2922,11 @@ SERVE_SPEC_GREEDY = (
 # (f)2, sampled speculation: "ngram" with these knobs under each seed
 SERVE_SPEC_SAMPLED = dict(speculation="ngram", spec_gamma=SERVE_SPEC_GAMMA, temperature=0.8)
 SERVE_SPEC_SEEDS = (3, 3, 4)
+# (f)1's second "ngram" run and (f)2's runs serve the short trace: (b)'s
+# first 16 requests, each output cut to at most 32 tokens (a greedy run's
+# tokens are then the first ones of (b)'s).  On (b)'s whole trace a sampled
+# run took about 28 s at a 125 ms verify unit (202 units).
+SERVE_SPEC_SHORT = (16, 32)
 # phase serve (g): the fault plans, on (b)'s greedy engine and trace.  The
 # hang outlasts the watchdog's deadline (50 x the step EMA, about 2.3 s at
 # 46 ms a step) by more than twice, so the abandoned thread wakes after the
@@ -2957,7 +2982,7 @@ def phase_serve(torch, fa, gpu_line):
     print(f"[serve] span trace of {len(events)} events: valid; B spans {counts}, "
           f"{fused} of the serve-decode ones fused scans")
     verify_units = sum(r["speculation"]["verify_units"] for r in runs)
-    want = {"serve-prefill": SERVE_REQUESTS * len(runs),
+    want = {"serve-prefill": sum(len(r["completed_tokens"]) for r in runs),
             "serve-decode": sum(r["decode_units"] for r in runs) - verify_units,
             "serve-verify": verify_units,
             "serve-prefill-chunk": sum(r["fast_path"]["prefill_chunks"] for r in runs),
@@ -3016,10 +3041,14 @@ def _serve_spec_numbers(spec, events, gpu_line):
               f"({tally.committed / max(s['verify_units'], 1):.2f} tokens per verify unit); "
               f"verify unit median {median:.3f} ms over {len(ms)} spans against its bytes bound "
               f"{bound:.3f} ms ({run['bound_bytes']} bytes at {PEAK_BYTES_PER_S / 1e12:.2f} "
-              f"TB/s, gamma {run['gamma']}): {median / bound:.2f}x; TTFT median "
+              f"TB/s, gamma {run['gamma']}): {median / bound:.2f}x"
+              + (f" (the batched verify, whose rows were not the step's: "
+                 f"{SERVE_VERIFY_BEFORE_MS} ms)" if label == "ngram" else "")
+              + f"; TTFT median "
               f"{report['ttft']['median'] * 1e3:.1f} ms; goodput "
-              f"{report['goodput_tokens_per_s']:.1f} tokens/s, {run['goodput_ratio']:.3f}x "
-              f"(b)'s greedy run's")
+              f"{report['goodput_tokens_per_s']:.1f} tokens/s, "
+              + (f"{run['goodput_ratio']:.3f}x (b)'s greedy run's"
+                 if run["goodput_ratio"] is not None else "on the short trace"))
         if len(ms) != s["verify_units"]:
             raise AssertionError(f"run {label}: {len(ms)} serve-verify spans for "
                                  f"{s['verify_units']} verify units")
@@ -3261,7 +3290,7 @@ def _serve_run(torch, engine, trace, label, gpu_line):
           f"{report['wall_seconds']:.2f} s (warm-up {report['compile_time_s']:.2f} s, call "
           f"{wall:.2f} s); peak memory {peak} bytes ({peak / 2**30:.2f} GiB); blocks reserved "
           f"at the end {report['cache']['blocks_reserved']}")
-    if req["completed"] != SERVE_REQUESTS or req["rejected"] != 0 \
+    if req["completed"] != len(trace) or req["rejected"] != 0 \
             or report["cache"]["blocks_reserved"] != 0:
         raise AssertionError(f"run {label} did not serve every request")
     return report
@@ -3523,24 +3552,38 @@ def _serve_spec_runs(torch, gpu_line, cfg, engine, trace, greedy, base_bytes):
     ("ngram", "draft-model", and "ngram" with adaptive γ on the fused fast
     path), every request served at its full length with both ledgers
     clean, every request's tokens (b)'s greedy run's and "ngram" equal to
-    itself on a second run; then
-    sampled speculation, replayed by its seed and moved by another.  Each
-    run inside a ``smoke-run`` span; returns the runs for (f)3."""
+    itself on a second run, on the short trace (``SERVE_SPEC_SHORT``);
+    then sampled speculation on the short trace, replayed by its seed and
+    moved by another.  Each run inside a ``smoke-run`` span; returns the
+    runs for (f)3."""
+    import dataclasses
+    import warnings
+
     from dlbb_tpu_torch.models import num_parameters
     from dlbb_tpu_torch.models.configs import kv_cache_bytes
     from dlbb_tpu_torch.obs import spans
 
-    lengths = {str(r.rid): r.output_len for r in trace}
+    n_short, out_short = SERVE_SPEC_SHORT
+    short = dataclasses.replace(trace, requests=tuple(
+        dataclasses.replace(r, output_len=min(r.output_len, out_short))
+        for r in trace.requests[:n_short]))
     # the rows a verify unit writes: K and V of every slot's γ+1 positions
     row_bytes = 2 * cfg.num_layers * SERVE_ENGINE["max_batch"] * cfg.kv_heads * cfg.head_dim * 2
     runs = []
 
-    def run(label, knobs):
-        eng = engine(knobs.pop("speculation"), **knobs)
+    def run(label, knobs, on=trace):
+        lengths = {str(r.rid): r.output_len for r in on}
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            eng = engine(knobs.pop("speculation"), **knobs)
+        if not any(w.category is RuntimeWarning and "slower than greedy" in str(w.message)
+                   for w in caught):
+            raise AssertionError(f"the {label} engine on the card did not warn that "
+                                 "speculation is slower than greedy decoding there")
         tally = _SpecTally()
         eng.journal = tally
         with spans.span("smoke-run", run=label):
-            report = _serve_run(torch, eng, trace, f"(f) {label} ({knobs})", gpu_line)
+            report = _serve_run(torch, eng, on, f"(f) {label} ({knobs})", gpu_line)
         draft = eng.draft_cache_stats
         full = all(len(t) == lengths[rid] for rid, t in report["completed_tokens"].items())
         print(f"[serve] (f) {label}: every request at its full output length {full}; the "
@@ -3556,8 +3599,9 @@ def _serve_spec_runs(torch, gpu_line, cfg, engine, trace, greedy, base_bytes):
                 dcfg, SERVE_ENGINE["max_batch"], SERVE_ENGINE["max_seq"]))
         runs.append({"label": label, "report": report, "tally": tally, "gamma": gamma,
                      "bound_bytes": bound,
-                     "goodput_ratio": report["goodput_tokens_per_s"]
-                     / greedy["goodput_tokens_per_s"]})
+                     "goodput_ratio": (report["goodput_tokens_per_s"]
+                                       / greedy["goodput_tokens_per_s"] if on is trace
+                                       else None)})
         return report
 
     # (f)1
@@ -3579,16 +3623,18 @@ def _serve_spec_runs(torch, gpu_line, cfg, engine, trace, greedy, base_bytes):
                 for rid in greedy["completed_tokens"])
     print(f"[serve] (f)1 the {len(greedy_spec)} greedy speculative runs give one another's "
           f"tokens for {agree} of {SERVE_REQUESTS} requests (printed, not gated)")
-    again = run("ngram again", dict(SERVE_SPEC_GREEDY[0][1]))
-    same = sum(again["completed_tokens"][rid] == t
-               for rid, t in first_ngram["completed_tokens"].items())
-    print(f"[serve] (f)1 \"ngram\" run twice: {same} of {SERVE_REQUESTS} requests equal")
-    if same != SERVE_REQUESTS:
-        raise AssertionError("two greedy \"ngram\" runs of one trace gave different tokens")
+    again = run("ngram again", dict(SERVE_SPEC_GREEDY[0][1]), short)
+    same = sum(t == first_ngram["completed_tokens"][rid][:len(t)]
+               for rid, t in again["completed_tokens"].items())
+    print(f"[serve] (f)1 \"ngram\" run again on the short trace ((b)'s first {n_short} "
+          f"requests, outputs cut to {out_short} tokens): {same} of {n_short} requests give "
+          f"the first run's first tokens")
+    if same != n_short:
+        raise AssertionError("a second greedy \"ngram\" run gave other tokens")
 
     # (f)2
     sampled = [run(f"sampled seed {seed} #{i + 1}",
-                   dict(SERVE_SPEC_SAMPLED, sample_seed=seed))
+                   dict(SERVE_SPEC_SAMPLED, sample_seed=seed), short)
                for i, seed in enumerate(SERVE_SPEC_SEEDS)]
     replay = sampled[0]["completed_tokens"] == sampled[1]["completed_tokens"]
     moved = sum(sampled[0]["completed_tokens"][rid] != t
@@ -3596,19 +3642,20 @@ def _serve_spec_runs(torch, gpu_line, cfg, engine, trace, greedy, base_bytes):
     s = sampled[0]["speculation"]
     print(f"[serve] (f)2 sampled (temperature {s['temperature']}): seed "
           f"{SERVE_SPEC_SEEDS[0]} replayed token for token {replay}; seed {SERVE_SPEC_SEEDS[2]} "
-          f"moved {moved} of {SERVE_REQUESTS} requests; sampled {s['sampled']}, "
+          f"moved {moved} of {n_short} requests of the short trace; sampled {s['sampled']}, "
           f"{s['verify_units']} verify units")
     if not (replay and moved > 0 and s["sampled"] and s["verify_units"] > 0):
         raise AssertionError("the sampled runs did not replay by seed, or did not sample")
     return runs
 
 
-# phase fleet: the fleet config's trace, one seeded Poisson stream of
-# requests arriving over about two seconds, and the kill of (c), at the
-# fleet's 100th loop boundary (both replicas counted): about halfway
-# through their first wave of slots, so residents fail over
+# phase fleet: the fleet config's trace, one seeded Poisson stream of 32
+# requests arriving over about 1.3 s (each replica's 16 slots hold its
+# share), and the kill of (c), at the fleet's 100th loop boundary (both
+# replicas counted): about halfway through the replicas' decoding, so
+# residents fail over.
 FLEET_CONFIG = "dlbb_tpu_torch/configs/serve_1b_fleet.yaml"
-FLEET_TRACE = dict(kind="poisson", n=48, seed=7, rate=24.0, prompt_range=(128, 512),
+FLEET_TRACE = dict(kind="poisson", n=32, seed=7, rate=24.0, prompt_range=(128, 512),
                    output_range=(32, 96))
 FLEET_KILL = "serve-replica-kill:@100"
 FLEET_ARTIFACTS = ("fleet_serve_1b_fleet.json", "metrics.prom", "serving_manifest.json",
@@ -3652,6 +3699,20 @@ def phase_fleet(torch, gpu_line):
     gib = 2 ** 30
     ms = 1e3
 
+    def engine_time(label, rep):
+        """One engine's decode-step median and the share of its run's wall
+        its decode steps and prefills took, each time from dispatch to the
+        device's completion: with two replicas on the card, a step median
+        near the oracle's and a low share put the lost goodput on the host,
+        a step median about twice the oracle's on the shared card."""
+        d, p = rep["decode_step_time"], rep["prefill_time"]
+        busy = sum(x["mean"] * x["count"] for x in (d, p) if x["count"])
+        print(f"[fleet] {label}: decode step median {d['median'] * ms:.3f} ms, p99 "
+              f"{d['p99'] * ms:.3f} ms over {d['count']} units; prefill median "
+              f"{p['median'] * ms:.3f} ms over {p['count']}; steps and prefills "
+              f"{busy:.2f} s of its {rep['wall_seconds']:.2f} s wall "
+              f"({busy / rep['wall_seconds']:.3f})")
+
     def numbers(label, rep, peak, t0):
         ttft = rep["ttft"]
         print(f"[fleet] {label} on {gpu_line}: {rep['requests']['completed']} of {len(trace)} "
@@ -3670,6 +3731,7 @@ def phase_fleet(torch, gpu_line):
                            capture_tokens=True, device="cuda")
     oracle = engine.run_trace(trace)
     numbers("(a) single-engine oracle", oracle, torch.cuda.max_memory_allocated(), t0)
+    engine_time("(a) single-engine oracle", oracle)
     del engine
     torch.cuda.empty_cache()
     if oracle["requests"]["completed"] != len(trace):
@@ -3686,6 +3748,11 @@ def phase_fleet(torch, gpu_line):
         rep = ranks[0]["report"]
         peak = sum(r["peak_bytes"] for r in ranks)
         numbers(label, rep, peak, t0)
+        for r in rep["replicas"]:
+            if r["report"] is not None:
+                where = "a thread of the supervisor's process" if r["replica"] == 0 \
+                    else "a process of its own"
+                engine_time(f"{label} replica {r['replica']} ({where})", r["report"])
         for r in ranks:
             for k, v in r["flash_launches"].items():
                 launches[k] = launches.get(k, 0) + v

@@ -655,6 +655,6 @@ def run_serve_from_config(
         from dlbb_tpu_torch.serve.fleet import run_fleet
 
         return run_fleet(config, resolved, output_dir=out, verbose=verbose,
-                         fault_plan=fault_plan, device=device, world=n)
+                         fault_plan=fault_plan, device=device)
     return _launched(serve_worker, n, device,
                      (config, resolved, out, verbose, fault_plan, device, span_trace))

@@ -135,6 +135,7 @@ import queue
 import signal
 import threading
 import time
+import warnings
 from collections import deque
 from dataclasses import dataclass, field, replace as dc_replace
 from typing import Any, Optional
@@ -1613,6 +1614,14 @@ class ServingEngine:
         self.serving = serving
         self.mesh = mesh
         self.device = resolve_device(device)
+        if serving.spec_drafting and self.device.type == "cuda":
+            warnings.warn(
+                f"speculation={serving.speculation!r} is slower than greedy decoding on the "
+                "card: the verify runs each of its gamma+1 positions in the decode step's own "
+                "calls (its rows are the step's bits), and each position reads the layer's "
+                "fp32 K/V copy again, until a decode-attention kernel reads the cache once "
+                "for all of them (ROADMAP.md, Queue 2's measured gaps)", RuntimeWarning,
+                stacklevel=2)
         self.verbose = verbose
         # the equivalence gate: argmax "token ids" of every generated
         # output recorded per request (syncs each unit — leave off for

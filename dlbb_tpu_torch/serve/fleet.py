@@ -144,217 +144,75 @@ _HORIZON = _FeedHorizon()
 
 
 class RequestFeed:
-    """Thread-safe arrival feed a fleet supervisor pushes into and one
-    engine drains (``run_trace(..., feed=)``).
+    """The arrival feed one replica's engine drains (``run_trace(...,
+    feed=)``), filled by its :class:`ReplicaControl` from what the
+    supervisor posted.  Only the replica's engine thread touches it: the
+    control applies the posted pushes at the loop boundary, the engine pops.
 
     Mimics the deque the engine otherwise builds from the static trace:
     truthiness means "more work may come" (items present OR still open),
     ``[0]`` peeks the next arrival (a far-future sentinel while
     empty-but-open, so the engine idles instead of exiting), and
-    ``popleft``/``discard`` mutate from the engine side only.  The
-    supervisor closes the feed once every request is fleet-terminal: only
-    then does the engine's main loop condition go false."""
+    ``popleft``/``discard`` drain it.  The supervisor closes the feed once
+    every request is fleet-terminal: only then does the engine's main loop
+    condition go false."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
         self._items: deque[Request] = deque()
         self._closed = False
 
     def push(self, req: Request) -> None:
-        with self._lock:
-            if self._closed:
-                raise RuntimeError("push into a closed feed")
-            self._items.append(req)
+        if self._closed:
+            raise RuntimeError("push into a closed feed")
+        self._items.append(req)
 
     def push_front(self, req: Request) -> None:
         """Failover re-admission: the moved request jumps the line (it
         already waited its queue time on the dead replica)."""
-        with self._lock:
-            if self._closed:
-                raise RuntimeError("push into a closed feed")
-            self._items.appendleft(req)
+        if self._closed:
+            raise RuntimeError("push into a closed feed")
+        self._items.appendleft(req)
 
     def popleft(self) -> Request:
-        with self._lock:
-            return self._items.popleft()
+        return self._items.popleft()
 
     def discard(self, rid: int) -> bool:
         """Drop a not-yet-admitted request (hedge-loser cancel)."""
-        with self._lock:
-            for i, req in enumerate(self._items):
-                if req.rid == rid:
-                    del self._items[i]
-                    return True
+        for i, req in enumerate(self._items):
+            if req.rid == rid:
+                del self._items[i]
+                return True
         return False
 
     def close(self) -> None:
-        with self._lock:
-            self._closed = True
+        self._closed = True
 
     @property
     def closed(self) -> bool:
         return self._closed
 
     def __bool__(self) -> bool:
-        with self._lock:
-            return bool(self._items) or not self._closed
+        return bool(self._items) or not self._closed
 
     def __len__(self) -> int:
-        with self._lock:
-            return len(self._items)
+        return len(self._items)
 
     def __iter__(self):
-        with self._lock:
-            return iter(list(self._items))
+        return iter(list(self._items))
 
     def __getitem__(self, idx: int) -> Any:
         if idx != 0:
             raise IndexError("feeds only expose the head")
-        with self._lock:
-            if self._items:
-                return self._items[0]
-            if not self._closed:
-                return _HORIZON
-            raise IndexError("feed drained and closed")
-
-
-class _StartGate:
-    """Fleet-shared clock origin.  Every replica compiles, then parks in
-    :meth:`arrive`; the supervisor releases the gate once all live
-    replicas arrived (or gave up on the dead ones) and the SAME ``t0``
-    becomes every engine's clock origin: arrival offsets and
-    ``deadline_s`` accounting agree across the fleet, un-skewed by
-    per-replica compile time."""
-
-    def __init__(self, timeout_s: float) -> None:
-        self._event = threading.Event()
-        self._lock = threading.Lock()
-        self._timeout_s = timeout_s
-        self.arrived: set[int] = set()
-        self.t0: Optional[float] = None
-
-    def arrive(self, replica: int) -> float:
-        with self._lock:
-            self.arrived.add(replica)
-        self._event.wait(self._timeout_s)
-        with self._lock:
-            if self.t0 is None:
-                # gate timed out (supervisor gone?): fail open with a local
-                # origin rather than hanging the replica forever
-                self.t0 = time.perf_counter()
-            return self.t0
-
-    def release(self) -> float:
-        with self._lock:
-            if self.t0 is None:
-                self.t0 = time.perf_counter()
-        self._event.set()
-        return self.t0
-
-
-class ReplicaControl:
-    """Per-replica control plane the engine consults strictly at its
-    scheduler-loop boundary (``run_trace(..., control=)``): heartbeat out,
-    kill/cancel/degradation in.  Everything here is host-side; the fault
-    sites fire in :meth:`check`, never inside a device program."""
-
-    def __init__(self, replica: int, gate: Optional[_StartGate]) -> None:
-        self.replica = replica
-        self._gate = gate
-        self._lock = threading.Lock()
-        self._cancels: deque[tuple[int, str]] = deque()
-        self._kill_reason: Optional[str] = None
-        # degradation knobs the engine reads per loop iteration
-        self.spec_enabled = True
-        self.horizon_cap: Optional[int] = None
-        # lifecycle sink the supervisor installs (engine._event feeds it)
-        self.on_event: Optional[Callable[[int, str, dict], None]] = None
-        # heartbeat state (supervisor-read)
-        self.started = False
-        self.last_beat = time.monotonic()
-        self.beat_ema: Optional[float] = None
-        self.beats = 0
-
-    # -- engine side -------------------------------------------------------
-
-    def sync_start(self) -> float:
-        return self._gate.arrive(self.replica)
-
-    def beat(self) -> None:
-        now = time.monotonic()
-        if self.started:
-            dt = now - self.last_beat
-            self.beat_ema = (dt if self.beat_ema is None
-                             else 0.9 * self.beat_ema + 0.1 * dt)
-        self.last_beat = now
-        self.started = True
-        self.beats += 1
-
-    def check(self) -> None:
-        """Loop-boundary fault + kill-flag check.  The hang site sleeps
-        (the heartbeat watchdog must fence us meanwhile); the kill site, or
-        a fence that already set the flag, raises, so a fenced replica can
-        never dispatch again, even one waking from a hang after its
-        residents were failed over."""
-        if inject.fire("serve-replica-hang"):
-            time.sleep(inject.param("hang_seconds"))
-        if self._kill_reason is None and inject.fire("serve-replica-kill"):
-            with self._lock:
-                if self._kill_reason is None:
-                    self._kill_reason = "serve-replica-kill"
-        if self._kill_reason is not None:
-            raise ReplicaKilled(
-                f"replica {self.replica} killed ({self._kill_reason})"
-            )
-
-    def take_cancels(self) -> list[tuple[int, str]]:
-        with self._lock:
-            if not self._cancels:
-                return []
-            out = list(self._cancels)
-            self._cancels.clear()
-            return out
-
-    # -- supervisor side ---------------------------------------------------
-
-    def request_kill(self, reason: str) -> None:
-        with self._lock:
-            if self._kill_reason is None:
-                self._kill_reason = reason
-
-    @property
-    def kill_reason(self) -> Optional[str]:
-        return self._kill_reason
-
-    def cancel(self, rid: int, reason: str) -> None:
-        with self._lock:
-            self._cancels.append((rid, reason))
-
-
-class _ReplicaJournal:
-    """A replica's view of the ONE shared fleet journal: every line gains
-    ``replica=N`` (the per-replica track key of
-    ``obs/spans.journal_to_trace``) and writes serialise through a shared
-    lock (``SweepJournal`` is single-writer by design)."""
-
-    def __init__(self, journal: Any, replica: int,
-                 lock: threading.Lock) -> None:
-        self._journal = journal
-        self._lock = lock
-        self.replica = replica
-
-    def event(self, event: str, config: Optional[str] = None,
-              **extra: Any) -> None:
-        if self._journal is None:
-            return
-        extra.setdefault("replica", self.replica)
-        with self._lock:
-            self._journal.event(event, config=config, **extra)
+        if self._items:
+            return self._items[0]
+        if not self._closed:
+            return _HORIZON
+        raise IndexError("feed drained and closed")
 
 
 # ---------------------------------------------------------------------------
-# the cross-process control plane (the port's own: JAX's replicas share one
-# process)
+# the control plane: a mailbox between the supervisor and each replica's
+# leader (the port's own: JAX's replicas share one process)
 # ---------------------------------------------------------------------------
 
 
@@ -423,67 +281,49 @@ def _fire_fleet(box: _Mailbox, site: str) -> bool:
     return plan.fire_nth(site, box.count(f"fleet/hits/{site}"))
 
 
-class _SupervisorFeed(RequestFeed):
-    """The supervisor's copy of a remote replica's feed: each push and the
-    close also go into ``outbox``, which the supervisor posts to the
-    replica once per tick."""
+class ReplicaControl:
+    """A replica's control plane, on each of its ranks (``run_trace(...,
+    control=)``), with the feed its engine drains (``feed``).  The engine
+    consults it strictly at its scheduler-loop boundary: heartbeat out,
+    kill/cancel/degradation in.  At each boundary (:meth:`beat`) the
+    replica's leader (its rank 0) fires the replica sites (counted
+    fleet-wide), posts its heartbeat and reads its mailbox; the batch it
+    read and its kill verdict are broadcast over the replica's group, and
+    every rank applies them, so every rank admits, cancels and dies at the
+    same boundary.  A fenced replica, even one waking from a hang after
+    its residents were failed over, raises :class:`ReplicaKilled` at its
+    next :meth:`check` and never dispatches again.  Everything here is
+    host-side; the fault sites fire in :meth:`beat`, never inside a device
+    program.  ``boundaries`` counts the boundaries this rank passed."""
 
-    def __init__(self, outbox: list) -> None:
-        super().__init__()
-        self._outbox = outbox
-
-    def push(self, req: Request) -> None:
-        super().push(req)
-        self._outbox.append(("push", req))
-
-    def push_front(self, req: Request) -> None:
-        super().push_front(req)
-        self._outbox.append(("push_front", req))
-
-    def close(self) -> None:
-        super().close()
-        self._outbox.append(("close",))
-
-
-class _SupervisorControl(ReplicaControl):
-    """The supervisor's side of a remote replica's control: the kill flag
-    and the cancels go into ``outbox`` (the degradation knobs are read
-    from it at each tick's post)."""
-
-    def __init__(self, replica: int, gate: _StartGate, outbox: list) -> None:
-        super().__init__(replica, gate)
-        self._outbox = outbox
-
-    def request_kill(self, reason: str) -> None:
-        if self._kill_reason is None:
-            self._outbox.append(("kill", reason))
-        super().request_kill(reason)
-
-    def cancel(self, rid: int, reason: str) -> None:
-        self._outbox.append(("cancel", rid, reason))
-
-
-class _RemoteControl(ReplicaControl):
-    """A replica's control plane in its own process(es), and its feed
-    (``feed``).  At each loop boundary (:meth:`beat`) the replica's leader
-    fires the replica sites (counted fleet-wide), reads its mailbox and
-    posts its heartbeat; the batch it read and its kill verdict are
-    broadcast over the replica's group, and every rank applies them, so
-    every rank admits, cancels and dies at the same boundary.
-    ``boundaries`` counts the boundaries this rank passed."""
-
-    def __init__(self, replica: int, box: _Mailbox, mesh: Any,
-                 start_timeout_s: float) -> None:
-        super().__init__(replica, None)
+    def __init__(self, replica: int, box: _Mailbox, mesh: Any = None,
+                 start_timeout_s: float = 120.0) -> None:
+        self.replica = replica
         self._box = box
         self._mesh = mesh
         self._start_timeout_s = start_timeout_s
         self.leader = mesh is None or mesh.rank == 0
         self.feed = RequestFeed()
+        self._cancels: list[tuple[int, str]] = []
+        self._kill_reason: Optional[str] = None
+        # degradation knobs the engine reads per loop iteration
+        self.spec_enabled = True
+        self.horizon_cap: Optional[int] = None
+        # lifecycle sink (engine._event feeds it; the leader posts it)
+        self.on_event: Optional[Callable[[int, str, dict], None]] = None
+        # heartbeat state (the leader's, posted to the supervisor)
+        self.started = False
+        self.last_beat = time.monotonic()
+        self.beat_ema: Optional[float] = None
+        self.beats = 0
         self.boundaries = 0
         self._posted = -1.0e9
 
     def sync_start(self) -> float:
+        """The fleet's shared clock origin: the supervisor sets it once
+        every replica has compiled and arrived, so arrival offsets and
+        ``deadline_s`` accounting agree across the fleet, un-skewed by
+        per-replica compile time."""
         if self.leader:
             self._box.post(_outbox(self.replica), ("arrive",))
         t0 = self._box.wait_float(_T0_KEY, self._start_timeout_s)
@@ -494,16 +334,22 @@ class _RemoteControl(ReplicaControl):
         self.boundaries += 1
         payload: list = [[], None]
         if self.leader:
-            super().beat()
+            now = time.monotonic()
+            if self.started:
+                dt = now - self.last_beat
+                self.beat_ema = dt if self.beat_ema is None else 0.9 * self.beat_ema + 0.1 * dt
+            self.last_beat = now
+            self.started = True
+            self.beats += 1
+            # the hang site sleeps (the heartbeat watchdog must fence us
+            # meanwhile); the kill site sets the flag check() raises on
             if _fire_fleet(self._box, "serve-replica-hang"):
                 time.sleep(inject.param("hang_seconds"))
             if self._kill_reason is None and _fire_fleet(self._box, "serve-replica-kill"):
                 self._kill_reason = "serve-replica-kill"
-            now = time.monotonic()
             if now - self._posted >= _BEAT_POST_S:
                 self._posted = now
-                self._box.post(_outbox(self.replica),
-                               ("beat", self.last_beat, self.beat_ema, self.beats))
+                self.post(("beat", self.last_beat, self.beat_ema, self.beats))
             payload = [self._box.take(_inbox(self.replica)), self._kill_reason]
         if self._mesh is not None and self._mesh.spec.num_ranks > 1:
             dist.broadcast_object_list(payload, src=self._mesh.global_rank(0),
@@ -534,6 +380,14 @@ class _RemoteControl(ReplicaControl):
         if self._kill_reason is not None:
             raise ReplicaKilled(f"replica {self.replica} killed ({self._kill_reason})")
 
+    def take_cancels(self) -> list[tuple[int, str]]:
+        out, self._cancels = self._cancels, []
+        return out
+
+    @property
+    def kill_reason(self) -> Optional[str]:
+        return self._kill_reason
+
     def post(self, msg: tuple) -> None:
         """A message to the supervisor (the leader's only)."""
         self._box.post(_outbox(self.replica), msg)
@@ -542,15 +396,73 @@ class _RemoteControl(ReplicaControl):
         self.post(("event", rid, event, extra))
 
 
-class _RemoteJournal:
-    """A remote replica's journal: each line goes to the supervisor, which
-    writes it into the one fleet journal with ``replica=N``."""
+class _ReplicaJournal:
+    """A replica's view of the ONE shared fleet journal: each line goes to
+    the supervisor, which writes it with ``replica=N`` (the per-replica
+    track key of ``obs/spans.journal_to_trace``)."""
 
-    def __init__(self, control: _RemoteControl) -> None:
+    def __init__(self, control: ReplicaControl) -> None:
         self._control = control
 
     def event(self, event: str, config: Optional[str] = None, **extra: Any) -> None:
         self._control.post(("journal", event, config, extra))
+
+
+class _SupervisorFeed:
+    """The supervisor's end of a replica's feed: each push and the close
+    is posted to the replica's mailbox at once."""
+
+    def __init__(self, box: _Mailbox, replica: int) -> None:
+        self._box = box
+        self._channel = _inbox(replica)
+        self.closed = False
+
+    def _send(self, msg: tuple) -> None:
+        if self.closed:
+            raise RuntimeError("push into a closed feed")
+        self._box.post(self._channel, msg)
+
+    def push(self, req: Request) -> None:
+        self._send(("push", req))
+
+    def push_front(self, req: Request) -> None:
+        self._send(("push_front", req))
+
+    def close(self) -> None:
+        self._send(("close",))
+        self.closed = True
+
+
+class _SupervisorControl:
+    """The supervisor's end of a replica's control: the replica's heartbeat
+    as its leader last posted it, and the kill flag, the cancels and the
+    degradation knobs, each posted to the replica's mailbox at once."""
+
+    def __init__(self, box: _Mailbox, replica: int) -> None:
+        self._box = box
+        self._channel = _inbox(replica)
+        self.replica = replica
+        self.kill_reason: Optional[str] = None
+        self.spec_enabled = True
+        self.horizon_cap: Optional[int] = None
+        self.started = False
+        self.last_beat = time.monotonic()
+        self.beat_ema: Optional[float] = None
+        self.beats = 0
+
+    def request_kill(self, reason: str) -> None:
+        if self.kill_reason is None:
+            self.kill_reason = reason
+            self._box.post(self._channel, ("kill", reason))
+
+    def cancel(self, rid: int, reason: str) -> None:
+        self._box.post(self._channel, ("cancel", rid, reason))
+
+    def set_knobs(self, **knobs: Any) -> None:
+        """Set ``spec_enabled`` and/or ``horizon_cap`` and post both."""
+        for name, value in knobs.items():
+            setattr(self, name, value)
+        self._box.post(self._channel, ("knobs", self.spec_enabled, self.horizon_cap))
 
 
 class FleetConfig:
@@ -660,7 +572,10 @@ def validate_fleet(config: dict[str, Any], model_cfg: ModelConfig,
     1. the fleet knobs themselves are sane;
     2. the device count (ranks, in the port) partitions into ``replicas``
        equal failure domains;
-    3. the per-replica (dp, tp) plan fits inside one domain;
+    3. the per-replica (dp, tp) plan fits inside one domain, and (the
+       port's) fills it: a rank outside its replica's mesh would run an
+       engine of its own on the replica's mailbox, a second leader that
+       serves every request again;
     4. the per-replica serving envelope (incl. the HBM budget: each
        replica carries its OWN full KV planes) passes the engine's own
        ``ServingConfig.validate``;
@@ -693,6 +608,13 @@ def validate_fleet(config: dict[str, Any], model_cfg: ModelConfig,
             f"devices but each of the {fleet_cfg.replicas} failure "
             f"domains has only {per_domain} "
             f"({n_devices} devices total)"
+        )
+    if dp * tp < per_domain:
+        raise ValueError(
+            f"per-replica plan dp={dp} x tp={tp} uses {dp * tp} of the {per_domain} ranks "
+            f"of each of the {fleet_cfg.replicas} failure domains: every rank must be in "
+            f"its replica's mesh, so launch replicas x dp x tp = "
+            f"{fleet_cfg.replicas * dp * tp} ranks, not {n_devices}"
         )
     serving_cfg.validate(model_cfg, dp=dp, tp=tp)
     if card_bytes is not None:
@@ -729,10 +651,10 @@ _TERMINAL_EVENTS = {
 class FleetSupervisor:
     """Host-side control plane over N replica engines (module docstring).
     One instance serves one trace; all shared state is owned by the
-    supervisor's thread.  Built without ``mailbox`` (as the unit tests
-    build it), the feeds and controls are in-process objects and the
-    meshes are only counted; :meth:`serve` talks to replicas that
-    :func:`run_fleet` launched, through ``mailbox``."""
+    supervisor's thread.  It reaches each replica only through
+    ``mailbox`` (:class:`_SupervisorFeed`, :class:`_SupervisorControl`),
+    whose other end is each replica's :class:`ReplicaControl`; ``meshes``
+    are only counted here."""
 
     def __init__(self, model_cfg: ModelConfig, serving_cfg: ServingConfig,
                  fleet_cfg: FleetConfig, meshes: Sequence,
@@ -740,8 +662,7 @@ class FleetSupervisor:
                  seed: int = 0, journal: Any = None,
                  registry: Optional[MetricsRegistry] = None,
                  verbose: bool = False,
-                 capture_tokens: bool = True,
-                 mailbox: Optional[_Mailbox] = None) -> None:
+                 capture_tokens: bool = True, *, mailbox: _Mailbox) -> None:
         if not meshes:
             raise ValueError("a fleet needs at least one replica mesh")
         self.model = model_cfg
@@ -768,18 +689,10 @@ class FleetSupervisor:
             help="degradation-ladder escalations, by level entered")
 
         R = len(self.meshes)
-        self._gate = _StartGate(fleet_cfg.start_timeout_s)
-        self._jlock = threading.Lock()
         self._mailbox = mailbox
-        if mailbox is None:
-            self.controls = [ReplicaControl(i, self._gate) for i in range(R)]
-            self.feeds = [RequestFeed() for _ in range(R)]
-        else:
-            self._outboxes: list[list] = [[] for _ in range(R)]
-            self._knobs = [(True, None)] * R
-            self.controls = [_SupervisorControl(i, self._gate, self._outboxes[i])
-                             for i in range(R)]
-            self.feeds = [_SupervisorFeed(self._outboxes[i]) for i in range(R)]
+        self.controls = [_SupervisorControl(mailbox, i) for i in range(R)]
+        self.feeds = [_SupervisorFeed(mailbox, i) for i in range(R)]
+        self._arrived: set[int] = set()   # replicas parked at the clock gate
         self.reports: list[Optional[dict]] = [None] * R
         self.death: list[Optional[dict]] = [None] * R
         self._done = [False] * R
@@ -788,7 +701,6 @@ class FleetSupervisor:
 
         # routing state (supervisor thread only)
         self._events: deque[tuple[int, int, str, dict]] = deque()
-        self._elock = threading.Lock()
         self._req_by_rid: dict[int, Request] = {}
         self._assign: dict[int, int] = {}      # rid -> primary replica
         self._hedged: dict[int, int] = {}      # rid -> hedge replica
@@ -819,8 +731,7 @@ class FleetSupervisor:
                 **extra: Any) -> None:
         if self.journal is None:
             return
-        with self._jlock:
-            self.journal.event(event, config=config, **extra)
+        self.journal.event(event, config=config, **extra)
 
     # -- the replicas' mailbox ---------------------------------------------
 
@@ -832,8 +743,7 @@ class FleetSupervisor:
             for msg in self._mailbox.take(_outbox(idx)):
                 kind = msg[0]
                 if kind == "arrive":
-                    with self._gate._lock:
-                        self._gate.arrived.add(idx)
+                    self._arrived.add(idx)
                 elif kind == "up":
                     self._jevent("replica-up", replica=idx,
                                  devices=self.fault_domains.get(str(idx)))
@@ -842,11 +752,9 @@ class FleetSupervisor:
                     ctl.last_beat, ctl.beat_ema, ctl.beats = msg[1], msg[2], msg[3]
                     ctl.started = True
                 elif kind == "event":
-                    with self._elock:
-                        self._events.append((idx, msg[1], msg[2], msg[3]))
+                    self._events.append((idx, msg[1], msg[2], msg[3]))
                 elif kind == "journal":
-                    _ReplicaJournal(self.journal, idx, self._jlock).event(
-                        msg[1], config=msg[2], **msg[3])
+                    self._jevent(msg[1], config=msg[2], **{"replica": idx, **msg[3]})
                 elif kind == "done":
                     self.reports[idx] = msg[1]
                     self._done[idx] = True
@@ -854,20 +762,6 @@ class FleetSupervisor:
                     self.death[idx] = {"reason": msg[1], **msg[2]}
                     self._jevent("replica-failed", replica=idx, reason=msg[1], **msg[2])
                     self._done[idx] = True
-
-    def _post(self) -> None:
-        """Send each replica what this tick decided: feed pushes and
-        closes, cancels, the kill flag, and the degradation knobs when they
-        moved."""
-        for idx, box in enumerate(self._outboxes):
-            ctl = self.controls[idx]
-            knobs = (ctl.spec_enabled, ctl.horizon_cap)
-            if knobs != self._knobs[idx]:
-                self._knobs[idx] = knobs
-                box.append(("knobs", *knobs))
-            for msg in box:
-                self._mailbox.post(_inbox(idx), msg)
-            box.clear()
 
     # -- clock -------------------------------------------------------------
 
@@ -935,9 +829,8 @@ class FleetSupervisor:
     # -- lifecycle events --------------------------------------------------
 
     def _drain_events(self) -> int:
-        with self._elock:
-            batch = list(self._events)
-            self._events.clear()
+        batch = list(self._events)
+        self._events.clear()
         for replica, rid, event, extra in batch:
             self._handle_event(replica, rid, event, extra)
         return len(batch)
@@ -1160,10 +1053,10 @@ class FleetSupervisor:
             name = DEGRADE_LEVELS[self._level]
             if self._level == 1:
                 for ctl in self.controls:
-                    ctl.spec_enabled = False
+                    ctl.set_knobs(spec_enabled=False)
             elif self._level == 2:
                 for ctl in self.controls:
-                    ctl.horizon_cap = 1
+                    ctl.set_knobs(horizon_cap=1)
             # level 3 (shed-best-effort) acts at routing time
             self._degrade_counter[name] += 1
             rec = {"level": self._level, "name": name, "reason": reason,
@@ -1232,9 +1125,6 @@ class FleetSupervisor:
         report (schema :data:`FLEET_REPORT_SCHEMA`).  The replicas are the
         engines :func:`run_fleet` launched, serving the same trace, each
         reached through the mailbox."""
-        if self._mailbox is None:
-            raise ValueError("FleetSupervisor.serve talks to the replicas that "
-                             "run_fleet launches: build it with their mailbox")
         R = len(self.meshes)
         reqs = sorted(trace, key=lambda r: (r.arrival_s, r.rid))
         if not reqs:
@@ -1246,12 +1136,10 @@ class FleetSupervisor:
         gate_deadline = time.monotonic() + self.fleet.start_timeout_s
         while time.monotonic() < gate_deadline:
             self._pump()
-            with self._gate._lock:
-                arrived = set(self._gate.arrived)
-            if all(self._done[i] or i in arrived for i in range(R)):
+            if all(self._done[i] or i in self._arrived for i in range(R)):
                 break
             time.sleep(0.01)
-        self._t0 = self._gate.release()
+        self._t0 = time.perf_counter()
         self._mailbox.set_float(_T0_KEY, self._t0)
         wall_start = time.perf_counter()
 
@@ -1270,7 +1158,6 @@ class FleetSupervisor:
             self._maybe_hedge(now)
             self._maybe_degrade(now)
             self._export_gauges()
-            self._post()
             outstanding = [rid for rid in self._assign
                            if rid not in self._terminal]
             if progressed:
@@ -1314,7 +1201,6 @@ class FleetSupervisor:
         for feed in self.feeds:
             if not feed.closed:
                 feed.close()
-        self._post()
         # a fenced replica may still be inside an injected hang; it sees its
         # kill flag when it wakes: don't let the end wait on it
         self._wait_replicas(60.0, lambda r: not self._fenced[r])
@@ -1444,7 +1330,7 @@ def _serve_replica(idx: int, mesh: Any, box: _Mailbox, model_cfg: ModelConfig,
     from dlbb_tpu_torch.models.sharding import shard_params
     from dlbb_tpu_torch.resilience.preempt import PreemptionGuard
 
-    ctl = _RemoteControl(idx, box, mesh, fleet_cfg.start_timeout_s)
+    ctl = ReplicaControl(idx, box, mesh, fleet_cfg.start_timeout_s)
     rank = dist.get_rank()
     try:
         params = None
@@ -1454,7 +1340,7 @@ def _serve_replica(idx: int, mesh: Any, box: _Mailbox, model_cfg: ModelConfig,
                                   0 if mesh is None else mesh.coords["tp"], tp)
         engine = ServingEngine(
             model_cfg, serving_cfg, mesh, params=params,
-            journal=_RemoteJournal(ctl) if ctl.leader and journal else None,
+            journal=_ReplicaJournal(ctl) if ctl.leader and journal else None,
             seed=seed, verbose=False, capture_tokens=capture_tokens, device=device)
         if ctl.leader:
             ctl.on_event = ctl.post_event
@@ -1504,8 +1390,8 @@ def fleet_rank(config: dict[str, Any], trace: TrafficTrace, output_dir: Optional
     groups = partition_devices(ranks, fleet_cfg.replicas)
     # a collective call on every rank, in the same order; a one-rank
     # replica needs no group (its engine runs no collective)
-    meshes = [build_parallelism_mesh(dp, tensor_parallel=tp, ranks=g[:dp * tp])
-              if dp * tp > 1 else None for g in groups]
+    meshes = [build_parallelism_mesh(dp, tensor_parallel=tp, ranks=g) if dp * tp > 1 else None
+              for g in groups]
     idx = next(i for i, g in enumerate(groups) if rank in g)
     seed = config.get("input", {}).get("seed", 0)
     run = (idx, meshes[idx], _Mailbox.at(box_path), model_cfg, serving_cfg, fleet_cfg,
@@ -1602,8 +1488,7 @@ def launch_fleet(rank_fn: Callable, config: dict[str, Any], trace: TrafficTrace,
                  output_dir: Optional[str] = None, journal: bool = True,
                  verbose: bool = True, fault_plan: Optional[str] = None,
                  capture_tokens: bool = True, device=None,
-                 world: Optional[int] = None, timeout: Optional[float] = None,
-                 weights: Optional[dict] = None) -> list:
+                 timeout: Optional[float] = None, weights: Optional[dict] = None) -> list:
     """:func:`run_fleet`'s launch with the rank function ``rank_fn`` (called
     as :func:`fleet_rank` is); returns every rank's result, by rank."""
     from dlbb_tpu_torch.bench.launch import launch
@@ -1617,8 +1502,7 @@ def launch_fleet(rank_fn: Callable, config: dict[str, Any], trace: TrafficTrace,
     serving_cfg = ServingConfig.from_dict(config.get("serving", {}))
     fleet_cfg = FleetConfig.from_dict(config.get("fleet", {}))
     par = config.get("parallelism", {}) or {}
-    n = world or fleet_cfg.replicas * int(par.get("data_parallel", 1)) \
-        * int(par.get("world_size", 1))
+    n = fleet_cfg.replicas * int(par.get("data_parallel", 1)) * int(par.get("world_size", 1))
     cards, card = gpu_cards() if dev.type == "cuda" else (1, None)
     validate_fleet(config, model_cfg, serving_cfg, fleet_cfg, n, card_bytes=card,
                    cards=cards)
@@ -1642,7 +1526,6 @@ def run_fleet(
     fault_plan: Optional[str] = None,
     capture_tokens: bool = True,
     device=None,
-    world: Optional[int] = None,
     weights: Optional[dict] = None,
 ) -> dict[str, Any]:
     """Run one trace across a replica fleet (the ``cli serve --replicas N``
@@ -1650,9 +1533,9 @@ def run_fleet(
 
     ``config`` follows the experiment-YAML schema with ``fleet:`` next to
     ``serving:``/``model:``/``parallelism:`` (the parallelism plan is PER
-    REPLICA).  ``world`` ranks (default replicas x dp x tp) are launched
-    once, one process each, and partitioned into the replicas (module
-    docstring); they share the GPUs over gloo, contiguous ranks to a card
+    REPLICA).  Replicas x dp x tp ranks are launched once, one process
+    each, and partitioned into the replicas (module docstring), every rank
+    in its replica's mesh; they share the GPUs over gloo, contiguous ranks to a card
     (``bench/launch.py``'s ``shared``), since NCCL puts no two ranks of a
     communicator on one GPU.  At dp x tp = 1 a replica runs no collective
     at all, and the ranks talk only through the mailbox.  Before anything
@@ -1673,6 +1556,5 @@ def run_fleet(
     ``input.seed``, as the engine does."""
     results = launch_fleet(fleet_rank, config, trace, output_dir=output_dir,
                            journal=journal, verbose=verbose, fault_plan=fault_plan,
-                           capture_tokens=capture_tokens, device=device, world=world,
-                           weights=weights)
+                           capture_tokens=capture_tokens, device=device, weights=weights)
     return results[0]["report"]

@@ -8,15 +8,21 @@ against the JAX package, on the CPU.
   one call sequence through JAX's ``FleetSupervisor`` and through the
   port's (both built with ``meshes=[object()] * R``, which only counts
   them): JAX's assertions hold on both sides, and their journal events,
-  counters, routing tables and feeds are equal.  The AST pin is the
+  counters, routing tables and feeds are equal.  The port's supervisor
+  talks to in-process replica leaders (``ReplicaControl``) through a
+  mailbox on a ``HashStore``, the control plane a launched fleet runs over
+  its ``FileStore``: what JAX's tests read off a replica's feed or control
+  is read where the port's replica receives it, after a loop boundary.  The AST pin is the
   port's.  The two engine smokes share one JAX oracle and killed fleet
   (JAX's ``SMOKE_CONFIG`` on 8 simulated devices) and one port oracle and
   killed fleet (2 replicas x dp=2 on 4 gloo ranks, through
   ``tests/torch_serve_worker.py``): every request completes, with the
   tokens of its side's oracle and of the other side's.
-- One more: every rank of the killed replica raises ``ReplicaKilled`` at
-  the same loop boundary, the survivor's ranks complete, and no collective
-  of the run goes over the world group.
+- More: every rank of the killed replica raises ``ReplicaKilled`` at the
+  same loop boundary, the survivor's ranks complete, and no collective of
+  the run goes over the world group; a launch with a rank outside every
+  replica's mesh is refused; a hung replica is fenced and never serves a
+  request twice.
 - ``fleet_metrics`` byte-equal to JAX's on a fixture report,
   ``write_fleet_report`` equal to JAX's on a fixture ``BENCH_fleet.json``
   but for the script its prose names, ``run_trace`` taking a feed and a
@@ -26,10 +32,12 @@ against the JAX package, on the CPU.
 
 import ast
 import json
+import time
 from pathlib import Path
 from types import SimpleNamespace
 
 import pytest
+import torch.distributed as dist
 import torch_serve_worker
 from test_torch_serve import _jax_weights
 
@@ -93,7 +101,9 @@ class _Journal:
 
 
 class _Side:
-    """One package's fleet and the modules its tests call."""
+    """One package's fleet and the modules its tests call.  JAX's replicas
+    share the supervisor's process: a replica's control and feed are the
+    supervisor's own objects."""
 
     def __init__(self, fleet_mod, request, inject_mod, model_cls, serving_cls, mesh_mod):
         self.fleet = fleet_mod
@@ -115,9 +125,65 @@ class _Side:
                             seed=100 + rid, deadline_s=deadline, prefix_seed=prefix_seed,
                             prefix_len=prefix_len)
 
+    def replica(self, sup, idx):
+        """Replica ``idx``'s control, after what the supervisor sent it
+        arrived (a loop boundary's worth)."""
+        return sup.controls[idx]
+
+    def queue(self, sup, idx):
+        """The requests replica ``idx``'s feed holds, in order."""
+        return list(sup.feeds[idx])
+
+    def same(self, a, b):
+        """``a`` is the request ``b`` (the same object in one process)."""
+        return a is b
+
+    def feed_closed(self, sup, idx):
+        return sup.feeds[idx].closed
+
+
+class _PortSide(_Side):
+    """The port's supervisor reaches its replicas through a mailbox: here
+    on a ``HashStore``, each replica's leader a ``ReplicaControl`` in this
+    process with its own handle on the store."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self._leaders = {}
+
+    def sup(self, replicas=2, journal=None, serving=None, **fleet_kw):
+        return self.fleet.FleetSupervisor(
+            self.model, serving or self.serving,
+            self.fleet.FleetConfig(replicas=replicas, **fleet_kw),
+            meshes=[object()] * replicas, journal=journal,
+            mailbox=self.fleet._Mailbox(dist.HashStore()))
+
+    def leader(self, sup, idx):
+        """Replica ``idx``'s leader on ``sup``'s mailbox (one per replica)."""
+        key = (id(sup), idx)
+        if key not in self._leaders:
+            box = self.fleet._Mailbox(sup._mailbox._store)
+            self._leaders[key] = (sup, self.fleet.ReplicaControl(idx, box))
+        return self._leaders[key][1]
+
+    def replica(self, sup, idx):
+        ctl = self.leader(sup, idx)
+        ctl.beat()   # a loop boundary: the leader reads its mailbox
+        return ctl
+
+    def queue(self, sup, idx):
+        return list(self.replica(sup, idx).feed)
+
+    def same(self, a, b):
+        # the request crossed the mailbox: a copy, every field equal
+        return a == b and a is not b
+
+    def feed_closed(self, sup, idx):
+        return self.replica(sup, idx).feed.closed
+
 
 JAX = _Side(jax_fleet, JaxRequest, jax_inject, JaxModelConfig, JaxServingConfig, jax_mesh)
-PORT = _Side(fleet, Request, inject, ModelConfig, ServingConfig, pt_mesh)
+PORT = _PortSide(fleet, Request, inject, ModelConfig, ServingConfig, pt_mesh)
 
 
 def _both(scenario):
@@ -169,17 +235,23 @@ def test_request_feed_semantics():
 
 
 def _control_heartbeat_and_kill(side):
-    ctl = side.fleet.ReplicaControl(0, side.fleet._StartGate(0.05))
-    assert ctl.beat_ema is None
+    sup = side.sup(replicas=1)
+    # the supervisor's end of the control, and the replica's
+    theirs = sup.controls[0]
+    ctl = side.replica(sup, 0)
+    beats = ctl.beats
     ctl.beat()
     ctl.beat()
-    assert ctl.started and ctl.beats == 2 and ctl.beat_ema is not None
+    assert ctl.started and ctl.beats == beats + 2 and ctl.beat_ema is not None
     ctl.check()                  # no kill flag, no active plan: no-op
-    ctl.cancel(7, "hedge-lost")
+    theirs.cancel(7, "hedge-lost")
+    ctl = side.replica(sup, 0)
     assert ctl.take_cancels() == [(7, "hedge-lost")]
     assert ctl.take_cancels() == []
-    ctl.request_kill("replica-hung")
-    ctl.request_kill("second-reason-ignored")
+    theirs.request_kill("replica-hung")
+    theirs.request_kill("second-reason-ignored")
+    assert theirs.kill_reason == "replica-hung"
+    ctl = side.replica(sup, 0)
     assert ctl.kill_reason == "replica-hung"
     with pytest.raises(side.fleet.ReplicaKilled, match="replica-hung") as e:
         ctl.check()              # fenced replica can never dispatch again
@@ -324,7 +396,7 @@ def _routing(side):
     # equal-size requests alternate: least-loaded, ties to the lower id
     assert [a1[i] for i in range(6)] == [0, 1, 0, 1, 0, 1]
     assert c1 == [3, 3]
-    assert [r.rid for r in sup.feeds[0]] == [0, 2, 4]
+    assert [r.rid for r in side.queue(sup, 0)] == [0, 2, 4]
     assert sup._blocks[0] == sum(
         sup._blocks_for(r) for r in reqs if a1[r.rid] == 0)
     return a1, c1, list(sup._blocks)
@@ -392,19 +464,24 @@ def _failover(side):
     for r in reqs:
         sup._route(r)
     dead = [r for r in reqs if sup._assign[r.rid] == 0]
-    survivors_before = [r.rid for r in sup.feeds[1]]
+    survivors_before = [r.rid for r in side.queue(sup, 1)]
     sup._fence(0, "replica-killed", chain={"error": "ReplicaKilled: x"})
 
     assert sup._fenced[0] and sup._fence_reason[0] == "replica-killed"
     assert sup.feeds[0].closed
     assert sup.controls[0].kill_reason == "replica-killed"
+    # the fenced replica sees its kill flag and its closed feed
+    assert side.feed_closed(sup, 0)
+    with pytest.raises(side.fleet.ReplicaKilled, match="replica-killed"):
+        side.replica(sup, 0).check()
     # residents moved to the survivor's feed HEAD, ahead of its own queue
     # (they already served their wait on the dead replica): the SAME
     # Request objects, so arrival_s/deadline_s accounting is untouched
-    moved = list(sup.feeds[1])[:len(dead)]
+    queue = side.queue(sup, 1)
+    moved = queue[:len(dead)]
     assert {r.rid for r in moved} == {r.rid for r in dead}
-    assert all(any(m is r for r in dead) for m in moved)
-    assert [r.rid for r in sup.feeds[1]][len(dead):] == survivors_before
+    assert all(any(side.same(m, r) for r in dead) for m in moved)
+    assert [r.rid for r in queue][len(dead):] == survivors_before
     assert all(sup._assign[r.rid] == 1 for r in dead)
     assert sup._failover_rids == {r.rid for r in dead}
     assert int(sup._failover_counter["replica-killed"]) == len(dead)
@@ -422,7 +499,7 @@ def _failover(side):
     # fencing is idempotent: a second fence must not re-route
     sup._fence(0, "replica-killed")
     assert len(sup._failover_log) == len(dead)
-    return j.lines(), [r.rid for r in sup.feeds[1]], _counters(sup), list(sup._blocks)
+    return j.lines(), [r.rid for r in side.queue(sup, 1)], _counters(sup), list(sup._blocks)
 
 
 @pytest.mark.fleet_smoke
@@ -442,7 +519,7 @@ def _torn(side):
     assert len(torn) == 1 and torn[0]["attempt"] == 1
     # the retry committed exactly once: no double-routed request, no leaked
     # block estimate from the rolled-back attempt
-    rids = [r.rid for r in sup.feeds[1]]
+    rids = [r.rid for r in side.queue(sup, 1)]
     assert sorted(rids) == [0, 1, 2, 3] and len(set(rids)) == 4
     assert sup._blocks[1] == sum(sup._blocks_for(r) for r in reqs)
     assert len(sup._failover_log) == 2
@@ -486,7 +563,7 @@ def _hedge(side):
     assert sup._completed_by[0] == 1
     assert sup._tokens[0] == [5, 6, 7, 8]
     assert int(sup._hedge_counter["won"]) == 1
-    assert sup.controls[0].take_cancels() == [(0, "hedge-lost")]
+    assert side.replica(sup, 0).take_cancels() == [(0, "hedge-lost")]
     # the loser's cancel arriving later must NOT overwrite the win
     sup._handle_event(0, 0, "request-canceled", {"reason": "hedge-lost"})
     assert sup._terminal[0] == "completed"
@@ -497,7 +574,7 @@ def _hedge(side):
     sup2._handle_event(0, 1, "request-completed",
                        {"latency_s": 0.1, "tokens": [1]})
     assert int(sup2._hedge_counter["lost"]) == 1
-    assert sup2.controls[1].take_cancels() == [(1, "hedge-lost")]
+    assert side.replica(sup2, 1).take_cancels() == [(1, "hedge-lost")]
     return _counters(sup), _counters(sup2), dict(sup._terminal), sup._e2e
 
 
@@ -519,8 +596,9 @@ def _ladder(side):
     assert [e["name"] for e in j.of("degrade-transition")] == [
         "no-speculation", "short-horizon"]
     assert [rec["level"] for rec in sup._degrade_log] == [1, 2]
-    assert all(not c.spec_enabled for c in sup.controls)
-    assert all(c.horizon_cap == 1 for c in sup.controls)
+    replicas = [side.replica(sup, i) for i in range(2)]
+    assert all(not c.spec_enabled for c in replicas)
+    assert all(c.horizon_cap == 1 for c in replicas)
     assert int(sup._degrade_counter["no-speculation"]) == 1
     assert int(sup._degrade_counter["short-horizon"]) == 1
     # monotonic: the fleet never silently recovers a service class
@@ -711,6 +789,25 @@ def test_killed_replica_ranks_die_together_off_the_world_group(kill_runs):
         assert r["collectives"] > 0 and r["world_collectives"] == [], r
 
 
+@pytest.mark.parametrize("replicas,dp,world", [(1, 1, 2), (2, 2, 6)])
+def test_launch_with_a_rank_outside_every_mesh_is_refused(tmp_path, replicas, dp, world):
+    """Every rank of a fleet is in its replica's mesh: a launch of more than
+    replicas x dp x tp ranks (one more, or one more per replica) is refused
+    on every rank before any engine starts, since a rank outside the mesh
+    would lead a second engine on the replica's mailbox and serve every
+    request again."""
+    config = {"model": dict(MODEL), "serving": dict(SERVING),
+              "parallelism": {"data_parallel": dp, "world_size": 1},
+              "fleet": {"replicas": replicas}}
+    fleet.validate_fleet(config, PORT.model, PORT.serving, fleet.FleetConfig(replicas),
+                         replicas * dp)
+    with pytest.raises(Exception, match="every rank must be in its replica's mesh"):
+        launch(fleet.fleet_rank, world, "cpu", shared=True, timeout=120,
+               args=(config, _trace(generate_trace), str(tmp_path), False, False, None, True,
+                     "cpu", str(tmp_path / "mailbox")))
+    assert not list(tmp_path.glob("fleet_*.json"))
+
+
 def test_hung_replica_is_fenced_and_never_double_serves(tmp_path):
     """``serve-replica-hang`` (counted fleet-wide) parks one replica's loop
     past its heartbeat deadline: the supervisor fences it as
@@ -757,21 +854,25 @@ def test_run_trace_takes_a_feed_and_a_control():
                            output_range=(2, 4))
     engine = ServingEngine(cfg, sv, verbose=False, capture_tokens=True, device="cpu")
     oracle = engine.run_trace(trace)
-    feed, ctl = fleet.RequestFeed(), fleet.ReplicaControl(0, fleet._StartGate(0.01))
+    sup = PORT.sup(replicas=1)
+    ctl = PORT.leader(sup, 0)
     events = []
     ctl.on_event = lambda rid, event, extra: events.append((rid, event))
     for r in trace:
-        feed.push(r)
-    feed.close()
-    report = engine.run_trace(trace, feed=feed, control=ctl)
+        sup.feeds[0].push(r)
+    sup.feeds[0].close()
+    sup._mailbox.set_float(fleet._T0_KEY, time.perf_counter())  # the clock gate
+    report = engine.run_trace(trace, feed=ctl.feed, control=ctl)
     assert report["completed_tokens"] == oracle["completed_tokens"]
-    assert ctl.beats >= 1 and not feed
+    assert ctl.beats >= 1 and not ctl.feed
     assert {e for _r, e in events} >= {"request-arrived", "request-prefill",
                                        "request-completed"}
-    killed = fleet.ReplicaControl(0, fleet._StartGate(0.01))
-    killed.request_kill("replica-hung")
-    with pytest.raises(fleet.ReplicaKilled):
-        engine.run_trace(trace, feed=fleet.RequestFeed(), control=killed)
+    sup = PORT.sup(replicas=1)
+    killed = PORT.leader(sup, 0)
+    sup.controls[0].request_kill("replica-hung")
+    sup._mailbox.set_float(fleet._T0_KEY, time.perf_counter())
+    with pytest.raises(fleet.ReplicaKilled, match="replica-hung"):
+        engine.run_trace(trace, feed=killed.feed, control=killed)
 
 
 # ------------------------------------------------- metrics, report, cli
@@ -798,10 +899,7 @@ def test_fleet_metrics_byte_equal_to_jax(tmp_path):
     already carries live counters."""
     assert fleet_metrics(FLEET_REPORT).to_prometheus() \
         == jax_fleet_metrics(FLEET_REPORT).to_prometheus()
-    live = fleet.FleetSupervisor(PORT.model, PORT.serving, fleet.FleetConfig(2),
-                                 meshes=[object()] * 2)
-    jlive = jax_fleet.FleetSupervisor(JAX.model, JAX.serving, jax_fleet.FleetConfig(2),
-                                      meshes=[object()] * 2)
+    live, jlive = PORT.sup(), JAX.sup()
     for sup in (live, jlive):
         sup._failover_counter["replica-killed"] += 3
         sup._export_gauges()

@@ -397,6 +397,33 @@ def test_spec_config_validation_ladder():
                                 spec_draft_layers=0).validate(MODEL)
 
 
+@pytest.mark.parametrize("speculation,device,warns", [
+    ("ngram", "cuda", True), ("off", "cuda", False), ("greedy", "cuda", False),
+    ("ngram", "cpu", False)])
+def test_speculation_on_the_card_warns_that_it_is_slower(monkeypatch, speculation, device,
+                                                          warns):
+    """Until a decode-attention kernel reads the cache once for all of a
+    verify's positions, a speculative engine on a CUDA device warns that it
+    is slower than greedy decoding there; on the CPU, or with speculation
+    off or in the per-step "greedy" token mode, nothing warns.  The CUDA
+    device is faked, so where torch has no CUDA such an engine stops at its
+    first allocation."""
+    import warnings
+
+    monkeypatch.setattr(pt_engine, "resolve_device", lambda _d: torch.device(device))
+    gamma = {"spec_gamma": 4} if speculation == "ngram" else {}
+    sv = pt_engine.ServingConfig(**SERVE, speculation=speculation, **gamma)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            pt_engine.ServingEngine(MODEL, sv, verbose=False, device=device)
+        except (AssertionError, RuntimeError):
+            assert device == "cuda"   # no CUDA in this build
+    slower = [w for w in caught if w.category is RuntimeWarning
+              and "slower than greedy decoding" in str(w.message)]
+    assert len(slower) == (1 if warns else 0), [str(w.message) for w in caught]
+
+
 def test_ngram_propose_pure_and_cyclic():
     hist = [1, 2, 5, 6, 7, 5, 6, 7]
     got = pt_engine._ngram_propose(hist, gamma=5)
