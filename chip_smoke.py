@@ -63,7 +63,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    tp=2, stage 1, and at dp=2, stage 3, their loss and gradients
    (reassembled over the shards) against the world-1 step's at that depth
    within the
-   bounds argued at ``DTRAIN_*``; errors and wall time printed, not timed
+   bounds argued at ``DTRAIN_*``; then batch 6 in 2 micro-batches of 3 rows
+   at dp=2, ZeRO-2 (``DTRAIN_RESHARD``: each micro-batch resharded, 2 rows
+   on one rank and 1 on the other), two steps against the world-1 steps on
+   the same global batch, JAX's warning once per rank, each rank's flash
+   launches following its rows; errors and wall time printed, not timed
    as a benchmark;
 9. ``seq``, the sequence-sharded layouts: (a) at world 1 over NCCL in the
    script's process, the collective-matmul sweep ops ``ag_matmul`` and
@@ -169,12 +173,13 @@ Phases (each raises on failure, and the script then exits non-zero):
    speculative and sampled decoding: (f)0 ``build_verify_probs`` at γ=4 on
    (a)'s 4-slot cache against γ+1 per-step token steps (bit-equal: the
    verify runs each position in the step's own shapes;
-   ``build_verify_step`` commits all γ+1), (f)1 greedy "ngram",
-   "draft-model" and adaptive-γ fused "ngram" runs on (b)'s trace, each
-   request at its full length, both ledgers clean, every request's tokens
-   (b)'s greedy tokens (64 of 64) and "ngram" equal to itself on a second
-   run (on the short trace: (b)'s first 16 requests, outputs cut to 32
-   tokens), (f)2 sampled "ngram" runs (temperature 0.8) on the short
+   ``build_verify_step`` commits all γ+1), (f)1 greedy "ngram" and
+   adaptive-γ fused "ngram" runs on (b)'s trace and a "draft-model" run on
+   the short trace ((b)'s first 16 requests, outputs cut to 32 tokens),
+   each request at its full length, both ledgers clean, every request's
+   tokens (b)'s greedy tokens (64 of 64; on the short trace their first
+   ones) and "ngram" equal to itself on a second run (on the short trace),
+   (f)2 sampled "ngram" runs (temperature 0.8) on the short
    trace replayed by seed 3 and moved by seed 4, (f)3 each
    run's verify units, acceptance and tokens per unit, and the verify
    unit's median (from its ``serve-verify`` spans) against its bytes bound;
@@ -191,7 +196,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    request not preempted; (g)5 ``python -m dlbb_tpu_torch.cli serve
    --config dlbb_tpu_torch/configs/serve_1b.yaml --trace poisson --requests
    64`` as a subprocess exits 0 and leaves JAX's artifact set with finite
-   goodput and TTFT p50/p99/p999.
+   goodput and TTFT p50/p99/p999; (h) (before (g)) records shaped as the
+   bench scripts' ``BENCH_serve.json``, ``BENCH_spec.json`` and
+   ``BENCH_prefix.json`` from (b), (d)1, (e) and (f)1's runs, through the
+   port's writers in a temporary directory: each table's rows and
+   speedups the phase's own ratios (no request served).
 17. ``fleet``, the serving fleet (``serve/fleet.py``) on
    ``dlbb_tpu_torch/configs/serve_1b_fleet.yaml`` (the 1B at full width and
    depth, two replicas of one process each on the card, 16 slots of 2048
@@ -512,7 +521,29 @@ def phase_bwd_vs_plain(torch, fa):
                 raise AssertionError(f"{name}: fully masked rows' dq is not exactly 0")
             print(f"[kernel] flash_bwd {name}: {masked} fully masked rows' dq exactly 0")
         del q, k, v, o, lse, do, got, ref
+    _empty_batch_check(torch, fa)
     return worst
+
+
+def _empty_batch_check(torch, fa):
+    """A dp rank with no rows of a micro-batch (``train/loop.py``) runs the
+    step on an empty batch: the forward and backward through
+    ``flash_attention`` on ``[0, N, S, D]`` give empty outputs and
+    gradients and launch no kernel (a zero-size grid is a launch error)."""
+    s = MAIN_SHAPE
+    q, k, v = (torch.empty((0, s["n"], s["s"], s["d"]), device="cuda", dtype=torch.bfloat16,
+                           requires_grad=True) for _ in range(3))
+    _zero_flash_counts(fa)
+    o = fa.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(o, (q, k, v), grad_outputs=torch.empty_like(o))
+    torch.cuda.synchronize()
+    counts = _flash_counts(fa)
+    print(f"[kernel] empty batch {tuple(q.shape)}: o {tuple(o.shape)}, grads "
+          f"{[tuple(g.shape) for g in grads]}, launches {counts}")
+    if o.shape != q.shape or any(g.shape != q.shape for g in grads):
+        raise AssertionError("the flash path on an empty batch gave other shapes")
+    if any(counts.values()):
+        raise AssertionError(f"the flash path launched on an empty batch: {counts}")
 
 
 def phase_main_path(torch, fa, gpu_line):
@@ -986,7 +1017,8 @@ def _dtrain_world1(config, ckpt_dir, device="cuda"):
     def steps(cfg, mesh, stage, n=2):
         step, state = make_train_step(cfg, build_optimizer(config["training"]),
                                       init_params(cfg, seed, device), mesh=mesh,
-                                      zero_stage=stage)
+                                      zero_stage=stage,
+                                      batch_size=config["input"]["batch_size"])
         losses = []
         for _ in range(n):
             _zero_flash_counts(fa)
@@ -1041,40 +1073,223 @@ def _dtrain_world1(config, ckpt_dir, device="cuda"):
     return out
 
 
-def _dtrain_gloo_rank(rank, world, init_file, config, stage, device, out_dir):
-    """One rank of phase dtrain (b), spawned by ``_spawn_gloo``: the loss
-    and reduced gradients of one step, then the step; written to
-    ``out_dir/r<rank>.pt``."""
+def _dtrain_gloo_ranks(rank, world, init_file, jobs, device, out_dir):
+    """One rank of phase dtrain (b), spawned once by ``_spawn_gloo`` for all
+    of (b)'s runs (a spawn costs about 17 s before its ranks reach the
+    card): each job ``(kind, config, stage)`` in turn on one gloo group,
+    "step" by ``_dtrain_gloo_step``, "reshard" by ``_dtrain_reshard_steps``;
+    the results, in job order, written to ``out_dir/r<rank>.pt``."""
     import torch
 
     from dlbb_tpu_torch.comm import destroy_distributed, initialize_distributed
-    from dlbb_tpu_torch.models import ModelConfig, init_params
-    from dlbb_tpu_torch.parallel import ParallelismPlan
-    from dlbb_tpu_torch.train.loop import make_train_step
-    from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
 
     if device == "cuda":
         torch.cuda.set_device(0)
     initialize_distributed("gloo", rank, world, init_file, timeout=900)
     try:
-        model_cfg = ModelConfig.from_dict(config["model"])
-        plan = ParallelismPlan.from_config(config, model_cfg)
-        c = plan.mesh.coords
-        batch, targets = _dtrain_batch(config, model_cfg, device, c, plan.dp)
-        step, state = make_train_step(
-            model_cfg, build_optimizer(config["training"]),
-            init_params(model_cfg, config["input"]["seed"], device, tp_rank=c["tp"],
-                        tp=plan.tp), mesh=plan.mesh, zero_stage=stage)
-        t0 = time.perf_counter()
-        loss, grads = step.grads(state, batch, targets)
-        grads = tree_map(lambda g: g.cpu(), grads)
-        state, step_loss = step(state, batch, targets)
-        step_loss = float(step_loss)
-        torch.save({"coords": c, "loss": float(loss), "step_loss": step_loss,
-                    "grads": grads, "axes": step.zero.opt_axes,
-                    "seconds": time.perf_counter() - t0}, f"{out_dir}/r{rank}.pt")
+        out = []
+        for kind, config, stage in jobs:
+            body = _dtrain_gloo_step if kind == "step" else _dtrain_reshard_steps
+            out.append(body(config, stage, device))
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        torch.save(out, f"{out_dir}/r{rank}.pt")
     finally:
         destroy_distributed()
+
+
+def _dtrain_gloo_step(config, stage, device):
+    """A rank's run of phase dtrain (b): the loss and reduced gradients of
+    one step, then the step."""
+    import torch
+
+    from dlbb_tpu_torch.models import ModelConfig, init_params
+    from dlbb_tpu_torch.parallel import ParallelismPlan
+    from dlbb_tpu_torch.train.loop import make_train_step
+    from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
+
+    model_cfg = ModelConfig.from_dict(config["model"])
+    plan = ParallelismPlan.from_config(config, model_cfg)
+    c = plan.mesh.coords
+    batch, targets = _dtrain_batch(config, model_cfg, device, c, plan.dp)
+    step, state = make_train_step(
+        model_cfg, build_optimizer(config["training"]),
+        init_params(model_cfg, config["input"]["seed"], device, tp_rank=c["tp"],
+                    tp=plan.tp), mesh=plan.mesh, zero_stage=stage,
+        batch_size=config["input"]["batch_size"])
+    t0 = time.perf_counter()
+    loss, grads = step.grads(state, batch, targets)
+    grads = tree_map(lambda g: g.cpu(), grads)
+    state, step_loss = step(state, batch, targets)
+    return {"coords": c, "loss": float(loss), "step_loss": float(step_loss),
+            "grads": grads, "axes": step.zero.opt_axes, "seconds": time.perf_counter() - t0}
+
+
+# phase dtrain (b), the resharded micro-batch: batch 6 in 2 micro-batches of
+# 3 rows at dp=2 (2 rows of each on rank 0, 1 on rank 1), ZeRO-2 (each
+# micro-step's gradient reduce-scattered, each rank's loss weighted by its
+# share of the rows), two steps, against the world-1 step with no process
+# group on the same global batch and accumulation.  The two runs sum the
+# same rows in other groupings, as the dp=2 run above does, so the same
+# bounds hold (dtrain_bounds at tp=1): each step's loss and the first
+# step's reduced gradient per leaf.  The parameters after the first step
+# are held as phase pipe holds its updates (the first Adam step from the
+# start on the rank's own reduced gradient, ``_adam_first_step_misses``,
+# argued at ``PIPE_*``), and the ranks' parameters after both steps must be
+# equal bit for bit (ZeRO-2 gathers one update).
+DTRAIN_RESHARD = dict(batch=6, grad_accum=2, dp=2, stage=2, steps=2)
+
+
+def _dtrain_reshard_steps(config, stage, device):
+    """A rank's run of phase dtrain (b)'s resharded case: the step built
+    (JAX's warning recorded), the first step's loss and reduced gradients,
+    then two steps with the flash kernels' counts set to 0 just before and
+    read just after."""
+    import warnings
+
+    import torch
+
+    from dlbb_tpu_torch.data import create_dataset_from_config
+    from dlbb_tpu_torch.models import ModelConfig, init_params
+    from dlbb_tpu_torch.models.sharding import batch_spec
+    from dlbb_tpu_torch.ops import flash_attention as fa
+    from dlbb_tpu_torch.parallel import ParallelismPlan
+    from dlbb_tpu_torch.train.loop import make_train_step, step_chunks
+    from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
+
+    r = DTRAIN_RESHARD
+    model_cfg = ModelConfig.from_dict(config["model"])
+    mesh = ParallelismPlan.from_config(config, model_cfg).mesh
+    x, t = (create_dataset_from_config(
+        config, dtype=torch.bfloat16, device=device, hidden_size=model_cfg.hidden_size,
+        seed_offset=off, **batch_spec(mesh, step_chunks(r["grad_accum"], None))).get_batch()
+        for off in (0, 1))
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        step, state = make_train_step(
+            model_cfg, build_optimizer(config["training"]),
+            init_params(model_cfg, config["input"]["seed"], device), mesh=mesh,
+            zero_stage=stage, grad_accum=r["grad_accum"], batch_size=r["batch"])
+    loss0, grads = step.grads(state, x, t)
+    grads = tree_map(lambda g: g.cpu(), grads)
+    _zero_flash_counts(fa)
+    losses, params = [], []
+    for _ in range(r["steps"]):
+        state, loss = step(state, x, t)
+        losses.append(float(loss))
+        params.append(tree_map(lambda p: p.detach().cpu(), state.params))
+    return {"coords": mesh.coords, "rows": x.shape[0], "loss0": float(loss0),
+            "warnings": [str(w.message) for w in caught
+                         if issubclass(w.category, UserWarning)],
+            "grads": grads, "axes": step.zero.opt_axes, "losses": losses,
+            "launches": _flash_counts(fa), "params": params,
+            "seconds": time.perf_counter() - t0}
+
+
+def _dtrain_reshard_job(torch, config, device):
+    """Phase dtrain (b)'s resharded case on ``config`` (the 1B train config
+    at ``DTRAIN_GLOO_LAYERS`` layers): the world-1 steps with no process
+    group; returns the ranks' job (``_dtrain_gloo_ranks``) and what
+    ``_dtrain_reshard_check`` holds them against."""
+    import copy
+
+    from dlbb_tpu_torch.models import ModelConfig, init_params
+    from dlbb_tpu_torch.train.loop import make_train_step
+    from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
+
+    r = DTRAIN_RESHARD
+    cfg = copy.deepcopy(config)
+    cfg["input"]["batch_size"] = r["batch"]
+    cfg["training"]["gradient_accumulation"] = r["grad_accum"]
+    model_cfg = ModelConfig.from_dict(cfg["model"])
+    layers = model_cfg.num_layers
+    # remat "dots": the forward runs twice a micro-step (phase 4); none on the CPU
+    per_step = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+    if device != "cuda":
+        per_step = dict.fromkeys(per_step, 0)
+    p0 = init_params(model_cfg, cfg["input"]["seed"], device)
+    step, state = make_train_step(model_cfg, build_optimizer(cfg["training"]),
+                                  tree_map(torch.clone, p0), grad_accum=r["grad_accum"],
+                                  batch_size=r["batch"])
+    batch, targets = _dtrain_batch(cfg, model_cfg, device)
+    ref_loss0, ref_grads = step.grads(state, batch, targets)
+    ref_losses = []
+    for i in range(r["steps"]):
+        state, loss = step(state, batch, targets)
+        ref_losses.append(float(loss))
+        if i == 0:
+            ref_p1 = tree_map(lambda p: p.detach().clone(), state.params)
+    del step, state
+    cfg["parallelism"] = {"world_size": 1, "data_parallel": r["dp"]}
+    return ("reshard", cfg, r["stage"]), {
+        "cfg": cfg, "layers": layers, "per_step": per_step, "p0": p0,
+        "ref_loss0": ref_loss0, "ref_grads": ref_grads, "ref_losses": ref_losses,
+        "ref_p1": ref_p1}
+
+
+def _dtrain_reshard_check(torch, ref, ranks, wall):
+    """The resharded case's ranks (``_dtrain_reshard_steps``) against
+    ``_dtrain_reshard_job``'s world-1 steps; returns its errors."""
+    from dlbb_tpu_torch.data.synthetic import dp_rows
+    from dlbb_tpu_torch.train import zero as zero_mod
+
+    r = DTRAIN_RESHARD
+    cfg, per_step, p0 = ref["cfg"], ref["per_step"], ref["p0"]
+    ref_loss0, ref_grads, ref_losses, ref_p1 = (ref[k] for k in (
+        "ref_loss0", "ref_grads", "ref_losses", "ref_p1"))
+    by = {x["coords"]["dp"]: x for x in ranks}
+    grads = zero_mod.unshard_tree([by[i]["grads"] for i in range(r["dp"])], by[0]["axes"])
+    got_g, p0 = _by_name(grads), _by_name(p0)
+    g_rel = {n: _rel_l2(got_g[n].to(g.device), g) for n, g in _by_name(ref_grads).items()}
+    lr = cfg["training"]["learning_rate"]
+    ref_g, ref_p1 = _by_name(ref_grads), _by_name(ref_p1)
+    ref_misses = sum(_adam_first_step_misses(torch, p0[n], ref_p1[n], ref_g[n], lr)[0]
+                     for n in p0)
+    got_p1 = _by_name(by[0]["params"][0])
+    misses = sum(_adam_first_step_misses(torch, p0[n], got_p1[n], got_g[n], lr)[0]
+                 for n in p0)
+    same_params = all(torch.equal(a, b) for step_a, step_b in zip(by[0]["params"],
+                                                                  by[1]["params"])
+                      for a, b in zip(_by_name(step_a).values(), _by_name(step_b).values()))
+    micro = r["batch"] // r["grad_accum"]
+    want_launches = {}
+    for i in range(r["dp"]):
+        n = dp_rows(micro, i, r["dp"])[1]
+        want_launches[i] = {k: r["steps"] * r["grad_accum"] * v * (n > 0)
+                            for k, v in per_step.items()}
+    warned = [x["warnings"] for x in ranks]
+    print(f"[dtrain] resharded micro-batches: JAX's warning, once per rank's step: "
+          f"{warned[0][0] if warned[0] else None!r}")
+    loss_bound, grad_bound = dtrain_bounds(ref["layers"], 1)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip([ranks[0]["loss0"]] + ranks[0]["losses"], [float(ref_loss0)] + ref_losses))
+    worst_g = max(g_rel, key=g_rel.get)
+    print(f"[dtrain] 1B step ({ref['layers']} of its 24 layers), batch {r['batch']} in "
+          f"{r['grad_accum']} micro-batches of {micro} rows at dp={r['dp']} (rows per rank "
+          f"{[by[i]['rows'] for i in range(r['dp'])]}), ZeRO-{r['stage']}, two processes on one "
+          f"card over gloo, {r['steps']} steps: losses {ranks[0]['losses']} vs world 1 "
+          f"{ref_losses} (first step's loss {ranks[0]['loss0']:.6f} vs {float(ref_loss0):.6f}; "
+          f"worst relative {loss_rel:.3e}, bound {loss_bound:.3e}); reduced gradient relative "
+          f"L2 worst {worst_g} {g_rel[worst_g]:.3e} (bound {grad_bound:.3e}); parameters "
+          f"after the first step off the first Adam step of their gradient {misses} (bound "
+          f"0; world 1's {ref_misses}); the ranks' parameters after each step equal bit for "
+          f"bit: {same_params}; flash launches by rank "
+          f"{[by[i]['launches'] for i in range(r['dp'])]} (expected {want_launches}); "
+          f"{max(x['seconds'] for x in ranks):.1f} s in the ranks ({wall:.1f} s wall for all of "
+          f"(b)'s runs), not timed")
+    if not all(len(w) == 1 and "not divisible by dp=2; each micro-step reshards" in w[0]
+               and "results/torch/parallelism/" in w[0] for w in warned):
+        raise AssertionError(f"the resharded step did not warn once with JAX's text: {warned}")
+    if any(by[i]["launches"] != want_launches[i] for i in range(r["dp"])):
+        raise AssertionError("the resharded step's flash launches do not follow its rows")
+    if not (len({tuple(x["losses"]) for x in ranks}) == 1 and same_params
+            and loss_rel <= loss_bound and g_rel[worst_g] <= grad_bound
+            and misses == ref_misses == 0 and all(math.isfinite(x) for x in ref_losses)):
+        raise AssertionError("the resharded 1B step disagrees with the world-1 step")
+    return {"loss_rel": loss_rel, "worst_grad_rel_l2": g_rel[worst_g],
+            "update_misses": misses, "wall_s": wall,
+            "launches": {i: by[i]["launches"] for i in range(r["dp"])}}
 
 
 def _rel_l2(a, b):
@@ -1166,18 +1381,25 @@ def phase_dtrain(torch, gpu_line, config=None, device="cuda"):
     model_cfg = ModelConfig.from_dict(config["model"])
     opt = build_optimizer(config["training"])
     step, state = make_train_step(model_cfg, opt, init_params(
-        model_cfg, config["input"]["seed"], device))
+        model_cfg, config["input"]["seed"], device), batch_size=config["input"]["batch_size"])
     batch, targets = _dtrain_batch(config, model_cfg, device)
     ref_loss, ref = step.grads(state, batch, targets)
     ref_loss = float(ref_loss)
     del state, step
-    errors = {}
+    jobs = []
     for tp, dp, stage in DTRAIN_GLOO_RUNS:
         cfg = copy.deepcopy(config)
         cfg["parallelism"] = {"world_size": tp, "data_parallel": dp}
-        t0 = time.perf_counter()
-        ranks = _spawn_gloo(torch, _dtrain_gloo_rank, 2, cfg, stage, device)
-        wall = time.perf_counter() - t0
+        jobs.append(("step", cfg, stage))
+    job, reshard_ref = _dtrain_reshard_job(torch, config, device)
+    t0 = time.perf_counter()
+    results = _spawn_gloo(torch, _dtrain_gloo_ranks, 2, jobs + [job], device)
+    wall = time.perf_counter() - t0
+    print(f"[dtrain] (b)'s {len(jobs) + 1} runs, one spawn of two processes over gloo: "
+          f"{wall:.1f} s wall")
+    errors = {}
+    for i, (tp, dp, stage) in enumerate(DTRAIN_GLOO_RUNS):
+        ranks = [x[i] for x in results]
         by = {(r["coords"]["dp"], r["coords"]["tp"]): r for r in ranks}
         tp_shards = []
         for j in range(tp):
@@ -1203,7 +1425,7 @@ def phase_dtrain(torch, gpu_line, config=None, device="cuda"):
               f"{loss_rel:.3e}, bound {loss_bound:.3e}); gradient relative L2 per leaf: "
               + ", ".join(f"{n} {v:.3e}" for n, v in rels.items())
               + f" (worst {worst}, bound {grad_bound:.3e}); step loss "
-              f"{ranks[0]['step_loss']:.6f}; {wall:.1f} s wall, "
+              f"{ranks[0]['step_loss']:.6f}; "
               f"{max(r['seconds'] for r in ranks):.1f} s in the ranks, not timed")
         if len(losses) != 1:
             raise AssertionError(f"{label}: the ranks' losses differ: {losses}")
@@ -1213,6 +1435,10 @@ def phase_dtrain(torch, gpu_line, config=None, device="cuda"):
         errors[label] = {"loss_rel": loss_rel, "worst_grad_rel_l2": rels[worst],
                          "worst_leaf": worst, "wall_s": wall}
     del ref, got
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    errors["resharded"] = _dtrain_reshard_check(torch, reshard_ref,
+                                                [x[-1] for x in results], wall)
     if device == "cuda":
         torch.cuda.empty_cache()
     print(f"[dtrain] phase wall time {time.perf_counter() - t_phase:.1f} s")
@@ -1402,6 +1628,8 @@ def _seq_gloo_rank(rank, world, init_file, config, runs, device, out_dir):
         out = {}
         for name, par, model in runs:
             t0 = time.perf_counter()
+            if device == "cuda":  # each run's own peak
+                torch.cuda.reset_peak_memory_stats()
             cfg = copy.deepcopy(config)
             cfg["parallelism"] = par
             cfg["model"].update(model)
@@ -1418,7 +1646,8 @@ def _seq_gloo_rank(rank, world, init_file, config, runs, device, out_dir):
                 y = forward(params, batch, model_cfg, mesh=mesh).cpu()
             fwd_launches = _flash_counts(fa)
             step, state = make_train_step(model_cfg, build_optimizer(cfg["training"]),
-                                          params, mesh=mesh, zero_stage=1)
+                                          params, mesh=mesh, zero_stage=1,
+                                          batch_size=cfg["input"]["batch_size"])
             del params
             _zero_flash_counts(fa)
             loss, grads = step.grads(state, batch, targets)
@@ -1538,7 +1767,8 @@ def _seq_model(torch, config, device="cuda"):
     batch, targets = _dtrain_batch(config, model_cfg, device)
     with torch.inference_mode():
         ref_y = forward(params, batch, model_cfg).float()
-    step, state = make_train_step(model_cfg, build_optimizer(config["training"]), params)
+    step, state = make_train_step(model_cfg, build_optimizer(config["training"]), params,
+                                  batch_size=config["input"]["batch_size"])
     del params
     ref_loss, ref = step.grads(state, batch, targets)
     ref_loss = float(ref_loss)
@@ -1554,10 +1784,14 @@ def _seq_model(torch, config, device="cuda"):
         heads_tp2 = step_tp2 = none
     hop = "host" if device == "cuda" else "device"
     out = {}
+    # one spawn for every run (a spawn costs about 17 s before its ranks
+    # reach the card)
+    t0 = time.perf_counter()
+    ranks = _spawn_gloo(torch, _seq_gloo_rank, 2, config,
+                        [run for runs in SEQ_RUNS.values() for run in runs], device)
+    print(f"[seq] (b)'s runs, one spawn of two processes over gloo: "
+          f"{time.perf_counter() - t0:.1f} s wall")
     for kind, runs in SEQ_RUNS.items():
-        t0 = time.perf_counter()
-        ranks = _spawn_gloo(torch, _seq_gloo_rank, 2, config, runs, device)
-        wall = time.perf_counter() - t0
         fwd_bound, loss_bound, grad_bound = seq_bounds(layers, kind)
         for name, _, _ in runs:
             recs = sorted((r[name] for r in ranks), key=lambda r: r["seq"][0])
@@ -1612,7 +1846,6 @@ def _seq_model(torch, config, device="cuda"):
                          "worst_grad_rel_l2": rels[worst], "worst_leaf": worst,
                          "fwd_launches": recs[0]["fwd_launches"],
                          "step_launches": recs[0]["step_launches"]}
-        print(f"[seq] {kind} runs: {wall:.1f} s wall")
     return out
 
 
@@ -1720,7 +1953,8 @@ def _moe_ep_rank(rank, world, init_file, out_dir):
             if dispatch == "dense":
                 step, state = make_train_step(model_cfg, build_optimizer(config["training"]),
                                               params, mesh=plan.mesh,
-                                              moe_aux_weight=MOE_AUX_WEIGHT)
+                                              moe_aux_weight=MOE_AUX_WEIGHT,
+                                              batch_size=config["input"]["batch_size"])
                 del params
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1821,7 +2055,8 @@ def phase_moe(torch, fa, gpu_line):
             refs[dispatch] = forward(params, batch, model_cfg).float().cpu()
         if dispatch == "dense":
             step, state = make_train_step(model_cfg, build_optimizer(config["training"]),
-                                          params, moe_aux_weight=MOE_AUX_WEIGHT)
+                                          params, moe_aux_weight=MOE_AUX_WEIGHT,
+                                          batch_size=config["input"]["batch_size"])
             loss, grads = step.grads(state, batch, targets)
             refs["loss"] = float(loss)
             refs["grads"] = tree_map(lambda g: g.cpu(), grads)
@@ -1974,7 +2209,8 @@ def _pipe_rank(rank, world, init_file, out_dir):
             torch.cuda.reset_peak_memory_stats()
             step, state = make_train_step(
                 model_cfg, build_optimizer(config["training"]), params, mesh=mesh,
-                num_microbatches=plan.num_microbatches, pipeline_schedule=schedule)
+                num_microbatches=plan.num_microbatches, pipeline_schedule=schedule,
+                batch_size=config["input"]["batch_size"])
             _zero_flash_counts(fa)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2044,7 +2280,8 @@ def phase_pipe(torch, gpu_line):
     batch, targets = _dtrain_batch(one, model_cfg, "cuda")
     with torch.inference_mode():
         ref_y = forward(params, batch, model_cfg).float().cpu()
-    step, state = make_train_step(model_cfg, build_optimizer(config["training"]), params)
+    step, state = make_train_step(model_cfg, build_optimizer(config["training"]), params,
+                                  batch_size=config["input"]["batch_size"])
     del params
     ref_loss, ref_grads = step.grads(state, batch, targets)
     ref_loss = float(ref_loss)
@@ -2449,7 +2686,8 @@ def _compress_train_rank(rank, world, init_file, config, out_dir):
                 model_cfg, build_optimizer(train),
                 init_params(model_cfg, config["input"]["seed"], "cuda"), mesh=plan.mesh,
                 zero_stage=stage, grad_compression=comp, compression_accum=accum,
-                residual_dtype=moments_dtype(train))
+                residual_dtype=moments_dtype(train),
+                batch_size=config["input"]["batch_size"])
             rec = {"losses": [], "launches": []}
             # step 0's reduced gradient: no update has run, so every run
             # starts from the same parameters and batch
@@ -2927,6 +3165,10 @@ SERVE_SPEC_SEEDS = (3, 3, 4)
 # tokens are then the first ones of (b)'s).  On (b)'s whole trace a sampled
 # run took about 28 s at a 125 ms verify unit (202 units).
 SERVE_SPEC_SHORT = (16, 32)
+# (f)1's "draft-model" run serves the short trace too: on (b)'s whole trace
+# it took 35 s (202 verify units at 155 ms, acceptance 0.0007: the one-layer
+# random draft almost never agrees), the script's time limit
+SERVE_SPEC_ON_SHORT = ("draft-model",)
 # phase serve (g): the fault plans, on (b)'s greedy engine and trace.  The
 # hang outlasts the watchdog's deadline (50 x the step EMA, about 2.3 s at
 # 46 ms a step) by more than twice, so the abandoned thread wakes after the
@@ -2969,7 +3211,7 @@ def phase_serve(torch, fa, gpu_line):
                                      dir=Path(__file__).resolve().parent) as tmp:
         trace = Path(tmp) / "spans.json"
         with spans.tracing(trace, meta={"phase": "serve", "device": gpu_line}):
-            runs, spec, ctx = _serve_engine(torch, gpu_line)
+            runs, spec, ctx, tables = _serve_engine(torch, gpu_line)
         events = spans.load_trace(trace)["traceEvents"]
     problems = spans.validate_trace_events(events)
     if problems:
@@ -2991,9 +3233,105 @@ def phase_serve(torch, fa, gpu_line):
             or fused != sum(r["fast_path"]["fused_scans"] for r in runs):
         raise AssertionError(f"the span trace does not match the reports: {want}")
     _serve_spec_numbers(spec, events, gpu_line)
+    _serve_bench_tables(tables, spec)
     _serve_faults(torch, gpu_line, *ctx)
     print(f"[serve] phase wall {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def _serve_bench_tables(tables, spec):
+    """(h): records shaped as the bench scripts' ``BENCH_serve.json``,
+    ``BENCH_spec.json`` and ``BENCH_prefix.json`` from this phase's runs
+    ((b)'s greedy per-step run and (d)1's fused one; (f)1's greedy
+    speculative runs on (b)'s whole trace against (b)'s greedy run; (e)'s prefix
+    runs against its no-sharing one), through the port's three writers in a
+    temporary directory: each table's rows and speedups must be the ratios
+    this phase measured.  No request is served."""
+    import tempfile
+
+    from dlbb_tpu_torch.stats import serving_report as sr
+    from dlbb_tpu_torch.utils.config import save_json
+
+    def tps(report):
+        v = report["goodput_tokens_per_s"]
+        return {"median": v, "min": v, "max": v, "reps": [v]}
+
+    def ms(report, key):
+        return round(report[key]["median"] * 1e3, 3)
+
+    def row(report, **keys):
+        return {"output_tokens_per_s": tps(report), "ttft_p50_ms": ms(report, "ttft"),
+                "per_token_p50_ms": ms(report, "per_token_latency"),
+                "decode_units": report["decode_units"], **keys}
+
+    per, (fused, knobs) = tables["per_step"], tables["fused"]
+    k = knobs["decode_horizon"]
+    serve = {"schema": "dlbb_bench_serve_v1", "baseline": "per_step", "settings": {
+        "per_step": row(per, trace="b", decode_horizon=1),
+        f"fused_k{k}": row(fused, trace="b", decode_horizon=k)}}
+    want_serve = {"per_step": 1.0, f"fused_k{k}": round(
+        fused["goodput_tokens_per_s"] / per["goodput_tokens_per_s"], 3)}
+    greedy = dict(SERVE_SPEC_GREEDY)
+    spec_rows = {"greedy_per_step": row(per, speculation="greedy", decode_horizon=1)}
+    want_spec = {"greedy_per_step": 1.0}
+    for run in spec:
+        if run["goodput_ratio"] is None:  # the short trace's runs
+            continue
+        s = run["report"]["speculation"]
+        spec_rows[run["label"]] = row(
+            run["report"], speculation=s["mode"], spec_gamma=run["gamma"],
+            decode_horizon=greedy[run["label"]].get("decode_horizon", 1),
+            acceptance_rate=s["acceptance_rate"], mean_accepted_len=s["mean_accepted_len"],
+            draft_overhead_s=s["draft_overhead_s"], token_identical=True)
+        want_spec[run["label"]] = round(run["goodput_ratio"], 3)
+    spec_b = {"schema": "dlbb_bench_spec_v1", "baseline": "greedy_per_step",
+              "settings": spec_rows}
+    base_label = SERVE_PREFIX_RUNS[0][0]
+    base = tables["prefix"][base_label]
+    ptrace = tables["ptrace"]
+    prefix_rows, want_prefix = {}, {}
+    for label, pknobs in SERVE_PREFIX_RUNS:
+        rep = tables["prefix"][label]
+        ttft = round(ms(base, "ttft") / ms(rep, "ttft"), 3)
+        good = round(rep["goodput_tokens_per_s"] / base["goodput_tokens_per_s"], 3)
+        prefix_rows[f"e/{label}"] = row(
+            rep, trace="e", prefix_caching=pknobs.get("prefix_caching", False),
+            kv_quantization=pknobs.get("kv_quantization", "none"),
+            prefix_hit_rate=rep["prefix"]["hit_rate"],
+            tokens_reused=rep["prefix"]["tokens_reused"],
+            baseline=f"e/{base_label}", ttft_speedup_vs_baseline=ttft,
+            goodput_speedup_vs_baseline=good)
+        want_prefix[f"e/{label}"] = (ttft, good)
+    prefix_b = {"schema": "dlbb_bench_prefix_v1", "settings": prefix_rows, "traces": {"e": {
+        "shared_token_share": sum(r.prefix_len or 0 for r in ptrace)
+        / sum(r.prompt_len for r in ptrace),
+        "prefix_groups": SERVE_PREFIX_GROUPS, "prefix_len": SERVE_PREFIX_LEN}}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tables_",
+                                     dir=Path(__file__).resolve().parent) as tmp:
+        got = {}
+        for name, bench, writer, md in (
+                ("fastpath", serve, sr.write_fastpath_report, "FASTPATH.md"),
+                ("speculative", spec_b, sr.write_speculative_report, "SPECULATIVE.md"),
+                ("prefix", prefix_b, sr.write_prefix_report, "PREFIX.md")):
+            path = save_json(bench, Path(tmp) / f"{name}.json")
+            got[name] = ({r["setting"]: r for r in writer(path, Path(tmp))},
+                         (Path(tmp) / md).read_text())
+    fast, fast_md = got["fastpath"]
+    sp, sp_md = got["speculative"]
+    pf, pf_md = got["prefix"]
+    ok = ({n: r["speedup_vs_baseline"] for n, r in fast.items()} == want_serve
+          and {n: r["speedup_vs_baseline"] for n, r in sp.items()} == want_spec
+          and {n: (r["ttft_speedup"], r["goodput_speedup"]) for n, r in pf.items()}
+          == want_prefix
+          and all(f"{v:.2f}x" in fast_md for v in want_serve.values())
+          and all(f"{v:.2f}x" in sp_md for v in want_spec.values())
+          and all(f"{t:.2f}x | {g:.2f}x |" in pf_md for t, g in want_prefix.values()))
+    print(f"[serve] (h) the bench writers on this phase's runs: FASTPATH.md speedups "
+          f"{want_serve}; SPECULATIVE.md speedups against (b)'s greedy run {want_spec}; "
+          f"PREFIX.md (TTFT, goodput) speedups against (e)1 {want_prefix}; each table's "
+          f"rows the phase's ratios: {ok}")
+    if not ok:
+        raise AssertionError("a bench writer's table differs from the phase's own ratios")
 
 
 def _span_durations_ms(events, name, within):
@@ -3344,6 +3682,7 @@ def _serve_engine(torch, gpu_line):
     reports, steps = [], []
     engines = {}
     per_step = {}
+    tables = {}
     for i, mode in enumerate(SERVE_MODES):
         if mode not in engines:
             engines[mode] = engine(mode)
@@ -3366,6 +3705,8 @@ def _serve_engine(torch, gpu_line):
         if label == "fused" and not (same == SERVE_REQUESTS and fp["fused_scans"] > 0
                                      and report["decode_units"] < report["decode_steps"]):
             raise AssertionError("the fused decode differs from the per-step one")
+        if label == "fused":
+            tables["fused"] = (report, knobs)
         if label != "fused" and not (fp["prefill_chunks"] > 0 and fp["compacted_scans"] > 0):
             raise AssertionError("chunked prefill or compaction did not engage")
 
@@ -3417,8 +3758,9 @@ def _serve_engine(torch, gpu_line):
               f"median {median / bound:.2f}x")
     spec = _serve_spec_runs(torch, gpu_line, cfg, engine, trace,
                             per_step["greedy"][0], weight_bytes + cache_bytes)
+    tables.update(per_step=per_step["greedy"][0], prefix=prefix_runs, ptrace=ptrace)
     return (reports + [run["report"] for run in spec], spec,
-            (engine, trace, per_step["greedy"][0], weight_bytes, cache_bytes))
+            (engine, trace, per_step["greedy"][0], weight_bytes, cache_bytes), tables)
 
 
 def _serve_faults(torch, gpu_line, engine, trace, greedy, weight_bytes, cache_bytes):
@@ -3549,10 +3891,11 @@ def _serve_faults(torch, gpu_line, engine, trace, greedy, weight_bytes, cache_by
 
 def _serve_spec_runs(torch, gpu_line, cfg, engine, trace, greedy, base_bytes):
     """(f)1 and (f)2 on (b)'s engine setup and trace: greedy speculation
-    ("ngram", "draft-model", and "ngram" with adaptive γ on the fused fast
-    path), every request served at its full length with both ledgers
-    clean, every request's tokens (b)'s greedy run's and "ngram" equal to
-    itself on a second run, on the short trace (``SERVE_SPEC_SHORT``);
+    ("ngram", "draft-model" on the short trace, and "ngram" with adaptive γ
+    on the fused fast path), every request served at its full length with
+    both ledgers clean, every request's tokens (b)'s greedy run's and
+    "ngram" equal to itself on a second run, on the short trace
+    (``SERVE_SPEC_SHORT``);
     then sampled speculation on the short trace, replayed by its seed and
     moved by another.  Each run inside a ``smoke-run`` span; returns the
     runs for (f)3."""
@@ -3604,25 +3947,28 @@ def _serve_spec_runs(torch, gpu_line, cfg, engine, trace, greedy, base_bytes):
                                        else None)})
         return report
 
-    # (f)1
+    # (f)1; a run on the short trace gives the first tokens of (b)'s
     greedy_spec = []
     for label, knobs in SERVE_SPEC_GREEDY:
-        report = run(label, dict(knobs))
-        greedy_spec.append(report)
+        on = short if label in SERVE_SPEC_ON_SHORT else trace
+        report = run(label, dict(knobs), on)
         ref = greedy["completed_tokens"]
         diff = {rid: next(i for i, (a, b) in enumerate(zip(got, ref[rid])) if a != b)
-                for rid, got in report["completed_tokens"].items() if got != ref[rid]}
-        print(f"[serve] (f)1 {label}: {SERVE_REQUESTS - len(diff)} of {SERVE_REQUESTS} "
-              f"requests token-identical to (b)'s greedy run; first differing position by "
-              f"request {diff}")
+                for rid, got in report["completed_tokens"].items()
+                if got != ref[rid][:len(got)]}
+        print(f"[serve] (f)1 {label}: {len(on) - len(diff)} of {len(on)} requests "
+              f"token-identical to (b)'s greedy run{'' if on is trace else ' (its first tokens)'}"
+              f"; first differing position by request {diff}")
         if diff or report["speculation"]["verify_units"] == 0:
             raise AssertionError(f"greedy speculation ({label}) left (b)'s greedy tokens")
+        if on is trace:
+            greedy_spec.append(report)
         if label == "ngram":
             first_ngram = report
     agree = sum(len({tuple(r["completed_tokens"][rid]) for r in greedy_spec}) == 1
                 for rid in greedy["completed_tokens"])
-    print(f"[serve] (f)1 the {len(greedy_spec)} greedy speculative runs give one another's "
-          f"tokens for {agree} of {SERVE_REQUESTS} requests (printed, not gated)")
+    print(f"[serve] (f)1 the {len(greedy_spec)} greedy speculative runs on (b)'s trace give one "
+          f"another's tokens for {agree} of {SERVE_REQUESTS} requests (printed, not gated)")
     again = run("ngram again", dict(SERVE_SPEC_GREEDY[0][1]), short)
     same = sum(t == first_ngram["completed_tokens"][rid][:len(t)]
                for rid, t in again["completed_tokens"].items())
@@ -3809,10 +4155,13 @@ def _seq_launches(seq, name):
 
 def _dtrain_launches(dtrain, name):
     """A kernel's launches per optimizer step on each path of phase dtrain:
-    the four ZeRO stages' steps and the two ``run_train`` runs."""
+    the four ZeRO stages' steps, the two ``run_train`` runs, and each rank
+    of (b)'s resharded micro-batches."""
     out = {f"zero{stage}": r["launches"][name] for stage, r in dtrain["stages"].items()}
     for (stage, accum), run in dtrain["runs"].items():
         out[f"run_train_zero{stage}_ga{accum}"] = run["result"]["kernel_launches_per_step"][name]
+    for rank, n in dtrain["gloo"]["resharded"]["launches"].items():
+        out[f"resharded_rank{rank}"] = n[name] / DTRAIN_RESHARD["steps"]
     return out
 
 

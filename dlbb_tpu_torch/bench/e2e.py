@@ -14,8 +14,8 @@ e2e --world N`` starts it), ``parallel/plan.py::ParallelismPlan`` checks
 the config against the world and builds the (dp[, sp][, pp][, ep], tp)
 mesh: each rank draws its part of the model (``init_params``: its stage's
 layers, its experts, its tensor-parallel shards) and its dp rows and sp
-slice of the batch (``sharding.batch_spec``; the batch is whole over pp and
-ep), and runs the tensor-parallel forward, overlapped under
+slice of the batch (``sharding.batch_spec``, of each microbatch over pp;
+the batch is whole over pp and ep), and runs the tensor-parallel forward, overlapped under
 ``model.tp_overlap``, with ring or Ulysses attention over sp, pipelined in
 the plan's ``num_microbatches`` over pp, and its experts over ep.  ``transport`` says how its ring hops
 moved (``transformer.ring_transport``), None where it made none.  Each timed
@@ -70,7 +70,8 @@ def run_e2e(config: dict[str, Any], device=None,
         params = init_params(model_cfg, inp.get("seed", 42), device, **plan.coords())
         dataset = create_dataset_from_config(
             config, dtype=DTYPES[model_cfg.dtype], device=device,
-            hidden_size=model_cfg.hidden_size, **batch_spec(mesh))
+            hidden_size=model_cfg.hidden_size,
+            **batch_spec(mesh, plan.num_microbatches or 1))
         batch = dataset.get_batch()
     init_time = t_init.elapsed
     lead = mesh is None or dist.get_rank() == 0

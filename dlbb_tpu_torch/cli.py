@@ -450,15 +450,20 @@ def _serve(args) -> int:
 def _reports(args) -> int:
     """``cli reports``: the JAX CLI's reports that the port has, with its
     summary lines.  The serving report reads the port's own
-    ``serving_*.json`` and ``fleet_*.json`` under ``RESULTS/serving``, and
-    the fleet report the port's ``RESULTS/BENCH_fleet.json`` (never the
-    root ``BENCH_*.json``, which hold the JAX package's TPU runs).  An input
+    ``serving_*.json`` and ``fleet_*.json`` under ``RESULTS/serving``, the
+    fleet and fast-path reports the port's ``RESULTS/BENCH_fleet.json`` and
+    ``RESULTS/BENCH_serve.json`` (never the root ``BENCH_*.json``, which
+    hold the JAX package's TPU runs).  An input
     of a report whose module is not ported yet (the autotuner) is refused
     loudly, never skipped."""
     from pathlib import Path
 
     from dlbb_tpu_torch.stats.northstar import default_stats_1d_csv, write_northstar_report
-    from dlbb_tpu_torch.stats.serving_report import write_fleet_report, write_serving_report
+    from dlbb_tpu_torch.stats.serving_report import (
+        write_fastpath_report,
+        write_fleet_report,
+        write_serving_report,
+    )
     from dlbb_tpu_torch.stats.parallelism_report import (
         DEFAULT_FAMILIES,
         write_cp_scaling_report,
@@ -536,6 +541,15 @@ def _reports(args) -> int:
                   f"{stats_root / 'serving' / 'FLEET.md'}")
     else:
         print(f"fleet: no BENCH_fleet.json under {results_root} — skipped")
+    bench_serve = results_root / "BENCH_serve.json"
+    if bench_serve.exists():
+        frows = write_fastpath_report(bench_serve, stats_root / "serving")
+        if frows:
+            produced += 1
+            print(f"fastpath: {len(frows)} setting(s) -> "
+                  f"{stats_root / 'serving' / 'FASTPATH.md'}")
+    else:
+        print(f"fastpath: no BENCH_serve.json under {results_root} — skipped")
     if produced == 0:
         print("error: nothing to report — check --stats/--results point at the "
               "port's trees")

@@ -9,7 +9,13 @@ way and cut by ``batch_slice``: rank ``dp_rank`` of ``dp`` keeps rows
 ``[dp_rank B/dp, (dp_rank + 1) B/dp)`` and rank ``sp_rank`` of ``sp`` the
 sequence positions ``[sp_rank S/sp, (sp_rank + 1) S/sp)``, the slice JAX's
 ``device_put`` gives it under ``batch_spec`` (``models/sharding.py::
-batch_spec`` gives a mesh's ranks and sizes).
+batch_spec`` gives a mesh's ranks and sizes).  A training step that cuts
+the global batch into micro-batches (gradient accumulation, a pipeline's
+microbatches) takes ``chunks`` of them: each global micro-batch, rows
+``[i B/chunks, (i + 1) B/chunks)`` as JAX's ``reshape`` takes them, is laid
+over dp by itself, so a rank holds its share of every micro-batch, in
+order, as GSPMD reshards JAX's.  Every rank draws the global batch from
+the global seed, so no collective moves a row.
 """
 
 from __future__ import annotations
@@ -20,30 +26,49 @@ import numpy as np
 import torch
 
 
-def batch_slice(a, dp_rank: int = 0, dp: int = 1, sp_rank: int = 0, sp: int = 1):
+def dp_rows(rows: int, dp_rank: int, dp: int) -> tuple[int, int]:
+    """``(start, count)`` of rank ``dp_rank``'s part of ``rows`` rows laid
+    over ``dp`` ranks: near-equal contiguous parts, the first ``rows % dp``
+    ranks taking one more row (a rank may take none)."""
+    base, extra = divmod(rows, dp)
+    return dp_rank * base + min(dp_rank, extra), base + (dp_rank < extra)
+
+
+def batch_slice(a, dp_rank: int = 0, dp: int = 1, sp_rank: int = 0, sp: int = 1,
+                chunks: int = 1):
     """Rank ``(dp_rank, sp_rank)``'s rows and sequence positions of a global
-    ``[B, S, ...]`` array or tensor (a view)."""
+    ``[B, S, ...]`` array or tensor: with one chunk its ``B/dp`` rows (a
+    view), else its ``dp_rows`` part of each of the ``chunks`` micro-batches,
+    concatenated in micro-batch order (module docstring)."""
     b, s = a.shape[:2]
-    if b % dp != 0:
+    if chunks < 1 or b % chunks != 0:
+        raise ValueError(f"input.batch_size={b} not divisible into {chunks} micro-batches")
+    if chunks == 1 and b % dp != 0:
         raise ValueError(f"input.batch_size={b} not divisible by data_parallel={dp}")
     if s % sp != 0:
         raise ValueError(f"sequence length {s} not divisible by sp={sp}")
-    rows, cols = b // dp, s // sp
-    return a[dp_rank * rows:(dp_rank + 1) * rows, sp_rank * cols:(sp_rank + 1) * cols]
+    cols = slice(sp_rank * (s // sp), (sp_rank + 1) * (s // sp))
+    rows = b // chunks
+    start, count = dp_rows(rows, dp_rank, dp)
+    if chunks == 1:
+        return a[start:start + count, cols]
+    parts = [a[i * rows + start:i * rows + start + count, cols] for i in range(chunks)]
+    return (torch.cat(parts) if isinstance(a, torch.Tensor)
+            else np.concatenate(parts))
 
 
 class SyntheticEmbeddingDataset:
     def __init__(self, batch_size: int, seq_length: int, hidden_size: int,
                  seed: int = 42, dtype: torch.dtype = torch.bfloat16,
                  device="cpu", dp_rank: int = 0, dp: int = 1, sp_rank: int = 0,
-                 sp: int = 1) -> None:
+                 sp: int = 1, chunks: int = 1) -> None:
         self.batch_size = batch_size
         self.seq_length = seq_length
         self.hidden_size = hidden_size
         self.seed = seed
         host = np.random.default_rng(seed).standard_normal(
             (batch_size, seq_length, hidden_size), dtype=np.float32)
-        host = np.ascontiguousarray(batch_slice(host, dp_rank, dp, sp_rank, sp))
+        host = np.ascontiguousarray(batch_slice(host, dp_rank, dp, sp_rank, sp, chunks))
         self._batch = torch.from_numpy(host).to(device=device, dtype=dtype)
 
     def get_batch(self) -> torch.Tensor:
@@ -180,11 +205,11 @@ def create_dataset_from_config(config: dict[str, Any], dtype=torch.bfloat16,
                                device="cpu", hidden_size: Optional[int] = None,
                                seed_offset: int = 0, dp_rank: int = 0,
                                dp: int = 1, sp_rank: int = 0,
-                               sp: int = 1) -> SyntheticEmbeddingDataset:
+                               sp: int = 1, chunks: int = 1) -> SyntheticEmbeddingDataset:
     """Build from the YAML ``input:`` + ``model:`` sections;
     ``seed_offset`` derives another batch from the same config (the
-    training targets are seed + 1); ``dp_rank``/``dp`` and
-    ``sp_rank``/``sp`` select a slice (``batch_slice``)."""
+    training targets are seed + 1); ``dp_rank``/``dp``, ``sp_rank``/``sp``
+    and ``chunks`` select a slice (``batch_slice``)."""
     if hidden_size is None:
         hidden_size = config["model"]["hidden_size"]
     return SyntheticEmbeddingDataset(
@@ -198,4 +223,5 @@ def create_dataset_from_config(config: dict[str, Any], dtype=torch.bfloat16,
         dp=dp,
         sp_rank=sp_rank,
         sp=sp,
+        chunks=chunks,
     )

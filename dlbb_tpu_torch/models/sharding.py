@@ -48,8 +48,11 @@ the slice ``[r L/pp, (r+1) L/pp)`` of every stacked layer leaf
 ``copy_to_ep`` and ``reduce_from_ep`` are the conjugate pair over the ep
 group: the tokens are replicated over ep and each rank computes only its
 experts, so the combine is a sum over ep and the inputs' gradients are
-summed over it.  ``token_mean`` is the mean of a statistic over the ranks
-that cut the tokens of a batch (dp, sp), for the MoE load-balancing loss.
+summed over it.  ``token_mean`` is the mean of a per-token statistic over
+the ranks that cut the tokens of a batch (dp, sp), for the MoE
+load-balancing loss; the ranks may hold unequal shares of the tokens (a
+micro-batch that dp does not divide, ``data.batch_slice``), and
+``share_mean`` is the rank's share of a batch mean (the MSE).
 
 The collectives themselves (``all_reduce_sum``, ``all_gather_along``,
 ``reduce_scatter_along``) work on any dimension and take the tensor where
@@ -238,15 +241,16 @@ def unshard_params(shards: list[dict[str, Any]], config: ModelConfig,
     return {"layers": layers, "ln_f": dict(stages[0]["ln_f"])}
 
 
-def batch_spec(mesh) -> dict[str, int]:
+def batch_spec(mesh, chunks: int = 1) -> dict[str, int]:
     """This rank's part of the global batch on ``mesh`` (None: one device),
-    as ``data.batch_slice``'s arguments: its dp rows and its sp slice of the
-    sequence (JAX's ``batch_spec``, ``P(dp, sp, None)``)."""
+    as ``data.batch_slice``'s arguments: its dp rows of each of ``chunks``
+    micro-batches and its sp slice of the sequence (JAX's ``batch_spec``,
+    ``P(dp, sp, None)``, on each micro-batch)."""
     if mesh is None:
-        return {"dp_rank": 0, "dp": 1, "sp_rank": 0, "sp": 1}
+        return {"dp_rank": 0, "dp": 1, "sp_rank": 0, "sp": 1, "chunks": chunks}
     c, shape = mesh.coords, mesh.shape
     return {"dp_rank": c["dp"], "dp": shape["dp"], "sp_rank": c.get("sp", 0),
-            "sp": shape.get("sp", 1)}
+            "sp": shape.get("sp", 1), "chunks": chunks}
 
 
 def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
@@ -296,12 +300,19 @@ class _ReduceFrom(torch.autograd.Function):
 
 class _MeanFrom(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        return all_reduce_sum(x, group) / dist.get_world_size(group)
+    def forward(ctx, sums, count, groups):
+        both = torch.cat([sums.reshape(-1), sums.new_full((1,), float(count))])
+        ranks = 1
+        for group in groups:
+            both = all_reduce_sum(both, group)
+            ranks *= dist.get_world_size(group)
+        total = both[-1]
+        ctx.scale = ranks / total
+        return both[:-1].reshape(sums.shape) / total
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        return grad * ctx.scale, None, None
 
 
 class _GatherDP(torch.autograd.Function):
@@ -339,15 +350,26 @@ def reduce_from_ep(x: torch.Tensor, group) -> torch.Tensor:
     return _ReduceFrom.apply(x, group)
 
 
-def token_mean(x: torch.Tensor, groups) -> torch.Tensor:
-    """The mean of ``x``, a statistic of this rank's equal share of the
-    tokens, over the ranks of each of ``groups`` (dp, sp); the gradient
-    passes through unchanged.  Each rank's loss holds the replicated mean,
-    and the train step averages the ranks' gradients over dp and sums their
-    chunks' shares over sp, which gives every rank's statistic its 1/n."""
-    for group in groups:
-        x = _MeanFrom.apply(x, group)
-    return x
+def token_mean(sums: torch.Tensor, count: int, groups) -> torch.Tensor:
+    """The mean over all the tokens of ``groups`` (dp, sp) of a per-token
+    statistic, from ``sums``, its sum over this rank's ``count`` tokens
+    (none on a rank with no rows): the sums and the counts are summed over
+    the groups.  Each rank's loss holds the replicated mean, and the train
+    step divides each rank's gradients by the ranks of the groups (a mean
+    over dp, each sp chunk's share): the gradient of ``sums`` is scaled by
+    that number over the global count, so that every token's gradient
+    carries its 1/n, n the global token count, whatever the shares."""
+    return _MeanFrom.apply(sums, count, tuple(groups))
+
+
+def share_mean(x: torch.Tensor, share: float) -> torch.Tensor:
+    """``share`` times the mean of ``x`` over this rank's rows, where
+    ``share`` is its rows times dp over the batch's (1 where dp divides the
+    batch): summed over dp and divided by dp, the ranks' values give the
+    batch's mean.  On a rank with no rows it is 0, with a zero gradient."""
+    if x.numel() == 0:
+        return x.sum()
+    return torch.mean(x) * share
 
 
 def gather_dp(shard: torch.Tensor, dim: int, group) -> torch.Tensor:

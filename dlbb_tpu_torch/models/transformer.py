@@ -281,13 +281,14 @@ def moe_aux_loss(probs: torch.Tensor, gates: torch.Tensor, k: int,
     expert e, ``P_e`` its mean router probability, both over the
     ``[B, S]`` tokens; 1.0 at perfect balance.  ``groups`` are the process
     groups that cut the batch's tokens (dp, sp): both means are taken over
-    all of them (``sharding.token_mean``), as GSPMD takes JAX's over the
-    global batch."""
+    all of them, from the ranks' sums and token counts
+    (``sharding.token_mean``), as GSPMD takes JAX's over the global batch."""
     num_experts = probs.shape[-1]
-    f = (gates > 0).float().mean(dim=(0, 1)) / k
-    p = probs.mean(dim=(0, 1))
-    if groups:
-        f, p = token_mean(torch.stack([f, p]), groups).unbind(0)
+    if not groups:
+        f = (gates > 0).float().mean(dim=(0, 1)) / k
+        return num_experts * torch.sum(f * probs.mean(dim=(0, 1)))
+    sums = torch.stack([(gates > 0).float().sum(dim=(0, 1)) / k, probs.sum(dim=(0, 1))])
+    f, p = token_mean(sums, probs.shape[0] * probs.shape[1], groups).unbind(0)
     return num_experts * torch.sum(f * p)
 
 

@@ -232,9 +232,11 @@ def _flash_fwd_cuda(q, k, v, *, causal: bool, sm_scale: float):
     b, n, s, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     _check_head_dim(d)
-    _check_tma("the flash forward kernel", (("q", q), ("k", k), ("v", v)))
     o = torch.empty_like(q)
     lse = torch.empty((b, n, s), dtype=torch.float32, device=q.device)
+    if q.numel() == 0:  # a rank with no rows: no grid to launch
+        return o, lse
+    _check_tma("the flash forward kernel", (("q", q), ("k", k), ("v", v)))
     _launch("flash_fwd", "dlbb_flash_fwd_bf16", q.device,
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
@@ -263,12 +265,14 @@ def _flash_bwd_cuda(q, k, v, lse, do, delta, *, causal: bool, sm_scale: float,
     the kernels asked for (the other outputs are None)."""
     global flash_bwd_dq_launches, flash_bwd_dkv_launches
     _check_bwd_inputs(q, k, v, lse, do, delta)
-    _check_tma("the flash backward kernels", (("q", q), ("k", k), ("v", v), ("do", do)))
     b, n, s, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     out_dq = torch.empty_like(q) if dq else None
     dk = torch.empty_like(k) if dkv else None
     dv = torch.empty_like(v) if dkv else None
+    if q.numel() == 0:  # a rank with no rows: no grid to launch
+        return out_dq, dk, dv
+    _check_tma("the flash backward kernels", (("q", q), ("k", k), ("v", v), ("do", do)))
     ptr = [0 if t is None else t.data_ptr() for t in (out_dq, dk, dv)]
     _launch("flash_bwd", "dlbb_flash_bwd_bf16", q.device,
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5

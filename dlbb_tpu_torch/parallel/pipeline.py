@@ -10,8 +10,12 @@ slice of ``models/sharding.py``); its body is the port's block
 over the stage's dp group.  As in JAX, attention "full" runs "dense" inside
 a stage (JAX pins its einsum there, so the port has no flash route JAX
 lacks), and a stage's remat is full remat, whatever ``remat_policy``.
-The global batch of this rank (its dp rows; it is replicated over pp) is
-split into ``m`` equal microbatches along the batch.
+The m microbatches are the global batch's (JAX's ``reshape``), each laid
+over dp by itself (``data.batch_slice`` with ``chunks``): a rank's rows
+(replicated over pp) are its part of each microbatch in order, so it cuts
+them into ``m`` equal parts, empty on a rank with no rows of a microbatch
+that dp does not divide (it still runs every tick, for its stage's
+collectives).
 
 **GPipe** (``pipeline_forward``).  The schedule of ``m + pp - 1`` ticks:
 at tick t stage i runs microbatch t - i, stage 0 takes it from the batch,
@@ -47,11 +51,10 @@ only), the loss and the aux are summed over pp.  Bubble slots are skipped,
 as in GPipe, and the last stage, whose forward output nobody reads, skips
 its no-gradient forward.
 
-Under data parallelism each rank splits its own dp rows into the m
-microbatches, so a microbatch is a different set of global rows than
-JAX's (which splits the global batch); the MSE and its gradients do not
-depend on it, the MoE load-balancing loss does, so ``validate_aux``
-refuses the aux loss on a pipeline with dp above 1.
+Under data parallelism the MoE load-balancing loss of a microbatch is
+taken over its tokens on every dp rank (``sharding.token_mean``), as GSPMD
+takes JAX's over the global microbatch; the MSE is this rank's share of the
+batch mean (``sharding.share_mean``).
 """
 
 from __future__ import annotations
@@ -62,7 +65,12 @@ import numpy as np
 import torch
 
 from dlbb_tpu_torch.models.configs import ModelConfig
-from dlbb_tpu_torch.models.sharding import all_reduce_sum, local_config, reduce_from_tp
+from dlbb_tpu_torch.models.sharding import (
+    all_reduce_sum,
+    local_config,
+    reduce_from_tp,
+    share_mean,
+)
 from dlbb_tpu_torch.parallel.ring import BACKWARD, FORWARD, Ring
 
 
@@ -111,44 +119,26 @@ def validate_pipeline(config: ModelConfig, n_stages: int, batch_size: int,
     return m
 
 
-def validate_rows(rows: int, m: int, dp: int) -> None:
-    """The port's own check: each rank splits its ``rows`` (the global
-    batch over dp) into the m microbatches, where JAX splits the global
-    batch; so dp's slice must divide by m."""
-    if rows % m != 0:
-        raise ValueError(
-            f"{rows} rows per data-parallel rank (batch over dp={dp}) not "
-            f"divisible by num_microbatches={m}: each rank splits its own dp "
-            "rows into the microbatches, the port does not regroup rows across "
-            "ranks as JAX's global microbatches do")
-
-
-def validate_aux(mesh, with_aux: bool) -> None:
-    """Refuse the MoE load-balancing loss on a pipeline with dp above 1:
-    it is nonlinear in a microbatch's tokens, and the port's microbatches
-    are other rows than JAX's there (module docstring)."""
-    if with_aux and mesh.shape.get("dp", 1) > 1:
-        raise ValueError(
-            "the MoE load-balancing loss under pipeline_parallel > 1 needs "
-            "data_parallel = 1 in the port: each rank microbatches its own dp "
-            "rows, so a microbatch's routing statistics would be taken over "
-            "other tokens than JAX's")
+def split_rows(x: torch.Tensor, m: int) -> list[torch.Tensor]:
+    """``x`` cut along its rows into ``m`` equal parts (views), empty ones
+    too where ``x`` has no rows."""
+    rows = x.shape[0] // m
+    return [x.narrow(0, i * rows, rows) for i in range(m)]
 
 
 class _Stage:
     """This rank's pipeline stage: its index and the pp ring, the
     microbatch count, the stage's config (attention "full" as "dense",
     full remat, this rank's tp shard) and its stacked layer leaves in a
-    fixed order."""
+    fixed order.  ``batch_rows`` are this rank's (module docstring): JAX's
+    checks run on them, which the m parts of each microbatch divide."""
 
     def __init__(self, params, config: ModelConfig, mesh, num_microbatches,
                  batch_rows: int, dp_axes=None) -> None:
         self.n = mesh.shape["pp"]
         self.index = mesh.coords["pp"]
         self.last = self.index == self.n - 1
-        self.m = validate_pipeline(config, self.n, batch_rows * mesh.shape["dp"],
-                                   num_microbatches)
-        validate_rows(batch_rows, self.m, mesh.shape["dp"])
+        self.m = validate_pipeline(config, self.n, batch_rows, num_microbatches)
         self.ring = Ring(mesh.axis_groups["pp"])
         self.mesh = mesh
         cfg = config.with_(attention="dense") if config.attention == "full" else config
@@ -180,7 +170,7 @@ class _Stage:
         last stage's ``[B, ...]`` result (zeros elsewhere), aux this stage's
         fp32 sum over its layers and valid microbatches, graphs (where
         ``record``) each microbatch's ``(stage input, output, aux)``."""
-        mbs = x.chunk(self.m)
+        mbs = split_rows(x, self.m)
         self.zero = torch.zeros_like(mbs[0])
         outs = [self.zero] * self.m
         aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -214,7 +204,7 @@ class _Stage:
         their dtype) and, where ``x_grad``, the batch's (stage 0's, summed
         over pp: the batch is replicated there)."""
         acc: list[Optional[torch.Tensor]] = [None] * len(leaves)
-        gys = grad_y.chunk(self.m)
+        gys = split_rows(grad_y, self.m)
         dxs = [self.zero] * self.m
         cot = None
         ticks = self.m + self.n - 1
@@ -272,15 +262,14 @@ def pipeline_forward(params, x: torch.Tensor, config: ModelConfig, mesh,
                      dp_axes=None):
     """The full forward with the layer stack pipelined over the mesh's pp
     group, GPipe (module docstring): ``params`` are this rank's stage
-    (``sharding.shard_params`` with its ``pp_rank``), ``x`` its dp rows of
-    the batch, whole over pp; ``ln_f`` runs after the pipeline on every
+    (``sharding.shard_params`` with its ``pp_rank``), ``x`` its rows of the
+    m microbatches, whole over pp; ``ln_f`` runs after the pipeline on every
     rank.  ``with_aux`` also returns the MoE load-balancing loss, averaged
     over layers and microbatches (0.0 for a dense FFN)."""
     from dlbb_tpu_torch.models.transformer import final_norm
 
     stage = _Stage(params, config, mesh, num_microbatches, x.shape[0], dp_axes)
     moe_aux = with_aux and config.is_moe
-    validate_aux(mesh, moe_aux)
     if torch.is_grad_enabled() and any(p.requires_grad for p in stage.leaves):
         outputs, aux = _GPipe.apply(stage, moe_aux, x, *stage.leaves)
     else:
@@ -296,10 +285,11 @@ def pipeline_forward(params, x: torch.Tensor, config: ModelConfig, mesh,
 def pipeline_1f1b_grads(params, x: torch.Tensor, targets: torch.Tensor,
                         config: ModelConfig, mesh, num_microbatches: Optional[int] = None,
                         moe_aux_weight: float = 0.0, dp_axes=None,
-                        stats: Optional[dict] = None):
+                        stats: Optional[dict] = None, share: float = 1.0):
     """One 1F1B training pass (module docstring): ``(loss, grads)``, the
     loss the unpipelined MSE over this rank's rows (the mean of the equal
-    microbatches' means) plus ``moe_aux_weight`` times the layer and
+    microbatches' means) times its ``share`` of the batch's rows
+    (``sharding.share_mean``) plus ``moe_aux_weight`` times the layer and
     microbatch mean of the MoE aux, ``grads`` a tree like ``params`` (the
     stage's layer leaves and ``ln_f``, whose gradient is summed over pp),
     each in its leaf's dtype.  ``stats`` (a dict) receives
@@ -309,14 +299,13 @@ def pipeline_1f1b_grads(params, x: torch.Tensor, targets: torch.Tensor,
     stage = _Stage(params, config, mesh, num_microbatches, x.shape[0], dp_axes)
     n, s, m = stage.n, stage.index, stage.m
     with_aux = moe_aux_weight != 0.0 and config.is_moe
-    validate_aux(mesh, with_aux)
     pairs, fwd_tbl, bwd_tbl = schedule_1f1b(n, m)
     leaves = [p.detach().requires_grad_(True) for p in stage.leaves]
     ln_f = {p: t.detach().requires_grad_(True) for p, t in params["ln_f"].items()}
     lnf_names = list(ln_f)
     lnf_axes = None if dp_axes is None else dp_axes["ln_f"]
     aux_cot = moe_aux_weight / (config.num_layers * m)
-    mbs, tmbs = x.chunk(m), targets.chunk(m)
+    mbs, tmbs = split_rows(x, m), split_rows(targets, m)
     zero = torch.zeros_like(mbs[0])
     acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
     acc_lnf = {p: torch.zeros(t.shape, dtype=torch.float32, device=t.device)
@@ -343,7 +332,7 @@ def pipeline_1f1b_grads(params, x: torch.Tensor, targets: torch.Tensor,
                 y, aux = stage.run(h, leaves, with_aux)
                 if stage.last:
                     z = final_norm(y, ln_f, mesh, lnf_axes)
-                    loss_b = torch.mean((z.float() - tmbs[b].float()) ** 2)
+                    loss_b = share_mean((z.float() - tmbs[b].float()) ** 2, share)
                     outs = [loss_b]
                     cots = [torch.full_like(loss_b, 1.0 / m)]
                 else:

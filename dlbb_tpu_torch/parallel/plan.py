@@ -6,8 +6,8 @@ validation of the JAX plan with its messages (the device preflight, the
 reference's ``run_mpi.py:73-77``; attention/sp, MoE/ep, ``tp_overlap``;
 the pipeline's divisibility through ``pipeline.validate_pipeline``, which
 also resolves ``num_microbatches``, and ``num_microbatches`` without a
-pipeline), then the port's own refusals (uneven tp shards, Ulysses heads,
-a dp slice the microbatches do not divide), and builds the process-group
+pipeline), then the port's own refusals (uneven tp shards, Ulysses heads),
+and builds the process-group
 mesh in JAX's axis order ``(dp[, sp][, pp][, ep], tp)``.  The devices are
 the ranks of the default process group, one device per rank; without a
 process group there is one.
@@ -29,7 +29,7 @@ from dlbb_tpu_torch.models.configs import (
     validate_tp_overlap,
     validate_tp_shards,
 )
-from dlbb_tpu_torch.parallel.pipeline import validate_pipeline, validate_rows
+from dlbb_tpu_torch.parallel.pipeline import validate_pipeline
 
 def degrees(config: dict[str, Any]) -> tuple[int, int, int, int, int]:
     """``(dp, sp, pp, ep, tp)`` from the YAML ``parallelism:`` section
@@ -80,8 +80,6 @@ def check_plan(config: dict[str, Any], model_cfg: ModelConfig,
         )
     validate_tp_shards(model_cfg, tp)
     validate_sp_heads(model_cfg, tp, sp)
-    if pp > 1:
-        validate_rows(config["input"]["batch_size"] // dp, m, dp)
     if n_avail > needed:
         raise ValueError(
             f"{n_avail} ranks in the process group, the config's mesh has "

@@ -12,8 +12,8 @@ SLO deadlines, the SIGTERM drain), the scheduler and
 serving harness (``bench``: ``run_serving``, ``resume_serving``,
 ``run_serve_from_config``, behind ``cli serve``), and the replica fleet
 (``fleet``: ``FleetSupervisor`` and ``run_fleet``, behind ``cli serve
---replicas``).  The other report writers of the serving benchmarks come
-with ROADMAP Queue 1, Slice E, item 12, part 12c."""
+--replicas``).  The serving benchmarks' report writers are in
+``stats/serving_report.py``, their scripts ``scripts/torch_bench_*.py``."""
 
 from dlbb_tpu_torch.serve.engine import (
     SERVING_REPORT_SCHEMA,

@@ -6,9 +6,7 @@ comparison per family: GPipe against 1F1B, ring against Ulysses, MoE dense
 against capacity dispatch, and the gradient-accumulation pair, each pair
 the same config except for the axis under test; and the long-context grid
 of ring against Ulysses (``train_ddp_cp_s{S}_sp{P}_{impl}.json``).  A member
-without a result is listed with null times.  ``ga2_reshard_b20`` is one the
-port cannot produce: it refuses a micro-batch that dp does not divide
-(``train/loop.py::check_accumulation``, a ROADMAP gap), where JAX reshards.
+without a result is listed with null times.
 
 Over gloo on one card (or on the CPU) the times are correctness runs, not
 speeds; within a family the members run the same model on the same mesh,
@@ -36,7 +34,7 @@ DEFAULT_FAMILIES: dict[str, list[str]] = {
     "context_parallel": ["sp2_ring", "sp2_ulysses"],
     "moe_dispatch": ["ep2_moe_dense", "ep2_moe_capacity"],
     # batch 16 keeps the micro-batches divisible by dp=4, batch 20 does not
-    # (JAX reshards it; the port refuses it): per-token throughput compares
+    # (each micro-step reshards it): per-token throughput compares
     "grad_accum_reshard": ["ga2_divisible_b16", "ga2_reshard_b20"],
 }
 
@@ -101,8 +99,7 @@ def write_parallelism_report(results_dir: Path, out_dir: Path,
         "Step-time comparison of the parallelism extensions, each family "
         "measured at an identical config except for the axis under test "
         f"(the port's `train_*.json` results in `{results_dir}`).  A member "
-        "without a result has blank times: `ga2_reshard_b20` needs a "
-        "micro-batch that dp does not divide, which the port refuses.",
+        "without a result has blank times.",
         "",
         "Runs of several ranks over gloo on one card or on the CPU are "
         "correctness runs, not speeds; within a family the members run the "

@@ -15,7 +15,17 @@ layout and the stages are described.
 
 With a mesh (``ParallelismPlan.mesh``, a (dp[, sp], tp) grid of process
 groups) each rank holds its tp shards (``models/sharding.py``) and its dp
-rows and sp slice of the sequence (``sharding.batch_spec``).  The loss is
+rows and sp slice of the sequence (``sharding.batch_spec``): under gradient
+accumulation and a pipeline its part of each of the global batch's
+micro-batches (``data.batch_slice`` with ``step_chunks``), as JAX splits
+the global batch first and GSPMD lays each micro-batch over dp.  A
+micro-batch that dp does not divide gives the first ranks one row more (a
+rank may get none: it runs the step on an empty batch, joins every
+collective and adds zero); JAX warns of it under "full" and "simplified"
+and refuses it under "flash", "ring" and "ulysses" (``check_accumulation``).
+Each rank's loss is its share of the batch mean (``sharding.share_mean``:
+its rows times dp over the batch's), so the dp reduction, a sum divided by
+dp at every ZeRO stage, gives JAX's mean over the micro-batch.  The loss is
 JAX's MSE over the whole batch: where the sequence is cut over sp, and over
 tp under ``tp_overlap`` (whose forward returns the rank's chunk, against
 the same chunk of the targets), each rank backpropagates its chunk's mean
@@ -25,8 +35,8 @@ every parameter is replicated over sp, and under ``tp_overlap`` the
 LayerNorms and row-parallel biases act on each tp rank's own chunk.  The
 sum happens once, before ``Zero`` reduces over dp; the tp-sharded leaves'
 gradients are whole on their rank already (the collective matmuls'
-backward rings carry the other chunks' parts).  Gradient accumulation
-splits the rank's dp slice into ``grad_accum`` micro-batches and
+backward rings carry the other chunks' parts).  Gradient accumulation runs
+the rank's rows of each of the ``grad_accum`` micro-batches in turn and
 accumulates their gradients in fp32; the result is their mean, cast to the
 param dtype (``dlbb_tpu/train/loop.py:405-436``).  Stages 0 and 1 reduce the accumulated gradient once; stage 2
 reduce-scatters each micro-step's gradient and accumulates the shard; at
@@ -40,12 +50,10 @@ A mesh with a pp axis above 1 pipelines the forward
 through the GPipe forward, "1f1b" runs ``pipeline_1f1b_grads``, JAX's
 dispatch (``dlbb_tpu/train/loop.py:354-367``); the layer leaves are the
 stage's, ``ln_f``'s gradient is whole on every stage.  On a MoE model
-``moe_aux_weight`` adds the load-balancing loss (``mse_loss``); an ep axis
-cuts the experts, whose gradients stay on their rank.  The port's
-micro-steps and microbatches are each rank's own dp rows, where JAX's are
-the global batch's, so the aux loss (nonlinear in a micro-batch's tokens)
-with dp above 1 is refused under gradient accumulation and pipelines
-(``check_moe_aux``).
+``moe_aux_weight`` adds the load-balancing loss (``mse_loss``), its means
+taken over each global micro-batch's tokens on every dp rank
+(``sharding.token_mean``); an ep axis cuts the experts, whose gradients
+stay on their rank.
 
 ``run_train`` is the config-driven benchmark: the plan and mesh from the
 config (``check_plan``), the sharded init and
@@ -82,6 +90,7 @@ import math
 import os
 import signal
 import time
+import warnings
 from pathlib import Path
 from typing import Any, NamedTuple, Optional
 
@@ -90,12 +99,13 @@ import torch
 import torch.distributed as dist
 
 from dlbb_tpu_torch.comm.compression import psum_compressed, quantization_error
-from dlbb_tpu_torch.data.synthetic import create_dataset_from_config
+from dlbb_tpu_torch.data.synthetic import create_dataset_from_config, dp_rows
 from dlbb_tpu_torch.models.configs import ModelConfig
 from dlbb_tpu_torch.models.sharding import (
     all_reduce_sum,
     batch_spec,
     kv_copy_sources,
+    share_mean,
     sum_kv_copies,
     tp_dim,
 )
@@ -112,8 +122,8 @@ from dlbb_tpu_torch.ops import flash_attention as flash_mod
 from dlbb_tpu_torch.parallel.collective_matmul import seq_chunk
 from dlbb_tpu_torch.parallel.pipeline import (
     pipeline_1f1b_grads,
+    split_rows,
     validate_pipeline,
-    validate_rows,
 )
 from dlbb_tpu_torch.parallel.plan import ParallelismPlan
 from dlbb_tpu_torch.parallel.ring import hop_transport
@@ -155,12 +165,13 @@ class TrainState(NamedTuple):
 
 def mse_loss(params, batch, targets, config: ModelConfig, mesh=None,
              dp_axes=None, num_microbatches: Optional[int] = None,
-             moe_aux_weight: float = 0.0) -> torch.Tensor:
+             moe_aux_weight: float = 0.0, share: float = 1.0) -> torch.Tensor:
     """MSE of the forward against the target batch, in fp32: on a mesh,
     over this rank's slice (``forward``'s ``mesh``, ``dp_axes`` and
-    ``num_microbatches``), under ``tp_overlap`` its chunk of the sequence;
-    plus ``moe_aux_weight`` times the MoE load-balancing loss where the
-    weight is above 0 (``training.moe_aux_loss_weight``)."""
+    ``num_microbatches``), under ``tp_overlap`` its chunk of the sequence,
+    times its ``share`` of the batch's rows (``sharding.share_mean``); plus
+    ``moe_aux_weight`` times the MoE load-balancing loss where the weight
+    is above 0 (``training.moe_aux_loss_weight``)."""
     aux = 0.0
     if moe_aux_weight > 0.0:
         pred, aux = forward(params, batch, config, mesh=mesh, dp_axes=dp_axes,
@@ -170,7 +181,7 @@ def mse_loss(params, batch, targets, config: ModelConfig, mesh=None,
                        num_microbatches=num_microbatches)
     if use_tp_overlap(config, mesh):
         targets = seq_chunk(targets, mesh)
-    mse = torch.mean((pred.float() - targets.float()) ** 2)
+    mse = share_mean((pred.float() - targets.float()) ** 2, share)
     return mse + moe_aux_weight * aux
 
 
@@ -209,42 +220,57 @@ def resolve_zero_stage(zero1: bool = False,
     return 1 if zero1 else 0
 
 
-def check_accumulation(batch_size: int, grad_accum: int, dp: int) -> None:
-    """The global batch must split into ``grad_accum`` micro-batches of
-    whole dp slices.  JAX reshards a micro-batch that dp does not divide
-    (``dlbb_tpu/train/loop.py:378-404``, with a warning); the port's ranks
-    split their own slices, so it refuses the case."""
+def check_accumulation(batch_size: int, grad_accum: int, dp: int,
+                       attention: str) -> None:
+    """JAX's rule for the global batch under ``grad_accum`` micro-batches
+    (``dlbb_tpu/train/loop.py:372-404``), with its messages: the batch must
+    split into them; a micro-batch that dp does not divide is resharded
+    under "full" and "simplified", with JAX's warning, and refused under
+    the attention modes that lay the batch over dp themselves."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if batch_size % grad_accum != 0:
         raise ValueError(f"batch_size={batch_size} not divisible by "
                          f"gradient_accumulation={grad_accum}")
-    if (batch_size // grad_accum) % dp != 0:
-        raise ValueError(
-            f"micro-batch size {batch_size // grad_accum} (batch_size={batch_size} / "
-            f"grad_accum={grad_accum}) not divisible by dp={dp}: each rank splits its "
-            "own dp slice into the micro-batches, and the port does not reshard a "
-            "micro-batch across ranks as JAX does (ROADMAP Queue 1, Slice D remainder, "
-            "item 17)")
+    b = batch_size
+    if grad_accum == 1 or (b // grad_accum) % dp == 0:
+        return
+    if attention in ("full", "simplified"):
+        warnings.warn(
+            f"micro-batch size {b // grad_accum} (batch_size={b} / "
+            f"grad_accum={grad_accum}) not divisible by "
+            f"dp={dp}; each micro-step reshards the batch "
+            "instead of keeping the dp layout (correct but "
+            "slower — measured pair: results/torch/parallelism/"
+            "train_ddp_ga2_{divisible_b16,reshard_b20}.json, "
+            "per-token throughput in "
+            "stats/torch/parallelism/PARALLELISM.md)",
+            stacklevel=2,
+        )
+        return
+    raise ValueError(
+        f"micro-batch size {b // grad_accum} (batch_size={b} / "
+        f"grad_accum={grad_accum}) not divisible by "
+        f"dp={dp}: attention={attention!r} "
+        "partitions the batch over dp inside shard_map and "
+        "cannot reshard a smaller micro-batch"
+    )
 
 
-def check_moe_aux(moe_aux_weight: float, config: ModelConfig, dp: int,
-                  grad_accum: int, pp: int) -> None:
-    """JAX's check of the aux weight (a MoE model), then the port's own:
-    with dp above 1 the aux loss is refused under gradient accumulation and
-    pipelines (module docstring)."""
+def step_chunks(grad_accum: int, num_microbatches: Optional[int]) -> int:
+    """The global micro-batches a train step cuts its batch into: each
+    accumulation micro-batch's pipeline microbatches (``batch_slice``'s
+    ``chunks``; ``num_microbatches`` None without a pipeline)."""
+    return grad_accum * (num_microbatches or 1)
+
+
+def check_moe_aux(moe_aux_weight: float, config: ModelConfig) -> None:
+    """JAX's check of the aux weight: a MoE model."""
     if moe_aux_weight > 0.0 and not config.is_moe:
         raise ValueError(
             "training.moe_aux_loss_weight requires a MoE model "
             "(model.num_experts > 0)"
         )
-    if moe_aux_weight > 0.0 and dp > 1 and (grad_accum > 1 or pp > 1):
-        raise ValueError(
-            "training.moe_aux_loss_weight with data_parallel > 1 and "
-            "gradient_accumulation > 1 or pipeline_parallel > 1: each rank splits "
-            "its own dp rows into the micro-batches, so a micro-batch's routing "
-            "statistics would be taken over other tokens than JAX's (ROADMAP "
-            "Queue 1, Slice D remainder, item 18)")
 
 
 def check_pipeline_schedule(pipeline_schedule: str, pp: int) -> None:
@@ -321,7 +347,7 @@ def make_train_step(config: ModelConfig, optimizer: GradientTransformation,
                     num_microbatches: Optional[int] = None,
                     moe_aux_weight: float = 0.0, pipeline_schedule: str = "gpipe",
                     grad_compression: str = "none", compression_accum: str = "float32",
-                    residual_dtype: Optional[str] = None):
+                    residual_dtype: Optional[str] = None, *, batch_size: int):
     """(step fn, initial ``TrainState``) for ZeRO stage ``zero_stage`` (0
     DDP, 1 sharded optimizer state, 2 and sharded gradients, 3 sharded
     parameters) on ``mesh`` (None: one device, no process group).
@@ -332,7 +358,14 @@ def make_train_step(config: ModelConfig, optimizer: GradientTransformation,
     ``moe_aux_weight`` weights the MoE load-balancing loss (module
     docstring).  ``grad_compression`` reduces over dp on the quantised ring,
     accumulating in ``compression_accum``, with the error-feedback residual
-    stored in ``residual_dtype`` (module docstring).
+    stored in ``residual_dtype`` (module docstring).  ``batch_size`` is the
+    global batch's rows: the accumulation and the pipeline's microbatches
+    are checked against it as JAX checks them (``check_accumulation``,
+    ``validate_pipeline``), and the step takes this rank's rows of it, its
+    part of each of the ``step_chunks`` global micro-batches
+    (``data.batch_slice`` with the mesh's ``sharding.batch_spec``), each
+    rank's loss carrying its share of the rows; it refuses a batch of
+    another row count.
     ``step.grads(state, batch, targets) -> (loss, grads)`` is the step
     without its update: the global loss and the reduced mean gradients, in
     the layout the optimizer updates (``step.zero``, a ``train/zero.py::
@@ -346,8 +379,17 @@ def make_train_step(config: ModelConfig, optimizer: GradientTransformation,
     pp = 1 if mesh is None else mesh.shape.get("pp", 1)
     check_pipeline_schedule(pipeline_schedule, pp)
     stage = resolve_zero_stage(zero1, zero_stage)
-    check_moe_aux(moe_aux_weight, config, 1 if mesh is None else mesh.shape["dp"],
-                  grad_accum, pp)
+    dp = 1 if mesh is None else mesh.shape["dp"]
+    check_moe_aux(moe_aux_weight, config)
+    check_accumulation(batch_size, grad_accum, dp, config.attention)
+    # each micro-step pipelines batch / grad_accum rows: the microbatch
+    # schedule must divide them (JAX's training-only check)
+    m = (validate_pipeline(config, pp, batch_size // grad_accum, num_microbatches)
+         if pp > 1 else None)
+    chunks = step_chunks(grad_accum, m)
+    rows = chunks * dp_rows(batch_size // chunks, batch_spec(mesh)["dp_rank"], dp)[1]
+    # this rank's rows times dp over the batch's: exactly 1.0 for an equal share
+    share = rows * dp / batch_size
     check_grad_compression(grad_compression, config, mesh, stage, grad_accum,
                            moe_aux_weight)
     zero = Zero(stage, optimizer, params, mesh)
@@ -365,11 +407,12 @@ def make_train_step(config: ModelConfig, optimizer: GradientTransformation,
         if pipeline_schedule == "1f1b":
             loss, grads = pipeline_1f1b_grads(
                 params, batch, targets, config, mesh, num_microbatches=num_microbatches,
-                moe_aux_weight=moe_aux_weight, dp_axes=dp_axes)
+                moe_aux_weight=moe_aux_weight, dp_axes=dp_axes, share=share)
             return loss.detach(), grads
         leaves = tree_leaves(params)
         loss = mse_loss(params, batch, targets, config, mesh=mesh, dp_axes=dp_axes,
-                        num_microbatches=num_microbatches, moe_aux_weight=moe_aux_weight)
+                        num_microbatches=num_microbatches, moe_aux_weight=moe_aux_weight,
+                        share=share)
         if seq_shards > 1:  # this chunk's share of the dp slice's mean
             loss = loss / seq_shards
         grads = iter(torch.autograd.grad(loss, leaves))
@@ -380,12 +423,8 @@ def make_train_step(config: ModelConfig, optimizer: GradientTransformation,
         return loss, grads
 
     def accumulate(params, batch, targets):
-        b = batch.shape[0]
-        if b % grad_accum != 0:
-            raise ValueError(f"this rank's batch of {b} rows is not divisible by "
-                             f"grad_accum={grad_accum}")
         total = loss_sum = None
-        for x, t in zip(batch.chunk(grad_accum), targets.chunk(grad_accum)):
+        for x, t in zip(split_rows(batch, grad_accum), split_rows(targets, grad_accum)):
             loss, g = loss_and_grads(params, x, t)
             if stage == 2:
                 g = zero.reduce(g)
@@ -398,6 +437,11 @@ def make_train_step(config: ModelConfig, optimizer: GradientTransformation,
         return loss_sum * inv, grads if stage == 2 else zero.reduce(grads)
 
     def reduced_grads(state: TrainState, batch, targets):
+        if batch.shape[0] != rows:
+            raise ValueError(
+                f"this rank's batch has {batch.shape[0]} rows; its part of a global "
+                f"batch of {batch_size} in {chunks} micro-batches over dp={dp} has "
+                f"{rows} (data.batch_slice with step_chunks)")
         if grad_accum == 1:
             loss, grads = loss_and_grads(state.params, batch, targets)
             grads = zero.reduce(grads)
@@ -524,23 +568,9 @@ def _run_train(config, zero1, zero_stage, device, output_dir, verbose):
     lead = mesh is None or dist.get_rank() == 0
     moe_aux_weight = float(train_cfg.get("moe_aux_loss_weight", 0.0))
     grad_accum = int(train_cfg.get("gradient_accumulation", 1))
-    check_accumulation(inp["batch_size"], grad_accum, plan.dp)
     pipeline_schedule = str(train_cfg.get("pipeline_schedule", "gpipe"))
     check_pipeline_schedule(pipeline_schedule, plan.pp)
-    check_moe_aux(moe_aux_weight, model_cfg, plan.dp, grad_accum, plan.pp)
-    if grad_accum > 1 and plan.pp > 1:
-        # each micro-step pipelines batch / grad_accum rows: the microbatch
-        # schedule must divide the accumulation micro-batch too (JAX's
-        # training-only check), and the port's rows per dp rank
-        validate_pipeline(model_cfg, plan.pp, inp["batch_size"] // grad_accum,
-                          plan.num_microbatches)
-        validate_rows(inp["batch_size"] // grad_accum // plan.dp,
-                      plan.num_microbatches, plan.dp)
-    dtype = DTYPES[model_cfg.dtype]
-    batch, targets = (create_dataset_from_config(
-        config, dtype=dtype, device=device, hidden_size=model_cfg.hidden_size,
-        seed_offset=offset, **batch_spec(mesh)).get_batch()
-        for offset in (0, 1))
+    check_moe_aux(moe_aux_weight, model_cfg)
 
     lr = learning_rate(train_cfg)
     optimizer = build_optimizer(train_cfg)
@@ -551,6 +581,7 @@ def _run_train(config, zero1, zero_stage, device, output_dir, verbose):
     check_grad_compression(grad_compression, model_cfg, mesh, stage, grad_accum,
                            moe_aux_weight)
     params = init_params(model_cfg, inp.get("seed", 42), device, **plan.coords())
+    # the accumulation's checks and warning (check_accumulation) come with the step
     step_fn, state = make_train_step(model_cfg, optimizer, params, mesh=mesh,
                                      zero_stage=stage, grad_accum=grad_accum,
                                      num_microbatches=plan.num_microbatches,
@@ -560,7 +591,14 @@ def _run_train(config, zero1, zero_stage, device, output_dir, verbose):
                                      compression_accum=comp_accum,
                                      # the residual follows the moments'
                                      # storage dtype, as in JAX
-                                     residual_dtype=moments_dtype(train_cfg))
+                                     residual_dtype=moments_dtype(train_cfg),
+                                     batch_size=inp["batch_size"])
+    dtype = DTYPES[model_cfg.dtype]
+    batch, targets = (create_dataset_from_config(
+        config, dtype=dtype, device=device, hidden_size=model_cfg.hidden_size,
+        seed_offset=offset,
+        **batch_spec(mesh, step_chunks(grad_accum, plan.num_microbatches))).get_batch()
+        for offset in (0, 1))
     del params
 
     # checkpoint / resume before warmup, so that the restored step counter

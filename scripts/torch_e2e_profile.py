@@ -143,7 +143,7 @@ def _train_step(torch, record_function, x, args):
             return inner.update(grads, state, params)
 
     step_fn, state = make_train_step(cfg, GradientTransformation(inner.init, update),
-                                     init_params(cfg, 42, "cuda"))
+                                     init_params(cfg, 42, "cuda"), batch_size=args.batch)
     targets = SyntheticEmbeddingDataset(args.batch, args.seq, cfg.hidden_size,
                                         seed=43, device="cuda").get_batch()
     holder = [state]

@@ -132,7 +132,8 @@ def main() -> int:
                                 ("zero2", 2), ("zero3", 3)):
                 step_fn, state = make_train_step(
                     cfg, build_optimizer(config["training"]), init_params(cfg, 42, "cuda"),
-                    mesh=None if stage is None else mesh, zero_stage=stage or 0)
+                    mesh=None if stage is None else mesh, zero_stage=stage or 0,
+                    batch_size=config["input"]["batch_size"])
                 holder = [state]
 
                 def step():

@@ -96,7 +96,7 @@ def test_corrupt_step_is_refused_on_every_rank(tmp_path):
 def test_checkpointer_alone_saves_at_its_interval_and_refuses_another_layout(tmp_path):
     cfg = ModelConfig(**MODEL)
     step, state = pt_loop.make_train_step(cfg, pt_optim.build_optimizer({}),
-                                          init_params(cfg, 0, "cpu"))
+                                          init_params(cfg, 0, "cpu"), batch_size=1)
     ckpt = Checkpointer(CheckpointConfig(str(tmp_path), save_interval_steps=2,
                                          max_to_keep=2), layout={"zero_stage": 0})
     saved = []

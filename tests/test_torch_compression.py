@@ -440,7 +440,7 @@ def test_refusals_match_jax(name, weights):
     with pytest.raises(ValueError) as got:
         pt_loop.make_train_step(ModelConfig(**MODEL), pt_optim.build_optimizer(SGD),
                                 params_from_jax(weights, ModelConfig(**MODEL)),
-                                mesh=port_mesh, **kwargs)
+                                mesh=port_mesh, batch_size=8, **kwargs)
     assert str(got.value) == str(want.value)
 
 

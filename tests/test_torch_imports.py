@@ -1,6 +1,7 @@
 """The port stands alone: no file of ``dlbb_tpu_torch/``, not
 ``chip_smoke.py`` or ``bench_torch.py``, and not ``scripts/torch_{e2e,comm,zero}_profile.py``,
-``scripts/torch_gloo_p2p_probe.py`` or ``scripts/torch_bench_fleet.py`` imports
+``scripts/torch_gloo_p2p_probe.py``, ``scripts/torch_bench_{fleet,serving,speculative,
+prefix}.py`` or their helper ``scripts/_torch_serve_bench.py`` imports
 ``jax`` or any module of ``dlbb_tpu`` (the JAX package runs nowhere on the card's
 machine).  Static AST check, one case per file, in the manner of
 ``tests/test_fleet.py``'s host-side pin."""
@@ -16,7 +17,9 @@ PORT_FILES = sorted(
     + ["chip_smoke.py", "bench_torch.py", "scripts/torch_e2e_profile.py",
        "scripts/torch_comm_profile.py",
        "scripts/torch_zero_profile.py", "scripts/torch_gloo_p2p_probe.py",
-       "scripts/torch_bench_fleet.py"]
+       "scripts/torch_bench_fleet.py", "scripts/torch_bench_serving.py",
+       "scripts/torch_bench_speculative.py", "scripts/torch_bench_prefix.py",
+       "scripts/_torch_serve_bench.py"]
 )
 
 

@@ -3,8 +3,8 @@ against the JAX package's.
 
 Single process: ``schedule_1f1b``'s tables against JAX's over a grid of
 (pp, m), ``validate_pipeline``'s messages against JAX's, the plan's
-microbatch resolution and the port's own refusals, and a checkpoint's
-refusal to restore onto another pp layout.
+microbatch resolution and JAX's refusals, and a checkpoint's refusal to
+restore onto another pp layout.
 
 On 8 gloo ranks (``tests/torch_pipe_worker.py``), against JAX on the same
 mesh of the CPU-simulated devices, fp32:
@@ -24,9 +24,10 @@ mesh of the CPU-simulated devices, fp32:
   (``pp/zero1``, ``pp-1f1b/zero1``: dp=2 x pp=2 x tp=2, ZeRO-1, m=4, the
   dryrun's model at tp=2), two Adam steps, losses to ``LOSS_RTOL`` and full
   leaves to ``ADAM_ATOL``; one SGD step at ZeRO-3 under both schedules,
-  with gradient accumulation, and on a MoE model at pp=2 x ep=2 x tp=2
-  with the aux loss, whose reduced gradients must be JAX's to
-  ``GRAD_RTOL``;
+  with gradient accumulation, on a MoE model at pp=2 x ep=2 x tp=2 and at
+  dp=2 x pp=2 with the aux loss, and at dp=4 x pp=2 on microbatches of 2
+  rows (two ranks of each stage hold none), whose reduced gradients must
+  be JAX's to ``GRAD_RTOL``;
 - ``run_e2e`` and ``run_train`` on pipeline and expert-parallel configs
   (the YAML keys ``pipeline_parallel``, ``num_microbatches``,
   ``pipeline_schedule``, ``expert_parallel``, ``num_experts``,
@@ -130,14 +131,23 @@ def test_plan_resolves_pipeline_and_expert_parallelism(par, model, want, m):
 
 @pytest.mark.parametrize("name", ["rows", "layers", "experts", "aux"])
 def test_pipeline_and_expert_refusals(name):
-    """The port's own refusal (a dp slice the microbatches do not divide:
-    JAX splits the global batch), JAX's (uneven layers over pp, experts over
-    ep), and the aux loss with dp above 1 under a pipeline."""
+    """JAX's refusals (uneven layers over pp, experts over ep; the aux
+    weight without a MoE model), and what JAX plans where the port used to
+    refuse: microbatches that dp does not divide (``rows``: 8 rows in 4
+    microbatches of 2 over dp=4) and the aux loss with dp above 1 under a
+    pipeline or accumulation (``aux``).  The port's steps on both are held
+    against JAX's below (``rows/dp4pp2/m4``, ``sgd/moe/dp2pp2-1f1b/aux``) and
+    in ``tests/test_torch_reshard.py``."""
     if name == "rows":
+        from dlbb_tpu.parallel.plan import ParallelismPlan as JaxPlan
+
         config = _config({"pipeline_parallel": 2, "num_microbatches": 4,
                           "data_parallel": 4}, batch=8)
-        with pytest.raises(ValueError, match="rows per data-parallel rank"):
-            pt_plan.check_plan(config, ModelConfig.from_dict(config["model"]), 8)
+        jplan = JaxPlan.from_config(config, jax_configs.ModelConfig(**config["model"]))
+        want = (jplan.dp, jplan.sp, jplan.pp, jplan.ep, jplan.tp)
+        assert pt_plan.check_plan(config, ModelConfig.from_dict(config["model"]), 8) == want
+        assert pt_plan.microbatches(config, ModelConfig.from_dict(config["model"])) == \
+            jplan.num_microbatches == 4
     elif name == "layers":
         config = _config({"pipeline_parallel": 3})
         with pytest.raises(ValueError, match="num_layers=4 not divisible by pipeline_parallel=3"):
@@ -149,13 +159,10 @@ def test_pipeline_and_expert_refusals(name):
     else:
         from dlbb_tpu_torch.train.loop import check_moe_aux
 
-        cfg = ModelConfig(**MOE)
-        with pytest.raises(ValueError, match="micro-batch's routing statistics"):
-            check_moe_aux(AUX, cfg, dp=2, grad_accum=1, pp=2)
         with pytest.raises(ValueError, match="requires a MoE model"):
-            check_moe_aux(AUX, ModelConfig(**DENSE), dp=1, grad_accum=1, pp=1)
-        check_moe_aux(AUX, cfg, dp=2, grad_accum=1, pp=1)
-        check_moe_aux(AUX, cfg, dp=1, grad_accum=2, pp=2)
+            check_moe_aux(AUX, ModelConfig(**DENSE))
+        check_moe_aux(AUX, ModelConfig(**MOE))
+        check_moe_aux(0.0, ModelConfig(**DENSE))
 
 
 def test_checkpoint_refuses_another_pipeline_layout(tmp_path):
@@ -219,6 +226,11 @@ SGD_CASES = {
                                      microbatches=2, schedule="1f1b"),
     "sgd/moe/pp2ep2tp2-1f1b/aux": _train((1, 1, 2, 2, 2), SGD, 1, "moe", microbatches=2,
                                          schedule="1f1b", aux=AUX),
+    # microbatches of 2 rows over dp=4: ranks with no rows in a pipeline
+    "rows/dp4pp2/m4": _train((4, 1, 2, 1, 1), SGD, 1, "dense", microbatches=4),
+    # each dp rank's half of each global microbatch: JAX's routing statistics
+    "sgd/moe/dp2pp2-1f1b/aux": _train((2, 1, 2, 1, 1), SGD, 1, "moe", microbatches=2,
+                                      schedule="1f1b", aux=AUX),
 }
 TRAIN = {**DRYRUN_CASES, **SGD_CASES}
 

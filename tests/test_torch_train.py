@@ -379,7 +379,7 @@ def test_gradient_accumulation_matches_jax_grad_accum(devices, dtype):
     for ga in (2, 1):
         pstep, pstate = pt_loop.make_train_step(
             pcfg, pt_optim.build_optimizer(train_cfg), params_from_jax(tree, pcfg),
-            grad_accum=ga)
+            grad_accum=ga, batch_size=x.shape[0])
         pstate, ploss = pstep(pstate, torch.from_numpy(x).to(td), torch.from_numpy(t).to(td))
         results[ga] = (float(ploss), _by_path(pstate.params))
     rtol = 1e-5 if dtype == "float32" else 1e-3
@@ -398,14 +398,85 @@ def test_gradient_accumulation_matches_jax_grad_accum(devices, dtype):
                 assert rel <= 5e-2, (ga, name, rel)
 
 
-def test_gradient_accumulation_refuses_a_split_dp_does_not_divide():
-    """JAX reshards a micro-batch that dp does not divide; the port's ranks
-    split their own slices and refuse the case, naming it."""
-    with pytest.raises(ValueError, match=r"micro-batch size 3 .* not divisible by dp=2"):
-        pt_loop.check_accumulation(6, 2, 2)
+@pytest.mark.parametrize("attention", ["full", "simplified", "flash", "ring", "ulysses"])
+def test_gradient_accumulation_refuses_a_split_dp_does_not_divide(devices, attention):
+    """JAX's rule for a micro-batch that dp does not divide, with its texts:
+    JAX's ``make_train_step`` at dp=2 (sp=2 for ring and Ulysses), batch 6,
+    ``grad_accum`` 2, warns under "full" and "simplified" (the port's
+    measured pair lies under ``results/torch/`` and its table under
+    ``stats/torch/``) and refuses under the modes that lay the batch over dp
+    themselves; the port's ``check_accumulation`` does the same, and
+    refuses a batch that the micro-batches do not divide.  The resharded
+    step itself is held against JAX in ``tests/test_torch_reshard.py``."""
+    import warnings
+
+    from dlbb_tpu.comm.mesh import build_parallelism_mesh
+
+    sp = 2 if attention in ("ring", "ulysses") else 1
+    jcfg = jax_configs.ModelConfig(hidden_size=32, num_layers=1, num_heads=2,
+                                   ffn_intermediate=64, dtype="float32", attention=attention)
+    mesh = build_parallelism_mesh(2, sp, 1, 1, 1, devices=devices[:2 * sp])
+    step, state = jax_loop.make_train_step(jcfg, mesh, jax_optim.build_optimizer({}),
+                                           jax_tf.init_params(jcfg, jax.random.key(0)),
+                                           grad_accum=2)
+    x = jnp.zeros((6, 128, 32))
+    with warnings.catch_warnings(record=True) as jw:
+        warnings.simplefilter("always")
+        try:
+            step(state, x, x)
+            jerr = None
+        except ValueError as e:
+            jerr = str(e)
+    with warnings.catch_warnings(record=True) as pw:
+        warnings.simplefilter("always")
+        try:
+            pt_loop.check_accumulation(6, 2, 2, attention)
+            perr = None
+        except ValueError as e:
+            perr = str(e)
+    assert perr == jerr
+    if attention in ("full", "simplified"):
+        assert jerr is None and len(jw) == len(pw) == 1
+        assert str(pw[0].message) == str(jw[0].message).replace(
+            "results/parallelism/", "results/torch/parallelism/").replace(
+            "stats/parallelism/", "stats/torch/parallelism/")
+        assert "results/torch/parallelism/train_ddp_ga2_{divisible_b16,reshard_b20}.json" in str(
+            pw[0].message)
+    else:
+        assert "cannot reshard a smaller micro-batch" in perr and not pw
     with pytest.raises(ValueError, match="batch_size=6 not divisible by gradient_accumulation=4"):
-        pt_loop.check_accumulation(6, 4, 1)
-    pt_loop.check_accumulation(8, 2, 2)
+        pt_loop.check_accumulation(6, 4, 1, attention)
+    pt_loop.check_accumulation(8, 2, 2, attention)
+
+
+@pytest.mark.parametrize("rank,rows", [(0, 4), (1, 2)])
+def test_train_step_refuses_a_batch_laid_out_another_way(rank, rows):
+    """Batch 6 in 2 micro-batches over dp=2: rank 0 holds 2 rows of each, rank
+    1 one (``data.batch_slice`` with ``step_chunks``), and the step takes
+    exactly that many; each rank's 3-row dp slice of the whole batch is
+    refused before any collective, and a step without ``batch_size`` cannot
+    be built."""
+    import warnings
+
+    from dlbb_tpu_torch.comm.mesh import Mesh, MeshSpec
+    from dlbb_tpu_torch.data import batch_slice
+
+    cfg = pt_configs.ModelConfig(hidden_size=32, num_layers=1, num_heads=2,
+                                 ffn_intermediate=64, dtype="float32")
+    mesh = Mesh(MeshSpec((2, 1), ("dp", "tp")), rank, None, {"dp": None, "tp": None})
+    x = torch.zeros(6, 16, 32)
+    assert batch_slice(x, rank, 2, chunks=pt_loop.step_chunks(2, None)).shape[0] == rows
+    params = pt_tf.init_params(cfg, 0, "cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # JAX's reshard warning: held above
+        step, state = pt_loop.make_train_step(cfg, pt_optim.build_optimizer({}), params,
+                                              mesh=mesh, grad_accum=2, batch_size=6)
+    slice_ = batch_slice(x, rank, 2)
+    with pytest.raises(ValueError, match=f"batch has 3 rows; its part of a global batch of "
+                                         f"6 in 2 micro-batches over dp=2 has {rows}"):
+        step.grads(state, slice_, slice_)
+    with pytest.raises(TypeError, match="batch_size"):
+        pt_loop.make_train_step(cfg, pt_optim.build_optimizer({}), params)
 
 
 def _mesh(jcfg):
@@ -429,7 +500,8 @@ def test_three_adam_steps_match_jax_make_train_step(devices, dtype, mdt):
         jcfg, _mesh(jcfg), jax_optim.build_optimizer(train_cfg),
         jax.tree.map(jnp.array, tree), zero_stage=0)
     pstep, pstate = pt_loop.make_train_step(
-        pcfg, pt_optim.build_optimizer(train_cfg), params_from_jax(tree, pcfg))
+        pcfg, pt_optim.build_optimizer(train_cfg), params_from_jax(tree, pcfg),
+        batch_size=x.shape[0])
     losses_j, losses_t = [], []
     for _ in range(3):
         jstate, loss = jstep(jstate, jnp.asarray(x, jd), jnp.asarray(t, jd))

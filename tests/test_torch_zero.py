@@ -6,7 +6,8 @@ of the CPU-simulated devices of ``conftest.py``.
 The port runs on 8 spawned gloo ranks (``tests/torch_train_worker.py``),
 each case on the first dp x tp of them; JAX weights come across with
 ``params_from_jax`` and are cut with ``shard_params``; the global batches
-are seeded numpy arrays, each rank taking its dp slice.  After the steps the
+are seeded numpy arrays, each rank taking its rows of each global
+micro-batch, as ``run_train`` lays them.  After the steps the
 test reassembles the full leaves from every rank's shards (``unshard_tree``
 over dp at stage 3, ``unshard_params`` over tp) and holds them against JAX's.
 
@@ -21,7 +22,10 @@ The cases:
   ``ADAM_ATOL`` = 0.1 x lr absolute, the bound ``test_torch_train.py``
   argues: Adam steps every element by about lr whatever the size of its
   gradient, so where a gradient is near 0 its last-bit differences can
-  turn the step;
+  turn the step; the elements whose gradient is within ``GRAD_RTOL`` of
+  their leaf's largest of 0 at a step of JAX's trajectory (the qkv bias's
+  K columns, 0 in exact arithmetic) are held to Adam's own bound instead
+  (``torch_mesh_parity.hold_adam``);
 - one SGD step without momentum at every ZeRO stage, at dp=2 x tp=2 and at
   dp=8, and with GQA at dp=2 x tp=4 with 4, 2 and 1 kv heads (tp=4 does not
   divide 2 or 1: the kv-copy gradient).  ``p1 = p0 - lr g``, so ``(p0 -
@@ -44,6 +48,7 @@ import pytest
 import torch
 import torch_train_worker
 from jax.sharding import NamedSharding
+from torch_mesh_parity import hold_adam, jax_adam_reference
 
 from dlbb_tpu.comm.mesh import build_parallelism_mesh as jax_parallelism_mesh
 from dlbb_tpu.models import configs as jax_configs
@@ -60,7 +65,7 @@ from dlbb_tpu_torch.train import zero as pt_zero
 torch.set_num_threads(1)
 
 LR, SGD_LR = 1e-3, 1024.0
-LOSS_RTOL, ADAM_ATOL, GRAD_RTOL = 1e-5, 0.1 * LR, 1e-5
+LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-5
 # the dryrun's test model at tp=4: hidden 16 tp, ffn 32 tp
 MODEL = dict(hidden_size=64, num_layers=2, num_heads=4, ffn_intermediate=128,
              dtype="float32", attention="full")
@@ -188,13 +193,9 @@ def _by_path(tree, prefix=""):
 @pytest.mark.parametrize("case_id", sorted(DRYRUN) + sorted(OPT_CASES))
 def test_train_steps_match_jax(ranks, weights, batches, case_id):
     spec = CASES[case_id]
-    ref_losses, ref = jax_run(spec, weights, batches)
-    np.testing.assert_allclose(_losses(ranks, case_id), ref_losses, rtol=LOSS_RTOL)
     got = _by_path(full_params(ranks, case_id, spec, weights))
-    ref = _by_path(ref)
-    assert set(got) == set(ref) and len(got) == 14
-    for name, p in got.items():
-        np.testing.assert_allclose(p, ref[name], atol=ADAM_ATOL, rtol=0, err_msg=name)
+    assert len(got) == 14
+    hold_adam(_losses(ranks, case_id), got, jax_adam_reference(spec, weights, batches), spec)
     assert all(r[case_id]["step"] == spec["steps"] for r in ranks if case_id in r)
 
 

@@ -78,7 +78,8 @@ def _train_case(spec, mesh, weights, batches):
         return make_train_step(cfg, build_optimizer(spec["train"]), params, mesh=mesh,
                                zero_stage=spec["stage"], grad_compression=spec["comp"],
                                compression_accum=spec.get("accum", "float32"),
-                               residual_dtype=spec.get("residual_dtype"))
+                               residual_dtype=spec.get("residual_dtype"),
+                               batch_size=batches[0].shape[0])
 
     step, state = build()
     res = {"residual_dtype": None, "coords": mesh.coords}

@@ -130,7 +130,7 @@ def run_memmap_train_case(spec, weight_dir, batch):
     x, t = (torch.from_numpy(np.ascontiguousarray(batch_slice(a, **batch_spec(mesh))))
             for a in batch)
     step, state = make_train_step(cfg, build_optimizer(spec["train"]), local, mesh=mesh,
-                                  zero_stage=spec["stage"])
+                                  zero_stage=spec["stage"], batch_size=batch[0].shape[0])
     del local
     losses = []
     for _ in range(spec["steps"]):

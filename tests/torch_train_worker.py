@@ -12,7 +12,7 @@ from dlbb_tpu_torch.models import ModelConfig, params_from_jax
 from dlbb_tpu_torch.models.sharding import batch_spec, shard_params
 from dlbb_tpu_torch.models.transformer import DTYPES
 from dlbb_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
-from dlbb_tpu_torch.train.loop import make_train_step
+from dlbb_tpu_torch.train.loop import make_train_step, step_chunks
 from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
 
 
@@ -54,7 +54,9 @@ def run_train_cases(cases, weights, batches):
     ``checkpoint`` (a directory: save after ``steps - 1`` steps, restore
     into a fresh state, take the last step there and uninterrupted).
     ``weights``: JAX parameter trees as float32 numpy; ``batches``: global
-    ``(x, targets)`` float32 numpy pairs.  Every rank builds every mesh, in
+    ``(x, targets)`` float32 numpy pairs, each rank taking its rows of
+    each of the step's global micro-batches (``step_chunks``), as
+    ``run_train`` lays them.  Every rank builds every mesh, in
     the order the cases first name them; the ranks of a mesh run its
     cases.  Returns, for this rank, ``{case id: result}``."""
     meshes = {}
@@ -73,7 +75,10 @@ def run_train_cases(cases, weights, batches):
         dtype = DTYPES[cfg.dtype]
         local = shard_params(params_from_jax(weights[spec["weights"]], cfg), cfg, c["tp"], tp,
                              c.get("pp", 0), pp, c.get("ep", 0), ep)
-        x, t = (torch.from_numpy(np.ascontiguousarray(batch_slice(a, **batch_spec(mesh))))
+        rows = batches[spec["batch"]][0].shape[0]
+        chunks = step_chunks(spec["grad_accum"],
+                             spec.get("microbatches") or (pp if pp > 1 else None))
+        x, t = (torch.from_numpy(np.ascontiguousarray(batch_slice(a, **batch_spec(mesh, chunks))))
                 .to(dtype) for a in batches[spec["batch"]])
 
         def build():
@@ -81,7 +86,7 @@ def run_train_cases(cases, weights, batches):
                                    zero_stage=spec["stage"], grad_accum=spec["grad_accum"],
                                    num_microbatches=spec.get("microbatches"),
                                    pipeline_schedule=spec.get("schedule", "gpipe"),
-                                   moe_aux_weight=spec.get("aux", 0.0))
+                                   moe_aux_weight=spec.get("aux", 0.0), batch_size=rows)
 
         step, state = build()
         res = {"coords": c, "opt_shapes": _state_shapes(state.opt_state)}
@@ -145,7 +150,8 @@ def run_corrupt_restore(fields, weights, directory):
     mesh = build_parallelism_mesh(2, 1, 1, 2, 1)
     cfg = ModelConfig(**fields)
     local = shard_params(params_from_jax(weights, cfg), cfg, mesh.coords["tp"], 2)
-    _, state = make_train_step(cfg, build_optimizer({}), local, mesh=mesh, zero_stage=1)
+    _, state = make_train_step(cfg, build_optimizer({}), local, mesh=mesh, zero_stage=1,
+                               batch_size=2)
     plan = "ckpt-corrupt:@3" if torch.distributed.get_rank() == 0 else None
     layout = {"mesh": {"dp": 2, "tp": 2}, "zero_stage": 1}
     with inject.plan_scope(plan), Checkpointer(
