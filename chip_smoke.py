@@ -3,7 +3,12 @@
 
     python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm,tp,dtrain,seq,moe,pipe,compress,bench,kv,serve,fleet]
 
-Phases (each raises on failure, and the script then exits non-zero):
+Phases (each raises on failure, and the script then exits non-zero).  The
+multi-rank runs of phases tp, dtrain, seq, moe, pipe and compress, processes
+on the one card over gloo, are the jobs of one spawn of ``GLOO_WORLD``
+processes (``_run_gloo_jobs``), made after phase 1 and before the phases
+that check them: each job in turn on the first ranks of one gloo group
+(a spawn costs about 17 s before its ranks reach the card).
 
 1. build every CUDA kernel of the port from ``dlbb_tpu_torch/ops/csrc``,
    print each kernel's ``ptxas`` registers and the three kernels' tiles
@@ -44,7 +49,12 @@ Phases (each raises on failure, and the script then exits non-zero):
    1 GiB per rank, bf16, 10 warmup and 100 timed iterations, every payload
    on the card; check every result JSON (schema keys, one row of finite
    timings per rank), run the 1D and 3D statistics into their CSVs, and
-   print the median time per op at 16MB and at (8, 4096, 4096);
+   print the median time per op at 16MB and at (8, 4096, 4096); then (c)
+   the sweep's resilience (``COMM_FAULT_OPS`` x 1KB-16MB under
+   ``exec-transient:1,exec-hang:@3`` with the watchdog and a span trace):
+   the transient retried, the hang abandoned at the deadline and
+   quarantined with no late write, the trace valid, and ``resume``
+   re-validating every artifact and completing the grid;
 7. drive the tensor-parallel forward: the 7B baseline at world 1 through
    ``launch`` over NCCL, equal bit for bit to the forward with no process
    group, and the 1B at tp=2 as two processes on the one card over gloo,
@@ -67,8 +77,14 @@ Phases (each raises on failure, and the script then exits non-zero):
    at dp=2, ZeRO-2 (``DTRAIN_RESHARD``: each micro-batch resharded, 2 rows
    on one rank and 1 on the other), two steps against the world-1 steps on
    the same global batch, JAX's warning once per rank, each rank's flash
-   launches following its rows; errors and wall time printed, not timed
-   as a benchmark;
+   launches following its rows; then, on four processes, tp=4 where it does not divide the heads (``DTRAIN_UNEVEN_MODEL``:
+   hidden 384, 6 heads of 64, FFN 1536, through the flash kernel), its
+   forward and step against world 1's and its flash launches per rank;
+   and the 1B train state (2 layers, as (a)'s checkpoint) saved at ZeRO-1
+   on dp=2 and restored onto ZeRO-3 on dp=2 and onto world 1, each
+   gathered state bit-equal to the saved one and the next step's loss
+   against the uninterrupted step's; errors and wall time printed, not
+   timed as a benchmark;
 9. ``seq``, the sequence-sharded layouts: (a) at world 1 over NCCL in the
    script's process, the collective-matmul sweep ops ``ag_matmul`` and
    ``matmul_rs`` at phase ``comm``'s three 3D shapes: each schedule's first
@@ -86,7 +102,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    not fit on one card beside each other) against the world-1 step, within
    the bounds argued at ``SEQ_*``; the flash launches of each rank and the
    ring hops' transport printed (gloo's point-to-point takes no CUDA
-   tensor, so the hops go through host memory);
+   tensor, so the hops go through host memory); on 8 processes, Ulysses
+   where sp does not divide a tp rank's heads
+   (``SEQ_ULYSSES_GATHER``: the tests' narrow model, 4 heads at tp=2,
+   sp=4, fp32) against the dense path at world 1;
 10. ``moe``, the MoE FFN: the 1B with 4 experts, top-2, bf16, at full width
    and depth (3.6 B parameters): (a) ``run_e2e`` at world 1 with the dense
    and the capacity dispatch, B=8, S=512, "full" (24 flash forward launches
@@ -231,6 +250,7 @@ import math
 import re
 import statistics
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -798,8 +818,9 @@ def _tp_worker(configs):
     return out
 
 
-def _tp_output(config):
-    """The TP forward's output on this rank, on the host."""
+def _tp_output(config, plan=None):
+    """The TP forward's output on this rank, on the host; ``plan`` is the
+    config's plan on the process group unless given (``_job_plan``)."""
     import torch
 
     from dlbb_tpu_torch.data import create_dataset_from_config
@@ -807,7 +828,7 @@ def _tp_output(config):
     from dlbb_tpu_torch.parallel import ParallelismPlan
 
     model_cfg = ModelConfig.from_dict(config["model"])
-    plan = ParallelismPlan.from_config(config, model_cfg)
+    plan = plan or ParallelismPlan.from_config(config, model_cfg)
     coords = plan.mesh.coords
     params = init_params(model_cfg, config["input"]["seed"], "cuda",
                          tp_rank=coords["tp"], tp=plan.tp)
@@ -819,37 +840,117 @@ def _tp_output(config):
     return y.cpu()
 
 
-def _gloo_tp_rank(rank, world, init_file, config, out_dir):
-    """One rank of the gloo tp run on the one card (spawned by
-    ``_spawn_gloo``): its output goes to ``out_dir/r<rank>.pt``."""
+def _tp_gloo_job(config, device):
+    """Phase tp's job of the one gloo spawn: the 1B forward at tp=2 on the
+    first two ranks, on the host; None past them."""
+    from dlbb_tpu_torch.models import ModelConfig
+
+    plan = _job_plan(config, ModelConfig.from_dict(config["model"]))
+    return None if plan is None else _tp_output(config, plan)
+
+
+# the script's one gloo spawn (``_run_gloo_jobs``): every phase's multi-rank
+# runs, processes on the one card, a job at a time on the first ranks of the
+# group (a spawn costs about 17 s before its ranks reach the card)
+GLOO_WORLD = 8
+
+
+def _gloo_job_bodies():
+    """Each job kind's body, called as ``body(*args, device)`` on every rank
+    of the spawn (its mesh is a collective call): the rank's result, None
+    past the job's mesh."""
+    return {"tp": _tp_gloo_job, "step": _dtrain_gloo_step, "reshard": _dtrain_reshard_steps,
+            "uneven": _dtrain_uneven_run, "ckpt": _dtrain_ckpt_run, "seq": _seq_gloo_runs,
+            "moe": _moe_ep_job, "pipe": _pipe_job, "compress_ring": _compress_ring_ops,
+            "compress_train": _compress_train_runs}
+
+
+def _gloo_ranks(rank, world, init_file, jobs, device, out_dir):
+    """One rank of the one gloo spawn: each job ``(kind, *args)`` in turn,
+    with its seconds in the rank; the ``(result, seconds)`` pairs, in job
+    order, written to ``out_dir/r<rank>.pt``."""
     import torch
 
     from dlbb_tpu_torch.comm import destroy_distributed, initialize_distributed
 
-    torch.cuda.set_device(0)
-    initialize_distributed("gloo", rank, world, init_file, timeout=600)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    initialize_distributed("gloo", rank, world, init_file, timeout=900)
     try:
-        torch.save(_tp_output(config), f"{out_dir}/r{rank}.pt")
+        bodies, out = _gloo_job_bodies(), []
+        for kind, *args in jobs:
+            t0 = time.perf_counter()
+            out.append((bodies[kind](*args, device), time.perf_counter() - t0))
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        torch.save(out, f"{out_dir}/r{rank}.pt")
     finally:
         destroy_distributed()
 
 
-def _spawn_gloo(torch, fn, world, *args):
-    """``fn(rank, world, init_file, *args, out_dir)`` as ``world`` processes
-    on cuda:0 over gloo; returns each rank's ``out_dir/r<rank>.pt``."""
+def _run_gloo_jobs(torch, jobs, device="cuda"):
+    """Every phase's gloo jobs (``{phase: [job, ...]}``) in one spawn of
+    ``GLOO_WORLD`` processes on cuda:0 (or on the CPU, to rehearse); returns
+    ``{phase: [{"ranks": the results of the job's ranks, "seconds": rank
+    0's time in it}, ...]}``.  Rank 0 is in every job's mesh, so it waits
+    for no earlier job there, where a rank past the meshes waits in the
+    next job's mesh for the ranks still at work."""
     import os
     import tempfile
 
     import torch.multiprocessing as mp
 
+    flat = [job for phase_jobs in jobs.values() for job in phase_jobs]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_gloo_") as tmp:
-        mp.start_processes(fn, args=(world, os.path.join(tmp, "store"), *args, tmp),
-                           nprocs=world, join=True, start_method="spawn")
-        return [torch.load(os.path.join(tmp, f"r{r}.pt"), weights_only=False)
-                for r in range(world)]
+        mp.start_processes(_gloo_ranks, args=(GLOO_WORLD, os.path.join(tmp, "store"), flat,
+                                              device, tmp),
+                           nprocs=GLOO_WORLD, join=True, start_method="spawn")
+        per_rank = [torch.load(os.path.join(tmp, f"r{r}.pt"), weights_only=False)
+                    for r in range(GLOO_WORLD)]
+    out, k = {}, 0
+    for phase, phase_jobs in jobs.items():
+        out[phase] = []
+        for _ in phase_jobs:
+            out[phase].append({"ranks": [r[k][0] for r in per_rank if r[k][0] is not None],
+                               "seconds": per_rank[0][k][1]})
+            k += 1
+    return out
 
 
-def phase_tp(torch, gpu_line):
+def _job_mesh(config, model_cfg):
+    """A gloo spawn's mesh for one job of ``config``: its plan checked
+    against its own rank count (``check_plan``) and laid over the first
+    ranks of the world, so that one spawn serves jobs of several sizes; a
+    collective call, every rank in the same order; None past the mesh."""
+    import math
+
+    from dlbb_tpu_torch.comm import build_parallelism_mesh
+    from dlbb_tpu_torch.parallel.plan import check_plan, degrees
+
+    dp, sp, pp, ep, tp = check_plan(config, model_cfg, math.prod(degrees(config)))
+    return build_parallelism_mesh(dp, sp, pp, tp, ep)
+
+
+def _job_plan(config, model_cfg):
+    """``ParallelismPlan.from_config`` for a job of the one spawn: the plan
+    of ``_job_mesh``'s mesh; None past the mesh."""
+    from dlbb_tpu_torch.parallel.plan import ParallelismPlan, degrees, microbatches
+
+    mesh = _job_mesh(config, model_cfg)
+    return (None if mesh is None
+            else ParallelismPlan(*degrees(config), microbatches(config, model_cfg), mesh))
+
+
+# phase tp's gloo job: the 1B decoder at tp=2 (``_tp_gloo_job``)
+TP_GLOO_CONFIG = {"experiment": {"name": "chip_smoke_1b_tp2_gloo"},
+                  "model": {"size": "1B", "attention": "full", "dtype": "bfloat16"},
+                  "parallelism": {"world_size": 2, "data_parallel": 1},
+                  "input": {"batch_size": 8, "sequence_length": 512, "seed": 42}}
+
+
+def phase_tp(torch, gpu_line, jobs):
+    """Phase tp (module docstring); ``jobs``: its gloo job's results
+    (``_run_gloo_jobs``)."""
     import copy
 
     from dlbb_tpu_torch.bench.launch import launch
@@ -912,13 +1013,10 @@ def phase_tp(torch, gpu_line):
         out[attention] = {"result": result, "launches": launches}
 
     # the 1B decoder at tp=2, two processes on the one card over gloo
-    config = {"experiment": {"name": "chip_smoke_1b_tp2_gloo"},
-              "model": {"size": "1B", "attention": "full", "dtype": "bfloat16"},
-              "parallelism": {"world_size": 2, "data_parallel": 1},
-              "input": {"batch_size": 8, "sequence_length": 512, "seed": 42}}
+    config = TP_GLOO_CONFIG
     model_cfg = ModelConfig.from_dict(config["model"])
-    t0 = time.perf_counter()
-    ys = _spawn_gloo(torch, _gloo_tp_rank, 2, config)
+    [job] = jobs
+    ys = job["ranks"]
     if not torch.equal(ys[0], ys[1]):
         raise AssertionError("1B tp=2: the two ranks' outputs differ")
     params = init_params(model_cfg, 42, "cuda")
@@ -934,7 +1032,7 @@ def phase_tp(torch, gpu_line):
     print(f"[tp] 1B forward at tp=2, two processes on one card over gloo (CUDA "
           f"tensors), attention=full: relative L2 against the world-1 forward "
           f"{rel:.3e} (bound {bound:.3e}), max abs {(y - ref).abs().max().item():.3e}; "
-          f"{time.perf_counter() - t0:.1f} s, not timed")
+          f"{job['seconds']:.1f} s in the ranks, not timed")
     if not bool(torch.isfinite(y).all()) or not rel <= bound:
         raise AssertionError("the 1B tp=2 forward disagrees with the world-1 forward")
     del params, ref, y, ys
@@ -984,13 +1082,12 @@ def _zero_flash_counts(fa):
 
 
 def _dtrain_batch(config, model_cfg, device, coords=None, dp=1):
-    import torch
-
     from dlbb_tpu_torch.data import create_dataset_from_config
+    from dlbb_tpu_torch.models.transformer import DTYPES
 
     coords = coords or {"dp": 0}
     return tuple(create_dataset_from_config(
-        config, dtype=torch.bfloat16, device=device, hidden_size=model_cfg.hidden_size,
+        config, dtype=DTYPES[model_cfg.dtype], device=device, hidden_size=model_cfg.hidden_size,
         seed_offset=off, dp_rank=coords["dp"], dp=dp).get_batch() for off in (0, 1))
 
 
@@ -1073,49 +1170,25 @@ def _dtrain_world1(config, ckpt_dir, device="cuda"):
     return out
 
 
-def _dtrain_gloo_ranks(rank, world, init_file, jobs, device, out_dir):
-    """One rank of phase dtrain (b), spawned once by ``_spawn_gloo`` for all
-    of (b)'s runs (a spawn costs about 17 s before its ranks reach the
-    card): each job ``(kind, config, stage)`` in turn on one gloo group,
-    "step" by ``_dtrain_gloo_step``, "reshard" by ``_dtrain_reshard_steps``;
-    the results, in job order, written to ``out_dir/r<rank>.pt``."""
-    import torch
-
-    from dlbb_tpu_torch.comm import destroy_distributed, initialize_distributed
-
-    if device == "cuda":
-        torch.cuda.set_device(0)
-    initialize_distributed("gloo", rank, world, init_file, timeout=900)
-    try:
-        out = []
-        for kind, config, stage in jobs:
-            body = _dtrain_gloo_step if kind == "step" else _dtrain_reshard_steps
-            out.append(body(config, stage, device))
-            if device == "cuda":
-                torch.cuda.empty_cache()
-        torch.save(out, f"{out_dir}/r{rank}.pt")
-    finally:
-        destroy_distributed()
-
-
 def _dtrain_gloo_step(config, stage, device):
     """A rank's run of phase dtrain (b): the loss and reduced gradients of
     one step, then the step."""
     import torch
 
     from dlbb_tpu_torch.models import ModelConfig, init_params
-    from dlbb_tpu_torch.parallel import ParallelismPlan
     from dlbb_tpu_torch.train.loop import make_train_step
     from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
 
     model_cfg = ModelConfig.from_dict(config["model"])
-    plan = ParallelismPlan.from_config(config, model_cfg)
-    c = plan.mesh.coords
-    batch, targets = _dtrain_batch(config, model_cfg, device, c, plan.dp)
+    mesh = _job_mesh(config, model_cfg)
+    if mesh is None:
+        return None
+    c = mesh.coords
+    batch, targets = _dtrain_batch(config, model_cfg, device, c, mesh.shape["dp"])
     step, state = make_train_step(
         model_cfg, build_optimizer(config["training"]),
         init_params(model_cfg, config["input"]["seed"], device, tp_rank=c["tp"],
-                    tp=plan.tp), mesh=plan.mesh, zero_stage=stage,
+                    tp=mesh.shape["tp"]), mesh=mesh, zero_stage=stage,
         batch_size=config["input"]["batch_size"])
     t0 = time.perf_counter()
     loss, grads = step.grads(state, batch, targets)
@@ -1123,6 +1196,258 @@ def _dtrain_gloo_step(config, stage, device):
     state, step_loss = step(state, batch, targets)
     return {"coords": c, "loss": float(loss), "step_loss": float(step_loss),
             "grads": grads, "axes": step.zero.opt_axes, "seconds": time.perf_counter() - t0}
+
+
+# phase dtrain (b), tp that does not divide the heads (item 20): JAX's
+# (hidden 96, 6 heads, FFN 384) at tp=4 has a head of 16, which the flash
+# kernel does not take (``KERNEL_HEAD_DIMS``), so the card runs its ratios
+# at head_dim 64: hidden 384, 6 heads, FFN 1536, at the 1B train config's
+# depth in (b), B=8, S=512, "full" (the flash kernel).  Each rank gathers
+# the qkv activations over tp and attends over the 2 heads its 96 features
+# overlap: one flash forward launch per layer per rank, twice under remat
+# "dots" in a step, one dq and one dk/dv.  Against the world-1 forward and
+# step on the same weights: the column shards give the same products and
+# the row-parallel partial sums round as at any tp=4, ``tp_bf16_bound`` and
+# ``dtrain_bounds`` at tp=4.
+DTRAIN_UNEVEN_MODEL = {"hidden_size": 384, "num_heads": 6, "ffn_intermediate": 1536}
+DTRAIN_UNEVEN_TP = 4
+
+
+def _dtrain_uneven_run(config, stage, device):
+    """A rank's run of phase dtrain (b)'s uneven heads: the forward
+    (inference), one step's loss and reduced gradients, then the step, with
+    the flash launches of each counted from 0."""
+    import torch
+
+    from dlbb_tpu_torch.models import ModelConfig, forward, init_params
+    from dlbb_tpu_torch.ops import flash_attention as fa
+    from dlbb_tpu_torch.train.loop import make_train_step
+    from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
+
+    model_cfg = ModelConfig.from_dict(config["model"])
+    mesh = _job_mesh(config, model_cfg)
+    if mesh is None:
+        return None
+    t0 = time.perf_counter()
+    c = mesh.coords
+    params = init_params(model_cfg, config["input"]["seed"], device, tp_rank=c["tp"],
+                         tp=mesh.shape["tp"])
+    batch, targets = _dtrain_batch(config, model_cfg, device, c, mesh.shape["dp"])
+    _zero_flash_counts(fa)
+    with torch.inference_mode():
+        y = forward(params, batch, model_cfg, mesh=mesh).float().cpu()
+    fwd_launches = _flash_counts(fa)
+    step, state = make_train_step(model_cfg, build_optimizer(config["training"]), params,
+                                  mesh=mesh, zero_stage=stage,
+                                  batch_size=config["input"]["batch_size"])
+    _zero_flash_counts(fa)
+    loss, grads = step.grads(state, batch, targets)
+    step_launches = _flash_counts(fa)
+    state, step_loss = step(state, batch, targets)
+    return {"coords": c, "y": y, "loss": float(loss), "step_loss": float(step_loss),
+            "grads": tree_map(lambda g: g.cpu(), grads), "fwd_launches": fwd_launches,
+            "step_launches": step_launches, "seconds": time.perf_counter() - t0}
+
+
+def _state_cpu(state):
+    """A train state's tensors on the host, by path (``params/...``,
+    ``opt/...``)."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(node, tuple):
+            for k, v in zip(getattr(node, "_fields", range(len(node))), node):
+                walk(v, f"{path}/{k}")
+        elif hasattr(node, "detach"):
+            out[path] = node.detach().cpu()
+
+    walk(state.params, "params")
+    walk(state.opt_state, "opt")
+    return out
+
+
+def _gather_dp_state(torch, snaps, param_axes, opt_axes):
+    """The dp ranks' ``_state_cpu`` snapshots, by dp rank, joined: a
+    parameter (moment) leaf along its ``param_axes`` (``opt_axes``) entry
+    where it names a dp axis, else dp rank 0's."""
+    def axis(axes, path):
+        parts = path.split("/")
+        if "layers" in parts:
+            i = len(parts) - 1 - parts[::-1].index("layers")
+            return axes["layers"][parts[i + 1]][parts[i + 2]]
+        if "ln_f" in parts:
+            return axes["ln_f"][parts[-1]]
+        return None
+
+    out = {}
+    for path, t in snaps[0].items():
+        ax = axis(param_axes if path.startswith("params/") else opt_axes, path)
+        out[path] = t if ax is None or len(snaps) == 1 else torch.cat(
+            [snap[path] for snap in snaps], ax)
+    return out
+
+
+def _dtrain_ckpt_run(config, stage, device):
+    """A rank's run of phase dtrain (b)'s checkpoint across layouts (item
+    20): one step at ZeRO-``stage`` on the config's dp, saved, and the
+    uninterrupted second step; then a fresh ZeRO-3 state on the same dp
+    restored from the save, and its next step."""
+    from dlbb_tpu_torch.models import ModelConfig, init_params
+    from dlbb_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer, train_layout
+    from dlbb_tpu_torch.train.loop import make_train_step
+    from dlbb_tpu_torch.train.optim import build_optimizer
+
+    model_cfg = ModelConfig.from_dict(config["model"])
+    mesh = _job_mesh(config, model_cfg)
+    if mesh is None:
+        return None
+    t0 = time.perf_counter()
+    ckpt = CheckpointConfig(config["training"]["checkpoint"]["directory"])
+    batch, targets = _dtrain_batch(config, model_cfg, device, mesh.coords, mesh.shape["dp"])
+    out = {"coords": mesh.coords}
+    for z in (stage, 3):
+        step, state = make_train_step(
+            model_cfg, build_optimizer(config["training"]),
+            init_params(model_cfg, config["input"]["seed"], device), mesh=mesh, zero_stage=z,
+            batch_size=config["input"]["batch_size"])
+        layout = train_layout(model_cfg, mesh.shape, z, mesh.spec.num_ranks)
+        with Checkpointer(ckpt, layout=layout, group=mesh.group) as ck:
+            if z == stage:
+                state, _ = step(state, batch, targets)
+                ck.maybe_save(state, force=True)
+            else:
+                state = ck.restore(state)
+        out[z] = {"state": _state_cpu(state), "step": state.step,
+                  "axes": (step.zero.param_axes, step.zero.opt_axes),
+                  "next_loss": float(step(state, batch, targets)[1])}
+        del step, state
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _dtrain_uneven_config(config):
+    """Phase dtrain (b)'s uneven heads on ``config``'s depth: its job's
+    config."""
+    import copy
+
+    cfg = copy.deepcopy(config)
+    cfg["model"].update(DTRAIN_UNEVEN_MODEL)
+    cfg["parallelism"] = {"world_size": DTRAIN_UNEVEN_TP, "data_parallel": 1}
+    return cfg
+
+
+def _dtrain_uneven_ref(torch, cfg, device):
+    """The uneven heads' world-1 forward and step's loss and gradients with
+    no process group: what ``_dtrain_uneven_check`` holds the ranks
+    against."""
+    from dlbb_tpu_torch.models import ModelConfig, forward, init_params
+    from dlbb_tpu_torch.ops import flash_attention as fa
+    from dlbb_tpu_torch.train.loop import make_train_step
+    from dlbb_tpu_torch.train.optim import build_optimizer
+
+    model_cfg = ModelConfig.from_dict(cfg["model"])
+    params = init_params(model_cfg, cfg["input"]["seed"], device)
+    batch, targets = _dtrain_batch(cfg, model_cfg, device)
+    _zero_flash_counts(fa)
+    with torch.inference_mode():
+        y = forward(params, batch, model_cfg).float()
+    launches = _flash_counts(fa)
+    step, state = make_train_step(model_cfg, build_optimizer(cfg["training"]), params,
+                                  batch_size=cfg["input"]["batch_size"])
+    loss, grads = step.grads(state, batch, targets)
+    return {"cfg": model_cfg, "y": y, "loss": float(loss), "grads": grads,
+            "launches": launches}
+
+
+def _dtrain_uneven_check(torch, ref, ranks):
+    """The uneven-heads ranks against the world-1 forward and step."""
+    from dlbb_tpu_torch.models.sharding import unshard_params
+
+    model_cfg, layers = ref["cfg"], ref["cfg"].num_layers
+    recs = sorted(ranks, key=lambda r: r["coords"]["tp"])
+    device = ref["y"].device
+    want_fwd = {"flash_fwd": layers, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    want_step = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+    if device.type != "cuda":  # attention runs dense on the CPU: no kernel launches
+        want_fwd = want_step = dict.fromkeys(want_fwd, 0)
+    fwd_rel = max(_rel_l2(r["y"].to(device), ref["y"]) for r in recs)
+    got = _by_name(unshard_params([r["grads"] for r in recs], model_cfg))
+    rels = {n: _rel_l2(got[n].to(g.device), g) for n, g in _by_name(ref["grads"]).items()}
+    worst = max(rels, key=rels.get)
+    loss_rel = abs(recs[0]["loss"] - ref["loss"]) / abs(ref["loss"])
+    fwd_bound = tp_bf16_bound(layers, DTRAIN_UNEVEN_TP)
+    loss_bound, grad_bound = dtrain_bounds(layers, DTRAIN_UNEVEN_TP)
+    print(f"[dtrain] uneven heads: hidden {model_cfg.hidden_size}, {model_cfg.num_heads} heads "
+          f"of {model_cfg.head_dim}, FFN {model_cfg.ffn_intermediate}, {layers} layers, bf16, "
+          f"at tp={DTRAIN_UNEVEN_TP} (tp does not divide the heads), {len(recs)} processes on "
+          f"one card over gloo: forward relative L2 against world 1 {fwd_rel:.3e} (bound "
+          f"{fwd_bound:.3e}); step loss {recs[0]['loss']:.6f} vs world 1 {ref['loss']:.6f} "
+          f"(relative {loss_rel:.3e}, bound {loss_bound:.3e}); gradient relative L2 worst "
+          f"{worst} {rels[worst]:.3e} (bound {grad_bound:.3e}); flash launches per rank: "
+          f"forward {[r['fwd_launches'] for r in recs]} (world 1 {ref['launches']}), step "
+          f"{recs[0]['step_launches']}; {max(r['seconds'] for r in recs):.1f} s in the ranks, "
+          "not timed")
+    if any(r["fwd_launches"] != want_fwd or r["step_launches"] != want_step for r in recs):
+        raise AssertionError(f"uneven heads: flash launches per rank, expected {want_fwd} "
+                             f"(forward) and {want_step} (step)")
+    if len({r["loss"] for r in recs}) != 1 or not (
+            fwd_rel <= fwd_bound and loss_rel <= loss_bound and rels[worst] <= grad_bound
+            and all(math.isfinite(r["step_loss"]) for r in recs)):
+        raise AssertionError("the uneven-heads tp=4 run disagrees with world 1")
+    return {"fwd_rel_l2": fwd_rel, "loss_rel": loss_rel, "worst_grad_rel_l2": rels[worst],
+            "worst_leaf": worst, "fwd_launches": recs[0]["fwd_launches"],
+            "step_launches": recs[0]["step_launches"]}
+
+
+def _dtrain_ckpt_check(torch, config, ranks, device):
+    """The checkpoint saved at ZeRO-1 on dp=2, restored onto ZeRO-3 on dp=2
+    by the ranks and onto world 1 here: each restored state, gathered,
+    bit-equal to the saved one; the restored next step's loss against the
+    uninterrupted second step's (equal at ZeRO-3 on the same dp: the same
+    parameters and rows; at world 1 within ``dtrain_bounds`` at tp=1, the
+    same rows in one group)."""
+    from dlbb_tpu_torch.models import ModelConfig, init_params
+    from dlbb_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer, train_layout
+    from dlbb_tpu_torch.train.loop import make_train_step
+    from dlbb_tpu_torch.train.optim import build_optimizer
+
+    model_cfg = ModelConfig.from_dict(config["model"])
+    by = {r["coords"]["dp"]: r for r in ranks}
+    snaps = [by[i] for i in range(len(by))]
+
+    def gathered(z):
+        return _gather_dp_state(torch, [r[z]["state"] for r in snaps], *snaps[0][z]["axes"])
+
+    saved, zero3 = gathered(1), gathered(3)
+    step, state = make_train_step(model_cfg, build_optimizer(config["training"]),
+                                  init_params(model_cfg, config["input"]["seed"], device),
+                                  batch_size=config["input"]["batch_size"])
+    with Checkpointer(CheckpointConfig(config["training"]["checkpoint"]["directory"]),
+                      layout=train_layout(model_cfg, {}, 0, 1)) as ck:
+        state = ck.restore(state)
+    world1 = _state_cpu(state)
+    batch, targets = _dtrain_batch(config, model_cfg, device)
+    w1_loss = float(step(state, batch, targets)[1])
+    del step, state
+    uninterrupted = snaps[0][1]["next_loss"]
+    same = {name: set(got) == set(saved) and all(torch.equal(got[k], saved[k]) for k in saved)
+            for name, got in (("ZeRO-3 dp=2", zero3), ("world 1", world1))}
+    w1_rel = abs(w1_loss - uninterrupted) / abs(uninterrupted)
+    bound = dtrain_bounds(model_cfg.num_layers, 1)[0]
+    print(f"[dtrain] checkpoint across layouts (1B, {model_cfg.num_layers} layers, Adam bf16 "
+          f"moments, {len(saved)} state tensors): saved at ZeRO-1 on dp=2 at step 1; restored "
+          f"onto ZeRO-3 on dp=2 (step {snaps[0][3]['step']}) and onto world 1, the gathered "
+          f"state bit-equal to the saved one: {same}; next step's loss: uninterrupted "
+          f"{uninterrupted:.6f}, ZeRO-3 {snaps[0][3]['next_loss']:.6f}, world 1 {w1_loss:.6f} "
+          f"(relative {w1_rel:.3e}, bound {bound:.3e}); "
+          f"{max(r['seconds'] for r in ranks):.1f} s in the ranks")
+    if not all(same.values()) or snaps[0][3]["step"] != 1 or not all(
+            r[3]["next_loss"] == uninterrupted for r in snaps) or w1_rel > bound:
+        raise AssertionError("the checkpoint restored onto another layout disagrees")
+    return {"bit_equal": same, "world1_loss_rel": w1_rel}
 
 
 # phase dtrain (b), the resharded micro-batch: batch 6 in 2 micro-batches of
@@ -1153,13 +1478,14 @@ def _dtrain_reshard_steps(config, stage, device):
     from dlbb_tpu_torch.models import ModelConfig, init_params
     from dlbb_tpu_torch.models.sharding import batch_spec
     from dlbb_tpu_torch.ops import flash_attention as fa
-    from dlbb_tpu_torch.parallel import ParallelismPlan
     from dlbb_tpu_torch.train.loop import make_train_step, step_chunks
     from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
 
     r = DTRAIN_RESHARD
     model_cfg = ModelConfig.from_dict(config["model"])
-    mesh = ParallelismPlan.from_config(config, model_cfg).mesh
+    mesh = _job_mesh(config, model_cfg)
+    if mesh is None:
+        return None
     x, t = (create_dataset_from_config(
         config, dtype=torch.bfloat16, device=device, hidden_size=model_cfg.hidden_size,
         seed_offset=off, **batch_spec(mesh, step_chunks(r["grad_accum"], None))).get_batch()
@@ -1187,21 +1513,27 @@ def _dtrain_reshard_steps(config, stage, device):
             "seconds": time.perf_counter() - t0}
 
 
-def _dtrain_reshard_job(torch, config, device):
+def _dtrain_reshard_config(config):
     """Phase dtrain (b)'s resharded case on ``config`` (the 1B train config
-    at ``DTRAIN_GLOO_LAYERS`` layers): the world-1 steps with no process
-    group; returns the ranks' job (``_dtrain_gloo_ranks``) and what
-    ``_dtrain_reshard_check`` holds them against."""
+    at ``DTRAIN_GLOO_LAYERS`` layers): its job's config."""
     import copy
-
-    from dlbb_tpu_torch.models import ModelConfig, init_params
-    from dlbb_tpu_torch.train.loop import make_train_step
-    from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
 
     r = DTRAIN_RESHARD
     cfg = copy.deepcopy(config)
     cfg["input"]["batch_size"] = r["batch"]
     cfg["training"]["gradient_accumulation"] = r["grad_accum"]
+    cfg["parallelism"] = {"world_size": 1, "data_parallel": r["dp"]}
+    return cfg
+
+
+def _dtrain_reshard_ref(torch, cfg, device):
+    """The resharded case's world-1 steps with no process group: what
+    ``_dtrain_reshard_check`` holds the ranks against."""
+    from dlbb_tpu_torch.models import ModelConfig, init_params
+    from dlbb_tpu_torch.train.loop import make_train_step
+    from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
+
+    r = DTRAIN_RESHARD
     model_cfg = ModelConfig.from_dict(cfg["model"])
     layers = model_cfg.num_layers
     # remat "dots": the forward runs twice a micro-step (phase 4); none on the CPU
@@ -1221,8 +1553,7 @@ def _dtrain_reshard_job(torch, config, device):
         if i == 0:
             ref_p1 = tree_map(lambda p: p.detach().clone(), state.params)
     del step, state
-    cfg["parallelism"] = {"world_size": 1, "data_parallel": r["dp"]}
-    return ("reshard", cfg, r["stage"]), {
+    return {
         "cfg": cfg, "layers": layers, "per_step": per_step, "p0": p0,
         "ref_loss0": ref_loss0, "ref_grads": ref_grads, "ref_losses": ref_losses,
         "ref_p1": ref_p1}
@@ -1230,7 +1561,7 @@ def _dtrain_reshard_job(torch, config, device):
 
 def _dtrain_reshard_check(torch, ref, ranks, wall):
     """The resharded case's ranks (``_dtrain_reshard_steps``) against
-    ``_dtrain_reshard_job``'s world-1 steps; returns its errors."""
+    ``_dtrain_reshard_ref``'s world-1 steps; returns its errors."""
     from dlbb_tpu_torch.data.synthetic import dp_rows
     from dlbb_tpu_torch.train import zero as zero_mod
 
@@ -1276,8 +1607,8 @@ def _dtrain_reshard_check(torch, ref, ranks, wall):
           f"0; world 1's {ref_misses}); the ranks' parameters after each step equal bit for "
           f"bit: {same_params}; flash launches by rank "
           f"{[by[i]['launches'] for i in range(r['dp'])]} (expected {want_launches}); "
-          f"{max(x['seconds'] for x in ranks):.1f} s in the ranks ({wall:.1f} s wall for all of "
-          f"(b)'s runs), not timed")
+          f"{max(x['seconds'] for x in ranks):.1f} s in the ranks ({wall:.1f} s for the job "
+          f"in the gloo spawn), not timed")
     if not all(len(w) == 1 and "not divisible by dp=2; each micro-step reshards" in w[0]
                and "results/torch/parallelism/" in w[0] for w in warned):
         raise AssertionError(f"the resharded step did not warn once with JAX's text: {warned}")
@@ -1297,10 +1628,39 @@ def _rel_l2(a, b):
     return ((a - b).norm() / b.norm()).item()
 
 
-def phase_dtrain(torch, gpu_line, config=None, device="cuda"):
-    """Phase 8 (module docstring).  ``config`` and ``device`` default to
-    the 1B train config on the card; a smaller config on the CPU rehearses
-    the phase's control flow."""
+def _dtrain_gloo_jobs(job_dir, config=None):
+    """Phase dtrain (b)'s gloo jobs, from the configs alone (the one spawn
+    runs before the phase): the sharded steps (``DTRAIN_GLOO_RUNS``), the
+    resharded micro-batches, the uneven heads and the checkpoint restored
+    onto other layouts (saved under ``job_dir``), on ``config`` (the 1B
+    train config by default) at ``DTRAIN_GLOO_LAYERS`` layers."""
+    import copy
+    import os
+
+    from dlbb_tpu_torch.models import ModelConfig
+    from dlbb_tpu_torch.utils.config import load_config
+
+    config = copy.deepcopy(config or load_config(TRAIN_CONFIG))
+    layers = ModelConfig.from_dict(config["model"]).num_layers
+    config["model"]["num_layers"] = min(layers, DTRAIN_GLOO_LAYERS)
+    jobs = []
+    for tp, dp, stage in DTRAIN_GLOO_RUNS:
+        cfg = copy.deepcopy(config)
+        cfg["parallelism"] = {"world_size": tp, "data_parallel": dp}
+        jobs.append(("step", cfg, stage))
+    ckpt_cfg = copy.deepcopy(config)
+    ckpt_cfg["model"]["num_layers"] = min(layers, DTRAIN_CKPT_LAYERS)
+    ckpt_cfg["parallelism"] = {"world_size": 1, "data_parallel": 2}
+    ckpt_cfg["training"]["checkpoint"] = {"directory": os.path.join(job_dir, "dtrain_ckpt")}
+    return jobs + [("reshard", _dtrain_reshard_config(config), DTRAIN_RESHARD["stage"]),
+                   ("uneven", _dtrain_uneven_config(config), 0), ("ckpt", ckpt_cfg, 1)]
+
+
+def phase_dtrain(torch, gpu_line, jobs, results, config=None, device="cuda"):
+    """Phase 8 (module docstring).  ``jobs`` and ``results``: (b)'s gloo
+    jobs (``_dtrain_gloo_jobs``) and their results (``_run_gloo_jobs``).
+    ``config`` and ``device`` default to the 1B train config on the card; a
+    smaller config on the CPU rehearses the phase's control flow."""
     import copy
     import tempfile
 
@@ -1374,10 +1734,11 @@ def phase_dtrain(torch, gpu_line, config=None, device="cuda"):
     if not ck["equal"] or ck["restored_step"] != 1:
         raise AssertionError("the checkpoint round trip did not continue bit for bit")
 
-    # (b) two processes on the one device over gloo, against the world-1 step
-    # at the same depth
-    config = copy.deepcopy(config)
-    config["model"]["num_layers"] = min(layers, DTRAIN_GLOO_LAYERS)
+    # (b) processes on the one device over gloo, against the world-1 step at
+    # the same depth
+    n = len(DTRAIN_GLOO_RUNS)
+    (_, reshard_cfg, _), (_, uneven_cfg, _), (_, ckpt_cfg, _) = jobs[n:]
+    config = copy.deepcopy(jobs[0][1])
     model_cfg = ModelConfig.from_dict(config["model"])
     opt = build_optimizer(config["training"])
     step, state = make_train_step(model_cfg, opt, init_params(
@@ -1386,20 +1747,12 @@ def phase_dtrain(torch, gpu_line, config=None, device="cuda"):
     ref_loss, ref = step.grads(state, batch, targets)
     ref_loss = float(ref_loss)
     del state, step
-    jobs = []
-    for tp, dp, stage in DTRAIN_GLOO_RUNS:
-        cfg = copy.deepcopy(config)
-        cfg["parallelism"] = {"world_size": tp, "data_parallel": dp}
-        jobs.append(("step", cfg, stage))
-    job, reshard_ref = _dtrain_reshard_job(torch, config, device)
-    t0 = time.perf_counter()
-    results = _spawn_gloo(torch, _dtrain_gloo_ranks, 2, jobs + [job], device)
-    wall = time.perf_counter() - t0
-    print(f"[dtrain] (b)'s {len(jobs) + 1} runs, one spawn of two processes over gloo: "
-          f"{wall:.1f} s wall")
+    wall = sum(job["seconds"] for job in results)
+    print(f"[dtrain] (b)'s {len(jobs)} runs in the one gloo spawn: {wall:.1f} s in the "
+          "ranks")
     errors = {}
     for i, (tp, dp, stage) in enumerate(DTRAIN_GLOO_RUNS):
-        ranks = [x[i] for x in results]
+        ranks = results[i]["ranks"]
         by = {(r["coords"]["dp"], r["coords"]["tp"]): r for r in ranks}
         tp_shards = []
         for j in range(tp):
@@ -1433,12 +1786,21 @@ def phase_dtrain(torch, gpu_line, config=None, device="cuda"):
                 and all(math.isfinite(r["step_loss"]) for r in ranks)):
             raise AssertionError(f"the 1B step at {label} disagrees with the world-1 step")
         errors[label] = {"loss_rel": loss_rel, "worst_grad_rel_l2": rels[worst],
-                         "worst_leaf": worst, "wall_s": wall}
+                         "worst_leaf": worst, "wall_s": results[i]["seconds"]}
     del ref, got
     if device == "cuda":
         torch.cuda.empty_cache()
-    errors["resharded"] = _dtrain_reshard_check(torch, reshard_ref,
-                                                [x[-1] for x in results], wall)
+    errors["resharded"] = _dtrain_reshard_check(
+        torch, _dtrain_reshard_ref(torch, reshard_cfg, device), results[n]["ranks"],
+        results[n]["seconds"])
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    errors["uneven_heads"] = _dtrain_uneven_check(
+        torch, _dtrain_uneven_ref(torch, uneven_cfg, device), results[n + 1]["ranks"])
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    errors["reshard_checkpoint"] = _dtrain_ckpt_check(
+        torch, ckpt_cfg, results[n + 2]["ranks"], device)
     if device == "cuda":
         torch.cuda.empty_cache()
     print(f"[dtrain] phase wall time {time.perf_counter() - t_phase:.1f} s")
@@ -1473,6 +1835,61 @@ def _check_results(sweep_result, expected, iterations):
                 math.isfinite(v) and v > 0 for v in t[0]):
             raise AssertionError(f"{path.name}: timings are not one row of "
                                  f"{iterations} finite positive samples")
+
+
+# phase comm (c): the sweep's resilience (item 13, part 13a) on the card's
+# NCCL group of one rank: a transient on the first config (retried), a hang
+# on the third (abandoned at the deadline, quarantined, its late write
+# suppressed), a span trace, then ``resume`` completes the grid
+COMM_FAULT_OPS = ("allreduce", "allgather", "broadcast")
+COMM_DEADLINE_S, COMM_HANG_S = 2.0, 4.0
+
+
+def _comm_faults(runner, out, warmup, iters, device="cuda"):
+    from dataclasses import replace
+
+    from dlbb_tpu_torch.obs.spans import validate_trace_events
+    from dlbb_tpu_torch.resilience.journal import read_journal
+
+    n = len(COMM_FAULT_OPS) * len(runner.DATA_SIZES_1D)
+    trace = out / "spans.json"
+    sweep = runner.Sweep1D(
+        operations=COMM_FAULT_OPS, rank_counts=(1,), warmup_iterations=warmup,
+        measurement_iterations=iters, output_dir=str(out), unit_deadline_seconds=COMM_DEADLINE_S,
+        fault_plan=f"exec-transient:1,exec-hang:@3,hang_seconds={COMM_HANG_S}",
+        span_trace=str(trace))
+    t0 = time.perf_counter()
+    first = runner.run_sweep(sweep, device=device, verbose=False)
+    wall = time.perf_counter() - t0
+    man = json.loads((out / runner.MANIFEST_NAME).read_text())
+    res = man["resilience"]
+    (quarantined,) = res["quarantined"] or [None]
+    evs = json.loads(trace.read_text())["traceEvents"]
+    cats = {e.get("cat") for e in evs}
+    if (len(first.written) != n - 1 or res["retries_total"] != 1
+            or res["watchdog"]["abandoned_measurements"] != 1 or quarantined is None
+            or "DeadlineExceeded" not in quarantined["error"] or wall > COMM_HANG_S
+            or validate_trace_events(evs)
+            or not {"sweep", "config", "measure", "payload", "io", "journal"} <= cats):
+        raise AssertionError(f"the faulted sweep: {len(first.written)} of {n} written, "
+                             f"{res}, {wall:.1f} s, trace categories {sorted(map(str, cats))}")
+    time.sleep(max(0.0, t0 + COMM_HANG_S + 1.0 - time.perf_counter()))
+    if (out / quarantined["config"]).exists():
+        raise AssertionError("the abandoned measurement wrote its quarantined config")
+    resumed = runner.run_sweep(replace(sweep, fault_plan=None, span_trace=None, resume=True),
+                               device=device, verbose=False)
+    _check_results(resumed, n, iters)
+    configs = json.loads((out / runner.MANIFEST_NAME).read_text())["configs"]
+    events, torn = read_journal(out)
+    if (configs["resumed"] != n - 1 or configs["measured"] != 1 or torn
+            or not all(runner._validate_result(p)[0] for p in resumed.written)):
+        raise AssertionError(f"the resumed grid: {configs}, torn journal lines {torn}")
+    print(f"[comm] (c) faulted 1D sweep ({n} configs, NCCL, 1 rank): the transient retried "
+          f"once, the hung {quarantined['config']} abandoned at {COMM_DEADLINE_S} s and "
+          f"quarantined, {len(first.written)} written in {wall:.1f} s (the hang "
+          f"{COMM_HANG_S} s), no late write; span trace valid ({len(evs)} events); "
+          f"--resume re-validated {configs['resumed']} and measured {configs['measured']}: "
+          f"the grid whole, every artifact valid; journal {len(events)} events")
 
 
 def phase_comm(torch, gpu_line):
@@ -1527,6 +1944,7 @@ def phase_comm(torch, gpu_line):
                       f"per rank: first calls equal their plain versions; "
                       f"{len(r3.written)} configs in {time.perf_counter() - t0:.1f} s")
                 torch.cuda.empty_cache()
+            _comm_faults(runner, out / "faults", warmup, iters)
         finally:
             comm.destroy_distributed()
     s1 = process_1d_results(out / "1d", out / "stats1d", verbose=False)
@@ -1583,6 +2001,19 @@ SEQ_RUNS = {
            ("sp2_ulysses", {"world_size": 1, "sequence_parallel": 2},
             {"attention": "ulysses"})),
 }
+# (b)'s Ulysses where sp does not divide a tp rank's heads (item 19): the
+# 1B reaches that case only at 32 ranks or more (16 heads: tp * sp > 16
+# with sp not dividing 16 / tp), so the card runs the CPU tests' narrow
+# model (hidden 64, 4 heads, FFN 128, 2 layers) at tp=2, sp=4 on 8 gloo
+# ranks, fp32, against the port's dense path at world 1: the same fp32
+# arithmetic summed in another order, the forward and the loss to
+# ``SEQ_GATHER_FP32`` relative and each gradient element to it times the
+# gradient's largest (a leaf whose exact gradient is 0, the key bias, is
+# rounding noise on both sides); dense attention, no flash launch.
+SEQ_ULYSSES_GATHER = ("ulysses_tp2_sp4", {"world_size": 2, "sequence_parallel": 4},
+                      {"hidden_size": 64, "num_heads": 4, "ffn_intermediate": 128,
+                       "num_layers": 2, "attention": "ulysses", "dtype": "float32"})
+SEQ_GATHER_FP32 = 1e-5
 SEQ_SCHEDULES = ("fused", "ring", "bidir")
 # (b)'s depth: a quarter of the 1B's 24 layers, so that the whole script
 # keeps its time with phase serve's parts 11b-11d and the entry point; every
@@ -1601,80 +2032,75 @@ def seq_bounds(layers, kind):
     return fwd, 2 * fwd, TRAIN_GRAD_REL_L2 + fwd
 
 
-def _seq_gloo_rank(rank, world, init_file, config, runs, device, out_dir):
-    """One rank of phase seq (b), spawned by ``_spawn_gloo``: for each run,
-    the forward (inference) and one ZeRO-1 step's loss and reduced
-    gradients, then the update, with the flash launches of each, on this
-    rank's part; written to ``out_dir/r<rank>.pt``."""
+def _seq_gloo_runs(config, runs, device):
+    """Phase seq (b) on this rank of a gloo group: for each run, on the
+    first ranks of the group (``_job_mesh``), the forward (inference) and
+    one ZeRO-1 step's loss and reduced gradients, then the update, with the
+    flash launches of each, on this rank's part."""
     import copy
 
     import torch
 
-    from dlbb_tpu_torch.comm import destroy_distributed, initialize_distributed
     from dlbb_tpu_torch.data import create_dataset_from_config
     from dlbb_tpu_torch.models import ModelConfig, forward, init_params
     from dlbb_tpu_torch.models.sharding import batch_spec
-    from dlbb_tpu_torch.models.transformer import ring_transport, use_tp_overlap
+    from dlbb_tpu_torch.models.transformer import DTYPES, ring_transport, use_tp_overlap
     from dlbb_tpu_torch.ops import flash_attention as fa
-    from dlbb_tpu_torch.parallel import ParallelismPlan
     from dlbb_tpu_torch.parallel.collective_matmul import activation_spec
     from dlbb_tpu_torch.train.loop import make_train_step
     from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
 
-    if device == "cuda":
-        torch.cuda.set_device(0)
-    initialize_distributed("gloo", rank, world, init_file, timeout=900)
-    try:
-        out = {}
-        for name, par, model in runs:
-            t0 = time.perf_counter()
-            if device == "cuda":  # each run's own peak
-                torch.cuda.reset_peak_memory_stats()
-            cfg = copy.deepcopy(config)
-            cfg["parallelism"] = par
-            cfg["model"].update(model)
-            model_cfg = ModelConfig.from_dict(cfg["model"])
-            plan = ParallelismPlan.from_config(cfg, model_cfg)
-            mesh = plan.mesh
-            params = init_params(model_cfg, cfg["input"]["seed"], device,
-                                 tp_rank=mesh.coords["tp"], tp=plan.tp)
-            batch, targets = (create_dataset_from_config(
-                cfg, dtype=torch.bfloat16, device=device, hidden_size=model_cfg.hidden_size,
-                seed_offset=off, **batch_spec(mesh)).get_batch() for off in (0, 1))
-            _zero_flash_counts(fa)
-            with torch.inference_mode():
-                y = forward(params, batch, model_cfg, mesh=mesh).cpu()
-            fwd_launches = _flash_counts(fa)
-            step, state = make_train_step(model_cfg, build_optimizer(cfg["training"]),
-                                          params, mesh=mesh, zero_stage=1,
-                                          batch_size=cfg["input"]["batch_size"])
-            del params
-            _zero_flash_counts(fa)
-            loss, grads = step.grads(state, batch, targets)
-            step_launches = _flash_counts(fa)
-            grads = tree_map(lambda g: g.cpu(), grads)
-            peak_grads = torch.cuda.max_memory_allocated() if device == "cuda" else 0
-            # the update too where the ranks hold half the model: two whole 1B
-            # Adam updates (fp32 moments and updates, ~30 GiB each) do not fit
-            # on one card beside each other
-            step_loss = float("nan")
-            if plan.tp > 1:
-                state, step_loss = step(state, batch, targets)
-            peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
-            seq = (activation_spec(mesh) if use_tp_overlap(model_cfg, mesh)
-                   else (mesh.coords.get("sp", 0), plan.sp))
-            out[name] = {"coords": mesh.coords, "seq": seq, "y": y, "loss": float(loss),
-                         "grads": grads, "step_loss": float(step_loss),
-                         "fwd_launches": fwd_launches, "step_launches": step_launches,
-                         "transport": ring_transport(model_cfg, mesh, torch.device(device)),
-                         "peak_gib": (peak_grads / 2**30, peak / 2**30),
-                         "seconds": time.perf_counter() - t0}
-            del state, step, grads, y
-            if device == "cuda":
-                torch.cuda.empty_cache()
-        torch.save(out, f"{out_dir}/r{rank}.pt")
-    finally:
-        destroy_distributed()
+    out = {}
+    for name, par, model in runs:
+        t0 = time.perf_counter()
+        if device == "cuda":  # each run's own peak
+            torch.cuda.reset_peak_memory_stats()
+        cfg = copy.deepcopy(config)
+        cfg["parallelism"] = par
+        cfg["model"].update(model)
+        model_cfg = ModelConfig.from_dict(cfg["model"])
+        mesh = _job_mesh(cfg, model_cfg)
+        if mesh is None:
+            continue
+        tp, sp = mesh.shape["tp"], mesh.shape.get("sp", 1)
+        params = init_params(model_cfg, cfg["input"]["seed"], device,
+                             tp_rank=mesh.coords["tp"], tp=tp)
+        batch, targets = (create_dataset_from_config(
+            cfg, dtype=DTYPES[model_cfg.dtype], device=device,
+            hidden_size=model_cfg.hidden_size, seed_offset=off,
+            **batch_spec(mesh)).get_batch() for off in (0, 1))
+        _zero_flash_counts(fa)
+        with torch.inference_mode():
+            y = forward(params, batch, model_cfg, mesh=mesh).cpu()
+        fwd_launches = _flash_counts(fa)
+        step, state = make_train_step(model_cfg, build_optimizer(cfg["training"]),
+                                      params, mesh=mesh, zero_stage=1,
+                                      batch_size=cfg["input"]["batch_size"])
+        del params
+        _zero_flash_counts(fa)
+        loss, grads = step.grads(state, batch, targets)
+        step_launches = _flash_counts(fa)
+        grads = tree_map(lambda g: g.cpu(), grads)
+        peak_grads = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+        # the update too where the ranks hold half the model: two whole 1B
+        # Adam updates (fp32 moments and updates, ~30 GiB each) do not fit
+        # on one card beside each other
+        step_loss = float("nan")
+        if tp > 1:
+            state, step_loss = step(state, batch, targets)
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+        seq = (activation_spec(mesh) if use_tp_overlap(model_cfg, mesh)
+               else (mesh.coords.get("sp", 0), sp))
+        out[name] = {"coords": mesh.coords, "seq": seq, "y": y, "loss": float(loss),
+                     "grads": grads, "step_loss": float(step_loss),
+                     "fwd_launches": fwd_launches, "step_launches": step_launches,
+                     "transport": ring_transport(model_cfg, mesh, torch.device(device)),
+                     "peak_gib": (peak_grads / 2**30, peak / 2**30),
+                     "seconds": time.perf_counter() - t0}
+        del state, step, grads, y
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 def _seq_sweeps(torch, gpu_line):
@@ -1738,24 +2164,34 @@ def _seq_sweeps(torch, gpu_line):
     return medians
 
 
-def phase_seq(torch, gpu_line):
-    """Phase 9 (module docstring)."""
+def _seq_gloo_jobs():
+    """Phase seq (b)'s gloo job: its config (the 1B train config at
+    ``SEQ_LAYERS``) and its runs."""
     from dlbb_tpu_torch.utils.config import load_config
 
+    config = load_config(TRAIN_CONFIG)
+    config["model"]["num_layers"] = SEQ_LAYERS
+    return [("seq", config,
+             [run for runs in SEQ_RUNS.values() for run in runs] + [SEQ_ULYSSES_GATHER])]
+
+
+def phase_seq(torch, gpu_line, jobs, results):
+    """Phase 9 (module docstring); ``jobs`` and ``results``: (b)'s gloo job
+    (``_seq_gloo_jobs``) and its result (``_run_gloo_jobs``)."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     medians = _seq_sweeps(torch, gpu_line)
-    config = load_config(TRAIN_CONFIG)
-    config["model"]["num_layers"] = SEQ_LAYERS
-    gloo = _seq_model(torch, config)
+    [(_, config, _)], [job] = jobs, results
+    print(f"[seq] (b)'s runs in the one gloo spawn: {job['seconds']:.1f} s in the ranks")
+    gloo = _seq_model(torch, config, job["ranks"])
     print(f"[seq] phase wall time {time.perf_counter() - t_phase:.1f} s")
     return {"sweeps_us": medians, "gloo": gloo}
 
 
-def _seq_model(torch, config, device="cuda"):
-    """Phase seq (b) on ``config``; on the card by default, where a smaller
-    config on the CPU rehearses its control flow (no kernel runs there, and
-    CPU tensors hop directly)."""
+def _seq_model(torch, config, ranks, device="cuda"):
+    """Phase seq (b) on ``config``, against its ranks' runs (``ranks``); on
+    the card by default, where a smaller config on the CPU rehearses its
+    control flow (no kernel runs there, and CPU tensors hop directly)."""
     from dlbb_tpu_torch.models import ModelConfig, forward, init_params
     from dlbb_tpu_torch.models.sharding import unshard_params
     from dlbb_tpu_torch.train.loop import make_train_step
@@ -1784,17 +2220,10 @@ def _seq_model(torch, config, device="cuda"):
         heads_tp2 = step_tp2 = none
     hop = "host" if device == "cuda" else "device"
     out = {}
-    # one spawn for every run (a spawn costs about 17 s before its ranks
-    # reach the card)
-    t0 = time.perf_counter()
-    ranks = _spawn_gloo(torch, _seq_gloo_rank, 2, config,
-                        [run for runs in SEQ_RUNS.values() for run in runs], device)
-    print(f"[seq] (b)'s runs, one spawn of two processes over gloo: "
-          f"{time.perf_counter() - t0:.1f} s wall")
     for kind, runs in SEQ_RUNS.items():
         fwd_bound, loss_bound, grad_bound = seq_bounds(layers, kind)
         for name, _, _ in runs:
-            recs = sorted((r[name] for r in ranks), key=lambda r: r["seq"][0])
+            recs = sorted((r[name] for r in ranks if name in r), key=lambda r: r["seq"][0])
             want_fwd, want_step = (heads_tp2, step_tp2) if kind == "tp" else (none, none)
             for r in recs:
                 if r["fwd_launches"] != want_fwd or r["step_launches"] != want_step:
@@ -1846,7 +2275,59 @@ def _seq_model(torch, config, device="cuda"):
                          "worst_grad_rel_l2": rels[worst], "worst_leaf": worst,
                          "fwd_launches": recs[0]["fwd_launches"],
                          "step_launches": recs[0]["step_launches"]}
+    out[SEQ_ULYSSES_GATHER[0]] = _seq_ulysses_gather(torch, config, ranks, device)
     return out
+
+
+def _seq_ulysses_gather(torch, config, ranks, device):
+    """Phase seq (b)'s Ulysses over tp-gathered heads against the dense
+    path at world 1 (``SEQ_ULYSSES_GATHER``)."""
+    import copy
+
+    from dlbb_tpu_torch.models import ModelConfig, forward, init_params
+    from dlbb_tpu_torch.models.sharding import unshard_params
+    from dlbb_tpu_torch.train.loop import make_train_step
+    from dlbb_tpu_torch.train.optim import build_optimizer
+
+    name, _, model = SEQ_ULYSSES_GATHER
+    cfg = copy.deepcopy(config)
+    cfg["model"].update(model, attention="dense")
+    dense = ModelConfig.from_dict(cfg["model"])
+    params = init_params(dense, cfg["input"]["seed"], device)
+    batch, targets = _dtrain_batch(cfg, dense, device)
+    with torch.inference_mode():
+        ref_y = forward(params, batch, dense)
+    step, state = make_train_step(dense, build_optimizer(cfg["training"]), params,
+                                  batch_size=cfg["input"]["batch_size"])
+    ref_loss, ref = step.grads(state, batch, targets)
+    recs = [r[name] for r in ranks if name in r]
+    by = {(r["coords"]["sp"], r["coords"]["tp"]): r for r in recs}
+    sp, tp = 1 + max(k[0] for k in by), 1 + max(k[1] for k in by)
+    y = torch.cat([by[(i, 0)]["y"] for i in range(sp)], dim=1).to(device)
+    fwd_rel = _rel_l2(y, ref_y)
+    got = _by_name(unshard_params([by[(0, j)]["grads"] for j in range(tp)], dense))
+    ref = _by_name(ref)
+    scale = max(float(g.abs().max()) for g in ref.values())
+    worst = max(ref, key=lambda n: float((got[n].to(device) - ref[n]).abs().max()))
+    diff = float((got[worst].to(device) - ref[worst]).abs().max())
+    loss_rel = abs(recs[0]["loss"] - float(ref_loss)) / abs(float(ref_loss))
+    none = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    print(f"[seq] Ulysses at num_heads=4, tp=2, sp=4 (sp does not divide the 2 heads a tp "
+          f"rank holds: the heads gathered over tp), fp32, {len(recs)} processes on one "
+          f"{device} device over gloo, against the dense path at world 1: forward relative "
+          f"L2 {fwd_rel:.3e}, loss {recs[0]['loss']:.8f} vs {float(ref_loss):.8f} (relative "
+          f"{loss_rel:.3e}), largest gradient difference {diff:.3e} at {worst} (bound "
+          f"{SEQ_GATHER_FP32} x the largest gradient element {scale:.3e}; forward and loss "
+          f"bound {SEQ_GATHER_FP32}); flash launches per rank "
+          f"{recs[0]['fwd_launches']} (forward), {recs[0]['step_launches']} (step)")
+    if (len(recs) != 8 or len({r["loss"] for r in recs}) != 1
+            or any(r["fwd_launches"] != none or r["step_launches"] != none for r in recs)
+            or fwd_rel > SEQ_GATHER_FP32 or loss_rel > SEQ_GATHER_FP32
+            or diff > SEQ_GATHER_FP32 * scale):
+        raise AssertionError(f"{name} disagrees with the dense path at world 1")
+    return {"fwd_rel_l2": fwd_rel, "loss_rel": loss_rel, "grad_max_diff": diff,
+            "grad_scale": scale, "fwd_launches": recs[0]["fwd_launches"],
+            "step_launches": recs[0]["step_launches"]}
 
 
 # phase moe: the 1B with 4 experts, top-2, at full width and depth, bf16.
@@ -1919,58 +2400,56 @@ def _moe_config(dispatch, **parallelism):
     return copy.deepcopy(config)
 
 
-def _moe_ep_rank(rank, world, init_file, out_dir):
-    """One rank of phase moe's ep=2 run, spawned by ``_spawn_gloo``: the
-    forward of each dispatch, then one step's loss and reduced gradients
-    with the aux loss (dense dispatch); written to ``out_dir/r<rank>.pt``."""
+def _moe_ep_job(device):
+    """Phase moe's job of the one gloo spawn, on its first two ranks (ep=2):
+    the forward of each dispatch, then one step's loss and reduced gradients
+    with the aux loss (dense dispatch); None past them."""
     import torch
 
-    from dlbb_tpu_torch.comm import destroy_distributed, initialize_distributed
     from dlbb_tpu_torch.models import ModelConfig, forward, init_params
-    from dlbb_tpu_torch.parallel import ParallelismPlan
     from dlbb_tpu_torch.train.loop import make_train_step
     from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
 
-    torch.cuda.set_device(0)
-    initialize_distributed("gloo", rank, world, init_file, timeout=900)
-    try:
-        out = {"y": {}, "fwd_ms": {}}
-        for dispatch in MOE_DISPATCHES:
-            config = _moe_config(dispatch, expert_parallel=2)
-            model_cfg = ModelConfig.from_dict(config["model"])
-            plan = ParallelismPlan.from_config(config, model_cfg)
-            params = init_params(model_cfg, config["input"]["seed"], "cuda", **plan.coords())
-            batch, targets = _dtrain_batch(config, model_cfg, "cuda")
-            with torch.inference_mode():
-                forward(params, batch, model_cfg, mesh=plan.mesh)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                y = forward(params, batch, model_cfg, mesh=plan.mesh)
-                torch.cuda.synchronize()
-            out["fwd_ms"][dispatch] = (time.perf_counter() - t0) * 1e3
-            out["y"][dispatch] = y.cpu()
-            del y
-            if dispatch == "dense":
-                step, state = make_train_step(model_cfg, build_optimizer(config["training"]),
-                                              params, mesh=plan.mesh,
-                                              moe_aux_weight=MOE_AUX_WEIGHT,
-                                              batch_size=config["input"]["batch_size"])
-                del params
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                loss, grads = step.grads(state, batch, targets)
-                out["loss"] = float(loss)
-                out["grad_ms"] = (time.perf_counter() - t0) * 1e3
-                out["grads"] = tree_map(lambda g: g.cpu(), grads)
-                del step, state, grads
-            else:
-                del params
-            torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"y": {}, "fwd_ms": {}}
+    for dispatch in MOE_DISPATCHES:
+        config = _moe_config(dispatch, expert_parallel=2)
+        model_cfg = ModelConfig.from_dict(config["model"])
+        plan = _job_plan(config, model_cfg)
+        if plan is None:
+            continue
+        params = init_params(model_cfg, config["input"]["seed"], device, **plan.coords())
+        batch, targets = _dtrain_batch(config, model_cfg, device)
+        with torch.inference_mode():
+            forward(params, batch, model_cfg, mesh=plan.mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = forward(params, batch, model_cfg, mesh=plan.mesh)
+            torch.cuda.synchronize()
+        out["fwd_ms"][dispatch] = (time.perf_counter() - t0) * 1e3
+        out["y"][dispatch] = y.cpu()
+        del y
+        if dispatch == "dense":
+            step, state = make_train_step(model_cfg, build_optimizer(config["training"]),
+                                          params, mesh=plan.mesh,
+                                          moe_aux_weight=MOE_AUX_WEIGHT,
+                                          batch_size=config["input"]["batch_size"])
+            del params
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = step.grads(state, batch, targets)
+            out["loss"] = float(loss)
+            out["grad_ms"] = (time.perf_counter() - t0) * 1e3
+            out["grads"] = tree_map(lambda g: g.cpu(), grads)
+            del step, state, grads
+        else:
+            del params
+        torch.cuda.empty_cache()
         out["coords"] = plan.mesh.coords
-        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        torch.save(out, f"{out_dir}/r{rank}.pt")
-    finally:
-        destroy_distributed()
+    if "coords" not in out:
+        return None
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
 
 
 def _leaf_rel_l2(torch, got, ref):
@@ -1980,8 +2459,9 @@ def _leaf_rel_l2(torch, got, ref):
     return {name: _rel_l2(got[name].cuda(), t.cuda()) for name, t in _by_name(ref).items()}
 
 
-def phase_moe(torch, fa, gpu_line):
-    """Phase 10 (module docstring)."""
+def phase_moe(torch, fa, gpu_line, results):
+    """Phase 10 (module docstring); ``results``: its gloo job's
+    (``_run_gloo_jobs``)."""
     from dlbb_tpu_torch.bench.e2e import run_e2e
     from dlbb_tpu_torch.models import ModelConfig, forward, init_params
     from dlbb_tpu_torch.models.sharding import ep_dim, unshard_params
@@ -2063,9 +2543,8 @@ def phase_moe(torch, fa, gpu_line):
             del step, state, grads
         del params, batch, targets
         torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ranks = sorted(_spawn_gloo(torch, _moe_ep_rank, 2), key=lambda r: r["coords"]["ep"])
-    wall = time.perf_counter() - t0
+    [job] = results
+    ranks, wall = sorted(job["ranks"], key=lambda r: r["coords"]["ep"]), job["seconds"]
     fwd_bound, grad_bound, aux_bound = moe_ep_bounds(layers)
     for dispatch in MOE_DISPATCHES:
         ys = [r["y"][dispatch] for r in ranks]
@@ -2105,8 +2584,8 @@ def phase_moe(torch, fa, gpu_line):
           f"{grad_bound:.3e}), experts' worst "
           f"{max(rels[n] for n in split):.3e}; loss and reduced gradients "
           f"{max(r['grad_ms'] for r in ranks):.1f} ms (wall, slowest rank); peak allocated "
-          f"per rank {[round(r['peak_gib'], 2) for r in ranks]} GiB; {wall:.1f} s wall on "
-          f"{gpu_line}")
+          f"per rank {[round(r['peak_gib'], 2) for r in ranks]} GiB; {wall:.1f} s in the "
+          f"ranks on {gpu_line}")
     if len(losses) != 1 or not (loss_rel <= loss_bound and rels[worst] <= grad_bound):
         raise AssertionError("the 1B MoE ep=2 step disagrees with world 1")
     out["ep"].update(loss_rel=loss_rel, loss_bound=loss_bound, worst_grad_rel_l2=rels[worst],
@@ -2167,70 +2646,65 @@ def _pipe_config():
     return config
 
 
-def _pipe_rank(rank, world, init_file, out_dir):
-    """One rank of phase pipe, spawned by ``_spawn_gloo``: the forward, then
-    for each schedule one step's loss and reduced gradients and the step,
-    the flash launches counted from 0 around each; written to
-    ``out_dir/r<rank>.pt``."""
+def _pipe_job(device):
+    """Phase pipe's job of the one gloo spawn, on its first two ranks
+    (pp=2): the forward, then for each schedule one step's loss and reduced
+    gradients and the step, the flash launches counted from 0 around each;
+    None past them."""
     import torch
 
-    from dlbb_tpu_torch.comm import destroy_distributed, initialize_distributed
     from dlbb_tpu_torch.models import ModelConfig, forward, init_params
     from dlbb_tpu_torch.ops import flash_attention as fa
-    from dlbb_tpu_torch.parallel import ParallelismPlan
     from dlbb_tpu_torch.parallel.ring import hop_transport
     from dlbb_tpu_torch.train.loop import make_train_step
     from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
 
-    torch.cuda.set_device(0)
-    initialize_distributed("gloo", rank, world, init_file, timeout=900)
-    try:
-        config = _pipe_config()
-        model_cfg = ModelConfig.from_dict(config["model"])
-        plan = ParallelismPlan.from_config(config, model_cfg)
-        mesh = plan.mesh
-        params = init_params(model_cfg, config["input"]["seed"], "cuda", **plan.coords())
-        batch, targets = _dtrain_batch(config, model_cfg, "cuda")
-        out = {"coords": mesh.coords, "ms": {}, "peak_gib": {}, "launches": {},
-               "transport": hop_transport(mesh.axis_groups["pp"], torch.device("cuda"))}
+    config = _pipe_config()
+    model_cfg = ModelConfig.from_dict(config["model"])
+    plan = _job_plan(config, model_cfg)
+    if plan is None:
+        return None
+    mesh = plan.mesh
+    params = init_params(model_cfg, config["input"]["seed"], "cuda", **plan.coords())
+    batch, targets = _dtrain_batch(config, model_cfg, "cuda")
+    out = {"coords": mesh.coords, "ms": {}, "peak_gib": {}, "launches": {},
+           "transport": hop_transport(mesh.axis_groups["pp"], torch.device("cuda"))}
+    _zero_flash_counts(fa)
+    with torch.inference_mode():
+        forward(params, batch, model_cfg, mesh=mesh, num_microbatches=plan.num_microbatches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = forward(params, batch, model_cfg, mesh=mesh,
+                    num_microbatches=plan.num_microbatches)
+        torch.cuda.synchronize()
+    out["ms"]["forward"] = (time.perf_counter() - t0) * 1e3
+    out["y"] = y.cpu()
+    out["launches"]["forward"] = _flash_counts(fa)
+    del y
+    for schedule in PIPE_SCHEDULES:
+        torch.cuda.reset_peak_memory_stats()
+        step, state = make_train_step(
+            model_cfg, build_optimizer(config["training"]), params, mesh=mesh,
+            num_microbatches=plan.num_microbatches, pipeline_schedule=schedule,
+            batch_size=config["input"]["batch_size"])
         _zero_flash_counts(fa)
-        with torch.inference_mode():
-            forward(params, batch, model_cfg, mesh=mesh, num_microbatches=plan.num_microbatches)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            y = forward(params, batch, model_cfg, mesh=mesh,
-                        num_microbatches=plan.num_microbatches)
-            torch.cuda.synchronize()
-        out["ms"]["forward"] = (time.perf_counter() - t0) * 1e3
-        out["y"] = y.cpu()
-        out["launches"]["forward"] = _flash_counts(fa)
-        del y
-        for schedule in PIPE_SCHEDULES:
-            torch.cuda.reset_peak_memory_stats()
-            step, state = make_train_step(
-                model_cfg, build_optimizer(config["training"]), params, mesh=mesh,
-                num_microbatches=plan.num_microbatches, pipeline_schedule=schedule,
-                batch_size=config["input"]["batch_size"])
-            _zero_flash_counts(fa)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            loss, grads = step.grads(state, batch, targets)
-            torch.cuda.synchronize()
-            out["ms"][f"{schedule}_grads"] = (time.perf_counter() - t0) * 1e3
-            t0 = time.perf_counter()
-            state, step_loss = step(state, batch, targets)
-            torch.cuda.synchronize()
-            out["ms"][f"{schedule}_step"] = (time.perf_counter() - t0) * 1e3
-            out["launches"][schedule] = _flash_counts(fa)
-            out["peak_gib"][schedule] = torch.cuda.max_memory_allocated() / 2**30
-            out[schedule] = {"loss": float(loss), "step_loss": float(step_loss),
-                             "grads": tree_map(lambda g: g.cpu(), grads),
-                             "params": tree_map(lambda p: p.detach().cpu(), state.params)}
-            del step, state, grads
-            torch.cuda.empty_cache()
-        torch.save(out, f"{out_dir}/r{rank}.pt")
-    finally:
-        destroy_distributed()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = step.grads(state, batch, targets)
+        torch.cuda.synchronize()
+        out["ms"][f"{schedule}_grads"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        state, step_loss = step(state, batch, targets)
+        torch.cuda.synchronize()
+        out["ms"][f"{schedule}_step"] = (time.perf_counter() - t0) * 1e3
+        out["launches"][schedule] = _flash_counts(fa)
+        out["peak_gib"][schedule] = torch.cuda.max_memory_allocated() / 2**30
+        out[schedule] = {"loss": float(loss), "step_loss": float(step_loss),
+                         "grads": tree_map(lambda g: g.cpu(), grads),
+                         "params": tree_map(lambda p: p.detach().cpu(), state.params)}
+        del step, state, grads
+        torch.cuda.empty_cache()
+    return out
 
 
 def _by_name(tree):
@@ -2260,8 +2734,9 @@ def _adam_first_step_misses(torch, p0, p1, g, lr):
     return int((~ok).sum()), float(sure.double().mean())
 
 
-def phase_pipe(torch, gpu_line):
-    """Phase 11 (module docstring)."""
+def phase_pipe(torch, gpu_line, results):
+    """Phase 11 (module docstring); ``results``: its gloo job's
+    (``_run_gloo_jobs``)."""
     from dlbb_tpu_torch.models import ModelConfig, forward, init_params
     from dlbb_tpu_torch.models.sharding import unshard_params
     from dlbb_tpu_torch.train.loop import make_train_step
@@ -2291,9 +2766,8 @@ def phase_pipe(torch, gpu_line):
     del step, state, batch, targets
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    ranks = sorted(_spawn_gloo(torch, _pipe_rank, pp), key=lambda r: r["coords"]["pp"])
-    wall = time.perf_counter() - t0
+    [job] = results
+    ranks, wall = sorted(job["ranks"], key=lambda r: r["coords"]["pp"]), job["seconds"]
     fwd_bound, _, grad_bound = seq_bounds(layers, "sp")
     bubble = (pp - 1) / (m + pp - 1)
     # a stage runs dense attention: no flash launch on any path of the phase
@@ -2378,7 +2852,7 @@ def phase_pipe(torch, gpu_line):
     worst = max(unequal, key=unequal.get)
     print(f"[pipe] GPipe against 1F1B: loss relative {loss_rel:.3e} (bound {PIPE_LOSS_REL:.0e}); "
           f"largest share of unequal elements {unequal[worst]:.3e} in {worst} (bound "
-          f"{PIPE_UNEQUAL_SHARE:.0e}); {wall:.1f} s wall for the two stages")
+          f"{PIPE_UNEQUAL_SHARE:.0e}); {wall:.1f} s in the two stages")
     if not (loss_rel <= PIPE_LOSS_REL and unequal[worst] <= PIPE_UNEQUAL_SHARE):
         raise AssertionError("the GPipe and 1F1B steps disagree")
     out["gpipe_vs_1f1b"] = {"loss_rel": loss_rel, "unequal_share": unequal[worst]}
@@ -2551,51 +3025,39 @@ def _compress_sweeps(torch, gpu_line):
     return medians
 
 
-def _compress_ring_rank(rank, world, init_file, out_dir):
-    """One rank of phase compress's ring at world 2, spawned by
-    ``_spawn_gloo``: the uncompressed and compressed ops on the same CUDA
-    payload, and the bytes each compressed call handed to
-    ``torch.distributed``."""
+def _compress_ring_ops(device):
+    """Phase compress (c)'s job of the one gloo spawn, on a ring of its first
+    two ranks: the uncompressed and compressed ops on the same CUDA payload,
+    and the bytes each compressed call handed to ``torch.distributed``;
+    None past the ring."""
     import torch
 
-    from dlbb_tpu_torch.comm import (
-        MeshSpec,
-        destroy_distributed,
-        get_mesh,
-        get_op,
-        initialize_distributed,
-        make_payload,
-    )
+    from dlbb_tpu_torch.comm import MeshSpec, get_mesh, get_op, make_payload
     from dlbb_tpu_torch.comm.compression import count_wire_bytes
 
-    torch.cuda.set_device(0)
-    initialize_distributed("gloo", rank, world, init_file, timeout=600)
-    try:
-        mesh = get_mesh(MeshSpec.ring(world))
-        res = {}
-        for kind in ("allreduce", "reducescatter"):
-            x = make_payload(get_op(kind), rank, world, COMPRESS_RING_N,
-                             dtype=torch.float32, device="cuda")
-            res[kind] = get_op(kind).build(mesh)(x).cpu()
-            for comp, accum in COMPRESS_RING_TOL:
-                with count_wire_bytes() as counted:
-                    y = get_op(f"{kind}_q").build(mesh, compression=comp,
-                                                  accum_dtype=accum)(x)
-                res[(kind, comp, accum)] = {"out": y.cpu(), "bytes": counted["bytes"],
-                                            "device": str(y.device)}
-        torch.save(res, f"{out_dir}/r{rank}.pt")
-    finally:
-        destroy_distributed()
+    mesh = get_mesh(MeshSpec.ring(2))
+    if mesh is None:
+        return None
+    res = {}
+    for kind in ("allreduce", "reducescatter"):
+        x = make_payload(get_op(kind), mesh.rank, 2, COMPRESS_RING_N,
+                         dtype=torch.float32, device=device)
+        res[kind] = get_op(kind).build(mesh)(x).cpu()
+        for comp, accum in COMPRESS_RING_TOL:
+            with count_wire_bytes() as counted:
+                y = get_op(f"{kind}_q").build(mesh, compression=comp,
+                                              accum_dtype=accum)(x)
+            res[(kind, comp, accum)] = {"out": y.cpu(), "bytes": counted["bytes"],
+                                        "device": str(y.device)}
+    return res
 
 
-def _compress_ring(torch):
+def _compress_ring(torch, ranks):
+    """Phase compress (c)'s checks on the ranks' ``_compress_ring_ops``."""
     from dlbb_tpu_torch.comm import get_op, make_payload
     from dlbb_tpu_torch.stats.stats1d import op_wire_bytes
 
     world, n = 2, COMPRESS_RING_N
-    t0 = time.perf_counter()
-    ranks = _spawn_gloo(torch, _compress_ring_rank, world)
-    wall = time.perf_counter() - t0
     errors = {}
     for kind in ("allreduce", "reducescatter"):
         xs = [make_payload(get_op(kind), r, world, n, dtype=torch.float32).double()
@@ -2624,7 +3086,6 @@ def _compress_ring(torch):
             if kind == "allreduce" and not same:
                 raise AssertionError(f"allreduce_q {comp}/{accum}: the ranks' results differ")
             errors[f"{kind}_q/{comp}/{accum}"] = {"rel_err": worst, "bytes": want}
-    print(f"[compress] ring at world 2: {wall:.1f} s wall")
     return errors
 
 
@@ -2653,93 +3114,89 @@ def _params_digest(params):
     return h.hexdigest()
 
 
-def _compress_train_rank(rank, world, init_file, config, out_dir):
-    """One rank of phase compress's dp=2 training, spawned by
-    ``_spawn_gloo``.  For each run: step 0's dp-reduced gradient against
-    the uncompressed run's (same parameters, same batch), then
-    ``COMPRESS_STEPS`` steps with the flash launches counted from 0 around
-    each, the losses, a digest of the parameters after them, the share of
-    parameters that differ from the uncompressed run's, and the residual."""
+def _compress_train_runs(config, device):
+    """Phase compress (d)'s job of the one gloo spawn, on its first two
+    ranks (dp=2), None past them.  For each run:
+    step 0's dp-reduced gradient against the uncompressed run's (same
+    parameters, same batch), then ``COMPRESS_STEPS`` steps with the flash
+    launches counted from 0 around each, the losses, a digest of the
+    parameters after them, the share of parameters that differ from the
+    uncompressed run's, and the residual."""
     import torch
     import torch.distributed as dist
 
-    from dlbb_tpu_torch.comm import destroy_distributed, initialize_distributed
     from dlbb_tpu_torch.models import ModelConfig, init_params
     from dlbb_tpu_torch.ops import flash_attention as fa
-    from dlbb_tpu_torch.parallel import ParallelismPlan
     from dlbb_tpu_torch.train.loop import make_train_step, mse_loss
     from dlbb_tpu_torch.train.optim import build_optimizer, moments_dtype, tree_leaves, tree_map
     from dlbb_tpu_torch.train.zero import shard_along
 
-    torch.cuda.set_device(0)
-    initialize_distributed("gloo", rank, world, init_file, timeout=900)
-    try:
-        model_cfg = ModelConfig.from_dict(config["model"])
-        plan = ParallelismPlan.from_config(config, model_cfg)
-        group = plan.mesh.axis_groups["dp"]
-        batch, targets = _dtrain_batch(config, model_cfg, "cuda", plan.mesh.coords, plan.dp)
-        out, base = {}, {}
-        for comp, stage, accum in COMPRESS_RUNS:
-            train = dict(config["training"], grad_compression=comp,
-                         compression_accum_dtype=accum)
-            step, state = make_train_step(
-                model_cfg, build_optimizer(train),
-                init_params(model_cfg, config["input"]["seed"], "cuda"), mesh=plan.mesh,
-                zero_stage=stage, grad_compression=comp, compression_accum=accum,
-                residual_dtype=moments_dtype(train),
-                batch_size=config["input"]["batch_size"])
-            rec = {"losses": [], "launches": []}
-            # step 0's reduced gradient: no update has run, so every run
-            # starts from the same parameters and batch
-            _, grads = step.grads(state, batch, targets)
-            if comp == "none":
-                base["grads"] = grads
-                # the largest local gradient element over the dp ranks,
-                # which bounds every partial sum on the ring
-                loss = mse_loss(state.params, batch, targets, model_cfg)
-                g = torch.autograd.grad(loss, tree_leaves(state.params))
-                c_max = torch.stack([a.float().abs().max() for a in g]).max().reshape(1).cpu()
-                del loss, g
-                dist.all_reduce(c_max, op=dist.ReduceOp.MAX, group=group)
-                base["c_max"] = float(c_max)
-            else:
-                # under ZeRO-2 a rank holds its shard of the reduced gradient
-                ref = tree_map(lambda g, ax: shard_along(g, ax, step.zero.rank, plan.dp),
-                               base["grads"], step.zero.opt_axes)
-                rec["grad_diff"] = max(float((a.float() - b.float()).abs().max())
-                                       for a, b in zip(tree_leaves(grads), tree_leaves(ref)))
-                rec["grad_max"] = max(float(b.float().abs().max()) for b in tree_leaves(ref))
-            rec["c_max"] = base["c_max"]
-            del grads
-            t0 = time.perf_counter()
-            for _ in range(COMPRESS_STEPS):
-                _zero_flash_counts(fa)
-                state, loss = step(state, batch, targets)
-                rec["losses"].append(float(loss))
-                rec["launches"].append(_flash_counts(fa))
-            rec["seconds"] = time.perf_counter() - t0
-            rec["params_digest"] = _params_digest(state.params)
-            if comp == "none":
-                base["params"] = tree_map(lambda p: p.detach().clone(), state.params)
-            else:
-                pairs = list(zip(tree_leaves(state.params), tree_leaves(base["params"])))
-                rec["params_differ"] = (sum(int((a != b).sum()) for a, b in pairs)
-                                        / sum(a.numel() for a, _ in pairs))
-                res = state.opt_state[1].residual
-                rec.update(residual_finite=bool(torch.isfinite(res).all()),
-                           residual_absmax=float(res.float().abs().max()),
-                           residual_dtype=str(res.dtype), residual_numel=res.numel())
-            rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-            del step, state
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            out[(comp, stage, accum)] = rec
-        torch.save(out, f"{out_dir}/r{rank}.pt")
-    finally:
-        destroy_distributed()
+    model_cfg = ModelConfig.from_dict(config["model"])
+    plan = _job_plan(config, model_cfg)
+    if plan is None:
+        return None
+    group = plan.mesh.axis_groups["dp"]
+    batch, targets = _dtrain_batch(config, model_cfg, "cuda", plan.mesh.coords, plan.dp)
+    out, base = {}, {}
+    for comp, stage, accum in COMPRESS_RUNS:
+        train = dict(config["training"], grad_compression=comp,
+                     compression_accum_dtype=accum)
+        step, state = make_train_step(
+            model_cfg, build_optimizer(train),
+            init_params(model_cfg, config["input"]["seed"], "cuda"), mesh=plan.mesh,
+            zero_stage=stage, grad_compression=comp, compression_accum=accum,
+            residual_dtype=moments_dtype(train),
+            batch_size=config["input"]["batch_size"])
+        rec = {"losses": [], "launches": []}
+        # step 0's reduced gradient: no update has run, so every run
+        # starts from the same parameters and batch
+        _, grads = step.grads(state, batch, targets)
+        if comp == "none":
+            base["grads"] = grads
+            # the largest local gradient element over the dp ranks,
+            # which bounds every partial sum on the ring
+            loss = mse_loss(state.params, batch, targets, model_cfg)
+            g = torch.autograd.grad(loss, tree_leaves(state.params))
+            c_max = torch.stack([a.float().abs().max() for a in g]).max().reshape(1).cpu()
+            del loss, g
+            dist.all_reduce(c_max, op=dist.ReduceOp.MAX, group=group)
+            base["c_max"] = float(c_max)
+        else:
+            # under ZeRO-2 a rank holds its shard of the reduced gradient
+            ref = tree_map(lambda g, ax: shard_along(g, ax, step.zero.rank, plan.dp),
+                           base["grads"], step.zero.opt_axes)
+            rec["grad_diff"] = max(float((a.float() - b.float()).abs().max())
+                                   for a, b in zip(tree_leaves(grads), tree_leaves(ref)))
+            rec["grad_max"] = max(float(b.float().abs().max()) for b in tree_leaves(ref))
+        rec["c_max"] = base["c_max"]
+        del grads
+        t0 = time.perf_counter()
+        for _ in range(COMPRESS_STEPS):
+            _zero_flash_counts(fa)
+            state, loss = step(state, batch, targets)
+            rec["losses"].append(float(loss))
+            rec["launches"].append(_flash_counts(fa))
+        rec["seconds"] = time.perf_counter() - t0
+        rec["params_digest"] = _params_digest(state.params)
+        if comp == "none":
+            base["params"] = tree_map(lambda p: p.detach().clone(), state.params)
+        else:
+            pairs = list(zip(tree_leaves(state.params), tree_leaves(base["params"])))
+            rec["params_differ"] = (sum(int((a != b).sum()) for a, b in pairs)
+                                    / sum(a.numel() for a, _ in pairs))
+            res = state.opt_state[1].residual
+            rec.update(residual_finite=bool(torch.isfinite(res).all()),
+                       residual_absmax=float(res.float().abs().max()),
+                       residual_dtype=str(res.dtype), residual_numel=res.numel())
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del step, state
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out[(comp, stage, accum)] = rec
+    return out
 
 
-def _compress_train(torch, gpu_line):
+def _compress_train(torch, gpu_line, ranks):
     """Phase compress (d): the dp=2 runs and their checks (module docstring).
 
     Step 0's reduced gradient of a compressed run against the uncompressed
@@ -2763,9 +3220,6 @@ def _compress_train(torch, gpu_line):
     model_cfg = ModelConfig.from_dict(config["model"])
     layers, dp = model_cfg.num_layers, 2
     per_step = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
-    t0 = time.perf_counter()
-    ranks = _spawn_gloo(torch, _compress_train_rank, dp, config)
-    wall = time.perf_counter() - t0
     base = ranks[0][COMPRESS_RUNS[0]]["losses"]
     out = {"launches": None, "runs": {}}
     for run in COMPRESS_RUNS:
@@ -2816,12 +3270,17 @@ def _compress_train(torch, gpu_line):
             "losses": losses, "loss_rel": rel,
             "grad_diff": max(r.get("grad_diff", 0.0) for r in recs),
             "seconds": max(r["seconds"] for r in recs)}
-    print(f"[compress] dp=2 runs: {wall:.1f} s wall")
     return out
 
 
-def phase_compress(torch, gpu_line):
-    """Phase 12 (module docstring)."""
+def _compress_gloo_jobs():
+    """Phase compress's gloo jobs: (c)'s ring ops and (d)'s train runs."""
+    return [("compress_ring",), ("compress_train", _compress_config())]
+
+
+def phase_compress(torch, gpu_line, results):
+    """Phase 12 (module docstring); ``results``: its gloo jobs'
+    (``_compress_gloo_jobs``, ``_run_gloo_jobs``)."""
     from dlbb_tpu_torch import cli
     from dlbb_tpu_torch.models import ModelConfig
     from dlbb_tpu_torch.models.transformer import num_parameters
@@ -2833,8 +3292,11 @@ def phase_compress(torch, gpu_line):
     out = {"quantizer": _compress_quantizer(torch, quant_n, gpu_line)}
     torch.cuda.empty_cache()
     out["sweeps"] = _compress_sweeps(torch, gpu_line)
-    out["ring"] = _compress_ring(torch)
-    out["train"] = _compress_train(torch, gpu_line)
+    ring, train = results
+    print(f"[compress] (c) and (d) in the one gloo spawn: {ring['seconds']:.1f} and "
+          f"{train['seconds']:.1f} s in the ranks")
+    out["ring"] = _compress_ring(torch, ring["ranks"])
+    out["train"] = _compress_train(torch, gpu_line, train["ranks"])
     try:
         cli.main(["train", "--config", TRAIN_CONFIG, "--grad-compression", "int8"])
     except ValueError as e:
@@ -4155,13 +4617,17 @@ def _seq_launches(seq, name):
 
 def _dtrain_launches(dtrain, name):
     """A kernel's launches per optimizer step on each path of phase dtrain:
-    the four ZeRO stages' steps, the two ``run_train`` runs, and each rank
-    of (b)'s resharded micro-batches."""
+    the four ZeRO stages' steps, the two ``run_train`` runs, each rank of
+    (b)'s resharded micro-batches, and a rank of (b)'s uneven heads (its
+    forward and its step)."""
     out = {f"zero{stage}": r["launches"][name] for stage, r in dtrain["stages"].items()}
     for (stage, accum), run in dtrain["runs"].items():
         out[f"run_train_zero{stage}_ga{accum}"] = run["result"]["kernel_launches_per_step"][name]
     for rank, n in dtrain["gloo"]["resharded"]["launches"].items():
         out[f"resharded_rank{rank}"] = n[name] / DTRAIN_RESHARD["steps"]
+    uneven = dtrain["gloo"]["uneven_heads"]
+    out["uneven_heads_tp4_forward_per_rank"] = uneven["fwd_launches"][name]
+    out["uneven_heads_tp4_step_per_rank"] = uneven["step_launches"][name]
     return out
 
 
@@ -4197,6 +4663,15 @@ def main() -> int:
         return out
 
     fwd_design, bwd_design = timed("build", phase_build, _build)
+    # every phase's multi-rank runs in one gloo spawn, before the phases
+    # that check them (the kernels are built)
+    job_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_jobs_")
+    makers = {"tp": lambda: [("tp", TP_GLOO_CONFIG)],
+              "dtrain": lambda: _dtrain_gloo_jobs(job_dir.name), "seq": _seq_gloo_jobs,
+              "moe": lambda: [("moe",)], "pipe": lambda: [("pipe",)],
+              "compress": _compress_gloo_jobs}
+    jobs = {phase: make() for phase, make in makers.items() if phase in phases}
+    gloo = timed("gloo", _run_gloo_jobs, torch, jobs) if jobs else {}
     if "fwd" in phases:
         err_o, err_lse = timed("fwd", phase_kernel_vs_plain, torch, fa)
     if "bwd" in phases:
@@ -4216,17 +4691,17 @@ def main() -> int:
     if "comm" in phases:
         timed("comm", phase_comm, torch, gpu_line)
     if "tp" in phases:
-        tp = timed("tp", phase_tp, torch, gpu_line)
+        tp = timed("tp", phase_tp, torch, gpu_line, gloo["tp"])
     if "dtrain" in phases:
-        dtrain = timed("dtrain", phase_dtrain, torch, gpu_line)
+        dtrain = timed("dtrain", phase_dtrain, torch, gpu_line, jobs["dtrain"], gloo["dtrain"])
     if "seq" in phases:
-        seq = timed("seq", phase_seq, torch, gpu_line)
+        seq = timed("seq", phase_seq, torch, gpu_line, jobs["seq"], gloo["seq"])
     if "moe" in phases:
-        moe = timed("moe", phase_moe, torch, fa, gpu_line)
+        moe = timed("moe", phase_moe, torch, fa, gpu_line, gloo["moe"])
     if "pipe" in phases:
-        pipe = timed("pipe", phase_pipe, torch, gpu_line)
+        pipe = timed("pipe", phase_pipe, torch, gpu_line, gloo["pipe"])
     if "compress" in phases:
-        compress = timed("compress", phase_compress, torch, gpu_line)
+        compress = timed("compress", phase_compress, torch, gpu_line, gloo["compress"])
     if "bench" in phases:
         bench_launches = timed("bench", phase_bench, torch, fa, gpu_line)
     if "kv" in phases:
@@ -4235,6 +4710,7 @@ def main() -> int:
         serve = timed("serve", phase_serve, torch, fa, gpu_line)
     if "fleet" in phases:
         fleet = timed("fleet", phase_fleet, torch, gpu_line)
+    job_dir.cleanup()
     print(f"[time] phases {', '.join(f'{k} {v:.1f}' for k, v in walls.items())} s; "
           f"{sum(walls.values()):.1f} s in all")
     if phases != set(PHASES):

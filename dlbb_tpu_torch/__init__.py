@@ -11,7 +11,9 @@ tensor-parallel forward, DDP/ZeRO and tensor-parallel training, the
 sequence-sharded layouts: overlapped tensor parallelism and sequence
 parallelism, pipeline parallelism and the MoE FFN with expert
 parallelism, compressed collectives and training, the reports, the
-serving foundations, the serving engine whole and its harness):
+serving foundations, the serving engine whole and its harness, the serving
+fleet, tp over heads it does not divide and Ulysses over heads sp does not
+divide per tp rank, and the sweep's failure handling and tracing):
 
 - ``models`` — ``ModelConfig``/``MODEL_CONFIGS`` (1B/7B/13B), the decoder
   ``forward`` with the simplified/full/dense/flash attention modes, remat
@@ -29,7 +31,8 @@ serving foundations, the serving engine whole and its harness):
   rules), ``zero`` (ZeRO stages 0-3 as explicit collectives over the dp
   group), ``loop`` (``make_train_step`` and ``run_train`` on a (dp, tp)
   mesh, gradient accumulation, preemption) and ``checkpoint`` (per-rank
-  ``torch.save`` checkpoints with integrity manifests);
+  ``torch.save`` checkpoints with integrity manifests, restored onto the
+  layout they were saved on or onto another mesh or ZeRO stage);
 - ``resilience`` — host-only copies of the JAX failure taxonomy, the
   fault-injection plan grammar and the SIGTERM guard;
 - ``utils`` — ``summarize``/``Timer``, per-iteration CUDA-event timing,
@@ -49,7 +52,8 @@ serving foundations, the serving engine whole and its harness):
   CPU), the collective ops, payloads and mesh-shape variants;
   the collective-matmul micro-ops and their ``overlap_*`` variants;
   ``bench.runner`` and ``bench.launch`` — the 1D and 3D collective sweeps
-  on spawned ranks; ``stats`` — their statistics; ``cli bench1d``,
+  on spawned ranks, with fault injection, the per-config watchdog,
+  retries, quarantine, the journal and ``--resume``, and span traces; ``stats`` — their statistics; ``cli bench1d``,
   ``bench3d``, ``stats1d``, ``stats3d``; the quantised-wire collectives
   and compressed gradient training (``comm.compression``), and the
   derived reports (``stats.compare``, ``variants_report``, ``northstar``,
@@ -67,16 +71,16 @@ serving foundations, the serving engine whole and its harness):
   ``resume_serving``; ``cli serve``); the serving inputs of ``data`` and
   the KV-cache sizing and serving envelope of ``models.configs``;
   ``stats.serving_report`` (``cli reports``' serving table);
-- ``obs`` — the span tracer, the metrics registry and ``serving_metrics``;
-  ``resilience.journal``.
+- ``obs`` — the span tracer, the metrics registry, ``sweep_metrics``,
+  ``serving_metrics`` and ``fleet_metrics``; ``resilience.journal``.
 
 The root script ``bench_torch.py`` is the port's ``bench.py``: the 1B
 forward's tokens/s and ``bench.py``'s extras in one JSON line.
 
-Not ported yet (see ROADMAP.md): uneven tp shards, restoring a
-checkpoint onto another mesh, the serving fleet and the ``BENCH_*.json``
-writers, and the rest of the observability, planning and analysis layers
-and of resilience (validation, the chaos gate).
+Not ported yet (see ROADMAP.md): the sweep's compile-ahead engine, the
+chaos gate with ``cli chaos`` and device traces (item 13, part 13b), and
+the rest of the observability, planning and analysis layers (items 14
+and 15).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit ``"cpu"`` they raise.

@@ -9,7 +9,10 @@
                                        [--tp-overlap off|ring|bidir]
                                        [--grad-compression none|int8|fp8]
     python -m dlbb_tpu_torch.cli bench1d [--ops ...] [--sizes ...] [--ranks ...]
-                                         [--world N] [--device cuda|cpu] ...
+                                         [--world N] [--device cuda|cpu]
+                                         [--fault-plan PLAN] [--deadline SEC]
+                                         [--max-retries N] [--no-journal]
+                                         [--span-trace FILE] ...
     python -m dlbb_tpu_torch.cli bench3d [--ops ...] [--batch ...] [--seq ...]
                                          [--hidden ...] [--ranks ...] ...
     python -m dlbb_tpu_torch.cli stats1d --input DIR --output DIR
@@ -59,7 +62,7 @@ sets the mesh instead) through ``bench/launch.py``, written by rank 0 to
 ``--replicas N`` serves through the replica fleet (``serve/fleet.py``): N
 failure domains of one replica's mesh each, on N x that mesh's ranks, which
 share the GPUs over gloo.  JAX's ``--xplane-trace`` (device traces, Slice
-F, item 13) is refused.  The
+F, item 13, part 13b) is refused.  The
 reference corpus of ``compare`` is not in this repository: ``--reference``
 names its root.
 """
@@ -93,6 +96,21 @@ def _add_sweep_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--resume", action="store_true",
                    help="skip configs whose result JSON already exists and validates")
     p.add_argument("--device", default=None, help=_DEVICE_HELP)
+    p.add_argument("--fault-plan", default=None, metavar="PLAN",
+                   help="deterministic fault-injection plan (e.g. "
+                        "'exec-transient:2,seed=7'; DLBB_FAULT_PLAN env is the default)")
+    p.add_argument("--deadline", type=float, default=None, metavar="SEC",
+                   dest="unit_deadline",
+                   help="wall-clock watchdog per config; an overrun is abandoned "
+                        "and quarantined (DLBB_UNIT_DEADLINE env default)")
+    p.add_argument("--max-retries", type=int, default=2, metavar="N",
+                   help="bounded retries with exponential backoff for transient "
+                        "per-config failures (default 2)")
+    p.add_argument("--no-journal", action="store_true",
+                   help="disable the append-only sweep_journal.jsonl (on by default)")
+    p.add_argument("--span-trace", default=None, metavar="FILE", dest="span_trace",
+                   help="write the sweep's host-side span trace (Chrome trace-event "
+                        "JSON) to FILE; DLBB_SPANS env is the default")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -261,12 +279,12 @@ def _add_serve_parser(sub) -> None:
                     help="ranks to launch (default: the config's mesh, else 1)")
     sv.add_argument("--device", default=None, help=_DEVICE_HELP)
     sv.add_argument("--xplane-trace", default=None, metavar="DIR", dest="xplane_trace",
-                    help="a device trace (refused: Slice F, item 13)")
+                    help="a device trace (refused: Slice F, item 13, part 13b)")
     sv.add_argument("--span-trace", default=None, metavar="FILE", dest="span_trace",
                     help="rank 0's host span trace (Chrome trace-event JSON); "
                          "DLBB_SPANS env is the default")
     sv.add_argument("--device-trace", default=None, metavar="DIR", dest="device_trace",
-                    help="a captured prefill and decode (refused: Slice F, item 13)")
+                    help="a captured prefill and decode (refused: Slice F, item 13, part 13b)")
 
 
 def _sweep(args):
@@ -275,7 +293,10 @@ def _sweep(args):
     common = dict(
         variant=args.variant, dtype=args.dtype, warmup_iterations=args.warmup,
         measurement_iterations=args.iters, max_config_seconds=args.max_config_seconds,
-        max_global_bytes=args.max_global_bytes, resume=args.resume)
+        max_global_bytes=args.max_global_bytes, resume=args.resume,
+        fault_plan=args.fault_plan, unit_deadline_seconds=args.unit_deadline,
+        max_retries=args.max_retries, journal=not args.no_journal,
+        span_trace=args.span_trace)
     if args.ranks:
         common["rank_counts"] = tuple(args.ranks)
     if args.ops:
@@ -418,7 +439,7 @@ def _serve(args) -> int:
 
     if args.xplane_trace or os.environ.get("DLBB_TRACE_DIR"):
         raise SystemExit("serve --xplane-trace: device traces are not ported yet "
-                         "(ROADMAP Queue 1, Slice F, item 13)")
+                         "(ROADMAP Queue 1, Slice F, item 13, part 13b)")
     result = run_serve_from_config(
         args.config, trace=args.trace, num_requests=args.requests, seed=args.seed,
         rate=args.rate, output_dir=args.output,

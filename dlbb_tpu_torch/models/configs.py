@@ -3,8 +3,8 @@
 The dataclass keeps every field of the JAX ``ModelConfig`` and the same
 validation, so one config dict is accepted by both packages, and the model
 code runs every field (the MoE FFN included).  The parallelism validators are the JAX
-package's, with its messages; ``validate_tp_shards`` and
-``validate_sp_heads`` are the port's own.  The serving envelope
+package's, with its messages; ``validate_tp_shards`` states the refusal of
+JAX's pjit in the port's words.  The serving envelope
 (``validate_serving``) and the KV-cache footprint formulas
 (``kv_cache_bytes*``) are the JAX package's, with its messages; the HBM
 budget is always the caller's (``hbm_budget_bytes``), never a default.
@@ -411,32 +411,41 @@ def validate_expert_parallelism(config: ModelConfig, ep: int) -> None:
         )
 
 
+def param_shapes(config: ModelConfig) -> dict[str, Any]:
+    """The global shape of every parameter leaf, in ``init_params``' tree
+    (JAX's ``init_params`` layout)."""
+    h, f, L, w = (config.hidden_size, config.ffn_intermediate, config.num_layers,
+                  config.qkv_width)
+    e = (config.num_experts,) if config.is_moe else ()
+    layers = {"ln1": {"scale": (L, h), "bias": (L, h)},
+              "qkv": {"kernel": (L, h, w), "bias": (L, w)},
+              "out": {"kernel": (L, h, h), "bias": (L, h)},
+              "ln2": {"scale": (L, h), "bias": (L, h)},
+              "ffn_up": {"kernel": (L, *e, h, f), "bias": (L, *e, f)},
+              "ffn_down": {"kernel": (L, *e, f, h), "bias": (L, *e, h)}}
+    if config.is_moe:
+        layers["router"] = {"kernel": (L, h, config.num_experts)}
+    return {"layers": layers, "ln_f": {"scale": (h,), "bias": (h,)}}
+
+
 def validate_tp_shards(config: ModelConfig, tp: int) -> None:
-    """Refuse a tensor-parallel degree that does not divide every sharded
-    dimension.  The port's shards are explicit tensors, one per rank; GSPMD
-    pads an uneven shard, explicit shards cannot."""
-    for name in ("hidden_size", "num_heads", "ffn_intermediate"):
-        if getattr(config, name) % tp != 0:
-            raise ValueError(
-                f"{name}={getattr(config, name)} not divisible by the "
-                f"tensor-parallel degree {tp} (parallelism.world_size): the "
-                "port shards it evenly over tp"
-            )
+    """Refuse a tensor-parallel degree that does not divide a sharded
+    parameter dimension, naming the first such leaf in JAX's order, as
+    JAX's pjit does when ``init_params_sharded`` lays out the parameters
+    (GSPMD pads no parameter).  The heads need not divide: the port then
+    gathers the qkv activations over tp (``transformer._uneven_attention``),
+    as JAX runs that case."""
+    from dlbb_tpu_torch.models.sharding import tp_dim
 
-
-def validate_sp_heads(config: ModelConfig, tp: int, sp: int) -> None:
-    """Refuse Ulysses where sp does not divide each tp rank's heads.  The
-    port all-to-alls a rank's own ``num_heads/tp`` heads over sp
-    (``parallel/ulysses.py``); JAX's GSPMD gathers the heads over tp first
-    and needs only ``num_heads % sp == 0``."""
-    if config.attention != "ulysses" or sp <= 1:
-        return
-    heads = config.num_heads // tp
-    if heads % sp != 0:
-        raise ValueError(
-            f"attention='ulysses' needs each tensor-parallel rank's "
-            f"num_heads/tp = {heads} heads divisible by "
-            f"sequence_parallel={sp}: the port all-to-alls the rank's own "
-            "heads over sp; use attention='ring', or a tp that leaves sp "
-            "a divisor of the heads per rank"
-        )
+    layers = param_shapes(config)["layers"]
+    for group in sorted(layers):  # JAX's pytree order
+        for leaf in sorted(layers[group]):
+            dim, shape = tp_dim(group, leaf, config.is_moe), layers[group][leaf]
+            if tp > 1 and dim is not None and shape[dim] % tp != 0:
+                path = f"layers.{group}.{leaf}"
+                raise ValueError(
+                    f"{path} (global shape {shape}) is sharded over tp on its "
+                    f"dimension {dim}, which implies that dimension {dim} should be "
+                    f"divisible by the tensor-parallel degree {tp}, but it is equal "
+                    f"to {shape[dim]} (JAX's pjit refuses the same layout)"
+                )

@@ -14,17 +14,24 @@ own (``shard_params``), as the reference does (``models.py:19-100``), and
   after the all-reduce) and ``ln_f``.
 
 The fused QKV is ``[q | k | v]``, so a contiguous cut of its columns would
-give rank 0 all of q and part of k.  Rank r takes the q columns of its
-heads ``[r n/tp, (r+1) n/tp)``, the k and v columns of their kv heads, and
-concatenates them as its own ``[q | k | v]``; the out-proj rows follow the
-same q heads.  When ``tp`` divides ``kv_heads`` those are the kv heads
-``[r kvh/tp, (r+1) kvh/tp)``, and the group ``b // g`` stays as it is.  When
-it does not, each local q head takes a copy of its kv head's columns, so
-the rank runs ``n/tp`` kv heads with g = 1: the JAX package broadcasts k/v
-to ``num_heads`` in that case (``transformer.py:229-233``).
+give rank 0 all of q and part of k.  Where tp divides ``num_heads``, rank r
+takes the q columns of its heads ``[r n/tp, (r+1) n/tp)``, the k and v
+columns of their kv heads, and concatenates them as its own ``[q | k |
+v]``; the out-proj rows follow the same q heads.  When ``tp`` divides
+``kv_heads`` those are the kv heads ``[r kvh/tp, (r+1) kvh/tp)``, and the
+group ``b // g`` stays as it is.  When it does not, each local q head takes
+a copy of its kv head's columns, so the rank runs ``n/tp`` kv heads with
+g = 1: the JAX package broadcasts k/v to ``num_heads`` in that case
+(``transformer.py:229-233``).
 
-Uneven shards are refused (``configs.validate_tp_shards``): GSPMD pads
-them, explicit shards cannot.
+Where tp does not divide ``num_heads`` (``uneven_heads``) but every sharded
+parameter dimension (``hidden_size``, ``qkv_width``, ``ffn_intermediate``)
+divides, rank r holds the contiguous ``[r W/tp, (r+1) W/tp)`` of the fused
+columns and ``[r H/tp, (r+1) H/tp)`` of the out-proj rows, as JAX's
+``PartitionSpec``s lay them out; the model then gathers the qkv activations
+over tp (``gather_parts``) to attend (``transformer._uneven_attention``).
+A parameter dimension that tp does not divide is refused as JAX's pjit
+refuses it (``configs.validate_tp_shards``): GSPMD pads no parameter.
 
 With gradients, the two all-reduces per layer become Megatron's conjugate
 pair of autograd Functions: ``copy_to_tp`` (identity forward, all-reduce of
@@ -34,7 +41,7 @@ row-parallel product.  Both run out of place: no collective writes into a
 tensor that autograd or a selective checkpoint has saved.  Where a rank
 holds copies of kv columns, ``sum_kv_copies`` gives every copy the full
 gradient of its source column, so the copies stay equal after each update.
-``gather_dp`` is ZeRO-3's per-use parameter all-gather over the dp group
+``gather_parts`` is ZeRO-3's per-use parameter all-gather over the dp group
 (its gradient is reduce-scattered back to the shard).
 
 The MoE layout follows ``dlbb_tpu/models/sharding.py:40-50``: each expert
@@ -115,13 +122,23 @@ def local_kv_heads(config: ModelConfig, tp: int) -> int:
     return kvh // tp if kvh % tp == 0 else config.num_heads // tp
 
 
+def uneven_heads(config: ModelConfig, tp: int) -> bool:
+    """Whether tp cuts the heads unevenly: the rank then holds a contiguous
+    1/tp of the fused qkv columns, not whole heads (module docstring)."""
+    return tp > 1 and config.num_heads % tp != 0
+
+
 def local_config(config: ModelConfig, tp: int) -> ModelConfig:
     """What one rank's shards compute: ``num_heads/tp`` heads of the same
     head_dim (``hidden_size/tp`` is the attention width), its K/V heads
     (``local_kv_heads``) and ``ffn_intermediate/tp``.  The residual stream
-    keeps the full hidden size, which the shards' shapes carry."""
+    keeps the full hidden size, which the shards' shapes carry.  Where tp
+    does not divide the heads (``uneven_heads``) only the FFN is cut: the
+    attention runs on heads gathered over tp."""
     if tp == 1:
         return config
+    if uneven_heads(config, tp):
+        return config.with_(ffn_intermediate=config.ffn_intermediate // tp)
     kv = local_kv_heads(config, tp)
     return config.with_(hidden_size=config.hidden_size // tp,
                         num_heads=config.num_heads // tp,
@@ -166,7 +183,7 @@ def shard_leaf(group: str, leaf: str, t: torch.Tensor, config: ModelConfig,
     edim = ep_dim(group, leaf, config.is_moe)
     if ep > 1 and edim is not None:
         cut = _slice(cut, edim, ep_rank, ep)
-    if tp > 1 and group == "qkv":
+    if tp > 1 and group == "qkv" and not uneven_heads(config, tp):
         return cut.index_select(cut.dim() - 1,
                                 qkv_columns(config, tp_rank, tp).to(t.device))
     dim = tp_dim(group, leaf, config.is_moe)
@@ -202,7 +219,7 @@ def _unshard_tp(shards: list[dict[str, Any]], config: ModelConfig) -> dict[str, 
             parts = [s["layers"][group][leaf] for s in shards]
             if dim is None:
                 layers[group][leaf] = t
-            elif group == "qkv":
+            elif group == "qkv" and not uneven_heads(config, tp):
                 full = t.new_empty(t.shape[:-1] + (config.qkv_width,))
                 for r, part in enumerate(parts):
                     full.index_copy_(full.dim() - 1,
@@ -315,7 +332,7 @@ class _MeanFrom(torch.autograd.Function):
         return grad * ctx.scale, None, None
 
 
-class _GatherDP(torch.autograd.Function):
+class _GatherParts(torch.autograd.Function):
     @staticmethod
     def forward(ctx, shard, dim, group):
         ctx.dim, ctx.group = dim, group
@@ -372,17 +389,21 @@ def share_mean(x: torch.Tensor, share: float) -> torch.Tensor:
     return torch.mean(x) * share
 
 
-def gather_dp(shard: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """ZeRO-3: the full tensor from the dp ranks' shards along ``dim``; its
-    gradient is summed over ``group`` and cut back to this rank's shard."""
-    return _GatherDP.apply(shard, dim, group)
+def gather_parts(part: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' ``part``s concatenated along ``dim`` over ``group``; the
+    gradient is summed over the group and cut back to this rank's part, as
+    GSPMD's gather transposes.  ZeRO-3 gathers its parameters so over dp;
+    the model gathers heads so over tp where each rank needs heads others
+    computed (Ulysses over heads sp does not divide per rank, heads that tp
+    does not divide)."""
+    return _GatherParts.apply(part, dim, group)
 
 
 def kv_copy_sources(config: ModelConfig, tp_rank: int, tp: int) -> Optional[torch.Tensor]:
     """For each k and v column of rank ``tp_rank``'s ``[q | k | v]`` (after
     its ``hidden_size/tp`` q columns), its column in the full ``[k | v]``
     block; None when tp divides ``kv_heads`` and no column is a copy."""
-    if tp == 1 or config.kv_heads % tp == 0:
+    if tp == 1 or config.kv_heads % tp == 0 or uneven_heads(config, tp):
         return None
     cols = qkv_columns(config, tp_rank, tp)
     return cols[config.hidden_size // tp:] - config.hidden_size

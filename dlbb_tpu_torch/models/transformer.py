@@ -18,12 +18,16 @@ row-parallel products per layer is summed over the mesh's tp group
 added, once (the reference's ``models.py:95``; the all-reduces GSPMD
 inserts in JAX).  With gradients, ``sharding.copy_to_tp`` on each
 LayerNorm output that feeds a column-parallel product sums its gradient
-over the tp group.  Without a mesh the forward is the single-device one.
+over the tp group.  Where tp does not divide the heads, the rank's qkv
+columns are a contiguous 1/tp of the fused ones, gathered over tp before
+attention (``_uneven_attention``); where sp does not divide a rank's
+heads under Ulysses, the heads are gathered over tp first.  Without a
+mesh the forward is the single-device one.
 
 ``forward(..., dp_axes=...)`` is ZeRO-3's (``train/zero.py``): ``params``
 are this rank's dp shards, each leaf cut along its ``dp_axes`` entry, and
 every block all-gathers its layer's slices over the mesh's dp group on use
-(``sharding.gather_dp``, whose gradient is reduce-scattered back to the
+(``sharding.gather_parts``, whose gradient is reduce-scattered back to the
 shard), inside the remat region, so that the recompute gathers again, as
 XLA's FSDP gather does under ``jax.checkpoint``.  A stacked leaf cut along
 its layer axis is gathered whole, once per forward; ``ln_f`` is gathered
@@ -88,12 +92,16 @@ from torch.utils.checkpoint import (
 )
 
 from dlbb_tpu_torch.models.attention import dense_attention
-from dlbb_tpu_torch.models.configs import ModelConfig, validate_attention_parallelism
+from dlbb_tpu_torch.models.configs import (
+    ModelConfig,
+    param_shapes,
+    validate_attention_parallelism,
+)
 from dlbb_tpu_torch.models.sharding import (
     all_gather_along,
     copy_to_ep,
     copy_to_tp,
-    gather_dp,
+    gather_parts,
     local_config,
     reduce_from_ep,
     reduce_from_tp,
@@ -173,6 +181,21 @@ def init_params(config: ModelConfig, seed: int, device, tp_rank: int = 0,
                      "bias": torch.zeros(h, device=device, dtype=dtype)}}
 
 
+def meta_params(config: ModelConfig) -> Params:
+    """``init_params``' tree as ``meta`` tensors of the global shapes
+    (``configs.param_shapes``) and the config's dtype: the layout without
+    the storage (a checkpoint restored onto another mesh cuts it,
+    ``train/checkpoint.py``)."""
+    dtype = DTYPES[config.dtype]
+
+    def meta(node):
+        if isinstance(node, dict):
+            return {k: meta(v) for k, v in node.items()}
+        return torch.empty(node, dtype=dtype, device="meta")
+
+    return meta(param_shapes(config))
+
+
 def _layernorm(x, scale, bias):
     # statistics in fp32, population variance, eps 1e-5, scale and bias
     # applied in fp32, result cast back (transformer.py:103-108 there)
@@ -203,8 +226,80 @@ def _sp_size(mesh) -> int:
     return 1 if mesh is None else mesh.shape.get("sp", 1)
 
 
+def _attend(q, k, v, config: ModelConfig, mesh=None):
+    """``[B, n, S, d]`` q and ``[B, kvh, S, d]`` k, v -> ``[B, n, S, d]``
+    by ``config.attention``'s route; the head counts are the tensors'."""
+    n, kvh = q.shape[1], k.shape[1]
+    sp = _sp_size(mesh)
+    if config.attention in ("ring", "ulysses"):
+        # sequence-parallel attention over the mesh's sp group, on this
+        # rank's tp heads (parallel/ring_attention.py's docstring)
+        if mesh is None or "sp" not in mesh.axis_names:
+            raise ValueError(
+                f"attention={config.attention!r} needs a mesh with a 'sp' "
+                "axis passed to forward()"
+            )
+        if config.attention == "ring":
+            return ring_attention(q, k, v, mesh, causal=config.causal)
+        if kvh != n and kvh % sp != 0:
+            # Ulysses all-to-alls the head dim over sp; kv heads that
+            # sp does not divide cannot stay grouped (JAX's fallback)
+            k = k.repeat_interleave(n // kvh, dim=1)
+            v = v.repeat_interleave(n // kvh, dim=1)
+        return ulysses_attention(q, k, v, mesh, causal=config.causal)
+    if sp > 1:
+        if config.attention == "flash":
+            raise ValueError(
+                "attention='flash' does not partition the sequence; use "
+                "attention='ring' or 'ulysses' when sequence_parallel > 1"
+            )
+        validate_attention_parallelism(config, sp)
+    if config.attention == "flash" or (
+            config.attention == "full"
+            and flash_route(q.shape, q.dtype, q.device.type)):
+        # the kernel takes contiguous [B, N, S, D]
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=config.causal)
+    return dense_attention(q, k, v, causal=config.causal)
+
+
+def _uneven_attention(qkv, config: ModelConfig, mesh):
+    """This rank's ``[B, S, H/tp]`` attention features where tp does not
+    divide the heads: ``qkv`` is the rank's contiguous 1/tp of the fused
+    columns (``sharding.uneven_heads``), ``config`` the model's.  The
+    columns are gathered over tp, the heads that overlap the rank's
+    features attend (widened to whole kv groups, so that a kv head serving
+    several ranks' query heads is read whole; Ulysses takes every head, as
+    it all-to-alls them over sp), and the rank's features are cut out."""
+    tp, r = mesh.shape["tp"], mesh.coords["tp"]
+    full = gather_parts(qkv, 2, mesh.axis_groups["tp"])  # [B, S, qkv_width]
+    h, d, n, kvh = config.hidden_size, config.head_dim, config.num_heads, config.kv_heads
+    lo, hi = r * h // tp, (r + 1) * h // tp
+    if config.attention == "simplified":
+        return full[:, :, lo:hi]
+    b, s, _ = full.shape
+    g = n // kvh
+    if config.attention == "ulysses":
+        h0, h1 = 0, n
+    else:  # the first and last heads of the features, widened to kv groups
+        h0, h1 = lo // d // g * g, ((hi - 1) // d // g + 1) * g
+    k0, k1 = h0 // g, h1 // g
+
+    def heads(c0, c1):  # columns [c0, c1) -> [B, (c1 - c0)/d, S, d]
+        return full[:, :, c0:c1].reshape(b, s, (c1 - c0) // d, d).transpose(1, 2)
+
+    o = _attend(heads(h0 * d, h1 * d), heads(h + k0 * d, h + k1 * d),
+                heads(h + (kvh + k0) * d, h + (kvh + k1) * d), config, mesh)
+    o = o.transpose(1, 2).reshape(b, s, (h1 - h0) * d)
+    return o[:, :, lo - h0 * d:hi - h0 * d]
+
+
 def _attention(qkv, config: ModelConfig, mesh=None):
-    """qkv: [B, S, qkv_width] -> [B, S, H]."""
+    """qkv: [B, S, qkv_width] -> [B, S, H]: on a tp mesh the rank's
+    columns and features, ``config`` its ``local_config``."""
+    if qkv.shape[-1] != config.qkv_width:
+        # a contiguous 1/tp of the columns: tp does not divide the heads
+        return _uneven_attention(qkv, config, mesh)
     h = config.hidden_size
     if config.attention == "simplified":
         # the reference's benchmarking shortcut: the query projection is
@@ -219,39 +314,15 @@ def _attention(qkv, config: ModelConfig, mesh=None):
     q = heads(qkv[:, :, :h], n)
     k = heads(qkv[:, :, h:h + kvh * d], kvh)
     v = heads(qkv[:, :, h + kvh * d:], kvh)
-    sp = _sp_size(mesh)
-    if config.attention in ("ring", "ulysses"):
-        # sequence-parallel attention over the mesh's sp group, on this
-        # rank's tp heads (parallel/ring_attention.py's docstring)
-        if mesh is None or "sp" not in mesh.axis_names:
-            raise ValueError(
-                f"attention={config.attention!r} needs a mesh with a 'sp' "
-                "axis passed to forward()"
-            )
-        if config.attention == "ring":
-            o = ring_attention(q, k, v, mesh, causal=config.causal)
-        else:
-            if kvh != n and kvh % sp != 0:
-                # Ulysses all-to-alls the head dim over sp; kv heads that
-                # sp does not divide cannot stay grouped (JAX's fallback)
-                k = k.repeat_interleave(n // kvh, dim=1)
-                v = v.repeat_interleave(n // kvh, dim=1)
-            o = ulysses_attention(q, k, v, mesh, causal=config.causal)
-    elif sp > 1:
-        if config.attention == "flash":
-            raise ValueError(
-                "attention='flash' does not partition the sequence; use "
-                "attention='ring' or 'ulysses' when sequence_parallel > 1"
-            )
-        validate_attention_parallelism(config, sp)
-    elif config.attention == "flash" or (
-            config.attention == "full"
-            and flash_route(q.shape, q.dtype, q.device.type)):
-        # the kernel takes contiguous [B, N, S, D]
-        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                            causal=config.causal)
+    tp = 1 if mesh is None else mesh.shape["tp"]
+    if config.attention == "ulysses" and tp > 1 and n % _sp_size(mesh) != 0:
+        # sp does not divide the rank's heads: gather every head over tp,
+        # as GSPMD does for JAX's shard_map, attend, keep the rank's own
+        group, r = mesh.axis_groups["tp"], mesh.coords["tp"]
+        q, k, v = (gather_parts(t, 1, group) for t in (q, k, v))
+        o = _attend(q, k, v, config, mesh).narrow(1, r * n, n)
     else:
-        o = dense_attention(q, k, v, causal=config.causal)
+        o = _attend(q, k, v, config, mesh)
     return o.transpose(1, 2).reshape(b, s, n * d)
 
 
@@ -453,7 +524,7 @@ def _gather_layer(layer: Params, fsdp) -> Params:
     leaf)``, None where a leaf is whole."""
     group, axes = fsdp
     return {name: {p: (t if axes[name][p] is None
-                       else gather_dp(t, axes[name][p], group))
+                       else gather_parts(t, axes[name][p], group))
                    for p, t in sub.items()}
             for name, sub in layer.items()}
 
@@ -523,7 +594,7 @@ def layer_list(stacked: Params, mesh=None, dp_axes=None) -> tuple[list, Any]:
     fsdp = None
     if dp_axes is not None:
         group = mesh.axis_groups["dp"]
-        stacked = {name: {p: (gather_dp(t, 0, group) if dp_axes[name][p] == 0 else t)
+        stacked = {name: {p: (gather_parts(t, 0, group) if dp_axes[name][p] == 0 else t)
                           for p, t in sub.items()}
                    for name, sub in stacked.items()}
         fsdp = (group, {name: {p: (None if ax in (None, 0) else ax - 1)
@@ -557,7 +628,7 @@ def final_norm(x, ln_f: Params, mesh=None, dp_axes=None):
     ``dp_axes`` (its tree of dp axes) cuts them."""
     if dp_axes is not None:
         group = mesh.axis_groups["dp"]
-        ln_f = {p: (t if dp_axes[p] is None else gather_dp(t, dp_axes[p], group))
+        ln_f = {p: (t if dp_axes[p] is None else gather_parts(t, dp_axes[p], group))
                 for p, t in ln_f.items()}
     return _layernorm(x, ln_f["scale"], ln_f["bias"])
 

@@ -1,7 +1,8 @@
 """Host-side observability (counterpart of ``dlbb_tpu/obs``): the span
 tracer (``spans``) and the metrics registry with its Prometheus textfile
-export (``export``), copies of the JAX modules.  Device traces and ``cli
-obs`` come with ROADMAP Queue 1, Slice F, item 13, and the cost model's
+export (``export``), copies of the JAX modules.  The sweep runner emits
+into both (ROADMAP Queue 1, Slice F, item 13, part 13a); device traces and
+``cli obs`` come with part 13b, and the cost model's
 calibration, fit and attribution with item 14."""
 
 from dlbb_tpu_torch.obs.export import LabeledCounter, MetricsRegistry

@@ -6,12 +6,11 @@ output order (metrics in insertion order, label sets sorted within one),
 atomic writes through ``utils/config.atomic_write_text``.  The same
 updates give the JAX package's ``metrics.prom`` byte for byte.
 
-``serving_metrics`` folds a serving report (``serve/bench.py``) and
-``fleet_metrics`` a fleet report (``serve/fleet.py``) into ``metrics.prom``,
-as JAX's do.  The JAX module's other report folds wait with the layers
-whose reports they read: ``sweep_metrics`` (the sweep manifest, ROADMAP
-Queue 1, Slice F, item 13) and ``analysis_metrics`` (the analysis report,
-Slice F, item 15).
+``serving_metrics`` folds a serving report (``serve/bench.py``),
+``fleet_metrics`` a fleet report (``serve/fleet.py``) and ``sweep_metrics``
+a sweep manifest (``bench/runner.py``) into ``metrics.prom``, as JAX's do.
+``analysis_metrics`` (the analysis report) waits for ROADMAP Queue 1,
+Slice F, item 15.
 """
 
 from __future__ import annotations
@@ -399,4 +398,31 @@ def fleet_metrics(report: dict[str, Any],
         registry.set_gauge("serve_failover_ttft_penalty_seconds", penalty,
                            help="mean TTFT of failed-over requests minus "
                                 "mean TTFT of cleanly-routed ones")
+    return registry
+
+
+def sweep_metrics(manifest: dict[str, Any],
+                  registry: Optional[MetricsRegistry] = None) -> MetricsRegistry:
+    """JAX's: a sweep manifest's aggregate sections as gauges (wall and
+    compile seconds, compile-cache hits and misses, payload-cache stats,
+    retries and quarantine) on top of the counters the sweep registered.
+    The port compiles nothing, so its compile gauges read 0."""
+    registry = registry or MetricsRegistry()
+    registry.set_gauge("sweep_wall_seconds", manifest.get("wall_seconds", 0.0),
+                       help="sweep wall-clock time")
+    registry.set_gauge("sweep_compile_seconds",
+                       manifest.get("compile_seconds_total", 0.0),
+                       help="summed compile time across work units")
+    cache = manifest.get("compile_cache", {})
+    for k in ("persistent_hits", "persistent_misses"):
+        registry.set_gauge("sweep_compile_cache", cache.get(k, 0),
+                           outcome=k.replace("persistent_", ""))
+    payload = manifest.get("payload_cache", {})
+    for k, v in sorted(payload.items()):
+        registry.set_gauge("sweep_payload_cache", v, stat=k)
+    res = manifest.get("resilience", {})
+    registry.set_gauge("sweep_retries", res.get("retries_total", 0),
+                       help="transient-failure retries burned")
+    registry.set_gauge("sweep_quarantined", len(res.get("quarantined", ())),
+                       help="configs quarantined with exception chains")
     return registry

@@ -7,8 +7,8 @@ sink (:func:`journal_sink`), so a run's timeline can be rebuilt from
 either file (:func:`journal_to_trace`).  The output loads in Perfetto
 (https://ui.perfetto.dev) or ``chrome://tracing``.  In the JAX package the
 sweep engine, the train loop and the serving engine emit into it; in the
-port the callers come with those layers (ROADMAP Queue 1, Slice E, item 11
-and Slice F, item 13).
+port the serving engine (ROADMAP Queue 1, Slice E, item 11) and the sweep
+runner (Slice F, item 13, part 13a) do.
 
 With no tracer active, :func:`span` returns one shared ``nullcontext``
 and :func:`instant` is a module-global load and an ``is None`` test, and

@@ -6,9 +6,9 @@ validation of the JAX plan with its messages (the device preflight, the
 reference's ``run_mpi.py:73-77``; attention/sp, MoE/ep, ``tp_overlap``;
 the pipeline's divisibility through ``pipeline.validate_pipeline``, which
 also resolves ``num_microbatches``, and ``num_microbatches`` without a
-pipeline), then the port's own refusals (uneven tp shards, Ulysses heads),
-and builds the process-group
-mesh in JAX's axis order ``(dp[, sp][, pp][, ep], tp)``.  The devices are
+pipeline), then the parameter dimensions that tp does not divide, which
+JAX's pjit refuses (``configs.validate_tp_shards``), and builds the
+process-group mesh in JAX's axis order ``(dp[, sp][, pp][, ep], tp)``.  The devices are
 the ranks of the default process group, one device per rank; without a
 process group there is one.
 """
@@ -25,7 +25,6 @@ from dlbb_tpu_torch.models.configs import (
     ModelConfig,
     validate_attention_parallelism,
     validate_expert_parallelism,
-    validate_sp_heads,
     validate_tp_overlap,
     validate_tp_shards,
 )
@@ -79,7 +78,6 @@ def check_plan(config: dict[str, Any], model_cfg: ModelConfig,
             "schedule; without pp it would silently be ignored)"
         )
     validate_tp_shards(model_cfg, tp)
-    validate_sp_heads(model_cfg, tp, sp)
     if n_avail > needed:
         raise ValueError(
             f"{n_avail} ranks in the process group, the config's mesh has "

@@ -13,9 +13,11 @@ of a permutation).  gloo's ``all_to_all_single`` takes CUDA tensors
 (``scripts/torch_gloo_p2p_probe.py``), so no host staging is needed.
 
 The model (``models/transformer.py``) calls it on each rank's tp heads, as
-it does ring attention; JAX's checks then apply to those heads
-(``configs.validate_sp_heads`` refuses a plan whose tp heads sp does not
-divide).
+it does ring attention.  Where sp does not divide a rank's ``num_heads/tp``
+heads, or tp does not divide the heads, the model gathers the heads over tp
+first and calls it on all of them, as GSPMD gathers them for JAX's
+``shard_map`` (spec ``P(dp, None, sp, None)``), and keeps the rank's own;
+JAX's two checks (``num_heads % sp``, ``kv_heads % sp``) are the only ones.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Resilience (counterpart of ``dlbb_tpu/resilience``, host-only copies):
 the failure taxonomy (``errors``), the fault-injection registry
 (``inject``), graceful preemption (``preempt``) and the append-only journal
-(``journal``).  Artifact validation and the chaos gate come with ROADMAP
-Queue 1, Slice F, item 13."""
+(``journal``).  The sweep runner wires them (ROADMAP Queue 1, Slice F, item
+13, part 13a); the chaos gate comes with part 13b."""
 
 from dlbb_tpu_torch.resilience.errors import CheckpointCorruption
 from dlbb_tpu_torch.resilience.journal import SweepJournal

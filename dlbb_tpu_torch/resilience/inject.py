@@ -14,9 +14,12 @@ in ``serve/traffic.py::TrafficTrace.load``, and the engine's serving sites
 (the second table) in ``serve/engine.py``, and the fleet's (the third) in
 ``serve/fleet.py``, where the JAX package hosts them; a fleet counts its
 replica sites' hits across its processes (``FaultPlan.fire_nth``).  The
-sweep's are parsed and counted, and fire at no call site until their layer
-is ported (ROADMAP Queue 1, Slice F, item 13); the tables below list where
-the JAX package hosts each.
+sweep's fire in ``bench/runner.py`` (``exec-transient``, ``exec-hang``,
+``stats-nan``, ``preempt``: the mesh's rank 0 decides and broadcasts) and
+in ``utils/config.py::save_json`` (``torn-write``, ``kill-mid-write``);
+``compile-fail`` and ``compile-hang`` fire at no call site until the
+compile-ahead engine is ported (ROADMAP Queue 1, Slice F, item 13, part
+13b).  The tables below list where the JAX package hosts each.
 
 Plan grammar (``DLBB_FAULT_PLAN`` env / ``--fault-plan`` CLI)::
 

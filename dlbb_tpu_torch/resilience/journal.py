@@ -11,10 +11,10 @@ A pluggable ``sink`` (``sink(event, record)``) mirrors every event into
 another observer, such as ``dlbb_tpu_torch.obs.spans.journal_sink``, so
 each journal line doubles as a span-trace instant.  The sink fires even
 when file journaling is disabled, and its exceptions are swallowed:
-observability must never kill a run.  The sweep's and the serving
-engine's calls come with their layers (ROADMAP Queue 1, Slice E, item 11
-and Slice F, item 13).  The same events give the JAX package's file byte
-for byte.
+observability must never kill a run.  The serving engine (ROADMAP Queue
+1, Slice E, item 11) and the sweep runner (Slice F, item 13, part 13a)
+journal into it.  The same events give the JAX package's file byte for
+byte.
 """
 
 from __future__ import annotations

@@ -14,8 +14,10 @@ turns the signal into a *flag* the harness polls at safe points:
   step.  A SIGTERM reaches one process, not the group: the ranks take the
   maximum of their flags over the world before each step, so every rank
   stops at the same step;
-- the sweep runner's check between configs comes with ROADMAP Queue 1,
-  Slice F, item 13.
+- the sweep runner (``bench/runner.py``) checks between configs; the
+  mesh's ranks take the maximum of their flags before each config, and the
+  world's at the end of each rank count (ROADMAP Queue 1, Slice F, item 13,
+  part 13a).
 
 Signal handlers can only be installed on the main thread; elsewhere
 (e.g. a harness embedded in a worker thread) the guard degrades to an

@@ -29,7 +29,7 @@ trace, and rank 0 alone writes the journal, the artifacts and the resume
 checkpoint.  A resume relaunches the same world.  A ``fleet:`` section or
 ``replicas`` above 1 routes the run to ``serve/fleet.py::run_fleet``, whose
 ``parallelism:`` plan is each replica's.  Device traces come with Slice F,
-item 13, and are refused.
+item 13, part 13b, and are refused.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ import torch.distributed as dist
 from dlbb_tpu_torch.models.configs import ModelConfig, kv_cache_bytes_per_device
 from dlbb_tpu_torch.serve.engine import ServingConfig, ServingEngine
 from dlbb_tpu_torch.serve.traffic import TRACE_KINDS, TrafficTrace, generate_trace
-from dlbb_tpu_torch.utils.sysinfo import resolve_device
+from dlbb_tpu_torch.utils.sysinfo import resolve_device, topology_record
 
 SERVING_MANIFEST_SCHEMA = "dlbb_serving_manifest_v1"
 SERVING_RESUME_SCHEMA = "dlbb_serving_resume_v1"
@@ -67,7 +67,7 @@ def _refuse_device_trace(device_trace: Optional[str]) -> None:
     if device_trace or os.environ.get("DLBB_DEVICE_TRACE"):
         raise ValueError(
             "device traces of a serving run are not ported yet: they come with "
-            "obs/capture.py (ROADMAP Queue 1, Slice F, item 13)")
+            "obs/capture.py (ROADMAP Queue 1, Slice F, item 13, part 13b)")
 
 
 def _hbm_record(model_cfg: ModelConfig, serving_cfg: ServingConfig, plan) -> dict:
@@ -85,22 +85,6 @@ def _hbm_record(model_cfg: ModelConfig, serving_cfg: ServingConfig, plan) -> dic
         "kv_cache_bytes_per_device": cache_dev,
         "budget_bytes": budget,
         "headroom_bytes": (None if budget is None else budget - cache_dev),
-    }
-
-
-def _topology_record(device: torch.device) -> dict[str, Any]:
-    """The topology record of the manifest (JAX's keys): the device type
-    behind the mesh, its ranks, and whether the run is on the CPU.  The
-    port runs on the CPU only when asked to (``resolve_device``), so no run
-    is degraded."""
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    return {
-        "platform": device.type,
-        "num_devices": world,
-        "process_count": world,
-        "simulated": device.type == "cpu",
-        "simulation_forced": device.type == "cpu",
-        "degraded": False,
     }
 
 
@@ -256,7 +240,7 @@ def run_serving(
                   "num_requests": len(trace), "fault_plan": fault_spec},
             sink=spans.journal_sink,
         )
-    topology = _topology_record(dev)
+    topology = topology_record(dev)
     try:
         with inject.plan_scope(fault_spec), PreemptionGuard() as guard:
             engine = ServingEngine(
@@ -501,7 +485,7 @@ def _write_merged(out: Path, ckpt: dict[str, Any], merged: dict[str, Any],
             print("[serve] preempted again mid-resume — checkpoint refreshed")
         return
     result_path = _write_result(out, name, merged, engine, ckpt["trace_file"],
-                                _topology_record(dev), jrn.path.name, fault_domains=False)
+                                topology_record(dev), jrn.path.name, fault_domains=False)
     ckpt_path.unlink()
     if verbose:
         print(f"[serve] resumed run merged into {result_path}")
@@ -611,7 +595,7 @@ def run_serve_from_config(
     ``parallelism:`` section, or the auto-plan over ``world / replicas``
     ranks, is then ONE replica's mesh, and the world is replicas x that
     mesh (``world``, when given, must match).  ``device_trace`` is refused
-    (Slice F, item 13)."""
+    (Slice F, item 13, part 13b)."""
     from dlbb_tpu_torch.utils.config import load_config
 
     resolve_device(device)

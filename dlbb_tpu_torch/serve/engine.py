@@ -123,7 +123,7 @@ waiting on the group: both fail the run.
 The fleet's replica hooks (``run_trace``'s ``feed`` and ``control``,
 ``serve/fleet.py``) are consulted only at the scheduler loop's boundary.
 Device-trace capture is refused with a ``ValueError`` that names its
-ROADMAP item (Slice F, item 13).  ``hedge_factor`` is the fleet's: one
+ROADMAP item (Slice F, item 13, part 13b).  ``hedge_factor`` is the fleet's: one
 engine accepts and ignores it, as JAX's does.
 """
 
@@ -1852,7 +1852,7 @@ class ServingEngine:
     def capture_device_traces(self, trace_root: Any) -> list[dict]:
         raise ValueError(
             "capture_device_traces is not ported yet: device traces come with "
-            "ROADMAP Queue 1, Slice F, item 13")
+            "ROADMAP Queue 1, Slice F, item 13, part 13b")
 
     def _infeasible_reason(self, r: Request) -> Optional[str]:
         """Why the envelope can never serve ``r`` (None = feasible)."""

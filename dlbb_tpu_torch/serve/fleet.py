@@ -1376,9 +1376,10 @@ def fleet_rank(config: dict[str, Any], trace: TrafficTrace, output_dir: Optional
     from dlbb_tpu_torch.parallel.plan import ParallelismPlan
     from dlbb_tpu_torch.resilience.journal import SweepJournal
     from dlbb_tpu_torch.serve.bench import (DEFAULT_SERVE_MODEL, SERVING_MANIFEST_SCHEMA,
-                                            _hbm_record, _topology_record)
+                                            _hbm_record)
     from dlbb_tpu_torch.utils.config import save_json
-    from dlbb_tpu_torch.utils.sysinfo import collect_system_info, gpu_cards, resolve_device
+    from dlbb_tpu_torch.utils.sysinfo import (collect_system_info, gpu_cards, resolve_device,
+                                              topology_record)
 
     rank = dist.get_rank()
     dev = resolve_device(device)
@@ -1420,7 +1421,7 @@ def fleet_rank(config: dict[str, Any], trace: TrafficTrace, output_dir: Optional
                       "fault_plan": fault_spec},
                 sink=spans.journal_sink,
             )
-        topology = {**_topology_record(dev), "fault_domains": domains}
+        topology = {**topology_record(dev), "fault_domains": domains}
         try:
             sup = FleetSupervisor(
                 model_cfg, serving_cfg, fleet_cfg, groups,

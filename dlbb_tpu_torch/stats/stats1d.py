@@ -213,7 +213,8 @@ def process_1d_results(input_dir: str | Path, output_dir: str | Path,
         try:
             result = process_file(json_file, algorithm_bandwidth)
         except Exception as e:  # noqa: BLE001 — one bad file is skipped
-            print(f"  ERROR processing {json_file.name}: {e}")
+            if verbose:
+                print(f"  ERROR processing {json_file.name}: {e}")
             continue
         atomic_write_text(json.dumps(result, indent=2),
                           output_dir / (json_file.stem + "_stats.json"))

@@ -11,15 +11,28 @@ files of its own:
   gradient compression the state's error-feedback residual, this rank's
   row), to
   ``<dir>/<step>/rank_<r>.pt``, through a temporary file and ``os.replace``;
-  rank 0 also writes ``layout.json``: the mesh, the ZeRO stage and the
-  world size.  A restore onto another layout raises ``ValueError`` (orbax
-  can reshard; the port cannot yet, ROADMAP Queue 1, Slice D remainder,
-  item 20);
+  rank 0 also writes ``layout.json``: the mesh, the ZeRO stage, the world
+  size and (``train_layout``) the model's config;
+- a restore onto another layout (another dp, tp, pp, ep or ZeRO stage, as
+  orbax restores with ``like``'s shardings) maps every saved rank's file
+  (``torch.load(mmap=True)``: a leaf's bytes are read when it is used),
+  then one leaf at a time rebuilds the global parameter or optimizer-state
+  leaf from the saved layout's shards (tp shards by
+  ``sharding.unshard_params``, ZeRO's dp shards by each leaf's dp axis,
+  told apart by their shapes), cuts this rank's part of the new one
+  (``_Reshard``) and drops the global leaf: a rank's host memory holds its
+  own state and one global leaf.  Refused, with the reason:
+  a layout without the model's config, another model, and an
+  error-feedback residual at another dp (JAX's ``[dp, n]`` array, which
+  orbax restores only onto its own shape);
 - every save writes, per rank, a checksum manifest (sha256 and size of each
   file it wrote) under ``<dir>/.integrity/<step>/rank_<r>.json``.  A step is
-  intact only when every rank's files verify: the ranks take the minimum of
-  their verdicts (an all-reduce) before any rank loads, so they all restore
-  the same step or none;
+  intact only when every file that the restore reads verifies: each rank
+  checks ``layout.json`` and its share of the files (its own on the saving
+  layout; on another, saved rank s's on rank s mod world, so each file is
+  hashed once), and the ranks take the minimum of their verdicts (an
+  all-reduce) before any rank loads, so they all restore the same step or
+  none;
 - ``restore`` refuses a corrupt step with ``CheckpointCorruption``;
   ``restore_or`` falls back to the newest intact step, saying which step it
   rejected and why;
@@ -35,8 +48,10 @@ rank.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
+import math
 import os
 import shutil
 from pathlib import Path
@@ -45,9 +60,14 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
+from dlbb_tpu_torch.models.configs import ModelConfig
+from dlbb_tpu_torch.models.sharding import shard_leaf, unshard_params
+from dlbb_tpu_torch.models.transformer import meta_params
 from dlbb_tpu_torch.resilience import inject
 from dlbb_tpu_torch.resilience.errors import CheckpointCorruption
 from dlbb_tpu_torch.train.loop import TrainState
+from dlbb_tpu_torch.train.optim import GradCompressionState
+from dlbb_tpu_torch.train.zero import dp_sharded_param_specs, shard_along
 from dlbb_tpu_torch.utils.config import save_json
 
 INTEGRITY_DIRNAME = ".integrity"
@@ -112,6 +132,139 @@ def _rebuild(like: Any, leaves) -> Any:
     return leaf
 
 
+AXES = ("dp", "sp", "pp", "ep", "tp")
+
+
+def train_layout(config: ModelConfig, mesh_degrees: dict, zero_stage: int,
+                 world_size: int) -> dict:
+    """The ``layout`` a train run records with its checkpoints: enough to
+    restore them onto another mesh or ZeRO stage (``_Reshard``)."""
+    return {"mesh": {a: int(mesh_degrees.get(a, 1)) for a in AXES},
+            "zero_stage": int(zero_stage), "world_size": int(world_size),
+            "model": dataclasses.asdict(config)}
+
+
+def _degrees(layout: dict) -> dict:
+    mesh = layout.get("mesh", {})
+    return {a: int(mesh.get(a, 1)) for a in AXES}
+
+
+def _coords(deg: dict, rank: int) -> dict:
+    """Rank ``rank``'s coordinates on the mesh of degrees ``deg``, in
+    ``build_parallelism_mesh``'s row-major order ``(dp[, sp][, pp][, ep],
+    tp)``."""
+    names = ["dp"] + [a for a in ("sp", "pp", "ep") if deg[a] > 1] + ["tp"]
+    out = dict.fromkeys(AXES, 0)
+    for a in reversed(names):
+        out[a], rank = rank % deg[a], rank // deg[a]
+    return out
+
+
+def _labels(tree: Any, params: Any, tag: Optional[str] = None, path: tuple = ()) -> list:
+    """For each leaf of ``tree`` in ``_flatten``'s order: ``("param",
+    group, leaf)`` under ``tag`` "param", ``("mirror", group, leaf)`` in an
+    optimizer-state subtree with the parameters' structure (Adam's
+    moments), ``("residual",)`` for the error-feedback residual, else None
+    (``group`` is "ln_f" for the final norm's leaves)."""
+    if tag is None and isinstance(tree, dict) and _same_keys(tree, params):
+        tag = "mirror"
+    if isinstance(tree, GradCompressionState):
+        return [("residual",)]
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _labels(v, params, tag, path + (k,))]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _labels(v, params, tag, path)]
+    return [None if tag is None else (tag, path[-2], path[-1])]
+
+
+def _same_keys(a: Any, b: Any) -> bool:
+    if isinstance(b, dict):
+        return isinstance(a, dict) and a.keys() == b.keys() and all(
+            _same_keys(a[k], b[k]) for k in b)
+    return not isinstance(a, (dict, tuple))
+
+
+class _Reshard:
+    """One layout's cut of the global train state: for a rank's
+    coordinates, each parameter leaf's tp/pp/ep part
+    (``sharding.shard_leaf``) and its dp axis (``zero.
+    dp_sharded_param_specs``), from which a saved part is recognised as
+    whole or as a ZeRO dp shard by its shape."""
+
+    def __init__(self, layout: dict) -> None:
+        self.deg = _degrees(layout)
+        self.config = ModelConfig(**layout["model"])
+        self.meta = meta_params(self.config)
+        self._local: dict = {}
+
+    def local(self, c: dict) -> tuple:
+        """(this rank's tp/pp/ep part of every leaf, their dp axes) as meta
+        trees."""
+        key = (c["pp"], c["ep"], c["tp"])
+        if key not in self._local:
+            d = self.deg
+            part = {"layers": {g: {leaf: self._cut(g, leaf, t, c) for leaf, t in sub.items()}
+                               for g, sub in self.meta["layers"].items()},
+                    "ln_f": dict(self.meta["ln_f"])}
+            self._local[key] = (part, dp_sharded_param_specs(part, d["dp"], d["pp"], d["ep"]))
+        return self._local[key]
+
+    def _cut(self, group, leaf, t, c):
+        d = self.deg
+        return shard_leaf(group, leaf, t, self.config, c["tp"], d["tp"], c["pp"], d["pp"],
+                          c["ep"], d["ep"])
+
+    def global_leaf(self, label, parts: dict) -> torch.Tensor:
+        """The global leaf from ``parts``, each saved rank's tensor by its
+        coordinates' ``(dp, pp, ep, tp)`` (sp ranks hold copies)."""
+        _, group, leaf = label
+        d, tree = self.deg, {}
+        for pp in range(d["pp"]):
+            for ep in range(d["ep"]):
+                for tp in range(d["tp"]):
+                    c = dict(dp=0, sp=0, pp=pp, ep=ep, tp=tp)
+                    meta, axes = self.local(c)
+                    want = tuple(_at(meta, group, leaf).shape)
+                    ax = _at(axes, group, leaf)
+                    dps = [parts[(i, pp, ep, tp)] for i in range(d["dp"])]
+                    if tuple(dps[0].shape) == want:
+                        whole = dps[0]
+                    elif ax is not None and tuple(dps[0].shape) == _split(want, ax, d["dp"]):
+                        whole = torch.cat(dps, ax)
+                    else:
+                        raise ValueError(
+                            f"checkpoint leaf {group}.{leaf} of shape {tuple(dps[0].shape)} "
+                            f"is neither the saved layout's part {want} nor its dp shard")
+                    tree[(pp, ep, tp)] = whole
+        if group == "ln_f":
+            return tree[(0, 0, 0)]
+        shards = [{"layers": {group: {leaf: tree[(pp, ep, tp)]}}, "ln_f": {}}
+                  for pp in range(d["pp"]) for ep in range(d["ep"]) for tp in range(d["tp"])]
+        return unshard_params(shards, self.config, d["pp"], d["ep"])["layers"][group][leaf]
+
+    def cut(self, label, full: torch.Tensor, c: dict, like: torch.Tensor) -> torch.Tensor:
+        """Rank ``c``'s part of the global leaf ``full``, whole or its dp
+        shard as ``like``'s shape says."""
+        _, group, leaf = label
+        part = full if group == "ln_f" else self._cut(group, leaf, full, c)
+        ax = _at(self.local(c)[1], group, leaf)
+        if tuple(like.shape) == tuple(part.shape):
+            return part.clone(memory_format=torch.contiguous_format)
+        if ax is not None and tuple(like.shape) == _split(tuple(part.shape), ax, self.deg["dp"]):
+            return shard_along(part, ax, c["dp"], self.deg["dp"]).clone(
+                memory_format=torch.contiguous_format)
+        raise ValueError(f"state leaf {group}.{leaf} of shape {tuple(like.shape)} is neither "
+                         f"this layout's part {tuple(part.shape)} nor its dp shard")
+
+
+def _at(tree, group, leaf):
+    return tree["ln_f"][leaf] if group == "ln_f" else tree["layers"][group][leaf]
+
+
+def _split(shape: tuple, ax: int, n: int) -> tuple:
+    return shape[:ax] + (shape[ax] // n,) + shape[ax + 1:]
+
+
 class Checkpointer:
     """Saves and restores one rank's ``TrainState`` (module docstring).
 
@@ -150,12 +303,12 @@ class Checkpointer:
     def _step_dir(self, step: int) -> Path:
         return self._base() / str(int(step))
 
-    def _rank_file(self, step: int) -> Path:
-        return self._step_dir(step) / f"rank_{self.rank:05d}.pt"
+    def _rank_file(self, step: int, rank: Optional[int] = None) -> Path:
+        return self._step_dir(step) / f"rank_{self.rank if rank is None else rank:05d}.pt"
 
-    def _manifest_path(self, step: int) -> Path:
+    def _manifest_path(self, step: int, rank: Optional[int] = None) -> Path:
         return (self._base() / INTEGRITY_DIRNAME / str(int(step))
-                / f"rank_{self.rank:05d}.json")
+                / f"rank_{self.rank if rank is None else rank:05d}.json")
 
     def all_steps(self) -> list[int]:
         """The steps on disk, oldest first."""
@@ -178,14 +331,16 @@ class Checkpointer:
         save_json({"schema": INTEGRITY_SCHEMA, "step": int(step), "rank": self.rank,
                    "files": files}, self._manifest_path(step))
 
-    def verify_step(self, step: int) -> tuple[bool, str]:
-        """Do this rank's files of ``step`` match its integrity manifest?
-        Returns ``(ok, reason)``; a rank's file missing fails, a missing
-        manifest (a save with ``integrity: false``) passes as
-        "unverified"."""
-        if not self._rank_file(step).is_file():
-            return False, f"missing file {self._rank_file(step).name}"
-        mpath = self._manifest_path(step)
+    def verify_step(self, step: int, rank: Optional[int] = None,
+                    names: Optional[set] = None) -> tuple[bool, str]:
+        """Do rank ``rank``'s files of ``step`` (default: this rank's), or
+        those of them in ``names``, match its integrity manifest?  Returns
+        ``(ok, reason)``; a rank's file missing fails, a missing manifest (a
+        save with ``integrity: false``) passes as "unverified"."""
+        own = self._rank_file(step, rank)
+        if (names is None or own.name in names) and not own.is_file():
+            return False, f"missing file {own.name}"
+        mpath = self._manifest_path(step, rank)
         if not mpath.exists():
             return True, "unverified (no integrity manifest)"
         try:
@@ -193,6 +348,8 @@ class Checkpointer:
         except (OSError, json.JSONDecodeError) as e:
             return False, f"integrity manifest unreadable ({e})"
         for name, meta in manifest.get("files", {}).items():
+            if names is not None and name not in names:
+                continue
             p = self._step_dir(step) / name
             if not p.is_file():
                 return False, f"missing file {name}"
@@ -205,9 +362,37 @@ class Checkpointer:
     def latest_intact_step(self) -> Optional[int]:
         """Newest step whose files verify on every rank (None if none)."""
         for step in reversed(self.all_steps()):
-            if self._all(self.verify_step(step)[0]):
+            if self._all(self._verify(step)[0]):
                 return step
         return None
+
+    def _saved_layout(self, step: int) -> dict:
+        path = self._step_dir(step) / LAYOUT_FILE
+        saved = json.loads(path.read_text()) if path.is_file() else {}
+        saved.pop("step", None)
+        return saved
+
+    def _verify(self, step: int) -> tuple[bool, str]:
+        """``verify_step`` of this rank's share of the files that restoring
+        ``step`` reads: ``layout.json`` (rank 0's, which every rank reads),
+        then its own file on the saving layout, or on another the saved
+        ranks' files dealt out over this run's ranks, so that each is hashed
+        once.  The caller all-reduces the verdicts (``_all``)."""
+        ok, why = self.verify_step(step, 0, names={LAYOUT_FILE})
+        if not ok:
+            return ok, why
+        saved = self._saved_layout(step)
+        if saved == self.layout:
+            shares = [self.rank]
+        else:
+            self._check_layout(step, saved)
+            world = 1 if self.group is None else dist.get_world_size(self.group)
+            shares = range(self.rank, math.prod(_degrees(saved).values()), world)
+        for rank in shares:
+            ok, why = self.verify_step(step, rank, names={self._rank_file(step, rank).name})
+            if not ok:
+                return ok, why
+        return True, why
 
     # ---- save ------------------------------------------------------------
 
@@ -259,17 +444,28 @@ class Checkpointer:
 
     # ---- restore ---------------------------------------------------------
 
-    def _check_layout(self, step: int) -> None:
-        path = self._step_dir(step) / LAYOUT_FILE
-        saved = json.loads(path.read_text()) if path.is_file() else {}
-        saved.pop("step", None)
-        if saved != self.layout:
+    def _check_layout(self, step: int, saved: dict) -> None:
+        """Refuse a restore of ``step`` (saved on ``saved``) that no
+        resharding can serve: a layout without the model's config, or
+        another model."""
+        where = f"checkpoint step {step} under {self.config.directory}"
+        if saved == self.layout:
+            return
+        if "model" not in saved or "model" not in self.layout:
             raise ValueError(
-                f"checkpoint step {step} under {self.config.directory} was saved with "
-                f"layout {saved}, this run has {self.layout}: the port restores only "
-                "onto the mesh and ZeRO stage it saved")
+                f"{where} was saved with layout {saved}, this run has {self.layout}: "
+                "without the model's config in both layouts (train_layout) the port "
+                "restores only onto the mesh and ZeRO stage it saved")
+        if saved["model"] != self.layout["model"]:
+            raise ValueError(f"{where} holds another model ({saved['model']}) than this "
+                             f"run's ({self.layout['model']})")
 
     def _load(self, like: TrainState, step: int) -> TrainState:
+        """``step`` in ``like``'s structure: this rank's file on the saving
+        layout, else the state resharded from every saved rank's files."""
+        saved = self._saved_layout(step)
+        if saved != self.layout:
+            return self._load_resharded(like, step, saved)
         payload = torch.load(self._rank_file(step), map_location=self.device,
                              weights_only=True)
         leaves = iter(payload["leaves"])
@@ -277,6 +473,52 @@ class Checkpointer:
         if next(leaves, None) is not None:
             raise ValueError(f"checkpoint step {step} holds more leaves than the state")
         return TrainState(params, opt_state, int(payload["step"]))
+
+    def _load_resharded(self, like: TrainState, step: int, saved: dict) -> TrainState:
+        """``step``, saved on the layout ``saved``, cut for this rank of
+        ``self.layout`` (module docstring)."""
+        where = f"checkpoint step {step} under {self.config.directory}"
+        self._check_layout(step, saved)
+        old, new = _Reshard(saved), _Reshard(self.layout)
+        me = _coords(new.deg, self.rank)
+        # mapped, not read: each leaf's bytes are read when it is rebuilt
+        payloads = [torch.load(self._rank_file(step, r), map_location="cpu", weights_only=True,
+                               mmap=True)
+                    for r in range(math.prod(old.deg.values()))]
+        coords = [_coords(old.deg, r) for r in range(len(payloads))]
+        like_leaves = _flatten((like.params, like.opt_state))
+        labels = _labels(like.params, like.params, "param") + _labels(like.opt_state,
+                                                                      like.params)
+        if any(len(p["leaves"]) != len(like_leaves) for p in payloads):
+            raise ValueError(f"{where} holds another state structure than this run's")
+        out = []
+        for i, (label, want) in enumerate(zip(labels, like_leaves)):
+            if label is None:
+                leaf = payloads[0]["leaves"][i]
+                if isinstance(want, torch.Tensor) and leaf.shape != want.shape:
+                    raise ValueError(f"{where}: a state leaf of shape {tuple(leaf.shape)} "
+                                     f"has no cut to {tuple(want.shape)}")
+                if isinstance(leaf, torch.Tensor):
+                    leaf = leaf.clone()
+            elif label[0] == "residual":
+                rows = [p["leaves"][i] for p, c in zip(payloads, coords)
+                        if c["sp"] == c["pp"] == c["ep"] == c["tp"] == 0]
+                if len(rows) != new.deg["dp"] or rows[0].shape != want.shape:
+                    raise ValueError(
+                        f"{where}: the error-feedback residual is JAX's [dp, n] array of "
+                        f"shape {(len(rows), *rows[0].shape)}, this run's is "
+                        f"{(new.deg['dp'], *want.shape)}: orbax restores it only onto "
+                        "its own shape")
+                leaf = rows[me["dp"]].clone()
+            else:
+                full = old.global_leaf(label, {(c["dp"], c["pp"], c["ep"], c["tp"]):
+                                               p["leaves"][i]
+                                               for p, c in zip(payloads, coords)
+                                               if c["sp"] == 0})
+                leaf = new.cut(label, full, me, want)
+            out.append(leaf)
+        params, opt_state = _rebuild((like.params, like.opt_state), iter(out))
+        return TrainState(params, opt_state, int(payloads[0]["step"]))
 
     def restore(self, like: TrainState, step: Optional[int] = None) -> TrainState:
         """Restore ``step`` (default: the latest) into ``like``'s structure.
@@ -286,12 +528,12 @@ class Checkpointer:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.config.directory}")
-        ok, why = self.verify_step(int(step))
+        ok, why = self._verify(int(step))
         if not self._all(ok):
             raise CheckpointCorruption(
                 f"checkpoint step {step} under {self.config.directory} failed "
                 f"integrity verification: {why if not ok else 'on another rank'}")
-        self._check_layout(int(step))
+        self._check_layout(int(step), self._saved_layout(int(step)))
         return self._load(like, int(step))
 
     def restore_or(self, state: TrainState) -> TrainState:
@@ -300,13 +542,13 @@ class Checkpointer:
         with its reason, and the next older one is tried."""
         steps = list(reversed(self.all_steps()))
         for step in steps:
-            ok, why = self.verify_step(step)
+            ok, why = self._verify(step)
             if not self._all(ok):
                 print(f"[checkpoint] step {step}: integrity FAILED "
                       f"({why if not ok else 'on another rank'}) — falling back to "
                       "the previous step")
                 continue
-            self._check_layout(step)
+            self._check_layout(step, self._saved_layout(step))
             try:
                 restored, error = self._load(state, step), None
             except (OSError, RuntimeError, ValueError, KeyError) as e:

@@ -14,7 +14,7 @@ collectives.  The port runs them itself, as the reference's DeepSpeed does
   micro-step's gradient under gradient accumulation and accumulates the
   shard (``train/loop.py``); stage 1 reduces the accumulated gradient once;
 - stage 3 (FSDP): the parameters live as dp shards, gathered on use by the
-  forward (``models/transformer.py``, ``sharding.gather_dp``), whose
+  forward (``models/transformer.py``, ``sharding.gather_parts``), whose
   backward hands each gradient over already reduce-scattered; the rank
   updates its shard and keeps it.
 
@@ -212,7 +212,7 @@ class Zero:
         """The dp sum of this rank's gradients, in the layout the optimizer
         updates: a shard where ``opt_axes`` has an axis, the whole leaf
         elsewhere.  At stage 3 a sharded leaf's gradient arrives summed and
-        cut already (``sharding.gather_dp``)."""
+        cut already (``sharding.gather_parts``)."""
 
         def one(g, ax, opt_ax, p_ax):
             if p_ax is not None:  # stage 3: already the summed shard

@@ -3,7 +3,7 @@
 ``atomic_write_text`` (and ``save_json`` through it) writes through a
 temporary file in the destination directory, ``fsync`` and ``os.replace``, so
 a killed process leaves the old artifact or the new one, never a truncated
-file.
+file (``save_json``'s fault sites model the writer that did).
 """
 
 from __future__ import annotations
@@ -48,7 +48,26 @@ def atomic_write_text(text: str, path: str | Path, newline: str = "") -> Path:
 
 
 def save_json(data: dict[str, Any], path: str | Path) -> Path:
-    return atomic_write_text(json.dumps(data, indent=2, default=_jsonify), path)
+    """``data`` as indented JSON through ``atomic_write_text``.  The fault
+    sites ``torn-write`` (a truncated file at the final path, then
+    ``TornWrite``: the legacy writer dying mid-dump) and ``kill-mid-write``
+    (SIGKILL between the temporary write and the rename) are JAX's."""
+    from dlbb_tpu_torch.resilience import inject
+
+    path = Path(path)
+    text = json.dumps(data, indent=2, default=_jsonify)
+    if inject.fire("torn-write"):
+        path.parent.mkdir(parents=True, exist_ok=True)
+        with open(path, "w") as f:
+            f.write(text[:max(1, int(len(text) * inject.param("torn_fraction")))])
+        raise inject.TornWrite(str(path))
+    if inject.fire("kill-mid-write"):
+        import signal
+
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.with_name(f"{path.name}.{os.getpid()}.killed.tmp").write_text(text)
+        os.kill(os.getpid(), signal.SIGKILL)
+    return atomic_write_text(text, path)
 
 
 def _jsonify(obj: Any):

@@ -48,6 +48,25 @@ def gpu_cards() -> tuple[int, Optional[int]]:
     return torch.cuda.device_count(), torch.cuda.get_device_properties(0).total_memory
 
 
+def topology_record(device: torch.device) -> dict[str, Any]:
+    """The topology record of a sweep's or a serving run's manifest and
+    journal (JAX's ``utils/simulate.py::topology_record`` keys): the device
+    type behind the mesh, its ranks, and whether the run is on the CPU.
+    The port runs on the CPU only when asked to (``resolve_device``), so no
+    run is degraded."""
+    world = (torch.distributed.get_world_size()
+             if torch.distributed.is_available() and torch.distributed.is_initialized()
+             else 1)
+    return {
+        "platform": device.type,
+        "num_devices": world,
+        "process_count": world,
+        "simulated": device.type == "cpu",
+        "simulation_forced": device.type == "cpu",
+        "degraded": False,
+    }
+
+
 def collect_system_info(device=None) -> dict[str, Any]:
     """Where a result was measured: host, torch and CUDA versions, the
     device, and, inside a process group, its backend (``nccl`` with its

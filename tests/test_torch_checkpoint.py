@@ -123,6 +123,54 @@ def test_checkpointer_alone_saves_at_its_interval_and_refuses_another_layout(tmp
     assert ckpt.restore_or(state._replace(step=0)).step == 5
 
 
+
+@pytest.mark.parametrize("rank,world,share", [(0, 1, [0, 1, 2, 3]), (0, 2, [0, 2]),
+                                              (1, 2, [1, 3]), (2, 3, [2])])
+def test_restore_onto_another_layout_hashes_each_file_once_and_maps_them(
+        tmp_path, monkeypatch, rank, world, share):
+    """A checkpoint saved at dp=4 (ZeRO 0: the four files hold one state):
+    restoring it on another layout, rank ``rank`` of ``world`` hashes
+    ``layout.json`` and saved rank s's file for s = rank mod world only, so
+    across the ranks each file is hashed once; at world 1 the state comes
+    back bit-equal, each saved file read through ``torch.load(mmap=True)``."""
+    from dlbb_tpu_torch.train import checkpoint
+    from dlbb_tpu_torch.train.checkpoint import train_layout
+
+    cfg = ModelConfig(**MODEL)
+    _, state = pt_loop.make_train_step(cfg, pt_optim.build_optimizer({}),
+                                       init_params(cfg, 0, "cpu"), batch_size=1)
+    saver = Checkpointer(CheckpointConfig(str(tmp_path)),
+                         layout=train_layout(cfg, {"dp": 4}, 0, 4))
+    assert saver.maybe_save(state._replace(step=2))
+    for r in range(1, 4):  # the other dp ranks' files: the same bytes
+        saver._rank_file(2, r).write_bytes(saver._rank_file(2, 0).read_bytes())
+        saver.rank = r
+        saver._write_integrity(2)
+    hashed, loads = [], []
+    digest, load = checkpoint._file_digest, torch.load
+    monkeypatch.setattr(checkpoint, "_file_digest",
+                        lambda path: hashed.append(path.name) or digest(path))
+    monkeypatch.setattr(torch, "load", lambda path, **kw: loads.append(kw) or load(path, **kw))
+    monkeypatch.setattr(checkpoint.dist, "get_world_size", lambda group: world)
+    ckpt = Checkpointer(CheckpointConfig(str(tmp_path)),
+                        layout=train_layout(cfg, {"dp": 1}, 0, 1))
+    ckpt.rank, ckpt.group = rank, (None if world == 1 else object())
+    assert ckpt._verify(2) == (True, "ok")
+    assert sorted(hashed) == sorted(["layout.json"] + [f"rank_{s:05d}.pt" for s in share])
+    if world > 1:
+        return
+    restored = ckpt.restore(state)
+    assert restored.step == 2
+    assert [kw.get("mmap") for kw in loads] == [True] * 4
+    got = checkpoint._flatten((restored.params, restored.opt_state))
+    want = checkpoint._flatten((state.params, state.opt_state))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        if isinstance(b, torch.Tensor):
+            assert torch.equal(a, b) and a.requires_grad == b.requires_grad
+        else:
+            assert a == b
+
 def _jax_preempted(tmp_path, plan, devices):
     config = _config(iters=4)
     config["training"]["checkpoint"] = {"directory": str(tmp_path / "jax")}

@@ -69,11 +69,16 @@ SERVING = dict(max_batch=8, block_size=8, max_seq=64, queue_capacity=64,
 # The watchdog's floor and the injected hang, on the run's first decode unit
 # (JAX's @1), whose deadline is the floor whatever the timing: the step EMA
 # is cold until a unit syncs.  At world 1 JAX's floor (0.3 s) with a 2 s
-# hang; on 8 gloo ranks a loaded host can stretch a TINY unit's all-reduces,
-# so the floor of every later unit there is 1 s.
+# hang.  On 8 gloo ranks the watchdog is armed on every unit of the run, and
+# a unit that overruns inside its collectives cannot be abandoned cleanly
+# (the engine's docstring): a host loaded by other tests' gloo launches can
+# stall a TINY unit's all-reduces past a second, where it then counts a hung
+# dispatch that JAX's run lacks.  So there the floor, which also covers the
+# cold units after the hung window, is 5 s, with a 10 s hang, and a warm
+# unit's deadline is 1000 step EMAs.
 WATCHDOG = dict(dispatch_deadline_factor=50.0, dispatch_deadline_min_s=0.3)
-WATCHDOG_RANKS = dict(dispatch_deadline_factor=50.0, dispatch_deadline_min_s=1.0)
-HANG_S = 2.0
+WATCHDOG_RANKS = dict(dispatch_deadline_factor=1000.0, dispatch_deadline_min_s=5.0)
+HANG_S, HANG_RANKS_S = 2.0, 10.0
 
 
 class _CopyingJnp:
@@ -647,7 +652,7 @@ def _rank_scenarios(name):
     for s in RANK_SCENARIOS[name]:
         make, plan, knobs, clock = SCENARIOS[s]
         if s == "hang":
-            knobs = WATCHDOG_RANKS
+            plan, knobs = f"serve-decode-hang:@1,hang_seconds={HANG_RANKS_S}", WATCHDOG_RANKS
         out[s] = (make().to_dict(), plan, knobs, clock)
     return out
 
@@ -678,7 +683,8 @@ def jax_ranks():
 
 # the first unit hangs (the first wave fails), the next one's bookkeeping
 # tears, and the preemption finds rids 8 and 9 resident
-SERVE_FAULTS = f"serve-cache-torn:1,serve-decode-hang:@1,hang_seconds={HANG_S},serve-preempt:@3"
+SERVE_FAULTS = (f"serve-cache-torn:1,serve-decode-hang:@1,hang_seconds={HANG_RANKS_S},"
+               "serve-preempt:@3")
 
 
 @pytest.fixture(scope="module")

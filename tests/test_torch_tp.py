@@ -396,17 +396,26 @@ def test_plan_refuses_unported_parallelism(name):
     assert port_plan.check_plan(config, ModelConfig.from_dict(config["model"]), n) == want
 
 
-@pytest.mark.parametrize("dim,model,tp", [
-    ("hidden_size", {"hidden_size": 192, "num_heads": 6}, 5),
-    ("num_heads", {"num_heads": 2}, 4),
-    ("ffn_intermediate", {"ffn_intermediate": 1002}, 4),
+@pytest.mark.parametrize("leaf,model,tp", [
+    ("out.kernel", {"hidden_size": 250, "num_heads": 5, "ffn_intermediate": 1000}, 4),
+    ("qkv.bias", {"hidden_size": 96, "num_heads": 6, "num_kv_heads": 2,
+                  "ffn_intermediate": 384}, 3),
+    ("ffn_down.kernel", {"ffn_intermediate": 1002}, 4),
 ])
-def test_plan_refuses_uneven_shards(dim, model, tp):
-    """GSPMD pads an uneven shard; the port's explicit shards cannot, and
-    it names the dimension (JAX runs these configs)."""
+def test_plan_refuses_uneven_shards(leaf, model, tp):
+    """A parameter dimension that tp does not divide: JAX's plan passes it,
+    but its pjit refuses to lay out the parameters (GSPMD pads no
+    parameter), naming the first such leaf; the port's plan names the same
+    leaf.  Heads that tp does not divide run in both
+    (``tests/test_torch_uneven_heads.py``)."""
     config = _plan_config(model, world_size=tp)
     assert _jax_error(config, 8 if tp < 8 else tp) is None
-    with pytest.raises(ValueError, match=f"^{dim}="):
+    mesh = jax_parallelism_mesh(1, 1, 1, tp, 1, devices=jax.devices()[:tp])
+    with pytest.raises(ValueError, match="['layers']['{}']['{}']".format(
+            *leaf.split(".")).replace("[", r"\[").replace("]", r"\]")):
+        jax_tf.init_params_sharded(jax_configs.ModelConfig.from_dict(config["model"]),
+                                   jax.random.key(0), mesh)
+    with pytest.raises(ValueError, match=f"^layers.{leaf} "):
         port_plan.check_plan(config, ModelConfig.from_dict(config["model"]), tp)
 
 

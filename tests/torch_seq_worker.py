@@ -111,18 +111,19 @@ RUNNERS = {"matmul": _collective_matmul, "forward": _forward, "attention": _atte
 def run_jobs(jobs, arrays):
     """``jobs``: ``(kind, case id, spec)``, the same list on every rank;
     ``kind`` is a key of ``RUNNERS`` (``spec["mesh"]`` names the mesh, as
-    ``_mesh`` reads it) or ``"train"`` (``torch_train_worker.
+    ``_mesh`` reads it), ``"train"`` (``torch_train_worker.
     run_train_cases``'s spec, on ``arrays["weights"]`` and
-    ``arrays["batches"]``).  Every rank builds every mesh, in the order the
+    ``arrays["batches"]``) or ``"reshard"`` (``torch_train_worker.
+    run_reshard``'s, after the train jobs).  Every rank builds every mesh, in the order the
     jobs first name them; the ranks of a mesh run its jobs.  Returns, for
     this rank, ``{case id: result}``."""
     meshes = {}
     for kind, _, spec in jobs:
-        if kind != "train" and spec["mesh"] not in meshes:
+        if kind not in ("train", "reshard") and spec["mesh"] not in meshes:
             meshes[spec["mesh"]] = _mesh(spec["mesh"])
     out = {}
     for kind, case_id, spec in jobs:
-        if kind == "train":
+        if kind in ("train", "reshard"):
             continue
         mesh = meshes[spec["mesh"]]
         if mesh is not None:
@@ -131,4 +132,8 @@ def run_jobs(jobs, arrays):
     if train:
         out.update(torch_train_worker.run_train_cases(train, arrays["weights"],
                                                       arrays["batches"]))
+    for kind, case_id, spec in jobs:
+        if kind == "reshard":
+            out[case_id] = torch_train_worker.run_reshard(spec, arrays["weights"],
+                                                          arrays["batches"])
     return out

@@ -11,7 +11,7 @@ from dlbb_tpu_torch.data import batch_slice
 from dlbb_tpu_torch.models import ModelConfig, params_from_jax
 from dlbb_tpu_torch.models.sharding import batch_spec, shard_params
 from dlbb_tpu_torch.models.transformer import DTYPES
-from dlbb_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
+from dlbb_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer, train_layout
 from dlbb_tpu_torch.train.loop import make_train_step, step_chunks
 from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
 
@@ -182,3 +182,67 @@ def run_preempted(config, directory, plan_rank):
     plan = "preempt:@3" if torch.distributed.get_rank() == plan_rank else None
     with inject.plan_scope(plan):
         return run_train(cfg, device="cpu", verbose=False)
+
+
+def _state_numpy(state):
+    """The parameters and the optimizer state's tensors as numpy, by path
+    (``params/...`` and ``opt/<field or index>/...``)."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(node, tuple):
+            names = getattr(node, "_fields", range(len(node)))
+            for k, v in zip(names, node):
+                walk(v, f"{path}/{k}")
+        elif isinstance(node, torch.Tensor):
+            out[path] = node.detach().float().numpy().copy()
+
+    walk(state.params, "params")
+    walk(state.opt_state, "opt")
+    return out
+
+
+def run_reshard(spec, weights, batches):
+    """A checkpoint saved on one layout and restored onto others:
+    ``spec["save"]`` ``(dp, tp, stage)`` takes ``spec["steps"]`` steps and
+    saves to ``spec["directory"]``, then one more step (the uninterrupted
+    one); each of ``spec["restore"]`` ``(dp, tp, stage)`` (``(1, 1, s)``:
+    world 1, rank 0 alone, no process group) builds a fresh state, restores
+    the step into it and takes one step.  Returns, for this rank, ``{"save"
+    | "restore/<dp>x<tp>/zero<s>": {"coords", "state" (after the save or
+    the restore, numpy leaves), "loss" (the step after it)}}``."""
+    cfg = ModelConfig(**spec["fields"])
+    x_all, t_all = batches[spec["batch"]]
+    rows = x_all.shape[0]
+
+    def run(dp, tp, stage, restore):
+        mesh = None if dp * tp == 1 else build_parallelism_mesh(dp, 1, 1, tp, 1)
+        if mesh is None and (dp * tp > 1 or torch.distributed.get_rank() != 0):
+            return None
+        c = {"dp": 0, "tp": 0} if mesh is None else mesh.coords
+        local = shard_params(params_from_jax(weights[spec["weights"]], cfg), cfg, c["tp"], tp)
+        x, t = (torch.from_numpy(np.ascontiguousarray(batch_slice(a, **batch_spec(mesh))))
+                for a in (x_all, t_all))
+        step, state = make_train_step(cfg, build_optimizer(spec["train"]), local, mesh=mesh,
+                                      zero_stage=stage, batch_size=rows)
+        layout = train_layout(cfg, {"dp": dp, "tp": tp}, stage, dp * tp)
+        with Checkpointer(CheckpointConfig(spec["directory"]), layout=layout,
+                          group=None if mesh is None else mesh.group) as ckpt:
+            if restore:
+                state = ckpt.restore(state)
+            else:
+                state, _ = _steps(step, state, x, t, spec["steps"])
+                ckpt.maybe_save(state, force=True)
+        snapshot = _state_numpy(state)
+        _, loss = _steps(step, state, x, t, 1)
+        return {"coords": c, "state": snapshot, "loss": loss[0], "step": state.step}
+
+    out = {"save": run(*spec["save"], restore=False)}
+    for dp, tp, stage in spec["restore"]:
+        res = run(dp, tp, stage, restore=True)
+        if res is not None:
+            out[f"restore/{dp}x{tp}/zero{stage}"] = res
+    return out
