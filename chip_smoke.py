@@ -24,14 +24,21 @@ that check them: each job in turn on the first ranks of one gloo group
    decoder at full width (24 layers, H=2048, 16 heads, FFN 8192), bf16,
    B=8, S=512, ``attention="full"``; check that every layer went through
    the flash kernel, that the output is finite, and that it agrees with
-   the same forward through ``dense_attention``;
+   the same forward through ``dense_attention``; then one dedicated traced
+   forward (``obs/capture.py``, ``torch.profiler`` with CUPTI) whose parsed
+   trace (``obs/devtrace.py``) holds exactly as many ``flash_fwd_kernel``
+   events as the launch counter counts over it, its device µs per bucket
+   printed (where CUPTI gives no kernel, the capture must fail closed, and
+   ``cupti: unavailable`` is printed);
 4. drive the train path through its entry point: ``run_train`` on
    ``dlbb_tpu_torch/configs/train_1b_adam_bf16m.yaml`` (the same 1B decoder,
    remat "dots", Adam with bf16 moments, B=8, S=512); check the flash
    kernels' launches per step (48 forward: 24 in the forward and 24 in the
    remat recompute; 24 dq and 24 dk/dv) and finite losses; then one step's
    loss and gradients on the same weights and batch through the kernel path
-   and through the dense path, which must agree;
+   and through the dense path, which must agree; then one traced step's
+   loss and gradients whose ``flash_fwd_kernel``, ``flash_bwd_dq_kernel``
+   and ``flash_bwd_dkv_kernel`` events equal the counters' launches;
 5. time each kernel alone beside its plain version, one PyTorch library
    call of the same function (a yardstick only: the port never calls it)
    and the least time the card could take, with its TFLOP/s and its share
@@ -54,7 +61,11 @@ that check them: each job in turn on the first ranks of one gloo group
    ``exec-transient:1,exec-hang:@3`` with the watchdog and a span trace):
    the transient retried, the hang abandoned at the deadline and
    quarantined with no late write, the trace valid, and ``resume``
-   re-validating every artifact and completing the grid;
+   re-validating every artifact and completing the grid; and (d), last, a
+   1D sweep of ``COMM_TRACE_OPS`` at 16MB with the compile-ahead engine on
+   and a device capture per config, equal in every non-volatile field to a
+   serial untraced run, ``obs devtrace`` on it green, its device events
+   printed by bucket and name, and each capture's census of device records;
 7. drive the tensor-parallel forward: the 7B baseline at world 1 through
    ``launch`` over NCCL, equal bit for bit to the forward with no process
    group, and the 1B at tp=2 as two processes on the one card over gloo,
@@ -187,7 +198,10 @@ that check them: each job in turn on the first ranks of one gloo group
    TTFT, per-token latency, decode-step ms, goodput and peak memory
    printed; (c) the decode step's median against its bytes bound (the
    weights and the whole cache read once at 3.35 TB/s); (d) the fast path
-   (fused scans, the in-flight window, chunked prefill, compaction) and (e)
+   (fused scans, the in-flight window, chunked prefill, compaction; after
+   the fused run, ``capture_device_traces`` on its engine: a prefill and a
+   fused decode scan on fresh state, their phases, ``obs devtrace`` green
+   on a run recording them, their device µs per bucket) and (e)
    the prefix cache and int8 planes on a shared-prefix trace; (f)
    speculative and sampled decoding: (f)0 ``build_verify_probs`` at γ=4 on
    (a)'s 4-slot cache against γ+1 per-step token steps (bit-equal: the
@@ -614,6 +628,12 @@ def phase_main_path(torch, fa, gpu_line):
           f"output |y| max {y_dense.float().abs().max().item():.2f}")
     if not rel <= E2E_REL_L2:
         raise AssertionError("the kernel path disagrees with the dense path")
+    # one traced forward, outside the timed run
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_",
+                                     dir=Path(__file__).resolve().parent) as tmp, \
+            torch.inference_mode():
+        _traced_flash(torch, fa, "e2e_forward_1b", lambda _: forward(params, batch, model_cfg),
+                      tmp, gpu_line, ("flash_fwd",))
     return launches, result
 
 
@@ -687,6 +707,11 @@ def phase_train(torch, fa, gpu_line):
         raise AssertionError("the kernel-path loss disagrees with the dense path")
     if not rels[worst] <= TRAIN_GRAD_REL_L2:
         raise AssertionError(f"the kernel-path gradient {worst} disagrees with the dense path")
+    # one traced step's loss and gradients, outside the timed run
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_",
+                                     dir=Path(__file__).resolve().parent) as tmp:
+        _traced_flash(torch, fa, "train_step_1b", lambda _: loss_and_grads(model_cfg), tmp,
+                      gpu_line, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
     return launches, result
 
 
@@ -1079,6 +1104,98 @@ def _flash_counts(fa):
 
 def _zero_flash_counts(fa):
     fa.flash_fwd_launches = fa.flash_bwd_dq_launches = fa.flash_bwd_dkv_launches = 0
+
+
+# the flash kernels' names in the card's traces, by launch counter
+FLASH_KERNEL_NAMES = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
+                      "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+# the card's trace verdict, set by the first capture (True: CUPTI gave the
+# kernels; False: it gave none and the captures fail closed)
+CUPTI: dict[str, bool] = {}
+
+
+def _cupti_verdict(metas, where):
+    """Whether CUPTI served ``metas`` (device captures of one check): all
+    of them parsed, or all failed closed for want of device events; a mix
+    or another failure raises.  Prints the captures whose work left a
+    launch unrecorded, and ``cupti: unavailable`` once."""
+    failed = [m for m in metas if "error" in m]
+    closed = [m for m in failed if "no device events" in m["error"]]
+    if failed and len(closed) != len(metas):
+        raise AssertionError(f"{where}: captures failed: "
+                             f"{[(m['error'], m.get('device_records')) for m in failed]}")
+    ok = not failed
+    partial = [(m["label"], m["device_records"], m["attempts"]) for m in metas
+               if (m.get("device_records") or {}).get("launches_without_record")]
+    if ok and partial:
+        # CUPTI's known loss (PERF.md §7): recorded in the meta, printed
+        print(f"[trace] {where}: launches of the work left no record after the sessions "
+              f"taken (census, sessions): {partial}")
+    if CUPTI.setdefault("ok", ok) != ok:
+        raise AssertionError(f"{where}: CUPTI served one capture and not another: "
+                             f"{[(m['label'], m.get('device_records')) for m in metas]}")
+    if not ok and not CUPTI.get("printed"):
+        CUPTI["printed"] = True
+        print(f"cupti: unavailable ({where}: {closed[0]['error']})")
+    return ok
+
+
+def _devtrace_rc(run_dir, out_dir, want_ok):
+    """``obs devtrace`` on ``run_dir``: exit 0 where CUPTI served the
+    captures, else exit 1 with the captures' "no device events" (JAX's
+    fail-closed contract)."""
+    from dlbb_tpu_torch.analysis.findings import EXIT_CLEAN, EXIT_FINDINGS
+    from dlbb_tpu_torch.obs import run_obs
+
+    rc = run_obs("devtrace", journal=str(run_dir), output=str(out_dir), verbose=False)
+    report = json.loads((Path(out_dir) / f"{Path(run_dir).name}.json").read_text())
+    if want_ok and rc != EXIT_CLEAN:
+        raise AssertionError(f"obs devtrace on {run_dir} exited {rc}: {report['findings']}")
+    if not want_ok and (rc != EXIT_FINDINGS or not any(
+            "no device events" in f["message"] for f in report["findings"])):
+        raise AssertionError(f"obs devtrace on {run_dir} did not fail closed: exit {rc}")
+    return rc, report
+
+
+def _bucket_line(analysis):
+    return ", ".join(f"{b} {v:.1f}" for b, v in analysis["buckets_us"].items())
+
+
+def _traced_flash(torch, fa, what, fn, trace_root, gpu_line, kernels):
+    """One dedicated traced call of ``fn`` (``obs/capture.py``), outside
+    every timed run: the parsed trace must hold exactly as many events of
+    each of ``kernels`` as its launch counter counted over the call (where
+    CUPTI serves the card; else the capture fails closed, checked).  Prints
+    the device µs per bucket and the check's seconds."""
+    from dlbb_tpu_torch.obs.capture import capture_device_trace
+    from dlbb_tpu_torch.obs.devtrace import analyze_capture, parse_capture
+
+    t0 = time.perf_counter()
+    before = _flash_counts(fa)
+    meta = capture_device_trace(fn, lambda: None, trace_root, what, device="cuda")
+    launched = {k: v - before[k] for k, v in _flash_counts(fa).items()}
+    if not _cupti_verdict([meta], what):
+        save_dir = Path(trace_root) / f"{what}_run"
+        save_dir.mkdir(parents=True, exist_ok=True)
+        (save_dir / f"{what}.json").write_text(json.dumps(
+            {"operation": what, "timings": [[0.0]], "device_trace": meta}))
+        _devtrace_rc(save_dir, Path(trace_root) / f"{what}_report", want_ok=False)
+        print(f"[trace] {what}: the capture failed closed (no device events), obs devtrace "
+              f"exit 1; flash launches {launched} in {time.perf_counter() - t0:.1f} s")
+        return launched
+    analysis = analyze_capture(parse_capture(meta["perfetto_trace"]))
+    events = {k: sum(r["count"] for r in analysis["per_op"] if FLASH_KERNEL_NAMES[k] in r["name"])
+              for k in FLASH_KERNEL_NAMES}
+    print(f"[trace] {what} on {gpu_line}: device us per bucket: {_bucket_line(analysis)}; "
+          f"flash kernel events {events}, launch counters {launched}; "
+          f"{sum(r['count'] for r in analysis['per_op'])} device events of "
+          f"{len(analysis['per_op'])} names; {meta['trace_bytes']} trace bytes; "
+          f"{meta['attempts']} session(s); {time.perf_counter() - t0:.1f} s")
+    for k in kernels:
+        if launched[k] == 0 or events[k] != launched[k]:
+            raise AssertionError(f"the traced {what}: {events[k]} {FLASH_KERNEL_NAMES[k]} "
+                                 f"events, the counter counted {launched[k]} launches")
+    return launched
 
 
 def _dtrain_batch(config, model_cfg, device, coords=None, dp=1):
@@ -1892,6 +2009,60 @@ def _comm_faults(runner, out, warmup, iters, device="cuda"):
           f"the grid whole, every artifact valid; journal {len(events)} events")
 
 
+# phase comm (d): a device-traced sweep (the compile-ahead engine on, one
+# dedicated profile rep per config) against a serial untraced one
+COMM_TRACE_OPS = ("allreduce", "allgather", "alltoall", "sendrecv")
+# the result fields that differ between two runs of one config (JAX's set)
+COMM_VOLATILE = {
+    "timings", "timestamp", "compile_seconds", "compile_cache_hit", "forced_completion_s",
+    "forced_completion_probe_skipped", "system_info", "device_trace", "per_iter_sanity_failed",
+    "per_iter_median_s", "measurement_iterations", "warmup_iterations", "time_budget_s",
+    "time_budget_clamped",
+}
+
+
+def _comm_traced(runner, out, warmup, iters, gpu_line, device="cuda"):
+    t0 = time.perf_counter()
+    base = dict(operations=COMM_TRACE_OPS, data_sizes=(("16MB", runner.DATA_SIZES_1D["16MB"]),),
+                rank_counts=(1,), warmup_iterations=warmup, measurement_iterations=iters)
+    traced = runner.run_sweep(runner.Sweep1D(
+        output_dir=str(out / "traced"), device_trace_dir=str(out / "traced_dev"), pipeline=True,
+        **base), device=device, verbose=False)
+    plain = runner.run_sweep(runner.Sweep1D(output_dir=str(out / "untraced"), pipeline=False,
+                                            **base), device=device, verbose=False)
+    _check_results(traced, len(COMM_TRACE_OPS), iters)
+    _check_results(plain, len(COMM_TRACE_OPS), iters)
+    metas = []
+    for pt, pu in zip(sorted(traced.written), sorted(plain.written)):
+        dt, du = json.loads(pt.read_text()), json.loads(pu.read_text())
+        if pt.name != pu.name or "device_trace" not in dt or "device_trace" in du \
+                or sorted(set(dt) - COMM_VOLATILE) != sorted(set(du) - COMM_VOLATILE) \
+                or any(dt[k] != du[k] for k in set(dt) & set(du) - COMM_VOLATILE):
+            raise AssertionError(f"the traced {pt.name} differs from the untraced one")
+        metas.append(dt["device_trace"])
+    man = json.loads((out / "traced" / runner.MANIFEST_NAME).read_text())
+    ok = _cupti_verdict(metas, "comm (d)")
+    _rc, report = _devtrace_rc(out / "traced", out / "devtrace", ok)
+    if man["pipeline"] is not True or man["work_units"]["unique"] != len(COMM_TRACE_OPS) \
+            or man["observability"]["device_captures"] != (len(metas) if ok else 0):
+        raise AssertionError(f"the traced sweep's manifest: {man['work_units']}, "
+                             f"{man['observability']}")
+    for c in report["captures"]:
+        if "error" in c:
+            continue
+        names = ", ".join(f"{r['name'][:60]} [{r['bucket']}] x{r['count']} "
+                          f"{r['total_us']:.1f} us" for r in c["per_op"])
+        print(f"[comm] (d) {c['label']} on {gpu_line}: device us per bucket: "
+              f"{_bucket_line(c)}; events: {names}")
+    print("[comm] (d) device records (found, excluded, launches of the work that left "
+          "none) and sessions: " + ", ".join(
+              f"{m['label']} {m.get('device_records')} {m.get('attempts')}" for m in metas))
+    print(f"[comm] (d) {len(metas)} configs traced (compile-ahead on, one profile rep each) "
+          f"equal to the serial untraced sweep in every field but the volatile set; "
+          f"build seconds {man['compile_seconds_total']:.6f}; obs devtrace exit "
+          f"{0 if ok else 1}; {time.perf_counter() - t0:.1f} s")
+
+
 def phase_comm(torch, gpu_line):
     import os
     import shutil
@@ -1945,6 +2116,9 @@ def phase_comm(torch, gpu_line):
                       f"{len(r3.written)} configs in {time.perf_counter() - t0:.1f} s")
                 torch.cuda.empty_cache()
             _comm_faults(runner, out / "faults", warmup, iters)
+            # (d) last, after the 3D sweeps, where captures placed by the
+            # card's own timestamps lost their records (PERF.md §7)
+            _comm_traced(runner, out, warmup, iters, gpu_line)
         finally:
             comm.destroy_distributed()
     s1 = process_1d_results(out / "1d", out / "stats1d", verbose=False)
@@ -4156,8 +4330,12 @@ def _serve_engine(torch, gpu_line):
 
     # (d) the fast path on the same trace
     for i, (label, mode, knobs) in enumerate(SERVE_FAST):
-        report = _serve_run(torch, engine(mode, **knobs), trace,
-                            f"(d){i + 1} {label} ({mode}, {knobs})", gpu_line)
+        eng = engine(mode, **knobs)
+        report = _serve_run(torch, eng, trace, f"(d){i + 1} {label} ({mode}, {knobs})",
+                            gpu_line)
+        if label == "fused":
+            _serve_capture(torch, eng, gpu_line)
+        del eng
         reports.append(report)
         steps.append((f"(d){i + 1} {label}", report, cache_bytes))
         fp = report["fast_path"]
@@ -4223,6 +4401,39 @@ def _serve_engine(torch, gpu_line):
     tables.update(per_step=per_step["greedy"][0], prefix=prefix_runs, ptrace=ptrace)
     return (reports + [run["report"] for run in spec], spec,
             (engine, trace, per_step["greedy"][0], weight_bytes, cache_bytes), tables)
+
+
+def _serve_capture(torch, eng, gpu_line):
+    """(d): after the fused run, ``capture_device_traces`` on the same
+    engine: one prefill and one fused decode scan on fresh state, their
+    phases, and ``obs devtrace`` on a run directory that records them."""
+    from dlbb_tpu_torch.obs.devtrace import analyze_capture, parse_capture
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_capture_",
+                                     dir=Path(__file__).resolve().parent) as tmp:
+        metas = eng.capture_device_traces(Path(tmp) / "dev")
+        if [m.get("phase") for m in metas] != ["prefill", "decode"] \
+                or metas[1].get("decode_steps_per_scan", 0) < 1:
+            raise AssertionError(f"the serving capture's metas: {metas}")
+        ok = _cupti_verdict(metas, "serve (d) capture")
+        run = Path(tmp) / "run"
+        run.mkdir()
+        (run / "serving_chip_smoke.json").write_text(json.dumps(
+            {"schema": "dlbb_serving_report_v1", "observability": {
+                "device_trace_dir": str(Path(tmp) / "dev"), "device_captures": metas}}))
+        _devtrace_rc(run, Path(tmp) / "report", ok)
+        for m in metas if ok else ():
+            a = analyze_capture(parse_capture(m["perfetto_trace"]))
+            flash = sum(r["count"] for r in a["per_op"] if "flash_" in r["name"])
+            print(f"[serve] (d) capture {m['label']} ({m['phase']}"
+                  + (f", {m['decode_steps_per_scan']} steps per scan" if m["phase"] == "decode"
+                     else "")
+                  + f") on {gpu_line}: device us per bucket: {_bucket_line(a)}; "
+                    f"{sum(r['count'] for r in a['per_op'])} device events, {flash} flash; "
+                    f"{m['attempts']} session(s)")
+    print(f"[serve] (d) capture_device_traces: phases {[m['phase'] for m in metas]}, obs "
+          f"devtrace exit {0 if ok else 1}; {time.perf_counter() - t0:.1f} s")
 
 
 def _serve_faults(torch, gpu_line, engine, trace, greedy, weight_bytes, cache_bytes):

@@ -13,7 +13,8 @@ parallelism, pipeline parallelism and the MoE FFN with expert
 parallelism, compressed collectives and training, the reports, the
 serving foundations, the serving engine whole and its harness, the serving
 fleet, tp over heads it does not divide and Ulysses over heads sp does not
-divide per tp rank, and the sweep's failure handling and tracing):
+divide per tp rank, the sweep's failure handling and tracing, its
+compile-ahead engine and device traces):
 
 - ``models`` — ``ModelConfig``/``MODEL_CONFIGS`` (1B/7B/13B), the decoder
   ``forward`` with the simplified/full/dense/flash attention modes, remat
@@ -53,7 +54,9 @@ divide per tp rank, and the sweep's failure handling and tracing):
   the collective-matmul micro-ops and their ``overlap_*`` variants;
   ``bench.runner`` and ``bench.launch`` — the 1D and 3D collective sweeps
   on spawned ranks, with fault injection, the per-config watchdog,
-  retries, quarantine, the journal and ``--resume``, and span traces; ``stats`` — their statistics; ``cli bench1d``,
+  retries, quarantine, the journal and ``--resume``, and span traces;
+  ``bench.schedule`` — the compile-ahead engine (work units, the
+  background builder, the measurement gate); ``stats`` — their statistics; ``cli bench1d``,
   ``bench3d``, ``stats1d``, ``stats3d``; the quantised-wire collectives
   and compressed gradient training (``comm.compression``), and the
   derived reports (``stats.compare``, ``variants_report``, ``northstar``,
@@ -72,15 +75,17 @@ divide per tp rank, and the sweep's failure handling and tracing):
   the KV-cache sizing and serving envelope of ``models.configs``;
   ``stats.serving_report`` (``cli reports``' serving table);
 - ``obs`` — the span tracer, the metrics registry, ``sweep_metrics``,
-  ``serving_metrics`` and ``fleet_metrics``; ``resilience.journal``.
+  ``serving_metrics`` and ``fleet_metrics``; ``resilience.journal``; the
+  gated device capture over ``torch.profiler`` (``capture``), its analysis
+  (``devtrace``, ``corpus``'s op samples, ``analysis.findings``) and ``cli
+  obs trace|devtrace``; ``utils.profiling`` (``--trace``).
 
 The root script ``bench_torch.py`` is the port's ``bench.py``: the 1B
 forward's tokens/s and ``bench.py``'s extras in one JSON line.
 
-Not ported yet (see ROADMAP.md): the sweep's compile-ahead engine, the
-chaos gate with ``cli chaos`` and device traces (item 13, part 13b), and
-the rest of the observability, planning and analysis layers (items 14
-and 15).
+Not ported yet (see ROADMAP.md): the chaos gate with ``cli chaos`` (item
+13, part 13c), and the rest of the observability, planning and analysis
+layers (items 14 and 15).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit ``"cpu"`` they raise.

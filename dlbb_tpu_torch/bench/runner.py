@@ -2,8 +2,8 @@
 
 Every rank of a process group (``bench/launch.py``, or one the caller
 initialised with ``comm.initialize_distributed``) calls ``run_sweep`` with
-the same sweep.  For each rank count P it walks the grid serially, one
-config at a time, on the mesh of the first P ranks (``comm.get_mesh``):
+the same sweep.  For each rank count P it measures the grid one config at
+a time on the mesh of the first P ranks (``comm.get_mesh``):
 this rank's payload slab, the op built by ``comm.ops``, per-iteration
 timing (``utils.timing.time_collective``), the ranks' timings gathered as
 ``[rank][iteration]`` (the reference's shape, ``collectives/1d/openmpi.py:270``),
@@ -18,7 +18,7 @@ a rank that went on alone would wait in the larger mesh's first
 collective, under the collective timeout, while the smaller mesh is still
 measuring.  The JAX package has no such skew, since one SPMD process runs
 every mesh in turn.  Payloads are built once per rank count and kept in a
-byte-budgeted LRU (``PayloadCache``, the JAX runner's).
+byte-budgeted LRU (``bench/schedule.py::PayloadCache``, JAX's).
 
 A config that fails is contained as in JAX: a transient failure
 (``resilience.errors.is_transient``) retries with exponential backoff, any
@@ -33,51 +33,75 @@ faults at JAX's sites; ``span_trace`` (else ``DLBB_SPANS``) writes the
 sweep's span trace; ``metrics.prom`` comes from ``obs/export.py::
 sweep_metrics``.  Rank 0 journals, traces and writes the manifest.
 
-A verdict the ranks of a mesh must share is rank 0's: whether a fault site
-fires (``_fire``), whether the watchdog abandons a unit (``_watched``) and
-whether to stop for a preemption (an all-reduce over the mesh, then over
-the world at the end of each rank count); a retry follows from an error
-every rank of the mesh sees (an injected transient, timings gathered with a
-NaN in them).  A failure on one rank only, or a hang inside a collective,
-cannot be contained: its peers wait in the op's collective until the
-process group's timeout.
+The grid is planned up front, as in JAX: every rank count's mesh is made
+on the main thread (group creation is collective, so every rank makes them
+in the same order), each config's skips and ``resume`` verdicts are taken,
+and the measurable configs are deduplicated into work units
+(``bench/schedule.py``), whose callables the compile-ahead engine builds on
+a background thread (``pipeline``, ``prefetch``) while the main thread
+measures, outside every timed region (the measurement gate).  A build that
+fails is quarantined with its exception chain; a build that overruns the
+deadline is abandoned (``watchdog.abandoned_compiles``,
+``scheduler_wedged``, ``gate_degraded``).  ``compile_cache`` takes JAX's
+``"auto"`` and "off" values and records the cache as disabled, with the
+reason: eager torch compiles no program.  ``device_trace_dir`` (else
+``DLBB_DEVICE_TRACE``) captures one dedicated profile rep per measured
+config after its timed region (``obs/capture.py``), each rep annotated with
+the HLO op JAX lowers the op to.
 
-Not ported yet (ROADMAP Queue 1, Slice F, item 13, part 13b): the
-compile-ahead engine and its compile cache (``pipeline``,
-``compile_cache``) and device traces (``device_trace_dir``).  Those knobs
-keep their "off" values, and ``run_sweep`` raises on any other value; the
-manifest's compile fields read 0.
+A verdict the ranks of a mesh must share is rank 0's: whether a fault site
+fires (``_fire``; the compile sites fire on rank 0's build alone), whether
+the watchdog abandons a unit (``_watched``) and whether to stop for a
+preemption (an all-reduce over the mesh, then over the world at the end of
+each rank count); a build that failed or overran on any rank of the mesh
+fails it on all (``_shared_unit``), and so does a capture (``obs/
+capture.py``); a retry follows from an error every rank of the mesh sees
+(an injected transient, timings gathered with a NaN in them).  A failure
+on one rank only, or a hang inside a collective, cannot be contained: its
+peers wait in the op's collective until the process group's timeout.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import signal
 import threading
 import time
 import traceback
-from collections import OrderedDict
-from dataclasses import dataclass, field, fields
+from dataclasses import dataclass, field
 from datetime import timedelta
 from pathlib import Path
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from dlbb_tpu_torch.bench import schedule
+from dlbb_tpu_torch.bench.schedule import (
+    MANIFEST_NAME,
+    MANIFEST_SCHEMA,
+    PayloadCache,
+    WorkUnit,
+    work_unit_key,
+)
 from dlbb_tpu_torch.comm.mesh import BACKENDS, Mesh, get_mesh
 from dlbb_tpu_torch.comm.ops import (
     COMPRESSED_OPS,
     DTYPES,
     MATMUL_OPS,
+    _require_3d_payload,
     build_allreduce_hierarchical,
     get_op,
     make_payload,
+    payload_global_shape,
 )
 from dlbb_tpu_torch.comm.variants import Variant, get_variant
+from dlbb_tpu_torch.obs import capture as obs_capture
 from dlbb_tpu_torch.obs import spans
+from dlbb_tpu_torch.obs.corpus import hlo_kind
 from dlbb_tpu_torch.obs.export import MetricsRegistry, sweep_metrics
 from dlbb_tpu_torch.resilience import inject
 from dlbb_tpu_torch.resilience.errors import (
@@ -89,9 +113,13 @@ from dlbb_tpu_torch.resilience.errors import (
 from dlbb_tpu_torch.resilience.journal import SweepJournal
 from dlbb_tpu_torch.resilience.preempt import PreemptionGuard
 from dlbb_tpu_torch.utils.config import save_json
+from dlbb_tpu_torch.utils.profiling import annotate
 from dlbb_tpu_torch.utils.sysinfo import (collect_system_info, resolve_device,
                                           topology_record)
 from dlbb_tpu_torch.utils.timing import time_collective
+
+__all__ = ["MANIFEST_NAME", "MANIFEST_SCHEMA", "PayloadCache", "Sweep1D", "Sweep3D",
+           "SweepResult", "run_sweep"]
 
 # Reference 1D sweep constants (``collectives/1d/openmpi.py:14-49``).  The
 # labels are 2x the bf16 payload ("16MB" = 4,194,304 elements x 2 B = 8 MiB),
@@ -136,15 +164,6 @@ GRID_3D: dict[str, Sequence[int]] = {
     "hidden_dims": (2048, 4096),
 }
 
-# knob -> what brings it; each sweep field below keeps its "off" value
-_NOT_PORTED_KNOBS = {
-    "pipeline": "the compile-ahead engine (bench/schedule.py)",
-    "compile_cache": "the compile-ahead engine's compilation cache",
-    "device_trace_dir": "device traces (obs/capture.py)",
-}
-MANIFEST_NAME = "sweep_manifest.json"
-MANIFEST_SCHEMA = "dlbb_sweep_manifest_v1"
-
 
 @dataclass(frozen=True)
 class Sweep1D:
@@ -170,13 +189,18 @@ class Sweep1D:
     max_global_bytes: Optional[int] = None
     # skip configs whose result JSON already exists and validates
     resume: bool = False
-    # not ported (item 13, part 13b): run_sweep raises on any other value
-    pipeline: bool = False
-    compile_cache: Optional[str] = None
-    device_trace_dir: Optional[str] = None
+    # the compile-ahead engine (bench/schedule.py): build config N+1..N+
+    # prefetch on a background thread between measurements; None: host-
+    # auto (schedule.default_pipeline), False: inline (--no-pipeline)
+    pipeline: Optional[bool] = None
+    prefetch: int = 2
+    # "auto" or an "off" value: eager torch has no compilation cache (the
+    # manifest records why); a directory is refused
+    compile_cache: Optional[str] = "auto"
     # fault-injection plan (resilience/inject.py); None: DLBB_FAULT_PLAN
     fault_plan: Optional[str] = None
-    # wall-clock watchdog per config; None: DLBB_UNIT_DEADLINE, else off
+    # wall-clock watchdog per config (build and measurement); None:
+    # DLBB_UNIT_DEADLINE, else off
     unit_deadline_seconds: Optional[float] = None
     # bounded retries of transient failures, with exponential backoff
     max_retries: int = 2
@@ -185,6 +209,10 @@ class Sweep1D:
     journal: bool = True
     # the span trace's file; None: DLBB_SPANS, else off
     span_trace: Optional[str] = None
+    # per-config device captures on dedicated profile reps, outside the
+    # stats and the measurement gate; a directory, or None:
+    # DLBB_DEVICE_TRACE
+    device_trace_dir: Optional[str] = None
 
     kind: str = "1d"
 
@@ -209,15 +237,16 @@ class Sweep3D:
     max_config_seconds: Optional[float] = None
     max_global_bytes: Optional[int] = None
     resume: bool = False
-    pipeline: bool = False
-    compile_cache: Optional[str] = None
-    device_trace_dir: Optional[str] = None
+    pipeline: Optional[bool] = None
+    prefetch: int = 2
+    compile_cache: Optional[str] = "auto"
     fault_plan: Optional[str] = None
     unit_deadline_seconds: Optional[float] = None
     max_retries: int = 2
     retry_backoff_seconds: float = 0.05
     journal: bool = True
     span_trace: Optional[str] = None
+    device_trace_dir: Optional[str] = None
 
     kind: str = "3d"
 
@@ -234,84 +263,25 @@ class SweepResult:
     skipped: int = 0
 
 
-_PAYLOAD_CACHE_BYTES_ENV = "DLBB_PAYLOAD_CACHE_BYTES"
-DEFAULT_PAYLOAD_CACHE_BYTES = 1 << 30  # 1 GiB of payloads per rank
-
 # How long a rank waits at the end of a rank count for the ranks still
 # measuring it.  A rank count of a large grid runs for hours over gloo, so
 # this is not the collective timeout; a rank that dies closes its gloo
 # connections, which fails the others' wait at once.
 HOLD_TIMEOUT = timedelta(days=1)
 
-
-class PayloadCache:
-    """Byte-budgeted LRU of this rank's payloads (the JAX runner's
-    ``bench/schedule.py::PayloadCache``): ops that share a key reuse one
-    tensor instead of drawing it again.  The budget is ``max_bytes``, else
-    ``DLBB_PAYLOAD_CACHE_BYTES``, else 1 GiB; a payload larger than the
-    budget passes through uncached, and the least recently used entries
-    go when a new one would exceed it.  A payload counts the bytes of
-    its whole mesh, this rank's tensor times its ``ranks``, as JAX counts
-    its global array, so one budget holds the same payloads on both."""
-
-    def __init__(self, max_bytes: Optional[int] = None) -> None:
-        if max_bytes is None:
-            max_bytes = int(os.environ.get(_PAYLOAD_CACHE_BYTES_ENV,
-                                           DEFAULT_PAYLOAD_CACHE_BYTES))
-        self.max_bytes = max_bytes
-        # key -> (tensor, its mesh's bytes)
-        self._entries: OrderedDict[tuple, tuple[torch.Tensor, int]] = OrderedDict()
-        self.nbytes = 0
-        self.hits = self.misses = self.evictions = 0
-
-    def get(self, key: tuple, build: Callable[[], torch.Tensor],
-            ranks: int = 1) -> torch.Tensor:
-        entry = self._entries.get(key)
-        if entry is not None:
-            self.hits += 1
-            self._entries.move_to_end(key)
-            return entry[0]
-        self.misses += 1
-        t = build()
-        nbytes = t.nbytes * ranks
-        if nbytes > self.max_bytes:
-            return t
-        self._entries[key] = (t, nbytes)
-        self.nbytes += nbytes
-        while self.nbytes > self.max_bytes:
-            _, (_, old) = self._entries.popitem(last=False)
-            self.nbytes -= old
-            self.evictions += 1
-        return t
-
-    def invalidate(self, key: tuple) -> None:
-        """Drop ``key`` (a failed config's payload is drawn again)."""
-        entry = self._entries.pop(key, None)
-        if entry is not None:
-            self.nbytes -= entry[1]
-
-    def stats(self) -> dict[str, int]:
-        """JAX's ``PayloadCache.stats`` keys, for the manifest."""
-        return {"hits": self.hits, "misses": self.misses, "evictions": self.evictions,
-                "resident_bytes": self.nbytes, "budget_bytes": self.max_bytes}
-
-    def __contains__(self, key: tuple) -> bool:
-        return key in self._entries
+_NULL_GATE = contextlib.nullcontext()
 
 
-def _check_sweep(sweep) -> None:
-    defaults = {f.name: f.default for f in fields(sweep)}
-    for knob, what in _NOT_PORTED_KNOBS.items():
-        if getattr(sweep, knob) != defaults[knob]:
-            raise NotImplementedError(
-                f"{type(sweep).__name__}.{knob}={getattr(sweep, knob)!r}: "
-                f"{what} is not ported (ROADMAP Queue 1, Slice F, item 13, part 13b)")
+def _check_sweep(sweep) -> dict[str, Any]:
+    """Refuse what the port cannot run; the manifest's ``compile_cache``
+    block (without its counts)."""
     if sweep.timing_mode != "per_iter":
         raise NotImplementedError(
             f"timing_mode={sweep.timing_mode!r}: the port times per "
             "iteration only (the chained regime is not ported)")
     if sweep.dtype not in DTYPES:
         raise ValueError(f"dtype {sweep.dtype!r}; known: {sorted(DTYPES)}")
+    return schedule.compile_cache_record(sweep.compile_cache)
 
 
 def _impl_name(sweep, backend: str) -> str:
@@ -331,6 +301,16 @@ def _build_fn(op_name: str, variant: Variant, mesh: Mesh, root: int):
         return get_op(op_name).build(mesh, root, compression=compression,
                                      accum_dtype=accum)
     return get_op(op_name).build(mesh, root)
+
+
+def _build_unit(op_name: str, variant: Variant, mesh: Mesh, root: int,
+                slab_shape: tuple[int, ...]):
+    """A work unit's build (``bench/schedule.py``): the op's shape check on
+    this rank's payload slab (a ``meta`` tensor: no allocation) and its
+    callable, on the host (no collective, no group)."""
+    if op_name in MATMUL_OPS:
+        _require_3d_payload(op_name, torch.empty(slab_shape, device="meta"))
+    return _build_fn(op_name, variant, mesh, root)
 
 
 def _payload_geometry(sweep, config) -> tuple[int, Optional[tuple[int, ...]]]:
@@ -430,10 +410,38 @@ def _gather_timings(local: list[float], mesh: Mesh) -> list[list[float]]:
     return rows
 
 
-def _payload_key(sweep, mesh: Mesh, config) -> tuple:
-    """A payload's identity: its mesh, its op's input kind and its shape."""
+@dataclass
+class _Planned:
+    """One measurable config of this rank's mesh, resolved at plan time."""
+
+    mesh: Mesh
+    config: dict[str, Any]
+    fname: str
+    unit: WorkUnit
+    payload_key: tuple
+    num_elements: int
+    shape: Optional[tuple[int, ...]]
+
+
+def _plan_config(sweep, variant: Variant, mesh: Mesh, config, fname: str,
+                 units: dict[tuple, WorkUnit]) -> _Planned:
+    """Resolve one config's payload identity and intern its work unit."""
+    op_name = config["operation"]
+    op = get_op(op_name)
+    num_ranks = mesh.spec.num_ranks
     num_elements, shape = _payload_geometry(sweep, config)
-    return mesh.spec.num_ranks, get_op(config["operation"]).input_kind, num_elements, shape
+    global_shape = payload_global_shape(op, num_ranks, num_elements, shape)
+    key = work_unit_key(op_name, variant.name, mesh, mesh.axis_names, sweep.root,
+                        global_shape[1:], DTYPES[sweep.dtype], dist.get_backend(mesh.group))
+    unit = units.get(key)
+    if unit is None:
+        unit = units[key] = WorkUnit(
+            key=key,
+            build=lambda: _build_unit(op_name, variant, mesh, sweep.root, global_shape[1:]),
+            label=f"{op_name}/{variant.name}/r{num_ranks}/"
+                  f"{'x'.join(map(str, global_shape))}/{sweep.dtype}")
+    payload_key = (num_ranks, op.input_kind, num_elements, shape)
+    return _Planned(mesh, config, fname, unit, payload_key, num_elements, shape)
 
 
 @dataclass
@@ -443,8 +451,11 @@ class _Run:
 
     journal: SweepJournal
     counts: Any
+    metrics: MetricsRegistry
     guard: PreemptionGuard
     deadline: Optional[float]
+    gate: Optional[schedule.MeasureGate]
+    capture_dir: Optional[str]
     # the sweep's payloads, a fresh cache after a hang, as JAX's
     payloads: PayloadCache = field(default_factory=PayloadCache)
     quarantined: list = field(default_factory=list)
@@ -487,12 +498,14 @@ def _any_rank(flag: bool, group, dev: torch.device) -> bool:
     return bool(t.item())
 
 
-def _watched(fn, deadline: Optional[float], label: str, mesh: Mesh, dev: torch.device):
+def _watched(fn, deadline: Optional[float], label: str, mesh: Mesh, dev: torch.device,
+             gate: Optional[schedule.MeasureGate] = None):
     """``fn(cancel)`` under the watchdog (JAX's ``_call_with_deadline``):
     with no deadline a direct call; with one, on a daemon thread joined for
     ``deadline`` seconds.  Rank 0's verdict decides on every rank of the
     mesh: an overrun sets ``cancel`` (the abandoned thread checks it after
-    an injected hang, before any collective, and before its write) and
+    an injected hang, before any collective, and before its write),
+    degrades the measurement gate (the abandoned thread may hold it) and
     raises ``DeadlineExceeded``; where rank 0 finished, so does the rest of
     the mesh's collective, and a rank still running is waited for."""
     if deadline is None:
@@ -511,11 +524,50 @@ def _watched(fn, deadline: Optional[float], label: str, mesh: Mesh, dev: torch.d
     t.join(deadline)
     if _rank0_flag(t.is_alive(), mesh, dev):
         cancel.set()
+        if gate is not None:
+            gate.degrade()
         raise DeadlineExceeded(label, deadline, phase="measure")
     t.join()
     if "error" in box:
         raise box["error"]
     return box["value"]
+
+
+# a unit's state on this rank, shared over the mesh as its maximum
+_UNIT_OK, _UNIT_FAILED, _UNIT_ABANDONED = 0, 1, 2
+
+
+def _shared_unit(scheduler: schedule.CompileAheadScheduler, entry: _Planned,
+                 deadline: Optional[float], dev: torch.device) -> WorkUnit:
+    """``scheduler.get`` on every rank of the mesh, then the worst outcome
+    on any rank everywhere: a build that failed on one rank (the compile
+    sites fire on rank 0's) fails the config on all, and one that overran
+    the deadline abandons it on all.  With no fault plan and no deadline
+    every rank's build comes out alike and nothing is shared.  Raises
+    ``DeadlineExceeded``, or returns the unit, whose ``error`` is set where
+    the build failed."""
+    mesh, local = entry.mesh, _UNIT_OK
+    try:
+        unit = scheduler.get(entry.unit, deadline=deadline)
+        if unit.error is not None:
+            local = _UNIT_FAILED
+    except DeadlineExceeded as e:
+        unit, local, overrun = entry.unit, _UNIT_ABANDONED, e
+    shared = local
+    if mesh.spec.num_ranks > 1 and (deadline is not None or inject.active() is not None):
+        t = torch.tensor([local], device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
+        shared = int(t.item())
+    if shared == _UNIT_ABANDONED:
+        if local == _UNIT_ABANDONED:
+            raise overrun
+        raise DeadlineExceeded(entry.unit.label, float(deadline or 0.0),
+                               phase="compile (abandoned on another rank)")
+    if shared == _UNIT_FAILED and unit.error is None:
+        unit = WorkUnit(key=unit.key, build=unit.build, label=unit.label,
+                        error=RuntimeError(f"the build of {unit.label} failed on "
+                                           "another rank of the mesh"))
+    return unit
 
 
 def run_sweep(sweep: Sweep1D | Sweep3D, device=None,
@@ -524,7 +576,7 @@ def run_sweep(sweep: Sweep1D | Sweep3D, device=None,
     ``cuda`` unless the caller names ``cpu``; it raises without CUDA, and
     when the process group's backend is not the device's (NCCL on cuda,
     gloo on cpu)."""
-    _check_sweep(sweep)
+    cache = _check_sweep(sweep)
     variant = get_variant(sweep.variant)
     dev = resolve_device(device)
     if not dist.is_initialized():
@@ -546,11 +598,11 @@ def run_sweep(sweep: Sweep1D | Sweep3D, device=None,
     with spans.tracing(span_path, meta={"kind": sweep.kind, "implementation": impl,
                                         "variant": variant.name}), \
             inject.plan_scope(fault_spec), PreemptionGuard() as guard:
-        return _run_sweep_configured(sweep, variant, impl, dev, backend, guard, verbose)
+        return _run_sweep_configured(sweep, variant, impl, dev, cache, guard, verbose)
 
 
 def _run_sweep_configured(sweep, variant: Variant, impl: str, dev: torch.device,
-                          backend: str, guard: PreemptionGuard,
+                          cache: dict[str, Any], guard: PreemptionGuard,
                           verbose: bool) -> SweepResult:
     t0 = time.perf_counter()
     out_dir = Path(sweep.output_dir)
@@ -574,41 +626,64 @@ def _run_sweep_configured(sweep, variant: Variant, impl: str, dev: torch.device,
         initial=("resumed", "resume_invalid", "skipped_mem", "skipped_ranks",
                  "measured", "failed"),
         help="sweep configs by lifecycle outcome")
-    run = _Run(journal, counts, guard, _resolve_deadline(sweep))
+    # the gate keeps builds out of timed regions; DLBB_COMPILE_OVERLAP=1
+    # lifts it on hosts with cores to spare
+    gate = None if os.environ.get("DLBB_COMPILE_OVERLAP") == "1" else schedule.MeasureGate()
+    run = _Run(journal, counts, metrics, guard, _resolve_deadline(sweep), gate,
+               sweep.device_trace_dir or obs_capture.default_capture_dir())
     # gloo on every backend: its barrier waits on the host, and a peer's
     # death breaks it at once
     hold_group = (dist.new_group(backend="gloo", timeout=HOLD_TIMEOUT)
                   if world > 1 else None)
-    planned = 0
 
-    for num_ranks in sweep.rank_counts:
-        reason = f"{num_ranks} ranks > {world} in the process group"
-        spec = None
-        if num_ranks <= world:
-            try:
-                spec = variant.mesh_spec(num_ranks)
-            except ValueError as e:
-                reason = str(e)
-        if spec is None:
-            result.skipped += len(configs)
-            counts["skipped_ranks"] += len(configs)
-            journal.event("rank-skip", num_ranks=num_ranks, reason=reason)
-            if verbose and rank0:
-                print(f"[skip] ranks={num_ranks}: {reason}")
-            continue
-        mesh = get_mesh(spec)
-        if mesh is not None:  # the ranks past the mesh sit this count out
-            planned += _run_rank_count(sweep, variant, impl, mesh, configs, dev,
-                                       out_dir, sysinfo, verbose, result, run)
-        if hold_group is not None:
-            # every rank waits for the whole count, and all stop where any
-            # was preempted
-            run.preempted = _any_rank(run.preempted or guard.requested, hold_group,
-                                      torch.device("cpu"))
-        if run.preempted:
-            break
+    # ---- planning pass: every rank count's mesh and configs ------------
+    units: dict[tuple, WorkUnit] = {}
+    blocks: list[list[_Planned]] = []  # one per rank count this world runs
+    with spans.span("plan", cat="sweep", grid_configs=len(configs),
+                    rank_counts=str(tuple(sweep.rank_counts))):
+        for num_ranks in sweep.rank_counts:
+            reason = f"{num_ranks} ranks > {world} in the process group"
+            spec = None
+            if num_ranks <= world:
+                try:
+                    spec = variant.mesh_spec(num_ranks)
+                except ValueError as e:
+                    reason = str(e)
+            if spec is None:
+                result.skipped += len(configs)
+                counts["skipped_ranks"] += len(configs)
+                journal.event("rank-skip", num_ranks=num_ranks, reason=reason)
+                if verbose and rank0:
+                    print(f"[skip] ranks={num_ranks}: {reason}")
+                continue
+            mesh = get_mesh(spec)  # the ranks past the mesh sit this count out
+            blocks.append([] if mesh is None else _plan(
+                sweep, variant, mesh, configs, impl, out_dir, verbose, result, run, units))
+    planned = sum(len(b) for b in blocks)
+
+    # ---- measurement pass, builds ahead ---------------------------------
+    pipeline = sweep.pipeline if sweep.pipeline is not None else schedule.default_pipeline()
+    scheduler = schedule.CompileAheadScheduler(
+        units.values(), prefetch=sweep.prefetch, pipeline=pipeline, measure_gate=gate,
+        fire_sites=rank0)
+    scheduler.start()
+    try:
+        for block in blocks:
+            _measure(sweep, variant, impl, block, scheduler, dev, out_dir, sysinfo,
+                     verbose, result, run)
+            if hold_group is not None:
+                # every rank waits for the whole count, and all stop where
+                # any was preempted
+                run.preempted = _any_rank(run.preempted or guard.requested, hold_group,
+                                          torch.device("cpu"))
+            if run.preempted:
+                break
+    finally:
+        scheduler.close()
 
     if rank0 and (planned or counts["resumed"]):
+        unit_list = list(units.values())
+        built = [u for u in unit_list if u.ready.is_set() and u.error is None]
         tracer = spans.active()
         manifest = {
             "kind": sweep.kind, "implementation": impl, "variant": variant.name,
@@ -616,18 +691,21 @@ def _run_sweep_configured(sweep, variant: Variant, impl: str, dev: torch.device,
             # the port has no cost model (JAX's analysis/costmodel.py)
             "cost_model_version": None,
             "timing_mode": sweep.timing_mode,
-            # eager torch.distributed calls: nothing is compiled, cached or
-            # compiled ahead (the compile-ahead engine is item 13, part 13b)
-            "pipeline": False, "prefetch": 0,
+            "pipeline": scheduler.pipelined, "prefetch": sweep.prefetch,
             "wall_seconds": time.perf_counter() - t0,
-            "compile_seconds_total": 0.0,
-            "compile_cache": {"dir": None, "enabled": False, "persistent_hits": 0,
-                              "persistent_misses": 0},
-            "work_units": {"planned_configs": planned, "unique": 0, "compile_failed": 0},
+            # the units' host build seconds (eager torch compiles nothing)
+            "compile_seconds_total": sum(u.compile_seconds for u in unit_list),
+            # no compilation cache: every unit built is a miss
+            "compile_cache": {**cache, "persistent_hits": 0,
+                              "persistent_misses": len(built)},
+            "work_units": {"planned_configs": planned, "unique": len(unit_list),
+                           "compile_failed": sum(1 for u in unit_list
+                                                 if u.error is not None)},
             "configs": dict(counts),
             "payload_cache": run.payloads.stats(),
             "observability": {"span_trace": str(tracer.path) if tracer else None,
-                              "device_trace_dir": None, "device_captures": 0},
+                              "device_trace_dir": run.capture_dir,
+                              "device_captures": int(metrics.get("sweep_device_captures"))},
             "resilience": {
                 "fault_plan": getattr(inject.active(), "spec", None),
                 "unit_deadline_seconds": run.deadline,
@@ -636,12 +714,13 @@ def _run_sweep_configured(sweep, variant: Variant, impl: str, dev: torch.device,
                 "quarantined": run.quarantined,
                 "preempted": run.preempted,
                 "watchdog": {"abandoned_measurements": run.abandoned,
-                             "abandoned_compiles": 0, "scheduler_wedged": False,
-                             "gate_degraded": False},
+                             "abandoned_compiles": scheduler.abandoned,
+                             "scheduler_wedged": scheduler.wedged,
+                             "gate_degraded": bool(getattr(gate, "degraded", False))},
             },
             "timestamp": time.time(),
         }
-        save_json({"schema": MANIFEST_SCHEMA, **manifest}, out_dir / MANIFEST_NAME)
+        schedule.write_sweep_manifest(out_dir, manifest)
         sweep_metrics(manifest, metrics).write_textfile(out_dir / "metrics.prom")
         if tracer is not None:
             tracer.finish()
@@ -651,10 +730,12 @@ def _run_sweep_configured(sweep, variant: Variant, impl: str, dev: torch.device,
     return result
 
 
-def _plan(sweep, mesh: Mesh, configs, impl: str, out_dir: Path, verbose: bool,
-          result: SweepResult, run: _Run) -> list:
+def _plan(sweep, variant: Variant, mesh: Mesh, configs, impl: str, out_dir: Path,
+          verbose: bool, result: SweepResult, run: _Run,
+          units: dict[tuple, WorkUnit]) -> list[_Planned]:
     """This rank count's configs to measure, past the memory cap and
-    ``resume``'s valid artifacts, each journaled."""
+    ``resume``'s valid artifacts, each journaled and interned into
+    ``units``."""
     num_ranks, journal, counts = mesh.spec.num_ranks, run.journal, run.counts
     say = verbose and mesh.rank == 0
     todo = []
@@ -686,7 +767,7 @@ def _plan(sweep, mesh: Mesh, configs, impl: str, out_dir: Path, verbose: bool,
                     journal.event("resume-invalid", config=fname, reason=why)
                     if say:
                         print(f"  [resume-INVALID] {fname}: {why} — re-measuring")
-            todo.append((config, fname))
+            todo.append(_plan_config(sweep, variant, mesh, config, fname, units))
             journal.event("planned", config=fname)
         except Exception as e:  # noqa: BLE001 — a config fails alone
             _quarantine(run, result, fname, "planning", 0, e, verbose)
@@ -694,26 +775,28 @@ def _plan(sweep, mesh: Mesh, configs, impl: str, out_dir: Path, verbose: bool,
 
 
 def _quarantine(run: _Run, result: SweepResult, fname: str, phase: str, retries: int,
-                e: BaseException, verbose: bool) -> None:
+                e: BaseException, verbose: bool, label: Optional[str] = None) -> None:
     run.counts["failed"] += 1
-    run.quarantined.append({"config": fname, "phase": phase, "retries": retries,
-                            **exception_chain(e)})
-    run.journal.event("failed", config=fname, phase=phase, retries=retries, error=str(e))
+    run.quarantined.append({"config": fname, **({"label": label} if label else {}),
+                            "phase": phase, "retries": retries, **exception_chain(e)})
+    run.journal.event("failed", config=fname, phase=phase,
+                      **({"retries": retries} if phase == "measure" else {}), error=str(e))
     result.failed.append({"config": fname, "error": f"{type(e).__name__}: {e}"})
     if verbose:
-        print(f"[error] rank {dist.get_rank()} {fname}: {e}")
-        traceback.print_exception(type(e), e, e.__traceback__)
+        print(f"[error] rank {dist.get_rank()} {fname}: {phase} failed: {e}")
+        if phase != "compile":
+            traceback.print_exception(type(e), e, e.__traceback__)
 
 
-def _run_rank_count(sweep, variant: Variant, impl: str, mesh: Mesh, configs,
-                    dev: torch.device, out_dir: Path, sysinfo, verbose: bool,
-                    result: SweepResult, run: _Run) -> int:
-    """Measure this rank count's configs; returns how many were planned."""
-    with spans.span("plan", cat="sweep", num_ranks=mesh.spec.num_ranks):
-        todo = _plan(sweep, mesh, configs, impl, out_dir, verbose, result, run)
+def _measure(sweep, variant: Variant, impl: str, block: list[_Planned],
+             scheduler: schedule.CompileAheadScheduler, dev: torch.device, out_dir: Path,
+             sysinfo, verbose: bool, result: SweepResult, run: _Run) -> None:
+    """Measure one rank count's planned configs, each against the unit the
+    scheduler built for it."""
     attempts = max(0, int(sweep.max_retries)) + 1
     journal = run.journal
-    for config, fname in todo:
+    for entry in block:
+        mesh, fname = entry.mesh, entry.fname
         if _fire("preempt", mesh, dev):
             # a real SIGTERM, which the PreemptionGuard turns into its flag
             os.kill(os.getpid(), signal.SIGTERM)
@@ -726,17 +809,26 @@ def _run_rank_count(sweep, variant: Variant, impl: str, mesh: Mesh, configs,
                 print(f"[preempt] SIGTERM received — stopping before {fname}; "
                       "journal flushed, resume completes the grid")
             break
+        try:
+            with spans.span("compile-wait", cat="sweep", config=fname):
+                unit = _shared_unit(scheduler, entry, run.deadline, dev)
+        except DeadlineExceeded as e:
+            _quarantine(run, result, fname, "compile", 0, e, verbose, entry.unit.label)
+            continue
+        if unit.error is not None:
+            _quarantine(run, result, fname, "compile", 0, unit.error, verbose, unit.label)
+            continue
         journal.event("started", config=fname)
         last_exc: Optional[BaseException] = None
         attempt = 0
         for attempt in range(attempts):
             try:
-                with spans.span(fname, cat="config", attempt=attempt):
+                with spans.span(fname, cat="config", unit=unit.label, attempt=attempt):
                     path = _watched(
-                        lambda cancel: _run_one(sweep, variant, impl, mesh, config,
-                                                run.payloads, dev, out_dir / fname,
-                                                sysinfo, verbose, attempt, cancel),
-                        run.deadline, fname, mesh, dev)
+                        lambda cancel: _run_one(sweep, variant, impl, entry, unit, dev,
+                                                out_dir / fname, sysinfo, verbose, run,
+                                                attempt, cancel),
+                        run.deadline, fname, mesh, dev, run.gate)
                 if path is not None:
                     result.written.append(path)
                 run.counts["measured"] += 1
@@ -752,7 +844,7 @@ def _run_rank_count(sweep, variant: Variant, impl: str, mesh: Mesh, configs,
                 last_exc = e
                 break
             except Exception as e:  # noqa: BLE001 — a config fails alone
-                run.payloads.invalidate(_payload_key(sweep, mesh, config))
+                run.payloads.invalidate(entry.payload_key)
                 last_exc = e
                 if is_transient(e) and attempt < attempts - 1:
                     delay = sweep.retry_backoff_seconds * (2 ** attempt)
@@ -766,38 +858,53 @@ def _run_rank_count(sweep, variant: Variant, impl: str, mesh: Mesh, configs,
                     continue
                 break
         if last_exc is not None:
-            _quarantine(run, result, fname, "measure", attempt, last_exc, verbose)
-    return len(todo)
+            _quarantine(run, result, fname, "measure", attempt, last_exc, verbose,
+                        unit.label)
 
 
-def _run_one(sweep, variant: Variant, impl: str, mesh: Mesh, config,
-             payloads: PayloadCache, dev: torch.device, path: Path, sysinfo,
-             verbose: bool, retries: int = 0,
-             cancel: Optional[threading.Event] = None) -> Optional[Path]:
-    """Measure one config; the mesh's rank 0 writes its JSON and returns
-    the path, the other ranks return None.  ``cancel`` is the watchdog's
-    (``_watched``): once set, this abandoned call runs no collective and
-    writes nothing."""
+def _annotated(fn, name: str):
+    """``fn`` with each call inside a ``name`` annotation (the capture's
+    reps: devtrace reads the HLO op JAX lowers the op to from it)."""
+    def call(x):
+        with annotate(name):
+            return fn(x)
+    return call
+
+
+def _run_one(sweep, variant: Variant, impl: str, entry: _Planned, unit: WorkUnit,
+             dev: torch.device, path: Path, sysinfo, verbose: bool, run: _Run,
+             retries: int = 0, cancel: Optional[threading.Event] = None) -> Optional[Path]:
+    """Measure one config against its built ``unit``; the mesh's rank 0
+    writes its JSON and returns the path, the other ranks return None.
+    ``cancel`` is the watchdog's (``_watched``): once set, this abandoned
+    call runs no collective and writes nothing."""
+    mesh, config = entry.mesh, entry.config
     num_ranks = mesh.spec.num_ranks
     op_name = config["operation"]
     op = get_op(op_name)
     dtype = DTYPES[sweep.dtype]
-    num_elements, shape = _payload_geometry(sweep, config)
+    num_elements, shape = entry.num_elements, entry.shape
+
+    def build_payload():
+        return make_payload(op, mesh.rank, num_ranks, num_elements, dtype=dtype,
+                            shape=shape, device=dev)
+
     # every op leaves its input untouched, so configs share payloads
-    with spans.span("payload", cat="payload", label=path.name):
-        x = payloads.get(_payload_key(sweep, mesh, config), lambda: make_payload(
-            op, mesh.rank, num_ranks, num_elements, dtype=dtype, shape=shape,
-            device=dev), ranks=num_ranks)
-    fn = _build_fn(op_name, variant, mesh, sweep.root)
+    with spans.span("payload", cat="payload", label=unit.label):
+        x = run.payloads.get(entry.payload_key, build_payload, ranks=num_ranks)
+    fn = unit.fn
     # JAX's fault sites, before the timed region
     if _fire("exec-transient", mesh, dev):
-        raise inject.TransientFault(f"injected transient runtime failure for {path.name}")
+        raise inject.TransientFault(f"injected transient runtime failure for {unit.label}")
     if _fire("exec-hang", mesh, dev):
         time.sleep(inject.param("hang_seconds"))
     if cancel is not None and cancel.is_set():
         raise DeadlineExceeded(path.name, 0.0, phase="measure (abandoned before its "
                                "collectives)")
-    with spans.span("measure", cat="measure", label=path.name, mode="per_iter"):
+    # the gate keeps the compile-ahead worker out of the timed region; the
+    # span's clock reads sit outside it
+    with spans.span("measure", cat="measure", label=unit.label, mode="per_iter"), \
+            (run.gate if run.gate is not None else _NULL_GATE):
         local, timing_meta = time_collective(
             fn, x, mesh.group, warmup=sweep.warmup_iterations,
             iterations=sweep.measurement_iterations, device=dev,
@@ -812,10 +919,31 @@ def _run_one(sweep, variant: Variant, impl: str, mesh: Mesh, config,
     timings = _gather_timings(local, mesh)
     if not np.isfinite(np.asarray(timings, dtype=np.float64)).all():
         # every rank sees the gathered timings, so every rank retries
-        raise CorruptStats(f"{path.name}: non-finite timings — refusing to write "
+        raise CorruptStats(f"{unit.label}: non-finite timings — refusing to write "
                            "the artifact")
+    # the device capture: dedicated reps on a fresh payload, after the
+    # timed region and outside the gate, on every rank of the mesh; a
+    # failure lands in the metadata, never in the config
+    capture_meta = None
+    if run.capture_dir:
+        with spans.span("device-capture", cat="capture", label=unit.label):
+            capture_meta = obs_capture.capture_device_trace(
+                _annotated(fn, hlo_kind(op_name, variant.name)), build_payload,
+                run.capture_dir, label=path.name.rsplit(".", 1)[0], group=mesh.group,
+                device=dev)
+        if "error" not in capture_meta:
+            run.metrics.inc("sweep_device_captures",
+                            help="dedicated profile reps captured (excluded from stats)")
+        else:
+            run.metrics.inc("obs_device_capture_failures",
+                            reason=capture_meta.get("error_kind", "unknown"),
+                            help="contained device-capture failures "
+                                 "(error recorded in the result JSON)")
     if mesh.rank != 0:
         return None
+    # the first config that writes an artifact reports its unit's build;
+    # later sharers built nothing (in-process dedup)
+    first = not unit.compile_reported
     result: dict[str, Any] = {
         "implementation": impl,
         "mpi_implementation": impl,  # the key the 1D stats reader prefers
@@ -825,9 +953,9 @@ def _run_one(sweep, variant: Variant, impl: str, mesh: Mesh, config,
         "dtype": sweep.dtype,
         "warmup_iterations": sweep.warmup_iterations,
         "measurement_iterations": sweep.measurement_iterations,
-        # eager torch.distributed calls: nothing is compiled or cached
-        "compile_seconds": 0.0,
-        "compile_cache_hit": None,
+        # the unit's host build seconds (bench/schedule.py); no cache
+        "compile_seconds": unit.compile_seconds if first else 0.0,
+        "compile_cache_hit": not first,
         "retries": retries,
         **timing_meta,
         "timings": timings,
@@ -841,6 +969,8 @@ def _run_one(sweep, variant: Variant, impl: str, mesh: Mesh, config,
             (), dtype=dtype).element_size(),
         "timestamp": time.time(),
         "system_info": sysinfo,
+        # absent on untraced runs: every stats field above is the same
+        **({"device_trace": capture_meta} if capture_meta else {}),
     }
     if sweep.kind == "1d":
         result["data_size_name"] = config["size_label"]
@@ -857,7 +987,9 @@ def _run_one(sweep, variant: Variant, impl: str, mesh: Mesh, config,
                                "suppressed after abandonment)")
     with spans.span("write", cat="io", file=path.name):
         save_json(result, path)
+    unit.compile_reported = True
     if verbose:
         median_ms = float(np.median(np.asarray(timings))) * 1e3
         print(f"  [{impl}] {path.name}: median {median_ms:.3f} ms (per_iter)")
     return path
+

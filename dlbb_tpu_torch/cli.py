@@ -2,17 +2,19 @@
 
     python -m dlbb_tpu_torch.cli e2e --config CONFIG.yaml [--output DIR]
                                      [--world N] [--device cuda|cpu]
-                                     [--tp-overlap off|ring|bidir]
+                                     [--tp-overlap off|ring|bidir] [--trace DIR]
     python -m dlbb_tpu_torch.cli train --config CONFIG.yaml [--output DIR]
                                        [--world N] [--zero STAGE | --zero1]
                                        [--device cuda|cpu]
                                        [--tp-overlap off|ring|bidir]
-                                       [--grad-compression none|int8|fp8]
+                                       [--grad-compression none|int8|fp8] [--trace DIR]
     python -m dlbb_tpu_torch.cli bench1d [--ops ...] [--sizes ...] [--ranks ...]
                                          [--world N] [--device cuda|cpu]
                                          [--fault-plan PLAN] [--deadline SEC]
                                          [--max-retries N] [--no-journal]
-                                         [--span-trace FILE] ...
+                                         [--span-trace FILE] [--pipeline | --no-pipeline]
+                                         [--prefetch K] [--compile-cache auto|off]
+                                         [--device-trace DIR] [--trace DIR] ...
     python -m dlbb_tpu_torch.cli bench3d [--ops ...] [--batch ...] [--seq ...]
                                          [--hidden ...] [--ranks ...] ...
     python -m dlbb_tpu_torch.cli stats1d --input DIR --output DIR
@@ -23,7 +25,9 @@
     python -m dlbb_tpu_torch.cli reports [--stats DIR] [--results DIR] [--impl NAME]
     python -m dlbb_tpu_torch.cli serve [--config CONFIG.yaml] [--trace KIND|PATH]
                                        [--requests N] [--world N] [--device cuda|cpu]
-                                       [--output DIR] [--resume] [--fault-plan PLAN] ...
+                                       [--output DIR] [--resume] [--fault-plan PLAN]
+                                       [--device-trace DIR] [--xplane-trace DIR] ...
+    python -m dlbb_tpu_torch.cli obs trace|devtrace --journal DIR [--output PATH]
 
 The sweeps launch ``--world`` ranks (default: the largest of ``--ranks``)
 through ``bench/launch.py``: NCCL with one GPU per rank on ``cuda``, gloo
@@ -61,10 +65,20 @@ sets the mesh instead) through ``bench/launch.py``, written by rank 0 to
 ``results/torch/serving`` unless ``--output`` names another directory.
 ``--replicas N`` serves through the replica fleet (``serve/fleet.py``): N
 failure domains of one replica's mesh each, on N x that mesh's ranks, which
-share the GPUs over gloo.  JAX's ``--xplane-trace`` (device traces, Slice
-F, item 13, part 13b) is refused.  The
+share the GPUs over gloo.  The
 reference corpus of ``compare`` is not in this repository: ``--reference``
 names its root.
+
+Device traces (``utils/profiling.py``, ``obs/capture.py``): ``--trace DIR``
+on ``e2e``, ``train`` and the sweeps (``--xplane-trace DIR`` on ``serve``,
+whose ``--trace`` names the traffic) writes a ``torch.profiler`` trace of
+the whole run, each launched rank its own ``DIR/rank<r>/``;
+``--device-trace DIR`` on the sweeps and ``serve`` captures dedicated
+profile reps (one per measured config; one prefill and one decode scan
+after the trace is served) outside every timed region.  ``obs devtrace
+--journal RUN_DIR`` parses a run's captures into per-op device timelines
+(``obs/devtrace.py``), ``obs trace --journal RUN_DIR`` rebuilds its
+timeline from the journal.
 """
 
 from __future__ import annotations
@@ -111,6 +125,31 @@ def _add_sweep_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--span-trace", default=None, metavar="FILE", dest="span_trace",
                    help="write the sweep's host-side span trace (Chrome trace-event "
                         "JSON) to FILE; DLBB_SPANS env is the default")
+    p.add_argument("--no-pipeline", action="store_true",
+                   help="build each config's callable inline, no compile-ahead thread "
+                        "(serial debug mode; identical result schema and timing)")
+    p.add_argument("--pipeline", action="store_true",
+                   help="force the compile-ahead thread on (default: auto — enabled "
+                        "only on hosts with spare cores)")
+    p.add_argument("--prefetch", type=int, default=2, metavar="K",
+                   help="configs built ahead of the one measuring (pipelined mode; "
+                        "default 2)")
+    p.add_argument("--compile-cache", default="auto", metavar="auto|off",
+                   help="JAX's persistent compilation cache: eager torch has none, so "
+                        "'auto' and 'off' record it as disabled and a directory is "
+                        "refused")
+    p.add_argument("--device-trace", default=None, metavar="DIR", dest="device_trace",
+                   help="capture a torch.profiler device trace per config on a "
+                        "DEDICATED profile rep (excluded from the stats series) under "
+                        "DIR; DLBB_DEVICE_TRACE env is the default")
+    _add_trace(p)
+
+
+def _add_trace(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the whole run to DIR (each "
+                        "launched rank to DIR/rank<r>); DLBB_TRACE_DIR env is the "
+                        "default")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -124,6 +163,7 @@ def build_parser() -> argparse.ArgumentParser:
     e2.add_argument("--device", default=None, help=_DEVICE_HELP)
     e2.add_argument("--tp-overlap", choices=("off", "ring", "bidir"), default=None,
                     help=_OVERLAP_HELP)
+    _add_trace(e2)
     tr = sub.add_parser("train", help="DDP/ZeRO-{1,2,3} training-loop benchmark")
     tr.add_argument("--config", required=True, help="YAML experiment config")
     tr.add_argument("--zero1", action="store_true", help="shard optimizer state (ZeRO-1)")
@@ -140,6 +180,7 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--grad-compression", choices=("none", "int8", "fp8"), default=None,
                     help="override training.grad_compression: quantised dp "
                          "gradient reduction with error feedback (needs dp > 1)")
+    _add_trace(tr)
 
     b1 = sub.add_parser("bench1d", help="1D collective microbenchmark sweep")
     _add_sweep_args(b1)
@@ -190,6 +231,25 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the baseline implementation of the variant tables and "
                          "the north-star curve's stats")
     _add_serve_parser(sub)
+
+    ob = sub.add_parser(
+        "obs", help="observability: journal->trace reconstruction (trace) and the "
+                    "device-trace analysis of a run's captures (devtrace); exit codes "
+                    "0 clean / 1 findings / 2 crash")
+    ob.add_argument("which", choices=("trace", "calibrate", "diff", "fit", "attribute",
+                                      "devtrace"),
+                    help="trace = rebuild a Perfetto timeline from a run's journal; "
+                         "devtrace = parse the run's device captures into per-op device "
+                         "timelines and buckets (MD+CSV+JSON under "
+                         "stats/torch/analysis/devtrace/); calibrate, diff, fit and "
+                         "attribute are not ported yet (items 14 and 15)")
+    ob.add_argument("--journal", default=None, metavar="DIR",
+                    help="the run's output directory (sweep_journal.jsonl for trace, "
+                         "the captured results for devtrace)")
+    ob.add_argument("--output", default=None,
+                    help="output path (trace JSON) or report directory (devtrace)")
+    ob.add_argument("--strict-warnings", action="store_true",
+                    help="warnings also exit 1")
     return p
 
 
@@ -279,12 +339,17 @@ def _add_serve_parser(sub) -> None:
                     help="ranks to launch (default: the config's mesh, else 1)")
     sv.add_argument("--device", default=None, help=_DEVICE_HELP)
     sv.add_argument("--xplane-trace", default=None, metavar="DIR", dest="xplane_trace",
-                    help="a device trace (refused: Slice F, item 13, part 13b)")
+                    help="write a torch.profiler trace of the whole run to DIR (each "
+                         "launched rank to DIR/rank<r>; JAX's flag name, the --trace "
+                         "flag of the other levels); DLBB_TRACE_DIR env is the default")
     sv.add_argument("--span-trace", default=None, metavar="FILE", dest="span_trace",
                     help="rank 0's host span trace (Chrome trace-event JSON); "
                          "DLBB_SPANS env is the default")
     sv.add_argument("--device-trace", default=None, metavar="DIR", dest="device_trace",
-                    help="a captured prefill and decode (refused: Slice F, item 13, part 13b)")
+                    help="capture one prefill and one decode scan through the obs/capture "
+                         "gate AFTER the trace is served (outside every timed region) "
+                         "under DIR; DLBB_DEVICE_TRACE env is the default; parsed by "
+                         "`obs devtrace`")
 
 
 def _sweep(args):
@@ -296,7 +361,8 @@ def _sweep(args):
         max_global_bytes=args.max_global_bytes, resume=args.resume,
         fault_plan=args.fault_plan, unit_deadline_seconds=args.unit_deadline,
         max_retries=args.max_retries, journal=not args.no_journal,
-        span_trace=args.span_trace)
+        span_trace=args.span_trace, pipeline=_pipeline_arg(args), prefetch=args.prefetch,
+        compile_cache=args.compile_cache, device_trace_dir=args.device_trace)
     if args.ranks:
         common["rank_counts"] = tuple(args.ranks)
     if args.ops:
@@ -318,19 +384,37 @@ def _sweep(args):
     return runner.Sweep1D(output_dir=args.output or "results/torch/1d", **common)
 
 
-def e2e_worker(config, output_dir, device):
+def _pipeline_arg(args):
+    """--no-pipeline > --pipeline > None (host-auto), JAX's."""
+    if args.no_pipeline:
+        return False
+    if args.pipeline:
+        return True
+    return None
+
+
+def _traced(trace_dir, device):
+    """``maybe_trace`` of this rank's share of ``--trace DIR``."""
+    from dlbb_tpu_torch.utils.profiling import maybe_trace, rank_trace_dir
+
+    return maybe_trace(rank_trace_dir(trace_dir), device)
+
+
+def e2e_worker(config, output_dir, device, trace_dir=None):
     """One rank of ``e2e`` (launched by name)."""
     from dlbb_tpu_torch.bench.e2e import run_e2e
 
-    return run_e2e(config, device=device, output_dir=output_dir)
+    with _traced(trace_dir, device):
+        return run_e2e(config, device=device, output_dir=output_dir)
 
 
-def train_worker(config, output_dir, device, zero1, zero_stage):
+def train_worker(config, output_dir, device, zero1, zero_stage, trace_dir=None):
     """One rank of ``train`` (launched by name)."""
     from dlbb_tpu_torch.train.loop import run_train
 
-    return run_train(config, zero1=zero1, zero_stage=zero_stage, device=device,
-                     output_dir=output_dir)
+    with _traced(trace_dir, device):
+        return run_train(config, zero1=zero1, zero_stage=zero_stage, device=device,
+                         output_dir=output_dir)
 
 
 def _launched(args, worker, *extra):
@@ -356,22 +440,28 @@ def _launched(args, worker, *extra):
     return launch(worker, world, args.device, args=worker_args)[0]
 
 
-def sweep_worker(sweep, device):
+def sweep_worker(sweep, device, trace_dir=None):
     """One rank of ``bench1d``/``bench3d`` (launched by name)."""
     from dlbb_tpu_torch.bench.runner import run_sweep
 
-    return run_sweep(sweep, device=device)
+    with _traced(trace_dir, device):
+        return run_sweep(sweep, device=device)
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.cmd == "obs":
+        from dlbb_tpu_torch.obs import run_obs
+
+        return run_obs(args.which, journal=args.journal, output=args.output,
+                       strict_warnings=args.strict_warnings)
     if args.cmd == "e2e":
-        result = _launched(args, e2e_worker)
+        result = _launched(args, e2e_worker, args.trace)
         print(f"forward mean {result['forward_time']['mean'] * 1e3:.3f} ms "
               f"over {len(result['per_host_means_s'])} rank(s)")
         return 0
     if args.cmd == "train":
-        result = _launched(args, train_worker, args.zero1, args.zero_stage)
+        result = _launched(args, train_worker, args.zero1, args.zero_stage, args.trace)
         if result.get("preempted") and "step_time" not in result:
             print(f"preempted at step {result['preempted_at_step']}; "
                   "checkpoint saved — resume to continue")
@@ -384,7 +474,8 @@ def main(argv=None) -> int:
 
         sweep = _sweep(args)
         world = args.world or max(sweep.rank_counts)
-        results = launch(sweep_worker, world, args.device, args=(sweep, args.device))
+        results = launch(sweep_worker, world, args.device,
+                         args=(sweep, args.device, args.trace))
         failed = [f for r in results for f in r.failed]
         print(f"{len(results[0].written)} result artifacts in {sweep.output_dir}; "
               f"{len(failed)} failed config(s) over {world} rank(s)")
@@ -437,9 +528,6 @@ def _serve(args) -> int:
     from dlbb_tpu_torch.obs import spans
     from dlbb_tpu_torch.serve.bench import run_serve_from_config
 
-    if args.xplane_trace or os.environ.get("DLBB_TRACE_DIR"):
-        raise SystemExit("serve --xplane-trace: device traces are not ported yet "
-                         "(ROADMAP Queue 1, Slice F, item 13, part 13b)")
     result = run_serve_from_config(
         args.config, trace=args.trace, num_requests=args.requests, seed=args.seed,
         rate=args.rate, output_dir=args.output,
@@ -447,7 +535,8 @@ def _serve(args) -> int:
         resume=args.resume, fault_plan=args.fault_plan, slo=args.slo,
         device_trace=args.device_trace, prefix_groups=args.prefix_groups,
         prefix_len=args.prefix_len, replicas=args.replicas, world=args.world,
-        device=args.device, span_trace=args.span_trace or spans.default_span_path())
+        device=args.device, span_trace=args.span_trace or spans.default_span_path(),
+        xplane_trace=args.xplane_trace)
     req = result["requests"]
     if "failovers" in result:
         live = sum(1 for r in result["replicas"] if r["status"] == "ok")

@@ -405,8 +405,10 @@ def sweep_metrics(manifest: dict[str, Any],
                   registry: Optional[MetricsRegistry] = None) -> MetricsRegistry:
     """JAX's: a sweep manifest's aggregate sections as gauges (wall and
     compile seconds, compile-cache hits and misses, payload-cache stats,
-    retries and quarantine) on top of the counters the sweep registered.
-    The port compiles nothing, so its compile gauges read 0."""
+    retries and quarantine) on top of the counters the sweep registered
+    (``obs_device_capture_failures_total`` among them).  The compile gauges
+    read the work units' host build seconds and their builds, each a cache
+    miss, since eager torch has no compilation cache."""
     registry = registry or MetricsRegistry()
     registry.set_gauge("sweep_wall_seconds", manifest.get("wall_seconds", 0.0),
                        help="sweep wall-clock time")

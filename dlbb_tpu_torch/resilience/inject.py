@@ -15,11 +15,12 @@ in ``serve/traffic.py::TrafficTrace.load``, and the engine's serving sites
 ``serve/fleet.py``, where the JAX package hosts them; a fleet counts its
 replica sites' hits across its processes (``FaultPlan.fire_nth``).  The
 sweep's fire in ``bench/runner.py`` (``exec-transient``, ``exec-hang``,
-``stats-nan``, ``preempt``: the mesh's rank 0 decides and broadcasts) and
-in ``utils/config.py::save_json`` (``torn-write``, ``kill-mid-write``);
-``compile-fail`` and ``compile-hang`` fire at no call site until the
-compile-ahead engine is ported (ROADMAP Queue 1, Slice F, item 13, part
-13b).  The tables below list where the JAX package hosts each.
+``stats-nan``, ``preempt``: the mesh's rank 0 decides and broadcasts), in
+``bench/schedule.py::_compile_unit`` at the unit build (``compile-fail``,
+``compile-hang``: on rank 0's build, whose failure or overrun the mesh then
+shares) and in ``utils/config.py::save_json`` (``torn-write``,
+``kill-mid-write``).  The tables below list where the JAX package hosts
+each.
 
 Plan grammar (``DLBB_FAULT_PLAN`` env / ``--fault-plan`` CLI)::
 

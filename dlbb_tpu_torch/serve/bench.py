@@ -28,8 +28,11 @@ launches them through ``bench/launch.py``); every rank serves the same
 trace, and rank 0 alone writes the journal, the artifacts and the resume
 checkpoint.  A resume relaunches the same world.  A ``fleet:`` section or
 ``replicas`` above 1 routes the run to ``serve/fleet.py::run_fleet``, whose
-``parallelism:`` plan is each replica's.  Device traces come with Slice F,
-item 13, part 13b, and are refused.
+``parallelism:`` plan is each replica's.  ``device_trace`` (else
+``DLBB_DEVICE_TRACE``) captures one prefill and one decode scan after the
+trace is served, on every rank of the mesh
+(``ServingEngine.capture_device_traces``), recorded in the report's
+``observability`` section, as JAX does; a fleet takes none, as in JAX.
 """
 
 from __future__ import annotations
@@ -61,13 +64,6 @@ DEFAULT_SERVE_MODEL = dict(
     hidden_size=128, num_layers=4, num_heads=8, num_kv_heads=4,
     ffn_intermediate=256, dtype="float32", attention="full",
 )
-
-
-def _refuse_device_trace(device_trace: Optional[str]) -> None:
-    if device_trace or os.environ.get("DLBB_DEVICE_TRACE"):
-        raise ValueError(
-            "device traces of a serving run are not ported yet: they come with "
-            "obs/capture.py (ROADMAP Queue 1, Slice F, item 13, part 13b)")
 
 
 def _hbm_record(model_cfg: ModelConfig, serving_cfg: ServingConfig, plan) -> dict:
@@ -213,13 +209,13 @@ def run_serving(
     site) drains gracefully and writes the ``serving_resume.json``
     checkpoint instead of the result: see :func:`resume_serving`.
     ``device`` is ``cuda`` unless the caller names ``cpu``."""
+    from dlbb_tpu_torch.obs import capture as obs_capture
     from dlbb_tpu_torch.obs import spans
     from dlbb_tpu_torch.resilience import inject
     from dlbb_tpu_torch.resilience.journal import SweepJournal
     from dlbb_tpu_torch.resilience.preempt import PreemptionGuard
     from dlbb_tpu_torch.utils.config import save_json
 
-    _refuse_device_trace(device_trace)
     dev = resolve_device(device)
     model_cfg = ModelConfig.from_dict(config.get("model", DEFAULT_SERVE_MODEL))
     serving_cfg = ServingConfig.from_dict(config.get("serving", {}))
@@ -256,6 +252,25 @@ def run_serving(
         if jrn is not None:
             jrn.close()
     _stamp(report, config, model_cfg, serving_cfg, plan, dev)
+
+    # the gated device capture runs after the trace is served, never inside
+    # a timed region, on fresh state, on every rank of the mesh
+    capture_dir = device_trace or obs_capture.default_capture_dir()
+    if capture_dir and not report.get("preempted"):
+        with spans.span("device-capture", cat="capture", label="serve"):
+            metas = engine.capture_device_traces(capture_dir)
+        for m in metas:
+            if "error" in m:
+                engine.registry.inc(
+                    "obs_device_capture_failures", reason=m.get("error_kind", "unknown"),
+                    help="contained device-capture failures (error recorded in the "
+                         "capture metadata)")
+        report["observability"] = {"device_trace_dir": str(capture_dir),
+                                   "device_captures": metas}
+        if verbose and _lead():
+            ok = sum(1 for m in metas if "error" not in m)
+            print(f"[serve] device capture: {ok}/{len(metas)} phase capture(s) under "
+                  f"{capture_dir}")
 
     if out is not None:
         trace_path = trace.save(out / f"trace_{name}.json")
@@ -524,14 +539,18 @@ def _load_checkpoint(out: Path) -> tuple[dict[str, Any], TrafficTrace]:
     return ckpt, sub
 
 
-def serve_worker(config, trace, output_dir, verbose, fault_plan, device, span_trace=None):
+def serve_worker(config, trace, output_dir, verbose, fault_plan, device, span_trace=None,
+                 device_trace=None, xplane_trace=None):
     """One rank of ``run_serve_from_config`` (launched by name); rank 0
-    records the host span trace to ``span_trace`` when set."""
+    records the host span trace to ``span_trace`` when set, and each rank
+    its share of the ``torch.profiler`` trace ``xplane_trace``."""
     from dlbb_tpu_torch.obs import spans
+    from dlbb_tpu_torch.utils.profiling import maybe_trace, rank_trace_dir
 
-    with spans.tracing(span_trace if _lead() else None, meta={"cmd": "serve"}):
+    with spans.tracing(span_trace if _lead() else None, meta={"cmd": "serve"}), \
+            maybe_trace(rank_trace_dir(xplane_trace), device):
         return run_serving(config, trace, output_dir=output_dir, verbose=verbose,
-                           fault_plan=fault_plan, device=device)
+                           fault_plan=fault_plan, device=device, device_trace=device_trace)
 
 
 def resume_worker(output_dir, verbose, device):
@@ -575,6 +594,7 @@ def run_serve_from_config(
     world: Optional[int] = None,
     device=None,
     span_trace: Optional[str] = None,
+    xplane_trace: Optional[str] = None,
 ) -> dict[str, Any]:
     """CLI entry: an optional experiment YAML and flag overrides (the fast
     path, speculation, prefix and resilience knobs, ``docs/serving.md``).
@@ -594,13 +614,20 @@ def run_serve_from_config(
     the replica fleet instead (``serve/fleet.py::run_fleet``): the
     ``parallelism:`` section, or the auto-plan over ``world / replicas``
     ranks, is then ONE replica's mesh, and the world is replicas x that
-    mesh (``world``, when given, must match).  ``device_trace`` is refused
-    (Slice F, item 13, part 13b)."""
+    mesh (``world``, when given, must match).  ``device_trace`` captures
+    the served run's prefill and decode (:func:`run_serving`; a fleet takes
+    none, as in JAX), and ``xplane_trace`` (else ``DLBB_TRACE_DIR``) writes
+    each rank's ``torch.profiler`` trace of a single-mesh run under it
+    (``cli serve --xplane-trace``); a fleet or a resume is refused one
+    (``DLBB_TRACE_DIR`` traces neither)."""
     from dlbb_tpu_torch.utils.config import load_config
 
     resolve_device(device)
-    _refuse_device_trace(device_trace)
+    refused = ValueError("--xplane-trace traces one mesh's ranks: a fleet or a resume "
+                         "takes none")
     if resume:
+        if xplane_trace:
+            raise refused
         out = output_dir or "results/torch/serving"
         ckpt, _sub = _load_checkpoint(Path(out))
         return _launched(resume_worker, _world(ckpt["config"]), device,
@@ -615,6 +642,8 @@ def run_serve_from_config(
     if replicas is not None and replicas > 1:
         config.setdefault("fleet", {})["replicas"] = replicas
     fleet = bool(config.get("fleet"))
+    if fleet and xplane_trace:
+        raise refused
     n_replicas = max(1, int(config["fleet"].get("replicas", 2))) if fleet else 1
     if "parallelism" not in config:
         model_cfg = ModelConfig.from_dict(config.get("model", DEFAULT_SERVE_MODEL))
@@ -641,4 +670,5 @@ def run_serve_from_config(
         return run_fleet(config, resolved, output_dir=out, verbose=verbose,
                          fault_plan=fault_plan, device=device)
     return _launched(serve_worker, n, device,
-                     (config, resolved, out, verbose, fault_plan, device, span_trace))
+                     (config, resolved, out, verbose, fault_plan, device, span_trace,
+                      device_trace, xplane_trace))

@@ -122,9 +122,10 @@ waiting on the group: both fail the run.
 
 The fleet's replica hooks (``run_trace``'s ``feed`` and ``control``,
 ``serve/fleet.py``) are consulted only at the scheduler loop's boundary.
-Device-trace capture is refused with a ``ValueError`` that names its
-ROADMAP item (Slice F, item 13, part 13b).  ``hedge_factor`` is the fleet's: one
-engine accepts and ignores it, as JAX's does.
+``capture_device_traces`` captures one prefill and one decode scan on
+fresh state after a run (``obs/capture.py``, JAX's serving capture).
+``hedge_factor`` is the fleet's: one engine accepts and ignores it, as
+JAX's does.
 """
 
 from __future__ import annotations
@@ -1850,9 +1851,67 @@ class ServingEngine:
                                                   device=self.device))
 
     def capture_device_traces(self, trace_root: Any) -> list[dict]:
-        raise ValueError(
-            "capture_device_traces is not ported yet: device traces come with "
-            "ROADMAP Queue 1, Slice F, item 13, part 13b")
+        """JAX's serving capture (``obs/capture.py``): one dedicated prefill
+        and one decode scan (fused where the fast path is on, at its
+        smallest horizon), each on fresh state, strictly outside every
+        timed region; the bench calls this after :meth:`run_trace` has
+        returned.  Every rank of the mesh calls it (the programs' tp
+        collectives); each returned meta carries its ``phase`` (and the
+        decode's ``decode_steps_per_scan``), and a failure is contained in
+        the metas as a sweep's is."""
+        from dlbb_tpu_torch.obs import capture as obs_capture
+
+        cfg = self.serving
+        bucket = cfg.prefill_buckets[0]
+        # this rank's first slot, as _compile warms it: every dp rank prefills
+        slot = (cfg.max_batch // self.dp) * (0 if self.mesh is None
+                                             else self.mesh.coords["dp"])
+        kw = dict(group=None if self.mesh is None else self.mesh.group, device=self.device)
+
+        def prefill_payload():
+            x = request_embeddings(0, bucket, self.config.hidden_size, dtype=self._dtype,
+                                   pad_to=bucket, device=self.device)
+            return self._fresh_carry()[0], x
+
+        def prefill_fn(t):
+            return self._prefill(t[0], self.params, t[1], slot, bucket)
+
+        metas = [obs_capture.capture_device_trace(
+            prefill_fn, prefill_payload, trace_root, label=f"serve_prefill_b{bucket}", **kw)]
+        metas[0]["phase"] = "prefill"
+
+        def decode_payload():
+            return (self._fresh_carry(),
+                    torch.zeros((cfg.max_batch,), dtype=torch.bool, device=self.device),
+                    torch.zeros((cfg.max_batch,), dtype=torch.int32, device=self.device))
+
+        fused_k = min(self._fused_ks) if self._fast and self._fused_ks else None
+        if fused_k is not None:
+            if self._token_mode:
+                def decode_fn(t):
+                    return self._decode_fused_token[fused_k](t[0], self.params, self._table,
+                                                             t[1], t[2])
+            else:
+                def decode_fn(t):
+                    return self._decode_fused[fused_k](t[0], self.params, t[1], t[2])
+            label = (f"serve_decode_fused_token_k{fused_k}" if self._token_mode
+                     else f"serve_decode_fused_k{fused_k}")
+        else:
+            if self._token_mode:
+                def decode_fn(t):
+                    return self._decode_token(t[0], self.params, self._table, t[1])
+            else:
+                def decode_fn(t):
+                    return self._decode(t[0], self.params, t[1])
+            label = "serve_decode_token_step" if self._token_mode else "serve_decode_step"
+        meta = obs_capture.capture_device_trace(decode_fn, decode_payload, trace_root,
+                                                label=label, **kw)
+        meta["phase"] = "decode"
+        # token steps per captured dispatch: device time is normalised per
+        # step, never per dispatch
+        meta["decode_steps_per_scan"] = fused_k or 1
+        metas.append(meta)
+        return metas
 
     def _infeasible_reason(self, r: Request) -> Optional[str]:
         """Why the envelope can never serve ``r`` (None = feasible)."""

@@ -52,6 +52,9 @@ def test_port_has_the_expected_modules():
                 "dlbb_tpu_torch/stats/serving_report.py",
                 "dlbb_tpu_torch/obs/spans.py", "dlbb_tpu_torch/obs/export.py",
                 "dlbb_tpu_torch/resilience/journal.py", "chip_smoke.py",
+                "dlbb_tpu_torch/bench/schedule.py", "dlbb_tpu_torch/utils/profiling.py",
+                "dlbb_tpu_torch/obs/capture.py", "dlbb_tpu_torch/obs/devtrace.py",
+                "dlbb_tpu_torch/obs/corpus.py", "dlbb_tpu_torch/analysis/findings.py",
                 "bench_torch.py"):
         assert rel in PORT_FILES
 
@@ -127,10 +130,14 @@ def test_compression_and_report_modules_import_without_jax_triton_or_cuda(module
 @pytest.mark.parametrize("module", [
     "dlbb_tpu_torch.serve", "dlbb_tpu_torch.serve.engine", "dlbb_tpu_torch.serve.bench",
     "dlbb_tpu_torch.stats.serving_report", "dlbb_tpu_torch.obs",
-    "dlbb_tpu_torch.resilience", "bench_torch"])
+    "dlbb_tpu_torch.resilience", "bench_torch", "dlbb_tpu_torch.bench.schedule",
+    "dlbb_tpu_torch.bench.runner", "dlbb_tpu_torch.utils.profiling",
+    "dlbb_tpu_torch.obs.capture", "dlbb_tpu_torch.obs.devtrace",
+    "dlbb_tpu_torch.analysis.findings"])
 def test_serving_obs_and_bench_import_without_jax_triton_or_cuda(module):
     """The serving foundations and engine, the span tracer and metrics
-    registry, the journal and the headline script import in a fresh process where
+    registry, the journal, the headline script, the compile-ahead engine
+    and the device traces import in a fresh process where
     ``jax``, ``triton`` and ``dlbb_tpu`` cannot be imported, and leave CUDA
     uninitialised."""
     import os
@@ -145,10 +152,16 @@ def test_serving_obs_and_bench_import_without_jax_triton_or_cuda(module):
 
 def test_timing_never_imports_the_tracer():
     """``utils/timing.py`` brackets device work with clocks, so it imports
-    nothing of ``obs`` (the spans stay outside timed regions), as in JAX."""
+    nothing of ``obs`` (the spans and the device captures stay outside timed
+    regions), nor the profiler (``utils/profiling.py``, ``torch.profiler``),
+    nor the compile-ahead engine, as in JAX."""
     tree = ast.parse((REPO / "dlbb_tpu_torch" / "utils" / "timing.py").read_text())
+    banned = ("obs", "profiling", "profiler", "schedule", "capture")
     for node in ast.walk(tree):
         if isinstance(node, ast.ImportFrom):
-            assert "obs" not in (node.module or "").split("."), node.module
+            parts = (node.module or "").split(".") + [a.name for a in node.names]
+            assert not set(parts) & set(banned), node.module
         elif isinstance(node, ast.Import):
-            assert not any("obs" in a.name.split(".") for a in node.names)
+            assert not any(set(a.name.split(".")) & set(banned) for a in node.names)
+        elif isinstance(node, ast.Attribute):
+            assert node.attr not in ("profiler", "record_function"), node.attr

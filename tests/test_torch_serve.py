@@ -33,6 +33,7 @@
 import dataclasses
 import json
 import math
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -761,16 +762,24 @@ def test_11c_knob_engages(name, weights):
     assert report["cache"]["blocks_reserved"] == 0
 
 
-RUN_REFUSALS = ("capture",)
+# the run hooks once refused; "capture" is ported since item 13, part 13b
+# the run hooks once refused, each now run (the test keeps its earlier name)
+RUN_HOOKS = ("capture",)
 
 
-@pytest.mark.parametrize("what", RUN_REFUSALS)
-def test_unported_run_hooks_are_refused(smoke_engine, what):
+@pytest.mark.parametrize("what", RUN_HOOKS)
+def test_unported_run_hooks_are_refused(smoke_engine, what, tmp_path):
+    """The hooks once refused run (the name is the one the test had then):
+    ``capture_device_traces`` after a run captures one prefill and one
+    decode step on fresh state, JAX's metas with their phases
+    (``tests/test_torch_devtrace.py`` parses them)."""
     trace = generate_trace("poisson", 3, seed=1, prompt_range=(4, 8), output_range=(2, 4))
-    calls = {"capture": lambda: smoke_engine.capture_device_traces("unused")}
-    with pytest.raises(ValueError) as e:
-        calls[what]()
-    _names_a_roadmap_item(str(e.value))
+    smoke_engine.run_trace(trace)
+    calls = {"capture": lambda: smoke_engine.capture_device_traces(tmp_path / "dev")}
+    metas = calls[what]()
+    assert [m["phase"] for m in metas] == ["prefill", "decode"]
+    assert all("error" not in m and m["excluded_from_stats"] for m in metas)
+    assert metas[1]["decode_steps_per_scan"] == 1
 
 
 def _requested_guard():
@@ -952,12 +961,27 @@ def test_cli_serve_on_cpu_at_world_2(tmp_path, capsys):
 @pytest.mark.parametrize("argv,item", [
     (["--xplane-trace", "d"], "item 13"), (["--device-trace", "d"], "item 13")])
 def test_cli_serve_refuses_unported_flags(tmp_path, argv, item):
+    """The flags once refused (the name is the one the test had then) run
+    since ``item`` (part 13b), which ROADMAP.md lists as ported with them:
+    ``--xplane-trace`` writes the run's ``torch.profiler`` trace,
+    ``--device-trace`` the report's captures."""
     from dlbb_tpu_torch import cli
 
-    with pytest.raises((SystemExit, ValueError)) as e:
-        cli.main(["serve", "--device", "cpu", "--output", str(tmp_path), *argv])
-    assert item in str(e.value)
-    _names_a_roadmap_item(str(e.value))
+    flag, where = argv[0], tmp_path / argv[1]
+    out = tmp_path / "s"
+    assert cli.main(["serve", "--device", "cpu", "--requests", "4", "--rate", "200",
+                     "--max-seq", "64", "--output", str(out), flag, str(where)]) == 0
+    result = json.loads((out / "serving_poisson_4req_seed42.json").read_text())
+    if flag == "--xplane-trace":
+        assert (where / "perfetto_trace.json.gz").is_file()
+        assert "observability" not in result
+    else:
+        metas = result["observability"]["device_captures"]
+        assert [m["phase"] for m in metas] == ["prefill", "decode"]
+        assert result["observability"]["device_trace_dir"] == str(where)
+    roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
+    part = roadmap.split(f"{item[5:]}. **", 1)[1].split("Part 13c", 1)[0]
+    assert "ported in PR 19" in part and flag in roadmap
 
 
 def test_serve_1b_config_is_the_card_envelope():

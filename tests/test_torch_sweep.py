@@ -171,21 +171,31 @@ def test_resume_keeps_valid_results_and_remeasures_a_torn_one(port, tmp_path):
 
 
 # the fault plan, the watchdog, retries, the journal and span traces are
-# live since item 13, part 13a (tests/test_torch_sweep_resilience.py)
-UNPORTED_KNOBS = [
-    ("pipeline", True), ("compile_cache", "auto"), ("device_trace_dir", "traces"),
-    ("timing_mode", "chained")]
+# live since item 13, part 13a (tests/test_torch_sweep_resilience.py), and
+# the compile-ahead engine and device traces since part 13b
+# (tests/test_torch_schedule.py, tests/test_torch_devtrace.py): what is
+# left refused is a compilation cache's directory (eager torch has none)
+# and the chained timing regime
+UNPORTED_KNOBS = [("compile_cache", "results/.xla_cache"), ("timing_mode", "chained")]
 
 
 @pytest.mark.parametrize("knob,value", UNPORTED_KNOBS)
 @pytest.mark.parametrize("sweep_cls", [runner.Sweep1D, runner.Sweep3D], ids=["1d", "3d"])
 def test_unported_knob_raises(sweep_cls, knob, value):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises((NotImplementedError, ValueError)):
         runner.run_sweep(sweep_cls(**{knob: value}), device="cpu")
 
 
 def test_every_unported_knob_is_tested():
-    assert set(runner._NOT_PORTED_KNOBS) <= {k for k, _ in UNPORTED_KNOBS}
+    """No knob is refused wholesale any more; a compilation cache's
+    directory is refused with the reason the manifest records."""
+    from dlbb_tpu_torch.bench import schedule
+
+    assert not hasattr(runner, "_NOT_PORTED_KNOBS")
+    with pytest.raises(ValueError, match="eager torch compiles no program"):
+        runner.run_sweep(runner.Sweep1D(compile_cache="results/.xla_cache"), device="cpu")
+    for value in ("auto", "off", None, "0"):
+        assert schedule.compile_cache_record(value)["reason"] == schedule.NO_CACHE_REASON
 
 
 def test_unported_variant_raises_in_a_sweep():

@@ -6,13 +6,15 @@ sweep_metrics``) on 4 gloo ranks, mirroring JAX's sweep tests
 written, transients exhausted and quarantined, a torn write re-measured on
 resume, resume trusting only valid artifacts, the hung unit's watchdog, the
 zombie write suppressed, preemption and resume, no cost without a plan) and
-``tests/test_obs.py::test_traced_sweep_equivalent_to_untraced``.  JAX's
-compile-engine tests (a compile failure, the scheduler's abandoned unit, a
-wedged compile) wait for part 13b, which ports that engine.
+``tests/test_obs.py::test_traced_sweep_equivalent_to_untraced``, and its
+three compile-engine tests (a compile failure quarantined with its chain,
+the scheduler's abandoned unit never rebuilt inline, a wedged build's
+inline fallback; item 13, part 13b).
 
 The port runs one process per rank: each fault site fires on the mesh's
-rank 0 and its verdict is broadcast, so every rank retries, abandons or
-stops together, and rank 0 alone journals, traces and writes.
+rank 0 (the compile sites on rank 0's build) and its verdict is shared, so
+every rank retries, abandons or stops together, and rank 0 alone journals,
+traces and writes.
 
 Each test also runs JAX's ``run_sweep`` on the same sweep and fault plan on
 JAX's simulated CPU devices and holds the port's journal, manifest and
@@ -42,7 +44,7 @@ def _tiny(tmp_path, out="results", **kw):
     defaults = dict(implementation="rt", operations=("allreduce", "broadcast"),
                     data_sizes=(("1KB", 256),), rank_counts=(WORLD,), dtype="float32",
                     warmup_iterations=1, measurement_iterations=3,
-                    output_dir=str(tmp_path / out))
+                    output_dir=str(tmp_path / out), compile_cache="off", pipeline=True)
     defaults.update(kw)
     return runner.Sweep1D(**defaults)
 
@@ -70,15 +72,13 @@ def _jax(tmp_path, out="jax", **kw):
     return jax_run_sweep(JaxSweep1D(**defaults), verbose=False)
 
 
-# manifest values that differ between any two runs, or that only JAX's
-# compile-ahead engine (part 13b) and its platform set
+# manifest values that differ between any two runs, or that each
+# package's platform sets (its cost model, its topology, its compile cache's
+# reason), compared apart below
 _MANIFEST_OWN = {"wall_seconds", "timestamp", "compile_seconds_total", "compile_cache",
-                 "work_units", "pipeline", "prefetch", "cost_model_version", "topology",
-                 "observability"}
-# the gauges of the wall clock and of JAX's compiles: the port compiles
-# nothing, so its compile gauges read 0
-_PROM_MASKED = re.compile(r"^dlbb_sweep_(wall_seconds|compile_seconds|compile_cache\{[^}]*\})"
-                          r" (\S+)$", re.M)
+                 "cost_model_version", "topology", "observability"}
+# the gauges of the wall clock and of the build seconds
+_PROM_MASKED = re.compile(r"^dlbb_sweep_(wall_seconds|compile_seconds) (\S+)$", re.M)
 
 
 def _quarantine_record(rec):
@@ -86,18 +86,19 @@ def _quarantine_record(rec):
     that name JAX's compile unit or the port's config (the exception types
     and the chain's length stay)."""
     return {"config": rec["config"], "phase": rec["phase"], "retries": rec["retries"],
-            "error": rec["error"].split(":")[0],
+            "error": rec["error"].split(":")[0], "label": "label" in rec,
             "chain": [c["type"] for c in rec["chain"]]}
 
 
-def _hold_against_jax(port_dir, jax_dir, gate_degraded=False):
+def _hold_against_jax(port_dir, jax_dir):
     """The port's journal, manifest and ``metrics.prom`` against JAX's for
     the same sweep and plan: the same journal events with the same keys
-    for the same configs, the same manifest keys, ``configs`` counts and
-    ``resilience`` section (tracebacks aside), and ``metrics.prom`` byte for
-    byte once the wall-time and compile gauges are masked, those of the
-    port reading 0.  ``gate_degraded`` names a run where JAX's measurement
-    gate (part 13b's engine) degraded and the port, with no gate, did not."""
+    for the same configs; the same manifest keys and values (the compile
+    engine's ``pipeline``, ``prefetch`` and ``work_units``, the
+    ``compile_cache`` but its ``reason``, the ``resilience`` section with
+    the watchdog's ``gate_degraded``, tracebacks aside); and
+    ``metrics.prom`` byte for byte once the wall-time and build-seconds
+    gauges are masked."""
     port_ev, port_torn = read_journal(port_dir)
     jax_ev, jax_torn = read_journal(jax_dir)
     assert port_torn == jax_torn == 0
@@ -110,20 +111,19 @@ def _hold_against_jax(port_dir, jax_dir, gate_degraded=False):
         assert pm[k] == jm[k], k
     assert sorted(pm["topology"]) == sorted(jm["topology"])
     assert sorted(pm["observability"]) == sorted(jm["observability"])
-    assert pm["work_units"]["planned_configs"] == jm["work_units"]["planned_configs"]
+    assert {k: v for k, v in pm["compile_cache"].items() if k != "reason"} == \
+        jm["compile_cache"]
+    assert pm["compile_cache"]["reason"]
     pr, jr = dict(pm["resilience"]), dict(jm["resilience"])
     assert sorted(pr) == sorted(jr)
     pq, jq = pr.pop("quarantined"), jr.pop("quarantined")
     assert [_quarantine_record(q) for q in pq] == [_quarantine_record(q) for q in jq]
     assert all(q["traceback"] for q in pq)
-    assert jr["watchdog"].pop("gate_degraded") is gate_degraded
-    assert pr["watchdog"].pop("gate_degraded") is False
     assert pr == jr
     port_prom = (port_dir / "metrics.prom").read_text()
     jax_prom = (jax_dir / "metrics.prom").read_text()
-    port_masked = _PROM_MASKED.findall(port_prom)
-    assert [k for k, _ in port_masked] == [k for k, _ in _PROM_MASKED.findall(jax_prom)]
-    assert all(float(v) == 0.0 for k, v in port_masked if k != "wall_seconds")
+    assert [k for k, _ in _PROM_MASKED.findall(port_prom)] == \
+        [k for k, _ in _PROM_MASKED.findall(jax_prom)] == ["wall_seconds", "compile_seconds"]
     mask = lambda text: _PROM_MASKED.sub(r"dlbb_sweep_\1 <masked>", text)  # noqa: E731
     assert mask(port_prom) == mask(jax_prom)
 
@@ -218,9 +218,8 @@ def test_sweep_resume_trusts_only_valid_artifacts(tmp_path):
 def test_sweep_hung_unit_watchdog_quarantine_and_drain(tmp_path):
     """A hung measurement is abandoned at the deadline on every rank (rank
     0's verdict) and quarantined; the rest of the grid measures and the
-    sweep returns long before the hang would.  The port has no measurement
-    gate (the compile-ahead engine is part 13b), so ``gate_degraded`` stays
-    False where JAX's reads True."""
+    sweep returns long before the hang would, the measurement gate
+    degraded as JAX's."""
     t0 = time.perf_counter()
     files, ranks = _run(_tiny(tmp_path, fault_plan="exec-hang:@1,hang_seconds=120",
                               unit_deadline_seconds=0.75, max_retries=0))
@@ -229,14 +228,14 @@ def test_sweep_hung_unit_watchdog_quarantine_and_drain(tmp_path):
     assert wall < 60.0, f"sweep blocked behind the hang ({wall:.1f}s)"
     man = _manifest(tmp_path)
     assert man["resilience"]["watchdog"]["abandoned_measurements"] == 1
-    assert man["resilience"]["watchdog"]["gate_degraded"] is False
+    assert man["resilience"]["watchdog"]["gate_degraded"] is True
     [q] = man["resilience"]["quarantined"]
     assert "DeadlineExceeded" in q["error"]
     assert _valid(files[0])
     assert all([f["config"] for f in r.failed] == [q["config"]] for r in ranks)
     _jax(tmp_path, fault_plan="exec-hang:@1,hang_seconds=120",
          unit_deadline_seconds=0.75, max_retries=0)
-    _hold_against_jax(tmp_path / "results", tmp_path / "jax", gate_degraded=True)
+    _hold_against_jax(tmp_path / "results", tmp_path / "jax")
 
 
 def _sweep_then_wait(sweep):
@@ -259,7 +258,7 @@ def test_watchdog_zombie_write_suppressed(tmp_path):
     for out in ("results", "jax"):
         assert not (tmp_path / out / q["config"]).exists(), (
             f"zombie thread resurrected a quarantined config on disk ({out})")
-    _hold_against_jax(tmp_path / "results", tmp_path / "jax", gate_degraded=True)
+    _hold_against_jax(tmp_path / "results", tmp_path / "jax")
 
 
 def test_sweep_preemption_journaled_resume_equivalent(tmp_path):
@@ -298,10 +297,83 @@ def test_sweep_without_plan_has_no_resilience_cost(tmp_path):
     assert r["watchdog"]["abandoned_measurements"] == 0
     assert r["preempted"] is False
     prom = (tmp_path / "results" / "metrics.prom").read_text()
-    for gauge in ("dlbb_sweep_wall_seconds", "dlbb_sweep_compile_seconds 0",
+    for gauge in ("dlbb_sweep_wall_seconds", "dlbb_sweep_compile_seconds ",
                   'dlbb_sweep_configs_total{outcome="measured"} 2', "dlbb_sweep_retries 0"):
         assert gauge in prom, gauge
     _jax(tmp_path)
+    _hold_against_jax(tmp_path / "results", tmp_path / "jax")
+
+
+def test_sweep_compile_failure_quarantined_with_chain(tmp_path):
+    """An injected build failure (rank 0's, shared over the mesh) skips
+    its config on every rank, is quarantined in phase ``compile`` with its
+    exception chain, and the rest of the grid measures."""
+    files, ranks = _run(_tiny(tmp_path, fault_plan="compile-fail:@1", max_retries=0))
+    jax_files = _jax(tmp_path, fault_plan="compile-fail:@1", max_retries=0)
+    assert len(files) == 1 == len(jax_files)
+    man = _manifest(tmp_path)
+    assert man["configs"]["failed"] == 1
+    [q] = man["resilience"]["quarantined"]
+    assert q["phase"] == "compile" and "InjectedFault" in q["error"]
+    assert man["work_units"] == {"planned_configs": 2, "unique": 2, "compile_failed": 1}
+    assert all([f["config"] for f in r.failed] == [q["config"]] for r in ranks)
+    _hold_against_jax(tmp_path / "results", tmp_path / "jax")
+
+
+def test_scheduler_abandoned_unit_never_recompiled_inline():
+    """A build that blew its deadline is never re-run inline for a config
+    that shares its unit: the later consumer quarantines at once, in the
+    port's scheduler as in JAX's."""
+    import threading
+
+    from dlbb_tpu.bench import schedule as jax_schedule
+    from dlbb_tpu_torch.bench import schedule
+    from dlbb_tpu_torch.resilience.errors import DeadlineExceeded
+
+    outcomes = []
+    for mod, build_result in ((schedule, lambda x: x),
+                              (jax_schedule, ((lambda x: x), (lambda x: x)))):
+        release = threading.Event()
+
+        def hang_build(result=build_result, release=release):
+            release.wait(20)
+            return result
+
+        unit = mod.WorkUnit(key=("hang",), build=hang_build, label="hang")
+        sched = mod.CompileAheadScheduler([unit], pipeline=True)
+        sched.start()
+        try:
+            with pytest.raises(Exception) as first:
+                sched.get(unit, deadline=0.3)
+            t0 = time.perf_counter()
+            with pytest.raises(Exception, match="previously abandoned") as second:
+                sched.get(unit, deadline=0.3)
+            assert time.perf_counter() - t0 < 5.0
+            outcomes.append((type(first.value).__name__, type(second.value).__name__,
+                             sched.wedged, sched.abandoned))
+        finally:
+            release.set()
+            sched.close()
+    assert outcomes[0] == outcomes[1] == ("DeadlineExceeded", "DeadlineExceeded", True, 1)
+    assert DeadlineExceeded.__name__ == outcomes[0][0]
+
+
+def test_sweep_hung_compile_wedge_inline_fallback(tmp_path):
+    """A wedged background build (rank 0's) is abandoned at the deadline on
+    every rank; later units build inline on rank 0, whose worker is stuck,
+    so the rest of the grid measures.  The hang outlasts both sweeps, so
+    neither package's stuck worker finishes a build before its manifest."""
+    knobs = dict(fault_plan="compile-hang:@1,hang_seconds=30", unit_deadline_seconds=0.75,
+                 max_retries=0)
+    files, ranks = _run(_tiny(tmp_path, **knobs))
+    assert len(files) == 1 == len(_jax(tmp_path, **knobs))
+    man = _manifest(tmp_path)
+    wd = man["resilience"]["watchdog"]
+    assert wd["abandoned_compiles"] == 1 and wd["scheduler_wedged"] and wd["gate_degraded"]
+    [q] = man["resilience"]["quarantined"]
+    assert q["phase"] == "compile" and "DeadlineExceeded" in q["error"]
+    assert _valid(files[0])
+    assert all([f["config"] for f in r.failed] == [q["config"]] for r in ranks)
     _hold_against_jax(tmp_path / "results", tmp_path / "jax")
 
 
@@ -311,9 +383,9 @@ _VOLATILE = {"timings", "timestamp", "system_info", "compile_seconds", "compile_
 
 
 def test_traced_sweep_equivalent_to_untraced(tmp_path):
-    """JAX's gate without its device capture (part 13b): a span-traced
-    sweep writes a valid trace with the sweep's phases and results
-    equivalent to an untraced run's."""
+    """JAX's gate without its device capture (tests/test_torch_devtrace.py
+    holds that one): a span-traced sweep writes a valid trace with the
+    sweep's phases and results equivalent to an untraced run's."""
     trace_path = tmp_path / "spans.json"
     kw = dict(operations=("allreduce", "allgather"), warmup_iterations=2,
               measurement_iterations=8)
@@ -339,9 +411,10 @@ def test_traced_sweep_equivalent_to_untraced(tmp_path):
     jax_trace = tmp_path / "jax_spans.json"
     _jax(tmp_path, span_trace=str(jax_trace), **kw)
     _hold_against_jax(tmp_path / "traced", tmp_path / "jax")
-    # JAX's phases but its compiles (part 13b's engine)
+    # JAX's phases, its builds (the compile-ahead engine's) included
     jax_evs = json.loads(jax_trace.read_text())["traceEvents"]
-    assert {e.get("cat") for e in evs} == {e.get("cat") for e in jax_evs} - {"compile"}
+    assert "compile" in {e.get("cat") for e in evs}
+    assert {e.get("cat") for e in evs} == {e.get("cat") for e in jax_evs}
 
 
 @pytest.mark.parametrize("kind", ["bench1d", "bench3d"])
