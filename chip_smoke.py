@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlbb_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm,tp,dtrain,seq,moe,pipe,compress,bench,kv,serve,fleet]
+    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm,tp,dtrain,seq,moe,pipe,compress,bench,kv,serve,fleet,chaos]
 
 Phases (each raises on failure, and the script then exits non-zero).  The
 multi-rank runs of phases tp, dtrain, seq, moe, pipe and compress, processes
@@ -66,6 +66,12 @@ that check them: each job in turn on the first ranks of one gloo group
    and a device capture per config, equal in every non-volatile field to a
    serial untraced run, ``obs devtrace`` on it green, its device events
    printed by bucket and name, and each capture's census of device records;
+   then (e) the corpus and the cm2 fit on the phase's own artifacts
+   (``obs/corpus.py::build_corpus`` over its output tree: every result JSON
+   that validates one sample of tier ``cuda``, every ``sweep_manifest.json``
+   one summary, each devtrace report's op rows), and ``obs/fit.py::
+   run_fit`` on the ``cuda`` tier, which must fail closed because at world 1
+   every per-device wire size is 0 (one message size: β unidentifiable);
 7. drive the tensor-parallel forward: the 7B baseline at world 1 through
    ``launch`` over NCCL, equal bit for bit to the forward with no process
    group, and the 1B at tp=2 as two processes on the one card over gloo,
@@ -247,6 +253,16 @@ that check them: each job in turn on the first ranks of one gloo group
    both leave the fleet artifact set.  Goodput, TTFT p50/p99, the failover
    TTFT penalty, the failovers and each run's peak memory against the
    card's are printed.
+18. ``chaos``, the chaos gate (``resilience/chaos.py``, ``cli chaos``):
+   ``run_chaos(plan="all", device="cuda")``, its ten fault classes in JAX's
+   order on JAX's mini configs (the 1 KB mini-grid at world 1 over NCCL in
+   this process, the checkpointer, a SIGKILLed child sweep, the 2-layer
+   64-wide serving model in this process, and its fleet as two one-rank
+   replica processes on the card), each class's seconds printed; any class
+   that is not green fails the run.  The phase's budget is 120 s
+   (``CHAOS_BUDGET_S``, printed beside its wall).  Its flash launches,
+   counted from 0 around it, are this process's (none: the sweeps run
+   collectives and the serving programs attend in plain torch).
 
 It then prints the card's name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -333,7 +349,7 @@ EDGE_CASES = {
 # phase 5 on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's kernel table)
 FWD_BEFORE_MS = {"main": 0.1259, "long": 2.5038}
 PHASES = ("build", "fwd", "bwd", "e2e", "train", "time", "comm", "tp", "dtrain", "seq",
-          "moe", "pipe", "compress", "bench", "kv", "serve", "fleet")
+          "moe", "pipe", "compress", "bench", "kv", "serve", "fleet", "chaos")
 TP_CONFIG = "dlbb_tpu_torch/configs/baseline_config.yaml"
 # the 3D sweep's LLM shapes (batch, seq, hidden) on the card: the largest is
 # 1 GiB of bf16 per rank
@@ -1165,15 +1181,24 @@ def _traced_flash(torch, fa, what, fn, trace_root, gpu_line, kernels):
     """One dedicated traced call of ``fn`` (``obs/capture.py``), outside
     every timed run: the parsed trace must hold exactly as many events of
     each of ``kernels`` as its launch counter counted over the call (where
-    CUPTI serves the card; else the capture fails closed, checked).  Prints
-    the device µs per bucket and the check's seconds."""
+    CUPTI serves the card; else the capture fails closed, checked).  A
+    capture that retakes its session (a launch left unrecorded) keeps the
+    last session's trace, so the counts held against it are the last
+    call's.  Prints the device µs per bucket and the check's seconds."""
     from dlbb_tpu_torch.obs.capture import capture_device_trace
     from dlbb_tpu_torch.obs.devtrace import analyze_capture, parse_capture
 
     t0 = time.perf_counter()
-    before = _flash_counts(fa)
-    meta = capture_device_trace(fn, lambda: None, trace_root, what, device="cuda")
-    launched = {k: v - before[k] for k, v in _flash_counts(fa).items()}
+    calls = []
+
+    def counted(x):
+        before = _flash_counts(fa)
+        out = fn(x)
+        calls.append({k: v - before[k] for k, v in _flash_counts(fa).items()})
+        return out
+
+    meta = capture_device_trace(counted, lambda: None, trace_root, what, device="cuda")
+    launched = calls[-1] if calls else {k: 0 for k in FLASH_KERNEL_NAMES}
     if not _cupti_verdict([meta], what):
         save_dir = Path(trace_root) / f"{what}_run"
         save_dir.mkdir(parents=True, exist_ok=True)
@@ -1967,6 +1992,7 @@ def _comm_faults(runner, out, warmup, iters, device="cuda"):
 
     from dlbb_tpu_torch.obs.spans import validate_trace_events
     from dlbb_tpu_torch.resilience.journal import read_journal
+    from dlbb_tpu_torch.resilience.validate import validate_result_json
 
     n = len(COMM_FAULT_OPS) * len(runner.DATA_SIZES_1D)
     trace = out / "spans.json"
@@ -1999,7 +2025,7 @@ def _comm_faults(runner, out, warmup, iters, device="cuda"):
     configs = json.loads((out / runner.MANIFEST_NAME).read_text())["configs"]
     events, torn = read_journal(out)
     if (configs["resumed"] != n - 1 or configs["measured"] != 1 or torn
-            or not all(runner._validate_result(p)[0] for p in resumed.written)):
+            or not all(validate_result_json(p)[0] for p in resumed.written)):
         raise AssertionError(f"the resumed grid: {configs}, torn journal lines {torn}")
     print(f"[comm] (c) faulted 1D sweep ({n} configs, NCCL, 1 rank): the transient retried "
           f"once, the hung {quarantined['config']} abandoned at {COMM_DEADLINE_S} s and "
@@ -2061,6 +2087,46 @@ def _comm_traced(runner, out, warmup, iters, gpu_line, device="cuda"):
           f"equal to the serial untraced sweep in every field but the volatile set; "
           f"build seconds {man['compile_seconds_total']:.6f}; obs devtrace exit "
           f"{0 if ok else 1}; {time.perf_counter() - t0:.1f} s")
+
+
+def _comm_fit(out, gpu_line):
+    """Phase comm (e): the corpus of the phase's own artifacts and the cm2
+    fit of the ``cuda`` tier, which must fail closed at world 1."""
+    from dlbb_tpu_torch.obs.corpus import build_corpus
+    from dlbb_tpu_torch.obs.fit import FitError, run_fit
+    from dlbb_tpu_torch.resilience.validate import validate_result_json
+
+    t0 = time.perf_counter()
+    corpus = build_corpus([out])
+    valid = sorted(str(p) for p in out.rglob("*.json") if validate_result_json(p)[0])
+    rows = [s for s in corpus["samples"] if s.get("source") != "devtrace"]
+    dev_rows = [s for s in corpus["samples"] if s.get("source") == "devtrace"]
+    manifests = sorted(str(p) for p in out.rglob("sweep_manifest.json"))
+    reports = [d for d in (json.loads(p.read_text()) for p in out.rglob("*.json"))
+               if isinstance(d, dict) and d.get("schema") == "dlbb_devtrace_v1"]
+    op_rows = sum(len(r["op_samples"]) for r in reports)
+    if (sorted(s["file"] for s in rows) != valid or {s["tier"] for s in rows} != {"cuda"}
+            or sorted(m["file"] for m in corpus["manifests"]) != manifests
+            or not reports or len(dev_rows) != op_rows):
+        raise AssertionError(
+            f"the corpus of {out}: {len(rows)} result samples of tiers "
+            f"{sorted({s['tier'] for s in rows})} against {len(valid)} valid results, "
+            f"{len(corpus['manifests'])} summaries against {len(manifests)} manifests, "
+            f"{len(dev_rows)} devtrace rows against {op_rows} in {len(reports)} report(s)")
+    wires = sorted({s["wire_bytes"] for s in corpus["samples"] if s["tier"] == "cuda"})
+    try:
+        run_fit([out], tiers=["cuda"], fit_dir=out / "costmodel_fit", verbose=False)
+    except FitError as e:
+        reason = str(e)
+    else:
+        raise AssertionError("the cuda fit at world 1 succeeded: it must fail closed")
+    if "single message size" not in reason:
+        raise AssertionError(f"the cuda fit failed for another reason: {reason}")
+    print(f"[comm] (e) corpus of {out} on {gpu_line}: {len(rows)} result samples (tier "
+          f"cuda) = {len(valid)} valid result JSONs, {len(corpus['manifests'])} manifest "
+          f"summaries, {len(dev_rows)} devtrace op rows from {len(reports)} report(s), "
+          f"{len(corpus['skipped'])} skipped; per-device wire sizes {wires}; the cuda fit "
+          f"failed closed: {reason}; {time.perf_counter() - t0:.1f} s")
 
 
 def phase_comm(torch, gpu_line):
@@ -2148,6 +2214,11 @@ def phase_comm(torch, gpu_line):
         print(f"[comm] NCCL {nccl}, 1 rank, bf16, on {gpu_line}: median us per op at "
               f"{label} ({nbytes / 2**20:.0f} MiB per rank; copy bound of the out-of-place ops {floor_us:.2f} us): "
               + ", ".join(f"{k} {v:.2f}" for k, v in medians.items()))
+    at_1kb = {r["operation"]: r["median_time_us"] for r in s1 if r["data_size_name"] == "1KB"}
+    print(f"[comm] NCCL {nccl}, 1 rank, on {gpu_line}: median us per op at 1KB (the cuda "
+          f"tier's alpha): " + ", ".join(f"{k} {v:.2f}" for k, v in at_1kb.items())
+          + f"; their median {statistics.median(at_1kb.values()):.2f}")
+    _comm_fit(out, gpu_line)
 
 
 # phase seq (b): the sequence-sharded 1B paths against world 1, both bf16
@@ -4803,6 +4874,32 @@ def phase_fleet(torch, gpu_line):
     return launches
 
 
+CHAOS_BUDGET_S = 120.0
+
+
+def phase_chaos(torch, fa, gpu_line):
+    """Phase 18 (module docstring); returns its flash launches, counted
+    from 0 around it."""
+    import shutil
+
+    from dlbb_tpu_torch.resilience.chaos import run_chaos
+
+    out = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_chaos"
+    shutil.rmtree(out, ignore_errors=True)
+    _zero_flash_counts(fa)
+    t0 = time.perf_counter()
+    rc = run_chaos(plan="all", output=str(out), device="cuda")
+    wall = time.perf_counter() - t0
+    launches = _flash_counts(fa)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"the chaos gate exited {rc}: a class was not green")
+    print(f"[chaos] ten classes green on {gpu_line} in {wall:.1f} s (budget "
+          f"{CHAOS_BUDGET_S:.0f} s: {'within' if wall <= CHAOS_BUDGET_S else 'OVER'}); "
+          f"flash launches {launches}")
+    return launches
+
+
 def _same_planes(torch, got, host):
     """A card tensor equal to a host tensor bit for bit, compared one slice
     of the leading dim at a time."""
@@ -4921,6 +5018,8 @@ def main() -> int:
         serve = timed("serve", phase_serve, torch, fa, gpu_line)
     if "fleet" in phases:
         fleet = timed("fleet", phase_fleet, torch, gpu_line)
+    if "chaos" in phases:
+        chaos = timed("chaos", phase_chaos, torch, fa, gpu_line)
     job_dir.cleanup()
     print(f"[time] phases {', '.join(f'{k} {v:.1f}' for k, v in walls.items())} s; "
           f"{sum(walls.values()):.1f} s in all")
@@ -4946,6 +5045,7 @@ def main() -> int:
         "bench_launches_per_forward": bench_launches,
         "serve_launches": serve,
         "fleet_launches": fleet["flash_fwd"],
+        "chaos_launches": chaos["flash_fwd"],
         "max_abs_err": err_o,
         "lse_max_abs_err": err_lse,
         "ms": main_t["ms"],
@@ -4972,6 +5072,7 @@ def main() -> int:
             "pipe_launches": {part: n[f"flash_bwd_{kernel}"]
                               for part, n in pipe["launches"].items()},
             "compress_launches_per_step": compress["train"]["launches"][f"flash_bwd_{kernel}"],
+            "chaos_launches": chaos[f"flash_bwd_{kernel}"],
             "max_abs_err": max(err_bwd[e] for e in errs),
             "ms": t["ms"],
             "event_ms": t["event_ms"],

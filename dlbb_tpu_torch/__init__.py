@@ -77,15 +77,18 @@ compile-ahead engine and device traces):
 - ``obs`` — the span tracer, the metrics registry, ``sweep_metrics``,
   ``serving_metrics`` and ``fleet_metrics``; ``resilience.journal``; the
   gated device capture over ``torch.profiler`` (``capture``), its analysis
-  (``devtrace``, ``corpus``'s op samples, ``analysis.findings``) and ``cli
-  obs trace|devtrace``; ``utils.profiling`` (``--trace``).
+  (``devtrace``, ``analysis.findings``), the sweep-artifact corpus and the
+  cm2 fit over it (``corpus``, ``fit``, on ``analysis.costmodel``) and
+  ``cli obs trace|devtrace|fit``; ``utils.profiling`` (``--trace``);
+- ``resilience`` — the fault sites, the journal, preemption, artifact
+  validation and the chaos gate (``cli chaos``).
 
 The root script ``bench_torch.py`` is the port's ``bench.py``: the 1B
 forward's tokens/s and ``bench.py``'s extras in one JSON line.
 
-Not ported yet (see ROADMAP.md): the chaos gate with ``cli chaos`` (item
-13, part 13c), and the rest of the observability, planning and analysis
-layers (items 14 and 15).
+Not ported yet (see ROADMAP.md): the cost model's calibration, diff,
+attribution and the autotuner (ROADMAP Queue 1, Slice F, item 14, part
+14b), and the analysis auditors (item 15).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit ``"cpu"`` they raise.

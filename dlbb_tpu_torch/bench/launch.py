@@ -12,7 +12,8 @@ card.  They meet through a ``FileStore`` in a fresh temporary
 directory, so concurrent launches never collide.  Each worker runs
 ``fn(*args)`` single-threaded, and ``launch`` returns what each rank's ``fn``
 returned, by rank.  A rank that fails stops the others, and ``launch``
-raises its error.
+raises its error, which carries every rank's exit code (``exitcodes``; a
+rank that a signal ended has its negative number).
 
 Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set), ``launch`` runs in
 place instead: this process joins the group through ``env://`` as its
@@ -30,6 +31,7 @@ from typing import Any, Callable, Optional
 
 import torch
 import torch.multiprocessing as mp
+from torch.multiprocessing.spawn import ProcessException
 
 from dlbb_tpu_torch.comm.mesh import (
     BACKENDS,
@@ -91,13 +93,19 @@ def launch(fn: Callable, world_size: int, device=None, args: tuple = (),
             _spawned, args=(world_size, dev.type, tmp, group_timeout, fn, args, shared),
             nprocs=world_size, join=False, start_method="spawn")
         deadline = None if timeout is None else time.monotonic() + timeout
-        while not ctx.join(timeout=1.0):  # raises when a rank failed
-            if deadline is not None and time.monotonic() > deadline:
-                for proc in ctx.processes:
-                    proc.kill()
-                    proc.join()
-                raise TimeoutError(f"launch of {world_size} ranks did not end "
-                                   f"within {timeout} s")
+        try:
+            while not ctx.join(timeout=1.0):  # raises when a rank failed
+                if deadline is not None and time.monotonic() > deadline:
+                    for proc in ctx.processes:
+                        proc.kill()
+                        proc.join()
+                    raise TimeoutError(f"launch of {world_size} ranks did not end "
+                                       f"within {timeout} s")
+        except ProcessException as e:
+            # the first failure's error, with every rank's exit code (a
+            # negative code is the signal that ended the rank)
+            e.exitcodes = [proc.exitcode for proc in ctx.processes]
+            raise
         results = []
         for rank in range(world_size):
             with open(Path(tmp) / f"result_{rank}.pkl", "rb") as f:

@@ -64,7 +64,6 @@ peers wait in the op's collective until the process group's timeout.
 from __future__ import annotations
 
 import contextlib
-import json
 import os
 import signal
 import threading
@@ -79,6 +78,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dlbb_tpu_torch.analysis.costmodel import COST_MODEL_VERSION
 from dlbb_tpu_torch.bench import schedule
 from dlbb_tpu_torch.bench.schedule import (
     MANIFEST_NAME,
@@ -112,6 +112,7 @@ from dlbb_tpu_torch.resilience.errors import (
 )
 from dlbb_tpu_torch.resilience.journal import SweepJournal
 from dlbb_tpu_torch.resilience.preempt import PreemptionGuard
+from dlbb_tpu_torch.resilience.validate import validate_result_json, validate_timings
 from dlbb_tpu_torch.utils.config import save_json
 from dlbb_tpu_torch.utils.profiling import annotate
 from dlbb_tpu_torch.utils.sysinfo import (collect_system_info, resolve_device,
@@ -370,35 +371,10 @@ def _result_filename(sweep, impl: str, num_ranks: int, config) -> str:
     return f"{impl}_{op_name}_ranks{num_ranks}_b{b}_s{s}_h{h}{suffix}.json"
 
 
-def _validate_result(path: Path) -> tuple[bool, str]:
-    """Whether a result JSON is whole: it parses, carries the fields the
-    stats read, and its timings are finite (the JAX package's
-    ``resilience.validate.validate_result_json``)."""
-    if not path.exists():
-        return False, "missing"
-    try:
-        data = json.loads(path.read_text())
-    except (OSError, UnicodeDecodeError, json.JSONDecodeError) as e:
-        return False, f"unparseable ({type(e).__name__}: {e})"
-    if not isinstance(data, dict):
-        return False, "not a JSON object"
-    missing = [k for k in ("implementation", "operation", "num_ranks",
-                           "num_elements", "timings") if k not in data]
-    if missing:
-        return False, f"missing fields {missing}"
-    try:
-        arr = np.asarray(data["timings"], dtype=np.float64)
-    except (TypeError, ValueError) as e:
-        return False, f"non-numeric timings ({e})"
-    if arr.size == 0 or not np.isfinite(arr).all():
-        return False, "empty or non-finite timings"
-    return True, "ok"
-
-
 def _resume_ok(path: Path, mesh: Mesh) -> tuple[bool, str]:
     """The mesh's rank 0 (the one that writes) decides whether resume may
     skip this config, and every rank of the mesh follows it."""
-    verdict = [_validate_result(path) if mesh.rank == 0 else None]
+    verdict = [validate_result_json(path) if mesh.rank == 0 else None]
     dist.broadcast_object_list(verdict, src=0, group=mesh.group)
     return verdict[0]
 
@@ -688,8 +664,7 @@ def _run_sweep_configured(sweep, variant: Variant, impl: str, dev: torch.device,
         manifest = {
             "kind": sweep.kind, "implementation": impl, "variant": variant.name,
             "topology": topology,
-            # the port has no cost model (JAX's analysis/costmodel.py)
-            "cost_model_version": None,
+            "cost_model_version": COST_MODEL_VERSION,
             "timing_mode": sweep.timing_mode,
             "pipeline": scheduler.pipelined, "prefetch": sweep.prefetch,
             "wall_seconds": time.perf_counter() - t0,
@@ -917,10 +892,10 @@ def _run_one(sweep, variant: Variant, impl: str, entry: _Planned, unit: WorkUnit
         if len(local) > 1:
             local[-1] = float("inf")
     timings = _gather_timings(local, mesh)
-    if not np.isfinite(np.asarray(timings, dtype=np.float64)).all():
+    ok, why = validate_timings(timings)
+    if not ok:
         # every rank sees the gathered timings, so every rank retries
-        raise CorruptStats(f"{unit.label}: non-finite timings — refusing to write "
-                           "the artifact")
+        raise CorruptStats(f"{unit.label}: {why} — refusing to write the artifact")
     # the device capture: dedicated reps on a fresh payload, after the
     # timed region and outside the gate, on every rank of the mesh; a
     # failure lands in the metadata, never in the config

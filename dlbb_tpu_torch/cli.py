@@ -28,6 +28,10 @@
                                        [--output DIR] [--resume] [--fault-plan PLAN]
                                        [--device-trace DIR] [--xplane-trace DIR] ...
     python -m dlbb_tpu_torch.cli obs trace|devtrace --journal DIR [--output PATH]
+    python -m dlbb_tpu_torch.cli obs fit [--results DIR ...] [--tier TIER]
+                                         [--fit-dir DIR] [--min-samples N] [--host STR]
+    python -m dlbb_tpu_torch.cli chaos [--plan CLASS|all] [--world N]
+                                       [--device cuda|cpu] [--output DIR]
 
 The sweeps launch ``--world`` ranks (default: the largest of ``--ranks``)
 through ``bench/launch.py``: NCCL with one GPU per rank on ``cuda``, gloo
@@ -78,7 +82,14 @@ profile reps (one per measured config; one prefill and one decode scan
 after the trace is served) outside every timed region.  ``obs devtrace
 --journal RUN_DIR`` parses a run's captures into per-op device timelines
 (``obs/devtrace.py``), ``obs trace --journal RUN_DIR`` rebuilds its
-timeline from the journal.
+timeline from the journal.  ``obs fit`` walks results trees into the
+corpus (``obs/corpus.py``) and appends a cm2 fit per tier to the port's own
+DB, ``stats/torch/analysis/costmodel_fit`` (``obs/fit.py``).
+
+``chaos`` is JAX's chaos gate (``resilience/chaos.py``): each fault class
+drives the sweep, the checkpointer, the serving harness or the fleet under
+an injected fault and checks JAX's invariants; ``--world`` and
+``--device`` take the place of JAX's ``--simulate``.
 """
 
 from __future__ import annotations
@@ -233,23 +244,57 @@ def build_parser() -> argparse.ArgumentParser:
     _add_serve_parser(sub)
 
     ob = sub.add_parser(
-        "obs", help="observability: journal->trace reconstruction (trace) and the "
-                    "device-trace analysis of a run's captures (devtrace); exit codes "
-                    "0 clean / 1 findings / 2 crash")
+        "obs", help="observability: journal->trace reconstruction (trace), the "
+                    "device-trace analysis of a run's captures (devtrace) and the cm2 "
+                    "cost-model fit (fit); exit codes 0 clean / 1 findings / 2 crash")
     ob.add_argument("which", choices=("trace", "calibrate", "diff", "fit", "attribute",
                                       "devtrace"),
                     help="trace = rebuild a Perfetto timeline from a run's journal; "
                          "devtrace = parse the run's device captures into per-op device "
                          "timelines and buckets (MD+CSV+JSON under "
-                         "stats/torch/analysis/devtrace/); calibrate, diff, fit and "
-                         "attribute are not ported yet (items 14 and 15)")
+                         "stats/torch/analysis/devtrace/); fit = regress cm2 (alpha, "
+                         "beta, peak, per-dispatch gamma) from the sweep-artifact corpus "
+                         "into the versioned fitted DB; calibrate, diff and attribute are "
+                         "not ported yet (items 14 and 15)")
     ob.add_argument("--journal", default=None, metavar="DIR",
                     help="the run's output directory (sweep_journal.jsonl for trace, "
                          "the captured results for devtrace)")
     ob.add_argument("--output", default=None,
-                    help="output path (trace JSON) or report directory (devtrace)")
+                    help="output path (trace JSON) or report directory (devtrace; the "
+                         "fitted-DB directory of fit when --fit-dir is not given)")
     ob.add_argument("--strict-warnings", action="store_true",
                     help="warnings also exit 1")
+    ob.add_argument("--results", nargs="+", default=None, metavar="DIR",
+                    help="results tree(s) the fit ingests (default: results/torch)")
+    ob.add_argument("--tier", default=None, metavar="TIER",
+                    help="cost-model tier to fit (cpu-sim, cuda, ...; default: every "
+                         "tier in the corpus; an explicit tier that cannot be fitted "
+                         "exits 1)")
+    ob.add_argument("--fit-dir", default=None, metavar="DIR", dest="fit_dir",
+                    help="fitted-DB directory (default stats/torch/analysis/"
+                         "costmodel_fit)")
+    ob.add_argument("--min-samples", type=int, default=None, dest="min_samples",
+                    help="minimum corpus samples per tier before the fit refuses "
+                         "(default 16)")
+    ob.add_argument("--host", default=None, dest="host_filter",
+                    help="substring filter on the corpus host fingerprint: fit the "
+                         "tier for the host you will predict on")
+
+    ch = sub.add_parser(
+        "chaos", help="chaos gate: mini-sweeps, a checkpoint and mini serving runs "
+                      "under each injected fault class, asserting the resilience "
+                      "invariants; exit 0 green / 1 a class failed / 2 unknown class")
+    ch.add_argument("--plan", default="all",
+                    help="fault class to exercise (compile, transient, nan, torn, hang, "
+                         "ckpt, preempt, kill, serve, fleet) or 'all'")
+    ch.add_argument("--world", type=int, default=None,
+                    help="ranks of the mini-grid and the serving layouts (default: 4 "
+                         "gloo ranks on cpu, JAX's layouts; 1 on cuda, one NCCL rank "
+                         "per card)")
+    ch.add_argument("--device", default=None, help=_DEVICE_HELP)
+    ch.add_argument("--output", default=None,
+                    help="workdir for the gate's artifacts (default: a fresh temp dir, "
+                         "kept on failure)")
     return p
 
 
@@ -454,7 +499,14 @@ def main(argv=None) -> int:
         from dlbb_tpu_torch.obs import run_obs
 
         return run_obs(args.which, journal=args.journal, output=args.output,
-                       strict_warnings=args.strict_warnings)
+                       strict_warnings=args.strict_warnings, results=args.results,
+                       tier=args.tier, fit_dir=args.fit_dir, min_samples=args.min_samples,
+                       host_filter=args.host_filter)
+    if args.cmd == "chaos":
+        from dlbb_tpu_torch.resilience.chaos import run_chaos
+
+        return run_chaos(plan=args.plan, output=args.output, device=args.device,
+                         world=args.world)
     if args.cmd == "e2e":
         result = _launched(args, e2e_worker, args.trace)
         print(f"forward mean {result['forward_time']['mean'] * 1e3:.3f} ms "
@@ -590,7 +642,7 @@ def _reports(args) -> int:
     if autotune.exists():
         raise NotImplementedError(
             f"{autotune}: write_autotune_report belongs to plan/autotune.py, which is "
-            "not ported (ROADMAP Queue 1, Slice F, item 14)")
+            "not ported (ROADMAP Queue 1, Slice F, item 14, part 14b)")
     produced = 0
     summary = write_variants_report(stats_root / "variants", baseline_impl=args.impl)
     if summary["winners"]:

@@ -2,20 +2,23 @@
 (``spans``) and the metrics registry with its Prometheus textfile export
 (``export``), copies of the JAX modules; the gated per-config device
 capture over ``torch.profiler`` (``capture``) and its analysis
-(``devtrace``, with ``corpus``'s op samples).  The sweep runner and the
-serving harness emit into all of them (ROADMAP Queue 1, Slice F, item 13).
+(``devtrace``); the sweep-artifact corpus (``corpus``) and the cm2 fit
+over it (``fit``).  The sweep runner and the serving harness emit into
+all of them (ROADMAP Queue 1, Slice F, item 13).
 
-``cli obs trace`` rebuilds a run's timeline from its journal and ``cli obs
-devtrace`` parses its device captures (:func:`run_obs`); the cost model's
-calibration, diff, fit and attribution are items 14 and 15.  Exit codes
-follow ``analysis.findings.EXIT_*``: 0 clean / 1 findings / 2 crash.
+``cli obs trace`` rebuilds a run's timeline from its journal, ``cli obs
+devtrace`` parses its device captures and ``cli obs fit`` regresses the
+cost model from a results tree into the versioned DB under
+``stats/torch/analysis/costmodel_fit`` (:func:`run_obs`); the cost model's
+calibration, diff and attribution are items 14 and 15.  Exit codes follow
+``analysis.findings.EXIT_*``: 0 clean / 1 findings / 2 crash.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-from dlbb_tpu_torch.analysis.findings import EXIT_CLEAN, EXIT_CRASH, exit_code
+from dlbb_tpu_torch.analysis.findings import EXIT_CLEAN, EXIT_CRASH, EXIT_FINDINGS, exit_code
 from dlbb_tpu_torch.obs.export import LabeledCounter, MetricsRegistry
 from dlbb_tpu_torch.obs.spans import (
     SpanTracer,
@@ -41,23 +44,28 @@ __all__ = [
 ]
 
 OBS_COMMANDS = ("trace", "calibrate", "diff", "fit", "attribute", "devtrace")
-# JAX's obs subcommands that wait for the port's cost model (item 14) and
-# its schedule audit (item 15)
+# JAX's obs subcommands that wait for the cost model's calibration
+# (item 14, part 14b) and the schedule audit (item 15)
 _NOT_PORTED = {
-    "calibrate": "ROADMAP Queue 1, Slice F, item 14 (the cost model's calibration)",
-    "diff": ("ROADMAP Queue 1, Slice F, item 14 (the calibration gate), over item 15's "
-             "schedule baselines"),
-    "fit": "ROADMAP Queue 1, Slice F, item 14 (the fitted cost model)",
-    "attribute": "ROADMAP Queue 1, Slice F, item 14 (span attribution against the cost model)",
+    "calibrate": ("ROADMAP Queue 1, Slice F, item 14 (part 14b, the cost model's "
+                  "calibration)"),
+    "diff": ("ROADMAP Queue 1, Slice F, item 14 (part 14b, the calibration gate), over "
+             "item 15's schedule baselines"),
+    "attribute": ("ROADMAP Queue 1, Slice F, item 14 (part 14b, span attribution against "
+                  "the cost model)"),
 }
 
 
 def run_obs(which: str, journal: Optional[str] = None, output: Optional[str] = None,
-            strict_warnings: bool = False, verbose: bool = True) -> int:
+            strict_warnings: bool = False, verbose: bool = True,
+            results: Optional[list[str]] = None, tier: Optional[str] = None,
+            fit_dir: Optional[str] = None, min_samples: Optional[int] = None,
+            host_filter: Optional[str] = None) -> int:
     """``cli obs``: JAX's exit-code contract, an internal exception
     surfacing as ``EXIT_CRASH``."""
     try:
-        return _run_obs(which, journal, output, strict_warnings, verbose)
+        return _run_obs(which, journal, output, strict_warnings, verbose, results, tier,
+                        fit_dir, min_samples, host_filter)
     except Exception:  # noqa: BLE001 — the exit-code contract
         import traceback
 
@@ -66,7 +74,9 @@ def run_obs(which: str, journal: Optional[str] = None, output: Optional[str] = N
 
 
 def _run_obs(which: str, journal: Optional[str], output: Optional[str],
-             strict_warnings: bool, verbose: bool) -> int:
+             strict_warnings: bool, verbose: bool, results: Optional[list[str]],
+             tier: Optional[str], fit_dir: Optional[str], min_samples: Optional[int],
+             host_filter: Optional[str]) -> int:
     from pathlib import Path
 
     if which == "trace":
@@ -79,6 +89,19 @@ def _run_obs(which: str, journal: Optional[str], output: Optional[str],
         if verbose:
             print(f"[obs] {n_events} journal event(s) -> {path}"
                   + (f" ({torn} torn line(s) skipped)" if torn else ""))
+        return EXIT_CLEAN
+    if which == "fit":
+        from dlbb_tpu_torch.obs.fit import MIN_SAMPLES, FitError, run_fit
+
+        try:
+            run_fit(results=results or ["results/torch"], tiers=[tier] if tier else None,
+                    fit_dir=fit_dir or output,
+                    min_samples=min_samples if min_samples is not None else MIN_SAMPLES,
+                    host_filter=host_filter, verbose=verbose)
+        except FitError as e:
+            # a degenerate corpus is a finding (exit 1), not a crash (exit 2)
+            print(f"[obs] fit refused: {e}")
+            return EXIT_FINDINGS
         return EXIT_CLEAN
     if which == "devtrace":
         from dlbb_tpu_torch.obs.devtrace import run_devtrace

@@ -1,25 +1,63 @@
-"""Sweep-artifact samples (the part of ``dlbb_tpu/obs/corpus.py`` that
-``obs/devtrace.py`` needs: ``ingest_result`` and its helpers).
+"""Sweep-artifact corpus ingestion, the cm2 fit's sample table (a copy of
+``dlbb_tpu/obs/corpus.py``; the port imports nothing of the JAX package).
 
 One measured sweep artifact becomes one flat sample of the analytic
 features the α–β model prices (per-device wire bytes, dense FLOPs, the
 collective instructions one dispatch posts) beside its measured timing
-quantiles.  The corpus walk, its manifest summaries and the fit that reads
-them are ROADMAP Queue 1, Slice F, item 14.
+quantiles; a devtrace report's ``op_samples`` are device-timed rows
+(``source: "devtrace"``), and each ``sweep_manifest.json`` gives one
+summary.  :func:`build_corpus` walks results trees into that table, the
+input of ``obs/fit.py``:
+
+    sample = {op, variant, kind, ranks, dtype, wire_bytes, flops,
+              collectives, dispatches, measured_median_us,
+              measured_p90_us, measured_p99_us, iterations, tier,
+              host, file, ...}
 
 The tier of a sample comes from the artifact's ``system_info.backend``:
-``cpu`` is JAX's ``cpu-sim`` tier, and a card is ``cuda`` (the port's
-cost-model tiers come with item 14).
+``cpu`` is JAX's ``cpu-sim`` tier, and a card is ``cuda``
+(``analysis/costmodel.py``).
+
+Calibration reports (``dlbb_calibration_v1``) are program-scale rows in
+JAX, their features joined from the schedule baselines of the schedule
+auditor.  The port has no schedule baselines until ROADMAP Queue 1, Slice
+F, item 15 ports the auditor, so :func:`ingest_calibration` skips every
+such report with its reason and makes up no features; calibration rows
+come once item 15 brings the baselines.
+
+Pure file processing: it runs with no device.
 """
 
 from __future__ import annotations
 
+import json
 import math
 import re
 from pathlib import Path
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 from dlbb_tpu_torch.stats.stats1d import op_wire_bytes
+
+CORPUS_SCHEMA = "dlbb_fit_corpus_v1"
+
+# artifact files that are never measurement samples (manifests, traces,
+# journals, reports): skipped silently, not counted as unparseable
+_NON_SAMPLE_NAMES = re.compile(
+    r"^(sweep_manifest|serving_manifest|serving_resume|trace_|comm_lint"
+    r"|calibration_|metrics|.*_trace)", re.IGNORECASE
+)
+# the subset skipped WITHOUT reading the file: everything above but the two
+# name families the walk parses (manifests for corpus metadata,
+# calibration_* for the schema probe); a multi-MB trace is never loaded
+# just to be discarded by name
+_PREFILTER_NAMES = re.compile(
+    r"^(serving_manifest|serving_resume|trace_|comm_lint"
+    r"|metrics|.*_trace)", re.IGNORECASE
+)
+
+# where the schedule auditor's baselines will live (item 15); nothing
+# writes there yet
+DEFAULT_BASELINE_DIR = Path("stats/torch/analysis/baselines")
 
 ELEM_BYTES = {
     "bfloat16": 2, "float16": 2, "float32": 4, "float64": 8,
@@ -181,3 +219,150 @@ def ingest_result(path: Path, data: dict[str, Any]) -> "tuple[Optional[dict], st
         "host": host_fingerprint(data),
         "timestamp": data.get("timestamp"),
     }, ""
+
+
+def ingest_calibration(path: Path, data: dict[str, Any],
+                       baselines_dir: "Optional[str | Path]" = None
+                       ) -> tuple[list[dict[str, Any]], list[dict]]:
+    """A calibration report's rows need its targets' schedule baselines
+    for their features (JAX's join), which the port does not have yet: the
+    report is skipped, with JAX's reason where the baselines directory is
+    missing, and otherwise with the reason that the join waits for ROADMAP
+    Queue 1, Slice F, item 15.  No row is ever made without its features."""
+    baselines_dir = Path(baselines_dir or DEFAULT_BASELINE_DIR)
+    if not baselines_dir.is_dir():
+        return [], [{"file": str(path),
+                     "reason": (f"no schedule baselines under "
+                                f"{baselines_dir} to join features from")}]
+    return [], [{"file": str(path),
+                 "reason": (f"schedule baselines under {baselines_dir} are not joined "
+                            "until the schedule auditor is ported (ROADMAP Queue 1, "
+                            "Slice F, item 15)")}]
+
+
+_DEVTRACE_SAMPLE_KEYS = ("op", "kind", "ranks", "wire_bytes",
+                         "measured_median_us")
+
+
+def ingest_devtrace(path: Path, data: dict[str, Any]
+                    ) -> tuple[list[dict[str, Any]], list[dict]]:
+    """A devtrace report's ``op_samples`` as corpus rows (``source:
+    "devtrace"``): one collective's measured device time each, with
+    ``dispatches: 0`` (a device-op duration carries no host dispatch) and
+    ``flops: 0``, so the population identifies ``α·collectives + wire/β``
+    directly."""
+    samples: list[dict[str, Any]] = []
+    skipped: list[dict] = []
+    for n, row in enumerate(data.get("op_samples", ())):
+        if not isinstance(row, dict) or any(
+                k not in row for k in _DEVTRACE_SAMPLE_KEYS):
+            skipped.append({"file": f"{path}::op_samples[{n}]",
+                            "reason": "malformed devtrace op sample"})
+            continue
+        m = row.get("measured_median_us")
+        if not isinstance(m, (int, float)) or not math.isfinite(m) \
+                or m <= 0:
+            skipped.append({"file": f"{path}::op_samples[{n}]",
+                            "reason": "non-finite measured_median_us"})
+            continue
+        sample = dict(row)
+        sample.setdefault("source", "devtrace")
+        sample.setdefault("dispatches", 0.0)
+        sample.setdefault("flops", 0)
+        sample.setdefault("host", "devtrace")
+        samples.append(sample)
+    return samples, skipped
+
+
+def _manifest_summary(path: Path, data: dict[str, Any]) -> dict[str, Any]:
+    """Build and dedup aggregates of one ``sweep_manifest.json``: corpus
+    metadata (context for a directory's samples), not samples."""
+    out: dict[str, Any] = {"file": str(path)}
+    for key in ("wall_seconds", "compile_seconds_total",
+                "cost_model_version"):
+        if key in data:
+            out[key] = data[key]
+    dedup = data.get("dedup") or data.get("work_units")
+    if isinstance(dedup, dict):
+        out["dedup"] = dedup
+    cal = data.get("calibration")
+    if isinstance(cal, dict):
+        out["calibration"] = {
+            k: cal.get(k) for k in ("tier", "cost_model_version",
+                                    "geomean_error_factor")
+        }
+    return out
+
+
+def build_corpus(roots: "Sequence[str | Path]",
+                 verbose: bool = False,
+                 baselines_dir: "Optional[str | Path]" = None
+                 ) -> dict[str, Any]:
+    """Walk one or more results trees into the normalised sample table.
+
+    Returns ``{schema, samples, skipped, manifests, roots}``; raises
+    :class:`FileNotFoundError` when no root exists (a mistyped path must
+    fail loudly, not fit an empty corpus)."""
+    roots = [Path(r) for r in roots]
+    live = [r for r in roots if r.exists()]
+    if not live:
+        raise FileNotFoundError(
+            f"no corpus root exists among {[str(r) for r in roots]}"
+        )
+    samples: list[dict[str, Any]] = []
+    skipped: list[dict[str, str]] = []
+    manifests: list[dict[str, Any]] = []
+    for root in live:
+        files = [root] if root.is_file() else sorted(root.rglob("*.json"))
+        for path in files:
+            if _PREFILTER_NAMES.match(path.name):
+                continue
+            try:
+                data = json.loads(path.read_text())
+            except (OSError, json.JSONDecodeError) as e:
+                skipped.append({"file": str(path),
+                                "reason": f"unreadable: {e}"})
+                continue
+            if not isinstance(data, dict):
+                continue
+            if path.name == "sweep_manifest.json":
+                manifests.append(_manifest_summary(path, data))
+                continue
+            if data.get("schema") == "dlbb_calibration_v1":
+                cal_samples, cal_skipped = ingest_calibration(
+                    path, data, baselines_dir=baselines_dir)
+                samples.extend(cal_samples)
+                skipped.extend(cal_skipped)
+                continue
+            if data.get("schema") == "dlbb_devtrace_v1":
+                dt_samples, dt_skipped = ingest_devtrace(path, data)
+                samples.extend(dt_samples)
+                skipped.extend(dt_skipped)
+                continue
+            if _NON_SAMPLE_NAMES.match(path.name):
+                continue
+            sample, reason = ingest_result(path, data)
+            if sample is None:
+                skipped.append({"file": str(path), "reason": reason})
+                continue
+            samples.append(sample)
+    if verbose:
+        tiers: dict[str, int] = {}
+        for s in samples:
+            tiers[s["tier"]] = tiers.get(s["tier"], 0) + 1
+        print(f"[corpus] {len(samples)} sample(s) "
+              f"({', '.join(f'{t}: {n}' for t, n in sorted(tiers.items()))})"
+              f", {len(skipped)} skipped, {len(manifests)} manifest(s)")
+    return {
+        "schema": CORPUS_SCHEMA,
+        "roots": [str(r) for r in roots],
+        "samples": samples,
+        "skipped": skipped,
+        "manifests": manifests,
+    }
+
+
+def save_corpus(corpus: dict[str, Any], path: "str | Path") -> Path:
+    from dlbb_tpu_torch.utils.config import atomic_write_text
+
+    return atomic_write_text(json.dumps(corpus, indent=1, sort_keys=True), Path(path))

@@ -54,7 +54,11 @@ context, cache and allocator on the shared GPU: an injected kill or hang,
 a Python exception or a crash of that process stays inside its domain; a
 device reset, an Xid or running out of the card's memory takes every
 replica (``validate_fleet`` prices every replica's weights and cache
-against the card before anything starts).
+against the card before anything starts).  JAX abandons a hung replica's
+thread; the launch here waits for every replica's process, so an injected
+hang (``serve-replica-hang``) ends at the replica's fence, when the
+supervisor's kill reaches its mailbox, and the replica then raises
+:class:`ReplicaKilled` at its next boundary, as JAX's wakes to.
 
 **The control plane crosses processes.**  Feeds, cancels, the kill flag,
 ``spec_enabled``, ``horizon_cap``, heartbeats, lifecycle events, journal
@@ -270,6 +274,8 @@ def _outbox(replica: int) -> str:
 
 
 _T0_KEY = "fleet/t0"
+# how often a hung replica's leader looks for the fence's kill
+_HANG_POLL_S = 0.05
 
 
 def _fire_fleet(box: _Mailbox, site: str) -> bool:
@@ -341,16 +347,16 @@ class ReplicaControl:
             self.last_beat = now
             self.started = True
             self.beats += 1
-            # the hang site sleeps (the heartbeat watchdog must fence us
-            # meanwhile); the kill site sets the flag check() raises on
-            if _fire_fleet(self._box, "serve-replica-hang"):
-                time.sleep(inject.param("hang_seconds"))
+            # the hang site goes silent (the heartbeat watchdog must fence
+            # us meanwhile); the kill site sets the flag check() raises on
+            held = (self._hang(inject.param("hang_seconds"))
+                    if _fire_fleet(self._box, "serve-replica-hang") else [])
             if self._kill_reason is None and _fire_fleet(self._box, "serve-replica-kill"):
                 self._kill_reason = "serve-replica-kill"
             if now - self._posted >= _BEAT_POST_S:
                 self._posted = now
                 self.post(("beat", self.last_beat, self.beat_ema, self.beats))
-            payload = [self._box.take(_inbox(self.replica)), self._kill_reason]
+            payload = [held + self._box.take(_inbox(self.replica)), self._kill_reason]
         if self._mesh is not None and self._mesh.spec.num_ranks > 1:
             dist.broadcast_object_list(payload, src=self._mesh.global_rank(0),
                                        group=self._mesh.group)
@@ -359,6 +365,21 @@ class ReplicaControl:
             self._apply(msg)
         if kill is not None and self._kill_reason is None:
             self._kill_reason = kill
+
+    def _hang(self, seconds: float) -> list:
+        """The injected hang: silent for ``seconds``, or until the
+        supervisor's fence posts the kill.  JAX abandons a hung replica's
+        thread; a replica here is a process that the launch waits for, so
+        the fence ends its silence, as a fleet kills a hung replica.
+        Returns the messages read meanwhile, applied after it in order."""
+        held: list = []
+        end = time.monotonic() + seconds
+        while (left := end - time.monotonic()) > 0:
+            time.sleep(min(_HANG_POLL_S, left))
+            held += self._box.take(_inbox(self.replica))
+            if any(msg[0] == "kill" for msg in held):
+                break
+        return held
 
     def _apply(self, msg: tuple) -> None:
         kind = msg[0]

@@ -12,7 +12,7 @@ Over gloo on one card (or on the CPU) the times are correctness runs, not
 speeds; within a family the members run the same model on the same mesh,
 so only their order carries information, and only on the card.  The JAX
 package's autotuner report belongs to ``plan/autotune.py``, which is not
-ported (ROADMAP Queue 1, Slice F, item 14).
+ported (ROADMAP Queue 1, Slice F, item 14, part 14b).
 """
 
 from __future__ import annotations

@@ -340,8 +340,12 @@ def test_obs_exit_codes(tmp_path):
     assert run_obs("devtrace", journal=str(tmp_path), output=str(tmp_path / "o"),
                    verbose=False) == EXIT_FINDINGS
     assert run_obs("devtrace", journal=None, verbose=False) == EXIT_CRASH
-    for which in ("calibrate", "diff", "fit", "attribute", "nonsense"):
+    for which in ("calibrate", "diff", "attribute", "nonsense"):
         assert run_obs(which, journal=str(tmp_path), verbose=False) == EXIT_CRASH
+    # obs fit (ported): a tree without samples is a refused fit, a finding
+    assert run_obs("fit", results=[str(tmp_path)], fit_dir=str(tmp_path / "db"),
+                   verbose=False) == EXIT_FINDINGS
+    assert not (tmp_path / "db").exists()
     _write_capture(tmp_path / "dev", [_dev("all-reduce.1", 0, 10)])
     _result_json(tmp_path, tmp_path / "dev", op="allreduce", variant="default")
     assert run_obs("devtrace", journal=str(tmp_path), output=str(tmp_path / "o"),

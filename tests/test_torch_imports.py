@@ -55,6 +55,8 @@ def test_port_has_the_expected_modules():
                 "dlbb_tpu_torch/bench/schedule.py", "dlbb_tpu_torch/utils/profiling.py",
                 "dlbb_tpu_torch/obs/capture.py", "dlbb_tpu_torch/obs/devtrace.py",
                 "dlbb_tpu_torch/obs/corpus.py", "dlbb_tpu_torch/analysis/findings.py",
+                "dlbb_tpu_torch/resilience/validate.py", "dlbb_tpu_torch/resilience/chaos.py",
+                "dlbb_tpu_torch/analysis/costmodel.py", "dlbb_tpu_torch/obs/fit.py",
                 "bench_torch.py"):
         assert rel in PORT_FILES
 
@@ -133,7 +135,9 @@ def test_compression_and_report_modules_import_without_jax_triton_or_cuda(module
     "dlbb_tpu_torch.resilience", "bench_torch", "dlbb_tpu_torch.bench.schedule",
     "dlbb_tpu_torch.bench.runner", "dlbb_tpu_torch.utils.profiling",
     "dlbb_tpu_torch.obs.capture", "dlbb_tpu_torch.obs.devtrace",
-    "dlbb_tpu_torch.analysis.findings"])
+    "dlbb_tpu_torch.analysis.findings", "dlbb_tpu_torch.resilience.chaos",
+    "dlbb_tpu_torch.resilience.validate", "dlbb_tpu_torch.analysis.costmodel",
+    "dlbb_tpu_torch.obs.corpus", "dlbb_tpu_torch.obs.fit"])
 def test_serving_obs_and_bench_import_without_jax_triton_or_cuda(module):
     """The serving foundations and engine, the span tracer and metrics
     registry, the journal, the headline script, the compile-ahead engine

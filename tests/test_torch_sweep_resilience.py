@@ -35,6 +35,7 @@ from dlbb_tpu_torch.bench.launch import launch
 from dlbb_tpu_torch.obs.spans import validate_trace_events
 from dlbb_tpu_torch.resilience import inject
 from dlbb_tpu_torch.resilience.journal import read_journal
+from dlbb_tpu_torch.resilience.validate import validate_result_json
 
 WORLD = 4
 
@@ -73,10 +74,10 @@ def _jax(tmp_path, out="jax", **kw):
 
 
 # manifest values that differ between any two runs, or that each
-# package's platform sets (its cost model, its topology, its compile cache's
-# reason), compared apart below
+# package's platform sets (its topology, its compile cache's reason),
+# compared apart below; the cost model's version is JAX's ("cm1")
 _MANIFEST_OWN = {"wall_seconds", "timestamp", "compile_seconds_total", "compile_cache",
-                 "cost_model_version", "topology", "observability"}
+                 "topology", "observability"}
 # the gauges of the wall clock and of the build seconds
 _PROM_MASKED = re.compile(r"^dlbb_sweep_(wall_seconds|compile_seconds) (\S+)$", re.M)
 
@@ -129,7 +130,7 @@ def _hold_against_jax(port_dir, jax_dir):
 
 
 def _valid(path):
-    return runner._validate_result(path)[0]
+    return validate_result_json(path)[0]
 
 
 def test_sweep_transient_retried_and_flagged(tmp_path):
