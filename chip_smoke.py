@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``dlbb_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm,tp,dtrain,seq,moe,pipe,compress,bench,kv,serve,fleet,chaos]
+    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm,tp,dtrain,seq,moe,pipe,compress,bench,kv,serve,fleet,chaos,plan]
 
 Phases (each raises on failure, and the script then exits non-zero).  The
 multi-rank runs of phases tp, dtrain, seq, moe, pipe and compress, processes
@@ -34,11 +34,18 @@ that check them: each job in turn on the first ranks of one gloo group
    ``dlbb_tpu_torch/configs/train_1b_adam_bf16m.yaml`` (the same 1B decoder,
    remat "dots", Adam with bf16 moments, B=8, S=512); check the flash
    kernels' launches per step (48 forward: 24 in the forward and 24 in the
-   remat recompute; 24 dq and 24 dk/dv) and finite losses; then one step's
+   remat recompute; 24 dq and 24 dk/dv) and finite losses; (b) that run
+   under a span tracer (``obs/spans.py``) into ``chiprun_out/
+   chip_smoke_plan/train``: its trace valid, with JAX's train spans (one
+   ``compile+warmup``, one ``measure``, a ``train_step`` per timed step
+   with its index), and ``cli obs attribute --model cm1 --tier cuda`` on
+   the run: its phases sum to the wall within ``ATTR_REL`` and
+   ``execute`` covers the ``train_step`` spans; then one step's
    loss and gradients on the same weights and batch through the kernel path
    and through the dense path, which must agree; then one traced step's
    loss and gradients whose ``flash_fwd_kernel``, ``flash_bwd_dq_kernel``
-   and ``flash_bwd_dkv_kernel`` events equal the counters' launches;
+   and ``flash_bwd_dkv_kernel`` events equal the counters' launches over
+   the capture's last session (the sum of its ``profile_reps`` calls);
 5. time each kernel alone beside its plain version, one PyTorch library
    call of the same function (a yardstick only: the port never calls it)
    and the least time the card could take, with its TFLOP/s and its share
@@ -263,6 +270,20 @@ that check them: each job in turn on the first ranks of one gloo group
    (``CHAOS_BUDGET_S``, printed beside its wall).  Its flash launches,
    counted from 0 around it, are this process's (none: the sweeps run
    collectives and the serving programs attend in plain torch).
+19. ``plan``, the package's entry point, attribution and the autotuner
+   (``obs/attribution.py``, ``plan/autotune.py``), under
+   ``chiprun_out/chip_smoke_plan``: (a) ``python -m dlbb_tpu_torch --help``
+   as a subprocess exits 0 and lists ``PLAN_SUBCOMMANDS``; (c) ``cli obs
+   attribute --model cm1 --tier cuda`` on phase comm (d)'s traced NCCL
+   sweep (its phases sum to its wall, every config's device µs read from
+   the card's own Kineto captures) and on the chaos gate's clean serving
+   run (its model's width printed), and the same sweep with ``--model
+   cm2`` exits 1 (the ``cuda`` tier has no fit); (d) ``cli plan --auto
+   --target serving``, ``--target train`` and ``cli plan --capacity`` on
+   the ``cuda`` tier each exit 1 with every point of the one-device grid
+   journaled ``cm2-fit-missing`` and ``metrics.prom``'s
+   ``plan_search_points{outcome="pruned-cm2-fit-missing"}`` equal to
+   ``searched``.  Each part's seconds are printed.
 
 It then prints the card's name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -349,7 +370,7 @@ EDGE_CASES = {
 # phase 5 on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's kernel table)
 FWD_BEFORE_MS = {"main": 0.1259, "long": 2.5038}
 PHASES = ("build", "fwd", "bwd", "e2e", "train", "time", "comm", "tp", "dtrain", "seq",
-          "moe", "pipe", "compress", "bench", "kv", "serve", "fleet", "chaos")
+          "moe", "pipe", "compress", "bench", "kv", "serve", "fleet", "chaos", "plan")
 TP_CONFIG = "dlbb_tpu_torch/configs/baseline_config.yaml"
 # the 3D sweep's LLM shapes (batch, seq, hidden) on the card: the largest is
 # 1 GiB of bf16 per rank
@@ -654,6 +675,8 @@ def phase_main_path(torch, fa, gpu_line):
 
 
 def phase_train(torch, fa, gpu_line):
+    import shutil
+
     from dlbb_tpu_torch.data import create_dataset_from_config
     from dlbb_tpu_torch.models import ModelConfig, init_params
     from dlbb_tpu_torch.train.loop import mse_loss, run_train
@@ -667,8 +690,13 @@ def phase_train(torch, fa, gpu_line):
     layers = model_cfg.num_layers
     # remat recomputes the flash forward in the backward: 2 per layer
     per_step = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+    from dlbb_tpu_torch.obs import spans
+
+    run_dir = PLAN_OUT / "train"
+    shutil.rmtree(run_dir, ignore_errors=True)
     fa.flash_fwd_launches = fa.flash_bwd_dq_launches = fa.flash_bwd_dkv_launches = 0
-    result = run_train(config, device="cuda", verbose=True)
+    with spans.tracing(run_dir / "spans.json", meta={"cmd": "train"}):
+        result = run_train(config, device="cuda", output_dir=str(run_dir), verbose=True)
     launches = {"flash_fwd": fa.flash_fwd_launches,
                 "flash_bwd_dq": fa.flash_bwd_dq_launches,
                 "flash_bwd_dkv": fa.flash_bwd_dkv_launches}
@@ -686,6 +714,7 @@ def phase_train(torch, fa, gpu_line):
           f"{st['median'] * 1e3:.3f} ms, {result['tokens_per_second']:.0f} tokens/s, "
           f"{result['achieved_tflops_per_second']:.1f} TFLOP/s (model flops); "
           f"losses {', '.join(f'{x:.5f}' for x in losses)}")
+    _train_attribution(run_dir, ex["benchmark_iterations"], gpu_line)
 
     # one step's loss and gradients, same weights and batch, kernel vs dense
     params = init_params(model_cfg, config["input"]["seed"], "cuda")
@@ -729,6 +758,69 @@ def phase_train(torch, fa, gpu_line):
         _traced_flash(torch, fa, "train_step_1b", lambda _: loss_and_grads(model_cfg), tmp,
                       gpu_line, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
     return launches, result
+
+
+# phase train's run and phase plan's runs write under this directory
+PLAN_OUT = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_plan"
+# the phases of an attribution sum to its wall (a partition)
+ATTR_REL = 1e-6
+
+
+def _attribute(run_dir, out_dir, model="cm1", extra=()):
+    """``cli obs attribute --tier cuda`` on ``run_dir``: its exit code, and
+    for cm1 the record (the CLI writes only the MD and CSV; the record is
+    the same call's)."""
+    from dlbb_tpu_torch import cli
+    from dlbb_tpu_torch.obs.attribution import run_attribution
+
+    rc = cli.main(["obs", "attribute", "--journal", str(run_dir), "--tier", "cuda",
+                   "--model", model, "--output", str(out_dir), *extra])
+    if model != "cm1":
+        return rc, None
+    return rc, run_attribution(run_dir, out_dir=out_dir, tier="cuda", verbose=False)
+
+
+def _check_partition(record, where):
+    covered = sum(record["phases_us"].values())
+    if not (record["wall_us"] > 0
+            and abs(covered - record["wall_us"]) <= ATTR_REL * record["wall_us"]):
+        raise AssertionError(f"{where}: phases cover {covered} us of a {record['wall_us']} "
+                             "us wall")
+
+
+def _train_attribution(run_dir, iterations, gpu_line):
+    """Phase train (b): the 1B run's span trace holds JAX's train spans,
+    and ``obs attribute`` partitions its wall with ``execute`` covering the
+    ``train_step`` spans."""
+    from dlbb_tpu_torch.obs.spans import load_trace, validate_trace_events
+
+    t0 = time.perf_counter()
+    events = load_trace(run_dir / "spans.json")["traceEvents"]
+    problems = validate_trace_events(events)
+    names = [ev["name"] for ev in events if ev["ph"] == "B"]
+    steps = [ev.get("args", {}).get("step") for ev in events
+             if ev["ph"] == "B" and ev["name"] == "train_step"]
+    if problems or names.count("compile+warmup") != 1 or names.count("measure") != 1 \
+            or steps != list(range(iterations)):
+        raise AssertionError(f"the 1B run's span trace: {problems}, spans {names}")
+    opened, step_us = {}, 0.0
+    for ev in events:
+        if ev["ph"] == "B":
+            opened[ev["name"]] = ev["ts"]
+        elif ev["ph"] == "E" and ev["name"] == "train_step":
+            step_us += ev["ts"] - opened["train_step"]
+    rc, record = _attribute(run_dir, PLAN_OUT / "attribution")
+    _check_partition(record, "the 1B run's attribution")
+    phases = record["phases_us"]
+    if rc != 0 or record["source"] != "span-trace" or not phases.get("execute", 0) >= step_us:
+        raise AssertionError(f"obs attribute on the 1B run: exit {rc}, {record['source']}, "
+                             f"phases {phases}, train_step spans {step_us} us")
+    print(f"[train] (b) span trace of the 1B run: compile+warmup, measure and "
+          f"{len(steps)} train_step spans, valid; obs attribute (cm1, tier cuda) on "
+          f"{gpu_line}: wall {record['wall_us'] / 1e3:.3f} ms = "
+          + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in phases.items())
+          + f" ms; train_step spans {step_us / 1e3:.3f} ms (host enqueue: the measure span "
+          f"ends at the events' sync); {time.perf_counter() - t0:.1f} s")
 
 
 def _sdpa_bwd_ms(torch, q, k, v, do, causal, reps):
@@ -1177,14 +1269,16 @@ def _bucket_line(analysis):
     return ", ".join(f"{b} {v:.1f}" for b, v in analysis["buckets_us"].items())
 
 
-def _traced_flash(torch, fa, what, fn, trace_root, gpu_line, kernels):
-    """One dedicated traced call of ``fn`` (``obs/capture.py``), outside
-    every timed run: the parsed trace must hold exactly as many events of
-    each of ``kernels`` as its launch counter counted over the call (where
-    CUPTI serves the card; else the capture fails closed, checked).  A
-    capture that retakes its session (a launch left unrecorded) keeps the
-    last session's trace, so the counts held against it are the last
-    call's.  Prints the device µs per bucket and the check's seconds."""
+def _traced_flash(torch, fa, what, fn, trace_root, gpu_line, kernels, profile_reps=1):
+    """One dedicated traced session of ``profile_reps`` calls of ``fn``
+    (``obs/capture.py``), outside every timed run: the parsed trace must
+    hold exactly as many events of each of ``kernels`` as its launch
+    counter counted over the session (where CUPTI serves the card; else
+    the capture fails closed, checked).  A capture that retakes its session
+    (a launch left unrecorded) keeps the last session's trace, so the
+    counts held against it are the sum of the last session's
+    ``profile_reps`` calls.  Prints the device µs per bucket and the
+    check's seconds."""
     from dlbb_tpu_torch.obs.capture import capture_device_trace
     from dlbb_tpu_torch.obs.devtrace import analyze_capture, parse_capture
 
@@ -1197,8 +1291,9 @@ def _traced_flash(torch, fa, what, fn, trace_root, gpu_line, kernels):
         calls.append({k: v - before[k] for k, v in _flash_counts(fa).items()})
         return out
 
-    meta = capture_device_trace(counted, lambda: None, trace_root, what, device="cuda")
-    launched = calls[-1] if calls else {k: 0 for k in FLASH_KERNEL_NAMES}
+    meta = capture_device_trace(counted, lambda: None, trace_root, what,
+                                profile_reps=profile_reps, device="cuda")
+    launched = {k: sum(c[k] for c in calls[-profile_reps:]) for k in FLASH_KERNEL_NAMES}
     if not _cupti_verdict([meta], what):
         save_dir = Path(trace_root) / f"{what}_run"
         save_dir.mkdir(parents=True, exist_ok=True)
@@ -4900,6 +4995,109 @@ def phase_chaos(torch, fa, gpu_line):
     return launches
 
 
+# phase plan (a): the subcommands of ``python -m dlbb_tpu_torch`` (JAX's
+# thirteen less ``analyze``, item 15)
+PLAN_SUBCOMMANDS = {"bench1d", "bench3d", "stats1d", "stats3d", "compare", "reports", "e2e",
+                    "train", "serve", "obs", "chaos", "plan"}
+PLAN_FIT_MISSING = "cm2-fit-missing"
+
+
+def phase_plan(torch, gpu_line):
+    """Phase 19 (module docstring)."""
+    import shutil
+    import subprocess
+
+    from dlbb_tpu_torch import cli
+    from dlbb_tpu_torch.obs.attribution import _serving_report
+    from dlbb_tpu_torch.resilience.journal import read_journal
+
+    root = Path(__file__).resolve().parent
+    t_phase = time.perf_counter()
+    # (a) the package's entry point
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "dlbb_tpu_torch", "--help"], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    listed = set(run.stdout.split("{", 1)[-1].split("}", 1)[0].split(","))
+    if run.returncode != 0 or listed != PLAN_SUBCOMMANDS:
+        raise AssertionError(f"python -m dlbb_tpu_torch --help: exit {run.returncode}, "
+                             f"subcommands {sorted(listed)}; {run.stderr[-2000:]}")
+    print(f"[plan] (a) python -m dlbb_tpu_torch --help: exit 0, {len(listed)} subcommands "
+          f"{sorted(listed)}; {time.perf_counter() - t0:.1f} s")
+
+    # (c) obs attribute on the runs earlier phases left: comm (d)'s traced
+    # NCCL sweep (its device captures) and the chaos gate's clean serving run
+    t0 = time.perf_counter()
+    out = PLAN_OUT / "attribution"
+    sweep = root / "chiprun_out" / "chip_smoke_comm" / "traced"
+    if sweep.is_dir():
+        rc, record = _attribute(sweep, out)
+        _check_partition(record, "the comm sweep's attribution")
+        configs = [e for e in record["entities"] if e.get("iterations")]
+        with_dev = [e for e in configs if e.get("device_us")]
+        cupti = CUPTI.get("ok", True)
+        if rc != 0 or len(configs) != len(COMM_TRACE_OPS) \
+                or (cupti and (len(with_dev) != len(configs)
+                               or not record["device_us"].get("execute", 0) > 0)):
+            raise AssertionError(f"obs attribute on {sweep}: exit {rc}, {len(configs)} "
+                                 f"configs, {len(with_dev)} with device us, "
+                                 f"{record['device_us']}")
+        rc2, _ = _attribute(sweep, out / "cm2", model="cm2")
+        if rc2 != 1:
+            raise AssertionError(f"obs attribute --model cm2 on the cuda tier exited {rc2}: "
+                                 "it must fail closed (no cuda fit)")
+        print(f"[plan] (c) obs attribute (cm1, tier cuda) of comm (d)'s NCCL sweep on "
+              f"{gpu_line}: {record['source']}, wall {record['wall_us'] / 1e3:.3f} ms = "
+              + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in record["phases_us"].items())
+              + " ms; device us per timed iteration (Kineto, one captured rep): "
+              + ", ".join(f"{e['name']} {e.get('device_us')}" for e in configs)
+              + f"; device execute {record['device_us'].get('execute')} us against "
+              f"measured {sum(e['execute_us'] for e in configs):.1f} us and cm1's "
+              f"{record['predicted_us']['execute']:.1f} us; --model cm2 exit 1 (no cuda fit)")
+    else:
+        print("[plan] (c) phase comm did not run in this call: no sweep to attribute")
+    serve_runs = sorted((root / "chiprun_out" / "chip_smoke_chaos").rglob("serve_ref"))
+    if serve_runs:
+        rc, record = _attribute(serve_runs[0], out)
+        _check_partition(record, "the chaos serving run's attribution")
+        model = _serving_report(serve_runs[0])["model"]
+        if rc != 0 or record["kind"] != "serving" or not record["entities"]:
+            raise AssertionError(f"obs attribute on {serve_runs[0]}: exit {rc}, "
+                                 f"{record['kind']}, {len(record['entities'])} requests")
+        print(f"[plan] (c) obs attribute (cm1, tier cuda) of the chaos gate's clean serving "
+              f"run (hidden {model['hidden_size']}, {model['num_layers']} layers, "
+              f"{model['dtype']}; the gate's mini model, not the 1B): {record['source']}, "
+              f"{len(record['entities'])} requests, wall {record['wall_us'] / 1e3:.3f} ms = "
+              + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in record["phases_us"].items())
+              + f" ms; {time.perf_counter() - t0:.1f} s")
+    else:
+        print("[plan] (c) phase chaos did not run in this call: no serving run to attribute")
+
+    # (d) the autotuner and the capacity planner fail closed on the cuda tier
+    t0 = time.perf_counter()
+    for label, args, sub in (("auto serving", ["--auto", "--target", "serving"], ""),
+                             ("auto train", ["--auto", "--target", "train"], ""),
+                             ("capacity", ["--capacity"], "static_search")):
+        out_dir = PLAN_OUT / label.replace(" ", "_")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        rc = cli.main(["plan", *args, "--tier", "cuda", "--output", str(out_dir)])
+        search = out_dir / sub if sub else out_dir
+        manifest = json.loads((search / "sweep_manifest.json").read_text())
+        events, torn = read_journal(search)
+        pruned = [e for e in events if e.get("event") == "plan-pruned"]
+        prom = (search / "metrics.prom").read_text()
+        n = manifest["searched"]
+        line = f'dlbb_plan_search_points_total{{outcome="pruned-{PLAN_FIT_MISSING}"}} {n}'
+        if rc != 1 or not n or torn or len(pruned) != n \
+                or any(e["reason"] != PLAN_FIT_MISSING for e in pruned) or line not in prom:
+            raise AssertionError(f"plan {label} on the cuda tier: exit {rc}, {n} searched, "
+                                 f"{len(pruned)} journaled pruned")
+        print(f"[plan] (d) plan {label} (tier cuda, {torch.cuda.device_count()} device): "
+              f"exit 1, {n} points searched, each journaled {PLAN_FIT_MISSING}, "
+              f"metrics.prom pruned-{PLAN_FIT_MISSING} = searched")
+    print(f"[plan] (d) {time.perf_counter() - t0:.1f} s; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def _same_planes(torch, got, host):
     """A card tensor equal to a host tensor bit for bit, compared one slice
     of the leading dim at a time."""
@@ -5020,6 +5218,8 @@ def main() -> int:
         fleet = timed("fleet", phase_fleet, torch, gpu_line)
     if "chaos" in phases:
         chaos = timed("chaos", phase_chaos, torch, fa, gpu_line)
+    if "plan" in phases:
+        timed("plan", phase_plan, torch, gpu_line)
     job_dir.cleanup()
     print(f"[time] phases {', '.join(f'{k} {v:.1f}' for k, v in walls.items())} s; "
           f"{sum(walls.values()):.1f} s in all")

@@ -78,17 +78,21 @@ compile-ahead engine and device traces):
   ``serving_metrics`` and ``fleet_metrics``; ``resilience.journal``; the
   gated device capture over ``torch.profiler`` (``capture``), its analysis
   (``devtrace``, ``analysis.findings``), the sweep-artifact corpus and the
-  cm2 fit over it (``corpus``, ``fit``, on ``analysis.costmodel``) and
-  ``cli obs trace|devtrace|fit``; ``utils.profiling`` (``--trace``);
+  cm2 fit over it (``corpus``, ``fit``, on ``analysis.costmodel``), span
+  attribution against the cost model (``attribution``) and ``cli obs
+  trace|devtrace|fit|attribute``; ``utils.profiling`` (``--trace``);
+- ``plan`` — the cm2 plan autotuner and the fleet capacity planner
+  (``cli plan --auto|--capacity``), fail-closed without a fit;
 - ``resilience`` — the fault sites, the journal, preemption, artifact
   validation and the chaos gate (``cli chaos``).
 
 The root script ``bench_torch.py`` is the port's ``bench.py``: the 1B
-forward's tokens/s and ``bench.py``'s extras in one JSON line.
+forward's tokens/s and ``bench.py``'s extras in one JSON line.  ``python
+-m dlbb_tpu_torch`` runs ``cli``.
 
-Not ported yet (see ROADMAP.md): the cost model's calibration, diff,
-attribution and the autotuner (ROADMAP Queue 1, Slice F, item 14, part
-14b), and the analysis auditors (item 15).
+Not ported yet (see ROADMAP.md): the cost model's calibration and its diff
+(ROADMAP Queue 1, Slice F, item 14, part 14b), and the analysis auditors
+(item 15).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit ``"cpu"`` they raise.

@@ -1,13 +1,16 @@
-"""Command line (counterpart of ``dlbb_tpu/cli.py``).
+"""Command line (counterpart of ``dlbb_tpu/cli.py``; ``python -m
+dlbb_tpu_torch`` runs it too).
 
     python -m dlbb_tpu_torch.cli e2e --config CONFIG.yaml [--output DIR]
                                      [--world N] [--device cuda|cpu]
                                      [--tp-overlap off|ring|bidir] [--trace DIR]
+                                     [--span-trace FILE]
     python -m dlbb_tpu_torch.cli train --config CONFIG.yaml [--output DIR]
                                        [--world N] [--zero STAGE | --zero1]
                                        [--device cuda|cpu]
                                        [--tp-overlap off|ring|bidir]
                                        [--grad-compression none|int8|fp8] [--trace DIR]
+                                       [--span-trace FILE]
     python -m dlbb_tpu_torch.cli bench1d [--ops ...] [--sizes ...] [--ranks ...]
                                          [--world N] [--device cuda|cpu]
                                          [--fault-plan PLAN] [--deadline SEC]
@@ -30,8 +33,15 @@
     python -m dlbb_tpu_torch.cli obs trace|devtrace --journal DIR [--output PATH]
     python -m dlbb_tpu_torch.cli obs fit [--results DIR ...] [--tier TIER]
                                          [--fit-dir DIR] [--min-samples N] [--host STR]
+    python -m dlbb_tpu_torch.cli obs attribute --journal DIR [--span-trace-file FILE]
+                                               [--model cm1|cm2] [--tier TIER]
+                                               [--fit-dir DIR] [--output DIR]
     python -m dlbb_tpu_torch.cli chaos [--plan CLASS|all] [--world N]
                                        [--device cuda|cpu] [--output DIR]
+    python -m dlbb_tpu_torch.cli plan --auto|--capacity [--target serving|train]
+                                      [--simulate N] [--tier TIER] [--fit-dir DIR]
+                                      [--top-k K] [--no-measure] [--output DIR]
+                                      [--bench-out FILE] ...
 
 The sweeps launch ``--world`` ranks (default: the largest of ``--ranks``)
 through ``bench/launch.py``: NCCL with one GPU per rank on ``cuda``, gloo
@@ -86,10 +96,24 @@ timeline from the journal.  ``obs fit`` walks results trees into the
 corpus (``obs/corpus.py``) and appends a cm2 fit per tier to the port's own
 DB, ``stats/torch/analysis/costmodel_fit`` (``obs/fit.py``).
 
+``e2e`` and ``train`` run under rank 0's host span tracer when
+``--span-trace FILE`` (else ``DLBB_SPANS``) names a file, as JAX's do; the
+train loop emits JAX's ``compile+warmup``, ``train_step`` and ``measure``
+spans.  ``obs attribute --journal RUN_DIR`` partitions a run's span trace
+(else its journal) into phases priced by the cost model
+(``obs/attribution.py``); ``--model cm2`` on a tier with no fit exits 1.
+
 ``chaos`` is JAX's chaos gate (``resilience/chaos.py``): each fault class
 drives the sweep, the checkpointer, the serving harness or the fleet under
 an injected fault and checks JAX's invariants; ``--world`` and
 ``--device`` take the place of JAX's ``--simulate``.
+
+``plan`` is JAX's autotuner and capacity planner (``plan/autotune.py``):
+``--simulate N`` searches N gloo ranks' plan space on the CPU (tier
+``cpu-sim``), else the visible GPUs' (tier ``cuda``); measured plans run
+on their own ranks through ``bench/launch.py``.  A tier with no cm2 fit
+(the card's ``cuda`` tier at world 1) journals every point
+``cm2-fit-missing`` and exits 1.
 """
 
 from __future__ import annotations
@@ -133,9 +157,6 @@ def _add_sweep_args(p: argparse.ArgumentParser) -> None:
                         "per-config failures (default 2)")
     p.add_argument("--no-journal", action="store_true",
                    help="disable the append-only sweep_journal.jsonl (on by default)")
-    p.add_argument("--span-trace", default=None, metavar="FILE", dest="span_trace",
-                   help="write the sweep's host-side span trace (Chrome trace-event "
-                        "JSON) to FILE; DLBB_SPANS env is the default")
     p.add_argument("--no-pipeline", action="store_true",
                    help="build each config's callable inline, no compile-ahead thread "
                         "(serial debug mode; identical result schema and timing)")
@@ -161,6 +182,10 @@ def _add_trace(p: argparse.ArgumentParser) -> None:
                    help="write a torch.profiler trace of the whole run to DIR (each "
                         "launched rank to DIR/rank<r>); DLBB_TRACE_DIR env is the "
                         "default")
+    p.add_argument("--span-trace", default=None, metavar="FILE", dest="span_trace",
+                   help="write rank 0's host-side span trace of the whole run (Chrome "
+                        "trace-event JSON, Perfetto-loadable) to FILE; DLBB_SPANS env "
+                        "is the default")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -245,8 +270,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     ob = sub.add_parser(
         "obs", help="observability: journal->trace reconstruction (trace), the "
-                    "device-trace analysis of a run's captures (devtrace) and the cm2 "
-                    "cost-model fit (fit); exit codes 0 clean / 1 findings / 2 crash")
+                    "device-trace analysis of a run's captures (devtrace), the cm2 "
+                    "cost-model fit (fit) and span-level time attribution (attribute); "
+                    "exit codes 0 clean / 1 findings / 2 crash")
     ob.add_argument("which", choices=("trace", "calibrate", "diff", "fit", "attribute",
                                       "devtrace"),
                     help="trace = rebuild a Perfetto timeline from a run's journal; "
@@ -254,22 +280,35 @@ def build_parser() -> argparse.ArgumentParser:
                          "timelines and buckets (MD+CSV+JSON under "
                          "stats/torch/analysis/devtrace/); fit = regress cm2 (alpha, "
                          "beta, peak, per-dispatch gamma) from the sweep-artifact corpus "
-                         "into the versioned fitted DB; calibrate, diff and attribute are "
-                         "not ported yet (items 14 and 15)")
+                         "into the versioned fitted DB; attribute = join a run's span "
+                         "trace/journal against the cost model into a per-phase 'where did "
+                         "the time go' report (MD+CSV under stats/torch/analysis/"
+                         "attribution/); calibrate and diff are not ported yet (items 14 "
+                         "and 15)")
     ob.add_argument("--journal", default=None, metavar="DIR",
                     help="the run's output directory (sweep_journal.jsonl for trace, "
-                         "the captured results for devtrace)")
+                         "the captured results for devtrace, the span trace or journal "
+                         "for attribute)")
     ob.add_argument("--output", default=None,
-                    help="output path (trace JSON) or report directory (devtrace; the "
-                         "fitted-DB directory of fit when --fit-dir is not given)")
+                    help="output path (trace JSON) or report directory (devtrace, "
+                         "attribute; the fitted-DB directory of fit when --fit-dir is not "
+                         "given)")
     ob.add_argument("--strict-warnings", action="store_true",
                     help="warnings also exit 1")
     ob.add_argument("--results", nargs="+", default=None, metavar="DIR",
                     help="results tree(s) the fit ingests (default: results/torch)")
     ob.add_argument("--tier", default=None, metavar="TIER",
-                    help="cost-model tier to fit (cpu-sim, cuda, ...; default: every "
-                         "tier in the corpus; an explicit tier that cannot be fitted "
-                         "exits 1)")
+                    help="cost-model tier (cpu-sim, cuda, ...): fit's tier (default: "
+                         "every tier in the corpus; an explicit tier that cannot be "
+                         "fitted exits 1), attribute's pricing tier (default: the one "
+                         "the run's artifacts record)")
+    ob.add_argument("--model", default="cm1", choices=("cm1", "cm2"),
+                    help="cost model for attribute: cm1 the analytic constants, cm2 the "
+                         "fitted DB (a tier with no fit exits 1)")
+    ob.add_argument("--span-trace-file", default=None, metavar="FILE",
+                    dest="span_trace_file",
+                    help="explicit span-trace JSON for obs attribute (default: "
+                         "auto-detect in --journal DIR)")
     ob.add_argument("--fit-dir", default=None, metavar="DIR", dest="fit_dir",
                     help="fitted-DB directory (default stats/torch/analysis/"
                          "costmodel_fit)")
@@ -295,7 +334,71 @@ def build_parser() -> argparse.ArgumentParser:
     ch.add_argument("--output", default=None,
                     help="workdir for the gate's artifacts (default: a fresh temp dir, "
                          "kept on failure)")
+    _add_plan_parser(sub)
     return p
+
+
+def _add_plan_parser(sub) -> None:
+    """``plan``: JAX's flags and defaults (``dlbb_tpu/cli.py:474-541``), its
+    ``--simulate N`` as N gloo ranks on the CPU."""
+    pl = sub.add_parser(
+        "plan",
+        help="cm2-driven parallelism-plan autotuner: enumerate the full plan space, "
+             "statically prune (validate_*/HBM, every pruned point journaled with its "
+             "reason), rank by the fitted cost model, measure the top-k through the "
+             "real engines (--auto); or price a fleet capacity curve over a traffic "
+             "trace + SLO (--capacity); exit 1 when the tier has no cm2 fit")
+    mode = pl.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--auto", action="store_true",
+                      help="run the predict-prune-measure plan search")
+    mode.add_argument("--capacity", action="store_true",
+                      help="run the fleet capacity planner (predicted vs measured "
+                           "goodput/TTFT per plan + replicas-for-N-users curve, "
+                           "published to stats/torch/serving/SERVING.md)")
+    pl.add_argument("--target", default="serving", choices=("serving", "train"),
+                    help="which engine's plan space to search (--auto)")
+    pl.add_argument("--top-k", type=int, default=2, dest="top_k",
+                    help="cm2-ranked plans to validate with real measured runs (the "
+                         "default heuristic plan is always measured too)")
+    pl.add_argument("--no-measure", action="store_true", dest="no_measure",
+                    help="static search only: enumerate, prune, rank — skip the "
+                         "measured validation runs")
+    pl.add_argument("--no-mesh-champions", action="store_true", dest="no_mesh_champions",
+                    help="measure only the overall top-k (default: also measure the "
+                         "predicted-best plan of every surviving mesh factorization)")
+    pl.add_argument("--trace", default="poisson",
+                    help="traffic kind for the measured serving runs (poisson, bursty, "
+                         "diurnal) or a saved trace")
+    pl.add_argument("--requests", type=int, default=24,
+                    help="requests per measured serving run")
+    pl.add_argument("--rate", type=float, default=None,
+                    help="mean arrival rate in req/s (default 32)")
+    pl.add_argument("--seed", type=int, default=42,
+                    help="trace seed (shared by every measured run)")
+    pl.add_argument("--prompt-range", type=int, nargs=2, default=None, dest="prompt_range",
+                    metavar=("MIN", "MAX"), help="generated traces only: prompt-length bounds")
+    pl.add_argument("--output-range", type=int, nargs=2, default=None, dest="output_range",
+                    metavar=("MIN", "MAX"), help="generated traces only: output-length bounds")
+    pl.add_argument("--slo", type=float, default=30.0,
+                    help="TTFT SLO in seconds (--capacity; stamps the trace's deadline_s)")
+    pl.add_argument("--user-rate", type=float, default=0.2, dest="user_rate",
+                    help="req/s one user issues (--capacity curve)")
+    pl.add_argument("--users", type=int, nargs="+", default=(4, 8, 16, 32, 64),
+                    help="N-user points on the capacity curve")
+    pl.add_argument("--fit-dir", default=None, dest="fit_dir",
+                    help="cm2 fitted-coefficient DB directory (default stats/torch/"
+                         "analysis/costmodel_fit; a missing fit fails the search closed: "
+                         "every point is journaled cm2-fit-missing)")
+    pl.add_argument("--tier", default=None,
+                    help="cost-model tier (default: cpu-sim with --simulate, else cuda)")
+    pl.add_argument("--output", default=None,
+                    help="output directory (default results/torch/autotune or "
+                         "results/torch/capacity)")
+    pl.add_argument("--bench-out", default=None, dest="bench_out",
+                    help="also write the bench artifact (BENCH_autotune.json, read by "
+                         "`cli reports` from RESULTS/; --auto only)")
+    pl.add_argument("--simulate", type=int, default=0, metavar="N",
+                    help="N gloo ranks on the CPU (default: the visible GPUs, NCCL)")
 
 
 def _add_serve_parser(sub) -> None:
@@ -445,19 +548,41 @@ def _traced(trace_dir, device):
     return maybe_trace(rank_trace_dir(trace_dir), device)
 
 
-def e2e_worker(config, output_dir, device, trace_dir=None):
-    """One rank of ``e2e`` (launched by name)."""
+def _span_path(args):
+    """``--span-trace``, else ``DLBB_SPANS``: the file rank 0's span trace
+    is written to (None: no trace)."""
+    from dlbb_tpu_torch.obs import spans
+
+    return args.span_trace or spans.default_span_path()
+
+
+def _span_tracing(span_trace, cmd):
+    """JAX's ``spans.tracing`` around a command (``dlbb_tpu/cli.py:605-625``),
+    held by rank 0 alone: the other ranks record nothing."""
+    import torch.distributed as dist
+
+    from dlbb_tpu_torch.obs import spans
+
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    return spans.tracing(span_trace if lead else None, meta={"cmd": cmd})
+
+
+def e2e_worker(config, output_dir, device, trace_dir=None, span_trace=None):
+    """One rank of ``e2e`` (launched by name); rank 0 records the span
+    trace ``span_trace`` when set."""
     from dlbb_tpu_torch.bench.e2e import run_e2e
 
-    with _traced(trace_dir, device):
+    with _span_tracing(span_trace, "e2e"), _traced(trace_dir, device):
         return run_e2e(config, device=device, output_dir=output_dir)
 
 
-def train_worker(config, output_dir, device, zero1, zero_stage, trace_dir=None):
-    """One rank of ``train`` (launched by name)."""
+def train_worker(config, output_dir, device, zero1, zero_stage, trace_dir=None,
+                 span_trace=None):
+    """One rank of ``train`` (launched by name); rank 0 records the span
+    trace ``span_trace`` when set."""
     from dlbb_tpu_torch.train.loop import run_train
 
-    with _traced(trace_dir, device):
+    with _span_tracing(span_trace, "train"), _traced(trace_dir, device):
         return run_train(config, zero1=zero1, zero_stage=zero_stage, device=device,
                          output_dir=output_dir)
 
@@ -501,19 +626,21 @@ def main(argv=None) -> int:
         return run_obs(args.which, journal=args.journal, output=args.output,
                        strict_warnings=args.strict_warnings, results=args.results,
                        tier=args.tier, fit_dir=args.fit_dir, min_samples=args.min_samples,
-                       host_filter=args.host_filter)
+                       host_filter=args.host_filter, model=args.model,
+                       trace=args.span_trace_file)
     if args.cmd == "chaos":
         from dlbb_tpu_torch.resilience.chaos import run_chaos
 
         return run_chaos(plan=args.plan, output=args.output, device=args.device,
                          world=args.world)
     if args.cmd == "e2e":
-        result = _launched(args, e2e_worker, args.trace)
+        result = _launched(args, e2e_worker, args.trace, _span_path(args))
         print(f"forward mean {result['forward_time']['mean'] * 1e3:.3f} ms "
               f"over {len(result['per_host_means_s'])} rank(s)")
         return 0
     if args.cmd == "train":
-        result = _launched(args, train_worker, args.zero1, args.zero_stage, args.trace)
+        result = _launched(args, train_worker, args.zero1, args.zero_stage, args.trace,
+                           _span_path(args))
         if result.get("preempted") and "step_time" not in result:
             print(f"preempted at step {result['preempted_at_step']}; "
                   "checkpoint saved — resume to continue")
@@ -565,7 +692,54 @@ def main(argv=None) -> int:
         return _reports(args)
     if args.cmd == "serve":
         return _serve(args)
+    if args.cmd == "plan":
+        return _plan(args)
     return 2
+
+
+def _plan(args) -> int:
+    """``cli plan``: JAX's runs (``dlbb_tpu/cli.py:998-1041``); the device
+    count is ``--simulate``'s gloo ranks on the CPU, else the visible GPUs,
+    and a tier with no cm2 fit exits 1, the capacity planner's included."""
+    from dlbb_tpu_torch.analysis.costmodel import FitMissingError
+    from dlbb_tpu_torch.plan.autotune import PRUNE_FIT, run_capacity_plan, run_plan_search
+
+    if args.simulate:
+        device, n_dev = "cpu", args.simulate
+    else:
+        import torch
+
+        from dlbb_tpu_torch.utils.sysinfo import resolve_device
+
+        device = "cuda"
+        resolve_device(device)
+        n_dev = torch.cuda.device_count()
+    tier_name = args.tier or ("cpu-sim" if device == "cpu" else "cuda")
+    trace_params = {}
+    if args.prompt_range:
+        trace_params["prompt_range"] = tuple(args.prompt_range)
+    if args.output_range:
+        trace_params["output_range"] = tuple(args.output_range)
+    if args.capacity:
+        try:
+            run_capacity_plan(
+                n_devices=n_dev, slo=args.slo, users=tuple(args.users),
+                user_rate=args.user_rate, trace=args.trace, num_requests=args.requests,
+                seed=args.seed, rate=args.rate, trace_params=trace_params or None,
+                output_dir=args.output or "results/torch/capacity", tier_name=tier_name,
+                fit_dir=args.fit_dir, device=device)
+        except FitMissingError as e:
+            print(f"plan --capacity: {PRUNE_FIT}: {e}")
+            return 1
+        return 0
+    result = run_plan_search(
+        target=args.target, n_devices=n_dev, top_k=args.top_k,
+        output_dir=args.output or "results/torch/autotune", trace=args.trace,
+        num_requests=args.requests, seed=args.seed, rate=args.rate,
+        trace_params=trace_params or None, tier_name=tier_name, fit_dir=args.fit_dir,
+        measure=not args.no_measure, mesh_champions=not args.no_mesh_champions,
+        device=device, bench_out=args.bench_out)
+    return 1 if result.get("error") else 0
 
 
 _SERVE_OVERRIDES = ("max_batch", "block_size", "max_seq", "queue_capacity",
@@ -610,14 +784,12 @@ def _serve(args) -> int:
 
 
 def _reports(args) -> int:
-    """``cli reports``: the JAX CLI's reports that the port has, with its
-    summary lines.  The serving report reads the port's own
-    ``serving_*.json`` and ``fleet_*.json`` under ``RESULTS/serving``, the
-    fleet and fast-path reports the port's ``RESULTS/BENCH_fleet.json`` and
-    ``RESULTS/BENCH_serve.json`` (never the root ``BENCH_*.json``, which
-    hold the JAX package's TPU runs).  An input
-    of a report whose module is not ported yet (the autotuner) is refused
-    loudly, never skipped."""
+    """``cli reports``: the JAX CLI's reports, with its summary lines.  The
+    serving report reads the port's own ``serving_*.json`` and
+    ``fleet_*.json`` under ``RESULTS/serving``, the fleet, fast-path and
+    autotuner reports the port's ``RESULTS/BENCH_fleet.json``,
+    ``RESULTS/BENCH_serve.json`` and ``RESULTS/BENCH_autotune.json`` (never
+    the root ``BENCH_*.json``, which hold the JAX package's TPU runs)."""
     from pathlib import Path
 
     from dlbb_tpu_torch.stats.northstar import default_stats_1d_csv, write_northstar_report
@@ -628,6 +800,7 @@ def _reports(args) -> int:
     )
     from dlbb_tpu_torch.stats.parallelism_report import (
         DEFAULT_FAMILIES,
+        write_autotune_report,
         write_cp_scaling_report,
         write_parallelism_report,
     )
@@ -638,11 +811,6 @@ def _reports(args) -> int:
 
     stats_root, results_root = Path(args.stats), Path(args.results)
     serve_dir = results_root / "serving"
-    autotune = results_root / "BENCH_autotune.json"
-    if autotune.exists():
-        raise NotImplementedError(
-            f"{autotune}: write_autotune_report belongs to plan/autotune.py, which is "
-            "not ported (ROADMAP Queue 1, Slice F, item 14, part 14b)")
     produced = 0
     summary = write_variants_report(stats_root / "variants", baseline_impl=args.impl)
     if summary["winners"]:
@@ -712,6 +880,15 @@ def _reports(args) -> int:
                   f"{stats_root / 'serving' / 'FASTPATH.md'}")
     else:
         print(f"fastpath: no BENCH_serve.json under {results_root} — skipped")
+    bench_autotune = results_root / "BENCH_autotune.json"
+    if bench_autotune.exists():
+        arows = write_autotune_report(bench_autotune, stats_root / "parallelism")
+        if arows:
+            produced += 1
+            print(f"autotune: {len(arows)} measured plan(s) -> "
+                  f"{stats_root / 'parallelism' / 'AUTOTUNE.md'}")
+    else:
+        print(f"autotune: no BENCH_autotune.json under {results_root} — skipped")
     if produced == 0:
         print("error: nothing to report — check --stats/--results point at the "
               "port's trees")

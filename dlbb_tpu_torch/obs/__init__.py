@@ -3,15 +3,19 @@
 (``export``), copies of the JAX modules; the gated per-config device
 capture over ``torch.profiler`` (``capture``) and its analysis
 (``devtrace``); the sweep-artifact corpus (``corpus``) and the cm2 fit
-over it (``fit``).  The sweep runner and the serving harness emit into
-all of them (ROADMAP Queue 1, Slice F, item 13).
+over it (``fit``); span-level time attribution against the cost model
+(``attribution``).  The sweep runner, the train loop and the serving
+harness emit into all of them (ROADMAP Queue 1, Slice F, item 13).
 
 ``cli obs trace`` rebuilds a run's timeline from its journal, ``cli obs
-devtrace`` parses its device captures and ``cli obs fit`` regresses the
+devtrace`` parses its device captures, ``cli obs fit`` regresses the
 cost model from a results tree into the versioned DB under
-``stats/torch/analysis/costmodel_fit`` (:func:`run_obs`); the cost model's
-calibration, diff and attribution are items 14 and 15.  Exit codes follow
-``analysis.findings.EXIT_*``: 0 clean / 1 findings / 2 crash.
+``stats/torch/analysis/costmodel_fit`` and ``cli obs attribute`` partitions
+a run's span trace (else its journal) into phases priced by the cost model,
+MD + CSV under ``stats/torch/analysis/attribution`` (:func:`run_obs`); the
+cost model's calibration and its diff are items 14 and 15.  Exit codes
+follow ``analysis.findings.EXIT_*``: 0 clean / 1 findings / 2 crash; a
+``--model cm2`` attribution of a tier with no fit is a finding (1).
 """
 
 from __future__ import annotations
@@ -51,8 +55,6 @@ _NOT_PORTED = {
                   "calibration)"),
     "diff": ("ROADMAP Queue 1, Slice F, item 14 (part 14b, the calibration gate), over "
              "item 15's schedule baselines"),
-    "attribute": ("ROADMAP Queue 1, Slice F, item 14 (part 14b, span attribution against "
-                  "the cost model)"),
 }
 
 
@@ -60,12 +62,13 @@ def run_obs(which: str, journal: Optional[str] = None, output: Optional[str] = N
             strict_warnings: bool = False, verbose: bool = True,
             results: Optional[list[str]] = None, tier: Optional[str] = None,
             fit_dir: Optional[str] = None, min_samples: Optional[int] = None,
-            host_filter: Optional[str] = None) -> int:
+            host_filter: Optional[str] = None, model: str = "cm1",
+            trace: Optional[str] = None) -> int:
     """``cli obs``: JAX's exit-code contract, an internal exception
     surfacing as ``EXIT_CRASH``."""
     try:
         return _run_obs(which, journal, output, strict_warnings, verbose, results, tier,
-                        fit_dir, min_samples, host_filter)
+                        fit_dir, min_samples, host_filter, model, trace)
     except Exception:  # noqa: BLE001 — the exit-code contract
         import traceback
 
@@ -76,7 +79,7 @@ def run_obs(which: str, journal: Optional[str] = None, output: Optional[str] = N
 def _run_obs(which: str, journal: Optional[str], output: Optional[str],
              strict_warnings: bool, verbose: bool, results: Optional[list[str]],
              tier: Optional[str], fit_dir: Optional[str], min_samples: Optional[int],
-             host_filter: Optional[str]) -> int:
+             host_filter: Optional[str], model: str, trace: Optional[str]) -> int:
     from pathlib import Path
 
     if which == "trace":
@@ -117,6 +120,27 @@ def _run_obs(which: str, journal: Optional[str], output: Optional[str],
             errors = sum(1 for f in findings if f.severity == "error")
             print(f"devtrace: {errors} error(s), {len(findings) - errors} warning(s)")
         return exit_code(findings, strict_warnings=strict_warnings)
+    if which == "attribute":
+        from dlbb_tpu_torch.analysis.costmodel import FitMissingError
+        from dlbb_tpu_torch.obs.attribution import run_attribution, validate_attribution
+
+        if not journal:
+            print("error: obs attribute needs --journal DIR (a sweep or serving output "
+                  "directory)")
+            return EXIT_CRASH
+        try:
+            record = run_attribution(input_dir=journal, out_dir=output, trace=trace,
+                                     model=model, tier=tier, fit_dir=fit_dir,
+                                     verbose=verbose)
+        except FitMissingError as e:
+            print(f"[obs] attribution refused: {e}")
+            return EXIT_FINDINGS
+        problems = validate_attribution(record)
+        if problems:
+            for p in problems:
+                print(f"[obs] attribution problem: {p}")
+            return EXIT_FINDINGS
+        return EXIT_CLEAN
     if which in _NOT_PORTED:
         print(f"error: obs {which} is not ported yet ({_NOT_PORTED[which]})")
         return EXIT_CRASH

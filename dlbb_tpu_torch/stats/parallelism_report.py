@@ -10,9 +10,12 @@ without a result is listed with null times.
 
 Over gloo on one card (or on the CPU) the times are correctness runs, not
 speeds; within a family the members run the same model on the same mesh,
-so only their order carries information, and only on the card.  The JAX
-package's autotuner report belongs to ``plan/autotune.py``, which is not
-ported (ROADMAP Queue 1, Slice F, item 14, part 14b).
+so only their order carries information, and only on the card.
+
+``write_autotune_report`` consolidates the autotuner's bench artifact
+(``plan/autotune.py``, ``cli plan --auto --bench-out``) into
+``AUTOTUNE.md``: JAX's tables and text, but for the sentences naming the
+card's rows and the port's test.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from pathlib import Path
 from typing import Any, Optional
 
 from dlbb_tpu_torch.stats.compare import md_table, write_csv
+from dlbb_tpu_torch.utils.config import atomic_write_text
 
 COLUMNS = [
     "family", "member", "experiment", "mesh", "step_time_mean_s",
@@ -194,3 +198,127 @@ def write_cp_scaling_report(results_dir: Path, out_dir: Path) -> list[dict[str, 
     md.append("")
     (out_dir / "CP_SCALING.md").write_text("\n".join(md))
     return rows
+
+
+AUTOTUNE_COLUMNS = [
+    "plan", "role", "predicted_us", "predicted_rank", "measured_rank",
+    "goodput_tokens_per_s", "tokens_per_second", "ttft_p50_s",
+]
+
+
+def write_autotune_report(bench_path: "str | Path",
+                          out_dir: "str | Path") -> list[dict[str, Any]]:
+    """Consolidate ``BENCH_autotune.json`` into ``AUTOTUNE.md`` — the
+    model-picked vs measured-winner agreement tables for the plan
+    autotuner (``cli plan --auto``, docs/autotune.md).  Returns the
+    measured rows (empty when the bench artifact has none — callers
+    skip, never clobber)."""
+    bench_path = Path(bench_path)
+    try:
+        bench = json.loads(bench_path.read_text())
+    except (OSError, json.JSONDecodeError):
+        return []
+    agreement = bench.get("agreement") or {}
+    rows = agreement.get("rows") or []
+    if not rows:
+        return []
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+
+    tier = bench.get("tier") or {}
+    pruned = bench.get("pruned") or {}
+    ranked = bench.get("ranked") or []
+    md = [
+        "# Plan autotuner: model-picked vs measured winner",
+        "",
+        f"`cli plan --auto` on the {bench.get('devices', '?')}-device "
+        f"simulated mesh (target: {bench.get('target', '?')}; "
+        f"docs/autotune.md).  The full plan space is enumerated, "
+        f"statically pruned (every pruned point journaled with its "
+        f"reason — no silent drops), ranked by the fitted cm2 tier "
+        f"(`{tier.get('name', '?')}`, fit v"
+        f"{(tier.get('fit') or {}).get('fit_version', '?')}), and the "
+        f"top-k plus the default-heuristic plan measured through the "
+        f"real engines on one shared seeded trace.",
+        "",
+        "Simulated-mesh caveat as everywhere in this corpus: host-core "
+        "times; predicted and measured share the cpu-sim tier, so "
+        "relative ordering is the honest signal.  The card's rows wait "
+        "for a `cuda` fit (the bench artifact's `chip` block).",
+        "",
+        "## Search accounting",
+        "",
+        f"| searched | {' | '.join(pruned)} | ranked | measured |",
+        "|---|" + "---|" * (len(pruned) + 2),
+        f"| {bench.get('searched', 0)} | "
+        + " | ".join(str(v) for v in pruned.values())
+        + f" | {len(ranked)} | {len(rows)} |",
+        "",
+        "## Measured agreement (top-k + default heuristic)",
+        "",
+    ]
+    md += md_table_from_rows(rows, AUTOTUNE_COLUMNS)
+    winner = agreement.get("measured_winner")
+    speedup = bench.get("speedup_vs_default")
+    md += [
+        "",
+        f"Measured winner: **{winner}** (cm2 predicted winner: "
+        f"{agreement.get('predicted_winner')}; top-2 contains measured "
+        f"winner: {agreement.get('top2_contains')})."
+        + (f"  Speedup vs default heuristic "
+           f"`{bench.get('default_plan')}`: **{speedup:.2f}x**."
+           if speedup else ""),
+        "",
+    ]
+    cal = bench.get("calibration_agreement") or {}
+    fams = [f for f in cal.get("families", [])
+            if f.get("status") == "ok"]
+    if fams:
+        md += [
+            "## Calibration-grid agreement (pinned regression)",
+            "",
+            f"cm2 top-2 contains the measured winner for "
+            f"**{cal.get('agree')}/{cal.get('total')}** families "
+            f"(ratio {cal.get('ratio'):.2f}; gate >= 0.70, "
+            f"`tests/test_torch_autotune.py`) over the committed calibration "
+            f"baseline `{cal.get('baseline')}`.",
+            "",
+            "| family | predicted order (best first) | measured winner "
+            "| top-2 contains |",
+            "|---|---|---|---|",
+        ]
+        for f in fams:
+            order = " > ".join(
+                m.split("::")[-1] for m in f["predicted_order"])
+            md.append(
+                f"| {f['family']} | {order} | "
+                f"{f['measured_winner'].split('::')[-1]} | "
+                f"{'yes' if f['top2_contains_winner'] else 'NO'} |")
+        missing = [f for f in cal.get("families", [])
+                   if f.get("status") == "missing-target"]
+        for f in missing:
+            md.append(f"| {f['family']} | missing targets: "
+                      f"{', '.join(f['missing'])} | — | excluded |")
+        md.append("")
+    atomic_write_text("\n".join(md), out / "AUTOTUNE.md")
+    return rows
+
+
+def md_table_from_rows(rows: list[dict[str, Any]],
+                       columns: list[str]) -> list[str]:
+    """Markdown table over whichever of ``columns`` the rows carry
+    (serving and train measured rows share a table shape but not every
+    metric column)."""
+    cols = [c for c in columns
+            if any(r.get(c) is not None for r in rows)]
+    lines = ["| " + " | ".join(cols) + " |",
+             "|---|" + "---|" * (len(cols) - 1)]
+    for r in rows:
+        cells = []
+        for c in cols:
+            v = r.get(c)
+            if isinstance(v, float):
+                v = f"{v:.3f}" if abs(v) < 100 else f"{v:.1f}"
+            cells.append("-" if v is None else str(v))
+        lines.append("| " + " | ".join(cells) + " |")
+    return lines

@@ -118,6 +118,7 @@ from dlbb_tpu_torch.models.transformer import (
     ring_transport,
     use_tp_overlap,
 )
+from dlbb_tpu_torch.obs import spans
 from dlbb_tpu_torch.ops import flash_attention as flash_mod
 from dlbb_tpu_torch.parallel.collective_matmul import seq_chunk
 from dlbb_tpu_torch.parallel.pipeline import (
@@ -147,6 +148,7 @@ from dlbb_tpu_torch.train.optim import (
 from dlbb_tpu_torch.train.zero import Zero, shard_along
 from dlbb_tpu_torch.utils.config import save_json
 from dlbb_tpu_torch.utils.metrics import Timer, summarize
+from dlbb_tpu_torch.utils.profiling import annotate, step_annotation
 from dlbb_tpu_torch.utils.sysinfo import collect_system_info, resolve_device
 from dlbb_tpu_torch.utils.timing import time_fn_per_iter_spmd
 
@@ -618,15 +620,16 @@ def _run_train(config, zero1, zero_stage, device, output_dir, verbose):
     warmup = execution.get("warmup_iterations", 2)
     iters = execution.get("benchmark_iterations", 10)
 
-    # the first step alone: on the card it holds the kernels' build (at a
-    # process's first launch) and the libraries' first-call set-up
-    with Timer(sync=device) as t_first:
-        state, loss = step_fn(state, batch, targets)
-        float(loss)
-    compile_time = t_first.elapsed
-    for _ in range(max(0, warmup - 1)):
-        state, loss = step_fn(state, batch, targets)
-        float(loss)
+    with spans.span("compile+warmup", cat="train"), annotate("compile+warmup"):
+        # the first step alone: on the card it holds the kernels' build (at
+        # a process's first launch) and the libraries' first-call set-up
+        with Timer(sync=device) as t_first:
+            state, loss = step_fn(state, batch, targets)
+            float(loss)
+        compile_time = t_first.elapsed
+        for _ in range(max(0, warmup - 1)):
+            state, loss = step_fn(state, batch, targets)
+            float(loss)
 
     holder = [state]
     loss_tensors = []
@@ -640,36 +643,43 @@ def _run_train(config, zero1, zero_stage, device, output_dir, verbose):
     preempted_at: Optional[int] = None
     before = _launch_counts()
     # graceful preemption: a SIGTERM between steps ends the loop on every
-    # rank at the same step and falls through to the forced final save
-    with PreemptionGuard() as guard:
-        for _ in range(iters):
+    # rank at the same step and falls through to the forced final save.
+    # The spans and annotations are JAX's (``compile+warmup``, one
+    # ``train_step`` per timed step, ``measure`` around the measured
+    # region, here the per-iteration loop and its events' completion); each
+    # wraps the timing from the outside and adds no host sync to a step
+    with spans.span("measure", cat="train"), annotate("measure"), \
+            PreemptionGuard() as guard:
+        for i in range(iters):
             if inject.fire("preempt"):
                 os.kill(os.getpid(), signal.SIGTERM)
             if _any_rank(guard.requested, mesh, device):
                 preempted_at = holder[0].step
                 break
-            if mesh is not None:
-                slowest, local = time_fn_per_iter_spmd(
-                    timed_step, iterations=1, device=device, group=dist.group.WORLD)
-                step_times += slowest
-                local_times += local
-            elif on_cuda:  # event pairs, read after the loop: the host runs ahead
-                pair = (torch.cuda.Event(enable_timing=True),
-                        torch.cuda.Event(enable_timing=True))
-                pair[0].record()
-                timed_step()
-                pair[1].record()
-                events.append(pair)
-            else:
-                t0 = time.perf_counter()
-                timed_step()
-                step_times.append(time.perf_counter() - t0)
+            with spans.span("train_step", cat="train", step=i), \
+                    step_annotation("train_step", i):
+                if mesh is not None:
+                    slowest, local = time_fn_per_iter_spmd(
+                        timed_step, iterations=1, device=device, group=dist.group.WORLD)
+                    step_times += slowest
+                    local_times += local
+                elif on_cuda:  # event pairs, read after the loop: the host runs ahead
+                    pair = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+                    pair[0].record()
+                    timed_step()
+                    pair[1].record()
+                    events.append(pair)
+                else:
+                    t0 = time.perf_counter()
+                    timed_step()
+                    step_times.append(time.perf_counter() - t0)
             if ckpt is not None:
                 ckpt.maybe_save(holder[0])
-    after = _launch_counts()
-    if events:
-        torch.cuda.synchronize(device)
-        step_times = [start.elapsed_time(end) / 1e3 for start, end in events]
+        after = _launch_counts()
+        if events:
+            torch.cuda.synchronize(device)
+            step_times = [start.elapsed_time(end) / 1e3 for start, end in events]
     if mesh is None:
         local_times = step_times
     state = holder[0]

@@ -340,8 +340,12 @@ def test_obs_exit_codes(tmp_path):
     assert run_obs("devtrace", journal=str(tmp_path), output=str(tmp_path / "o"),
                    verbose=False) == EXIT_FINDINGS
     assert run_obs("devtrace", journal=None, verbose=False) == EXIT_CRASH
-    for which in ("calibrate", "diff", "attribute", "nonsense"):
+    for which in ("calibrate", "diff", "nonsense"):
         assert run_obs(which, journal=str(tmp_path), verbose=False) == EXIT_CRASH
+    # obs attribute (ported): a directory with neither a span trace nor a
+    # journal is a crash, as in JAX (tests/test_torch_attribution.py)
+    assert run_obs("attribute", journal=str(tmp_path), output=str(tmp_path / "a"),
+                   verbose=False) == EXIT_CRASH
     # obs fit (ported): a tree without samples is a refused fit, a finding
     assert run_obs("fit", results=[str(tmp_path)], fit_dir=str(tmp_path / "db"),
                    verbose=False) == EXIT_FINDINGS

@@ -57,6 +57,8 @@ def test_port_has_the_expected_modules():
                 "dlbb_tpu_torch/obs/corpus.py", "dlbb_tpu_torch/analysis/findings.py",
                 "dlbb_tpu_torch/resilience/validate.py", "dlbb_tpu_torch/resilience/chaos.py",
                 "dlbb_tpu_torch/analysis/costmodel.py", "dlbb_tpu_torch/obs/fit.py",
+                "dlbb_tpu_torch/obs/attribution.py", "dlbb_tpu_torch/plan/autotune.py",
+                "dlbb_tpu_torch/plan/__init__.py", "dlbb_tpu_torch/__main__.py",
                 "bench_torch.py"):
         assert rel in PORT_FILES
 

@@ -344,11 +344,39 @@ def test_cli_reports_with_nothing_to_report_fails(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("rel,item", [("BENCH_autotune.json", "item 14")])
-def test_cli_reports_refuses_unported_inputs(tmp_path, rel, item):
-    _write(tmp_path / "results" / rel, {})
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(["reports", "--stats", str(tmp_path / "s"),
-                  "--results", str(tmp_path / "results")])
+def test_cli_reports_refuses_unported_inputs(tmp_path, rel, item, capsys):
+    """No input is refused any more: the autotuner's bench (``rel``, item 14,
+    part 14b) is ported, and ``cli reports`` writes ``AUTOTUNE.md`` from it,
+    its measured rows JAX's ``write_autotune_report``'s
+    (``tests/test_torch_autotune.py`` holds the text); a bench without
+    measured rows writes nothing and is no report."""
+    from dlbb_tpu.stats.parallelism_report import write_autotune_report
+
+    bench = {"schema": "dlbb_bench_autotune_v1", "target": "serving", "devices": 2,
+             "searched": 80, "pruned": {"validation-reject": 28, "infeasible-hbm": 0,
+                                        "cm2-fit-missing": 0},
+             "tier": {"name": "cpu-sim", "fit": {"fit_version": 2}}, "ranked": [{}] * 52,
+             "default_plan": "serve[dp1,tp2,K1,W1]", "speedup_vs_default": 3.4,
+             "agreement": {"rows": [
+                 {"plan": "serve[dp2,tp1,K16,W2]", "role": "top-k", "predicted_us": 2657.0,
+                  "predicted_rank": 1, "measured_rank": 1, "goodput_tokens_per_s": 633.8},
+                 {"plan": "serve[dp1,tp2,K1,W1]", "role": "default-heuristic",
+                  "predicted_us": 3017.1, "predicted_rank": 2, "measured_rank": 2,
+                  "goodput_tokens_per_s": 186.4}],
+                 "measured_winner": "serve[dp2,tp1,K16,W2]",
+                 "predicted_winner": "serve[dp2,tp1,K16,W2]", "top2_contains": True}}
+    _write(tmp_path / "results" / rel, {**bench, "agreement": {"rows": []}})
+    args = ["reports", "--stats", str(tmp_path / "s"), "--results", str(tmp_path / "results")]
+    assert cli.main(args) == 1  # no measured rows: nothing to report
+    assert not (tmp_path / "s" / "parallelism" / "AUTOTUNE.md").exists()
+    _write(tmp_path / "results" / rel, bench)
+    assert cli.main(args) == 0
+    assert "autotune: 2 measured plan(s)" in capsys.readouterr().out
+    md = (tmp_path / "s" / "parallelism" / "AUTOTUNE.md").read_text()
+    rows = write_autotune_report(tmp_path / "results" / rel, tmp_path / "jax")
+    assert len(rows) == 2 and "**3.40x**" in md
+    assert md.split("## Search accounting")[1] \
+        == (tmp_path / "jax" / "AUTOTUNE.md").read_text().split("## Search accounting")[1]
 
 
 def test_cli_reports_writes_the_serving_report(tmp_path, capsys):
