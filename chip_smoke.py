@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
+# comm-lint: disable-file=host-transfer-in-loop  every loop here checks results on the host or brackets a timing rep
 """Smoke run of the PyTorch/CUDA port (``dlbb_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm,tp,dtrain,seq,moe,pipe,compress,bench,kv,serve,fleet,chaos,plan]
+    python3 chip_smoke.py [--phases build,fwd,bwd,e2e,train,time,comm,tp,dtrain,seq,moe,pipe,compress,bench,kv,serve,fleet,chaos,plan,analyze]
 
 Phases (each raises on failure, and the script then exits non-zero).  The
-multi-rank runs of phases tp, dtrain, seq, moe, pipe and compress, processes
+multi-rank runs of phases tp, dtrain, seq, moe, pipe, compress and analyze, processes
 on the one card over gloo, are the jobs of one spawn of ``GLOO_WORLD``
 processes (``_run_gloo_jobs``), made after phase 1 and before the phases
 that check them: each job in turn on the first ranks of one gloo group
@@ -29,7 +30,8 @@ that check them: each job in turn on the first ranks of one gloo group
    trace (``obs/devtrace.py``) holds exactly as many ``flash_fwd_kernel``
    events as the launch counter counts over it, its device µs per bucket
    printed (where CUPTI gives no kernel, the capture must fail closed, and
-   ``cupti: unavailable`` is printed);
+   ``cupti: unavailable`` is printed); then (phase 20 (d)) the same forward
+   once more under the collective audit's capture;
 4. drive the train path through its entry point: ``run_train`` on
    ``dlbb_tpu_torch/configs/train_1b_adam_bf16m.yaml`` (the same 1B decoder,
    remat "dots", Adam with bf16 moments, B=8, S=512); check the flash
@@ -46,6 +48,8 @@ that check them: each job in turn on the first ranks of one gloo group
    loss and gradients whose ``flash_fwd_kernel``, ``flash_bwd_dq_kernel``
    and ``flash_bwd_dkv_kernel`` events equal the counters' launches over
    the capture's last session (the sum of its ``profile_reps`` calls);
+   then (phase 20 (d)) one Adam step of the same config under the
+   collective audit's capture;
 5. time each kernel alone beside its plain version, one PyTorch library
    call of the same function (a yardstick only: the port never calls it)
    and the least time the card could take, with its TFLOP/s and its share
@@ -284,6 +288,20 @@ that check them: each job in turn on the first ranks of one gloo group
    journaled ``cm2-fit-missing`` and ``metrics.prom``'s
    ``plan_search_points{outcome="pruned-cm2-fit-missing"}`` equal to
    ``searched``.  Each part's seconds are printed.
+20. ``analyze``, the source lint and the collective audit
+   (``analysis/{source_lint,op_capture,hlo_audit}.py``, ``cli analyze``):
+   (a) ``python -m dlbb_tpu_torch analyze lint --strict-warnings`` as a
+   subprocess exits 0 (the files linted and the suppressions printed); (b)
+   ``analyze hlo`` with no ``--simulate``, at world 1, exits 1 with
+   ``no-targets-audited`` and every default target skipped; (c) a job of
+   the one gloo spawn: ``run_hlo_audit`` over every default target (the
+   registry ops, the forwards, the train steps and the serving programs)
+   on the 8 ranks with CUDA tensors, every target clean, each target's
+   kinds, count and wire bytes printed; (d) in phases 3 and 4, the 1B
+   forward and the 1B Adam step once more each under the capture
+   (``_captured``): 0 collectives, the flash launches the phases count (24
+   per forward, 48/24/24 per step), and for the step every parameter and
+   Adam moment kept its storage (the step updates its state in place).
 
 It then prints the card's name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -370,7 +388,8 @@ EDGE_CASES = {
 # phase 5 on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's kernel table)
 FWD_BEFORE_MS = {"main": 0.1259, "long": 2.5038}
 PHASES = ("build", "fwd", "bwd", "e2e", "train", "time", "comm", "tp", "dtrain", "seq",
-          "moe", "pipe", "compress", "bench", "kv", "serve", "fleet", "chaos", "plan")
+          "moe", "pipe", "compress", "bench", "kv", "serve", "fleet", "chaos", "plan",
+          "analyze")
 TP_CONFIG = "dlbb_tpu_torch/configs/baseline_config.yaml"
 # the 3D sweep's LLM shapes (batch, seq, hidden) on the card: the largest is
 # 1 GiB of bf16 per rank
@@ -383,6 +402,14 @@ COMM_RESULT_KEYS = (
     "timing_method", "timing_granularity", "forced_completion_s", "timings",
     "variant", "mesh_shape", "mesh_axis_names", "payload_bytes_per_rank",
     "timestamp", "system_info")
+
+
+def _stopwatch():
+    """The wall seconds since this call, as a function: a phase's or a
+    job's span, its checks included, which is printed and not a
+    measurement (so no timed region of the source lint)."""
+    start = time.perf_counter()
+    return lambda: time.perf_counter() - start
 
 
 def _inputs(torch, shape, seed):
@@ -671,6 +698,15 @@ def phase_main_path(torch, fa, gpu_line):
             torch.inference_mode():
         _traced_flash(torch, fa, "e2e_forward_1b", lambda _: forward(params, batch, model_cfg),
                       tmp, gpu_line, ("flash_fwd",))
+
+    # phase analyze (d): the same forward once more under the collective
+    # audit's capture
+    def forward_once(p, x):
+        with torch.inference_mode():
+            return forward(p, x, model_cfg)
+
+    _captured(torch, "e2e", "the 1B forward", forward_once, (params, batch),
+              {"flash_fwd": model_cfg.num_layers, "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
     return launches, result
 
 
@@ -757,7 +793,45 @@ def phase_train(torch, fa, gpu_line):
                                      dir=Path(__file__).resolve().parent) as tmp:
         _traced_flash(torch, fa, "train_step_1b", lambda _: loss_and_grads(model_cfg), tmp,
                       gpu_line, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+
+    # phase analyze (d): one Adam step of the same run under the collective
+    # audit's capture, its parameters and moments updated in place
+    from dlbb_tpu_torch.analysis.hlo_audit import _train_state_spec
+    from dlbb_tpu_torch.train.loop import make_train_step
+    from dlbb_tpu_torch.train.optim import build_optimizer
+
+    del params, leaves, grads_k, grads_d
+    step, state = make_train_step(model_cfg, build_optimizer(config["training"]),
+                                  init_params(model_cfg, config["input"]["seed"], "cuda"),
+                                  batch_size=config["input"]["batch_size"])
+    new_state, loss = _captured(torch, "train", "one 1B Adam step", step,
+                                (state, batch, targets), per_step, _train_state_spec())
+    print(f"[train] (d) the captured step's loss {float(loss):.5f}, step {new_state.step}")
     return launches, result
+
+
+def _captured(torch, phase, what, fn, args, want, state=None):
+    """Phase analyze (d): ``fn(*args)`` once under the collective audit's
+    capture (``analysis/op_capture.py``): no collective at world 1, the
+    flash launches ``want`` by kernel, and with ``state`` the donation
+    counterpart (every state tensor kept its storage).  Returns the call's
+    result."""
+    from dlbb_tpu_torch.analysis.op_capture import capture_call
+
+    t0 = time.perf_counter()
+    out, cap = capture_call(fn, args, state=state, target=what)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k[:-len("_launches")]: n for k, n in cap.flash_launches.items()}
+    kept = (f"; {len(cap.state_before)} state tensors, every one kept its storage: "
+            f"{cap.has_donation}" if state is not None else "")
+    print(f"[{phase}] (d) {what} under the capture: {len(cap.collectives)} collectives, "
+          f"flash launches {launches} (expected {want}), {len(cap.aten_ops)} aten ops"
+          f"{kept}; {seconds:.1f} s")
+    if cap.collectives or launches != want or (state is not None and not cap.has_donation):
+        raise AssertionError(f"{what} under the capture: {[c.to_dict() for c in cap.collectives]}"
+                             f", launches {launches}, in place {cap.has_donation}")
+    return out
 
 
 # phase train's run and phase plan's runs write under this directory
@@ -995,7 +1069,21 @@ def _gloo_job_bodies():
     return {"tp": _tp_gloo_job, "step": _dtrain_gloo_step, "reshard": _dtrain_reshard_steps,
             "uneven": _dtrain_uneven_run, "ckpt": _dtrain_ckpt_run, "seq": _seq_gloo_runs,
             "moe": _moe_ep_job, "pipe": _pipe_job, "compress_ring": _compress_ring_ops,
-            "compress_train": _compress_train_runs}
+            "compress_train": _compress_train_runs, "analyze": _analyze_gloo_job}
+
+
+def _analyze_gloo_job(device):
+    """Phase analyze (c), a job of the one gloo spawn: the collective audit
+    (``analysis/hlo_audit.py::run_hlo_audit``) over every default target,
+    on every rank with the rank's tensors on ``device``; rank 0 returns its
+    report and each target's meta, the others None."""
+    import torch.distributed as dist
+
+    from dlbb_tpu_torch.analysis.hlo_audit import default_targets, run_hlo_audit
+
+    metas = {}
+    report = run_hlo_audit(default_targets(), device=device, metas=metas)
+    return (report.to_dict(), metas) if dist.get_rank() == 0 else None
 
 
 def _gloo_ranks(rank, world, init_file, jobs, device, out_dir):
@@ -1281,8 +1369,9 @@ def _traced_flash(torch, fa, what, fn, trace_root, gpu_line, kernels, profile_re
     check's seconds."""
     from dlbb_tpu_torch.obs.capture import capture_device_trace
     from dlbb_tpu_torch.obs.devtrace import analyze_capture, parse_capture
+    from dlbb_tpu_torch.utils.config import save_json
 
-    t0 = time.perf_counter()
+    elapsed = _stopwatch()
     calls = []
 
     def counted(x):
@@ -1297,11 +1386,11 @@ def _traced_flash(torch, fa, what, fn, trace_root, gpu_line, kernels, profile_re
     if not _cupti_verdict([meta], what):
         save_dir = Path(trace_root) / f"{what}_run"
         save_dir.mkdir(parents=True, exist_ok=True)
-        (save_dir / f"{what}.json").write_text(json.dumps(
-            {"operation": what, "timings": [[0.0]], "device_trace": meta}))
+        save_json({"operation": what, "timings": [[0.0]], "device_trace": meta},
+                  save_dir / f"{what}.json")
         _devtrace_rc(save_dir, Path(trace_root) / f"{what}_report", want_ok=False)
         print(f"[trace] {what}: the capture failed closed (no device events), obs devtrace "
-              f"exit 1; flash launches {launched} in {time.perf_counter() - t0:.1f} s")
+              f"exit 1; flash launches {launched} in {elapsed():.1f} s")
         return launched
     analysis = analyze_capture(parse_capture(meta["perfetto_trace"]))
     events = {k: sum(r["count"] for r in analysis["per_op"] if FLASH_KERNEL_NAMES[k] in r["name"])
@@ -1310,7 +1399,7 @@ def _traced_flash(torch, fa, what, fn, trace_root, gpu_line, kernels, profile_re
           f"flash kernel events {events}, launch counters {launched}; "
           f"{sum(r['count'] for r in analysis['per_op'])} device events of "
           f"{len(analysis['per_op'])} names; {meta['trace_bytes']} trace bytes; "
-          f"{meta['attempts']} session(s); {time.perf_counter() - t0:.1f} s")
+          f"{meta['attempts']} session(s); {elapsed():.1f} s")
     for k in kernels:
         if launched[k] == 0 or events[k] != launched[k]:
             raise AssertionError(f"the traced {what}: {events[k]} {FLASH_KERNEL_NAMES[k]} "
@@ -1427,12 +1516,12 @@ def _dtrain_gloo_step(config, stage, device):
         init_params(model_cfg, config["input"]["seed"], device, tp_rank=c["tp"],
                     tp=mesh.shape["tp"]), mesh=mesh, zero_stage=stage,
         batch_size=config["input"]["batch_size"])
-    t0 = time.perf_counter()
+    elapsed = _stopwatch()
     loss, grads = step.grads(state, batch, targets)
     grads = tree_map(lambda g: g.cpu(), grads)
     state, step_loss = step(state, batch, targets)
     return {"coords": c, "loss": float(loss), "step_loss": float(step_loss),
-            "grads": grads, "axes": step.zero.opt_axes, "seconds": time.perf_counter() - t0}
+            "grads": grads, "axes": step.zero.opt_axes, "seconds": elapsed()}
 
 
 # phase dtrain (b), tp that does not divide the heads (item 20): JAX's
@@ -1465,7 +1554,7 @@ def _dtrain_uneven_run(config, stage, device):
     mesh = _job_mesh(config, model_cfg)
     if mesh is None:
         return None
-    t0 = time.perf_counter()
+    elapsed = _stopwatch()
     c = mesh.coords
     params = init_params(model_cfg, config["input"]["seed"], device, tp_rank=c["tp"],
                          tp=mesh.shape["tp"])
@@ -1483,7 +1572,7 @@ def _dtrain_uneven_run(config, stage, device):
     state, step_loss = step(state, batch, targets)
     return {"coords": c, "y": y, "loss": float(loss), "step_loss": float(step_loss),
             "grads": tree_map(lambda g: g.cpu(), grads), "fwd_launches": fwd_launches,
-            "step_launches": step_launches, "seconds": time.perf_counter() - t0}
+            "step_launches": step_launches, "seconds": elapsed()}
 
 
 def _state_cpu(state):
@@ -1727,7 +1816,7 @@ def _dtrain_reshard_steps(config, stage, device):
         config, dtype=torch.bfloat16, device=device, hidden_size=model_cfg.hidden_size,
         seed_offset=off, **batch_spec(mesh, step_chunks(r["grad_accum"], None))).get_batch()
         for off in (0, 1))
-    t0 = time.perf_counter()
+    elapsed = _stopwatch()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         step, state = make_train_step(
@@ -1747,7 +1836,7 @@ def _dtrain_reshard_steps(config, stage, device):
                          if issubclass(w.category, UserWarning)],
             "grads": grads, "axes": step.zero.opt_axes, "losses": losses,
             "launches": _flash_counts(fa), "params": params,
-            "seconds": time.perf_counter() - t0}
+            "seconds": elapsed()}
 
 
 def _dtrain_reshard_config(config):
@@ -2392,7 +2481,7 @@ def _seq_gloo_runs(config, runs, device):
 
     out = {}
     for name, par, model in runs:
-        t0 = time.perf_counter()
+        elapsed = _stopwatch()
         if device == "cuda":  # each run's own peak
             torch.cuda.reset_peak_memory_stats()
         cfg = copy.deepcopy(config)
@@ -2436,7 +2525,7 @@ def _seq_gloo_runs(config, runs, device):
                      "fwd_launches": fwd_launches, "step_launches": step_launches,
                      "transport": ring_transport(model_cfg, mesh, torch.device(device)),
                      "peak_gib": (peak_grads / 2**30, peak / 2**30),
-                     "seconds": time.perf_counter() - t0}
+                     "seconds": elapsed()}
         del state, step, grads, y
         if device == "cuda":
             torch.cuda.empty_cache()
@@ -2808,7 +2897,7 @@ def phase_moe(torch, fa, gpu_line, results):
     from dlbb_tpu_torch.train.loop import make_train_step, run_train
     from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
 
-    t_phase = time.perf_counter()
+    elapsed = _stopwatch()
     torch.cuda.empty_cache()
     layers = ModelConfig.from_dict(MOE_MODEL).num_layers
     out = {"e2e": {}, "train": None, "ep": {}}
@@ -2930,7 +3019,7 @@ def phase_moe(torch, fa, gpu_line, results):
         raise AssertionError("the 1B MoE ep=2 step disagrees with world 1")
     out["ep"].update(loss_rel=loss_rel, loss_bound=loss_bound, worst_grad_rel_l2=rels[worst],
                      worst_leaf=worst, peak_gib=[r["peak_gib"] for r in ranks])
-    print(f"[moe] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    print(f"[moe] phase wall time {elapsed():.1f} s")
     return out
 
 
@@ -3023,9 +3112,10 @@ def _pipe_job(device):
     del y
     for schedule in PIPE_SCHEDULES:
         torch.cuda.reset_peak_memory_stats()
+        # a copy: the step updates the parameters it is given in place
         step, state = make_train_step(
-            model_cfg, build_optimizer(config["training"]), params, mesh=mesh,
-            num_microbatches=plan.num_microbatches, pipeline_schedule=schedule,
+            model_cfg, build_optimizer(config["training"]), tree_map(torch.clone, params),
+            mesh=mesh, num_microbatches=plan.num_microbatches, pipeline_schedule=schedule,
             batch_size=config["input"]["batch_size"])
         _zero_flash_counts(fa)
         torch.cuda.synchronize()
@@ -3082,7 +3172,7 @@ def phase_pipe(torch, gpu_line, results):
     from dlbb_tpu_torch.train.loop import make_train_step
     from dlbb_tpu_torch.train.optim import build_optimizer, tree_map
 
-    t_phase = time.perf_counter()
+    elapsed = _stopwatch()
     torch.cuda.empty_cache()
     config = _pipe_config()
     one = dict(config, parallelism={"world_size": 1, "data_parallel": 1})
@@ -3196,7 +3286,7 @@ def phase_pipe(torch, gpu_line, results):
     if not (loss_rel <= PIPE_LOSS_REL and unequal[worst] <= PIPE_UNEQUAL_SHARE):
         raise AssertionError("the GPipe and 1F1B steps disagree")
     out["gpipe_vs_1f1b"] = {"loss_rel": loss_rel, "unequal_share": unequal[worst]}
-    print(f"[pipe] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    print(f"[pipe] phase wall time {elapsed():.1f} s")
     return out
 
 
@@ -3240,7 +3330,7 @@ def _compress_quantizer(torch, n, gpu_line):
     quantisation error, each compared bit for bit; then quantise plus
     dequantise timed by CUDA events (median of 10)."""
     from dlbb_tpu_torch.comm import compression as qc
-    from dlbb_tpu_torch.stats.stats1d import padded_elems, scale_bytes
+    from dlbb_tpu_torch.analysis.expectations import padded_elems, scale_bytes
 
     g = torch.Generator(device="cuda").manual_seed(42)
     x = torch.randn(n, generator=g, device="cuda")
@@ -3395,7 +3485,7 @@ def _compress_ring_ops(device):
 def _compress_ring(torch, ranks):
     """Phase compress (c)'s checks on the ranks' ``_compress_ring_ops``."""
     from dlbb_tpu_torch.comm import get_op, make_payload
-    from dlbb_tpu_torch.stats.stats1d import op_wire_bytes
+    from dlbb_tpu_torch.analysis.expectations import op_wire_bytes
 
     world, n = 2, COMPRESS_RING_N
     errors = {}
@@ -4574,6 +4664,7 @@ def _serve_capture(torch, eng, gpu_line):
     engine: one prefill and one fused decode scan on fresh state, their
     phases, and ``obs devtrace`` on a run directory that records them."""
     from dlbb_tpu_torch.obs.devtrace import analyze_capture, parse_capture
+    from dlbb_tpu_torch.utils.config import save_json
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_capture_",
@@ -4585,9 +4676,9 @@ def _serve_capture(torch, eng, gpu_line):
         ok = _cupti_verdict(metas, "serve (d) capture")
         run = Path(tmp) / "run"
         run.mkdir()
-        (run / "serving_chip_smoke.json").write_text(json.dumps(
-            {"schema": "dlbb_serving_report_v1", "observability": {
-                "device_trace_dir": str(Path(tmp) / "dev"), "device_captures": metas}}))
+        save_json({"schema": "dlbb_serving_report_v1", "observability": {
+            "device_trace_dir": str(Path(tmp) / "dev"), "device_captures": metas}},
+            run / "serving_chip_smoke.json")
         _devtrace_rc(run, Path(tmp) / "report", ok)
         for m in metas if ok else ():
             a = analyze_capture(parse_capture(m["perfetto_trace"]))
@@ -4996,9 +5087,9 @@ def phase_chaos(torch, fa, gpu_line):
 
 
 # phase plan (a): the subcommands of ``python -m dlbb_tpu_torch`` (JAX's
-# thirteen less ``analyze``, item 15)
+# thirteen)
 PLAN_SUBCOMMANDS = {"bench1d", "bench3d", "stats1d", "stats3d", "compare", "reports", "e2e",
-                    "train", "serve", "obs", "chaos", "plan"}
+                    "train", "serve", "analyze", "obs", "chaos", "plan"}
 PLAN_FIT_MISSING = "cm2-fit-missing"
 
 
@@ -5098,6 +5189,68 @@ def phase_plan(torch, gpu_line):
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# phase analyze: the port's own files lint clean, and the collective audit
+# at world 1 audits nothing (every default target needs 4 or 8 ranks)
+ANALYZE_TARGETS = 41
+
+
+def phase_analyze(gpu_line, results):
+    """Phase 20 (module docstring)."""
+    import subprocess
+
+    from dlbb_tpu_torch.analysis.hlo_audit import default_targets
+
+    root = Path(__file__).resolve().parent
+    names = [t.name for t in default_targets()]
+    if len(names) != ANALYZE_TARGETS:
+        raise AssertionError(f"{len(names)} default audit targets, not {ANALYZE_TARGETS}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_analyze_", dir=root) as tmp:
+        reports = {}
+        for part, which, want in (("a", ["lint", "--strict-warnings"], 0), ("b", ["hlo"], 1)):
+            t0 = time.perf_counter()
+            path = Path(tmp) / f"{which[0]}.json"
+            run = subprocess.run([sys.executable, "-m", "dlbb_tpu_torch", "analyze", *which,
+                                  "--json", str(path)], cwd=root, capture_output=True,
+                                 text=True, timeout=300)
+            if run.returncode != want or not path.is_file():
+                raise AssertionError(f"analyze {' '.join(which)}: exit {run.returncode} (want "
+                                     f"{want}); {run.stdout[-2000:]} {run.stderr[-2000:]}")
+            reports[which[0]] = json.loads(path.read_text())
+            summary = reports[which[0]]["summary"]
+            print(f"[analyze] ({part}) python -m dlbb_tpu_torch analyze {' '.join(which)}: "
+                  f"exit {run.returncode}, {summary['errors']} error(s), "
+                  f"{summary['warnings']} warning(s), {summary['suppressed']} suppressed, "
+                  f"{summary['files_linted']} file(s) linted, "
+                  f"{len(summary['targets_audited'])} target(s) audited, "
+                  f"{len(summary['skipped_targets'])} skipped; "
+                  f"{time.perf_counter() - t0:.1f} s")
+    lint, hlo = reports["lint"], reports["hlo"]
+    if lint["findings"] or lint["summary"]["files_linted"] <= 80:
+        raise AssertionError(f"the lint: {lint['findings']}, "
+                             f"{lint['summary']['files_linted']} files")
+    rules = [f["rule"] for f in hlo["findings"]]
+    skipped = [s["target"] for s in hlo["summary"]["skipped_targets"]]
+    if rules != ["no-targets-audited"] or skipped != names or hlo["summary"]["targets_audited"]:
+        raise AssertionError(f"analyze hlo at world 1: findings {rules}, skipped {skipped}")
+
+    # (c) the audit on the gloo spawn's 8 ranks, CUDA tensors on the card
+    (report, metas), = results[0]["ranks"]
+    audited = report["summary"]["targets_audited"]
+    for name in audited:
+        meta = metas[name]
+        kinds = sorted({c["kind"] for c in meta["collectives"]})
+        print(f"[analyze] (c) {name}: {meta['num_collectives']} collective(s) {kinds}, "
+              f"{meta['total_wire_bytes']} wire B/rank"
+              + (f", state in place {meta['has_donation']}" if meta["has_donation"] else ""))
+    print(f"[analyze] (c) run_hlo_audit on {GLOO_WORLD} gloo ranks on {gpu_line}, CUDA "
+          f"tensors: {len(audited)} target(s) audited, {report['summary']['errors']} "
+          f"error(s), {report['summary']['warnings']} warning(s); the job "
+          f"{results[0]['seconds']:.1f} s of rank 0")
+    if report["findings"] or audited != names:
+        raise AssertionError(f"the audit on the gloo ranks: {report['findings']}, audited "
+                             f"{len(audited)} of {len(names)}")
+
+
 def _same_planes(torch, got, host):
     """A card tensor equal to a host tensor bit for bit, compared one slice
     of the leading dim at a time."""
@@ -5175,7 +5328,7 @@ def main() -> int:
     makers = {"tp": lambda: [("tp", TP_GLOO_CONFIG)],
               "dtrain": lambda: _dtrain_gloo_jobs(job_dir.name), "seq": _seq_gloo_jobs,
               "moe": lambda: [("moe",)], "pipe": lambda: [("pipe",)],
-              "compress": _compress_gloo_jobs}
+              "compress": _compress_gloo_jobs, "analyze": lambda: [("analyze",)]}
     jobs = {phase: make() for phase, make in makers.items() if phase in phases}
     gloo = timed("gloo", _run_gloo_jobs, torch, jobs) if jobs else {}
     if "fwd" in phases:
@@ -5220,6 +5373,8 @@ def main() -> int:
         chaos = timed("chaos", phase_chaos, torch, fa, gpu_line)
     if "plan" in phases:
         timed("plan", phase_plan, torch, gpu_line)
+    if "analyze" in phases:
+        timed("analyze", phase_analyze, gpu_line, gloo["analyze"])
     job_dir.cleanup()
     print(f"[time] phases {', '.join(f'{k} {v:.1f}' for k, v in walls.items())} s; "
           f"{sum(walls.values()):.1f} s in all")

@@ -36,6 +36,9 @@ dlbb_tpu_torch`` runs it too).
     python -m dlbb_tpu_torch.cli obs attribute --journal DIR [--span-trace-file FILE]
                                                [--model cm1|cm2] [--tier TIER]
                                                [--fit-dir DIR] [--output DIR]
+    python -m dlbb_tpu_torch.cli analyze lint|hlo [--simulate N] [--json PATH]
+                                         [--root DIR] [--strict-warnings]
+                                         [--output DIR]
     python -m dlbb_tpu_torch.cli chaos [--plan CLASS|all] [--world N]
                                        [--device cuda|cpu] [--output DIR]
     python -m dlbb_tpu_torch.cli plan --auto|--capacity [--target serving|train]
@@ -267,6 +270,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the baseline implementation of the variant tables and "
                          "the north-star curve's stats")
     _add_serve_parser(sub)
+    _add_analyze_parser(sub)
 
     ob = sub.add_parser(
         "obs", help="observability: journal->trace reconstruction (trace), the "
@@ -283,8 +287,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "into the versioned fitted DB; attribute = join a run's span "
                          "trace/journal against the cost model into a per-phase 'where did "
                          "the time go' report (MD+CSV under stats/torch/analysis/"
-                         "attribution/); calibrate and diff are not ported yet (items 14 "
-                         "and 15)")
+                         "attribution/); calibrate and diff are not ported yet (item 14, "
+                         "part 14b, over item 15, part 15b's baselines)")
     ob.add_argument("--journal", default=None, metavar="DIR",
                     help="the run's output directory (sweep_journal.jsonl for trace, "
                          "the captured results for devtrace, the span trace or journal "
@@ -336,6 +340,41 @@ def build_parser() -> argparse.ArgumentParser:
                          "kept on failure)")
     _add_plan_parser(sub)
     return p
+
+
+def _add_analyze_parser(sub) -> None:
+    """``analyze``: JAX's positional pass and flags (``dlbb_tpu/cli.py:150-204``),
+    its ``--simulate N`` as N gloo ranks on the CPU."""
+    an = sub.add_parser(
+        "analyze",
+        help="comm-lint: the source lint (lint) and the collective audit of every "
+             "registered target's c10d ops (hlo); the schedule, memory and numerics "
+             "passes and the baseline gate are not ported yet (ROADMAP Queue 1, Slice F, "
+             "item 15, part 15b) and exit 2.  Exit codes 0 clean / 1 findings / 2 crash")
+    an.add_argument("which", nargs="?", default="all",
+                    choices=("hlo", "lint", "schedule", "memory", "numerics", "all",
+                             "snapshot", "diff"),
+                    help="pass to run: hlo = collective audit, lint = AST source lint; "
+                         "schedule, memory, numerics, all, snapshot and diff exit 2 "
+                         "(part 15b)")
+    an.add_argument("--simulate", type=int, default=0, metavar="N",
+                    help="run the collective audit on N gloo ranks on the CPU (targets "
+                         "needing more ranks are skipped; without it every target is)")
+    an.add_argument("--json", default=None, metavar="PATH",
+                    help="write the machine-readable findings report here")
+    an.add_argument("--root", default=".",
+                    help="repo root for the source lint (default: cwd)")
+    an.add_argument("--strict-warnings", action="store_true",
+                    help="exit nonzero on warnings too")
+    an.add_argument("--baselines", default=None, metavar="DIR",
+                    help="baseline directory of snapshot/diff (part 15b)")
+    an.add_argument("--tier", default=None, metavar="TIER",
+                    help="cost-model tier of the schedule pass (part 15b)")
+    an.add_argument("--model", default="cm1", choices=("cm1", "cm2"),
+                    help="cost model of the schedule pass (part 15b)")
+    an.add_argument("--output", default=None, metavar="DIR",
+                    help="fold the per-pass analysis_findings{pass,severity} gauges "
+                         "into DIR/metrics.prom")
 
 
 def _add_plan_parser(sub) -> None:
@@ -620,6 +659,13 @@ def sweep_worker(sweep, device, trace_dir=None):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.cmd == "analyze":
+        from dlbb_tpu_torch.analysis import run_analysis
+
+        # --baselines, --tier and --model are read by part 15b's passes
+        return run_analysis(which=args.which, root=args.root, json_path=args.json,
+                            strict_warnings=args.strict_warnings, output=args.output,
+                            simulate=args.simulate)
     if args.cmd == "obs":
         from dlbb_tpu_torch.obs import run_obs
 

@@ -6,8 +6,8 @@ Wire format.  Chunked symmetric quantisation: the flat payload is cut into
 with one fp32 scale ``amax(chunk) / qmax`` (qmax 127 for int8, 448 for fp8
 e4m3) and its values quantised to the wire dtype.  The scales are the side
 channel: they travel beside every quantised hop and count in the wire
-bytes (``op_wire_bytes`` in ``stats/stats1d.py``, which holds the wire
-model's constants).  fp8 travels bit-cast to ``torch.int8`` (``_to_wire``),
+bytes (``op_wire_bytes`` in ``analysis/expectations.py``, which holds the
+wire model's constants).  fp8 travels bit-cast to ``torch.int8`` (``_to_wire``),
 as JAX's does: gloo has no fp8 type, and a wire widened on the way would
 double the bytes moved.
 
@@ -42,8 +42,8 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from dlbb_tpu_torch.analysis.expectations import COMPRESSIONS, SCALE_CHUNK_ELEMS
 from dlbb_tpu_torch.parallel.ring import FORWARD, Ring
-from dlbb_tpu_torch.stats.stats1d import COMPRESSIONS, SCALE_CHUNK_ELEMS
 
 # symmetric ranges: int8 without the asymmetric -128, fp8 e4m3's finite max
 _QMAX = {"int8": 127.0, "fp8": 448.0}
@@ -121,11 +121,16 @@ def _from_wire(w: torch.Tensor, compression: str) -> torch.Tensor:
     return w.view(torch.float8_e4m3fn) if compression == "fp8" else w
 
 
-def quantization_error(x: torch.Tensor, compression: str = "int8") -> torch.Tensor:
+def quantization_error(x: torch.Tensor, compression: str = "int8",
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x - D(Q(x))``, the local quantiser's error: the error-feedback
-    residual, in ``x``'s dtype."""
+    residual, in ``x``'s dtype, or rounded once from fp32 into ``out`` (and
+    ``out`` returned) where it is given."""
     q, s = quantize_chunked(x, compression)
-    return (x.float() - dequantize_chunked(q, s, x.shape[-1], torch.float32)).to(x.dtype)
+    deq = dequantize_chunked(q, s, x.shape[-1], torch.float32)
+    if out is not None:
+        return torch.sub(x.float(), deq, out=out)
+    return (x.float() - deq).to(x.dtype)
 
 
 def _ring_reduce(local_chunk: Callable[[int], torch.Tensor], ring: Ring, p: int,

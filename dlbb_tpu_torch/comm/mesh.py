@@ -211,6 +211,7 @@ def get_mesh(spec: MeshSpec, ranks: Optional[Sequence[int]] = None) -> Optional[
             axis_groups[axis] = group
             continue
         for row in np.moveaxis(ids, i, -1).reshape(-1, spec.shape[i]):
+            # comm-lint: disable=host-transfer-in-loop  row is a numpy array on the host, not a tensor
             sub = dist.new_group(row.tolist())
             if rank in row:
                 axis_groups[axis] = sub

@@ -57,12 +57,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dlbb_tpu_torch.analysis.expectations import DEFAULT_COMPRESSION
 from dlbb_tpu_torch.comm.compression import psum_compressed, reduce_scatter_compressed
-from dlbb_tpu_torch.stats.stats1d import DEFAULT_COMPRESSION
 from dlbb_tpu_torch.comm.mesh import Mesh, mesh_num_ranks
 from dlbb_tpu_torch.models.sharding import reduce_scatter_along
 from dlbb_tpu_torch.parallel.collective_matmul import _ag_matmul_body, _matmul_rs_body
-from dlbb_tpu_torch.parallel.ring import Ring
+from dlbb_tpu_torch.parallel.ring import FORWARD, Ring
 
 DEFAULT_PAYLOAD_SEED = 42
 
@@ -234,22 +234,18 @@ def build_alltoall(mesh: Mesh, root: int = 0):
 
 def build_sendrecv(mesh: Mesh, root: int = 0):
     """Ring sendrecv: send to (r+1) % P, receive from (r-1) % P, wait for
-    both (reference ``collectives/1d/openmpi.py:173-198``).  A ring of one
-    rank sends its buffer to itself, a copy (no backend sends to itself)."""
+    both (reference ``collectives/1d/openmpi.py:173-198``): one forward hop
+    of ``parallel/ring.py``'s ``Ring``, which stages a CUDA buffer through
+    host memory on a gloo group (gloo's point-to-point ops take no CUDA
+    tensor).  A ring of one rank sends its buffer to itself, a copy (no
+    backend sends to itself)."""
     _single_axis(mesh, "sendrecv ring")
-    p = mesh_num_ranks(mesh)
-    nxt, prv = (mesh.rank + 1) % p, (mesh.rank - 1) % p
+    ring = Ring(mesh.group) if mesh_num_ranks(mesh) > 1 else None
 
     def call(x, _):
-        if p == 1:
+        if ring is None:
             return x.clone()
-        out = torch.empty_like(x)
-        reqs = dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, x, nxt, mesh.group),
-            dist.P2POp(dist.irecv, out, prv, mesh.group)])
-        for req in reqs:
-            req.wait()
-        return out
+        return ring.shift([x], FORWARD)[0]
 
     return Collective(call)
 

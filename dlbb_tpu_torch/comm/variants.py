@@ -28,7 +28,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 from dlbb_tpu_torch.comm.mesh import MeshSpec
-from dlbb_tpu_torch.stats.stats1d import DEFAULT_COMPRESSION
+from dlbb_tpu_torch.analysis.expectations import DEFAULT_COMPRESSION
 
 
 @dataclass(frozen=True)

@@ -277,12 +277,22 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def all_gather_along(t: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """The ranks' ``t`` concatenated along ``dim``, in rank order."""
+def all_gather_along(t: torch.Tensor, dim: int, group,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The ranks' ``t`` concatenated along ``dim``, in rank order; written
+    into ``out`` (and ``out`` returned) where it is given.  ``t`` may be
+    this rank's slice of ``out``."""
     src = t.movedim(dim, 0).contiguous()
-    out = src.new_empty((dist.get_world_size(group) * src.shape[0],) + src.shape[1:])
-    dist.all_gather_into_tensor(out, src, group=group)
-    return out.movedim(0, dim).contiguous()
+    if out is not None and dim == 0 and out.is_contiguous():
+        if src.untyped_storage().data_ptr() == out.untyped_storage().data_ptr():
+            src = src.clone()  # no collective is handed an input inside its output
+        dist.all_gather_into_tensor(out, src, group=group)
+        return out
+    full = src.new_empty((dist.get_world_size(group) * src.shape[0],) + src.shape[1:])
+    dist.all_gather_into_tensor(full, src, group=group)
+    if out is not None:
+        return out.copy_(full.movedim(0, dim))
+    return full.movedim(0, dim).contiguous()
 
 
 def reduce_scatter_along(t: torch.Tensor, dim: int, group) -> torch.Tensor:

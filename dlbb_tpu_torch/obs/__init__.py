@@ -13,7 +13,8 @@ cost model from a results tree into the versioned DB under
 ``stats/torch/analysis/costmodel_fit`` and ``cli obs attribute`` partitions
 a run's span trace (else its journal) into phases priced by the cost model,
 MD + CSV under ``stats/torch/analysis/attribution`` (:func:`run_obs`); the
-cost model's calibration and its diff are items 14 and 15.  Exit codes
+cost model's calibration and its diff are item 14, part 14b (over item
+15, part 15b's schedule baselines).  Exit codes
 follow ``analysis.findings.EXIT_*``: 0 clean / 1 findings / 2 crash; a
 ``--model cm2`` attribution of a tier with no fit is a finding (1).
 """
@@ -49,12 +50,12 @@ __all__ = [
 
 OBS_COMMANDS = ("trace", "calibrate", "diff", "fit", "attribute", "devtrace")
 # JAX's obs subcommands that wait for the cost model's calibration
-# (item 14, part 14b) and the schedule audit (item 15)
+# (item 14, part 14b) and the schedule audit (item 15, part 15b)
 _NOT_PORTED = {
     "calibrate": ("ROADMAP Queue 1, Slice F, item 14 (part 14b, the cost model's "
                   "calibration)"),
     "diff": ("ROADMAP Queue 1, Slice F, item 14 (part 14b, the calibration gate), over "
-             "item 15's schedule baselines"),
+             "item 15's schedule baselines (part 15b)"),
 }
 
 

@@ -21,9 +21,10 @@ The tier of a sample comes from the artifact's ``system_info.backend``:
 Calibration reports (``dlbb_calibration_v1``) are program-scale rows in
 JAX, their features joined from the schedule baselines of the schedule
 auditor.  The port has no schedule baselines until ROADMAP Queue 1, Slice
-F, item 15 ports the auditor, so :func:`ingest_calibration` skips every
-such report with its reason and makes up no features; calibration rows
-come once item 15 brings the baselines.
+F, item 15, part 15b ports the schedule auditor, so
+:func:`ingest_calibration` skips every such report with its reason and
+makes up no features; calibration rows come once part 15b brings the
+baselines.
 
 Pure file processing: it runs with no device.
 """
@@ -36,7 +37,7 @@ import re
 from pathlib import Path
 from typing import Any, Optional, Sequence
 
-from dlbb_tpu_torch.stats.stats1d import op_wire_bytes
+from dlbb_tpu_torch.analysis.expectations import OP_EXPECTED_KINDS, op_wire_bytes
 
 CORPUS_SCHEMA = "dlbb_fit_corpus_v1"
 
@@ -55,7 +56,7 @@ _PREFILTER_NAMES = re.compile(
     r"|metrics|.*_trace)", re.IGNORECASE
 )
 
-# where the schedule auditor's baselines will live (item 15); nothing
+# where the schedule auditor's baselines will live (item 15, part 15b); nothing
 # writes there yet
 DEFAULT_BASELINE_DIR = Path("stats/torch/analysis/baselines")
 
@@ -69,25 +70,16 @@ ELEM_BYTES = {
 # dispatch whatever the schedule
 _MATMUL_OPS = ("ag_matmul", "matmul_rs")
 
-# each op's defining HLO collective in the JAX package (its
-# ``analysis/expectations.py::OP_EXPECTED_KINDS`` "required" kind, or the
-# first of "required_any"); an op outside the table is a permute chain
-OP_HLO_KIND = {
-    "allreduce": "all-reduce", "allreduce_hierarchical": "all-reduce",
-    "allgather": "all-gather", "broadcast": "all-reduce", "gather": "all-gather",
-    "scatter": "all-reduce", "reduce": "all-reduce", "alltoall": "all-to-all",
-    "sendrecv": "collective-permute", "reducescatter": "reduce-scatter",
-    "barrier": "all-reduce", "ag_matmul": "all-gather", "matmul_rs": "reduce-scatter",
-}
-
 
 def hlo_kind(op: str, variant: str = "default") -> str:
     """The HLO collective JAX lowers ``op`` under ``variant`` to: the ring
     schedules (``overlap_*``) and the quantised rings (``*_q``) are
-    ``collective-permute`` chains."""
+    ``collective-permute`` chains; every other op is its
+    ``OP_EXPECTED_KINDS`` row's ``cost_kind``, and an op outside the table
+    a permute chain."""
     if variant.startswith("overlap_") or op.endswith("_q"):
         return "collective-permute"
-    return OP_HLO_KIND.get(op, "collective-permute")
+    return OP_EXPECTED_KINDS.get(op, {}).get("cost_kind", "collective-permute")
 
 
 def tier_of_result(data: dict[str, Any]) -> str:
@@ -203,7 +195,7 @@ def ingest_result(path: Path, data: dict[str, Any]) -> "tuple[Optional[dict], st
         "file": str(path),
         "op": op,
         "variant": variant,
-        "kind": OP_HLO_KIND.get(op, "collective-permute"),
+        "kind": hlo_kind(op),
         "ranks": ranks,
         "dtype": data.get("dtype"),
         "num_elements": int(data.get("num_elements", 0)),
@@ -228,7 +220,8 @@ def ingest_calibration(path: Path, data: dict[str, Any],
     for their features (JAX's join), which the port does not have yet: the
     report is skipped, with JAX's reason where the baselines directory is
     missing, and otherwise with the reason that the join waits for ROADMAP
-    Queue 1, Slice F, item 15.  No row is ever made without its features."""
+    Queue 1, Slice F, item 15, part 15b.  No row is ever made without its
+    features."""
     baselines_dir = Path(baselines_dir or DEFAULT_BASELINE_DIR)
     if not baselines_dir.is_dir():
         return [], [{"file": str(path),
@@ -237,7 +230,7 @@ def ingest_calibration(path: Path, data: dict[str, Any],
     return [], [{"file": str(path),
                  "reason": (f"schedule baselines under {baselines_dir} are not joined "
                             "until the schedule auditor is ported (ROADMAP Queue 1, "
-                            "Slice F, item 15)")}]
+                            "Slice F, item 15, part 15b)")}]
 
 
 _DEVTRACE_SAMPLE_KEYS = ("op", "kind", "ranks", "wire_bytes",

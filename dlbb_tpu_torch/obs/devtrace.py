@@ -42,7 +42,8 @@ CUTLASS GEMMs go to ``dot``; the port's own ``flash_*_kernel``s go where
 JAX's Pallas custom call goes (``other``); per-op rows keep kernel names.
 
 The static column (JAX's join against the schedule auditor's baselines)
-waits for the port's schedule audit (ROADMAP Queue 1, Slice F, item 15):
+waits for the port's schedule audit (ROADMAP Queue 1, Slice F, item 15,
+part 15b):
 every row carries ``static: null``, and the committed baselines under
 ``stats/analysis/baselines/`` are not read, since they describe XLA's
 programs.  :func:`_gate_overlap` is ported and fires on a row that has one.
@@ -68,7 +69,7 @@ from dlbb_tpu_torch.analysis.findings import SEVERITY_ERROR, SEVERITY_WARNING, F
 DEVTRACE_SCHEMA = "dlbb_devtrace_v1"
 DEFAULT_DEVTRACE_DIR = Path("stats/torch/analysis/devtrace")
 STATIC_NOTE = ("no static column: the port's schedule audit and its baselines are "
-               "ROADMAP Queue 1, Slice F, item 15, and JAX's committed baselines "
+               "ROADMAP Queue 1, Slice F, item 15, part 15b, and JAX's committed baselines "
                "describe XLA's programs, not the port's")
 
 BUCKETS = ("collective", "permute", "dot", "fusion", "other")

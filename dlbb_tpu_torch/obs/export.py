@@ -7,10 +7,12 @@ atomic writes through ``utils/config.atomic_write_text``.  The same
 updates give the JAX package's ``metrics.prom`` byte for byte.
 
 ``serving_metrics`` folds a serving report (``serve/bench.py``),
-``fleet_metrics`` a fleet report (``serve/fleet.py``) and ``sweep_metrics``
-a sweep manifest (``bench/runner.py``) into ``metrics.prom``, as JAX's do.
-``analysis_metrics`` (the analysis report) waits for ROADMAP Queue 1,
-Slice F, item 15.
+``fleet_metrics`` a fleet report (``serve/fleet.py``), ``sweep_metrics``
+a sweep manifest (``bench/runner.py``) and ``analysis_metrics`` an
+``analyze`` report (``analysis/findings.py::AnalysisReport``) into
+``metrics.prom``, as JAX's do.  ``fold_textfile`` merges a registry into
+an existing ``metrics.prom``, replacing only the families it owns (``cli
+analyze --output DIR`` into a sweep's or a serving run's directory).
 """
 
 from __future__ import annotations
@@ -135,6 +137,36 @@ class MetricsRegistry:
         from dlbb_tpu_torch.utils.config import atomic_write_text
 
         return atomic_write_text(self.to_prometheus(), Path(path))
+
+    def fold_textfile(self, path: "str | Path") -> Path:
+        """Merge this registry into the textfile at ``path``: its lines of
+        the families this registry does not own are kept verbatim, its own
+        families are replaced (a re-run replaces its own series only), and
+        a missing file is written anew."""
+        from dlbb_tpu_torch.utils.config import atomic_write_text
+
+        own = {PROM_PREFIX + name for name in self.as_dict()}
+        kept: list[str] = []
+        try:
+            for line in Path(path).read_text().splitlines():
+                fam = _metric_family(line)
+                if fam is None or fam not in own:
+                    kept.append(line)
+        except OSError:
+            pass
+        text = ("\n".join(kept) + "\n" if kept else "") + self.to_prometheus()
+        return atomic_write_text(text, Path(path))
+
+
+def _metric_family(line: str) -> Optional[str]:
+    """The metric family a textfile line belongs to (None for a blank line
+    or a comment other than HELP/TYPE)."""
+    if line.startswith("# HELP ") or line.startswith("# TYPE "):
+        parts = line.split()
+        return parts[2] if len(parts) > 2 else None
+    if not line or line.startswith("#"):
+        return None
+    return line.split("{", 1)[0].split(" ", 1)[0]
 
 
 def _escape(v: str) -> str:
@@ -427,4 +459,37 @@ def sweep_metrics(manifest: dict[str, Any],
                        help="transient-failure retries burned")
     registry.set_gauge("sweep_quarantined", len(res.get("quarantined", ())),
                        help="configs quarantined with exception chains")
+    return registry
+
+
+ANALYSIS_PASSES = ("hlo", "lint", "schedule", "memory", "numerics")
+
+
+def analysis_metrics(report: Any,
+                     registry: Optional[MetricsRegistry] = None
+                     ) -> MetricsRegistry:
+    """Fold an ``analyze`` report into per-pass finding-count gauges,
+    ``analysis_findings{pass,severity}``, and ``analysis_suppressed``
+    (JAX's).  Every pass gets a sample at both severities even when clean:
+    a pass that stops reporting is a dropped gate, which a dashboard can
+    only see if its series exists."""
+    registry = registry or MetricsRegistry()
+    counts: dict[tuple[str, str], int] = {
+        (p, sev): 0
+        for p in ANALYSIS_PASSES
+        for sev in ("error", "warning")
+    }
+    for f in getattr(report, "findings", ()):
+        key = (f.pass_name, f.severity)
+        counts[key] = counts.get(key, 0) + 1
+    for (pass_name, severity), n in sorted(counts.items()):
+        registry.set_gauge(
+            "analysis_findings", n,
+            help="comm-lint findings by static pass and severity",
+            severity=severity, **{"pass": pass_name},
+        )
+    registry.set_gauge(
+        "analysis_suppressed", getattr(report, "suppressed", 0),
+        help="comm-lint findings silenced by inline suppressions",
+    )
     return registry

@@ -93,6 +93,7 @@ class Ring:
         for tag, (t, direction) in enumerate(sends):
             t = t.contiguous()
             if staged:
+                # comm-lint: disable=host-transfer-in-loop  gloo's transport stages each tensor of the hop through host memory (module docstring)
                 t = t.cpu()
             buf = torch.empty_like(t)
             ops.append(dist.P2POp(dist.isend, t, self._peer[direction], self.group, tag))

@@ -3143,6 +3143,7 @@ class ServingEngine:
                             # the prefill's last logits (the same on every
                             # rank) come to the host, it draws, and the
                             # device embeds the id
+                            # comm-lint: disable=host-transfer-in-loop  the host sampler draws the first token from these logits, once per admission
                             p0 = softmax_np(y_last.float().cpu().numpy(), cfg.temperature)
                             first_id = int(sample_rng.choice(p0.shape[-1], p=p0))
                             carry = _inject_token_sampled(carry, slot, first_id, self._table,

@@ -3,8 +3,8 @@
 the 3D standard and transposed CSVs, in the JAX package's (and the
 reference's) columns, and the derived reports over them (``compare``,
 ``variants_report``, ``northstar``, ``parallelism_report``,
-``serving_report``): file processing.  ``stats1d`` holds the quantised wire's constants, which
-``comm/compression.py`` imports."""
+``serving_report``): file processing.  The quantised wire's constants
+and the analytic wire model live in ``analysis/expectations.py``."""
 
 from dlbb_tpu_torch.stats.stats1d import (
     calculate_bandwidth,

@@ -10,10 +10,11 @@ the ranks (in the JAX package, one row per host process).
 The bandwidth formula is the reference's, uniform across ops
 (``elements x element_size x num_ranks / time / 2**30``, :98-121), or with
 ``algorithm_bandwidth=True`` the standard bus-bandwidth factors.  The
-``bytes_on_wire`` column is the JAX package's analytic ring model
-(``dlbb_tpu/analysis/expectations.py::op_wire_bytes``), copied here for
-the ops the port has; for the quantised-wire ops it counts the chunk
-padding and the fp32 scales, of the ``compression`` the result records.
+``bytes_on_wire`` column is the analytic ring model,
+``analysis/expectations.py::op_wire_bytes`` (JAX's, whose single home is
+that module in both packages); for the quantised-wire ops it counts the
+chunk padding and the fp32 scales, of the ``compression`` the result
+records.
 ``bandwidth_gbps`` keeps the logical-payload formula, so a compressed row
 and its uncompressed baseline share a normalisation and the wire saving
 shows in ``bytes_on_wire``.
@@ -29,31 +30,10 @@ from typing import Any, Optional
 
 import numpy as np
 
+# the wire model lives in analysis/expectations.py (JAX's single home);
+# read here for the ``bytes_on_wire`` column
+from dlbb_tpu_torch.analysis.expectations import op_wire_bytes
 from dlbb_tpu_torch.utils.config import atomic_write_text
-
-# the quantised wire's constants, copied from the JAX package's
-# (dlbb_tpu/analysis/expectations.py:34-39); comm/compression.py imports them
-COMPRESSIONS = ("int8", "fp8")
-# the compressed ops' wire where none is named
-DEFAULT_COMPRESSION = "int8"
-# payload bytes per element on the wire (int8 and fp8 e4m3 are both 1 B)
-COMPRESSED_WIRE_ITEM_BYTES = {"int8": 1, "fp8": 1}
-# one fp32 scale per chunk of this many elements
-SCALE_CHUNK_ELEMS = 256
-SCALE_ITEM_BYTES = 4
-
-
-def scale_bytes(num_elements: int) -> int:
-    """Bytes of the fp32 scale side channel of a quantised payload of
-    ``num_elements`` (one scale per ``SCALE_CHUNK_ELEMS`` elements)."""
-    return -(-num_elements // SCALE_CHUNK_ELEMS) * SCALE_ITEM_BYTES
-
-
-def padded_elems(num_elements: int) -> int:
-    """Elements on the wire for a quantised payload of ``num_elements``:
-    ``quantize_chunked`` pads to a whole chunk, and the padding travels."""
-    return -(-num_elements // SCALE_CHUNK_ELEMS) * SCALE_CHUNK_ELEMS
-
 
 _DTYPE_BYTES = {
     "bfloat16": 2,
@@ -132,38 +112,6 @@ def calculate_bandwidth(num_elements: int, dtype: str, time_seconds: float,
     else:
         volume = num_elements * element_size * num_ranks
     return float(volume / time_seconds / 2**30)
-
-
-def op_wire_bytes(op_name: str, num_elements: int, num_ranks: int,
-                  elem_bytes: int, compression: Optional[str] = None) -> Optional[int]:
-    """Per-device analytic wire bytes of one op under the standard ring
-    algorithms, or None for an op without a wire model.  For the compressed
-    ops the chunk padding and the fp32 scale side channel count;
-    ``compression`` defaults to the op's default (int8)."""
-    n, p, b = num_elements, num_ranks, elem_bytes
-    if p <= 1:
-        return 0
-    if op_name in ("allreduce", "allreduce_hierarchical", "broadcast",
-                   "reduce", "barrier"):
-        return int(2 * (p - 1) / p * n * b)
-    if op_name in ("allgather", "gather", "alltoall", "reducescatter"):
-        return int((p - 1) * n * b)
-    if op_name == "scatter":
-        return int(2 * (p - 1) / p * p * n * b)
-    if op_name == "sendrecv":
-        return int(n * b)
-    if op_name in ("allreduce_q", "reducescatter_q"):
-        w = COMPRESSED_WIRE_ITEM_BYTES[compression or DEFAULT_COMPRESSION]
-        if op_name == "reducescatter_q":
-            # the ring alone: (P-1) hops of one quantised row and its scales
-            return (p - 1) * (padded_elems(n) * w + scale_bytes(n))
-        # the ring over ceil(n/P)-element chunks, then the all-gather of the
-        # quantised reduced chunks and their scales
-        c = -(-n // p)
-        ring = (p - 1) * (padded_elems(c) * w + scale_bytes(c))
-        gather = int((p - 1) / p * p * (padded_elems(c) * w + scale_bytes(c)))
-        return ring + gather
-    return None
 
 
 def process_file(json_path: Path, algorithm_bandwidth: bool = False) -> dict[str, Any]:

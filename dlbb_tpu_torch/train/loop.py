@@ -131,7 +131,6 @@ from dlbb_tpu_torch.parallel.ring import hop_transport
 from dlbb_tpu_torch.resilience import PreemptionGuard, inject
 from dlbb_tpu_torch.train.optim import (
     GRAD_COMPRESSIONS,
-    GradCompressionState,
     GradientTransformation,
     build_optimizer,
     compression_accum_dtype,
@@ -373,9 +372,14 @@ def make_train_step(config: ModelConfig, optimizer: GradientTransformation,
     the layout the optimizer updates (``step.zero``, a ``train/zero.py::
     Zero``, holds that layout).
 
-    The step is functional, as the JAX one is: it returns new parameter and
-    optimizer-state tensors and leaves the old ones to the caller (who drops
-    them by rebinding the state)."""
+    The step updates its state in place, as JAX's donated step does: the
+    optimizer writes its moments and the parameters into their own tensors
+    (``train/optim.py``, ``Zero.apply``), so the state it returns holds the
+    tensors of the state it was given, now with the new values, and no
+    second state is made.  The initial state holds ``params``' own tensors
+    (at ZeRO 0, and at 1 and 2) or this rank's shards of them (at 3), as
+    JAX's step takes its donated parameters: a caller that reuses
+    ``params`` after a step passes a copy."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     pp = 1 if mesh is None else mesh.shape.get("pp", 1)
@@ -457,10 +461,8 @@ def make_train_step(config: ModelConfig, optimizer: GradientTransformation,
 
     def step(state: TrainState, batch, targets):
         loss, grads = reduced_grads(state, batch, targets)
-        with torch.no_grad():
-            new_params, new_opt = zero.apply(state.params, grads, state.opt_state)
-        new_params = tree_map(lambda p: p.requires_grad_(True), new_params)
-        return TrainState(new_params, new_opt, state.step + 1), loss
+        params, opt_state = zero.apply(state.params, grads, state.opt_state)
+        return TrainState(params, opt_state, state.step + 1), loss
 
     if grad_compression != "none":
         return _compressed_step(config, zero, state, mesh, grad_compression,
@@ -491,22 +493,22 @@ def _compressed_step(config: ModelConfig, zero: Zero, state: TrainState, mesh,
             c = flat_g.float() + res.float()
             reduced = psum_compressed(c, group, compression=compression,
                                       accum_dtype=accum) / dp
-            # error feedback: the local quantiser's error, not the ring's
-            new_res = quantization_error(c, compression).to(res.dtype)
             grads = unflatten_params(reduced.to(flat_g.dtype), state.params)
         # ZeRO-2: this rank's shard of each sharded leaf, a local cut
         grads = tree_map(lambda g, ax: g if ax is None
                          else shard_along(g, ax, zero.rank, dp).contiguous(),
                          grads, zero.opt_axes)
-        return zero.mean_loss(loss.detach()), grads, new_res
+        return zero.mean_loss(loss.detach()), grads, c
 
     def step(state: TrainState, batch, targets):
-        loss, grads, new_res = compressed_grads(state, batch, targets)
+        loss, grads, c = compressed_grads(state, batch, targets)
         with torch.no_grad():
-            new_params, new_inner = zero.apply(state.params, grads, state.opt_state[0])
-        new_params = tree_map(lambda p: p.requires_grad_(True), new_params)
-        return TrainState(new_params, (new_inner, GradCompressionState(new_res)),
-                          state.step + 1), loss
+            # error feedback: the local quantiser's error, not the ring's,
+            # written into the residual in place
+            quantization_error(c, compression, out=state.opt_state[1].residual)
+        del c
+        params, inner = zero.apply(state.params, grads, state.opt_state[0])
+        return TrainState(params, (inner, state.opt_state[1]), state.step + 1), loss
 
     step.grads = lambda state, batch, targets: compressed_grads(state, batch, targets)[:2]
     step.zero = zero

@@ -5,7 +5,12 @@ The JAX package builds optax transformations; the port keeps their shape as
 plain functions on tensors over the nested parameter dict, with the state
 passed in and returned explicitly: ``GradientTransformation(init, update)``,
 ``update(grads, state, params) -> (updates, new_state)`` and
-``apply_updates(params, updates)``.  Every optimizer (``adam``, ``adamw``,
+``apply_updates(params, updates)``.  The state is updated in place, as
+JAX's donated train step updates its buffers: ``new_state`` holds the
+tensors of ``state`` (their storages), now with the new values, and
+``apply_updates`` writes ``p + u`` into ``p``.  Each in-place op is the
+functional op it replaces, rounded the same way, so the values are those of
+the functional update bit for bit.  Every optimizer (``adam``, ``adamw``,
 ``sgd``, ``adafactor``) and schedule (``constant``, ``cosine``,
 ``warmup_cosine``) of the JAX package is here, with optax's defaults, and
 ``cast_moments`` for ``training.moments_dtype``.  Each state keeps one step
@@ -282,10 +287,14 @@ def _adam(schedule, b1: float, b2: float, eps: float,
         # 1 - b ** count in fp32, as optax computes it from the int32 count
         bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
         bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
-        mu = tree_map(lambda g, m: _weak(1 - b1, g) * g + _weak(b1, m) * m,
-                      grads, state.mu)
-        nu = tree_map(lambda g, v: _weak(1 - b2, g) * (g * g) + _weak(b2, v) * v,
-                      grads, state.nu)
+
+        def moments(g, m, v):
+            # b1 m + (1 - b1) g and b2 v + (1 - b2) g^2, in place: each
+            # product rounded to its operand's dtype, then the sum
+            m.mul_(_weak(b1, m)).add_(_weak(1 - b1, g) * g)
+            v.mul_(_weak(b2, v)).add_(_weak(1 - b2, g) * (g * g))
+
+        tree_map(moments, grads, state.mu, state.nu)
 
         def direction(m, v, p):
             m_hat = m / _weak(bc1, m)
@@ -295,7 +304,8 @@ def _adam(schedule, b1: float, b2: float, eps: float,
                 u = u + _weak(weight_decay, p) * p
             return _scaled(schedule, state.count, -1, u)
 
-        return tree_map(direction, mu, nu, params), AdamState(count, mu, nu)
+        return (tree_map(direction, state.mu, state.nu, params),
+                AdamState(count, state.mu, state.nu))
 
     return GradientTransformation(init, update)
 
@@ -325,8 +335,9 @@ def sgd(schedule: Callable[[int], float],
                         else tree_map(torch.zeros_like, params))
 
     def update(grads, state: SgdState, params=None):
-        trace = grads if momentum is None else tree_map(
-            lambda g, t: g + _weak(momentum, t) * t, grads, state.trace)
+        if momentum is not None:  # g + momentum t, in place
+            tree_map(lambda g, t: t.mul_(_weak(momentum, t)).add_(g), grads, state.trace)
+        trace = grads if momentum is None else state.trace
         updates = tree_map(lambda u: _scaled(schedule, state.count, -1, u), trace)
         return updates, SgdState(state.count + 1, None if momentum is None else trace)
 
@@ -347,6 +358,16 @@ def _factored_dims(shape) -> Optional[tuple[int, int]]:
     if shape[order[-2]] < ADAFACTOR_MIN_DIM:
         return None
     return int(order[-2]), int(order[-1])
+
+
+def _store(dst: torch.Tensor, value: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """``value`` rounded to ``dt`` and written into ``dst``; returns the
+    rounded value (``dst`` itself where it holds ``dt``)."""
+    if dst.dtype == dt:
+        return dst.copy_(value)
+    rounded = value.to(dt)
+    dst.copy_(rounded)
+    return rounded
 
 
 def _rms(x: torch.Tensor) -> torch.Tensor:
@@ -384,27 +405,27 @@ def adafactor(schedule: Callable[[int], float]) -> GradientTransformation:
             dt = p.dtype
             g2 = g * g + _weak(ADAFACTOR_EPS, g)
             dims = _factored_dims(p.shape)
-            new_row, new_col, new_v = (torch.zeros((1,), dtype=dt, device=p.device),) * 3
+            # in place; the unused statistics (``[1]`` zeros) stay as they are
             if dims is not None:
                 d1, d0 = dims
-                new_row = (dec * v_row.float() + float(rest) * g2.mean(d0).float()).to(dt)
-                new_col = (dec * v_col.float() + float(rest) * g2.mean(d1).float()).to(dt)
+                new_row = _store(v_row, dec * v_row.float()
+                                 + float(rest) * g2.mean(d0).float(), dt)
+                new_col = _store(v_col, dec * v_col.float()
+                                 + float(rest) * g2.mean(d1).float(), dt)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
                 row_factor = (new_row / new_row.mean(reduced_d1, keepdim=True)) ** -0.5
                 u = g * row_factor.unsqueeze(d0) * (new_col ** -0.5).unsqueeze(d1)
             else:
-                new_v = (dec * v.float() + float(rest) * g2.float()).to(dt)
+                new_v = _store(v, dec * v.float() + float(rest) * g2.float(), dt)
                 u = g * new_v ** -0.5
             u = u / torch.clamp(_rms(u) / _weak(ADAFACTOR_CLIP, u), min=1.0)
             u = _weak(lr, u) * u
             rms_p = _rms(p)
             min_scale = torch.full_like(rms_p, _weak(ADAFACTOR_MIN_SCALE, p))
-            return (-1 * (u * torch.where(rms_p <= min_scale, min_scale, rms_p)),
-                    new_row, new_col, new_v)
+            return -1 * (u * torch.where(rms_p <= min_scale, min_scale, rms_p))
 
-        out = tree_map(one, grads, state.v_row, state.v_col, state.v, params)
-        parts = [tree_map(lambda o, i=i: o[i], out) for i in range(4)]
-        return parts[0], AdafactorState(state.count + 1, *parts[1:])
+        updates = tree_map(one, grads, state.v_row, state.v_col, state.v, params)
+        return updates, AdafactorState(state.count + 1, state.v_row, state.v_col, state.v)
 
     return GradientTransformation(init, update, elementwise=False)
 
@@ -482,43 +503,40 @@ def cast_moments(inner: GradientTransformation, dtype) -> GradientTransformation
         return _cast_state(inner.init(params), dtype)
 
     def update(grads, state, params=None):
-        updates, trees, count = {}, {}, None
+        updates, count = {}, None
         for path in _paths(grads):
             g = _at(grads, path)
             p = None if params is None else _at(params, path)
-            pieces = _pieces(g, inner.elementwise)
-            out = None
-            for rows in pieces:
-                u, new = inner.update(
-                    g if rows is None else g[rows],
-                    _cast_state(_state_at(state, path, rows), torch.float32),
+            u = None
+            for rows in _pieces(g, inner.elementwise):
+                stored = _state_at(state, path, rows)
+                part, new = inner.update(
+                    g if rows is None else g[rows], _cast_state(stored, torch.float32),
                     p if rows is None or p is None else p[rows])
-                new = _cast_state(new, dtype)
-                parts = [(u, None)] + [(t, f) for f, t in enumerate(new)
-                                       if isinstance(t, torch.Tensor)]
+                # the new fp32 state rounded into the stored one, in place
+                for dst, src in zip(stored, new):
+                    if isinstance(dst, torch.Tensor):
+                        dst.copy_(src)
                 if rows is None:
-                    out = parts
+                    u = part
                     continue
-                if out is None:
-                    out = [(t.new_empty(g.shape[:1] + t.shape[1:]), f) for t, f in parts]
-                for (dst, _), (src, _) in zip(out, parts):
-                    dst[rows] = src
-            _set_at(updates, path, out[0][0])
-            for t, f in out[1:]:
-                _set_at(trees.setdefault(f, {}), path, t)
+                if u is None:
+                    u = part.new_empty(g.shape[:1] + part.shape[1:])
+                u[rows] = part
+            _set_at(updates, path, u)
             count = new[0]
         if count is None:  # no leaves
             return inner.update(grads, state, params)
-        fields = [count] + [trees.get(f, None if s is None else {})
-                            for f, s in enumerate(state) if f > 0]
-        return updates, type(state)(*fields)
+        return updates, type(state)(count, *state[1:])
 
     return GradientTransformation(init, update, inner.elementwise)
 
 
 def apply_updates(params, updates):
-    """``p + u`` in the promoted dtype, rounded to ``p``'s dtype."""
-    return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+    """``p + u`` in the promoted dtype, rounded to ``p``'s dtype and written
+    into ``p``; returns ``params``, now holding the new values."""
+    with torch.no_grad():
+        return tree_map(lambda p, u: p.add_(u), params, updates)
 
 
 def build_optimizer(train_cfg: dict[str, Any]) -> GradientTransformation:

@@ -234,9 +234,13 @@ class Zero:
 
     # ---- update -----------------------------------------------------------
 
+    @torch.no_grad()
     def apply(self, params: Any, grads: Any, opt_state: Any) -> tuple[Any, Any]:
-        """One optimizer update from the reduced mean ``grads``: (this
-        rank's new parameters, its new optimizer state)."""
+        """One optimizer update from the reduced mean ``grads``, in place, as
+        JAX's donated step: (this rank's parameters, its optimizer state),
+        the tensors it was given, now holding the new values.  A shard the
+        optimizer updates is a view of its parameter, so the update lands
+        there; the gathered leaf is written back into the parameter."""
 
         def work_param(p, opt_ax, p_ax):
             if p_ax is not None:
@@ -245,11 +249,14 @@ class Zero:
 
         work = tree_map(work_param, params, self.opt_axes, self.param_axes)
         updates, new_opt = self.optimizer.update(grads, opt_state, work)
-        new_work = apply_updates(work, updates)
+        apply_updates(work, updates)
 
-        def new_param(p, opt_ax, p_ax):
+        def store(p, w, opt_ax, p_ax):
             if p_ax is not None:
-                return p if opt_ax is not None else _own(shard_along(p, p_ax, self.rank, self.dp))
-            return p if opt_ax is None else self._gather(p, opt_ax)
+                if opt_ax is None:  # the whole leaf was gathered: this rank's shard
+                    p.copy_(shard_along(w, p_ax, self.rank, self.dp))
+            elif opt_ax is not None and self.group is not None:
+                all_gather_along(w, opt_ax, self.group, out=p)
+            return p
 
-        return tree_map(new_param, new_work, self.opt_axes, self.param_axes), new_opt
+        return tree_map(store, params, work, self.opt_axes, self.param_axes), new_opt

@@ -185,6 +185,7 @@ def _first_launch_session(torch, tmp, case, i, x):
         with annotate("profile_rep:first_launch"):
             for _ in range(20):
                 x.add_(1)
+                # comm-lint: disable=host-transfer-in-loop  the probe syncs after each launch on purpose
                 torch.cuda.synchronize()
                 time.sleep(0.002)
         time.sleep(hold)

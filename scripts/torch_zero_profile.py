@@ -49,6 +49,7 @@ def _events_ms(torch, fn, steps, sync_each):
         fn()
         end.record()
         if sync_each:
+            # comm-lint: disable=host-transfer-in-loop  the sync-each-step timing mode
             torch.cuda.synchronize()
     torch.cuda.synchronize()
     return [s.elapsed_time(e) for s, e in pairs]
@@ -146,10 +147,12 @@ def main() -> int:
                 synced = _events_ms(torch, step, args.steps, sync_each=True)
                 host = []
                 for _ in range(args.steps):
+                    # comm-lint: disable=host-transfer-in-loop  brackets each host-enqueue rep
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     step()
                     host.append((time.perf_counter() - t0) * 1e3)
+                    # comm-lint: disable=host-transfer-in-loop  brackets each host-enqueue rep
                     torch.cuda.synchronize()
                 row = {"events_ms_host_ahead": float(np.median(ahead)),
                        "events_ms_sync_each_step": float(np.median(synced)),

@@ -77,6 +77,7 @@ from dlbb_tpu.models import transformer as jax_tf
 from dlbb_tpu.models.sharding import batch_spec
 from dlbb_tpu.train import loop as jax_loop
 from dlbb_tpu.train import optim as jax_optim
+from dlbb_tpu_torch.analysis import expectations as pt_expect
 from dlbb_tpu_torch.bench.launch import launch
 from dlbb_tpu_torch.comm import Mesh, MeshSpec, get_op
 from dlbb_tpu_torch.comm import compression as pt_comp
@@ -211,14 +212,14 @@ def test_unknown_compression_fails_as_in_jax():
 
 
 def test_wire_constants_are_jax_copies():
-    assert pt_comp.COMPRESSIONS is pt_stats1d.COMPRESSIONS
-    assert pt_comp.SCALE_CHUNK_ELEMS == pt_stats1d.SCALE_CHUNK_ELEMS
-    assert pt_stats1d.COMPRESSIONS == jax_expect.COMPRESSIONS
-    assert pt_stats1d.SCALE_CHUNK_ELEMS == jax_expect.SCALE_CHUNK_ELEMS
-    assert pt_stats1d.COMPRESSED_WIRE_ITEM_BYTES == jax_expect.COMPRESSED_WIRE_ITEM_BYTES
+    assert pt_comp.COMPRESSIONS is pt_expect.COMPRESSIONS
+    assert pt_comp.SCALE_CHUNK_ELEMS == pt_expect.SCALE_CHUNK_ELEMS
+    assert pt_expect.COMPRESSIONS == jax_expect.COMPRESSIONS
+    assert pt_expect.SCALE_CHUNK_ELEMS == jax_expect.SCALE_CHUNK_ELEMS
+    assert pt_expect.COMPRESSED_WIRE_ITEM_BYTES == jax_expect.COMPRESSED_WIRE_ITEM_BYTES
     for n in (1, 255, 256, 257, 4099, 12295):
-        assert pt_stats1d.scale_bytes(n) == jax_expect.scale_bytes(n)
-        assert pt_stats1d.padded_elems(n) == jax_expect.padded_elems(n)
+        assert pt_expect.scale_bytes(n) == jax_expect.scale_bytes(n)
+        assert pt_expect.padded_elems(n) == jax_expect.padded_elems(n)
 
 
 @pytest.mark.parametrize("op_name", ["allreduce", "allgather", "broadcast", "gather",

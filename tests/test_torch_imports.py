@@ -59,7 +59,10 @@ def test_port_has_the_expected_modules():
                 "dlbb_tpu_torch/analysis/costmodel.py", "dlbb_tpu_torch/obs/fit.py",
                 "dlbb_tpu_torch/obs/attribution.py", "dlbb_tpu_torch/plan/autotune.py",
                 "dlbb_tpu_torch/plan/__init__.py", "dlbb_tpu_torch/__main__.py",
-                "bench_torch.py"):
+                "dlbb_tpu_torch/analysis/expectations.py",
+                "dlbb_tpu_torch/analysis/source_lint.py",
+                "dlbb_tpu_torch/analysis/op_capture.py",
+                "dlbb_tpu_torch/analysis/hlo_audit.py", "bench_torch.py"):
         assert rel in PORT_FILES
 
 

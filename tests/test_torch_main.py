@@ -1,6 +1,6 @@
 """``python -m dlbb_tpu_torch`` (ROADMAP Queue 1, item 22): the package
 runs as its CLI, as ``python -m dlbb_tpu`` runs JAX's, and lists JAX's
-subcommands less ``analyze`` (item 15)."""
+thirteen subcommands (``analyze`` since item 15, part 15a)."""
 
 from __future__ import annotations
 
@@ -22,8 +22,10 @@ def _subcommands(parser):
 
 
 def test_subcommands_are_jax_less_analyze():
-    assert _subcommands(cli.build_parser()) \
-        == _subcommands(jax_cli.build_parser()) - {"analyze"}
+    """The name is the one this test had while ``analyze`` was not ported
+    (item 15); since part 15a the subcommands are JAX's thirteen."""
+    assert _subcommands(cli.build_parser()) == _subcommands(jax_cli.build_parser())
+    assert len(_subcommands(cli.build_parser())) == 13
 
 
 @pytest.mark.parametrize("args", [["--help"], ["plan", "--help"]])
@@ -35,7 +37,7 @@ def test_python_dash_m_runs_the_cli(args):
     if args == ["--help"]:
         listed = run.stdout.split("{", 1)[1].split("}", 1)[0].split(",")
         assert set(listed) == _subcommands(cli.build_parser())
-        assert len(listed) == 12
+        assert len(listed) == 13
     else:
         for flag in ("--auto", "--capacity", "--simulate", "--tier", "--fit-dir"):
             assert flag in run.stdout

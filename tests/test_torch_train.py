@@ -185,7 +185,9 @@ def test_adam_update_matches_optax_on_the_same_gradients(dtype, mdt):
     params, grads = _optimizer_inputs(dtype)
     opt_j, opt_t = jax_optim.build_optimizer(cfg), pt_optim.build_optimizer(cfg)
     pj = {k: jnp.asarray(v, JD[dtype]) for k, v in params.items()}
-    pt = {k: torch.from_numpy(v).to(TD[dtype]) for k, v in params.items()}
+    # a copy: the update writes into the parameters, and the JAX arrays may
+    # share ``params``' memory
+    pt = {k: torch.from_numpy(v.copy()).to(TD[dtype]) for k, v in params.items()}
     sj, st = opt_j.init(pj), opt_t.init(pt)
     for g in grads:
         uj, sj = opt_j.update({k: jnp.asarray(v, JD[dtype]) for k, v in g.items()}, sj, pj)
@@ -227,10 +229,11 @@ def test_cast_moments_updates_piece_by_piece_as_the_whole_tree(name, monkeypatch
     state = opt.init(params)
     for _ in range(2):
         grads = pt_optim.tree_map(lambda p: draw(p.shape), params)
-        updates, new_state = opt.update(grads, state, params)
+        # the reference first: the update writes its state in place
         ref_updates, ref_state = inner.update(
             grads, pt_optim._cast_state(state, torch.float32), params)
         ref_state = pt_optim._cast_state(ref_state, torch.bfloat16)
+        updates, new_state = opt.update(grads, state, params)
         assert type(new_state) is type(ref_state) and new_state[0] == ref_state[0]
         for got, ref in zip(pt_optim.tree_leaves(updates), pt_optim.tree_leaves(ref_updates)):
             assert got.dtype == ref.dtype and torch.equal(got, ref)
@@ -294,7 +297,9 @@ def test_optimizers_and_schedules_match_optax_on_the_same_gradients(dtype, name)
         g["f"] = rng.standard_normal((160, 130), dtype=np.float32) * 1e-2
     opt_j, opt_t = jax_optim.build_optimizer(cfg), pt_optim.build_optimizer(cfg)
     pj = {k: jnp.asarray(v, JD[dtype]) for k, v in params.items()}
-    pt = {k: torch.from_numpy(v).to(TD[dtype]) for k, v in params.items()}
+    # a copy: the update writes into the parameters, and the JAX arrays may
+    # share ``params``' memory
+    pt = {k: torch.from_numpy(v.copy()).to(TD[dtype]) for k, v in params.items()}
     sj, st = opt_j.init(pj), opt_t.init(pt)
     for g in grads:
         uj, sj = opt_j.update({k: jnp.asarray(v, JD[dtype]) for k, v in g.items()}, sj, pj)
