@@ -301,7 +301,19 @@ that check them: each job in turn on the first ranks of one gloo group
    forward and the 1B Adam step once more each under the capture
    (``_captured``): 0 collectives, the flash launches the phases count (24
    per forward, 48/24/24 per step), and for the step every parameter and
-   Adam moment kept its storage (the step updates its state in place).
+   Adam moment kept its storage (the step updates its state in place); (e)
+   the same gloo job runs the schedule, memory and numerics passes too,
+   priced at the committed baselines' tier ``cpu-sim``, and
+   ``diff_baselines`` against ``stats/torch/analysis/baselines`` gives no
+   error (each target's critical path, overlap, peak and error bound
+   printed); (f) in phases 3 and 4 the three passes over the 1B forward's
+   and the Adam step's captured graphs at tier ``cuda`` (``_graph_passes``):
+   24 and 48/24/24 flash nodes, the static peak live bytes within the
+   caching allocator's peak over the same call and its rise above the
+   arguments within the allocator's rise, the critical path, the compute
+   total and the numerics sites printed; (g) ``python -m
+   dlbb_tpu_torch.analysis.numerics_shadow --device cuda``: 4 confirmed, 0
+   refuted, each case's measured error the committed CPU report's.
 
 It then prints the card's name and power limit, one JSON line
 ``{"kernels": [...]}``, and as its last line
@@ -460,9 +472,21 @@ def _time_graph_ms(torch, fn, reps, per_graph=20):
     return ms
 
 
-def _fwd_flops(shape):
-    """The QK^T and PV flops of the visible (row, key) pairs."""
-    return 4 * shape["d"] * _visible_pairs(shape) * shape["b"] * shape["n"]
+def _visible_pairs(shape):
+    """The (row, key) pairs one head sees, counted row by row (the causal
+    mask anchored at ``sk - s``)."""
+    s, sk = shape["s"], shape["sk"]
+    if shape["causal"]:
+        return sum(min(sk, max(0, r + sk - s + 1)) for r in range(s))
+    return s * sk
+
+
+def _kernel_flops(shape, kernel):
+    """The kernel's flops over the visible (row, key) pairs at ``shape``:
+    4 D per pair for the forward (QK^T, PV), 6 D for dq (QK^T, dO V^T,
+    dS K), 8 D for dk/dv (QK^T, dO V^T, P^T dO, dS^T Q)."""
+    per_pair = {"fwd": 4, "dq": 6, "dkv": 8}[kernel] * shape["d"]
+    return per_pair * _visible_pairs(shape) * shape["b"] * shape["n"]
 
 
 def _bound(shape):
@@ -471,7 +495,7 @@ def _bound(shape):
     flops of the visible (row, key) pairs over the bf16 tensor rate."""
     b, n, kvh, s, sk, d = (shape[x] for x in ("b", "n", "kvh", "s", "sk", "d"))
     nbytes = 2 * (2 * b * n * s * d + 2 * b * kvh * sk * d) + 4 * b * n * s
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, _fwd_flops(shape) / PEAK_BF16_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, _kernel_flops(shape, "fwd") / PEAK_BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -565,29 +589,15 @@ def phase_kernel_vs_plain(torch, fa):
     return worst_o, worst_lse
 
 
-def _visible_pairs(shape):
-    s, sk = shape["s"], shape["sk"]
-    if shape["causal"]:
-        return sum(min(sk, max(0, r + sk - s + 1)) for r in range(s))
-    return s * sk
-
-
-def _bwd_flops(shape, kernel):
-    """6 D (dq: QK^T, dO V^T, dS K) or 8 D (dk/dv: QK^T again, dO V^T,
-    P^T dO, dS^T Q) flops per visible (row, key) pair."""
-    return ((6 if kernel == "dq" else 8) * shape["d"] * _visible_pairs(shape)
-            * shape["b"] * shape["n"])
-
-
 def _bwd_bound(shape, kernel):
     """Least time for one backward kernel at ``shape``: q, k, v, dO, lse and
     delta read once and its outputs written once, over the memory rate; its
-    flops (``_bwd_flops``) over the bf16 tensor rate."""
+    flops (``_kernel_flops``) over the bf16 tensor rate."""
     b, n, kvh, s, sk, d = (shape[x] for x in ("b", "n", "kvh", "s", "sk", "d"))
     q_bytes, kv_bytes = 2 * b * n * s * d, 2 * b * kvh * sk * d
     nbytes = 2 * q_bytes + 2 * kv_bytes + 2 * 4 * b * n * s
     nbytes += q_bytes if kernel == "dq" else 2 * kv_bytes
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, _bwd_flops(shape, kernel) / PEAK_BF16_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, _kernel_flops(shape, kernel) / PEAK_BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -814,14 +824,19 @@ def _captured(torch, phase, what, fn, args, want, state=None):
     """Phase analyze (d): ``fn(*args)`` once under the collective audit's
     capture (``analysis/op_capture.py``): no collective at world 1, the
     flash launches ``want`` by kernel, and with ``state`` the donation
-    counterpart (every state tensor kept its storage).  Returns the call's
-    result."""
+    counterpart (every state tensor kept its storage).  (f): the schedule,
+    memory and numerics passes over the same captured graph at tier
+    ``cuda`` (``_graph_passes``).  Returns the call's result."""
     from dlbb_tpu_torch.analysis.op_capture import capture_call
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     out, cap = capture_call(fn, args, state=state, target=what)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    allocator = (resident, torch.cuda.max_memory_allocated())
     launches = {k[:-len("_launches")]: n for k, n in cap.flash_launches.items()}
     kept = (f"; {len(cap.state_before)} state tensors, every one kept its storage: "
             f"{cap.has_donation}" if state is not None else "")
@@ -831,7 +846,69 @@ def _captured(torch, phase, what, fn, args, want, state=None):
     if cap.collectives or launches != want or (state is not None and not cap.has_donation):
         raise AssertionError(f"{what} under the capture: {[c.to_dict() for c in cap.collectives]}"
                              f", launches {launches}, in place {cap.has_donation}")
+    _graph_passes(phase, what, cap, want, allocator)
     return out
+
+
+def _graph_passes(phase, what, cap, want, allocator):
+    """Phase analyze (f): the schedule, memory and numerics passes over one
+    captured 1B call at tier ``cuda``: its flash kernels are nodes of the
+    graph, one per launch; the static peak live bytes stay within the
+    caching allocator's peak over the same call (``reset_peak_memory_stats``
+    before it), and its rise above the call's arguments within the
+    allocator's rise above what was resident."""
+    from dlbb_tpu_torch.analysis.costmodel import resolve_tier
+    from dlbb_tpu_torch.analysis.expectations import TargetExpectation
+    from dlbb_tpu_torch.analysis.memory_audit import analyze_memory
+    from dlbb_tpu_torch.analysis.numerics_audit import analyze_numerics
+    from dlbb_tpu_torch.analysis.schedule_audit import analyze_schedule
+
+    t0 = time.perf_counter()
+    tier = resolve_tier("cuda")
+    # no declared policy, as JAX's model and train targets declare none: the
+    # step's optimizer rounds its Python constants through f64 scalars on
+    # the host (``train/optim.py::_weak``), which a policy would flag
+    exp = TargetExpectation()
+    sf, sched = analyze_schedule(cap, exp, what, tier=tier)
+    mf, mem = analyze_memory(cap, exp, what, tier=tier)
+    nf, num = analyze_numerics(cap, exp, what, peak_live_bytes=mem["peak_live_bytes"])
+    seconds = time.perf_counter() - t0
+    nodes = {k: sum(1 for n in cap.nodes if n.op == f"flash::{k[len('flash_'):]}")
+             for k in want}
+    resident, peak = allocator
+    static_rise = mem["peak_live_bytes"] - mem["parameter_bytes"]
+    print(f"[{phase}] (f) {what}: {len(cap.nodes)} graph nodes, flash nodes {nodes} "
+          f"(expected {want}); critical path {sched['critical_path_us']:.1f} us, "
+          f"compute_total_us {sched['compute_total_us']:.1f}, comm {sched['comm_total_us']} us "
+          f"at tier cuda; static peak_live_bytes {mem['peak_live_bytes']} vs allocator peak "
+          f"{peak} (ratio {mem['peak_live_bytes'] / peak:.4f}), rise above the arguments "
+          f"{static_rise} vs the allocator's {peak - resident} (ratio "
+          f"{static_rise / max(peak - resident, 1):.4f}); numerics: "
+          f"{num['reduction_sites']} sites, {num['numerics_low_precision_sites']} "
+          f"low-precision, {num['numerics_convert_count']} converts, max bound "
+          f"{num['numerics_max_rel_error_bound']:.3g}, fp dtypes {num['fp_dtypes']} (f64 "
+          f"on {sum(1 for n in cap.nodes if any(t.dtype == 'f64' for t in n.outputs))} "
+          f"nodes); "
+          f"findings {[f.rule for f in sf + mf + nf]}; {seconds:.1f} s of passes")
+    if nodes != want:
+        raise AssertionError(f"{what}: the graph's flash nodes {nodes}, launches {want}")
+    # each flash node's flops against this script's own row-by-row count
+    for n in cap.nodes:
+        if n.op.startswith("flash::"):
+            q = next(r for r in n.reads if r.arg == "q")
+            shape = {"b": q.shape[0], "n": q.shape[1], "s": q.shape[2], "d": q.shape[3],
+                     "sk": n.args["sk"], "causal": n.args["causal"]}
+            kernel = n.op.split("::", 1)[1].replace("bwd_", "")
+            if n.flops != _kernel_flops(shape, kernel):
+                raise AssertionError(f"{what}: node {n.index} ({n.op}) prices "
+                                     f"{n.flops} flops, the row count gives "
+                                     f"{_kernel_flops(shape, kernel)}")
+    if mem["peak_live_bytes"] > peak or static_rise > peak - resident:
+        raise AssertionError(f"{what}: static peak {mem['peak_live_bytes']} (rise "
+                             f"{static_rise}) over the allocator's {peak} (rise "
+                             f"{peak - resident})")
+    if sched["compute_total_us"] <= 0 or [f for f in sf + mf + nf if f.severity == "error"]:
+        raise AssertionError(f"{what}: {[f.render() for f in sf + mf + nf]}")
 
 
 # phase train's run and phase plan's runs write under this directory
@@ -948,7 +1025,7 @@ def _time_bwd(torch, fa, shape, reps, plain_reps):
     out = {}
     for kernel, (ms, event_ms) in times.items():
         bound_ms, bound_by = _bwd_bound(shape, kernel)
-        tflops = _bwd_flops(shape, kernel) / (ms * 1e-3) / 1e12
+        tflops = _kernel_flops(shape, kernel) / (ms * 1e-3) / 1e12
         out[kernel] = {"shape": label, "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
                        "library_ms": sdpa_ms, "sdpa_default_ms": default_ms,
                        "sdpa_default_backend": backend,
@@ -984,7 +1061,7 @@ def phase_timing(torch, fa, shape, reps, before_ms):
                         max(1, reps // 4), warmup=1)
     library_ms = _time_graph_ms(torch, library, reps)
     bound_ms, bound_by = _bound(shape)
-    tflops = _fwd_flops(shape) / (ms * 1e-3) / 1e12
+    tflops = _kernel_flops(shape, "fwd") / (ms * 1e-3) / 1e12
     label = "B={b} N={n} S={s} D={d}".format(**shape)
     print(f"[time] flash_fwd {label}: kernel {ms:.4f} ms by graph replay ({tflops:.1f} "
           f"TFLOP/s, {bound_ms / ms:.1%} of the bound; {event_ms:.4f} ms per call "
@@ -1073,16 +1150,19 @@ def _gloo_job_bodies():
 
 
 def _analyze_gloo_job(device):
-    """Phase analyze (c), a job of the one gloo spawn: the collective audit
+    """Phase analyze (c) and (e), a job of the one gloo spawn: the
+    collective audit and the schedule, memory and numerics passes
     (``analysis/hlo_audit.py::run_hlo_audit``) over every default target,
-    on every rank with the rank's tensors on ``device``; rank 0 returns its
-    report and each target's meta, the others None."""
+    on every rank with the rank's tensors on ``device``, priced at the
+    committed baselines' tier (``cpu-sim``); rank 0 returns its report and
+    each target's meta, the others None."""
     import torch.distributed as dist
 
     from dlbb_tpu_torch.analysis.hlo_audit import default_targets, run_hlo_audit
 
     metas = {}
-    report = run_hlo_audit(default_targets(), device=device, metas=metas)
+    report = run_hlo_audit(default_targets(), device=device, metas=metas,
+                           passes=("hlo", "schedule", "memory", "numerics"), tier="cpu-sim")
     return (report.to_dict(), metas) if dist.get_rank() == 0 else None
 
 
@@ -5249,6 +5329,66 @@ def phase_analyze(gpu_line, results):
     if report["findings"] or audited != names:
         raise AssertionError(f"the audit on the gloo ranks: {report['findings']}, audited "
                              f"{len(audited)} of {len(names)}")
+    _analyze_baselines(report, root, gpu_line)
+    _analyze_shadow(root, gpu_line)
+
+
+def _analyze_baselines(report, root, gpu_line):
+    """Phase analyze (e): the same job's schedule, memory and numerics metas
+    of the 41 targets on CUDA tensors, priced at ``cpu-sim``, held against
+    the committed baselines (``diff_baselines``): no error finding."""
+    from dlbb_tpu_torch.analysis import AnalysisReport, fold_gate_keys
+    from dlbb_tpu_torch.analysis.schedule_audit import DEFAULT_BASELINE_DIR, diff_baselines
+
+    t0 = time.perf_counter()
+    folded = fold_gate_keys(AnalysisReport(schedule=report["schedule"], memory=report["memory"],
+                                           numerics=report["numerics"]))
+    for name in sorted(folded.schedule):
+        s = folded.schedule[name]
+        print(f"[analyze] (e) {name}: critical_path_us {s['critical_path_us']}, "
+              f"overlap_efficiency {s['overlap_efficiency']}, peak_live_bytes "
+              f"{s['peak_live_bytes']}, numerics_max_rel_error_bound "
+              f"{s['numerics_max_rel_error_bound']}")
+    findings = diff_baselines(folded.schedule, root / DEFAULT_BASELINE_DIR)
+    errors = [f.render() for f in findings if f.severity == "error"]
+    print(f"[analyze] (e) {len(folded.schedule)} targets' schedule, memory and numerics "
+          f"passes on {GLOO_WORLD} gloo ranks on {gpu_line}, CUDA tensors, tier cpu-sim: "
+          f"diff against the committed baselines {len(errors)} error(s), "
+          f"{len(findings) - len(errors)} warning(s) {[f.rule for f in findings]}; the diff "
+          f"{time.perf_counter() - t0:.1f} s (the passes ran in (c)'s job)")
+    if len(folded.schedule) != ANALYZE_TARGETS or errors:
+        raise AssertionError(f"the passes against the committed baselines: {errors}")
+
+
+def _analyze_shadow(root, gpu_line):
+    """Phase analyze (g): the fp64 shadow on the card: 4 confirmed, 0
+    refuted, each case's measured error the committed CPU report's."""
+    import subprocess
+
+    from dlbb_tpu_torch.analysis.numerics_shadow import DEFAULT_SHADOW_DIR, SHADOW_REPORT_NAME
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shadow_", dir=root) as tmp:
+        run = subprocess.run([sys.executable, "-m", "dlbb_tpu_torch.analysis.numerics_shadow",
+                              "--device", "cuda", "--output", tmp], cwd=root,
+                             capture_output=True, text=True, timeout=300)
+        if run.returncode != 0:
+            raise AssertionError(f"numerics_shadow on the card: exit {run.returncode}; "
+                                 f"{run.stdout[-2000:]} {run.stderr[-2000:]}")
+        got = json.loads((Path(tmp) / SHADOW_REPORT_NAME).read_text())
+    cpu = json.loads((root / DEFAULT_SHADOW_DIR / SHADOW_REPORT_NAME).read_text())
+    for g, c in zip(got["cases"], cpu["cases"], strict=True):
+        print(f"[analyze] (g) {g['case']}: confirmed {g['confirmed']}, measured_rel_error "
+              f"{g['measured_rel_error']!r} on the card vs {c['measured_rel_error']!r} on the "
+              f"CPU, bound {g['gating_bound']!r}")
+        if g["measured_rel_error"] != c["measured_rel_error"] or g["confirmed"] != c["confirmed"]:
+            raise AssertionError(f"the shadow's {g['case']} on the card differs from the CPU's")
+    print(f"[analyze] (g) python -m dlbb_tpu_torch.analysis.numerics_shadow --device cuda on "
+          f"{gpu_line}: {got['confirmed']} confirmed, {got['refuted']} refuted; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if (got["confirmed"], got["refuted"]) != (4, 0):
+        raise AssertionError(f"the shadow on the card: {got['confirmed']} confirmed, "
+                             f"{got['refuted']} refuted")
 
 
 def _same_planes(torch, got, host):

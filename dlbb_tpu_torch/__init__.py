@@ -85,7 +85,10 @@ compile-ahead engine and device traces):
   expected-collective and wire model (``expectations``), the AST source
   lint (``source_lint``), the op capture (``op_capture``) and the
   collective audit over the registered targets (``hlo_audit``), ``cli
-  analyze lint|hlo``; the cost-model table (``costmodel``);
+  analyze lint|hlo``; the schedule, memory and numerics passes over each
+  target's captured graph, the fp64 shadow and the baseline gate (``cli
+  analyze schedule|memory|numerics|all|snapshot|diff``); the cost-model
+  table (``costmodel``);
 - ``plan`` — the cm2 plan autotuner and the fleet capacity planner
   (``cli plan --auto|--capacity``), fail-closed without a fit;
 - ``resilience`` — the fault sites, the journal, preemption, artifact
@@ -96,8 +99,7 @@ forward's tokens/s and ``bench.py``'s extras in one JSON line.  ``python
 -m dlbb_tpu_torch`` runs ``cli``.
 
 Not ported yet (see ROADMAP.md): the cost model's calibration and its diff
-(ROADMAP Queue 1, Slice F, item 14, part 14b), and the schedule, memory and
-numerics audits with their baseline gate (item 15, part 15b).
+(ROADMAP Queue 1, Slice F, item 14, part 14b).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit ``"cpu"`` they raise.

@@ -262,8 +262,7 @@ def wire_bytes(kind: str, result_bytes: int, group_size: Optional[int]) -> int:
 class TargetExpectation:
     """The audit contract for one target (JAX's fields, all of them: the
     collective pass reads ``allowed`` through ``expect_donation``; the
-    schedule, memory and numerics passes of ROADMAP Queue 1, Slice F, item
-    15, part 15b read the rest).
+    schedule, memory and numerics passes read the rest).
 
     allowed:            collective kinds that may appear.
     required_any:       at least one collective of one of these kinds must

@@ -80,8 +80,8 @@ def exit_code(findings: list[Finding], strict_warnings: bool = False) -> int:
 class AnalysisReport:
     """Aggregate result of one ``analyze`` run (JAX's fields, in JAX's
     order).  ``schedule``, ``memory`` and ``numerics`` hold the per-target
-    meta of the passes that ROADMAP Queue 1, Slice F, item 15, part 15b
-    ports; the collective audit and the lint leave them empty."""
+    meta of those passes; the collective audit and the lint leave them
+    empty."""
 
     findings: list[Finding] = field(default_factory=list)
     suppressed: int = 0

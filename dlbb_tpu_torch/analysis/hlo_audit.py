@@ -38,8 +38,9 @@ A target needing more ranks than the world has is recorded as skipped,
 as JAX does; ``cli analyze hlo --simulate N`` launches N gloo ranks
 (``bench/launch.py``) and ``_audit_rank`` runs the audit on each.
 
-The schedule, memory and numerics passes are ROADMAP Queue 1, Slice F,
-item 15, part 15b: ``run_hlo_audit`` refuses them.
+``run_hlo_audit`` runs the schedule, memory and numerics passes
+(``schedule_audit``, ``memory_audit``, ``numerics_audit``) on the same
+single call and capture, as JAX's one lowering serves all of its passes.
 """
 
 from __future__ import annotations
@@ -47,7 +48,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Sequence
 
-from dlbb_tpu_torch.analysis import NOT_PORTED
 from dlbb_tpu_torch.analysis.expectations import (
     TargetExpectation,
     compact_expectation,
@@ -68,6 +68,7 @@ from dlbb_tpu_torch.analysis.findings import (
     Finding,
 )
 from dlbb_tpu_torch.analysis.op_capture import CollectiveInstr, StateSpec, capture_call
+from dlbb_tpu_torch.analysis.schedule_audit import check_divergent_ranks, collective_signature
 
 
 @dataclass
@@ -87,12 +88,17 @@ class AuditTarget:
 
 
 def audit_target(target: AuditTarget, passes: Sequence[str] = ("hlo",),
-                 device=None) -> tuple[list[Finding], dict]:
+                 device=None, tier: Optional[object] = None,
+                 model: str = "cm1") -> tuple[list[Finding], dict]:
     """Build, call once under the capture, and check one target on this
-    rank.  Returns the findings and a meta dict (the collective inventory,
-    the flash launches, the donation counterpart).  A rank outside the
-    target's mesh returns no findings and ``{"on_mesh": False}``."""
-    _refuse(passes)
+    rank: one call serves every pass asked for.  Returns the findings and
+    a meta dict (the collective inventory, the flash launches, the
+    donation counterpart, the rank's collective ``signature``, and under
+    ``schedule``, ``memory`` and ``numerics`` those passes' metas).  A rank
+    outside the target's mesh returns no findings and ``{"on_mesh":
+    False}``."""
+    from dlbb_tpu_torch.analysis.costmodel import CostTier
+
     built = target.build(device)
     if built is None:
         return [], {"on_mesh": False}
@@ -102,6 +108,50 @@ def audit_target(target: AuditTarget, passes: Sequence[str] = ("hlo",),
     exp = target.expectation
     instrs = cap.collectives
 
+    findings: list[Finding] = []
+    meta: dict = {}
+    if "schedule" in passes:
+        from dlbb_tpu_torch.analysis.schedule_audit import analyze_schedule
+
+        sched_findings, meta["schedule"] = analyze_schedule(cap, exp, target.name,
+                                                            tier=tier, model=model)
+        findings.extend(sched_findings)
+    if "memory" in passes:
+        from dlbb_tpu_torch.analysis.memory_audit import analyze_memory
+
+        mem_findings, meta["memory"] = analyze_memory(
+            cap, exp, target.name,
+            # the target's mesh size: the replicated-spike factor
+            num_devices=max(1, target.min_devices),
+            tier=tier if isinstance(tier, CostTier) else None)
+        findings.extend(mem_findings)
+    if "numerics" in passes:
+        from dlbb_tpu_torch.analysis.numerics_audit import analyze_numerics
+
+        num_findings, meta["numerics"] = analyze_numerics(
+            cap, exp, target.name, num_devices=max(1, target.min_devices),
+            # price the state's upcast against the memory pass's peak
+            peak_live_bytes=meta.get("memory", {}).get("peak_live_bytes"))
+        findings.extend(num_findings)
+    if "hlo" in passes:
+        findings.extend(_hlo_findings(target, cap))
+    meta.update({
+        "collectives": [i.to_dict() for i in instrs],
+        "num_collectives": sum(i.execution_count for i in instrs),
+        "total_wire_bytes": sum(wire_bytes(i.kind, i.result_bytes, i.group_size)
+                                * i.execution_count for i in instrs),
+        "flash_launches": cap.flash_launches,
+        "has_donation": cap.has_donation,
+        "aten_ops": len(cap.aten_ops),
+        "signature": [list(t) for t in collective_signature(cap.nodes)],
+    })
+    return findings, meta
+
+
+def _hlo_findings(target: AuditTarget, cap) -> list[Finding]:
+    """The collective audit's rules (module docstring) over one capture."""
+    exp = target.expectation
+    instrs = cap.collectives
     findings: list[Finding] = []
     for instr in instrs:
         base = _instr_details(instr, exp)
@@ -198,15 +248,7 @@ def audit_target(target: AuditTarget, passes: Sequence[str] = ("hlo",),
             details={"expected": "the step writes its state in place",
                      "state_tensors": len(cap.state_before)},
         ))
-    meta = {
-        "collectives": [i.to_dict() for i in instrs],
-        "num_collectives": sum(i.execution_count for i in instrs),
-        "total_wire_bytes": total_wire,
-        "flash_launches": cap.flash_launches,
-        "has_donation": cap.has_donation,
-        "aten_ops": len(cap.aten_ops),
-    }
-    return findings, meta
+    return findings
 
 
 def _instr_details(instr: CollectiveInstr, exp: TargetExpectation) -> dict:
@@ -215,12 +257,6 @@ def _instr_details(instr: CollectiveInstr, exp: TargetExpectation) -> dict:
     d["expected_max_bytes_per_instr"] = exp.max_bytes_per_instr
     d["analytic_wire_bytes"] = wire_bytes(instr.kind, instr.result_bytes, instr.group_size)
     return d
-
-
-def _refuse(passes: Sequence[str]) -> None:
-    others = [p for p in passes if p != "hlo"]
-    if others:
-        raise NotImplementedError(f"analyze pass(es) {others} {NOT_PORTED}")
 
 
 # ---------------------------------------------------------------------------
@@ -660,8 +696,11 @@ def _serve_build(dp: int, tp: int, what: str, k: int = 4):
         active = torch.ones((mb,), dtype=torch.bool, device=dev)
         remaining = torch.full((mb,), k, dtype=torch.int32, device=dev)
         carry_cache = _cache_state(lambda t: t[0][0])
+        # the per-step decode donates its whole carry, the cache and x
+        carry = StateSpec(before=lambda args: [*args[0][0], args[0][1]],
+                          after=lambda out, args: [*out[0][0], out[0][1]])
         if what == "decode":
-            return E.build_decode_step(cfg, mesh), ((cache, x), params, active), carry_cache
+            return E.build_decode_step(cfg, mesh), ((cache, x), params, active), carry
         if what == "decode_fused":
             return (E.build_decode_fused(cfg, mesh, k=k),
                     ((cache, x), params, active, remaining), carry_cache)
@@ -696,7 +735,7 @@ def _serve_build(dp: int, tp: int, what: str, k: int = 4):
                     (cache, 0, 1), _cache_state(lambda t: t[0]))
         if what == "decode_quant":
             return (E.build_decode_step(cfg, mesh),
-                    ((cache_for(cfg, create_quant_kv_cache), x), params, active), carry_cache)
+                    ((cache_for(cfg, create_quant_kv_cache), x), params, active), carry)
         if what in ("compact_gather", "compact_scatter"):
             idx = torch.arange(mb // 2, device=dev)
             if what == "compact_gather":
@@ -926,17 +965,28 @@ def run_hlo_audit(
     passes: Sequence[str] = ("hlo",),
     device=None,
     metas: Optional[dict] = None,
+    tier: Optional[str] = None,
+    model: str = "cm1",
 ) -> AnalysisReport:
     """Audit ``targets`` (default: ``default_targets()``) on this rank of
     the world (one rank without a process group), every rank of which
-    calls this with the same targets.  A target needing more ranks than
-    the world has is recorded as skipped.  ``passes`` other than "hlo"
-    raise (part 15b).  ``metas``, when given, receives each audited
-    target's meta (``audit_target``) by name.  Returns this rank's report:
-    rank 0's is the run's."""
+    calls this with the same targets.  ``passes`` selects the collective
+    audit (``"hlo"``), ``"schedule"``, ``"memory"`` and ``"numerics"``:
+    one call of a target serves them all.  ``tier`` (default
+    ``default_tier(device)``) and ``model`` price the schedule and memory
+    passes.  Under ``"schedule"`` each rank's collective sequence is
+    gathered to rank 0 for the divergence check.  A target needing more
+    ranks than the world has is recorded as skipped.  ``metas``, when
+    given, receives each audited target's meta (``audit_target``) by name.
+    Returns this rank's report: rank 0's is the run's."""
     import torch.distributed as dist
 
-    _refuse(passes)
+    if "schedule" in passes or "memory" in passes:
+        from dlbb_tpu_torch.analysis.costmodel import resolve_tier
+
+        # resolved once, before any call: a mistyped --tier/--model is a
+        # crash, not 41 audit-crash findings
+        tier = resolve_tier(tier or default_tier(device), model=model)
     world = dist.get_world_size() if dist.is_initialized() else 1
     report = AnalysisReport()
     for target in targets if targets is not None else default_targets():
@@ -947,29 +997,69 @@ def run_hlo_audit(
             })
             continue
         try:
-            findings, meta = audit_target(target, passes=passes, device=device)
+            findings, meta = audit_target(target, passes=passes, device=device,
+                                          tier=tier, model=model)
         except Exception as e:  # noqa: BLE001 — one target's failure is contained
+            findings, meta = None, None
             report.findings.append(Finding(
                 pass_name="hlo", rule="audit-crash", severity=SEVERITY_ERROR,
                 target=target.name, message=f"audit raised {type(e).__name__}: {e}",
             ))
             if verbose:
                 print(f"[hlo] {target.name}: CRASH ({type(e).__name__})")
+        if "schedule" in passes and world > 1:
+            findings = _divergence(target, meta, findings)
+        if findings is None:
             continue
         report.findings.extend(findings)
         report.targets_audited.append(target.name)
         if metas is not None:
             metas[target.name] = meta
+        for key in ("schedule", "memory", "numerics"):
+            if key in meta:
+                getattr(report, key)[target.name] = meta[key]
         if verbose and meta.get("on_mesh", True):
-            status = "FAIL" if findings else "ok"
-            kinds = sorted({c["kind"] for c in meta["collectives"]})
-            print(f"[hlo] {target.name}: {status} ({meta['num_collectives']} "
-                  f"collective(s) {kinds}, {meta['total_wire_bytes']} wire B)", flush=True)
+            print(f"[hlo] {target.name}: {'FAIL' if findings else 'ok'}"
+                  f"{_summary(meta)}", flush=True)
     return report
 
 
-def _audit_rank(verbose: bool, device, names: Optional[Sequence[str]] = None):
-    """One rank of ``cli analyze hlo --simulate N`` (``bench/launch.py``
+def _divergence(target: AuditTarget, meta: Optional[dict],
+                findings: Optional[list]) -> Optional[list]:
+    """Gather every rank's collective sequence of ``target`` (a rank off
+    its mesh, or whose call crashed, sends None); rank 0 adds the
+    divergence check's findings to its own."""
+    import torch.distributed as dist
+
+    sig = meta.get("signature") if meta else None
+    sigs: list = [None] * dist.get_world_size()
+    dist.all_gather_object(sigs, sig)
+    if findings is None or dist.get_rank() != 0:
+        return findings
+    return findings + check_divergent_ranks(
+        {r: s for r, s in enumerate(sigs) if s is not None}, target.name)
+
+
+def _summary(meta: dict) -> str:
+    """JAX's one-line summary of an audited target."""
+    kinds = sorted({c["kind"] for c in meta["collectives"]})
+    out = f" ({meta['num_collectives']} collective(s) {kinds}, {meta['total_wire_bytes']} wire B"
+    sched = meta.get("schedule")
+    if sched is not None:
+        eff = sched["overlap_efficiency"]
+        out += f", cp {sched['critical_path_us']:.1f}us" + (
+            f", overlap {eff:.2f}" if eff is not None else "")
+    if "memory" in meta:
+        out += f", peak {meta['memory']['peak_live_bytes'] / 1024:.1f}KiB"
+    if "numerics" in meta:
+        out += f", err<={meta['numerics']['numerics_max_rel_error_bound']:.2g}"
+    return out + ")"
+
+
+def _audit_rank(verbose: bool, device, names: Optional[Sequence[str]] = None,
+                passes: Sequence[str] = ("hlo",), tier: Optional[str] = None,
+                model: str = "cm1"):
+    """One rank of ``cli analyze ... --simulate N`` (``bench/launch.py``
     runs it on each): the audit over the default targets (or those named
     ``names``); rank 0 returns its report, the others None."""
     import torch.distributed as dist
@@ -977,5 +1067,6 @@ def _audit_rank(verbose: bool, device, names: Optional[Sequence[str]] = None):
     targets = default_targets()
     if names is not None:
         targets = [t for t in targets if t.name in set(names)]
-    report = run_hlo_audit(targets, verbose=verbose and dist.get_rank() == 0, device=device)
+    report = run_hlo_audit(targets, verbose=verbose and dist.get_rank() == 0, passes=passes,
+                           device=device, tier=tier, model=model)
     return report if dist.get_rank() == 0 else None

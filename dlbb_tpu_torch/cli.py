@@ -288,7 +288,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "trace/journal against the cost model into a per-phase 'where did "
                          "the time go' report (MD+CSV under stats/torch/analysis/"
                          "attribution/); calibrate and diff are not ported yet (item 14, "
-                         "part 14b, over item 15, part 15b's baselines)")
+                         "part 14b, the calibration over the schedule baselines)")
     ob.add_argument("--journal", default=None, metavar="DIR",
                     help="the run's output directory (sweep_journal.jsonl for trace, "
                          "the captured results for devtrace, the span trace or journal "
@@ -297,6 +297,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="output path (trace JSON) or report directory (devtrace, "
                          "attribute; the fitted-DB directory of fit when --fit-dir is not "
                          "given)")
+    ob.add_argument("--baselines", default=None, metavar="DIR",
+                    help="schedule-baseline directory devtrace joins its static column "
+                         "against (default: stats/torch/analysis/baselines)")
     ob.add_argument("--strict-warnings", action="store_true",
                     help="warnings also exit 1")
     ob.add_argument("--results", nargs="+", default=None, metavar="DIR",
@@ -347,18 +350,20 @@ def _add_analyze_parser(sub) -> None:
     its ``--simulate N`` as N gloo ranks on the CPU."""
     an = sub.add_parser(
         "analyze",
-        help="comm-lint: the source lint (lint) and the collective audit of every "
-             "registered target's c10d ops (hlo); the schedule, memory and numerics "
-             "passes and the baseline gate are not ported yet (ROADMAP Queue 1, Slice F, "
-             "item 15, part 15b) and exit 2.  Exit codes 0 clean / 1 findings / 2 crash")
+        help="comm-lint: the source lint (lint), the collective audit of every "
+             "registered target's c10d ops (hlo), the schedule, memory and numerics "
+             "passes over each target's captured graph, and the baseline gate "
+             "(snapshot/diff).  Exit codes 0 clean / 1 findings / 2 crash")
     an.add_argument("which", nargs="?", default="all",
                     choices=("hlo", "lint", "schedule", "memory", "numerics", "all",
                              "snapshot", "diff"),
-                    help="pass to run: hlo = collective audit, lint = AST source lint; "
-                         "schedule, memory, numerics, all, snapshot and diff exit 2 "
-                         "(part 15b)")
+                    help="pass to run: hlo = collective audit, lint = AST source lint, "
+                         "schedule = alpha-beta critical path + overlap proof, memory = "
+                         "buffer liveness / peak live bytes, numerics = dtype flow and "
+                         "error bounds, all = every pass, snapshot = write the "
+                         "baselines, diff = gate against them (default: all)")
     an.add_argument("--simulate", type=int, default=0, metavar="N",
-                    help="run the collective audit on N gloo ranks on the CPU (targets "
+                    help="run the target passes on N gloo ranks on the CPU (targets "
                          "needing more ranks are skipped; without it every target is)")
     an.add_argument("--json", default=None, metavar="PATH",
                     help="write the machine-readable findings report here")
@@ -367,14 +372,19 @@ def _add_analyze_parser(sub) -> None:
     an.add_argument("--strict-warnings", action="store_true",
                     help="exit nonzero on warnings too")
     an.add_argument("--baselines", default=None, metavar="DIR",
-                    help="baseline directory of snapshot/diff (part 15b)")
+                    help="baseline directory of snapshot/diff (default: "
+                         "stats/torch/analysis/baselines)")
     an.add_argument("--tier", default=None, metavar="TIER",
-                    help="cost-model tier of the schedule pass (part 15b)")
+                    help="cost-model tier of the schedule and memory passes (default: "
+                         "cpu-sim on the CPU, cuda on the card)")
     an.add_argument("--model", default="cm1", choices=("cm1", "cm2"),
-                    help="cost model of the schedule pass (part 15b)")
+                    help="cost model of the schedule pass: cm1 analytic constants, cm2 "
+                         "the fitted DB (falls back to cm1 where no fit exists)")
     an.add_argument("--output", default=None, metavar="DIR",
-                    help="fold the per-pass analysis_findings{pass,severity} gauges "
-                         "into DIR/metrics.prom")
+                    help="write memory_audit.json / numerics_audit.json there, merge "
+                         "them into its sweep_manifest.json, and fold the gauges "
+                         "(analysis_findings{pass,severity} and the passes' own) into "
+                         "DIR/metrics.prom")
 
 
 def _add_plan_parser(sub) -> None:
@@ -662,15 +672,15 @@ def main(argv=None) -> int:
     if args.cmd == "analyze":
         from dlbb_tpu_torch.analysis import run_analysis
 
-        # --baselines, --tier and --model are read by part 15b's passes
         return run_analysis(which=args.which, root=args.root, json_path=args.json,
                             strict_warnings=args.strict_warnings, output=args.output,
-                            simulate=args.simulate)
+                            simulate=args.simulate, baselines=args.baselines,
+                            tier=args.tier, model=args.model)
     if args.cmd == "obs":
         from dlbb_tpu_torch.obs import run_obs
 
         return run_obs(args.which, journal=args.journal, output=args.output,
-                       strict_warnings=args.strict_warnings, results=args.results,
+                       baselines=args.baselines, strict_warnings=args.strict_warnings, results=args.results,
                        tier=args.tier, fit_dir=args.fit_dir, min_samples=args.min_samples,
                        host_filter=args.host_filter, model=args.model,
                        trace=args.span_trace_file)

@@ -97,7 +97,7 @@ def quantize_chunked(x: torch.Tensor, compression: str = "int8"
     scale = torch.where(amax > 0.0, amax / amax.new_tensor(qmax), torch.ones_like(amax))
     q = chunks / scale
     if compression == "int8":
-        q = torch.clamp(torch.round(q), -qmax, qmax)
+        q = q.round_().clamp_(-qmax, qmax)   # in place: no second full-size buffer
     return q.to(dtype), scale.squeeze(-1)
 
 
@@ -106,7 +106,8 @@ def dequantize_chunked(q: torch.Tensor, scales: torch.Tensor, num_elements: int,
     """The inverse of ``quantize_chunked``: ``[..., n_chunks, C]`` and
     ``[..., n_chunks]`` to ``[..., num_elements]`` (padding dropped) in
     ``out_dtype``."""
-    x = q.float() * scales[..., None]
+    # the scaling in place: one fp32 buffer, not two
+    x = q.to(torch.float32, copy=True).mul_(scales[..., None])
     x = x.reshape(x.shape[:-2] + (-1,))[..., :num_elements]
     return x.to(out_dtype)
 

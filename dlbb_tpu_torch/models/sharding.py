@@ -271,9 +271,12 @@ def batch_spec(mesh, chunks: int = 1) -> dict[str, int]:
 
 
 def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
-    """A new tensor: the sum of ``t`` over the ranks of ``group``."""
+    """A new tensor: the sum of ``t`` over the ranks of ``group``.  A group
+    of one rank issues no collective (XLA drops a psum over a size-1 axis;
+    its sum is ``t``)."""
     out = t.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=group)
+    if dist.get_world_size(group) > 1:
+        dist.all_reduce(out, group=group)
     return out
 
 

@@ -196,13 +196,16 @@ def meta_params(config: ModelConfig) -> Params:
     return meta(param_shapes(config))
 
 
-def _layernorm(x, scale, bias):
+def _layernorm(x, scale, bias, out=None):
     # statistics in fp32, population variance, eps 1e-5, scale and bias
-    # applied in fp32, result cast back (transformer.py:103-108 there)
+    # applied in fp32, result cast back (transformer.py:103-108 there);
+    # ``out`` takes the result (the bias add rounds into it, as ``.to``)
     x32 = x.float()
     mu = x32.mean(-1, keepdim=True)
     var = x32.var(-1, keepdim=True, unbiased=False)
     y = (x32 - mu) * torch.rsqrt(var + 1e-5)
+    if out is not None:
+        return torch.add(y * scale.float(), bias.float(), out=out)
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 

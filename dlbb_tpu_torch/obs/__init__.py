@@ -13,8 +13,8 @@ cost model from a results tree into the versioned DB under
 ``stats/torch/analysis/costmodel_fit`` and ``cli obs attribute`` partitions
 a run's span trace (else its journal) into phases priced by the cost model,
 MD + CSV under ``stats/torch/analysis/attribution`` (:func:`run_obs`); the
-cost model's calibration and its diff are item 14, part 14b (over item
-15, part 15b's schedule baselines).  Exit codes
+cost model's calibration and its diff are item 14, part 14b (over the
+schedule audit's baselines, ``stats/torch/analysis/baselines``).  Exit codes
 follow ``analysis.findings.EXIT_*``: 0 clean / 1 findings / 2 crash; a
 ``--model cm2`` attribution of a tier with no fit is a finding (1).
 """
@@ -50,17 +50,17 @@ __all__ = [
 
 OBS_COMMANDS = ("trace", "calibrate", "diff", "fit", "attribute", "devtrace")
 # JAX's obs subcommands that wait for the cost model's calibration
-# (item 14, part 14b) and the schedule audit (item 15, part 15b)
+# (item 14, part 14b)
 _NOT_PORTED = {
     "calibrate": ("ROADMAP Queue 1, Slice F, item 14 (part 14b, the cost model's "
                   "calibration)"),
-    "diff": ("ROADMAP Queue 1, Slice F, item 14 (part 14b, the calibration gate), over "
-             "item 15's schedule baselines (part 15b)"),
+    "diff": ("ROADMAP Queue 1, Slice F, item 14 (part 14b, the calibration gate over "
+             "the schedule baselines)"),
 }
 
 
 def run_obs(which: str, journal: Optional[str] = None, output: Optional[str] = None,
-            strict_warnings: bool = False, verbose: bool = True,
+            baselines: Optional[str] = None, strict_warnings: bool = False, verbose: bool = True,
             results: Optional[list[str]] = None, tier: Optional[str] = None,
             fit_dir: Optional[str] = None, min_samples: Optional[int] = None,
             host_filter: Optional[str] = None, model: str = "cm1",
@@ -68,8 +68,8 @@ def run_obs(which: str, journal: Optional[str] = None, output: Optional[str] = N
     """``cli obs``: JAX's exit-code contract, an internal exception
     surfacing as ``EXIT_CRASH``."""
     try:
-        return _run_obs(which, journal, output, strict_warnings, verbose, results, tier,
-                        fit_dir, min_samples, host_filter, model, trace)
+        return _run_obs(which, journal, output, baselines, strict_warnings, verbose, results,
+                        tier, fit_dir, min_samples, host_filter, model, trace)
     except Exception:  # noqa: BLE001 — the exit-code contract
         import traceback
 
@@ -78,7 +78,7 @@ def run_obs(which: str, journal: Optional[str] = None, output: Optional[str] = N
 
 
 def _run_obs(which: str, journal: Optional[str], output: Optional[str],
-             strict_warnings: bool, verbose: bool, results: Optional[list[str]],
+             baselines: Optional[str], strict_warnings: bool, verbose: bool, results: Optional[list[str]],
              tier: Optional[str], fit_dir: Optional[str], min_samples: Optional[int],
              host_filter: Optional[str], model: str, trace: Optional[str]) -> int:
     from pathlib import Path
@@ -114,7 +114,8 @@ def _run_obs(which: str, journal: Optional[str], output: Optional[str],
             print("error: obs devtrace needs --journal DIR (a sweep or serving output "
                   "directory whose artifacts record device captures)")
             return EXIT_CRASH
-        _report, findings = run_devtrace(input_dir=journal, out_dir=output, verbose=verbose)
+        _report, findings = run_devtrace(input_dir=journal, out_dir=output,
+                                         baselines_dir=baselines, verbose=verbose)
         if findings and verbose:
             for f in findings:
                 print(f.render())

@@ -20,11 +20,11 @@ The tier of a sample comes from the artifact's ``system_info.backend``:
 
 Calibration reports (``dlbb_calibration_v1``) are program-scale rows in
 JAX, their features joined from the schedule baselines of the schedule
-auditor.  The port has no schedule baselines until ROADMAP Queue 1, Slice
-F, item 15, part 15b ports the schedule auditor, so
+auditor.  The port writes no calibration report until ROADMAP Queue 1,
+Slice F, item 14, part 14b ports the calibration, so
 :func:`ingest_calibration` skips every such report with its reason and
-makes up no features; calibration rows come once part 15b brings the
-baselines.
+makes up no features; calibration rows come with part 14b's join over the
+port's schedule baselines (``analysis/schedule_audit.py``).
 
 Pure file processing: it runs with no device.
 """
@@ -56,8 +56,7 @@ _PREFILTER_NAMES = re.compile(
     r"|metrics|.*_trace)", re.IGNORECASE
 )
 
-# where the schedule auditor's baselines will live (item 15, part 15b); nothing
-# writes there yet
+# the schedule auditor's committed baselines (analysis/schedule_audit.py)
 DEFAULT_BASELINE_DIR = Path("stats/torch/analysis/baselines")
 
 ELEM_BYTES = {
@@ -217,10 +216,10 @@ def ingest_calibration(path: Path, data: dict[str, Any],
                        baselines_dir: "Optional[str | Path]" = None
                        ) -> tuple[list[dict[str, Any]], list[dict]]:
     """A calibration report's rows need its targets' schedule baselines
-    for their features (JAX's join), which the port does not have yet: the
-    report is skipped, with JAX's reason where the baselines directory is
-    missing, and otherwise with the reason that the join waits for ROADMAP
-    Queue 1, Slice F, item 15, part 15b.  No row is ever made without its
+    for their features (JAX's join): the report is skipped, with JAX's
+    reason where the baselines directory is missing, and otherwise with the
+    reason that the join waits for the port's calibration (ROADMAP Queue 1,
+    Slice F, item 14, part 14b).  No row is ever made without its
     features."""
     baselines_dir = Path(baselines_dir or DEFAULT_BASELINE_DIR)
     if not baselines_dir.is_dir():
@@ -229,8 +228,8 @@ def ingest_calibration(path: Path, data: dict[str, Any],
                                 f"{baselines_dir} to join features from")}]
     return [], [{"file": str(path),
                  "reason": (f"schedule baselines under {baselines_dir} are not joined "
-                            "until the schedule auditor is ported (ROADMAP Queue 1, "
-                            "Slice F, item 15, part 15b)")}]
+                            "until the calibration is ported (ROADMAP Queue 1, Slice F, "
+                            "item 14, part 14b)")}]
 
 
 _DEVTRACE_SAMPLE_KEYS = ("op", "kind", "ranks", "wire_bytes",

@@ -41,12 +41,14 @@ annotates each rep with the HLO op JAX lowers the op to); cuBLAS and
 CUTLASS GEMMs go to ``dot``; the port's own ``flash_*_kernel``s go where
 JAX's Pallas custom call goes (``other``); per-op rows keep kernel names.
 
-The static column (JAX's join against the schedule auditor's baselines)
-waits for the port's schedule audit (ROADMAP Queue 1, Slice F, item 15,
-part 15b):
-every row carries ``static: null``, and the committed baselines under
-``stats/analysis/baselines/`` are not read, since they describe XLA's
-programs.  :func:`_gate_overlap` is ported and fires on a row that has one.
+The static column is JAX's join against the schedule auditor's committed
+baselines, the port's own under ``stats/torch/analysis/baselines/``
+(``analysis/schedule_audit.py``; JAX's describe XLA's programs): each sweep
+config's (op, variant) names its audit target (:func:`audit_target_name`)
+and its row carries that baseline's overlap efficiency, critical path,
+collective count, tier and cost model (:func:`_static_join`), or
+``static: null`` where no baseline exists.  :func:`_gate_overlap` holds a
+ring-decomposed row's measured timeline against the static overlap.
 
 Fail-closed contract (JAX's): a run directory with no captures, a capture
 whose trace is missing, truncated or empty, or a capture with zero device
@@ -68,9 +70,6 @@ from dlbb_tpu_torch.analysis.findings import SEVERITY_ERROR, SEVERITY_WARNING, F
 
 DEVTRACE_SCHEMA = "dlbb_devtrace_v1"
 DEFAULT_DEVTRACE_DIR = Path("stats/torch/analysis/devtrace")
-STATIC_NOTE = ("no static column: the port's schedule audit and its baselines are "
-               "ROADMAP Queue 1, Slice F, item 15, part 15b, and JAX's committed baselines "
-               "describe XLA's programs, not the port's")
 
 BUCKETS = ("collective", "permute", "dot", "fusion", "other")
 
@@ -600,19 +599,55 @@ def _serving_captures(input_dir: Path) -> list[dict[str, Any]]:
     return out
 
 
-def analyze_run(input_dir: "str | Path") -> tuple[dict[str, Any], list[Finding]]:
+# ---------------------------------------------------------------------------
+# the static join (the port's committed schedule baselines)
+# ---------------------------------------------------------------------------
+
+
+def audit_target_name(op: str, variant: str) -> str:
+    """The collective audit's default target a sweep config's (op, variant)
+    was audited as: the key into the schedule baselines (JAX's naming,
+    ``analysis/hlo_audit.py``'s registry)."""
+    if op in ("ag_matmul", "matmul_rs"):
+        schedule = {"overlap_ring": "ring", "overlap_bidir": "bidir"}.get(variant, "fused")
+        return f"comm/ops.py::{op}[{schedule}]"
+    if op.endswith("_q"):
+        return f"comm/ops.py::{op}[{'fp8' if 'fp8' in variant else 'int8'}]"
+    return f"comm/ops.py::{op}"
+
+
+def _static_join(baselines: dict[str, dict], op: str, variant: str) -> Optional[dict[str, Any]]:
+    base = baselines.get(audit_target_name(op, variant))
+    if base is None:
+        return None
+    return {
+        "target": base.get("target"),
+        "overlap_efficiency": base.get("overlap_efficiency"),
+        "critical_path_us": base.get("critical_path_us"),
+        "num_collectives": base.get("num_collectives"),
+        "tier": base.get("tier"),
+        "cost_model_version": base.get("cost_model_version"),
+    }
+
+
+def analyze_run(input_dir: "str | Path", baselines_dir: "Optional[str | Path]" = None
+                ) -> tuple[dict[str, Any], list[Finding]]:
     """Parse every capture a run directory recorded into the devtrace
-    report and findings (JAX's walk, without the static join).
-    Fail-closed: no captures at all, or a capture missing or unparseable,
-    is an explicit error finding."""
+    report and findings, each sweep config joined with its target's
+    schedule baseline under ``baselines_dir`` (default: the committed
+    ``stats/torch/analysis/baselines``).  Fail-closed: no captures at all,
+    or a capture missing or unparseable, is an explicit error finding."""
+    from dlbb_tpu_torch.analysis.schedule_audit import DEFAULT_BASELINE_DIR, load_baselines
+
     input_dir = Path(input_dir)
+    baselines_dir = Path(baselines_dir or DEFAULT_BASELINE_DIR)
+    baselines = load_baselines(baselines_dir) if baselines_dir.is_dir() else {}
     findings: list[Finding] = []
     captures = _sweep_captures(input_dir) + _serving_captures(input_dir)
     report: dict[str, Any] = {
         "schema": DEVTRACE_SCHEMA,
         "input_dir": str(input_dir),
-        "baselines_dir": None,
-        "static_note": STATIC_NOTE,
+        "baselines_dir": str(baselines_dir),
         "captures": [],
         "op_samples": [],
     }
@@ -677,7 +712,7 @@ def analyze_run(input_dir: "str | Path") -> tuple[dict[str, Any], list[Finding]]
             row["op"] = str(data.get("operation", ""))
             row["variant"] = str(data.get("variant", "default"))
             row["ranks"] = int(data.get("num_ranks", 0))
-            row["static"] = None
+            row["static"] = _static_join(baselines, row["op"], row["variant"])
             _gate_overlap(row, findings)
             sample = _op_sample(cap, timeline)
             if sample is not None:
@@ -817,13 +852,14 @@ def write_devtrace(report: dict[str, Any], findings: list[Finding], out_dir: "st
         f"- schema: `{DEVTRACE_SCHEMA}`",
         f"- input: `{report.get('input_dir')}`",
         f"- captures: {len(parsed)} parsed / {len(caps)} recorded",
-        f"- static join: {report.get('static_note') or report.get('baselines_dir')}",
+        f"- static join: `{report.get('baselines_dir')}`",
         "",
         "## Measured vs static overlap, per capture",
         "",
         "Measured overlap is the wall-occupancy of collective/permute device events "
         "covered by concurrently-executing compute events on the same device; the "
-        "static column is empty until the port has its schedule audit.",
+        "static value is the schedule auditor's ASAP upper bound from the committed "
+        "baseline (`analysis/schedule_audit.py`).",
         "",
         "| capture | target | dev events | comm | measured overlap | static overlap "
         "| concurrency |",
@@ -879,17 +915,20 @@ def write_devtrace(report: dict[str, Any], findings: list[Finding], out_dir: "st
 
 
 def run_devtrace(input_dir: "str | Path", out_dir: "Optional[str | Path]" = None,
+                 baselines_dir: "Optional[str | Path]" = None,
                  name: Optional[str] = None, verbose: bool = True,
                  ) -> tuple[dict[str, Any], list[Finding]]:
-    """``cli obs devtrace``: parse and write the report set; the caller
-    maps the findings to the exit codes."""
+    """``cli obs devtrace``: parse, join and write the report set; the
+    caller maps the findings to the exit codes."""
     input_dir = Path(input_dir)
     name = name or input_dir.resolve().name
-    report, findings = analyze_run(input_dir)
+    report, findings = analyze_run(input_dir, baselines_dir)
     _json, md_path, _csv = write_devtrace(report, findings,
                                           Path(out_dir or DEFAULT_DEVTRACE_DIR), name)
     if verbose:
         parsed = [c for c in report["captures"] if "error" not in c]
+        n_overlap = sum(1 for c in parsed if (c.get("static") or {}).get("overlap_efficiency"))
         print(f"[obs] devtrace: {len(parsed)}/{len(report['captures'])} capture(s) parsed, "
-              f"{len(report['op_samples'])} fit sample(s) -> {md_path}")
+              f"{n_overlap} overlap-proof target(s), {len(report['op_samples'])} fit "
+              f"sample(s) -> {md_path}")
     return report, findings

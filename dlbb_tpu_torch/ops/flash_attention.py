@@ -17,7 +17,9 @@ implementations of each function sit here:
   launched for CUDA tensors (bf16, head_dim in ``KERNEL_HEAD_DIMS``,
   contiguous, 16-byte-aligned bases for TMA, ``tma_compatible``) and
   counted in ``flash_fwd_launches``, ``flash_bwd_dq_launches`` and
-  ``flash_bwd_dkv_launches``;
+  ``flash_bwd_dkv_launches``; while an op capture records a call
+  (``analysis/op_capture.py``), it sets ``capture_hook`` and each launch
+  hands it one node priced at its visible-pair flops (``kernel_flops``);
 - ``flash_fwd_reference`` and ``flash_bwd_reference``: the plain PyTorch
   computations of the same results, taken for CPU tensors only.  A CUDA
   tensor launches the kernels or raises; nothing falls back.
@@ -63,6 +65,29 @@ FWD_BLOCK_N = 128
 flash_fwd_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
+# set by an op capture for the call it records: called once per launch with
+# (op, reads, writes, flops, args); None otherwise
+capture_hook = None
+
+
+def visible_pairs(s: int, sk: int, causal: bool) -> int:
+    """The (query row, key) pairs one head sees: ``s * sk``, or under the
+    causal mask anchored at ``offset = sk - s`` the keys ``c <= r + offset``
+    of each row ``r``: the last ``m = min(s, sk)`` rows see ``sk - m + 1``
+    to ``sk`` keys and any earlier row none."""
+    if not causal:
+        return s * sk
+    m = min(s, sk)
+    return m * (2 * sk - m + 1) // 2
+
+
+def kernel_flops(kernel: str, b: int, n: int, s: int, sk: int, d: int,
+                 causal: bool) -> int:
+    """The flops of one launch over the visible pairs: 4 D for the forward
+    (QK^T, PV), 6 D for dq (QK^T, dO V^T, dS K), 8 D for dk/dv (QK^T, dO V^T,
+    P^T dO, dS^T Q) per pair and head."""
+    per_pair = {"fwd": 4, "dq": 6, "dkv": 8}[kernel] * d
+    return per_pair * visible_pairs(s, sk, causal) * b * n
 
 
 def kernel_accepts(q_shape, dtype: torch.dtype) -> bool:
@@ -243,6 +268,9 @@ def _flash_fwd_cuda(q, k, v, *, causal: bool, sm_scale: float):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             b * n, s, b * kvh, sk, d, float(sm_scale), int(causal))
     flash_fwd_launches += 1
+    if capture_hook is not None:
+        capture_hook("flash::fwd", {"q": q, "k": k, "v": v}, {"o": o, "lse": lse},
+                     kernel_flops("fwd", b, n, s, sk, d, causal), {"sk": sk, "causal": causal})
     return o, lse
 
 
@@ -282,6 +310,14 @@ def _flash_bwd_cuda(q, k, v, lse, do, delta, *, causal: bool, sm_scale: float,
             int(causal), int(dq) | 2 * int(dkv))
     flash_bwd_dq_launches += int(dq)
     flash_bwd_dkv_launches += int(dkv)
+    if capture_hook is not None:
+        reads = {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta}
+        for kernel, launched, writes in (("dq", dq, {"dq": out_dq}),
+                                         ("dkv", dkv, {"dk": dk, "dv": dv})):
+            if launched:
+                capture_hook(f"flash::bwd_{kernel}", reads, writes,
+                             kernel_flops(kernel, b, n, s, sk, d, causal),
+                             {"sk": sk, "causal": causal})
     return out_dq, dk, dv
 
 

@@ -36,6 +36,9 @@ import torch
 import torch.distributed as dist
 
 FORWARD, BACKWARD = 1, -1
+# set by an op capture (``analysis/op_capture.py``) for the call it records:
+# called with a hop's received tensors at its wait; None otherwise
+capture_hook = None
 
 
 def _ring_perms(p: int):
@@ -67,6 +70,9 @@ class Hop:
     def wait(self) -> list[torch.Tensor]:
         for work in self._works:
             work.wait()
+        # the hop's wait in an op capture: its overlap window ends here
+        if capture_hook is not None:
+            capture_hook(self._received)
         if self._device is None:
             return self._received
         return [t.to(self._device) for t in self._received]

@@ -1067,15 +1067,15 @@ def _append_rows_int8(codes: torch.Tensor, scales: torch.Tensor, new: torch.Tens
     return read
 
 
-def _decode_step_math(carry, params, active, config: ModelConfig, mesh=None):
+def _decode_step_math(carry, params, active, config: ModelConfig, mesh=None, out=None):
     """The decode-step computation (JAX's ``_decode_step_math``, the one
     copy of the math every decode program shares: the per-step programs
     and every trip of the fused ones).  ``carry = (cache, x)``: this rank's
     cache shard (``KVCache`` or ``QuantKVCache``) and its slots' inputs
     ``[B/dp, 1, H]``; ``active`` is the whole ``[max_batch]`` bool mask.
-    Returns ``((cache, y), y)`` with ``y [B/dp, 1, H]``; the cache is
-    updated in place (module docstring) and ``lengths`` advances by
-    ``active`` on every rank."""
+    Returns ``((cache, y), y)`` with ``y [B/dp, 1, H]``, written into
+    ``out`` when given; the cache is updated in place (module docstring)
+    and ``lengths`` advances by ``active`` on every rank."""
     tp = 1 if mesh is None else mesh.shape["tp"]
     local = local_config(config, tp)
     tp_mesh = _tp_mesh(mesh)
@@ -1116,7 +1116,7 @@ def _decode_step_math(carry, params, active, config: ModelConfig, mesh=None):
     for i, layer in enumerate(layers):
         h, _ = _serve_block(h, layer, local, attention_step, _layer_planes(cache, i),
                             tp_mesh)
-    y = _layernorm(h, params["ln_f"]["scale"], params["ln_f"]["bias"])
+    y = _layernorm(h, params["ln_f"]["scale"], params["ln_f"]["bias"], out=out)
     cache.lengths.add_(active.to(torch.int32))
     return (cache, y), y
 
@@ -1125,11 +1125,15 @@ def build_decode_step(config: ModelConfig, mesh=None):
     """``decode_step(carry, params, active) -> (carry, y)`` with ``carry =
     (cache, x)``: one step of the continuous-feedback ("off") mode; the
     returned carry's ``x`` is this step's output ``y``, which the engine
-    feeds straight back in."""
+    feeds straight back in.  The carry is donated, as JAX's step jit
+    donates it: the cache is updated in place and the final layer norm
+    writes ``y`` into the input ``x``'s storage, so a caller holding an
+    earlier ``y`` must read it before the next step (the engine syncs a
+    k = 1 unit at once)."""
 
     @torch.no_grad()
     def decode_step(carry, params, active):
-        return _decode_step_math(carry, params, active, config, mesh)
+        return _decode_step_math(carry, params, active, config, mesh, out=carry[1])
 
     return decode_step
 

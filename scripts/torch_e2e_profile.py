@@ -254,8 +254,8 @@ def _recorder(torch, eng, params):
 
     layernorm = eng._layernorm
 
-    def recorded_layernorm(x, scale, bias):
-        out = layernorm(x, scale, bias)
+    def recorded_layernorm(x, scale, bias, out=None):
+        out = layernorm(x, scale, bias, out=out)
         key = names.get(scale.data_ptr())
         if key is not None:
             put(key, out)

@@ -12,7 +12,8 @@ lines and files.  Each torch form of a rule has a positive and a negative
 case.  The port's own files lint clean under ``--strict-warnings``.  A
 report of the same findings writes JAX's JSON and summary, and
 ``analysis_metrics`` JAX's ``metrics.prom`` text; ``cli analyze`` returns
-0, 1 and 2 where JAX's does, and the passes of part 15b return 2.
+0, 1 and 2 where JAX's does; at world 1 every target pass audits nothing,
+which is a finding (1), never a clean run.
 """
 
 import dataclasses
@@ -507,9 +508,16 @@ def test_cli_analyze_wrong_root_and_crash_equal_jax(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("which", ["schedule", "memory", "numerics", "all", "snapshot",
                                    "diff"])
-def test_cli_analyze_refuses_part_15b(which, capsys):
-    assert cli.main(["analyze", which]) == 2
-    assert "part 15b" in capsys.readouterr().out
+def test_cli_analyze_refuses_part_15b(which, capsys, tmp_path):
+    """The target passes run since part 15b; without ``--simulate`` every
+    target is skipped, which is JAX's finding (1), and a snapshot of that
+    audit is refused (nothing written)."""
+    base = tmp_path / "baselines"
+    assert cli.main(["analyze", which, "--baselines", str(base)]) == 1
+    out = capsys.readouterr().out
+    assert "no-targets-audited" in out and "not ported" not in out
+    if which == "snapshot":
+        assert "snapshot refused" in out and not base.exists()
 
 
 def test_cli_analyze_hlo_without_ranks_is_never_clean(tmp_path, capsys):

@@ -314,8 +314,9 @@ def test_corpus_ingest_and_features(tmp_path):
 def test_calibration_reports_wait_for_item_15(tmp_path):
     """A ``dlbb_calibration_v1`` report is skipped, never turned into rows:
     with JAX's reason where the baselines directory is missing, and with
-    the reason that names item 15 where one exists (the port joins no
-    baselines until the schedule auditor is ported)."""
+    the reason that names the calibration (item 14, part 14b) where one
+    exists: the schedule baselines are ported (item 15), the join waits
+    for the calibration that writes such reports."""
     (tmp_path / "r").mkdir()
     (tmp_path / "r" / "calibration_report.json").write_text(json.dumps({
         "schema": "dlbb_calibration_v1", "tier": "cpu-sim",
@@ -326,7 +327,7 @@ def test_calibration_reports_wait_for_item_15(tmp_path):
     (tmp_path / "baselines").mkdir()
     port = pcorpus.build_corpus([tmp_path / "r"], baselines_dir=tmp_path / "baselines")
     (skip,) = port["skipped"]
-    assert port["samples"] == [] and "ROADMAP Queue 1, Slice F, item 15" in skip["reason"]
+    assert port["samples"] == [] and "ROADMAP Queue 1, Slice F, item 14" in skip["reason"]
 
 
 def test_run_fit_end_to_end(tmp_path):

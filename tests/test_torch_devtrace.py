@@ -8,9 +8,10 @@ on the same inputs: the committed golden capture
 fixtures (``tests/test_devtrace.py``'s ``_dev``, ``_annot``,
 ``_ring_events``, ``_write_capture``, ``_result_json``): the same timelines,
 analyses, comm samples, gate findings, fail-closed findings and CSV rows.
-JAX's static column joins its committed XLA baselines; the port has no
-static column yet (item 15), so rows are compared without it and the gate
-is held on given rows.
+The static column joins a schedule baseline directory: on JAX's committed
+baselines and on a seeded one, the port's rows (static column included)
+and gate findings equal JAX's; by default the port joins its own
+committed baselines (``stats/torch/analysis/baselines``).
 
 The captures themselves run in the port only (JAX's own captured-sweep test
 is red on this host): one launch of 2 gloo ranks runs a captured and an
@@ -31,12 +32,15 @@ from dlbb_tpu.obs import devtrace as jdt
 from dlbb_tpu_torch.analysis.findings import EXIT_CLEAN, EXIT_CRASH, EXIT_FINDINGS
 from dlbb_tpu_torch.bench import runner
 from dlbb_tpu_torch.bench.launch import launch
+from dlbb_tpu.analysis import schedule_audit as jax_schedule
+from dlbb_tpu_torch.analysis import schedule_audit as pt_schedule
 from dlbb_tpu_torch.obs import capture, run_obs
 from dlbb_tpu_torch.obs import devtrace as pdt
 
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "data" / "golden_capture"
 BASELINES = REPO / "stats" / "analysis" / "baselines"
+PORT_BASELINES = REPO / "stats" / "torch" / "analysis" / "baselines"
 
 # JAX's _dev/_annot event lists of tests/test_devtrace.py, by case
 CASES = {
@@ -266,6 +270,9 @@ def test_run_walks_equal_jax(tmp_path):
             [(f.rule, f.severity, f.target) for f in jf], name
         assert _without_static(port) == _without_static(jax), name
         assert port["op_samples"] == jax["op_samples"], name
+        # on the same baselines the static column is JAX's too
+        port, _ = pdt.analyze_run(d, BASELINES)
+        assert port["captures"] == jax["captures"], name
 
 
 def test_golden_capture_op_sample_equals_jax(tmp_path):
@@ -288,7 +295,8 @@ def test_golden_capture_op_sample_equals_jax(tmp_path):
 
     assert rows("p") == rows("j") and len(rows("p")) == 3
     md = (tmp_path / "p" / "golden_capture.md").read_text()
-    assert "measured overlap" in md and "static overlap" in md and "item 15" in md
+    assert "measured overlap" in md and "static overlap" in md and "schedule_audit" in md
+    assert "stats/torch/analysis/baselines" in md
 
 
 @pytest.mark.parametrize("case", ["ring_concurrent", "ring_single_stream", "hidden_ring"])
@@ -424,7 +432,13 @@ def test_captured_sweep_devtrace_green_and_stats_equivalent(captured, tmp_path):
     assert rc == EXIT_CLEAN
     report = json.loads((tmp_path / "captured.json").read_text())
     rows = {c["op"]: c for c in report["captures"]}
-    assert all("error" not in c and c["static"] is None for c in rows.values())
+    assert all("error" not in c for c in rows.values())
+    # the static column: the port's committed baseline of each op's target
+    for op, c in rows.items():
+        base = json.loads(pt_schedule.baseline_path(
+            PORT_BASELINES, pdt.audit_target_name(op, c["variant"])).read_text())
+        assert c["static"]["target"] == base["target"]
+        assert c["static"]["critical_path_us"] == base["critical_path_us"]
     assert rows["alltoall"]["buckets_us"]["collective"] > 0
     assert rows["sendrecv"]["buckets_us"]["permute"] > 0
     assert {s["op"] for s in report["op_samples"]} == {"allreduce", "alltoall", "sendrecv"}
@@ -516,3 +530,64 @@ def test_capture_without_a_device_event_fails_closed(tmp_path):
     findings = json.loads((tmp_path / "o" / "run.json").read_text())["findings"]
     assert [f["rule"] for f in findings] == ["capture-failed", "no-captures"]
     assert "no device events" in findings[0]["message"]
+
+
+@pytest.mark.parametrize("op,variant", [("ag_matmul", "overlap_ring"), ("ag_matmul", "default"),
+                                        ("matmul_rs", "overlap_bidir"),
+                                        ("allreduce_q", "compress_fp8"),
+                                        ("allgather", "default")])
+def test_static_join_on_seeded_baselines_equals_jax(tmp_path, op, variant):
+    """A run directory with one ring-hop capture joined against a seeded
+    baseline directory, written by each side's ``snapshot_baselines``: the
+    target name, the static column and the overlap gate's findings are
+    JAX's."""
+    assert pdt.audit_target_name(op, variant) == jdt.audit_target_name(op, variant)
+    target = pdt.audit_target_name(op, variant)
+    meta = {"cost_model_version": "cm1", "tier": "cpu-sim", "critical_path_us": 13.39,
+            "overlap_efficiency": 0.87, "num_collectives": 7, "total_wire_bytes": 57344,
+            "collective_kinds": {"collective-permute": 7}}
+    pt_schedule.snapshot_baselines({target: meta}, tmp_path / "pb")
+    jax_schedule.snapshot_baselines({target: meta}, tmp_path / "jb")
+    run = tmp_path / "run"
+    _write_capture(run / "captures" / "xla_tpu_fixture", CASES["ring_concurrent"])
+    _result_json(run, run / "captures" / "xla_tpu_fixture", op=op, variant=variant)
+    port, pf = pdt.analyze_run(run, tmp_path / "pb")
+    jax, jf = jdt.analyze_run(run, tmp_path / "jb")
+    assert [c["static"] for c in port["captures"]] == [c["static"] for c in jax["captures"]]
+    assert port["captures"][0]["static"]["target"] == target
+    assert [f.to_dict() for f in pf] == [f.to_dict() for f in jf]
+    # no baseline for the target: no static column, no gate
+    empty, ef = pdt.analyze_run(run, tmp_path / "none")
+    assert empty["captures"][0]["static"] is None and ef == []
+
+
+def test_cli_obs_devtrace_baselines_flag_equals_jax(tmp_path):
+    """``cli obs devtrace --baselines DIR`` joins the static column against
+    DIR, as JAX's flag does: on a seeded directory the row carries the
+    target's column and both CLIs give the same exit code and findings; on
+    a directory without the target the row has none."""
+    from dlbb_tpu import cli as jax_cli
+    from dlbb_tpu_torch import cli as pt_cli
+
+    target = pdt.audit_target_name("ag_matmul", "overlap_ring")
+    meta = {"cost_model_version": "cm1", "tier": "cpu-sim", "critical_path_us": 13.39,
+            "overlap_efficiency": 0.87, "num_collectives": 7, "total_wire_bytes": 57344,
+            "collective_kinds": {"collective-permute": 7}}
+    pt_schedule.snapshot_baselines({target: meta}, tmp_path / "pb")
+    jax_schedule.snapshot_baselines({target: meta}, tmp_path / "jb")
+    run = tmp_path / "run"
+    _write_capture(run / "captures" / "xla_tpu_fixture", CASES["ring_single_stream"])
+    _result_json(run, run / "captures" / "xla_tpu_fixture", op="ag_matmul",
+                 variant="overlap_ring")
+    reports = {}
+    for side, main, base in (("p", pt_cli.main, "pb"), ("j", jax_cli.main, "jb"),
+                             ("none", pt_cli.main, "none")):
+        rc = main(["obs", "devtrace", "--journal", str(run), "--output",
+                   str(tmp_path / side), "--baselines", str(tmp_path / base)])
+        reports[side] = (rc, json.loads((tmp_path / side / "run.json").read_text()))
+    (prc, port), (jrc, jax) = reports["p"], reports["j"]
+    assert prc == jrc
+    assert port["captures"][0]["static"]["target"] == target
+    assert [c["static"] for c in port["captures"]] == [c["static"] for c in jax["captures"]]
+    assert port["findings"] == jax["findings"]
+    assert reports["none"][1]["captures"][0]["static"] is None

@@ -136,3 +136,19 @@ def test_shape_errors():
         fa.flash_attention(q, k, v)
     with pytest.raises(ValueError, match="expected"):
         fa.flash_attention(q[0], k, v)
+
+
+@pytest.mark.parametrize("s,sk", [(1, 1), (7, 7), (5, 12), (12, 5), (1, 64), (64, 1),
+                                  (0, 4), (128, 384), (384, 128)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernel_flops_count_the_visible_pairs(s, sk, causal):
+    """``kernel_flops`` (the graph nodes' price) against a brute-force count
+    of the mask's (row, key) pairs: key ``c`` visible to row ``r`` when
+    ``c <= r + sk - s`` under the causal mask, every key otherwise."""
+    mask = np.tril(np.ones((s, sk), dtype=bool), k=sk - s) if causal else \
+        np.ones((s, sk), dtype=bool)
+    pairs = int(mask.sum())
+    assert fa.visible_pairs(s, sk, causal) == pairs
+    b, n, d = 2, 3, 64
+    for kernel, per_pair in (("fwd", 4), ("dq", 6), ("dkv", 8)):
+        assert fa.kernel_flops(kernel, b, n, s, sk, d, causal) == per_pair * d * pairs * b * n

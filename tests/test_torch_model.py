@@ -129,6 +129,20 @@ def test_layernorm_matches_jax(dtype):
                                rtol=TOL[dtype] / 5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layernorm_into_out_is_bit_equal(dtype):
+    """``_layernorm(..., out=x)`` (the per-step decode writes its output
+    into its input's storage) rounds as the returned tensor does."""
+    rng = np.random.default_rng(3)
+    x, scale, bias = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * 3 + 1)
+                      .to(pt_tf.DTYPES[dtype]) for shape in ((4, 1, 64), (64,), (64,)))
+    want = pt_tf._layernorm(x, scale, bias)
+    storage = x.untyped_storage().data_ptr()
+    got = pt_tf._layernorm(x, scale, bias, out=x)
+    assert got is x and x.untyped_storage().data_ptr() == storage
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("size", ["1B", "7B", "13B"])
 def test_parameter_and_flop_counts_match_jax(size):
     for attention in ("simplified", "full"):

@@ -528,11 +528,11 @@ def test_engine_matches_jax_engine(mode, tmp_path, monkeypatch):
     margins = []
     math_ = pt_engine._decode_step_math
 
-    def recording(carry, params, active, config, mesh=None):
-        (cache, y), out = math_(carry, params, active, config, mesh)
+    def recording(carry, params, active, config, mesh=None, out=None):
+        (cache, y), ret = math_(carry, params, active, config, mesh, out=out)
         if bool(active.any()):
             margins.append(_margin(y[active]))
-        return (cache, y), out
+        return (cache, y), ret
 
     monkeypatch.setattr(pt_engine, "_decode_step_math", recording)
     pjournal = SweepJournal(tmp_path / "port")

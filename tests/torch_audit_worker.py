@@ -1,7 +1,8 @@
-"""Rank body of ``tests/test_torch_hlo_audit.py``: the port's collective
-audit on a gloo group of host processes, over the default registry and
-seeded violations.  It imports torch and the port only, since
-``bench.launch`` imports it by name in every spawned rank."""
+"""Rank body of ``tests/test_torch_hlo_audit.py``: the port's audit on a
+gloo group of host processes, over the default registry (every pass) and
+seeded violations (the collective audit's, then one per rule of the
+schedule, memory and numerics passes).  It imports torch and the port
+only, since ``bench.launch`` imports it by name in every spawned rank."""
 
 import torch
 import torch.distributed as dist
@@ -119,11 +120,134 @@ def seeded_targets():
     ]
 
 
+ALL_PASSES = ("hlo", "schedule", "memory", "numerics")
+
+
+def _ring4_build(fn_of, *shapes, dtype=torch.float32):
+    """A target on a ring of the first 4 ranks whose call is
+    ``fn_of(Ring)(*tensors)`` on ones of ``shapes``."""
+
+    def build(device):
+        from dlbb_tpu_torch.parallel.ring import Ring
+
+        mesh = _mesh(("ring", 4))
+        if mesh is None:
+            return None
+        return fn_of(Ring(mesh.group)), tuple(torch.ones(s, dtype=dtype, device=device)
+                                              for s in shapes)
+
+    return build
+
+
+def _serialized_ring(ring):
+    """Each hop waited before the product that needs it: no product is
+    independent of a hop in flight."""
+    from dlbb_tpu_torch.parallel.ring import FORWARD
+
+    def fn(p, w):
+        cp = ring.shift([p], FORWARD)[0]
+        return ring.shift([cp @ w], FORWARD)[0] @ w
+
+    return fn
+
+
+def _replicated(ring):
+    def fn(p):
+        fat = p.repeat(8, 1)             # 8 x the operand, 4 MiB
+        return fat[0:1].clone().reshape(-1)
+
+    return fn
+
+
+def _bf16_chain(ring):
+    def fn(x):
+        acc = x[0]
+        for i in range(1, x.shape[0]):
+            acc = acc + x[i]
+        return acc
+
+    return fn
+
+
+def _roundtrip(ring):
+    return lambda x: (x.float() * 0.5).to(torch.int8)
+
+
+def _reallocated(ring):
+    return lambda st: {"w": st["w"] * 2}
+
+
+def _undonated_build(device):
+    mesh = _mesh(("ring", 4))
+    if mesh is None:
+        return None
+    state = {"w": torch.ones(256, device=device)}
+    spec = StateSpec(before=lambda args: [args[0]["w"]], after=lambda out, args: [out["w"]])
+    return _reallocated(None), (state,), spec
+
+
+_PAIR_GROUPS: dict = {}
+
+
+def _divergent_build(device):
+    """Ranks 0 and 1 share two groups and post one all-reduce on each, in
+    opposite orders (asynchronously, so that the launch completes): the
+    sequences on the groups they share differ."""
+    key = id(dist.group.WORLD)
+    if key not in _PAIR_GROUPS:
+        _PAIR_GROUPS[key] = (dist.new_group([0, 1]), dist.new_group([0, 1]))
+    a, b = _PAIR_GROUPS[key]
+    if dist.get_rank() > 1:
+        return None
+    order = (a, b) if dist.get_rank() == 0 else (b, a)
+
+    def fn(x):
+        works = [dist.all_reduce(x, group=g, async_op=True) for g in order]
+        for w in works:
+            w.wait()
+        return x
+
+    return fn, (torch.ones(16, device=device),)
+
+
+def seeded_pass_targets():
+    """(name, rule JAX raises for it, target): one seeded violation per
+    rule of the schedule, memory and numerics passes."""
+    overlap = TargetExpectation(allowed={"collective-permute"}, expect_overlap=True)
+    return [
+        ("serialized_ring", "serialized-collective",
+         AuditTarget("seeded::serialized_ring", _ring4_build(_serialized_ring, (64, 64), (64, 64)),
+                     overlap, min_devices=4)),
+        ("divergent", "divergent-branch-collectives",
+         AuditTarget("seeded::divergent", _divergent_build,
+                     TargetExpectation(allowed={"all-reduce"}), min_devices=2)),
+        ("ceiling", "peak-memory-ceiling",
+         AuditTarget("seeded::ceiling", _ring4_build(_roundtrip, (4096,), dtype=torch.int8),
+                     TargetExpectation(allowed=set(), max_peak_bytes=4096), min_devices=4)),
+        ("undonated", "unaliased-donation",
+         AuditTarget("seeded::undonated", _undonated_build, TargetExpectation(allowed=set()),
+                     min_devices=4)),
+        ("replicated", "transient-replicated-buffer",
+         AuditTarget("seeded::replicated", _ring4_build(_replicated, (131072,)),
+                     TargetExpectation(allowed=set()), min_devices=4)),
+        ("bf16_chain", "low-precision-accumulation",
+         AuditTarget("seeded::bf16_chain", _ring4_build(_bf16_chain, (600,), dtype=torch.bfloat16),
+                     TargetExpectation(allowed=set()), min_devices=4)),
+        ("roundtrip", "quantise-roundtrip",
+         AuditTarget("seeded::roundtrip", _ring4_build(_roundtrip, (1024,), dtype=torch.int8),
+                     TargetExpectation(allowed=set()), min_devices=4)),
+    ]
+
+
 def run_audits():
-    """The default registry, then the seeded targets, on this rank; rank 0
-    returns ``(default report, default metas, seeded report)``."""
+    """The default registry under every pass, the collective audit's
+    seeded targets, then the passes' seeded targets, on this rank; rank 0
+    returns ``(default report, default metas, seeded report, the passes'
+    seeded report)``."""
     torch.set_num_threads(1)
     metas = {}
-    default = run_hlo_audit(default_targets(), device="cpu", metas=metas)
+    default = run_hlo_audit(default_targets(), device="cpu", metas=metas, passes=ALL_PASSES)
     seeded = run_hlo_audit([t for _, _, t in seeded_targets()], device="cpu")
-    return (default, metas, seeded) if dist.get_rank() == 0 else None
+    passes = run_hlo_audit([t for _, _, t in seeded_pass_targets()], device="cpu",
+                           passes=ALL_PASSES)
+    return (default, metas, seeded, passes) if dist.get_rank() == 0 else None
